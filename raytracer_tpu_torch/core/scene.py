@@ -1,0 +1,202 @@
+"""Scene registry and the render entry point, solid path.
+
+Counterpart of raytracer_tpu/core/scene.py.  The construction API is the
+same (add_Camera / add_PointLight / add_DirectionalLight / add_SpotLight /
+add); `render` compiles the scene into kernel tables (core/compile.py),
+plans chunks exactly as the JAX package does, traces each chunk with the
+solid kernel (ops/solid_trace.py), scrubs non-finite samples, clamps,
+accumulates per pixel and tonemaps.
+
+Not ported yet (ROADMAP.md "Modules to port" item 9 and the next
+`scene.py` slice): checkpoints, adaptive `target_noise`, previews,
+`with_variance`, profiling and multi-device meshes.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .. import lights as lights_mod
+from ..materials.base import MAT_DIFFUSE
+from ..ops.solid_trace import solid_trace_chunk
+from ..utils.colour import TONEMAP_OPERATORS, tonemap_display
+from ..utils.image_io import array_to_pil
+from .camera import Camera, cam_vec
+from .compile import compile_scene, derive_max_bounces, derive_split_k
+from .integrator import RenderSettings
+from .vec import as_complex3, as_float3
+
+# cap on rays per traced chunk (raytracer_tpu/core/scene.py:42)
+MAX_RAYS_PER_CHUNK = 1 << 22
+# cap on samples per chunk (raytracer_tpu/core/scene.py:441-448); it also
+# keeps per-chunk sample streams equal to the JAX package's
+MAX_CHUNK_SPP = 128
+
+
+def plan_chunks(eff_spp, width, height, split_fan=1, batch_size=None):
+    """(samples per chunk, chunk count) for `eff_spp` samples per pixel.
+
+    The JAX package's plan for the solid path (core/scene.py:470-475):
+    at most MAX_CHUNK_SPP samples and MAX_RAYS_PER_CHUNK rays a chunk,
+    whole split-pattern blocks per chunk, and never fewer samples than
+    asked for.
+    """
+    chunk = batch_size or max(1, min(eff_spp, MAX_CHUNK_SPP,
+                                     MAX_RAYS_PER_CHUNK // (width * height)))
+    chunk = max(split_fan, chunk - chunk % split_fan)
+    return chunk, -(-eff_spp // chunk)
+
+
+def chunk_seeds(seed, n_chunks, chunk):
+    """(n_chunks, 3) int32 seed vectors [chunk seed, R2 rotation seed,
+    first sample index]: one rotation seed per render, then one seed per
+    chunk, all drawn from numpy's generator seeded by `seed`."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed))
+    draws = rng.integers(0, 2 ** 31 - 1, size=n_chunks + 1, dtype=np.int64)
+    out = np.empty((n_chunks, 3), np.int32)
+    out[:, 0] = draws[1:]
+    out[:, 1] = draws[0]
+    out[:, 2] = np.arange(n_chunks, dtype=np.int64) * chunk
+    return out
+
+
+class Scene:
+    def __init__(self, ambient_color=(0.01, 0.01, 0.01), n=(1.0, 1.0, 1.0)):
+        self.scene_primitives = []
+        self.Light_list = []
+        self.importance_sampled_list = []
+        self.ambient_color = as_float3(ambient_color, "ambient_color")
+        self.n = as_complex3(n, "n")
+        self.camera = None
+        self.settings = RenderSettings()
+
+    # -- construction API (sightpy scene.py:41-69) -------------------------
+    def add_Camera(self, look_from, look_at, **kwargs):
+        self.camera = Camera(look_from, look_at, **kwargs)
+
+    def add_PointLight(self, pos, color):
+        self.Light_list.append(lights_mod.PointLight(pos, color))
+
+    def add_DirectionalLight(self, Ldir, color):
+        self.Light_list.append(lights_mod.DirectionalLight(Ldir, color))
+
+    def add_SpotLight(self, pos, direction, color, angle=30.0,
+                      inner_angle=None):
+        self.Light_list.append(
+            lights_mod.SpotLight(pos, direction, color, angle=angle,
+                                 inner_angle=inner_angle))
+
+    def add(self, primitive, importance_sampled=False):
+        self.scene_primitives.append(primitive)
+        if importance_sampled:
+            self.importance_sampled_list.append(primitive)
+
+    def add_Background(self, *args, **kwargs):
+        raise NotImplementedError(
+            "environment backgrounds come with the textured slice "
+            "(ROADMAP.md 'Modules to port' item 7)")
+
+    # -- rendering ---------------------------------------------------------
+    def _diffuse_fan(self):
+        """Max `diffuse_rays` over the scene's Diffuse materials (1 if none).
+
+        sightpy traces `diffuse_rays` first-bounce continuations per diffuse
+        hit; the render traces one continuation per path and multiplies the
+        samples per pixel by this fan instead (raytracer_tpu scene.py:261).
+        """
+        fans = [p.material.diffuse_rays for p in self.scene_primitives
+                if getattr(p, "material", None) is not None
+                and p.material.mat_type == MAT_DIFFUSE]
+        return max(fans or [1])
+
+    def _settings_for_render(self):
+        static, tables = compile_scene(self)
+        max_b = self.settings.max_bounces
+        if max_b == RenderSettings.max_bounces:
+            max_b = derive_max_bounces(static)
+        split_k = self.settings.split_k or derive_split_k(static)
+        settings = RenderSettings(max_bounces=max_b, split_k=split_k,
+                                  sampler=self.settings.sampler,
+                                  projection=self.camera.projection)
+        return static, tables, settings
+
+    def render(self, samples_per_pixel, batch_size=None, seed=0,
+               return_stats=False, output="pil", clamp=None, tonemap="srgb",
+               exposure=0.0, device=None):
+        """Render and return a PIL image (sightpy scene.py:71-140).
+
+        samples_per_pixel: camera samples, each of which fans into the
+        scene's `diffuse_rays` paths (see _diffuse_fan).
+        batch_size: samples per traced chunk (default: the JAX package's
+        plan, see plan_chunks).
+        seed: seeds numpy's generator, which draws the chunk seeds.
+        output: "pil" (tonemapped image) or "linear" (the (H, W, 3) float32
+        linear radiance mean as a numpy array).
+        clamp: optional per-sample linear-radiance ceiling.
+        tonemap / exposure: display mapping for output="pil" (see
+        utils.colour.tonemap_display); exposure is in stops.
+        device: torch device to trace on; default CUDA when available.
+        On CUDA every chunk runs the solid kernel, on the CPU its plain
+        version.
+        return_stats: also return a dict with rays_traced, wall_s,
+        samples, width, height and mrays_per_s.
+        """
+        if output not in ("pil", "linear"):
+            raise ValueError(f"output must be 'pil' or 'linear', got {output!r}")
+        if tonemap not in TONEMAP_OPERATORS:
+            raise ValueError(
+                f"tonemap must be one of {TONEMAP_OPERATORS}, got {tonemap!r}")
+        if self.camera is None:
+            raise RuntimeError("call add_Camera() first")
+        if samples_per_pixel < 1:
+            raise ValueError("samples_per_pixel must be >= 1")
+        t0 = time.time()
+        W, H = self.camera.screen_width, self.camera.screen_height
+        static, tables, settings = self._settings_for_render()
+        if not static.pallas_ok:
+            raise NotImplementedError(
+                "this scene is outside the solid kernel's gate; the "
+                "wavefront path comes with ROADMAP.md 'Modules to port' "
+                "item 8")
+        split_fan = 1 << settings.split_k
+        eff_spp = samples_per_pixel * self._diffuse_fan() * split_fan
+        chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
+
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = torch.device(device)
+        tables = tables.to(device)
+        cam = cam_vec(self.camera.params()).to(device)
+        seeds = torch.from_numpy(chunk_seeds(seed, n_chunks, chunk)).to(device)
+        acc = torch.zeros((H * W, 3), dtype=torch.float32, device=device)
+        rays = torch.zeros((), dtype=torch.int64, device=device)
+        for i in range(n_chunks):
+            L, cnt = solid_trace_chunk(seeds[i], tables, cam, W, H, chunk,
+                                       settings.max_bounces, settings.split_k,
+                                       settings.sampler, settings.projection)
+            # scrub rare non-finite samples (grazing-angle degeneracies)
+            L = torch.where(torch.isfinite(L), L, 0.0)
+            if clamp is not None:
+                L = torch.clamp_max(L, float(clamp))
+            acc += L.view(chunk, H * W, 3).sum(dim=0)
+            rays += cnt
+
+        n_samples = n_chunks * chunk
+        if output == "linear":
+            out = (acc.cpu().numpy() / n_samples).reshape(H, W, 3)
+            dt = time.time() - t0
+        else:
+            img = tonemap_display(acc / float(n_samples), tonemap,
+                                  2.0 ** exposure).reshape(H, W, 3)
+            img = img.cpu().numpy()
+            dt = time.time() - t0
+            out = array_to_pil(img)
+        if not return_stats:
+            return out
+        n_rays = int(rays)
+        return out, dict(rays_traced=n_rays, wall_s=dt, samples=n_samples,
+                         width=W, height=H,
+                         mrays_per_s=n_rays / dt / 1e6 if dt > 0 else 0.0)

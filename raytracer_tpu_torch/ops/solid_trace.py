@@ -1,0 +1,733 @@
+"""The solid path-tracing kernel: a CUDA kernel and its plain PyTorch version.
+
+Counterpart of raytracer_tpu/ops/pallas_trace.py (`pallas_trace_chunk`,
+kernel body `_make_kernel`).  One call traces one chunk of spp * H * W
+camera rays of a solid-colour scene: ray generation, then per bounce the
+nearest hit over all objects, the normal, and the shading of emissive,
+diffuse (cosine lobe + spherical-cap importance sampling) and refractive
+(complex-IoR Fresnel, Beer-Lambert) hits.  It returns L as (n, 3) float32
+in [sample, pixel] order, and the count of rays traced (the sum over
+bounces of the rays alive at the start of the bounce).
+
+- `solid_trace_chunk_reference` is the plain version: vectorised over
+  rays, the hash math in int64 (core/lds.py), the reference's own
+  polynomials.  It runs on any device.
+- `solid_trace_chunk` is the public entry.  For CPU tensors it calls the
+  plain version; for CUDA tensors it launches the kernel of
+  csrc/solid_trace.cu, or raises.
+
+Both follow the JAX kernel draw for draw: given the same seed_vec they
+trace the same paths, ray by ray.  What this slice does not carry (glossy
+shading, dispersion, split_k > 0, triangles / discs / cylinders, the
+non-pinhole projections) raises NotImplementedError before any work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..core import lds
+from ..core.compile import (KIND_CODES, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U,
+                            OBJ_AA_V, OBJ_COLS, OBJ_DISP, OBJ_KIND,
+                            OBJ_MAT_SLOT, OBJ_MAT_TYPE, OBJ_MAX_DEPTH,
+                            SolidTables)
+from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_GLOSSY,
+                              MAT_REFRACTIVE)
+from ..utils.constants import FARAWAY, MISS_THRESHOLD, WAVELENGTHS_NM
+
+SAMPLERS = ("r2", "iid")
+
+_SPHERE, _PLANE, _BOX = (KIND_CODES[k] for k in ("sphere", "plane", "box"))
+
+
+def check_slice(tables: SolidTables, split_k, sampler, projection):
+    """Raise for what this slice of the kernel does not carry."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler must be 'r2' or 'iid', got {sampler!r}")
+    todo = []
+    if projection != "pinhole":
+        todo.append(f"the {projection} projection")
+    if split_k:
+        todo.append("deterministic Fresnel splitting (split_k > 0)")
+    kinds = {r[OBJ_KIND] for r in tables.obj_rows}
+    if not kinds <= {_SPHERE, _PLANE, _BOX}:
+        todo.append("triangles, discs and cylinders")
+    if any(r[OBJ_MAT_TYPE] == MAT_GLOSSY for r in tables.obj_rows):
+        todo.append("glossy shading with lights and shadow rays")
+    if any(r[OBJ_DISP] for r in tables.obj_rows):
+        todo.append("spectral dispersion")
+    bad = {r[OBJ_MAT_TYPE] for r in tables.obj_rows} - {
+        MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE, MAT_REFRACTIVE}
+    if bad:
+        raise ValueError(f"material types {sorted(bad)} have no solid shading")
+    if todo:
+        raise NotImplementedError(
+            "the solid kernel does not carry " + ", ".join(todo)
+            + " yet (ROADMAP.md 'TPU kernels to port', K1)")
+
+
+# ---------------------------------------------------------------------------
+# helpers of the plain version (pallas_trace.py:68-253)
+# ---------------------------------------------------------------------------
+
+
+def hash_uniform(idx, seed, counter):
+    """`_TileRng.uniform`: murmur3 over (ray index, draw counter, seed).
+
+    idx: int64 tensor of ray indices; seed: int64 tensor or int (low 32
+    bits used); counter: the draw number, counted from 1.
+    """
+    x = lds.mul32(idx, 0x9E3779B1)
+    x = x ^ lds.add32(seed & lds.M32, (counter * 0x85EBCA6B) & lds.M32)
+    return lds.to_float(lds.mix32(x))
+
+
+def _div(a, s):
+    """a / s for a Python number s, correctly rounded on every device: on
+    CUDA, torch turns a division by a Python number into a product with
+    its rounded reciprocal, which the kernel's division does not do."""
+    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+
+
+def _normalize3(x, y, z):
+    inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
+    return x * inv, y * inv, z * inv
+
+
+def _cmul(a, b):
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def _cdiv(a, b):
+    d = torch.clamp_min(b[0] * b[0] + b[1] * b[1], 1e-30)
+    return (a[0] * b[0] + a[1] * b[1]) / d, (a[1] * b[0] - a[0] * b[1]) / d
+
+
+def _csqrt(a):
+    mag = torch.sqrt(a[0] * a[0] + a[1] * a[1])
+    re = torch.sqrt(torch.clamp_min((mag + a[0]) * 0.5, 0.0))
+    im = torch.sqrt(torch.clamp_min((mag - a[0]) * 0.5, 0.0))
+    return re, torch.where(a[1] < 0, -im, im)
+
+
+def _cabs2(a):
+    return a[0] * a[0] + a[1] * a[1]
+
+
+def atan2_poly(y, x):
+    """The reference's polynomial atan2 (pallas_trace.py:121)."""
+    ax, ay = x.abs(), y.abs()
+    a = torch.minimum(ax, ay) / torch.clamp_min(torch.maximum(ax, ay), 1e-30)
+    s = a * a
+    r = a * (0.9998660 + s * (-0.3302995 + s * (0.1801410
+             + s * (-0.0851330 + s * 0.0208351))))
+    r = torch.where(ay > ax, (math.pi / 2) - r, r)
+    r = torch.where(x < 0, math.pi - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def asin_poly(x):
+    """The reference's asin through the polynomial atan2 (pallas_trace.py:133)."""
+    x = torch.clamp(x, -1.0, 1.0)
+    return atan2_poly(x, torch.sqrt(torch.clamp_min(1.0 - x * x, 0.0)))
+
+
+def sincos_2pi(u):
+    """(sin, cos) of 2*pi*u: the reference's quarter-wave polynomials
+    (pallas_trace.py:138)."""
+    t = u - torch.floor(u)
+    x4 = t * 4.0
+    q = torch.floor(x4)
+    r = x4 - q
+    r2 = r * r
+    s = r * (1.57079632 + r2 * (-0.64596375 + r2 * (0.07968996
+             + r2 * (-0.00467430 + r2 * 0.00015179))))
+    c = 0.99999996 + r2 * (-1.23369862 + r2 * (0.25365306
+        + r2 * (-0.02081478 + r2 * 0.00086048)))
+    q1, q2, q3 = q == 1.0, q == 2.0, q == 3.0
+    sin_v = torch.where(q1, c, torch.where(q2, -s, torch.where(q3, -c, s)))
+    cos_v = torch.where(q1, -s, torch.where(q2, -c, torch.where(q3, s, c)))
+    return sin_v, cos_v
+
+
+def _orthobasis(nx, ny, nz):
+    """(u, v) orthonormal to n (pallas_trace.py:239)."""
+    big = nx.abs() > 0.9
+    ax = torch.where(big, 0.0, 1.0)
+    ay = torch.where(big, 1.0, 0.0)
+    vx = ny * 0.0 - nz * ay
+    vy = nz * ax - nx * 0.0
+    vz = nx * ay - ny * ax
+    vx, vy, vz = _normalize3(vx, vy, vz)
+    ux = ny * vz - nz * vy
+    uy = nz * vx - nx * vz
+    uz = nx * vy - ny * vx
+    return (ux, uy, uz), (vx, vy, vz)
+
+
+def _isect_sphere(g, ox, oy, oz, dx, dy, dz):
+    cx, cy, cz, r = g[0], g[1], g[2], g[3]
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    tca = -(dx * ocx + dy * ocy + dz * ocz)
+    px, py, pz = ocx + tca * dx, ocy + tca * dy, ocz + tca * dz
+    d2 = px * px + py * py + pz * pz
+    disc = r * r - d2
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    h0, h1 = tca - sq, tca + sq
+    h = torch.where((h0 > 0) & (h0 < h1), h0, h1)
+    ndd = (((ox + dx * h) - cx) * dx + ((oy + dy * h) - cy) * dy
+           + ((oz + dz * h) - cz) * dz)
+    valid = (disc > 0) & (h > 0) & (ndd != 0)
+    return torch.where(valid, h, FARAWAY), torch.where(ndd < 0, 1.0, -1.0)
+
+
+def _isect_plane(g, ox, oy, oz, dx, dy, dz, aa=None):
+    cx, cy, cz = g[0], g[1], g[2]
+    w2, h2 = g[12], g[13]
+    if aa is not None:
+        # axis-aligned frame: component selection, bit-identical to the
+        # generic formula below (the dropped terms are exact *0 / +0)
+        nax, nsg, uax, vax = aa
+        o, d, c = (ox, oy, oz), (dx, dy, dz), (cx, cy, cz)
+        ndd = d[nax] if nsg > 0 else -d[nax]
+        ndd = torch.where(ndd == 0.0, ndd + 1e-4, ndd)
+        ndco = (c[nax] - o[nax]) if nsg > 0 else (o[nax] - c[nax])
+        tt = ndco / ndd
+        uu = o[uax] + d[uax] * tt - c[uax]
+        vv = o[vax] + d[vax] * tt - c[vax]
+    else:
+        ux, uy, uz = g[3], g[4], g[5]
+        vx, vy, vz = g[6], g[7], g[8]
+        nx, ny, nz = g[9], g[10], g[11]
+        ndd = nx * dx + ny * dy + nz * dz
+        ndd = torch.where(ndd == 0.0, ndd + 1e-4, ndd)
+        ndco = nx * (cx - ox) + ny * (cy - oy) + nz * (cz - oz)
+        tt = ndco / ndd
+        mx, my, mz = ox + dx * tt - cx, oy + dy * tt - cy, oz + dz * tt - cz
+        uu = ux * mx + uy * my + uz * mz
+        vv = vx * mx + vy * my + vz * mz
+    inside = (uu.abs() <= w2) & (vv.abs() <= h2) & (ndco * ndd > 0)
+    return torch.where(inside, tt, FARAWAY), torch.where(ndd < 0, 1.0, -1.0)
+
+
+def _isect_box(g, ox, oy, oz, dx, dy, dz):
+    b = g[:9]
+    ol = [b[3 * i] * ox + b[3 * i + 1] * oy + b[3 * i + 2] * oz for i in range(3)]
+    dl = [b[3 * i] * dx + b[3 * i + 1] * dy + b[3 * i + 2] * dz for i in range(3)]
+    tmin = tmax = None
+    for i in range(3):
+        inv = 1.0 / dl[i]
+        t1 = (g[9 + i] - ol[i]) * inv
+        t2 = (g[12 + i] - ol[i]) * inv
+        lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = lo if tmin is None else torch.maximum(tmin, lo)
+        tmax = hi if tmax is None else torch.minimum(tmax, hi)
+    miss = (tmax < 0) | (tmin > tmax)
+    inside = tmin < 0
+    t = torch.where(miss, FARAWAY, torch.where(inside, tmax, tmin))
+    return t, torch.where(inside, -1.0, 1.0)
+
+
+def _normal(kind, g, px, py, pz):
+    if kind == _SPHERE:
+        inv_r = 1.0 / g[3]
+        return (px - g[0]) * inv_r, (py - g[1]) * inv_r, (pz - g[2]) * inv_r
+    if kind == _PLANE:
+        return (g[9].expand_as(px), g[10].expand_as(px), g[11].expand_as(px))
+    # box: the max-|axis| face normal in the local frame
+    b = g[:9]
+    mx, my, mz = px - g[15], py - g[16], pz - g[17]
+    pl_ = [b[3 * i] * mx + b[3 * i + 1] * my + b[3 * i + 2] * mz for i in range(3)]
+    ap = [pl_[i].abs() / g[18 + i] for i in range(3)]
+    pmax = torch.maximum(torch.maximum(ap[0], ap[1]), ap[2])
+    nl = [torch.where(pmax == ap[i], torch.sign(pl_[i]), 0.0) for i in range(3)]
+    return (b[0] * nl[0] + b[3] * nl[1] + b[6] * nl[2],
+            b[1] * nl[0] + b[4] * nl[1] + b[7] * nl[2],
+            b[2] * nl[0] + b[5] * nl[1] + b[8] * nl[2])
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
+                                height, spp, max_bounces, split_k=0,
+                                sampler="r2", projection="pinhole"):
+    """Trace one chunk with plain tensor operations (any device).
+
+    seed_vec: int32 (3,) [chunk seed, R2 rotation seed, global index of
+    the chunk's first sample]; cam_vec: float32 (17,) (core/camera.py);
+    tables: SolidTables on the same device.
+    Returns (L (spp*H*W, 3) float32, rays traced int64 scalar tensor).
+    """
+    check_slice(tables, split_k, sampler, projection)
+    dev = cam_vec.device
+    f32 = torch.float32
+    n_pix = width * height
+    n = spp * n_pix
+    idx = torch.arange(n, device=dev, dtype=torch.int64)
+    seed = seed_vec.to(torch.int64)
+    pix = idx % n_pix
+    py_i = pix // width
+    px_i = pix - py_i * width
+    cam = [cam_vec[j] for j in range(17)]
+
+    draws = 0               # the _TileRng counter of the last draw taken
+
+    def draw():
+        nonlocal draws
+        draws += 1
+        return hash_uniform(idx, seed[0], draws)
+
+    if sampler == "r2":
+        su = (idx // n_pix + seed[2]) & lds.M32
+        u1, u2, u3, u4, sb_mix, sb_phi, sb_r2 = lds.raygen_draws(
+            pix, su, seed[1])
+    else:
+        u1, u2, u3, u4 = draw(), draw(), draw(), draw()
+        sb_mix = sb_phi = sb_r2 = None
+
+    # pinhole + thin lens (pallas_trace.py:210-236)
+    o0x, o0y, o0z, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz = cam[:12]
+    cw, ch, lens_r, focal = cam[12:16]
+    x = ((_div(px_i.to(f32), width - 1) - 0.5) * cw
+         + (u1 - 0.5) * _div(cw, width))
+    y = ((0.5 - _div(py_i.to(f32), height - 1)) * ch
+         + (u2 - 0.5) * _div(ch, height))
+    r_d = torch.sqrt(u3)
+    sp_d, cp_d = sincos_2pi(u4)
+    rx = r_d * cp_d * lens_r
+    ry = r_d * sp_d * lens_r
+    ox = o0x + rix * rx + upx * ry
+    oy = o0y + riy * rx + upy * ry
+    oz = o0z + riz * rx + upz * ry
+    tx = o0x + upx * (y * focal) + rix * (x * focal) + fwx * focal - ox
+    ty = o0y + upy * (y * focal) + riy * (x * focal) + fwy * focal - oy
+    tz = o0z + upz * (y * focal) + riz * (x * focal) + fwz * focal - oz
+    dx, dy, dz = _normalize3(tx, ty, tz)
+
+    consts = tables.consts
+    scene_nre = [consts[3 + k] for k in range(3)]
+    scene_nim = [consts[6 + k] for k in range(3)]
+    zeros = torch.zeros(n, dtype=f32, device=dev)
+    Lx, Ly, Lz = zeros, zeros, zeros
+    bx = by = bz = torch.ones(n, dtype=f32, device=dev)
+    nre = [zeros + scene_nre[k] for k in range(3)]
+    nim = [zeros + scene_nim[k] for k in range(3)]
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    dcnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+
+    rows = tables.obj_rows
+    geom = [tables.geom[i] for i in range(len(rows))]
+    isects = []
+    for i, r in enumerate(rows):
+        if r[OBJ_KIND] == _SPHERE:
+            isects.append(_isect_sphere)
+        elif r[OBJ_KIND] == _BOX:
+            isects.append(_isect_box)
+        else:
+            aa = (None if r[OBJ_AA_N] < 0 else
+                  (r[OBJ_AA_N], r[OBJ_AA_NSIGN], r[OBJ_AA_U], r[OBJ_AA_V]))
+            isects.append(lambda g, *a, _aa=aa: _isect_plane(g, *a, aa=_aa))
+    obj_t = tables.obj.to(torch.int64)
+    mat_type_of = obj_t[:, OBJ_MAT_TYPE]
+    slot_of = obj_t[:, OBJ_MAT_SLOT]
+    maxd_of = obj_t[:, OBJ_MAX_DEPTH]
+    types = {r[OBJ_MAT_TYPE] for r in rows}
+    K = tables.n_is_targets
+    lam = WAVELENGTHS_NM
+
+    for bounce in range(max_bounces):
+        last = bounce == max_bounces - 1
+        best_t = torch.full((n,), FARAWAY, dtype=f32, device=dev)
+        best_o = torch.ones(n, dtype=f32, device=dev)
+        obj = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        for i in range(len(rows)):
+            t_i, o_i = isects[i](geom[i], ox, oy, oz, dx, dy, dz)
+            better = t_i < best_t
+            best_t = torch.where(better, t_i, best_t)
+            best_o = torch.where(better, o_i, best_o)
+            obj = torch.where(better, i, obj)
+        t, orient = best_t, best_o
+        hit = alive & ~(t >= MISS_THRESHOLD)
+        count = count + alive.sum()
+        px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+        obj_c = obj.clamp(min=0)
+        mt = mat_type_of[obj_c]
+        slot = slot_of[obj_c]
+
+        add = [zeros, zeros, zeros]
+        if MAT_EMISSIVE in types:
+            g = hit & (mt == MAT_EMISSIVE)
+            col = tables.emi[torch.where(g, slot, 0)]
+            add = [torch.where(g, col[:, k], 0.0) for k in range(3)]
+        Lx = Lx + torch.where(hit, bx * add[0], 0.0)
+        Ly = Ly + torch.where(hit, by * add[1], 0.0)
+        Lz = Lz + torch.where(hit, bz * add[2], 0.0)
+        if last:
+            # the last bounce's continuation is dead, and it takes no draws
+            break
+
+        nx = ny = nz = zeros
+        for i, r in enumerate(rows):
+            nxi, nyi, nzi = _normal(r[OBJ_KIND], geom[i], px, py, pz)
+            m = obj == i
+            nx = torch.where(m, nxi, nx)
+            ny = torch.where(m, nyi, ny)
+            nz = torch.where(m, nzi, nz)
+        nx, ny, nz = nx * orient, ny * orient, nz * orient
+        eps = 1e-6 * torch.clamp_min(
+            torch.maximum(px.abs(), torch.maximum(py.abs(), pz.abs())), 1.0)
+
+        new_alive = torch.zeros(n, dtype=torch.bool, device=dev)
+        bmul = [torch.ones(n, dtype=f32, device=dev) for _ in range(3)]
+        ndx, ndy, ndz = dx, dy, dz
+        nox, noy, noz = px, py, pz
+        new_nre, new_nim = list(nre), list(nim)
+        inc_d = torch.zeros(n, dtype=torch.bool, device=dev)
+        ru = [draw() for _ in range(6)]
+
+        if MAT_DIFFUSE in types:
+            g = hit & (mt == MAT_DIFFUSE)
+            prm = tables.dif[torch.where(g, slot, 0)]
+            col = [prm[:, k] for k in range(3)]
+            aw = prm[:, 3]
+            nux, nuy, nuz = px + nx * eps, py + ny * eps, pz + nz * eps
+            ax_u, ax_v = _orthobasis(nx, ny, nz)
+            u_phi1, u_r21, u_phi2, u_r22, u_mixv = ru[0], ru[1], ru[3], ru[4], ru[5]
+            if sb_mix is not None:
+                # the R2 draws replace the hash draws at the first diffuse bounce
+                fd = dcnt == 0
+                u_phi1 = torch.where(fd, sb_phi, u_phi1)
+                u_r21 = torch.where(fd, sb_r2, u_r21)
+                u_phi2 = torch.where(fd, sb_phi, u_phi2)
+                u_r22 = torch.where(fd, sb_r2, u_r22)
+                u_mixv = torch.where(fd, sb_mix, u_mixv)
+            r2 = u_r21
+            zc = torch.sqrt(torch.clamp_min(1.0 - r2, 0.0))
+            sr2 = torch.sqrt(r2)
+            sphi, cphi = sincos_2pi(u_phi1)
+            xc, yc = cphi * sr2, sphi * sr2
+            cdx = ax_u[0] * xc + ax_v[0] * yc + nx * zc
+            cdy = ax_u[1] * xc + ax_v[1] * yc + ny * zc
+            cdz = ax_u[2] * xc + ax_v[2] * yc + nz * zc
+            if K > 0:
+                # spherical-cap sample toward a uniformly picked target
+                pick = torch.clamp_max((ru[2] * K).to(torch.int32), K - 1)
+                wxs, cms = [], []
+                for kk in range(K):
+                    tcx, tcy, tcz, tr = (tables.is_tab[kk, j] for j in range(4))
+                    wx, wy, wz = tcx - nux, tcy - nuy, tcz - nuz
+                    dist = torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz,
+                                                      1e-20))
+                    wx, wy, wz = wx / dist, wy / dist, wz / dist
+                    sin_m = torch.clamp(tr / dist, 0.0, 1.0)
+                    cms.append(torch.sqrt(torch.clamp_min(1.0 - sin_m * sin_m, 0.0)))
+                    wxs.append((wx, wy, wz))
+                swx, swy, swz = wxs[0]
+                scm = cms[0]
+                for kk in range(1, K):
+                    m = pick == kk
+                    swx = torch.where(m, wxs[kk][0], swx)
+                    swy = torch.where(m, wxs[kk][1], swy)
+                    swz = torch.where(m, wxs[kk][2], swz)
+                    scm = torch.where(m, cms[kk], scm)
+                cu, cv = _orthobasis(swx, swy, swz)
+                zq = 1.0 + u_r22 * (scm - 1.0)
+                sq = torch.sqrt(torch.clamp_min(1.0 - zq * zq, 0.0))
+                sphi2, cphi2 = sincos_2pi(u_phi2)
+                cps, sps = cphi2 * sq, sphi2 * sq
+                qdx = cu[0] * cps + cv[0] * sps + swx * zq
+                qdy = cu[1] * cps + cv[1] * sps + swy * zq
+                qdz = cu[2] * cps + cv[2] * sps + swz * zq
+                use_cos = u_mixv < aw
+                sdx = torch.where(use_cos, cdx, qdx)
+                sdy = torch.where(use_cos, cdy, qdy)
+                sdz = torch.where(use_cos, cdz, qdz)
+                ndl = torch.clamp(sdx * nx + sdy * ny + sdz * nz, 0.0, 1.0)
+                pdf_cos = _div(ndl, math.pi)
+                pdf_cap = zeros
+                for kk in range(K):
+                    cosk = sdx * wxs[kk][0] + sdy * wxs[kk][1] + sdz * wxs[kk][2]
+                    pdf_cap = pdf_cap + torch.where(
+                        cosk > cms[kk], 1.0 / ((1.0 - cms[kk]) * 2.0 * math.pi),
+                        0.0)
+                pdf_cap = _div(pdf_cap, K)
+                pdf = aw * pdf_cos + (1.0 - aw) * pdf_cap
+            else:
+                sdx, sdy, sdz = cdx, cdy, cdz
+                ndl = torch.clamp(sdx * nx + sdy * ny + sdz * nz, 0.0, 1.0)
+                pdf = _div(ndl, math.pi)
+            w = _div(ndl / torch.clamp_min(pdf, 1e-9), math.pi)
+            gc = g & (dcnt < 2)
+            for k in range(3):
+                bmul[k] = torch.where(gc, col[k] * w, bmul[k])
+            ndx = torch.where(gc, sdx, ndx)
+            ndy = torch.where(gc, sdy, ndy)
+            ndz = torch.where(gc, sdz, ndz)
+            nox = torch.where(gc, nux, nox)
+            noy = torch.where(gc, nuy, noy)
+            noz = torch.where(gc, nuz, noz)
+            inc_d = inc_d | gc
+            new_alive = new_alive | gc
+
+        if MAT_REFRACTIVE in types:
+            # alive rays at bounce b have taken b transitions, so the depth
+            # cap is a per-object test on the bounce number
+            gc = hit & (mt == MAT_REFRACTIVE) & (bounce < maxd_of[obj_c])
+            prm = tables.refr[torch.where(gc, slot, 0)]
+            cos_i = -(dx * nx + dy * ny + dz * nz)
+            entering = orient > 0
+            F, n2r_l, n2i_l = [], [], []
+            for k in range(3):
+                n1 = (nre[k], nim[k])
+                n2r = torch.where(entering, prm[:, k], scene_nre[k])
+                n2i = torch.where(entering, prm[:, 3 + k], scene_nim[k])
+                n2 = (n2r, n2i)
+                ratio = _cdiv(n1, n2)
+                r2 = _cmul(ratio, ratio)
+                s2 = 1.0 - cos_i * cos_i
+                cos_t = _csqrt((1.0 - r2[0] * s2, -r2[1] * s2))
+                a = (n1[0] * cos_i, n1[1] * cos_i)
+                bt = _cmul(n2, cos_t)
+                at = _cmul(n1, cos_t)
+                bb = (n2[0] * cos_i, n2[1] * cos_i)
+                F_per = (_cabs2((a[0] - bt[0], a[1] - bt[1]))
+                         / torch.clamp_min(_cabs2((a[0] + bt[0], a[1] + bt[1])),
+                                           1e-30))
+                F_par = (_cabs2((bb[0] - at[0], bb[1] - at[1]))
+                         / torch.clamp_min(_cabs2((at[0] + bb[0], at[1] + bb[1])),
+                                           1e-30))
+                F.append((F_per + F_par) * 0.5)
+                n2r_l.append(n2r)
+                n2i_l.append(n2i)
+            T = [1.0 - F[k] for k in range(3)]
+            ratio_avg = _div(nre[0] / torch.clamp_min(n2r_l[0], 1e-9)
+                             + nre[1] / torch.clamp_min(n2r_l[1], 1e-9)
+                             + nre[2] / torch.clamp_min(n2r_l[2], 1e-9), 3.0)
+            sin2t = ratio_avg * ratio_avg * (1.0 - cos_i * cos_i)
+            non_tir = sin2t <= 1.0
+            croot = torch.sqrt(1.0 - torch.clamp(sin2t, 0.0, 1.0))
+            rfx = dx * ratio_avg + nx * (ratio_avg * cos_i - croot)
+            rfy = dy * ratio_avg + ny * (ratio_avg * cos_i - croot)
+            rfz = dz * ratio_avg + nz * (ratio_avg * cos_i - croot)
+            rfx, rfy, rfz = _normalize3(rfx, rfy, rfz)
+            ddn = dx * nx + dy * ny + dz * nz
+            rlx, rly, rlz = _normalize3(dx - nx * (2.0 * ddn),
+                                        dy - ny * (2.0 * ddn),
+                                        dz - nz * (2.0 * ddn))
+            T_avg = _div(T[0] + T[1] + T[2], 3.0)
+            p_refr = torch.where(non_tir, torch.clamp(T_avg, 0.0, 1.0), 0.0)
+            take_refr = (ru[0] < p_refr) & non_tir
+            for k in range(3):
+                absorb = torch.exp(nim[k] * ((-4.0 * math.pi / lam[k]) * 1e9 * t))
+                w_r = T[k] / torch.clamp_min(p_refr, 1e-9)
+                w_l = F[k] / torch.clamp_min(1.0 - p_refr, 1e-9)
+                bmul[k] = torch.where(gc, absorb * torch.where(take_refr, w_r, w_l),
+                                      bmul[k])
+                new_nre[k] = torch.where(gc & take_refr, n2r_l[k], new_nre[k])
+                new_nim[k] = torch.where(gc & take_refr, n2i_l[k], new_nim[k])
+            ndx = torch.where(gc, torch.where(take_refr, rfx, rlx), ndx)
+            ndy = torch.where(gc, torch.where(take_refr, rfy, rly), ndy)
+            ndz = torch.where(gc, torch.where(take_refr, rfz, rlz), ndz)
+            sgn = torch.where(take_refr, -1.0, 1.0)
+            nox = torch.where(gc, px + nx * eps * sgn, nox)
+            noy = torch.where(gc, py + ny * eps * sgn, noy)
+            noz = torch.where(gc, pz + nz * eps * sgn, noz)
+            new_alive = new_alive | gc
+
+        bx = torch.where(new_alive, bx * bmul[0], bx)
+        by = torch.where(new_alive, by * bmul[1], by)
+        bz = torch.where(new_alive, bz * bmul[2], bz)
+        ox = torch.where(new_alive, nox, ox)
+        oy = torch.where(new_alive, noy, oy)
+        oz = torch.where(new_alive, noz, oz)
+        dx = torch.where(new_alive, ndx, dx)
+        dy = torch.where(new_alive, ndy, dy)
+        dz = torch.where(new_alive, ndz, dz)
+        for k in range(3):
+            nre[k] = torch.where(new_alive, new_nre[k], nre[k])
+            nim[k] = torch.where(new_alive, new_nim[k], nim[k])
+        dcnt = dcnt + (new_alive & inc_d).to(torch.int32)
+        alive = new_alive
+
+    return torch.stack([Lx, Ly, Lz], dim=1), count
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = ("solid_trace.cu",)
+# The library is built into the checkout's build/ directory: the package
+# runs from a checkout of the repo, not from an installed copy.
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracer_tpu_torch"
+# IEEE division and sqrt (no --use_fast_math), and no FMA contraction:
+# the kernel then rounds as its plain version does on the card, ray for
+# ray (PERF.md: contraction would save 13.7% of kernel time and break the
+# exact rays_traced agreement)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+SMEM_LIMIT = 48 * 1024    # bytes of dynamic shared memory without opt-in
+
+_lib = None
+build_log = ""            # nvcc's output of the last build (ptxas -v lines)
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        nvcc = str(cand) if cand.exists() else None
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME "
+                           "(the solid kernel is compiled at first use)")
+    return nvcc
+
+
+def build():
+    """Compile csrc/ into a shared library keyed by a hash of the sources,
+    the flags and nvcc's version; returns its path.  Reuses a library
+    already built."""
+    global build_log
+    nvcc = _nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256((version + " ".join(NVCC_FLAGS)).encode())
+    for name in _SOURCES:
+        h.update((_CSRC / name).read_bytes())
+    out = BUILD_DIR / f"solid_trace_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)],
+            capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_library():
+    """Load (building first, if needed) the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.solid_trace_launch.argtypes = [
+        vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
+        vp, ci, vp, ci, vp, ci,         # dif, refr, emi tables + rows
+        vp, ci, vp,                     # is_tab, K, consts
+        ci, ci, ci, ci, ci,             # width, height, spp, max_bounces, iid
+        vp, vp, vp]                     # L, count, stream
+    lib.solid_trace_launch.restype = ci
+    _lib = lib
+    return lib
+
+
+def _check_tensor(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != ts
+                                    for s, ts in zip(shape, t.shape)):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
+            sampler):
+    dev = cam_vec.device
+    f32, i32 = torch.float32, torch.int32
+    n_obj = len(tables.obj_rows)
+    _check_tensor("seed_vec", seed_vec, i32, (3,), dev)
+    _check_tensor("cam_vec", cam_vec, f32, (17,), dev)
+    _check_tensor("geom", tables.geom, f32, (n_obj, 24), dev)
+    _check_tensor("obj", tables.obj, i32, (n_obj, OBJ_COLS), dev)
+    for name, cols in (("dif", 4), ("refr", 6), ("emi", 3), ("is_tab", 4)):
+        _check_tensor(name, getattr(tables, name), f32, (None, cols), dev)
+    _check_tensor("consts", tables.consts, f32, (16,), dev)
+    K = tables.n_is_targets
+    if K > tables.is_tab.shape[0]:
+        raise ValueError(f"is_tab has {tables.is_tab.shape[0]} rows, K={K}")
+    rows_of = {MAT_DIFFUSE: tables.dif.shape[0],
+               MAT_REFRACTIVE: tables.refr.shape[0],
+               MAT_EMISSIVE: tables.emi.shape[0]}
+    for r in tables.obj_rows:
+        if not 0 <= r[OBJ_MAT_SLOT] < rows_of[r[OBJ_MAT_TYPE]]:
+            raise ValueError(f"object row {r} names a missing material slot")
+    smem = 4 * (n_obj * (24 + OBJ_COLS) + tables.dif.numel()
+                + tables.refr.numel() + tables.emi.numel()
+                + 4 * max(K, 1) + 16 + 17 + 3)
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"scene tables need {smem} bytes of shared memory; the kernel "
+            f"takes at most {SMEM_LIMIT}")
+    n = spp * width * height
+    if not (width >= 1 and height >= 1 and spp >= 1 and max_bounces >= 1
+            and n < 2 ** 31):
+        raise ValueError(f"bad chunk shape {spp}x{height}x{width}, "
+                         f"max_bounces {max_bounces}")
+    L = torch.empty((n, 3), dtype=f32, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    lib = load_library()
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.solid_trace_launch(
+        p(seed_vec), p(cam_vec), p(tables.geom), p(tables.obj), n_obj,
+        p(tables.dif), tables.dif.shape[0], p(tables.refr), tables.refr.shape[0],
+        p(tables.emi), tables.emi.shape[0], p(tables.is_tab), K,
+        p(tables.consts), width, height, spp, max_bounces, int(sampler == "iid"),
+        p(L), p(count),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"solid_trace kernel launch failed: CUDA error {err}")
+    return L, count
+
+
+def solid_trace_chunk(seed_vec, tables: SolidTables, cam_vec, width, height,
+                      spp, max_bounces, split_k=0, sampler="r2",
+                      projection="pinhole"):
+    """Trace one chunk: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Arguments and result as
+    `solid_trace_chunk_reference`; `solid_trace_chunk.launches` counts
+    kernel launches."""
+    if cam_vec.device.type == "cpu":
+        return solid_trace_chunk_reference(seed_vec, tables, cam_vec, width,
+                                           height, spp, max_bounces, split_k,
+                                           sampler, projection)
+    if cam_vec.device.type != "cuda":
+        raise ValueError(f"no solid kernel for device {cam_vec.device}")
+    check_slice(tables, split_k, sampler, projection)
+    out = _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
+                  sampler)
+    solid_trace_chunk.launches += 1
+    return out
+
+
+solid_trace_chunk.launches = 0
+

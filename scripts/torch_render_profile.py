@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's Cornell render goes, on one CUDA device.
+
+    python scripts/torch_render_profile.py [TRACE.json]
+
+Renders the reference Cornell box at 400x400 x 256 spp through
+raytracer_tpu_torch's Scene.render (output="linear") once to warm up and
+once under torch.profiler, writes that render's Chrome trace (to
+TRACE.json, by default build/torch_render_trace.json), and reads the
+device events back from it: the span from the first to the last event,
+the busy time as the union of kernel and copy intervals, and the time of
+each kernel.  The last line is one JSON object.  The end-to-end Mrays/s
+is chip_smoke.py's; this script times no render of its own.
+"""
+
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SIZE, SPP = 400, 256
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_breakdown(trace_events):
+    """Span, busy union and per-name time (all in us) of a Chrome trace's
+    device events."""
+    iv = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in trace_events
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    per_name = defaultdict(lambda: [0.0, 0])
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi, name in iv:
+        per_name[name][0] += hi - lo
+        per_name[name][1] += 1
+        if cur_hi is None or lo > cur_hi:
+            busy += 0.0 if cur_hi is None else cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    span = max(hi for _, hi, _ in iv) - iv[0][0]
+    return span, busy, dict(per_name)
+
+
+def report(trace_path, wall_s):
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    span, busy, per_name = device_breakdown(events)
+    kern = sum(t for k, (t, _) in per_name.items() if "solid_trace" in k)
+    print(f"profiled render: wall {wall_s * 1e3:.1f} ms, device span "
+          f"{span / 1e3:.1f} ms, busy "
+          f"(union) {busy / 1e3:.1f} ms ({100 * busy / span:.1f}% of span), "
+          f"solid kernel {kern / 1e3:.1f} ms ({100 * kern / busy:.1f}% of busy)")
+    for k, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {t / 1e3:10.3f} ms  {c:5d}x  {k[:90]}")
+    print(json.dumps({"wall_s": wall_s, "device_span_s": span / 1e6,
+                      "device_busy_s": busy / 1e6, "kernel_s": kern / 1e6,
+                      "device_events": sum(c for _, c in per_name.values())}))
+
+
+def main(argv):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_cornellbox import build_cornell
+
+    trace = Path(argv[0]) if argv else ROOT / "build" / "torch_render_trace.json"
+    dev = torch.device("cuda:0")
+    sc = build_cornell(SIZE, SIZE)
+    render = lambda: sc.render(samples_per_pixel=SPP, output="linear", device=dev)
+    render()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    print(f"{torch.cuda.get_device_name(0)}: Cornell {SIZE}x{SIZE} x {SPP} spp, "
+          f"trace {trace}")
+    report(trace, wall)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

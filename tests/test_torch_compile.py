@@ -1,0 +1,93 @@
+"""The port's scene compiler against the JAX package's.
+
+Each scene is built twice from one description, once through each
+package's API.  The port's tables must equal, bit for bit,
+`tables_from_jax` of the JAX package's compiled scene, and the derived
+render settings, the gate, the diffuse fan and the camera vector must be
+the same.
+"""
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as J
+import raytracer_tpu_torch as T
+from raytracer_tpu.core.compile import compile_scene as jax_compile
+from raytracer_tpu_torch.core.camera import cam_vec
+from raytracer_tpu_torch.core.compile import compile_scene
+from raytracer_tpu_torch.interop import static_from_jax, tables_from_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_scenes import (box_and_plane, cornell, emissive, glass,  # noqa: E402
+                               is_diffuse, lights_and_slots, too_many_objects)
+
+
+SCENES = [cornell, emissive, box_and_plane, glass, is_diffuse,
+          lights_and_slots, too_many_objects]
+
+
+@pytest.mark.parametrize("build", SCENES, ids=lambda f: f.__name__)
+def test_tables_match_jax_exactly(build):
+    static, tables = compile_scene(build(T))
+    j_static, j_tables = tables_from_jax(*jax_compile(build(J)))
+    assert static == j_static
+    for name in tables.TENSORS:
+        a, b = getattr(tables, name), getattr(j_tables, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert tables.obj_rows == j_tables.obj_rows
+    assert tables.n_is_targets == j_tables.n_is_targets
+
+
+@pytest.mark.parametrize("build", SCENES, ids=lambda f: f.__name__)
+def test_render_settings_and_fan_match_jax(build):
+    port, ref = build(T), build(J)
+    static, _, settings = port._settings_for_render()
+    j_static, _, j_settings = ref._settings_for_render(False)
+    assert static.pallas_ok == j_static.pallas_ok
+    assert settings.max_bounces == j_settings.max_bounces
+    assert settings.split_k == j_settings.split_k
+    assert (settings.sampler, settings.projection) == (
+        j_settings.sampler, j_settings.projection)
+    assert port._diffuse_fan() == ref._diffuse_fan()
+
+
+@pytest.mark.parametrize("build", SCENES, ids=lambda f: f.__name__)
+def test_cam_vec_matches_jax(build):
+    cam = build(J).camera.params()
+    want = jnp.concatenate([cam.origin, cam.fwd, cam.right, cam.up,
+                            jnp.stack([cam.cam_w, cam.cam_h, cam.lens_radius,
+                                       cam.focal, cam.half_fov])])
+    got = cam_vec(build(T).camera.params())
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_aa_planes_detected_as_in_jax():
+    static, tables = compile_scene(cornell(T))
+    assert static == static_from_jax(jax_compile(cornell(J))[0])
+    assert sum(r.aa is not None for r in static.obj_records) == 6
+    static, _ = compile_scene(lights_and_slots(T))
+    assert [r.aa is None for r in static.obj_records
+            if r.kind == "plane"] == [False, True]
+
+
+def test_out_of_slice_scenes_raise():
+    sc = emissive(T)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        sc.add_Background("sky.png")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.Diffuse(diff_color=T.rgb(1, 1, 1), normalmap=np.zeros((2, 2, 3)))
+
+    class Disc(T.Primitive):
+        pass
+
+    sc.add(Disc(center=T.vec3(0, 0, 0), material=T.Emissive(color=T.rgb(1, 1, 1))))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        compile_scene(sc)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        too_many_objects(T).render(samples_per_pixel=1, device="cpu")
