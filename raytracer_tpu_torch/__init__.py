@@ -1,23 +1,30 @@
 """raytracer_tpu_torch — the PyTorch / CUDA port of raytracer_tpu.
 
-The first slice: solid-colour scenes (Sphere, Plane, Cuboid with Diffuse,
+Two slices: solid-colour scenes (Sphere, Plane, Cuboid with Diffuse,
 Emissive and Refractive materials, importance-sampled light caps) render
-through one hand-written CUDA kernel on the card (ops/solid_trace.py,
-csrc/solid_trace.cu), or through its plain PyTorch version on the CPU.
-The public names follow raytracer_tpu's star-import surface as far as the
-slice reaches.  This package imports neither jax nor raytracer_tpu.
+through the solid kernel (ops/solid_trace.py, csrc/solid_trace.cu);
+textured scenes (image textures, SkyBox / Panorama environments, Glossy
+with lights and shadows, thin films, deterministic Fresnel splitting)
+through the record kernel and the replay (ops/record_trace.py,
+csrc/record_trace.cu, ops/replay.py).  Both kernels are written by hand in
+CUDA; on the CPU their plain PyTorch versions run.  The public names
+follow raytracer_tpu's star-import surface as far as the slices reach.
+This package imports neither jax nor raytracer_tpu.
 """
 
 import numpy as np
 
+from .backgrounds.environment import Panorama, SkyBox, procedural_sky
 from .core.camera import Camera
 from .core.integrator import RenderSettings
 from .core.scene import Scene
 from .core.vec import rgb, vec3
 from .geometry.primitive import Cuboid, Plane, Primitive, Sphere
 from .lights import DirectionalLight, Light, PointLight, SpotLight
-from .materials.base import Diffuse, Emissive, Material, Refractive
-from .textures.texture import solid_color, texture
+from .materials.base import (Diffuse, Emissive, Glossy, Material, Refractive,
+                             ThinFilmInterference)
+from .textures.texture import image, solid_color, texture
+from .utils.image_io import add_asset_root, load_image
 from .utils.colour import srgb_linear_to_srgb, tonemap_display
 from .utils.constants import FARAWAY, SKYBOX_DISTANCE, UPDOWN, UPWARDS
 
@@ -25,7 +32,9 @@ __all__ = [
     "Scene", "Camera", "RenderSettings", "vec3", "rgb", "np",
     "Primitive", "Sphere", "Plane", "Cuboid",
     "Light", "PointLight", "DirectionalLight", "SpotLight",
-    "Material", "Diffuse", "Emissive", "Refractive",
-    "texture", "solid_color", "srgb_linear_to_srgb", "tonemap_display",
+    "Material", "Diffuse", "Emissive", "Refractive", "Glossy",
+    "ThinFilmInterference", "SkyBox", "Panorama", "procedural_sky",
+    "texture", "image", "solid_color", "add_asset_root", "load_image",
+    "srgb_linear_to_srgb", "tonemap_display",
     "FARAWAY", "SKYBOX_DISTANCE", "UPDOWN", "UPWARDS",
 ]

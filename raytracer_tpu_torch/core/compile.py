@@ -1,14 +1,16 @@
-"""Scene compiler, solid-path subset: scene description -> kernel tables.
+"""Scene compiler, solid and textured subsets: scene -> kernel tables.
 
 Counterpart of raytracer_tpu/core/compile.py (`compile_scene`, `ObjRecord`,
-`SceneStatic`, `derive_max_bounces`, `derive_split_k` and the `pallas_ok`
-gate) plus the kernel-side tables that raytracer_tpu/ops/pallas_trace.py
-builds at call time (:1134-1150).  The float math is the JAX package's
-numpy code, so every table matches it bit for bit
-(tests/test_torch_compile.py).
+`TexRef`, `EnvSlot`, `SceneStatic`, `derive_max_bounces`, `derive_split_k`,
+the texture atlas and the `pallas_ok` / `pallas_tex_ok` gates) plus the
+kernel-side tables that raytracer_tpu/ops/pallas_trace.py and
+ops/pallas_record.py build at call time (pallas_trace.py:1134-1150,
+pallas_record.py:1106-1122).  The float math is the JAX package's numpy
+code, so every table matches it bit for bit (tests/test_torch_compile.py,
+tests/test_torch_textures.py).
 
 Object ids run spheres, then planes, then boxes, in insertion order within
-each kind, as in the JAX package.  Scenes outside the solid slice raise
+each kind, as in the JAX package.  Scenes outside the ported slices raise
 NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
@@ -16,15 +18,18 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..backgrounds.environment import Panorama, SkyBox
 from ..geometry.primitive import Cuboid, Plane, Sphere
 from ..lights import SpotLight
-from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE,
+from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
+from ..textures.texture import image as image_texture
+from ..textures.texture import solid_color
 
 F32 = np.float32
 I32 = np.int32
@@ -37,10 +42,20 @@ PALLAS_MAX_GROUPS = 36
 KIND_CODES = {"sphere": 0, "plane": 1, "box": 2, "tri": 3, "disc": 4, "cyl": 5}
 SOLID_KINDS = ("sphere", "plane", "box")
 
-# columns of the (O, OBJ_COLS) int32 object table the kernel reads
+# columns of the (O, OBJ_COLS) int32 object table the kernels read;
+# OBJ_GID is the record path's shading-group id (`shading_groups`), OBJ_UV
+# says whether the object's uv is recorded, OBJ_IMG whether its material
+# slot fetches an image texture
 (OBJ_KIND, OBJ_MAT_TYPE, OBJ_MAT_SLOT, OBJ_MAX_DEPTH, OBJ_MC, OBJ_SHADOW,
- OBJ_DISP, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U, OBJ_AA_V) = range(11)
-OBJ_COLS = 12
+ OBJ_DISP, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U, OBJ_AA_V, OBJ_GID, OBJ_UV,
+ OBJ_IMG) = range(14)
+OBJ_COLS = 16
+
+# textures whose largest value exceeds this pack as RGB9E5 (compile.py:121)
+E5_PACK_LIMIT = 4.0
+_E5_BIAS = 15
+# largest composed thin-film table in texels (compile.py:662)
+TF_COMP_LIMIT = 2_000_000
 
 
 @dataclass(frozen=True)
@@ -62,26 +77,77 @@ class ObjRecord:
 
 
 @dataclass(frozen=True)
+class TexRef:
+    """An image texture used by a material slot (raytracer_tpu TexRef)."""
+    slot: int
+    tex: int
+    repeat: float
+    bilinear: bool = False
+
+
+@dataclass(frozen=True)
+class EnvSlot:
+    """An environment material slot (raytracer_tpu EnvSlot): its display
+    texture, its lightmap, and display + light_intensity * lightmap
+    prebaked on the display grid (`combined`), which the replay fetches
+    for secondary rays."""
+    slot: int
+    kind: str
+    tex: int
+    lightmap: Optional[int]
+    combined: Optional[int] = None
+
+
+@dataclass(frozen=True)
 class SceneStatic:
     """Structural facts of a compiled scene (the subset of the JAX
-    SceneStatic that the solid path reads)."""
+    SceneStatic that the solid and record paths read).
+
+    tex_shapes / tex_offsets / tex_enc describe the texture atlas
+    (`texture_atlas`); tf_selp holds each thin-film slot's cubic fit of
+    its mean reflectance over cos_i (`_tf_sel_poly`)."""
     n_objects: int
     n_is_targets: int
     mat_types_present: Tuple[int, ...]
     obj_records: Tuple[ObjRecord, ...]
     refr_disp: Tuple[bool, ...]
     pallas_ok: bool
+    pallas_tex_ok: bool
+    n_dir_lights: int
+    n_point_lights: int
+    n_spot_lights: int
+    diffuse_tex: Tuple[TexRef, ...]
+    glossy_tex: Tuple[TexRef, ...]
+    emissive_tex: Tuple[TexRef, ...]
+    thinfilm_lut: Tuple[TexRef, ...]
+    thinfilm_noise: Tuple[TexRef, ...]
+    thinfilm_comp: Tuple[TexRef, ...]
+    env_slots: Tuple[EnvSlot, ...]
+    tex_shapes: Tuple[Tuple[int, int], ...]
+    tex_offsets: Tuple[int, ...]
+    tex_enc: Tuple[int, ...]
+    tf_selp: Tuple[Tuple[float, float, float, float], ...]
+
+    def image_slots(self):
+        """{(mat_type, slot)} of the slots that fetch an image texture."""
+        return ({(MAT_DIFFUSE, r.slot) for r in self.diffuse_tex}
+                | {(MAT_GLOSSY, r.slot) for r in self.glossy_tex}
+                | {(MAT_EMISSIVE, r.slot) for r in self.emissive_tex})
 
 
 @dataclass(frozen=True)
 class SolidTables:
-    """Everything the solid kernel reads about a scene.
+    """Everything the kernels and the replay read about a scene.
 
     geom (O, 24) f32: per-object geometry rows (the JAX `pallas_geom`);
-    obj (O, OBJ_COLS) i32: kind, material and plane-axis codes per object;
-    dif (S, 4): colour + ambient weight; refr (S, 6): n_re, n_im;
-    emi (S, 3); lights (L, 11); is_tab (K, 4): importance-sampled
-    target centre + radius; consts (16,): ambient, scene n_re, n_im.
+    obj (O, OBJ_COLS) i32: kind, material, plane-axis and record-path
+    codes per object; dif (S, 4): colour + ambient weight; glo (S, 12):
+    colour, n_re, n_im, roughness, spec_coeff, diff_coeff; refr (S, 6):
+    n_re, n_im; emi (S, 3); tf (S, 6): the thin-film selection cubic
+    (c3, c2, c1, c0), thickness, noise factor; lights (L, 11); is_tab
+    (K, 4): importance-sampled target centre + radius; consts (16,):
+    ambient, scene n_re, n_im; atlas (total,) i32: every texture packed
+    one word per texel; tex_scale (T,) f32: each texture's decode scale.
     Empty tables hold one zero row, as in the JAX package.
     n_is_targets is K (is_tab keeps one zero row when K is 0), and
     obj_rows is a host copy of `obj`, so that callers can check a scene
@@ -90,16 +156,20 @@ class SolidTables:
     geom: torch.Tensor
     obj: torch.Tensor
     dif: torch.Tensor
+    glo: torch.Tensor
     refr: torch.Tensor
     emi: torch.Tensor
+    tf: torch.Tensor
     lights: torch.Tensor
     is_tab: torch.Tensor
     consts: torch.Tensor
+    atlas: torch.Tensor
+    tex_scale: torch.Tensor
     n_is_targets: int
     obj_rows: Tuple[Tuple[int, ...], ...]
 
-    TENSORS = ("geom", "obj", "dif", "refr", "emi", "lights", "is_tab",
-               "consts")
+    TENSORS = ("geom", "obj", "dif", "glo", "refr", "emi", "tf", "lights",
+               "is_tab", "consts", "atlas", "tex_scale")
 
     def to(self, device):
         return dataclasses.replace(
@@ -158,9 +228,25 @@ def _unit_axis(vec):
     return None
 
 
-def obj_table(records, refr_disp):
+def shading_groups(records):
+    """The record path's shading groups (pallas_record.py:53): one per
+    distinct (mat_type, slot, max_depth, mc), numbered from 1 in order of
+    first appearance; gid 0 means "no hit".  Returns ({key: {"gid", "ids"}},
+    [keys in order])."""
+    groups, order = {}, []
+    for i, rec in enumerate(records):
+        key = (rec.mat_type, rec.mat_slot, rec.max_depth, rec.mc)
+        if key not in groups:
+            groups[key] = {"gid": len(order) + 1, "ids": []}
+            order.append(key)
+        groups[key]["ids"].append(i)
+    return groups, order
+
+
+def obj_table(records, refr_disp, img_slots=frozenset()):
     """(O, OBJ_COLS) int32 object table from the static records."""
     t = np.zeros((len(records), OBJ_COLS), I32)
+    groups, _ = shading_groups(records)
     for i, r in enumerate(records):
         t[i, OBJ_KIND] = KIND_CODES[r.kind]
         t[i, OBJ_MAT_TYPE] = r.mat_type
@@ -175,6 +261,10 @@ def obj_table(records, refr_disp):
             t[i, OBJ_AA_N:OBJ_AA_V + 1] = (nax, int(nsg), uax, vax)
         else:
             t[i, OBJ_AA_N:OBJ_AA_V + 1] = (-1, 0, -1, -1)
+        img = (r.mat_type, r.mat_slot) in img_slots
+        t[i, OBJ_GID] = groups[(r.mat_type, r.mat_slot, r.max_depth, r.mc)]["gid"]
+        t[i, OBJ_UV] = int(img or r.mat_type in (MAT_ENV, MAT_THINFILM))
+        t[i, OBJ_IMG] = int(img)
     return t
 
 
@@ -197,17 +287,27 @@ def light_table(dir_l, dir_color, point_pos, point_color, spot_pos,
 
 
 def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
-                       is_radius, ambient, scene_n_re, scene_n_im):
+                       is_radius, ambient, scene_n_re, scene_n_im,
+                       tf_rows=(), atlas=None, tex_scale=None,
+                       img_slots=frozenset()):
     """Kernel tables from host arrays; the JAX package's table layout
-    (pallas_trace.py:1134-1150).  `mats` maps the JAX MaterialTables field
-    names to arrays, `lights` is the (L, 11) light table."""
+    (pallas_trace.py:1134-1150, pallas_record.py:1106-1122).  `mats` maps
+    the JAX MaterialTables field names to arrays, `lights` is the (L, 11)
+    light table, `tf_rows` one (c3, c2, c1, c0, thickness, noise) row per
+    thin-film slot, `atlas` / `tex_scale` the texture atlas."""
     m = {k: np.asarray(v, F32) for k, v in mats.items()}
     col = lambda a: a[:, None]
     dif = np.concatenate([_pad_rows(m["diffuse_color"]),
                           _pad_rows(col(m["diffuse_ambient_weight"]))], axis=1)
+    glo = np.concatenate([
+        _pad_rows(m["glossy_color"]), _pad_rows(m["glossy_n_re"]),
+        _pad_rows(m["glossy_n_im"]), _pad_rows(col(m["glossy_roughness"])),
+        _pad_rows(col(m["glossy_spec"])), _pad_rows(col(m["glossy_diff"]))],
+        axis=1)
     refr = np.concatenate([_pad_rows(m["refr_n_re"]),
                            _pad_rows(m["refr_n_im"])], axis=1)
     emi = _pad_rows(m["emissive_color"])
+    tf = _pad_rows(np.asarray(tf_rows, F32).reshape(-1, 6))
     is_center = np.asarray(is_center, F32)
     K = int(is_center.shape[0])
     is_tab = (np.concatenate([is_center, np.asarray(is_radius, F32)[:, None]],
@@ -216,19 +316,213 @@ def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
                              np.asarray(scene_n_re, F32),
                              np.asarray(scene_n_im, F32),
                              np.zeros(7, F32)])
-    obj = obj_table(records, refr_disp)
+    obj = obj_table(records, refr_disp, img_slots)
+    atlas = np.zeros((1,), I32) if atlas is None else np.asarray(atlas, I32)
+    tex_scale = (np.ones((1,), F32) if tex_scale is None
+                 else np.asarray(tex_scale, F32))
     t = lambda a: torch.from_numpy(np.array(a))     # a writable copy
     return SolidTables(
         geom=t(np.asarray(geom, F32).reshape(-1, 24)), obj=t(obj),
-        dif=t(dif), refr=t(refr), emi=t(emi),
+        dif=t(dif), glo=t(glo), refr=t(refr), emi=t(emi), tf=t(tf),
         lights=t(np.asarray(lights, F32)), is_tab=t(is_tab), consts=t(consts),
+        atlas=t(atlas), tex_scale=t(tex_scale),
         n_is_targets=K, obj_rows=tuple(tuple(int(v) for v in r) for r in obj))
+
+
+# ---------------------------------------------------------------------------
+# the texture atlas (compile.py:104-180) and the thin-film / env tables
+# ---------------------------------------------------------------------------
+
+# packed textures and atlases, keyed by the identity of the host arrays
+# (held, so that an id is never reused while its entry lives)
+_PACKED_CACHE = {}
+_ATLAS_CACHE = {}
+
+
+def _pack_e5(a):
+    """(H, W, 3) f32 >= 0 -> (H, W) int32 RGB9E5 words (compile.py:125)."""
+    a = np.clip(a, 0.0, (511.0 / 512.0) * 2.0 ** 16)
+    maxc = np.maximum(a.max(axis=-1), 1e-30)
+    e = np.clip(np.floor(np.log2(maxc)) + _E5_BIAS + 1, 0, 31).astype(np.uint32)
+    denom = np.exp2(e.astype(np.float64) - _E5_BIAS - 9)
+    m = np.clip(a / denom[..., None] + 0.5, 0, 511).astype(np.uint32)
+    return ((e << 27) | (m[..., 0] << 18) | (m[..., 1] << 9)
+            | m[..., 2]).view(np.int32)
+
+
+def _texture_packed(arr):
+    """(words (H*W,) int32, scale, (H, W), enc) of one texture: 10-10-10
+    bits over a per-texture scale (enc 0), or RGB9E5 for maps brighter
+    than E5_PACK_LIMIT (enc 1) (compile.py:136)."""
+    hit = _PACKED_CACHE.get(id(arr))
+    if hit is None:
+        a = np.asarray(arr, dtype=F32)
+        if a.ndim == 2:
+            a = a[..., None].repeat(3, axis=-1)
+        a = np.ascontiguousarray(a[..., :3])
+        amax = float(np.max(a)) if a.size else 1.0
+        if amax > E5_PACK_LIMIT:
+            packed, scale, enc = _pack_e5(a), 1.0, 1
+        else:
+            scale, enc = float(max(1.0, amax)), 0
+            q = np.clip(a / scale * 1023.0 + 0.5, 0.0, 1023.0).astype(np.uint32)
+            packed = ((q[..., 0] << 20) | (q[..., 1] << 10)
+                      | q[..., 2]).astype(np.int32)
+        hit = (arr, packed.reshape(-1), scale,
+               (int(a.shape[0]), int(a.shape[1])), enc)
+        _PACKED_CACHE[id(arr)] = hit
+    return hit[1:]
+
+
+def texture_atlas(arrs):
+    """(atlas (total,) int32, scales (T,) f32, shapes, offsets, encodings)
+    of the textures `arrs`, in order (compile.py:158)."""
+    key = tuple(id(a) for a in arrs)
+    hit = _ATLAS_CACHE.get(key)
+    if hit is None:
+        parts, scales, shapes, offsets, encs = [], [], [], [], []
+        off = 0
+        for a in arrs:
+            p, s, shp, enc = _texture_packed(a)
+            parts.append(p)
+            scales.append(s)
+            shapes.append(shp)
+            offsets.append(off)
+            encs.append(enc)
+            off += shp[0] * shp[1]
+        atlas = np.concatenate(parts) if parts else np.zeros((1,), I32)
+        hit = (arrs, atlas, np.asarray(scales or [1.0], F32), tuple(shapes),
+               tuple(offsets), tuple(encs))
+        _ATLAS_CACHE[key] = hit
+    return hit[1:]
+
+
+def _tf_composed(mat):
+    """Composed thin-film reflectance table, or None when larger than
+    TF_COMP_LIMIT texels (compile.py:665):
+    C[(row * nH + rn) * nW + cn] = lut[row, col(noise[rn, cn])], the
+    chained noise -> LUT fetch precomposed.  Cached on the material."""
+    lut = np.asarray(mat.lut, np.float32)
+    LH, LW = lut.shape[:2]
+    key = (id(mat.lut), id(mat.noise_texture), float(mat.thickness),
+           float(mat.noise_factor))
+    cached = getattr(mat, "_tf_comp_cache", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    if mat.noise_factor == 0.0:
+        col = int(np.clip(float(mat.thickness), 0, LW - 1))
+        comp = np.ascontiguousarray(lut[:, col:col + 1, :3])   # (LH, 1, 3)
+    else:
+        noise = np.asarray(mat.noise_texture, np.float32)
+        nH, nW = noise.shape[:2]
+        if LH * nH * nW > TF_COMP_LIMIT:
+            mat._tf_comp_cache = (key, None)
+            return None
+        th = mat.thickness + mat.noise_factor * (noise - 0.5)
+        col = np.clip(th.astype(np.int32), 0, LW - 1)           # (nH, nW)
+        comp = lut[:, col, :3].reshape(LH * nH, nW, 3)
+    mat._tf_comp_cache = (key, comp)
+    return comp
+
+
+def _env_combined(mat, display):
+    """display + light_intensity * lightmap on the display grid,
+    nearest-resampled when the grids differ (compile.py:700).  Cached on
+    the material."""
+    key = (id(display), id(mat.lightmap), float(mat.light_intensity))
+    cached = getattr(mat, "_env_comb_cache", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    disp = np.asarray(display, np.float32)[..., :3]
+    lm = np.asarray(mat.lightmap, np.float32)[..., :3]
+    if lm.shape[:2] != disp.shape[:2]:
+        ys = np.arange(disp.shape[0]) * lm.shape[0] // disp.shape[0]
+        xs = np.arange(disp.shape[1]) * lm.shape[1] // disp.shape[1]
+        lm = lm[ys][:, xs]
+    out = (disp + np.float32(mat.light_intensity) * lm).astype(np.float32)
+    mat._env_comb_cache = (key, out)
+    return out
+
+
+def _tf_sel_poly(m):
+    """Branch-selection cubic of a thin-film material (compile.py:720):
+    least-squares fit in cos_i of the channel-mean reflectance of its LUT
+    at the mean film thickness, highest power first."""
+    lut = np.asarray(m.lut, np.float64)
+    H, W = lut.shape[:2]
+    cos = np.linspace(1e-3, 1.0, 256)
+    rows = np.clip((cos * H).astype(int), 0, H - 1)
+    col = int(np.clip(m.thickness, 0, W - 1))
+    F = lut[rows, col, :3].mean(axis=-1)
+    return tuple(float(c) for c in np.polyfit(cos, F, 3))
+
+
+class _Textures:
+    """Texture and material-slot registration in the JAX package's order
+    (compile.py:937-988): the atlas offsets depend on it."""
+
+    def __init__(self):
+        self.arrays, self._ids = [], {}
+        self.mat_rows, self.mat_slots = {}, {}
+        self.refs = {k: [] for k in ("diffuse", "glossy", "emissive", "tf_lut",
+                                     "tf_noise", "tf_comp")}
+        self.env_slots = []
+
+    def add(self, arr):
+        if id(arr) not in self._ids:
+            self._ids[id(arr)] = len(self.arrays)
+            self.arrays.append(arr)
+        return self._ids[id(arr)]
+
+    def material_slot(self, mat):
+        if id(mat) in self.mat_slots:
+            return self.mat_slots[id(mat)]
+        t = mat.mat_type
+        rows = self.mat_rows.setdefault(t, [])
+        slot = len(rows)
+        rows.append(mat)
+        self.mat_slots[id(mat)] = slot
+
+        def tex_of(tex, refs):
+            if isinstance(tex, image_texture):
+                refs.append(TexRef(slot, self.add(tex.img), tex.repeat,
+                                   tex.bilinear))
+
+        if t == MAT_DIFFUSE:
+            tex_of(mat.diff_texture, self.refs["diffuse"])
+        elif t == MAT_GLOSSY:
+            tex_of(mat.diff_texture, self.refs["glossy"])
+        elif t == MAT_EMISSIVE:
+            tex_of(mat.texture_color, self.refs["emissive"])
+        elif t == MAT_THINFILM:
+            self.refs["tf_lut"].append(TexRef(slot, self.add(mat.lut), 1.0))
+            self.refs["tf_noise"].append(
+                TexRef(slot, self.add(mat.noise_texture), 1.0))
+            comp = _tf_composed(mat)
+            if comp is not None:
+                # repeat carries the LUT row count, which splits the index
+                rows_ = comp.shape[0] // (1 if mat.noise_factor == 0.0
+                                          else mat.noise_texture.shape[0])
+                self.refs["tf_comp"].append(
+                    TexRef(slot, self.add(comp), float(rows_)))
+        elif t == MAT_ENV:
+            tex = mat.blur_texture if mat.blur_texture is not None else mat.texture
+            # the lightmap, then the combined table, then the display
+            lm = self.add(mat.lightmap) if mat.lightmap is not None else None
+            cm = (self.add(_env_combined(mat, tex))
+                  if mat.lightmap is not None else None)
+            self.env_slots.append(EnvSlot(slot, "box", self.add(tex), lm, cm))
+        return slot
+
+    def patch_env_kind(self, slot, kind):
+        for i, e in enumerate(self.env_slots):
+            if e.slot == slot:
+                self.env_slots[i] = dataclasses.replace(e, kind=kind)
 
 
 def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     """Lower a Scene to (SceneStatic, SolidTables) on the CPU."""
-    mat_rows = {}      # mat_type -> [material], in slot order
-    mat_slots = {}     # id(material) -> slot
+    reg = _Textures()
     by_kind = {k: [] for k in SOLID_KINDS}   # (primitive, props) per kind
 
     for prim in scene.scene_primitives:
@@ -244,11 +538,12 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
                 "meshes, discs and cylinders come with the wavefront slice "
                 "(ROADMAP.md 'Modules to port' item 8)")
         mat = prim.material
-        if id(mat) not in mat_slots:
-            rows = mat_rows.setdefault(mat.mat_type, [])
-            mat_slots[id(mat)] = len(rows)
-            rows.append(mat)
-        props = dict(mat_type=mat.mat_type, mat_slot=mat_slots[id(mat)],
+        slot = reg.material_slot(mat)
+        if isinstance(prim, Panorama):
+            reg.patch_env_kind(slot, "sphere")
+        elif isinstance(prim, SkyBox):
+            reg.patch_env_kind(slot, "box")
+        props = dict(mat_type=mat.mat_type, mat_slot=slot,
                      max_depth=min(prim.max_ray_depth, 10 ** 6),
                      mc=prim.mc, shadow=prim.shadow)
         by_kind[kind].append((prim, props))
@@ -289,18 +584,30 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
 
     # ---- material tables (compile.py:1529-1556) ---------------------------
     def solid_of(m, attr):
-        return getattr(m, attr).color
+        t = getattr(m, attr)
+        return t.color if isinstance(t, solid_color) else np.zeros(3)
 
-    dif = mat_rows.get(MAT_DIFFUSE, [])
-    ref = mat_rows.get(MAT_REFRACTIVE, [])
-    emi = mat_rows.get(MAT_EMISSIVE, [])
+    dif = reg.mat_rows.get(MAT_DIFFUSE, [])
+    glo = reg.mat_rows.get(MAT_GLOSSY, [])
+    ref = reg.mat_rows.get(MAT_REFRACTIVE, [])
+    tfi = reg.mat_rows.get(MAT_THINFILM, [])
+    emi = reg.mat_rows.get(MAT_EMISSIVE, [])
     mats = dict(
         diffuse_color=_stack3([solid_of(m, "diff_texture") for m in dif]),
         diffuse_ambient_weight=_arr1([m.ambient_weight for m in dif]),
+        glossy_color=_stack3([solid_of(m, "diff_texture") for m in glo]),
+        glossy_n_re=_stack3([np.real(m.n) for m in glo]),
+        glossy_n_im=_stack3([np.imag(m.n) for m in glo]),
+        glossy_roughness=_arr1([m.roughness for m in glo]),
+        glossy_spec=_arr1([m.spec_coeff for m in glo]),
+        glossy_diff=_arr1([m.diff_coeff for m in glo]),
         refr_n_re=_stack3([np.real(m.n) for m in ref]),
         refr_n_im=_stack3([np.imag(m.n) for m in ref]),
         emissive_color=_stack3([solid_of(m, "texture_color") for m in emi]),
     )
+    tf_selp = tuple(_tf_sel_poly(m) for m in tfi)
+    tf_rows = [sel + (m.thickness, m.noise_factor)
+               for sel, m in zip(tf_selp, tfi)]
 
     # ---- lights (compile.py:1558-1574) ------------------------------------
     slts = [l for l in scene.Light_list if isinstance(l, SpotLight)]
@@ -318,24 +625,51 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     is_radius = _arr1([p.bounded_sphere_radius
                        for p in scene.importance_sampled_list])
 
-    # ---- the pallas_ok gate (compile.py:1690-1721) -------------------------
+    # ---- the gates (compile.py:1690-1731) ----------------------------------
     refr_disp = tuple(bool(m.dispersion) for m in ref)
     present = tuple(sorted({r.mat_type for r in records}))
+    refs = reg.refs
+    is_envs = [m for m in reg.mat_rows.get(MAT_ENV, []) if m.importance_sampled]
+    if len(is_envs) > 1:
+        raise ValueError("only one environment may be importance_sampled")
+    needs_uv = bool(refs["diffuse"] or refs["glossy"] or refs["emissive"]
+                    or reg.env_slots or refs["tf_lut"])
     n_groups_merged = len(
         {(r.mat_type, r.max_depth, r.mc,
           refr_disp[r.mat_slot] if r.mat_type == MAT_REFRACTIVE else None)
          for r in records})
-    pallas_ok = (0 < len(records) <= PALLAS_MAX_OBJECTS
-                 and len(scene.importance_sampled_list) <= 8
-                 and n_groups_merged <= PALLAS_MAX_GROUPS
+    n_groups_slot = len(shading_groups(records)[1])
+    common_ok = (0 < len(records) <= PALLAS_MAX_OBJECTS
+                 and len(scene.importance_sampled_list) <= 8)
+    pallas_ok = (common_ok and n_groups_merged <= PALLAS_MAX_GROUPS
+                 and not needs_uv
                  and set(present) <= {MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE,
                                       MAT_REFRACTIVE})
+    # env importance sampling is the wavefront's (its diffuse mixture
+    # gains an env component)
+    pallas_tex_ok = (common_ok and n_groups_slot <= PALLAS_MAX_GROUPS
+                     and not pallas_ok and not is_envs
+                     and set(present) <= {MAT_EMISSIVE, MAT_GLOSSY,
+                                          MAT_DIFFUSE, MAT_REFRACTIVE,
+                                          MAT_THINFILM, MAT_ENV})
 
+    atlas, tex_scale, tex_shapes, tex_offsets, tex_enc = texture_atlas(
+        tuple(reg.arrays))
     static = SceneStatic(
         n_objects=len(records), n_is_targets=int(is_center.shape[0]),
         mat_types_present=present, obj_records=tuple(records),
-        refr_disp=refr_disp, pallas_ok=pallas_ok)
+        refr_disp=refr_disp, pallas_ok=pallas_ok, pallas_tex_ok=pallas_tex_ok,
+        n_dir_lights=len(dlts), n_point_lights=len(plts),
+        n_spot_lights=len(slts),
+        diffuse_tex=tuple(refs["diffuse"]), glossy_tex=tuple(refs["glossy"]),
+        emissive_tex=tuple(refs["emissive"]),
+        thinfilm_lut=tuple(refs["tf_lut"]),
+        thinfilm_noise=tuple(refs["tf_noise"]),
+        thinfilm_comp=tuple(refs["tf_comp"]), env_slots=tuple(reg.env_slots),
+        tex_shapes=tex_shapes, tex_offsets=tex_offsets, tex_enc=tex_enc,
+        tf_selp=tf_selp)
     tables = build_solid_tables(
         records, refr_disp, geom, mats, lights, is_center, is_radius,
-        _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)))
+        _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
+        tf_rows, atlas, tex_scale, static.image_slots())
     return static, tables

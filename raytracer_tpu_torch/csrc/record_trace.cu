@@ -1,0 +1,578 @@
+// Path-recording kernel for Hopper (sm_90a).
+//
+// Replaces raytracer_tpu/ops/pallas_record.py:_make_record_kernel, the TPU
+// kernel behind _record_call / pallas_record_chunk.  One thread traces one
+// ray, index idx = sample * n_pix + pixel, through camera ray generation
+// and every bounce, exactly as the Pallas kernel does, and instead of
+// accumulating radiance writes one record per (bounce, ray):
+//   rec_g[b, idx]     = gid | branch_flag << 16     (int32, gid 0 = no hit)
+//   rec_f[b, j, idx]  = [u, v, cos_i, add_base(3), add_texcoef(3),
+//                        beta_base(3)][j]           (float32)
+// The replay (ops/replay.py) fetches the textures at the recorded uvs and
+// integrates L = sum_b beta_b * add_b.  The plain version beside it is
+// record_trace_chunk_reference in ops/record_trace.py.
+//
+// What bounds it on the card: FP32 work and warp divergence while tracing,
+// plus the record stores: 13 words per ray and bounce, written coalesced
+// (consecutive threads, consecutive addresses in every plane), ~200 MB per
+// 3.84 M-ray chunk at 4 bounces.  The scene is data, as in the solid
+// kernel: tables in shared memory once per block, run-time loops over
+// bounces, objects, lights and shadow casters, and shading branches on the
+// hit object's material.
+//
+// K2 keeps the older formula forms, and this kernel follows them, not the
+// solid kernel's: the diffuse lobe takes cosf / sinf of phi = u * 2 pi,
+// Fresnel goes through a complex division and then |.|^2, Beer-Lambert is
+// exp(((-2 nim) (2 pi / lambda)) 1e9 t), (1 - c)^5 is the multiply chain
+// of lax.integer_pow, and six draws are numbered on every bounce, the last
+// one included.  A lane that has died still has its record written: gid
+// 0, zeros, and the uv of its last nearest hit, which the Pallas kernel
+// recomputes from the frozen ray.
+//
+// Built by ops/cuda_build.py with nvcc into the shared library of the
+// port; the host entry record_trace_launch takes device pointers and
+// returns cudaGetLastError() after the launch.
+
+#include "trace_common.cuh"
+
+namespace {
+
+const float SKYBOX_DISTANCE = F(1.0e6);
+
+struct RecParams {
+  const int* seed;       // (3,) chunk seed, R2 rotation seed, first sample
+  const float* cam;      // (17,)
+  const float* geom;     // (n_obj, 24)
+  const int* obj;        // (n_obj, OBJ_COLS)
+  const float* dif;      // (n_dif, 4)
+  const float* glo;      // (n_glo, 12)
+  const float* refr;     // (n_refr, 6)
+  const float* emi;      // (n_emi, 3)
+  const float* tf;       // (n_tf, 6)
+  const float* lights;   // (n_lrow, 11): directional, then point, then spot
+  const float* is_tab;   // (n_is, 4)
+  const float* consts;   // (16,)
+  int n_obj, n_dif, n_glo, n_refr, n_emi, n_tf, n_lrow, n_is;
+  int n_dir, n_point, n_spot;
+  int width, height, n_pix, n;
+  int max_bounces, iid, split_k;
+  int* rec_g;                    // (max_bounces, n)
+  float* rec_f;                  // (max_bounces, 12, n)
+  unsigned long long* count;     // rays traced
+};
+
+// the reference's polynomial atan2 and asin (pallas_trace.py:121-135)
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float a = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), F(1e-30));
+  const float s = a * a;
+  float r = a * (F(0.9998660) + s * (F(-0.3302995) + s * (F(0.1801410)
+                 + s * (F(-0.0851330) + s * F(0.0208351)))));
+  if (ay > ax) r = F(PI / 2) - r;
+  if (x < 0.0f) r = F(PI) - r;
+  return y < 0.0f ? -r : r;
+}
+
+__device__ __forceinline__ float asin_poly(float x) {
+  x = fminf(fmaxf(x, -1.0f), 1.0f);
+  return atan2_poly(x, sqrtf(fmaxf(1.0f - x * x, 0.0f)));
+}
+
+// x ** 5 as lax.integer_pow computes it: x * ((x * x) * (x * x))
+__device__ __forceinline__ float pow5(float x) {
+  const float x2 = x * x;
+  return x * (x2 * x2);
+}
+
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// |a / b|^2 for complex a, b (pallas_trace.py _cdiv then _cabs2)
+__device__ __forceinline__ float cdiv_abs2(float ar, float ai, float br,
+                                           float bi) {
+  const float d = fmaxf(br * br + bi * bi, F(1e-30));
+  const float re = (ar * br + ai * bi) / d;
+  const float im = (ai * br - ar * bi) / d;
+  return re * re + im * im;
+}
+
+// texture uv per object kind from the hit point and the raw normal
+// (pallas_record.py:76-115)
+__device__ __forceinline__ void uv_of(int kind, const float* g, float px,
+                                      float py, float pz, const float nr[3],
+                                      float& u, float& v) {
+  if (kind == KIND_SPHERE) {
+    const float phi = atan2_poly(nr[2], nr[0]);
+    const float th = asin_poly(nr[1]);
+    u = (phi + F(PI)) / F(2.0 * PI);
+    v = (th + F(PI / 2.0)) / F(PI);
+  } else if (kind == KIND_PLANE) {
+    const float mx = px - g[0], my = py - g[1], mz = pz - g[2];
+    const float uu = (g[3] * mx + g[4] * my + g[5] * mz) / g[12];
+    const float vv = (g[6] * mx + g[7] * my + g[8] * mz) / g[13];
+    u = (uu + 1.0f) / 2.0f + g[14];
+    v = (vv + 1.0f) / 2.0f + g[15];
+  } else {
+    // box: the max-|axis| face, then the cube-cross layout / 4, / 3
+    const float mx = px - g[15], my = py - g[16], mz = pz - g[17];
+    float pl[3], ap[3], nl[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      pl[i] = g[3 * i] * mx + g[3 * i + 1] * my + g[3 * i + 2] * mz;
+      ap[i] = fabsf(pl[i]) / g[18 + i];
+    }
+    const float pmax = fmaxf(fmaxf(ap[0], ap[1]), ap[2]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) nl[i] = pmax == ap[i] ? signf(pl[i]) : 0.0f;
+    const float s = F(2.0 * 0.985) / g[18];
+    float uc, vc;
+    if (nl[0] == 1.0f) uc = (pl[2] * s + 1.0f) / 2.0f + 2.0f;
+    else if (nl[0] == -1.0f) uc = (-pl[2] * s + 1.0f) / 2.0f + 0.0f;
+    else if (nl[2] == 1.0f) uc = (-pl[0] * s + 1.0f) / 2.0f + 3.0f;
+    else uc = (pl[0] * s + 1.0f) / 2.0f + 1.0f;
+    if (nl[1] == -1.0f) vc = (-pl[2] * s + 1.0f) / 2.0f + 0.0f;
+    else if (nl[1] == 1.0f) vc = (pl[2] * s + 1.0f) / 2.0f + 2.0f;
+    else vc = (pl[1] * s + 1.0f) / 2.0f + 1.0f;
+    u = uc / 4.0f;
+    v = vc / 3.0f;
+  }
+}
+
+__device__ __forceinline__ void reflect(const float d[3], const float n[3],
+                                        float r[3]) {
+  const float ddn = dot3(d, n);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r[k] = d[k] - n[k] * 2.0f * ddn;
+  normalize3(r[0], r[1], r[2]);
+}
+
+__global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
+  extern __shared__ float smem[];
+  // ---- scene tables -> shared memory, once per block ----
+  float* s_geom = smem;
+  float* s_dif = s_geom + p.n_obj * GEOM_COLS;
+  float* s_glo = s_dif + p.n_dif * 4;
+  float* s_refr = s_glo + p.n_glo * 12;
+  float* s_emi = s_refr + p.n_refr * 6;
+  float* s_tf = s_emi + p.n_emi * 3;
+  float* s_light = s_tf + p.n_tf * 6;
+  float* s_is = s_light + p.n_lrow * 11;
+  float* s_consts = s_is + p.n_is * 4;
+  float* s_cam = s_consts + 16;
+  int* s_obj = reinterpret_cast<int*>(s_cam + 17);
+  int* s_seed = s_obj + p.n_obj * OBJ_COLS;
+  __shared__ unsigned int s_count;
+  for (int i = threadIdx.x; i < p.n_obj * GEOM_COLS; i += BLOCK) s_geom[i] = p.geom[i];
+  for (int i = threadIdx.x; i < p.n_dif * 4; i += BLOCK) s_dif[i] = p.dif[i];
+  for (int i = threadIdx.x; i < p.n_glo * 12; i += BLOCK) s_glo[i] = p.glo[i];
+  for (int i = threadIdx.x; i < p.n_refr * 6; i += BLOCK) s_refr[i] = p.refr[i];
+  for (int i = threadIdx.x; i < p.n_emi * 3; i += BLOCK) s_emi[i] = p.emi[i];
+  for (int i = threadIdx.x; i < p.n_tf * 6; i += BLOCK) s_tf[i] = p.tf[i];
+  for (int i = threadIdx.x; i < p.n_lrow * 11; i += BLOCK) s_light[i] = p.lights[i];
+  for (int i = threadIdx.x; i < p.n_is * 4; i += BLOCK) s_is[i] = p.is_tab[i];
+  for (int i = threadIdx.x; i < 16; i += BLOCK) s_consts[i] = p.consts[i];
+  for (int i = threadIdx.x; i < 17; i += BLOCK) s_cam[i] = p.cam[i];
+  for (int i = threadIdx.x; i < p.n_obj * OBJ_COLS; i += BLOCK) s_obj[i] = p.obj[i];
+  if (threadIdx.x < 3) s_seed[threadIdx.x] = p.seed[threadIdx.x];
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+
+  const int idx = blockIdx.x * BLOCK + threadIdx.x;
+  unsigned int my_count = 0;
+  if (idx < p.n) {
+    const uint32_t seed0 = (uint32_t)s_seed[0];
+    float o[3], d[3], sb[3];   // sb: first-bounce R2 draws mix, phi, r2
+    const uint32_t counter0 = camera_ray(s_cam, s_seed, idx, p.width, p.height,
+                                         p.iid, o, d, sb);
+    // deterministic Fresnel-split pattern of this sample (pallas_record.py:268)
+    const int pattern = p.split_k ? (idx / p.n_pix) & ((1 << p.split_k) - 1) : 0;
+    const float* amb = s_consts;
+    const float* scene_nre = s_consts + 3;
+    const float* scene_nim = s_consts + 6;
+    float nre[3], nim[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) { nre[k] = scene_nre[k]; nim[k] = scene_nim[k]; }
+    int dcnt = 0, scnt = 0;
+    bool alive = true;
+    float dead_u = 0.0f, dead_v = 0.0f;   // uv of a dead lane's last hit
+    const size_t n = (size_t)p.n;
+
+    for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      int word = 0;
+      float rf[12];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) rf[j] = 0.0f;
+      if (!alive) {
+        rf[0] = dead_u;
+        rf[1] = dead_v;
+      } else {
+        ++my_count;
+        float t, orient;
+        int hit_id;
+        nearest_hit(s_geom, s_obj, p.n_obj, o, d, t, orient, hit_id);
+        const bool hit = !(t >= MISS_THRESHOLD);
+        const float px = o[0] + d[0] * t, py = o[1] + d[1] * t, pz = o[2] + d[2] * t;
+        float n3[3] = {0.0f, 0.0f, 0.0f};
+        if (hit_id >= 0) {
+          const float* g = s_geom + hit_id * GEOM_COLS;
+          const int* rec = s_obj + hit_id * OBJ_COLS;
+          normal_of(rec[OBJ_KIND], g, px, py, pz, n3);
+          if (rec[OBJ_UV]) uv_of(rec[OBJ_KIND], g, px, py, pz, n3, rf[0], rf[1]);
+        }
+        bool new_alive = false;
+        if (hit) {
+          const int* rec = s_obj + hit_id * OBJ_COLS;
+          const int mt = rec[OBJ_MAT_TYPE], slot = rec[OBJ_MAT_SLOT];
+          const bool img = rec[OBJ_IMG] != 0;
+          const bool split = p.split_k && !rec[OBJ_MC];
+          const bool cont_depth = bounce < rec[OBJ_MAX_DEPTH];
+          word = rec[OBJ_GID];
+          float nv[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) nv[k] = n3[k] * orient;
+          const float eps = F(1e-6) * fmaxf(
+              1.0f, fmaxf(fabsf(px), fmaxf(fabsf(py), fabsf(pz))));
+          const float pp[3] = {px, py, pz};
+          // ru(j): the draw j of this bounce, counter counter0 + 6 b + j + 1
+          const uint32_t cb = counter0 + 6u * (uint32_t)bounce;
+#define RU(j) hash_uniform(idx, seed0, cb + (j) + 1u)
+          float nd[3] = {d[0], d[1], d[2]};
+          float no[3] = {px, py, pz};
+
+          if (mt == MAT_EMISSIVE) {
+            // ---- emissive: terminal (pallas_record.py:344) ----
+            const float* col = s_emi + slot * 3;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              if (img) rf[6 + k] = 1.0f;
+              else rf[3 + k] = col[k];
+            }
+          } else if (mt == MAT_ENV) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) rf[6 + k] = 1.0f;
+          } else if (mt == MAT_DIFFUSE) {
+            // ---- diffuse + cap importance sampling (pallas_record.py:359) ----
+            const float* prm = s_dif + slot * 4;
+            const float aw = prm[3];
+            const float nu[3] = {px + nv[0] * eps, py + nv[1] * eps, pz + nv[2] * eps};
+            float ax_u[3], ax_v[3];
+            orthobasis(nv[0], nv[1], nv[2], ax_u, ax_v);
+            const bool first = !p.iid && dcnt == 0;   // R2 draws replace the hash
+            const float u_phi1 = first ? sb[1] : RU(0);
+            const float u_r21 = first ? sb[2] : RU(1);
+            const float phi = u_phi1 * F(2.0 * PI);
+            const float r2 = u_r21;
+            const float zc = sqrtf(fmaxf(1.0f - r2, 0.0f));
+            const float xc = cosf(phi) * sqrtf(r2);
+            const float yc = sinf(phi) * sqrtf(r2);
+            float sd[3], ndl, pdf;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) sd[k] = ax_u[k] * xc + ax_v[k] * yc + nv[k] * zc;
+            const int K = p.n_is;
+            if (K > 0) {
+              const float u_phi2 = first ? sb[1] : RU(3);
+              const float u_r22 = first ? sb[2] : RU(4);
+              const float u_mixv = first ? sb[0] : RU(5);
+              const int pick = min((int)(RU(2) * (float)K), K - 1);
+              float sw[3], scm;
+              cap_of(s_is + pick * 4, nu, sw, scm);
+              float cu[3], cv[3];
+              orthobasis(sw[0], sw[1], sw[2], cu, cv);
+              const float phi2 = u_phi2 * F(2.0 * PI);
+              const float zq = 1.0f + u_r22 * (scm - 1.0f);
+              const float sq = sqrtf(fmaxf(1.0f - zq * zq, 0.0f));
+              const float cq = cosf(phi2) * sq, sq2 = sinf(phi2) * sq;
+              if (!(u_mixv < aw)) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) sd[k] = cu[k] * cq + cv[k] * sq2 + sw[k] * zq;
+              }
+              ndl = clip01(sd[0] * nv[0] + sd[1] * nv[1] + sd[2] * nv[2]);
+              float pdf_cap = 0.0f;
+              for (int kk = 0; kk < K; ++kk) {
+                float w[3], cm;
+                cap_of(s_is + kk * 4, nu, w, cm);
+                const float cosk = sd[0] * w[0] + sd[1] * w[1] + sd[2] * w[2];
+                pdf_cap = pdf_cap + (cosk > cm ? 1.0f / ((1.0f - cm) * 2.0f * F(PI))
+                                               : 0.0f);
+              }
+              pdf = aw * (ndl / F(PI)) + (1.0f - aw) * pdf_cap / (float)K;
+            } else {
+              ndl = clip01(sd[0] * nv[0] + sd[1] * nv[1] + sd[2] * nv[2]);
+              pdf = ndl / F(PI);
+            }
+            const float w = ndl / fmaxf(pdf, F(1e-9)) / F(PI);
+            if (dcnt < 2) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                rf[9 + k] = img ? w : prm[k] * w;
+                nd[k] = sd[k];
+                no[k] = nu[k];
+              }
+              new_alive = true;
+              ++dcnt;
+            }
+          } else if (mt == MAT_REFRACTIVE) {
+            // ---- refractive (pallas_record.py:442-543) ----
+            const float* prm = s_refr + slot * 6;
+            const float cos_i = -(d[0] * nv[0] + d[1] * nv[1] + d[2] * nv[2]);
+            const bool entering = orient > 0.0f;
+            float Fr[3], T[3], n2r[3], n2i[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              const float n1r = nre[k], n1i = nim[k];
+              n2r[k] = entering ? prm[k] : scene_nre[k];
+              n2i[k] = entering ? prm[3 + k] : scene_nim[k];
+              const float dd = fmaxf(n2r[k] * n2r[k] + n2i[k] * n2i[k], F(1e-30));
+              const float rr = (n1r * n2r[k] + n1i * n2i[k]) / dd;
+              const float ri = (n1i * n2r[k] - n1r * n2i[k]) / dd;
+              const float r2r = rr * rr - ri * ri, r2i = rr * ri + ri * rr;
+              const float s2 = 1.0f - cos_i * cos_i;
+              float ctr, cti;
+              csqrt(1.0f - r2r * s2, -r2i * s2, ctr, cti);
+              const float ar = n1r * cos_i, ai = n1i * cos_i;
+              const float btr = n2r[k] * ctr - n2i[k] * cti;
+              const float bti = n2r[k] * cti + n2i[k] * ctr;
+              const float atr = n1r * ctr - n1i * cti, ati = n1r * cti + n1i * ctr;
+              const float bbr = n2r[k] * cos_i, bbi = n2i[k] * cos_i;
+              const float r_per = cdiv_abs2(ar - btr, ai - bti, ar + btr, ai + bti);
+              const float r_par = cdiv_abs2(bbr - atr, bbi - ati, atr + bbr, ati + bbi);
+              Fr[k] = (r_per + r_par) * 0.5f;
+              T[k] = 1.0f - Fr[k];
+            }
+            const float ratio_avg = (nre[0] / fmaxf(n2r[0], F(1e-9))
+                                     + nre[1] / fmaxf(n2r[1], F(1e-9))
+                                     + nre[2] / fmaxf(n2r[2], F(1e-9))) / 3.0f;
+            const float sin2t = ratio_avg * ratio_avg * (1.0f - cos_i * cos_i);
+            const bool non_tir = sin2t <= 1.0f;
+            const float croot = sqrtf(1.0f - clip01(sin2t));
+            const float T_avg = (T[0] + T[1] + T[2]) / 3.0f;
+            const float p_refr = non_tir ? clip01(T_avg) : 0.0f;
+            bool take = RU(0) < p_refr && non_tir;
+            bool cont = cont_depth;
+            bool det = false;
+            if (split) {
+              // deterministic branch from the pattern bit, weight 2F / 2T
+              det = scnt < p.split_k;
+              const bool bit = ((pattern >> scnt) & 1) == 1;
+              take = det ? (bit && non_tir) : take;
+              cont = cont && !(det && bit && !non_tir);
+            }
+            if (cont) {
+              if (det) ++scnt;
+              const float lam_c[3] = {F(2.0 * PI / 630.0), F(2.0 * PI / 550.0),
+                                      F(2.0 * PI / 475.0)};
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                const float absorb = expf(-2.0f * nim[k] * lam_c[k] * F(1e9) * t);
+                const float w_r = det ? 2.0f * T[k] : T[k] / fmaxf(p_refr, F(1e-9));
+                const float w_l = det ? 2.0f * Fr[k]
+                                      : Fr[k] / fmaxf(1.0f - p_refr, F(1e-9));
+                rf[9 + k] = absorb * (take ? w_r : w_l);
+              }
+              if (take) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k)
+                  nd[k] = d[k] * ratio_avg + nv[k] * (ratio_avg * cos_i - croot);
+                normalize3(nd[0], nd[1], nd[2]);
+#pragma unroll
+                for (int k = 0; k < 3; ++k) { nre[k] = n2r[k]; nim[k] = n2i[k]; }
+              } else {
+                reflect(d, nv, nd);
+              }
+              const float sgn = take ? -1.0f : 1.0f;
+#pragma unroll
+              for (int k = 0; k < 3; ++k) no[k] = pp[k] + nv[k] * eps * sgn;
+              new_alive = true;
+            }
+          } else if (mt == MAT_THINFILM) {
+            // ---- thin film: branch choice; F / T deferred to the replay
+            // (pallas_record.py:545-589) ----
+            const float* c = s_tf + slot * 6;
+            const float cos_i = clip01(-(d[0] * nv[0] + d[1] * nv[1] + d[2] * nv[2]));
+            const float q = fminf(fmaxf(((c[0] * cos_i + c[1]) * cos_i + c[2]) * cos_i
+                                        + c[3], F(0.05)), F(0.95));
+            bool refl = RU(0) < q;
+            float w_sel = refl ? 1.0f / q : 1.0f / (1.0f - q);
+            bool det = false;
+            if (split) {
+              det = scnt < p.split_k;
+              const bool bit = ((pattern >> scnt) & 1) == 1;
+              refl = det ? bit : refl;
+              w_sel = det ? 2.0f : w_sel;
+            }
+            rf[2] = cos_i;
+            word = word | (refl ? 1 << 16 : 0);
+            if (cont_depth) {
+              if (det) ++scnt;
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                rf[6 + k] = amb[k];
+                rf[9 + k] = w_sel;
+              }
+              if (refl) reflect(d, nv, nd);
+              const float sgn = refl ? 1.0f : -1.0f;
+#pragma unroll
+              for (int k = 0; k < 3; ++k) no[k] = pp[k] + nv[k] * eps * sgn;
+              new_alive = true;
+            }
+          } else if (mt == MAT_GLOSSY) {
+            // ---- glossy: ambient + Lambert + Blinn-Phong over the lights,
+            // shadow rays, the Fresnel mirror continuation
+            // (pallas_record.py:591-684) ----
+            const float* prm = s_glo + slot * 12;
+            const float rough = prm[9], spec_c = prm[10], diff_c = prm[11];
+            const float vv[3] = {-d[0], -d[1], -d[2]};
+            const float nu[3] = {px + nv[0] * eps, py + nv[1] * eps, pz + nv[2] * eps};
+            float lam_acc[3], spec_acc[3] = {0.0f, 0.0f, 0.0f}, F0[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              lam_acc[k] = amb[k] * diff_c;
+              const float dr = nre[k] - prm[3 + k], di = nim[k] - prm[6 + k];
+              const float sr = nre[k] + prm[3 + k], si = nim[k] + prm[6 + k];
+              F0[k] = (dr * dr + di * di) / fmaxf(sr * sr + si * si, F(1e-20));
+            }
+            const float rm = fmaxf(rough, F(1e-6));
+            const float a_ph = 2.0f / (rm * rm) - 2.0f;
+            const int n_lights = p.n_dir + p.n_point + p.n_spot;
+            for (int li = 0; li < n_lights; ++li) {
+              const float* L = s_light + li * 11;
+              const bool is_point = li >= p.n_dir;
+              const bool is_spot = li >= p.n_dir + p.n_point;
+              float l[3], dist;
+              if (is_point) {
+                const float wx = L[0] - px, wy = L[1] - py, wz = L[2] - pz;
+                dist = sqrtf(fmaxf(wx * wx + wy * wy + wz * wz, F(1e-20)));
+                l[0] = wx / dist; l[1] = wy / dist; l[2] = wz / dist;
+              } else {
+                l[0] = L[0]; l[1] = L[1]; l[2] = L[2];
+                dist = SKYBOX_DISTANCE;
+              }
+              const float ndl = fmaxf(nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2], 0.0f);
+              float lv[3];
+              if (is_point) {
+                float fall = ndl / (dist * dist) * 100.0f;
+                if (is_spot) {
+                  const float cos_t = -(l[0] * L[6] + l[1] * L[7] + l[2] * L[8]);
+                  const float tt = clip01((cos_t - L[10]) / fmaxf(L[9] - L[10], F(1e-6)));
+                  fall = fall * (tt * tt * (3.0f - 2.0f * tt));
+                }
+#pragma unroll
+                for (int k = 0; k < 3; ++k) lv[k] = L[3 + k] * fall;
+              } else {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) lv[k] = L[3 + k] * ndl;
+              }
+              bool occ = false;
+              for (int si = 0; si < p.n_obj && !occ; ++si) {
+                const int* srec = s_obj + si * OBJ_COLS;
+                if (!srec[OBJ_SHADOW]) continue;
+                float t_s, o_s;
+                isect_object(s_geom + si * GEOM_COLS, srec, nu, l, t_s, o_s);
+                occ = t_s < dist;
+              }
+              const float see = occ ? 0.0f : 1.0f;
+#pragma unroll
+              for (int k = 0; k < 3; ++k) lam_acc[k] = lam_acc[k] + diff_c * lv[k] * see;
+              float h[3] = {l[0] + vv[0], l[1] + vv[1], l[2] + vv[2]};
+              normalize3(h[0], h[1], h[2]);
+              const float cos_vh = clip01(dot3(vv, h));
+              const float p5 = pow5(1.0f - cos_vh);
+              const float dph = powf(clip01(dot3(nv, h)), a_ph) * (a_ph + 2.0f)
+                                / F(2.0 * PI);
+              const float denom = 4.0f * fminf(fmaxf(dot3(nv, vv) * ndl, F(0.001)), 1.0f);
+              const float sw = rough != 0.0f ? dph / denom * see * spec_c : 0.0f;
+#pragma unroll
+              for (int k = 0; k < 3; ++k)
+                spec_acc[k] = spec_acc[k] + (F0[k] + (1.0f - F0[k]) * p5) * sw * lv[k];
+            }
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              if (img) {
+                rf[6 + k] = lam_acc[k];
+                rf[3 + k] = spec_acc[k];
+              } else {
+                rf[3 + k] = prm[k] * lam_acc[k] + spec_acc[k];
+              }
+            }
+            if (cont_depth) {
+              const float p5r = pow5(1.0f - clip01(dot3(vv, nv)));
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                const float dr = scene_nre[k] - prm[3 + k], di = scene_nim[k] - prm[6 + k];
+                const float sr = scene_nre[k] + prm[3 + k], si = scene_nim[k] + prm[6 + k];
+                const float F0s = (dr * dr + di * di) / fmaxf(sr * sr + si * si, F(1e-20));
+                rf[9 + k] = F0s + (1.0f - F0s) * p5r;
+                no[k] = nu[k];
+              }
+              reflect(d, nv, nd);
+              new_alive = true;
+            }
+          }
+#undef RU
+          if (new_alive) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) { o[k] = no[k]; d[k] = nd[k]; }
+          }
+        }
+        if (!new_alive) {
+          alive = false;
+          dead_u = rf[0];
+          dead_v = rf[1];
+        }
+      }
+      // ---- this bounce's record, coalesced by ray index ----
+      const size_t b = (size_t)bounce;
+      p.rec_g[b * n + idx] = word;
+      float* out = p.rec_f + b * 12 * n + idx;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) out[j * n] = rf[j];
+    }
+  }
+
+  // ---- rays traced: warp sums, one shared add per warp, one global add ----
+  for (int off = 16; off > 0; off >>= 1)
+    my_count += __shfl_down_sync(0xffffffffu, my_count, off);
+  if ((threadIdx.x & 31) == 0) atomicAdd(&s_count, my_count);
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(p.count, (unsigned long long)s_count);
+}
+
+}  // namespace
+
+static size_t record_trace_smem(int n_obj, int n_dif, int n_glo, int n_refr,
+                                int n_emi, int n_tf, int n_lrow, int n_is) {
+  return sizeof(float) * ((size_t)n_obj * (GEOM_COLS + OBJ_COLS)
+                          + (size_t)n_dif * 4 + (size_t)n_glo * 12
+                          + (size_t)n_refr * 6 + (size_t)n_emi * 3
+                          + (size_t)n_tf * 6 + (size_t)n_lrow * 11
+                          + (size_t)n_is * 4 + 16 + 17 + 3);
+}
+
+extern "C" int record_trace_launch(
+    const int* seed, const float* cam, const float* geom, const int* obj,
+    int n_obj, const float* dif, int n_dif, const float* glo, int n_glo,
+    const float* refr, int n_refr, const float* emi, int n_emi,
+    const float* tf, int n_tf, const float* lights, int n_lrow, int n_dir,
+    int n_point, int n_spot, const float* is_tab, int n_is,
+    const float* consts, int width, int height, int spp, int max_bounces,
+    int iid, int split_k, int* rec_g, float* rec_f, long long* count,
+    void* stream) {
+  RecParams p;
+  p.seed = seed; p.cam = cam; p.geom = geom; p.obj = obj;
+  p.dif = dif; p.glo = glo; p.refr = refr; p.emi = emi; p.tf = tf;
+  p.lights = lights; p.is_tab = is_tab; p.consts = consts;
+  p.n_obj = n_obj; p.n_dif = n_dif; p.n_glo = n_glo; p.n_refr = n_refr;
+  p.n_emi = n_emi; p.n_tf = n_tf; p.n_lrow = n_lrow; p.n_is = n_is;
+  p.n_dir = n_dir; p.n_point = n_point; p.n_spot = n_spot;
+  p.width = width; p.height = height; p.n_pix = width * height;
+  p.n = spp * p.n_pix;
+  p.max_bounces = max_bounces; p.iid = iid; p.split_k = split_k;
+  p.rec_g = rec_g; p.rec_f = rec_f;
+  p.count = reinterpret_cast<unsigned long long*>(count);
+  const size_t smem = record_trace_smem(n_obj, n_dif, n_glo, n_refr, n_emi,
+                                        n_tf, n_lrow, n_is);
+  const int grid = (p.n + BLOCK - 1) / BLOCK;
+  record_trace_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -21,260 +21,39 @@
 // shading group on every lane with masks, because Mosaic cannot lower a
 // large loop carry.
 //
-// The random draws are integer math shared with the JAX package: the R2
-// lattice bits of core/lds.py and the murmur3 hash of _TileRng, keyed by
-// (ray index, draw counter, seed).  The counter numbering follows the
-// Pallas kernel exactly: 4 raygen draws under "iid" (none under "r2"),
-// then 6 per bounce except the last, which takes none.  Compiled without
+// The random draws are integer math shared with the JAX package
+// (trace_common.cuh): the R2 lattice bits of core/lds.py and the murmur3
+// hash of _TileRng, keyed by (ray index, draw counter, seed).  The
+// counter numbering follows the Pallas kernel exactly: 4 raygen draws
+// under "iid" (none under "r2"), then 6 per bounce except the last, which
+// takes none.  Compiled without
 // fast math and without FMA contraction, the float math rounds as the
 // plain version's does on the card, so the two agree ray by ray.
 //
-// Built by ops/solid_trace.py with nvcc into a shared library; the host
-// entry solid_trace_launch takes device pointers and returns
+// Built by ops/cuda_build.py with nvcc into the port's shared library;
+// the host entry solid_trace_launch takes device pointers and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trace_common.cuh"
 
 namespace {
-
-constexpr int BLOCK = 128;
-constexpr int GEOM_COLS = 24;
-constexpr int OBJ_COLS = 12;
-// object-table columns (core/compile.py)
-constexpr int OBJ_KIND = 0, OBJ_MAT_TYPE = 1, OBJ_MAT_SLOT = 2,
-              OBJ_MAX_DEPTH = 3, OBJ_AA_N = 7, OBJ_AA_NSIGN = 8,
-              OBJ_AA_U = 9, OBJ_AA_V = 10;
-constexpr int KIND_SPHERE = 0, KIND_PLANE = 1;   // else box
-constexpr int MAT_EMISSIVE = 1, MAT_DIFFUSE = 3, MAT_REFRACTIVE = 4;
-
-// Constants are written as double literals cast to float: the JAX and
-// torch versions round python floats (doubles) to float32 the same way.
-#define F(x) ((float)(x))
-constexpr double PI = 3.14159265358979323846;
-const float FARAWAY = F(1.0e30);
-const float MISS_THRESHOLD = F(1.0e29);
-const float INV_2_24 = F(1.0 / (1 << 24));
-
-// R2 generators and rotation salts (core/lds.py ALPHA, DIM_SALT)
-__constant__ uint32_t R2_ALPHA[8] = {
-    0xc13fa9a9u, 0x91e10da5u, 0xd1b54a32u, 0xabc98388u,
-    0xdb4f0b91u, 0xbbe05633u, 0xa0f2ec75u, 0x8cb92ba7u};
-__constant__ uint32_t R2_SALT[8] = {
-    0x3c6ef372u, 0x9e3779b9u, 0x85ebca77u, 0xc2b2ae3du,
-    0x27220a95u, 0x6180339bu, 0xb5297a4du, 0x68e31da5u};
 
 struct Params {
   const int* seed;       // (3,) chunk seed, R2 rotation seed, first sample
   const float* cam;      // (17,)
   const float* geom;     // (n_obj, 24)
-  const int* obj;        // (n_obj, 12)
+  const int* obj;        // (n_obj, OBJ_COLS)
   const float* dif;      // (n_dif, 4)
   const float* refr;     // (n_refr, 6)
   const float* emi;      // (n_emi, 3)
   const float* is_tab;   // (n_is, 4)
   const float* consts;   // (16,)
   int n_obj, n_dif, n_refr, n_emi, n_is;
-  int width, height, n_pix, n;
+  int width, height, n;
   int max_bounces, iid;
   float* L;                      // (n, 3)
   unsigned long long* count;     // rays traced
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ float bits_to_unit(uint32_t b) {
-  return (float)(int)(b >> 8) * INV_2_24;
-}
-
-// _TileRng.uniform with its counter value
-__device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed,
-                                              uint32_t counter) {
-  uint32_t x = idx * 0x9E3779B1u;
-  x ^= seed + counter * 0x85EBCA6Bu;
-  return bits_to_unit(mix32(x));
-}
-
-__device__ __forceinline__ float r2_unit(uint32_t pix, uint32_t s,
-                                         uint32_t seed, int dim) {
-  uint32_t rot = mix32((pix * 0x9E3779B1u) ^ (seed + R2_SALT[dim]));
-  return bits_to_unit(rot + s * R2_ALPHA[dim]);
-}
-
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  float inv = 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, F(1e-30)));
-  x = x * inv;
-  y = y * inv;
-  z = z * inv;
-}
-
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
-
-// (sin, cos) of 2*pi*u: the reference's quarter-wave polynomials
-__device__ __forceinline__ void sincos_2pi(float u, float& sin_v, float& cos_v) {
-  float t = u - floorf(u);
-  float x4 = t * 4.0f;
-  float q = floorf(x4);
-  float r = x4 - q;
-  float r2 = r * r;
-  float s = r * (F(1.57079632) + r2 * (F(-0.64596375) + r2 * (F(0.07968996)
-                 + r2 * (F(-0.00467430) + r2 * F(0.00015179)))));
-  float c = F(0.99999996) + r2 * (F(-1.23369862) + r2 * (F(0.25365306)
-            + r2 * (F(-0.02081478) + r2 * F(0.00086048))));
-  if (q == 1.0f) { sin_v = c; cos_v = -s; }
-  else if (q == 2.0f) { sin_v = -s; cos_v = -c; }
-  else if (q == 3.0f) { sin_v = -c; cos_v = s; }
-  else { sin_v = s; cos_v = c; }
-}
-
-// (u, v) orthonormal to n (pallas_trace.py _orthobasis)
-__device__ __forceinline__ void orthobasis(float nx, float ny, float nz,
-                                           float u[3], float v[3]) {
-  bool big = fabsf(nx) > F(0.9);
-  float ax = big ? 0.0f : 1.0f;
-  float ay = big ? 1.0f : 0.0f;
-  float vx = ny * 0.0f - nz * ay;
-  float vy = nz * ax - nx * 0.0f;
-  float vz = nx * ay - ny * ax;
-  normalize3(vx, vy, vz);
-  u[0] = ny * vz - nz * vy;
-  u[1] = nz * vx - nx * vz;
-  u[2] = nx * vy - ny * vx;
-  v[0] = vx; v[1] = vy; v[2] = vz;
-}
-
-__device__ __forceinline__ void isect_sphere(const float* g, const float o[3],
-                                             const float d[3], float& t,
-                                             float& orient) {
-  float cx = g[0], cy = g[1], cz = g[2], r = g[3];
-  float ocx = o[0] - cx, ocy = o[1] - cy, ocz = o[2] - cz;
-  float tca = -(d[0] * ocx + d[1] * ocy + d[2] * ocz);
-  float px = ocx + tca * d[0], py = ocy + tca * d[1], pz = ocz + tca * d[2];
-  float d2 = px * px + py * py + pz * pz;
-  float disc = r * r - d2;
-  float sq = sqrtf(fmaxf(disc, 0.0f));
-  float h0 = tca - sq, h1 = tca + sq;
-  float h = (h0 > 0.0f && h0 < h1) ? h0 : h1;
-  float ndd = ((o[0] + d[0] * h) - cx) * d[0] + ((o[1] + d[1] * h) - cy) * d[1]
-              + ((o[2] + d[2] * h) - cz) * d[2];
-  bool valid = disc > 0.0f && h > 0.0f && ndd != 0.0f;
-  t = valid ? h : FARAWAY;
-  orient = ndd < 0.0f ? 1.0f : -1.0f;
-}
-
-__device__ __forceinline__ void isect_plane(const float* g, const int* rec,
-                                            const float o[3], const float d[3],
-                                            float& t, float& orient) {
-  const float c[3] = {g[0], g[1], g[2]};
-  float w2 = g[12], h2 = g[13];
-  float ndd, ndco, uu, vv, tt;
-  int nax = rec[OBJ_AA_N];
-  if (nax >= 0) {
-    // axis-aligned frame: component selection, bit-identical to the
-    // generic formula (the dropped terms are exact *0 / +0)
-    int uax = rec[OBJ_AA_U], vax = rec[OBJ_AA_V];
-    bool pos = rec[OBJ_AA_NSIGN] > 0;
-    ndd = pos ? d[nax] : -d[nax];
-    if (ndd == 0.0f) ndd = ndd + F(1e-4);
-    ndco = pos ? (c[nax] - o[nax]) : (o[nax] - c[nax]);
-    tt = ndco / ndd;
-    uu = o[uax] + d[uax] * tt - c[uax];
-    vv = o[vax] + d[vax] * tt - c[vax];
-  } else {
-    float nx = g[9], ny = g[10], nz = g[11];
-    ndd = nx * d[0] + ny * d[1] + nz * d[2];
-    if (ndd == 0.0f) ndd = ndd + F(1e-4);
-    ndco = nx * (c[0] - o[0]) + ny * (c[1] - o[1]) + nz * (c[2] - o[2]);
-    tt = ndco / ndd;
-    float mx = o[0] + d[0] * tt - c[0];
-    float my = o[1] + d[1] * tt - c[1];
-    float mz = o[2] + d[2] * tt - c[2];
-    uu = g[3] * mx + g[4] * my + g[5] * mz;
-    vv = g[6] * mx + g[7] * my + g[8] * mz;
-  }
-  bool inside = fabsf(uu) <= w2 && fabsf(vv) <= h2 && ndco * ndd > 0.0f;
-  t = inside ? tt : FARAWAY;
-  orient = ndd < 0.0f ? 1.0f : -1.0f;
-}
-
-__device__ __forceinline__ void isect_box(const float* g, const float o[3],
-                                          const float d[3], float& t,
-                                          float& orient) {
-  float tmin = 0.0f, tmax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float ol = g[3 * i] * o[0] + g[3 * i + 1] * o[1] + g[3 * i + 2] * o[2];
-    float dl = g[3 * i] * d[0] + g[3 * i + 1] * d[1] + g[3 * i + 2] * d[2];
-    float inv = 1.0f / dl;
-    float t1 = (g[9 + i] - ol) * inv;
-    float t2 = (g[12 + i] - ol) * inv;
-    float lo = fminf(t1, t2), hi = fmaxf(t1, t2);
-    tmin = i == 0 ? lo : fmaxf(tmin, lo);
-    tmax = i == 0 ? hi : fminf(tmax, hi);
-  }
-  bool miss = tmax < 0.0f || tmin > tmax;
-  bool inside = tmin < 0.0f;
-  t = miss ? FARAWAY : (inside ? tmax : tmin);
-  orient = inside ? -1.0f : 1.0f;
-}
-
-__device__ __forceinline__ float signf(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ void normal_of(int kind, const float* g, float px,
-                                          float py, float pz, float n[3]) {
-  if (kind == KIND_SPHERE) {
-    float inv_r = 1.0f / g[3];
-    n[0] = (px - g[0]) * inv_r;
-    n[1] = (py - g[1]) * inv_r;
-    n[2] = (pz - g[2]) * inv_r;
-  } else if (kind == KIND_PLANE) {
-    n[0] = g[9]; n[1] = g[10]; n[2] = g[11];
-  } else {
-    // box: the max-|axis| face normal in the local frame
-    float mx = px - g[15], my = py - g[16], mz = pz - g[17];
-    float pl[3], ap[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pl[i] = g[3 * i] * mx + g[3 * i + 1] * my + g[3 * i + 2] * mz;
-      ap[i] = fabsf(pl[i]) / g[18 + i];
-    }
-    float pmax = fmaxf(fmaxf(ap[0], ap[1]), ap[2]);
-    float nl[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) nl[i] = pmax == ap[i] ? signf(pl[i]) : 0.0f;
-    n[0] = g[0] * nl[0] + g[3] * nl[1] + g[6] * nl[2];
-    n[1] = g[1] * nl[0] + g[4] * nl[1] + g[7] * nl[2];
-    n[2] = g[2] * nl[0] + g[5] * nl[1] + g[8] * nl[2];
-  }
-}
-
-// one importance-sampled target's cap as seen from nu: unit direction w
-// and cos of the cap's half-angle
-__device__ __forceinline__ void cap_of(const float* tab, const float nu[3],
-                                       float w[3], float& cm) {
-  float wx = tab[0] - nu[0], wy = tab[1] - nu[1], wz = tab[2] - nu[2];
-  float dist = sqrtf(fmaxf(wx * wx + wy * wy + wz * wz, F(1e-20)));
-  w[0] = wx / dist; w[1] = wy / dist; w[2] = wz / dist;
-  float sin_m = clip01(tab[3] / dist);
-  cm = sqrtf(fmaxf(1.0f - sin_m * sin_m, 0.0f));
-}
-
-__device__ __forceinline__ void csqrt(float ar, float ai, float& re, float& im) {
-  float mag = sqrtf(ar * ar + ai * ai);
-  re = sqrtf(fmaxf((mag + ar) * 0.5f, 0.0f));
-  float m = sqrtf(fmaxf((mag - ar) * 0.5f, 0.0f));
-  im = ai < 0.0f ? -m : m;
-}
 
 __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
   extern __shared__ float smem[];
@@ -305,53 +84,10 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
   unsigned int my_count = 0;
   if (idx < p.n) {
     const uint32_t seed0 = (uint32_t)s_seed[0];
-    const int pix = idx % p.n_pix;
-    const int py_i = pix / p.width;
-    const int px_i = pix - py_i * p.width;
-
-    // ---- camera draws (pallas_trace.py:548-566) ----
-    float u1, u2, u3, u4, sb_mix = 0.0f, sb_phi = 0.0f, sb_r2 = 0.0f;
-    uint32_t counter0;        // counter of the last raygen draw
-    if (!p.iid) {
-      const uint32_t su = (uint32_t)(idx / p.n_pix + s_seed[2]);
-      const uint32_t pu = (uint32_t)pix, rs = (uint32_t)s_seed[1];
-      u1 = r2_unit(pu, su, rs, 0);
-      u2 = r2_unit(pu, su, rs, 1);
-      u3 = r2_unit(pu, su, rs, 2);
-      u4 = r2_unit(pu, su, rs, 3);
-      sb_mix = r2_unit(pu, su, rs, 6);
-      sb_phi = r2_unit(pu, su, rs, 4);
-      sb_r2 = r2_unit(pu, su, rs, 5);
-      counter0 = 0;
-    } else {
-      u1 = hash_uniform(idx, seed0, 1);
-      u2 = hash_uniform(idx, seed0, 2);
-      u3 = hash_uniform(idx, seed0, 3);
-      u4 = hash_uniform(idx, seed0, 4);
-      counter0 = 4;
-    }
-
-    // ---- pinhole + thin lens (pallas_trace.py:210-236) ----
-    const float* cam = s_cam;
-    const float cw = cam[12], ch = cam[13], lens_r = cam[14], focal = cam[15];
-    float x = ((float)px_i / (float)(p.width - 1) - 0.5f) * cw
-              + (u1 - 0.5f) * (cw / (float)p.width);
-    float y = (0.5f - (float)py_i / (float)(p.height - 1)) * ch
-              + (u2 - 0.5f) * (ch / (float)p.height);
-    float r_d = sqrtf(u3);
-    float sp_d, cp_d;
-    sincos_2pi(u4, sp_d, cp_d);
-    float rx = r_d * cp_d * lens_r;
-    float ry = r_d * sp_d * lens_r;
-    float o[3], d[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      o[k] = cam[k] + cam[6 + k] * rx + cam[9 + k] * ry;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      d[k] = cam[k] + cam[9 + k] * (y * focal) + cam[6 + k] * (x * focal)
-             + cam[3 + k] * focal - o[k];
-    normalize3(d[0], d[1], d[2]);
+    float o[3], d[3], sb[3];   // sb: first-bounce R2 draws mix, phi, r2
+    const uint32_t counter0 = camera_ray(s_cam, s_seed, idx, p.width, p.height,
+                                         p.iid, o, d, sb);
+    const float sb_mix = sb[0], sb_phi = sb[1], sb_r2 = sb[2];
 
     float Lr[3] = {0.0f, 0.0f, 0.0f};
     float beta[3] = {1.0f, 1.0f, 1.0f};
@@ -367,18 +103,9 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
       const bool last = bounce == p.max_bounces - 1;
 
       // ---- nearest hit (pallas_trace.py:594-604) ----
-      float t = FARAWAY, orient = 1.0f;
-      int hit_id = -1;
-      for (int i = 0; i < p.n_obj; ++i) {
-        const float* g = s_geom + i * GEOM_COLS;
-        const int* rec = s_obj + i * OBJ_COLS;
-        float t_i, o_i;
-        const int kind = rec[OBJ_KIND];
-        if (kind == KIND_SPHERE) isect_sphere(g, o, d, t_i, o_i);
-        else if (kind == KIND_PLANE) isect_plane(g, rec, o, d, t_i, o_i);
-        else isect_box(g, o, d, t_i, o_i);
-        if (t_i < t) { t = t_i; orient = o_i; hit_id = i; }
-      }
+      float t, orient;
+      int hit_id;
+      nearest_hit(s_geom, s_obj, p.n_obj, o, d, t, orient, hit_id);
       if (t >= MISS_THRESHOLD) break;          // a miss ends the path
 
       const float* g = s_geom + hit_id * GEOM_COLS;
@@ -574,8 +301,8 @@ extern "C" int solid_trace_launch(
   p.dif = dif; p.refr = refr; p.emi = emi; p.is_tab = is_tab; p.consts = consts;
   p.n_obj = n_obj; p.n_dif = n_dif; p.n_refr = n_refr; p.n_emi = n_emi;
   p.n_is = n_is;
-  p.width = width; p.height = height; p.n_pix = width * height;
-  p.n = spp * p.n_pix;
+  p.width = width; p.height = height;
+  p.n = spp * width * height;
   p.max_bounces = max_bounces; p.iid = iid;
   p.L = L;
   p.count = reinterpret_cast<unsigned long long*>(count);

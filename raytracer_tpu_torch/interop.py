@@ -2,8 +2,10 @@
 
 `tables_from_jax(static, data)` takes a `SceneStatic` and `SceneData` from
 `raytracer_tpu.core.compile.compile_scene`, reads every array through
-`np.asarray`, and returns the port's (SceneStatic, SolidTables).  It never
-imports jax: whatever the arrays are, numpy reads them.  The tests feed the
+`np.asarray`, and returns the port's (SceneStatic, SolidTables): the
+solid and record paths' tables, the thin-film rows and the texture atlas
+(words, scales, shapes, offsets, encodings).  It never imports jax:
+whatever the arrays are, numpy reads them.  The tests feed the
 reference's own tables to the port through it.
 """
 
@@ -11,11 +13,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from .core.compile import (ObjRecord, SceneStatic, build_solid_tables,
-                           light_table)
+from .core.compile import (EnvSlot, ObjRecord, SceneStatic, TexRef,
+                           build_solid_tables, light_table)
 
-_MAT_FIELDS = ("diffuse_color", "diffuse_ambient_weight", "refr_n_re",
-               "refr_n_im", "emissive_color")
+_MAT_FIELDS = ("diffuse_color", "diffuse_ambient_weight", "glossy_color",
+               "glossy_n_re", "glossy_n_im", "glossy_roughness",
+               "glossy_spec", "glossy_diff", "refr_n_re", "refr_n_im",
+               "emissive_color")
+
+
+def _refs(refs):
+    return tuple(TexRef(int(r.slot), int(r.tex), float(r.repeat),
+                        bool(r.bilinear)) for r in refs)
 
 
 def static_from_jax(static) -> SceneStatic:
@@ -28,7 +37,23 @@ def static_from_jax(static) -> SceneStatic:
         n_objects=static.n_objects, n_is_targets=static.n_is_targets,
         mat_types_present=tuple(static.mat_types_present),
         obj_records=records, refr_disp=tuple(static.refr_disp),
-        pallas_ok=bool(static.pallas_ok))
+        pallas_ok=bool(static.pallas_ok),
+        pallas_tex_ok=bool(static.pallas_tex_ok),
+        n_dir_lights=int(static.n_dir_lights),
+        n_point_lights=int(static.n_point_lights),
+        n_spot_lights=int(static.n_spot_lights),
+        diffuse_tex=_refs(static.diffuse_tex),
+        glossy_tex=_refs(static.glossy_tex),
+        emissive_tex=_refs(static.emissive_tex),
+        thinfilm_lut=_refs(static.thinfilm_lut),
+        thinfilm_noise=_refs(static.thinfilm_noise),
+        thinfilm_comp=_refs(static.thinfilm_comp),
+        env_slots=tuple(EnvSlot(int(e.slot), e.kind, int(e.tex), e.lightmap,
+                                e.combined) for e in static.env_slots),
+        tex_shapes=tuple(tuple(int(v) for v in s) for s in static.tex_shapes),
+        tex_offsets=tuple(int(v) for v in static.tex_offsets),
+        tex_enc=tuple(int(v) for v in static.tex_enc),
+        tf_selp=tuple(tuple(float(c) for c in p) for p in static.tf_selp))
 
 
 def tables_from_jax(static, data):
@@ -41,9 +66,14 @@ def tables_from_jax(static, data):
                          a(lt.spot_color), a(lt.spot_cos_in),
                          a(lt.spot_cos_out))
     port_static = static_from_jax(static)
+    mats = data.mats
+    tf_rows = [tuple(sel) + (th, nf) for sel, th, nf in zip(
+        port_static.tf_selp, a(mats.tf_thickness), a(mats.tf_noise))]
     tables = build_solid_tables(
         port_static.obj_records, port_static.refr_disp, a(data.pallas_geom),
-        {k: a(getattr(data.mats, k)) for k in _MAT_FIELDS}, lights,
+        {k: a(getattr(mats, k)) for k in _MAT_FIELDS}, lights,
         a(data.is_center), a(data.is_radius), a(data.ambient_color),
-        a(data.scene_n_re), a(data.scene_n_im))
+        a(data.scene_n_re), a(data.scene_n_im), tf_rows,
+        np.asarray(data.tex_atlas, np.int32), a(data.tex_scale),
+        port_static.image_slots())
     return port_static, tables

@@ -2,11 +2,13 @@
 
 Counterpart of raytracer_tpu/materials/base.py: the constructors take the
 same keyword arguments and hold parameters only; the shading math lives in
-the solid kernel (ops/solid_trace.py).  The type ids are the JAX package's,
-so compiled tables carry over unchanged.
+the kernels (ops/solid_trace.py, ops/record_trace.py).  The type ids are
+the JAX package's, so compiled tables carry over unchanged.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..core.vec import as_complex3
 from ..textures.texture import as_texture
@@ -17,6 +19,7 @@ MAT_GLOSSY = 2
 MAT_DIFFUSE = 3
 MAT_REFRACTIVE = 4
 MAT_THINFILM = 5
+MAT_ENV = 6          # skybox / panorama environment material
 MAT_CUSTOM = 7
 
 
@@ -42,6 +45,21 @@ class Emissive(Material):
         self.texture_color = as_texture(color)
 
 
+class Glossy(Material):
+    """Lambert + Schlick-Fresnel / Blinn-Phong over the scene's lights, and
+    the mirror continuation (sightpy glossy.py:11-110)."""
+
+    mat_type = MAT_GLOSSY
+
+    def __init__(self, diff_color, roughness, spec_coeff, diff_coeff, n, **kwargs):
+        super().__init__(**kwargs)
+        self.diff_texture = as_texture(diff_color)
+        self.roughness = float(roughness)
+        self.spec_coeff = float(spec_coeff)
+        self.diff_coeff = float(diff_coeff)
+        self.n = as_complex3(n, "n")
+
+
 class Diffuse(Material):
     """Monte-Carlo Lambertian with the cosine / light-cap importance
     mixture (sightpy diffuse.py:12-124).
@@ -64,8 +82,8 @@ class Diffuse(Material):
 class Refractive(Material):
     """Complex-IoR Fresnel dielectric with Beer-Lambert absorption
     (sightpy refractive.py:10-123).  dispersion=True is accepted by the
-    scene description, but the solid kernel of this slice refuses it
-    (ROADMAP.md "TPU kernels to port", K1)."""
+    scene description, but the kernels of this port refuse it
+    (ROADMAP.md "TPU kernels to port", K1 and K2)."""
 
     mat_type = MAT_REFRACTIVE
 
@@ -73,3 +91,50 @@ class Refractive(Material):
         super().__init__(**kwargs)
         self.n = as_complex3(n, "n")
         self.dispersion = bool(dispersion)
+
+
+class ThinFilmInterference(Material):
+    """Thin-film coating: reflectance from a (cos theta, thickness) LUT
+    (sightpy thin_film_interference.py:11-115).
+
+    Without a `lut`, sightpy's PNG table is read when the asset path has
+    it, else the analytic Airy table (utils/thin_film.py) stands in; the
+    same for the thickness-jitter `noise_texture`.  Pillow is needed only
+    when such an asset file is found.
+    """
+
+    mat_type = MAT_THINFILM
+
+    def __init__(self, thickness, noise=0.0, film_n=1.4, lut=None,
+                 noise_texture=None, **kwargs):
+        from ..utils.image_io import load_image, resolve_asset
+
+        super().__init__(**kwargs)
+        self.thickness = float(thickness)
+        self.noise_factor = float(noise)
+        self.film_n = float(film_n)
+        self.custom_tables = lut is not None or noise_texture is not None
+        if lut is not None:
+            self.lut = np.asarray(lut, dtype=np.float32)
+        else:
+            try:
+                p = resolve_asset(f"thin_film_interference_n={film_n:g}.png",
+                                  subdir_hint="textures")
+            except FileNotFoundError:
+                from ..utils.thin_film import thin_film_lut
+                self.lut = thin_film_lut(film_n)
+            else:
+                from PIL import Image
+
+                # raw PNG values / 256, not linearised (sightpy's reading)
+                self.lut = (np.asarray(Image.open(p), dtype=np.float32)
+                            / 256.0)[..., :3]
+        if noise_texture is not None:
+            self.noise_texture = np.asarray(noise_texture, dtype=np.float32)
+        else:
+            try:
+                self.noise_texture = np.ascontiguousarray(
+                    load_image("noise.png", subdir_hint="textures")[..., 0])
+            except FileNotFoundError:
+                from ..utils.thin_film import default_noise_texture
+                self.noise_texture = default_noise_texture()

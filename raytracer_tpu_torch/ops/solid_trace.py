@@ -25,13 +25,7 @@ non-pinhole projections) raises NotImplementedError before any work.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
@@ -43,6 +37,7 @@ from ..core.compile import (KIND_CODES, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U,
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_GLOSSY,
                               MAT_REFRACTIVE)
 from ..utils.constants import FARAWAY, MISS_THRESHOLD, WAVELENGTHS_NM
+from .cuda_build import SMEM_LIMIT, check_tensor, load_library
 
 SAMPLERS = ("r2", "iid")
 
@@ -255,6 +250,52 @@ def _normal(kind, g, px, py, pz):
             b[2] * nl[0] + b[5] * nl[1] + b[8] * nl[2])
 
 
+def camera_rays(seed, cam_vec, width, height, spp, sampler):
+    """The camera draws and rays of one chunk (pallas_trace.py:548-566,
+    210-236): pinhole + thin lens.
+
+    seed: int64 (3,) seed vector.  Returns (idx, (ox, oy, oz, dx, dy, dz),
+    sb, counter0): idx the int64 ray indices (sample * n_pix + pixel), sb
+    the first diffuse bounce's R2 draws (mix, phi, r2) under "r2" or None,
+    counter0 the hash counter of the last raygen draw (4 under "iid", 0
+    under "r2").
+    """
+    dev = cam_vec.device
+    f32 = torch.float32
+    n_pix = width * height
+    idx = torch.arange(spp * n_pix, device=dev, dtype=torch.int64)
+    pix = idx % n_pix
+    py_i = pix // width
+    px_i = pix - py_i * width
+    cam = [cam_vec[j] for j in range(17)]
+    if sampler == "r2":
+        su = (idx // n_pix + seed[2]) & lds.M32
+        u1, u2, u3, u4, sb_mix, sb_phi, sb_r2 = lds.raygen_draws(
+            pix, su, seed[1])
+        sb, counter0 = (sb_mix, sb_phi, sb_r2), 0
+    else:
+        u1, u2, u3, u4 = (hash_uniform(idx, seed[0], c) for c in range(1, 5))
+        sb, counter0 = None, 4
+    o0x, o0y, o0z, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz = cam[:12]
+    cw, ch, lens_r, focal = cam[12:16]
+    x = ((_div(px_i.to(f32), width - 1) - 0.5) * cw
+         + (u1 - 0.5) * _div(cw, width))
+    y = ((0.5 - _div(py_i.to(f32), height - 1)) * ch
+         + (u2 - 0.5) * _div(ch, height))
+    r_d = torch.sqrt(u3)
+    sp_d, cp_d = sincos_2pi(u4)
+    rx = r_d * cp_d * lens_r
+    ry = r_d * sp_d * lens_r
+    ox = o0x + rix * rx + upx * ry
+    oy = o0y + riy * rx + upy * ry
+    oz = o0z + riz * rx + upz * ry
+    tx = o0x + upx * (y * focal) + rix * (x * focal) + fwx * focal - ox
+    ty = o0y + upy * (y * focal) + riy * (x * focal) + fwy * focal - oy
+    tz = o0z + upz * (y * focal) + riz * (x * focal) + fwz * focal - oz
+    dx, dy, dz = _normalize3(tx, ty, tz)
+    return idx, (ox, oy, oz, dx, dy, dz), sb, counter0
+
+
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
@@ -273,48 +314,16 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
     check_slice(tables, split_k, sampler, projection)
     dev = cam_vec.device
     f32 = torch.float32
-    n_pix = width * height
-    n = spp * n_pix
-    idx = torch.arange(n, device=dev, dtype=torch.int64)
+    n = spp * width * height
     seed = seed_vec.to(torch.int64)
-    pix = idx % n_pix
-    py_i = pix // width
-    px_i = pix - py_i * width
-    cam = [cam_vec[j] for j in range(17)]
-
-    draws = 0               # the _TileRng counter of the last draw taken
+    idx, (ox, oy, oz, dx, dy, dz), sb, draws = camera_rays(
+        seed, cam_vec, width, height, spp, sampler)
+    sb_mix, sb_phi, sb_r2 = sb if sb is not None else (None, None, None)
 
     def draw():
         nonlocal draws
         draws += 1
         return hash_uniform(idx, seed[0], draws)
-
-    if sampler == "r2":
-        su = (idx // n_pix + seed[2]) & lds.M32
-        u1, u2, u3, u4, sb_mix, sb_phi, sb_r2 = lds.raygen_draws(
-            pix, su, seed[1])
-    else:
-        u1, u2, u3, u4 = draw(), draw(), draw(), draw()
-        sb_mix = sb_phi = sb_r2 = None
-
-    # pinhole + thin lens (pallas_trace.py:210-236)
-    o0x, o0y, o0z, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz = cam[:12]
-    cw, ch, lens_r, focal = cam[12:16]
-    x = ((_div(px_i.to(f32), width - 1) - 0.5) * cw
-         + (u1 - 0.5) * _div(cw, width))
-    y = ((0.5 - _div(py_i.to(f32), height - 1)) * ch
-         + (u2 - 0.5) * _div(ch, height))
-    r_d = torch.sqrt(u3)
-    sp_d, cp_d = sincos_2pi(u4)
-    rx = r_d * cp_d * lens_r
-    ry = r_d * sp_d * lens_r
-    ox = o0x + rix * rx + upx * ry
-    oy = o0y + riy * rx + upy * ry
-    oz = o0z + riz * rx + upz * ry
-    tx = o0x + upx * (y * focal) + rix * (x * focal) + fwx * focal - ox
-    ty = o0y + upy * (y * focal) + riy * (x * focal) + fwy * focal - oy
-    tz = o0z + upz * (y * focal) + riz * (x * focal) + fwz * focal - oz
-    dx, dy, dz = _normalize3(tx, ty, tz)
 
     consts = tables.consts
     scene_nre = [consts[3 + k] for k in range(3)]
@@ -566,112 +575,21 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, bind, launch
+# the CUDA kernel: launch (ops/cuda_build.py builds and binds it)
 # ---------------------------------------------------------------------------
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("solid_trace.cu",)
-# The library is built into the checkout's build/ directory: the package
-# runs from a checkout of the repo, not from an installed copy.
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracer_tpu_torch"
-# IEEE division and sqrt (no --use_fast_math), and no FMA contraction:
-# the kernel then rounds as its plain version does on the card, ray for
-# ray (PERF.md: contraction would save 13.7% of kernel time and break the
-# exact rays_traced agreement)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
-SMEM_LIMIT = 48 * 1024    # bytes of dynamic shared memory without opt-in
-
-_lib = None
-build_log = ""            # nvcc's output of the last build (ptxas -v lines)
-
-
-def _nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-        nvcc = str(cand) if cand.exists() else None
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME "
-                           "(the solid kernel is compiled at first use)")
-    return nvcc
-
-
-def build():
-    """Compile csrc/ into a shared library keyed by a hash of the sources,
-    the flags and nvcc's version; returns its path.  Reuses a library
-    already built."""
-    global build_log
-    nvcc = _nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    h = hashlib.sha256((version + " ".join(NVCC_FLAGS)).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    out = BUILD_DIR / f"solid_trace_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)],
-            capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def load_library():
-    """Load (building first, if needed) the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.solid_trace_launch.argtypes = [
-        vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
-        vp, ci, vp, ci, vp, ci,         # dif, refr, emi tables + rows
-        vp, ci, vp,                     # is_tab, K, consts
-        ci, ci, ci, ci, ci,             # width, height, spp, max_bounces, iid
-        vp, vp, vp]                     # L, count, stream
-    lib.solid_trace_launch.restype = ci
-    _lib = lib
-    return lib
-
-
-def _check_tensor(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(s is not None and s != ts
-                                    for s, ts in zip(shape, t.shape)):
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
 
 def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
             sampler):
     dev = cam_vec.device
     f32, i32 = torch.float32, torch.int32
     n_obj = len(tables.obj_rows)
-    _check_tensor("seed_vec", seed_vec, i32, (3,), dev)
-    _check_tensor("cam_vec", cam_vec, f32, (17,), dev)
-    _check_tensor("geom", tables.geom, f32, (n_obj, 24), dev)
-    _check_tensor("obj", tables.obj, i32, (n_obj, OBJ_COLS), dev)
+    check_tensor("seed_vec", seed_vec, i32, (3,), dev)
+    check_tensor("cam_vec", cam_vec, f32, (17,), dev)
+    check_tensor("geom", tables.geom, f32, (n_obj, 24), dev)
+    check_tensor("obj", tables.obj, i32, (n_obj, OBJ_COLS), dev)
     for name, cols in (("dif", 4), ("refr", 6), ("emi", 3), ("is_tab", 4)):
-        _check_tensor(name, getattr(tables, name), f32, (None, cols), dev)
-    _check_tensor("consts", tables.consts, f32, (16,), dev)
+        check_tensor(name, getattr(tables, name), f32, (None, cols), dev)
+    check_tensor("consts", tables.consts, f32, (16,), dev)
     K = tables.n_is_targets
     if K > tables.is_tab.shape[0]:
         raise ValueError(f"is_tab has {tables.is_tab.shape[0]} rows, K={K}")

@@ -9,6 +9,7 @@ The channel axis is the last axis.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -45,6 +46,14 @@ def reinhard(rgb_linear, white=4.0):
 
 
 TONEMAP_OPERATORS = ("srgb", "aces", "reinhard")
+
+
+def srgb_to_srgb_linear(srgb):
+    """sRGB -> linear on the host (numpy), for texture preprocessing
+    (sightpy colour_functions.py:21-28)."""
+    srgb = np.asarray(srgb)
+    return np.where(srgb <= 0.03928, srgb / 12.92,
+                    np.power((srgb + 0.055) / 1.055, 2.4))
 
 
 def tonemap_display(rgb_linear, operator="srgb", exposure_scale=1.0):

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's Cornell render goes, on one CUDA device.
+"""Where the device time of one of the port's renders goes, on one CUDA device.
 
-    python scripts/torch_render_profile.py [TRACE.json]
+    python scripts/torch_render_profile.py [--scene cornell|example2] [TRACE.json]
 
-Renders the reference Cornell box at 400x400 x 256 spp through
-raytracer_tpu_torch's Scene.render (output="linear") once to warm up and
-once under torch.profiler, writes that render's Chrome trace (to
-TRACE.json, by default build/torch_render_trace.json), and reads the
-device events back from it: the span from the first to the last event,
-the busy time as the union of kernel and copy intervals, and the time of
-each kernel.  The last line is one JSON object.  The end-to-end Mrays/s
-is chip_smoke.py's; this script times no render of its own.
+Renders the scene through raytracer_tpu_torch's Scene.render
+(output="linear") once to warm up and once under torch.profiler, writes
+that render's Chrome trace (to TRACE.json, by default
+build/torch_render_trace_<scene>.json), and reads the device events back
+from it: the span from the first to the last event, the busy time as the
+union of kernel and copy intervals, the time of the scene's path kernel
+(solid_trace or record_trace) and of each kernel.  The scenes are the
+main paths of chip_smoke.py: the reference Cornell box at 400x400 x 256
+spp (the solid kernel) and example 2 at 400x300 x 64 spp (the record
+kernel and the replay).  The last line is one JSON object.  The
+end-to-end Mrays/s is chip_smoke.py's; this script times no render of
+its own.
 """
 
 import json
@@ -20,7 +24,11 @@ from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SIZE, SPP = 400, 256
+# scene -> (module, scene function, width, height, spp, path kernel)
+SCENES = {"cornell": ("torch_cornellbox", "build_cornell", 400, 400, 256,
+                      "solid_trace"),
+          "example2": ("torch_textured", "example2", 400, 300, 64,
+                       "record_trace")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -45,14 +53,15 @@ def device_breakdown(trace_events):
     return span, busy, dict(per_name)
 
 
-def report(trace_path, wall_s):
+def report(trace_path, wall_s, kernel_name):
     events = json.loads(Path(trace_path).read_text())["traceEvents"]
     span, busy, per_name = device_breakdown(events)
-    kern = sum(t for k, (t, _) in per_name.items() if "solid_trace" in k)
+    kern = sum(t for k, (t, _) in per_name.items() if kernel_name in k)
     print(f"profiled render: wall {wall_s * 1e3:.1f} ms, device span "
           f"{span / 1e3:.1f} ms, busy "
           f"(union) {busy / 1e3:.1f} ms ({100 * busy / span:.1f}% of span), "
-          f"solid kernel {kern / 1e3:.1f} ms ({100 * kern / busy:.1f}% of busy)")
+          f"{kernel_name} kernel {kern / 1e3:.1f} ms ({100 * kern / busy:.1f}% "
+          f"of busy)")
     for k, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {t / 1e3:10.3f} ms  {c:5d}x  {k[:90]}")
     print(json.dumps({"wall_s": wall_s, "device_span_s": span / 1e6,
@@ -61,20 +70,29 @@ def report(trace_path, wall_s):
 
 
 def main(argv):
+    import argparse
+    import importlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=sorted(SCENES), default="cornell")
+    ap.add_argument("trace", nargs="?")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "examples"))
-    from torch_cornellbox import build_cornell
+    module, fn, width, height, spp, kernel_name = SCENES[args.scene]
+    build = getattr(importlib.import_module(module), fn)
 
-    trace = Path(argv[0]) if argv else ROOT / "build" / "torch_render_trace.json"
+    trace = (Path(args.trace) if args.trace else
+             ROOT / "build" / f"torch_render_trace_{args.scene}.json")
     dev = torch.device("cuda:0")
-    sc = build_cornell(SIZE, SIZE)
-    render = lambda: sc.render(samples_per_pixel=SPP, output="linear", device=dev)
+    sc = build(width, height)
+    render = lambda: sc.render(samples_per_pixel=spp, output="linear", device=dev)
     render()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -84,9 +102,9 @@ def main(argv):
         wall = time.perf_counter() - t0
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    print(f"{torch.cuda.get_device_name(0)}: Cornell {SIZE}x{SIZE} x {SPP} spp, "
-          f"trace {trace}")
-    report(trace, wall)
+    print(f"{torch.cuda.get_device_name(0)}: {args.scene} {width}x{height} x "
+          f"{spp} spp, trace {trace}")
+    report(trace, wall, kernel_name)
     return 0
 
 

@@ -78,8 +78,8 @@ def test_aa_planes_detected_as_in_jax():
 
 def test_out_of_slice_scenes_raise():
     sc = emissive(T)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sc.add_Background("sky.png")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sc.add_Background("sky.hdr")
     with pytest.raises(NotImplementedError, match="item 8"):
         T.Diffuse(diff_color=T.rgb(1, 1, 1), normalmap=np.zeros((2, 2, 3)))
 

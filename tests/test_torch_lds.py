@@ -110,9 +110,10 @@ def test_atan2_and_asin_within_2_ulp():
 
 
 def test_cuda_source_constants_match_lds():
-    """csrc/solid_trace.cu hard-codes the lattice generators and salts."""
+    """csrc/trace_common.cuh, which both kernels include, hard-codes the
+    lattice generators and salts."""
     src = (Path(st.__file__).resolve().parents[1] / "csrc"
-           / "solid_trace.cu").read_text()
+           / "trace_common.cuh").read_text()
 
     def table(name):
         body = re.search(name + r"\[8\] = \{([^}]*)\}", src).group(1)

@@ -12,6 +12,7 @@ tests/conftest.py (which sets JAX up):
     python -m pytest --noconftest -m cuda tests/test_torch_scenes.py
 """
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -22,9 +23,12 @@ import torch
 import raytracer_tpu_torch as T
 from raytracer_tpu_torch.core.camera import cam_vec
 from raytracer_tpu_torch.core.scene import chunk_seeds, plan_chunks
+from raytracer_tpu_torch.ops import cuda_build
+from raytracer_tpu_torch.ops import record_trace as rt
 from raytracer_tpu_torch.ops import solid_trace as st
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
+import torch_textured  # noqa: E402
 
 
 def cornell(m):
@@ -117,6 +121,84 @@ def lights_and_slots(m):
     return sc
 
 
+def _procedural(m):
+    """The package's procedural texture module (numpy in both)."""
+    return importlib.import_module(m.__name__ + ".textures.procedural")
+
+
+def textured_scene(m):
+    """tests/test_pallas_record.py's textured scene: a glossy sphere, a
+    checkered glossy floor, a directional light, the procedural sky."""
+    sc = m.Scene(ambient_color=m.rgb(0.05, 0.05, 0.05))
+    sc.add_Camera(look_from=m.vec3(0, 0.25, 1), look_at=m.vec3(0, 0.25, -3),
+                  screen_width=20, screen_height=16)
+    sc.add_DirectionalLight(Ldir=m.vec3(0.52, 0.45, -0.5),
+                            color=m.rgb(0.15, 0.15, 0.15))
+    gold = m.Glossy(diff_color=m.rgb(1.0, 0.572, 0.184),
+                    n=m.vec3(0.15 + 3.58j, 0.4 + 2.37j, 1.54 + 1.91j),
+                    roughness=0.0, spec_coeff=0.2, diff_coeff=0.8)
+    sc.add(m.Sphere(material=gold, center=m.vec3(-0.5, 0.1, -3.0), radius=0.6,
+                    max_ray_depth=3))
+    floor = m.Glossy(diff_color=m.image(_procedural(m).checkerboard(64),
+                                        repeat=40.0),
+                     n=m.vec3(1.2 + 0.3j, 1.2 + 0.3j, 1.1 + 0.3j),
+                     roughness=0.2, spec_coeff=0.3, diff_coeff=0.9)
+    sc.add(m.Plane(material=floor, center=m.vec3(0, -0.5, -3.0), width=120.0,
+                   height=120.0, u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1),
+                   max_ray_depth=3))
+    sc.add_Background(m.procedural_sky(128, 96))
+    return sc
+
+
+def thinfilm_ibl(m):
+    """The thin-film + lightmap scene of tests/test_pallas_record.py:54 at
+    example 4's light intensity, 32x32: a blurred 128x96 sky whose
+    combined table packs RGB9E5, and a thin film whose composed table is
+    too large, so the replay takes two rounds."""
+    sc = m.Scene(ambient_color=m.rgb(0.01, 0.01, 0.01))
+    sc.add_Camera(screen_height=32, screen_width=32,
+                  look_from=m.vec3(-4, 0, 0), look_at=m.vec3(0, 0.05, 0))
+    sc.add(m.Sphere(material=m.ThinFilmInterference(thickness=330, noise=60.0),
+                    center=m.vec3(1.0, 0.0, 1.5), radius=1.7, shadow=False,
+                    max_ray_depth=5))
+    sc.add_Background(m.procedural_sky(128, 96), light_intensity=5.0, blur=4.0)
+    return sc
+
+
+def lit_textures(m):
+    """Diffuse with an image texture, glossy with a bilinear texture, an
+    emissive image (importance-sampled), a solid diffuse box, one point
+    and one spot light with shadow rays, and the procedural sky."""
+    proc = _procedural(m)
+    checker = proc.checkerboard(64, squares=4)
+    sc = m.Scene(ambient_color=m.rgb(0.05, 0.04, 0.03))
+    sc.add_Camera(look_from=m.vec3(0, 1.0, 3.0), look_at=m.vec3(0, 0.3, 0),
+                  screen_width=32, screen_height=32, field_of_view=60)
+    sc.add_PointLight(pos=m.vec3(1.5, 2.5, 1.0), color=m.rgb(3, 3, 3))
+    sc.add_SpotLight(pos=m.vec3(-1.5, 2.5, 1.0), direction=m.vec3(0.5, -1, -0.3),
+                     color=m.rgb(2, 2, 3), angle=35.0)
+    sc.add(m.Plane(material=m.Diffuse(diff_color=m.image(checker, repeat=4.0),
+                                      diffuse_rays=4),
+                   center=m.vec3(0, 0, 0), width=8.0, height=8.0,
+                   u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1)))
+    sc.add(m.Sphere(material=m.Glossy(
+                        diff_color=m.image(proc.wood(64), repeat=2.0,
+                                           filter="bilinear"),
+                        n=m.vec3(1.5, 1.5, 1.5), roughness=0.3,
+                        spec_coeff=0.4, diff_coeff=0.6),
+                    center=m.vec3(0.6, 0.5, 0.0), radius=0.5, max_ray_depth=2))
+    sc.add(m.Sphere(material=m.Emissive(color=m.image(checker * 3.0)),
+                    center=m.vec3(-0.8, 0.6, -0.5), radius=0.35),
+           importance_sampled=True)
+    box = m.Cuboid(material=m.Diffuse(diff_color=m.rgb(0.7, 0.3, 0.2)),
+                   center=m.vec3(-0.2, 0.25, 0.8), width=0.4, height=0.5,
+                   length=0.3)
+    box.rotate(θ=20, u=m.vec3(0, 1, 0))
+    sc.add(box)
+    sc.add_Background(m.procedural_sky(128, 96))
+    return sc
+
+
 def too_many_objects(m):
     """49 objects: past the gate's object cap in both packages."""
     sc = m.Scene()
@@ -154,9 +236,10 @@ def test_chunk_seeds_layout():
 
 
 def test_build_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):
-    """The kernel build, with a stand-in for nvcc: the library lands under
-    a hash of the sources, the flags and nvcc's version, is reused, and a
-    failed build leaves no file behind."""
+    """The kernels' build, with a stand-in for nvcc: the library lands
+    under a hash of the sources (the shared header included), the flags
+    and nvcc's version, is reused, and a failed build leaves no file
+    behind."""
     fake = tmp_path / "nvcc"
 
     def stand_in(version, compiles):
@@ -166,21 +249,30 @@ def test_build_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):
                         f'&& exit 0\n{body}')
         fake.chmod(0o755)
 
+    cb = cuda_build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("solid_trace.cu", "record_trace.cu", "trace_common.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
     stand_in("release 1.0", compiles=True)
-    monkeypatch.setattr(st, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(st, "_nvcc", lambda: str(fake))
-    out = st.build()
+    monkeypatch.setattr(cb, "CSRC", csrc)
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cb, "_nvcc", lambda: str(fake))
+    out = cb.build()
     assert out.parent == tmp_path / "build" and out.read_text() == "lib\n"
-    assert "ptxas info" in st.build_log
+    assert "ptxas info" in cb.build_log
     stand_in("release 1.0", compiles=False)
-    assert st.build() == out                      # reused, nvcc not run
-    for flags, version in ((st.NVCC_FLAGS + ("-DOTHER",), "release 1.0"),
-                           (st.NVCC_FLAGS, "release 2.0")):
+    assert cb.build() == out                      # reused, nvcc not run
+    for flags, version in ((cb.NVCC_FLAGS + ("-DOTHER",), "release 1.0"),
+                           (cb.NVCC_FLAGS, "release 2.0")):
         with monkeypatch.context() as m:
-            m.setattr(st, "NVCC_FLAGS", flags)
+            m.setattr(cb, "NVCC_FLAGS", flags)
             stand_in(version, compiles=False)
             with pytest.raises(RuntimeError, match="nvcc failed"):
-                st.build()
+                cb.build()
+    (csrc / "trace_common.cuh").write_text("// changed\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cb.build()                                # a header edit rebuilds
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [out.name]
 
 
@@ -224,6 +316,94 @@ def test_render_on_card_runs_the_kernel_and_matches_cpu():
     img, stats = sc.render(samples_per_pixel=2, output="linear",
                            return_stats=True, device=dev)
     assert st.solid_trace_chunk.launches == before + n_chunks
+    ref, ref_stats = sc.render(samples_per_pixel=2, output="linear",
+                               return_stats=True, device="cpu")
+    assert np.isfinite(img).all()
+    assert abs(stats["rays_traced"] - ref_stats["rays_traced"]) <= 2
+    assert abs(img.mean() - ref.mean()) <= 1e-4 * ref.mean()
+
+
+RECORD_CUDA_CASES = {  # 32x32 scenes of the port, sampler
+    "example1": (lambda: torch_textured.example1(32, 32), "r2"),
+    "example2": (lambda: torch_textured.example2(32, 32), "r2"),
+    "example3": (lambda: torch_textured.example3(32, 32), "r2"),
+    "example4-blur0": (lambda: torch_textured.example4(32, 32, blur=0.0), "r2"),
+    "lit_textures": (lambda: lit_textures(T), "iid"),
+    # the R2 first-diffuse-bounce override, and a thin lens
+    "lit_textures-r2": (lambda: lit_textures(T), "r2"),
+    "example2-thinlens": (lambda: _thin_lens(torch_textured.example2(32, 32)),
+                          "r2"),
+}
+
+
+def _thin_lens(sc):
+    sc.camera.aperture, sc.camera.focal_distance = 0.1, 2.5
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RECORD_CUDA_CASES)
+def test_record_kernel_matches_plain_version_on_card(case):
+    """The record kernel against its plain version on the card: group
+    words, shading floats and rays_traced, then the replayed radiance."""
+    dev = _need_card()
+    build, sampler = RECORD_CUDA_CASES[case]
+    spp = 16
+    sc = build()
+    static, tables, settings = sc._settings_for_render()
+    tables = tables.to(dev)
+    cam = cam_vec(sc.camera.params()).to(dev)
+    seed = torch.tensor([11, 22, 5], dtype=torch.int32, device=dev)
+    args = (seed, static, tables, cam, 32, 32, spp, settings.max_bounces,
+            settings.split_k, sampler)
+    before = rt.record_paths.launches
+    g_k, f_k, n_k = rt.record_paths(*args)
+    g_p, f_p, n_p = rt.record_trace_chunk_reference(*args)
+    torch.cuda.synchronize()
+    assert rt.record_paths.launches == before + 1
+    assert int(n_k) == int(n_p)
+    assert (g_k == g_p).float().mean().item() >= 0.999
+    assert torch.isclose(f_k, f_p, rtol=1e-4, atol=1e-5).float().mean().item() >= 0.999
+    n = 32 * 32 * spp
+    L_k = rt.replay(g_k, f_k, static, tables, settings.max_bounces, n)
+    L_p = rt.replay(g_p, f_p, static, tables, settings.max_bounces, n)
+    assert torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(dim=1).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_record_kernel_refuses_out_of_slice_scenes_on_card():
+    """A dispersive scene and a non-pinhole camera raise before any
+    launch."""
+    dev = _need_card()
+    sc = torch_textured.example2(32, 32)
+    sc.scene_primitives[0].material.dispersion = True
+    static, tables, settings = sc._settings_for_render()
+    cam = cam_vec(sc.camera.params()).to(dev)
+    seed = torch.tensor([1, 2, 0], dtype=torch.int32, device=dev)
+    before = rt.record_paths.launches
+    for stat, proj in ((static, "pinhole"),
+                       (torch_textured.example2(32, 32)._settings_for_render()[0],
+                        "fisheye")):
+        with pytest.raises(NotImplementedError, match="K2"):
+            rt.record_paths(seed, stat, tables.to(dev), cam, 32, 32, 8,
+                            settings.max_bounces, settings.split_k, "r2", proj)
+    assert rt.record_paths.launches == before
+
+
+@pytest.mark.cuda
+def test_record_render_on_card_runs_the_kernel_and_matches_cpu():
+    """Scene.render of a textured scene on the card launches the record
+    kernel once a chunk; the CPU traces the same rays with the plain
+    version, so the images agree up to rounding."""
+    dev = _need_card()
+    sc = torch_textured.example2(16, 12)
+    _, _, settings = sc._settings_for_render()
+    fan = 1 << settings.split_k
+    chunk, n_chunks = plan_chunks(2 * fan, 16, 12, fan)
+    before = rt.record_paths.launches
+    img, stats = sc.render(samples_per_pixel=2, output="linear",
+                           return_stats=True, device=dev)
+    assert rt.record_paths.launches == before + n_chunks
     ref, ref_stats = sc.render(samples_per_pixel=2, output="linear",
                                return_stats=True, device="cpu")
     assert np.isfinite(img).all()
