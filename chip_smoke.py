@@ -19,7 +19,20 @@ checkout and drives both render paths:
   with the x8 Fresnel-split fan, 16 chunks of 32 spp), checks the image
   against plain-version chunks, and at the chunk shape (3.84 M rays)
   holds kernel + replay against the plain version and times the kernel,
-  the replay and the plain version.
+  the replay and the plain version;
+- the rest of both kernels (examples/torch_primitives.py): the solid
+  kernel against its plain version at 64x64 x 16 spp on the dispersion
+  example, example 2 as a solid scene (glossy, shadow rays, split_k 3),
+  the shapes scene (triangles, discs, cylinders, point and spot lights)
+  and the Cornell box under the fisheye, equirect and orthographic
+  cameras; the record kernel at 32x32 x 16 spp on the primitives, fisheye
+  and panorama examples and an orthographic still life; Scene.render of
+  dispersion 400x300 x 256 spp and example 2 solid 400x300 x 64 spp (the
+  solid kernel), primitives 400x300 x 64 spp, fisheye 400x400 x 64 spp
+  (pixels outside the image circle exactly 0) and panorama 512x256 x 64
+  spp (the record kernel), each image against plain-version chunks; and
+  the chunk-shape times of the solid kernel on dispersion and the record
+  kernel on primitives against their plain versions.
 
 Each phase prints one line; any failure exits non-zero before the last
 line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -45,6 +58,16 @@ REC_W, REC_H, REC_SPP = 400, 300, 64
 REC_CHECK = 32, 32, 16                # kernel vs plain on examples 1-4
 REC_REF_CHUNKS = 2                    # plain-version chunks of the image check
 REC_KERNEL_REPS = 10
+# the other paths of both kernels: (example, width, height, spp) of each
+# render, the kernel-vs-plain scenes, the timed renders of each
+NEW_SOLID_RENDERS = (("dispersion", 400, 300, 256), ("example2_solid", 400, 300, 64))
+NEW_RECORD_RENDERS = (("primitives", 400, 300, 64), ("fisheye", 400, 400, 64),
+                      ("panorama", 512, 256, 64))
+NEW_SOLID_CHECKS = ("dispersion", "example2_solid", "shapes", "cornell-fisheye",
+                    "cornell-equirect", "cornell-orthographic")
+NEW_RECORD_CHECKS = ("primitives", "fisheye", "panorama", "still_life-orthographic")
+NEW_TIMED_RENDERS = 2
+NEW_REF_CHUNKS = 2
 
 
 class SmokeFailure(Exception):
@@ -243,6 +266,232 @@ def record_phases(torch, dev):
             "ms": ms, "plain_ms": p_ms}
 
 
+def new_scene(name, width, height):
+    """A scene of the other paths' phases, built with the port."""
+    import torch_primitives
+    from torch_cornellbox import build_cornell
+
+    if name.startswith("cornell-"):
+        return build_cornell(width, height, name.split("-")[1])
+    if name == "still_life-orthographic":
+        return torch_primitives.orthographic(width, height)
+    return torch_primitives.BUILDERS[name](width, height)
+
+
+def chunk_args(torch, dev, sc, spp, seed):
+    """(static, settings, kernel arguments) of one chunk of scene sc on
+    the card; the arguments end with split_k, sampler and projection."""
+    from raytracer_tpu_torch.core.camera import cam_vec
+
+    static, tables, settings = sc._settings_for_render()
+    W, H = sc.camera.screen_width, sc.camera.screen_height
+    seed = torch.tensor(seed, dtype=torch.int32, device=dev)
+    tail = (W, H, spp, settings.max_bounces, settings.split_k,
+            settings.sampler, settings.projection)
+    cam = cam_vec(sc.camera.params()).to(dev)
+    tables = tables.to(dev)
+    args = ((seed, tables, cam) if static.pallas_ok
+            else (seed, static, tables, cam)) + tail
+    return static, settings, args
+
+
+def plain_L(torch, static, args):
+    """The plain version's radiance of one chunk (records then replay on
+    the record path), non-finite samples scrubbed as Scene.render does."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    if static.pallas_ok:
+        L, _ = st.solid_trace_chunk_reference(*args)
+    else:
+        seed, static, tables, cam, W, H, spp, B = args[:8]
+        g, f, _ = rt.record_trace_chunk_reference(*args)
+        L = rt.replay(g, f, static, tables, B, spp * W * H)
+    return torch.where(torch.isfinite(L), L, 0.0)
+
+
+def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
+    """One chunk of scene `name` through its kernel and its plain version
+    on the same inputs; returns the max abs error of L."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    sc = new_scene(name, width, height)
+    static, settings, args = chunk_args(torch, dev, sc, spp, seed)
+    n = spp * width * height
+    head = (f"{name} {width}x{height} x {spp} spp ({settings.projection}, "
+            f"split_k {settings.split_k}, max_bounces {settings.max_bounces})")
+    if static.pallas_ok:
+        L_k, n_k = st.solid_trace_chunk(*args)
+        L_p, n_p = st.solid_trace_chunk_reference(*args)
+        rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+        print(f"solid kernel vs plain, {head}: {n} rays | match {rate:.6f}, "
+              f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
+              f"rays_traced {n_k} vs {n_p}", flush=True)
+        require(rate >= MATCH_RATE, f"{name}: match rate {rate}")
+    else:
+        rec_k, rec_p = rt.record_paths(*args), rt.record_trace_chunk_reference(*args)
+        words, floats, n_k, n_p = compare_records(rec_k, rec_p)
+        B = settings.max_bounces
+        L_k = rt.replay(*rec_k[:2], static, args[2], B, n)
+        L_p = rt.replay(*rec_p[:2], static, args[2], B, n)
+        rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
+        print(f"record kernel vs plain, {head}: {n} rays | words equal "
+              f"{words:.6f}, floats match {floats:.6f} | L match {rate:.6f}, "
+              f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
+              f"rays_traced {n_k} vs {n_p}", flush=True)
+        require(words >= MATCH_RATE and floats >= MATCH_RATE and rate >= MATCH_RATE,
+                f"{name}: records or L disagree with the plain version")
+    require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
+    require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
+    return max_err
+
+
+def render_path(torch, dev, name, width, height, spp):
+    """Scene.render of example `name` at full width through its kernel,
+    one warm-up and NEW_TIMED_RENDERS timed renders, the launch count of
+    those renders, and the image mean against NEW_REF_CHUNKS plain-version
+    chunks (block means over the split patterns).  Returns the launches."""
+    import numpy as np
+    from raytracer_tpu_torch.core.camera import projection_mask
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    sc = new_scene(name, width, height)
+    static, _, settings = sc._settings_for_render()
+    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_paths
+    kernel = "solid" if static.pallas_ok else "record"
+    fan = 1 << settings.split_k
+    chunk, n_chunks = plan_chunks(spp * sc._diffuse_fan() * fan, width, height, fan)
+    fn.launches = 0
+    walls, stats = [], None
+    for _ in range(1 + NEW_TIMED_RENDERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, stats = sc.render(samples_per_pixel=spp, output="linear",
+                               return_stats=True, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = fn.launches
+    require(launches == n_chunks * (1 + NEW_TIMED_RENDERS),
+            f"{name}: {launches} {kernel} kernel launches for "
+            f"{1 + NEW_TIMED_RENDERS} renders of {n_chunks} chunks")
+    wall = statistics.median(walls[1:])
+    mrays = stats["rays_traced"] / wall / 1e6
+    require(img.shape == (height, width, 3), f"{name}: image shape {img.shape}")
+    require(bool(np.isfinite(img).all()), f"{name}: non-finite image")
+    mask = projection_mask(settings.projection, width, height)
+    masked = ""
+    if mask is not None:
+        outside = img.reshape(-1, 3)[mask == 0]
+        require(bool((outside == 0).all()), f"{name}: lit pixels outside the circle")
+        masked = f", {len(outside)} pixels outside the image circle all 0"
+    img_mean = float(img.mean())
+    blocks = []
+    for i in range(NEW_REF_CHUNKS):
+        _, _, args = chunk_args(torch, dev, sc, chunk, [777 + i, 31337, i * chunk])
+        L = plain_L(torch, static, args).view(chunk, width * height, 3)
+        if mask is not None:
+            L = L * torch.from_numpy(mask).to(dev)[None, :, None]
+        per_sample = L.reshape(chunk, -1).mean(dim=1).double()
+        blocks.append(per_sample.view(chunk // fan, fan).mean(dim=1))
+        del L
+    blocks = torch.cat(blocks)
+    ref_mean = blocks.mean().item()
+    se = (blocks.std() / len(blocks) ** 0.5).item()
+    print(f"{kernel} path: Scene.render {name} {width}x{height} x {spp} spp "
+          f"(x{sc._diffuse_fan() * fan} fan, {settings.projection}), {n_chunks} "
+          f"chunks of {chunk} spp, {launches} {kernel} kernel launches in "
+          f"{1 + NEW_TIMED_RENDERS} renders | wall {wall:.4f} s (median of "
+          f"{NEW_TIMED_RENDERS}; {', '.join(f'{w:.4f}' for w in walls)}) | "
+          f"rays_traced {stats['rays_traced']} | {mrays:.1f} Mrays/s | image "
+          f"mean {img_mean:.6f}, plain {NEW_REF_CHUNKS} x {chunk}-spp chunks "
+          f"{ref_mean:.6f} +- {se:.6f} ({len(blocks)} blocks){masked}", flush=True)
+    require(abs(img_mean - ref_mean) < 4 * se,
+            f"{name}: image mean {img_mean} vs plain {ref_mean} (4 SE = {4 * se})")
+    return launches
+
+
+def chunk_timing(torch, dev, name, width, height, spp):
+    """Kernel against plain version at scene `name`'s chunk shape: the
+    match, then CUDA-event times (and the replay's on the record path).
+    Returns (max abs error, kernel ms, plain ms)."""
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    sc = new_scene(name, width, height)
+    static, _, settings = sc._settings_for_render()
+    fan = 1 << settings.split_k
+    chunk, _ = plan_chunks(spp * sc._diffuse_fan() * fan, width, height, fan)
+    static, settings, args = chunk_args(torch, dev, sc, chunk, [99, 4242, 0])
+    n = chunk * width * height
+    B = settings.max_bounces
+    if static.pallas_ok:
+        kernel = lambda: st.solid_trace_chunk(*args)
+        plain = lambda: st.solid_trace_chunk_reference(*args)
+        (L_k, n_k), (L_p, n_p) = kernel(), plain()
+        rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+        extra = ""
+    else:
+        kernel = lambda: rt.record_paths(*args)
+        plain = lambda: rt.record_trace_chunk_reference(*args)
+        rec_k, rec_p = kernel(), plain()
+        words, floats, n_k, n_p = compare_records(rec_k, rec_p)
+        L_k = rt.replay(*rec_k[:2], static, args[2], B, n)
+        L_p = rt.replay(*rec_p[:2], static, args[2], B, n)
+        rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
+        require(words >= MATCH_RATE and floats >= MATCH_RATE,
+                f"{name} chunk: words {words}, floats {floats}")
+        extra = f"words equal {words:.6f}, floats match {floats:.6f}, "
+        del rec_p
+    print(f"{name} kernel vs plain at the chunk shape: {n} rays | {extra}match "
+          f"{rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
+          f"rays_traced {n_k} vs {n_p}", flush=True)
+    require(rate >= MATCH_RATE, f"{name} chunk-shape match rate {rate}")
+    require(n_k == n_p, f"{name} chunk-shape rays_traced {n_k} != {n_p}")
+    require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
+    del L_k, L_p
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_ms = [cuda_ms(plain, 1)]
+    kernel_ms = [cuda_ms(kernel, REC_KERNEL_REPS), cuda_ms(kernel, REC_KERNEL_REPS)]
+    replay = ""
+    if not static.pallas_ok:
+        rec = kernel()
+        run = lambda: rt.replay(*rec[:2], static, args[2], B, n)
+        r_ms = [cuda_ms(run, REC_KERNEL_REPS), cuda_ms(run, REC_KERNEL_REPS)]
+        replay = (f"replay {statistics.mean(r_ms):.3f} ms "
+                  f"({', '.join(f'{x:.3f}' for x in r_ms)}) | ")
+        del rec
+    plain_ms.append(cuda_ms(plain, 1))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
+    print(f"{name} chunk timing: {chunk} spp x {width}x{height} = {n} rays, {B} "
+          f"bounces | kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) "
+          f"| {replay}plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) "
+          f"| peak {peak_gib:.2f} GiB", flush=True)
+    return max_err, ms, p_ms
+
+
+def other_paths(torch, dev, solid):
+    """The new paths of one kernel (solid=True: K1, else K2): kernel vs
+    plain on each scene, the full-width renders, the chunk timing.
+    Returns (launches in the renders, max abs error)."""
+    checks = NEW_SOLID_CHECKS if solid else NEW_RECORD_CHECKS
+    W, H, spp = (CHECK_W, CHECK_H, CHECK_SPP) if solid else REC_CHECK
+    errs = [kernel_vs_plain(torch, dev, name, W, H, spp, [20261016 + i, 4242, 0])
+            for i, name in enumerate(checks)]
+    launches = 0
+    for name, width, height, spp in (NEW_SOLID_RENDERS if solid else NEW_RECORD_RENDERS):
+        launches += render_path(torch, dev, name, width, height, spp)
+        torch.cuda.empty_cache()
+    name, width, height, spp = (NEW_SOLID_RENDERS if solid else NEW_RECORD_RENDERS)[0]
+    errs.append(chunk_timing(torch, dev, name, width, height, spp)[0])
+    torch.cuda.empty_cache()
+    return launches, max(errs)
+
+
 def main():
     import torch
 
@@ -353,15 +602,24 @@ def main():
           f"plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) | "
           f"peak {peak_gib:.2f} GiB", flush=True)
 
+    del tables, cam
+    torch.cuda.empty_cache()
+    # ---- the solid kernel's other paths: glossy, split, dispersion,
+    # triangles / discs / cylinders, the other projections ----
+    new_launches, new_err = other_paths(torch, dev, solid=True)
     solid_row = {
         "name": "solid_trace", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/solid_trace.cu",
         "replaces": "raytracer_tpu/ops/pallas_trace.py:508",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + new_launches, "max_abs_err": max(max_err, new_err),
         "ms": ms, "plain_ms": p_ms}
-    del tables, cam
-    torch.cuda.empty_cache()
     record_row = record_phases(torch, dev)
+    torch.cuda.empty_cache()
+    # ---- the record kernel's other paths: discs, cylinders, dispersion,
+    # the other projections ----
+    new_launches, new_err = other_paths(torch, dev, solid=False)
+    record_row["launches"] += new_launches
+    record_row["max_abs_err"] = max(record_row["max_abs_err"], new_err)
 
     print(json.dumps({"kernels": [solid_row, record_row]}))
     print(smi)

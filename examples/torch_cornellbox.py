@@ -1,5 +1,6 @@
 """Cornell box with MC path tracing + importance sampling, through the
-PyTorch / CUDA port (the scene of example_cornellbox.py, line for line).
+PyTorch / CUDA port (the scene of example_cornellbox.py, line for line),
+and the box under the fisheye, equirect and orthographic cameras.
 
     python examples/torch_cornellbox.py    # writes cornell_box_torch.png
 """
@@ -8,15 +9,39 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import raytracer_tpu_torch  # noqa: E402
 from raytracer_tpu_torch import (Cuboid, Diffuse, Emissive, Plane, Refractive,
                                  Scene, Sphere, rgb, vec3)
 
 
-def build_cornell(width=100, height=100):
+# the box under the other projections, each camera looking at the back
+# wall: a 160-degree fisheye from the pinhole's place, a 360x180 panorama
+# from the middle of the box, and an orthographic view whose footprint is
+# the box's front face
+PROJECTION_CAMERAS = {
+    "fisheye": dict(look_from=(278, 278, 800), field_of_view=160.0),
+    "equirect": dict(look_from=(278, 278, -278)),
+    "orthographic": dict(look_from=(278, 278, 800), focal_distance=800.0),
+}
+
+
+def projection_camera(m, projection, width, height):
+    """The Cornell box's camera for `projection` (PROJECTION_CAMERAS),
+    built with package m."""
+    kw = dict(PROJECTION_CAMERAS[projection])
+    return m.Camera(look_from=m.vec3(*kw.pop("look_from")),
+                    look_at=m.vec3(278, 278, -555), screen_width=width,
+                    screen_height=height, projection=projection, **kw)
+
+
+def build_cornell(width=100, height=100, projection="pinhole"):
     Sc = Scene(ambient_color=rgb(0.00, 0.00, 0.00))
     Sc.add_Camera(screen_width=width, screen_height=height,
                   look_from=vec3(278, 278, 800), look_at=vec3(278, 278, 0),
                   focal_distance=1.0, field_of_view=40)
+    if projection != "pinhole":
+        Sc.camera = projection_camera(raytracer_tpu_torch, projection, width,
+                                      height)
 
     green_diffuse = Diffuse(diff_color=rgb(0.12, 0.45, 0.15))
     red_diffuse = Diffuse(diff_color=rgb(0.65, 0.05, 0.05))

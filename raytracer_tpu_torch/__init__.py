@@ -1,12 +1,14 @@
 """raytracer_tpu_torch — the PyTorch / CUDA port of raytracer_tpu.
 
-Two slices: solid-colour scenes (Sphere, Plane, Cuboid with Diffuse,
-Emissive and Refractive materials, importance-sampled light caps) render
-through the solid kernel (ops/solid_trace.py, csrc/solid_trace.cu);
-textured scenes (image textures, SkyBox / Panorama environments, Glossy
-with lights and shadows, thin films, deterministic Fresnel splitting)
-through the record kernel and the replay (ops/record_trace.py,
-csrc/record_trace.cu, ops/replay.py).  Both kernels are written by hand in
+Solid-colour scenes (Sphere, Plane, Cuboid, Disc, Cylinder and Triangle
+with Diffuse, Glossy, Emissive and Refractive materials, lights with
+shadow rays, importance-sampled light caps, deterministic Fresnel
+splitting, spectral dispersion, the pinhole, fisheye, equirect and
+orthographic cameras) render through the solid kernel
+(ops/solid_trace.py, csrc/solid_trace.cu); textured scenes (image
+textures, SkyBox / Panorama environments, thin films) through the record
+kernel and the replay (ops/record_trace.py, csrc/record_trace.cu,
+ops/replay.py).  Both kernels are written by hand in
 CUDA; on the CPU their plain PyTorch versions run.  The public names
 follow raytracer_tpu's star-import surface as far as the slices reach.
 This package imports neither jax nor raytracer_tpu.
@@ -19,7 +21,8 @@ from .core.camera import Camera
 from .core.integrator import RenderSettings
 from .core.scene import Scene
 from .core.vec import rgb, vec3
-from .geometry.primitive import Cuboid, Plane, Primitive, Sphere
+from .geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Primitive,
+                                 Sphere, Triangle)
 from .lights import DirectionalLight, Light, PointLight, SpotLight
 from .materials.base import (Diffuse, Emissive, Glossy, Material, Refractive,
                              ThinFilmInterference)
@@ -30,7 +33,7 @@ from .utils.constants import FARAWAY, SKYBOX_DISTANCE, UPDOWN, UPWARDS
 
 __all__ = [
     "Scene", "Camera", "RenderSettings", "vec3", "rgb", "np",
-    "Primitive", "Sphere", "Plane", "Cuboid",
+    "Primitive", "Sphere", "Plane", "Cuboid", "Disc", "Cylinder", "Triangle",
     "Light", "PointLight", "DirectionalLight", "SpotLight",
     "Material", "Diffuse", "Emissive", "Refractive", "Glossy",
     "ThinFilmInterference", "SkyBox", "Panorama", "procedural_sky",

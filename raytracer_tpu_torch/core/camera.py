@@ -1,9 +1,9 @@
-"""Pinhole / thin-lens camera description.
+"""Camera description: pinhole / thin lens, fisheye, equirect, orthographic.
 
 Counterpart of raytracer_tpu/core/camera.py.  `Camera` takes the same
 constructor arguments; `params()` derives the frame exactly as the JAX
 package does (in float64, then float32), and `cam_vec` packs it into the
-17 floats the solid kernel reads (raytracer_tpu/core/scene.py:109-112):
+17 floats the kernels read (raytracer_tpu/core/scene.py:109-112):
 origin, fwd, right, up, cam_w, cam_h, lens_radius, focal, half_fov.
 Ray generation itself happens inside the kernel.
 """
@@ -68,6 +68,20 @@ class Camera:
             lens_radius=f(self.aperture / 2.0), focal=f(self.focal_distance),
             half_fov=f(self.field_of_view * np.pi / 360.0),
         )
+
+
+def projection_mask(projection, width, height):
+    """(H*W,) float32 mask of the pixels inside a circular fisheye's image
+    circle, or None for the other projections (raytracer_tpu
+    camera.py:92-107).  Scene.render applies it to the accumulated
+    radiance at output time."""
+    if projection != "fisheye":
+        return None
+    m = min(width, height)
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    xn = (2.0 * (xs + 0.5) - width) / m
+    yn = (height - 2.0 * (ys + 0.5)) / m
+    return (xn * xn + yn * yn <= 1.0).astype(np.float32).reshape(-1)
 
 
 def cam_vec(p: CameraParams) -> torch.Tensor:

@@ -9,8 +9,9 @@ pallas_record.py:1106-1122).  The float math is the JAX package's numpy
 code, so every table matches it bit for bit (tests/test_torch_compile.py,
 tests/test_torch_textures.py).
 
-Object ids run spheres, then planes, then boxes, in insertion order within
-each kind, as in the JAX package.  Scenes outside the ported slices raise
+Object ids run spheres, planes, boxes, discs, cylinders, then triangles,
+in insertion order within each kind, as in the JAX package.  Scenes
+outside the ported slices (triangle meshes, mesh instances) raise
 NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from ..backgrounds.environment import Panorama, SkyBox
-from ..geometry.primitive import Cuboid, Plane, Sphere
+from ..geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Sphere,
+                                  Triangle)
 from ..lights import SpotLight
 from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
@@ -40,15 +42,20 @@ PALLAS_MAX_OBJECTS = 48
 PALLAS_MAX_GROUPS = 36
 
 KIND_CODES = {"sphere": 0, "plane": 1, "box": 2, "tri": 3, "disc": 4, "cyl": 5}
-SOLID_KINDS = ("sphere", "plane", "box")
+# object order in the tables (compile.py:1500)
+KINDS = ("sphere", "plane", "box", "disc", "cyl", "tri")
+_PRIM_KIND = ((Sphere, "sphere"), (Plane, "plane"), (Cuboid, "box"),
+              (Disc, "disc"), (Cylinder, "cyl"), (Triangle, "tri"))
 
 # columns of the (O, OBJ_COLS) int32 object table the kernels read;
 # OBJ_GID is the record path's shading-group id (`shading_groups`), OBJ_UV
 # says whether the object's uv is recorded, OBJ_IMG whether its material
-# slot fetches an image texture
+# slot fetches an image texture; OBJ_HU1 / OBJ_HU2 number the dispersive
+# groups whose hero-wavelength draws the solid / record kernel takes
+# (`dispersive_groups`), -1 for other objects
 (OBJ_KIND, OBJ_MAT_TYPE, OBJ_MAT_SLOT, OBJ_MAX_DEPTH, OBJ_MC, OBJ_SHADOW,
  OBJ_DISP, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U, OBJ_AA_V, OBJ_GID, OBJ_UV,
- OBJ_IMG) = range(14)
+ OBJ_IMG, OBJ_HU1, OBJ_HU2) = range(16)
 OBJ_COLS = 16
 
 # textures whose largest value exceeds this pack as RGB9E5 (compile.py:121)
@@ -149,9 +156,10 @@ class SolidTables:
     ambient, scene n_re, n_im; atlas (total,) i32: every texture packed
     one word per texel; tex_scale (T,) f32: each texture's decode scale.
     Empty tables hold one zero row, as in the JAX package.
-    n_is_targets is K (is_tab keeps one zero row when K is 0), and
-    obj_rows is a host copy of `obj`, so that callers can check a scene
-    without reading the device.
+    n_is_targets is K (is_tab keeps one zero row when K is 0), n_lights
+    the (directional, point, spot) counts of the light rows, and obj_rows
+    a host copy of `obj`, so that callers can check a scene without
+    reading the device.
     """
     geom: torch.Tensor
     obj: torch.Tensor
@@ -167,6 +175,7 @@ class SolidTables:
     tex_scale: torch.Tensor
     n_is_targets: int
     obj_rows: Tuple[Tuple[int, ...], ...]
+    n_lights: Tuple[int, int, int] = (0, 0, 0)
 
     TENSORS = ("geom", "obj", "dif", "glo", "refr", "emi", "tf", "lights",
                "is_tab", "consts", "atlas", "tex_scale")
@@ -243,10 +252,28 @@ def shading_groups(records):
     return groups, order
 
 
+def dispersive_groups(records, refr_disp):
+    """The dispersive refractive groups of each kernel, numbered in order
+    of first appearance: ({(max_depth, mc): n}, {(slot, max_depth, mc): n}).
+
+    The solid kernel merges groups by (type, max_depth, mc, dispersion)
+    and draws one hero-wavelength uniform per merged dispersive group at
+    every bounce it shades (pallas_trace.py:522-529, 857-859); the record
+    kernel draws one per (type, slot, max_depth, mc) group at every
+    bounce (pallas_record.py:473-475)."""
+    merged, per_slot = {}, {}
+    for r in records:
+        if r.mat_type == MAT_REFRACTIVE and refr_disp[r.mat_slot]:
+            merged.setdefault((r.max_depth, r.mc), len(merged))
+            per_slot.setdefault((r.mat_slot, r.max_depth, r.mc), len(per_slot))
+    return merged, per_slot
+
+
 def obj_table(records, refr_disp, img_slots=frozenset()):
     """(O, OBJ_COLS) int32 object table from the static records."""
     t = np.zeros((len(records), OBJ_COLS), I32)
     groups, _ = shading_groups(records)
+    merged, per_slot = dispersive_groups(records, refr_disp)
     for i, r in enumerate(records):
         t[i, OBJ_KIND] = KIND_CODES[r.kind]
         t[i, OBJ_MAT_TYPE] = r.mat_type
@@ -265,6 +292,9 @@ def obj_table(records, refr_disp, img_slots=frozenset()):
         t[i, OBJ_GID] = groups[(r.mat_type, r.mat_slot, r.max_depth, r.mc)]["gid"]
         t[i, OBJ_UV] = int(img or r.mat_type in (MAT_ENV, MAT_THINFILM))
         t[i, OBJ_IMG] = int(img)
+        disp = bool(t[i, OBJ_DISP])
+        t[i, OBJ_HU1] = merged[(r.max_depth, r.mc)] if disp else -1
+        t[i, OBJ_HU2] = per_slot[(r.mat_slot, r.max_depth, r.mc)] if disp else -1
     return t
 
 
@@ -289,12 +319,13 @@ def light_table(dir_l, dir_color, point_pos, point_color, spot_pos,
 def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
                        is_radius, ambient, scene_n_re, scene_n_im,
                        tf_rows=(), atlas=None, tex_scale=None,
-                       img_slots=frozenset()):
+                       img_slots=frozenset(), n_lights=(0, 0, 0)):
     """Kernel tables from host arrays; the JAX package's table layout
     (pallas_trace.py:1134-1150, pallas_record.py:1106-1122).  `mats` maps
     the JAX MaterialTables field names to arrays, `lights` is the (L, 11)
-    light table, `tf_rows` one (c3, c2, c1, c0, thickness, noise) row per
-    thin-film slot, `atlas` / `tex_scale` the texture atlas."""
+    light table holding n_lights = (directional, point, spot) rows,
+    `tf_rows` one (c3, c2, c1, c0, thickness, noise) row per thin-film
+    slot, `atlas` / `tex_scale` the texture atlas."""
     m = {k: np.asarray(v, F32) for k, v in mats.items()}
     col = lambda a: a[:, None]
     dif = np.concatenate([_pad_rows(m["diffuse_color"]),
@@ -326,7 +357,8 @@ def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
         dif=t(dif), glo=t(glo), refr=t(refr), emi=t(emi), tf=t(tf),
         lights=t(np.asarray(lights, F32)), is_tab=t(is_tab), consts=t(consts),
         atlas=t(atlas), tex_scale=t(tex_scale),
-        n_is_targets=K, obj_rows=tuple(tuple(int(v) for v in r) for r in obj))
+        n_is_targets=K, obj_rows=tuple(tuple(int(v) for v in r) for r in obj),
+        n_lights=tuple(int(c) for c in n_lights))
 
 
 # ---------------------------------------------------------------------------
@@ -523,20 +555,16 @@ class _Textures:
 def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     """Lower a Scene to (SceneStatic, SolidTables) on the CPU."""
     reg = _Textures()
-    by_kind = {k: [] for k in SOLID_KINDS}   # (primitive, props) per kind
+    by_kind = {k: [] for k in KINDS}   # (primitive, props) per kind
 
     for prim in scene.scene_primitives:
-        if isinstance(prim, Sphere):
-            kind = "sphere"
-        elif isinstance(prim, Plane):
-            kind = "plane"
-        elif isinstance(prim, Cuboid):
-            kind = "box"
-        else:
+        kind = next((k for cls, k in _PRIM_KIND if isinstance(prim, cls)), None)
+        if kind is None:
             raise NotImplementedError(
-                f"{type(prim).__name__} is not ported yet: triangles, "
-                "meshes, discs and cylinders come with the wavefront slice "
-                "(ROADMAP.md 'Modules to port' item 8)")
+                f"{type(prim).__name__} is not ported yet: only Sphere, Plane, "
+                "Cuboid, Disc, Cylinder and Triangle are; triangle meshes and "
+                "mesh instances come with the wavefront slice (ROADMAP.md "
+                "'Modules to port' item 8)")
         mat = prim.material
         slot = reg.material_slot(mat)
         if isinstance(prim, Panorama):
@@ -580,7 +608,31 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
         _row(list(np.asarray(prim.basis).reshape(-1))
              + list(np.asarray(prim.lb_local)) + list(np.asarray(prim.rt_local))
              + list(np.asarray(prim.center)) + list(np.asarray(whl)))
-    geom = np.stack(rows) if rows else np.zeros((0, 24), F32)
+    for prim, p in by_kind["disc"]:
+        _rec("disc", p)
+        _row(list(np.asarray(prim.center)) + list(np.asarray(prim.normal))
+             + list(np.asarray(prim.u_axis)) + list(np.asarray(prim.v_axis))
+             + [prim.radius, prim.inner_radius])
+    for prim, p in by_kind["cyl"]:
+        _rec("cyl", p)
+        _row(list(np.asarray(prim.center)) + list(np.asarray(prim.axis))
+             + list(np.asarray(prim.u_axis)) + list(np.asarray(prim.v_axis))
+             + [prim.radius, prim.height / 2, 1.0 if prim.capped else 0.0])
+    # triangles: p1, p2, p3, the unit normal and the edge normals n31, n12,
+    # n23, vectorised over the float32 vertices (compile.py:1341, 1426-1431)
+    for _, p in by_kind["tri"]:
+        _rec("tri", p)
+    TV = (np.asarray([(t.p1, t.p2, t.p3) for t, _ in by_kind["tri"]], dtype=F32)
+          if by_kind["tri"] else np.zeros((0, 3, 3), F32))
+    P1, P2, P3 = TV[:, 0], TV[:, 1], TV[:, 2]
+    nr = np.cross(P2 - P1, P3 - P1)
+    nr_u = nr / np.maximum(np.linalg.norm(nr, axis=-1, keepdims=True), 1e-20)
+    tri_rows = np.zeros((TV.shape[0], 24), F32)
+    for j, part in enumerate((P1, P2, P3, nr_u, np.cross(P3 - P1, nr_u),
+                              np.cross(P1 - P2, nr_u), np.cross(P2 - P3, nr_u))):
+        tri_rows[:, 3 * j:3 * j + 3] = part
+    geom = np.concatenate([np.stack(rows) if rows else np.zeros((0, 24), F32),
+                           tri_rows]).astype(F32)
 
     # ---- material tables (compile.py:1529-1556) ---------------------------
     def solid_of(m, attr):
@@ -671,5 +723,6 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     tables = build_solid_tables(
         records, refr_disp, geom, mats, lights, is_center, is_radius,
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
-        tf_rows, atlas, tex_scale, static.image_slots())
+        tf_rows, atlas, tex_scale, static.image_slots(),
+        (len(dlts), len(plts), len(slts)))
     return static, tables

@@ -28,7 +28,7 @@ from ..ops.record_trace import record_trace_chunk
 from ..ops.solid_trace import solid_trace_chunk
 from ..utils.colour import TONEMAP_OPERATORS, tonemap_display
 from ..utils.image_io import array_to_pil
-from .camera import Camera, cam_vec
+from .camera import Camera, cam_vec, projection_mask
 from .compile import compile_scene, derive_max_bounces, derive_split_k
 from .integrator import RenderSettings
 from .vec import as_complex3, as_float3
@@ -201,6 +201,11 @@ class Scene:
             rays += cnt
 
         n_samples = n_chunks * chunk
+        # a circular fisheye blacks out the pixels beyond its image circle;
+        # they are traced and counted all the same (scene.py:541-544)
+        pmask = projection_mask(settings.projection, W, H)
+        if pmask is not None:
+            acc = acc * torch.from_numpy(pmask).to(device)[:, None]
         if output == "linear":
             out = (acc.cpu().numpy() / n_samples).reshape(H, W, 3)
             dt = time.time() - t0

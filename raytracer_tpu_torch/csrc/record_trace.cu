@@ -37,8 +37,6 @@
 
 namespace {
 
-const float SKYBOX_DISTANCE = F(1.0e6);
-
 struct RecParams {
   const int* seed;       // (3,) chunk seed, R2 rotation seed, first sample
   const float* cam;      // (17,)
@@ -55,38 +53,12 @@ struct RecParams {
   int n_obj, n_dif, n_glo, n_refr, n_emi, n_tf, n_lrow, n_is;
   int n_dir, n_point, n_spot;
   int width, height, n_pix, n;
-  int max_bounces, iid, split_k;
+  int max_bounces, iid, split_k, projection;
+  int n_hu;                      // dispersive (slot, depth, mc) groups
   int* rec_g;                    // (max_bounces, n)
   float* rec_f;                  // (max_bounces, 12, n)
   unsigned long long* count;     // rays traced
 };
-
-// the reference's polynomial atan2 and asin (pallas_trace.py:121-135)
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float a = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), F(1e-30));
-  const float s = a * a;
-  float r = a * (F(0.9998660) + s * (F(-0.3302995) + s * (F(0.1801410)
-                 + s * (F(-0.0851330) + s * F(0.0208351)))));
-  if (ay > ax) r = F(PI / 2) - r;
-  if (x < 0.0f) r = F(PI) - r;
-  return y < 0.0f ? -r : r;
-}
-
-__device__ __forceinline__ float asin_poly(float x) {
-  x = fminf(fmaxf(x, -1.0f), 1.0f);
-  return atan2_poly(x, sqrtf(fmaxf(1.0f - x * x, 0.0f)));
-}
-
-// x ** 5 as lax.integer_pow computes it: x * ((x * x) * (x * x))
-__device__ __forceinline__ float pow5(float x) {
-  const float x2 = x * x;
-  return x * (x2 * x2);
-}
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
 
 // |a / b|^2 for complex a, b (pallas_trace.py _cdiv then _cabs2)
 __device__ __forceinline__ float cdiv_abs2(float ar, float ai, float br,
@@ -98,7 +70,7 @@ __device__ __forceinline__ float cdiv_abs2(float ar, float ai, float br,
 }
 
 // texture uv per object kind from the hit point and the raw normal
-// (pallas_record.py:76-115)
+// (pallas_record.py:76-148)
 __device__ __forceinline__ void uv_of(int kind, const float* g, float px,
                                       float py, float pz, const float nr[3],
                                       float& u, float& v) {
@@ -113,6 +85,36 @@ __device__ __forceinline__ void uv_of(int kind, const float* g, float px,
     const float vv = (g[6] * mx + g[7] * my + g[8] * mz) / g[13];
     u = (uu + 1.0f) / 2.0f + g[14];
     v = (vv + 1.0f) / 2.0f + g[15];
+  } else if (kind == KIND_DISC) {
+    // planar over the bounding square
+    const float mx = px - g[0], my = py - g[1], mz = pz - g[2];
+    u = ((g[6] * mx + g[7] * my + g[8] * mz) / g[12] + 1.0f) / 2.0f;
+    v = ((g[9] * mx + g[10] * my + g[11] * mz) / g[12] + 1.0f) / 2.0f;
+  } else if (kind == KIND_CYL) {
+    // side: (azimuth, height); caps: planar
+    const float r = g[12], hh = g[13];
+    float x, y, z;
+    cyl_local(g, px, py, pz, x, y, z);
+    const float rho = sqrtf(fmaxf(x * x + z * z, F(1e-20)));
+    const bool is_cap = g[14] > 0.5f && fabsf(y) / hh >= rho / r;
+    if (is_cap) {
+      u = (x / r + 1.0f) / 2.0f;
+      v = (z / r + 1.0f) / 2.0f;
+    } else {
+      u = (atan2_poly(z, x) + F(PI)) / F(2.0 * PI);
+      v = (y / hh + 1.0f) / 2.0f;
+    }
+  } else if (kind == KIND_TRI) {
+    // barycentric
+    float e1[3], e2[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) { e1[i] = g[3 + i] - g[i]; e2[i] = g[6 + i] - g[i]; }
+    const float q[3] = {px - g[0], py - g[1], pz - g[2]};
+    const float d11 = dot3(e1, e1), d12 = dot3(e1, e2), d22 = dot3(e2, e2);
+    const float dp1 = dot3(q, e1), dp2 = dot3(q, e2);
+    const float det = fmaxf(d11 * d22 - d12 * d12, F(1e-20));
+    u = (d22 * dp1 - d12 * dp2) / det;
+    v = (d11 * dp2 - d12 * dp1) / det;
   } else {
     // box: the max-|axis| face, then the cube-cross layout / 4, / 3
     const float mx = px - g[15], my = py - g[16], mz = pz - g[17];
@@ -137,14 +139,6 @@ __device__ __forceinline__ void uv_of(int kind, const float* g, float px,
     u = uc / 4.0f;
     v = vc / 3.0f;
   }
-}
-
-__device__ __forceinline__ void reflect(const float d[3], const float n[3],
-                                        float r[3]) {
-  const float ddn = dot3(d, n);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) r[k] = d[k] - n[k] * 2.0f * ddn;
-  normalize3(r[0], r[1], r[2]);
 }
 
 __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
@@ -184,7 +178,7 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
     const uint32_t seed0 = (uint32_t)s_seed[0];
     float o[3], d[3], sb[3];   // sb: first-bounce R2 draws mix, phi, r2
     const uint32_t counter0 = camera_ray(s_cam, s_seed, idx, p.width, p.height,
-                                         p.iid, o, d, sb);
+                                         p.iid, p.projection, o, d, sb);
     // deterministic Fresnel-split pattern of this sample (pallas_record.py:268)
     const int pattern = p.split_k ? (idx / p.n_pix) & ((1 << p.split_k) - 1) : 0;
     const float* amb = s_consts;
@@ -234,8 +228,10 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
           const float eps = F(1e-6) * fmaxf(
               1.0f, fmaxf(fabsf(px), fmaxf(fabsf(py), fabsf(pz))));
           const float pp[3] = {px, py, pz};
-          // ru(j): the draw j of this bounce, counter counter0 + 6 b + j + 1
-          const uint32_t cb = counter0 + 6u * (uint32_t)bounce;
+          // ru(j): the draw j of this bounce, counter counter0 + (6 + n_hu) b
+          // + j + 1; the hero-wavelength draw of dispersive group h follows
+          // the six at counter0 + (6 + n_hu) b + 7 + h
+          const uint32_t cb = counter0 + (6u + (uint32_t)p.n_hu) * (uint32_t)bounce;
 #define RU(j) hash_uniform(idx, seed0, cb + (j) + 1u)
           float nd[3] = {d[0], d[1], d[2]};
           float no[3] = {px, py, pz};
@@ -340,9 +336,20 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
               Fr[k] = (r_per + r_par) * 0.5f;
               T[k] = 1.0f - Fr[k];
             }
-            const float ratio_avg = (nre[0] / fmaxf(n2r[0], F(1e-9))
-                                     + nre[1] / fmaxf(n2r[1], F(1e-9))
-                                     + nre[2] / fmaxf(n2r[2], F(1e-9))) / 3.0f;
+            float rat[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) rat[k] = nre[k] / fmaxf(n2r[k], F(1e-9));
+            float ratio_avg = (rat[0] + rat[1] + rat[2]) / 3.0f;
+            // dispersion (pallas_record.py:470-482): transmitted paths
+            // refract at one uniformly chosen channel's IoR, that channel
+            // carrying 3x
+            const int hu_g = rec[OBJ_HU2];
+            int hero = -1;
+            if (hu_g >= 0) {
+              const float hu = hash_uniform(idx, seed0, cb + 7u + (uint32_t)hu_g);
+              hero = hu < F(1.0 / 3.0) ? 0 : (hu < F(2.0 / 3.0) ? 1 : 2);
+              ratio_avg = rat[hero];
+            }
             const float sin2t = ratio_avg * ratio_avg * (1.0f - cos_i * cos_i);
             const bool non_tir = sin2t <= 1.0f;
             const float croot = sqrtf(1.0f - clip01(sin2t));
@@ -365,7 +372,8 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
 #pragma unroll
               for (int k = 0; k < 3; ++k) {
                 const float absorb = expf(-2.0f * nim[k] * lam_c[k] * F(1e9) * t);
-                const float w_r = det ? 2.0f * T[k] : T[k] / fmaxf(p_refr, F(1e-9));
+                float w_r = det ? 2.0f * T[k] : T[k] / fmaxf(p_refr, F(1e-9));
+                if (hero >= 0) w_r = w_r * (k == hero ? 3.0f : 0.0f);
                 const float w_l = det ? 2.0f * Fr[k]
                                       : Fr[k] / fmaxf(1.0f - p_refr, F(1e-9));
                 rf[9 + k] = absorb * (take ? w_r : w_l);
@@ -436,55 +444,15 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
             const float a_ph = 2.0f / (rm * rm) - 2.0f;
             const int n_lights = p.n_dir + p.n_point + p.n_spot;
             for (int li = 0; li < n_lights; ++li) {
-              const float* L = s_light + li * 11;
-              const bool is_point = li >= p.n_dir;
-              const bool is_spot = li >= p.n_dir + p.n_point;
-              float l[3], dist;
-              if (is_point) {
-                const float wx = L[0] - px, wy = L[1] - py, wz = L[2] - pz;
-                dist = sqrtf(fmaxf(wx * wx + wy * wy + wz * wz, F(1e-20)));
-                l[0] = wx / dist; l[1] = wy / dist; l[2] = wz / dist;
-              } else {
-                l[0] = L[0]; l[1] = L[1]; l[2] = L[2];
-                dist = SKYBOX_DISTANCE;
-              }
-              const float ndl = fmaxf(nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2], 0.0f);
-              float lv[3];
-              if (is_point) {
-                float fall = ndl / (dist * dist) * 100.0f;
-                if (is_spot) {
-                  const float cos_t = -(l[0] * L[6] + l[1] * L[7] + l[2] * L[8]);
-                  const float tt = clip01((cos_t - L[10]) / fmaxf(L[9] - L[10], F(1e-6)));
-                  fall = fall * (tt * tt * (3.0f - 2.0f * tt));
-                }
+              float lv[3], see, p5, sw;
+              light_terms(s_light + li * 11, li >= p.n_dir, li >= p.n_dir + p.n_point,
+                          pp, nu, nv, vv, rough, a_ph, spec_c, s_geom, s_obj,
+                          p.n_obj, lv, see, p5, sw);
 #pragma unroll
-                for (int k = 0; k < 3; ++k) lv[k] = L[3 + k] * fall;
-              } else {
-#pragma unroll
-                for (int k = 0; k < 3; ++k) lv[k] = L[3 + k] * ndl;
-              }
-              bool occ = false;
-              for (int si = 0; si < p.n_obj && !occ; ++si) {
-                const int* srec = s_obj + si * OBJ_COLS;
-                if (!srec[OBJ_SHADOW]) continue;
-                float t_s, o_s;
-                isect_object(s_geom + si * GEOM_COLS, srec, nu, l, t_s, o_s);
-                occ = t_s < dist;
-              }
-              const float see = occ ? 0.0f : 1.0f;
-#pragma unroll
-              for (int k = 0; k < 3; ++k) lam_acc[k] = lam_acc[k] + diff_c * lv[k] * see;
-              float h[3] = {l[0] + vv[0], l[1] + vv[1], l[2] + vv[2]};
-              normalize3(h[0], h[1], h[2]);
-              const float cos_vh = clip01(dot3(vv, h));
-              const float p5 = pow5(1.0f - cos_vh);
-              const float dph = powf(clip01(dot3(nv, h)), a_ph) * (a_ph + 2.0f)
-                                / F(2.0 * PI);
-              const float denom = 4.0f * fminf(fmaxf(dot3(nv, vv) * ndl, F(0.001)), 1.0f);
-              const float sw = rough != 0.0f ? dph / denom * see * spec_c : 0.0f;
-#pragma unroll
-              for (int k = 0; k < 3; ++k)
+              for (int k = 0; k < 3; ++k) {
+                lam_acc[k] = lam_acc[k] + diff_c * lv[k] * see;
                 spec_acc[k] = spec_acc[k] + (F0[k] + (1.0f - F0[k]) * p5) * sw * lv[k];
+              }
             }
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
@@ -556,8 +524,8 @@ extern "C" int record_trace_launch(
     const float* tf, int n_tf, const float* lights, int n_lrow, int n_dir,
     int n_point, int n_spot, const float* is_tab, int n_is,
     const float* consts, int width, int height, int spp, int max_bounces,
-    int iid, int split_k, int* rec_g, float* rec_f, long long* count,
-    void* stream) {
+    int iid, int split_k, int projection, int n_hu, int* rec_g, float* rec_f,
+    long long* count, void* stream) {
   RecParams p;
   p.seed = seed; p.cam = cam; p.geom = geom; p.obj = obj;
   p.dif = dif; p.glo = glo; p.refr = refr; p.emi = emi; p.tf = tf;
@@ -568,6 +536,7 @@ extern "C" int record_trace_launch(
   p.width = width; p.height = height; p.n_pix = width * height;
   p.n = spp * p.n_pix;
   p.max_bounces = max_bounces; p.iid = iid; p.split_k = split_k;
+  p.projection = projection; p.n_hu = n_hu;
   p.rec_g = rec_g; p.rec_f = rec_f;
   p.count = reinterpret_cast<unsigned long long*>(count);
   const size_t smem = record_trace_smem(n_obj, n_dif, n_glo, n_refr, n_emi,

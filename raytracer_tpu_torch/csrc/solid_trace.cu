@@ -3,10 +3,15 @@
 // Replaces raytracer_tpu/ops/pallas_trace.py:_make_kernel, the TPU mega-
 // kernel behind pallas_trace_chunk.  One thread traces one ray, index
 // idx = sample * n_pix + pixel, through camera ray generation and every
-// bounce: nearest hit over all objects, normal, and shading by the hit
-// object's material (emissive / diffuse with light-cap importance sampling
-// / refractive).  The plain version beside it, in ops/solid_trace.py
-// (solid_trace_chunk_reference), is the same function on tensors.
+// bounce: nearest hit over all objects (spheres, planes, boxes, discs,
+// cylinders, triangles), normal, and shading by the hit object's material:
+// emissive; diffuse with light-cap importance sampling; refractive with the
+// deterministic Fresnel split and hero-wavelength dispersion; glossy with
+// the lights, shadow rays and the Fresnel mirror continuation.  Every
+// camera projection (pinhole + thin lens, fisheye, equirect,
+// orthographic) is generated in the kernel.  The plain version beside it,
+// in ops/solid_trace.py (solid_trace_chunk_reference), is the same
+// function on tensors.
 //
 // What bounds it on the card: FP32 work and warp divergence, not bytes.
 // Per ray it writes one 12-byte radiance and reads nothing but a few
@@ -14,8 +19,8 @@
 // memory once.  Rays of one warp take different materials and die at
 // different bounces, so lanes idle; the design keeps that cheap rather
 // than avoiding it: the scene is data (run-time loops over objects,
-// bounces and importance-sampled targets, one compiled kernel for every
-// scene), shading branches on the hit object's material and reads its
+// bounces, lights and importance-sampled targets, one compiled kernel for
+// every scene), shading branches on the hit object's material and reads its
 // slot's row, and a ray leaves the bounce loop as soon as it dies.  The
 // Pallas kernel instead unrolls everything in Python and evaluates every
 // shading group on every lane with masks, because Mosaic cannot lower a
@@ -26,7 +31,8 @@
 // hash of _TileRng, keyed by (ray index, draw counter, seed).  The
 // counter numbering follows the Pallas kernel exactly: 4 raygen draws
 // under "iid" (none under "r2"), then 6 per bounce except the last, which
-// takes none.  Compiled without
+// takes none, each followed by one hero-wavelength draw per merged
+// dispersive group still under its depth cap.  Compiled without
 // fast math and without FMA contraction, the float math rounds as the
 // plain version's does on the card, so the two agree ray by ray.
 //
@@ -38,31 +44,51 @@
 
 namespace {
 
+// most merged dispersive groups a scene may have (ops/solid_trace.py
+// MAX_HU_GROUPS): one per distinct (depth cap, mc) of its dispersive
+// refractive objects, at most one per object
+constexpr int MAX_HU = 48;
+
 struct Params {
   const int* seed;       // (3,) chunk seed, R2 rotation seed, first sample
   const float* cam;      // (17,)
   const float* geom;     // (n_obj, 24)
   const int* obj;        // (n_obj, OBJ_COLS)
   const float* dif;      // (n_dif, 4)
+  const float* glo;      // (n_glo, 12)
   const float* refr;     // (n_refr, 6)
   const float* emi;      // (n_emi, 3)
+  const float* lights;   // (n_lrow, 11): directional, then point, then spot
   const float* is_tab;   // (n_is, 4)
   const float* consts;   // (16,)
-  int n_obj, n_dif, n_refr, n_emi, n_is;
-  int width, height, n;
-  int max_bounces, iid;
+  int n_obj, n_dif, n_glo, n_refr, n_emi, n_lrow, n_is;
+  int n_dir, n_point, n_spot;
+  int width, height, n_pix, n;
+  int max_bounces, iid, split_k, projection;
+  // depth caps of the merged dispersive groups, in group order
+  int n_hu, hu_maxd[MAX_HU];
   float* L;                      // (n, 3)
   unsigned long long* count;     // rays traced
 };
+
+// |n1 - n2|^2 / |n1 + n2|^2, the normal-incidence Fresnel term
+__device__ __forceinline__ float fresnel_f0(float n1r, float n1i, float n2r,
+                                            float n2i) {
+  const float dr = n1r - n2r, di = n1i - n2i;
+  const float sr = n1r + n2r, si = n1i + n2i;
+  return (dr * dr + di * di) / fmaxf(sr * sr + si * si, F(1e-20));
+}
 
 __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
   extern __shared__ float smem[];
   // ---- scene tables -> shared memory, once per block ----
   float* s_geom = smem;
   float* s_dif = s_geom + p.n_obj * GEOM_COLS;
-  float* s_refr = s_dif + p.n_dif * 4;
+  float* s_glo = s_dif + p.n_dif * 4;
+  float* s_refr = s_glo + p.n_glo * 12;
   float* s_emi = s_refr + p.n_refr * 6;
-  float* s_is = s_emi + p.n_emi * 3;
+  float* s_light = s_emi + p.n_emi * 3;
+  float* s_is = s_light + p.n_lrow * 11;
   float* s_consts = s_is + (p.n_is > 0 ? p.n_is : 1) * 4;
   float* s_cam = s_consts + 16;
   int* s_obj = reinterpret_cast<int*>(s_cam + 17);
@@ -70,8 +96,10 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
   __shared__ unsigned int s_count;
   for (int i = threadIdx.x; i < p.n_obj * GEOM_COLS; i += BLOCK) s_geom[i] = p.geom[i];
   for (int i = threadIdx.x; i < p.n_dif * 4; i += BLOCK) s_dif[i] = p.dif[i];
+  for (int i = threadIdx.x; i < p.n_glo * 12; i += BLOCK) s_glo[i] = p.glo[i];
   for (int i = threadIdx.x; i < p.n_refr * 6; i += BLOCK) s_refr[i] = p.refr[i];
   for (int i = threadIdx.x; i < p.n_emi * 3; i += BLOCK) s_emi[i] = p.emi[i];
+  for (int i = threadIdx.x; i < p.n_lrow * 11; i += BLOCK) s_light[i] = p.lights[i];
   for (int i = threadIdx.x; i < p.n_is * 4; i += BLOCK) s_is[i] = p.is_tab[i];
   for (int i = threadIdx.x; i < 16; i += BLOCK) s_consts[i] = p.consts[i];
   for (int i = threadIdx.x; i < 17; i += BLOCK) s_cam[i] = p.cam[i];
@@ -85,16 +113,21 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
   if (idx < p.n) {
     const uint32_t seed0 = (uint32_t)s_seed[0];
     float o[3], d[3], sb[3];   // sb: first-bounce R2 draws mix, phi, r2
-    const uint32_t counter0 = camera_ray(s_cam, s_seed, idx, p.width, p.height,
-                                         p.iid, o, d, sb);
+    uint32_t cb = camera_ray(s_cam, s_seed, idx, p.width, p.height, p.iid,
+                             p.projection, o, d, sb);
     const float sb_mix = sb[0], sb_phi = sb[1], sb_r2 = sb[2];
+    // deterministic Fresnel-split pattern: the sample index mod 2^split_k
+    const int pattern = p.split_k ? (idx / p.n_pix) & ((1 << p.split_k) - 1) : 0;
+    const float* amb = s_consts;
+    const float* scene_nre = s_consts + 3;
+    const float* scene_nim = s_consts + 6;
 
     float Lr[3] = {0.0f, 0.0f, 0.0f};
     float beta[3] = {1.0f, 1.0f, 1.0f};
     float nre[3], nim[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) { nre[k] = s_consts[3 + k]; nim[k] = s_consts[6 + k]; }
-    int dcnt = 0;
+    for (int k = 0; k < 3; ++k) { nre[k] = scene_nre[k]; nim[k] = scene_nim[k]; }
+    int dcnt = 0, scnt = 0;
     const int K = p.n_is;
 
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
@@ -119,12 +152,20 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
         for (int k = 0; k < 3; ++k) Lr[k] = Lr[k] + beta[k] * col[k];
         break;
       }
-      // non-emissive hits add zero radiance (kept for NaN/inf parity)
+      if (mt != MAT_GLOSSY) {
+        // diffuse and refractive hits add zero radiance (kept for NaN/inf
+        // parity); on the last bounce their continuation is dead
 #pragma unroll
-      for (int k = 0; k < 3; ++k) Lr[k] = Lr[k] + beta[k] * 0.0f;
-      // the last bounce's continuation is dead, and it takes no draws
-      if (last) break;
-      const uint32_t cb = counter0 + 6u * (uint32_t)bounce;  // ru[j]: cb+j+1
+        for (int k = 0; k < 3; ++k) Lr[k] = Lr[k] + beta[k] * 0.0f;
+        if (last) break;
+      }
+      // this bounce's draws: ru[j] at cb_b + j + 1, then one hero-wavelength
+      // draw per merged dispersive group still under its depth cap, in
+      // group order; the last bounce takes none (pallas_trace.py:658, 859)
+      const uint32_t cb_b = cb;
+      int n_active = 0;
+      for (int j = 0; j < p.n_hu; ++j) n_active += bounce < p.hu_maxd[j];
+      cb += 6u + (uint32_t)n_active;
 
       float n[3];
       normal_of(rec[OBJ_KIND], g, px, py, pz, n);
@@ -132,19 +173,60 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
       for (int k = 0; k < 3; ++k) n[k] = n[k] * orient;
       const float eps = F(1e-6) * fmaxf(
           fmaxf(fabsf(px), fmaxf(fabsf(py), fabsf(pz))), 1.0f);
+      const float nu[3] = {px + n[0] * eps, py + n[1] * eps, pz + n[2] * eps};
 
-      if (mt == MAT_DIFFUSE) {
+      if (mt == MAT_GLOSSY) {
+        // ---- glossy: ambient + Lambert + Blinn-Phong over the lights with
+        // shadow rays on every bounce, the last included; the Fresnel
+        // mirror continuation below the depth cap (pallas_trace.py:944-1042)
+        const float* prm = s_glo + slot * 12;
+        const float rough = prm[9], spec_c = prm[10], diff_c = prm[11];
+        const float v[3] = {-d[0], -d[1], -d[2]};
+        const float pp[3] = {px, py, pz};
+        float dc[3], acc[3], F0[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          dc[k] = prm[k] * diff_c;
+          acc[k] = amb[k] * dc[k];
+          F0[k] = fresnel_f0(nre[k], nim[k], prm[3 + k], prm[6 + k]);
+        }
+        const float rm = fmaxf(rough, F(1e-6));
+        const float a_ph = 2.0f / (rm * rm) - 2.0f;
+        for (int li = 0; li < p.n_lrow; ++li) {
+          float lv[3], see, p5, sw;
+          light_terms(s_light + li * 11, li >= p.n_dir, li >= p.n_dir + p.n_point,
+                      pp, nu, n, v, rough, a_ph, spec_c, s_geom, s_obj, p.n_obj,
+                      lv, see, p5, sw);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            acc[k] = acc[k] + dc[k] * lv[k] * see;
+            acc[k] = acc[k] + (F0[k] + (1.0f - F0[k]) * p5) * sw * lv[k];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) Lr[k] = Lr[k] + beta[k] * acc[k];
+        if (last || bounce >= rec[OBJ_MAX_DEPTH]) break;
+        const float p5r = pow5(1.0f - clip01(dot3(v, n)));
+        float rl[3];
+        reflect(d, n, rl);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float F0s = fresnel_f0(scene_nre[k], scene_nim[k], prm[3 + k], prm[6 + k]);
+          beta[k] = beta[k] * (F0s + (1.0f - F0s) * p5r);
+          o[k] = nu[k];
+          d[k] = rl[k];
+        }
+      } else if (mt == MAT_DIFFUSE) {
         // ---- diffuse + cap importance sampling (pallas_trace.py:706-807) ----
         if (dcnt >= 2) break;                  // diffuse depth reached
         const float* prm = s_dif + slot * 4;
         const float aw = prm[3];
-        const float nu[3] = {px + n[0] * eps, py + n[1] * eps, pz + n[2] * eps};
         float ax_u[3], ax_v[3];
         orthobasis(n[0], n[1], n[2], ax_u, ax_v);
         float u_phi1, u_r21, u_phi2 = 0.0f, u_r22 = 0.0f, u_mixv = 0.0f;
         const bool first = !p.iid && dcnt == 0;   // R2 draws replace the hash
-        u_phi1 = first ? sb_phi : hash_uniform(idx, seed0, cb + 1);
-        u_r21 = first ? sb_r2 : hash_uniform(idx, seed0, cb + 2);
+        u_phi1 = first ? sb_phi : hash_uniform(idx, seed0, cb_b + 1);
+        u_r21 = first ? sb_r2 : hash_uniform(idx, seed0, cb_b + 2);
         const float r2 = u_r21;
         const float zc = sqrtf(fmaxf(1.0f - r2, 0.0f));
         const float sr2 = sqrtf(r2);
@@ -155,10 +237,10 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) sd[k] = ax_u[k] * xc + ax_v[k] * yc + n[k] * zc;
         if (K > 0) {
-          u_phi2 = first ? sb_phi : hash_uniform(idx, seed0, cb + 4);
-          u_r22 = first ? sb_r2 : hash_uniform(idx, seed0, cb + 5);
-          u_mixv = first ? sb_mix : hash_uniform(idx, seed0, cb + 6);
-          const float ru2 = hash_uniform(idx, seed0, cb + 3);
+          u_phi2 = first ? sb_phi : hash_uniform(idx, seed0, cb_b + 4);
+          u_r22 = first ? sb_r2 : hash_uniform(idx, seed0, cb_b + 5);
+          u_mixv = first ? sb_mix : hash_uniform(idx, seed0, cb_b + 6);
+          const float ru2 = hash_uniform(idx, seed0, cb_b + 3);
           const int pick = min((int)(ru2 * (float)K), K - 1);
           float sw[3], scm;
           cap_of(s_is + pick * 4, nu, sw, scm);
@@ -207,8 +289,8 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           const float n1r = nre[k], n1i = nim[k];
-          n2r[k] = entering ? prm[k] : s_consts[3 + k];
-          n2i[k] = entering ? prm[3 + k] : s_consts[6 + k];
+          n2r[k] = entering ? prm[k] : scene_nre[k];
+          n2i[k] = entering ? prm[3 + k] : scene_nim[k];
           const float dd = fmaxf(n2r[k] * n2r[k] + n2i[k] * n2i[k], F(1e-30));
           const float rr = (n1r * n2r[k] + n1i * n2i[k]) / dd;
           const float ri = (n1i * n2r[k] - n1r * n2i[k]) / dd;
@@ -227,17 +309,39 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
           const float F_par = (sr * sr + si * si) / fmaxf(tr * tr + ti * ti, F(1e-30));
           Fr[k] = (F_per + F_par) * 0.5f;
         }
-        const float T0 = 1.0f - Fr[0], T1 = 1.0f - Fr[1], T2 = 1.0f - Fr[2];
-        const float ratio_avg = (nre[0] / fmaxf(n2r[0], F(1e-9))
-                                 + nre[1] / fmaxf(n2r[1], F(1e-9))
-                                 + nre[2] / fmaxf(n2r[2], F(1e-9))) / 3.0f;
+        const float T[3] = {1.0f - Fr[0], 1.0f - Fr[1], 1.0f - Fr[2]};
+        float rat[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) rat[k] = nre[k] / fmaxf(n2r[k], F(1e-9));
+        float ratio_avg = (rat[0] + rat[1] + rat[2]) / 3.0f;
+        // dispersion (pallas_trace.py:853-870): transmitted paths refract
+        // at one uniformly chosen channel's IoR, that channel carrying 3x
+        const int hu_g = rec[OBJ_HU1];
+        int hero = -1;
+        if (hu_g >= 0) {
+          int a = 0;          // the group's place among this bounce's draws
+          for (int j = 0; j < hu_g; ++j) a += bounce < p.hu_maxd[j];
+          const float hu = hash_uniform(idx, seed0, cb_b + 7u + (uint32_t)a);
+          hero = hu < F(1.0 / 3.0) ? 0 : (hu < F(2.0 / 3.0) ? 1 : 2);
+          ratio_avg = rat[hero];
+        }
         const float sin2t = ratio_avg * ratio_avg * (1.0f - cos_i * cos_i);
         const bool non_tir = sin2t <= 1.0f;
         const float croot = sqrtf(1.0f - clip01(sin2t));
-        const float T_avg = (T0 + T1 + T2) / 3.0f;
+        const float T_avg = (T[0] + T[1] + T[2]) / 3.0f;
         const float p_refr = non_tir ? clip01(T_avg) : 0.0f;
-        const float ru0 = hash_uniform(idx, seed0, cb + 1);
-        const bool take = ru0 < p_refr && non_tir;
+        const float ru0 = hash_uniform(idx, seed0, cb_b + 1);
+        bool take = ru0 < p_refr && non_tir;
+        // deterministic split (pallas_trace.py:902-926): for groups without
+        // mc the pattern bit picks the branch, weight 2F / 2T; a refraction
+        // the bit asks for under total internal reflection ends the path
+        const bool det = p.split_k && !rec[OBJ_MC] && scnt < p.split_k;
+        if (det) {
+          const bool bit = ((pattern >> scnt) & 1) == 1;
+          if (bit && !non_tir) break;
+          take = bit;
+          ++scnt;
+        }
         float nd[3];
         if (take) {
 #pragma unroll
@@ -249,7 +353,6 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
           for (int k = 0; k < 3; ++k) nd[k] = d[k] - n[k] * (2.0f * ddn);
         }
         normalize3(nd[0], nd[1], nd[2]);
-        const float T[3] = {T0, T1, T2};
         const float sgn = take ? -1.0f : 1.0f;
         // -4 pi / lambda * 1e9 per channel (utils/constants.py WAVELENGTHS_NM)
         const float absorb_c[3] = {F((-4.0 * PI / 630.0) * 1e9),
@@ -258,9 +361,10 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           const float absorb = expf(nim[k] * (absorb_c[k] * t));
-          const float wgt = take ? T[k] / fmaxf(p_refr, F(1e-9))
-                                 : Fr[k] / fmaxf(1.0f - p_refr, F(1e-9));
-          beta[k] = beta[k] * (absorb * wgt);
+          float w_r = det ? 2.0f * T[k] : T[k] / fmaxf(p_refr, F(1e-9));
+          const float w_l = det ? 2.0f * Fr[k] : Fr[k] / fmaxf(1.0f - p_refr, F(1e-9));
+          if (hero >= 0) w_r = w_r * (k == hero ? 3.0f : 0.0f);
+          beta[k] = beta[k] * (absorb * (take ? w_r : w_l));
         }
         if (take) {
 #pragma unroll
@@ -292,24 +396,32 @@ __global__ void __launch_bounds__(BLOCK) solid_trace_kernel(Params p) {
 
 extern "C" int solid_trace_launch(
     const int* seed, const float* cam, const float* geom, const int* obj,
-    int n_obj, const float* dif, int n_dif, const float* refr, int n_refr,
-    const float* emi, int n_emi, const float* is_tab, int n_is,
-    const float* consts, int width, int height, int spp, int max_bounces,
-    int iid, float* L, long long* count, void* stream) {
+    int n_obj, const float* dif, int n_dif, const float* glo, int n_glo,
+    const float* refr, int n_refr, const float* emi, int n_emi,
+    const float* lights, int n_lrow, int n_dir, int n_point, int n_spot,
+    const float* is_tab, int n_is, const float* consts, int width, int height,
+    int spp, int max_bounces, int iid, int split_k, int projection,
+    const int* hu_maxd, int n_hu, float* L, long long* count, void* stream) {
+  if (n_hu < 0 || n_hu > MAX_HU) return (int)cudaErrorInvalidValue;
   Params p;
   p.seed = seed; p.cam = cam; p.geom = geom; p.obj = obj;
-  p.dif = dif; p.refr = refr; p.emi = emi; p.is_tab = is_tab; p.consts = consts;
-  p.n_obj = n_obj; p.n_dif = n_dif; p.n_refr = n_refr; p.n_emi = n_emi;
-  p.n_is = n_is;
-  p.width = width; p.height = height;
-  p.n = spp * width * height;
-  p.max_bounces = max_bounces; p.iid = iid;
+  p.dif = dif; p.glo = glo; p.refr = refr; p.emi = emi; p.lights = lights;
+  p.is_tab = is_tab; p.consts = consts;
+  p.n_obj = n_obj; p.n_dif = n_dif; p.n_glo = n_glo; p.n_refr = n_refr;
+  p.n_emi = n_emi; p.n_lrow = n_lrow; p.n_is = n_is;
+  p.n_dir = n_dir; p.n_point = n_point; p.n_spot = n_spot;
+  p.width = width; p.height = height; p.n_pix = width * height;
+  p.n = spp * p.n_pix;
+  p.max_bounces = max_bounces; p.iid = iid; p.split_k = split_k;
+  p.projection = projection;
+  p.n_hu = n_hu;
+  for (int j = 0; j < MAX_HU; ++j) p.hu_maxd[j] = j < n_hu ? hu_maxd[j] : 0;
   p.L = L;
   p.count = reinterpret_cast<unsigned long long*>(count);
   const size_t smem = sizeof(float) * (
       (size_t)n_obj * (GEOM_COLS + OBJ_COLS) + (size_t)n_dif * 4
-      + (size_t)n_refr * 6 + (size_t)n_emi * 3 + (size_t)(n_is > 0 ? n_is : 1) * 4
-      + 16 + 17 + 3);
+      + (size_t)n_glo * 12 + (size_t)n_refr * 6 + (size_t)n_emi * 3
+      + (size_t)n_lrow * 11 + (size_t)(n_is > 0 ? n_is : 1) * 4 + 16 + 17 + 3);
   const int grid = (p.n + BLOCK - 1) / BLOCK;
   solid_trace_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

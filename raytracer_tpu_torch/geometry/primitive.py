@@ -1,10 +1,11 @@
 """Host-side scene-description primitives.
 
-Counterpart of raytracer_tpu/geometry/primitive.py for the solid slice:
-Sphere, Plane and Cuboid (with `rotate`).  Triangles, meshes, discs and
-cylinders come with the wavefront slice (ROADMAP.md "Modules to port"
-item 8).  Rotation is the same axis-angle Rodrigues matrix, applied
-eagerly to the stored parameters, so compiled tables match bit for bit.
+Counterpart of raytracer_tpu/geometry/primitive.py for the kernels'
+primitives: Sphere, Plane, Cuboid, Disc, Cylinder and Triangle (with
+`rotate`).  TriangleMesh and MeshInstances come with the wavefront slice
+(ROADMAP.md "Modules to port" item 8).  Rotation is the same axis-angle
+Rodrigues matrix, applied eagerly to the stored parameters, so compiled
+tables match bit for bit.
 """
 
 from __future__ import annotations
@@ -130,3 +131,92 @@ class Cuboid(Primitive):
     @property
     def rt_local(self):
         return self.basis @ self.rt
+
+
+def _orthonormal_frame(normal, u_hint=None):
+    """(u, v) orthonormal in the plane perpendicular to `normal`; u is
+    `u_hint` projected into the plane when given, else a fixed default
+    axis (as the JAX package)."""
+    n = stable_unit(normal)
+    if u_hint is not None:
+        u = np.asarray(as_float3(u_hint, "u_axis"), np.float64)
+        if np.linalg.norm(u - n * np.dot(u, n)) < 1e-9:
+            raise ValueError("u_axis is parallel to the normal")
+        # project + normalize to a fixed point
+        for _ in range(4):
+            u2 = stable_unit(u - n * np.dot(u, n))
+            if np.array_equal(u2, u):
+                break
+            u = u2
+    else:
+        ref = np.array([0.0, 1.0, 0.0]) if abs(n[1]) < 0.9 \
+            else np.array([1.0, 0.0, 0.0])
+        u = stable_unit(np.cross(ref, n))
+    v = np.cross(n, u)
+    return u, v
+
+
+class Disc(Primitive):
+    """Flat disc, or an annulus when `inner_radius > 0`; `normal` faces the
+    front side, `u_axis` orients the planar uv."""
+
+    def __init__(self, center, material, radius, normal=(0.0, 1.0, 0.0),
+                 inner_radius=0.0, u_axis=None, max_ray_depth=5,
+                 shadow=True, mc=False):
+        super().__init__(center, material, max_ray_depth, shadow=shadow, mc=mc)
+        self.radius = float(radius)
+        self.inner_radius = float(inner_radius)
+        if not 0.0 <= self.inner_radius < self.radius:
+            raise ValueError(
+                f"inner_radius must be in [0, radius), got "
+                f"{self.inner_radius} vs radius {self.radius}")
+        self.normal = stable_unit(as_float3(normal, "normal"))
+        self.u_axis, self.v_axis = _orthonormal_frame(self.normal, u_axis)
+        self.bounded_sphere_radius = self.radius
+
+    def _apply_rotation(self, M):
+        self.normal = M @ self.normal
+        self.u_axis = M @ self.u_axis
+        self.v_axis = M @ self.v_axis
+
+
+class Cylinder(Primitive):
+    """Finite cylinder: `center` is the mid-height point, `axis` the length
+    direction, `height` the full length; `capped=False` is an open tube."""
+
+    def __init__(self, center, material, radius, height,
+                 axis=(0.0, 1.0, 0.0), capped=True, u_axis=None,
+                 max_ray_depth=5, shadow=True, mc=False):
+        super().__init__(center, material, max_ray_depth, shadow=shadow, mc=mc)
+        self.radius = float(radius)
+        self.height = float(height)
+        if self.radius <= 0 or self.height <= 0:
+            raise ValueError("radius and height must be positive")
+        self.axis = stable_unit(as_float3(axis, "axis"))
+        self.u_axis, self.v_axis = _orthonormal_frame(self.axis, u_axis)
+        self.capped = bool(capped)
+        self.bounded_sphere_radius = float(
+            np.sqrt(self.radius ** 2 + (self.height / 2) ** 2))
+
+    def _apply_rotation(self, M):
+        self.axis = M @ self.axis
+        self.u_axis = M @ self.u_axis
+        self.v_axis = M @ self.v_axis
+
+
+class Triangle(Primitive):
+    """Single triangle (sightpy triangle.py:8-17)."""
+
+    def __init__(self, center, material, p1, p2, p3, max_ray_depth=5,
+                 shadow=True, mc=False):
+        super().__init__(center, material, max_ray_depth, shadow=shadow, mc=mc)
+        self.p1 = as_float3(p1, "p1")
+        self.p2 = as_float3(p2, "p2")
+        self.p3 = as_float3(p3, "p3")
+        e = np.stack([self.p1, self.p2, self.p3]) - self.center
+        self.bounded_sphere_radius = float(np.max(np.linalg.norm(e, axis=1)))
+
+    def _apply_rotation(self, M):
+        self.p1 = self.center + M @ (self.p1 - self.center)
+        self.p2 = self.center + M @ (self.p2 - self.center)
+        self.p3 = self.center + M @ (self.p3 - self.center)

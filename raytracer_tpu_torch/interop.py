@@ -75,5 +75,7 @@ def tables_from_jax(static, data):
         a(data.is_center), a(data.is_radius), a(data.ambient_color),
         a(data.scene_n_re), a(data.scene_n_im), tf_rows,
         np.asarray(data.tex_atlas, np.int32), a(data.tex_scale),
-        port_static.image_slots())
+        port_static.image_slots(),
+        (port_static.n_dir_lights, port_static.n_point_lights,
+         port_static.n_spot_lights))
     return port_static, tables

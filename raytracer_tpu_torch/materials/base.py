@@ -81,9 +81,9 @@ class Diffuse(Material):
 
 class Refractive(Material):
     """Complex-IoR Fresnel dielectric with Beer-Lambert absorption
-    (sightpy refractive.py:10-123).  dispersion=True is accepted by the
-    scene description, but the kernels of this port refuse it
-    (ROADMAP.md "TPU kernels to port", K1 and K2)."""
+    (sightpy refractive.py:10-123).  dispersion=True refracts transmitted
+    paths at one uniformly chosen channel's IoR (hero wavelength), that
+    channel carrying 3x the throughput."""
 
     mat_type = MAT_REFRACTIVE
 

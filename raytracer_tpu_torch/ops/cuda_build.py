@@ -99,9 +99,12 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.solid_trace_launch.argtypes = [
         vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
-        vp, ci, vp, ci, vp, ci,         # dif, refr, emi tables + rows
+        vp, ci, vp, ci, vp, ci, vp, ci,  # dif, glo, refr, emi tables + rows
+        vp, ci, ci, ci, ci,             # lights, rows, n_dir, n_point, n_spot
         vp, ci, vp,                     # is_tab, K, consts
-        ci, ci, ci, ci, ci,             # width, height, spp, max_bounces, iid
+        ci, ci, ci, ci, ci, ci, ci,     # width, height, spp, max_bounces,
+                                        # iid, split_k, projection
+        ctypes.POINTER(ci), ci,         # dispersive groups' depth caps
         vp, vp, vp]                     # L, count, stream
     lib.solid_trace_launch.restype = ci
     lib.record_trace_launch.argtypes = [
@@ -110,8 +113,9 @@ def load_library():
         vp, ci,                         # tf table + rows
         vp, ci, ci, ci, ci,             # lights, rows, n_dir, n_point, n_spot
         vp, ci, vp,                     # is_tab, K, consts
-        ci, ci, ci, ci, ci, ci,         # width, height, spp, max_bounces,
-                                        # iid, split_k
+        ci, ci, ci, ci, ci, ci, ci,     # width, height, spp, max_bounces,
+                                        # iid, split_k, projection
+        ci,                             # dispersive groups
         vp, vp, vp, vp]                 # rec_g, rec_f, count, stream
     lib.record_trace_launch.restype = ci
     _lib = lib

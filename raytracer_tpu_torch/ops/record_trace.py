@@ -21,9 +21,8 @@ directions and path geometry never depend on texture values:
 - `record_trace_chunk` records and replays one chunk; Scene.render calls it.
 
 Both follow the JAX kernel draw for draw, in its flat (sample-major) lane
-order.  What the port does not carry yet (dispersion, triangles / discs /
-cylinders, the non-pinhole projections) raises NotImplementedError before
-any work.
+order, for every object kind (spheres, planes, boxes, discs, cylinders,
+triangles), every projection and spectral dispersion.
 """
 
 from __future__ import annotations
@@ -33,20 +32,21 @@ import math
 
 import torch
 
-from ..core.compile import (KIND_CODES, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U,
-                            OBJ_AA_V, OBJ_COLS, OBJ_KIND, SceneStatic,
-                            SolidTables, shading_groups)
+from ..core.compile import (KIND_CODES, OBJ_COLS, OBJ_KIND, SceneStatic,
+                            SolidTables, dispersive_groups, shading_groups)
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY,
                               MAT_REFRACTIVE, MAT_THINFILM)
-from ..utils.constants import MISS_THRESHOLD, SKYBOX_DISTANCE, WAVELENGTHS_NM
+from ..utils.constants import MISS_THRESHOLD, WAVELENGTHS_NM
 from .cuda_build import SMEM_LIMIT, check_tensor, load_library
 from .replay import replay
-from .solid_trace import (SAMPLERS, _cabs2, _cdiv, _cmul, _csqrt, _div,
-                          _isect_box, _isect_plane, _isect_sphere, _normal,
-                          _normalize3, _orthobasis, asin_poly, atan2_poly,
-                          camera_rays, hash_uniform)
+from .solid_trace import (PROJECTIONS, _cabs2, _cdiv, _cmul, _csqrt,
+                          _cyl_local, _div, _normal, _normalize3, _orthobasis,
+                          _pow5, asin_poly, atan2_poly, camera_rays,
+                          check_args, fresnel_f0, glossy_lights, hash_uniform,
+                          isect_of, nearest_hit, reflect)
 
-_SPHERE, _PLANE, _BOX = (KIND_CODES[k] for k in ("sphere", "plane", "box"))
+_SPHERE, _PLANE, _BOX, _TRI, _DISC, _CYL = (
+    KIND_CODES[k] for k in ("sphere", "plane", "box", "tri", "disc", "cyl"))
 _REC_TYPES = {MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE, MAT_REFRACTIVE,
               MAT_THINFILM, MAT_ENV}
 
@@ -62,27 +62,16 @@ def replay_rounds(static: SceneStatic):
 
 
 def check_slice(static: SceneStatic, split_k, sampler, projection):
-    """Raise for what the port's record path does not carry."""
-    if sampler not in SAMPLERS:
-        raise ValueError(f"sampler must be 'r2' or 'iid', got {sampler!r}")
-    todo = []
-    if projection != "pinhole":
-        todo.append(f"the {projection} projection")
-    if not {r.kind for r in static.obj_records} <= {"sphere", "plane", "box"}:
-        todo.append("triangles, discs and cylinders")
-    if any(static.refr_disp):
-        todo.append("spectral dispersion")
+    """Raise ValueError for arguments or material types the record kernel
+    does not take."""
+    check_args(sampler, projection, split_k)
     bad = set(static.mat_types_present) - _REC_TYPES
     if bad:
         raise ValueError(f"material types {sorted(bad)} have no record shading")
-    if todo:
-        raise NotImplementedError(
-            "the record kernel does not carry " + ", ".join(todo)
-            + " yet (ROADMAP.md 'TPU kernels to port', K2)")
 
 
 def _uv_for(kind, g, px, py, pz, nx_r, ny_r, nz_r):
-    """Texture uv per object kind (pallas_record.py:76-115); n*_r is the
+    """Texture uv per object kind (pallas_record.py:76-148); n*_r is the
     raw geometric normal (before the orientation flip)."""
     if kind == _SPHERE:
         phi = atan2_poly(nz_r, nx_r)
@@ -94,6 +83,33 @@ def _uv_for(kind, g, px, py, pz, nx_r, ny_r, nz_r):
         uu = (g[3] * mx + g[4] * my + g[5] * mz) / g[12]
         vv = (g[6] * mx + g[7] * my + g[8] * mz) / g[13]
         return (uu + 1.0) / 2.0 + g[14], (vv + 1.0) / 2.0 + g[15]
+    if kind == _DISC:
+        # planar over the bounding square
+        mx, my, mz = px - g[0], py - g[1], pz - g[2]
+        return (((g[6] * mx + g[7] * my + g[8] * mz) / g[12] + 1.0) / 2.0,
+                ((g[9] * mx + g[10] * my + g[11] * mz) / g[12] + 1.0) / 2.0)
+    if kind == _CYL:
+        # side: (azimuth, height); caps: planar
+        r, hh, cap_on = g[12], g[13], g[14] > 0.5
+        x, y, z = _cyl_local(g, px, py, pz)
+        rho = torch.sqrt(torch.clamp_min(x * x + z * z, 1e-20))
+        is_cap = cap_on & (y.abs() / hh >= rho / r)
+        u_side = _div(atan2_poly(z, x) + math.pi, 2.0 * math.pi)
+        v_side = (y / hh + 1.0) / 2.0
+        return (torch.where(is_cap, (x / r + 1.0) / 2.0, u_side),
+                torch.where(is_cap, (z / r + 1.0) / 2.0, v_side))
+    if kind == _TRI:
+        # barycentric
+        e1 = [g[3 + i] - g[i] for i in range(3)]
+        e2 = [g[6 + i] - g[i] for i in range(3)]
+        qx, qy, qz = px - g[0], py - g[1], pz - g[2]
+        d11 = e1[0] * e1[0] + e1[1] * e1[1] + e1[2] * e1[2]
+        d12 = e1[0] * e2[0] + e1[1] * e2[1] + e1[2] * e2[2]
+        d22 = e2[0] * e2[0] + e2[1] * e2[1] + e2[2] * e2[2]
+        dp1 = qx * e1[0] + qy * e1[1] + qz * e1[2]
+        dp2 = qx * e2[0] + qy * e2[1] + qz * e2[2]
+        det = torch.clamp_min(d11 * d22 - d12 * d12, 1e-20)
+        return (d22 * dp1 - d12 * dp2) / det, (d11 * dp2 - d12 * dp1) / det
     # box: the max-|axis| face, then the cube-cross layout, / 4, / 3
     b = g[:9]
     mx, my, mz = px - g[15], py - g[16], pz - g[17]
@@ -114,25 +130,6 @@ def _uv_for(kind, g, px, py, pz, nx_r, ny_r, nz_r):
         torch.where(top, (pl_[2] * s + 1.0) / 2.0 + 2.0,
                     (pl_[1] * s + 1.0) / 2.0 + 1.0))
     return u / 4.0, _div(v, 3.0)
-
-
-def _isect_of(row):
-    """The intersector of one object-table row (planes with an
-    axis-aligned frame take the component-selection form)."""
-    kind = row[OBJ_KIND]
-    if kind == _SPHERE:
-        return _isect_sphere
-    if kind == _BOX:
-        return _isect_box
-    aa = (None if row[OBJ_AA_N] < 0 else
-          (row[OBJ_AA_N], row[OBJ_AA_NSIGN], row[OBJ_AA_U], row[OBJ_AA_V]))
-    return lambda g, *a: _isect_plane(g, *a, aa=aa)
-
-
-def _pow5(x):
-    """x ** 5 as lax.integer_pow computes it: x * ((x * x) * (x * x))."""
-    x2 = x * x
-    return x * (x2 * x2)
 
 
 # ---------------------------------------------------------------------------
@@ -159,23 +156,26 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
     n = spp * n_pix
     seed = seed_vec.to(torch.int64)
     idx, (ox, oy, oz, dx, dy, dz), sb, counter0 = camera_rays(
-        seed, cam_vec, width, height, spp, sampler)
+        seed, cam_vec, width, height, spp, sampler, projection)
     sb_mix, sb_phi, sb_r2 = sb if sb is not None else (None, None, None)
 
     records = static.obj_records
     groups, order = shading_groups(records)
+    # one hero-wavelength draw per dispersive group on every bounce, after
+    # the six per-bounce draws, in group order (pallas_record.py:333, 475)
+    _, hu_of = dispersive_groups(records, static.refr_disp)
+    draws_per_bounce = 6 + len(hu_of)
     img_slots = static.image_slots()
     rows = tables.obj_rows
     geom = [tables.geom[i] for i in range(len(rows))]
-    isects = [_isect_of(r) for r in rows]
-    shadow_ids = [i for i, r in enumerate(records) if r.shadow]
+    isects = [isect_of(r) for r in rows]
+    shadow = [(isects[i], geom[i]) for i, r in enumerate(records) if r.shadow]
     consts = tables.consts
     ambient = [consts[k] for k in range(3)]
     scene_nre = [consts[3 + k] for k in range(3)]
     scene_nim = [consts[6 + k] for k in range(3)]
     lam = WAVELENGTHS_NM
     K = static.n_is_targets
-    n_lights = static.n_dir_lights + static.n_point_lights + static.n_spot_lights
 
     zf = torch.zeros(n, dtype=f32, device=dev)
     nre = [zf + scene_nre[k] for k in range(3)]
@@ -189,16 +189,7 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
     rec_f = torch.zeros((max_bounces, 12, n), dtype=f32, device=dev)
 
     for bounce in range(max_bounces):
-        best_t = torch.full((n,), 1.0e30, dtype=f32, device=dev)
-        best_o = torch.ones(n, dtype=f32, device=dev)
-        obj = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        for i in range(len(rows)):
-            t_i, o_i = isects[i](geom[i], ox, oy, oz, dx, dy, dz)
-            better = t_i < best_t
-            best_t = torch.where(better, t_i, best_t)
-            best_o = torch.where(better, o_i, best_o)
-            obj = torch.where(better, i, obj)
-        t, orient = best_t, best_o
+        t, orient, obj = nearest_hit(isects, geom, ox, oy, oz, dx, dy, dz)
         hit = alive & ~(t >= MISS_THRESHOLD)
         count = count + alive.sum()
         px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
@@ -227,11 +218,9 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
         nox, noy, noz = px, py, pz
         new_nre, new_nim = list(nre), list(nim)
         inc_d = torch.zeros(n, dtype=torch.bool, device=dev)
-        cb = counter0 + 6 * bounce
+        cb = counter0 + draws_per_bounce * bounce
         ru = [hash_uniform(idx, seed[0], cb + j + 1) for j in range(6)]
-        ddn = dx * nx + dy * ny + dz * nz
-        rlx, rly, rlz = _normalize3(dx - nx * 2.0 * ddn, dy - ny * 2.0 * ddn,
-                                    dz - nz * 2.0 * ddn)
+        rlx, rly, rlz = reflect(dx, dy, dz, nx, ny, nz)
 
         for key in order:
             mt, slot, maxd, mc = key
@@ -362,9 +351,18 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                     n2r_l.append(n2[0])
                     n2i_l.append(n2[1])
                 T = [1.0 - F[k] for k in range(3)]
-                ratio_avg = _div(nre[0] / torch.clamp_min(n2r_l[0], 1e-9)
-                                 + nre[1] / torch.clamp_min(n2r_l[1], 1e-9)
-                                 + nre[2] / torch.clamp_min(n2r_l[2], 1e-9), 3.0)
+                rat = [nre[k] / torch.clamp_min(n2r_l[k], 1e-9) for k in range(3)]
+                disp = (slot, maxd, mc) in hu_of
+                if disp:
+                    # dispersion: refract at one uniformly chosen channel's
+                    # IoR, that channel carrying 3x on transmitted paths
+                    hu = hash_uniform(idx, seed[0], cb + 7 + hu_of[(slot, maxd, mc)])
+                    h0 = hu < (1.0 / 3.0)
+                    h1 = (hu >= (1.0 / 3.0)) & (hu < (2.0 / 3.0))
+                    hero = (h0, h1, ~(h0 | h1))
+                    ratio_avg = torch.where(h0, rat[0], torch.where(h1, rat[1], rat[2]))
+                else:
+                    ratio_avg = _div(rat[0] + rat[1] + rat[2], 3.0)
                 sin2t = ratio_avg * ratio_avg * (1.0 - cos_i * cos_i)
                 non_tir = sin2t <= 1.0
                 croot = torch.sqrt(1.0 - torch.clamp(sin2t, 0.0, 1.0))
@@ -393,6 +391,8 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                     if split:
                         w_r = torch.where(det, 2.0 * T[k], w_r)
                         w_l = torch.where(det, 2.0 * F[k], w_l)
+                    if disp:
+                        w_r = w_r * torch.where(hero[k], 3.0, 0.0)
                     betab[k] = torch.where(
                         gc, absorb * torch.where(take_refr, w_r, w_l), betab[k])
                     new_nre[k] = torch.where(gc & take_refr, n2r_l[k], new_nre[k])
@@ -445,56 +445,15 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 nux, nuy, nuz = px + nx * eps, py + ny * eps, pz + nz * eps
                 lam_acc = [zf + ambient[k] * diff_c for k in range(3)]
                 spec_acc = [zf, zf, zf]
-                F0 = [_cabs2((nre[k] - g_re[k], nim[k] - g_im[k]))
-                      / torch.clamp_min(_cabs2((nre[k] + g_re[k],
-                                                nim[k] + g_im[k])), 1e-20)
+                F0 = [fresnel_f0(nre[k], nim[k], g_re[k], g_im[k])
                       for k in range(3)]
-                rm = torch.clamp_min(rough, 1e-6)
-                a_ph = 2.0 / (rm * rm) - 2.0
-                for li in range(n_lights):
-                    L = tables.lights[li]
-                    is_point = li >= static.n_dir_lights
-                    is_spot = li >= static.n_dir_lights + static.n_point_lights
-                    if is_point:
-                        wx, wy, wz = L[0] - px, L[1] - py, L[2] - pz
-                        dist = torch.sqrt(torch.clamp_min(
-                            wx * wx + wy * wy + wz * wz, 1e-20))
-                        lxn, lyn, lzn = wx / dist, wy / dist, wz / dist
-                    else:
-                        lxn, lyn, lzn = zf + L[0], zf + L[1], zf + L[2]
-                        dist = torch.full((n,), SKYBOX_DISTANCE, dtype=f32,
-                                          device=dev)
-                    ndl = torch.clamp_min(nx * lxn + ny * lyn + nz * lzn, 0.0)
-                    if is_point:
-                        fall = ndl / (dist * dist) * 100.0
-                        if is_spot:
-                            cos_t = -(lxn * L[6] + lyn * L[7] + lzn * L[8])
-                            tt = torch.clamp((cos_t - L[10])
-                                             / torch.clamp_min(L[9] - L[10], 1e-6),
-                                             0.0, 1.0)
-                            fall = fall * (tt * tt * (3.0 - 2.0 * tt))
-                        lv = [L[3 + k] * fall for k in range(3)]
-                    else:
-                        lv = [L[3 + k] * ndl for k in range(3)]
-                    occ = torch.zeros(n, dtype=torch.bool, device=dev)
-                    for si in shadow_ids:
-                        t_s, _ = isects[si](geom[si], nux, nuy, nuz, lxn, lyn, lzn)
-                        occ = occ | (t_s < dist)
-                    see = 1.0 - occ.to(f32)
+                for lv, see, p5, sw in glossy_lights(
+                        tables, shadow, (px, py, pz), (nux, nuy, nuz),
+                        (nx, ny, nz), (vx, vy, vz), rough, spec_c):
                     for k in range(3):
                         lam_acc[k] = lam_acc[k] + diff_c * lv[k] * see
-                    hx, hy, hz = _normalize3(lxn + vx, lyn + vy, lzn + vz)
-                    cos_vh = torch.clamp(vx * hx + vy * hy + vz * hz, 0.0, 1.0)
-                    p5 = _pow5(1.0 - cos_vh)
-                    dph = _div(torch.pow(torch.clamp(nx * hx + ny * hy + nz * hz,
-                                                     0.0, 1.0), a_ph)
-                               * (a_ph + 2.0), 2.0 * math.pi)
-                    denom = 4.0 * torch.clamp((nx * vx + ny * vy + nz * vz) * ndl,
-                                              0.001, 1.0)
-                    sw = torch.where(rough != 0.0, dph / denom * see * spec_c, 0.0)
-                    for k in range(3):
-                        spec_acc[k] = spec_acc[k] + (F0[k] + (1.0 - F0[k]) * p5) \
-                            * sw * lv[k]
+                        spec_acc[k] = (spec_acc[k]
+                                       + (F0[k] + (1.0 - F0[k]) * p5) * sw * lv[k])
                 for k in range(3):
                     if has_img:
                         addt[k] = torch.where(g, lam_acc[k], addt[k])
@@ -507,9 +466,7 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 p5r = _pow5(1.0 - cos_vn)
                 gc = g & (bounce < maxd)
                 for k in range(3):
-                    F0s = (_cabs2((scene_nre[k] - g_re[k], scene_nim[k] - g_im[k]))
-                           / torch.clamp_min(_cabs2((scene_nre[k] + g_re[k],
-                                                     scene_nim[k] + g_im[k])), 1e-20))
+                    F0s = fresnel_f0(scene_nre[k], scene_nim[k], g_re[k], g_im[k])
                     betab[k] = torch.where(gc, F0s + (1.0 - F0s) * p5r, betab[k])
                 ndx = torch.where(gc, rlx, ndx)
                 ndy = torch.where(gc, rly, ndy)
@@ -543,7 +500,7 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
 # ---------------------------------------------------------------------------
 
 def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
-            max_bounces, split_k, sampler):
+            max_bounces, split_k, sampler, projection="pinhole"):
     dev = cam_vec.device
     f32, i32 = torch.float32, torch.int32
     n_obj = len(tables.obj_rows)
@@ -591,8 +548,10 @@ def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
         p(tables.tf), rows(tables.tf), p(tables.lights), n_l,
         static.n_dir_lights, static.n_point_lights, static.n_spot_lights,
         p(tables.is_tab), K, p(tables.consts), width, height, spp,
-        max_bounces, int(sampler == "iid"), split_k, p(rec_g), p(rec_f),
-        p(count), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        max_bounces, int(sampler == "iid"), split_k, PROJECTIONS[projection],
+        len(dispersive_groups(static.obj_records, static.refr_disp)[1]),
+        p(rec_g), p(rec_f), p(count),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"record_trace kernel launch failed: CUDA error {err}")
     return rec_g, rec_f, count
@@ -613,7 +572,7 @@ def record_paths(seed_vec, static: SceneStatic, tables: SolidTables, cam_vec,
         raise ValueError(f"no record kernel for device {cam_vec.device}")
     check_slice(static, split_k, sampler, projection)
     out = _launch(seed_vec, static, tables, cam_vec, width, height, spp,
-                  max_bounces, split_k, sampler)
+                  max_bounces, split_k, sampler, projection)
     record_paths.launches += 1
     return out
 

@@ -1,13 +1,18 @@
 """The solid path-tracing kernel: a CUDA kernel and its plain PyTorch version.
 
 Counterpart of raytracer_tpu/ops/pallas_trace.py (`pallas_trace_chunk`,
-kernel body `_make_kernel`).  One call traces one chunk of spp * H * W
-camera rays of a solid-colour scene: ray generation, then per bounce the
-nearest hit over all objects, the normal, and the shading of emissive,
-diffuse (cosine lobe + spherical-cap importance sampling) and refractive
-(complex-IoR Fresnel, Beer-Lambert) hits.  It returns L as (n, 3) float32
-in [sample, pixel] order, and the count of rays traced (the sum over
-bounces of the rays alive at the start of the bounce).
+kernel body `_make_kernel`, with its production options diet, aa_planes
+and merge_groups).  One call traces one chunk of spp * H * W camera rays
+of a solid-colour scene: ray generation (pinhole + thin lens, fisheye,
+equirect, orthographic), then per bounce the nearest hit over spheres,
+planes, boxes, discs, cylinders and triangles, the normal, and the shading
+of emissive, diffuse (cosine lobe + spherical-cap importance sampling),
+refractive (complex-IoR Fresnel, Beer-Lambert, deterministic Fresnel
+splitting, hero-wavelength dispersion) and glossy hits (ambient, lights
+with shadow rays, Blinn-Phong, the Fresnel mirror continuation).  It
+returns L as (n, 3) float32 in [sample, pixel] order, and the count of
+rays traced (the sum over bounces of the rays alive at the start of the
+bounce).
 
 - `solid_trace_chunk_reference` is the plain version: vectorised over
   rays, the hash math in int64 (core/lds.py), the reference's own
@@ -17,9 +22,7 @@ bounces of the rays alive at the start of the bounce).
   csrc/solid_trace.cu, or raises.
 
 Both follow the JAX kernel draw for draw: given the same seed_vec they
-trace the same paths, ray by ray.  What this slice does not carry (glossy
-shading, dispersion, split_k > 0, triangles / discs / cylinders, the
-non-pinhole projections) raises NotImplementedError before any work.
+trace the same paths, ray by ray.
 """
 
 from __future__ import annotations
@@ -31,47 +34,57 @@ import torch
 
 from ..core import lds
 from ..core.compile import (KIND_CODES, OBJ_AA_N, OBJ_AA_NSIGN, OBJ_AA_U,
-                            OBJ_AA_V, OBJ_COLS, OBJ_DISP, OBJ_KIND,
-                            OBJ_MAT_SLOT, OBJ_MAT_TYPE, OBJ_MAX_DEPTH,
-                            SolidTables)
+                            OBJ_AA_V, OBJ_COLS, OBJ_HU1, OBJ_KIND,
+                            OBJ_MAT_SLOT, OBJ_MAT_TYPE, OBJ_MAX_DEPTH, OBJ_MC,
+                            OBJ_SHADOW, SolidTables)
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_GLOSSY,
                               MAT_REFRACTIVE)
-from ..utils.constants import FARAWAY, MISS_THRESHOLD, WAVELENGTHS_NM
+from ..utils.constants import (FARAWAY, MISS_THRESHOLD, SKYBOX_DISTANCE,
+                               WAVELENGTHS_NM)
 from .cuda_build import SMEM_LIMIT, check_tensor, load_library
 
 SAMPLERS = ("r2", "iid")
+# camera projections and their codes in the kernels (trace_common.cuh)
+PROJECTIONS = {"pinhole": 0, "fisheye": 1, "equirect": 2, "orthographic": 3}
+MAX_SPLIT_K = 16
+MAX_HU_GROUPS = 48          # csrc/solid_trace.cu MAX_HU
 
-_SPHERE, _PLANE, _BOX = (KIND_CODES[k] for k in ("sphere", "plane", "box"))
+_SPHERE, _PLANE, _BOX, _TRI, _DISC, _CYL = (
+    KIND_CODES[k] for k in ("sphere", "plane", "box", "tri", "disc", "cyl"))
+_SOLID_TYPES = {MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE, MAT_REFRACTIVE}
+
+
+def check_args(sampler, projection, split_k):
+    """Raise ValueError for a sampler, projection or split_k the kernels
+    do not know."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler must be 'r2' or 'iid', got {sampler!r}")
+    if projection not in PROJECTIONS:
+        raise ValueError(f"projection must be one of {tuple(PROJECTIONS)}, "
+                         f"got {projection!r}")
+    if not (isinstance(split_k, int) and 0 <= split_k <= MAX_SPLIT_K):
+        raise ValueError(f"split_k must be an int in [0, {MAX_SPLIT_K}], "
+                         f"got {split_k!r}")
 
 
 def check_slice(tables: SolidTables, split_k, sampler, projection):
-    """Raise for what this slice of the kernel does not carry."""
-    if sampler not in SAMPLERS:
-        raise ValueError(f"sampler must be 'r2' or 'iid', got {sampler!r}")
-    todo = []
-    if projection != "pinhole":
-        todo.append(f"the {projection} projection")
-    if split_k:
-        todo.append("deterministic Fresnel splitting (split_k > 0)")
-    kinds = {r[OBJ_KIND] for r in tables.obj_rows}
-    if not kinds <= {_SPHERE, _PLANE, _BOX}:
-        todo.append("triangles, discs and cylinders")
-    if any(r[OBJ_MAT_TYPE] == MAT_GLOSSY for r in tables.obj_rows):
-        todo.append("glossy shading with lights and shadow rays")
-    if any(r[OBJ_DISP] for r in tables.obj_rows):
-        todo.append("spectral dispersion")
-    bad = {r[OBJ_MAT_TYPE] for r in tables.obj_rows} - {
-        MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE, MAT_REFRACTIVE}
+    """Raise for arguments or material types the solid kernel does not
+    take."""
+    check_args(sampler, projection, split_k)
+    bad = {r[OBJ_MAT_TYPE] for r in tables.obj_rows} - _SOLID_TYPES
     if bad:
         raise ValueError(f"material types {sorted(bad)} have no solid shading")
-    if todo:
-        raise NotImplementedError(
-            "the solid kernel does not carry " + ", ".join(todo)
-            + " yet (ROADMAP.md 'TPU kernels to port', K1)")
+
+
+def hu_groups(obj_rows):
+    """Depth caps of the solid kernel's merged dispersive groups, in the
+    order of their OBJ_HU1 numbers (core/compile.dispersive_groups)."""
+    maxd = {r[OBJ_HU1]: r[OBJ_MAX_DEPTH] for r in obj_rows if r[OBJ_HU1] >= 0}
+    return [maxd[j] for j in range(len(maxd))]
 
 
 # ---------------------------------------------------------------------------
-# helpers of the plain version (pallas_trace.py:68-253)
+# helpers of the plain versions (pallas_trace.py:68-500)
 # ---------------------------------------------------------------------------
 
 
@@ -116,6 +129,12 @@ def _csqrt(a):
 
 def _cabs2(a):
     return a[0] * a[0] + a[1] * a[1]
+
+
+def _pow5(x):
+    """x ** 5 as lax.integer_pow computes it: x * ((x * x) * (x * x))."""
+    x2 = x * x
+    return x * (x2 * x2)
 
 
 def atan2_poly(y, x):
@@ -232,12 +251,115 @@ def _isect_box(g, ox, oy, oz, dx, dy, dz):
     return t, torch.where(inside, -1.0, 1.0)
 
 
+def _isect_tri(g, ox, oy, oz, dx, dy, dz):
+    """Triangle: row [p1, p2, p3, unit normal, n31, n12, n23]
+    (pallas_trace.py:342)."""
+    cx = _div(g[0] + g[3] + g[6], 3.0)
+    cy = _div(g[1] + g[4] + g[7], 3.0)
+    cz = _div(g[2] + g[5] + g[8], 3.0)
+    ndd = g[9] * dx + g[10] * dy + g[11] * dz
+    ndd = torch.where(ndd == 0.0, ndd + 1e-4, ndd)
+    ndco = g[9] * (cx - ox) + g[10] * (cy - oy) + g[11] * (cz - oz)
+    tt = ndco / ndd
+    mx, my, mz = ox + dx * tt, oy + dy * tt, oz + dz * tt
+    inside = ndco * ndd > 0
+    for e, p in ((12, 0), (15, 3), (18, 6)):       # n31 at p1, n12 at p2, n23 at p3
+        inside = inside & (g[e] * (mx - g[p]) + g[e + 1] * (my - g[p + 1])
+                           + g[e + 2] * (mz - g[p + 2]) >= 0)
+    return torch.where(inside, tt, FARAWAY), torch.where(ndd < 0, 1.0, -1.0)
+
+
+def _isect_disc(g, ox, oy, oz, dx, dy, dz):
+    """Disc / annulus: row [center, normal, u, v, r_out, r_in]
+    (pallas_trace.py:369)."""
+    cx, cy, cz = g[0], g[1], g[2]
+    nx, ny, nz = g[3], g[4], g[5]
+    r_out, r_in = g[12], g[13]
+    ndd = nx * dx + ny * dy + nz * dz
+    ndd = torch.where(ndd == 0.0, ndd + 1e-4, ndd)
+    ndco = nx * (cx - ox) + ny * (cy - oy) + nz * (cz - oz)
+    tt = ndco / ndd
+    mx, my, mz = ox + dx * tt - cx, oy + dy * tt - cy, oz + dz * tt - cz
+    rho2 = mx * mx + my * my + mz * mz
+    hit = (rho2 <= r_out * r_out) & (rho2 >= r_in * r_in) & (ndco * ndd > 0)
+    return torch.where(hit, tt, FARAWAY), torch.where(ndd < 0, 1.0, -1.0)
+
+
+def _cyl_local(g, px, py, pz):
+    """A point in the cylinder's frame: (radial u, axial, radial v)
+    (pallas_trace.py:388)."""
+    mx, my, mz = px - g[0], py - g[1], pz - g[2]
+    return (g[6] * mx + g[7] * my + g[8] * mz,
+            g[3] * mx + g[4] * my + g[5] * mz,
+            g[9] * mx + g[10] * my + g[11] * mz)
+
+
+def _isect_cyl(g, ox, oy, oz, dx, dy, dz):
+    """Finite, optionally capped cylinder: row [center, axis, u, v,
+    radius, half height, capped] (pallas_trace.py:398)."""
+    r, hh, cap_on = g[12], g[13], g[14] > 0.5
+    lox, loy, loz = _cyl_local(g, ox, oy, oz)
+    ldx = g[6] * dx + g[7] * dy + g[8] * dz
+    ldy = g[3] * dx + g[4] * dy + g[5] * dz
+    ldz = g[9] * dx + g[10] * dy + g[11] * dz
+    r2 = r * r
+    a_s = torch.clamp_min(ldx * ldx + ldz * ldz, 1e-12)
+    hb = lox * ldx + loz * ldz
+    c = lox * lox + loz * loz - r2
+    disc = hb * hb - a_s * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    side_ok = disc > 0
+    ldy_s = torch.where(ldy.abs() < 1e-12, 1e-12, ldy)
+    cands = []
+    for ts in ((-hb - sq) / a_s, (-hb + sq) / a_s):
+        cands.append((ts, side_ok & (ts > 0) & ((loy + ldy * ts).abs() <= hh)))
+    for y_plane in (hh, -hh):
+        tc = (y_plane - loy) / ldy_s
+        xc, zc = lox + ldx * tc, loz + ldz * tc
+        cands.append((tc, cap_on & (tc > 0) & (xc * xc + zc * zc <= r2)))
+    t = torch.where(cands[0][1], cands[0][0], FARAWAY)
+    for tc, ok in cands[1:]:
+        t = torch.minimum(t, torch.where(ok, tc, FARAWAY))
+    x, y, z = lox + ldx * t, loy + ldy * t, loz + ldz * t
+    rho_hat = torch.sqrt(torch.clamp_min((x * x + z * z) / r2, 0.0))
+    is_cap = cap_on & (y.abs() / hh >= rho_hat)
+    nd = torch.where(is_cap, torch.sign(y) * ldy, x * ldx + z * ldz)
+    return t, torch.where(nd < 0, 1.0, -1.0)
+
+
+_ISECT = {_SPHERE: _isect_sphere, _BOX: _isect_box, _TRI: _isect_tri,
+          _DISC: _isect_disc, _CYL: _isect_cyl}
+
+
+def isect_of(row):
+    """The intersector of one object-table row (planes with an
+    axis-aligned frame take the component-selection form)."""
+    kind = row[OBJ_KIND]
+    if kind != _PLANE:
+        return _ISECT[kind]
+    aa = (None if row[OBJ_AA_N] < 0 else
+          (row[OBJ_AA_N], row[OBJ_AA_NSIGN], row[OBJ_AA_U], row[OBJ_AA_V]))
+    return lambda g, *a: _isect_plane(g, *a, aa=aa)
+
+
 def _normal(kind, g, px, py, pz):
+    """The raw geometric normal at a hit point (pallas_trace.py:463)."""
     if kind == _SPHERE:
         inv_r = 1.0 / g[3]
         return (px - g[0]) * inv_r, (py - g[1]) * inv_r, (pz - g[2]) * inv_r
-    if kind == _PLANE:
-        return (g[9].expand_as(px), g[10].expand_as(px), g[11].expand_as(px))
+    if kind in (_PLANE, _TRI, _DISC):
+        j = 3 if kind == _DISC else 9
+        return tuple(g[j + k].expand_as(px) for k in range(3))
+    if kind == _CYL:
+        # side radial, cap axial, classified by the intersector's rule
+        r, hh, cap_on = g[12], g[13], g[14] > 0.5
+        x, y, z = _cyl_local(g, px, py, pz)
+        rho = torch.sqrt(torch.clamp_min(x * x + z * z, 1e-20))
+        is_cap = cap_on & (y.abs() / hh >= rho / r)
+        sy = torch.sign(y)
+        return tuple(torch.where(is_cap, sy * g[3 + k],
+                                 (x * g[6 + k] + z * g[9 + k]) / rho)
+                     for k in range(3))
     # box: the max-|axis| face normal in the local frame
     b = g[:9]
     mx, my, mz = px - g[15], py - g[16], pz - g[17]
@@ -250,15 +372,107 @@ def _normal(kind, g, px, py, pz):
             b[2] * nl[0] + b[5] * nl[1] + b[8] * nl[2])
 
 
-def camera_rays(seed, cam_vec, width, height, spp, sampler):
+def nearest_hit(isects, geom, ox, oy, oz, dx, dy, dz):
+    """(t, orient, object id or -1) of the nearest hit (pallas_trace.py:594)."""
+    n = ox.shape[0]
+    best_t = torch.full((n,), FARAWAY, dtype=ox.dtype, device=ox.device)
+    best_o = torch.ones_like(ox)
+    obj = torch.full((n,), -1, dtype=torch.int64, device=ox.device)
+    for i, isect in enumerate(isects):
+        t_i, o_i = isect(geom[i], ox, oy, oz, dx, dy, dz)
+        better = t_i < best_t
+        best_t = torch.where(better, t_i, best_t)
+        best_o = torch.where(better, o_i, best_o)
+        obj = torch.where(better, i, obj)
+    return best_t, best_o, obj
+
+
+def hit_normals(rows, geom, obj, px, py, pz):
+    """The raw normal of each ray's hit object (zeros where none is hit)."""
+    nx = ny = nz = torch.zeros_like(px)
+    for i, r in enumerate(rows):
+        nxi, nyi, nzi = _normal(r[OBJ_KIND], geom[i], px, py, pz)
+        m = obj == i
+        nx = torch.where(m, nxi, nx)
+        ny = torch.where(m, nyi, ny)
+        nz = torch.where(m, nzi, nz)
+    return nx, ny, nz
+
+
+def reflect(dx, dy, dz, nx, ny, nz):
+    """The mirror direction, normalised (pallas_trace.py:1025-1028)."""
+    ddn = dx * nx + dy * ny + dz * nz
+    return _normalize3(dx - nx * 2.0 * ddn, dy - ny * 2.0 * ddn,
+                       dz - nz * 2.0 * ddn)
+
+
+def glossy_lights(tables, shadow, p, nu, n, v, rough, spec_c):
+    """Per light, the terms of a glossy hit's direct lighting
+    (pallas_trace.py:957-1015): yields (lv, see, p5, sw): the light's
+    colour times its falloff, 1 unless a shadow caster blocks it, the
+    Schlick power (1 - cos_vh)^5, and the Blinn-Phong weight.
+
+    shadow: [(intersector, geometry row)] of the shadow-casting objects;
+    p, nu, n, v: hit point, offset origin, oriented normal, view vector.
+    """
+    (px, py, pz), (nux, nuy, nuz), (nx, ny, nz), (vx, vy, vz) = p, nu, n, v
+    n_dir, n_point, n_spot = tables.n_lights
+    rm = torch.clamp_min(rough, 1e-6)
+    a_ph = 2.0 / (rm * rm) - 2.0
+    for li in range(n_dir + n_point + n_spot):
+        L = tables.lights[li]
+        if li >= n_dir:                               # point and spot
+            wx, wy, wz = L[0] - px, L[1] - py, L[2] - pz
+            dist = torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz,
+                                              1e-20))
+            lx, ly, lz = wx / dist, wy / dist, wz / dist
+        else:
+            lx, ly, lz = (torch.zeros_like(px) + L[k] for k in range(3))
+            dist = torch.full_like(px, SKYBOX_DISTANCE)
+        ndl = torch.clamp_min(nx * lx + ny * ly + nz * lz, 0.0)
+        if li >= n_dir:
+            fall = ndl / (dist * dist) * 100.0
+            if li >= n_dir + n_point:
+                # point falloff times the smooth cone factor
+                cos_t = -(lx * L[6] + ly * L[7] + lz * L[8])
+                tt = torch.clamp((cos_t - L[10])
+                                 / torch.clamp_min(L[9] - L[10], 1e-6), 0.0, 1.0)
+                fall = fall * (tt * tt * (3.0 - 2.0 * tt))
+            lv = [L[3 + k] * fall for k in range(3)]
+        else:
+            lv = [L[3 + k] * ndl for k in range(3)]
+        occ = torch.zeros_like(px, dtype=torch.bool)
+        for isect, g in shadow:
+            t_s, _ = isect(g, nux, nuy, nuz, lx, ly, lz)
+            occ = occ | (t_s < dist)
+        see = 1.0 - occ.to(px.dtype)
+        hx, hy, hz = _normalize3(lx + vx, ly + vy, lz + vz)
+        cos_vh = torch.clamp(vx * hx + vy * hy + vz * hz, 0.0, 1.0)
+        p5 = _pow5(1.0 - cos_vh)
+        dph = _div(torch.pow(torch.clamp(nx * hx + ny * hy + nz * hz, 0.0, 1.0),
+                             a_ph) * (a_ph + 2.0), 2.0 * math.pi)
+        denom = 4.0 * torch.clamp((nx * vx + ny * vy + nz * vz) * ndl, 0.001, 1.0)
+        sw = torch.where(rough != 0.0, dph / denom * see * spec_c, 0.0)
+        yield lv, see, p5, sw
+
+
+def fresnel_f0(n1r, n1i, n2r, n2i):
+    """|n1 - n2|^2 / |n1 + n2|^2, the normal-incidence Fresnel term."""
+    return (_cabs2((n1r - n2r, n1i - n2i))
+            / torch.clamp_min(_cabs2((n1r + n2r, n1i + n2i)), 1e-20))
+
+
+def camera_rays(seed, cam_vec, width, height, spp, sampler,
+                projection="pinhole"):
     """The camera draws and rays of one chunk (pallas_trace.py:548-566,
-    210-236): pinhole + thin lens.
+    162-236).
 
     seed: int64 (3,) seed vector.  Returns (idx, (ox, oy, oz, dx, dy, dz),
     sb, counter0): idx the int64 ray indices (sample * n_pix + pixel), sb
     the first diffuse bounce's R2 draws (mix, phi, r2) under "r2" or None,
     counter0 the hash counter of the last raygen draw (4 under "iid", 0
-    under "r2").
+    under "r2").  The thin lens is a no-op under the fisheye, equirect and
+    orthographic projections; its draws are taken all the same.
     """
     dev = cam_vec.device
     f32 = torch.float32
@@ -277,11 +491,39 @@ def camera_rays(seed, cam_vec, width, height, spp, sampler):
         u1, u2, u3, u4 = (hash_uniform(idx, seed[0], c) for c in range(1, 5))
         sb, counter0 = None, 4
     o0x, o0y, o0z, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz = cam[:12]
-    cw, ch, lens_r, focal = cam[12:16]
+    cw, ch, lens_r, focal, half_fov = cam[12:17]
+    zf = torch.zeros(spp * n_pix, dtype=f32, device=dev)
+    if projection in ("fisheye", "equirect"):
+        col, grw = px_i.to(f32), py_i.to(f32)
+        if projection == "fisheye":
+            # circular equidistant
+            m = float(min(width, height))
+            xn = _div(2.0 * (col + u1) - width, m)
+            yn = _div(height - 2.0 * (grw + u2), m)
+            theta = torch.sqrt(xn * xn + yn * yn) * half_fov
+            phi = atan2_poly(yn, xn)
+            sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+            cp, sp = torch.cos(phi), torch.sin(phi)
+            d = [cos_t * cam[3 + k] + sin_t * cp * cam[6 + k]
+                 + sin_t * sp * cam[9 + k] for k in range(3)]
+        else:
+            # 360x180: column -> azimuth around the view heading, row ->
+            # elevation, directions in world axes
+            u_img = _div(col + u1, width)
+            el = math.pi * (0.5 - _div(grw + u2, height))
+            phi = atan2_poly(fwz, fwx) + (2.0 * math.pi) * (u_img - 0.5)
+            rho = torch.cos(el)
+            d = [rho * torch.cos(phi), torch.sin(el), rho * torch.sin(phi)]
+        return idx, (zf + o0x, zf + o0y, zf + o0z, *d), sb, counter0
     x = ((_div(px_i.to(f32), width - 1) - 0.5) * cw
          + (u1 - 0.5) * _div(cw, width))
     y = ((0.5 - _div(py_i.to(f32), height - 1)) * ch
          + (u2 - 0.5) * _div(ch, height))
+    if projection == "orthographic":
+        # parallel rays along fwd over the pinhole's focal-plane footprint
+        o = [cam[k] + cam[6 + k] * (x * focal) + cam[9 + k] * (y * focal)
+             for k in range(3)]
+        return idx, (*o, zf + fwx, zf + fwy, zf + fwz), sb, counter0
     r_d = torch.sqrt(u3)
     sp_d, cp_d = sincos_2pi(u4)
     rx = r_d * cp_d * lens_r
@@ -314,18 +556,15 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
     check_slice(tables, split_k, sampler, projection)
     dev = cam_vec.device
     f32 = torch.float32
-    n = spp * width * height
+    n_pix = width * height
+    n = spp * n_pix
     seed = seed_vec.to(torch.int64)
     idx, (ox, oy, oz, dx, dy, dz), sb, draws = camera_rays(
-        seed, cam_vec, width, height, spp, sampler)
+        seed, cam_vec, width, height, spp, sampler, projection)
     sb_mix, sb_phi, sb_r2 = sb if sb is not None else (None, None, None)
 
-    def draw():
-        nonlocal draws
-        draws += 1
-        return hash_uniform(idx, seed[0], draws)
-
     consts = tables.consts
+    ambient = [consts[k] for k in range(3)]
     scene_nre = [consts[3 + k] for k in range(3)]
     scene_nim = [consts[6 + k] for k in range(3)]
     zeros = torch.zeros(n, dtype=f32, device=dev)
@@ -335,40 +574,29 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
     nim = [zeros + scene_nim[k] for k in range(3)]
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     dcnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    scnt = torch.zeros(n, dtype=torch.int64, device=dev)
+    # deterministic Fresnel-split pattern: the sample index mod 2^split_k
+    pattern = (idx // n_pix) % (1 << split_k)
     count = torch.zeros((), dtype=torch.int64, device=dev)
 
     rows = tables.obj_rows
     geom = [tables.geom[i] for i in range(len(rows))]
-    isects = []
-    for i, r in enumerate(rows):
-        if r[OBJ_KIND] == _SPHERE:
-            isects.append(_isect_sphere)
-        elif r[OBJ_KIND] == _BOX:
-            isects.append(_isect_box)
-        else:
-            aa = (None if r[OBJ_AA_N] < 0 else
-                  (r[OBJ_AA_N], r[OBJ_AA_NSIGN], r[OBJ_AA_U], r[OBJ_AA_V]))
-            isects.append(lambda g, *a, _aa=aa: _isect_plane(g, *a, aa=_aa))
+    isects = [isect_of(r) for r in rows]
+    shadow = [(isects[i], geom[i]) for i, r in enumerate(rows) if r[OBJ_SHADOW]]
     obj_t = tables.obj.to(torch.int64)
     mat_type_of = obj_t[:, OBJ_MAT_TYPE]
     slot_of = obj_t[:, OBJ_MAT_SLOT]
     maxd_of = obj_t[:, OBJ_MAX_DEPTH]
+    split_of = obj_t[:, OBJ_MC] == 0
+    hu_of = obj_t[:, OBJ_HU1]
+    hu_maxd = hu_groups(rows)
     types = {r[OBJ_MAT_TYPE] for r in rows}
     K = tables.n_is_targets
     lam = WAVELENGTHS_NM
 
     for bounce in range(max_bounces):
         last = bounce == max_bounces - 1
-        best_t = torch.full((n,), FARAWAY, dtype=f32, device=dev)
-        best_o = torch.ones(n, dtype=f32, device=dev)
-        obj = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        for i in range(len(rows)):
-            t_i, o_i = isects[i](geom[i], ox, oy, oz, dx, dy, dz)
-            better = t_i < best_t
-            best_t = torch.where(better, t_i, best_t)
-            best_o = torch.where(better, o_i, best_o)
-            obj = torch.where(better, i, obj)
-        t, orient = best_t, best_o
+        t, orient, obj = nearest_hit(isects, geom, ox, oy, oz, dx, dy, dz)
         hit = alive & ~(t >= MISS_THRESHOLD)
         count = count + alive.sum()
         px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
@@ -381,20 +609,15 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
             g = hit & (mt == MAT_EMISSIVE)
             col = tables.emi[torch.where(g, slot, 0)]
             add = [torch.where(g, col[:, k], 0.0) for k in range(3)]
-        Lx = Lx + torch.where(hit, bx * add[0], 0.0)
-        Ly = Ly + torch.where(hit, by * add[1], 0.0)
-        Lz = Lz + torch.where(hit, bz * add[2], 0.0)
-        if last:
+        glossy = MAT_GLOSSY in types
+        if last and not glossy:
             # the last bounce's continuation is dead, and it takes no draws
+            Lx = Lx + torch.where(hit, bx * add[0], 0.0)
+            Ly = Ly + torch.where(hit, by * add[1], 0.0)
+            Lz = Lz + torch.where(hit, bz * add[2], 0.0)
             break
 
-        nx = ny = nz = zeros
-        for i, r in enumerate(rows):
-            nxi, nyi, nzi = _normal(r[OBJ_KIND], geom[i], px, py, pz)
-            m = obj == i
-            nx = torch.where(m, nxi, nx)
-            ny = torch.where(m, nyi, ny)
-            nz = torch.where(m, nzi, nz)
+        nx, ny, nz = hit_normals(rows, geom, obj, px, py, pz)
         nx, ny, nz = nx * orient, ny * orient, nz * orient
         eps = 1e-6 * torch.clamp_min(
             torch.maximum(px.abs(), torch.maximum(py.abs(), pz.abs())), 1.0)
@@ -405,7 +628,58 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
         nox, noy, noz = px, py, pz
         new_nre, new_nim = list(nre), list(nim)
         inc_d = torch.zeros(n, dtype=torch.bool, device=dev)
-        ru = [draw() for _ in range(6)]
+        if not last:
+            # six draws a bounce, then one per merged dispersive group that
+            # shades this bounce, in group order (pallas_trace.py:658, 859)
+            ru = [hash_uniform(idx, seed[0], draws + j + 1) for j in range(6)]
+            active = [j for j, md in enumerate(hu_maxd) if bounce < md]
+            hu = zeros
+            for a, j in enumerate(active):
+                hu = torch.where(hu_of[obj_c] == j,
+                                 hash_uniform(idx, seed[0], draws + 7 + a), hu)
+            draws += 6 + len(active)
+
+        if glossy:
+            # direct light on every bounce, the last included; the mirror
+            # continuation below the depth cap (pallas_trace.py:944-1042)
+            g = hit & (mt == MAT_GLOSSY)
+            prm = tables.glo[torch.where(g, slot, 0)]
+            rough, spec_c, diff_c = prm[:, 9], prm[:, 10], prm[:, 11]
+            g_re = [prm[:, 3 + k] for k in range(3)]
+            g_im = [prm[:, 6 + k] for k in range(3)]
+            dc = [prm[:, k] * diff_c for k in range(3)]
+            nux, nuy, nuz = px + nx * eps, py + ny * eps, pz + nz * eps
+            v = (-dx, -dy, -dz)
+            acc = [ambient[k] * dc[k] for k in range(3)]
+            F0 = [fresnel_f0(nre[k], nim[k], g_re[k], g_im[k]) for k in range(3)]
+            for lv, see, p5, sw in glossy_lights(
+                    tables, shadow, (px, py, pz), (nux, nuy, nuz),
+                    (nx, ny, nz), v, rough, spec_c):
+                for k in range(3):
+                    acc[k] = acc[k] + dc[k] * lv[k] * see
+                    acc[k] = acc[k] + (F0[k] + (1.0 - F0[k]) * p5) * sw * lv[k]
+            add = [torch.where(g, acc[k], add[k]) for k in range(3)]
+            if not last:
+                gc = g & (bounce < maxd_of[obj_c])
+                cos_vn = torch.clamp(v[0] * nx + v[1] * ny + v[2] * nz, 0.0, 1.0)
+                p5r = _pow5(1.0 - cos_vn)
+                rlx, rly, rlz = reflect(dx, dy, dz, nx, ny, nz)
+                for k in range(3):
+                    F0s = fresnel_f0(scene_nre[k], scene_nim[k], g_re[k], g_im[k])
+                    bmul[k] = torch.where(gc, F0s + (1.0 - F0s) * p5r, bmul[k])
+                ndx = torch.where(gc, rlx, ndx)
+                ndy = torch.where(gc, rly, ndy)
+                ndz = torch.where(gc, rlz, ndz)
+                nox = torch.where(gc, nux, nox)
+                noy = torch.where(gc, nuy, noy)
+                noz = torch.where(gc, nuz, noz)
+                new_alive = new_alive | gc
+
+        Lx = Lx + torch.where(hit, bx * add[0], 0.0)
+        Ly = Ly + torch.where(hit, by * add[1], 0.0)
+        Lz = Lz + torch.where(hit, bz * add[2], 0.0)
+        if last:
+            break
 
         if MAT_DIFFUSE in types:
             g = hit & (mt == MAT_DIFFUSE)
@@ -494,8 +768,8 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
         if MAT_REFRACTIVE in types:
             # alive rays at bounce b have taken b transitions, so the depth
             # cap is a per-object test on the bounce number
-            gc = hit & (mt == MAT_REFRACTIVE) & (bounce < maxd_of[obj_c])
-            prm = tables.refr[torch.where(gc, slot, 0)]
+            g = hit & (mt == MAT_REFRACTIVE) & (bounce < maxd_of[obj_c])
+            prm = tables.refr[torch.where(g, slot, 0)]
             cos_i = -(dx * nx + dy * ny + dz * nz)
             entering = orient > 0
             F, n2r_l, n2i_l = [], [], []
@@ -522,9 +796,17 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
                 n2r_l.append(n2r)
                 n2i_l.append(n2i)
             T = [1.0 - F[k] for k in range(3)]
-            ratio_avg = _div(nre[0] / torch.clamp_min(n2r_l[0], 1e-9)
-                             + nre[1] / torch.clamp_min(n2r_l[1], 1e-9)
-                             + nre[2] / torch.clamp_min(n2r_l[2], 1e-9), 3.0)
+            rat = [nre[k] / torch.clamp_min(n2r_l[k], 1e-9) for k in range(3)]
+            ratio_avg = _div(rat[0] + rat[1] + rat[2], 3.0)
+            # dispersion: transmitted paths refract at one uniformly chosen
+            # channel's IoR and carry 3x that channel (pallas_trace.py:853)
+            dsp = hu_of[obj_c] >= 0
+            h0 = hu < (1.0 / 3.0)
+            h1 = (hu >= (1.0 / 3.0)) & (hu < (2.0 / 3.0))
+            hero = (h0, h1, ~(h0 | h1))
+            ratio_avg = torch.where(
+                dsp, torch.where(h0, rat[0], torch.where(h1, rat[1], rat[2])),
+                ratio_avg)
             sin2t = ratio_avg * ratio_avg * (1.0 - cos_i * cos_i)
             non_tir = sin2t <= 1.0
             croot = torch.sqrt(1.0 - torch.clamp(sin2t, 0.0, 1.0))
@@ -532,17 +814,24 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
             rfy = dy * ratio_avg + ny * (ratio_avg * cos_i - croot)
             rfz = dz * ratio_avg + nz * (ratio_avg * cos_i - croot)
             rfx, rfy, rfz = _normalize3(rfx, rfy, rfz)
-            ddn = dx * nx + dy * ny + dz * nz
-            rlx, rly, rlz = _normalize3(dx - nx * (2.0 * ddn),
-                                        dy - ny * (2.0 * ddn),
-                                        dz - nz * (2.0 * ddn))
+            rlx, rly, rlz = reflect(dx, dy, dz, nx, ny, nz)
             T_avg = _div(T[0] + T[1] + T[2], 3.0)
             p_refr = torch.where(non_tir, torch.clamp(T_avg, 0.0, 1.0), 0.0)
             take_refr = (ru[0] < p_refr) & non_tir
+            # deterministic split: the pattern bit picks the branch, weight
+            # 2F / 2T, for groups without mc (pallas_trace.py:902-926)
+            det = split_of[obj_c] & (scnt < split_k)
+            bit = ((pattern >> scnt) & 1) == 1
+            take_refr = (det & bit & non_tir) | (~det & take_refr)
+            gc = g & ~(det & bit & ~non_tir)
+            scnt = scnt + (gc & det).to(torch.int64)
             for k in range(3):
                 absorb = torch.exp(nim[k] * ((-4.0 * math.pi / lam[k]) * 1e9 * t))
-                w_r = T[k] / torch.clamp_min(p_refr, 1e-9)
-                w_l = F[k] / torch.clamp_min(1.0 - p_refr, 1e-9)
+                w_r = torch.where(det, 2.0 * T[k],
+                                  T[k] / torch.clamp_min(p_refr, 1e-9))
+                w_l = torch.where(det, 2.0 * F[k],
+                                  F[k] / torch.clamp_min(1.0 - p_refr, 1e-9))
+                w_r = w_r * torch.where(dsp, torch.where(hero[k], 3.0, 0.0), 1.0)
                 bmul[k] = torch.where(gc, absorb * torch.where(take_refr, w_r, w_l),
                                       bmul[k])
                 new_nre[k] = torch.where(gc & take_refr, n2r_l[k], new_nre[k])
@@ -579,7 +868,7 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
 # ---------------------------------------------------------------------------
 
 def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
-            sampler):
+            sampler, split_k=0, projection="pinhole"):
     dev = cam_vec.device
     f32, i32 = torch.float32, torch.int32
     n_obj = len(tables.obj_rows)
@@ -587,21 +876,27 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
     check_tensor("cam_vec", cam_vec, f32, (17,), dev)
     check_tensor("geom", tables.geom, f32, (n_obj, 24), dev)
     check_tensor("obj", tables.obj, i32, (n_obj, OBJ_COLS), dev)
-    for name, cols in (("dif", 4), ("refr", 6), ("emi", 3), ("is_tab", 4)):
-        check_tensor(name, getattr(tables, name), f32, (None, cols), dev)
+    cols = dict(dif=4, glo=12, refr=6, emi=3, lights=11, is_tab=4)
+    for name, c in cols.items():
+        check_tensor(name, getattr(tables, name), f32, (None, c), dev)
     check_tensor("consts", tables.consts, f32, (16,), dev)
     K = tables.n_is_targets
-    if K > tables.is_tab.shape[0]:
-        raise ValueError(f"is_tab has {tables.is_tab.shape[0]} rows, K={K}")
-    rows_of = {MAT_DIFFUSE: tables.dif.shape[0],
+    n_l = sum(tables.n_lights)
+    if K > tables.is_tab.shape[0] or n_l > tables.lights.shape[0]:
+        raise ValueError("is_tab or lights has fewer rows than the scene says")
+    rows_of = {MAT_DIFFUSE: tables.dif.shape[0], MAT_GLOSSY: tables.glo.shape[0],
                MAT_REFRACTIVE: tables.refr.shape[0],
                MAT_EMISSIVE: tables.emi.shape[0]}
     for r in tables.obj_rows:
         if not 0 <= r[OBJ_MAT_SLOT] < rows_of[r[OBJ_MAT_TYPE]]:
             raise ValueError(f"object row {r} names a missing material slot")
-    smem = 4 * (n_obj * (24 + OBJ_COLS) + tables.dif.numel()
-                + tables.refr.numel() + tables.emi.numel()
-                + 4 * max(K, 1) + 16 + 17 + 3)
+    hu_maxd = hu_groups(tables.obj_rows)
+    if len(hu_maxd) > MAX_HU_GROUPS:
+        raise ValueError(f"{len(hu_maxd)} dispersive groups; the kernel takes "
+                         f"at most {MAX_HU_GROUPS}")
+    smem = 4 * (n_obj * (24 + OBJ_COLS) + sum(
+        getattr(tables, k).numel() for k in ("dif", "glo", "refr", "emi"))
+        + 11 * n_l + 4 * max(K, 1) + 16 + 17 + 3)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"scene tables need {smem} bytes of shared memory; the kernel "
@@ -615,12 +910,16 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
     count = torch.zeros((), dtype=torch.int64, device=dev)
     lib = load_library()
     p = lambda t: ctypes.c_void_p(t.data_ptr())
+    rows = lambda t: t.shape[0]
+    hu = (ctypes.c_int * MAX_HU_GROUPS)(*hu_maxd)
     err = lib.solid_trace_launch(
         p(seed_vec), p(cam_vec), p(tables.geom), p(tables.obj), n_obj,
-        p(tables.dif), tables.dif.shape[0], p(tables.refr), tables.refr.shape[0],
-        p(tables.emi), tables.emi.shape[0], p(tables.is_tab), K,
-        p(tables.consts), width, height, spp, max_bounces, int(sampler == "iid"),
-        p(L), p(count),
+        p(tables.dif), rows(tables.dif), p(tables.glo), rows(tables.glo),
+        p(tables.refr), rows(tables.refr), p(tables.emi), rows(tables.emi),
+        p(tables.lights), n_l, *tables.n_lights, p(tables.is_tab), K,
+        p(tables.consts), width, height, spp, max_bounces,
+        int(sampler == "iid"), split_k, PROJECTIONS[projection],
+        hu, len(hu_maxd), p(L), p(count),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"solid_trace kernel launch failed: CUDA error {err}")
@@ -642,10 +941,9 @@ def solid_trace_chunk(seed_vec, tables: SolidTables, cam_vec, width, height,
         raise ValueError(f"no solid kernel for device {cam_vec.device}")
     check_slice(tables, split_k, sampler, projection)
     out = _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
-                  sampler)
+                  sampler, split_k, projection)
     solid_trace_chunk.launches += 1
     return out
 
 
 solid_trace_chunk.launches = 0
-

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one of the port's renders goes, on one CUDA device.
 
-    python scripts/torch_render_profile.py [--scene cornell|example2] [TRACE.json]
+    python scripts/torch_render_profile.py [--scene cornell|example2|dispersion|primitives] [TRACE.json]
 
 Renders the scene through raytracer_tpu_torch's Scene.render
 (output="linear") once to warm up and once under torch.profiler, writes
@@ -11,7 +11,8 @@ from it: the span from the first to the last event, the busy time as the
 union of kernel and copy intervals, the time of the scene's path kernel
 (solid_trace or record_trace) and of each kernel.  The scenes are the
 main paths of chip_smoke.py: the reference Cornell box at 400x400 x 256
-spp (the solid kernel) and example 2 at 400x300 x 64 spp (the record
+spp and the dispersion example at 400x300 x 256 spp (the solid kernel),
+example 2 and the primitives example at 400x300 x 64 spp (the record
 kernel and the replay).  The last line is one JSON object.  The
 end-to-end Mrays/s is chip_smoke.py's; this script times no render of
 its own.
@@ -28,7 +29,11 @@ ROOT = Path(__file__).resolve().parent.parent
 SCENES = {"cornell": ("torch_cornellbox", "build_cornell", 400, 400, 256,
                       "solid_trace"),
           "example2": ("torch_textured", "example2", 400, 300, 64,
-                       "record_trace")}
+                       "record_trace"),
+          "dispersion": ("torch_primitives", "dispersion", 400, 300, 256,
+                         "solid_trace"),
+          "primitives": ("torch_primitives", "primitives", 400, 300, 64,
+                         "record_trace")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 

@@ -83,10 +83,21 @@ def test_out_of_slice_scenes_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         T.Diffuse(diff_color=T.rgb(1, 1, 1), normalmap=np.zeros((2, 2, 3)))
 
-    class Disc(T.Primitive):
+    # discs, cylinders and triangles compile now, in the JAX object order
+    mat = T.Emissive(color=T.rgb(1, 1, 1))
+    sc.add(T.Triangle(center=T.vec3(0, 0, -2), material=mat,
+                      p1=T.vec3(-1, 0, -2), p2=T.vec3(1, 0, -2),
+                      p3=T.vec3(0, 1, -2)))
+    sc.add(T.Cylinder(center=T.vec3(0, 0, -3), material=mat, radius=0.5,
+                      height=1.0))
+    sc.add(T.Disc(center=T.vec3(0, 0, -4), material=mat, radius=0.5))
+    static, _ = compile_scene(sc)
+    assert [r.kind for r in static.obj_records] == ["sphere", "disc", "cyl", "tri"]
+
+    class Mesh(T.Primitive):
         pass
 
-    sc.add(Disc(center=T.vec3(0, 0, 0), material=T.Emissive(color=T.rgb(1, 1, 1))))
+    sc.add(Mesh(center=T.vec3(0, 0, 0), material=mat))
     with pytest.raises(NotImplementedError, match="item 8"):
         compile_scene(sc)
     with pytest.raises(NotImplementedError, match="item 8"):

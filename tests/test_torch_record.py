@@ -50,7 +50,7 @@ from raytracer_tpu.core.compile import compile_scene as jax_compile
 from raytracer_tpu.ops.pallas_record import _record_call, _replay
 from raytracer_tpu_torch.core.camera import cam_vec
 from raytracer_tpu_torch.core.compile import compile_scene
-from raytracer_tpu_torch.interop import static_from_jax, tables_from_jax
+from raytracer_tpu_torch.interop import tables_from_jax
 from raytracer_tpu_torch.ops import record_trace as rt
 from raytracer_tpu_torch.ops.replay import replay
 
@@ -80,7 +80,7 @@ def hold_case(build, spp, sampler):
     rg, rf, cnt = _record_call(jnp.asarray(SEED), j_data,
                                jax_cam_vec(sc.camera.params()), j_static, W, H,
                                spp, B, interpret=True, split_k=k,
-                               sampler=sampler)
+                               sampler=sampler, projection=settings.projection)
     rg = np.asarray(rg).reshape(B, -1)[:, :n]
     rf = np.asarray(rf).reshape(B, 12, -1)[:, :, :n]
     L_j = np.asarray(_replay(jnp.asarray(rg), jnp.asarray(rf), j_data, j_static,
@@ -88,10 +88,10 @@ def hold_case(build, spp, sampler):
     static, tables = tables_from_jax(j_static, j_data)
     cam = cam_vec(build(T).camera.params())
     seed = torch.from_numpy(SEED)
-    pg, pf, pc = rt.record_trace_chunk_reference(seed, static, tables, cam, W,
-                                                 H, spp, B, k, sampler)
-    L_full, c_full = rt.record_trace_chunk(seed, static, tables, cam, W, H,
-                                           spp, B, k, sampler)
+    args = (seed, static, tables, cam, W, H, spp, B, k, sampler,
+            settings.projection)
+    pg, pf, pc = rt.record_trace_chunk_reference(*args)
+    L_full, c_full = rt.record_trace_chunk(*args)
     L_rep = replay(torch.from_numpy(rg.copy()), torch.from_numpy(rf.copy()),
                    static, tables, B, n)
     assert int(c_full) == int(pc)
@@ -179,25 +179,29 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_out_of_slice_scenes_raise_before_work():
-    """Dispersion (pallas_record.py:473), triangles and the other
-    projections raise NotImplementedError; a bad sampler or device raises
-    ValueError."""
+    """Dispersion, triangles and the other projections now run through
+    the record path; a bad sampler, projection or device raises
+    ValueError, and a normal map (ROADMAP.md item 8) NotImplementedError."""
     sc = torch_textured.example2(16, 8)
     static, tables, settings = sc._settings_for_render()
     cam = cam_vec(sc.camera.params())
     seed = torch.tensor([3, 4, 0], dtype=torch.int32)
     args = (seed, static, tables, cam, 16, 8, 8, settings.max_bounces)
-    with pytest.raises(NotImplementedError, match="K2"):
-        rt.record_paths(*args, projection="equirect")
-    with pytest.raises(ValueError, match="sampler"):
-        rt.record_paths(*args, sampler="sobol")
+    for projection in ("fisheye", "equirect", "orthographic"):
+        g, f, n = rt.record_paths(*args, projection=projection)
+        assert g.shape == (settings.max_bounces, 16 * 8 * 8)
+        assert torch.isfinite(f).all() and int(n) >= 16 * 8 * 8
+    for kwargs, what in ((dict(sampler="sobol"), "sampler"),
+                         (dict(projection="stereo"), "projection")):
+        with pytest.raises(ValueError, match=what):
+            rt.record_paths(*args, **kwargs)
     with pytest.raises(ValueError, match="device"):
         rt.record_paths(seed.to("meta"), static, tables.to("meta"),
                         cam.to("meta"), 16, 8, 8, 4)
     sc.scene_primitives[0].material.dispersion = True
-    disp, _, _ = sc._settings_for_render()
-    with pytest.raises(NotImplementedError, match="dispersion"):
-        rt.record_paths(seed, disp, *args[2:])
+    disp, disp_tables, _ = sc._settings_for_render()
+    L, n = rt.record_trace_chunk(seed, disp, disp_tables, *args[3:])
+    assert torch.isfinite(L).all() and int(n) >= 16 * 8 * 8
     # a triangle scene, compiled by the JAX package
     js = J.Scene()
     js.add_Camera(look_from=J.vec3(0, 0, 2), look_at=J.vec3(0, 0, 0),
@@ -206,9 +210,15 @@ def test_out_of_slice_scenes_raise_before_work():
                           color=J.image(np.ones((4, 4, 3), np.float32))),
                       p1=J.vec3(-1, -1, 0), p2=J.vec3(1, -1, 0),
                       p3=J.vec3(0, 1, 0)))
-    tri_static = static_from_jax(jax_compile(js)[0])
-    with pytest.raises(NotImplementedError, match="triangles"):
-        rt.check_slice(tri_static, 0, "r2", "pinhole")
+    tri_static, tri_tables = tables_from_jax(*jax_compile(js))
+    rt.check_slice(tri_static, 0, "r2", "pinhole")
+    L, n = rt.record_trace_chunk(seed, tri_static, tri_tables,
+                                 cam_vec(js.camera.params()), 8, 8, 2, 4)
+    assert float(L.sum()) > 0
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.Glossy(diff_color=T.rgb(1, 1, 1), roughness=0.2, spec_coeff=0.3,
+                 diff_coeff=0.7, n=T.vec3(1.5, 1.5, 1.5),
+                 normalmap=np.zeros((2, 2, 3)))
 
 
 def test_kernel_wrapper_checks_its_inputs():

@@ -28,7 +28,9 @@ from raytracer_tpu_torch.ops import record_trace as rt
 from raytracer_tpu_torch.ops import solid_trace as st
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
+import torch_primitives  # noqa: E402
 import torch_textured  # noqa: E402
+from torch_cornellbox import projection_camera  # noqa: E402
 
 
 def cornell(m):
@@ -210,6 +212,107 @@ def too_many_objects(m):
     return sc
 
 
+def solid_primitives(m):
+    """examples/torch_primitives.py's shapes scene at 16x16."""
+    return torch_primitives.shapes(16, 16, m=m)
+
+
+def dispersive_pair(m):
+    """Two dispersive glasses in one merged group of the solid kernel (one
+    hero-wavelength draw), a third at another depth cap (a second group,
+    whose draws stop a bounce earlier), a diffuse floor whose draws come
+    first, and an emissive dome (tests/test_pallas_trace.py:223).  16x16."""
+    sc = m.Scene(ambient_color=m.rgb(0.02, 0.02, 0.02))
+    sc.add_Camera(look_from=m.vec3(0, 0.3, 2.2), look_at=m.vec3(0, 0, 0),
+                  screen_width=16, screen_height=16, field_of_view=50)
+    for n, x in (((1.45, 1.52, 1.60), -0.45), ((1.30, 1.34, 1.38), 0.45)):
+        sc.add(m.Sphere(material=m.Refractive(
+                            n=m.vec3(*(c + 0j for c in n)), dispersion=True),
+                        center=m.vec3(x, 0, 0), radius=0.42, shadow=False,
+                        max_ray_depth=4))
+    sc.add(m.Sphere(material=m.Refractive(
+                        n=m.vec3(1.5 + 1e-8j, 1.6 + 1e-8j, 1.7 + 1e-8j),
+                        dispersion=True),
+                    center=m.vec3(0, 0.55, -0.4), radius=0.25, shadow=False,
+                    max_ray_depth=2))
+    sc.add(m.Plane(material=m.Diffuse(diff_color=m.rgb(0.5, 0.45, 0.4)),
+                   center=m.vec3(0, -0.45, 0), width=6.0, height=6.0,
+                   u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1)))
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(1.5, 1.3, 1.1)),
+                    center=m.vec3(0, 0, 0), radius=25.0, shadow=False))
+    return sc
+
+
+def example2_solid(m):
+    """examples/torch_primitives.py's Whitted-style example 2 at 16x16:
+    glossy, a directional light with shadow rays, refractive spheres at
+    split_k 3."""
+    return torch_primitives.example2_solid(16, 16, m=m)
+
+
+def primitives_close(m):
+    """examples/torch_primitives.py's primitives at 32x32 seen from 1.5
+    units instead of 5 (the record kernel).  From the example's own
+    camera the reference's cylinder test, which solves its quadratic in
+    the object's frame, loses to cancellation in |o|^2 - r^2 and places
+    hits up to ~1e-5 inside the surface, past the 1e-6 offset of the next
+    ray; whether that ray re-hits the cylinder is then decided by
+    rounding, so a third of the rays leaving a cylinder take another path
+    wherever XLA:CPU contracts a*b+c into FMA and the port does not."""
+    sc = torch_primitives.primitives(32, 32, m=m)
+    sc.camera = m.Camera(look_from=m.vec3(0.1, 0.45, -0.7),
+                         look_at=m.vec3(0, 0.0, -2.2), screen_width=32,
+                         screen_height=32, field_of_view=80)
+    return sc
+
+
+def primitives_dispersive(m):
+    """primitives_close with the glass cylinder dispersive and a dispersive
+    triangle of another slot: two hero-wavelength groups of the record
+    kernel."""
+    sc = primitives_close(m)
+    sc.scene_primitives[2].material.dispersion = True
+    sc.add(m.Triangle(material=m.Refractive(
+                          n=m.vec3(1.45 + 0j, 1.5 + 0j, 1.56 + 0j),
+                          dispersion=True),
+                      center=m.vec3(0.2, 0.2, -1.6), p1=m.vec3(-0.2, -0.1, -1.6),
+                      p2=m.vec3(0.6, 0.0, -1.7), p3=m.vec3(0.2, 0.6, -1.5),
+                      max_ray_depth=3))
+    return sc
+
+
+def cornell_projection(projection):
+    """The 16x16 Cornell box under a projection, with the cameras of
+    examples/torch_cornellbox.py (the pinhole here looks at the back
+    wall from the front, with the default field of view)."""
+    def build(m):
+        sc = cornell(m)
+        if projection == "pinhole":
+            sc.camera = m.Camera(look_from=m.vec3(278, 278, 800),
+                                 look_at=m.vec3(278, 278, -555),
+                                 screen_width=16, screen_height=16)
+        else:
+            sc.camera = projection_camera(m, projection, 16, 16)
+        return sc
+    build.__name__ = f"cornell_{projection}"
+    return build
+
+
+def still_life_projection(projection, width=32, height=32):
+    """examples/torch_primitives.py's still life through the pinhole,
+    fisheye, equirect or orthographic camera (the record kernel)."""
+    def build(m):
+        if projection == "pinhole":
+            return torch_primitives.still_life(width, height, m=m)
+        if projection == "fisheye":
+            return torch_primitives.fisheye(width, height, m=m)
+        if projection == "equirect":
+            return torch_primitives.panorama(width, height, m=m)
+        return torch_primitives.orthographic(width, height, m=m)
+    build.__name__ = f"still_life_{projection}"
+    return build
+
+
 
 def _inputs(build, device):
     sc = build(T)
@@ -277,7 +380,10 @@ def test_build_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):
 
 
 CUDA_CASES = [(cornell, 16, "r2"), (glass, 64, "r2"), (is_diffuse, 64, "iid"),
-              (lights_and_slots, 32, "r2")]
+              (lights_and_slots, 32, "r2"), (solid_primitives, 16, "r2"),
+              (dispersive_pair, 16, "iid"), (example2_solid, 16, "r2")]
+CUDA_CASES += [(cornell_projection(p), 16, "r2")
+               for p in ("fisheye", "equirect", "orthographic")]
 
 
 def _need_card():
@@ -294,7 +400,8 @@ def test_kernel_matches_plain_version_on_card(build, spp, sampler):
     sc, tables, cam, settings = _inputs(build, dev)
     W, H = sc.camera.screen_width, sc.camera.screen_height
     seed = torch.tensor([11, 22, 5], dtype=torch.int32, device=dev)
-    args = (seed, tables, cam, W, H, spp, settings.max_bounces, 0, sampler)
+    args = (seed, tables, cam, W, H, spp, settings.max_bounces,
+            settings.split_k, sampler, settings.projection)
     before = st.solid_trace_chunk.launches
     L_k, n_k = st.solid_trace_chunk(*args)
     L_p, n_p = st.solid_trace_chunk_reference(*args)
@@ -333,6 +440,14 @@ RECORD_CUDA_CASES = {  # 32x32 scenes of the port, sampler
     "lit_textures-r2": (lambda: lit_textures(T), "r2"),
     "example2-thinlens": (lambda: _thin_lens(torch_textured.example2(32, 32)),
                           "r2"),
+    # discs, cylinders, dispersion and the other projections
+    "primitives": (lambda: torch_primitives.primitives(32, 32), "r2"),
+    "primitives_close": (lambda: primitives_close(T), "r2"),
+    "primitives_dispersive": (lambda: primitives_dispersive(T), "iid"),
+    "still_life-fisheye": (lambda: still_life_projection("fisheye")(T), "r2"),
+    "still_life-equirect": (lambda: still_life_projection("equirect")(T), "r2"),
+    "still_life-orthographic": (
+        lambda: still_life_projection("orthographic")(T), "r2"),
 }
 
 
@@ -355,7 +470,7 @@ def test_record_kernel_matches_plain_version_on_card(case):
     cam = cam_vec(sc.camera.params()).to(dev)
     seed = torch.tensor([11, 22, 5], dtype=torch.int32, device=dev)
     args = (seed, static, tables, cam, 32, 32, spp, settings.max_bounces,
-            settings.split_k, sampler)
+            settings.split_k, sampler, settings.projection)
     before = rt.record_paths.launches
     g_k, f_k, n_k = rt.record_paths(*args)
     g_p, f_p, n_p = rt.record_trace_chunk_reference(*args)
@@ -372,8 +487,9 @@ def test_record_kernel_matches_plain_version_on_card(case):
 
 @pytest.mark.cuda
 def test_record_kernel_refuses_out_of_slice_scenes_on_card():
-    """A dispersive scene and a non-pinhole camera raise before any
-    launch."""
+    """A dispersive scene and a fisheye camera now launch the record
+    kernel; a scene past the kernels' gate (49 objects, ROADMAP.md item 8)
+    raises before any launch."""
     dev = _need_card()
     sc = torch_textured.example2(32, 32)
     sc.scene_primitives[0].material.dispersion = True
@@ -384,10 +500,37 @@ def test_record_kernel_refuses_out_of_slice_scenes_on_card():
     for stat, proj in ((static, "pinhole"),
                        (torch_textured.example2(32, 32)._settings_for_render()[0],
                         "fisheye")):
-        with pytest.raises(NotImplementedError, match="K2"):
-            rt.record_paths(seed, stat, tables.to(dev), cam, 32, 32, 8,
-                            settings.max_bounces, settings.split_k, "r2", proj)
-    assert rt.record_paths.launches == before
+        g, f, n = rt.record_paths(seed, stat, tables.to(dev), cam, 32, 32, 8,
+                                  settings.max_bounces, settings.split_k, "r2",
+                                  proj)
+        assert bool(torch.isfinite(f).all()) and int(n) >= 32 * 32 * 8
+    assert rt.record_paths.launches == before + 2
+    with pytest.raises(NotImplementedError, match="item 8"):
+        too_many_objects(T).render(samples_per_pixel=1, device=dev)
+    assert rt.record_paths.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dispersion", "example2_solid", "primitives",
+                                  "fisheye", "panorama"])
+def test_example_render_on_card_matches_cpu(name):
+    """The new examples through Scene.render on the card and on the CPU
+    (the plain versions), same chunk seeds: images equal up to rounding,
+    one kernel launch a chunk."""
+    dev = _need_card()
+    sc = torch_primitives.BUILDERS[name](24, 16)
+    static, _, _ = sc._settings_for_render()
+    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_paths
+    before = fn.launches
+    img, stats = sc.render(samples_per_pixel=2, output="linear",
+                           return_stats=True, device=dev)
+    assert fn.launches > before
+    ref, ref_stats = sc.render(samples_per_pixel=2, output="linear",
+                               return_stats=True, device="cpu")
+    assert np.isfinite(img).all()
+    assert abs(stats["rays_traced"] - ref_stats["rays_traced"]) <= (
+        0.001 * ref_stats["rays_traced"])
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * ref.mean()
 
 
 @pytest.mark.cuda

@@ -32,7 +32,8 @@ from raytracer_tpu_torch.interop import tables_from_jax
 from raytracer_tpu_torch.ops import solid_trace as st
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_scenes import cornell, glass, is_diffuse  # noqa: E402
+from test_torch_scenes import (cornell, glass, is_diffuse,  # noqa: E402
+                               too_many_objects)
 
 RTOL, ATOL, MATCH_RATE = 1e-4, 1e-5, 0.999
 
@@ -99,14 +100,23 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_out_of_slice_inputs_raise_before_work():
+    """Fresnel splitting, the other projections, glossy shading and
+    dispersion now run; a bad sampler, projection, split_k or device
+    raises ValueError before any work, and a scene past the kernels' gate
+    (49 objects, ROADMAP.md item 8) raises NotImplementedError."""
     tables, cam, settings = _cornell_inputs()
     seed = torch.tensor([3, 4, 0], dtype=torch.int32)
-    args = (seed, tables, cam, 16, 16, 1, settings.max_bounces)
-    for kwargs in (dict(split_k=1), dict(projection="fisheye")):
-        with pytest.raises(NotImplementedError, match="K1"):
+    args = (seed, tables, cam, 16, 16, 2, settings.max_bounces)
+    for kwargs in (dict(split_k=1), dict(projection="fisheye"),
+                   dict(projection="equirect"), dict(projection="orthographic")):
+        L, n = st.solid_trace_chunk(*args, **kwargs)
+        assert L.shape == (2 * 16 * 16, 3) and torch.isfinite(L).all()
+        assert int(n) >= 2 * 16 * 16
+    for kwargs, what in ((dict(sampler="sobol"), "sampler"),
+                         (dict(projection="stereo"), "projection"),
+                         (dict(split_k=-1), "split_k")):
+        with pytest.raises(ValueError, match=what):
             st.solid_trace_chunk(*args, **kwargs)
-    with pytest.raises(ValueError, match="sampler"):
-        st.solid_trace_chunk(*args, sampler="sobol")
     with pytest.raises(ValueError, match="device"):
         st.solid_trace_chunk(seed.to("meta"), tables.to("meta"),
                              cam.to("meta"), 16, 16, 1, 4)
@@ -121,13 +131,14 @@ def test_out_of_slice_inputs_raise_before_work():
                                       spec_coeff=0.3, diff_coeff=0.7),
                     center=J.vec3(0, 0, 0), radius=0.5))
     _, glossy = tables_from_jax(*jax_compile(sc))
-    with pytest.raises(NotImplementedError, match="glossy"):
-        st.solid_trace_chunk(seed, glossy, cam, 8, 8, 1, 4)
     sc = glass(T)
     sc.scene_primitives[0].material.dispersion = True
     _, disp = compile_scene(sc)
-    with pytest.raises(NotImplementedError, match="dispersion"):
-        st.solid_trace_chunk(seed, disp, cam, 8, 8, 1, 4)
+    for t in (glossy, disp):
+        L, n = st.solid_trace_chunk(seed, t, cam, 8, 8, 1, 4)
+        assert torch.isfinite(L).all() and int(n) >= 64
+    with pytest.raises(NotImplementedError, match="item 8"):
+        too_many_objects(T).render(samples_per_pixel=1, device="cpu")
 
 
 def test_kernel_wrapper_checks_its_inputs():
