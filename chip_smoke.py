@@ -32,10 +32,22 @@ checkout and drives both render paths:
   (pixels outside the image circle exactly 0) and panorama 512x256 x 64
   spp (the record kernel), each image against plain-version chunks; and
   the chunk-shape times of the solid kernel on dispersion and the record
-  kernel on primitives against their plain versions.
+  kernel on primitives against their plain versions;
+- the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
+  with the kernels: P1 the FP32 issue peak and the slot cost of special
+  ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
+  per-lane gather beside torch.take (at its script's size and at the
+  scale of example 2's replay), each at its TPU script's size with every
+  timed kernel held against its plain version at the timed shape (P2,
+  P3, P4, P6 and the nearest-hit tests bit for bit, P1 and P5 within the
+  probe's stated tolerance); the measured cost of one nearest-hit test of
+  each kind against the hand count; then P2: the streamed fma chains,
+  fused and unfused, and the bound of the solid and record kernels at the
+  chunk shapes of Cornell, example 2, dispersion and primitives, from the
+  plain versions' event counts and this run's kernel times.
 
-Each phase prints one line; any failure exits non-zero before the last
-line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
+Each phase and each probe prints one line; any failure exits non-zero
+before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
 exits 1.  Imports neither jax nor raytracer_tpu.
 """
 
@@ -84,6 +96,22 @@ def nvidia_smi():
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return res.stdout.strip()
+
+
+def build_lines(log):
+    """ptxas's registers / stack / spill line of the render kernels, and a
+    summary of the probe kernels."""
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif cur and ("registers" in ln or "spill" in ln):
+            funcs.setdefault(cur, []).append(ln.split("info    :")[-1].strip())
+    render = [f"{name}: {'; '.join(v)}" for name, v in funcs.items()
+              if "solid_trace" in name or "record_trace" in name]
+    probes = [v for name, v in funcs.items()
+              if not ("solid_trace" in name or "record_trace" in name)]
+    return render + [f"{len(probes)} probe kernels"]
 
 
 def nvcc_version(cuda_build):
@@ -135,7 +163,8 @@ def scene_inputs(build_cornell, width, height, device):
 
 def record_phases(torch, dev):
     """The record path's phases; returns the record kernel's row of the
-    kernels line."""
+    kernels line, and the kernel's and the replay's ms at the chunk
+    shape."""
     from raytracer_tpu_torch.core.camera import cam_vec
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import record_trace as rt
@@ -259,11 +288,11 @@ def record_phases(torch, dev):
           f"| replay {r_ms:.3f} ms ({', '.join(f'{x:.3f}' for x in replay_ms)}) | "
           f"plain record {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) | "
           f"peak {peak_gib:.2f} GiB", flush=True)
-    return {"name": "record_trace", "route": "cuda",
-            "source": "raytracer_tpu_torch/csrc/record_trace.cu",
-            "replaces": "raytracer_tpu/ops/pallas_record.py:182",
-            "launches": launches, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": p_ms}
+    return ({"name": "record_trace", "route": "cuda",
+             "source": "raytracer_tpu_torch/csrc/record_trace.cu",
+             "replaces": "raytracer_tpu/ops/pallas_record.py:182",
+             "launches": launches, "max_abs_err": max_err,
+             "ms": ms, "plain_ms": p_ms}, ms, r_ms)
 
 
 def new_scene(name, width, height):
@@ -416,7 +445,7 @@ def render_path(torch, dev, name, width, height, spp):
 def chunk_timing(torch, dev, name, width, height, spp):
     """Kernel against plain version at scene `name`'s chunk shape: the
     match, then CUDA-event times (and the replay's on the record path).
-    Returns (max abs error, kernel ms, plain ms)."""
+    Returns (max abs error, kernel ms, plain ms, replay ms or None)."""
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
@@ -456,7 +485,7 @@ def chunk_timing(torch, dev, name, width, height, spp):
     torch.cuda.reset_peak_memory_stats(dev)
     plain_ms = [cuda_ms(plain, 1)]
     kernel_ms = [cuda_ms(kernel, REC_KERNEL_REPS), cuda_ms(kernel, REC_KERNEL_REPS)]
-    replay = ""
+    replay, r_ms = "", None
     if not static.pallas_ok:
         rec = kernel()
         run = lambda: rt.replay(*rec[:2], static, args[2], B, n)
@@ -471,13 +500,14 @@ def chunk_timing(torch, dev, name, width, height, spp):
           f"bounces | kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) "
           f"| {replay}plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) "
           f"| peak {peak_gib:.2f} GiB", flush=True)
-    return max_err, ms, p_ms
+    return max_err, ms, p_ms, (statistics.mean(r_ms) if r_ms else None)
 
 
 def other_paths(torch, dev, solid):
     """The new paths of one kernel (solid=True: K1, else K2): kernel vs
     plain on each scene, the full-width renders, the chunk timing.
-    Returns (launches in the renders, max abs error)."""
+    Returns (launches in the renders, max abs error, {scene: (kernel ms,
+    replay ms or None)} of the chunk timing)."""
     checks = NEW_SOLID_CHECKS if solid else NEW_RECORD_CHECKS
     W, H, spp = (CHECK_W, CHECK_H, CHECK_SPP) if solid else REC_CHECK
     errs = [kernel_vs_plain(torch, dev, name, W, H, spp, [20261016 + i, 4242, 0])
@@ -487,9 +517,65 @@ def other_paths(torch, dev, solid):
         launches += render_path(torch, dev, name, width, height, spp)
         torch.cuda.empty_cache()
     name, width, height, spp = (NEW_SOLID_RENDERS if solid else NEW_RECORD_RENDERS)[0]
-    errs.append(chunk_timing(torch, dev, name, width, height, spp)[0])
+    err, ms, _, r_ms = chunk_timing(torch, dev, name, width, height, spp)
+    errs.append(err)
     torch.cuda.empty_cache()
-    return launches, max(errs)
+    return launches, max(errs), {name: (ms, r_ms)}
+
+
+def replay_scale(sc, spp):
+    """(texture atlas entries, (bounce, ray) elements of one record chunk)
+    of scene sc rendered at spp: the scale of its replay's gathers."""
+    from raytracer_tpu_torch.core.scene import plan_chunks
+
+    _, tables, settings = sc._settings_for_render()
+    W, H = sc.camera.screen_width, sc.camera.screen_height
+    fan = 1 << settings.split_k
+    chunk, _ = plan_chunks(spp * sc._diffuse_fan() * fan, W, H, fan)
+    return tables.atlas.numel(), settings.max_bounces * chunk * W * H
+
+
+def probe_phases(torch, times):
+    """The Hopper probes, P1 first (its slot costs feed the bounds of the
+    others), each run once with its launch counts set to 0 (inside its
+    run) and printed as one line; then P2 with the render kernels' chunk
+    times of this run.  Returns (kernels-line rows, P2's result)."""
+    import torch_textured
+    from raytracer_tpu_torch.probes import (dead_bounce, gather, isect_cost,
+                                            issue_peak, roofline, tri_sweep)
+    from torch_cornellbox import build_cornell
+
+    def show(out, rows):
+        keep = {k: v for k, v in out.items() if k not in ("sass", "events")}
+        print(f"probe {out['probe']}: {json.dumps(keep, default=float)}", flush=True)
+        for r in rows:
+            require(r["launches"] > 0, f"probe kernel {r['name']} never launched")
+        return rows
+
+    p1, rows = issue_peak.run()
+    rows = show(p1, rows)
+    print(f"probe issue_peak SASS (static opcode counts per kernel): "
+          f"{json.dumps(p1['sass'])}", flush=True)
+    costs = p1["slot_costs"]
+    out, r = dead_bounce.run(sin_slots=costs["sin"], sqrt_slots=costs["sqrt"])
+    rows += show(out, r)
+    out, r = tri_sweep.run(div_slots=costs["div"])
+    rows += show(out, r)
+    builders = {"cornell": build_cornell, "example2": torch_textured.example2}
+    scenes = {name: (builders[name](w, h) if name in builders else new_scene(name, w, h),
+                     spp) for name, w, h, spp in roofline.SCENES}
+    p6, r = gather.run(replay_scale=replay_scale(*scenes["example2"]))
+    rows += show(p6, r)
+    rate = p1["unfused_peak_lane_ops_per_s"]
+    tests, r = isect_cost.run(costs, rate)
+    rows += show(tests, r)
+    print(f"probe isect_cost SASS: {json.dumps(tests['sass'])}", flush=True)
+    p2, r = roofline.run(costs, rate, scenes, p6["ldg"]["ns_per_fetch"],
+                         kernel_ms={k: v[0] for k, v in times.items()},
+                         replay_ms={k: v[1] for k, v in times.items()},
+                         test_slots=tests["measured_slots_per_test"])
+    rows += show(p2, r)
+    return rows, p2
 
 
 def main():
@@ -516,11 +602,11 @@ def main():
 
     # ---- phase 2: build the kernels from the checkout ----
     t0 = time.perf_counter()
+    cuda_build.build_all()                  # the kernels and the probes
     cuda_build.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_build.build_log.splitlines()
-             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    print(f"build: {build_s:.2f} s | {' | '.join(ptxas)}", flush=True)
+    print(f"build: {build_s:.2f} s | {' | '.join(build_lines(cuda_build.build_log))}",
+          flush=True)
 
     # ---- phase 3: kernel vs plain version, Cornell 64x64 x 16 spp ----
     _, tables, cam, settings = scene_inputs(build_cornell, CHECK_W, CHECK_H, dev)
@@ -606,22 +692,37 @@ def main():
     torch.cuda.empty_cache()
     # ---- the solid kernel's other paths: glossy, split, dispersion,
     # triangles / discs / cylinders, the other projections ----
-    new_launches, new_err = other_paths(torch, dev, solid=True)
+    times = {"cornell": (ms, None)}
+    new_launches, new_err, t = other_paths(torch, dev, solid=True)
+    times.update(t)
     solid_row = {
         "name": "solid_trace", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/solid_trace.cu",
         "replaces": "raytracer_tpu/ops/pallas_trace.py:508",
         "launches": launches + new_launches, "max_abs_err": max(max_err, new_err),
         "ms": ms, "plain_ms": p_ms}
-    record_row = record_phases(torch, dev)
+    record_row, rec_ms, rep_ms = record_phases(torch, dev)
+    times["example2"] = (rec_ms, rep_ms)
     torch.cuda.empty_cache()
     # ---- the record kernel's other paths: discs, cylinders, dispersion,
     # the other projections ----
-    new_launches, new_err = other_paths(torch, dev, solid=False)
+    new_launches, new_err, t = other_paths(torch, dev, solid=False)
+    times.update(t)
     record_row["launches"] += new_launches
     record_row["max_abs_err"] = max(record_row["max_abs_err"], new_err)
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [solid_row, record_row]}))
+    # ---- the Hopper probes, and the render kernels' bounds (P2) ----
+    probe_rows, p2 = probe_phases(torch, times)
+    for row, scene in ((solid_row, "cornell"), (record_row, "example2")):
+        res = p2[scene]
+        row.update(bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                   library_ms=None)
+        print(f"{row['name']} bound at the {scene} chunk: {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), kernel {res['kernel_ms']:.3f} ms, share "
+              f"{res['share']:.4f}", flush=True)
+
+    print(json.dumps({"kernels": [solid_row, record_row] + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

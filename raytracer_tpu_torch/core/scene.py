@@ -148,9 +148,10 @@ class Scene:
         clamp: optional per-sample linear-radiance ceiling.
         tonemap / exposure: display mapping for output="pil" (see
         utils.colour.tonemap_display); exposure is in stops.
-        device: torch device to trace on; default CUDA when available.
-        On CUDA every chunk runs the scene's kernel (solid or record), on
-        the CPU its plain version.
+        device: torch device to trace on; default "cuda", and without a
+        CUDA device it raises RuntimeError: the CPU is used only when
+        asked for (device="cpu").  On CUDA every chunk runs the scene's
+        kernel (solid or record), on the CPU its plain version.
         return_stats: also return a dict with rays_traced, wall_s,
         samples, width, height and mrays_per_s.
         """
@@ -177,7 +178,11 @@ class Scene:
         chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
 
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Scene.render traces on the CUDA device by default and "
+                    "found none; pass device='cpu' to trace on the CPU")
+            device = "cuda"
         device = torch.device(device)
         tables = tables.to(device)
         cam = cam_vec(self.camera.params()).to(device)

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The kernel sources in csrc/ (the solid kernel and the record kernel, which
-share a header) are compiled by one nvcc each, all started together, and
-linked into one shared library with a plain C interface, loaded with
-ctypes.  The library lands in the checkout's build/ directory under a
-hash of every source (the header included), the flags and nvcc's
-version, and is reused while none of them changes.  nvcc runs at first
-use, never at import.
+Two source sets in csrc/ become two shared libraries with a plain C
+interface, loaded with ctypes: the render kernels (the solid kernel and
+the record kernel, which share a header) and the Hopper probes
+(csrc/probe_*.cu, probes/).  Every source of both sets is compiled by one
+nvcc each, all started together; each set is then linked into its
+library.  A library lands in the checkout's build/ directory under a hash
+of every csrc file (the headers included), the flags and nvcc's version,
+and is reused while none of them changes.  nvcc runs at first use, never
+at import.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("solid_trace.cu", "record_trace.cu")
+PROBE_SOURCES = ("probe_issue.cu", "probe_tri.cu", "probe_skip.cu",
+                 "probe_gather.cu", "probe_isect.cu")
+SETS = {"kernels": SOURCES, "probes": PROBE_SOURCES}
 # The library is built into the checkout's build/ directory: the package
 # runs from a checkout of the repo, not from an installed copy.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracer_tpu_torch"
@@ -35,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 SMEM_LIMIT = 48 * 1024    # bytes of dynamic shared memory without opt-in
 
-_lib = None
+_libs = {}
 build_log = ""            # nvcc's output of the last build (ptxas -v lines)
 
 
@@ -50,52 +55,71 @@ def _nvcc():
     return nvcc
 
 
-def build():
-    """Compile csrc/ into a shared library keyed by a hash of every source
-    (the header included), the flags and nvcc's version; returns its
-    path.  Reuses a library already built."""
-    global build_log
-    nvcc = _nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
+def _build_key():
+    """A hash of every csrc file, the flags and nvcc's version."""
+    version = subprocess.run([_nvcc(), "--version"], capture_output=True,
                              text=True, check=True).stdout
     h = hashlib.sha256((version + " ".join(NVCC_FLAGS)).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    out = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    return h.hexdigest()[:16]
+
+
+def library_path(name, key=None):
+    """Where source set `name` ("kernels" or "probes") is built."""
+    return BUILD_DIR / f"{name}_{key or _build_key()}.so"
+
+
+def build(name="kernels"):
+    """Build source set `name` unless it is built; returns its library's
+    path."""
+    return build_all((name,))[name]
+
+
+def build_all(names=tuple(SETS)):
+    """Compile the source sets `names` that are not built yet, one nvcc
+    per source, all started together, and link each set into its shared
+    library; returns {name: library path}."""
+    global build_log
+    nvcc, key = _nvcc(), _build_key()
+    outs = {name: library_path(name, key) for name in names}
+    todo = [name for name in names if not outs[name].exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+        srcs = [src for name in todo for src in SETS[name]]
+        objs = {src: os.path.join(tmp, src + ".o") for src in srcs}
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", objs[src],
                                    str(CSRC / src)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(SOURCES, objs)]
+                 for src in srcs]
         logs = [p.communicate()[0] for p in procs]
         build_log = "".join(logs)
-        for src, p in zip(SOURCES, procs):
+        for src, p in zip(srcs, procs):
             if p.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed on {src} ({p.returncode}):\n{build_log}")
-        lib = os.path.join(tmp, "kernels.so")
-        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs],
-                             capture_output=True, text=True)
-        build_log += res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n"
-                               f"{build_log}")
-        os.replace(lib, out)
-    return out
+        for name in todo:
+            lib = os.path.join(tmp, name + ".so")
+            res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                                  *(objs[src] for src in SETS[name])],
+                                 capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link {name} "
+                                   f"({res.returncode}):\n{build_log}")
+            os.replace(lib, outs[name])
+    return outs
 
 
 def load_library():
-    """Load (building first, if needed) the kernel library and declare its
-    entry points."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    """Load (building first, if needed) the render kernels' library and
+    declare its entry points."""
+    if "kernels" in _libs:
+        return _libs["kernels"]
+    lib = ctypes.CDLL(str(build("kernels")))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.solid_trace_launch.argtypes = [
         vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
@@ -118,8 +142,16 @@ def load_library():
         ci,                             # dispersive groups
         vp, vp, vp, vp]                 # rec_g, rec_f, count, stream
     lib.record_trace_launch.restype = ci
-    _lib = lib
+    _libs["kernels"] = lib
     return lib
+
+
+def load_probe_library():
+    """Load (building first, if needed) the probes' library; each probe
+    module declares the entry points it calls."""
+    if "probes" not in _libs:
+        _libs["probes"] = ctypes.CDLL(str(build("probes")))
+    return _libs["probes"]
 
 
 def check_tensor(name, t, dtype, shape, device):

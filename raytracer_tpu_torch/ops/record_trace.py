@@ -32,18 +32,19 @@ import math
 
 import torch
 
-from ..core.compile import (KIND_CODES, OBJ_COLS, OBJ_KIND, SceneStatic,
+from ..core.compile import (KIND_CODES, OBJ_COLS, OBJ_KIND, OBJ_UV, SceneStatic,
                             SolidTables, dispersive_groups, shading_groups)
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY,
                               MAT_REFRACTIVE, MAT_THINFILM)
 from ..utils.constants import MISS_THRESHOLD, WAVELENGTHS_NM
 from .cuda_build import SMEM_LIMIT, check_tensor, load_library
 from .replay import replay
-from .solid_trace import (PROJECTIONS, _cabs2, _cdiv, _cmul, _csqrt,
-                          _cyl_local, _div, _normal, _normalize3, _orthobasis,
-                          _pow5, asin_poly, atan2_poly, camera_rays,
-                          check_args, fresnel_f0, glossy_lights, hash_uniform,
-                          isect_of, nearest_hit, reflect)
+from .solid_trace import (PROJECTIONS, _cabs2, _cdiv, _cmul,
+                          _csqrt, _cyl_local, _div, _normal, _normalize3,
+                          _orthobasis, _pow5, asin_poly, atan2_poly,
+                          camera_rays, check_args, fresnel_f0, glossy_lights,
+                          hash_uniform, isect_of, kind_key, nearest_hit,
+                          reflect, tally, tally_normals, tally_tests)
 
 _SPHERE, _PLANE, _BOX, _TRI, _DISC, _CYL = (
     KIND_CODES[k] for k in ("sphere", "plane", "box", "tri", "disc", "cyl"))
@@ -140,12 +141,15 @@ def _uv_for(kind, g, px, py, pz, nx_r, ny_r, nz_r):
 def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                                  tables: SolidTables, cam_vec, width, height,
                                  spp, max_bounces, split_k=0, sampler="r2",
-                                 projection="pinhole"):
+                                 projection="pinhole", counts=None):
     """Record one chunk with plain tensor operations (any device).
 
     seed_vec: int32 (3,) [chunk seed, R2 rotation seed, global index of
     the chunk's first sample]; cam_vec: float32 (17,); static / tables:
     the compiled scene, tables on cam_vec's device.
+    counts: optional dict that receives the events the kernel would run
+    on these inputs (solid_trace.tally); it changes nothing else, and the
+    render path never passes it.
     Returns (rec_g (B, n) int32, rec_f (B, 12, n) float32, rays traced
     int64 scalar tensor), B = max_bounces, n = spp * H * W.
     """
@@ -187,12 +191,30 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
     count = torch.zeros((), dtype=torch.int64, device=dev)
     rec_g = torch.zeros((max_bounces, n), dtype=torch.int32, device=dev)
     rec_f = torch.zeros((max_bounces, 12, n), dtype=f32, device=dev)
+    if counts is not None:
+        kinds = [kind_key(r) for r in rows]
+        shadow_kinds = [kinds[i] for i, r in enumerate(records) if r.shadow]
+        obj_t = tables.obj.to(torch.int64)
+        tally(counts, "camera_rays", n)
+        tally(counts, "r2_draws" if sampler == "r2" else "draws",
+              (7 if sampler == "r2" else 4) * n)
+        tally(counts, "records", max_bounces * n)
 
     for bounce in range(max_bounces):
         t, orient, obj = nearest_hit(isects, geom, ox, oy, oz, dx, dy, dz)
         hit = alive & ~(t >= MISS_THRESHOLD)
         count = count + alive.sum()
         px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+        if counts is not None:
+            # every object's test for each live lane; the normal (and uv
+            # where the object has one) wherever a test hit, then shading
+            lanes = int(alive.sum())
+            tally(counts, "ray_bounces", lanes)
+            tally_tests(counts, "tests", lanes, kinds)
+            tally(counts, "hits", hit)
+            obj_c = obj.clamp(min=0)
+            tally_normals(counts, alive & (obj >= 0), obj_t[obj_c, OBJ_KIND],
+                          rows, obj_t[obj_c, OBJ_UV] != 0)
 
         nx = ny = nz = uu = vv = zf
         for i, (r, rec) in enumerate(zip(rows, records)):
@@ -231,6 +253,11 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
             gid = groups[key]["gid"]
             has_img = (mt, slot) in img_slots
             split = bool(split_k) and not mc
+
+            if counts is not None:
+                tally(counts, {MAT_EMISSIVE: "emissive", MAT_ENV: "env",
+                               MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
+                               MAT_THINFILM: "thinfilm", MAT_GLOSSY: "glossy"}[mt], g)
 
             if mt == MAT_EMISSIVE:
                 col = tables.emi[slot]
@@ -313,6 +340,15 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                     pdf = _div(ndl, math.pi)
                 w = _div(ndl / torch.clamp_min(pdf, 1e-9), math.pi)
                 gc = g & (dcnt < 2)
+                if counts is not None:
+                    # the kernel shades every diffuse hit, and continues gc
+                    if K > 0:
+                        tally(counts, "diffuse_pick", g)
+                        tally(counts, "diffuse_caps", K * int(g.sum()))
+                        tally(counts, "diffuse_cap", g & ~use_cos)
+                    first = (g & (dcnt == 0)) if sb_mix is not None else g & False
+                    tally(counts, "draws", int(first.sum()) * int(K > 0)
+                          + int((g & ~first).sum()) * (6 if K > 0 else 2))
                 for k in range(3):
                     betab[k] = torch.where(gc, w if has_img else prm[k] * w,
                                            betab[k])
@@ -383,6 +419,12 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 gc = g & cont
                 if split:
                     scnt = scnt + (gc & det).to(torch.int64)
+                if counts is not None:
+                    tally(counts, "refr_cont", gc)
+                    tally(counts, "draws", g)
+                    if disp:
+                        tally(counts, "dispersive", g)
+                        tally(counts, "draws", g)
                 for k in range(3):
                     absorb = torch.exp(-2.0 * nim[k] * (2.0 * math.pi / lam[k])
                                        * 1e9 * t)
@@ -422,6 +464,10 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                     take_refl = (det & bit) | (~det & take_refl)
                     w_sel = torch.where(det, 2.0, w_sel)
                     scnt = scnt + (gc & det).to(torch.int64)
+                if counts is not None:
+                    tally(counts, "draws", g)
+                    tally(counts, "tf_cont", gc)
+                    tally(counts, "tf_reflect", gc & take_refl)
                 for k in range(3):
                     addt[k] = torch.where(gc, ambient[k], addt[k])
                     betab[k] = torch.where(gc, w_sel, betab[k])
@@ -447,9 +493,15 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 spec_acc = [zf, zf, zf]
                 F0 = [fresnel_f0(nre[k], nim[k], g_re[k], g_im[k])
                       for k in range(3)]
+                tests = None
+                if counts is not None:
+                    for name, m in zip(("dir", "point", "spot"), tables.n_lights):
+                        tally(counts, f"light_{name}", m * int(g.sum()))
+                    tests = lambda j, live: tally(
+                        counts, f"shadow_{shadow_kinds[j]}", g & live)
                 for lv, see, p5, sw in glossy_lights(
                         tables, shadow, (px, py, pz), (nux, nuy, nuz),
-                        (nx, ny, nz), (vx, vy, vz), rough, spec_c):
+                        (nx, ny, nz), (vx, vy, vz), rough, spec_c, on_test=tests):
                     for k in range(3):
                         lam_acc[k] = lam_acc[k] + diff_c * lv[k] * see
                         spec_acc[k] = (spec_acc[k]
@@ -465,6 +517,8 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 cos_vn = torch.clamp(vx * nx + vy * ny + vz * nz, 0.0, 1.0)
                 p5r = _pow5(1.0 - cos_vn)
                 gc = g & (bounce < maxd)
+                if counts is not None:
+                    tally(counts, "glossy_cont", gc)
                 for k in range(3):
                     F0s = fresnel_f0(scene_nre[k], scene_nim[k], g_re[k], g_im[k])
                     betab[k] = torch.where(gc, F0s + (1.0 - F0s) * p5r, betab[k])

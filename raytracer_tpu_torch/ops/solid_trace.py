@@ -52,6 +52,7 @@ MAX_HU_GROUPS = 48          # csrc/solid_trace.cu MAX_HU
 _SPHERE, _PLANE, _BOX, _TRI, _DISC, _CYL = (
     KIND_CODES[k] for k in ("sphere", "plane", "box", "tri", "disc", "cyl"))
 _SOLID_TYPES = {MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE, MAT_REFRACTIVE}
+KIND_NAMES = {code: name for name, code in KIND_CODES.items()}
 
 
 def check_args(sampler, projection, split_k):
@@ -97,6 +98,37 @@ def hash_uniform(idx, seed, counter):
     x = lds.mul32(idx, 0x9E3779B1)
     x = x ^ lds.add32(seed & lds.M32, (counter * 0x85EBCA6B) & lds.M32)
     return lds.to_float(lds.mix32(x))
+
+
+def tally(counts, key, v):
+    """counts[key] += v, for an int or a mask (its count of True).  The
+    event counts of the plain versions' optional `counts` dict, which
+    probes/roofline.py turns into the kernels' work."""
+    counts[key] = counts.get(key, 0) + int(v.sum() if torch.is_tensor(v) else v)
+
+
+def kind_key(row):
+    """The name of an object row's intersection test in the event counts:
+    its kind, and "plane_aa" for a plane with an axis-aligned frame."""
+    name = KIND_NAMES[row[OBJ_KIND]]
+    return name + "_aa" if row[OBJ_KIND] == _PLANE and row[OBJ_AA_N] >= 0 else name
+
+
+def tally_normals(counts, found, kind_hit, rows, uv_hit=None):
+    """normal_<kind> (and uv_<kind> where uv_hit) events of the lanes
+    `found`, whose hit object has kind code kind_hit."""
+    for k in {KIND_NAMES[r[OBJ_KIND]] for r in rows}:
+        m = found & (kind_hit == KIND_CODES[k])
+        tally(counts, f"normal_{k}", m)
+        if uv_hit is not None:
+            tally(counts, f"uv_{k}", m & uv_hit)
+
+
+def tally_tests(counts, key, lanes, kinds):
+    """counts[key_<kind>] += lanes for every object of `kinds`, a list of
+    kind names: one intersection test each."""
+    for k in set(kinds):
+        tally(counts, f"{key}_{k}", lanes * kinds.count(k))
 
 
 def _div(a, s):
@@ -406,7 +438,7 @@ def reflect(dx, dy, dz, nx, ny, nz):
                        dz - nz * 2.0 * ddn)
 
 
-def glossy_lights(tables, shadow, p, nu, n, v, rough, spec_c):
+def glossy_lights(tables, shadow, p, nu, n, v, rough, spec_c, on_test=None):
     """Per light, the terms of a glossy hit's direct lighting
     (pallas_trace.py:957-1015): yields (lv, see, p5, sw): the light's
     colour times its falloff, 1 unless a shadow caster blocks it, the
@@ -414,6 +446,9 @@ def glossy_lights(tables, shadow, p, nu, n, v, rough, spec_c):
 
     shadow: [(intersector, geometry row)] of the shadow-casting objects;
     p, nu, n, v: hit point, offset origin, oriented normal, view vector.
+    on_test: optional on_test(j, live) called before the test of caster j with
+    the lanes no earlier caster has occluded, which are the lanes whose
+    kernel loop reaches that test.
     """
     (px, py, pz), (nux, nuy, nuz), (nx, ny, nz), (vx, vy, vz) = p, nu, n, v
     n_dir, n_point, n_spot = tables.n_lights
@@ -442,7 +477,9 @@ def glossy_lights(tables, shadow, p, nu, n, v, rough, spec_c):
         else:
             lv = [L[3 + k] * ndl for k in range(3)]
         occ = torch.zeros_like(px, dtype=torch.bool)
-        for isect, g in shadow:
+        for j, (isect, g) in enumerate(shadow):
+            if on_test is not None:
+                on_test(j, ~occ)
             t_s, _ = isect(g, nux, nuy, nuz, lx, ly, lz)
             occ = occ | (t_s < dist)
         see = 1.0 - occ.to(px.dtype)
@@ -545,12 +582,17 @@ def camera_rays(seed, cam_vec, width, height, spp, sampler,
 
 def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
                                 height, spp, max_bounces, split_k=0,
-                                sampler="r2", projection="pinhole"):
+                                sampler="r2", projection="pinhole",
+                                counts=None):
     """Trace one chunk with plain tensor operations (any device).
 
     seed_vec: int32 (3,) [chunk seed, R2 rotation seed, global index of
     the chunk's first sample]; cam_vec: float32 (17,) (core/camera.py);
     tables: SolidTables on the same device.
+    counts: optional dict that receives the events the kernel would run
+    on these inputs (ray-bounces, intersection tests and normals by kind,
+    shading by material, lights, shadow tests, draws; see `tally`); it
+    changes nothing else, and the render path never passes it.
     Returns (L (spp*H*W, 3) float32, rays traced int64 scalar tensor).
     """
     check_slice(tables, split_k, sampler, projection)
@@ -593,6 +635,12 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
     types = {r[OBJ_MAT_TYPE] for r in rows}
     K = tables.n_is_targets
     lam = WAVELENGTHS_NM
+    if counts is not None:
+        kinds = [kind_key(r) for r in rows]
+        shadow_kinds = [kinds[i] for i, r in enumerate(rows) if r[OBJ_SHADOW]]
+        tally(counts, "camera_rays", n)
+        tally(counts, "r2_draws" if sampler == "r2" else "draws",
+              (7 if sampler == "r2" else 4) * n)
 
     for bounce in range(max_bounces):
         last = bounce == max_bounces - 1
@@ -603,6 +651,21 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
         obj_c = obj.clamp(min=0)
         mt = mat_type_of[obj_c]
         slot = slot_of[obj_c]
+        if counts is not None:
+            # what the kernel's thread does for this bounce: every object's
+            # test, then on a hit the emissive add and stop, or the normal
+            # (not on the last bounce, unless glossy) and the shading
+            lanes = int(alive.sum())
+            tally(counts, "ray_bounces", lanes)
+            tally_tests(counts, "tests", lanes, kinds)
+            tally(counts, "hits", hit)
+            tally(counts, "emissive", hit & (mt == MAT_EMISSIVE))
+            tally(counts, "zero_add", hit & ((mt == MAT_DIFFUSE)
+                                             | (mt == MAT_REFRACTIVE)))
+            shaded = hit & (mt != MAT_EMISSIVE)
+            if last:
+                shaded = shaded & (mt == MAT_GLOSSY)
+            tally_normals(counts, shaded, obj_t[obj_c, OBJ_KIND], rows)
 
         add = [zeros, zeros, zeros]
         if MAT_EMISSIVE in types:
@@ -652,15 +715,24 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
             v = (-dx, -dy, -dz)
             acc = [ambient[k] * dc[k] for k in range(3)]
             F0 = [fresnel_f0(nre[k], nim[k], g_re[k], g_im[k]) for k in range(3)]
+            tests = None
+            if counts is not None:
+                tally(counts, "glossy", g)
+                for name, m in zip(("dir", "point", "spot"), tables.n_lights):
+                    tally(counts, f"light_{name}", m * int(g.sum()))
+                tests = lambda j, live: tally(
+                    counts, f"shadow_{shadow_kinds[j]}", g & live)
             for lv, see, p5, sw in glossy_lights(
                     tables, shadow, (px, py, pz), (nux, nuy, nuz),
-                    (nx, ny, nz), v, rough, spec_c):
+                    (nx, ny, nz), v, rough, spec_c, on_test=tests):
                 for k in range(3):
                     acc[k] = acc[k] + dc[k] * lv[k] * see
                     acc[k] = acc[k] + (F0[k] + (1.0 - F0[k]) * p5) * sw * lv[k]
             add = [torch.where(g, acc[k], add[k]) for k in range(3)]
             if not last:
                 gc = g & (bounce < maxd_of[obj_c])
+                if counts is not None:
+                    tally(counts, "glossy_cont", gc)
                 cos_vn = torch.clamp(v[0] * nx + v[1] * ny + v[2] * nz, 0.0, 1.0)
                 p5r = _pow5(1.0 - cos_vn)
                 rlx, rly, rlz = reflect(dx, dy, dz, nx, ny, nz)
@@ -754,6 +826,16 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
                 pdf = _div(ndl, math.pi)
             w = _div(ndl / torch.clamp_min(pdf, 1e-9), math.pi)
             gc = g & (dcnt < 2)
+            if counts is not None:
+                # a diffuse hit past the diffuse depth ends the kernel's path
+                tally(counts, "diffuse", gc)
+                if K > 0:
+                    tally(counts, "diffuse_pick", gc)
+                    tally(counts, "diffuse_caps", K * int(gc.sum()))
+                    tally(counts, "diffuse_cap", gc & ~use_cos)
+                first = (gc & (dcnt == 0)) if sb_mix is not None else gc & False
+                tally(counts, "draws", int(first.sum()) * int(K > 0)
+                      + int((gc & ~first).sum()) * (6 if K > 0 else 2))
             for k in range(3):
                 bmul[k] = torch.where(gc, col[k] * w, bmul[k])
             ndx = torch.where(gc, sdx, ndx)
@@ -825,6 +907,11 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
             take_refr = (det & bit & non_tir) | (~det & take_refr)
             gc = g & ~(det & bit & ~non_tir)
             scnt = scnt + (gc & det).to(torch.int64)
+            if counts is not None:
+                tally(counts, "refractive", g)
+                tally(counts, "dispersive", g & dsp)
+                tally(counts, "draws", g)
+                tally(counts, "draws", g & dsp)
             for k in range(3):
                 absorb = torch.exp(nim[k] * ((-4.0 * math.pi / lam[k]) * 1e9 * t))
                 w_r = torch.where(det, 2.0 * T[k],

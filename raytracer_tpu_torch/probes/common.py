@@ -1,0 +1,102 @@
+"""What every probe shares: the card's identity, CUDA-event timing, clock
+samples, and the launch of a probe kernel through the probes' library."""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+
+import torch
+
+from ..ops.cuda_build import load_probe_library
+
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# 67 TFLOP/s in float32 outside the tensor cores, counting an fma as two
+# operations, so 33.5 T FP32 instruction-lanes (issue slots) a second; and
+# 3.35 TB/s of HBM3
+PEAK_SLOTS_PER_S = 67e12 / 2
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def require_card():
+    """The CUDA device, or RuntimeError: a measurement never falls back to
+    the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probes measure the CUDA device and found none")
+    return torch.device("cuda:0")
+
+
+def smi(query):
+    """nvidia-smi's CSV answer for `query` (e.g. "name,power.limit")."""
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
+
+
+def device_info():
+    """The card's name as torch sees it and name + power limit as
+    nvidia-smi reports them."""
+    require_card()
+    return {"device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi("name,power.limit")}
+
+
+def clocks():
+    """SM clock and power draw now, e.g. "1980 MHz, 512.30 W"."""
+    return smi("clocks.sm,power.draw")
+
+
+def cuda_ms(fn, reps, warmup=1):
+    """Mean milliseconds of `reps` calls of fn after `warmup` calls, timed
+    with CUDA events around the whole run."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(entry, argtypes, *args):
+    """Call the probes' library entry `entry` (declared with `argtypes`,
+    returning int); raise if it reports a CUDA error (cudaGetLastError()
+    after the launch)."""
+    fn = getattr(load_probe_library(), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+
+
+def bound(ops_slots, n_bytes):
+    """(bound ms, "operations" or "bytes"): the larger of the issue-slot
+    time at the published FP32 rate and the byte time at the HBM rate."""
+    t_ops = ops_slots / PEAK_SLOTS_PER_S * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+        ops_slots, n_bytes, library_ms=None):
+    """One entry of chip_smoke.py's kernels line."""
+    b_ms, by = bound(ops_slots, n_bytes)
+    return {"name": name, "route": "cuda",
+            "source": f"raytracer_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
