@@ -12,7 +12,10 @@ checkout and drives both render paths:
   Scene.render (5,120 paths per pixel in 197 chunks of 26 spp), checks
   the image against the plain version, and at the chunk shape (4.16 M
   rays) holds the kernel against the plain version ray by ray and times
-  both;
+  both; prints the kernel's registers and persistent grid, and its
+  bounce-loop lane efficiency beside the plain version's (one ray per
+  thread) on the Cornell and dispersion chunks.  Every K1 check is bit
+  for bit: each ray's L equal and rays_traced identical;
 - record: holds the record kernel (records and replayed radiance)
   against its plain version on examples 1-4 at 32x32 x 16 spp, renders
   example 2 at 400x300 x 64 spp through Scene.render (512 paths per pixel
@@ -357,7 +360,7 @@ def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
         print(f"solid kernel vs plain, {head}: {n} rays | match {rate:.6f}, "
               f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
               f"rays_traced {n_k} vs {n_p}", flush=True)
-        require(rate >= MATCH_RATE, f"{name}: match rate {rate}")
+        require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
     else:
         rec_k, rec_p = rt.record_paths(*args), rt.record_trace_chunk_reference(*args)
         words, floats, n_k, n_p = compare_records(rec_k, rec_p)
@@ -374,6 +377,23 @@ def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
     require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
     return max_err
+
+
+def lane_efficiency(torch, name, args):
+    """Print K1's bounce-loop lane efficiency on one chunk (lane-iterations
+    with a ray over all lane-iterations, counted by the kernel when asked)
+    beside the plain version's with one ray per thread (its alive masks,
+    warps of 32 consecutive rays)."""
+    from raytracer_tpu_torch.probes import dead_bounce
+
+    plain = dead_bounce.plain_lane_efficiency(args)
+    kernel = dead_bounce.kernel_lane_efficiency(args)
+    print(f"{name} K1 lane efficiency at the chunk shape: kernel {kernel:.4f} "
+          f"(persistent, refilling) | plain {plain:.4f} (one ray per thread)",
+          flush=True)
+    require(0.0 < kernel <= 1.0 and 0.0 < plain <= 1.0,
+            f"{name}: lane efficiency {kernel}, {plain}")
+    torch.cuda.empty_cache()
 
 
 def render_path(torch, dev, name, width, height, spp):
@@ -462,6 +482,7 @@ def chunk_timing(torch, dev, name, width, height, spp):
         plain = lambda: st.solid_trace_chunk_reference(*args)
         (L_k, n_k), (L_p, n_p) = kernel(), plain()
         rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+        require(bit_eq == 1.0, f"{name} chunk: bit-equal share {bit_eq} < 1")
         extra = ""
     else:
         kernel = lambda: rt.record_paths(*args)
@@ -500,6 +521,8 @@ def chunk_timing(torch, dev, name, width, height, spp):
           f"bounces | kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) "
           f"| {replay}plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) "
           f"| peak {peak_gib:.2f} GiB", flush=True)
+    if static.pallas_ok:
+        lane_efficiency(torch, name, args)
     return max_err, ms, p_ms, (statistics.mean(r_ms) if r_ms else None)
 
 
@@ -619,7 +642,7 @@ def main():
           f"{settings.max_bounces}, match {rate:.6f} (rtol {MATCH_RTOL}, atol "
           f"{MATCH_ATOL}), bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e}, "
           f"rays_traced {n_k} vs {n_p}", flush=True)
-    require(rate >= MATCH_RATE, f"match rate {rate} < {MATCH_RATE}")
+    require(bit_eq == 1.0, f"bit-equal share {bit_eq} < 1")
     require(n_k == n_p, f"rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), "non-finite kernel output")
 
@@ -673,7 +696,7 @@ def main():
     print(f"kernel vs plain at the chunk shape: {L_k.shape[0]} rays, match "
           f"{rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e}, "
           f"rays_traced {n_k} vs {n_p}", flush=True)
-    require(rate >= MATCH_RATE, f"chunk-shape match rate {rate} < {MATCH_RATE}")
+    require(bit_eq == 1.0, f"chunk-shape bit-equal share {bit_eq} < 1")
     require(n_k == n_p, f"chunk-shape rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), "non-finite kernel output")
     del L_k, L_p
@@ -687,6 +710,15 @@ def main():
           f"kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) | "
           f"plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) | "
           f"peak {peak_gib:.2f} GiB", flush=True)
+    info = st.kernel_info(tables)
+    print(f"K1 as built: {info['registers']} registers, {info['local_bytes']} B local "
+          f"a thread | block {info['block']}, min blocks {info['min_blocks']}, refill "
+          f"at {info['refill_min']} free lanes, refractive shading at "
+          f"{info['refr_min']} hits | persistent grid {info['sms']} SMs x "
+          f"{info['blocks_per_sm']} blocks", flush=True)
+    require(info["blocks_per_sm"] >= 1, "K1 fits no block on an SM")
+    lane_efficiency(torch, "cornell", args + (settings.split_k, settings.sampler,
+                                              settings.projection))
 
     del tables, cam
     torch.cuda.empty_cache()

@@ -284,36 +284,29 @@ __device__ __forceinline__ void isect_sphere(const float* g, const float o[3],
   orient = ndd < 0.0f ? 1.0f : -1.0f;
 }
 
-__device__ __forceinline__ void isect_plane(const float* g, const int* rec,
-                                            const float o[3], const float d[3],
-                                            float& t, float& orient) {
-  const float c[3] = {g[0], g[1], g[2]};
-  float w2 = g[12], h2 = g[13];
-  float ndd, ndco, uu, vv, tt;
-  int nax = rec[OBJ_AA_N];
-  if (nax >= 0) {
-    // axis-aligned frame: component selection, bit-identical to the
-    // generic formula (the dropped terms are exact *0 / +0)
-    int uax = rec[OBJ_AA_U], vax = rec[OBJ_AA_V];
-    bool pos = rec[OBJ_AA_NSIGN] > 0;
-    ndd = pos ? d[nax] : -d[nax];
-    if (ndd == 0.0f) ndd = ndd + F(1e-4);
-    ndco = pos ? (c[nax] - o[nax]) : (o[nax] - c[nax]);
-    tt = ndco / ndd;
-    uu = o[uax] + d[uax] * tt - c[uax];
-    vv = o[vax] + d[vax] * tt - c[vax];
-  } else {
-    float nx = g[9], ny = g[10], nz = g[11];
-    ndd = nx * d[0] + ny * d[1] + nz * d[2];
-    if (ndd == 0.0f) ndd = ndd + F(1e-4);
-    ndco = nx * (c[0] - o[0]) + ny * (c[1] - o[1]) + nz * (c[2] - o[2]);
-    tt = ndco / ndd;
-    float mx = o[0] + d[0] * tt - c[0];
-    float my = o[1] + d[1] * tt - c[1];
-    float mz = o[2] + d[2] * tt - c[2];
-    uu = g[3] * mx + g[4] * my + g[5] * mz;
-    vv = g[6] * mx + g[7] * my + g[8] * mz;
-  }
+// a plane, axis-aligned or not, by the generic formula.  For a plane with
+// an axis-aligned frame (OBJ_AA_N >= 0) it gives the bits of the plain
+// version's component-selection form (ops/solid_trace.py _isect_plane):
+// the extra terms are exact +-0 products, negation is exact, and where tt
+// overflows both forms fail the |uu| <= w2 test.  Timed alone on the H100
+// (probes/isect_cost.py) it costs about 70 issue slots a test where the
+// selection form, with its run-time register indices, costs 254; in the
+// solid kernel it saves about 6% of a Cornell chunk (PERF.md).
+__device__ __forceinline__ void isect_plane(const float* g, const float o[3],
+                                            const float d[3], float& t,
+                                            float& orient) {
+  const float cx = g[0], cy = g[1], cz = g[2];
+  const float w2 = g[12], h2 = g[13];
+  const float nx = g[9], ny = g[10], nz = g[11];
+  float ndd = nx * d[0] + ny * d[1] + nz * d[2];
+  if (ndd == 0.0f) ndd = ndd + F(1e-4);
+  const float ndco = nx * (cx - o[0]) + ny * (cy - o[1]) + nz * (cz - o[2]);
+  const float tt = ndco / ndd;
+  const float mx = o[0] + d[0] * tt - cx;
+  const float my = o[1] + d[1] * tt - cy;
+  const float mz = o[2] + d[2] * tt - cz;
+  const float uu = g[3] * mx + g[4] * my + g[5] * mz;
+  const float vv = g[6] * mx + g[7] * my + g[8] * mz;
   bool inside = fabsf(uu) <= w2 && fabsf(vv) <= h2 && ndco * ndd > 0.0f;
   t = inside ? tt : FARAWAY;
   orient = ndd < 0.0f ? 1.0f : -1.0f;
@@ -489,7 +482,7 @@ __device__ __forceinline__ void isect_object(const float* g, const int* rec,
                                              float& t, float& orient) {
   const int kind = rec[OBJ_KIND];
   if (kind == KIND_SPHERE) isect_sphere(g, o, d, t, orient);
-  else if (kind == KIND_PLANE) isect_plane(g, rec, o, d, t, orient);
+  else if (kind == KIND_PLANE) isect_plane(g, o, d, t, orient);
   else if (kind == KIND_BOX) isect_box(g, o, d, t, orient);
   else if (kind == KIND_TRI) isect_tri(g, o, d, t, orient);
   else if (kind == KIND_DISC) isect_disc(g, o, d, t, orient);

@@ -42,6 +42,7 @@ SMEM_LIMIT = 48 * 1024    # bytes of dynamic shared memory without opt-in
 
 _libs = {}
 build_log = ""            # nvcc's output of the last build (ptxas -v lines)
+build_logs = {}           # library path -> nvcc's output of its build
 
 
 def _nvcc():
@@ -55,33 +56,41 @@ def _nvcc():
     return nvcc
 
 
-def _build_key():
+def _flags(defines=()):
+    """NVCC_FLAGS with a -D flag for each "NAME=VALUE" of defines."""
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _build_key(defines=()):
     """A hash of every csrc file, the flags and nvcc's version."""
     version = subprocess.run([_nvcc(), "--version"], capture_output=True,
                              text=True, check=True).stdout
-    h = hashlib.sha256((version + " ".join(NVCC_FLAGS)).encode())
+    h = hashlib.sha256((version + " ".join(_flags(defines))).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name, key=None):
+def library_path(name, key=None, defines=()):
     """Where source set `name` ("kernels" or "probes") is built."""
-    return BUILD_DIR / f"{name}_{key or _build_key()}.so"
+    return BUILD_DIR / f"{name}_{key or _build_key(defines)}.so"
 
 
-def build(name="kernels"):
+def build(name="kernels", defines=()):
     """Build source set `name` unless it is built; returns its library's
     path."""
-    return build_all((name,))[name]
+    return build_all((name,), defines)[name]
 
 
-def build_all(names=tuple(SETS)):
+def build_all(names=tuple(SETS), defines=()):
     """Compile the source sets `names` that are not built yet, one nvcc
     per source, all started together, and link each set into its shared
-    library; returns {name: library path}."""
+    library; returns {name: library path}.  defines: "NAME=VALUE" macros
+    passed to nvcc, for builds that compare a kernel's compile-time
+    constants (scripts/torch_k1_tune.py); the render path passes none."""
     global build_log
-    nvcc, key = _nvcc(), _build_key()
+    nvcc, key = _nvcc(), _build_key(defines)
+    flags = _flags(defines)
     outs = {name: library_path(name, key) for name in names}
     todo = [name for name in names if not outs[name].exists()]
     if not todo:
@@ -90,36 +99,39 @@ def build_all(names=tuple(SETS)):
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         srcs = [src for name in todo for src in SETS[name]]
         objs = {src: os.path.join(tmp, src + ".o") for src in srcs}
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", objs[src],
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", objs[src],
                                    str(CSRC / src)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src in srcs]
         logs = [p.communicate()[0] for p in procs]
-        build_log = "".join(logs)
+        log = "".join(logs)
         for src, p in zip(srcs, procs):
             if p.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed on {src} ({p.returncode}):\n{build_log}")
+                    f"nvcc failed on {src} ({p.returncode}):\n{log}")
         for name in todo:
             lib = os.path.join(tmp, name + ".so")
             res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
                                   *(objs[src] for src in SETS[name])],
                                  capture_output=True, text=True)
-            build_log += res.stdout + res.stderr
+            log += res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed to link {name} "
-                                   f"({res.returncode}):\n{build_log}")
+                                   f"({res.returncode}):\n{log}")
             os.replace(lib, outs[name])
+            build_logs[outs[name]] = log
+    build_log = log
     return outs
 
 
-def load_library():
-    """Load (building first, if needed) the render kernels' library and
-    declare its entry points."""
-    if "kernels" in _libs:
-        return _libs["kernels"]
-    lib = ctypes.CDLL(str(build("kernels")))
+def load_library(defines=()):
+    """Load (building first, if needed) the render kernels' library, built
+    with `defines` (see build_all), and declare its entry points."""
+    name = ("kernels",) + tuple(defines)
+    if name in _libs:
+        return _libs[name]
+    lib = ctypes.CDLL(str(build("kernels", defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.solid_trace_launch.argtypes = [
         vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
@@ -129,8 +141,10 @@ def load_library():
         ci, ci, ci, ci, ci, ci, ci,     # width, height, spp, max_bounces,
                                         # iid, split_k, projection
         ctypes.POINTER(ci), ci,         # dispersive groups' depth caps
-        vp, vp, vp]                     # L, count, stream
+        vp, vp, vp, vp, vp]             # L, count, work counter, lane stats, stream
     lib.solid_trace_launch.restype = ci
+    lib.solid_trace_info.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.solid_trace_info.restype = ci
     lib.record_trace_launch.argtypes = [
         vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
         vp, ci, vp, ci, vp, ci, vp, ci,  # dif, glo, refr, emi tables + rows
@@ -142,7 +156,7 @@ def load_library():
         ci,                             # dispersive groups
         vp, vp, vp, vp]                 # rec_g, rec_f, count, stream
     lib.record_trace_launch.restype = ci
-    _libs["kernels"] = lib
+    _libs[name] = lib
     return lib
 
 

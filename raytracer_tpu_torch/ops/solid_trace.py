@@ -19,7 +19,8 @@ bounce).
   polynomials.  It runs on any device.
 - `solid_trace_chunk` is the public entry.  For CPU tensors it calls the
   plain version; for CUDA tensors it launches the kernel of
-  csrc/solid_trace.cu, or raises.
+  csrc/solid_trace.cu, or raises.  The kernel's grid is persistent: its
+  warps take ray indices from a work counter that the wrapper zeroes.
 
 Both follow the JAX kernel draw for draw: given the same seed_vec they
 trace the same paths, ray by ray.
@@ -112,6 +113,13 @@ def kind_key(row):
     its kind, and "plane_aa" for a plane with an axis-aligned frame."""
     name = KIND_NAMES[row[OBJ_KIND]]
     return name + "_aa" if row[OBJ_KIND] == _PLANE and row[OBJ_AA_N] >= 0 else name
+
+
+def live_warps(alive):
+    """How many warps of 32 consecutive rays hold a ray alive: the warps
+    that run a bounce in a kernel with one ray per thread."""
+    pad = torch.zeros((-alive.numel()) % 32, dtype=torch.bool, device=alive.device)
+    return torch.cat([alive, pad]).view(-1, 32).any(dim=1)
 
 
 def tally_normals(counts, found, kind_hit, rows, uv_hit=None):
@@ -657,6 +665,7 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
             # (not on the last bounce, unless glossy) and the shading
             lanes = int(alive.sum())
             tally(counts, "ray_bounces", lanes)
+            tally(counts, "warp_bounces", live_warps(alive))
             tally_tests(counts, "tests", lanes, kinds)
             tally(counts, "hits", hit)
             tally(counts, "emissive", hit & (mt == MAT_EMISSIVE))
@@ -954,8 +963,32 @@ def solid_trace_chunk_reference(seed_vec, tables: SolidTables, cam_vec, width,
 # the CUDA kernel: launch (ops/cuda_build.py builds and binds it)
 # ---------------------------------------------------------------------------
 
+def _smem_bytes(tables):
+    """Shared memory a block of the kernel takes for the scene tables."""
+    return 4 * (len(tables.obj_rows) * (24 + OBJ_COLS) + sum(
+        getattr(tables, k).numel() for k in ("dif", "glo", "refr", "emi"))
+        + 11 * sum(tables.n_lights) + 4 * max(tables.n_is_targets, 1) + 16 + 17 + 3)
+
+
+def kernel_info(tables, lib=None):
+    """The kernel as built and as the current card holds it with these
+    tables: {registers, local_bytes (stack and spills a thread),
+    blocks_per_sm, sms, block, min_blocks, refill_min, refr_min}."""
+    info = (ctypes.c_int * 8)()
+    err = (lib or load_library()).solid_trace_info(_smem_bytes(tables), info)
+    if err != 0:
+        raise RuntimeError(f"solid_trace_info failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms", "block",
+                     "min_blocks", "refill_min", "refr_min"), info))
+
+
 def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
-            sampler, split_k=0, projection="pinhole"):
+            sampler, split_k=0, projection="pinhole", lane_stats=None, lib=None):
+    """Launch the kernel on the current stream; returns (L, rays traced).
+    lane_stats: None, or a zeroed int64 (2,) tensor on the device that
+    receives the kernel's lane-iterations with a ray and all its
+    lane-iterations (probes/dead_bounce.py); lib: the library to launch
+    from (cuda_build.load_library() unless given)."""
     dev = cam_vec.device
     f32, i32 = torch.float32, torch.int32
     n_obj = len(tables.obj_rows)
@@ -981,9 +1014,7 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
     if len(hu_maxd) > MAX_HU_GROUPS:
         raise ValueError(f"{len(hu_maxd)} dispersive groups; the kernel takes "
                          f"at most {MAX_HU_GROUPS}")
-    smem = 4 * (n_obj * (24 + OBJ_COLS) + sum(
-        getattr(tables, k).numel() for k in ("dif", "glo", "refr", "emi"))
-        + 11 * n_l + 4 * max(K, 1) + 16 + 17 + 3)
+    smem = _smem_bytes(tables)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"scene tables need {smem} bytes of shared memory; the kernel "
@@ -993,9 +1024,13 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
             and n < 2 ** 31):
         raise ValueError(f"bad chunk shape {spp}x{height}x{width}, "
                          f"max_bounces {max_bounces}")
+    if lane_stats is not None:
+        check_tensor("lane_stats", lane_stats, torch.int64, (2,), dev)
     L = torch.empty((n, 3), dtype=f32, device=dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    lib = load_library()
+    # rays traced, then the persistent grid's work counter (the next ray
+    # index), zeroed on the launch's stream
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = lib or load_library()
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     rows = lambda t: t.shape[0]
     hu = (ctypes.c_int * MAX_HU_GROUPS)(*hu_maxd)
@@ -1006,11 +1041,12 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
         p(tables.lights), n_l, *tables.n_lights, p(tables.is_tab), K,
         p(tables.consts), width, height, spp, max_bounces,
         int(sampler == "iid"), split_k, PROJECTIONS[projection],
-        hu, len(hu_maxd), p(L), p(count),
+        hu, len(hu_maxd), p(L), p(counters), p(counters[1:]),
+        None if lane_stats is None else p(lane_stats),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"solid_trace kernel launch failed: CUDA error {err}")
-    return L, count
+    return L, counters[0]
 
 
 def solid_trace_chunk(seed_vec, tables: SolidTables, cam_vec, width, height,

@@ -10,6 +10,12 @@ after bounce 1, all dead: dead after bounce 0) and a fourth where every
 odd lane dies after bounce 0.
 
     python -m raytracer_tpu_torch.probes.dead_bounce
+
+Beside the toy, what the solid kernel K1 makes of its dead lanes on a
+real chunk: its bounce-loop lane efficiency (lane-iterations with a ray
+over all lane-iterations), as the kernel counts it, against the plain
+version's, from the alive masks of a kernel with one ray per thread
+(warps of 32 consecutive rays, each running until its longest path ends).
 """
 
 from __future__ import annotations
@@ -128,6 +134,34 @@ def run(n=4_000_000, reps=5, sin_slots=1.0, sqrt_slots=1.0):
                        ms[f"{form}_all_alive"], plain_ms, slots, 8 * x.numel())
             for form in ("warp", "thread")]
     return out, rows
+
+
+def plain_lane_efficiency(args):
+    """The bounce-loop lane efficiency of one K1 chunk if each thread
+    traced one ray: rays alive at a bounce's start over 32 x the live
+    warps at it, summed over bounces (the plain version's `counts=` hook).
+    args: solid_trace_chunk's arguments."""
+    from ..ops.solid_trace import solid_trace_chunk_reference
+
+    events = {}
+    solid_trace_chunk_reference(*args, counts=events)
+    return events["ray_bounces"] / (32 * events["warp_bounces"])
+
+
+def kernel_lane_efficiency(args):
+    """K1's own bounce-loop lane efficiency on one chunk: lane-iterations
+    with a ray over all lane-iterations of its warps, as the kernel counts
+    them when asked (off the render path).  args: solid_trace_chunk's
+    arguments, on the card."""
+    from ..ops.solid_trace import _launch
+
+    seed, tables, cam, w, h, spp, mb, split_k, sampler, proj = args
+    if cam.device.type != "cuda":
+        raise ValueError("the kernel's lane count needs CUDA tensors")
+    stats = torch.zeros(2, dtype=torch.int64, device=cam.device)
+    _launch(seed, tables, cam, w, h, spp, mb, sampler, split_k, proj, lane_stats=stats)
+    busy, total = (int(v) for v in stats)
+    return busy / total
 
 
 def main():
