@@ -16,13 +16,16 @@ checkout and drives both render paths:
   bounce-loop lane efficiency beside the plain version's (one ray per
   thread) on the Cornell and dispersion chunks.  Every K1 check is bit
   for bit: each ray's L equal and rays_traced identical;
-- record: holds the record kernel (records and replayed radiance)
-  against its plain version on examples 1-4 at 32x32 x 16 spp, renders
-  example 2 at 400x300 x 64 spp through Scene.render (512 paths per pixel
-  with the x8 Fresnel-split fan, 16 chunks of 32 spp), checks the image
-  against plain-version chunks, and at the chunk shape (3.84 M rays)
-  holds kernel + replay against the plain version and times the kernel,
-  the replay and the plain version;
+- record: holds the record kernel (one pass: tracing, the texel
+  fetches and the path integral) against its plain version (the records
+  of record_trace_chunk_reference, replayed by ops/replay.py) on examples
+  1-4 at 32x32 x 16 spp, renders example 2 at 400x300 x 64 spp through
+  Scene.render (512 paths per pixel with the x8 Fresnel-split fan, 16
+  chunks of 32 spp), checks the image against plain-version chunks, and
+  at the chunk shape (3.84 M rays) holds the kernel against the plain
+  version and times both, with the peak device memory of each and the
+  kernel's registers, local memory and blocks an SM.  Every K2 check is
+  bit for bit, as K1's are;
 - the rest of both kernels (examples/torch_primitives.py): the solid
   kernel against its plain version at 64x64 x 16 spp on the dispersion
   example, example 2 as a solid scene (glossy, shadow rays, split_k 3),
@@ -34,8 +37,8 @@ checkout and drives both render paths:
   solid kernel), primitives 400x300 x 64 spp, fisheye 400x400 x 64 spp
   (pixels outside the image circle exactly 0) and panorama 512x256 x 64
   spp (the record kernel), each image against plain-version chunks; and
-  the chunk-shape times of the solid kernel on dispersion and the record
-  kernel on primitives against their plain versions;
+  the chunk-shape checks and times of the solid kernel on dispersion and
+  the record kernel on primitives against their plain versions;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -135,18 +138,6 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_records(rec_k, rec_p):
-    """Share of equal group words, per-element match rate of the shading
-    floats, and both rays_traced counts."""
-    import torch
-    (g_k, f_k, n_k), (g_p, f_p, n_p) = rec_k, rec_p
-    torch.cuda.synchronize()
-    words = (g_k == g_p).float().mean().item()
-    floats = torch.isclose(f_k, f_p, rtol=MATCH_RTOL,
-                           atol=MATCH_ATOL).float().mean().item()
-    return words, floats, int(n_k), int(n_p)
-
-
 def compare(L_k, L_p, n_k, n_p):
     """Per-ray match rate, max abs error, bit-equal share and both counts."""
     import torch
@@ -164,17 +155,77 @@ def scene_inputs(build_cornell, width, height, device):
     return sc, tables.to(device), cam_vec(sc.camera.params()).to(device), settings
 
 
+def record_plain(args):
+    """The record path's plain version of one chunk: the records of
+    record_trace_chunk_reference, replayed (ops/replay.py); (L, count)."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+
+    seed, static, tables, cam, W, H, spp, B = args[:8]
+    g, f, count = rt.record_trace_chunk_reference(*args)
+    return rt.replay(g, f, static, tables, B, spp * W * H), count
+
+
+def record_check(torch, name, args):
+    """The fused record kernel against its plain version on one chunk:
+    every ray's L bit for bit, rays_traced identical, L finite.  Returns
+    (max abs error, line fragment)."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+
+    (L_k, n_k), (L_p, n_p) = rt.record_trace_chunk(*args), record_plain(args)
+    rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+    require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
+    require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
+    require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite L")
+    return max_err, (f"match {rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err "
+                     f"{max_err:.3e} | rays_traced {n_k} vs {n_p}")
+
+
+def record_timing(torch, dev, name, static, args):
+    """CUDA-event times of the fused record kernel and of its plain
+    version (records then replay, for the record) on one chunk, the peak
+    device memory of each, and the kernel as built; prints one line and
+    returns (kernel ms, plain ms)."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+
+    kernel = lambda: rt.record_trace_chunk(*args)
+    plain = lambda: record_plain(args)
+    kernel(), plain()                               # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_ms = [cuda_ms(plain, 1)]
+    plain_peak = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel_ms = [cuda_ms(kernel, REC_KERNEL_REPS), cuda_ms(kernel, REC_KERNEL_REPS)]
+    kernel_peak = torch.cuda.max_memory_allocated(dev) - base
+    plain_ms.append(cuda_ms(plain, 1))
+    ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
+    info = rt.kernel_info(static, args[2])
+    seed, static, tables, cam, W, H, spp, B = args[:8]
+    print(f"{name} record chunk timing: {spp} spp x {W}x{H} = {spp * W * H} rays, "
+          f"{B} bounces | fused kernel {ms:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in kernel_ms)}), peak {kernel_peak / 2 ** 20:.1f} "
+          f"MiB above the inputs | plain records + replay {p_ms:.1f} ms "
+          f"({', '.join(f'{x:.1f}' for x in plain_ms)}), peak "
+          f"{plain_peak / 2 ** 20:.1f} MiB | K2 as built: {info['registers']} "
+          f"registers, {info['local_bytes']} B local a thread, block {info['block']}, "
+          f"min blocks {info['min_blocks']}, {info['blocks_per_sm']} blocks an SM",
+          flush=True)
+    require(info["blocks_per_sm"] >= 1, "K2 fits no block on an SM")
+    return ms, p_ms
+
+
 def record_phases(torch, dev):
     """The record path's phases; returns the record kernel's row of the
-    kernels line, and the kernel's and the replay's ms at the chunk
-    shape."""
+    kernels line, and the fused kernel's ms at the chunk shape."""
     from raytracer_tpu_torch.core.camera import cam_vec
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import record_trace as rt
     import torch_textured
 
-    # ---- record kernel vs plain version on examples 1-4 ----
+    # ---- fused record kernel vs plain version on examples 1-4 ----
     W, H, spp = REC_CHECK
+    errs = []
     for k, build in torch_textured.EXAMPLES.items():
         sc = build(W, H, **({"blur": 0.0} if k == 4 else {}))
         static, tables, settings = sc._settings_for_render()
@@ -184,22 +235,12 @@ def record_phases(torch, dev):
                             device=dev)
         args = (seed, static, tables, cam, W, H, spp, settings.max_bounces,
                 settings.split_k)
-        rec_k, rec_p = rt.record_paths(*args), rt.record_trace_chunk_reference(*args)
-        words, floats, n_k, n_p = compare_records(rec_k, rec_p)
-        n = W * H * spp
-        L_k = rt.replay(*rec_k[:2], static, tables, settings.max_bounces, n)
-        L_p = rt.replay(*rec_p[:2], static, tables, settings.max_bounces, n)
-        rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
+        err, line = record_check(torch, f"example {k}", args)
+        errs.append(err)
         print(f"record kernel vs plain, example {k}{' (blur 0)' if k == 4 else ''}: "
-              f"{n} rays, max_bounces {settings.max_bounces}, split_k "
-              f"{settings.split_k}, replay rounds {rt.replay_rounds(static)} | "
-              f"words equal {words:.6f}, floats match {floats:.6f} | L match "
-              f"{rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
-              f"rays_traced {n_k} vs {n_p}", flush=True)
-        require(words >= MATCH_RATE and floats >= MATCH_RATE and rate >= MATCH_RATE,
-                f"example {k}: records or L disagree with the plain version")
-        require(n_k == n_p, f"example {k}: rays_traced {n_k} != {n_p}")
-        require(bool(torch.isfinite(L_k).all()), f"example {k}: non-finite L")
+              f"{W * H * spp} rays, max_bounces {settings.max_bounces}, split_k "
+              f"{settings.split_k}, fetch rounds {rt.replay_rounds(static)} | {line}",
+              flush=True)
 
     # ---- the record path's main path: example 2 through Scene.render ----
     sc = torch_textured.example2(REC_W, REC_H)
@@ -209,7 +250,7 @@ def record_phases(torch, dev):
     fan = 1 << settings.split_k
     chunk, n_chunks = plan_chunks(REC_SPP * fan, REC_W, REC_H, fan)
     require((chunk, n_chunks) == (32, 16), f"chunk plan {(chunk, n_chunks)}")
-    rt.record_paths.launches = 0
+    rt.record_trace_chunk.launches = 0
     walls, stats = [], None
     for _ in range(1 + TIMED_RENDERS):
         torch.cuda.synchronize()
@@ -218,7 +259,7 @@ def record_phases(torch, dev):
                                return_stats=True, device=dev)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = rt.record_paths.launches
+    launches = rt.record_trace_chunk.launches
     require(launches == n_chunks * (1 + TIMED_RENDERS),
             f"{launches} record kernel launches for {1 + TIMED_RENDERS} renders")
     wall = statistics.median(walls[1:])
@@ -235,14 +276,11 @@ def record_phases(torch, dev):
     for i in range(REC_REF_CHUNKS):
         ref_seed = torch.tensor([777 + i, 31337, i * chunk], dtype=torch.int32,
                                 device=dev)
-        rec = rt.record_trace_chunk_reference(
-            ref_seed, static, tables, cam, REC_W, REC_H, chunk,
-            settings.max_bounces, settings.split_k)
-        L_ref = rt.replay(*rec[:2], static, tables, settings.max_bounces,
-                          chunk * REC_W * REC_H)
+        L_ref, _ = record_plain((ref_seed, static, tables, cam, REC_W, REC_H,
+                                 chunk, settings.max_bounces, settings.split_k))
         L_ref = torch.where(torch.isfinite(L_ref), L_ref, 0.0)
         blocks.append(L_ref.view(chunk // fan, -1).mean(dim=1).double())
-        del rec, L_ref
+        del L_ref
     blocks = torch.cat(blocks)
     ref_mean = blocks.mean().item()
     se = (blocks.std() / len(blocks) ** 0.5).item()
@@ -257,45 +295,21 @@ def record_phases(torch, dev):
     require(abs(img_mean - ref_mean) < 4 * se,
             f"image mean {img_mean} vs plain {ref_mean} (4 SE = {4 * se})")
 
-    # ---- record kernel + replay vs plain at the chunk shape (3.84 M rays) ----
-    n = chunk * REC_W * REC_H
-    B = settings.max_bounces
+    # ---- fused kernel vs plain at the chunk shape (3.84 M rays) ----
     seed = torch.tensor([99, 4242, 0], dtype=torch.int32, device=dev)
-    args = (seed, static, tables, cam, REC_W, REC_H, chunk, B, settings.split_k)
-    kernel = lambda: rt.record_paths(*args)
-    plain = lambda: rt.record_trace_chunk_reference(*args)
-    rec_k, rec_p = kernel(), plain()                 # also the warm-up
-    words, floats, n_k, n_p = compare_records(rec_k, rec_p)
-    L_k = rt.replay(*rec_k[:2], static, tables, B, n)
-    L_p = rt.replay(*rec_p[:2], static, tables, B, n)
-    rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
-    print(f"record kernel + replay vs plain at the chunk shape: {n} rays | words "
-          f"equal {words:.6f}, floats match {floats:.6f} | L match {rate:.6f}, "
-          f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | rays_traced "
-          f"{n_k} vs {n_p}", flush=True)
-    require(words >= MATCH_RATE and floats >= MATCH_RATE and rate >= MATCH_RATE,
-            f"chunk-shape match: words {words}, floats {floats}, L {rate}")
-    require(n_k == n_p, f"chunk-shape rays_traced {n_k} != {n_p}")
-    require(bool(torch.isfinite(L_k).all()), "non-finite kernel output")
-    del rec_p, L_k, L_p
-    replay = lambda: rt.replay(*rec_k[:2], static, tables, B, n)
-    torch.cuda.reset_peak_memory_stats(dev)
-    plain_ms = [cuda_ms(plain, 1)]
-    kernel_ms = [cuda_ms(kernel, REC_KERNEL_REPS), cuda_ms(kernel, REC_KERNEL_REPS)]
-    replay_ms = [cuda_ms(replay, REC_KERNEL_REPS), cuda_ms(replay, REC_KERNEL_REPS)]
-    plain_ms.append(cuda_ms(plain, 1))
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    ms, r_ms, p_ms = (statistics.mean(x) for x in (kernel_ms, replay_ms, plain_ms))
-    print(f"record chunk timing: {chunk} spp x {REC_W}x{REC_H} = {n} rays, "
-          f"{B} bounces | kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) "
-          f"| replay {r_ms:.3f} ms ({', '.join(f'{x:.3f}' for x in replay_ms)}) | "
-          f"plain record {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) | "
-          f"peak {peak_gib:.2f} GiB", flush=True)
+    args = (seed, static, tables, cam, REC_W, REC_H, chunk,
+            settings.max_bounces, settings.split_k)
+    err, line = record_check(torch, "example 2 chunk", args)
+    errs.append(err)
+    print(f"record kernel vs plain at the chunk shape: {chunk * REC_W * REC_H} "
+          f"rays | {line}", flush=True)
+    torch.cuda.empty_cache()
+    ms, p_ms = record_timing(torch, dev, "example2", static, args)
     return ({"name": "record_trace", "route": "cuda",
              "source": "raytracer_tpu_torch/csrc/record_trace.cu",
              "replaces": "raytracer_tpu/ops/pallas_record.py:182",
-             "launches": launches, "max_abs_err": max_err,
-             "ms": ms, "plain_ms": p_ms}, ms, r_ms)
+             "launches": launches, "max_abs_err": max(errs),
+             "ms": ms, "plain_ms": p_ms}, ms)
 
 
 def new_scene(name, width, height):
@@ -330,22 +344,18 @@ def chunk_args(torch, dev, sc, spp, seed):
 def plain_L(torch, static, args):
     """The plain version's radiance of one chunk (records then replay on
     the record path), non-finite samples scrubbed as Scene.render does."""
-    from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
 
     if static.pallas_ok:
         L, _ = st.solid_trace_chunk_reference(*args)
     else:
-        seed, static, tables, cam, W, H, spp, B = args[:8]
-        g, f, _ = rt.record_trace_chunk_reference(*args)
-        L = rt.replay(g, f, static, tables, B, spp * W * H)
+        L, _ = record_plain(args)
     return torch.where(torch.isfinite(L), L, 0.0)
 
 
 def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
     """One chunk of scene `name` through its kernel and its plain version
-    on the same inputs; returns the max abs error of L."""
-    from raytracer_tpu_torch.ops import record_trace as rt
+    on the same inputs, bit for bit; returns the max abs error of L."""
     from raytracer_tpu_torch.ops import solid_trace as st
 
     sc = new_scene(name, width, height)
@@ -353,27 +363,17 @@ def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
     n = spp * width * height
     head = (f"{name} {width}x{height} x {spp} spp ({settings.projection}, "
             f"split_k {settings.split_k}, max_bounces {settings.max_bounces})")
-    if static.pallas_ok:
-        L_k, n_k = st.solid_trace_chunk(*args)
-        L_p, n_p = st.solid_trace_chunk_reference(*args)
-        rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
-        print(f"solid kernel vs plain, {head}: {n} rays | match {rate:.6f}, "
-              f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
-              f"rays_traced {n_k} vs {n_p}", flush=True)
-        require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
-    else:
-        rec_k, rec_p = rt.record_paths(*args), rt.record_trace_chunk_reference(*args)
-        words, floats, n_k, n_p = compare_records(rec_k, rec_p)
-        B = settings.max_bounces
-        L_k = rt.replay(*rec_k[:2], static, args[2], B, n)
-        L_p = rt.replay(*rec_p[:2], static, args[2], B, n)
-        rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
-        print(f"record kernel vs plain, {head}: {n} rays | words equal "
-              f"{words:.6f}, floats match {floats:.6f} | L match {rate:.6f}, "
-              f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
-              f"rays_traced {n_k} vs {n_p}", flush=True)
-        require(words >= MATCH_RATE and floats >= MATCH_RATE and rate >= MATCH_RATE,
-                f"{name}: records or L disagree with the plain version")
+    if not static.pallas_ok:
+        max_err, line = record_check(torch, name, args)
+        print(f"record kernel vs plain, {head}: {n} rays | {line}", flush=True)
+        return max_err
+    L_k, n_k = st.solid_trace_chunk(*args)
+    L_p, n_p = st.solid_trace_chunk_reference(*args)
+    rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+    print(f"solid kernel vs plain, {head}: {n} rays | match {rate:.6f}, "
+          f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
+          f"rays_traced {n_k} vs {n_p}", flush=True)
+    require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
     require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
     return max_err
@@ -409,7 +409,7 @@ def render_path(torch, dev, name, width, height, spp):
 
     sc = new_scene(name, width, height)
     static, _, settings = sc._settings_for_render()
-    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_paths
+    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_trace_chunk
     kernel = "solid" if static.pallas_ok else "record"
     fan = 1 << settings.split_k
     chunk, n_chunks = plan_chunks(spp * sc._diffuse_fan() * fan, width, height, fan)
@@ -464,10 +464,9 @@ def render_path(torch, dev, name, width, height, spp):
 
 def chunk_timing(torch, dev, name, width, height, spp):
     """Kernel against plain version at scene `name`'s chunk shape: the
-    match, then CUDA-event times (and the replay's on the record path).
-    Returns (max abs error, kernel ms, plain ms, replay ms or None)."""
+    match, bit for bit, then CUDA-event times.  Returns (max abs error,
+    kernel ms, plain ms)."""
     from raytracer_tpu_torch.core.scene import plan_chunks
-    from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
 
     sc = new_scene(name, width, height)
@@ -477,60 +476,43 @@ def chunk_timing(torch, dev, name, width, height, spp):
     static, settings, args = chunk_args(torch, dev, sc, chunk, [99, 4242, 0])
     n = chunk * width * height
     B = settings.max_bounces
-    if static.pallas_ok:
-        kernel = lambda: st.solid_trace_chunk(*args)
-        plain = lambda: st.solid_trace_chunk_reference(*args)
-        (L_k, n_k), (L_p, n_p) = kernel(), plain()
-        rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
-        require(bit_eq == 1.0, f"{name} chunk: bit-equal share {bit_eq} < 1")
-        extra = ""
-    else:
-        kernel = lambda: rt.record_paths(*args)
-        plain = lambda: rt.record_trace_chunk_reference(*args)
-        rec_k, rec_p = kernel(), plain()
-        words, floats, n_k, n_p = compare_records(rec_k, rec_p)
-        L_k = rt.replay(*rec_k[:2], static, args[2], B, n)
-        L_p = rt.replay(*rec_p[:2], static, args[2], B, n)
-        rate, max_err, bit_eq, _, _ = compare(L_k, L_p, n_k, n_p)
-        require(words >= MATCH_RATE and floats >= MATCH_RATE,
-                f"{name} chunk: words {words}, floats {floats}")
-        extra = f"words equal {words:.6f}, floats match {floats:.6f}, "
-        del rec_p
-    print(f"{name} kernel vs plain at the chunk shape: {n} rays | {extra}match "
+    if not static.pallas_ok:
+        max_err, line = record_check(torch, f"{name} chunk", args)
+        print(f"{name} kernel vs plain at the chunk shape: {n} rays | {line}",
+              flush=True)
+        torch.cuda.empty_cache()
+        ms, p_ms = record_timing(torch, dev, name, static, args)
+        return max_err, ms, p_ms
+    kernel = lambda: st.solid_trace_chunk(*args)
+    plain = lambda: st.solid_trace_chunk_reference(*args)
+    (L_k, n_k), (L_p, n_p) = kernel(), plain()
+    rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+    print(f"{name} kernel vs plain at the chunk shape: {n} rays | match "
           f"{rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
           f"rays_traced {n_k} vs {n_p}", flush=True)
-    require(rate >= MATCH_RATE, f"{name} chunk-shape match rate {rate}")
+    require(bit_eq == 1.0, f"{name} chunk: bit-equal share {bit_eq} < 1")
     require(n_k == n_p, f"{name} chunk-shape rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
     del L_k, L_p
     torch.cuda.reset_peak_memory_stats(dev)
     plain_ms = [cuda_ms(plain, 1)]
     kernel_ms = [cuda_ms(kernel, REC_KERNEL_REPS), cuda_ms(kernel, REC_KERNEL_REPS)]
-    replay, r_ms = "", None
-    if not static.pallas_ok:
-        rec = kernel()
-        run = lambda: rt.replay(*rec[:2], static, args[2], B, n)
-        r_ms = [cuda_ms(run, REC_KERNEL_REPS), cuda_ms(run, REC_KERNEL_REPS)]
-        replay = (f"replay {statistics.mean(r_ms):.3f} ms "
-                  f"({', '.join(f'{x:.3f}' for x in r_ms)}) | ")
-        del rec
     plain_ms.append(cuda_ms(plain, 1))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
     print(f"{name} chunk timing: {chunk} spp x {width}x{height} = {n} rays, {B} "
           f"bounces | kernel {ms:.3f} ms ({', '.join(f'{x:.3f}' for x in kernel_ms)}) "
-          f"| {replay}plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) "
+          f"| plain {p_ms:.1f} ms ({', '.join(f'{x:.1f}' for x in plain_ms)}) "
           f"| peak {peak_gib:.2f} GiB", flush=True)
-    if static.pallas_ok:
-        lane_efficiency(torch, name, args)
-    return max_err, ms, p_ms, (statistics.mean(r_ms) if r_ms else None)
+    lane_efficiency(torch, name, args)
+    return max_err, ms, p_ms
 
 
 def other_paths(torch, dev, solid):
     """The new paths of one kernel (solid=True: K1, else K2): kernel vs
     plain on each scene, the full-width renders, the chunk timing.
-    Returns (launches in the renders, max abs error, {scene: (kernel ms,
-    replay ms or None)} of the chunk timing)."""
+    Returns (launches in the renders, max abs error, {scene: kernel ms}
+    of the chunk timing)."""
     checks = NEW_SOLID_CHECKS if solid else NEW_RECORD_CHECKS
     W, H, spp = (CHECK_W, CHECK_H, CHECK_SPP) if solid else REC_CHECK
     errs = [kernel_vs_plain(torch, dev, name, W, H, spp, [20261016 + i, 4242, 0])
@@ -540,10 +522,10 @@ def other_paths(torch, dev, solid):
         launches += render_path(torch, dev, name, width, height, spp)
         torch.cuda.empty_cache()
     name, width, height, spp = (NEW_SOLID_RENDERS if solid else NEW_RECORD_RENDERS)[0]
-    err, ms, _, r_ms = chunk_timing(torch, dev, name, width, height, spp)
+    err, ms, _ = chunk_timing(torch, dev, name, width, height, spp)
     errs.append(err)
     torch.cuda.empty_cache()
-    return launches, max(errs), {name: (ms, r_ms)}
+    return launches, max(errs), {name: ms}
 
 
 def replay_scale(sc, spp):
@@ -594,8 +576,7 @@ def probe_phases(torch, times):
     rows += show(tests, r)
     print(f"probe isect_cost SASS: {json.dumps(tests['sass'])}", flush=True)
     p2, r = roofline.run(costs, rate, scenes, p6["ldg"]["ns_per_fetch"],
-                         kernel_ms={k: v[0] for k, v in times.items()},
-                         replay_ms={k: v[1] for k, v in times.items()},
+                         kernel_ms=times,
                          test_slots=tests["measured_slots_per_test"])
     rows += show(p2, r)
     return rows, p2
@@ -613,6 +594,7 @@ def main():
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import solid_trace as st
+    from raytracer_tpu_torch.probes import roofline
     from torch_cornellbox import build_cornell
 
     dev = torch.device("cuda:0")
@@ -724,7 +706,7 @@ def main():
     torch.cuda.empty_cache()
     # ---- the solid kernel's other paths: glossy, split, dispersion,
     # triangles / discs / cylinders, the other projections ----
-    times = {"cornell": (ms, None)}
+    times = {"cornell": ms}
     new_launches, new_err, t = other_paths(torch, dev, solid=True)
     times.update(t)
     solid_row = {
@@ -733,8 +715,7 @@ def main():
         "replaces": "raytracer_tpu/ops/pallas_trace.py:508",
         "launches": launches + new_launches, "max_abs_err": max(max_err, new_err),
         "ms": ms, "plain_ms": p_ms}
-    record_row, rec_ms, rep_ms = record_phases(torch, dev)
-    times["example2"] = (rec_ms, rep_ms)
+    record_row, times["example2"] = record_phases(torch, dev)
     torch.cuda.empty_cache()
     # ---- the record kernel's other paths: discs, cylinders, dispersion,
     # the other projections ----
@@ -750,9 +731,11 @@ def main():
         res = p2[scene]
         row.update(bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                    library_ms=None)
-        print(f"{row['name']} bound at the {scene} chunk: {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}), kernel {res['kernel_ms']:.3f} ms, share "
-              f"{res['share']:.4f}", flush=True)
+    for scene, _, _, _ in roofline.SCENES:
+        res = p2[scene]
+        print(f"{'record' if res['kernel'] == 'k2' else 'solid'}_trace bound at the "
+              f"{scene} chunk: {res['bound_ms']:.4f} ms ({res['bound_by']}), kernel "
+              f"{res['kernel_ms']:.3f} ms, share {res['share']:.4f}", flush=True)
 
     print(json.dumps({"kernels": [solid_row, record_row] + probe_rows}, default=float))
     print(smi)

@@ -8,7 +8,8 @@ blur > 0, which Pillow computes).
 
 Every scene function takes the package to build with (default: the
 port), so the tests build the same scene with the JAX package.  All four
-scenes render through the record kernel and the replay.
+scenes render through the record kernel (records and replay in the plain
+version on the CPU).
 """
 import importlib
 import sys

@@ -7,9 +7,10 @@ splitting, spectral dispersion, the pinhole, fisheye, equirect and
 orthographic cameras) render through the solid kernel
 (ops/solid_trace.py, csrc/solid_trace.cu); textured scenes (image
 textures, SkyBox / Panorama environments, thin films) through the record
-kernel and the replay (ops/record_trace.py, csrc/record_trace.cu,
-ops/replay.py).  Both kernels are written by hand in
-CUDA; on the CPU their plain PyTorch versions run.  The public names
+kernel, which traces, fetches the textures and integrates in one pass
+(ops/record_trace.py, csrc/record_trace.cu).  Both kernels are written by
+hand in CUDA; on the CPU their plain PyTorch versions run (on the record
+path: records, then the replay of ops/replay.py).  The public names
 follow raytracer_tpu's star-import surface as far as the slices reach.
 This package imports neither jax nor raytracer_tpu.
 """

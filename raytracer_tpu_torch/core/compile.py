@@ -154,7 +154,9 @@ class SolidTables:
     (c3, c2, c1, c0), thickness, noise factor; lights (L, 11); is_tab
     (K, 4): importance-sampled target centre + radius; consts (16,):
     ambient, scene n_re, n_im; atlas (total,) i32: every texture packed
-    one word per texel; tex_scale (T,) f32: each texture's decode scale.
+    one word per texel; tex_scale (T,) f32: each texture's decode scale;
+    fetch_i (G + 1, FT_ICOLS) i32 and fetch_f (G + 1, FT_FCOLS) f32: the
+    texel fetch of each shading group, by gid (`fetch_table`).
     Empty tables hold one zero row, as in the JAX package.
     n_is_targets is K (is_tab keeps one zero row when K is 0), n_lights
     the (directional, point, spot) counts of the light rows, and obj_rows
@@ -173,12 +175,14 @@ class SolidTables:
     consts: torch.Tensor
     atlas: torch.Tensor
     tex_scale: torch.Tensor
+    fetch_i: torch.Tensor
+    fetch_f: torch.Tensor
     n_is_targets: int
     obj_rows: Tuple[Tuple[int, ...], ...]
     n_lights: Tuple[int, int, int] = (0, 0, 0)
 
     TENSORS = ("geom", "obj", "dif", "glo", "refr", "emi", "tf", "lights",
-               "is_tab", "consts", "atlas", "tex_scale")
+               "is_tab", "consts", "atlas", "tex_scale", "fetch_i", "fetch_f")
 
     def to(self, device):
         return dataclasses.replace(
@@ -252,6 +256,101 @@ def shading_groups(records):
     return groups, order
 
 
+# columns of the per-group fetch table (`fetch_table`), one row per gid;
+# the record kernel (csrc/record_trace.cu) reads the same layout
+FT_USE_NONE, FT_USE_ADD, FT_USE_BETA, FT_USE_FILM = range(4)
+FT_MODE_NONE, FT_MODE_UV, FT_MODE_COMP, FT_MODE_TWO = range(4)
+(FT_USE, FT_MODE, FT_OFF, FT_W, FT_H, FT_E5, FT_BIL, FT_SEC, FT_OFF2, FT_W2,
+ FT_H2, FT_E5_2, FT_LH, FT_NH, FT_NW) = range(15)
+FT_ICOLS = 16
+(FT_FREP, FT_GREP, FT_SCALE, FT_FREP2, FT_GREP2, FT_SCALE2, FT_TF_THICK,
+ FT_TF_NOISE) = range(8)
+FT_FCOLS = 8
+
+
+def fetch_table(static, tex_scale, tf):
+    """The texel fetch of every shading group, as tables indexed by gid:
+    the decisions of the replay's group loop (ops/replay.py `replay`,
+    pallas_record.py:849-1060 `Round`) made once per scene.  Returns
+    (fetch_i (G + 1, FT_ICOLS) int32, fetch_f (G + 1, FT_FCOLS) float32);
+    row 0 (no hit) and rows of groups without a texture are zero.
+
+    Per group: FT_USE says how the texel enters the path (FT_USE_ADD: the
+    `tex` factor of add_t; FT_USE_BETA: beta's; FT_USE_FILM: F on add_t,
+    and F or 1 - F on beta by the branch flag).  FT_MODE says how it is
+    fetched:
+    - FT_MODE_UV: round 1 at the uv wrap of the texture (FT_OFF, FT_W,
+      FT_H, FT_FREP = W * repeat and FT_GREP = H * repeat as float32,
+      FT_SCALE, FT_E5 RGB9E5, FT_BIL bilinear); with FT_SEC (an
+      environment with a lightmap) bounces after the first read the
+      combined table instead (the *2 fields);
+    - FT_MODE_COMP: the composed thin-film table (FT_OFF, FT_SCALE,
+      FT_E5), indexed by (cos row, noise texel): FT_LH rows of FT_NH x
+      FT_NW texels, FT_FREP = nW * 0.5, FT_GREP = nH * 0.5;
+    - FT_MODE_TWO: a thin film past TF_COMP_LIMIT: round 1 the noise
+      texture at repeat 0.5, round 2 the LUT (the *2 fields) at (cos row,
+      thickness column), the column FT_TF_THICK + FT_TF_NOISE * (noise -
+      0.5)."""
+    groups, order = shading_groups(static.obj_records)
+    fi = np.zeros((len(order) + 1, FT_ICOLS), I32)
+    ff = np.zeros((len(order) + 1, FT_FCOLS), F32)
+    tex_scale = np.asarray(tex_scale, F32)
+    tf = np.asarray(tf, F32)
+    dif_tex = {r.slot: r for r in static.diffuse_tex}
+    glo_tex = {r.slot: r for r in static.glossy_tex}
+    emi_tex = {r.slot: r for r in static.emissive_tex}
+    env_by_slot = {e.slot: e for e in static.env_slots}
+    tf_lut = {r.slot: r for r in static.thinfilm_lut}
+    tf_noise = {r.slot: r for r in static.thinfilm_noise}
+    tf_comp = {r.slot: r for r in static.thinfilm_comp}
+
+    def put(g, tex, repeat=1.0, bilinear=False, second=False):
+        Hh, Ww = static.tex_shapes[tex]
+        ic = (FT_OFF2, FT_W2, FT_H2, FT_E5_2) if second else (
+            FT_OFF, FT_W, FT_H, FT_E5)
+        fc = (FT_FREP2, FT_GREP2, FT_SCALE2) if second else (
+            FT_FREP, FT_GREP, FT_SCALE)
+        fi[g, list(ic)] = (static.tex_offsets[tex], Ww, Hh, static.tex_enc[tex])
+        # W * repeat and H * repeat rounded to float32, as the replay's
+        # python floats are
+        ff[g, list(fc)] = (float(Ww * repeat), float(Hh * repeat),
+                           tex_scale[tex])
+        if not second:
+            fi[g, FT_BIL] = int(bool(bilinear))
+
+    for key in order:
+        mt, slot, _maxd, _mc = key
+        g = groups[key]["gid"]
+        ref = {MAT_DIFFUSE: dif_tex, MAT_GLOSSY: glo_tex,
+               MAT_EMISSIVE: emi_tex}.get(mt, {}).get(slot)
+        if mt == MAT_ENV:
+            env = env_by_slot[slot]
+            fi[g, [FT_USE, FT_MODE]] = FT_USE_ADD, FT_MODE_UV
+            put(g, env.tex)
+            if env.combined is not None:
+                fi[g, FT_SEC] = 1
+                put(g, env.combined, second=True)
+        elif mt == MAT_THINFILM and slot in tf_comp:
+            comp = tf_comp[slot]
+            LH = int(comp.repeat)
+            cH, cW = static.tex_shapes[comp.tex]
+            nH, nW = cH // LH, cW
+            fi[g, [FT_USE, FT_MODE]] = FT_USE_FILM, FT_MODE_COMP
+            put(g, comp.tex)
+            fi[g, [FT_LH, FT_NH, FT_NW]] = LH, nH, nW
+            ff[g, [FT_FREP, FT_GREP]] = nW * 0.5, nH * 0.5
+        elif mt == MAT_THINFILM:
+            fi[g, [FT_USE, FT_MODE]] = FT_USE_FILM, FT_MODE_TWO
+            put(g, tf_noise[slot].tex, 0.5)
+            put(g, tf_lut[slot].tex, second=True)
+            ff[g, [FT_TF_THICK, FT_TF_NOISE]] = tf[slot, 4], tf[slot, 5]
+        elif ref is not None:
+            fi[g, [FT_USE, FT_MODE]] = (
+                FT_USE_BETA if mt == MAT_DIFFUSE else FT_USE_ADD, FT_MODE_UV)
+            put(g, ref.tex, ref.repeat, ref.bilinear)
+    return fi, ff
+
+
 def dispersive_groups(records, refr_disp):
     """The dispersive refractive groups of each kernel, numbered in order
     of first appearance: ({(max_depth, mc): n}, {(slot, max_depth, mc): n}).
@@ -319,13 +418,14 @@ def light_table(dir_l, dir_color, point_pos, point_color, spot_pos,
 def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
                        is_radius, ambient, scene_n_re, scene_n_im,
                        tf_rows=(), atlas=None, tex_scale=None,
-                       img_slots=frozenset(), n_lights=(0, 0, 0)):
+                       img_slots=frozenset(), n_lights=(0, 0, 0), *, static):
     """Kernel tables from host arrays; the JAX package's table layout
     (pallas_trace.py:1134-1150, pallas_record.py:1106-1122).  `mats` maps
     the JAX MaterialTables field names to arrays, `lights` is the (L, 11)
     light table holding n_lights = (directional, point, spot) rows,
     `tf_rows` one (c3, c2, c1, c0, thickness, noise) row per thin-film
-    slot, `atlas` / `tex_scale` the texture atlas."""
+    slot, `atlas` / `tex_scale` the texture atlas, `static` the scene's
+    SceneStatic, from which the fetch table is built (`fetch_table`)."""
     m = {k: np.asarray(v, F32) for k, v in mats.items()}
     col = lambda a: a[:, None]
     dif = np.concatenate([_pad_rows(m["diffuse_color"]),
@@ -351,13 +451,15 @@ def build_solid_tables(records, refr_disp, geom, mats, lights, is_center,
     atlas = np.zeros((1,), I32) if atlas is None else np.asarray(atlas, I32)
     tex_scale = (np.ones((1,), F32) if tex_scale is None
                  else np.asarray(tex_scale, F32))
+    fetch_i, fetch_f = fetch_table(static, tex_scale, tf)
     t = lambda a: torch.from_numpy(np.array(a))     # a writable copy
     return SolidTables(
         geom=t(np.asarray(geom, F32).reshape(-1, 24)), obj=t(obj),
         dif=t(dif), glo=t(glo), refr=t(refr), emi=t(emi), tf=t(tf),
         lights=t(np.asarray(lights, F32)), is_tab=t(is_tab), consts=t(consts),
-        atlas=t(atlas), tex_scale=t(tex_scale),
-        n_is_targets=K, obj_rows=tuple(tuple(int(v) for v in r) for r in obj),
+        atlas=t(atlas), tex_scale=t(tex_scale), fetch_i=t(fetch_i),
+        fetch_f=t(fetch_f), n_is_targets=K,
+        obj_rows=tuple(tuple(int(v) for v in r) for r in obj),
         n_lights=tuple(int(c) for c in n_lights))
 
 
@@ -724,5 +826,5 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
         records, refr_disp, geom, mats, lights, is_center, is_radius,
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
         tf_rows, atlas, tex_scale, static.image_slots(),
-        (len(dlts), len(plts), len(slts)))
+        (len(dlts), len(plts), len(slts)), static=static)
     return static, tables

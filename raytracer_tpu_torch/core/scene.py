@@ -5,7 +5,8 @@ same (add_Camera / add_PointLight / add_DirectionalLight / add_SpotLight /
 add / add_Background); `render` compiles the scene into kernel tables
 (core/compile.py), routes it as the JAX package's `_use_pallas` does
 (solid scenes to the solid kernel, ops/solid_trace.py; textured scenes to
-the record kernel and the replay, ops/record_trace.py), plans chunks,
+the record kernel, which traces, fetches the textures and integrates in
+one pass, ops/record_trace.py), plans chunks,
 traces each one, scrubs non-finite samples, clamps, accumulates per pixel
 and tonemaps.
 

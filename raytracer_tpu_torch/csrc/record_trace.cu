@@ -1,33 +1,47 @@
-// Path-recording kernel for Hopper (sm_90a).
+// Record-path kernel for Hopper (sm_90a): trace, fetch the textures,
+// integrate.
 //
 // Replaces raytracer_tpu/ops/pallas_record.py:_make_record_kernel, the TPU
-// kernel behind _record_call / pallas_record_chunk.  One thread traces one
-// ray, index idx = sample * n_pix + pixel, through camera ray generation
-// and every bounce, exactly as the Pallas kernel does, and instead of
-// accumulating radiance writes one record per (bounce, ray):
-//   rec_g[b, idx]     = gid | branch_flag << 16     (int32, gid 0 = no hit)
-//   rec_f[b, j, idx]  = [u, v, cos_i, add_base(3), add_texcoef(3),
-//                        beta_base(3)][j]           (float32)
-// The replay (ops/replay.py) fetches the textures at the recorded uvs and
-// integrates L = sum_b beta_b * add_b.  The plain version beside it is
-// record_trace_chunk_reference in ops/record_trace.py.
+// kernel behind _record_call, together with the XLA replay that
+// pallas_record_chunk runs after it (_replay :787, _decode_words :742):
+// the function computed is the whole chunk.  One thread traces one ray,
+// index idx = sample * n_pix + pixel, through camera ray generation and
+// every bounce, exactly as the Pallas kernel does.  Where the TPU kernel
+// writes a (bounce, ray) record, this one looks up the hit's shading group
+// in the fetch table (core/compile.py fetch_table), gathers and decodes
+// the group's texels from the atlas at the hit's uv (nearest or bilinear,
+// the environment's lightmap table on later bounces, the composed or the
+// two-round thin-film tables), forms
+//   m_add = add_base + add_texcoef * tex,  m_beta = beta_base * beta_tex
+// and folds them into the path in registers: L = m_add, beta = m_beta at
+// bounce 0, then L = L + beta * m_add, beta = beta * m_beta.  It writes
+// the radiance L (n, 3) and the count of rays traced, nothing else.  The
+// TPU needs the records because a Pallas kernel cannot gather per lane
+// from HBM; a CUDA thread can, so the records and their replay are gone.
+// The plain version is ops/record_trace.py record_trace_chunk_reference
+// followed by ops/replay.py replay, whose arithmetic this kernel repeats
+// operation for operation (floored modulo for the uv wrap, the bilinear
+// taps and weights in the replay's order, scale * (1 / 1023) and
+// exp2(e - 24) in the decode), so that the two agree bit for bit.
 //
-// What bounds it on the card: FP32 work and warp divergence while tracing,
-// plus the record stores: 13 words per ray and bounce, written coalesced
-// (consecutive threads, consecutive addresses in every plane), ~200 MB per
-// 3.84 M-ray chunk at 4 bounces.  The scene is data, as in the solid
-// kernel: tables in shared memory once per block, run-time loops over
-// bounces, objects, lights and shadow casters, and shading branches on the
-// hit object's material.
+// What bounds it on the card: FP32 work, dependent latency and warp
+// divergence while tracing, as in the solid kernel; its traffic is the
+// radiance (12 B a ray) and 1-5 atlas words per (ray, bounce) hit, which
+// the 50 MB L2 holds for these scenes' atlases (__ldg).  The scene is
+// data, as in the solid kernel: tables in shared memory once per block
+// (the fetch table among them), run-time loops over bounces, objects,
+// lights and shadow casters, and shading branches on the hit object's
+// material.  K2_BLOCK and K2_MIN_BLOCKS set __launch_bounds__
+// (scripts/torch_k1_tune.py --kernel k2 builds and times other values).
 //
 // K2 keeps the older formula forms, and this kernel follows them, not the
 // solid kernel's: the diffuse lobe takes cosf / sinf of phi = u * 2 pi,
 // Fresnel goes through a complex division and then |.|^2, Beer-Lambert is
 // exp(((-2 nim) (2 pi / lambda)) 1e9 t), (1 - c)^5 is the multiply chain
 // of lax.integer_pow, and six draws are numbered on every bounce, the last
-// one included.  A lane that has died still has its record written: gid
-// 0, zeros, and the uv of its last nearest hit, which the Pallas kernel
-// recomputes from the frozen ray.
+// one included.  A lane whose path has ended runs its remaining bounces
+// as misses (add 0, beta times 1), as the replay integrates them: an
+// infinite beta then turns L into NaN, which Scene.render scrubs.
 //
 // Built by ops/cuda_build.py with nvcc into the shared library of the
 // port; the host entry record_trace_launch takes device pointers and
@@ -35,7 +49,31 @@
 
 #include "trace_common.cuh"
 
+// K2's launch shape: K2_BLOCK threads a block, and at least K2_MIN_BLOCKS
+// resident blocks an SM for __launch_bounds__, which caps the registers a
+// thread at 65536 / (K2_BLOCK * K2_MIN_BLOCKS).  Chosen by timing on the
+// H100 (PERF.md): 4 x 256 threads hold 32 warps an SM at 64 registers,
+// spilling ~350 B a thread to L1, where the unbounded build holds 16 at
+// 128; the kernel is bound by latency, so the warps pay
+#ifndef K2_BLOCK
+#define K2_BLOCK 256
+#endif
+#ifndef K2_MIN_BLOCKS
+#define K2_MIN_BLOCKS 4
+#endif
+
 namespace {
+
+// columns of the per-group fetch table (core/compile.py fetch_table)
+constexpr int FT_USE_NONE = 0, FT_USE_ADD = 1, FT_USE_BETA = 2, FT_USE_FILM = 3;
+constexpr int FT_MODE_UV = 1, FT_MODE_COMP = 2, FT_MODE_TWO = 3;
+constexpr int FT_USE = 0, FT_MODE = 1, FT_OFF = 2, FT_W = 3, FT_H = 4,
+              FT_E5 = 5, FT_BIL = 6, FT_SEC = 7, FT_OFF2 = 8, FT_W2 = 9,
+              FT_H2 = 10, FT_E5_2 = 11, FT_LH = 12, FT_NH = 13, FT_NW = 14;
+constexpr int FT_ICOLS = 16;
+constexpr int FT_FREP = 0, FT_GREP = 1, FT_SCALE = 2, FT_FREP2 = 3,
+              FT_GREP2 = 4, FT_SCALE2 = 5, FT_TF_THICK = 6, FT_TF_NOISE = 7;
+constexpr int FT_FCOLS = 8;
 
 struct RecParams {
   const int* seed;       // (3,) chunk seed, R2 rotation seed, first sample
@@ -50,15 +88,127 @@ struct RecParams {
   const float* lights;   // (n_lrow, 11): directional, then point, then spot
   const float* is_tab;   // (n_is, 4)
   const float* consts;   // (16,)
-  int n_obj, n_dif, n_glo, n_refr, n_emi, n_tf, n_lrow, n_is;
+  const int* fetch_i;    // (n_grp, FT_ICOLS): the fetch of each shading group
+  const float* fetch_f;  // (n_grp, FT_FCOLS)
+  const int* atlas;      // (n_atlas,) packed texels
+  long long n_atlas;
+  int n_obj, n_dif, n_glo, n_refr, n_emi, n_tf, n_lrow, n_is, n_grp;
   int n_dir, n_point, n_spot;
   int width, height, n_pix, n;
   int max_bounces, iid, split_k, projection;
   int n_hu;                      // dispersive (slot, depth, mc) groups
-  int* rec_g;                    // (max_bounces, n)
-  float* rec_f;                  // (max_bounces, 12, n)
+  float* L;                      // (n, 3) radiance
   unsigned long long* count;     // rays traced
 };
+
+// a mod m, floored as torch.remainder (m > 0)
+__device__ __forceinline__ long long wrap(long long a, long long m) {
+  const long long r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// the word at idx, clipped into the atlas, decoded (replay.py
+// decode_words): 10-10-10 bits times scale / 1023, or RGB9E5; channel 0
+// alone when rgb has one slot
+template <int C>
+__device__ __forceinline__ void texel(const int* atlas, long long n_atlas,
+                                      long long idx, float scale, int e5,
+                                      float rgb[C]) {
+  idx = idx < 0 ? 0 : (idx > n_atlas - 1 ? n_atlas - 1 : idx);
+  const int w = __ldg(atlas + idx);
+  if (e5) {
+    const float es = exp2f((float)((w >> 27) & 31) - 24.0f);
+    rgb[0] = (float)((w >> 18) & 511) * es;
+    if constexpr (C == 3) {
+      rgb[1] = (float)((w >> 9) & 511) * es;
+      rgb[2] = (float)(w & 511) * es;
+    }
+  } else {
+    const float s1023 = scale * F(1.0 / 1023.0);
+    rgb[0] = (float)((w >> 20) & 1023) * s1023;
+    if constexpr (C == 3) {
+      rgb[1] = (float)((w >> 10) & 1023) * s1023;
+      rgb[2] = (float)(w & 1023) * s1023;
+    }
+  }
+}
+
+// texture-local index of uv, wrapped (replay.py _Round.uv_index)
+__device__ __forceinline__ long long uv_index(float u, float v, float frep,
+                                              float grep, long long W,
+                                              long long H) {
+  const long long iu = wrap((long long)(u * frep), W);
+  const long long iv = wrap((long long)(v * grep), H);
+  return wrap(-iv, H) * W + iu;
+}
+
+// the texels of one (ray, bounce) hit of group row (fi, ff) at uv and cos_i
+// (replay.py replay's rounds: _Round.fetch, the composed thin-film index,
+// the dependent thin-film LUT round)
+__device__ __forceinline__ void group_texels(const int* fi, const float* ff,
+                                             const int* atlas,
+                                             long long n_atlas, float u,
+                                             float v, float cos_i,
+                                             int bounce, float rgb[3]) {
+  const int mode = fi[FT_MODE];
+  if (mode == FT_MODE_UV) {
+    // an environment's lightmap table serves the bounces after the first
+    const bool sec = fi[FT_SEC] && bounce > 0;
+    const long long W = fi[sec ? FT_W2 : FT_W], H = fi[sec ? FT_H2 : FT_H];
+    const long long off = fi[sec ? FT_OFF2 : FT_OFF];
+    const int e5 = fi[sec ? FT_E5_2 : FT_E5];
+    const float frep = ff[sec ? FT_FREP2 : FT_FREP];
+    const float grep = ff[sec ? FT_GREP2 : FT_GREP];
+    const float scale = ff[sec ? FT_SCALE2 : FT_SCALE];
+    if (sec || !fi[FT_BIL]) {
+      texel<3>(atlas, n_atlas, uv_index(u, v, frep, grep, W, H) + off, scale,
+               e5, rgb);
+      return;
+    }
+    // bilinear: four taps (0,0), (1,0), (0,1), (1,1), summed from 0
+    const float x = u * frep - 0.5f, y = v * grep - 0.5f;
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float fx = x - x0, fy = y - y0;
+    const long long ix = (long long)x0, iy = (long long)y0;
+    const float wt[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
+                         (1.0f - fx) * fy, fx * fy};
+    rgb[0] = rgb[1] = rgb[2] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const long long col = wrap(ix + (t & 1), W);
+      const long long row = wrap(-(iy + (t >> 1)), H);
+      float tap[3];
+      texel<3>(atlas, n_atlas, row * W + col + off, scale, e5, tap);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgb[k] = rgb[k] + wt[t] * tap[k];
+    }
+  } else if (mode == FT_MODE_COMP) {
+    // the composed thin-film table: (cos row, noise texel), one round
+    const long long nH = fi[FT_NH], nW = fi[FT_NW], LH = fi[FT_LH];
+    const long long iu = wrap((long long)(u * ff[FT_FREP]), nW);
+    const long long iv = wrap((long long)(v * ff[FT_GREP]), nH);
+    long long row = (long long)(cos_i * (float)LH);
+    row = row < 0 ? 0 : (row > LH - 1 ? LH - 1 : row);
+    texel<3>(atlas, n_atlas, (row * nH + wrap(-iv, nH)) * nW + iu + fi[FT_OFF],
+             ff[FT_SCALE], fi[FT_E5], rgb);
+  } else {
+    // past TF_COMP_LIMIT: the noise texel, then the LUT at (cos row,
+    // thickness column)
+    float noise[1];
+    texel<1>(atlas, n_atlas,
+             uv_index(u, v, ff[FT_FREP], ff[FT_GREP], fi[FT_W], fi[FT_H])
+                 + fi[FT_OFF],
+             ff[FT_SCALE], fi[FT_E5], noise);
+    const float th = ff[FT_TF_THICK] + ff[FT_TF_NOISE] * (noise[0] - 0.5f);
+    const long long W2 = fi[FT_W2], H2 = fi[FT_H2];
+    long long row = (long long)(cos_i * (float)H2);
+    long long col = (long long)th;
+    row = row < 0 ? 0 : (row > H2 - 1 ? H2 - 1 : row);
+    col = col < 0 ? 0 : (col > W2 - 1 ? W2 - 1 : col);
+    texel<3>(atlas, n_atlas, row * W2 + col + fi[FT_OFF2], ff[FT_SCALE2],
+             fi[FT_E5_2], rgb);
+  }
+}
 
 // |a / b|^2 for complex a, b (pallas_trace.py _cdiv then _cabs2)
 __device__ __forceinline__ float cdiv_abs2(float ar, float ai, float br,
@@ -141,8 +291,9 @@ __device__ __forceinline__ void uv_of(int kind, const float* g, float px,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(K2_BLOCK, K2_MIN_BLOCKS)
+record_trace_kernel(RecParams p) {
+  EXTERN_SHARED float smem[];
   // ---- scene tables -> shared memory, once per block ----
   float* s_geom = smem;
   float* s_dif = s_geom + p.n_obj * GEOM_COLS;
@@ -154,25 +305,29 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
   float* s_is = s_light + p.n_lrow * 11;
   float* s_consts = s_is + p.n_is * 4;
   float* s_cam = s_consts + 16;
-  int* s_obj = reinterpret_cast<int*>(s_cam + 17);
+  float* s_ff = s_cam + 17;
+  int* s_obj = reinterpret_cast<int*>(s_ff + p.n_grp * FT_FCOLS);
   int* s_seed = s_obj + p.n_obj * OBJ_COLS;
+  int* s_fi = s_seed + 3;
   __shared__ unsigned int s_count;
-  for (int i = threadIdx.x; i < p.n_obj * GEOM_COLS; i += BLOCK) s_geom[i] = p.geom[i];
-  for (int i = threadIdx.x; i < p.n_dif * 4; i += BLOCK) s_dif[i] = p.dif[i];
-  for (int i = threadIdx.x; i < p.n_glo * 12; i += BLOCK) s_glo[i] = p.glo[i];
-  for (int i = threadIdx.x; i < p.n_refr * 6; i += BLOCK) s_refr[i] = p.refr[i];
-  for (int i = threadIdx.x; i < p.n_emi * 3; i += BLOCK) s_emi[i] = p.emi[i];
-  for (int i = threadIdx.x; i < p.n_tf * 6; i += BLOCK) s_tf[i] = p.tf[i];
-  for (int i = threadIdx.x; i < p.n_lrow * 11; i += BLOCK) s_light[i] = p.lights[i];
-  for (int i = threadIdx.x; i < p.n_is * 4; i += BLOCK) s_is[i] = p.is_tab[i];
-  for (int i = threadIdx.x; i < 16; i += BLOCK) s_consts[i] = p.consts[i];
-  for (int i = threadIdx.x; i < 17; i += BLOCK) s_cam[i] = p.cam[i];
-  for (int i = threadIdx.x; i < p.n_obj * OBJ_COLS; i += BLOCK) s_obj[i] = p.obj[i];
+  for (int i = threadIdx.x; i < p.n_obj * GEOM_COLS; i += K2_BLOCK) s_geom[i] = p.geom[i];
+  for (int i = threadIdx.x; i < p.n_dif * 4; i += K2_BLOCK) s_dif[i] = p.dif[i];
+  for (int i = threadIdx.x; i < p.n_glo * 12; i += K2_BLOCK) s_glo[i] = p.glo[i];
+  for (int i = threadIdx.x; i < p.n_refr * 6; i += K2_BLOCK) s_refr[i] = p.refr[i];
+  for (int i = threadIdx.x; i < p.n_emi * 3; i += K2_BLOCK) s_emi[i] = p.emi[i];
+  for (int i = threadIdx.x; i < p.n_tf * 6; i += K2_BLOCK) s_tf[i] = p.tf[i];
+  for (int i = threadIdx.x; i < p.n_lrow * 11; i += K2_BLOCK) s_light[i] = p.lights[i];
+  for (int i = threadIdx.x; i < p.n_is * 4; i += K2_BLOCK) s_is[i] = p.is_tab[i];
+  for (int i = threadIdx.x; i < 16; i += K2_BLOCK) s_consts[i] = p.consts[i];
+  for (int i = threadIdx.x; i < 17; i += K2_BLOCK) s_cam[i] = p.cam[i];
+  for (int i = threadIdx.x; i < p.n_grp * FT_FCOLS; i += K2_BLOCK) s_ff[i] = p.fetch_f[i];
+  for (int i = threadIdx.x; i < p.n_obj * OBJ_COLS; i += K2_BLOCK) s_obj[i] = p.obj[i];
+  for (int i = threadIdx.x; i < p.n_grp * FT_ICOLS; i += K2_BLOCK) s_fi[i] = p.fetch_i[i];
   if (threadIdx.x < 3) s_seed[threadIdx.x] = p.seed[threadIdx.x];
   if (threadIdx.x == 0) s_count = 0;
   __syncthreads();
 
-  const int idx = blockIdx.x * BLOCK + threadIdx.x;
+  const int idx = blockIdx.x * K2_BLOCK + threadIdx.x;
   unsigned int my_count = 0;
   if (idx < p.n) {
     const uint32_t seed0 = (uint32_t)s_seed[0];
@@ -189,18 +344,17 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
     for (int k = 0; k < 3; ++k) { nre[k] = scene_nre[k]; nim[k] = scene_nim[k]; }
     int dcnt = 0, scnt = 0;
     bool alive = true;
-    float dead_u = 0.0f, dead_v = 0.0f;   // uv of a dead lane's last hit
-    const size_t n = (size_t)p.n;
+    float L[3], beta[3];                  // the path integral so far
 
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      // this bounce's shading: group word gid | branch_flag << 16 (gid 0:
+      // no hit) and [u, v, cos_i, add_base(3), add_texcoef(3),
+      // beta_base(3)], what the TPU kernel records
       int word = 0;
       float rf[12];
 #pragma unroll
       for (int j = 0; j < 12; ++j) rf[j] = 0.0f;
-      if (!alive) {
-        rf[0] = dead_u;
-        rf[1] = dead_v;
-      } else {
+      if (alive) {
         ++my_count;
         float t, orient;
         int hit_id;
@@ -483,19 +637,54 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
             for (int k = 0; k < 3; ++k) { o[k] = no[k]; d[k] = nd[k]; }
           }
         }
-        if (!new_alive) {
-          alive = false;
-          dead_u = rf[0];
-          dead_v = rf[1];
+        if (!new_alive) alive = false;
+      }
+      // ---- the hit's texels, and this bounce's step of the integral
+      // (replay.py:214-255): the group's gid selects the fetch wherever
+      // the ray hit, its shading skipped or not ----
+      const int gid = word & 0xFFFF;
+      float m_add[3], m_beta[3];
+      if (gid > 0) {
+        float tex[3] = {1.0f, 1.0f, 1.0f}, btex[3] = {1.0f, 1.0f, 1.0f};
+        const int* fi = s_fi + gid * FT_ICOLS;
+        const int use = fi[FT_USE];
+        if (use != FT_USE_NONE) {
+          float rgb[3];
+          group_texels(fi, s_ff + gid * FT_FCOLS, p.atlas, p.n_atlas, rf[0],
+                       rf[1], rf[2], bounce, rgb);
+          const bool refl = ((word >> 16) & 1) == 1;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            if (use == FT_USE_BETA) {
+              btex[k] = rgb[k];
+            } else {
+              tex[k] = rgb[k];
+              if (use == FT_USE_FILM) btex[k] = refl ? rgb[k] : 1.0f - rgb[k];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          m_add[k] = rf[3 + k] + rf[6 + k] * tex[k];
+          m_beta[k] = rf[9 + k] * btex[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) { m_add[k] = 0.0f; m_beta[k] = 1.0f; }
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (bounce == 0) {
+          L[k] = m_add[k];
+          beta[k] = m_beta[k];
+        } else {
+          L[k] = L[k] + beta[k] * m_add[k];
+          beta[k] = beta[k] * m_beta[k];
         }
       }
-      // ---- this bounce's record, coalesced by ray index ----
-      const size_t b = (size_t)bounce;
-      p.rec_g[b * n + idx] = word;
-      float* out = p.rec_f + b * 12 * n + idx;
-#pragma unroll
-      for (int j = 0; j < 12; ++j) out[j * n] = rf[j];
     }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p.L[3 * (size_t)idx + k] = L[k];
   }
 
   // ---- rays traced: warp sums, one shared add per warp, one global add ----
@@ -509,39 +698,70 @@ __global__ void __launch_bounds__(BLOCK) record_trace_kernel(RecParams p) {
 }  // namespace
 
 static size_t record_trace_smem(int n_obj, int n_dif, int n_glo, int n_refr,
-                                int n_emi, int n_tf, int n_lrow, int n_is) {
+                                int n_emi, int n_tf, int n_lrow, int n_is,
+                                int n_grp) {
   return sizeof(float) * ((size_t)n_obj * (GEOM_COLS + OBJ_COLS)
                           + (size_t)n_dif * 4 + (size_t)n_glo * 12
                           + (size_t)n_refr * 6 + (size_t)n_emi * 3
                           + (size_t)n_tf * 6 + (size_t)n_lrow * 11
-                          + (size_t)n_is * 4 + 16 + 17 + 3);
+                          + (size_t)n_is * 4 + 16 + 17 + 3
+                          + (size_t)n_grp * (FT_ICOLS + FT_FCOLS));
 }
 
+// The kernel as built and as the card holds it: out[0..5] = registers a
+// thread, local memory bytes a thread (stack and spills), blocks per SM
+// at `smem` bytes of dynamic shared memory, the SM count, K2_BLOCK,
+// K2_MIN_BLOCKS.
+extern "C" int record_trace_info(int smem, int* out) {
+  cudaFuncAttributes attr;
+  int dev = 0;
+  cudaError_t err = cudaFuncGetAttributes(&attr, record_trace_kernel);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], record_trace_kernel,
+                                                        K2_BLOCK, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[4] = K2_BLOCK;
+  out[5] = K2_MIN_BLOCKS;
+  return 0;
+}
+
+// L: (spp * width * height, 3) radiance; count: rays traced, zeroed by the
+// caller on the launch's stream.
 extern "C" int record_trace_launch(
     const int* seed, const float* cam, const float* geom, const int* obj,
     int n_obj, const float* dif, int n_dif, const float* glo, int n_glo,
     const float* refr, int n_refr, const float* emi, int n_emi,
     const float* tf, int n_tf, const float* lights, int n_lrow, int n_dir,
     int n_point, int n_spot, const float* is_tab, int n_is,
-    const float* consts, int width, int height, int spp, int max_bounces,
-    int iid, int split_k, int projection, int n_hu, int* rec_g, float* rec_f,
+    const float* consts, const int* fetch_i, const float* fetch_f, int n_grp,
+    const int* atlas, long long n_atlas, int width, int height, int spp,
+    int max_bounces, int iid, int split_k, int projection, int n_hu, float* L,
     long long* count, void* stream) {
   RecParams p;
   p.seed = seed; p.cam = cam; p.geom = geom; p.obj = obj;
   p.dif = dif; p.glo = glo; p.refr = refr; p.emi = emi; p.tf = tf;
   p.lights = lights; p.is_tab = is_tab; p.consts = consts;
+  p.fetch_i = fetch_i; p.fetch_f = fetch_f; p.atlas = atlas;
+  p.n_atlas = n_atlas;
   p.n_obj = n_obj; p.n_dif = n_dif; p.n_glo = n_glo; p.n_refr = n_refr;
   p.n_emi = n_emi; p.n_tf = n_tf; p.n_lrow = n_lrow; p.n_is = n_is;
+  p.n_grp = n_grp;
   p.n_dir = n_dir; p.n_point = n_point; p.n_spot = n_spot;
   p.width = width; p.height = height; p.n_pix = width * height;
   p.n = spp * p.n_pix;
   p.max_bounces = max_bounces; p.iid = iid; p.split_k = split_k;
   p.projection = projection; p.n_hu = n_hu;
-  p.rec_g = rec_g; p.rec_f = rec_f;
+  p.L = L;
   p.count = reinterpret_cast<unsigned long long*>(count);
   const size_t smem = record_trace_smem(n_obj, n_dif, n_glo, n_refr, n_emi,
-                                        n_tf, n_lrow, n_is);
-  const int grid = (p.n + BLOCK - 1) / BLOCK;
-  record_trace_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(p);
+                                        n_tf, n_lrow, n_is, n_grp);
+  const int grid = (p.n + K2_BLOCK - 1) / K2_BLOCK;
+  LAUNCH(record_trace_kernel, grid, K2_BLOCK, smem,
+         static_cast<cudaStream_t>(stream), p);
   return (int)cudaGetLastError();
 }

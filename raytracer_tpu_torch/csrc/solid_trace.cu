@@ -428,7 +428,7 @@ __device__ __forceinline__ bool shade_hit(Ray& r, const Tables& s,
 
 __global__ void __launch_bounds__(K1_BLOCK, K1_MIN_BLOCKS)
 solid_trace_kernel(Params p) {
-  extern __shared__ float smem[];
+  EXTERN_SHARED float smem[];
   // ---- scene tables -> shared memory, once per persistent block ----
   float* s_geom = smem;
   float* s_dif = s_geom + p.n_obj * GEOM_COLS;
@@ -602,7 +602,7 @@ extern "C" int solid_trace_launch(
   long long grid = (long long)sms * per_sm;
   if (grid > want) grid = want;
   if (grid < 1) grid = 1;
-  solid_trace_kernel<<<(unsigned)grid, K1_BLOCK, smem,
-                       static_cast<cudaStream_t>(stream)>>>(p);
+  LAUNCH(solid_trace_kernel, (unsigned)grid, K1_BLOCK, smem,
+         static_cast<cudaStream_t>(stream), p);
   return (int)cudaGetLastError();
 }

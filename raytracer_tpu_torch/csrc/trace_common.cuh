@@ -13,6 +13,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Dynamic shared memory and the kernel launch.  The CPU stand-in of the
+// CUDA runtime (csrc/emu/cuda_runtime.h, with which the tests compile
+// these sources by g++) defines CUDA_EMU and both macros its own way.
+#ifndef CUDA_EMU
+#define EXTERN_SHARED extern __shared__
+#define LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+
 namespace {
 
 constexpr int BLOCK = 128;

@@ -77,5 +77,5 @@ def tables_from_jax(static, data):
         np.asarray(data.tex_atlas, np.int32), a(data.tex_scale),
         port_static.image_slots(),
         (port_static.n_dir_lights, port_static.n_point_lights,
-         port_static.n_spot_lights))
+         port_static.n_spot_lights), static=port_static)
     return port_static, tables

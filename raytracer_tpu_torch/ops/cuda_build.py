@@ -129,9 +129,14 @@ def load_library(defines=()):
     """Load (building first, if needed) the render kernels' library, built
     with `defines` (see build_all), and declare its entry points."""
     name = ("kernels",) + tuple(defines)
-    if name in _libs:
-        return _libs[name]
-    lib = ctypes.CDLL(str(build("kernels", defines)))
+    if name not in _libs:
+        _libs[name] = declare(ctypes.CDLL(str(build("kernels", defines))))
+    return _libs[name]
+
+
+def declare(lib):
+    """Declare the render kernels' entry points on a loaded library (the
+    nvcc build, or the CPU stand-in's that the tests build); returns it."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.solid_trace_launch.argtypes = [
         vp, vp, vp, vp, ci,             # seed, cam, geom, obj, n_obj
@@ -151,12 +156,15 @@ def load_library(defines=()):
         vp, ci,                         # tf table + rows
         vp, ci, ci, ci, ci,             # lights, rows, n_dir, n_point, n_spot
         vp, ci, vp,                     # is_tab, K, consts
+        vp, vp, ci,                     # fetch table (int, float) + rows
+        vp, ctypes.c_longlong,          # atlas + entries
         ci, ci, ci, ci, ci, ci, ci,     # width, height, spp, max_bounces,
                                         # iid, split_k, projection
         ci,                             # dispersive groups
-        vp, vp, vp, vp]                 # rec_g, rec_f, count, stream
+        vp, vp, vp]                     # L, count, stream
     lib.record_trace_launch.restype = ci
-    _libs[name] = lib
+    lib.record_trace_info.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.record_trace_info.restype = ci
     return lib
 
 
@@ -166,6 +174,15 @@ def load_probe_library():
     if "probes" not in _libs:
         _libs["probes"] = ctypes.CDLL(str(build("probes")))
     return _libs["probes"]
+
+
+def stream_of(device):
+    """The stream argument of a launch on `device`: PyTorch's current
+    stream on a CUDA device; none for the CPU, where only the CPU stand-in
+    of a kernel (csrc/emu) can be launched."""
+    if device.type != "cuda":
+        return None
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def check_tensor(name, t, dtype, shape, device):

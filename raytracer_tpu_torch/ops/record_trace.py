@@ -1,24 +1,30 @@
-"""The record path: a CUDA kernel that records paths, its plain PyTorch
-version, and the entry that replays the records into radiance.
+"""The record path: a CUDA kernel that traces, fetches the textures and
+integrates one chunk of a textured scene, and its plain version.
 
-Counterpart of raytracer_tpu/ops/pallas_record.py (`pallas_record_chunk`,
-kernel body `_make_record_kernel`).  Textured scenes (image textures,
-environment maps, thin films) split into two passes, because sampling
-directions and path geometry never depend on texture values:
+Counterpart of raytracer_tpu/ops/pallas_record.py: `pallas_record_chunk`,
+the Pallas kernel `_make_record_kernel` followed by the XLA replay
+(`_replay`, `_decode_words`).  The TPU splits a chunk in two passes,
+because a Pallas kernel cannot gather per lane from HBM and sampling
+directions never depend on texture values:
 
-1. **record**: trace every path exactly as the Pallas kernel does and
-   write, per (bounce, ray), an int32 word `gid | branch_flag << 16` and
-   12 floats `[u, v, cos_i, add_base(3), add_texcoef(3), beta_base(3)]`;
-2. **replay** (ops/replay.py): fetch the textures at the recorded uvs and
-   integrate L = sum_b beta_b * add_b.
+1. **record**: trace every path and write, per (bounce, ray), an int32
+   word `gid | branch_flag << 16` and 12 floats `[u, v, cos_i,
+   add_base(3), add_texcoef(3), beta_base(3)]`;
+2. **replay**: fetch the textures at the recorded uvs and integrate
+   L = sum_b beta_b * add_b.
+
+The CUDA kernel (csrc/record_trace.cu) does both in one pass: each thread
+fetches its hit's texels from the atlas through the per-group fetch table
+(core/compile.py `fetch_table`) and folds the bounce into its radiance in
+registers, so no record reaches device memory.  The plain version keeps
+the two passes:
 
 - `record_trace_chunk_reference` is the plain version of the record pass:
   vectorised over rays and masked per shading group, as the Pallas kernel
-  is.  It runs on any device.
-- `record_paths` is the record pass's public entry.  For CPU tensors it
-  calls the plain version; for CUDA tensors it launches the kernel of
-  csrc/record_trace.cu, or raises.
-- `record_trace_chunk` records and replays one chunk; Scene.render calls it.
+  is.  It runs on any device; `replay` (ops/replay.py) is the second pass.
+- `record_trace_chunk` computes one chunk; Scene.render calls it.  For CPU
+  tensors it runs the plain version (records, then replay); for CUDA
+  tensors it launches the kernel, or raises.
 
 Both follow the JAX kernel draw for draw, in its flat (sample-major) lane
 order, for every object kind (spheres, planes, boxes, discs, cylinders,
@@ -32,12 +38,15 @@ import math
 
 import torch
 
-from ..core.compile import (KIND_CODES, OBJ_COLS, OBJ_KIND, OBJ_UV, SceneStatic,
-                            SolidTables, dispersive_groups, shading_groups)
+from ..core.compile import (FT_BIL, FT_FCOLS, FT_ICOLS, FT_MODE,
+                            FT_MODE_COMP, FT_MODE_TWO, FT_MODE_UV, FT_SEC,
+                            FT_USE, FT_USE_NONE, KIND_CODES, OBJ_COLS,
+                            OBJ_KIND, OBJ_UV, SceneStatic, SolidTables,
+                            dispersive_groups, shading_groups)
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY,
                               MAT_REFRACTIVE, MAT_THINFILM)
 from ..utils.constants import MISS_THRESHOLD, WAVELENGTHS_NM
-from .cuda_build import SMEM_LIMIT, check_tensor, load_library
+from .cuda_build import SMEM_LIMIT, check_tensor, load_library, stream_of
 from .replay import replay
 from .solid_trace import (PROJECTIONS, _cabs2, _cdiv, _cmul,
                           _csqrt, _cyl_local, _div, _normal, _normalize3,
@@ -531,6 +540,19 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
                 new_alive = new_alive | gc
 
         rec_g[bounce] = gid_out
+        if counts is not None:
+            # the fused kernel's texel fetches at this bounce's hits, by
+            # how the group fetches (core/compile.py fetch_table)
+            fi = tables.fetch_i[(gid_out & 0xFFFF).long()].long()
+            use = fi[:, FT_USE] != FT_USE_NONE
+            mode, bil = fi[:, FT_MODE], fi[:, FT_BIL] == 1
+            uv = use & (mode == FT_MODE_UV)
+            sec = (fi[:, FT_SEC] == 1) & (bounce > 0)
+            tally(counts, "texel_hits", use)
+            tally(counts, "fetch_bilinear", uv & bil & ~sec)
+            tally(counts, "fetch_uv", uv & ~(bil & ~sec))
+            tally(counts, "fetch_comp", use & (mode == FT_MODE_COMP))
+            tally(counts, "fetch_two", use & (mode == FT_MODE_TWO))
         for j, plane in enumerate([uu, vv, cos_out] + addb + addt + betab):
             rec_f[bounce, j] = plane
 
@@ -553,11 +575,38 @@ def record_trace_chunk_reference(seed_vec, static: SceneStatic,
 # the CUDA kernel: launch (ops/cuda_build.py builds and binds it)
 # ---------------------------------------------------------------------------
 
+def _smem_bytes(static, tables):
+    """Shared memory a block of the kernel takes for the scene tables,
+    the fetch table among them."""
+    n_l = static.n_dir_lights + static.n_point_lights + static.n_spot_lights
+    return 4 * (len(tables.obj_rows) * (24 + OBJ_COLS) + sum(
+        getattr(tables, k).numel() for k in ("dif", "glo", "refr", "emi", "tf"))
+        + 11 * n_l + 4 * tables.n_is_targets + 16 + 17 + 3
+        + tables.fetch_i.shape[0] * (FT_ICOLS + FT_FCOLS))
+
+
+def kernel_info(static, tables, lib=None):
+    """The kernel as built and as the current card holds it with these
+    tables: {registers, local_bytes (stack and spills a thread),
+    blocks_per_sm, sms, block, min_blocks}."""
+    info = (ctypes.c_int * 6)()
+    err = (lib or load_library()).record_trace_info(_smem_bytes(static, tables),
+                                                    info)
+    if err != 0:
+        raise RuntimeError(f"record_trace_info failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms", "block",
+                     "min_blocks"), info))
+
+
 def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
-            max_bounces, split_k, sampler, projection="pinhole"):
+            max_bounces, split_k, sampler, projection="pinhole", lib=None):
+    """Launch the kernel on the current stream; returns (L (n, 3), rays
+    traced).  lib: the library to launch from (cuda_build.load_library()
+    unless given; the tests pass the CPU stand-in's)."""
     dev = cam_vec.device
     f32, i32 = torch.float32, torch.int32
     n_obj = len(tables.obj_rows)
+    _, order = shading_groups(static.obj_records)
     check_tensor("seed_vec", seed_vec, i32, (3,), dev)
     check_tensor("cam_vec", cam_vec, f32, (17,), dev)
     check_tensor("geom", tables.geom, f32, (n_obj, 24), dev)
@@ -566,6 +615,11 @@ def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
     for name, c in cols.items():
         check_tensor(name, getattr(tables, name), f32, (None, c), dev)
     check_tensor("consts", tables.consts, f32, (16,), dev)
+    check_tensor("fetch_i", tables.fetch_i, i32, (len(order) + 1, FT_ICOLS), dev)
+    check_tensor("fetch_f", tables.fetch_f, f32, (len(order) + 1, FT_FCOLS), dev)
+    check_tensor("atlas", tables.atlas, i32, (None,), dev)
+    if tables.atlas.numel() < 1:
+        raise ValueError("atlas is empty")
     K = tables.n_is_targets
     n_l = static.n_dir_lights + static.n_point_lights + static.n_spot_lights
     if K > tables.is_tab.shape[0] or n_l > tables.lights.shape[0]:
@@ -577,22 +631,19 @@ def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
     for r in tables.obj_rows:            # env slots read no table
         if r[1] in rows_of and not 0 <= r[2] < rows_of[r[1]]:
             raise ValueError(f"object row {r} names a missing material slot")
-    smem = 4 * (n_obj * (24 + OBJ_COLS) + sum(
-        getattr(tables, k).numel() for k in ("dif", "glo", "refr", "emi", "tf"))
-        + 11 * n_l + 4 * K + 16 + 17 + 3)
+    smem = _smem_bytes(static, tables)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"scene tables need {smem} bytes of shared memory; the kernel "
             f"takes at most {SMEM_LIMIT}")
     n = spp * width * height
     if not (width >= 1 and height >= 1 and spp >= 1 and max_bounces >= 1
-            and n * 12 * max_bounces < 2 ** 62 and n < 2 ** 31):
+            and n < 2 ** 31):
         raise ValueError(f"bad chunk shape {spp}x{height}x{width}, "
                          f"max_bounces {max_bounces}")
-    rec_g = torch.empty((max_bounces, n), dtype=i32, device=dev)
-    rec_f = torch.empty((max_bounces, 12, n), dtype=f32, device=dev)
+    L = torch.empty((n, 3), dtype=f32, device=dev)
     count = torch.zeros((), dtype=torch.int64, device=dev)
-    lib = load_library()
+    lib = lib or load_library()
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     rows = lambda t: t.shape[0]
     err = lib.record_trace_launch(
@@ -601,48 +652,40 @@ def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
         p(tables.refr), rows(tables.refr), p(tables.emi), rows(tables.emi),
         p(tables.tf), rows(tables.tf), p(tables.lights), n_l,
         static.n_dir_lights, static.n_point_lights, static.n_spot_lights,
-        p(tables.is_tab), K, p(tables.consts), width, height, spp,
-        max_bounces, int(sampler == "iid"), split_k, PROJECTIONS[projection],
+        p(tables.is_tab), K, p(tables.consts), p(tables.fetch_i),
+        p(tables.fetch_f), rows(tables.fetch_i), p(tables.atlas),
+        tables.atlas.numel(), width, height, spp, max_bounces,
+        int(sampler == "iid"), split_k, PROJECTIONS[projection],
         len(dispersive_groups(static.obj_records, static.refr_disp)[1]),
-        p(rec_g), p(rec_f), p(count),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        p(L), p(count), stream_of(dev))
     if err != 0:
         raise RuntimeError(f"record_trace kernel launch failed: CUDA error {err}")
-    return rec_g, rec_f, count
-
-
-def record_paths(seed_vec, static: SceneStatic, tables: SolidTables, cam_vec,
-                 width, height, spp, max_bounces, split_k=0, sampler="r2",
-                 projection="pinhole"):
-    """Record one chunk: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Arguments and result as
-    `record_trace_chunk_reference`; `record_paths.launches` counts kernel
-    launches."""
-    if cam_vec.device.type == "cpu":
-        return record_trace_chunk_reference(seed_vec, static, tables, cam_vec,
-                                            width, height, spp, max_bounces,
-                                            split_k, sampler, projection)
-    if cam_vec.device.type != "cuda":
-        raise ValueError(f"no record kernel for device {cam_vec.device}")
-    check_slice(static, split_k, sampler, projection)
-    out = _launch(seed_vec, static, tables, cam_vec, width, height, spp,
-                  max_bounces, split_k, sampler, projection)
-    record_paths.launches += 1
-    return out
-
-
-record_paths.launches = 0
+    return L, count
 
 
 def record_trace_chunk(seed_vec, static: SceneStatic, tables: SolidTables,
                        cam_vec, width, height, spp, max_bounces, split_k=0,
                        sampler="r2", projection="pinhole"):
-    """Trace one chunk of a textured scene: record (`record_paths`), then
-    replay (ops/replay.py).  Returns (L (spp*H*W, 3) float32 in [sample,
-    pixel] order, rays traced int64 scalar tensor)."""
-    rec_g, rec_f, count = record_paths(seed_vec, static, tables, cam_vec,
-                                       width, height, spp, max_bounces,
-                                       split_k, sampler, projection)
-    L = replay(rec_g, rec_f, static, tables, max_bounces,
-               spp * width * height)
-    return L, count
+    """Trace one chunk of a textured scene: the CUDA kernel for CUDA
+    tensors, the plain version (`record_trace_chunk_reference`, then
+    `replay`) for CPU tensors.  Arguments as `record_trace_chunk_reference`.
+    Returns (L (spp*H*W, 3) float32 in [sample, pixel] order, rays traced
+    int64 scalar tensor); `record_trace_chunk.launches` counts kernel
+    launches."""
+    if cam_vec.device.type == "cpu":
+        rec_g, rec_f, count = record_trace_chunk_reference(
+            seed_vec, static, tables, cam_vec, width, height, spp,
+            max_bounces, split_k, sampler, projection)
+        L = replay(rec_g, rec_f, static, tables, max_bounces,
+                   spp * width * height)
+        return L, count
+    if cam_vec.device.type != "cuda":
+        raise ValueError(f"no record kernel for device {cam_vec.device}")
+    check_slice(static, split_k, sampler, projection)
+    out = _launch(seed_vec, static, tables, cam_vec, width, height, spp,
+                  max_bounces, split_k, sampler, projection)
+    record_trace_chunk.launches += 1
+    return out
+
+
+record_trace_chunk.launches = 0

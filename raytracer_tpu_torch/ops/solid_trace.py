@@ -42,7 +42,7 @@ from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_GLOSSY,
                               MAT_REFRACTIVE)
 from ..utils.constants import (FARAWAY, MISS_THRESHOLD, SKYBOX_DISTANCE,
                                WAVELENGTHS_NM)
-from .cuda_build import SMEM_LIMIT, check_tensor, load_library
+from .cuda_build import SMEM_LIMIT, check_tensor, load_library, stream_of
 
 SAMPLERS = ("r2", "iid")
 # camera projections and their codes in the kernels (trace_common.cuh)
@@ -1043,7 +1043,7 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
         int(sampler == "iid"), split_k, PROJECTIONS[projection],
         hu, len(hu_maxd), p(L), p(counters), p(counters[1:]),
         None if lane_stats is None else p(lane_stats),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        stream_of(dev))
     if err != 0:
         raise RuntimeError(f"solid_trace kernel launch failed: CUDA error {err}")
     return L, counters[0]

@@ -2,9 +2,10 @@
 
 Counterpart of raytracer_tpu/textures/texture.py.  `image` holds a
 linearised float32 array; the scene compiler packs it into the texture
-atlas (core/compile.py) and the record path's replay fetches it with
-wrap-around nearest or bilinear taps (ops/replay.py), with sightpy's
-negated v axis (texture.py:32-39).
+atlas (core/compile.py) and the record kernel fetches it with
+wrap-around nearest or bilinear taps (csrc/record_trace.cu; the plain
+version's replay, ops/replay.py), with sightpy's negated v axis
+(texture.py:32-39).
 """
 
 from __future__ import annotations

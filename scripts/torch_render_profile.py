@@ -13,7 +13,7 @@ union of kernel and copy intervals, the time of the scene's path kernel
 main paths of chip_smoke.py: the reference Cornell box at 400x400 x 256
 spp and the dispersion example at 400x300 x 256 spp (the solid kernel),
 example 2 and the primitives example at 400x300 x 64 spp (the record
-kernel and the replay).  The last line is one JSON object.  The
+kernel, which fetches its textures itself).  The last line is one JSON object.  The
 end-to-end Mrays/s is chip_smoke.py's; this script times no render of
 its own.
 """

@@ -89,6 +89,17 @@ def test_tuning_script_default_is_the_source_default():
     assert [int(x) for x in first] == consts
 
 
+def test_tuning_script_k2_default_is_the_source_default():
+    """--kernel k2 times K2_VARIANTS' first entry as the default build: it
+    must be the record kernel's own launch constants."""
+    src = (ROOT / "raytracer_tpu_torch" / "csrc" / "record_trace.cu").read_text()
+    consts = [int(re.search(rf"#define {name} (\d+)", src).group(1))
+              for name in ("K2_BLOCK", "K2_MIN_BLOCKS")]
+    tune = (ROOT / "scripts" / "torch_k1_tune.py").read_text()
+    first = re.search(r"K2_VARIANTS = \(\((\d+), (\d+)\)", tune).groups()
+    assert [int(x) for x in first] == consts
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------

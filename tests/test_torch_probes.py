@@ -388,8 +388,15 @@ def test_counts_hook_on_the_record_path():
     assert ev["records"] == s.max_bounces * 12 * 8 * 8
     assert sum(v for k, v in ev.items() if k.startswith("shadow_")) > 0
     slots, n_bytes = roofline.work("k2", ev, {k: 4.0 for k in
-                                              ("div", "sqrt", "exp", "sin", "convert")}, 0)
-    assert slots > 100 * ev["ray_bounces"] and n_bytes == 52 * ev["records"] + 8
+                                              ("div", "sqrt", "exp", "sin", "convert")}, 0,
+                                   atlas_words=tables.atlas.numel())
+    # the fused kernel writes L and the count, and reads the texels its
+    # hits fetch (here fewer than the atlas holds)
+    words = roofline.texel_words(ev)
+    assert 0 < words < tables.atlas.numel() and ev["texel_hits"] <= ev["hits"]
+    assert slots > 100 * ev["ray_bounces"]
+    assert n_bytes == 12 * 12 * 8 * 8 + 8 + 4 * words
+    assert dict(roofline.work_terms("k2", ev))["k2_integrate"] == ev["records"]
 
 
 def test_work_of_k1_on_cornell():

@@ -165,17 +165,15 @@ def test_cpu_tensors_take_the_plain_version():
     seed = torch.tensor([3, 4, 0], dtype=torch.int32)
     args = (seed, static, tables, cam, 16, 8, 8, settings.max_bounces,
             settings.split_k)
-    before = rt.record_paths.launches
-    g, f, n = rt.record_paths(*args)
-    g_ref, f_ref, n_ref = rt.record_trace_chunk_reference(*args)
-    assert torch.equal(g, g_ref) and torch.equal(f, f_ref)
-    assert int(n) == int(n_ref)
+    before = rt.record_trace_chunk.launches
+    g, f, n = rt.record_trace_chunk_reference(*args)
     B = settings.max_bounces
     assert g.shape == (B, 16 * 8 * 8) and g.dtype == torch.int32
     assert f.shape == (B, 12, 16 * 8 * 8) and f.dtype == torch.float32
     L, c = rt.record_trace_chunk(*args)
     assert L.shape == (16 * 8 * 8, 3) and int(c) == int(n)
-    assert rt.record_paths.launches == before
+    assert torch.equal(L, replay(g, f, static, tables, B, 16 * 8 * 8))
+    assert rt.record_trace_chunk.launches == before
 
 
 def test_out_of_slice_scenes_raise_before_work():
@@ -188,16 +186,16 @@ def test_out_of_slice_scenes_raise_before_work():
     seed = torch.tensor([3, 4, 0], dtype=torch.int32)
     args = (seed, static, tables, cam, 16, 8, 8, settings.max_bounces)
     for projection in ("fisheye", "equirect", "orthographic"):
-        g, f, n = rt.record_paths(*args, projection=projection)
+        g, f, n = rt.record_trace_chunk_reference(*args, projection=projection)
         assert g.shape == (settings.max_bounces, 16 * 8 * 8)
         assert torch.isfinite(f).all() and int(n) >= 16 * 8 * 8
     for kwargs, what in ((dict(sampler="sobol"), "sampler"),
                          (dict(projection="stereo"), "projection")):
         with pytest.raises(ValueError, match=what):
-            rt.record_paths(*args, **kwargs)
+            rt.record_trace_chunk(*args, **kwargs)
     with pytest.raises(ValueError, match="device"):
-        rt.record_paths(seed.to("meta"), static, tables.to("meta"),
-                        cam.to("meta"), 16, 8, 8, 4)
+        rt.record_trace_chunk(seed.to("meta"), static, tables.to("meta"),
+                              cam.to("meta"), 16, 8, 8, 4)
     sc.scene_primitives[0].material.dispersion = True
     disp, disp_tables, _ = sc._settings_for_render()
     L, n = rt.record_trace_chunk(seed, disp, disp_tables, *args[3:])
@@ -243,6 +241,16 @@ def test_kernel_wrapper_checks_its_inputs():
         rt._launch(seed, static, bad, *ok[3:])
     with pytest.raises(ValueError, match="chunk shape"):
         rt._launch(seed, static, tables, cam, 16, 8, 0, 4, 3, "r2")
+    # the fetch table must have a row per shading group, and the atlas
+    # int32 words
+    bad = tables.to("cpu")
+    object.__setattr__(bad, "fetch_i", tables.fetch_i[:-1].clone())
+    with pytest.raises(ValueError, match="fetch_i"):
+        rt._launch(seed, static, bad, *ok[3:])
+    bad = tables.to("cpu")
+    object.__setattr__(bad, "atlas", tables.atlas.float())
+    with pytest.raises(TypeError, match="atlas"):
+        rt._launch(seed, static, bad, *ok[3:])
 
 
 def test_replay_rounds_and_gates():

@@ -431,6 +431,8 @@ def test_render_on_card_runs_the_kernel_and_matches_cpu():
 
 
 RECORD_CUDA_CASES = {  # 32x32 scenes of the port, sampler
+    # example 4: a two-round thin film and an environment lightmap;
+    # lit_textures: a bilinear texture
     "example1": (lambda: torch_textured.example1(32, 32), "r2"),
     "example2": (lambda: torch_textured.example2(32, 32), "r2"),
     "example3": (lambda: torch_textured.example3(32, 32), "r2"),
@@ -456,58 +458,82 @@ def _thin_lens(sc):
     return sc
 
 
+def _record_plain(args):
+    """The record path's plain version of one chunk: records, then the
+    replay."""
+    seed, static, tables, cam, W, H, spp, B = args[:8]
+    g, f, n = rt.record_trace_chunk_reference(*args)
+    return rt.replay(g, f, static, tables, B, spp * W * H), n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", RECORD_CUDA_CASES)
 def test_record_kernel_matches_plain_version_on_card(case):
-    """The record kernel against its plain version on the card: group
-    words, shading floats and rays_traced, then the replayed radiance."""
+    """The fused record kernel (trace, texel fetch, integration) against
+    its plain version on the card (records, then the replay): every ray's
+    L bit for bit, and rays_traced."""
     dev = _need_card()
     build, sampler = RECORD_CUDA_CASES[case]
     spp = 16
     sc = build()
     static, tables, settings = sc._settings_for_render()
+    W, H = sc.camera.screen_width, sc.camera.screen_height
     tables = tables.to(dev)
     cam = cam_vec(sc.camera.params()).to(dev)
     seed = torch.tensor([11, 22, 5], dtype=torch.int32, device=dev)
-    args = (seed, static, tables, cam, 32, 32, spp, settings.max_bounces,
+    args = (seed, static, tables, cam, W, H, spp, settings.max_bounces,
             settings.split_k, sampler, settings.projection)
-    before = rt.record_paths.launches
-    g_k, f_k, n_k = rt.record_paths(*args)
-    g_p, f_p, n_p = rt.record_trace_chunk_reference(*args)
+    before = rt.record_trace_chunk.launches
+    L_k, n_k = rt.record_trace_chunk(*args)
+    L_p, n_p = _record_plain(args)
     torch.cuda.synchronize()
-    assert rt.record_paths.launches == before + 1
+    assert rt.record_trace_chunk.launches == before + 1
     assert int(n_k) == int(n_p)
-    assert (g_k == g_p).float().mean().item() >= 0.999
-    assert torch.isclose(f_k, f_p, rtol=1e-4, atol=1e-5).float().mean().item() >= 0.999
-    n = 32 * 32 * spp
-    L_k = rt.replay(g_k, f_k, static, tables, settings.max_bounces, n)
-    L_p = rt.replay(g_p, f_p, static, tables, settings.max_bounces, n)
-    assert torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(dim=1).float().mean().item() >= 0.999
+    assert L_k.shape == (W * H * spp, 3)
+    assert torch.equal(L_k, L_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height,spp", [(13, 7, 3), (33, 5, 1)])
+def test_record_kernel_on_a_ragged_chunk_on_card(width, height, spp):
+    """A chunk whose ray count is no multiple of the block: the last
+    block's spare threads write nothing, and every ray matches."""
+    dev = _need_card()
+    sc = torch_textured.example4(width, height, blur=0.0)
+    static, tables, settings = sc._settings_for_render()
+    args = (torch.tensor([3, 9, 0], dtype=torch.int32, device=dev), static,
+            tables.to(dev), cam_vec(sc.camera.params()).to(dev), width,
+            height, spp, settings.max_bounces, settings.split_k)
+    L_k, n_k = rt.record_trace_chunk(*args)
+    L_p, n_p = _record_plain(args)
+    torch.cuda.synchronize()
+    assert (width * height * spp) % 128 != 0
+    assert int(n_k) == int(n_p) and torch.equal(L_k, L_p)
 
 
 @pytest.mark.cuda
 def test_record_kernel_refuses_out_of_slice_scenes_on_card():
-    """A dispersive scene and a fisheye camera now launch the record
-    kernel; a scene past the kernels' gate (49 objects, ROADMAP.md item 8)
-    raises before any launch."""
+    """A dispersive scene and a fisheye camera launch the record kernel;
+    a scene past the kernels' gate (49 objects, ROADMAP.md item 8) raises
+    before any launch."""
     dev = _need_card()
     sc = torch_textured.example2(32, 32)
     sc.scene_primitives[0].material.dispersion = True
     static, tables, settings = sc._settings_for_render()
     cam = cam_vec(sc.camera.params()).to(dev)
     seed = torch.tensor([1, 2, 0], dtype=torch.int32, device=dev)
-    before = rt.record_paths.launches
+    before = rt.record_trace_chunk.launches
     for stat, proj in ((static, "pinhole"),
                        (torch_textured.example2(32, 32)._settings_for_render()[0],
                         "fisheye")):
-        g, f, n = rt.record_paths(seed, stat, tables.to(dev), cam, 32, 32, 8,
-                                  settings.max_bounces, settings.split_k, "r2",
-                                  proj)
-        assert bool(torch.isfinite(f).all()) and int(n) >= 32 * 32 * 8
-    assert rt.record_paths.launches == before + 2
+        L, n = rt.record_trace_chunk(seed, stat, tables.to(dev), cam, 32, 32, 8,
+                                     settings.max_bounces, settings.split_k,
+                                     "r2", proj)
+        assert L.shape == (32 * 32 * 8, 3) and int(n) >= 32 * 32 * 8
+    assert rt.record_trace_chunk.launches == before + 2
     with pytest.raises(NotImplementedError, match="item 8"):
         too_many_objects(T).render(samples_per_pixel=1, device=dev)
-    assert rt.record_paths.launches == before + 2
+    assert rt.record_trace_chunk.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -520,7 +546,7 @@ def test_example_render_on_card_matches_cpu(name):
     dev = _need_card()
     sc = torch_primitives.BUILDERS[name](24, 16)
     static, _, _ = sc._settings_for_render()
-    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_paths
+    fn = st.solid_trace_chunk if static.pallas_ok else rt.record_trace_chunk
     before = fn.launches
     img, stats = sc.render(samples_per_pixel=2, output="linear",
                            return_stats=True, device=dev)
@@ -543,10 +569,10 @@ def test_record_render_on_card_runs_the_kernel_and_matches_cpu():
     _, _, settings = sc._settings_for_render()
     fan = 1 << settings.split_k
     chunk, n_chunks = plan_chunks(2 * fan, 16, 12, fan)
-    before = rt.record_paths.launches
+    before = rt.record_trace_chunk.launches
     img, stats = sc.render(samples_per_pixel=2, output="linear",
                            return_stats=True, device=dev)
-    assert rt.record_paths.launches == before + n_chunks
+    assert rt.record_trace_chunk.launches == before + n_chunks
     ref, ref_stats = sc.render(samples_per_pixel=2, output="linear",
                                return_stats=True, device="cpu")
     assert np.isfinite(img).all()
