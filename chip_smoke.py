@@ -39,6 +39,21 @@ checkout and drives both render paths:
   spp (the record kernel), each image against plain-version chunks; and
   the chunk-shape checks and times of the solid kernel on dispersion and
   the record kernel on primitives against their plain versions;
+- the render options around both kernels (Scene.render's chunk loop,
+  render_environment, JSON scenes, .hdr files), each driven with the
+  launch counts set to 0 just before and read just after: Cornell
+  400x400 rendered to 128 spp with a checkpoint every 4 chunks, then to
+  256 spp from that checkpoint (it must resume at chunk 99 and equal the
+  uninterrupted 256-spp render bit for bit); Cornell with target_noise
+  0.01 and a 256-spp budget (the noise target met or the budget spent);
+  example 2 with with_variance (the image bit for bit the one without,
+  the variance finite and >= 0); render_environment of Cornell at 512x256
+  x 16 spp (the solid kernel), written with save_hdr and read back as a
+  Panorama behind a glossy sphere (the record kernel); the JSON scene
+  examples/example_scene.json at its own 400x300 x 16 spp (the solid
+  kernel); a preview PNG (the returned image, bit for bit) and a
+  torch.profiler trace that names the solid kernel.  Its files go to
+  build/chip_smoke/ (ignored by git);
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -58,6 +73,7 @@ exits 1.  Imports neither jax nor raytracer_tpu.
 """
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,6 +81,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"      # the render options' files
 W, H, SPP = 400, 400, 256             # the main path (bench.py's Cornell)
 CHECK_W, CHECK_H, CHECK_SPP = 64, 64, 16   # kernel vs plain: 65,536 rays
 MATCH_RTOL, MATCH_ATOL, MATCH_RATE = 1e-4, 1e-5, 0.999
@@ -86,6 +103,15 @@ NEW_SOLID_CHECKS = ("dispersion", "example2_solid", "shapes", "cornell-fisheye",
 NEW_RECORD_CHECKS = ("primitives", "fisheye", "panorama", "still_life-orthographic")
 NEW_TIMED_RENDERS = 2
 NEW_REF_CHUNKS = 2
+# the render options: Cornell at 128 then 256 spp (resume), the adaptive
+# target and budget, the environment bake and the .hdr scene, the JSON
+# scene's samples, the preview and profiled renders' samples
+RESUME_SPP, RESUME_EVERY = 128, 4
+TARGET_NOISE = 0.01
+ENV_W, ENV_H, ENV_SPP = 512, 256, 16
+HDR_W, HDR_H, HDR_SPP = 400, 300, 16
+JSON_SPP = 16
+PREVIEW_SPP, PROFILE_SPP = 16, 8
 
 
 class SmokeFailure(Exception):
@@ -582,6 +608,186 @@ def probe_phases(torch, times):
     return rows, p2
 
 
+def hdr_scene(path):
+    """A glossy sphere in front of the .hdr panorama at `path`, lit by a
+    directional light: the record kernel's path."""
+    import raytracer_tpu_torch as T
+
+    sc = T.Scene(ambient_color=T.rgb(0.02, 0.02, 0.02))
+    sc.add_Camera(look_from=T.vec3(0, 0.3, 2.2), look_at=T.vec3(0, 0, 0),
+                  screen_width=HDR_W, screen_height=HDR_H, field_of_view=50)
+    sc.add_DirectionalLight(Ldir=T.vec3(0.4, 0.7, 0.5), color=T.rgb(0.5, 0.5, 0.5))
+    sc.add(T.Sphere(material=T.Glossy(diff_color=T.rgb(0.8, 0.7, 0.6),
+                                      n=T.vec3(1.5, 1.5, 1.5), roughness=0.1,
+                                      spec_coeff=0.4, diff_coeff=0.6),
+                    center=T.vec3(0, 0, 0), radius=0.7, max_ray_depth=3))
+    sc.add(T.Panorama(str(path)))
+    return sc
+
+
+def slice_phases(torch, dev, cornell_img):
+    """Scene.render's options, render_environment, .hdr files and JSON
+    scenes on the card, one line each; each check is driven with both
+    launch counts set to 0 just before it and read just after.  cornell_img
+    is the main path's uninterrupted 256-spp Cornell render (seed 0).
+    Returns the launches of (solid kernel, record kernel) in these runs."""
+    import numpy as np
+    import torch_textured
+    from PIL import Image
+    from raytracer_tpu_torch import load_scene_file, save_hdr
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+    from torch_cornellbox import build_cornell
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    totals = [0, 0]
+
+    def driven(fn):
+        """fn() with both launch counts set to 0 just before; returns its
+        result, the (solid, record) launches and the wall seconds."""
+        st.solid_trace_chunk.launches = 0
+        rt.record_trace_chunk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = (st.solid_trace_chunk.launches, rt.record_trace_chunk.launches)
+        totals[0] += n[0]
+        totals[1] += n[1]
+        return out, n, wall
+
+    def finite(a, name):
+        require(bool(np.isfinite(a).all()), f"{name}: non-finite values")
+
+    t_phase = time.perf_counter()
+    # ---- resume: 128 spp with checkpoints, then 256 spp from them ----
+    sc = build_cornell(W, H)
+    fan = sc._diffuse_fan()
+    chunk, n_half = plan_chunks(RESUME_SPP * fan, W, H)
+    _, n_full = plan_chunks(SPP * fan, W, H)
+    ck = WORK / "cornell_resume.npz"
+    (_, st1), n1, wall1 = driven(lambda: sc.render(
+        RESUME_SPP, output="linear", checkpoint_path=ck,
+        checkpoint_every=RESUME_EVERY, return_stats=True, device=dev))
+    require(n1 == (n_half, 0), f"resume: first render launches {n1}")
+    done = int(np.load(ck)["chunks_done"])
+    require(done == n_half, f"resume: checkpoint at chunk {done}, not {n_half}")
+    (img, st2), n2, wall2 = driven(lambda: sc.render(
+        SPP, output="linear", checkpoint_path=ck, checkpoint_every=RESUME_EVERY,
+        return_stats=True, device=dev))
+    require(n2 == (n_full - done, 0), f"resume: resumed render launches {n2}")
+    same = bool(np.array_equal(img, cornell_img))
+    print(f"slice resume: Cornell {W}x{H}, {RESUME_SPP} spp ({n_half} chunks of "
+          f"{chunk} spp, a checkpoint every {RESUME_EVERY}) in {wall1:.4f} s, then "
+          f"{SPP} spp resumed from chunk {done} to {n_full} ({n2[0]} solid kernel "
+          f"launches, {st2['samples']} samples) in {wall2:.4f} s | bit-equal to the "
+          f"uninterrupted {SPP}-spp render: {same}", flush=True)
+    require(same, "resume: the resumed image differs from the uninterrupted one")
+
+    # ---- adaptive: Cornell to a noise target within a 256-spp budget ----
+    (img, stats), n, wall = driven(lambda: build_cornell(W, H).render(
+        SPP, output="linear", target_noise=TARGET_NOISE, return_stats=True,
+        device=dev))
+    finite(img, "adaptive")
+    spent = stats["samples"] == n_full * chunk
+    print(f"slice adaptive: Cornell {W}x{H}, target_noise {TARGET_NOISE}, budget "
+          f"{SPP} spp ({n_full * chunk} samples) | {stats['samples']} samples in "
+          f"{n[0]} chunks, noise_q99 {stats['noise_q99']:.6f}, budget spent: "
+          f"{spent} | wall {wall:.4f} s", flush=True)
+    require(n == (stats["samples"] // chunk, 0), f"adaptive: launches {n}")
+    require(stats["noise_q99"] <= TARGET_NOISE or spent,
+            "adaptive: neither the target met nor the budget spent")
+
+    # ---- variance: example 2 through the record kernel ----
+    ex2 = torch_textured.example2(REC_W, REC_H)
+    (lin, var), n, wall = driven(lambda: ex2.render(
+        REC_SPP, output="linear", with_variance=True, device=dev))
+    plain = ex2.render(REC_SPP, output="linear", device=dev)
+    finite(var, "variance")
+    same = bool(np.array_equal(lin, plain))
+    print(f"slice variance: example 2 {REC_W}x{REC_H} x {REC_SPP} spp with "
+          f"with_variance, {n[1]} record kernel launches | wall {wall:.4f} s | "
+          f"variance mean {float(var.mean()):.6e}, max {float(var.max()):.6e}, min "
+          f"{float(var.min()):.3e} | image bit-equal to the render without: {same}",
+          flush=True)
+    require(n[1] > 0 and n[0] == 0, f"variance: launches {n}")
+    require(bool((var >= 0).all()), "variance: negative values")
+    require(same, "variance: with_variance changed the image")
+
+    # ---- the environment bake, saved as .hdr, behind a glossy sphere ----
+    center = (278.0, 278.0, -278.0)
+    env, n, wall_env = driven(lambda: build_cornell(W, H).render_environment(
+        width=ENV_W, height=ENV_H, samples_per_pixel=ENV_SPP, center=center,
+        device=dev))
+    require(env.shape == (ENV_H, ENV_W, 3), f"environment shape {env.shape}")
+    finite(env, "environment")
+    require(n[0] > 0 and n[1] == 0, f"environment: launches {n}")
+    hdr = WORK / "cornell_env.hdr"
+    save_hdr(env, hdr)
+    sc_hdr = hdr_scene(hdr)
+    static = sc_hdr._settings_for_render()[0]
+    require(static.pallas_tex_ok and not static.pallas_ok,
+            "the .hdr scene does not take the record kernel")
+    (img, stats), n_hdr, wall_hdr = driven(lambda: sc_hdr.render(
+        HDR_SPP, output="linear", return_stats=True, device=dev))
+    finite(img, ".hdr scene")
+    print(f"slice environment: Cornell render_environment {ENV_W}x{ENV_H} x "
+          f"{ENV_SPP} spp from {center}, {n[0]} solid kernel launches, wall "
+          f"{wall_env:.4f} s, mean {float(env.mean()):.6f}, max {float(env.max()):.4f} "
+          f"| save_hdr {hdr.stat().st_size} B | Panorama(.hdr) behind a glossy "
+          f"sphere {HDR_W}x{HDR_H} x {HDR_SPP} spp, {n_hdr[1]} record kernel "
+          f"launches, wall {wall_hdr:.4f} s, image mean {float(img.mean()):.6f}",
+          flush=True)
+    require(n_hdr[1] > 0 and n_hdr[0] == 0, f".hdr scene: launches {n_hdr}")
+    require(float(img.mean()) > 0.0, ".hdr scene: black image")
+
+    # ---- the JSON scene at its own size ----
+    sc_json = load_scene_file(ROOT / "examples" / "example_scene.json")
+    jw, jh = sc_json.camera.screen_width, sc_json.camera.screen_height
+    static, _, settings = sc_json._settings_for_render()
+    require(static.pallas_ok and (jw, jh) == (400, 300),
+            "example_scene.json: not the solid kernel at 400x300")
+    _, n_json_chunks = plan_chunks(JSON_SPP * sc_json._diffuse_fan()
+                                   * (1 << settings.split_k), jw, jh)
+    (img, stats), n, wall = driven(lambda: sc_json.render(
+        JSON_SPP, output="linear", return_stats=True, device=dev))
+    finite(img, "example_scene.json")
+    print(f"slice JSON scene: examples/example_scene.json {jw}x{jh} x {JSON_SPP} "
+          f"spp (x{sc_json._diffuse_fan()} fan), {n[0]} solid kernel launches | "
+          f"wall {wall:.4f} s | rays_traced {stats['rays_traced']} | image mean "
+          f"{float(img.mean()):.6f}", flush=True)
+    require(n == (n_json_chunks, 0), f"JSON scene: launches {n}")
+    require(float(img.mean()) > 0.0, "JSON scene: black image")
+
+    # ---- a preview, and a profiled render ----
+    pv = WORK / "preview.png"
+    img, n, wall = driven(lambda: build_cornell(W, H).render(
+        PREVIEW_SPP, preview_path=pv, preview_every=4, device=dev))
+    same = bool(np.array_equal(np.asarray(Image.open(pv)), np.asarray(img)))
+    prof = WORK / "profile"
+    _, n_prof, wall_prof = driven(lambda: build_cornell(W, H).render(
+        PROFILE_SPP, output="linear", profile_dir=prof, device=dev))
+    traces = list(prof.glob("*.pt.trace.json"))
+    require(len(traces) == 1, f"profile: {len(traces)} traces")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = [e for e in kernels if "solid_trace" in str(e.get("name", ""))]
+    print(f"slice preview and profile: Cornell {W}x{H} x {PREVIEW_SPP} spp, "
+          f"{n[0]} solid kernel launches, wall {wall:.4f} s, final preview "
+          f"{pv.stat().st_size} B bit-equal to the returned image: {same} | profiled {PROFILE_SPP} spp, {n_prof[0]} "
+          f"launches, wall {wall_prof:.4f} s: {len(kernels)} kernel events, "
+          f"{len(named)} named {named[0]['name'] if named else None!r}", flush=True)
+    require(n[0] > 0 and n_prof[0] > 0, f"preview / profile: launches {n}, {n_prof}")
+    require(same, "preview: the final preview is not the returned image")
+    require(len(named) == n_prof[0],
+            f"profile: {len(named)} solid_trace events for {n_prof[0]} launches")
+    print(f"slice phases: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return tuple(totals)
+
+
 def main():
     import torch
 
@@ -667,6 +873,7 @@ def main():
     require(abs(img_mean - ref_mean) < 4 * se,
             f"image mean {img_mean} vs plain {ref_mean} (4 SE = {4 * se})")
     del L_ref, per_sample
+    cornell_img = img
 
     # ---- phase 5: kernel vs plain at the chunk shape (4.16 M rays) ----
     seed = torch.tensor([99, 4242, 0], dtype=torch.int32, device=dev)
@@ -723,6 +930,12 @@ def main():
     times.update(t)
     record_row["launches"] += new_launches
     record_row["max_abs_err"] = max(record_row["max_abs_err"], new_err)
+    torch.cuda.empty_cache()
+
+    # ---- the render options, render_environment, .hdr and JSON scenes ----
+    solid_n, record_n = slice_phases(torch, dev, cornell_img)
+    solid_row["launches"] += solid_n
+    record_row["launches"] += record_n
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

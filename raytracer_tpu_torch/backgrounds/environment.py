@@ -16,7 +16,7 @@ from ..geometry.primitive import Cuboid, Sphere
 from ..materials.base import MAT_ENV, Material
 from ..utils.colour import srgb_to_srgb_linear
 from ..utils.constants import SKYBOX_DISTANCE
-from ..utils.image_io import load_image
+from ..utils.image_io import load_hdr, load_image, resolve_asset
 from .blur import blur_skybox_array
 
 
@@ -27,14 +27,13 @@ class EnvironmentMaterial(Material):
                  importance_sampled=False, linear=False):
         super().__init__()
         self.importance_sampled = bool(importance_sampled)
-        if not isinstance(img, np.ndarray) and str(img).lower().endswith(
-                (".hdr", ".rgbe")):
-            raise NotImplementedError(
-                "Radiance .hdr environments are not ported yet; pass the "
-                "map as an ndarray with linear=True (ROADMAP.md 'Modules to "
-                "port' item 9)")
-        # linear=True: an ndarray input is already unbounded linear radiance
-        is_hdr = isinstance(img, np.ndarray) and linear
+        # a Radiance .hdr / .rgbe file, or an ndarray with linear=True, is
+        # already unbounded linear radiance: no sRGB EOTF, no [0, 1] clip;
+        # the atlas stores such maps as RGB9E5 words when they are bright
+        # (core/compile.py E5_PACK_LIMIT)
+        is_hdr = (not isinstance(img, np.ndarray)
+                  and str(img).lower().endswith((".hdr", ".rgbe"))) \
+            or (isinstance(img, np.ndarray) and linear)
         self.is_hdr = is_hdr
         self.source = None if isinstance(img, np.ndarray) else str(img)
         self.blur = float(blur)
@@ -43,13 +42,16 @@ class EnvironmentMaterial(Material):
             raw = np.asarray(img, dtype=np.float32)
             self.texture = (raw if linear
                             else srgb_to_srgb_linear(raw).astype(np.float32))
+        elif is_hdr:
+            raw = load_hdr(resolve_asset(img, subdir_hint="backgrounds"))
+            self.texture = raw
         else:
             raw = load_image(img, subdir_hint="backgrounds")
             self.texture = srgb_to_srgb_linear(raw).astype(np.float32)
         self.light_intensity = float(light_intensity)
         self.lightmap = None
         if light_intensity != 0.0:
-            if isinstance(img, str):
+            if isinstance(img, str) and not is_hdr:
                 try:
                     self.lightmap = load_image(
                         img, subdir_hint="backgrounds/lightmaps")

@@ -8,15 +8,20 @@ add / add_Background); `render` compiles the scene into kernel tables
 the record kernel, which traces, fetches the textures and integrates in
 one pass, ops/record_trace.py), plans chunks,
 traces each one, scrubs non-finite samples, clamps, accumulates per pixel
-and tonemaps.
+and tonemaps.  Around that loop: checkpoints and bit-identical resume,
+adaptive sampling to a noise target, the per-pixel variance of the mean,
+progressive previews, progress lines and a torch.profiler trace; and
+`render_environment` bakes the scene into an equirect map.
 
-Not ported yet (ROADMAP.md "Modules to port" item 9 and the next
-`scene.py` slice): checkpoints, adaptive `target_noise`, previews,
-`with_variance`, profiling and multi-device meshes.
+Not ported yet: the `mesh=` argument (multi-device rendering, ROADMAP.md
+"Modules to port" item 8) and the methods that need the wavefront
+(`render_aovs`, `render_denoised`, `get_distances`, `render_ods`; items 3
+and 6).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -27,7 +32,8 @@ from ..backgrounds.environment import Panorama, SkyBox
 from ..materials.base import MAT_DIFFUSE
 from ..ops.record_trace import record_trace_chunk
 from ..ops.solid_trace import solid_trace_chunk
-from ..utils.colour import TONEMAP_OPERATORS, tonemap_display
+from ..utils.colour import (TONEMAP_OPERATORS, srgb_linear_to_srgb,
+                            tonemap_display)
 from ..utils.image_io import array_to_pil
 from .camera import Camera, cam_vec, projection_mask
 from .compile import compile_scene, derive_max_bounces, derive_split_k
@@ -39,6 +45,13 @@ MAX_RAYS_PER_CHUNK = 1 << 22
 # cap on samples per chunk (raytracer_tpu/core/scene.py:441-448); it also
 # keeps per-chunk sample streams equal to the JAX package's
 MAX_CHUNK_SPP = 128
+# the largest input torch.quantile takes: the most pixels adaptive
+# sampling can judge (a 4K frame is 8.3 M)
+MAX_NOISE_PIXELS = 1 << 24
+# names the sample stream of the port's chunks (chunk_seeds) in its
+# checkpoints: a checkpoint without it (the JAX package's, whose chunks
+# are seeded by threefry keys) is never resumed
+CHECKPOINT_STREAM = "raytracer_tpu_torch.chunk_seeds/numpy-default_rng-v1"
 
 
 def plan_chunks(eff_spp, width, height, split_fan=1, batch_size=None):
@@ -59,7 +72,9 @@ def plan_chunks(eff_spp, width, height, split_fan=1, batch_size=None):
 def chunk_seeds(seed, n_chunks, chunk):
     """(n_chunks, 3) int32 seed vectors [chunk seed, R2 rotation seed,
     first sample index]: one rotation seed per render, then one seed per
-    chunk, all drawn from numpy's generator seeded by `seed`."""
+    chunk, all drawn from numpy's generator seeded by `seed`.  The rows of
+    chunks 0..n-1 do not depend on n_chunks >= n, which a resumed render
+    relies on."""
     rng = np.random.default_rng(np.random.SeedSequence(seed))
     draws = rng.integers(0, 2 ** 31 - 1, size=n_chunks + 1, dtype=np.int64)
     out = np.empty((n_chunks, 3), np.int32)
@@ -134,10 +149,16 @@ class Scene:
                                   projection=self.camera.projection)
         return static, tables, settings
 
-    def render(self, samples_per_pixel, batch_size=None, seed=0,
-               return_stats=False, output="pil", clamp=None, tonemap="srgb",
-               exposure=0.0, device=None):
+    def render(self, samples_per_pixel, progress_bar=False, batch_size=None,
+               seed=0, return_stats=False, checkpoint_path=None,
+               checkpoint_every=4, profile_dir=None, target_noise=None,
+               noise_check_every=4, output="pil", with_variance=False,
+               clamp=None, tonemap="srgb", exposure=0.0, preview_path=None,
+               preview_every=4, device=None):
         """Render and return a PIL image (sightpy scene.py:71-140).
+
+        The arguments are the JAX package's (raytracer_tpu/core/scene.py
+        render), less `mesh`, plus `device`.
 
         samples_per_pixel: camera samples, each of which fans into the
         scene's `diffuse_rays` paths (see _diffuse_fan).
@@ -146,21 +167,68 @@ class Scene:
         seed: seeds numpy's generator, which draws the chunk seeds.
         output: "pil" (tonemapped image) or "linear" (the (H, W, 3) float32
         linear radiance mean as a numpy array).
+        with_variance (output="linear" only, no checkpoints): also return
+        the per-pixel variance of the mean, the unbiased sample variance
+        over the number of samples; the return becomes (linear,
+        variance[, stats]).  Under the R2 sampler it is the i.i.d.
+        estimate, an upper bound on the stratified mean's error.
         clamp: optional per-sample linear-radiance ceiling.
-        tonemap / exposure: display mapping for output="pil" (see
-        utils.colour.tonemap_display); exposure is in stops.
+        tonemap / exposure: display mapping for output="pil" and the
+        previews (see utils.colour.tonemap_display); exposure is in stops.
+        checkpoint_path / checkpoint_every: save the accumulator every
+        `checkpoint_every` chunks and after the last (an .npz; one
+        device-to-host copy each); a render given a checkpoint of the same
+        frame, chunk, seed, clamp and sample stream resumes from it, bit
+        for bit the image of an uninterrupted render.
+        target_noise / noise_check_every: adaptive sampling.  Every
+        `noise_check_every` chunks, estimate the display-space noise
+        (_noise_q99) and stop once it is at most target_noise;
+        samples_per_pixel is then the budget.  Needs at least two chunks;
+        the stats report noise_q99 and the samples used.
+        preview_path / preview_every: every `preview_every` chunks before
+        the last, and once at the end, write the tonemapped accumulator
+        so far to this PNG (one device-to-host copy each); the final
+        preview equals the returned image.
+        progress_bar: print a line per chunk (each waits for the device).
+        profile_dir: run the render under torch.profiler (CPU and, on
+        CUDA, device activity) and write its Chrome trace into this
+        directory (`*.pt.trace.json`, TensorBoard's layout).
         device: torch device to trace on; default "cuda", and without a
         CUDA device it raises RuntimeError: the CPU is used only when
         asked for (device="cpu").  On CUDA every chunk runs the scene's
         kernel (solid or record), on the CPU its plain version.
         return_stats: also return a dict with rays_traced, wall_s,
-        samples, width, height and mrays_per_s.
+        samples, width, height and mrays_per_s (and noise_q99 when
+        adaptive).
         """
+        if profile_dir is not None:
+            device = _resolve_device(device)
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities,
+                         on_trace_ready=tensorboard_trace_handler(
+                             str(profile_dir))):
+                return self.render(
+                    samples_per_pixel, progress_bar, batch_size, seed,
+                    return_stats, checkpoint_path, checkpoint_every, None,
+                    target_noise, noise_check_every, output, with_variance,
+                    clamp, tonemap, exposure, preview_path, preview_every,
+                    device)
         if output not in ("pil", "linear"):
             raise ValueError(f"output must be 'pil' or 'linear', got {output!r}")
         if tonemap not in TONEMAP_OPERATORS:
             raise ValueError(
                 f"tonemap must be one of {TONEMAP_OPERATORS}, got {tonemap!r}")
+        if preview_path is not None and preview_every < 1:
+            raise ValueError(f"preview_every must be >= 1, got {preview_every}")
+        if with_variance and output != "linear":
+            raise ValueError("with_variance requires output='linear'")
+        if with_variance and checkpoint_path is not None:
+            raise ValueError("with_variance does not support checkpointing")
         if self.camera is None:
             raise RuntimeError("call add_Camera() first")
         if samples_per_pixel < 1:
@@ -177,22 +245,51 @@ class Scene:
         split_fan = 1 << settings.split_k
         eff_spp = samples_per_pixel * self._diffuse_fan() * split_fan
         chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
+        # the noise estimate needs >= 2 chunks (scene.py:478-479)
+        adaptive = target_noise is not None and n_chunks >= 2
+        if adaptive and W * H > MAX_NOISE_PIXELS:
+            raise ValueError(
+                f"target_noise judges at most {MAX_NOISE_PIXELS} pixels "
+                f"(torch.quantile's limit); this frame has {W * H}")
 
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Scene.render traces on the CUDA device by default and "
-                    "found none; pass device='cpu' to trace on the CPU")
-            device = "cuda"
-        device = torch.device(device)
+        device = _resolve_device(device)
         tables = tables.to(device)
         cam = cam_vec(self.camera.params()).to(device)
         seeds = torch.from_numpy(chunk_seeds(seed, n_chunks, chunk)).to(device)
         trace_args = (settings.max_bounces, settings.split_k, settings.sampler,
                       settings.projection)
         acc = torch.zeros((H * W, 3), dtype=torch.float32, device=device)
+        # second moment of the chunk means, for the noise estimate
+        acc2 = (torch.zeros((H * W, 3), dtype=torch.float32, device=device)
+                if adaptive else None)
+        # sum of squared samples, for the variance output
+        acc_ss = (torch.zeros((H * W, 3), dtype=torch.float32, device=device)
+                  if with_variance else None)
         rays = torch.zeros((), dtype=torch.int64, device=device)
-        for i in range(n_chunks):
+        start_chunk = 0
+        if checkpoint_path is not None:
+            loaded = _load_checkpoint(checkpoint_path, H * W, chunk, seed,
+                                      with_acc2=adaptive, clamp=clamp,
+                                      device=device)
+            # a checkpoint of more chunks than this render plans would be
+            # divided by too few samples: restart instead
+            if loaded is not None and loaded[1] <= n_chunks:
+                acc, start_chunk, loaded_acc2 = loaded
+                if adaptive:
+                    acc2 = loaded_acc2
+        chunk_t = (torch.tensor(float(chunk), dtype=torch.float32,
+                                device=device) if adaptive else None)
+        # circular fisheye frames: pixels outside the image circle are
+        # masked at output (the accumulator and checkpoints stay unmasked)
+        pmask = projection_mask(settings.projection, W, H)
+        if pmask is not None:
+            pmask = torch.from_numpy(pmask).to(device)
+        display = lambda a, n: _display(a, n, W, H, tonemap, exposure)
+        if progress_bar:
+            print("Rendering...")
+        chunks_done = start_chunk
+        last_noise = None
+        for i in range(start_chunk, n_chunks):
             if static.pallas_ok:
                 L, cnt = solid_trace_chunk(seeds[i], tables, cam, W, H, chunk,
                                            *trace_args)
@@ -203,27 +300,226 @@ class Scene:
             L = torch.where(torch.isfinite(L), L, 0.0)
             if clamp is not None:
                 L = torch.clamp_max(L, float(clamp))
-            acc += L.view(chunk, H * W, 3).sum(dim=0)
+            L = L.view(chunk, H * W, 3)
+            L_sum = L.sum(dim=0)
+            acc += L_sum
+            if acc_ss is not None:
+                acc_ss += (L * L).sum(dim=0)
+            if acc2 is not None:
+                m = L_sum / chunk_t
+                acc2 += m * m
             rays += cnt
+            if progress_bar:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                print(f"  chunk {i + 1}/{n_chunks} "
+                      f"({(i + 1) * chunk} samples) {time.time() - t0:.2f}s",
+                      flush=True)
+            if checkpoint_path is not None and (
+                    (i + 1) % checkpoint_every == 0 or i + 1 == n_chunks):
+                _save_checkpoint(checkpoint_path, acc, i + 1, chunk, seed,
+                                 acc2=acc2, clamp=clamp)
+            if preview_path is not None and i + 1 < n_chunks and (
+                    (i + 1) % preview_every == 0):
+                pacc = acc if pmask is None else acc * pmask[:, None]
+                array_to_pil(display(pacc, (i + 1) * chunk)).save(preview_path)
+            chunks_done = i + 1
+            if adaptive and chunks_done >= 2 and (
+                    chunks_done % noise_check_every == 0
+                    or chunks_done == n_chunks):
+                last_noise = float(_noise_q99(acc, acc2, float(chunks_done),
+                                              float(chunk), pmask))
+                if progress_bar:
+                    print(f"  noise q99 {last_noise:.4f} "
+                          f"(target {target_noise})", flush=True)
+                if last_noise <= target_noise:
+                    break
 
-        n_samples = n_chunks * chunk
-        # a circular fisheye blacks out the pixels beyond its image circle;
-        # they are traced and counted all the same (scene.py:541-544)
-        pmask = projection_mask(settings.projection, W, H)
+        n_samples = (chunks_done if adaptive else n_chunks) * chunk
         if pmask is not None:
-            acc = acc * torch.from_numpy(pmask).to(device)[:, None]
+            acc = acc * pmask[:, None]
+            if acc_ss is not None:
+                acc_ss = acc_ss * pmask[:, None]
+        variance = None
         if output == "linear":
             out = (acc.cpu().numpy() / n_samples).reshape(H, W, 3)
+            if acc_ss is not None:
+                variance = _variance_of_mean(acc, acc_ss, n_samples
+                                             ).cpu().numpy().reshape(H, W, 3)
             dt = time.time() - t0
         else:
-            img = tonemap_display(acc / float(n_samples), tonemap,
-                                  2.0 ** exposure).reshape(H, W, 3)
-            img = img.cpu().numpy()
+            img = display(acc, n_samples)
             dt = time.time() - t0
             out = array_to_pil(img)
-        if not return_stats:
-            return out
-        n_rays = int(rays)
-        return out, dict(rays_traced=n_rays, wall_s=dt, samples=n_samples,
+        if preview_path is not None:
+            # the final preview: the returned image itself
+            (out if output == "pil"
+             else array_to_pil(display(acc, n_samples))).save(preview_path)
+        if progress_bar:
+            print("Render Took", dt)
+        ret = (out, variance) if with_variance else (out,)
+        if return_stats:
+            n_rays = int(rays)
+            stats = dict(rays_traced=n_rays, wall_s=dt, samples=n_samples,
                          width=W, height=H,
                          mrays_per_s=n_rays / dt / 1e6 if dt > 0 else 0.0)
+            if adaptive:
+                stats["noise_q99"] = last_noise
+            ret = ret + (stats,)
+        return ret if len(ret) > 1 else ret[0]
+
+    def render_array(self, samples_per_pixel, **kwargs):
+        """Like render() but returns the float (H, W, 3) sRGB array."""
+        out = self.render(samples_per_pixel, **kwargs)
+        if isinstance(out, tuple):
+            return np.asarray(out[0], dtype=np.float32) / 255.0, out[1]
+        return np.asarray(out, dtype=np.float32) / 255.0
+
+    def render_environment(self, width=512, height=256, samples_per_pixel=16,
+                           center=(0.0, 0.0, 0.0), seed=0, **render_kwargs):
+        """Bake this scene into an equirect environment map.
+
+        Renders a full 360x180 panorama from `center` through the equirect
+        camera and returns a linear float32 (height, width, 3) array in
+        the storage order of the environment fetch, so that it plugs
+        into another scene:
+
+            env = scene_a.render_environment(center=(0, 1, 0))
+            scene_b.add_Background(env, spherical=True, linear=True)
+
+        and directions through scene_b's background see the radiance
+        scene_a showed from `center` (up to texel resolution).
+        render_kwargs (device, batch_size, clamp, ...) go to render().
+        """
+        saved = self.camera
+        c = np.asarray(as_float3(center, "center"), np.float64)
+        try:
+            # look_at = center + x: the equirect camera's phi0 becomes 0, so
+            # image u equals the fetch's azimuth u with no offset
+            self.camera = Camera(look_from=c, look_at=c + [1.0, 0.0, 0.0],
+                                 screen_width=width, screen_height=height,
+                                 projection="equirect")
+            img = np.asarray(self.render(samples_per_pixel, seed=seed,
+                                         output="linear", **render_kwargs),
+                             np.float32)
+        finally:
+            self.camera = saved
+        # the camera's rows run zenith to nadir; the fetch reads storage row
+        # (-iv) mod H for display v-index iv (sightpy's negated v), so
+        # permute display rows into storage order
+        store = np.empty_like(img)
+        store[(-np.arange(height)) % height] = img[::-1]
+        return store
+
+
+def _resolve_device(device):
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "Scene.render traces on the CUDA device by default and "
+                "found none; pass device='cpu' to trace on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _display(acc, n_samples, width, height, operator, exposure):
+    """The tonemapped image of accumulator `acc` over n_samples, as a
+    (height, width, 3) host array: one device-to-host copy."""
+    img = tonemap_display(acc / float(n_samples), operator, 2.0 ** exposure)
+    return img.reshape(height, width, 3).cpu().numpy()
+
+
+def _variance_of_mean(acc, acc_ss, n_samples):
+    """Per-pixel variance of the mean from the sums of samples and of their
+    squares: the unbiased sample variance over n (scene.py:643-652)."""
+    n = torch.tensor(float(n_samples), dtype=torch.float32, device=acc.device)
+    mean = acc / n
+    s2 = torch.clamp_min(acc_ss / n - mean * mean, 0.0)
+    if n_samples > 1:
+        s2 = s2 * (n_samples / (n_samples - 1.0))
+    return s2 / n
+
+
+def _noise_q99(acc, acc2, k, chunk, pmask=None):
+    """Estimated display-space noise after k chunks of `chunk` samples.
+
+    Each chunk's per-pixel mean m_i = L_i / chunk is one observation; the
+    standard error of their running mean M over k chunks is s / sqrt(k),
+    s the sample standard deviation of the m_i.  The error is mapped to
+    display space, |srgb(M + SE) - srgb(M)| in the worst channel, so one
+    threshold means the same visible grain in shadows and highlights.
+    Returns the 99th percentile over pixels (a 0-dim tensor on acc's
+    device); with a fisheye `pmask`, over the visible pixels only.
+    (raytracer_tpu/core/scene.py:197-218; torch.quantile's default linear
+    interpolation is jnp.quantile's.)
+    """
+    kt = torch.tensor(float(k), dtype=torch.float32, device=acc.device)
+    M = acc / (kt * float(chunk))
+    var = torch.clamp_min(acc2 / kt - M * M, 0.0) * (
+        kt / torch.clamp_min(kt - 1.0, 1.0))
+    se = torch.sqrt(var / kt)
+    e = torch.abs(srgb_linear_to_srgb(M + se) - srgb_linear_to_srgb(M))
+    e = e.amax(dim=-1)
+    if pmask is not None:
+        # judge convergence on the visible pixels: the traced content
+        # outside the image circle is zeroed at output
+        return torch.nanquantile(
+            torch.where(pmask > 0, e, torch.full_like(e, float("nan"))), 0.99)
+    return torch.quantile(e, 0.99)
+
+
+def _ckpt_path(path):
+    # np.savez appends '.npz' to bare names; normalise so that save and
+    # load agree
+    p = str(path)
+    return p if p.endswith(".npz") else p + ".npz"
+
+
+def _save_checkpoint(path, acc, chunks_done, chunk, seed, acc2=None,
+                     clamp=None, shards=(1, 1)):
+    """Write the accumulator and the render's identity to an .npz, with
+    the JAX package's fields plus `stream`; written to a temporary file
+    and renamed, so that an interrupted save leaves the last one whole."""
+    extra = {} if acc2 is None else {"acc2": acc2.cpu().numpy()}
+    final = _ckpt_path(path)
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, acc=acc.cpu().numpy(), chunks_done=chunks_done,
+                 chunk=chunk, seed=seed,
+                 clamp=np.float64(np.nan if clamp is None else clamp),
+                 shards=np.asarray(shards, np.int64),
+                 stream=np.asarray(CHECKPOINT_STREAM), **extra)
+    os.replace(tmp, final)
+
+
+def _load_checkpoint(path, n_pix, chunk, seed, with_acc2=False, clamp=None,
+                     shards=(1, 1), device="cpu"):
+    """(acc, chunks_done, acc2 or None) on `device` from a checkpoint, or
+    None to restart: no file, another sample stream (a checkpoint without
+    `stream`, such as the JAX package's), or another chunk, seed, pixel
+    count, shard layout or clamp, or no acc2 when adaptive sampling needs
+    it (raytracer_tpu/core/scene.py:814-842)."""
+    path = _ckpt_path(path)
+    if not os.path.exists(path):
+        return None
+    z = np.load(path)
+    if "stream" not in z.files or str(z["stream"]) != CHECKPOINT_STREAM:
+        return None
+    if int(z["chunk"]) != chunk or int(z["seed"]) != seed \
+            or z["acc"].shape[0] != n_pix:
+        return None
+    old_shards = (tuple(int(s) for s in z["shards"])
+                  if "shards" in z.files else (1, 1))
+    if old_shards != tuple(shards):
+        return None
+    # a resume under another clamp would mix two estimators in one
+    # accumulator
+    old_clamp = float(z["clamp"]) if "clamp" in z.files else float("nan")
+    new_clamp = float("nan") if clamp is None else float(clamp)
+    if not (old_clamp == new_clamp or (np.isnan(old_clamp)
+                                       and np.isnan(new_clamp))):
+        return None
+    if with_acc2 and "acc2" not in z.files:
+        return None
+    acc2 = torch.from_numpy(z["acc2"]).to(device) if with_acc2 else None
+    return torch.from_numpy(z["acc"]).to(device), int(z["chunks_done"]), acc2

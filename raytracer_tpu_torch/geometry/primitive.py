@@ -62,6 +62,10 @@ class Primitive:
         theta = θ if θ is not None else theta
         axis = u if u is not None else axis
         self._apply_rotation(rotation_matrix(theta, axis))
+        # for scene export (scene_io): replaying the list rebuilds the
+        # rotated parameters with the same float operations
+        self._rotations = getattr(self, "_rotations", []) + [
+            (float(theta), [float(c) for c in as_float3(axis, "axis")])]
         return self
 
     def _apply_rotation(self, M):

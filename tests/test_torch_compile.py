@@ -21,6 +21,7 @@ from raytracer_tpu.core.compile import compile_scene as jax_compile
 from raytracer_tpu_torch.core.camera import cam_vec
 from raytracer_tpu_torch.core.compile import compile_scene
 from raytracer_tpu_torch.interop import static_from_jax, tables_from_jax
+from raytracer_tpu_torch.utils.image_io import load_hdr, save_hdr
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_scenes import (box_and_plane, cornell, emissive, glass,  # noqa: E402
@@ -78,7 +79,9 @@ def test_aa_planes_detected_as_in_jax():
 
 def test_out_of_slice_scenes_raise():
     sc = emissive(T)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # .hdr environments load now (tests/test_torch_hdr.py); a missing file
+    # is looked up on the asset path and not found
+    with pytest.raises(FileNotFoundError, match="sky.hdr"):
         sc.add_Background("sky.hdr")
     with pytest.raises(NotImplementedError, match="item 8"):
         T.Diffuse(diff_color=T.rgb(1, 1, 1), normalmap=np.zeros((2, 2, 3)))
@@ -102,3 +105,63 @@ def test_out_of_slice_scenes_raise():
         compile_scene(sc)
     with pytest.raises(NotImplementedError, match="item 8"):
         too_many_objects(T).render(samples_per_pixel=1, device="cpu")
+
+
+def _env_scene(m, path, spherical=True, blur=0.0, light=0.0):
+    sc = m.Scene()
+    sc.add_Camera(look_from=m.vec3(0, 0, 0), look_at=m.vec3(0, 0, -1),
+                  screen_width=8, screen_height=8)
+    sc.add_Background(str(path), spherical=spherical, blur=blur,
+                      light_intensity=light)
+    return sc
+
+
+def _hdr_env(tmp_path, bright=True):
+    env = np.full((8, 16, 3), 5.0 if bright else 0.5, np.float32)
+    env[:, :, 1] = 2.0 if bright else 0.2
+    env[2, 3] = 300.0 if bright else 0.9
+    p = tmp_path / ("env.hdr" if bright else "dim.rgbe")
+    save_hdr(env, p)
+    return p
+
+
+@pytest.mark.parametrize("case", ["panorama", "dim-rgbe", "skybox-blur",
+                                  "panorama-blur-light"])
+def test_hdr_environment_compiles_as_jax(tmp_path, case):
+    """A Radiance .hdr environment: linear radiance, no sRGB EOTF,
+    `is_hdr` set as for a linear ndarray, bright maps in RGB9E5 words,
+    and the tables bit for bit the JAX package's."""
+    p = _hdr_env(tmp_path, bright=case != "dim-rgbe")
+    kw = dict(spherical=not case.startswith("skybox"),
+              blur=2.0 if "blur" in case else 0.0,
+              light=0.7 if "light" in case else 0.0)
+    port, ref = _env_scene(T, p, **kw), _env_scene(J, p, **kw)
+    mat, jmat = port.scene_primitives[0].material, ref.scene_primitives[0].material
+    assert mat.is_hdr and jmat.is_hdr
+    assert np.array_equal(mat.texture, jmat.texture)
+    assert np.array_equal(mat.texture, load_hdr(p))
+    for attr in ("blur_texture", "lightmap"):
+        a, b = getattr(mat, attr), getattr(jmat, attr)
+        assert (a is None) == (b is None), attr
+        if a is not None:
+            assert np.array_equal(a, b), attr
+    static, tables = compile_scene(port)
+    j_static, j_tables = tables_from_jax(*jax_compile(ref))
+    assert static == j_static
+    assert static.pallas_tex_ok and not static.pallas_ok
+    for name in tables.TENSORS:
+        a, b = getattr(tables, name), getattr(j_tables, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    # bright maps take RGB9E5 words, dim ones the 10-10-10 words, exactly
+    # as the same map given as a linear ndarray
+    assert static.tex_enc[0] == (1 if case != "dim-rgbe" else 0)
+    arr = T.Scene()
+    arr.add_Camera(look_from=T.vec3(0, 0, 0), look_at=T.vec3(0, 0, -1),
+                   screen_width=8, screen_height=8)
+    arr.add_Background(load_hdr(p), spherical=kw["spherical"],
+                       blur=kw["blur"], light_intensity=kw["light"],
+                       linear=True)
+    a_static, a_tables = compile_scene(arr)
+    assert arr.scene_primitives[0].material.is_hdr
+    assert a_static.tex_enc == static.tex_enc
+    assert torch.equal(a_tables.atlas, tables.atlas)
