@@ -44,15 +44,20 @@ checkout and drives both render paths:
   launch counts set to 0 just before and read just after: Cornell
   400x400 rendered to 128 spp with a checkpoint every 4 chunks, then to
   256 spp from that checkpoint (it must resume at chunk 99 and equal the
-  uninterrupted 256-spp render bit for bit); Cornell with target_noise
-  0.01 and a 256-spp budget (the noise target met or the budget spent);
-  example 2 with with_variance (the image bit for bit the one without,
-  the variance finite and >= 0); render_environment of Cornell at 512x256
-  x 16 spp (the solid kernel), written with save_hdr and read back as a
-  Panorama behind a glossy sphere (the record kernel); the JSON scene
-  examples/example_scene.json at its own 400x300 x 16 spp (the solid
-  kernel); a preview PNG (the returned image, bit for bit) and a
-  torch.profiler trace that names the solid kernel.  Its files go to
+  uninterrupted 256-spp render bit for bit); Cornell with a 256-spp
+  budget and target_noise 0.01 (out of reach: the budget spent) and 0.02
+  (met before the budget), the last noise estimate recomputed on the CPU
+  from the same moments, over the frame and over a fisheye circle, within
+  1e-6; example 2 with with_variance (the image bit for bit the one
+  without, the variance finite and >= 0); render_environment of Cornell
+  at 512x256 x 16 spp (the solid kernel), written with save_hdr and read
+  back as a Panorama behind a glossy sphere (the record kernel); the JSON
+  scene examples/example_scene.json at its own 400x300 x 16 spp (the
+  solid kernel); a preview PNG (the returned image, bit for bit) and a
+  torch.profiler trace that names the solid kernel.  After each of these
+  runs, the first chunk each kernel ran in it (its arguments as
+  Scene.render passed them: that path's chunk shape, seed and tables) is
+  held against the plain version bit for bit.  Its files go to
   build/chip_smoke/ (ignored by git);
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
@@ -107,7 +112,9 @@ NEW_REF_CHUNKS = 2
 # target and budget, the environment bake and the .hdr scene, the JSON
 # scene's samples, the preview and profiled renders' samples
 RESUME_SPP, RESUME_EVERY = 128, 4
-TARGET_NOISE = 0.01
+TARGET_NOISE = 0.01                   # out of reach within the budget
+REACH_NOISE = 0.02                    # met at about half the budget
+NOISE_ATOL = 1e-6                     # the card's noise_q99 against the CPU's
 ENV_W, ENV_H, ENV_SPP = 512, 256, 16
 HDR_W, HDR_H, HDR_SPP = 400, 300, 16
 JSON_SPP = 16
@@ -202,6 +209,22 @@ def record_check(torch, name, args):
     require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
     require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
     require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite L")
+    return max_err, (f"match {rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err "
+                     f"{max_err:.3e} | rays_traced {n_k} vs {n_p}")
+
+
+def solid_check(torch, name, args):
+    """The solid kernel against its plain version on one chunk: every
+    ray's L bit for bit, rays_traced identical, L finite.  Returns (max
+    abs error, line fragment)."""
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    L_k, n_k = st.solid_trace_chunk(*args)
+    L_p, n_p = st.solid_trace_chunk_reference(*args)
+    rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
+    require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
+    require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
+    require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
     return max_err, (f"match {rate:.6f}, bit-equal {bit_eq:.6f}, max_abs_err "
                      f"{max_err:.3e} | rays_traced {n_k} vs {n_p}")
 
@@ -382,26 +405,15 @@ def plain_L(torch, static, args):
 def kernel_vs_plain(torch, dev, name, width, height, spp, seed):
     """One chunk of scene `name` through its kernel and its plain version
     on the same inputs, bit for bit; returns the max abs error of L."""
-    from raytracer_tpu_torch.ops import solid_trace as st
-
     sc = new_scene(name, width, height)
     static, settings, args = chunk_args(torch, dev, sc, spp, seed)
     n = spp * width * height
     head = (f"{name} {width}x{height} x {spp} spp ({settings.projection}, "
             f"split_k {settings.split_k}, max_bounces {settings.max_bounces})")
-    if not static.pallas_ok:
-        max_err, line = record_check(torch, name, args)
-        print(f"record kernel vs plain, {head}: {n} rays | {line}", flush=True)
-        return max_err
-    L_k, n_k = st.solid_trace_chunk(*args)
-    L_p, n_p = st.solid_trace_chunk_reference(*args)
-    rate, max_err, bit_eq, n_k, n_p = compare(L_k, L_p, n_k, n_p)
-    print(f"solid kernel vs plain, {head}: {n} rays | match {rate:.6f}, "
-          f"bit-equal {bit_eq:.6f}, max_abs_err {max_err:.3e} | "
-          f"rays_traced {n_k} vs {n_p}", flush=True)
-    require(bit_eq == 1.0, f"{name}: bit-equal share {bit_eq} < 1")
-    require(n_k == n_p, f"{name}: rays_traced {n_k} != {n_p}")
-    require(bool(torch.isfinite(L_k).all()), f"{name}: non-finite kernel output")
+    check = solid_check if static.pallas_ok else record_check
+    max_err, line = check(torch, name, args)
+    print(f"{'solid' if static.pallas_ok else 'record'} kernel vs plain, {head}: "
+          f"{n} rays | {line}", flush=True)
     return max_err
 
 
@@ -625,16 +637,34 @@ def hdr_scene(path):
     return sc
 
 
+def hold_chunk(torch, name, solid, args):
+    """A chunk's kernel launch held against its plain version on the same
+    arguments (those Scene.render gave the kernel), bit for bit, with
+    rays_traced identical; prints one line, returns the max abs error."""
+    max_err, line = (solid_check if solid else record_check)(torch, name, args)
+    W, H, spp = args[-7:-4]
+    print(f"slice {'solid' if solid else 'record'} kernel vs plain, {name}: "
+          f"{spp} spp x {W}x{H} = {spp * W * H} rays (seed "
+          f"{args[0].tolist()}) | {line}", flush=True)
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def slice_phases(torch, dev, cornell_img):
     """Scene.render's options, render_environment, .hdr files and JSON
     scenes on the card, one line each; each check is driven with both
-    launch counts set to 0 just before it and read just after.  cornell_img
-    is the main path's uninterrupted 256-spp Cornell render (seed 0).
-    Returns the launches of (solid kernel, record kernel) in these runs."""
+    launch counts set to 0 just before it and read just after, and the
+    first chunk each kernel ran in it is then held against its plain
+    version at that shape and seed.  cornell_img is the main path's
+    uninterrupted 256-spp Cornell render (seed 0).  Returns the launches
+    of (solid kernel, record kernel) in these runs and the max abs error
+    of each kernel's held chunks."""
     import numpy as np
     import torch_textured
     from PIL import Image
     from raytracer_tpu_torch import load_scene_file, save_hdr
+    from raytracer_tpu_torch.core import scene as tscene
+    from raytracer_tpu_torch.core.camera import projection_mask
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
@@ -643,20 +673,44 @@ def slice_phases(torch, dev, cornell_img):
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     totals = [0, 0]
+    errs = [[0.0], [0.0]]
+    wrappers = ("solid_trace_chunk", "record_trace_chunk")
 
-    def driven(fn):
-        """fn() with both launch counts set to 0 just before; returns its
-        result, the (solid, record) launches and the wall seconds."""
-        st.solid_trace_chunk.launches = 0
-        rt.record_trace_chunk.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = (st.solid_trace_chunk.launches, rt.record_trace_chunk.launches)
+    def driven(name, fn):
+        """fn() with both launch counts set to 0 just before; the counts
+        are read just after, then the first chunk of each kernel (its
+        arguments as Scene.render passed them) is held against the plain
+        version.  Returns fn's result, the (solid, record) launches and
+        the wall seconds."""
+        real = {w: getattr(tscene, w) for w in wrappers}
+        first = {}
+
+        def spy(w):
+            def call(*args):
+                first.setdefault(w, args)
+                return real[w](*args)
+            return call
+
+        for w in wrappers:
+            setattr(tscene, w, spy(w))
+        try:
+            st.solid_trace_chunk.launches = 0
+            rt.record_trace_chunk.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = (st.solid_trace_chunk.launches, rt.record_trace_chunk.launches)
+        finally:
+            for w in wrappers:
+                setattr(tscene, w, real[w])
         totals[0] += n[0]
         totals[1] += n[1]
+        for i, w in enumerate(wrappers):
+            if w in first:
+                errs[i].append(hold_chunk(torch, f"{name}, first chunk",
+                                          i == 0, first[w]))
         return out, n, wall
 
     def finite(a, name):
@@ -669,13 +723,13 @@ def slice_phases(torch, dev, cornell_img):
     chunk, n_half = plan_chunks(RESUME_SPP * fan, W, H)
     _, n_full = plan_chunks(SPP * fan, W, H)
     ck = WORK / "cornell_resume.npz"
-    (_, st1), n1, wall1 = driven(lambda: sc.render(
+    (_, st1), n1, wall1 = driven("resume 128 spp", lambda: sc.render(
         RESUME_SPP, output="linear", checkpoint_path=ck,
         checkpoint_every=RESUME_EVERY, return_stats=True, device=dev))
     require(n1 == (n_half, 0), f"resume: first render launches {n1}")
     done = int(np.load(ck)["chunks_done"])
     require(done == n_half, f"resume: checkpoint at chunk {done}, not {n_half}")
-    (img, st2), n2, wall2 = driven(lambda: sc.render(
+    (img, st2), n2, wall2 = driven("resume 256 spp", lambda: sc.render(
         SPP, output="linear", checkpoint_path=ck, checkpoint_every=RESUME_EVERY,
         return_stats=True, device=dev))
     require(n2 == (n_full - done, 0), f"resume: resumed render launches {n2}")
@@ -687,23 +741,63 @@ def slice_phases(torch, dev, cornell_img):
           f"uninterrupted {SPP}-spp render: {same}", flush=True)
     require(same, "resume: the resumed image differs from the uninterrupted one")
 
-    # ---- adaptive: Cornell to a noise target within a 256-spp budget ----
-    (img, stats), n, wall = driven(lambda: build_cornell(W, H).render(
-        SPP, output="linear", target_noise=TARGET_NOISE, return_stats=True,
-        device=dev))
-    finite(img, "adaptive")
-    spent = stats["samples"] == n_full * chunk
-    print(f"slice adaptive: Cornell {W}x{H}, target_noise {TARGET_NOISE}, budget "
-          f"{SPP} spp ({n_full * chunk} samples) | {stats['samples']} samples in "
-          f"{n[0]} chunks, noise_q99 {stats['noise_q99']:.6f}, budget spent: "
-          f"{spent} | wall {wall:.4f} s", flush=True)
-    require(n == (stats["samples"] // chunk, 0), f"adaptive: launches {n}")
-    require(stats["noise_q99"] <= TARGET_NOISE or spent,
-            "adaptive: neither the target met nor the budget spent")
+    # ---- adaptive: Cornell to a noise target within a 256-spp budget:
+    # one target out of reach (the budget spent), one met early; the last
+    # noise estimate of the second is recomputed on the CPU ----
+    checks = []
+    real_noise = tscene._noise_q99
+
+    def noise_spy(acc, acc2, k, chunk_, pmask=None):
+        out = real_noise(acc, acc2, k, chunk_, pmask)
+        checks.append((acc.clone(), acc2.clone(), k, chunk_, out))
+        return out
+
+    tscene._noise_q99 = noise_spy
+    try:
+        for target in (TARGET_NOISE, REACH_NOISE):
+            checks.clear()
+            (img, stats), n, wall = driven(
+                f"adaptive target {target}", lambda: build_cornell(W, H).render(
+                    SPP, output="linear", target_noise=target,
+                    return_stats=True, device=dev))
+            finite(img, "adaptive")
+            q99 = stats["noise_q99"]
+            spent = stats["samples"] == n_full * chunk
+            print(f"slice adaptive: Cornell {W}x{H}, target_noise {target}, "
+                  f"budget {SPP} spp ({n_full * chunk} samples) | "
+                  f"{stats['samples']} samples in {n[0]} chunks, {len(checks)} "
+                  f"noise checks, noise_q99 {q99:.6f}, budget spent: {spent} | "
+                  f"wall {wall:.4f} s", flush=True)
+            require(n == (stats["samples"] // chunk, 0), f"adaptive: launches {n}")
+            require(np.isfinite(q99) and q99 == float(checks[-1][-1]),
+                    f"adaptive: noise_q99 {q99}, last check {checks[-1][-1]}")
+            if target == TARGET_NOISE:
+                require(q99 <= target or spent,
+                        "adaptive: neither the target met nor the budget spent")
+            else:
+                require(q99 <= target and not spent,
+                        f"adaptive: target {target} not met before the budget")
+    finally:
+        tscene._noise_q99 = real_noise
+    # the card's noise estimate against the CPU's on the same moments,
+    # over the whole frame and over a fisheye circle's pixels
+    acc, acc2, k, chunk_, _ = checks[-1]
+    mask = torch.from_numpy(projection_mask("fisheye", W, H))
+    diffs = []
+    for pmask in (None, mask):
+        card = float(real_noise(acc, acc2, k, chunk_,
+                                None if pmask is None else pmask.to(dev)))
+        cpu = float(real_noise(acc.cpu(), acc2.cpu(), k, chunk_, pmask))
+        diffs.append(abs(card - cpu))
+        require(np.isfinite(card) and diffs[-1] <= NOISE_ATOL,
+                f"adaptive: card noise_q99 {card} vs CPU {cpu}")
+    print(f"slice adaptive noise estimate: card against CPU after {int(k)} "
+          f"chunks, |diff| {diffs[0]:.3e} (frame), {diffs[1]:.3e} (fisheye "
+          f"circle; tolerance {NOISE_ATOL})", flush=True)
 
     # ---- variance: example 2 through the record kernel ----
     ex2 = torch_textured.example2(REC_W, REC_H)
-    (lin, var), n, wall = driven(lambda: ex2.render(
+    (lin, var), n, wall = driven("variance", lambda: ex2.render(
         REC_SPP, output="linear", with_variance=True, device=dev))
     plain = ex2.render(REC_SPP, output="linear", device=dev)
     finite(var, "variance")
@@ -719,9 +813,10 @@ def slice_phases(torch, dev, cornell_img):
 
     # ---- the environment bake, saved as .hdr, behind a glossy sphere ----
     center = (278.0, 278.0, -278.0)
-    env, n, wall_env = driven(lambda: build_cornell(W, H).render_environment(
-        width=ENV_W, height=ENV_H, samples_per_pixel=ENV_SPP, center=center,
-        device=dev))
+    env, n, wall_env = driven("environment", lambda: build_cornell(
+        W, H).render_environment(width=ENV_W, height=ENV_H,
+                                 samples_per_pixel=ENV_SPP, center=center,
+                                 device=dev))
     require(env.shape == (ENV_H, ENV_W, 3), f"environment shape {env.shape}")
     finite(env, "environment")
     require(n[0] > 0 and n[1] == 0, f"environment: launches {n}")
@@ -731,7 +826,7 @@ def slice_phases(torch, dev, cornell_img):
     static = sc_hdr._settings_for_render()[0]
     require(static.pallas_tex_ok and not static.pallas_ok,
             "the .hdr scene does not take the record kernel")
-    (img, stats), n_hdr, wall_hdr = driven(lambda: sc_hdr.render(
+    (img, stats), n_hdr, wall_hdr = driven(".hdr panorama", lambda: sc_hdr.render(
         HDR_SPP, output="linear", return_stats=True, device=dev))
     finite(img, ".hdr scene")
     print(f"slice environment: Cornell render_environment {ENV_W}x{ENV_H} x "
@@ -752,7 +847,7 @@ def slice_phases(torch, dev, cornell_img):
             "example_scene.json: not the solid kernel at 400x300")
     _, n_json_chunks = plan_chunks(JSON_SPP * sc_json._diffuse_fan()
                                    * (1 << settings.split_k), jw, jh)
-    (img, stats), n, wall = driven(lambda: sc_json.render(
+    (img, stats), n, wall = driven("JSON scene", lambda: sc_json.render(
         JSON_SPP, output="linear", return_stats=True, device=dev))
     finite(img, "example_scene.json")
     print(f"slice JSON scene: examples/example_scene.json {jw}x{jh} x {JSON_SPP} "
@@ -764,11 +859,11 @@ def slice_phases(torch, dev, cornell_img):
 
     # ---- a preview, and a profiled render ----
     pv = WORK / "preview.png"
-    img, n, wall = driven(lambda: build_cornell(W, H).render(
+    img, n, wall = driven("preview", lambda: build_cornell(W, H).render(
         PREVIEW_SPP, preview_path=pv, preview_every=4, device=dev))
     same = bool(np.array_equal(np.asarray(Image.open(pv)), np.asarray(img)))
     prof = WORK / "profile"
-    _, n_prof, wall_prof = driven(lambda: build_cornell(W, H).render(
+    _, n_prof, wall_prof = driven("profile", lambda: build_cornell(W, H).render(
         PROFILE_SPP, output="linear", profile_dir=prof, device=dev))
     traces = list(prof.glob("*.pt.trace.json"))
     require(len(traces) == 1, f"profile: {len(traces)} traces")
@@ -785,7 +880,7 @@ def slice_phases(torch, dev, cornell_img):
     require(len(named) == n_prof[0],
             f"profile: {len(named)} solid_trace events for {n_prof[0]} launches")
     print(f"slice phases: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return tuple(totals)
+    return tuple(totals), (max(errs[0]), max(errs[1]))
 
 
 def main():
@@ -933,9 +1028,12 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- the render options, render_environment, .hdr and JSON scenes ----
-    solid_n, record_n = slice_phases(torch, dev, cornell_img)
+    (solid_n, record_n), (solid_err, record_err) = slice_phases(torch, dev,
+                                                                cornell_img)
     solid_row["launches"] += solid_n
     record_row["launches"] += record_n
+    solid_row["max_abs_err"] = max(solid_row["max_abs_err"], solid_err)
+    record_row["max_abs_err"] = max(record_row["max_abs_err"], record_err)
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

@@ -45,9 +45,6 @@ MAX_RAYS_PER_CHUNK = 1 << 22
 # cap on samples per chunk (raytracer_tpu/core/scene.py:441-448); it also
 # keeps per-chunk sample streams equal to the JAX package's
 MAX_CHUNK_SPP = 128
-# the largest input torch.quantile takes: the most pixels adaptive
-# sampling can judge (a 4K frame is 8.3 M)
-MAX_NOISE_PIXELS = 1 << 24
 # names the sample stream of the port's chunks (chunk_seeds) in its
 # checkpoints: a checkpoint without it (the JAX package's, whose chunks
 # are seeded by threefry keys) is never resumed
@@ -247,10 +244,6 @@ class Scene:
         chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
         # the noise estimate needs >= 2 chunks (scene.py:478-479)
         adaptive = target_noise is not None and n_chunks >= 2
-        if adaptive and W * H > MAX_NOISE_PIXELS:
-            raise ValueError(
-                f"target_noise judges at most {MAX_NOISE_PIXELS} pixels "
-                f"(torch.quantile's limit); this frame has {W * H}")
 
         device = _resolve_device(device)
         tables = tables.to(device)
@@ -450,8 +443,7 @@ def _noise_q99(acc, acc2, k, chunk, pmask=None):
     threshold means the same visible grain in shadows and highlights.
     Returns the 99th percentile over pixels (a 0-dim tensor on acc's
     device); with a fisheye `pmask`, over the visible pixels only.
-    (raytracer_tpu/core/scene.py:197-218; torch.quantile's default linear
-    interpolation is jnp.quantile's.)
+    (raytracer_tpu/core/scene.py:197-218.)
     """
     kt = torch.tensor(float(k), dtype=torch.float32, device=acc.device)
     M = acc / (kt * float(chunk))
@@ -463,9 +455,33 @@ def _noise_q99(acc, acc2, k, chunk, pmask=None):
     if pmask is not None:
         # judge convergence on the visible pixels: the traced content
         # outside the image circle is zeroed at output
-        return torch.nanquantile(
-            torch.where(pmask > 0, e, torch.full_like(e, float("nan"))), 0.99)
-    return torch.quantile(e, 0.99)
+        return _quantile(torch.where(pmask > 0, e, float("nan")), 0.99,
+                         skip_nan=True)
+    return _quantile(e, 0.99)
+
+
+def _quantile(x, q, skip_nan=False):
+    """The q-quantile of x's entries with linear interpolation, as
+    jnp.quantile computes it (jnp.nanquantile with skip_nan: over the
+    entries that are not NaN, NaN if none are; else NaN if any is):
+    one sort, the rank q * (n - 1) in float32, and the two entries around
+    it weighted.  A 0-dim tensor on x's device, with no host sync and no
+    limit on x's size (torch.quantile takes at most 2^24 entries)."""
+    v = torch.sort(x.reshape(-1)).values        # NaNs sort last
+    if skip_nan:
+        n = (~torch.isnan(v)).sum(dtype=torch.float32)
+    else:
+        n = torch.tensor(float(v.numel()), dtype=torch.float32, device=v.device)
+    rank = q * (n - 1.0)
+    low, high = torch.floor(rank), torch.ceil(rank)
+    w_high = rank - low
+    w_low = 1.0 - w_high
+    low = torch.clamp_min(torch.minimum(low, n - 1.0), 0.0).long()
+    high = torch.clamp_min(torch.minimum(high, n - 1.0), 0.0).long()
+    out = torch.take(v, low) * w_low + torch.take(v, high) * w_high
+    if not skip_nan:
+        out = torch.where(torch.isnan(v[-1]), v[-1], out)
+    return out
 
 
 def _ckpt_path(path):

@@ -94,6 +94,31 @@ def test_noise_q99_matches_jax(J, projection, k, chunk):
     assert abs(float(got) - float(want)) <= 1e-6
 
 
+def _quantile_input(n, nans, seed=3):
+    x = np.random.default_rng(seed).gamma(0.7, 0.02, n).astype(np.float32)
+    x[:: max(1, n // max(nans, 1))][:nans] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("skip_nan", [False, True])
+@pytest.mark.parametrize("n,nans", [(1, 0), (2, 0), (7, 0), (480, 0),
+                                    (480, 3), (7, 7), (160000, 0),
+                                    (160000, 2500)])
+def test_quantile_matches_jax(J, n, nans, skip_nan):
+    """_quantile against jnp.quantile / jnp.nanquantile on the same
+    float32 vector: NaNs, all NaN, and a frame's worth of pixels."""
+    import jax.numpy as jnp
+
+    x = _quantile_input(n, nans)
+    got = tscene._quantile(torch.from_numpy(x), 0.99, skip_nan=skip_nan)
+    want = float((jnp.nanquantile if skip_nan else jnp.quantile)(
+        jnp.asarray(x), 0.99))
+    assert got.shape == () and got.dtype == torch.float32
+    assert np.isnan(float(got)) == np.isnan(want)
+    if not np.isnan(want):
+        assert abs(float(got) - want) <= 1e-6
+
+
 @pytest.mark.parametrize("n", [1, 2, 7, 520])
 def test_variance_formula_matches_jax(n):
     """_variance_of_mean against raytracer_tpu/core/scene.py:643-652,
@@ -306,9 +331,11 @@ def test_adaptive_needs_two_chunks_and_fits_quantile():
     _, stats = render(noisy(), 4, batch_size=4, seed=1, return_stats=True,
                       target_noise=0.1)
     assert "noise_q99" not in stats and stats["samples"] == 4
-    big = noisy(W=4097, H=4097)
-    with pytest.raises(ValueError, match="target_noise"):
-        big.render(2, batch_size=1, target_noise=0.1, device="cpu")
+    # a frame past torch.quantile's 2^24 entries is judged, not refused:
+    # the quantile of a 4097 x 4097 frame's errors, against numpy's
+    x = _quantile_input(4097 * 4097, 0, seed=5)
+    got = float(tscene._quantile(torch.from_numpy(x), 0.99))
+    assert abs(got - float(np.quantile(x, 0.99))) <= 1e-6
 
 
 def test_adaptive_judges_visible_fisheye_pixels(monkeypatch):
