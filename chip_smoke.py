@@ -5,7 +5,7 @@
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel and
 the record kernel, one nvcc per source, started together) from the
-checkout and drives both render paths:
+checkout and drives both kernel paths and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -59,6 +59,23 @@ checkout and drives both render paths:
   Scene.render passed them: that path's chunk shape, seed and tables) is
   held against the plain version bit for bit.  Its files go to
   build/chip_smoke/ (ignored by git);
+- the wavefront (core/integrator.py, plain torch on the card, no kernel
+  of its own): the grid of examples/torch_wavefront.py past the kernels'
+  gates (96 spheres, 98 objects) at 400x300 x 64 spp through
+  Scene.render three times with one seed (bit-equal, every chunk on
+  CUDA, no kernel launched), with its wall, Mrays/s and peak memory; the
+  grid at 46 spheres (48 objects, inside the gate) at 400x300 and
+  Cornell at 400x400, each at 64 spp through the solid kernel and
+  through use_pallas="never", timed, their image and 3x3 region means
+  within 4 standard errors (from one chunk's samples on each route)
+  plus the distance a last-bit change of the camera rays moves the
+  wavefront's (the reference's sphere test is sensitive to it from
+  afar; 0 on Cornell); one render each of the 98-object grid and of
+  Cornell on the wavefront under torch.profiler, with the device time of
+  each bounce stage (core/integrator.py's "wavefront.*" ranges); an
+  emissive scene through both routes, pixel for pixel;
+  Scene.get_distances of the 98-object grid on the card against the
+  CPU;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -119,6 +136,16 @@ ENV_W, ENV_H, ENV_SPP = 512, 256, 16
 HDR_W, HDR_H, HDR_SPP = 400, 300, 16
 JSON_SPP = 16
 PREVIEW_SPP, PROFILE_SPP = 16, 8
+# the wavefront: the grid of scripts/probe_obj_cap.py past the gate (96
+# spheres, 98 objects) and inside it (46 spheres, 48 objects), Cornell,
+# each at 64 spp; the emissive scene's samples; the regions a side of the
+# per-region hold; the card's depth AOV against the CPU's
+GRID_PAST, GRID_INSIDE = 96, 46
+GRID_W, GRID_H, WAVE_SPP = 400, 300, 64
+WAVE_CORNELL = 400, 400
+EMISSIVE_SPP = 16
+REGIONS = 3
+DIST_ATOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -883,6 +910,278 @@ def slice_phases(torch, dev, cornell_img):
     return tuple(totals), (max(errs[0]), max(errs[1]))
 
 
+def emissive_scene(width, height):
+    """An emissive rotated box on an emissive plane: nothing is drawn past
+    the camera's jitter, so both routes give the same pixels."""
+    import raytracer_tpu_torch as T
+
+    sc = T.Scene()
+    sc.add_Camera(look_from=T.vec3(0.3, 0.2, 3), look_at=T.vec3(0, 0, -1),
+                  screen_width=width, screen_height=height)
+    cb = T.Cuboid(material=T.Emissive(color=T.rgb(0.9, 0.4, 0.1)),
+                  center=T.vec3(0, 0, 0), width=1, height=2, length=1)
+    cb.rotate(θ=30, u=T.vec3(0, 1, 0))
+    sc.add(cb)
+    sc.add(T.Plane(material=T.Emissive(color=T.rgb(0.1, 0.2, 0.9)),
+                   center=T.vec3(0, -1, 0), width=50.0, height=50.0,
+                   u_axis=T.vec3(1, 0, 0), v_axis=T.vec3(0, 0, -1)))
+    return sc
+
+
+def timed_render(torch, dev, sc, spp, **kw):
+    """(linear image, stats, wall s) of one Scene.render on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, stats = sc.render(samples_per_pixel=spp, output="linear",
+                           return_stats=True, device=dev, **kw)
+    torch.cuda.synchronize()
+    return img, stats, time.perf_counter() - t0
+
+
+def region_samples(torch, L, chunk, width, height):
+    """(chunk, REGIONS**2 + 1) float64: each sample's mean over each
+    region of the frame, then over the frame."""
+    L = L.view(chunk, height, width, 3)
+    ys = [round(i * height / REGIONS) for i in range(REGIONS + 1)]
+    xs = [round(i * width / REGIONS) for i in range(REGIONS + 1)]
+    cols = [L[:, ys[i]:ys[i + 1], xs[j]:xs[j + 1]].mean(dim=(1, 2, 3))
+            for i in range(REGIONS) for j in range(REGIONS)]
+    return torch.stack(cols + [L.mean(dim=(1, 2, 3))], dim=1).double()
+
+
+def image_regions(img, width, height):
+    import numpy as np
+    ys = [round(i * height / REGIONS) for i in range(REGIONS + 1)]
+    xs = [round(i * width / REGIONS) for i in range(REGIONS + 1)]
+    return np.array([img[ys[i]:ys[i + 1], xs[j]:xs[j + 1]].mean()
+                     for i in range(REGIONS) for j in range(REGIONS)]
+                    + [img.mean()], np.float64)
+
+
+def renormalised(generate_rays):
+    """generate_rays with every direction multiplied by 1 / sqrt(|D|^2)
+    once more: a change in the last bits of the camera rays."""
+    import torch
+
+    def gen(*a, **k):
+        O, D = generate_rays(*a, **k)
+        s = D[:, 0] * D[:, 0] + D[:, 1] * D[:, 1] + D[:, 2] * D[:, 2]
+        return O, D * (1.0 / torch.sqrt(s))[:, None]
+    return gen
+
+
+def wavefront_stages(events):
+    """Device busy time (us) under each "wavefront.*" profiler range of a
+    Chrome trace: the kernel and copy time inside each of its
+    gpu_user_annotation events (an annotation spans its range's first to
+    last device event, idle gaps included)."""
+    import bisect
+    from collections import defaultdict
+    from torch_render_profile import DEVICE_CATS
+
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    starts = [lo for lo, _ in iv]
+    stages = defaultdict(float)
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
+                and str(e.get("name", "")).startswith("wavefront.")):
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            i = bisect.bisect_left(starts, lo)
+            while i < len(iv) and iv[i][0] < hi:
+                stages[e["name"][len("wavefront."):]] += min(iv[i][1], hi) - iv[i][0]
+                i += 1
+    return stages
+
+
+def stage_profile(torch, dev, name, sc, spp):
+    """One render of `sc` on the wavefront under torch.profiler: its wall,
+    device span, busy share and the device time of each bounce stage
+    (core/integrator.py's "wavefront.*" ranges), printed as one line."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch_render_profile import device_breakdown
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.render(samples_per_pixel=spp, output="linear", device=dev, seed=11)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / f"wavefront_profile_{name.split()[0].lower()}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    span, busy, per_name = device_breakdown(events)
+    stages = wavefront_stages(events)
+    require(stages.get("nearest_hit", 0) > 0, f"{name}: no wavefront stage "
+            "on the device in the profile")
+    parts = ", ".join(f"{k} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)" for k, t in
+                      sorted(stages.items(), key=lambda kv: -kv[1]))
+    print(f"wavefront profile: {name}, one render under torch.profiler | wall "
+          f"{wall:.4f} s, device span {span / 1e6:.4f} s, busy {busy / 1e6:.4f} s "
+          f"({100 * busy / span:.1f}% of span), "
+          f"{sum(c for _, c in per_name.values())} device events | by stage "
+          f"(share of busy): {parts}", flush=True)
+
+
+def wavefront_phase(torch, dev):
+    """The wavefront (core/integrator.py, plain torch on the card): the
+    98-object grid through Scene.render, twice bit-equal; the 48-object
+    grid and Cornell through both routes, held by image and region means;
+    an emissive scene pixel for pixel across the routes; the depth AOV on
+    the card against the CPU.  Returns the solid kernel's launches in the
+    kernel-route renders."""
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_wavefront
+    from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.core.camera import cam_vec
+    from raytracer_tpu_torch.core.scene import chunk_seeds, plan_chunks, route
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+    from torch_cornellbox import build_cornell
+
+    t_phase = time.perf_counter()
+    # ---- past the gate: the 98-object grid, twice with one seed ----
+    sc = torch_wavefront.grid(GRID_PAST, GRID_W, GRID_H)
+    static, _, settings = sc._settings_for_render()
+    require(static.n_objects == GRID_PAST + 2 and
+            route(static, settings) == "wavefront", "the grid does not take "
+            "the wavefront")
+    devices = []
+    trace = scene_mod.trace
+
+    def traced(*args, **kw):
+        devices.append(args[1].device.type)
+        return trace(*args, **kw)
+
+    scene_mod.trace = traced
+    st.solid_trace_chunk.launches = rt.record_trace_chunk.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        runs = [timed_render(torch, dev, sc, WAVE_SPP, seed=7) for _ in range(3)]
+    finally:
+        scene_mod.trace = trace
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    k_launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
+    chunk, n_chunks = plan_chunks(WAVE_SPP * sc._diffuse_fan(), GRID_W, GRID_H)
+    img, stats, _ = runs[1]
+    walls = [w for _, _, w in runs]
+    wall = statistics.median(walls[1:])
+    bit_equal = all(np.array_equal(r[0], runs[0][0]) for r in runs[1:])
+    print(f"wavefront past the gate: Scene.render grid of {GRID_PAST} spheres "
+          f"({static.n_objects} objects) {GRID_W}x{GRID_H} x {WAVE_SPP} spp, "
+          f"{n_chunks} chunks of {chunk} spp, {settings.max_bounces} bounces, "
+          f"{len(devices)} wavefront chunks on {sorted(set(devices))}, kernel "
+          f"launches {k_launches} | wall {wall:.4f} s (median of 2; "
+          f"{', '.join(f'{w:.4f}' for w in walls)}) | rays_traced "
+          f"{stats['rays_traced']} | {stats['rays_traced'] / wall / 1e6:.1f} "
+          f"Mrays/s | peak {peak_gib:.2f} GiB | image mean {img.mean():.6f} | "
+          f"three renders of seed 7 bit-equal: {bit_equal}", flush=True)
+    require(devices == ["cuda"] * (3 * n_chunks),
+            f"wavefront chunks ran on {devices}")
+    require(k_launches == 0, f"{k_launches} kernel launches on the wavefront")
+    require(bit_equal, "the same seed gave different images")
+    require(img.shape == (GRID_H, GRID_W, 3) and bool(np.isfinite(img).all()),
+            "grid image not finite or of the wrong shape")
+    stage_profile(torch, dev, f"grid of {GRID_PAST} spheres {GRID_W}x{GRID_H} x "
+                  f"{WAVE_SPP} spp", sc, WAVE_SPP)
+
+    # ---- the same estimator as the kernel: both routes, full size ----
+    solid_launches = 0
+    for name, build, (W, H) in (
+            (f"grid of {GRID_INSIDE}", lambda W, H: torch_wavefront.grid(
+                GRID_INSIDE, W, H), (GRID_W, GRID_H)),
+            ("Cornell", build_cornell, WAVE_CORNELL)):
+        sc = build(W, H)
+        static, tables, settings = sc._settings_for_render()
+        require(route(static, settings) == "solid", f"{name}: not the solid route")
+        st.solid_trace_chunk.launches = 0
+        k_img, k_stats, k_wall = timed_render(torch, dev, sc, WAVE_SPP, seed=3)
+        k_launches = st.solid_trace_chunk.launches
+        solid_launches += k_launches
+        sc.settings = T.RenderSettings(use_pallas="never")
+        _, _, w_settings = sc._settings_for_render()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        w_img, w_stats, w_wall = timed_render(torch, dev, sc, WAVE_SPP, seed=3)
+        w_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # the same render with the camera rays changed in their last bits:
+        # the reference's sphere test assumes |D| = 1, and from afar a
+        # last-bit norm error moves a hit past the next ray's nudge, so on
+        # some scenes the share of self-hits, and the image, follows the
+        # rounding (ROADMAP.md §3)
+        gen = scene_mod.generate_rays
+        scene_mod.generate_rays = renormalised(gen)
+        try:
+            r_img, _, _ = timed_render(torch, dev, sc, WAVE_SPP, seed=3)
+        finally:
+            scene_mod.generate_rays = gen
+        require(st.solid_trace_chunk.launches == k_launches,
+                f"{name}: the wavefront route launched the solid kernel")
+        fan = 1 << settings.split_k
+        chunk, n_chunks = plan_chunks(WAVE_SPP * sc._diffuse_fan() * fan, W, H, fan)
+        require(k_launches == n_chunks, f"{name}: {k_launches} launches for "
+                f"{n_chunks} chunks")
+        n_samples = chunk * n_chunks
+        # the scatter of one chunk's samples on each route
+        row = chunk_seeds(99, 1, chunk)[0]
+        L_k, _ = st.solid_trace_chunk(
+            torch.from_numpy(row).to(dev), tables.to(dev),
+            cam_vec(sc.camera.params()).to(dev), W, H, chunk,
+            settings.max_bounces, settings.split_k, settings.sampler,
+            settings.projection)
+        L_w, _ = scene_mod.wavefront_chunk(row, static, tables.data.to(dev),
+                                           sc.camera.params(), w_settings,
+                                           W, H, chunk)
+        se = torch.sqrt((region_samples(torch, L_k, chunk, W, H).var(dim=0)
+                         + region_samples(torch, L_w, chunk, W, H).var(dim=0))
+                        / n_samples).cpu().numpy()
+        del L_k, L_w
+        w_reg = image_regions(w_img, W, H)
+        diff = np.abs(image_regions(k_img, W, H) - w_reg)
+        sens = np.abs(image_regions(r_img, W, H) - w_reg)
+        z = diff / np.maximum(se, 1e-12)
+        print(f"wavefront vs solid kernel: {name} {W}x{H} x {WAVE_SPP} spp "
+              f"(x{sc._diffuse_fan()} fan), {n_chunks} chunks of {chunk} spp | "
+              f"kernel route {k_wall:.4f} s ({k_launches} launches, "
+              f"{k_stats['rays_traced'] / k_wall / 1e6:.1f} Mrays/s) | wavefront "
+              f"{w_wall:.4f} s ({w_stats['rays_traced'] / w_wall / 1e6:.1f} "
+              f"Mrays/s, peak {w_peak:.2f} GiB) | image mean {k_img.mean():.6f} "
+              f"vs {w_img.mean():.6f}, z {z[-1]:.2f} | {REGIONS}x{REGIONS} "
+              f"regions max z {z[:-1].max():.2f} | last-bit ray rounding moves "
+              f"the wavefront's mean by {sens[-1]:.6f} ({sens[-1] / se[-1]:.2f} "
+              f"SE), regions by up to {sens[:-1].max():.6f}", flush=True)
+        require((diff < 4 * se + sens).all(),
+                f"{name}: wavefront vs kernel z {z}, rounding {sens / se} SE")
+        if name == "Cornell":
+            stage_profile(torch, dev, f"Cornell {W}x{H} x {WAVE_SPP} spp", sc,
+                          WAVE_SPP)
+
+    # ---- deterministic scenes ----
+    W, H = GRID_W, GRID_H
+    sc = emissive_scene(W, H)
+    k_img, _, _ = timed_render(torch, dev, sc, EMISSIVE_SPP, seed=1)
+    sc.settings = T.RenderSettings(use_pallas="never")
+    w_img, _, _ = timed_render(torch, dev, sc, EMISSIVE_SPP, seed=1)
+    equal = float((k_img == w_img).all(axis=-1).mean())
+    sc = torch_wavefront.grid(GRID_PAST, W, H)
+    d_card = sc.get_distances(seed=2, device=dev, output="linear")
+    d_cpu = sc.get_distances(seed=2, device="cpu", output="linear")
+    d_err = np.abs(d_card - d_cpu)
+    within = float((d_err <= DIST_ATOL).all(axis=-1).mean())
+    print(f"wavefront deterministic: emissive box and plane {W}x{H} x "
+          f"{EMISSIVE_SPP} spp through both routes, pixel-equal {equal:.6f} | "
+          f"Scene.get_distances grid of {GRID_PAST} {W}x{H}, card vs CPU max "
+          f"abs {d_err.max():.3e}, within {DIST_ATOL}: {within:.6f} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    require(equal >= 0.999, f"emissive pixel-equal share {equal}")
+    require(within >= 0.999, f"depth AOV card vs CPU within {DIST_ATOL}: {within}")
+    return solid_launches
+
+
 def main():
     import torch
 
@@ -892,6 +1191,7 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "examples"))
+    sys.path.insert(0, str(ROOT / "scripts"))
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import solid_trace as st
@@ -1034,6 +1334,10 @@ def main():
     record_row["launches"] += record_n
     solid_row["max_abs_err"] = max(solid_row["max_abs_err"], solid_err)
     record_row["max_abs_err"] = max(record_row["max_abs_err"], record_err)
+    torch.cuda.empty_cache()
+
+    # ---- the wavefront: past the gates, and against the kernel ----
+    solid_row["launches"] += wavefront_phase(torch, dev)
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

@@ -10,7 +10,14 @@ textures, SkyBox / Panorama environments, thin films) through the record
 kernel, which traces, fetches the textures and integrates in one pass
 (ops/record_trace.py, csrc/record_trace.cu).  Both kernels are written by
 hand in CUDA; on the CPU their plain PyTorch versions run (on the record
-path: records, then the replay of ops/replay.py).  Around them:
+path: records, then the replay of ops/replay.py).  Scenes past both
+kernels' gates (more than 48 objects, more than 8 importance-sampled
+targets or more than 36 shading groups), and any scene under
+RenderSettings(use_pallas="never"), render through the wavefront
+integrator in plain PyTorch (core/integrator.py, geometry/intersect.py,
+geometry/attrs.py, materials/shade.py), which `Ray`, `get_raycolor`,
+`get_distances`, `first_hit` and `Scene.get_distances` also use.  Around
+them:
 checkpoints, adaptive sampling, the variance of the mean, previews,
 `Scene.render_environment`, JSON scenes (`scene_io`), Radiance `.hdr`
 files, and sightpy's sampling API (`core/rng.py`, `utils/random.py`).
@@ -25,6 +32,7 @@ from .backgrounds.blur import blur_skybox, blur_skybox_array
 from .backgrounds.environment import Panorama, SkyBox, procedural_sky
 from .core.camera import Camera
 from .core.integrator import RenderSettings
+from .core.ray import Hit, Ray, first_hit, get_distances, get_raycolor
 from .core.scene import Scene
 from .core.vec import array_to_vec3, extract, rgb, vec3
 from .geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Primitive,
@@ -52,7 +60,6 @@ sRGB_linear_to_sRGB = srgb_linear_to_srgb
 sRGB_to_sRGB_linear = srgb_to_srgb_linear
 load_image_as_linear_sRGB = load_image_as_linear_srgb
 
-_WAVEFRONT = "ROADMAP.md 'Modules to port' item 3 (wavefront A)"
 _MESHES = "ROADMAP.md 'Modules to port' item 4 (wavefront B: meshes)"
 _SHADING = ("ROADMAP.md 'Modules to port' item 5 (wavefront C: custom "
             "shading)")
@@ -61,8 +68,6 @@ _FEATURES = ("ROADMAP.md 'Modules to port' item 6 (features on the "
 # raytracer_tpu's public names that this package does not have yet, each
 # with the slice that brings it
 NOT_YET_PORTED = {
-    "Ray": _WAVEFRONT, "Hit": _WAVEFRONT, "get_raycolor": _WAVEFRONT,
-    "get_distances": _WAVEFRONT, "first_hit": _WAVEFRONT,
     "TriangleMesh": _MESHES, "MeshInstances": _MESHES, "Surface": _MESHES,
     "CustomMaterial": _SHADING, "ShadeOut": _SHADING,
     "default_shade_out": _SHADING,
@@ -82,6 +87,7 @@ def __getattr__(name):
 
 __all__ = [
     "Scene", "Camera", "RenderSettings", "vec3", "rgb", "np",
+    "Ray", "Hit", "get_raycolor", "get_distances", "first_hit",
     "PDF", "hemisphere_pdf", "cosine_pdf", "spherical_caps_pdf", "mixed_pdf",
     "random_in_unit_disk", "random_in_unit_sphere",
     "random_in_unit_spherical_cap", "random_in_unit_spherical_caps",

@@ -10,15 +10,19 @@ code, so every table matches it bit for bit (tests/test_torch_compile.py,
 tests/test_torch_textures.py).
 
 Object ids run spheres, planes, boxes, discs, cylinders, then triangles,
-in insertion order within each kind, as in the JAX package.  Scenes
-outside the ported slices (triangle meshes, mesh instances) raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+in insertion order within each kind, as in the JAX package.  Every scene
+also compiles to the wavefront's per-kind tables (`SceneData`,
+compile.py:319-480), whichever route it renders by.  Scenes outside the
+ported slices (triangle meshes, mesh instances, TRI_CLUSTER_THRESHOLD
+triangles or more) raise NotImplementedError naming the ROADMAP.md item
+that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -63,6 +67,15 @@ E5_PACK_LIMIT = 4.0
 _E5_BIAS = 15
 # largest composed thin-film table in texels (compile.py:662)
 TF_COMP_LIMIT = 2_000_000
+# triangle count from which the JAX package sweeps triangles in clusters
+# (compile.py:1162); the port's wavefront has the flat blocked sweep only
+TRI_CLUSTER_THRESHOLD = 1024
+# the word of ObjectTables.packed: type | slot << 3 | min(depth, 1023) << 13
+# | mc << 23 | shadow << 24 (compile.py:405-417)
+PACKED_SLOT_SHIFT = 3
+PACKED_DEPTH_SHIFT = 13
+PACKED_MC_SHIFT = 23
+PACKED_SHADOW_SHIFT = 24
 
 
 @dataclass(frozen=True)
@@ -134,6 +147,24 @@ class SceneStatic:
     tex_offsets: Tuple[int, ...]
     tex_enc: Tuple[int, ...]
     tf_selp: Tuple[Tuple[float, float, float, float], ...]
+    # the wavefront's facts: whether anything samples uv, and whether an
+    # environment is importance-sampled (its alias tables are ROADMAP.md
+    # item 5, so the wavefront raises on such a scene)
+    needs_uv: bool = False
+    env_is: bool = False
+
+    @cached_property
+    def kind_counts(self):
+        """{kind: object count} over KINDS (the JAX n_spheres ...)."""
+        return {k: sum(r.kind == k for r in self.obj_records) for k in KINDS}
+
+    @property
+    def has_shadow_objects(self):
+        return any(r.shadow for r in self.obj_records)
+
+    @property
+    def has_dispersion(self):
+        return any(self.refr_disp)
 
     def image_slots(self):
         """{(mat_type, slot)} of the slots that fetch an image texture."""
@@ -180,6 +211,9 @@ class SolidTables:
     n_is_targets: int
     obj_rows: Tuple[Tuple[int, ...], ...]
     n_lights: Tuple[int, int, int] = (0, 0, 0)
+    # the wavefront's tables (SceneData); `to` leaves them where they are,
+    # and the routes that read them move them with SceneData.to
+    data: Any = None
 
     TENSORS = ("geom", "obj", "dif", "glo", "refr", "emi", "tf", "lights",
                "is_tab", "consts", "atlas", "tex_scale", "fetch_i", "fetch_f")
@@ -187,6 +221,167 @@ class SolidTables:
     def to(self, device):
         return dataclasses.replace(
             self, **{k: getattr(self, k).to(device) for k in self.TENSORS})
+
+
+# ---------------------------------------------------------------------------
+# the wavefront's tables (compile.py:319-480): one struct of arrays per
+# primitive kind, in object-id order, and the per-object, material and
+# light tables; float32 and int32 tensors, on the CPU until `to`
+# ---------------------------------------------------------------------------
+
+
+class _Tables:
+    """A dataclass of tensors (or tuples of them) that moves as one."""
+
+    def to(self, device):
+        def mv(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device)
+            if isinstance(v, _Tables):
+                return v.to(device)
+            if isinstance(v, tuple):
+                return tuple(mv(x) for x in v)
+            return v
+        return dataclasses.replace(
+            self, **{f.name: mv(getattr(self, f.name))
+                     for f in dataclasses.fields(self)})
+
+
+@dataclass(frozen=True)
+class GeometryTables(_Tables):
+    """Per-kind geometry (the analytic and flat-triangle subset of the JAX
+    GeometryTables; its cluster, vertex-attribute and instance tables are
+    ROADMAP.md item 4)."""
+    sphere_center: torch.Tensor    # (S, 3)
+    sphere_radius: torch.Tensor    # (S,)
+    plane_center: torch.Tensor
+    plane_normal: torch.Tensor
+    plane_u_axis: torch.Tensor
+    plane_v_axis: torch.Tensor
+    plane_half_w: torch.Tensor
+    plane_half_h: torch.Tensor
+    plane_uv_shift: torch.Tensor   # (P, 2)
+    box_basis: torch.Tensor        # (B, 3, 3), rows = the box's axes
+    box_center: torch.Tensor
+    box_whl: torch.Tensor
+    box_lb_local: torch.Tensor
+    box_rt_local: torch.Tensor
+    disc_center: torch.Tensor
+    disc_normal: torch.Tensor
+    disc_u_axis: torch.Tensor
+    disc_v_axis: torch.Tensor
+    disc_r_out: torch.Tensor
+    disc_r_in: torch.Tensor
+    cyl_center: torch.Tensor
+    cyl_axis: torch.Tensor
+    cyl_u_axis: torch.Tensor
+    cyl_v_axis: torch.Tensor
+    cyl_radius: torch.Tensor
+    cyl_half_h: torch.Tensor
+    cyl_capped: torch.Tensor       # (C,) 0/1
+    tri_p1: torch.Tensor
+    tri_p2: torch.Tensor
+    tri_p3: torch.Tensor
+    tri_normal: torch.Tensor
+    tri_centroid: torch.Tensor
+    tri_n31: torch.Tensor
+    tri_n12: torch.Tensor
+    tri_n23: torch.Tensor
+
+
+@dataclass(frozen=True)
+class ObjectTables(_Tables):
+    mat_type: torch.Tensor   # (O,) int32
+    mat_slot: torch.Tensor   # (O,) int32, the row of the type's table
+    max_depth: torch.Tensor  # (O,) int32, at most 1023
+    mc: torch.Tensor         # (O,) bool
+    shadow: torch.Tensor     # (O,) bool
+    packed: torch.Tensor     # (O,) int32, see PACKED_*_SHIFT
+
+
+@dataclass(frozen=True)
+class MaterialTables(_Tables):
+    diffuse_color: torch.Tensor
+    diffuse_ambient_weight: torch.Tensor
+    glossy_color: torch.Tensor
+    glossy_n_re: torch.Tensor
+    glossy_n_im: torch.Tensor
+    glossy_roughness: torch.Tensor
+    glossy_spec: torch.Tensor
+    glossy_diff: torch.Tensor
+    refr_n_re: torch.Tensor
+    refr_n_im: torch.Tensor
+    refr_dispersive: torch.Tensor
+    tf_thickness: torch.Tensor
+    tf_noise: torch.Tensor
+    emissive_color: torch.Tensor
+    env_light_intensity: torch.Tensor
+
+
+@dataclass(frozen=True)
+class LightTables(_Tables):
+    dir_l: torch.Tensor
+    dir_color: torch.Tensor
+    point_pos: torch.Tensor
+    point_color: torch.Tensor
+    spot_pos: torch.Tensor
+    spot_dir: torch.Tensor
+    spot_color: torch.Tensor
+    spot_cos_in: torch.Tensor    # (S,) cos(inner half-angle)
+    spot_cos_out: torch.Tensor   # (S,) cos(outer half-angle)
+
+
+@dataclass(frozen=True)
+class SceneData(_Tables):
+    """The wavefront's scene tables (the JAX SceneData less the kernels'
+    packed rows and the environment alias tables).  textures: one
+    (H, W, 3) float32 tensor per registered texture, in atlas order."""
+    geom: GeometryTables
+    obj: ObjectTables
+    mats: MaterialTables
+    lights: LightTables
+    is_center: torch.Tensor      # (K, 3) importance-sampled targets
+    is_radius: torch.Tensor      # (K,)
+    textures: Tuple[torch.Tensor, ...]
+    ambient_color: torch.Tensor  # (3,)
+    scene_n_re: torch.Tensor     # (3,)
+    scene_n_im: torch.Tensor     # (3,)
+
+
+def _t(a, dtype=F32):
+    """A tensor of `a` as `dtype` (a writable copy)."""
+    return torch.from_numpy(np.array(a, dtype=dtype))
+
+
+# float32 texture tables, keyed by the identity of the host arrays (held)
+_TEX_F32_CACHE = {}
+
+
+def texture_f32(arr):
+    """(H, W, 3) float32 tensor of a texture: 2-D maps repeat into three
+    channels, extra channels drop (compile.py:81 `_texture_to_device`)."""
+    hit = _TEX_F32_CACHE.get(id(arr))
+    if hit is None:
+        a = np.asarray(arr, dtype=F32)
+        if a.ndim == 2:
+            a = a[..., None].repeat(3, axis=-1)
+        hit = (arr, torch.from_numpy(np.ascontiguousarray(a[..., :3])))
+        _TEX_F32_CACHE[id(arr)] = hit
+    return hit[1]
+
+
+def pack_objects(records):
+    """ObjectTables of the static records (compile.py:1500-1522)."""
+    col = lambda k, dt: np.asarray([getattr(r, k) for r in records], dt)
+    mt, sl = col("mat_type", I32), col("mat_slot", I32)
+    dep = np.minimum(col("max_depth", I32), 1023)
+    mc, sh = col("mc", bool), col("shadow", bool)
+    packed = (mt | (sl << PACKED_SLOT_SHIFT) | (dep << PACKED_DEPTH_SHIFT)
+              | (mc.astype(I32) << PACKED_MC_SHIFT)
+              | (sh.astype(I32) << PACKED_SHADOW_SHIFT))
+    return ObjectTables(mat_type=_t(mt, I32), mat_slot=_t(sl, I32),
+                        max_depth=_t(dep, I32), mc=_t(mc, bool),
+                        shadow=_t(sh, bool), packed=_t(packed, I32))
 
 
 def derive_max_bounces(static: SceneStatic, cap: int = 12) -> int:
@@ -665,8 +860,8 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
             raise NotImplementedError(
                 f"{type(prim).__name__} is not ported yet: only Sphere, Plane, "
                 "Cuboid, Disc, Cylinder and Triangle are; triangle meshes and "
-                "mesh instances come with the wavefront slice (ROADMAP.md "
-                "'Modules to port' item 8)")
+                "mesh instances come with ROADMAP.md 'Modules to port' item "
+                "4 (wavefront B)")
         mat = prim.material
         slot = reg.material_slot(mat)
         if isinstance(prim, Panorama):
@@ -722,6 +917,11 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
              + [prim.radius, prim.height / 2, 1.0 if prim.capped else 0.0])
     # triangles: p1, p2, p3, the unit normal and the edge normals n31, n12,
     # n23, vectorised over the float32 vertices (compile.py:1341, 1426-1431)
+    if len(by_kind["tri"]) >= TRI_CLUSTER_THRESHOLD:
+        raise NotImplementedError(
+            f"{len(by_kind['tri'])} triangles: scenes of "
+            f"{TRI_CLUSTER_THRESHOLD} or more need the clustered triangle "
+            "sweep, ROADMAP.md 'Modules to port' item 4 (wavefront B)")
     for _, p in by_kind["tri"]:
         _rec("tri", p)
     TV = (np.asarray([(t.p1, t.p2, t.p3) for t, _ in by_kind["tri"]], dtype=F32)
@@ -729,12 +929,52 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     P1, P2, P3 = TV[:, 0], TV[:, 1], TV[:, 2]
     nr = np.cross(P2 - P1, P3 - P1)
     nr_u = nr / np.maximum(np.linalg.norm(nr, axis=-1, keepdims=True), 1e-20)
+    tri_n = (np.cross(P3 - P1, nr_u), np.cross(P1 - P2, nr_u),
+             np.cross(P2 - P3, nr_u))
     tri_rows = np.zeros((TV.shape[0], 24), F32)
-    for j, part in enumerate((P1, P2, P3, nr_u, np.cross(P3 - P1, nr_u),
-                              np.cross(P1 - P2, nr_u), np.cross(P2 - P3, nr_u))):
+    for j, part in enumerate((P1, P2, P3, nr_u) + tri_n):
         tri_rows[:, 3 * j:3 * j + 3] = part
     geom = np.concatenate([np.stack(rows) if rows else np.zeros((0, 24), F32),
                            tri_rows]).astype(F32)
+
+    # ---- the wavefront's per-kind geometry (compile.py:1434-1479) ---------
+    g = {k: [q for q, _ in by_kind[k]] for k in KINDS}
+    s3 = lambda k, f: _stack3([np.asarray(f(q)) for q in g[k]])
+    a1 = lambda k, f: _arr1([f(q) for q in g[k]])
+    wgeom = GeometryTables(
+        sphere_center=_t(s3("sphere", lambda q: q.center)),
+        sphere_radius=_t(a1("sphere", lambda q: q.radius)),
+        plane_center=_t(s3("plane", lambda q: q.center)),
+        plane_normal=_t(s3("plane", lambda q: (lambda n: n / np.linalg.norm(n))(
+            np.cross(q.u_axis, q.v_axis)))),
+        plane_u_axis=_t(s3("plane", lambda q: q.u_axis)),
+        plane_v_axis=_t(s3("plane", lambda q: q.v_axis)),
+        plane_half_w=_t(a1("plane", lambda q: q.width / 2)),
+        plane_half_h=_t(a1("plane", lambda q: q.height / 2)),
+        plane_uv_shift=_t(np.stack([q.uv_shift for q in g["plane"]])
+                          if g["plane"] else np.zeros((0, 2), F32)),
+        box_basis=_t(np.stack([q.basis for q in g["box"]])
+                     if g["box"] else np.zeros((0, 3, 3), F32)),
+        box_center=_t(s3("box", lambda q: q.center)),
+        box_whl=_t(s3("box", lambda q: (q.width, q.height, q.length))),
+        box_lb_local=_t(s3("box", lambda q: q.lb_local)),
+        box_rt_local=_t(s3("box", lambda q: q.rt_local)),
+        disc_center=_t(s3("disc", lambda q: q.center)),
+        disc_normal=_t(s3("disc", lambda q: q.normal)),
+        disc_u_axis=_t(s3("disc", lambda q: q.u_axis)),
+        disc_v_axis=_t(s3("disc", lambda q: q.v_axis)),
+        disc_r_out=_t(a1("disc", lambda q: q.radius)),
+        disc_r_in=_t(a1("disc", lambda q: q.inner_radius)),
+        cyl_center=_t(s3("cyl", lambda q: q.center)),
+        cyl_axis=_t(s3("cyl", lambda q: q.axis)),
+        cyl_u_axis=_t(s3("cyl", lambda q: q.u_axis)),
+        cyl_v_axis=_t(s3("cyl", lambda q: q.v_axis)),
+        cyl_radius=_t(a1("cyl", lambda q: q.radius)),
+        cyl_half_h=_t(a1("cyl", lambda q: q.height / 2)),
+        cyl_capped=_t(a1("cyl", lambda q: 1.0 if q.capped else 0.0)),
+        tri_p1=_t(P1), tri_p2=_t(P2), tri_p3=_t(P3), tri_normal=_t(nr_u),
+        tri_centroid=_t((P1 + P2 + P3) / 3.0), tri_n31=_t(tri_n[0]),
+        tri_n12=_t(tri_n[1]), tri_n23=_t(tri_n[2]))
 
     # ---- material tables (compile.py:1529-1556) ---------------------------
     def solid_of(m, attr):
@@ -757,7 +997,12 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
         glossy_diff=_arr1([m.diff_coeff for m in glo]),
         refr_n_re=_stack3([np.real(m.n) for m in ref]),
         refr_n_im=_stack3([np.imag(m.n) for m in ref]),
+        refr_dispersive=_arr1([float(m.dispersion) for m in ref]),
+        tf_thickness=_arr1([m.thickness for m in tfi]),
+        tf_noise=_arr1([m.noise_factor for m in tfi]),
         emissive_color=_stack3([solid_of(m, "texture_color") for m in emi]),
+        env_light_intensity=_arr1([m.light_intensity for m in
+                                   reg.mat_rows.get(MAT_ENV, [])]),
     )
     tf_selp = tuple(_tf_sel_poly(m) for m in tfi)
     tf_rows = [sel + (m.thickness, m.noise_factor)
@@ -768,12 +1013,17 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     dlts = [l for l in scene.Light_list if hasattr(l, "Ldir")]
     plts = [l for l in scene.Light_list
             if hasattr(l, "pos") and not isinstance(l, SpotLight)]
-    lights = light_table(
-        _stack3([l.Ldir for l in dlts]), _stack3([l.color for l in dlts]),
-        _stack3([l.pos for l in plts]), _stack3([l.color for l in plts]),
-        _stack3([l.pos for l in slts]), _stack3([l.direction for l in slts]),
-        _stack3([l.color for l in slts]),
-        _arr1([l.cos_inner for l in slts]), _arr1([l.cos_outer for l in slts]))
+    lt = dict(
+        dir_l=_stack3([l.Ldir for l in dlts]),
+        dir_color=_stack3([l.color for l in dlts]),
+        point_pos=_stack3([l.pos for l in plts]),
+        point_color=_stack3([l.color for l in plts]),
+        spot_pos=_stack3([l.pos for l in slts]),
+        spot_dir=_stack3([l.direction for l in slts]),
+        spot_color=_stack3([l.color for l in slts]),
+        spot_cos_in=_arr1([l.cos_inner for l in slts]),
+        spot_cos_out=_arr1([l.cos_outer for l in slts]))
+    lights = light_table(**lt)
 
     is_center = _stack3([p.center for p in scene.importance_sampled_list])
     is_radius = _arr1([p.bounded_sphere_radius
@@ -821,10 +1071,18 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
         thinfilm_noise=tuple(refs["tf_noise"]),
         thinfilm_comp=tuple(refs["tf_comp"]), env_slots=tuple(reg.env_slots),
         tex_shapes=tex_shapes, tex_offsets=tex_offsets, tex_enc=tex_enc,
-        tf_selp=tf_selp)
+        tf_selp=tf_selp, needs_uv=needs_uv, env_is=bool(is_envs))
     tables = build_solid_tables(
         records, refr_disp, geom, mats, lights, is_center, is_radius,
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
         tf_rows, atlas, tex_scale, static.image_slots(),
         (len(dlts), len(plts), len(slts)), static=static)
-    return static, tables
+    data = SceneData(
+        geom=wgeom, obj=pack_objects(records),
+        mats=MaterialTables(**{k: _t(v) for k, v in mats.items()}),
+        lights=LightTables(**{k: _t(v) for k, v in lt.items()}),
+        is_center=_t(is_center), is_radius=_t(is_radius),
+        textures=tuple(texture_f32(a) for a in reg.arrays),
+        ambient_color=_t(scene.ambient_color), scene_n_re=_t(np.real(scene.n)),
+        scene_n_im=_t(np.imag(scene.n)))
+    return static, dataclasses.replace(tables, data=data)

@@ -78,3 +78,17 @@ def raygen_draws(pixu, su, seed):
     (u3, u4), and the first-diffuse-bounce (mix, phi, r2), dims 0-6."""
     u = [to_float(r2_bits(pixu, su, seed, d)) for d in range(7)]
     return u[0], u[1], u[2], u[3], u[6], u[4], u[5]
+
+
+def first_bounce_uniforms(width, n_pix, spp, row0, strat_seed, sample0,
+                          device="cpu"):
+    """(u_mix, u_phi, u_r2) of the first diffuse bounce, dims 6, 4, 5, one
+    draw set per ray of a [sample, pixel]-ordered wavefront of spp x
+    n_pix rays whose band starts at film row `row0`
+    (raytracer_tpu/core/lds.py:95).  row0, strat_seed and sample0 are
+    Python ints."""
+    idx = torch.arange(spp * n_pix, dtype=torch.int64, device=device)
+    gpix = torch.remainder(idx, n_pix) + int(row0) * width
+    s = torch.div(idx, n_pix, rounding_mode="floor") + int(sample0)
+    return tuple(to_float(r2_bits(gpix & M32, s & M32, int(strat_seed), d))
+                 for d in (6, 4, 5))

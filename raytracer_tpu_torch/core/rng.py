@@ -147,18 +147,20 @@ def _cap_direction(ax_w, cos_max, u_phi, r2):
 
 
 def caps_sample(generator, origin, targets_center, targets_radius,
-                uniforms=None):
+                uniforms=None, pick=None):
     """A direction in the union-of-caps mixture, the target picked
     uniformly (sightpy spherical_caps_pdf.generate, random.py:98-151).
 
-    uniforms: optional (u_phi, u_r2) for the draw inside the cap; the
-    target pick still comes from `generator`.
+    uniforms: optional (u_phi, u_r2) for the draw inside the cap; pick:
+    optional batch-shaped int64 target index; what is not given comes from
+    `generator`.
     """
     batch = origin.shape[:-1]
     K = targets_center.shape[0]
     ax_w, cos_max = caps_geometry(origin, targets_center, targets_radius)
-    pick = torch.randint(0, K, tuple(batch), generator=generator,
-                         device=generator.device)
+    if pick is None:
+        pick = torch.randint(0, K, tuple(batch), generator=generator,
+                             device=generator.device)
     ax_w_sel = torch.gather(
         ax_w, -2, pick[..., None, None].expand(*batch, 1, 3))[..., 0, :]
     cos_sel = torch.gather(cos_max, -1, pick[..., None])[..., 0]
@@ -247,7 +249,8 @@ def env_pdf_value(direction, pdf_table, hw):
 
 
 def mixed_cosine_caps_sample(generator, normal, origin, targets_center,
-                             targets_radius, cosine_weight, uniforms=None):
+                             targets_radius, cosine_weight, uniforms=None,
+                             pick=None):
     """Sample the Diffuse importance mixture; returns (direction, pdf).
 
     With probability `cosine_weight` a cosine-lobe direction about the
@@ -256,7 +259,8 @@ def mixed_cosine_caps_sample(generator, normal, origin, targets_center,
     random.py:153-174, as diffuse.py:49-61 uses it).
 
     uniforms: optional (u_mix, u_phi, u_r2); the (phi, r2) pair feeds
-    whichever branch is chosen.
+    whichever branch is chosen.  pick: optional target index of the caps
+    branch (see caps_sample).
     """
     batch = normal.shape[:-1]
     if uniforms is None:
@@ -266,7 +270,7 @@ def mixed_cosine_caps_sample(generator, normal, origin, targets_center,
     use_cos = u_mix < cosine_weight
     d_cos = cosine_sample(generator, normal, uniforms=dir_u)
     d_caps = caps_sample(generator, origin, targets_center, targets_radius,
-                         uniforms=dir_u)
+                         uniforms=dir_u, pick=pick)
     d = torch.where(use_cos[..., None], d_cos, d_caps)
     pdf = (cosine_weight * cosine_pdf_value(d, normal)
            + (1.0 - cosine_weight) * caps_pdf_value(d, origin, targets_center,

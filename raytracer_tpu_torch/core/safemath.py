@@ -16,7 +16,7 @@ gradient is finite everywhere: 0 for x <= 0, bounded near the boundary.
 
 import torch
 
-__all__ = ["safe_sqrt", "safe_norm"]
+__all__ = ["safe_sqrt", "safe_norm", "div", "rdiv"]
 
 
 def safe_sqrt(x, eps=1e-30):
@@ -34,3 +34,17 @@ def safe_norm(v, dim=-1, keepdim=False, eps=1e-30):
     not the norm's backward.  Equal to the l2 norm away from 0.
     """
     return safe_sqrt(torch.sum(v * v, dim=dim, keepdim=keepdim), eps)
+
+
+def div(a, s):
+    """a / s for a Python number s, correctly rounded on every device: on
+    CUDA, torch turns a division by a Python number into a product with
+    its rounded reciprocal, so the card and the CPU would differ by an
+    ulp."""
+    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+
+
+def rdiv(s, a):
+    """s / a for a Python number s, a true division (torch computes
+    `s / a` as a rounded reciprocal times s)."""
+    return torch.tensor(s, dtype=a.dtype, device=a.device) / a

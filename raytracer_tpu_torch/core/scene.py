@@ -1,22 +1,24 @@
-"""Scene registry and the render entry point, solid and record paths.
+"""Scene registry and the render entry point: the solid and record
+kernels and the wavefront.
 
 Counterpart of raytracer_tpu/core/scene.py.  The construction API is the
 same (add_Camera / add_PointLight / add_DirectionalLight / add_SpotLight /
-add / add_Background); `render` compiles the scene into kernel tables
-(core/compile.py), routes it as the JAX package's `_use_pallas` does
-(solid scenes to the solid kernel, ops/solid_trace.py; textured scenes to
-the record kernel, which traces, fetches the textures and integrates in
-one pass, ops/record_trace.py), plans chunks,
-traces each one, scrubs non-finite samples, clamps, accumulates per pixel
-and tonemaps.  Around that loop: checkpoints and bit-identical resume,
-adaptive sampling to a noise target, the per-pixel variance of the mean,
-progressive previews, progress lines and a torch.profiler trace; and
-`render_environment` bakes the scene into an equirect map.
+add / add_Background); `render` compiles the scene (core/compile.py),
+routes it (`route`, after the JAX package's `_use_pallas`: solid scenes
+to the solid kernel, ops/solid_trace.py; textured scenes to the record
+kernel, which traces, fetches the textures and integrates in one pass,
+ops/record_trace.py; scenes past both kernels' gates, or any scene under
+use_pallas="never", to the wavefront integrator, core/integrator.py),
+plans chunks, traces each one, scrubs non-finite samples, clamps,
+accumulates per pixel and tonemaps.  Around that loop: checkpoints and
+bit-identical resume, adaptive sampling to a noise target, the per-pixel
+variance of the mean, progressive previews, progress lines and a
+torch.profiler trace; `render_environment` bakes the scene into an
+equirect map and `get_distances` renders the depth AOV.
 
 Not ported yet: the `mesh=` argument (multi-device rendering, ROADMAP.md
-"Modules to port" item 8) and the methods that need the wavefront
-(`render_aovs`, `render_denoised`, `get_distances`, `render_ods`; items 3
-and 6).
+"Modules to port" item 8) and `render_aovs`, `render_denoised` and
+`render_ods` (item 6).
 """
 
 from __future__ import annotations
@@ -35,9 +37,12 @@ from ..ops.solid_trace import solid_trace_chunk
 from ..utils.colour import (TONEMAP_OPERATORS, srgb_linear_to_srgb,
                             tonemap_display)
 from ..utils.image_io import array_to_pil
-from .camera import Camera, cam_vec, projection_mask
-from .compile import compile_scene, derive_max_bounces, derive_split_k
-from .integrator import RenderSettings
+from . import lds
+from .camera import Camera, cam_vec, generate_rays, projection_mask
+from .compile import (PALLAS_MAX_GROUPS, PALLAS_MAX_OBJECTS, compile_scene,
+                      derive_max_bounces, derive_split_k)
+from .integrator import RenderSettings, trace, trace_distances
+from .ray import resolve_device
 from .vec import as_complex3, as_float3
 
 # cap on rays per traced chunk (raytracer_tpu/core/scene.py:42)
@@ -79,6 +84,67 @@ def chunk_seeds(seed, n_chunks, chunk):
     out[:, 1] = draws[0]
     out[:, 2] = np.arange(n_chunks, dtype=np.int64) * chunk
     return out
+
+
+def route(static, settings):
+    """The path that renders a scene: "solid" or "record" (a kernel on
+    CUDA, its plain version on the CPU) or "wavefront"
+    (raytracer_tpu/core/scene.py:168-181).  use_pallas "auto" takes the
+    kernel whose gate the scene passes and the wavefront past both gates;
+    "always" raises there; "never" always takes the wavefront."""
+    kernel = ("solid" if static.pallas_ok
+              else "record" if static.pallas_tex_ok else None)
+    if settings.use_pallas == "never":
+        return "wavefront"
+    if kernel is None:
+        if settings.use_pallas == "always":
+            raise ValueError(
+                "use_pallas='always', but the scene is outside both kernels' "
+                f"gates ({static.n_objects} objects of at most "
+                f"{PALLAS_MAX_OBJECTS}, {static.n_is_targets} importance-"
+                "sampled targets of at most 8, at most "
+                f"{PALLAS_MAX_GROUPS} shading groups, no environment "
+                "importance sampling)")
+        return "wavefront"
+    return kernel
+
+
+def _band_seed(chunk_seed, band):
+    """The generator seed of one band of a wavefront chunk."""
+    return int(chunk_seed) * 4096 + band
+
+
+def wavefront_chunk(seed_row, static, data, cam, settings, width, height,
+                    spp, row0=0, rows=None, band=0):
+    """One chunk (or one band of `rows` film rows from `row0`) through the
+    wavefront (raytracer_tpu/core/scene.py:47-90): rays, the split
+    patterns, the first-bounce lattice draws, `trace`.  seed_row: the
+    chunk's host row of `chunk_seeds` (chunk seed, R2 rotation seed, first
+    sample); the draws come from a generator seeded by the chunk seed and
+    the band.  Returns (L (spp * rows * width, 3), rays traced)."""
+    rows = height if rows is None else rows
+    dev = data.ambient_color.device
+    g = torch.Generator(device=dev).manual_seed(_band_seed(seed_row[0], band))
+    strat_seed, sample0 = int(seed_row[1]), int(seed_row[2])
+    O, D = generate_rays(g, cam, width, height, spp, row0=row0, rows=rows,
+                         sampler=settings.sampler, strat_seed=strat_seed,
+                         sample0=sample0, projection=settings.projection)
+    n_pix = width * rows
+    pattern = None
+    if settings.split_k > 0:
+        # rays are [sample, pixel]-ordered and spp is a multiple of
+        # 2^split_k, so each pixel sees every pattern equally often
+        pattern = (torch.div(torch.arange(spp * n_pix, dtype=torch.int32,
+                                          device=dev), n_pix,
+                             rounding_mode="floor")
+                   % (1 << settings.split_k)).to(torch.int32)
+    strat_u = None
+    if settings.sampler == "r2":
+        strat_u = lds.first_bounce_uniforms(width, n_pix, spp, row0,
+                                            strat_seed, sample0, device=dev)
+    L, stats = trace(g, O, D, data.scene_n_re, data.scene_n_im, data, static,
+                     settings, pattern=pattern, strat_u=strat_u)
+    return L, stats["rays_traced"]
 
 
 class Scene:
@@ -142,8 +208,11 @@ class Scene:
             max_b = derive_max_bounces(static)
         split_k = self.settings.split_k or derive_split_k(static)
         settings = RenderSettings(max_bounces=max_b, split_k=split_k,
+                                  nudge_eps=self.settings.nudge_eps,
                                   sampler=self.settings.sampler,
-                                  projection=self.camera.projection)
+                                  projection=self.camera.projection,
+                                  collect_stats=True,
+                                  use_pallas=self.settings.use_pallas)
         return static, tables, settings
 
     def render(self, samples_per_pixel, progress_bar=False, batch_size=None,
@@ -192,14 +261,17 @@ class Scene:
         directory (`*.pt.trace.json`, TensorBoard's layout).
         device: torch device to trace on; default "cuda", and without a
         CUDA device it raises RuntimeError: the CPU is used only when
-        asked for (device="cpu").  On CUDA every chunk runs the scene's
-        kernel (solid or record), on the CPU its plain version.
+        asked for (device="cpu").  The route (`route`, by
+        self.settings.use_pallas) is the same on both: a scene inside a
+        kernel's gate runs that kernel on CUDA and its plain version on the
+        CPU; any other scene runs the wavefront (plain torch), in bands of
+        film rows where a chunk would pass MAX_RAYS_PER_CHUNK rays.
         return_stats: also return a dict with rays_traced, wall_s,
         samples, width, height and mrays_per_s (and noise_q99 when
         adaptive).
         """
         if profile_dir is not None:
-            device = _resolve_device(device)
+            device = resolve_device(device, "Scene.render")
             from torch.profiler import (ProfilerActivity, profile,
                                         tensorboard_trace_handler)
 
@@ -233,22 +305,27 @@ class Scene:
         t0 = time.time()
         W, H = self.camera.screen_width, self.camera.screen_height
         static, tables, settings = self._settings_for_render()
-        # routing as raytracer_tpu/core/scene.py _use_pallas
-        if not (static.pallas_ok or static.pallas_tex_ok):
-            raise NotImplementedError(
-                "this scene is outside the solid and record kernels' gates; "
-                "the wavefront path comes with ROADMAP.md 'Modules to "
-                "port' item 8")
+        path = route(static, settings)
         split_fan = 1 << settings.split_k
         eff_spp = samples_per_pixel * self._diffuse_fan() * split_fan
         chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
         # the noise estimate needs >= 2 chunks (scene.py:478-479)
         adaptive = target_noise is not None and n_chunks >= 2
 
-        device = _resolve_device(device)
-        tables = tables.to(device)
-        cam = cam_vec(self.camera.params()).to(device)
-        seeds = torch.from_numpy(chunk_seeds(seed, n_chunks, chunk)).to(device)
+        device = resolve_device(device, "Scene.render")
+        seeds_np = chunk_seeds(seed, n_chunks, chunk)
+        if path == "wavefront":
+            data = tables.data.to(device)
+            cam = self.camera.params()
+            # film bands where even one chunk passes the ray cap
+            # (raytracer_tpu/core/scene.py:520-526)
+            band_rows = H
+            if W * H * chunk > MAX_RAYS_PER_CHUNK:
+                band_rows = max(1, MAX_RAYS_PER_CHUNK // (W * chunk))
+        else:
+            tables = tables.to(device)
+            cam = cam_vec(self.camera.params()).to(device)
+            seeds = torch.from_numpy(seeds_np).to(device)
         trace_args = (settings.max_bounces, settings.split_k, settings.sampler,
                       settings.projection)
         acc = torch.zeros((H * W, 3), dtype=torch.float32, device=device)
@@ -283,12 +360,20 @@ class Scene:
         chunks_done = start_chunk
         last_noise = None
         for i in range(start_chunk, n_chunks):
-            if static.pallas_ok:
+            if path == "solid":
                 L, cnt = solid_trace_chunk(seeds[i], tables, cam, W, H, chunk,
                                            *trace_args)
-            else:
+            elif path == "record":
                 L, cnt = record_trace_chunk(seeds[i], static, tables, cam, W, H,
                                             chunk, *trace_args)
+            else:
+                parts = [wavefront_chunk(seeds_np[i], static, data, cam,
+                                         settings, W, H, chunk, row0=r0,
+                                         rows=min(band_rows, H - r0), band=b)
+                         for b, r0 in enumerate(range(0, H, band_rows))]
+                L = torch.cat([Lb.view(chunk, -1, 3) for Lb, _ in parts],
+                              dim=1).view(-1, 3)
+                cnt = sum(c for _, c in parts)
             # scrub rare non-finite samples (grazing-angle degeneracies)
             L = torch.where(torch.isfinite(L), L, 0.0)
             if clamp is not None:
@@ -404,15 +489,29 @@ class Scene:
         store[(-np.arange(height)) % height] = img[::-1]
         return store
 
-
-def _resolve_device(device):
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "Scene.render traces on the CUDA device by default and "
-                "found none; pass device='cpu' to trace on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    def get_distances(self, seed=0, device=None, output="pil"):
+        """The depth AOV (sightpy scene.py:142-166): one camera sample a
+        pixel, the nearest hit's distance over 10, clipped at 1, in all
+        three channels, through the wavefront's intersection (any scene,
+        whichever route it renders by).  seed: the R2 rotation of the
+        jitter, drawn as Scene.render draws it.  output: "pil" (an 8-bit
+        image, as the JAX package returns) or "linear" (the (H, W, 3)
+        float32 array).  device: as for render."""
+        if self.camera is None:
+            raise RuntimeError("call add_Camera() first")
+        if output not in ("pil", "linear"):
+            raise ValueError(f"output must be 'pil' or 'linear', got {output!r}")
+        device = resolve_device(device, "Scene.get_distances")
+        W, H = self.camera.screen_width, self.camera.screen_height
+        _, tables = compile_scene(self)
+        data = tables.data.to(device)
+        row = chunk_seeds(seed, 1, 1)[0]
+        g = torch.Generator(device=device).manual_seed(int(row[0]))
+        O, D = generate_rays(g, self.camera.params(), W, H, 1,
+                             strat_seed=int(row[1]), sample0=0,
+                             projection=self.camera.projection)
+        img = trace_distances(O, D, data).reshape(H, W, 3).cpu().numpy()
+        return img if output == "linear" else array_to_pil(img)
 
 
 def _display(acc, n_samples, width, height, operator, exposure):

@@ -2,8 +2,8 @@
 
 Counterpart of raytracer_tpu/geometry/primitive.py for the kernels'
 primitives: Sphere, Plane, Cuboid, Disc, Cylinder and Triangle (with
-`rotate`).  TriangleMesh and MeshInstances come with the wavefront slice
-(ROADMAP.md "Modules to port" item 8).  Rotation is the same axis-angle
+`rotate`).  TriangleMesh and MeshInstances come with the meshes' slice
+(ROADMAP.md "Modules to port" item 4).  Rotation is the same axis-angle
 Rodrigues matrix, applied eagerly to the stored parameters, so compiled
 tables match bit for bit.
 """

@@ -4,17 +4,23 @@
 `raytracer_tpu.core.compile.compile_scene`, reads every array through
 `np.asarray`, and returns the port's (SceneStatic, SolidTables): the
 solid and record paths' tables, the thin-film rows and the texture atlas
-(words, scales, shapes, offsets, encodings).  It never imports jax:
+(words, scales, shapes, offsets, encodings), and in `SolidTables.data`
+the wavefront's tables (`scene_data_from_jax`).  It never imports jax:
 whatever the arrays are, numpy reads them.  The tests feed the
 reference's own tables to the port through it.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
-from .core.compile import (EnvSlot, ObjRecord, SceneStatic, TexRef,
-                           build_solid_tables, light_table)
+import numpy as np
+import torch
+
+from .core.compile import (EnvSlot, GeometryTables, LightTables,
+                           MaterialTables, ObjectTables, ObjRecord, SceneData,
+                           SceneStatic, TexRef, build_solid_tables,
+                           light_table)
 
 _MAT_FIELDS = ("diffuse_color", "diffuse_ambient_weight", "glossy_color",
                "glossy_n_re", "glossy_n_im", "glossy_roughness",
@@ -53,7 +59,37 @@ def static_from_jax(static) -> SceneStatic:
         tex_shapes=tuple(tuple(int(v) for v in s) for s in static.tex_shapes),
         tex_offsets=tuple(int(v) for v in static.tex_offsets),
         tex_enc=tuple(int(v) for v in static.tex_enc),
-        tf_selp=tuple(tuple(float(c) for c in p) for p in static.tf_selp))
+        tf_selp=tuple(tuple(float(c) for c in p) for p in static.tf_selp),
+        needs_uv=bool(static.needs_uv),
+        env_is=tuple(static.env_is_shape) != (0, 0))
+
+
+def _tensors(cls, src):
+    """An instance of the port's table class `cls` from the JAX dataclass
+    `src`, field by field (bools stay bool, ints become int32)."""
+    def conv(x):
+        a = np.asarray(x)
+        dt = (bool if a.dtype == np.bool_ else np.int32
+              if np.issubdtype(a.dtype, np.integer) else np.float32)
+        return torch.from_numpy(np.array(a, dtype=dt))
+    return cls(**{f.name: conv(getattr(src, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def scene_data_from_jax(data) -> SceneData:
+    """The port's SceneData from the JAX package's (the analytic and
+    flat-triangle tables; the JAX cluster, vertex-attribute and
+    environment tables have no counterpart yet)."""
+    f32 = lambda x: torch.from_numpy(np.array(np.asarray(x), np.float32))
+    return SceneData(
+        geom=_tensors(GeometryTables, data.geom),
+        obj=_tensors(ObjectTables, data.obj),
+        mats=_tensors(MaterialTables, data.mats),
+        lights=_tensors(LightTables, data.lights),
+        is_center=f32(data.is_center), is_radius=f32(data.is_radius),
+        textures=tuple(f32(t) for t in data.textures),
+        ambient_color=f32(data.ambient_color),
+        scene_n_re=f32(data.scene_n_re), scene_n_im=f32(data.scene_n_im))
 
 
 def tables_from_jax(static, data):
@@ -78,4 +114,5 @@ def tables_from_jax(static, data):
         port_static.image_slots(),
         (port_static.n_dir_lights, port_static.n_point_lights,
          port_static.n_spot_lights), static=port_static)
-    return port_static, tables
+    return port_static, dataclasses.replace(tables,
+                                            data=scene_data_from_jax(data))

@@ -2,7 +2,8 @@
 
 Counterpart of raytracer_tpu/materials/base.py: the constructors take the
 same keyword arguments and hold parameters only; the shading math lives in
-the kernels (ops/solid_trace.py, ops/record_trace.py).  The type ids are
+the kernels (ops/solid_trace.py, ops/record_trace.py) and the wavefront's
+blocks (materials/shade.py).  The type ids are
 the JAX package's, so compiled tables carry over unchanged.
 """
 
@@ -30,7 +31,7 @@ class Material:
         if normalmap is not None:
             raise NotImplementedError(
                 "normal maps are not ported yet (ROADMAP.md 'Modules to "
-                "port' item 8, the wavefront slice)")
+                "port' item 5, wavefront C)")
         self.normalmap = None
         self.assigned_primitive = None
 

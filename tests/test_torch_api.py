@@ -18,7 +18,6 @@ import raytracer_tpu_torch as T
 REPO = Path(__file__).resolve().parent.parent
 
 WAITING = {
-    "item 3": {"Ray", "Hit", "get_raycolor", "get_distances", "first_hit"},
     "item 4": {"TriangleMesh", "MeshInstances", "Surface"},
     "item 5": {"CustomMaterial", "ShadeOut", "default_shade_out"},
     "item 6": {"render_aovs", "denoise", "create_animation",
@@ -42,6 +41,13 @@ def test_waiting_names_raise_naming_their_item(item):
             getattr(T, name)
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         getattr(T, "nonsense")
+
+
+def test_wavefront_names_are_exported():
+    # ROADMAP.md item 3 brought these; none of them waits any more
+    for name in ("Ray", "Hit", "get_raycolor", "get_distances", "first_hit"):
+        assert name in T.__all__ and name not in T.NOT_YET_PORTED
+        assert callable(getattr(T, name))
 
 
 def test_star_import_gives_every_public_name():

@@ -179,7 +179,7 @@ def test_cpu_tensors_take_the_plain_version():
 def test_out_of_slice_scenes_raise_before_work():
     """Dispersion, triangles and the other projections now run through
     the record path; a bad sampler, projection or device raises
-    ValueError, and a normal map (ROADMAP.md item 8) NotImplementedError."""
+    ValueError, and a normal map (ROADMAP.md item 5) NotImplementedError."""
     sc = torch_textured.example2(16, 8)
     static, tables, settings = sc._settings_for_render()
     cam = cam_vec(sc.camera.params())
@@ -213,7 +213,7 @@ def test_out_of_slice_scenes_raise_before_work():
     L, n = rt.record_trace_chunk(seed, tri_static, tri_tables,
                                  cam_vec(js.camera.params()), 8, 8, 2, 4)
     assert float(L.sum()) > 0
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         T.Glossy(diff_color=T.rgb(1, 1, 1), roughness=0.2, spec_coeff=0.3,
                  diff_coeff=0.7, n=T.vec3(1.5, 1.5, 1.5),
                  normalmap=np.zeros((2, 2, 3)))

@@ -184,7 +184,9 @@ def test_ndarray_scenes_need_no_pillow(monkeypatch):
 
 def test_env_importance_sampling_stays_off_the_record_path():
     """An importance-sampled Panorama is the wavefront's (the JAX gate
-    sends it there); the port refuses it, naming the ROADMAP item."""
+    sends it there): without a Diffuse material nothing samples it and the
+    scene renders there; with one, the port refuses it, naming the ROADMAP
+    item of the environment's alias tables."""
     def scene(m):
         sc = torch_textured.example3(8, 6, m=m)
         sc.scene_primitives.pop()
@@ -196,8 +198,13 @@ def test_env_importance_sampling_stays_off_the_record_path():
     j_static, _ = j_compile.compile_scene(scene(J))
     assert (static.pallas_ok, static.pallas_tex_ok) == (
         j_static.pallas_ok, j_static.pallas_tex_ok) == (False, False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scene(T).render(samples_per_pixel=1, device="cpu")
+    img = scene(T).render(samples_per_pixel=1, device="cpu", output="linear")
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    sc = scene(T)
+    sc.add(T.Sphere(material=T.Diffuse(diff_color=T.rgb(0.5, 0.5, 0.5)),
+                    center=T.vec3(0, 0, -3), radius=0.5))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        sc.render(samples_per_pixel=1, device="cpu")
 
 
 @pytest.fixture(scope="module")
