@@ -209,6 +209,14 @@ def generate_rays(generator, params: CameraParams, width, height, spp,
               + up[None, :] * (ry * lr)[:, None])
     target = (origin0[None, :] + up[None, :] * (y * focal)[:, None]
               + right[None, :] * (x * focal)[:, None] + fwd[None, :] * focal)
-    d = target - origin
-    d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
-    return origin, d
+    return origin, unit(target - origin)
+
+
+def unit(d):
+    """(N, 3) directions scaled to unit length as the kernels scale theirs
+    (x * (1 / sqrt(x.x)), solid_trace.py `_normalize3`), not by the JAX
+    wavefront's division: the reference's sphere test is exact only for
+    |D| = 1, and from afar the last bit of |D| decides some self-hits
+    (ROADMAP.md §3), so both routes of the port round a camera ray alike."""
+    s = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return d * (1.0 / torch.sqrt(torch.clamp_min(s, 1e-30)))[:, None]

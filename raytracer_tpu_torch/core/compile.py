@@ -10,9 +10,11 @@ code, so every table matches it bit for bit (tests/test_torch_compile.py,
 tests/test_torch_textures.py).
 
 Object ids run spheres, planes, boxes, discs, cylinders, then triangles,
-in insertion order within each kind, as in the JAX package.  Every scene
-also compiles to the wavefront's per-kind tables (`SceneData`,
-compile.py:319-480), whichever route it renders by.  Scenes outside the
+in insertion order within each kind, as in the JAX package.
+`compile_scene` gives the kernels' tables (`SolidTables`);
+`compile_wavefront` gives the wavefront's per-kind tables (`SceneData`,
+compile.py:319-480), the pair the JAX `compile_scene` returns, for every
+scene whichever route it renders by.  Scenes outside the
 ported slices (triangle meshes, mesh instances, TRI_CLUSTER_THRESHOLD
 triangles or more) raise NotImplementedError naming the ROADMAP.md item
 that brings them.
@@ -211,9 +213,6 @@ class SolidTables:
     n_is_targets: int
     obj_rows: Tuple[Tuple[int, ...], ...]
     n_lights: Tuple[int, int, int] = (0, 0, 0)
-    # the wavefront's tables (SceneData); `to` leaves them where they are,
-    # and the routes that read them move them with SceneData.to
-    data: Any = None
 
     TENSORS = ("geom", "obj", "dif", "glo", "refr", "emi", "tf", "lights",
                "is_tab", "consts", "atlas", "tex_scale", "fetch_i", "fetch_f")
@@ -850,7 +849,22 @@ class _Textures:
 
 
 def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
-    """Lower a Scene to (SceneStatic, SolidTables) on the CPU."""
+    """Lower a Scene to (SceneStatic, SolidTables) on the CPU: the
+    kernels' tables."""
+    static, tables, _ = compile_all(scene)
+    return static, tables
+
+
+def compile_wavefront(scene) -> Tuple[SceneStatic, SceneData]:
+    """Lower a Scene to (SceneStatic, SceneData) on the CPU: the
+    wavefront's tables, as the JAX `compile_scene` returns them."""
+    static, _, data = compile_all(scene)
+    return static, data
+
+
+def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
+    """Lower a Scene to the static part and both routes' tables, for a
+    caller that picks its route after the static part."""
     reg = _Textures()
     by_kind = {k: [] for k in KINDS}   # (primitive, props) per kind
 
@@ -1085,4 +1099,4 @@ def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
         textures=tuple(texture_f32(a) for a in reg.arrays),
         ambient_color=_t(scene.ambient_color), scene_n_re=_t(np.real(scene.n)),
         scene_n_im=_t(np.imag(scene.n)))
-    return static, dataclasses.replace(tables, data=data)
+    return static, tables, data

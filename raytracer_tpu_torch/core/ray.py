@@ -99,10 +99,10 @@ class Hit:
 
 
 def _compile(scene, device):
-    from .compile import compile_scene
+    from .compile import compile_wavefront
 
-    static, tables = compile_scene(scene)
-    return static, tables.data.to(device)
+    static, data = compile_wavefront(scene)
+    return static, data.to(device)
 
 
 def get_raycolor(ray: Ray, scene, seed=0, max_bounces=None, device=None):

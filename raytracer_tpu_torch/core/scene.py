@@ -39,8 +39,9 @@ from ..utils.colour import (TONEMAP_OPERATORS, srgb_linear_to_srgb,
 from ..utils.image_io import array_to_pil
 from . import lds
 from .camera import Camera, cam_vec, generate_rays, projection_mask
-from .compile import (PALLAS_MAX_GROUPS, PALLAS_MAX_OBJECTS, compile_scene,
-                      derive_max_bounces, derive_split_k)
+from .compile import (PALLAS_MAX_GROUPS, PALLAS_MAX_OBJECTS, compile_all,
+                      compile_scene, compile_wavefront, derive_max_bounces,
+                      derive_split_k)
 from .integrator import RenderSettings, trace, trace_distances
 from .ray import resolve_device
 from .vec import as_complex3, as_float3
@@ -203,17 +204,19 @@ class Scene:
 
     def _settings_for_render(self):
         static, tables = compile_scene(self)
+        return static, tables, self._settings(static)
+
+    def _settings(self, static):
         max_b = self.settings.max_bounces
         if max_b == RenderSettings.max_bounces:
             max_b = derive_max_bounces(static)
         split_k = self.settings.split_k or derive_split_k(static)
-        settings = RenderSettings(max_bounces=max_b, split_k=split_k,
-                                  nudge_eps=self.settings.nudge_eps,
-                                  sampler=self.settings.sampler,
-                                  projection=self.camera.projection,
-                                  collect_stats=True,
-                                  use_pallas=self.settings.use_pallas)
-        return static, tables, settings
+        return RenderSettings(max_bounces=max_b, split_k=split_k,
+                              nudge_eps=self.settings.nudge_eps,
+                              sampler=self.settings.sampler,
+                              projection=self.camera.projection,
+                              collect_stats=True,
+                              use_pallas=self.settings.use_pallas)
 
     def render(self, samples_per_pixel, progress_bar=False, batch_size=None,
                seed=0, return_stats=False, checkpoint_path=None,
@@ -304,7 +307,8 @@ class Scene:
             raise ValueError("samples_per_pixel must be >= 1")
         t0 = time.time()
         W, H = self.camera.screen_width, self.camera.screen_height
-        static, tables, settings = self._settings_for_render()
+        static, tables, data = compile_all(self)
+        settings = self._settings(static)
         path = route(static, settings)
         split_fan = 1 << settings.split_k
         eff_spp = samples_per_pixel * self._diffuse_fan() * split_fan
@@ -315,7 +319,7 @@ class Scene:
         device = resolve_device(device, "Scene.render")
         seeds_np = chunk_seeds(seed, n_chunks, chunk)
         if path == "wavefront":
-            data = tables.data.to(device)
+            data = data.to(device)
             cam = self.camera.params()
             # film bands where even one chunk passes the ray cap
             # (raytracer_tpu/core/scene.py:520-526)
@@ -503,8 +507,7 @@ class Scene:
             raise ValueError(f"output must be 'pil' or 'linear', got {output!r}")
         device = resolve_device(device, "Scene.get_distances")
         W, H = self.camera.screen_width, self.camera.screen_height
-        _, tables = compile_scene(self)
-        data = tables.data.to(device)
+        data = compile_wavefront(self)[1].to(device)
         row = chunk_seeds(seed, 1, 1)[0]
         g = torch.Generator(device=device).manual_seed(int(row[0]))
         O, D = generate_rays(g, self.camera.params(), W, H, 1,

@@ -4,8 +4,8 @@
 `raytracer_tpu.core.compile.compile_scene`, reads every array through
 `np.asarray`, and returns the port's (SceneStatic, SolidTables): the
 solid and record paths' tables, the thin-film rows and the texture atlas
-(words, scales, shapes, offsets, encodings), and in `SolidTables.data`
-the wavefront's tables (`scene_data_from_jax`).  It never imports jax:
+(words, scales, shapes, offsets, encodings); `scene_data_from_jax(data)`
+returns the wavefront's (`SceneData`).  It never imports jax:
 whatever the arrays are, numpy reads them.  The tests feed the
 reference's own tables to the port through it.
 """
@@ -114,5 +114,4 @@ def tables_from_jax(static, data):
         port_static.image_slots(),
         (port_static.n_dir_lights, port_static.n_point_lights,
          port_static.n_spot_lights), static=port_static)
-    return port_static, dataclasses.replace(tables,
-                                            data=scene_data_from_jax(data))
+    return port_static, tables

@@ -1,7 +1,7 @@
 """The wavefront's scene tables, camera rays and lattice draws against the
 JAX package's.
 
-`compile_scene` gives every scene the wavefront's SceneData (per-kind
+`compile_wavefront` gives every scene the wavefront's SceneData (per-kind
 geometry, object, material and light tables, float32 textures); it must
 equal the JAX package's array for array, on the shared scene builders and
 on three scenes past the kernels' gates (49 objects, 9 importance-sampled
@@ -30,7 +30,8 @@ from raytracer_tpu.core.compile import derive_split_k as jax_split_k
 from raytracer_tpu_torch.core import camera as tcam
 from raytracer_tpu_torch.core import lds as tlds
 from raytracer_tpu_torch.core.compile import (TRI_CLUSTER_THRESHOLD,
-                                              compile_scene, derive_split_k)
+                                              compile_scene, compile_wavefront,
+                                              derive_split_k)
 from raytracer_tpu_torch.core.scene import route
 from raytracer_tpu_torch.interop import scene_data_from_jax
 
@@ -135,9 +136,8 @@ def _equal(a, b, what):
 @pytest.mark.parametrize("build", SCENES, ids=[b.__name__ for b in SCENES])
 def test_scene_data_equals_jax(build):
     j_static, j_data = jax_compile(build(J))
-    static, tables = compile_scene(build(T))
+    static, got = compile_wavefront(build(T))
     want = scene_data_from_jax(j_data)
-    got = tables.data
     for grp in ("geom", "obj", "mats", "lights"):
         for f in dataclasses.fields(getattr(got, grp)):
             _equal(getattr(getattr(got, grp), f.name).numpy(),

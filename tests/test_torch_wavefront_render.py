@@ -247,3 +247,38 @@ def test_sphere_grid_depends_on_last_bit_ray_rounding(monkeypatch):
     shift = [(m - p).mean() / p.mean() for m, p in zip(moved, plain)]
     assert shift[0] < -0.01, shift
     assert abs(shift[1]) < 1e-3, shift
+
+
+def test_jax_sphere_grid_depends_on_last_bit_ray_rounding(monkeypatch):
+    """The same fault in the JAX package's own wavefront, so it is the
+    reference's and not the port's: multiplying its camera directions by
+    1 / sqrt(|D|^2) once more moves its sphere grid's mean by more than
+    0.5% (the same seeds, so the same draws: here it brightens) and leaves
+    the Cornell box as it was.  Which way the image moves depends on how
+    the unchanged rays were rounded."""
+    import jax
+    from raytracer_tpu.core import scene as jscene
+
+    gen = jscene.generate_rays
+
+    def renormalised(*a, **k):
+        O, D = gen(*a, **k)
+        s = D[:, 0] * D[:, 0] + D[:, 1] * D[:, 1] + D[:, 2] * D[:, 2]
+        return O, D * (1.0 / jnp.sqrt(s))[:, None]
+
+    def means(build, spp):
+        return np.asarray([float(np.asarray(build().render(
+            spp, seed=s, output="linear")).mean()) for s in range(4)])
+
+    cases = ((lambda: grid(46, 40, 30, m=J), 32), (lambda: cornell(J), 4))
+    plain = [means(*c) for c in cases]
+    monkeypatch.setattr(jscene, "generate_rays", renormalised)
+    jax.clear_caches()      # the jitted chunks were traced with the plain rays
+    try:
+        moved = [means(*c) for c in cases]
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+    shift = [(m - p).mean() / p.mean() for m, p in zip(moved, plain)]
+    assert abs(shift[0]) > 0.005, shift
+    assert abs(shift[1]) < 1e-3, shift
