@@ -79,6 +79,25 @@ checkout and drives both kernel paths and the wavefront:
   emissive scene through both routes, pixel for pixel;
   Scene.get_distances of the 98-object grid on the card against the
   CPU;
+- the meshes (examples/torch_mesh.py, the wavefront's clustered
+  triangle sweep, corner normals and uvs, mesh instances; plain torch,
+  no kernel of their own): the icosphere (5,120 faces), the textured UV
+  sphere (1,224) and the field of 48 instances (61,440 virtual
+  triangles) at 400x300 x 16 spp through Scene.render, two or three
+  renders of one seed bit-equal, every chunk on CUDA, no kernel
+  launched, with wall, Mrays/s and peak memory, and one profiled render
+  each with the device time by stage and the clustered sweep's share,
+  host syncs and device events a bounce and its rate in triangle tests
+  a second; the clustered sweep against the flat sweep over the same
+  leaf-ordered tables on the icosphere's camera rays, their first bounce
+  and shadow rays (t bit-equal, winners equal on 99.99%), each timed;
+  the icosphere at 100x75 x 16 spp on the card against the CPU and the
+  instance field against the same field baked into 48 TriangleMesh
+  copies at 4 spp (image and 3x3 region means within 4 standard
+  errors), use_pallas="always" raising on the instances; a flat 20-face
+  icosahedron inside the gate through the solid kernel (bit for bit
+  against its plain version on one chunk) and through the wavefront,
+  within 4 standard errors;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -151,6 +170,17 @@ WAVE_CORNELL = 400, 400
 EMISSIVE_SPP = 16
 REGIONS = 3
 DIST_ATOL = 1e-6
+# the meshes (examples/torch_mesh.py): the three mesh examples at their own
+# size, timed renders of each (the instance field's take longest, so it
+# has one fewer); the rays of the clustered-against-flat hold (camera rays
+# at SWEEP_SPP, then their first bounce), the winners it requires equal;
+# the frame of the card-against-CPU hold; the samples of the instanced
+# against baked hold
+MESH_W, MESH_H, MESH_SPP = 400, 300, 16
+MESH_SCENES = (("icosphere", 3), ("beach_ball", 3), ("instances", 2))
+SWEEP_SPP = 4
+WINNER_RATE = 0.9999
+INST_SPP = 4
 
 
 class SmokeFailure(Exception):
@@ -971,10 +1001,10 @@ def divided_unit(d):
 
 
 def wavefront_stages(events):
-    """Device busy time (us) under each "wavefront.*" profiler range of a
-    Chrome trace: the kernel and copy time inside each of its
-    gpu_user_annotation events (an annotation spans its range's first to
-    last device event, idle gaps included)."""
+    """Device busy time (us) and device events under each "wavefront.*"
+    profiler range of a Chrome trace: the kernels and copies inside each
+    of its gpu_user_annotation events (an annotation spans its range's
+    first to last device event, idle gaps included)."""
     import bisect
     from collections import defaultdict
     from torch_render_profile import DEVICE_CATS
@@ -982,25 +1012,40 @@ def wavefront_stages(events):
     iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
     starts = [lo for lo, _ in iv]
-    stages = defaultdict(float)
+    stages, counts = defaultdict(float), defaultdict(int)
     for e in events:
         if (e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
                 and str(e.get("name", "")).startswith("wavefront.")):
             lo, hi = e["ts"], e["ts"] + e["dur"]
+            name = e["name"][len("wavefront."):]
             i = bisect.bisect_left(starts, lo)
             while i < len(iv) and iv[i][0] < hi:
-                stages[e["name"][len("wavefront."):]] += min(iv[i][1], hi) - iv[i][0]
+                stages[name] += min(iv[i][1], hi) - iv[i][0]
+                counts[name] += 1
                 i += 1
-    return stages
+    return stages, counts
 
 
 def stage_profile(torch, dev, name, sc, spp):
     """One render of `sc` on the wavefront under torch.profiler: its wall,
     device span, busy share and the device time of each bounce stage
-    (core/integrator.py's "wavefront.*" ranges), printed as one line."""
+    (core/integrator.py's "wavefront.*" ranges), printed as one line; on a
+    scene with triangle clusters also the clustered sweep's (its own range
+    inside nearest_hit and the glossy block's shadow rays): its device
+    time and share, its syncs and device events a bounce, the (cluster,
+    ray) pairs it swept and its rate in triangle tests a second.  Returns
+    the sweep's numbers (empty without clusters)."""
     from torch.profiler import ProfilerActivity, profile
     from torch_render_profile import device_breakdown
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.geometry import intersect
 
+    static, _, settings = sc._settings_for_render()
+    W, H = sc.camera.screen_width, sc.camera.screen_height
+    fan = 1 << settings.split_k
+    _, n_chunks = plan_chunks(spp * sc._diffuse_fan() * fan, W, H, fan)
+    bounces = n_chunks * settings.max_bounces
+    before = dict(intersect.SWEEP_STATS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1013,16 +1058,38 @@ def stage_profile(torch, dev, name, sc, spp):
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
     span, busy, per_name = device_breakdown(events)
-    stages = wavefront_stages(events)
+    stages, counts = wavefront_stages(events)
     require(stages.get("nearest_hit", 0) > 0, f"{name}: no wavefront stage "
             "on the device in the profile")
+    sweep_us = stages.pop("clustered_sweep", 0.0)
+    sweep_events = counts.pop("clustered_sweep", 0)
     parts = ", ".join(f"{k} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)" for k, t in
                       sorted(stages.items(), key=lambda kv: -kv[1]))
+    sweep = {}
+    line = ""
+    if sweep_us:
+        d = {k: intersect.SWEEP_STATS[k] - before[k] for k in before}
+        sweep = dict(ms=sweep_us / 1e3, share=sweep_us / busy,
+                     syncs_per_bounce=d["syncs"] / bounces,
+                     events_per_bounce=sweep_events / bounces,
+                     sweeps_per_bounce=d["sweeps"] / bounces,
+                     pairs=d["pairs"], clusters_run=d["clusters"],
+                     tests_per_s=d["pairs"] * intersect.TRI_CLUSTER_SIZE
+                     / (sweep_us / 1e6))
+        line = (f" | clustered sweep (inside nearest_hit and the shadow rays): "
+                f"{sweep['ms']:.1f} ms ({100 * sweep['share']:.1f}% of busy), "
+                f"{sweep['sweeps_per_bounce']:.1f} sweeps, "
+                f"{sweep['syncs_per_bounce']:.1f} host syncs and "
+                f"{sweep['events_per_bounce']:.0f} device events a bounce "
+                f"({bounces} bounces), {d['clusters']} cluster runs, "
+                f"{d['pairs']} (cluster, ray) pairs, "
+                f"{sweep['tests_per_s'] / 1e9:.2f} G triangle tests/s")
     print(f"wavefront profile: {name}, one render under torch.profiler | wall "
           f"{wall:.4f} s, device span {span / 1e6:.4f} s, busy {busy / 1e6:.4f} s "
           f"({100 * busy / span:.1f}% of span), "
           f"{sum(c for _, c in per_name.values())} device events | by stage "
-          f"(share of busy): {parts}", flush=True)
+          f"(share of busy): {parts}{line}", flush=True)
+    return sweep
 
 
 def wavefront_phase(torch, dev):
@@ -1212,6 +1279,270 @@ def wavefront_phase(torch, dev):
     return solid_launches
 
 
+def routed_renders(torch, dev, sc, spp, n, seed):
+    """n renders of sc on the card with one seed: ([(image, stats, wall)],
+    the devices of the wavefront chunks, the kernels' launches, peak
+    GiB)."""
+    from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    devices = []
+    trace = scene_mod.trace
+
+    def traced(*args, **kw):
+        devices.append(args[1].device.type)
+        return trace(*args, **kw)
+
+    scene_mod.trace = traced
+    st.solid_trace_chunk.launches = rt.record_trace_chunk.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        runs = [timed_render(torch, dev, sc, spp, seed=seed) for _ in range(n)]
+    finally:
+        scene_mod.trace = trace
+    launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
+    return (runs, devices, launches,
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def chunk_var(torch, dev, sc, spp, solid=False):
+    """(REGIONS**2 + 1,) variance of a render's region and image means
+    over spp samples a pixel, from the scatter of one chunk's samples on
+    the wavefront (solid=True: the solid kernel)."""
+    from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.core.camera import cam_vec
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import chunk_seeds, plan_chunks
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    W, H = sc.camera.screen_width, sc.camera.screen_height
+    static, tables, settings = sc._settings_for_render()
+    fan = 1 << settings.split_k
+    chunk, n_chunks = plan_chunks(spp * sc._diffuse_fan() * fan, W, H, fan)
+    row = chunk_seeds(99, 1, chunk)[0]
+    if solid:
+        L, _ = st.solid_trace_chunk(
+            torch.from_numpy(row).to(dev), tables.to(dev),
+            cam_vec(sc.camera.params()).to(dev), W, H, chunk,
+            settings.max_bounces, settings.split_k, settings.sampler,
+            settings.projection)
+    else:
+        L, _ = scene_mod.wavefront_chunk(row, static,
+                                         compile_wavefront(sc)[1].to(dev),
+                                         sc.camera.params(), settings, W, H,
+                                         chunk)
+    var = region_samples(torch, L, chunk, W, H).var(dim=0)
+    return (var / (chunk * n_chunks)).cpu().numpy()
+
+
+def z_hold(name, a, b, var, W, H):
+    """z of two renders' image and REGIONS x REGIONS region means, given
+    the summed variance of both means; fails past 4."""
+    import numpy as np
+    z = (np.abs(image_regions(a, W, H) - image_regions(b, W, H))
+         / np.maximum(np.sqrt(var), 1e-12))
+    require((z < 4).all(), f"{name}: z {z}")
+    return (f"image mean {a.mean():.6f} vs {b.mean():.6f}, z {z[-1]:.2f} | "
+            f"{REGIONS}x{REGIONS} regions max z {z[:-1].max():.2f}")
+
+
+def sweep_pair(torch, fn, *args):
+    """(result, CUDA-event ms) of one call of fn."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mesh_phase(torch, dev):
+    """The meshes (examples/torch_mesh.py, plain torch on the card): the
+    three mesh examples at 400x300 x 16 spp through Scene.render, repeats
+    bit-equal, every chunk on CUDA, no kernel launched, each profiled by
+    stage with the clustered sweep's syncs, device events and rate; the
+    clustered sweep against the flat sweep over the same leaf-ordered
+    tables on the icosphere's camera rays, their first bounce and shadow
+    rays; the icosphere on the card against the CPU; the instance field
+    against the same field baked into TriangleMesh copies; a 20-face flat
+    mesh inside the gate through the solid kernel (bit for bit against
+    its plain version) and through the wavefront.  Returns (the solid
+    kernel's launches in that render, its max abs error)."""
+    import dataclasses
+
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_mesh
+    from raytracer_tpu_torch.core.camera import generate_rays
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import plan_chunks, route
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.geometry.attrs import hit_attributes
+    from raytracer_tpu_torch.ops import solid_trace as st
+    from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD, SKYBOX_DISTANCE
+
+    t_phase = time.perf_counter()
+    obj_dir = WORK / "mesh"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    build = lambda name, W, H, **kw: torch_mesh.SCENES[name](W, H, obj_dir=obj_dir,
+                                                            **kw)
+    W, H = MESH_W, MESH_H
+
+    # ---- the three mesh examples through Scene.render ----
+    for name, n in MESH_SCENES:
+        sc = build(name, W, H)
+        static, _, settings = sc._settings_for_render()
+        data = compile_wavefront(sc)[1]
+        require(route(static, settings) == "wavefront",
+                f"{name}: not the wavefront route")
+        chunk, n_chunks = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)
+        runs, devices, k_launches, peak = routed_renders(torch, dev, sc,
+                                                         MESH_SPP, n, seed=7)
+        img, stats, _ = runs[-1]
+        walls = [w for _, _, w in runs]
+        wall = statistics.median(walls[1:])
+        bit_equal = all(np.array_equal(r[0], runs[0][0]) for r in runs[1:])
+        n_rows = data.geom.tri_p1.shape[0]
+        print(f"mesh: {name} {W}x{H} x {MESH_SPP} spp through Scene.render, "
+              f"{static.n_tris} triangle ids on {n_rows} table rows, "
+              f"{data.geom.tri_cl_lo.shape[0]} cluster records, "
+              f"{data.geom.inst_rot.shape[0] - 1 if data.geom.inst_rot.shape[0] else 0} "
+              f"instances, corner attributes {static.tri_interp} | {n_chunks} "
+              f"chunks of {chunk} spp, {settings.max_bounces} bounces, "
+              f"{len(devices)} wavefront chunks on {sorted(set(devices))}, "
+              f"kernel launches {k_launches} | wall {wall:.4f} s (median of "
+              f"{n - 1} after a warm-up; {', '.join(f'{w:.4f}' for w in walls)}) | "
+              f"rays_traced {stats['rays_traced']} | "
+              f"{stats['rays_traced'] / wall / 1e6:.2f} Mrays/s | peak "
+              f"{peak:.2f} GiB | image mean {img.mean():.6f} | {n} renders of "
+              f"seed 7 bit-equal: {bit_equal}", flush=True)
+        require(devices == ["cuda"] * (n * n_chunks),
+                f"{name}: wavefront chunks ran on {devices}")
+        require(k_launches == 0, f"{name}: {k_launches} kernel launches")
+        require(bit_equal, f"{name}: the same seed gave different images")
+        require(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
+                and img.mean() > 0, f"{name}: image not finite, empty or of "
+                "the wrong shape")
+        stage_profile(torch, dev, f"{name} {W}x{H} x {MESH_SPP} spp", sc,
+                      MESH_SPP)
+        del runs
+        torch.cuda.empty_cache()
+
+    # ---- the clustered sweep against the flat sweep on the card ----
+    sc = build("icosphere", W, H)
+    static, data = compile_wavefront(sc)
+    data = data.to(dev)
+    geom = data.geom
+    empty = dict(tri_cl_lo=geom.tri_cl_lo[:0], tri_cl_hi=geom.tri_cl_hi[:0],
+                 tri_cl_start=geom.tri_cl_start[:0],
+                 tri_cl_virt=geom.tri_cl_virt[:0])
+    flat = dataclasses.replace(geom, **empty)
+    g = torch.Generator(device=dev).manual_seed(3)
+    O, D = generate_rays(g, sc.camera.params(), W, H, SWEEP_SPP)
+    rows, times = [], {}
+    for what in ("camera rays", "first bounce"):
+        (t_c, o_c, id_c), ms_c = sweep_pair(torch, intersect.nearest_hit, O, D, geom)
+        (t_f, o_f, id_f), ms_f = sweep_pair(torch, intersect.nearest_hit, O, D, flat)
+        t_eq = bool(torch.equal(t_c, t_f))
+        win = float(((id_c == id_f) & (o_c == o_f)).float().mean())
+        hit = t_c < MISS_THRESHOLD
+        rows.append(f"{what}: {O.shape[0]} rays ({float(hit.float().mean()):.4f} "
+                    f"hit), t bit-equal {t_eq}, winner equal {win:.6f}, "
+                    f"clustered {ms_c:.1f} ms vs flat {ms_f:.1f} ms")
+        times[what] = (ms_c, ms_f)
+        require(t_eq, f"clustered vs flat, {what}: t differs")
+        require(win >= WINNER_RATE, f"clustered vs flat, {what}: winners {win}")
+        # the first bounce: mirror continuations of the rays that hit
+        P = (O + D * t_c[:, None])[hit]
+        N = hit_attributes(P, id_c[hit], geom, static)[0] * o_c[hit][:, None]
+        eps = 1e-6 * torch.clamp_min(P.abs().amax(dim=-1), 1.0)
+        D = D[hit] - 2.0 * (D[hit] * N).sum(-1, keepdim=True) * N
+        O = P + N * eps[:, None]
+    # shadow rays toward the directional light from the first bounce's hits
+    L = data.lights.dir_l[0].expand(O.shape).contiguous()
+    md = torch.full((O.shape[0],), SKYBOX_DISTANCE, device=dev)
+    occ_c, ms_c = sweep_pair(torch, intersect.occluded, O, L, geom,
+                             data.obj.shadow, md)
+    occ_f, ms_f = sweep_pair(torch, intersect.occluded, O, L, flat,
+                             data.obj.shadow, md)
+    occ_eq = float((occ_c == occ_f).float().mean())
+    rows.append(f"shadow rays: {O.shape[0]} rays ({float(occ_c.float().mean()):.4f} "
+                f"occluded), equal {occ_eq:.6f}, clustered {ms_c:.1f} ms vs "
+                f"flat {ms_f:.1f} ms")
+    print(f"mesh clustered vs flat sweep: icosphere, {static.n_tris} triangles "
+          f"in leaf order, {geom.tri_cl_lo.shape[0]} clusters | "
+          + " | ".join(rows), flush=True)
+    require(occ_eq >= WINNER_RATE, f"clustered vs flat, shadow rays: {occ_eq}")
+    del O, D, P, N, L, md, data, geom, flat
+    torch.cuda.empty_cache()
+
+    # ---- the icosphere on the card against the CPU ----
+    sc = build("icosphere", CPU_W, CPU_H)
+    var = 2 * chunk_var(torch, dev, sc, MESH_SPP)
+    card, _, card_wall = timed_render(torch, dev, sc, MESH_SPP, seed=5)
+    t0 = time.perf_counter()
+    cpu = sc.render(samples_per_pixel=MESH_SPP, output="linear", device="cpu",
+                    seed=5)
+    cpu_wall = time.perf_counter() - t0
+    # the scene draws nothing past the camera's lattice jitter (glossy and
+    # emissive only), so the two renders also agree pixel by pixel, to
+    # rounding
+    diff = np.abs(card - cpu)
+    print(f"mesh card vs CPU: icosphere {CPU_W}x{CPU_H} x {MESH_SPP} spp | card "
+          f"{card_wall:.4f} s, CPU {cpu_wall:.4f} s ({torch.get_num_threads()} "
+          f"threads) | {z_hold('icosphere card vs CPU', card, cpu, var, CPU_W, CPU_H)}"
+          f" | pixels max abs diff {diff.max():.3e}, within 1e-4: "
+          f"{float((diff <= 1e-4).all(axis=-1).mean()):.6f}", flush=True)
+
+    # ---- the instance field against baked copies ----
+    sc_i, sc_b = build("instances", W, H), build("instances", W, H, baked=True)
+    var = chunk_var(torch, dev, sc_i, INST_SPP) + chunk_var(torch, dev, sc_b,
+                                                            INST_SPP)
+    img_i, _, wall_i = timed_render(torch, dev, sc_i, INST_SPP, seed=3)
+    img_b, _, wall_b = timed_render(torch, dev, sc_b, INST_SPP, seed=3)
+    st_b = sc_b._settings_for_render()[0]
+    sc_i.settings = T.RenderSettings(use_pallas="always")
+    try:
+        sc_i.render(1, device=dev)
+        raised = False
+    except ValueError:
+        raised = True
+    print(f"mesh instanced vs baked: 48 instances of a 1,280-face icosphere vs "
+          f"48 TriangleMesh copies ({st_b.n_tris} triangles, clustered in one "
+          f"region) {W}x{H} x {INST_SPP} spp | instanced {wall_i:.4f} s, baked "
+          f"{wall_b:.4f} s | {z_hold('instanced vs baked', img_i, img_b, var, W, H)}"
+          f" | use_pallas='always' raises: {raised}", flush=True)
+    require(raised, "use_pallas='always' rendered an instanced scene")
+    torch.cuda.empty_cache()
+
+    # ---- a flat 20-face mesh inside the gate: the solid kernel ----
+    sc = build("icosphere", W, H, subdiv=0, smooth=None)
+    static, _, settings = sc._settings_for_render()
+    require(route(static, settings) == "solid", "the 20-face mesh does not take "
+            "the solid kernel")
+    _, _, args = chunk_args(torch, dev, sc, MESH_SPP, [20261017, 4242, 0])
+    max_err, line = solid_check(torch, "20-face mesh", args)
+    var = (chunk_var(torch, dev, sc, MESH_SPP, solid=True)
+           + chunk_var(torch, dev, sc, MESH_SPP))
+    st.solid_trace_chunk.launches = 0
+    k_img, _, k_wall = timed_render(torch, dev, sc, MESH_SPP, seed=3)
+    k_launches = st.solid_trace_chunk.launches
+    sc.settings = T.RenderSettings(use_pallas="never")
+    w_img, _, w_wall = timed_render(torch, dev, sc, MESH_SPP, seed=3)
+    require(st.solid_trace_chunk.launches == k_launches, "the wavefront route "
+            "launched the solid kernel")
+    require(k_launches >= 1, "the 20-face mesh launched no solid kernel")
+    print(f"mesh inside the gate: 20-face flat icosphere ({static.n_objects} "
+          f"objects) {W}x{H} x {MESH_SPP} spp | solid kernel vs plain, one chunk: "
+          f"{line} | solid kernel route {k_wall:.4f} s ({k_launches} launches), "
+          f"wavefront {w_wall:.4f} s | "
+          f"{z_hold('20-face mesh kernel vs wavefront', k_img, w_img, var, W, H)}"
+          f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k_launches, max_err
+
+
 def main():
     import torch
 
@@ -1368,6 +1699,12 @@ def main():
 
     # ---- the wavefront: past the gates, and against the kernel ----
     solid_row["launches"] += wavefront_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    # ---- the meshes: clusters, corner attributes, instances ----
+    mesh_n, mesh_err = mesh_phase(torch, dev)
+    solid_row["launches"] += mesh_n
+    solid_row["max_abs_err"] = max(solid_row["max_abs_err"], mesh_err)
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

@@ -1,7 +1,7 @@
 """raytracer_tpu_torch — the PyTorch / CUDA port of raytracer_tpu.
 
-Solid-colour scenes (Sphere, Plane, Cuboid, Disc, Cylinder and Triangle
-with Diffuse, Glossy, Emissive and Refractive materials, lights with
+Solid-colour scenes (Sphere, Plane, Cuboid, Disc, Cylinder, Triangle and
+small flat TriangleMeshes with Diffuse, Glossy, Emissive and Refractive materials, lights with
 shadow rays, importance-sampled light caps, deterministic Fresnel
 splitting, spectral dispersion, the pinhole, fisheye, equirect and
 orthographic cameras) render through the solid kernel
@@ -15,7 +15,9 @@ kernels' gates (more than 48 objects, more than 8 importance-sampled
 targets or more than 36 shading groups), and any scene under
 RenderSettings(use_pallas="never"), render through the wavefront
 integrator in plain PyTorch (core/integrator.py, geometry/intersect.py,
-geometry/attrs.py, materials/shade.py), which `Ray`, `get_raycolor`,
+geometry/attrs.py, materials/shade.py), as do triangle meshes with vertex
+normals or uvs, meshes of 1,024 faces or more (swept in SAH clusters)
+and MeshInstances; the wavefront is what `Ray`, `get_raycolor`,
 `get_distances`, `first_hit` and `Scene.get_distances` also use.  Around
 them:
 checkpoints, adaptive sampling, the variance of the mean, previews,
@@ -35,8 +37,9 @@ from .core.integrator import RenderSettings
 from .core.ray import Hit, Ray, first_hit, get_distances, get_raycolor
 from .core.scene import Scene
 from .core.vec import array_to_vec3, extract, rgb, vec3
-from .geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Primitive,
-                                 Sphere, Triangle)
+from .geometry.primitive import (Cuboid, Cylinder, Disc, MeshInstances,
+                                 Plane, Primitive, Sphere, Surface, Triangle,
+                                 TriangleMesh)
 from .lights import DirectionalLight, Light, PointLight, SpotLight
 from .materials.base import (Diffuse, Emissive, Glossy, Material, Refractive,
                              ThinFilmInterference)
@@ -60,7 +63,6 @@ sRGB_linear_to_sRGB = srgb_linear_to_srgb
 sRGB_to_sRGB_linear = srgb_to_srgb_linear
 load_image_as_linear_sRGB = load_image_as_linear_srgb
 
-_MESHES = "ROADMAP.md 'Modules to port' item 4 (wavefront B: meshes)"
 _SHADING = ("ROADMAP.md 'Modules to port' item 5 (wavefront C: custom "
             "shading)")
 _FEATURES = ("ROADMAP.md 'Modules to port' item 6 (features on the "
@@ -68,7 +70,6 @@ _FEATURES = ("ROADMAP.md 'Modules to port' item 6 (features on the "
 # raytracer_tpu's public names that this package does not have yet, each
 # with the slice that brings it
 NOT_YET_PORTED = {
-    "TriangleMesh": _MESHES, "MeshInstances": _MESHES, "Surface": _MESHES,
     "CustomMaterial": _SHADING, "ShadeOut": _SHADING,
     "default_shade_out": _SHADING,
     "render_aovs": _FEATURES, "denoise": _FEATURES,
@@ -92,6 +93,7 @@ __all__ = [
     "random_in_unit_disk", "random_in_unit_sphere",
     "random_in_unit_spherical_cap", "random_in_unit_spherical_caps",
     "Primitive", "Sphere", "Plane", "Cuboid", "Disc", "Cylinder", "Triangle",
+    "TriangleMesh", "MeshInstances", "Surface",
     "Light", "PointLight", "DirectionalLight", "SpotLight",
     "Material", "Diffuse", "Emissive", "Refractive", "Glossy",
     "ThinFilmInterference", "SkyBox", "Panorama", "procedural_sky",

@@ -14,10 +14,16 @@ in insertion order within each kind, as in the JAX package.
 `compile_scene` gives the kernels' tables (`SolidTables`);
 `compile_wavefront` gives the wavefront's per-kind tables (`SceneData`,
 compile.py:319-480), the pair the JAX `compile_scene` returns, for every
-scene whichever route it renders by.  Scenes outside the
-ported slices (triangle meshes, mesh instances, TRI_CLUSTER_THRESHOLD
-triangles or more) raise NotImplementedError naming the ROADMAP.md item
-that brings them.
+scene whichever route it renders by.
+
+Triangle meshes add their faces to the triangle tables, with corner
+normals and uvs where a mesh carries them.  From TRI_CLUSTER_THRESHOLD
+triangles on, and for every scene with MeshInstances, the triangles are
+permuted into the binned-SAH leaf order of the port's native library
+(native.py) and cut into clusters of TRI_CLUSTER_SIZE rows with one
+inflated box each, which the wavefront's clustered sweep visits
+(geometry/intersect.py); instances share one object-space copy of their
+mesh, and triangle object ids are virtual (compile.py:1162-1400).
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 
 from ..backgrounds.environment import Panorama, SkyBox
-from ..geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Sphere,
-                                  Triangle)
+from ..geometry.intersect import TRI_CLUSTER_SIZE
+from ..geometry.primitive import (Cuboid, Cylinder, Disc, MeshInstances,
+                                  Plane, Sphere, Triangle, TriangleMesh)
 from ..lights import SpotLight
 from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
@@ -51,7 +58,8 @@ KIND_CODES = {"sphere": 0, "plane": 1, "box": 2, "tri": 3, "disc": 4, "cyl": 5}
 # object order in the tables (compile.py:1500)
 KINDS = ("sphere", "plane", "box", "disc", "cyl", "tri")
 _PRIM_KIND = ((Sphere, "sphere"), (Plane, "plane"), (Cuboid, "box"),
-              (Disc, "disc"), (Cylinder, "cyl"), (Triangle, "tri"))
+              (Disc, "disc"), (Cylinder, "cyl"), (Triangle, "tri"),
+              (TriangleMesh, "tri"))
 
 # columns of the (O, OBJ_COLS) int32 object table the kernels read;
 # OBJ_GID is the record path's shading-group id (`shading_groups`), OBJ_UV
@@ -69,8 +77,8 @@ E5_PACK_LIMIT = 4.0
 _E5_BIAS = 15
 # largest composed thin-film table in texels (compile.py:662)
 TF_COMP_LIMIT = 2_000_000
-# triangle count from which the JAX package sweeps triangles in clusters
-# (compile.py:1162); the port's wavefront has the flat blocked sweep only
+# triangle count from which the wavefront sweeps triangles in clusters
+# (compile.py:1162); below it, the flat blocked sweep
 TRI_CLUSTER_THRESHOLD = 1024
 # the word of ObjectTables.packed: type | slot << 3 | min(depth, 1023) << 13
 # | mc << 23 | shadow << 24 (compile.py:405-417)
@@ -151,14 +159,21 @@ class SceneStatic:
     tf_selp: Tuple[Tuple[float, float, float, float], ...]
     # the wavefront's facts: whether anything samples uv, and whether an
     # environment is importance-sampled (its alias tables are ROADMAP.md
-    # item 5, so the wavefront raises on such a scene)
+    # item 5, so the wavefront raises on such a scene); n_tris counts the
+    # triangle object ids, which are virtual under MeshInstances (one
+    # record per instance, one id per instance and face); tri_interp says
+    # whether the triangles carry corner normals and uvs
     needs_uv: bool = False
     env_is: bool = False
+    n_tris: int = 0
+    tri_interp: bool = False
 
     @cached_property
     def kind_counts(self):
-        """{kind: object count} over KINDS (the JAX n_spheres ...)."""
-        return {k: sum(r.kind == k for r in self.obj_records) for k in KINDS}
+        """{kind: object ids} over KINDS (the JAX n_spheres ...)."""
+        counts = {k: sum(r.kind == k for r in self.obj_records) for k in KINDS}
+        counts["tri"] = self.n_tris
+        return counts
 
     @property
     def has_shadow_objects(self):
@@ -248,9 +263,22 @@ class _Tables:
 
 @dataclass(frozen=True)
 class GeometryTables(_Tables):
-    """Per-kind geometry (the analytic and flat-triangle subset of the JAX
-    GeometryTables; its cluster, vertex-attribute and instance tables are
-    ROADMAP.md item 4)."""
+    """Per-kind geometry (the JAX GeometryTables less the normal-map
+    tangents, which are ROADMAP.md item 5).
+
+    Triangle rows are physical: under MeshInstances, region 0 (Triangle
+    and mesh faces, identity transform), then one object-space copy of
+    each instanced mesh, every region in leaf order and padded with
+    degenerate rows to whole clusters.  Clusters (empty below
+    TRI_CLUSTER_THRESHOLD triangles without instances): the inflated
+    world box tri_cl_lo / hi, the first physical row tri_cl_start, the
+    owning instance tri_cl_inst (empty without instances) and the first
+    virtual object id tri_cl_virt.  Virtual ids map to (row, instance)
+    through tri_virt_row / tri_virt_inst, and an instance is world =
+    inst_rot @ (s x) + inst_trans with inst_inv_scale = 1 / s (instance 0
+    is the identity).  tri_vn1-3 / tri_uv1-3: corner normals and uvs,
+    empty unless a mesh carries them (flat faces then hold their face
+    normal and the barycentric identity uvs)."""
     sphere_center: torch.Tensor    # (S, 3)
     sphere_radius: torch.Tensor    # (S,)
     plane_center: torch.Tensor
@@ -286,6 +314,22 @@ class GeometryTables(_Tables):
     tri_n31: torch.Tensor
     tri_n12: torch.Tensor
     tri_n23: torch.Tensor
+    tri_cl_lo: torch.Tensor        # (C, 3)
+    tri_cl_hi: torch.Tensor
+    tri_cl_start: torch.Tensor     # (C,) int32
+    tri_vn1: torch.Tensor          # (T, 3) or (0, 3)
+    tri_vn2: torch.Tensor
+    tri_vn3: torch.Tensor
+    tri_uv1: torch.Tensor          # (T, 2) or (0, 2)
+    tri_uv2: torch.Tensor
+    tri_uv3: torch.Tensor
+    tri_cl_inst: torch.Tensor      # (C,) int32 or (0,)
+    tri_cl_virt: torch.Tensor      # (C,) int32
+    tri_virt_row: torch.Tensor     # (V,) int32 or (0,)
+    tri_virt_inst: torch.Tensor    # (V,) int32 or (0,)
+    inst_rot: torch.Tensor         # (I, 3, 3) object -> world
+    inst_trans: torch.Tensor       # (I, 3)
+    inst_inv_scale: torch.Tensor   # (I,)
 
 
 @dataclass(frozen=True)
@@ -369,9 +413,14 @@ def texture_f32(arr):
     return hit[1]
 
 
-def pack_objects(records):
-    """ObjectTables of the static records (compile.py:1500-1522)."""
-    col = lambda k, dt: np.asarray([getattr(r, k) for r in records], dt)
+def pack_objects(records, repeats=None):
+    """ObjectTables of the static records (compile.py:1500-1522), record i
+    repeated repeats[i] times (an instance's record covers its mesh's
+    faces)."""
+    col = lambda k, dt: (np.asarray([getattr(r, k) for r in records], dt)
+                         if repeats is None else np.repeat(
+                             np.asarray([getattr(r, k) for r in records], dt),
+                             repeats))
     mt, sl = col("mat_type", I32), col("mat_slot", I32)
     dep = np.minimum(col("max_depth", I32), 1023)
     mc, sh = col("mc", bool), col("shadow", bool)
@@ -409,6 +458,10 @@ def derive_split_k(static: SceneStatic, cap: int = 3) -> int:
 
 def _f(x):
     return np.asarray(x, dtype=F32)
+
+
+def _i(x):
+    return np.asarray(x, dtype=I32)
 
 
 def _stack3(rows):
@@ -848,6 +901,243 @@ class _Textures:
                 self.env_slots[i] = dataclasses.replace(e, kind=kind)
 
 
+# ---------------------------------------------------------------------------
+# triangles: corner attributes, the leaf order, clusters and instances
+# (compile.py:1162-1400); host numpy in the JAX package's dtypes (float32
+# vertices, float64 corner attributes until the tables), so that every
+# table is bit for bit the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def _cluster_runs(TV, B):
+    """(starts, bbox_lo, bbox_hi) of the fixed runs of B leaf-ordered
+    triangles, the boxes in float64 (compile.py:1165)."""
+    T = TV.shape[0]
+    C = -(-T // B)
+    v64 = np.pad(TV.astype(np.float64).reshape(-1, 3),
+                 ((0, (C * B - T) * 3), (0, 0)),
+                 constant_values=np.nan).reshape(C, B * 3, 3)
+    starts = np.arange(C, dtype=np.int64) * B
+    return starts, np.nanmin(v64, axis=1), np.nanmax(v64, axis=1)
+
+
+def _inflate(lo, hi):
+    """Conservative float32 inflation of the cluster boxes
+    (compile.py:1184): a box only gates the triangle test, so rounding
+    must never cull a cluster that a ray hits."""
+    pad = 1e-4 * (hi - lo + np.abs(lo) + np.abs(hi) + 1.0)
+    return _f(lo - pad), _f(hi + pad)
+
+
+def _inst_world_aabb(lo, hi, R, t, s):
+    """World boxes of (C, 3) object-space boxes under world = R @ (s x) + t:
+    the min and max of the 8 transformed corners (compile.py:1192)."""
+    corners = np.stack([np.where(np.asarray(m, bool)[None, :], hi, lo)
+                        for m in np.ndindex(2, 2, 2)], axis=1)    # (C, 8, 3)
+    w = (s * corners) @ R.T + t[None, None, :]
+    return w.min(axis=1), w.max(axis=1)
+
+
+def _default_cvn(tv):
+    """Corner normals of flat faces: the face normal at every corner."""
+    fn = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+    fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+    return np.repeat(fn[:, None, :], 3, axis=1).astype(np.float64)
+
+
+def _default_cuv(T):
+    """Corner uvs of faces without vt: the barycentric identity."""
+    return np.tile(np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]), (T, 1, 1))
+
+
+def _layout_instanced(TV, CVN, CUV, groups):
+    """Physical and virtual triangle layout of a scene with MeshInstances
+    (compile.py:1201).
+
+    Region 0 holds the plain triangles (identity transform), then each
+    group one object-space copy of its mesh; every region is in leaf
+    order and padded with zero rows to whole clusters, so that a
+    cluster's rows never belong to another region.  Each (cluster,
+    instance) pair is one cluster record, its box the object-space box
+    pushed through the instance's transform.  Virtual ids: region 0's
+    rows, then one id per (instance, row).  groups: (mesh, [instance
+    dicts with R, t, s]) in scene order."""
+    from ..native import build_bvh
+
+    B = TRI_CLUSTER_SIZE
+    any_attrs = CVN is not None or any(
+        mesh.corner_normals is not None or mesh.corner_uvs is not None
+        for mesh, _ in groups)
+    phys_tv, phys_cvn, phys_cuv = [], [], []
+    cl_lo, cl_hi, cl_start, cl_virt, cl_inst = [], [], [], [], []
+    inst_R, inst_t, inst_s = [np.eye(3)], [np.zeros(3)], [1.0]
+    virt_rows, virt_insts = [], []
+    state = {"phys": 0, "virt": 0}
+
+    def add_region(tvr, cvnr, cuvr, transforms):
+        """transforms: (R, t, s, instance id or None to allocate one)."""
+        T = tvr.shape[0]
+        perm = (build_bvh(tvr)["order"] if T >= 2
+                else np.arange(T, dtype=np.int64))
+        tvr = tvr[perm]
+        starts, lo, hi = _cluster_runs(tvr, B)
+        C = starts.shape[0]
+        padr = C * B - T
+        phys_tv.append(np.pad(tvr, ((0, padr), (0, 0), (0, 0))))
+        if any_attrs:
+            # given tables are in face order; the defaults come from the
+            # leaf-ordered vertices
+            cvnr = _default_cvn(tvr) if cvnr is None else cvnr[perm]
+            cuvr = _default_cuv(T) if cuvr is None else cuvr[perm]
+            phys_cvn.append(np.pad(cvnr, ((0, padr), (0, 0), (0, 0))))
+            phys_cuv.append(np.pad(cuvr, ((0, padr), (0, 0), (0, 0))))
+        for (R, tr, s, inst_id) in transforms:
+            if inst_id is None:
+                inst_id = len(inst_R)
+                inst_R.append(R)
+                inst_t.append(tr)
+                inst_s.append(s)
+            lo_w, hi_w = _inflate(*_inst_world_aabb(lo, hi, R, tr, s))
+            cl_lo.append(lo_w)
+            cl_hi.append(hi_w)
+            cl_start.append(state["phys"] + starts)
+            cl_virt.append(state["virt"] + starts)
+            cl_inst.append(np.full((C,), inst_id, I32))
+            virt_rows.append(state["phys"] + np.arange(T, dtype=np.int64))
+            virt_insts.append(np.full((T,), inst_id, I32))
+            state["virt"] += T
+        state["phys"] += C * B
+        return perm
+
+    perm0 = None
+    if TV.shape[0]:
+        perm0 = add_region(TV, CVN, CUV, [(np.eye(3), np.zeros(3), 1.0, 0)])
+    for mesh, insts in groups:
+        tvr = np.asarray(mesh.triangles, F32)
+        cvnr = cuvr = None
+        if any_attrs:
+            cvnr = (np.asarray(mesh.corner_normals, np.float64)
+                    if mesh.corner_normals is not None else None)
+            cuvr = (np.asarray(mesh.corner_uvs, np.float64)
+                    if mesh.corner_uvs is not None else None)
+        add_region(tvr, cvnr, cuvr,
+                   [(i["R"], i["t"], i["s"], None) for i in insts])
+    cat = np.concatenate
+    return dict(
+        TV=cat(phys_tv).astype(F32),
+        CVN=cat(phys_cvn) if any_attrs else None,
+        CUV=cat(phys_cuv) if any_attrs else None,
+        cl_lo=cat(cl_lo), cl_hi=cat(cl_hi),
+        cl_start=_i(cat(cl_start)), cl_virt=_i(cat(cl_virt)),
+        cl_inst=cat(cl_inst),
+        virt_row=_i(cat(virt_rows)), virt_inst=cat(virt_insts),
+        inst_rot=_f(np.stack(inst_R)), inst_trans=_f(np.stack(inst_t)),
+        inst_inv_scale=_f(1.0 / np.asarray(inst_s)),
+        n_virtual=state["virt"], perm0=perm0)
+
+
+def _triangle_tables(tri, groups):
+    """The triangle side of a compile (compile.py:1320-1400).
+
+    tri: (primitive, props) of the Triangle and TriangleMesh objects in
+    scene order; groups: (mesh, [instance dicts]) of the MeshInstances.
+    Returns a dict: TV (T, 3, 3) float32 in table order, CVN / CUV the
+    float64 corner normals and uvs (None when no mesh carries them), the
+    row props of region 0 in table order, the cluster and instance tables
+    (None without clusters), and n_virtual, the triangle object ids."""
+    parts, props, attr_blocks = [], [], []
+    for q, p in tri:
+        start = len(props)
+        if isinstance(q, TriangleMesh):
+            parts.append(np.asarray(q.triangles, F32))
+            props.extend([p] * len(q.faces))
+            if q.corner_normals is not None or q.corner_uvs is not None:
+                attr_blocks.append((start, len(q.faces), q.corner_normals,
+                                    q.corner_uvs))
+        else:
+            parts.append(np.asarray([(q.p1, q.p2, q.p3)], F32))
+            props.append(p)
+    TV = np.concatenate(parts) if parts else np.zeros((0, 3, 3), F32)
+
+    # corner attributes parallel to TV before any permutation; the
+    # defaults make the interpolation exact for flat faces
+    CVN = CUV = None
+    if attr_blocks:
+        CVN = _default_cvn(TV)
+        CUV = _default_cuv(TV.shape[0])
+        for a_start, a_count, a_vn, a_uv in attr_blocks:
+            if a_vn is not None:
+                CVN[a_start:a_start + a_count] = a_vn
+            if a_uv is not None:
+                CUV[a_start:a_start + a_count] = a_uv
+
+    out = dict(props=props, clusters=None, n_virtual=len(props))
+    if groups:
+        # instanced scenes always take the clustered sweep (the flat one
+        # has no per-row transform)
+        lay = _layout_instanced(TV, CVN, CUV, groups)
+        if lay["perm0"] is not None:
+            out["props"] = [props[i] for i in lay["perm0"]]
+        TV, CVN, CUV = lay["TV"], lay["CVN"], lay["CUV"]
+        out["clusters"] = lay
+        out["n_virtual"] = lay["n_virtual"]
+    elif len(props) >= TRI_CLUSTER_THRESHOLD:
+        from ..native import build_bvh
+        perm = build_bvh(TV)["order"]
+        TV = TV[perm]
+        out["props"] = [props[i] for i in perm]
+        if CVN is not None:
+            CVN, CUV = CVN[perm], CUV[perm]
+        starts, lo, hi = _cluster_runs(TV, TRI_CLUSTER_SIZE)
+        lo, hi = _inflate(lo, hi)
+        out["clusters"] = dict(cl_lo=lo, cl_hi=hi, cl_start=_i(starts),
+                               cl_virt=_i(starts))
+    out.update(TV=TV, CVN=CVN, CUV=CUV)
+    return out
+
+
+def _cluster_fields(cl, CVN, CUV):
+    """The GeometryTables fields of the clusters, instances and corner
+    attributes (compile.py:1476-1494); empty tables where a scene has
+    none."""
+    z = lambda *shape: _t(np.zeros(shape, F32))
+    zi = lambda: _t(np.zeros((0,), I32), I32)
+    lay = cl if cl is not None and "inst_rot" in cl else None
+    out = dict(
+        tri_cl_lo=_t(cl["cl_lo"]) if cl else z(0, 3),
+        tri_cl_hi=_t(cl["cl_hi"]) if cl else z(0, 3),
+        tri_cl_start=_t(cl["cl_start"], I32) if cl else zi(),
+        tri_cl_inst=_t(lay["cl_inst"], I32) if lay else zi(),
+        tri_cl_virt=_t(cl["cl_virt"], I32) if cl else zi(),
+        tri_virt_row=_t(lay["virt_row"], I32) if lay else zi(),
+        tri_virt_inst=_t(lay["virt_inst"], I32) if lay else zi(),
+        inst_rot=_t(lay["inst_rot"]) if lay else z(0, 3, 3),
+        inst_trans=_t(lay["inst_trans"]) if lay else z(0, 3),
+        inst_inv_scale=_t(lay["inst_inv_scale"]) if lay else z(0))
+    for j in range(3):
+        out[f"tri_vn{j + 1}"] = _t(CVN[:, j]) if CVN is not None else z(0, 3)
+        out[f"tri_uv{j + 1}"] = _t(CUV[:, j]) if CUV is not None else z(0, 2)
+    return out
+
+
+def _mesh_group(reg, prim):
+    """(mesh, [instance dicts]) of a MeshInstances, its materials
+    registered in instance order (compile.py:990)."""
+    if not prim.instances:
+        raise ValueError("MeshInstances has no instances; call .add()")
+    insts = []
+    for (R, tr, s, mat) in prim.instances:
+        m = mat if mat is not None else prim.material
+        slot = reg.material_slot(m)
+        insts.append(dict(
+            R=np.asarray(R, np.float64), t=np.asarray(tr, np.float64),
+            s=float(s),
+            rec=ObjRecord("tri", m.mat_type, slot,
+                          min(prim.max_ray_depth, 10 ** 6, 1023), prim.mc,
+                          prim.shadow)))
+    return prim.mesh, insts
+
+
 def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
     """Lower a Scene to (SceneStatic, SolidTables) on the CPU: the
     kernels' tables."""
@@ -867,15 +1157,15 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
     caller that picks its route after the static part."""
     reg = _Textures()
     by_kind = {k: [] for k in KINDS}   # (primitive, props) per kind
+    groups = []                        # MeshInstances: (mesh, instances)
 
     for prim in scene.scene_primitives:
+        if isinstance(prim, MeshInstances):
+            groups.append(_mesh_group(reg, prim))
+            continue
         kind = next((k for cls, k in _PRIM_KIND if isinstance(prim, cls)), None)
         if kind is None:
-            raise NotImplementedError(
-                f"{type(prim).__name__} is not ported yet: only Sphere, Plane, "
-                "Cuboid, Disc, Cylinder and Triangle are; triangle meshes and "
-                "mesh instances come with ROADMAP.md 'Modules to port' item "
-                "4 (wavefront B)")
+            raise TypeError(f"unsupported primitive {type(prim).__name__}")
         mat = prim.material
         slot = reg.material_slot(mat)
         if isinstance(prim, Panorama):
@@ -930,16 +1220,17 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
              + list(np.asarray(prim.u_axis)) + list(np.asarray(prim.v_axis))
              + [prim.radius, prim.height / 2, 1.0 if prim.capped else 0.0])
     # triangles: p1, p2, p3, the unit normal and the edge normals n31, n12,
-    # n23, vectorised over the float32 vertices (compile.py:1341, 1426-1431)
-    if len(by_kind["tri"]) >= TRI_CLUSTER_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(by_kind['tri'])} triangles: scenes of "
-            f"{TRI_CLUSTER_THRESHOLD} or more need the clustered triangle "
-            "sweep, ROADMAP.md 'Modules to port' item 4 (wavefront B)")
-    for _, p in by_kind["tri"]:
+    # n23, vectorised over the float32 vertices (compile.py:1341, 1426-1431),
+    # one record a region-0 row and one an instance (compile.py:1646-1656)
+    tt = _triangle_tables(by_kind["tri"], groups)
+    for p in tt["props"]:
         _rec("tri", p)
-    TV = (np.asarray([(t.p1, t.p2, t.p3) for t, _ in by_kind["tri"]], dtype=F32)
-          if by_kind["tri"] else np.zeros((0, 3, 3), F32))
+    repeats = [1] * len(records)
+    for mesh, insts in groups:
+        records.extend(i["rec"] for i in insts)
+        repeats.extend([len(mesh.faces)] * len(insts))
+    n_obj_total = sum(repeats)
+    TV, CVN, CUV = tt["TV"], tt["CVN"], tt["CUV"]
     P1, P2, P3 = TV[:, 0], TV[:, 1], TV[:, 2]
     nr = np.cross(P2 - P1, P3 - P1)
     nr_u = nr / np.maximum(np.linalg.norm(nr, axis=-1, keepdims=True), 1e-20)
@@ -988,7 +1279,8 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         cyl_capped=_t(a1("cyl", lambda q: 1.0 if q.capped else 0.0)),
         tri_p1=_t(P1), tri_p2=_t(P2), tri_p3=_t(P3), tri_normal=_t(nr_u),
         tri_centroid=_t((P1 + P2 + P3) / 3.0), tri_n31=_t(tri_n[0]),
-        tri_n12=_t(tri_n[1]), tri_n23=_t(tri_n[2]))
+        tri_n12=_t(tri_n[1]), tri_n23=_t(tri_n[2]),
+        **_cluster_fields(tt["clusters"], CVN, CUV))
 
     # ---- material tables (compile.py:1529-1556) ---------------------------
     def solid_of(m, attr):
@@ -1057,8 +1349,10 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
           refr_disp[r.mat_slot] if r.mat_type == MAT_REFRACTIVE else None)
          for r in records})
     n_groups_slot = len(shading_groups(records)[1])
-    common_ok = (0 < len(records) <= PALLAS_MAX_OBJECTS
-                 and len(scene.importance_sampled_list) <= 8)
+    # instanced scenes and corner attributes shade on the wavefront
+    common_ok = (0 < n_obj_total <= PALLAS_MAX_OBJECTS
+                 and len(scene.importance_sampled_list) <= 8
+                 and not groups and CVN is None)
     pallas_ok = (common_ok and n_groups_merged <= PALLAS_MAX_GROUPS
                  and not needs_uv
                  and set(present) <= {MAT_EMISSIVE, MAT_GLOSSY, MAT_DIFFUSE,
@@ -1074,7 +1368,7 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
     atlas, tex_scale, tex_shapes, tex_offsets, tex_enc = texture_atlas(
         tuple(reg.arrays))
     static = SceneStatic(
-        n_objects=len(records), n_is_targets=int(is_center.shape[0]),
+        n_objects=n_obj_total, n_is_targets=int(is_center.shape[0]),
         mat_types_present=present, obj_records=tuple(records),
         refr_disp=refr_disp, pallas_ok=pallas_ok, pallas_tex_ok=pallas_tex_ok,
         n_dir_lights=len(dlts), n_point_lights=len(plts),
@@ -1085,14 +1379,15 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         thinfilm_noise=tuple(refs["tf_noise"]),
         thinfilm_comp=tuple(refs["tf_comp"]), env_slots=tuple(reg.env_slots),
         tex_shapes=tex_shapes, tex_offsets=tex_offsets, tex_enc=tex_enc,
-        tf_selp=tf_selp, needs_uv=needs_uv, env_is=bool(is_envs))
+        tf_selp=tf_selp, needs_uv=needs_uv, env_is=bool(is_envs),
+        n_tris=tt["n_virtual"], tri_interp=CVN is not None)
     tables = build_solid_tables(
         records, refr_disp, geom, mats, lights, is_center, is_radius,
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
         tf_rows, atlas, tex_scale, static.image_slots(),
         (len(dlts), len(plts), len(slts)), static=static)
     data = SceneData(
-        geom=wgeom, obj=pack_objects(records),
+        geom=wgeom, obj=pack_objects(records, repeats),
         mats=MaterialTables(**{k: _t(v) for k, v in mats.items()}),
         lights=LightTables(**{k: _t(v) for k, v in lt.items()}),
         is_center=_t(is_center), is_radius=_t(is_radius),

@@ -80,7 +80,9 @@ class Hit:
     (N,) (FARAWAY on a miss), orientation (N,), and point, normal, uv and
     the compiled object id, zero on a miss.  Object ids run spheres,
     planes, boxes, discs, cylinders, triangles, each in the scene's order,
-    not the position in Scene.scene_primitives."""
+    not the position in Scene.scene_primitives; every face of a
+    TriangleMesh has its own id (in leaf order when the mesh is
+    clustered), and a MeshInstances group one per instance and face."""
 
     def __init__(self, distance, orientation, point=None, normal=None,
                  uv=None, obj_id=None):

@@ -1,0 +1,2 @@
+from .primitive import (Cuboid, MeshInstances, Plane, Primitive, Sphere,
+                        Triangle, TriangleMesh, rotation_matrix)

@@ -5,8 +5,10 @@ Counterpart of raytracer_tpu/geometry/attrs.py: each present kind's
 formula runs over the whole wavefront with its ids clamped into the
 kind's table, and `torch.where` keeps the rays that hit that kind.  The
 uv is computed only when the scene samples it (SceneStatic.needs_uv) or
-the caller asks for it.  Vertex-attribute interpolation of mesh
-triangles (`tri_interp`) is ROADMAP.md item 4.
+the caller asks for it.  Mesh triangles with corner normals and uvs
+blend them at the hit (smooth shading, mesh textures), and under
+MeshInstances a triangle's virtual id maps to a (row, instance) pair
+whose object space the hit is solved in (attrs.py:172-243).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import math
 import torch
 
 from ..core.compile import KINDS
-from ..core.safemath import div, rdiv
+from ..core.safemath import div, rdiv, safe_norm
 
 
 def _gather(table, idx):
@@ -130,22 +132,58 @@ def cylinder_attrs(P, local_id, geom, need_uv):
     return N, torch.stack([u, v], dim=-1)
 
 
+def _mat_rows(R, X):
+    """R @ x for each row x of X, R (N, 3, 3)."""
+    return torch.stack([_dot(R[:, j, :], X) for j in range(3)], dim=-1)
+
+
 def triangle_attrs(P, local_id, geom, need_uv):
     """The face normal and (u, v) = the barycentric weights of p2, p3
-    (attrs.py:175, flat triangles)."""
-    N = _gather(geom.tri_normal, local_id)
-    if not need_uv:
-        return N, None
-    p1 = _gather(geom.tri_p1, local_id)
-    e1 = _gather(geom.tri_p2, local_id) - p1
-    e2 = _gather(geom.tri_p3, local_id) - p1
+    (attrs.py:175).  With corner normals and uvs (tri_vn* / tri_uv*
+    non-empty) the normal is the barycentric blend of the corner normals,
+    normalised, and uv the blend of the corner uvs; flat faces' corners
+    reproduce the flat result.  Under MeshInstances local_id is a virtual
+    id: the hit is pulled into its instance's object space, ((P - t) @ R)
+    / s, for the barycentric solve, and the normal rotated back by R."""
+    R = None
+    if geom.tri_virt_row.shape[0]:
+        row = _gather(geom.tri_virt_row, local_id)
+        inst = _gather(geom.tri_virt_inst, local_id)
+        R = _gather(geom.inst_rot, inst)                        # (N, 3, 3)
+        Pt = P - _gather(geom.inst_trans, inst)
+        inv_s = _gather(geom.inst_inv_scale, inst)
+        P = torch.stack([_dot(R[:, :, j], Pt) for j in range(3)],
+                        dim=-1) * inv_s[..., None]
+    else:
+        row = local_id
+
+    def to_world(N_obj):
+        return N_obj if R is None else _mat_rows(R, N_obj)
+
+    N = _gather(geom.tri_normal, row)
+    interp = geom.tri_vn1.shape[0] > 0
+    if not (need_uv or interp):
+        return to_world(N), None
+    p1 = _gather(geom.tri_p1, row)
+    e1 = _gather(geom.tri_p2, row) - p1
+    e2 = _gather(geom.tri_p3, row) - p1
     d = P - p1
     d11, d12, d22 = _dot(e1, e1), _dot(e1, e2), _dot(e2, e2)
     dp1, dp2 = _dot(d, e1), _dot(d, e2)
     det = torch.clamp_min(d11 * d22 - d12 * d12, 1e-20)
     u = (d22 * dp1 - d12 * dp2) / det
     v = (d11 * dp2 - d12 * dp1) / det
-    return N, torch.stack([u, v], dim=-1)
+    if not interp:
+        return to_world(N), torch.stack([u, v], dim=-1)
+    w1, w2, w3 = (1.0 - u - v)[..., None], u[..., None], v[..., None]
+    Ns = (w1 * _gather(geom.tri_vn1, row) + w2 * _gather(geom.tri_vn2, row)
+          + w3 * _gather(geom.tri_vn3, row))
+    N = Ns / safe_norm(Ns, keepdim=True)
+    if not need_uv:
+        return to_world(N), None
+    uv = (w1 * _gather(geom.tri_uv1, row) + w2 * _gather(geom.tri_uv2, row)
+          + w3 * _gather(geom.tri_uv3, row))
+    return to_world(N), uv
 
 
 _ATTRS = dict(sphere=sphere_attrs, plane=plane_attrs, box=box_attrs,

@@ -18,19 +18,48 @@ the first minimum inside a sphere / plane / box / disc / cylinder table
 and a strict `<` across blocks and kinds.
 
 Object ids run spheres, planes, boxes, discs, cylinders, triangles.
-The clustered triangle sweep (`_clustered_*`, `_inst_ray_tile`) is
-ROADMAP.md item 4: the compiler refuses scenes that need it.
+
+Scenes of TRI_CLUSTER_THRESHOLD triangles or more, and scenes with
+MeshInstances, carry clusters of TRI_CLUSTER_SIZE leaf-ordered triangles
+with one inflated box each (core/compile.py), and their triangles take
+the two-level sweep of intersect.py:226-411: rays in tiles of RAY_TILE,
+each tile's clusters visited front to back by their nearest entry, an
+instance's clusters tested with the rays pulled into its object space.
+Where XLA branches per (tile, cluster) pair on the device (lax.cond),
+eager torch would sync per pair, so `_cluster_pairs` finds in one pass
+every (cluster record, ray) pair whose box test the ray passes (one
+nonzero and one small copy to the host: two syncs a sweep), and each
+physical cluster then sweeps its pairs, all tiles and all the instances
+that share it at once.  A triangle hit lies in its cluster's box, whose
+entry is conservative, so a ray that misses the box, or enters it behind
+its nearest hit so far (`limit`), cannot change the result, and leaving
+it out gives the JAX package's answer.  The sequential scan keeps, per
+ray, the smallest t and on a tie the record first in its tile's visit
+order (its strict `<`); the blocks fold into the same (t, rank) minimum,
+so their order does not matter.  SWEEP_STATS counts the clustered
+sweeps, their syncs, the physical clusters run and the pairs swept; each
+sweep runs under the profiler range "wavefront.clustered_sweep".
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from ..core.safemath import safe_sqrt
+from ..core.safemath import rdiv, safe_sqrt
 from ..utils.constants import FARAWAY, UPDOWN, UPWARDS
 
 # elements of one (block, N) intermediate of the object sweeps
 BLOCK_ELEMS = 1 << 25
+# triangles a cluster, and rays a tile of the clustered sweep
+# (intersect.py:238, 241)
+TRI_CLUSTER_SIZE = 256
+RAY_TILE = 32768
+# (record, ray) pairs of one box pass: rays go in groups of whole tiles
+# so that its (records, rays) mask stays within this many bools
+PAIR_MASK_ELEMS = 1 << 30
+# host counters of the clustered sweeps (read and reset by profilers)
+SWEEP_STATS = dict(sweeps=0, syncs=0, clusters=0, pairs=0)
 
 
 def object_block(n_rays):
@@ -235,6 +264,225 @@ def _blocked_tri_scan(O, D, geom, body_reduce, state):
     return state
 
 
+def _ray_tiles(n):
+    """(rays a tile, tiles) of the clustered sweep (intersect.py:245): a
+    ray's tile decides its clusters' visit order."""
+    R = min(RAY_TILE, ((n + 255) // 256) * 256)
+    return R, -(-n // R)
+
+
+def _safe_inv(d):
+    """1 / d with |d| below 1e-12 replaced by +1e-12 (intersect.py:278)."""
+    return rdiv(1.0, torch.where(torch.abs(d) < 1e-12, 1e-12, d))
+
+
+def _cluster_entry(lo, hi, Op, Ip):
+    """(C, R) conservative entry distance of R rays (origin planes Op,
+    inverse-direction planes Ip, each (1, R)) into C boxes, +inf where a
+    ray misses a box (intersect.py:263)."""
+    tmin = tmax = None
+    for a in range(3):
+        t0 = (lo[:, a:a + 1] - Op[a]) * Ip[a]
+        t1 = (hi[:, a:a + 1] - Op[a]) * Ip[a]
+        lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
+        tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
+    live = (tmax >= 0) & (tmin <= tmax)
+    return torch.where(live, torch.clamp_min(tmin, 0.0), float("inf"))
+
+
+def _ray_groups(n, C):
+    """(first ray, end, tile) of each group of whole tiles of a clustered
+    sweep of n rays over C records (PAIR_MASK_ELEMS); a ray's tile is the
+    JAX package's whatever its group."""
+    R, nt = _ray_tiles(n)
+    g = max(1, PAIR_MASK_ELEMS // (C * R)) * R
+    return [(lo, min(lo + g, n), R) for lo in range(0, nt * R, g)]
+
+
+def _cluster_pairs(O, D, geom, limit, R):
+    """The (cluster record, ray) pairs of a clustered sweep.
+
+    Rays are padded to whole tiles as in the JAX package (origin 1e30,
+    direction 1: they miss every box).  A pair is kept where the ray
+    enters the record's box before `limit` (per ray).  The records are
+    taken grouped by their physical cluster (an instanced mesh's cluster
+    serves one record an instance), so that one sweep covers every
+    instance of a cluster.  Returns a dict: Op, Dp the (3, Npad) origin
+    and direction planes; rays, recs the kept pairs' ray and record
+    (K,), ordered by physical cluster; rank (tiles * C,) the position of
+    each record in its tile's visit order, at tile * C + record; groups,
+    a host list of (first row, pair range) per physical cluster that has
+    pairs; R, the tile."""
+    n = O.shape[0]
+    nt = -(-n // R)
+    npad = nt * R
+    dev = O.device
+    Op = torch.cat([O, torch.full((npad - n, 3), 1e30, dtype=O.dtype,
+                                  device=dev)]).t().contiguous()
+    Dp = torch.cat([D, torch.ones((npad - n, 3), dtype=D.dtype,
+                                  device=dev)]).t().contiguous()
+    lim = torch.cat([limit, torch.zeros((npad - n,), dtype=limit.dtype,
+                                        device=dev)])
+    C = geom.tri_cl_lo.shape[0]
+    # the rows of `keep`: records grouped by their first physical row
+    rec_of_row = torch.argsort(geom.tri_cl_start, stable=True)
+    lo = geom.tri_cl_lo.index_select(0, rec_of_row)
+    hi = geom.tri_cl_hi.index_select(0, rec_of_row)
+    keep = torch.empty((C, npad), dtype=torch.bool, device=dev)
+    minent = torch.empty((C, nt), dtype=O.dtype, device=dev)
+    g = max(1, BLOCK_ELEMS // (C * R))       # tiles whose boxes go at once
+    for k0 in range(0, nt, g):
+        k1 = min(nt, k0 + g)
+        sl = slice(k0 * R, k1 * R)
+        Ip = tuple(_safe_inv(Dp[a, sl])[None, :] for a in range(3))
+        entry = _cluster_entry(lo, hi, tuple(Op[a, sl][None, :]
+                                             for a in range(3)), Ip)
+        keep[:, sl] = entry < lim[sl][None, :]
+        minent[:, k0:k1] = torch.amin(entry.view(C, k1 - k0, R), dim=2)
+    # front to back: each tile's records by their nearest entry over the
+    # tile, ties in record order (jnp.argsort is stable)
+    minent = torch.empty_like(minent).index_copy_(0, rec_of_row, minent)
+    order = torch.argsort(minent.t(), dim=1, stable=True)          # (nt, C)
+    steps = torch.arange(C, dtype=torch.int64, device=dev).expand(nt, C)
+    rank = torch.empty_like(order).scatter_(1, order, steps).reshape(-1)
+    pairs = torch.nonzero(keep)                                  # one sync
+    counts = torch.bincount(pairs[:, 0], minlength=C)
+    meta = torch.stack([counts, geom.tri_cl_start.index_select(
+        0, rec_of_row).to(counts.dtype)]).tolist()              # one sync
+    groups, off = [], 0
+    for row, (cnt, start) in enumerate(zip(*meta)):
+        if cnt and groups and groups[-1][0] == start:
+            groups[-1][2] += cnt
+        elif cnt:
+            groups.append([start, off, off + cnt])
+        off += cnt
+    SWEEP_STATS["sweeps"] += 1
+    SWEEP_STATS["syncs"] += 2
+    SWEEP_STATS["pairs"] += off
+    return dict(Op=Op, Dp=Dp, rays=pairs[:, 1],
+                recs=rec_of_row.index_select(0, pairs[:, 0]), rank=rank,
+                groups=groups, R=R)
+
+
+def _cluster_blocks(geom, sw):
+    """Blocks of at most BLOCK_ELEMS / TRI_CLUSTER_SIZE pairs of one
+    physical cluster: (rays (kb,), records (kb,), the rays' origin and
+    direction planes in each record's object space, the cluster's B
+    triangle rows, each pair's first virtual id).  A ray may appear once
+    per record, so more than once in a block of instances.  The last
+    cluster of a region is completed by the rows after it, degenerate
+    padding or real triangles, both harmless (intersect.py:302)."""
+    B = TRI_CLUSTER_SIZE
+    tabs = tuple(torch.cat([x, torch.zeros((B,) + x.shape[1:], dtype=x.dtype,
+                                           device=x.device)])
+                 for x in _tri_tables(geom))
+    kb = max(1, BLOCK_ELEMS // B)
+    instanced = geom.inst_rot.shape[0] > 0
+    virt_all = geom.tri_cl_virt.to(torch.int64)
+    for start, a, b in sw["groups"]:
+        SWEEP_STATS["clusters"] += 1
+        blk = tuple(x[start:start + B] for x in tabs)
+        for lo in range(a, b, kb):
+            r, rec = sw["rays"][lo:min(lo + kb, b)], sw["recs"][lo:min(lo + kb, b)]
+            Oc, Dc = sw["Op"].index_select(1, r), sw["Dp"].index_select(1, r)
+            if instanced:
+                Oc, Dc = _inst_rays(geom, geom.tri_cl_inst.index_select(0, rec),
+                                    Oc, Dc)
+            yield (r, rec, (Oc[0:1], Oc[1:2], Oc[2:3]),
+                   (Dc[0:1], Dc[1:2], Dc[2:3]), blk, virt_all.index_select(0, rec))
+
+
+def _inst_rays(geom, inst, Oc, Dc):
+    """(3, K) ray planes pulled into the object space of each ray's
+    instance (K,), ((O - t) @ R) * (1 / s) and (D @ R) * (1 / s)
+    (intersect.py:283): a rigid map with a uniform scale keeps the ray's
+    t, so object-space distances compare with world ones."""
+    Rm = geom.inst_rot.index_select(0, inst)                     # (K, 3, 3)
+    tr = geom.inst_trans.index_select(0, inst)
+    si = geom.inst_inv_scale.index_select(0, inst)
+    o = [Oc[i] - tr[:, i] for i in range(3)]
+    Oo = torch.stack([(o[0] * Rm[:, 0, j] + o[1] * Rm[:, 1, j]
+                       + o[2] * Rm[:, 2, j]) * si for j in range(3)])
+    Do = torch.stack([(Dc[0] * Rm[:, 0, j] + Dc[1] * Rm[:, 1, j]
+                       + Dc[2] * Rm[:, 2, j]) * si for j in range(3)])
+    return Oo, Do
+
+
+def _clustered_nearest(O, D, geom, limit):
+    """(t, packed code) of each ray's nearest triangle, code = virtual id
+    * 2 + (orient < 0), -1 on a miss (intersect.py:317).  Triangles
+    entered at or past `limit` may be left out (see the module's
+    docstring): the caller's nearer hit wins there anyway."""
+    parts = [_nearest_group(O[a:b], D[a:b], geom, limit[a:b], R)
+             for a, b, R in _ray_groups(O.shape[0], geom.tri_cl_lo.shape[0])]
+    return (torch.cat([t for t, _ in parts]),
+            torch.cat([c for _, c in parts]))
+
+
+def _nearest_group(O, D, geom, limit, R):
+    """_clustered_nearest of one group of whole tiles of R rays.  Each
+    block folds into the running best by (t, visit rank): the smaller t,
+    on a tie the record first in its tile's visit order."""
+    n = O.shape[0]
+    sw = _cluster_pairs(O, D, geom, limit, R)
+    npad, dev = sw["Op"].shape[1], O.device
+    C = geom.tri_cl_lo.shape[0]
+    never = torch.iinfo(torch.int64).max
+    bt = torch.full((npad,), FARAWAY, dtype=O.dtype, device=dev)
+    bcode = torch.full((npad,), -1, dtype=torch.int64, device=dev)
+    brank = torch.full((npad,), never, dtype=torch.int64, device=dev)
+    row2 = torch.arange(TRI_CLUSTER_SIZE, dtype=torch.int64, device=dev)[:, None] * 2
+    for r, rec, Oc, Dc, blk, virt in _cluster_blocks(geom, sw):
+        t, o = intersect_triangles(Oc, Dc, *blk)               # (B, kb)
+        tm = torch.amin(t, dim=0)
+        code = (virt * 2)[None, :] + row2 + (o < 0).to(torch.int64)
+        cm = torch.amax(torch.where(t == tm[None, :], code, -1), dim=0)
+        rk = sw["rank"].index_select(
+            0, torch.div(r, sw["R"], rounding_mode="floor") * C + rec)
+        new_t = bt.scatter_reduce(0, r, tm, "amin")
+        tie = (tm == new_t.index_select(0, r)) & (tm < FARAWAY)
+        old_rank = torch.where(bt == new_t, brank, never)
+        new_rank = old_rank.scatter_reduce(0, r, torch.where(tie, rk, never),
+                                           "amin")
+        won = tie & (rk == new_rank.index_select(0, r))
+        pair_code = torch.full_like(bcode, -1).scatter_reduce(
+            0, r, torch.where(won, cm, -1), "amax")
+        bcode = torch.where(pair_code >= 0, pair_code, bcode)
+        bt, brank = new_t, new_rank
+    return bt[:n], bcode[:n]
+
+
+def _clustered_occluded(O, D, geom, tri_mask, max_dist, hit0):
+    """Any shadow-casting triangle nearer than max_dist (intersect.py:370);
+    tri_mask is indexed by virtual triangle id, each record's rows
+    virtually contiguous from its first virtual id.  Rays already hit
+    (hit0) or entering a box at or past max_dist are left out."""
+    return torch.cat([
+        _occluded_group(O[a:b], D[a:b], geom, tri_mask, max_dist[a:b],
+                        hit0[a:b], R)
+        for a, b, R in _ray_groups(O.shape[0], geom.tri_cl_lo.shape[0])])
+
+
+def _occluded_group(O, D, geom, tri_mask, max_dist, hit0, R):
+    """_clustered_occluded of one group of whole tiles of R rays."""
+    B = TRI_CLUSTER_SIZE
+    n, dev = O.shape[0], O.device
+    sw = _cluster_pairs(O, D, geom, torch.where(hit0, 0.0, max_dist), R)
+    pad = sw["Op"].shape[1] - n
+    md = torch.cat([max_dist, torch.zeros((pad,), dtype=max_dist.dtype,
+                                          device=dev)])
+    mask = torch.cat([tri_mask, torch.zeros((B,), dtype=torch.bool, device=dev)])
+    rows = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    hits = torch.zeros((n + pad,), dtype=torch.int32, device=dev)
+    for r, _, Oc, Dc, blk, virt in _cluster_blocks(geom, sw):
+        t, _ = intersect_triangles(Oc, Dc, *blk)               # (B, kb)
+        m = mask[virt[None, :] + rows]                          # (B, kb)
+        occ = torch.any((t < md.index_select(0, r)[None, :]) & m, dim=0)
+        hits = hits.index_add(0, r, occ.to(torch.int32))
+    return hit0 | (hits[:n] > 0)
+
+
 def _type_blocks(geom, skip_tris=False):
     """(intersector, tables, count) per present kind, in object-id order
     (intersect.py:444); an intersector takes (O, D, *tables)."""
@@ -285,6 +533,13 @@ def nearest_hit(O, D, geom):
         off += count
     if not geom.tri_p1.shape[0]:
         return best_t, best_o, best_id
+    if geom.tri_cl_lo.shape[0]:
+        with record_function("wavefront.clustered_sweep"):
+            tri_t, tri_code = _clustered_nearest(O, D, geom, best_t)
+        better = tri_t < best_t
+        return (torch.where(better, tri_t, best_t),
+                torch.where(better, _orient((tri_code & 1) == 0), best_o),
+                torch.where(better, (tri_code >> 1) + off, best_id))
 
     def reduce_nearest(t, o, base, state):
         # winner and orientation by a max over packed codes of the rows at
@@ -318,13 +573,20 @@ def occluded(O, D, geom, shadow_obj_mask, max_dist):
     md = max_dist[None, :]
     hit = torch.zeros((n,), dtype=torch.bool, device=O.device)
     off = 0
-    for fn, tabs, count in _type_blocks(geom):
+    clustered = geom.tri_cl_lo.shape[0] > 0
+    for fn, tabs, count in _type_blocks(geom, skip_tris=clustered):
         B = _tri_block_size(n) if fn is intersect_triangles else object_block(n)
         for lo, blk in _blocks(tabs, count, B):
             t, _ = fn(Op, Dp, *blk)
             m = shadow_obj_mask[off + lo:off + lo + t.shape[0]]
             hit = hit | torch.any((t < md) & m[:, None], dim=0)
         off += count
+    if clustered:
+        # the triangle part of the id space (virtual under instancing)
+        # runs to the end of the mask
+        with record_function("wavefront.clustered_sweep"):
+            return _clustered_occluded(O, D, geom, shadow_obj_mask[off:],
+                                       max_dist, hit)
     return hit
 
 

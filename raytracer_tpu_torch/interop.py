@@ -5,7 +5,8 @@
 `np.asarray`, and returns the port's (SceneStatic, SolidTables): the
 solid and record paths' tables, the thin-film rows and the texture atlas
 (words, scales, shapes, offsets, encodings); `scene_data_from_jax(data)`
-returns the wavefront's (`SceneData`).  It never imports jax:
+returns the wavefront's (`SceneData`), with the triangle clusters,
+corner attributes and instances of mesh scenes.  It never imports jax:
 whatever the arrays are, numpy reads them.  The tests feed the
 reference's own tables to the port through it.
 """
@@ -61,7 +62,8 @@ def static_from_jax(static) -> SceneStatic:
         tex_enc=tuple(int(v) for v in static.tex_enc),
         tf_selp=tuple(tuple(float(c) for c in p) for p in static.tf_selp),
         needs_uv=bool(static.needs_uv),
-        env_is=tuple(static.env_is_shape) != (0, 0))
+        env_is=tuple(static.env_is_shape) != (0, 0),
+        n_tris=int(static.n_tris), tri_interp=bool(static.tri_interp))
 
 
 def _tensors(cls, src):
@@ -77,9 +79,10 @@ def _tensors(cls, src):
 
 
 def scene_data_from_jax(data) -> SceneData:
-    """The port's SceneData from the JAX package's (the analytic and
-    flat-triangle tables; the JAX cluster, vertex-attribute and
-    environment tables have no counterpart yet)."""
+    """The port's SceneData from the JAX package's: every geometry table
+    (clusters, corner attributes and instances included) but the
+    normal-map tangents, and no environment alias tables (both ROADMAP.md
+    item 5)."""
     f32 = lambda x: torch.from_numpy(np.array(np.asarray(x), np.float32))
     return SceneData(
         geom=_tensors(GeometryTables, data.geom),

@@ -5,9 +5,9 @@ same located error messages.  sightpy describes scenes only as Python
 code (example1.py etc.); here a render can also be described as data, a
 JSON document that :func:`load_scene_file` / :func:`scene_from_dict`
 build through the port's scene API and :func:`scene_to_dict` /
-:func:`save_scene_file` write back.  ``{"type": "mesh"}`` objects raise
-NotImplementedError: TriangleMesh is not ported yet (ROADMAP.md "Modules
-to port" item 4, wavefront B).
+:func:`save_scene_file` write back.  ``{"type": "mesh"}`` objects load
+an OBJ file as a TriangleMesh; a MeshInstances group cannot be exported
+and raises a located ValueError, as in the JAX package.
 
 Schema (all vectors are 3-lists; complex numbers are ``[re, im]`` pairs,
 and a per-channel complex triple is a 3-list of numbers or pairs)::
@@ -67,7 +67,7 @@ from pathlib import Path
 
 from .core.scene import Scene
 from .geometry.primitive import (Cuboid, Cylinder, Disc, Plane, Sphere,
-                                 Triangle)
+                                 Triangle, TriangleMesh)
 from .materials.base import (Diffuse, Emissive, Glossy, Refractive,
                              ThinFilmInterference)
 from .textures.texture import image as image_texture
@@ -158,10 +158,7 @@ def _build_object(spec, index):
         elif t == "triangle":
             prim = Triangle(**d)
         elif t == "mesh":
-            raise NotImplementedError(
-                f"{where}: mesh objects are not ported yet; TriangleMesh "
-                "comes with wavefront B (ROADMAP.md 'Modules to port' "
-                "item 4)")
+            prim = TriangleMesh(**d)
         else:
             raise ValueError(
                 f"{where}: unknown object type {t!r} (valid: sphere, plane, "
@@ -348,6 +345,14 @@ def _object_out(p, index, importance):
     d.update(_common_out(p))
     if importance:
         d["importance_sampled"] = True
+    if isinstance(p, TriangleMesh):
+        d.update(type="mesh", filename=p.filename, scale=p.scale)
+        if p.smooth_arg is not None:
+            d["smooth"] = p.smooth_arg
+        rots = getattr(p, "_rotations", [])
+        if rots:
+            d["rotate"] = [{"theta": t, "axis": _v(a)} for t, a in rots]
+        return d
     if isinstance(p, Sphere):
         d.update(type="sphere", radius=p.radius)
         return d
@@ -394,8 +399,9 @@ def scene_to_dict(scene):
     """Export a :class:`Scene` into the schema dict `scene_from_dict`
     consumes.  The inverse is exact for everything the schema can spell
     (a reloaded scene compiles to the identical content fingerprint);
-    unexportable content (ndarray-backed textures or backgrounds) raises a
-    located ValueError instead of being dropped silently."""
+    unexportable content (ndarray-backed textures or backgrounds,
+    `MeshInstances`) raises a located ValueError instead of being dropped
+    silently."""
     from .backgrounds.environment import Panorama, SkyBox
     from .lights import DirectionalLight, PointLight, SpotLight
 

@@ -97,11 +97,13 @@ def test_out_of_slice_scenes_raise():
     static, _ = compile_scene(sc)
     assert [r.kind for r in static.obj_records] == ["sphere", "disc", "cyl", "tri"]
 
+    # a primitive the compiler does not know raises as in the JAX
+    # package (meshes compile since ROADMAP.md item 4)
     class Mesh(T.Primitive):
         pass
 
     sc.add(Mesh(center=T.vec3(0, 0, 0), material=mat))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="unsupported primitive Mesh"):
         compile_scene(sc)
     # a scene past the kernels' gate renders on the wavefront (ROADMAP.md
     # item 3), emissive only, so equal to the JAX package's image

@@ -196,14 +196,27 @@ def test_routes_inside_the_gates():
 
 
 def test_cluster_sized_triangle_scenes_raise():
-    sc = T.Scene()
-    mat = T.Diffuse(diff_color=T.rgb(0.5, 0.5, 0.5))
-    for i in range(TRI_CLUSTER_THRESHOLD):
-        sc.add(T.Triangle(material=mat, center=T.vec3(i, 0, 0),
-                          p1=T.vec3(i, 0, 0), p2=T.vec3(i + 1, 0, 0),
-                          p3=T.vec3(i, 1, 0)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        compile_scene(sc)
+    """TRI_CLUSTER_THRESHOLD triangles or more compiled to clusters in the
+    JAX package only, and raised here before ROADMAP.md item 4; now they
+    compile to the JAX package's clusters (and render: the mesh tests,
+    tests/test_torch_mesh_*.py)."""
+    def build(m):
+        sc = m.Scene()
+        mat = m.Diffuse(diff_color=m.rgb(0.5, 0.5, 0.5))
+        for i in range(TRI_CLUSTER_THRESHOLD):
+            sc.add(m.Triangle(material=mat, center=m.vec3(i, 0, 0),
+                              p1=m.vec3(i, 0, 0), p2=m.vec3(i + 1, 0, 0),
+                              p3=m.vec3(i, 1, 0)))
+        return sc
+    static, got = compile_wavefront(build(T))
+    j_static, j_data = jax_compile(build(J))
+    want = scene_data_from_jax(j_data)
+    assert got.geom.tri_cl_lo.shape == (TRI_CLUSTER_THRESHOLD // 256, 3)
+    for f in ("tri_p1", "tri_cl_lo", "tri_cl_hi", "tri_cl_start",
+              "tri_cl_virt"):
+        _equal(getattr(got.geom, f).numpy(), getattr(want.geom, f).numpy(), f)
+    assert static.n_objects == j_static.n_objects == TRI_CLUSTER_THRESHOLD
+    assert not (static.pallas_ok or static.pallas_tex_ok)
 
 
 # ---------------------------------------------------------------------------
