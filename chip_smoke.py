@@ -98,6 +98,27 @@ checkout and drives both kernel paths and the wavefront:
   icosahedron inside the gate through the solid kernel (bit for bit
   against its plain version on one chunk) and through the wavefront,
   within 4 standard errors;
+- the features (examples/torch_features.py, plain torch on the card but
+  where a kernel's route runs): example_env_is at 400x300 x 64 spp with
+  the environment's alias tables (the wavefront) and without (the record
+  kernel, its first chunk bit for bit against its plain version), the
+  two images and 3x3 region means within 4 standard errors and the mean
+  pixel variance lower with the tables; the custom-material example at
+  400x300 x 32 spp and a normal-mapped scene at 400x300 x 16 spp; each of
+  the three small on the card against the CPU (the custom scene draws
+  nothing past the jitter, so pixel by pixel); Scene.render_denoised of
+  Cornell 400x400 x 16 spp (the solid kernel, its launches counted and
+  its first chunk held bit for bit, then the AOV pass and the filter),
+  its display MSE against the main path's 256-spp image below the raw
+  render's; render_motion_blur of example_motion_blur at 400x300 x 64
+  spp twice (32 slices, each one compile, one upload and its chunks on
+  the record kernel: launches = slices x chunks, the renders bit-equal,
+  the first slice chunk bit for bit against the plain version);
+  render_ods of example_vr at 512x256 x 32 spp (ipd 0: bit-equal eyes)
+  and at ipd 0.2; `python -m raytracer_tpu_torch devices` and `render
+  examples/example_scene.json --spp 16` as processes on the card.  Each
+  part prints its wall and peak memory.  `python3 chip_smoke.py
+  --features` runs the build and this phase alone;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -1543,6 +1564,266 @@ def mesh_phase(torch, dev):
     return k_launches, max_err
 
 
+FEAT_W, FEAT_H = 400, 300             # the features' frames
+FEAT_CPU_W, FEAT_CPU_H, FEAT_CPU_SPP = 100, 75, 16   # card against CPU
+NMAP_CPU = 64, 48, 8                  # the normal maps' (a flat mesh sweep)
+ENV_IS_SPP, CUSTOM_SPP, NMAP_SPP = 64, 32, 16
+DENOISE_W, DENOISE_SPP = 400, 16      # render_denoised Cornell (and W == H)
+BLUR_SPP = 64
+ODS_W, ODS_H, ODS_SPP = 512, 256, 32
+
+
+def spied(torch, module, names, fn):
+    """fn() with both kernels' launch counts set to 0 just before and read
+    just after, and the first call of each wrapper named in `names` (as
+    `module` calls it) captured.  Returns (fn's result, (solid, record)
+    launches, {name: first args}, wall s, peak GiB)."""
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+
+    real = {w: getattr(module, w) for w in names}
+    first = {}
+
+    def spy(w):
+        def call(*args):
+            first.setdefault(w, args)
+            return real[w](*args)
+        return call
+
+    for w in names:
+        setattr(module, w, spy(w))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        st.solid_trace_chunk.launches = 0
+        rt.record_trace_chunk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = (st.solid_trace_chunk.launches, rt.record_trace_chunk.launches)
+    finally:
+        for w in names:
+            setattr(module, w, real[w])
+    return out, n, first, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def card_vs_cpu(torch, dev, name, build, spp, draws=True,
+                size=(FEAT_CPU_W, FEAT_CPU_H)):
+    """A feature scene at `size` on the card against the same render on
+    the CPU: image and region means within 4 standard
+    errors (the variance from one card chunk); a scene that draws nothing
+    past the camera's lattice jitter (draws=False) renders the same
+    pixels on both, so it is held pixel by pixel, within 1e-4 of the
+    frame's largest value.  Returns the line."""
+    import numpy as np
+
+    w, h = size
+    sc = build(w, h)
+    card, _, card_wall = timed_render(torch, dev, sc, spp, seed=5)
+    t0 = time.perf_counter()
+    cpu = sc.render(samples_per_pixel=spp, output="linear", device="cpu",
+                    seed=5)
+    cpu_wall = time.perf_counter() - t0
+    line = (f"card vs CPU {w}x{h} x {spp} spp: card {card_wall:.4f} s, CPU "
+            f"{cpu_wall:.4f} s | ")
+    if draws:
+        var = 2 * chunk_var(torch, dev, sc, spp)
+        return line + z_hold(f"{name} card vs CPU", card, cpu, var, w, h)
+    diff = float(np.abs(card - cpu).max())
+    tol = 1e-4 * max(1.0, float(np.abs(cpu).max()))
+    require(diff <= tol, f"{name} card vs CPU: pixels differ by {diff}")
+    return line + (f"nothing drawn past the jitter: pixels max abs diff "
+                   f"{diff:.3e} (held to {tol:.1e}), image mean "
+                   f"{card.mean():.6f} vs {cpu.mean():.6f}")
+
+
+def features_phase(torch, dev, cornell_img):
+    """The features on top of the wavefront and the kernels, one line a
+    part with its wall and peak memory: environment importance sampling
+    (with against without, and card against CPU), custom materials and
+    normal maps (card against CPU), render_denoised on Cornell (the solid
+    kernel, then the AOV pass and the filter; display MSE against the
+    main path's 256-spp image), render_motion_blur (each slice's chunks on
+    the record kernel, repeats bit-equal, the first slice chunk bit-equal
+    to the plain version), render_ods (ipd=0 eyes bit-equal), and the
+    command line as processes.  Returns the (solid, record) launches in
+    these runs and the max abs errors of their held chunks."""
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_features
+    from raytracer_tpu_torch import animation
+    from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import route
+    from raytracer_tpu_torch.utils.colour import srgb_linear_to_srgb
+    from torch_cornellbox import build_cornell
+
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    errs = [0.0, 0.0]
+    W, H = FEAT_W, FEAT_H
+    on_wavefront = lambda sc: route(*sc._settings_for_render()[::2]) == "wavefront"
+
+    # ---- environment importance sampling: with and without the tables ----
+    # with the tables the scene is the wavefront's; without, the record
+    # kernel's (its first chunk held against the plain version)
+    imgs = {}
+    for is_ in (True, False):
+        sc = torch_features.env_is(W, H, importance_sampled=is_)
+        static, _, settings = sc._settings_for_render()
+        path = route(static, settings)
+        require(path == ("wavefront" if is_ else "record"),
+                f"env_is: route {path}")
+        require(compile_wavefront(sc)[0].env_is_shape == ((128, 256) if is_
+                                                          else (0, 0)),
+                "env_is: alias grid")
+        (img, var), n, first, wall, peak = spied(
+            torch, scene_mod, ("record_trace_chunk",), lambda: sc.render(
+                ENV_IS_SPP, output="linear", with_variance=True, device=dev,
+                seed=3))
+        _, n_chunks = scene_mod.plan_chunks(ENV_IS_SPP * sc._diffuse_fan(),
+                                            W, H)
+        require(n == (0, 0 if is_ else n_chunks), f"env_is: launches {n}")
+        require(bool(np.isfinite(img).all()), "env_is: non-finite image")
+        if not is_:
+            launches[1] += n[1]
+            errs[1] = max(errs[1], hold_chunk(
+                torch, "env_is without the tables, first chunk", False,
+                first["record_trace_chunk"]))
+        imgs[is_] = (img, var, wall, peak)
+    (a, va, wa, pa), (b, vb, wb, pb) = imgs[True], imgs[False]
+    var = (chunk_var(torch, dev, torch_features.env_is(W, H), ENV_IS_SPP)
+           + chunk_var(torch, dev, torch_features.env_is(
+               W, H, importance_sampled=False), ENV_IS_SPP))
+    line = z_hold("env_is with vs without", a, b, var, W, H)
+    pv_is, pv_plain = float(va.mean()), float(vb.mean())
+    print(f"features env IS: example_env_is {W}x{H} x {ENV_IS_SPP} spp, with "
+          f"the alias tables (wavefront) {wa:.4f} s ({pa:.2f} GiB), without "
+          f"(record kernel) {wb:.4f} s ({pb:.2f} GiB) | {line} | mean pixel variance of the mean "
+          f"{pv_is:.6g} with vs {pv_plain:.6g} without "
+          f"({pv_plain / max(pv_is, 1e-30):.1f}x)", flush=True)
+    require(pv_is < pv_plain, "env IS: the pixel variance is not lower")
+    print("features env IS " + card_vs_cpu(
+        torch, dev, "env_is", lambda w, h: torch_features.env_is(w, h),
+        FEAT_CPU_SPP), flush=True)
+
+    # ---- custom materials and normal maps: the card against the CPU ----
+    for name, build, spp, draws, cpu in (
+            ("custom materials", torch_features.custom_material, CUSTOM_SPP,
+             False, (FEAT_CPU_W, FEAT_CPU_H, FEAT_CPU_SPP)),
+            ("normal maps", torch_features.normal_mapped, NMAP_SPP, True,
+             NMAP_CPU)):
+        sc = build(W, H)
+        require(on_wavefront(sc), f"{name}: not the wavefront route")
+        img, n, _, wall, peak = spied(torch, scene_mod, (), lambda: sc.render(
+            spp, output="linear", device=dev, seed=1))
+        require(n == (0, 0) and bool(np.isfinite(img).all()),
+                f"{name}: launches {n} or non-finite image")
+        print(f"features {name}: {W}x{H} x {spp} spp {wall:.4f} s, peak "
+              f"{peak:.2f} GiB, image mean {img.mean():.6f} | "
+              + card_vs_cpu(torch, dev, name, build, cpu[2], draws, cpu[:2]),
+              flush=True)
+
+    # ---- render_denoised: Cornell through the solid kernel, the AOV pass
+    # and the filter, against the main path's 256-spp image ----
+    sc = build_cornell(DENOISE_W, DENOISE_W)
+    fan = sc._diffuse_fan()
+    dn, n, first, wall, peak = spied(
+        torch, scene_mod, ("solid_trace_chunk", "record_trace_chunk"),
+        lambda: sc.render_denoised(DENOISE_SPP, output="linear", device=dev))
+    raw = sc.render(DENOISE_SPP, output="linear", device=dev)
+    chunk, n_chunks = scene_mod.plan_chunks(DENOISE_SPP * fan, DENOISE_W,
+                                            DENOISE_W)
+    require(n == (n_chunks, 0), f"render_denoised: launches {n}, not "
+            f"({n_chunks}, 0)")
+    errs[0] = max(errs[0], hold_chunk(torch, "render_denoised, first chunk",
+                                      True, first["solid_trace_chunk"]))
+    launches[0] += n[0]
+    disp = lambda x: srgb_linear_to_srgb(torch.from_numpy(
+        np.ascontiguousarray(x, np.float32))).numpy()
+    mse = lambda x: float(((disp(x) - disp(cornell_img)) ** 2).mean())
+    m_raw, m_dn = mse(raw), mse(dn)
+    print(f"features render_denoised: Cornell {DENOISE_W}x{DENOISE_W} x "
+          f"{DENOISE_SPP} spp ({n[0]} solid kernel launches, {n_chunks} chunks "
+          f"of {chunk} spp), the AOV pass at {min(16, max(4, DENOISE_SPP))} spp "
+          f"and the filter in {wall:.4f} s, peak {peak:.2f} GiB | display MSE "
+          f"against the {SPP}-spp render: raw {m_raw:.6g}, denoised "
+          f"{m_dn:.6g} ({m_raw / max(m_dn, 1e-30):.1f}x lower)", flush=True)
+    require(m_dn < m_raw, "render_denoised: the MSE did not drop")
+
+    # ---- render_motion_blur: each slice on the record kernel ----
+    sc = torch_features.motion_blur(W, H)
+    plan = animation._FramePlan(sc, -(-BLUR_SPP // 32), torch_features.fly,
+                                0.0, 0, dev, 32)
+    require(plan.path == "record", f"motion blur: route {plan.path}")
+    blurs = []
+    for _ in range(2):
+        sc = torch_features.motion_blur(W, H)
+        blurs.append(spied(torch, animation, ("record_trace_chunk",),
+                           lambda: T.render_motion_blur(
+                               sc, BLUR_SPP, torch_features.fly,
+                               output="linear", device=dev)))
+    (img, n, first, wall, peak), (img2, n2, _, wall2, _) = blurs
+    slices = min(32, BLUR_SPP)
+    require(n == n2 == (0, slices * plan.n_chunks),
+            f"motion blur: launches {n}, {n2}, not {slices} slices x "
+            f"{plan.n_chunks} chunks")
+    same = bool(np.array_equal(img, img2))
+    require(same, "motion blur: two renders of one seed differ")
+    require(bool(np.isfinite(img).all()), "motion blur: non-finite image")
+    errs[1] = max(errs[1], hold_chunk(torch, "motion blur, first slice chunk",
+                                      False, first["record_trace_chunk"]))
+    launches[1] += n[1] + n2[1]
+    print(f"features motion blur: example_motion_blur {W}x{H} x {BLUR_SPP} "
+          f"spp, {slices} slices x {plan.n_chunks} chunk of {plan.chunk} spp "
+          f"({n[1]} record kernel launches a render) in {wall:.4f} s, "
+          f"{wall2:.4f} s, peak {peak:.2f} GiB | two renders bit-equal: "
+          f"{same} | image mean {img.mean():.6f}", flush=True)
+
+    # ---- render_ods: ipd 0 gives two identical eyes ----
+    sc = torch_features.vr(ODS_W, ODS_H)
+    (left, right), n, _, wall0, peak = spied(
+        torch, scene_mod, (), lambda: T.render_ods(
+            sc, ODS_SPP, ipd=0.0, layout="separate", output="linear",
+            device=dev))
+    same = bool(np.array_equal(left, right))
+    pair, n2, _, wall, _ = spied(torch, scene_mod, (), lambda: T.render_ods(
+        sc, ODS_SPP, ipd=0.2, output="np", device=dev))
+    require(same, "ODS: the ipd=0 eyes differ")
+    require(n == n2 == (0, 0), f"ODS: kernel launches {n}, {n2}")
+    require(pair.shape == (2 * ODS_H, ODS_W, 3) and bool(np.isfinite(left).all()),
+            "ODS: frame shape or values")
+    print(f"features ODS: example_vr {ODS_W}x{ODS_H} x {ODS_SPP} spp a eye | "
+          f"ipd 0 {wall0:.4f} s, eyes bit-equal: {same} | ipd 0.2 top-bottom "
+          f"{wall:.4f} s, peak {peak:.2f} GiB, image mean {left.mean():.6f}",
+          flush=True)
+
+    # ---- the command line, as processes on the card ----
+    out = WORK / "cli_scene.png"
+    for args in (["devices"],
+                 ["render", str(ROOT / "examples" / "example_scene.json"),
+                  "--spp", "16", "-o", str(out)]):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "raytracer_tpu_torch",
+                              *args], cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        wall = time.perf_counter() - t0
+        require(res.returncode == 0, f"CLI {args[0]}: rc {res.returncode}: "
+                f"{res.stderr[-2000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        if args[0] == "devices":
+            require(line["device_count"] >= 1, f"CLI devices: {line}")
+        else:
+            require(line["device"] == "cuda" and out.exists(),
+                    f"CLI render: {line}")
+        print(f"features CLI: python -m raytracer_tpu_torch {' '.join(args[:1])}"
+              f" in {wall:.2f} s (a process) | {json.dumps(line)}", flush=True)
+    print(f"features phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return tuple(launches), tuple(errs)
+
+
 def main():
     import torch
 
@@ -1574,6 +1855,14 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s | {' | '.join(build_lines(cuda_build.build_log))}",
           flush=True)
+
+    if "--features" in sys.argv[1:]:
+        # that phase alone (after the build), for working on it; its
+        # reference is a 256-spp Cornell rendered here
+        WORK.mkdir(parents=True, exist_ok=True)
+        ref = build_cornell(W, H).render(SPP, output="linear", device=dev)
+        features_phase(torch, dev, ref)
+        return 0
 
     # ---- phase 3: kernel vs plain version, Cornell 64x64 x 16 spp ----
     _, tables, cam, settings = scene_inputs(build_cornell, CHECK_W, CHECK_H, dev)
@@ -1705,6 +1994,16 @@ def main():
     mesh_n, mesh_err = mesh_phase(torch, dev)
     solid_row["launches"] += mesh_n
     solid_row["max_abs_err"] = max(solid_row["max_abs_err"], mesh_err)
+    torch.cuda.empty_cache()
+
+    # ---- the features: env IS, custom materials, normal maps, the
+    # denoiser, motion blur, ODS, the command line ----
+    (f_solid, f_record), (f_serr, f_rerr) = features_phase(torch, dev,
+                                                           cornell_img)
+    solid_row["launches"] += f_solid
+    record_row["launches"] += f_record
+    solid_row["max_abs_err"] = max(solid_row["max_abs_err"], f_serr)
+    record_row["max_abs_err"] = max(record_row["max_abs_err"], f_rerr)
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

@@ -17,21 +17,28 @@ RenderSettings(use_pallas="never"), render through the wavefront
 integrator in plain PyTorch (core/integrator.py, geometry/intersect.py,
 geometry/attrs.py, materials/shade.py), as do triangle meshes with vertex
 normals or uvs, meshes of 1,024 faces or more (swept in SAH clusters)
-and MeshInstances; the wavefront is what `Ray`, `get_raycolor`,
-`get_distances`, `first_hit` and `Scene.get_distances` also use.  Around
-them:
-checkpoints, adaptive sampling, the variance of the mean, previews,
-`Scene.render_environment`, JSON scenes (`scene_io`), Radiance `.hdr`
-files, and sightpy's sampling API (`core/rng.py`, `utils/random.py`).
-The public names follow raytracer_tpu's star-import surface; the names
-that wait for a later slice are listed in NOT_YET_PORTED with their
-ROADMAP.md item.  This package imports neither jax nor raytracer_tpu.
+and MeshInstances, normal maps, an importance-sampled environment under
+a Diffuse material and CustomMaterial shaders; the wavefront is what
+`Ray`, `get_raycolor`, `get_distances`, `first_hit` and
+`Scene.get_distances` also use.  Around them: checkpoints, adaptive
+sampling, the variance of the mean, previews, `Scene.render_environment`,
+JSON scenes (`scene_io`), Radiance `.hdr` files, sightpy's sampling API
+(`core/rng.py`, `utils/random.py`), the AOV planes (`render_aovs`), the
+à-trous denoiser (`denoise`, `Scene.render_denoised`), stereo 360 frames
+(`render_ods`), animation and motion blur (`animation.py`) and the
+command line (`python -m raytracer_tpu_torch`, cli.py).  The public
+names follow raytracer_tpu's star-import surface; what waits for a
+later slice is listed in NOT_YET_PORTED with its ROADMAP.md item.  This
+package imports neither jax nor raytracer_tpu.
 """
 
 import numpy as np
 
+from .animation import (create_animation, create_animation_using_opencv,
+                        render_motion_blur)
 from .backgrounds.blur import blur_skybox, blur_skybox_array
 from .backgrounds.environment import Panorama, SkyBox, procedural_sky
+from .core.aov import render_aovs
 from .core.camera import Camera
 from .core.integrator import RenderSettings
 from .core.ray import Hit, Ray, first_hit, get_distances, get_raycolor
@@ -41,8 +48,9 @@ from .geometry.primitive import (Cuboid, Cylinder, Disc, MeshInstances,
                                  Plane, Primitive, Sphere, Surface, Triangle,
                                  TriangleMesh)
 from .lights import DirectionalLight, Light, PointLight, SpotLight
-from .materials.base import (Diffuse, Emissive, Glossy, Material, Refractive,
-                             ThinFilmInterference)
+from .materials.base import (CustomMaterial, Diffuse, Emissive, Glossy,
+                             Material, Refractive, ThinFilmInterference)
+from .materials.shade import ShadeOut, default_shade_out
 from .scene_io import (load_scene_file, save_scene_file, scene_from_dict,
                        scene_to_dict)
 from .textures.texture import image, solid_color, texture
@@ -52,6 +60,8 @@ from .utils.constants import FARAWAY, SKYBOX_DISTANCE, UPDOWN, UPWARDS
 from .utils.image_io import (add_asset_root, load_hdr, load_image,
                              load_image_as_linear_srgb, load_image_with_blur,
                              save_hdr)
+from .denoise import denoise
+from .vr import render_ods
 from .utils.random import (PDF, cosine_pdf, hemisphere_pdf, mixed_pdf,
                            random_in_unit_disk, random_in_unit_sphere,
                            random_in_unit_spherical_cap,
@@ -63,18 +73,13 @@ sRGB_linear_to_sRGB = srgb_linear_to_srgb
 sRGB_to_sRGB_linear = srgb_to_srgb_linear
 load_image_as_linear_sRGB = load_image_as_linear_srgb
 
-_SHADING = ("ROADMAP.md 'Modules to port' item 5 (wavefront C: custom "
-            "shading)")
-_FEATURES = ("ROADMAP.md 'Modules to port' item 6 (features on the "
-             "wavefront)")
-# raytracer_tpu's public names that this package does not have yet, each
-# with the slice that brings it
+# what of raytracer_tpu this package does not have yet, each with the
+# slice that brings it: its `diff` module (autograd through the
+# wavefront); the `mesh=` arguments of the renders (multi-device
+# rendering, ROADMAP.md item 8) raise where they are given
 NOT_YET_PORTED = {
-    "CustomMaterial": _SHADING, "ShadeOut": _SHADING,
-    "default_shade_out": _SHADING,
-    "render_aovs": _FEATURES, "denoise": _FEATURES,
-    "create_animation": _FEATURES, "create_animation_using_opencv": _FEATURES,
-    "render_motion_blur": _FEATURES, "render_ods": _FEATURES,
+    "diff": ("ROADMAP.md 'Modules to port' item 7 (diff.py: autograd "
+             "through the wavefront)"),
 }
 
 
@@ -89,14 +94,18 @@ def __getattr__(name):
 __all__ = [
     "Scene", "Camera", "RenderSettings", "vec3", "rgb", "np",
     "Ray", "Hit", "get_raycolor", "get_distances", "first_hit",
+    "render_aovs", "denoise",
     "PDF", "hemisphere_pdf", "cosine_pdf", "spherical_caps_pdf", "mixed_pdf",
     "random_in_unit_disk", "random_in_unit_sphere",
     "random_in_unit_spherical_cap", "random_in_unit_spherical_caps",
     "Primitive", "Sphere", "Plane", "Cuboid", "Disc", "Cylinder", "Triangle",
     "TriangleMesh", "MeshInstances", "Surface",
     "Light", "PointLight", "DirectionalLight", "SpotLight",
-    "Material", "Diffuse", "Emissive", "Refractive", "Glossy",
+    "Material", "CustomMaterial", "ShadeOut", "default_shade_out",
+    "Diffuse", "Emissive", "Refractive", "Glossy",
     "ThinFilmInterference", "SkyBox", "Panorama", "procedural_sky",
+    "create_animation", "create_animation_using_opencv",
+    "render_motion_blur", "render_ods",
     "texture", "image", "solid_color", "add_asset_root",
     "load_scene_file", "scene_from_dict", "save_scene_file", "scene_to_dict",
     "load_image", "load_image_as_linear_srgb", "load_image_with_blur",

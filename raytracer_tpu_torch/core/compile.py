@@ -116,6 +116,20 @@ class TexRef:
 
 
 @dataclass(frozen=True)
+class NormalMapRef:
+    """Object `obj` perturbs its normal with texture `tex` (raytracer_tpu
+    NormalMapRef).  basis_kind: 'sphere', 'plane', 'box' or 'tri';
+    local_id: the row of the kind's geometry table, or for 'tri' the
+    ref's number in GeometryTables.tri_nm_slot (obj is then -1)."""
+    obj: int
+    tex: int
+    repeat: float
+    basis_kind: str
+    local_id: int
+    bilinear: bool = False
+
+
+@dataclass(frozen=True)
 class EnvSlot:
     """An environment material slot (raytracer_tpu EnvSlot): its display
     texture, its lightmap, and display + light_intensity * lightmap
@@ -157,16 +171,21 @@ class SceneStatic:
     tex_offsets: Tuple[int, ...]
     tex_enc: Tuple[int, ...]
     tf_selp: Tuple[Tuple[float, float, float, float], ...]
-    # the wavefront's facts: whether anything samples uv, and whether an
-    # environment is importance-sampled (its alias tables are ROADMAP.md
-    # item 5, so the wavefront raises on such a scene); n_tris counts the
-    # triangle object ids, which are virtual under MeshInstances (one
+    # the wavefront's facts: whether anything samples uv; n_tris counts
+    # the triangle object ids, which are virtual under MeshInstances (one
     # record per instance, one id per instance and face); tri_interp says
-    # whether the triangles carry corner normals and uvs
+    # whether the triangles carry corner normals and uvs; normal_maps the
+    # normal-mapped objects; env_is_shape the (Hs, Ws) grid of the
+    # environment's alias tables, (0, 0) without environment importance
+    # sampling; custom_mats the CustomMaterial instances in slot order and
+    # custom_fp their parameter fingerprints (`_custom_param_fp`)
     needs_uv: bool = False
-    env_is: bool = False
     n_tris: int = 0
     tri_interp: bool = False
+    normal_maps: Tuple[NormalMapRef, ...] = ()
+    env_is_shape: Tuple[int, int] = (0, 0)
+    custom_mats: Tuple[Any, ...] = ()
+    custom_fp: Tuple[str, ...] = ()
 
     @cached_property
     def kind_counts(self):
@@ -263,8 +282,7 @@ class _Tables:
 
 @dataclass(frozen=True)
 class GeometryTables(_Tables):
-    """Per-kind geometry (the JAX GeometryTables less the normal-map
-    tangents, which are ROADMAP.md item 5).
+    """Per-kind geometry (the JAX GeometryTables).
 
     Triangle rows are physical: under MeshInstances, region 0 (Triangle
     and mesh faces, identity transform), then one object-space copy of
@@ -278,7 +296,11 @@ class GeometryTables(_Tables):
     inst_rot @ (s x) + inst_trans with inst_inv_scale = 1 / s (instance 0
     is the identity).  tri_vn1-3 / tri_uv1-3: corner normals and uvs,
     empty unless a mesh carries them (flat faces then hold their face
-    normal and the barycentric identity uvs)."""
+    normal and the barycentric identity uvs).  Normal-mapped meshes:
+    tri_tan, each face's uv-aligned tangent, tri_tan_sign, the sign of
+    its uv layout's determinant (mirrored uv islands), and tri_nm_slot,
+    its 'tri' normal map's number or -1; all empty unless a mesh has a
+    normal map (compile.py:364-370)."""
     sphere_center: torch.Tensor    # (S, 3)
     sphere_radius: torch.Tensor    # (S,)
     plane_center: torch.Tensor
@@ -330,6 +352,9 @@ class GeometryTables(_Tables):
     inst_rot: torch.Tensor         # (I, 3, 3) object -> world
     inst_trans: torch.Tensor       # (I, 3)
     inst_inv_scale: torch.Tensor   # (I,)
+    tri_tan: torch.Tensor          # (T, 3) or (0, 3)
+    tri_tan_sign: torch.Tensor     # (T,) +-1 or (0,)
+    tri_nm_slot: torch.Tensor      # (T,) int32 or (0,)
 
 
 @dataclass(frozen=True)
@@ -377,8 +402,10 @@ class LightTables(_Tables):
 @dataclass(frozen=True)
 class SceneData(_Tables):
     """The wavefront's scene tables (the JAX SceneData less the kernels'
-    packed rows and the environment alias tables).  textures: one
-    (H, W, 3) float32 tensor per registered texture, in atlas order."""
+    packed rows).  textures: one (H, W, 3) float32 tensor per registered
+    texture, in atlas order.  env_is_prob / env_is_alias / env_is_pdf:
+    the environment's alias tables over SceneStatic.env_is_shape cells
+    (`_env_is_tables`), empty without environment importance sampling."""
     geom: GeometryTables
     obj: ObjectTables
     mats: MaterialTables
@@ -389,6 +416,9 @@ class SceneData(_Tables):
     ambient_color: torch.Tensor  # (3,)
     scene_n_re: torch.Tensor     # (3,)
     scene_n_im: torch.Tensor     # (3,)
+    env_is_prob: torch.Tensor    # (Hs * Ws,) float32 or (0,)
+    env_is_alias: torch.Tensor   # (Hs * Ws,) int32 or (0,)
+    env_is_pdf: torch.Tensor     # (Hs * Ws,) float32 or (0,)
 
 
 def _t(a, dtype=F32):
@@ -838,6 +868,83 @@ def _tf_sel_poly(m):
     return tuple(float(c) for c in np.polyfit(cos, F, 3))
 
 
+# environment importance sampling: alias tables over an equirect map's
+# luminance, keyed by the identity of the host array (held)
+_ENV_IS_CACHE = {}
+
+
+def _build_alias(mass):
+    """Walker alias tables (prob float32, alias int32) of the discrete
+    distribution `mass`, on the host (compile.py:228)."""
+    n = mass.shape[0]
+    p = mass / max(mass.sum(), 1e-30) * n
+    alias = np.arange(n, dtype=I32)
+    prob = np.ones(n, F32)
+    small = [i for i in range(n) if p[i] < 1.0]
+    large = [i for i in range(n) if p[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        l = large.pop()
+        prob[s] = p[s]
+        alias[s] = l
+        p[l] = p[l] - (1.0 - p[s])
+        (small if p[l] < 1.0 else large).append(l)
+    return prob, alias
+
+
+def _env_is_tables(arr, max_h=128, max_w=256):
+    """(prob, alias, pdf_table, (Hs, Ws)) of an equirect map
+    (compile.py:243).
+
+    The cells are a uniform (Hs, Ws) grid over the (u, v) square in the
+    environment fetch's convention (sphere uv, the fetch's negated row);
+    a cell's mass pools its texels' luminance times solid angle, and
+    pdf_table is the normalised mass over the cell's exact solid angle,
+    so pdf(d) is exact for the sampler whatever the pooling."""
+    hit = _ENV_IS_CACHE.get(id(arr))
+    if hit is not None:
+        return hit[1]
+    a = np.asarray(arr, np.float64)
+    H, W = a.shape[0], a.shape[1]
+    lum = a[..., :3].mean(-1) if a.ndim == 3 else a
+    # v in [iv/H, (iv+1)/H) fetches row (-iv) mod H
+    lum_v = lum[(-np.arange(H)) % H]
+    # a texel's solid angle: its band in sin(elevation) times 2 pi / W
+    sl = -np.cos(np.pi * np.arange(H + 1) / H)
+    w_tex = (sl[1:] - sl[:-1]) * (2.0 * np.pi / W)
+    Hs, Ws = min(H, max_h), min(W, max_w)
+    rowmap = np.arange(H) * Hs // H
+    colmap = np.arange(W) * Ws // W
+    mass = np.zeros((Hs, Ws))
+    np.add.at(mass, (rowmap[:, None], colmap[None, :]), lum_v * w_tex[:, None])
+    slc = -np.cos(np.pi * np.arange(Hs + 1) / Hs)
+    w_cell = (slc[1:] - slc[:-1])[:, None] * (2.0 * np.pi / Ws)
+    total = max(mass.sum(), 1e-30)
+    pdf = (mass / total) / w_cell
+    prob, alias = _build_alias(mass.reshape(-1))
+    out = (prob, alias, pdf.reshape(-1).astype(F32), (Hs, Ws))
+    _ENV_IS_CACHE[id(arr)] = (arr, out)
+    return out
+
+
+def _custom_param_fp(m) -> str:
+    """Parameter fingerprint of a CustomMaterial (compile.py:734): plain
+    scalars, strings and flat tuples by value, arrays and other objects by
+    identity."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    for k in sorted(vars(m)):
+        v = vars(m)[k]
+        if isinstance(v, (int, float, bool, str, bytes, type(None))) or (
+                isinstance(v, tuple)
+                and all(isinstance(x, (int, float, bool, str)) for x in v)):
+            h.update(f"{k}={v!r};".encode())
+        else:
+            h.update(f"{k}:{id(v)};".encode())
+    return h.hexdigest()
+
+
 class _Textures:
     """Texture and material-slot registration in the JAX package's order
     (compile.py:937-988): the atlas offsets depend on it."""
@@ -848,6 +955,7 @@ class _Textures:
         self.refs = {k: [] for k in ("diffuse", "glossy", "emissive", "tf_lut",
                                      "tf_noise", "tf_comp")}
         self.env_slots = []
+        self.normal_maps = []
 
     def add(self, arr):
         if id(arr) not in self._ids:
@@ -894,6 +1002,19 @@ class _Textures:
                   if mat.lightmap is not None else None)
             self.env_slots.append(EnvSlot(slot, "box", self.add(tex), lm, cm))
         return slot
+
+    def normal_map(self, mat, kind, local_id, obj=-1):
+        """Register `mat`'s normal map, if any, after its material slot
+        (compile.py:1011-1069): the texture order depends on it."""
+        if mat.normalmap is None:
+            return None
+        ref = NormalMapRef(obj, self.add(mat.normalmap), mat.normalmap_repeat,
+                           kind, local_id, mat.normalmap_bilinear)
+        self.normal_maps.append(ref)
+        return ref
+
+    def n_tri_maps(self):
+        return sum(r.basis_kind == "tri" for r in self.normal_maps)
 
     def patch_env_kind(self, slot, kind):
         for i, e in enumerate(self.env_slots):
@@ -950,7 +1071,7 @@ def _default_cuv(T):
     return np.tile(np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]), (T, 1, 1))
 
 
-def _layout_instanced(TV, CVN, CUV, groups):
+def _layout_instanced(TV, CVN, CUV, TNM, groups):
     """Physical and virtual triangle layout of a scene with MeshInstances
     (compile.py:1201).
 
@@ -960,21 +1081,23 @@ def _layout_instanced(TV, CVN, CUV, groups):
     cluster's rows never belong to another region.  Each (cluster,
     instance) pair is one cluster record, its box the object-space box
     pushed through the instance's transform.  Virtual ids: region 0's
-    rows, then one id per (instance, row).  groups: (mesh, [instance
-    dicts with R, t, s]) in scene order."""
+    rows, then one id per (instance, row).  TNM: region 0's normal-map
+    slot per face, or None.  groups: (mesh, [instance dicts with R, t,
+    s], normal-map ref number or None) in scene order."""
     from ..native import build_bvh
 
     B = TRI_CLUSTER_SIZE
     any_attrs = CVN is not None or any(
         mesh.corner_normals is not None or mesh.corner_uvs is not None
-        for mesh, _ in groups)
-    phys_tv, phys_cvn, phys_cuv = [], [], []
+        for mesh, _, _ in groups)
+    any_nm = TNM is not None or any(nm is not None for _, _, nm in groups)
+    phys_tv, phys_cvn, phys_cuv, phys_tnm = [], [], [], []
     cl_lo, cl_hi, cl_start, cl_virt, cl_inst = [], [], [], [], []
     inst_R, inst_t, inst_s = [np.eye(3)], [np.zeros(3)], [1.0]
     virt_rows, virt_insts = [], []
     state = {"phys": 0, "virt": 0}
 
-    def add_region(tvr, cvnr, cuvr, transforms):
+    def add_region(tvr, cvnr, cuvr, tnmr, transforms):
         """transforms: (R, t, s, instance id or None to allocate one)."""
         T = tvr.shape[0]
         perm = (build_bvh(tvr)["order"] if T >= 2
@@ -991,6 +1114,10 @@ def _layout_instanced(TV, CVN, CUV, groups):
             cuvr = _default_cuv(T) if cuvr is None else cuvr[perm]
             phys_cvn.append(np.pad(cvnr, ((0, padr), (0, 0), (0, 0))))
             phys_cuv.append(np.pad(cuvr, ((0, padr), (0, 0), (0, 0))))
+        if any_nm:
+            tnmr = (np.full((T,), -1, I32) if tnmr is None
+                    else np.asarray(tnmr)[perm])
+            phys_tnm.append(np.pad(tnmr, (0, padr), constant_values=-1))
         for (R, tr, s, inst_id) in transforms:
             if inst_id is None:
                 inst_id = len(inst_R)
@@ -1011,8 +1138,9 @@ def _layout_instanced(TV, CVN, CUV, groups):
 
     perm0 = None
     if TV.shape[0]:
-        perm0 = add_region(TV, CVN, CUV, [(np.eye(3), np.zeros(3), 1.0, 0)])
-    for mesh, insts in groups:
+        perm0 = add_region(TV, CVN, CUV, TNM,
+                           [(np.eye(3), np.zeros(3), 1.0, 0)])
+    for mesh, insts, nm in groups:
         tvr = np.asarray(mesh.triangles, F32)
         cvnr = cuvr = None
         if any_attrs:
@@ -1020,13 +1148,16 @@ def _layout_instanced(TV, CVN, CUV, groups):
                     if mesh.corner_normals is not None else None)
             cuvr = (np.asarray(mesh.corner_uvs, np.float64)
                     if mesh.corner_uvs is not None else None)
-        add_region(tvr, cvnr, cuvr,
+        tnmr = (np.full((tvr.shape[0],), -1 if nm is None else nm, I32)
+                if any_nm else None)
+        add_region(tvr, cvnr, cuvr, tnmr,
                    [(i["R"], i["t"], i["s"], None) for i in insts])
     cat = np.concatenate
     return dict(
         TV=cat(phys_tv).astype(F32),
         CVN=cat(phys_cvn) if any_attrs else None,
         CUV=cat(phys_cuv) if any_attrs else None,
+        TNM=cat(phys_tnm) if any_nm else None,
         cl_lo=cat(cl_lo), cl_hi=cat(cl_hi),
         cl_start=_i(cat(cl_start)), cl_virt=_i(cat(cl_virt)),
         cl_inst=cat(cl_inst),
@@ -1040,12 +1171,15 @@ def _triangle_tables(tri, groups):
     """The triangle side of a compile (compile.py:1320-1400).
 
     tri: (primitive, props) of the Triangle and TriangleMesh objects in
-    scene order; groups: (mesh, [instance dicts]) of the MeshInstances.
-    Returns a dict: TV (T, 3, 3) float32 in table order, CVN / CUV the
-    float64 corner normals and uvs (None when no mesh carries them), the
-    row props of region 0 in table order, the cluster and instance tables
-    (None without clusters), and n_virtual, the triangle object ids."""
-    parts, props, attr_blocks = [], [], []
+    scene order (props["nm"]: a mesh's normal-map ref number, or None);
+    groups: (mesh, [instance dicts], normal-map ref or None) of the
+    MeshInstances.  Returns a dict: TV (T, 3, 3) float32 in table order,
+    CVN / CUV the float64 corner normals and uvs (None when no mesh
+    carries them), TTAN / TSGN / TNM the tangent tables of normal-mapped
+    meshes (None without), the row props of region 0 in table order, the
+    cluster and instance tables (None without clusters), and n_virtual,
+    the triangle object ids."""
+    parts, props, attr_blocks, nm_blocks = [], [], [], []
     for q, p in tri:
         start = len(props)
         if isinstance(q, TriangleMesh):
@@ -1054,6 +1188,8 @@ def _triangle_tables(tri, groups):
             if q.corner_normals is not None or q.corner_uvs is not None:
                 attr_blocks.append((start, len(q.faces), q.corner_normals,
                                     q.corner_uvs))
+            if p.get("nm") is not None:
+                nm_blocks.append((start, len(q.faces), p["nm"]))
         else:
             parts.append(np.asarray([(q.p1, q.p2, q.p3)], F32))
             props.append(p)
@@ -1070,15 +1206,20 @@ def _triangle_tables(tri, groups):
                 CVN[a_start:a_start + a_count] = a_vn
             if a_uv is not None:
                 CUV[a_start:a_start + a_count] = a_uv
+    TNM = None
+    if nm_blocks:
+        TNM = np.full((TV.shape[0],), -1, I32)
+        for a_start, a_count, a_ref in nm_blocks:
+            TNM[a_start:a_start + a_count] = a_ref
 
     out = dict(props=props, clusters=None, n_virtual=len(props))
     if groups:
         # instanced scenes always take the clustered sweep (the flat one
         # has no per-row transform)
-        lay = _layout_instanced(TV, CVN, CUV, groups)
+        lay = _layout_instanced(TV, CVN, CUV, TNM, groups)
         if lay["perm0"] is not None:
             out["props"] = [props[i] for i in lay["perm0"]]
-        TV, CVN, CUV = lay["TV"], lay["CVN"], lay["CUV"]
+        TV, CVN, CUV, TNM = lay["TV"], lay["CVN"], lay["CUV"], lay["TNM"]
         out["clusters"] = lay
         out["n_virtual"] = lay["n_virtual"]
     elif len(props) >= TRI_CLUSTER_THRESHOLD:
@@ -1088,15 +1229,40 @@ def _triangle_tables(tri, groups):
         out["props"] = [props[i] for i in perm]
         if CVN is not None:
             CVN, CUV = CVN[perm], CUV[perm]
+        if TNM is not None:
+            TNM = TNM[perm]
         starts, lo, hi = _cluster_runs(TV, TRI_CLUSTER_SIZE)
         lo, hi = _inflate(lo, hi)
         out["clusters"] = dict(cl_lo=lo, cl_hi=hi, cl_start=_i(starts),
                                cl_virt=_i(starts))
-    out.update(TV=TV, CVN=CVN, CUV=CUV)
+    TTAN = TSGN = None
+    if TNM is not None:
+        TTAN, TSGN = _uv_tangents(TV, CUV)
+    out.update(TV=TV, CVN=CVN, CUV=CUV, TTAN=TTAN, TSGN=TSGN, TNM=TNM)
     return out
 
 
-def _cluster_fields(cl, CVN, CUV):
+def _uv_tangents(TV, CUV):
+    """Per face, the unit tangent T = dP/du of its corner uvs (float64)
+    and the sign of the uv determinant (compile.py:1376-1394); a face
+    with a degenerate uv layout takes its first edge."""
+    P1, P2, P3 = TV[:, 0], TV[:, 1], TV[:, 2]
+    e1 = (P2 - P1).astype(np.float64)
+    e2 = (P3 - P1).astype(np.float64)
+    duv1 = CUV[:, 1] - CUV[:, 0]
+    duv2 = CUV[:, 2] - CUV[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    inv = 1.0 / np.where(np.abs(det) < 1e-12,
+                         np.where(det < 0, -1e-12, 1e-12), det)
+    tan = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv[:, None]
+    nrm = np.linalg.norm(tan, axis=1, keepdims=True)
+    tan = np.where(nrm > 1e-12, tan / np.maximum(nrm, 1e-12),
+                   (P2 - P1) / np.maximum(
+                       np.linalg.norm(P2 - P1, axis=1, keepdims=True), 1e-12))
+    return tan, np.where(det < 0, -1.0, 1.0)
+
+
+def _cluster_fields(cl, CVN, CUV, TTAN=None, TSGN=None, TNM=None):
     """The GeometryTables fields of the clusters, instances and corner
     attributes (compile.py:1476-1494); empty tables where a scene has
     none."""
@@ -1117,17 +1283,22 @@ def _cluster_fields(cl, CVN, CUV):
     for j in range(3):
         out[f"tri_vn{j + 1}"] = _t(CVN[:, j]) if CVN is not None else z(0, 3)
         out[f"tri_uv{j + 1}"] = _t(CUV[:, j]) if CUV is not None else z(0, 2)
+    out.update(tri_tan=_t(TTAN) if TTAN is not None else z(0, 3),
+               tri_tan_sign=_t(TSGN) if TSGN is not None else z(0),
+               tri_nm_slot=_t(TNM, I32) if TNM is not None else zi())
     return out
 
 
 def _mesh_group(reg, prim):
-    """(mesh, [instance dicts]) of a MeshInstances, its materials
-    registered in instance order (compile.py:990)."""
+    """(mesh, [instance dicts], normal-map ref number or None) of a
+    MeshInstances, its materials registered in instance order, then its
+    normal map, which every instance must share (compile.py:990)."""
     if not prim.instances:
         raise ValueError("MeshInstances has no instances; call .add()")
-    insts = []
+    insts, eff = [], []
     for (R, tr, s, mat) in prim.instances:
         m = mat if mat is not None else prim.material
+        eff.append(m)
         slot = reg.material_slot(m)
         insts.append(dict(
             R=np.asarray(R, np.float64), t=np.asarray(tr, np.float64),
@@ -1135,7 +1306,46 @@ def _mesh_group(reg, prim):
             rec=ObjRecord("tri", m.mat_type, slot,
                           min(prim.max_ray_depth, 10 ** 6, 1023), prim.mc,
                           prim.shadow)))
-    return prim.mesh, insts
+    nm = None
+    maps = {id(m.normalmap) for m in eff if m.normalmap is not None}
+    if maps:
+        if len(maps) > 1 or any(m.normalmap is None for m in eff):
+            raise ValueError(
+                "all instances of a MeshInstances group must share one "
+                "normal map (the tangent/slot tables are per mesh face)")
+        if prim.mesh.corner_uvs is None:
+            raise ValueError(
+                "a normal-mapped MeshInstances mesh needs vt texture "
+                "coordinates in the OBJ (the tangent basis comes from "
+                "the uv layout)")
+        nm = reg.n_tri_maps()
+        reg.normal_map(eff[0], "tri", nm)
+    return prim.mesh, insts, nm
+
+
+def _register_normal_map(reg, prim, kind, local):
+    """Register a primitive's normal map (compile.py:1011-1069); returns
+    a mesh's 'tri' ref number (None for other kinds).  A sphere's, plane's
+    or box's object id is set once the kinds are counted; discs,
+    cylinders and plain triangles raise, as in the JAX package."""
+    mat = prim.material
+    if kind in ("sphere", "plane", "box"):
+        reg.normal_map(mat, kind, local)
+        return None
+    if kind == "disc":
+        raise ValueError("normal maps are not supported on Disc")
+    if kind == "cyl":
+        raise ValueError("normal maps are not supported on Cylinder")
+    if not isinstance(prim, TriangleMesh):
+        raise ValueError("normal maps require a (u,v,n) basis; supported on "
+                         "Plane, Cuboid and TriangleMesh (with vt) only")
+    if prim.corner_uvs is None:
+        raise ValueError(
+            "a normal-mapped TriangleMesh needs vt texture coordinates in "
+            "the OBJ (the tangent basis comes from the uv layout)")
+    ref = reg.n_tri_maps()
+    reg.normal_map(mat, "tri", ref)
+    return ref
 
 
 def compile_scene(scene) -> Tuple[SceneStatic, SolidTables]:
@@ -1168,14 +1378,23 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
             raise TypeError(f"unsupported primitive {type(prim).__name__}")
         mat = prim.material
         slot = reg.material_slot(mat)
+        props = dict(mat_type=mat.mat_type, mat_slot=slot,
+                     max_depth=min(prim.max_ray_depth, 10 ** 6),
+                     mc=prim.mc, shadow=prim.shadow)
+        local = len(by_kind[kind])
         if isinstance(prim, Panorama):
             reg.patch_env_kind(slot, "sphere")
         elif isinstance(prim, SkyBox):
             reg.patch_env_kind(slot, "box")
-        props = dict(mat_type=mat.mat_type, mat_slot=slot,
-                     max_depth=min(prim.max_ray_depth, 10 ** 6),
-                     mc=prim.mc, shadow=prim.shadow)
+        elif mat.normalmap is not None:
+            props["nm"] = _register_normal_map(reg, prim, kind, local)
         by_kind[kind].append((prim, props))
+
+    # normal maps' object ids (compile.py:1581-1588)
+    offsets = {"sphere": 0, "plane": len(by_kind["sphere"]),
+               "box": len(by_kind["sphere"]) + len(by_kind["plane"])}
+    nmaps = tuple(r if r.basis_kind == "tri" else dataclasses.replace(
+        r, obj=offsets[r.basis_kind] + r.local_id) for r in reg.normal_maps)
 
     # ---- static records + (O, 24) geometry rows (compile.py:1596-1662) ----
     records, rows = [], []
@@ -1226,7 +1445,7 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
     for p in tt["props"]:
         _rec("tri", p)
     repeats = [1] * len(records)
-    for mesh, insts in groups:
+    for mesh, insts, _ in groups:
         records.extend(i["rec"] for i in insts)
         repeats.extend([len(mesh.faces)] * len(insts))
     n_obj_total = sum(repeats)
@@ -1280,7 +1499,8 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         tri_p1=_t(P1), tri_p2=_t(P2), tri_p3=_t(P3), tri_normal=_t(nr_u),
         tri_centroid=_t((P1 + P2 + P3) / 3.0), tri_n31=_t(tri_n[0]),
         tri_n12=_t(tri_n[1]), tri_n23=_t(tri_n[2]),
-        **_cluster_fields(tt["clusters"], CVN, CUV))
+        **_cluster_fields(tt["clusters"], CVN, CUV, tt["TTAN"], tt["TSGN"],
+                          tt["TNM"]))
 
     # ---- material tables (compile.py:1529-1556) ---------------------------
     def solid_of(m, attr):
@@ -1339,11 +1559,12 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
     refr_disp = tuple(bool(m.dispersion) for m in ref)
     present = tuple(sorted({r.mat_type for r in records}))
     refs = reg.refs
-    is_envs = [m for m in reg.mat_rows.get(MAT_ENV, []) if m.importance_sampled]
-    if len(is_envs) > 1:
-        raise ValueError("only one environment may be importance_sampled")
+    customs = tuple(reg.mat_rows.get(MAT_CUSTOM, []))
+    # custom shaders may read uv
     needs_uv = bool(refs["diffuse"] or refs["glossy"] or refs["emissive"]
-                    or reg.env_slots or refs["tf_lut"])
+                    or reg.env_slots or refs["tf_lut"] or nmaps or customs)
+    env_rows = reg.mat_rows.get(MAT_ENV, [])
+    is_envs, env_is = _env_importance(reg.env_slots, env_rows)
     n_groups_merged = len(
         {(r.mat_type, r.max_depth, r.mc,
           refr_disp[r.mat_slot] if r.mat_type == MAT_REFRACTIVE else None)
@@ -1359,8 +1580,10 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
                                       MAT_REFRACTIVE})
     # env importance sampling is the wavefront's (its diffuse mixture
     # gains an env component)
+    # normal maps perturb the sampled directions, which a record cannot
+    # defer
     pallas_tex_ok = (common_ok and n_groups_slot <= PALLAS_MAX_GROUPS
-                     and not pallas_ok and not is_envs
+                     and not pallas_ok and not nmaps and not is_envs
                      and set(present) <= {MAT_EMISSIVE, MAT_GLOSSY,
                                           MAT_DIFFUSE, MAT_REFRACTIVE,
                                           MAT_THINFILM, MAT_ENV})
@@ -1379,8 +1602,10 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         thinfilm_noise=tuple(refs["tf_noise"]),
         thinfilm_comp=tuple(refs["tf_comp"]), env_slots=tuple(reg.env_slots),
         tex_shapes=tex_shapes, tex_offsets=tex_offsets, tex_enc=tex_enc,
-        tf_selp=tf_selp, needs_uv=needs_uv, env_is=bool(is_envs),
-        n_tris=tt["n_virtual"], tri_interp=CVN is not None)
+        tf_selp=tf_selp, needs_uv=needs_uv, n_tris=tt["n_virtual"],
+        tri_interp=CVN is not None, normal_maps=nmaps,
+        env_is_shape=env_is[3] if env_is else (0, 0), custom_mats=customs,
+        custom_fp=tuple(_custom_param_fp(m) for m in customs))
     tables = build_solid_tables(
         records, refr_disp, geom, mats, lights, is_center, is_radius,
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
@@ -1393,5 +1618,31 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         is_center=_t(is_center), is_radius=_t(is_radius),
         textures=tuple(texture_f32(a) for a in reg.arrays),
         ambient_color=_t(scene.ambient_color), scene_n_re=_t(np.real(scene.n)),
-        scene_n_im=_t(np.imag(scene.n)))
+        scene_n_im=_t(np.imag(scene.n)),
+        env_is_prob=_t(env_is[0] if env_is else np.zeros((0,), F32)),
+        env_is_alias=_t(env_is[1] if env_is else np.zeros((0,), I32), I32),
+        env_is_pdf=_t(env_is[2] if env_is else np.zeros((0,), F32)))
     return static, tables, data
+
+
+def _env_importance(env_slots, env_rows):
+    """(the importance-sampled environment materials, their alias tables
+    or None) (compile.py:1680-1706).  At most one environment, and an
+    equirect one; a black map has no distribution to sample and keeps
+    the cosine / caps mixture."""
+    is_envs = [(e, env_rows[e.slot]) for e in env_slots
+               if env_rows[e.slot].importance_sampled]
+    if not is_envs:
+        return [], None
+    if len(is_envs) > 1:
+        raise ValueError("only one environment may be importance_sampled")
+    e, m = is_envs[0]
+    if e.kind != "sphere":
+        raise ValueError(
+            "environment importance sampling needs an equirect map — use "
+            "Panorama / add_Background(spherical=True)")
+    # sample the array the slot displays (its blurred variant, if any)
+    src = m.blur_texture if m.blur_texture is not None else m.texture
+    if float(np.asarray(src, np.float64)[..., :3].sum()) <= 0.0:
+        return is_envs, None
+    return is_envs, _env_is_tables(src)

@@ -16,9 +16,11 @@ full-width draws in the same order every bounce whatever the rays hit
 (`_draw`), so one seed gives one image.  Each stage of a bounce runs
 under a torch.profiler range, "wavefront.nearest_hit", ".attributes",
 ".draws", ".shade.<type>" and ".update", which a profiled render reports
-per stage (scripts/torch_render_profile.py).  `trace_distances` is the
-depth AOV (:347).  Normal maps (`_apply_normal_maps`, :120) are
-ROADMAP.md item 5; Material(normalmap=...) raises.
+per stage (scripts/torch_render_profile.py).  Normal maps perturb the
+shading normal before the blocks (`_apply_normal_maps`, :120); a
+CustomMaterial's `shade` runs as one more block per slot, drawing from
+the chunk's generator (ShadeCtx.generator) after the built-in draws.
+`trace_distances` is the depth AOV (:347).
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ from torch.profiler import record_function
 from ..geometry.attrs import hit_attributes
 from ..geometry.intersect import nearest_hit
 from ..materials import shade
-from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY,
-                              MAT_REFRACTIVE, MAT_THINFILM)
+from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
+                              MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
 from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS, WAVELENGTHS_NM
-from .compile import PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT, PACKED_SLOT_SHIFT
-from .safemath import div
+from .compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
+                      PACKED_SLOT_SHIFT)
+from .safemath import div, safe_norm
 
 USE_PALLAS = ("auto", "always", "never")
 
@@ -76,7 +79,11 @@ class RenderSettings:
 
 @dataclass
 class ShadeCtx:
-    """What a shading block reads about the wavefront (integrator.py:86)."""
+    """What a shading block reads about the wavefront (integrator.py:86).
+
+    generator: the chunk's torch.Generator, on the rays' device, where
+    the JAX context has a PRNG key: a CustomMaterial's shader draws from
+    it (the built-in blocks take their draws as arguments)."""
 
     data: Any            # SceneData
     static: Any          # SceneStatic
@@ -102,6 +109,84 @@ class ShadeCtx:
     # 6, 4, 5), or None
     strat_u: Any = None
     wavelengths: Any = WAVELENGTHS_NM
+    generator: Any = None
+
+
+def _cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _take(table, idx):
+    """table[idx] with idx clamped into the table (jnp.take mode=clip)."""
+    return table.index_select(
+        0, torch.clamp(idx, 0, max(table.shape[0] - 1, 0)).reshape(-1).long()
+    ).reshape(idx.shape + table.shape[1:])
+
+
+def _unit(v):
+    return v / torch.clamp_min(safe_norm(v, keepdim=True), 1e-20)
+
+
+def _apply_normal_maps(N_geo, P, uv, obj_id, data, static):
+    """Tangent-space normal mapping (integrator.py:120, sightpy
+    material.py:18-36): per normal-mapped object, fetch the map at uv,
+    decode to [-1, 1], rotate by the object's (u, v, n) frame and
+    renormalise.  Spheres take the frame of their uv parameterisation at
+    each hit; mesh faces their compile-time uv tangent, carried into
+    world space under MeshInstances and made orthonormal against the
+    (interpolated) normal; planes and boxes their axes."""
+    if not static.normal_maps:
+        return N_geo
+    N = N_geo
+    tri_off = sum(static.kind_counts[k] for k in KINDS if k != "tri")
+    geom = data.geom
+    for ref in static.normal_maps:
+        m = shade.fetch_texture(data.textures[ref.tex], uv, ref.repeat,
+                                ref.bilinear) - 0.5
+        if ref.basis_kind == "sphere":
+            # T = dP/du (longitude), B = dP/dv = T x N; N_geo is the
+            # sphere's normal on the rays this ref keeps
+            s = torch.sqrt(torch.clamp_min(
+                N_geo[..., 0] ** 2 + N_geo[..., 2] ** 2, 1e-12))
+            T = torch.stack([-N_geo[..., 2] / s, torch.zeros_like(s),
+                             N_geo[..., 0] / s], dim=-1)
+            B = _cross(T, N_geo)
+            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
+                              + m[..., 2:3] * N_geo))
+            N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
+            continue
+        if ref.basis_kind == "tri":
+            row = obj_id - tri_off
+            R_i = None
+            if geom.tri_virt_row.shape[0]:
+                virt = torch.clamp(row, 0, geom.tri_virt_row.shape[0] - 1)
+                row = _take(geom.tri_virt_row, virt)
+                R_i = _take(geom.inst_rot, _take(geom.tri_virt_inst, virt))
+            else:
+                row = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
+            mask = (obj_id >= tri_off) & (_take(geom.tri_nm_slot, row)
+                                          == ref.local_id)
+            T = _take(geom.tri_tan, row)
+            if R_i is not None:
+                T = (R_i * T[..., None, :]).sum(-1)
+            T = _unit(T - N_geo * (T * N_geo).sum(-1, keepdim=True))
+            B = _take(geom.tri_tan_sign, row)[..., None] * _cross(N_geo, T)
+            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
+                              + m[..., 2:3] * N_geo))
+            N = torch.where(mask[..., None], Nm, N)
+            continue
+        if ref.basis_kind == "plane":
+            i = ref.local_id
+            # columns u, v, n
+            basis = torch.stack([geom.plane_u_axis[i], geom.plane_v_axis[i],
+                                 geom.plane_normal[i]], dim=-1)
+        else:   # box: the inverse basis' columns are the box's axes
+            basis = geom.box_basis[ref.local_id].T
+        Nm = _unit((m * 2.0) @ basis.T)
+        N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
+    return N
 
 
 def _draw(generator, static, n):
@@ -128,7 +213,24 @@ def _draw(generator, static, n):
 
 _NAMES = {MAT_EMISSIVE: "emissive", MAT_GLOSSY: "glossy",
           MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
-          MAT_THINFILM: "thinfilm", MAT_ENV: "env"}
+          MAT_THINFILM: "thinfilm", MAT_ENV: "env", MAT_CUSTOM: "custom"}
+
+
+def _dispatch(static, mat_type, mat_slot):
+    """(name, shader, per-ray mask) per block, in the JAX package's order
+    (integrator.py:247-260): the present types, a CustomMaterial type
+    unrolled into one block per slot."""
+    out = []
+    for mt in static.mat_types_present:
+        if mt == MAT_CUSTOM:
+            for slot, cm in enumerate(static.custom_mats):
+                out.append(("custom", lambda ctx, d, cm=cm: cm.shade(ctx),
+                            (mat_type == mt) & (mat_slot == slot)))
+        else:
+            out.append((_NAMES.get(mt, mt),
+                        lambda ctx, d, mt=mt: _shade(mt, ctx, d),
+                        mat_type == mt))
+    return out
 
 
 def _shade(mt, ctx, draws):
@@ -144,9 +246,7 @@ def _shade(mt, ctx, draws):
         return shade.shade_thinfilm(ctx, *draws[mt])
     if mt == MAT_ENV:
         return shade.shade_env(ctx)
-    raise NotImplementedError(
-        f"material type {mt} is not ported yet: custom materials are "
-        "ROADMAP.md 'Modules to port' item 5 (wavefront C)")
+    raise ValueError(f"unknown material type {mt}")
 
 
 def trace(generator, origin, direction, n_re, n_im, data, static, settings,
@@ -187,7 +287,8 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
             miss = t >= MISS_THRESHOLD
             P = O + D * t[..., None]
             N_geo, uv = hit_attributes(P, obj, data.geom, static)
-            N_shad = N_geo * orient[..., None]
+            N_shad = _apply_normal_maps(N_geo, P, uv, obj, data, static)
+            N_shad = N_shad * orient[..., None]
             packed = packed_t.index_select(0, torch.clamp(obj, 0, n_obj - 1))
             mat_type = packed & 0x7
             mat_slot = (packed >> PACKED_SLOT_SHIFT) & 0x3FF
@@ -209,11 +310,11 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
                        uv=uv, orient=orient, mat_slot=mat_slot,
                        obj_max_depth=obj_max_depth, obj_mc=obj_mc, eps=eps,
                        pattern=pattern, split_cnt=split_cnt,
-                       split_k=settings.split_k, strat_u=strat_u)
-        for mt in static.mat_types_present:
-            with record_function(f"wavefront.shade.{_NAMES.get(mt, mt)}"):
-                out = _shade(mt, ctx, draws)
-            m = mat_type == mt
+                       split_k=settings.split_k, strat_u=strat_u,
+                       generator=generator)
+        for name, shader, m in _dispatch(static, mat_type, mat_slot):
+            with record_function(f"wavefront.shade.{name}"):
+                out = shader(ctx, draws)
             m3 = m[..., None]
             add = torch.where(m3, out.add, add)
             beta_mult = torch.where(m3, out.beta_mult, beta_mult)
@@ -223,7 +324,8 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
             new_n_im = torch.where(m3, out.new_n_im, new_n_im)
             cont = torch.where(m, out.cont, cont)
             inc_diff = torch.where(m, out.is_diffuse, inc_diff)
-            inc_split = torch.where(m, out.did_split, inc_split)
+            if out.did_split is not None:   # optional for custom shaders
+                inc_split = torch.where(m, out.did_split, inc_split)
 
         with record_function("wavefront.update"):
             shaded = alive & ~miss

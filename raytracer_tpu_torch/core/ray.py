@@ -17,16 +17,27 @@ import torch
 from ..utils.constants import MISS_THRESHOLD
 
 
+MULTI_DEVICE = ("ROADMAP.md 'Modules to port' item 8 (multi-device "
+                "rendering)")
+
+
+def no_mesh(mesh, what):
+    """Raise for a device mesh: multi-device rendering is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}(mesh=...) is not ported yet: {MULTI_DEVICE}")
+
+
 def resolve_device(device, what="this call"):
-    """torch.device of `device`; None means the CUDA device, and raises
-    when there is none: the CPU is used only when asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{what} runs on the CUDA device by default and found none; "
-                "pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """torch.device of `device`; None means the CUDA device.  A CUDA
+    device raises when there is none: the CPU is used only when asked
+    for."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on the CUDA device by default and found none; "
+            "pass device='cpu' to run on the CPU")
+    return device
 
 
 def _f32(x, device):
@@ -144,16 +155,24 @@ def get_distances(ray: Ray, scene, device=None):
 def first_hit(ray: Ray, scene, device=None) -> Hit:
     """The nearest hit of every ray of the bundle against `scene`
     (raytracer_tpu/core/ray.py:149), with uv always computed."""
-    from ..geometry.attrs import hit_attributes
-    from ..geometry.intersect import nearest_hit
-
     device = resolve_device(device, "first_hit")
     static, data = _compile(scene, device)
     O, D = _f32(ray.origin, device), _f32(ray.dir, device)
+    t, orient, P, N_geo, uv, obj = _first_hit_impl(O, D, data, static)
+    return Hit(distance=t, orientation=orient, point=P, normal=N_geo, uv=uv,
+               obj_id=obj.to(torch.int32))
+
+
+def _first_hit_impl(O, D, data, static):
+    """(t, orient, P, N_geo, uv, obj) of the nearest hits, point, normal
+    and uv zero on a miss (raytracer_tpu/core/ray.py:136); the AOV pass
+    shares it."""
+    from ..geometry.attrs import hit_attributes
+    from ..geometry.intersect import nearest_hit
+
     t, orient, obj = nearest_hit(O, D, data.geom)
     miss = (t >= MISS_THRESHOLD)[..., None]
     P = torch.where(miss, 0.0, O + D * t[..., None])
     N_geo, uv = hit_attributes(P, obj, data.geom, static, force_uv=True)
-    return Hit(distance=t, orientation=orient, point=P,
-               normal=torch.where(miss, 0.0, N_geo),
-               uv=torch.where(miss, 0.0, uv), obj_id=obj.to(torch.int32))
+    return (t, orient, P, torch.where(miss, 0.0, N_geo),
+            torch.where(miss, 0.0, uv), obj)

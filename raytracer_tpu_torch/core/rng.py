@@ -280,7 +280,7 @@ def mixed_cosine_caps_sample(generator, normal, origin, targets_center,
 
 def mixed_diffuse_sample(generator, normal, origin, targets_center,
                          targets_radius, env_tabs, cosine_weight,
-                         uniforms=None):
+                         uniforms=None, pick=None):
     """The general Diffuse mixture: cosine lobe, light caps and the
     environment; returns (direction, pdf).
 
@@ -291,7 +291,8 @@ def mixed_diffuse_sample(generator, normal, origin, targets_center,
     N.L > 0 keeps pdf > 0 through the cosine term.
 
     uniforms: optional (u_mix, u_phi, u_r2); the (phi, r2) pair feeds
-    whichever branch is chosen.
+    whichever branch is chosen.  pick: optional target index of the caps
+    branch (see caps_sample).
     """
     has_caps = targets_center is not None and targets_center.shape[0] > 0
     has_env = env_tabs is not None
@@ -308,7 +309,7 @@ def mixed_diffuse_sample(generator, normal, origin, targets_center,
     d = cosine_sample(generator, normal, uniforms=dir_u)
     if has_caps:
         d_caps = caps_sample(generator, origin, targets_center,
-                             targets_radius, uniforms=dir_u)
+                             targets_radius, uniforms=dir_u, pick=pick)
         in_caps = (u_mix >= w) & (u_mix < w + seg)
         d = torch.where(in_caps[..., None], d_caps, d)
     if has_env:

@@ -14,11 +14,13 @@ accumulates per pixel and tonemaps.  Around that loop: checkpoints and
 bit-identical resume, adaptive sampling to a noise target, the per-pixel
 variance of the mean, progressive previews, progress lines and a
 torch.profiler trace; `render_environment` bakes the scene into an
-equirect map and `get_distances` renders the depth AOV.
+equirect map, `get_distances` renders the depth AOV, `render_aovs` the
+first-hit feature planes (core/aov.py), `render_denoised` a frame
+filtered by them (denoise.py) and `render_ods` a stereo 360 frame
+(vr.py).
 
 Not ported yet: the `mesh=` argument (multi-device rendering, ROADMAP.md
-"Modules to port" item 8) and `render_aovs`, `render_denoised` and
-`render_ods` (item 6).
+"Modules to port" item 8).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from .compile import (PALLAS_MAX_GROUPS, PALLAS_MAX_OBJECTS, compile_all,
                       compile_scene, compile_wavefront, derive_max_bounces,
                       derive_split_k)
 from .integrator import RenderSettings, trace, trace_distances
-from .ray import resolve_device
+from .ray import no_mesh, resolve_device
 from .vec import as_complex3, as_float3
 
 # cap on rays per traced chunk (raytracer_tpu/core/scene.py:42)
@@ -492,6 +494,62 @@ class Scene:
         store = np.empty_like(img)
         store[(-np.arange(height)) % height] = img[::-1]
         return store
+
+    def render_aovs(self, samples_per_pixel=1, seed=0, ao_samples=0,
+                    ao_radius=None, mesh=None, device=None):
+        """First-hit feature planes (depth, normal, albedo, position,
+        coverage, obj_id, emissive, and with ao_samples ambient occlusion)
+        for denoising and debugging: see core/aov.py render_aovs."""
+        from .aov import render_aovs
+
+        return render_aovs(self, samples_per_pixel, seed,
+                           ao_samples=ao_samples, ao_radius=ao_radius,
+                           mesh=mesh, device=device)
+
+    def render_denoised(self, samples_per_pixel, seed=0, aov_samples=None,
+                        output="pil", variance_guided=True, clamp=None,
+                        mesh=None, device=None, **denoise_kwargs):
+        """Render at low spp, then filter with the à-trous denoiser
+        (denoise.py) guided by this scene's AOV planes
+        (raytracer_tpu/core/scene.py:738).
+
+        The render takes the scene's route (on Cornell, the solid
+        kernel); aov_samples: the feature pass's spp, by default
+        min(16, max(4, samples_per_pixel)); variance_guided: render with
+        the per-pixel variance and filter with the SVGF weight (needs two
+        samples or more); clamp: as for render; denoise_kwargs go to
+        denoise().  output: "pil" (sRGB image) or "linear" ((H, W, 3)
+        float32).  device: as for render.  mesh: ROADMAP.md item 8."""
+        from ..denoise import denoise
+
+        no_mesh(mesh, "Scene.render_denoised")
+        device = resolve_device(device, "Scene.render_denoised")
+        variance = None
+        if variance_guided and samples_per_pixel * self._diffuse_fan() > 1:
+            linear, variance = self.render(samples_per_pixel, seed=seed,
+                                           output="linear",
+                                           with_variance=True, clamp=clamp,
+                                           device=device)
+        else:
+            linear = self.render(samples_per_pixel, seed=seed,
+                                 output="linear", clamp=clamp, device=device)
+        aovs = self.render_aovs(
+            aov_samples or min(16, max(4, samples_per_pixel)), seed=seed + 1,
+            device=device)
+        out = denoise(linear, aovs, variance=variance, device=device,
+                      **denoise_kwargs)
+        if output == "linear":
+            return out
+        img = srgb_linear_to_srgb(torch.from_numpy(out)).numpy()
+        return array_to_pil(img)
+
+    def render_ods(self, samples_per_pixel=8, **kwargs):
+        """A stereo 360 (omni-directional stereo) frame for VR playback:
+        see vr.py render_ods for the arguments (ipd, layout, output,
+        clamp, device, ...)."""
+        from ..vr import render_ods
+
+        return render_ods(self, samples_per_pixel, **kwargs)
 
     def get_distances(self, seed=0, device=None, output="pil"):
         """The depth AOV (sightpy scene.py:142-166): one camera sample a

@@ -6,7 +6,8 @@
 solid and record paths' tables, the thin-film rows and the texture atlas
 (words, scales, shapes, offsets, encodings); `scene_data_from_jax(data)`
 returns the wavefront's (`SceneData`), with the triangle clusters,
-corner attributes and instances of mesh scenes.  It never imports jax:
+corner attributes, instances and normal-map tangents of mesh scenes and
+the environment's alias tables.  It never imports jax:
 whatever the arrays are, numpy reads them.  The tests feed the
 reference's own tables to the port through it.
 """
@@ -19,9 +20,9 @@ import numpy as np
 import torch
 
 from .core.compile import (EnvSlot, GeometryTables, LightTables,
-                           MaterialTables, ObjectTables, ObjRecord, SceneData,
-                           SceneStatic, TexRef, build_solid_tables,
-                           light_table)
+                           MaterialTables, NormalMapRef, ObjectTables,
+                           ObjRecord, SceneData, SceneStatic, TexRef,
+                           build_solid_tables, light_table)
 
 _MAT_FIELDS = ("diffuse_color", "diffuse_ambient_weight", "glossy_color",
                "glossy_n_re", "glossy_n_im", "glossy_roughness",
@@ -35,7 +36,9 @@ def _refs(refs):
 
 
 def static_from_jax(static) -> SceneStatic:
-    """The port's SceneStatic from the JAX package's."""
+    """The port's SceneStatic from the JAX package's.  Custom materials
+    carry over as the JAX instances (their shaders are jnp code, so only
+    the structure is of use)."""
     records = tuple(ObjRecord(r.kind, int(r.mat_type), int(r.mat_slot),
                               int(r.max_depth), bool(r.mc), bool(r.shadow),
                               aa=getattr(r, "aa", None))
@@ -62,8 +65,14 @@ def static_from_jax(static) -> SceneStatic:
         tex_enc=tuple(int(v) for v in static.tex_enc),
         tf_selp=tuple(tuple(float(c) for c in p) for p in static.tf_selp),
         needs_uv=bool(static.needs_uv),
-        env_is=tuple(static.env_is_shape) != (0, 0),
-        n_tris=int(static.n_tris), tri_interp=bool(static.tri_interp))
+        n_tris=int(static.n_tris), tri_interp=bool(static.tri_interp),
+        normal_maps=tuple(NormalMapRef(int(r.obj), int(r.tex),
+                                       float(r.repeat), r.basis_kind,
+                                       int(r.local_id), bool(r.bilinear))
+                          for r in static.normal_maps),
+        env_is_shape=tuple(int(v) for v in static.env_is_shape),
+        custom_mats=tuple(static.custom_mats),
+        custom_fp=tuple(static.custom_fp))
 
 
 def _tensors(cls, src):
@@ -80,10 +89,10 @@ def _tensors(cls, src):
 
 def scene_data_from_jax(data) -> SceneData:
     """The port's SceneData from the JAX package's: every geometry table
-    (clusters, corner attributes and instances included) but the
-    normal-map tangents, and no environment alias tables (both ROADMAP.md
-    item 5)."""
+    (clusters, corner attributes, instances and normal-map tangents
+    included) and the environment's alias tables."""
     f32 = lambda x: torch.from_numpy(np.array(np.asarray(x), np.float32))
+    i32 = lambda x: torch.from_numpy(np.array(np.asarray(x), np.int32))
     return SceneData(
         geom=_tensors(GeometryTables, data.geom),
         obj=_tensors(ObjectTables, data.obj),
@@ -92,7 +101,9 @@ def scene_data_from_jax(data) -> SceneData:
         is_center=f32(data.is_center), is_radius=f32(data.is_radius),
         textures=tuple(f32(t) for t in data.textures),
         ambient_color=f32(data.ambient_color),
-        scene_n_re=f32(data.scene_n_re), scene_n_im=f32(data.scene_n_im))
+        scene_n_re=f32(data.scene_n_re), scene_n_im=f32(data.scene_n_im),
+        env_is_prob=f32(data.env_is_prob), env_is_alias=i32(data.env_is_alias),
+        env_is_pdf=f32(data.env_is_pdf))
 
 
 def tables_from_jax(static, data):

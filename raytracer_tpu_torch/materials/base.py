@@ -3,8 +3,9 @@
 Counterpart of raytracer_tpu/materials/base.py: the constructors take the
 same keyword arguments and hold parameters only; the shading math lives in
 the kernels (ops/solid_trace.py, ops/record_trace.py) and the wavefront's
-blocks (materials/shade.py).  The type ids are
-the JAX package's, so compiled tables carry over unchanged.
+blocks (materials/shade.py), or for a CustomMaterial in its own `shade`.
+The type ids are the JAX package's, so compiled tables carry over
+unchanged.
 """
 
 from __future__ import annotations
@@ -25,15 +26,69 @@ MAT_CUSTOM = 7
 
 
 class Material:
+    """Base: an optional tangent-space normal map (sightpy
+    material.py:11-40).  normalmap: an (H, W, 3) array or an image path,
+    set through `set_normalmap`."""
+
     mat_type = MAT_NONE
 
     def __init__(self, normalmap=None):
-        if normalmap is not None:
-            raise NotImplementedError(
-                "normal maps are not ported yet (ROADMAP.md 'Modules to "
-                "port' item 5, wavefront C)")
         self.normalmap = None
+        self.normalmap_repeat = 1.0
+        self.normalmap_bilinear = False
+        if normalmap is not None:
+            self.set_normalmap(normalmap)
         self.assigned_primitive = None
+
+    def set_normalmap(self, normalmap, repeat=1.0, filter="nearest"):
+        """Perturb the shading normal by this map, fetched at the hit's uv
+        `repeat` times over; filter "nearest" or "bilinear"."""
+        if isinstance(normalmap, np.ndarray):
+            self.normalmap = np.asarray(normalmap, dtype=np.float32)
+        else:
+            from ..utils.image_io import load_image
+
+            self.normalmap = load_image(normalmap, subdir_hint="normalmaps")
+        self.normalmap_repeat = float(repeat)
+        if filter not in ("nearest", "bilinear"):
+            raise ValueError(
+                f"filter must be 'nearest' or 'bilinear', got {filter!r}")
+        self.normalmap_bilinear = filter == "bilinear"
+
+
+class CustomMaterial(Material):
+    """A user's material: subclass and implement `shade(ctx) -> ShadeOut`.
+
+    The wavefront's hook (raytracer_tpu CustomMaterial): `shade` receives
+    a ShadeCtx (core/integrator.py) describing the hit state of the whole
+    wavefront (hit points ctx.P, shading normals ctx.N, ctx.uv, incoming
+    directions ctx.D, ...) and returns a ShadeOut (materials/shade.py;
+    start from `default_shade_out(ctx)` and set the fields it needs): the
+    radiance at the hit (`add`), the throughput factor (`beta_mult`) and
+    the continuation ray.  Write it in torch over (N, ...) tensors on the
+    rays' device; the integrator keeps the result only on the rays that
+    hit this material.
+
+    Random numbers: the JAX hook's ctx.key has no torch counterpart.  Here
+    ctx.generator is the chunk's torch.Generator; a shader draws from it
+    (torch.rand(n, generator=ctx.generator, device=ctx.P.device)), and the
+    integrator calls the custom shaders once a bounce each, in slot order,
+    after the built-in blocks' draws, so the same seed gives the same
+    image.  Draw the same count whatever the rays hit, or repeated renders
+    stop being bit-equal.
+
+    Plain-python parameters (numbers, strings, flat tuples) are part of
+    the compile's fingerprint (`compile._custom_param_fp`); arrays and
+    other objects count by identity, so assign a new array rather than
+    change one in place.  Scenes with a CustomMaterial render on the
+    wavefront only, never through a kernel.
+    """
+
+    mat_type = MAT_CUSTOM
+
+    def shade(self, ctx):
+        raise NotImplementedError(
+            "subclass CustomMaterial and implement shade(ctx) -> ShadeOut")
 
 
 class Emissive(Material):

@@ -12,9 +12,8 @@ keeps each ray's own type:
 Where a JAX block draws from its threefry key (diffuse :340-342, the hero
 channel :436, refractive :459, thin film :537), the block here takes the
 draws as tensor arguments, which the integrator draws from the chunk's
-generator; each block is thus a pure function of its inputs.  The
-environment importance-sampling branch of the diffuse mixture is
-ROADMAP.md item 5.
+generator; each block is thus a pure function of its inputs.  A CustomMaterial
+shades in its own `shade(ctx)`, starting from `default_shade_out`.
 """
 
 from __future__ import annotations
@@ -46,8 +45,10 @@ class ShadeOut:
     did_split: Any = None  # (N,) bool: consumed a deterministic split bit
 
 
-def _zeros_out(ctx):
-    """No emission, unit throughput, the path ends (shade.py:52)."""
+def default_shade_out(ctx):
+    """A neutral ShadeOut: no emission, unit throughput, the path ends
+    (shade.py:52).  Custom shaders start from it and replace the fields
+    they set (dataclasses.replace, or by assignment)."""
     n = ctx.P.shape[0]
     f = torch.zeros((n, 3), dtype=ctx.P.dtype, device=ctx.P.device)
     b = torch.zeros((n,), dtype=torch.bool, device=ctx.P.device)
@@ -55,6 +56,9 @@ def _zeros_out(ctx):
                     new_dir=ctx.D, new_n_re=ctx.n_re, new_n_im=ctx.n_im,
                     cont=b, is_reflection=b, is_transmission=b, is_diffuse=b,
                     did_split=b)
+
+
+_zeros_out = default_shade_out
 
 
 def _split_branch(ctx, cont):
@@ -273,8 +277,10 @@ def shade_glossy(ctx):
 
 
 def shade_diffuse(ctx, u, pick=None):
-    """Monte-Carlo Lambertian over the cosine / light-cap mixture
-    (shade.py:316); at most 2 diffuse bounces a path.
+    """Monte-Carlo Lambertian over the cosine / light-cap / environment
+    mixture (shade.py:316); at most 2 diffuse bounces a path.  The
+    environment component samples the alias tables of an
+    importance-sampled Panorama (SceneStatic.env_is_shape).
 
     u: (u_mix, u_phi, u_r2), each (N,), the block's uniforms (the
     stratified ctx.strat_u replace them at a path's first diffuse bounce);
@@ -282,11 +288,6 @@ def shade_diffuse(ctx, u, pick=None):
     when the scene has targets.
     """
     mats, data, static = ctx.data.mats, ctx.data, ctx.static
-    if static.env_is:
-        # the mixture's environment component needs the alias tables
-        raise NotImplementedError(
-            "environment importance sampling is not ported yet: ROADMAP.md "
-            "'Modules to port' item 5 (wavefront C)")
     N = ctx.N
     out = _zeros_out(ctx)
     diff_color = _slot_color(mats.diffuse_color, ctx.mat_slot, ctx.uv,
@@ -295,7 +296,17 @@ def shade_diffuse(ctx, u, pick=None):
     if ctx.strat_u is not None:
         first = ctx.diffuse_reflections == 0
         u = tuple(torch.where(first, s, i) for s, i in zip(ctx.strat_u, u))
-    if static.n_is_targets > 0:
+    if tuple(static.env_is_shape) != (0, 0):
+        # cosine, caps and the environment: the env component sends rays
+        # toward the map's bright cells
+        w = _g1(mats.diffuse_ambient_weight, ctx.mat_slot)
+        env_tabs = (data.env_is_prob, data.env_is_alias, data.env_is_pdf,
+                    tuple(static.env_is_shape))
+        d, pdf = rng.mixed_diffuse_sample(
+            None, N, nudged,
+            data.is_center if static.n_is_targets > 0 else None,
+            data.is_radius, env_tabs, w, uniforms=u, pick=pick)
+    elif static.n_is_targets > 0:
         w = _g1(mats.diffuse_ambient_weight, ctx.mat_slot)
         d, pdf = rng.mixed_cosine_caps_sample(
             None, N, nudged, data.is_center, data.is_radius, w, uniforms=u,

@@ -83,8 +83,15 @@ def test_out_of_slice_scenes_raise():
     # is looked up on the asset path and not found
     with pytest.raises(FileNotFoundError, match="sky.hdr"):
         sc.add_Background("sky.hdr")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.Diffuse(diff_color=T.rgb(1, 1, 1), normalmap=np.zeros((2, 2, 3)))
+    # normal maps construct now (tests/test_torch_normal_maps.py); on a
+    # disc the compile raises, as in the JAX package
+    for m in (J, T):
+        bad = emissive(m)
+        bad.add(m.Disc(center=m.vec3(0, 0, -4), radius=0.5,
+                       material=m.Diffuse(diff_color=m.rgb(1, 1, 1),
+                                          normalmap=np.zeros((2, 2, 3)))))
+        with pytest.raises(ValueError, match="not supported on Disc"):
+            (jax_compile if m is J else compile_scene)(bad)
 
     # discs, cylinders and triangles compile now, in the JAX object order
     mat = T.Emissive(color=T.rgb(1, 1, 1))

@@ -32,7 +32,8 @@ from raytracer_tpu_torch.geometry.primitive import _parse_obj_full
 from raytracer_tpu_torch.interop import scene_data_from_jax, tables_from_jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_wavefront_compile import one_torch_thread  # noqa: E402,F401
+from test_torch_wavefront_compile import (jax_native,  # noqa: E402,F401
+                                          one_torch_thread)
 import torch_mesh  # noqa: E402
 
 
@@ -277,14 +278,22 @@ def test_instanced_routes_and_always_raises(obj_dir):
 
 
 def test_what_still_raises(obj_dir):
-    """Normal maps on meshes wait for ROADMAP.md item 5; an empty group
-    and a non-mesh group raise as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.Glossy(diff_color=T.rgb(1, 1, 1), n=T.vec3(1.5, 1.5, 1.5),
-                 roughness=0.1, spec_coeff=0.2, diff_coeff=0.8,
-                 normalmap=np.zeros((4, 4, 3), np.float32))
+    """A normal map on a mesh without vt records, an empty group and a
+    non-mesh group raise as in the JAX package."""
     path = obj_dir / "ico0.obj"
     torch_mesh.write_icosphere_obj(path, 0)
+    for m in (J, T):
+        sc = m.Scene()
+        sc.add_Camera(look_from=m.vec3(0, 0, 3), look_at=m.vec3(0, 0, 0),
+                      screen_width=4, screen_height=4)
+        sc.add(m.TriangleMesh(str(path), center=m.vec3(0, 0, 0),
+                              material=m.Glossy(
+                                  diff_color=m.rgb(1, 1, 1),
+                                  n=m.vec3(1.5, 1.5, 1.5), roughness=0.1,
+                                  spec_coeff=0.2, diff_coeff=0.8,
+                                  normalmap=np.zeros((4, 4, 3), np.float32))))
+        with pytest.raises(ValueError, match="needs vt texture coordinates"):
+            (jax_compile if m is J else compile_scene)(sc)
     mesh = T.TriangleMesh(str(path), center=T.vec3(0, 0, 0),
                           material=T.Emissive(color=T.rgb(1, 1, 1)))
     sc = T.Scene()

@@ -38,7 +38,8 @@ from raytracer_tpu_torch.interop import scene_data_from_jax, static_from_jax
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_mesh_compile import (beach_ball, four_instances,  # noqa: E402
                                      icosphere)
-from test_torch_wavefront_compile import one_torch_thread  # noqa: E402,F401
+from test_torch_wavefront_compile import (jax_native,  # noqa: E402,F401
+                                          one_torch_thread)
 
 N_RAYS = 4096
 T_RTOL = 1e-5

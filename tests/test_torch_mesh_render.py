@@ -34,7 +34,8 @@ from raytracer_tpu_torch.core import compile as tcompile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_mesh_compile import four_instances  # noqa: E402
-from test_torch_wavefront_compile import one_torch_thread  # noqa: E402,F401
+from test_torch_wavefront_compile import (jax_native,  # noqa: E402,F401
+                                          one_torch_thread)
 from test_torch_wavefront_render import _z_hold  # noqa: E402
 import torch_mesh  # noqa: E402
 

@@ -50,6 +50,7 @@ from raytracer_tpu.core.compile import compile_scene as jax_compile
 from raytracer_tpu.ops.pallas_record import _record_call, _replay
 from raytracer_tpu_torch.core.camera import cam_vec
 from raytracer_tpu_torch.core.compile import compile_scene
+from raytracer_tpu_torch.core.scene import route
 from raytracer_tpu_torch.interop import tables_from_jax
 from raytracer_tpu_torch.ops import record_trace as rt
 from raytracer_tpu_torch.ops.replay import replay
@@ -179,7 +180,9 @@ def test_cpu_tensors_take_the_plain_version():
 def test_out_of_slice_scenes_raise_before_work():
     """Dispersion, triangles and the other projections now run through
     the record path; a bad sampler, projection or device raises
-    ValueError, and a normal map (ROADMAP.md item 5) NotImplementedError."""
+    ValueError, and a normal-mapped scene is outside the record kernel's
+    gate, as in the JAX package (normal maps perturb the sampled
+    directions), so it renders on the wavefront."""
     sc = torch_textured.example2(16, 8)
     static, tables, settings = sc._settings_for_render()
     cam = cam_vec(sc.camera.params())
@@ -213,10 +216,15 @@ def test_out_of_slice_scenes_raise_before_work():
     L, n = rt.record_trace_chunk(seed, tri_static, tri_tables,
                                  cam_vec(js.camera.params()), 8, 8, 2, 4)
     assert float(L.sum()) > 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.Glossy(diff_color=T.rgb(1, 1, 1), roughness=0.2, spec_coeff=0.3,
-                 diff_coeff=0.7, n=T.vec3(1.5, 1.5, 1.5),
-                 normalmap=np.zeros((2, 2, 3)))
+    nm = torch_textured.example2(16, 8)
+    nm.scene_primitives[0].material.set_normalmap(np.zeros((2, 2, 3)))
+    nm_static, _ = compile_scene(nm)
+    assert not nm_static.pallas_tex_ok and not nm_static.pallas_ok
+    assert route(nm_static, nm.settings) == "wavefront"
+    jnm = torch_textured.example2(16, 8, m=J)
+    jnm.scene_primitives[0].material.set_normalmap(np.zeros((2, 2, 3)))
+    j_static, _ = jax_compile(jnm)
+    assert (j_static.pallas_ok, j_static.pallas_tex_ok) == (False, False)
 
 
 def test_kernel_wrapper_checks_its_inputs():

@@ -8,6 +8,7 @@ texture files are written into tmp_path, as tests/test_scene_io.py does.
 
 import copy
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,9 @@ import raytracer_tpu_torch as T
 from raytracer_tpu.core.compile import compile_scene as jax_compile
 from raytracer_tpu_torch.core.compile import compile_scene
 from raytracer_tpu_torch.interop import tables_from_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_wavefront_compile import jax_native  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 EXAMPLE = REPO / "examples" / "example_scene.json"

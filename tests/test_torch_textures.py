@@ -185,8 +185,8 @@ def test_ndarray_scenes_need_no_pillow(monkeypatch):
 def test_env_importance_sampling_stays_off_the_record_path():
     """An importance-sampled Panorama is the wavefront's (the JAX gate
     sends it there): without a Diffuse material nothing samples it and the
-    scene renders there; with one, the port refuses it, naming the ROADMAP
-    item of the environment's alias tables."""
+    scene renders there; with one, the diffuse mixture samples its alias
+    tables (tests/test_torch_env_is.py holds them against JAX)."""
     def scene(m):
         sc = torch_textured.example3(8, 6, m=m)
         sc.scene_primitives.pop()
@@ -203,8 +203,10 @@ def test_env_importance_sampling_stays_off_the_record_path():
     sc = scene(T)
     sc.add(T.Sphere(material=T.Diffuse(diff_color=T.rgb(0.5, 0.5, 0.5)),
                     center=T.vec3(0, 0, -3), radius=0.5))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sc.render(samples_per_pixel=1, device="cpu")
+    static, _ = t_compile.compile_wavefront(sc)
+    assert static.env_is_shape == (32, 64)
+    img = sc.render(samples_per_pixel=1, device="cpu", output="linear")
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
 
 
 @pytest.fixture(scope="module")

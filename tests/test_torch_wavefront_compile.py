@@ -12,7 +12,9 @@ sin, cos and atan2).
 """
 
 import dataclasses
+import fcntl
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -35,6 +37,7 @@ from raytracer_tpu_torch.core.compile import (TRI_CLUSTER_THRESHOLD,
 from raytracer_tpu_torch.core.scene import route
 from raytracer_tpu_torch.interop import scene_data_from_jax
 
+REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_scenes import (cornell, glass, is_diffuse,  # noqa: E402
                                lights_and_slots, lit_textures, textured_scene,
@@ -53,6 +56,40 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native():
+    """The JAX package's native mesh library, loaded, in every module that
+    compiles a JAX mesh scene or calls it.
+
+    raytracer_tpu/native builds _mesh_native.so with g++ straight onto its
+    final path at first use and latches a failed build or load for the
+    life of the process; test workers that start on a fresh checkout
+    together build it at the same moment, and a worker that loads a
+    half-written file would take the median-split / pure-Python fallback
+    for good (another leaf order, other tables).  So the port's workers
+    take turns under a file lock and retry the load (clearing the latch)
+    until it succeeds, while a JAX test worker's g++ may still be writing
+    the file; then it must be available."""
+    from raytracer_tpu import native as jnative
+
+    lock = REPO / "build" / "jax_native.lock"
+    lock.parent.mkdir(exist_ok=True)
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            deadline = time.monotonic() + 60.0
+            while jnative._lib is None:
+                jnative._load_failed = False
+                if (jnative._load() is not None
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.5)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    assert jnative.available()
+    return jnative
 
 
 def grid49(m):
