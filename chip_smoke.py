@@ -119,6 +119,26 @@ checkout and drives both kernel paths and the wavefront:
   examples/example_scene.json --spp 16` as processes on the card.  Each
   part prints its wall and peak memory.  `python3 chip_smoke.py
   --features` runs the build and this phase alone;
+- diff.py and multi-device rendering (raytracer_tpu_torch/diff.py,
+  parallel/): differentiable_render of examples/torch_inverse_rendering.py's
+  scene at 96x72 x 8 spp (forward and forward + backward walls and peak
+  memory, the IoR gradient against a central difference within rtol
+  0.05, two backward passes compared and their difference printed);
+  Cornell 400x400 x 256 spp over a 4x1 mesh of cuda:0 shards (K1 on each:
+  4 launches a chunk, the first shard chunk bit for bit against its plain
+  version, image and regions within 4 standard errors of the unsharded
+  render, the walls side by side; at eight more seeds the seed-averaged
+  difference within 4 standard errors of its scatter); a 1x1 mesh
+  bit-equal to the unsharded render; Cornell 100x100 over a 2x2 mesh (the wavefront a band) within 4
+  standard errors; an emissive scene across 1x1, 4x1 and 2x2 against the
+  unsharded render pixel by pixel (1e-6); F1: one Glossy sphere under
+  1,200 point lights (53,220 B of tables) through K1 and its textured
+  variant through K2, opted in past 48 KB, each first chunk bit for bit
+  against its plain version, with the bytes, blocks an SM and chunk time;
+  two gloo processes on cuda:0 (tests/torch_multihost_runner.py, each
+  with a timeout) whose frames equal each other and one process's.
+  `python3 chip_smoke.py --diff-mesh` runs the build and this phase
+  alone;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
   ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
@@ -751,6 +771,7 @@ def slice_phases(torch, dev, cornell_img):
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
+    from raytracer_tpu_torch.parallel import sharded as tsharded
     from torch_cornellbox import build_cornell
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -765,7 +786,7 @@ def slice_phases(torch, dev, cornell_img):
         arguments as Scene.render passed them) is held against the plain
         version.  Returns fn's result, the (solid, record) launches and
         the wall seconds."""
-        real = {w: getattr(tscene, w) for w in wrappers}
+        real = {w: getattr(tsharded, w) for w in wrappers}
         first = {}
 
         def spy(w):
@@ -775,7 +796,7 @@ def slice_phases(torch, dev, cornell_img):
             return call
 
         for w in wrappers:
-            setattr(tscene, w, spy(w))
+            setattr(tsharded, w, spy(w))
         try:
             st.solid_trace_chunk.launches = 0
             rt.record_trace_chunk.launches = 0
@@ -787,7 +808,7 @@ def slice_phases(torch, dev, cornell_img):
             n = (st.solid_trace_chunk.launches, rt.record_trace_chunk.launches)
         finally:
             for w in wrappers:
-                setattr(tscene, w, real[w])
+                setattr(tsharded, w, real[w])
         totals[0] += n[0]
         totals[1] += n[1]
         for i, w in enumerate(wrappers):
@@ -1657,6 +1678,7 @@ def features_phase(torch, dev, cornell_img):
     from raytracer_tpu_torch.core import scene as scene_mod
     from raytracer_tpu_torch.core.compile import compile_wavefront
     from raytracer_tpu_torch.core.scene import route
+    from raytracer_tpu_torch.parallel import sharded as sharded_mod
     from raytracer_tpu_torch.utils.colour import srgb_linear_to_srgb
     from torch_cornellbox import build_cornell
 
@@ -1680,7 +1702,7 @@ def features_phase(torch, dev, cornell_img):
                                                           else (0, 0)),
                 "env_is: alias grid")
         (img, var), n, first, wall, peak = spied(
-            torch, scene_mod, ("record_trace_chunk",), lambda: sc.render(
+            torch, sharded_mod, ("record_trace_chunk",), lambda: sc.render(
                 ENV_IS_SPP, output="linear", with_variance=True, device=dev,
                 seed=3))
         _, n_chunks = scene_mod.plan_chunks(ENV_IS_SPP * sc._diffuse_fan(),
@@ -1731,7 +1753,7 @@ def features_phase(torch, dev, cornell_img):
     sc = build_cornell(DENOISE_W, DENOISE_W)
     fan = sc._diffuse_fan()
     dn, n, first, wall, peak = spied(
-        torch, scene_mod, ("solid_trace_chunk", "record_trace_chunk"),
+        torch, sharded_mod, ("solid_trace_chunk", "record_trace_chunk"),
         lambda: sc.render_denoised(DENOISE_SPP, output="linear", device=dev))
     raw = sc.render(DENOISE_SPP, output="linear", device=dev)
     chunk, n_chunks = scene_mod.plan_chunks(DENOISE_SPP * fan, DENOISE_W,
@@ -1824,6 +1846,289 @@ def features_phase(torch, dev, cornell_img):
     return tuple(launches), tuple(errs)
 
 
+DIFF_W, DIFF_H, DIFF_SPP = 96, 72, 8      # the inverse-rendering scene
+FD_EPS, FD_RTOL = 1e-3, 0.05              # tests/test_diff.py's check
+SMALL_W, SMALL_H, SMALL_SPP = 100, 100, 16   # Cornell over a 2x2 mesh
+F1_W, F1_H, F1_SPP, F1_LIGHTS = 160, 120, 4, 1200
+MP_TIMEOUT = 300                          # each spawned process
+MESH_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)     # the 4x1 Cornell hold over seeds
+
+
+def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
+    """diff.py and multi-device rendering on the card, one line a part:
+    differentiable_render of the inverse-rendering scene (forward and
+    forward + backward walls, peak memory beside one forward chunk's, the
+    IoR gradient against a central difference, two backward passes
+    compared); Cornell at the main path's size over a 4x1 mesh of cuda:0
+    shards (K1 on each: launches = 4 x chunks, the first shard chunk bit
+    for bit against its plain version, image and regions within 4
+    standard errors of the unsharded render, wall beside it; at eight more
+    seeds the seed-averaged difference within 4 standard errors of its
+    scatter, beside two unsharded renders' as calibration); a 1x1 mesh
+    bit-equal to the unsharded render; a 2x2 mesh (the wavefront on each
+    band) within 4 standard errors; an emissive scene pixel-equal across
+    1x1, 4x1 and 2x2; F1: the 1,200-light scene through K1 and its
+    textured variant through K2 past 48 KB of shared memory, each first
+    chunk bit for bit against its plain version, with the opted-in bytes,
+    blocks an SM and chunk time; two gloo processes on cuda:0 whose
+    frames agree with each other and with one process.  Returns the
+    (solid, record) launches in these runs and the max abs errors of
+    their held chunks."""
+    import os
+    import socket
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_features
+    from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops import record_trace as rt
+    from raytracer_tpu_torch.ops import solid_trace as st
+    from raytracer_tpu_torch.parallel import sharded as sharded_mod
+    from raytracer_tpu_torch.parallel.multihost import render_multihost
+    from raytracer_tpu_torch.parallel.sharded import make_mesh
+    from torch_cornellbox import build_cornell
+    from torch_inverse_rendering import TRUE_N, build_scene
+
+    t_phase = time.perf_counter()
+    launches, errs = [0, 0], [0.0, 0.0]
+
+    # ---- gradients through the wavefront ----
+    fn, data = differentiable_render(build_scene(TRUE_N, DIFF_W, DIFF_H),
+                                     DIFF_SPP, seed=0, device=dev)
+    n0 = data.mats.refr_n_re
+
+    def loss(n):
+        return torch.mean(fn(update_materials(data, refr_n_re=n)) ** 2)
+
+    def measured(f):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    def grad():
+        x = n0.clone().requires_grad_(True)
+        return torch.autograd.grad(loss(x), x)[0]
+
+    with torch.no_grad():
+        fn(data)                                    # warm-up
+        img, fwd_s, fwd_gib = measured(lambda: fn(data))
+    g1, fb_s, fb_gib = measured(grad)
+    g2, fb2_s, _ = measured(grad)
+    with torch.no_grad():
+        e = torch.zeros_like(n0)
+        e[0, 0] = FD_EPS
+        fd = float((loss(n0 + e) - loss(n0 - e)) / (2 * FD_EPS))
+    same = bool(torch.equal(g1, g2))
+    gdiff = float((g1 - g2).abs().max())
+    rel = gdiff / max(float(g1.abs().max()), 1e-30)
+    print(f"diff: differentiable_render {DIFF_W}x{DIFF_H} x {DIFF_SPP} spp "
+          f"(inverse-rendering scene, one chunk) | forward {fwd_s:.4f} s, peak "
+          f"{fwd_gib:.3f} GiB | forward + backward {fb_s:.4f} s ({fb2_s:.4f} "
+          f"s again), peak {fb_gib:.3f} GiB ({fb_gib / max(fwd_gib, 1e-9):.1f}x "
+          f"the forward chunk's) | d loss / d refr_n_re[0,0] {float(g1[0, 0]):.6e}"
+          f", central difference {fd:.6e} (eps {FD_EPS}) | two backward passes "
+          f"bit-equal {same}, max abs diff {gdiff:.3e} ({rel:.3e} of the "
+          f"largest)", flush=True)
+    require(bool(torch.isfinite(img).all()), "diff: non-finite image")
+    require(bool(torch.isfinite(g1).all()), "diff: non-finite gradient")
+    require(float(g1.abs().max()) > 1e-5, "diff: the gradient is zero")
+    require(bool(np.isclose(fd, float(g1[0, 0]), rtol=FD_RTOL)),
+            f"diff: gradient {float(g1[0, 0])} vs central difference {fd}")
+    del fn, data, img, g1, g2
+    torch.cuda.empty_cache()
+
+    # ---- Cornell over a 4x1 mesh of cuda:0 shards: K1 on each ----
+    sc = build_cornell(W, H)
+    m41 = make_mesh(4, 1, [dev] * 4)
+    (img4, stats4), n, first, wall4, peak4 = spied(
+        torch, sharded_mod, ("solid_trace_chunk",), lambda: sc.render(
+            SPP, output="linear", return_stats=True, mesh=m41))
+    eff_dev = -(-SPP * sc._diffuse_fan() // 4)
+    chunk_dev, n_chunks = scene_mod.plan_chunks(eff_dev, W, H)
+    require(n == (4 * n_chunks, 0), f"4x1 Cornell: launches {n}, want "
+            f"{4 * n_chunks} K1")
+    launches[0] += n[0]
+    errs[0] = max(errs[0], hold_chunk(torch, "Cornell 4x1, first shard chunk",
+                                      True, first["solid_trace_chunk"]))
+    st.solid_trace_chunk.launches = 0
+    _, _, wall4b = timed_render(torch, dev, sc, SPP, mesh=m41)
+    launches[0] += st.solid_trace_chunk.launches
+    var = 2 * chunk_var(torch, dev, sc, SPP, solid=True)
+    line = z_hold("Cornell 4x1 vs unsharded", img4, cornell_img, var, W, H)
+    print(f"mesh: Cornell {W}x{H} x {SPP} spp over 4x1 cuda:0 shards, "
+          f"{n_chunks} chunks of 4 x {chunk_dev} spp ({stats4['samples']} "
+          f"samples), {n[0]} K1 launches | wall {wall4:.4f} s, {wall4b:.4f} s "
+          f"again, unsharded {cornell_wall:.4f} s | peak {peak4:.2f} GiB | "
+          f"{line}", flush=True)
+    require(bool(np.isfinite(img4).all()), "4x1 Cornell: non-finite image")
+
+    # ---- the 4x1 hold over seeds: sharded against unsharded at each seed,
+    # beside two unsharded renders of other seeds (no bias possible there)
+    # as the calibration of the same statistic ----
+    pairs = {"4x1 vs unsharded": [], "unsharded vs unsharded": []}
+    st.solid_trace_chunk.launches = 0
+    for s in MESH_SEEDS:
+        a = sc.render(SPP, output="linear", seed=s, mesh=m41)
+        b = sc.render(SPP, output="linear", seed=s, device=dev)
+        c = sc.render(SPP, output="linear", seed=s + 1000, device=dev)
+        require(all(bool(np.isfinite(x).all()) for x in (a, b, c)),
+                f"Cornell seed {s}: non-finite image")
+        pairs["4x1 vs unsharded"].append(image_regions(a, W, H)
+                                         - image_regions(b, W, H))
+        pairs["unsharded vs unsharded"].append(image_regions(b, W, H)
+                                               - image_regions(c, W, H))
+    launches[0] += st.solid_trace_chunk.launches
+    parts, ts = [], {}
+    for name, d in pairs.items():
+        d = np.stack(d)                             # (seeds, regions + 1)
+        z = np.abs(d) / np.sqrt(var)
+        # the mean difference over seeds against its scatter: a bias shows
+        # here as sqrt(seeds) times its per-seed size
+        t = ts[name] = (np.abs(d.mean(0))
+                        / (d.std(0, ddof=1) / np.sqrt(len(d))))
+        parts.append(f"{name}: per seed image z " + ", ".join(
+            f"{x:.2f}" for x in z[:, -1]) + " | regions max z " + ", ".join(
+            f"{x:.2f}" for x in z[:, :-1].max(1)) + f" | over the seeds "
+            f"image t {t[-1]:.2f}, regions max t {t[:-1].max():.2f}")
+    print(f"mesh: Cornell {W}x{H} x {SPP} spp at seeds {list(MESH_SEEDS)} | "
+          + " | ".join(parts), flush=True)
+    require((ts["4x1 vs unsharded"] < 4).all(),
+            f"Cornell 4x1 over seeds: t {ts['4x1 vs unsharded']}")
+
+    # ---- a 1x1 mesh: the unsharded render bit for bit ----
+    st.solid_trace_chunk.launches = 0
+    img1 = sc.render(SPP, output="linear", mesh=make_mesh(1, 1, [dev]))
+    launches[0] += st.solid_trace_chunk.launches
+    same1 = bool(np.array_equal(img1, cornell_img))
+    require(same1, "1x1 mesh: not the unsharded image")
+
+    # ---- a 2x2 mesh: the wavefront on each band ----
+    sc = build_cornell(SMALL_W, SMALL_H)
+    st.solid_trace_chunk.launches = 0
+    k_img, _, k_wall = timed_render(torch, dev, sc, SMALL_SPP, seed=4)
+    launches[0] += st.solid_trace_chunk.launches
+    (w_img, _), n, _, w_wall, w_peak = spied(
+        torch, sharded_mod, ("solid_trace_chunk",), lambda: sc.render(
+            SMALL_SPP, output="linear", return_stats=True, seed=4,
+            mesh=make_mesh(2, 2, [dev] * 4)))
+    require(n == (0, 0), f"2x2 Cornell: kernel launches {n}")
+    wave = build_cornell(SMALL_W, SMALL_H)
+    wave.settings = T.RenderSettings(use_pallas="never")
+    var = (chunk_var(torch, dev, sc, SMALL_SPP, solid=True)
+           + chunk_var(torch, dev, wave, SMALL_SPP))
+    line2 = z_hold("Cornell 2x2 vs unsharded", w_img, k_img, var, SMALL_W,
+                   SMALL_H)
+
+    # ---- an emissive scene across meshes ----
+    esc = emissive_scene(GRID_W, GRID_H)
+    ref = esc.render(EMISSIVE_SPP, output="linear", seed=1, device=dev)
+    eq = {}
+    for shape in ((1, 1), (4, 1), (2, 2)):
+        st.solid_trace_chunk.launches = 0
+        im = esc.render(EMISSIVE_SPP, output="linear", seed=1,
+                        mesh=make_mesh(*shape, [dev] * (shape[0] * shape[1])))
+        launches[0] += st.solid_trace_chunk.launches
+        eq[shape] = (float((np.abs(im - ref) <= 1e-6).all(axis=-1).mean()),
+                     bool(np.array_equal(im, ref)))
+    print(f"mesh: 1x1 Cornell {W}x{H} x {SPP} spp bit-equal to the unsharded "
+          f"render {same1} | Cornell {SMALL_W}x{SMALL_H} x {SMALL_SPP} spp over "
+          f"2x2 cuda:0 shards (the wavefront a band) {w_wall:.4f} s, peak "
+          f"{w_peak:.2f} GiB, unsharded (K1) {k_wall:.4f} s | {line2} | emissive "
+          f"box {GRID_W}x{GRID_H} x {EMISSIVE_SPP} spp against the unsharded "
+          f"render: " + ", ".join(
+              f"{a}x{b} within 1e-6 {v[0]:.6f} (bit-equal {v[1]})"
+              for (a, b), v in eq.items()), flush=True)
+    require(eq[(1, 1)][1], "emissive 1x1: not the unsharded image")
+    require(all(v[0] >= 0.999 for v in eq.values()),
+            f"emissive across meshes: {eq}")
+
+    # ---- F1: tables past 48 KB of shared memory ----
+    cinfo = st.kernel_info(build_cornell(W, H)._settings_for_render()[1]
+                           .to(dev))
+    parts = []
+    for textured in (False, True):
+        sc = torch_features.many_lights(F1_W, F1_H, F1_LIGHTS, textured)
+        static, tables, settings = sc._settings_for_render()
+        path = scene_mod.route(static, settings)
+        require(path == ("record" if textured else "solid"),
+                f"many lights: route {path}")
+        wname = "record_trace_chunk" if textured else "solid_trace_chunk"
+        (img, _), n, first, wall, _ = spied(
+            torch, sharded_mod, (wname,), lambda: sc.render(
+                F1_SPP, output="linear", return_stats=True, device=dev))
+        k = 1 if textured else 0
+        require(n[k] >= 1 and n[1 - k] == 0, f"many lights: launches {n}")
+        require(bool(np.isfinite(img).all()), "many lights: non-finite image")
+        launches[k] += n[k]
+        args = first[wname]
+        errs[k] = max(errs[k], hold_chunk(
+            torch, f"{F1_LIGHTS} lights{' textured' if textured else ''}, "
+            "first chunk", not textured, args))
+        info = (rt.kernel_info(static, args[2]) if textured
+                else st.kernel_info(args[1]))
+        require(info["smem"] > 48 * 1024 and info["blocks_per_sm"] >= 1,
+                f"many lights: {info}")
+        wrap = rt.record_trace_chunk if textured else st.solid_trace_chunk
+        wrap(*args)                                 # warm-up
+        ms = cuda_ms(lambda: wrap(*args), 5)
+        spp = args[-5]
+        parts.append(f"{'K2' if textured else 'K1'} {info['smem']} B opted in "
+                     f"(card maximum {info['smem_optin_max']} B), "
+                     f"{info['blocks_per_sm']} blocks an SM, {n[k]} launches, "
+                     f"render {wall:.4f} s, chunk {spp} spp x {F1_W}x{F1_H} "
+                     f"{ms:.3f} ms")
+    print(f"F1: one Glossy sphere under {F1_LIGHTS} point lights, "
+          f"{F1_W}x{F1_H} x {F1_SPP} spp | " + " | ".join(parts)
+          + f" | Cornell ({cinfo['smem']} B, not opted in) "
+          f"{cinfo['blocks_per_sm']} blocks an SM", flush=True)
+
+    # ---- two gloo processes on cuda:0 ----
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_multihost_runner as runner
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    WORK.mkdir(parents=True, exist_ok=True)
+    out = str(WORK / "multihost")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_multihost_runner.py"),
+         str(rank), "2", str(port), out, "cuda"], env=dict(os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mp_wall = time.perf_counter() - t0
+    require(all(p.returncode == 0 for p in procs),
+            "two processes failed:\n" + "\n".join(x[-2000:] for x in logs))
+    # one seed (0): each rank's file holds one frame
+    f0, f1 = np.load(out + ".rank0.npy")[0], np.load(out + ".rank1.npy")[0]
+    one = render_multihost(runner.scene(T), 8, seed=0, mesh=runner.mesh(dev),
+                           device=dev)
+    same01, same1p = bool(np.array_equal(f0, f1)), bool(np.array_equal(f0, one))
+    print(f"multihost: two gloo processes on cuda:0, a 4x2 mesh of 16x16 x 8 "
+          f"spp, {mp_wall:.1f} s | rank frames equal {same01} | equal to one "
+          f"process {same1p} | image mean {f0.mean():.6f} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    require(same01 and same1p, "two-process frames disagree")
+    return tuple(launches), tuple(errs)
+
+
 def main():
     import torch
 
@@ -1855,6 +2160,15 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s | {' | '.join(build_lines(cuda_build.build_log))}",
           flush=True)
+
+    if "--diff-mesh" in sys.argv[1:]:
+        # that phase alone (after the build); its references are the
+        # unsharded 256-spp Cornell rendered here, and its wall
+        sc = build_cornell(W, H)
+        sc.render(SPP, output="linear", device=dev)
+        ref, _, wall = timed_render(torch, dev, sc, SPP)
+        diff_mesh_phase(torch, dev, ref, wall)
+        return 0
 
     if "--features" in sys.argv[1:]:
         # that phase alone (after the build), for working on it; its
@@ -2004,6 +2318,15 @@ def main():
     record_row["launches"] += f_record
     solid_row["max_abs_err"] = max(solid_row["max_abs_err"], f_serr)
     record_row["max_abs_err"] = max(record_row["max_abs_err"], f_rerr)
+    torch.cuda.empty_cache()
+
+    # ---- diff.py and multi-device rendering, F1 ----
+    (d_solid, d_record), (d_serr, d_rerr) = diff_mesh_phase(
+        torch, dev, cornell_img, wall)
+    solid_row["launches"] += d_solid
+    record_row["launches"] += d_record
+    solid_row["max_abs_err"] = max(solid_row["max_abs_err"], d_serr)
+    record_row["max_abs_err"] = max(record_row["max_abs_err"], d_rerr)
     torch.cuda.empty_cache()
 
     # ---- the Hopper probes, and the render kernels' bounds (P2) ----

@@ -283,9 +283,41 @@ def fly(scene, t):
         [-0.9 + 0.55 * t, 0.05 + 0.2 * t - 0.25 * t * t, -0.8], np.float32)
 
 
+def many_lights(width=160, height=120, n_lights=1200, textured=False,
+                m=None):
+    """A Glossy sphere lit by `n_lights` dim point lights on a spiral
+    around it: 1,200 lights take 53,220 bytes of the solid kernel's shared
+    memory, past the 48 KB a block gets without opting in.  textured: the
+    sphere's colour is the checker image, so the scene takes the record
+    kernel."""
+    m = _package(m)
+    sc = m.Scene(ambient_color=m.rgb(0.02, 0.02, 0.02))
+    sc.add_Camera(look_from=m.vec3(0, 0, 3), look_at=m.vec3(0, 0, 0),
+                  screen_width=width, screen_height=height, field_of_view=40)
+    k = np.arange(n_lights)
+    phi = k * 2.399963229728653            # the golden angle
+    z = 1.0 - (k + 0.5) / n_lights * 2.0
+    r = np.sqrt(1.0 - z * z)
+    w = 1.5 / n_lights
+    for x, y, zz, i in zip(r * np.cos(phi), r * np.sin(phi), z, k):
+        sc.add_PointLight(pos=m.vec3(3 * x, 3 * y, 3 * zz + 1.0),
+                          color=m.rgb(w * (0.6 + 0.4 * (i % 3 == 0)),
+                                      w * (0.6 + 0.4 * (i % 3 == 1)),
+                                      w * (0.6 + 0.4 * (i % 3 == 2))))
+    col = m.image(checker(64, 8), repeat=2.0) if textured else m.rgb(0.8, 0.7,
+                                                                      0.6)
+    sc.add(m.Sphere(material=m.Glossy(diff_color=col,
+                                      n=m.vec3(1.5 + 0.1j, 1.5 + 0.1j,
+                                               1.5 + 0.1j),
+                                      roughness=0.2, spec_coeff=0.3,
+                                      diff_coeff=0.8),
+                    center=m.vec3(0, 0, 0), radius=1.0))
+    return sc
+
+
 SCENES = {"env_is": env_is, "custom_material": custom_material,
           "normal_mapped": normal_mapped, "vr": vr,
-          "motion_blur": motion_blur}
+          "motion_blur": motion_blur, "many_lights": many_lights}
 
 if __name__ == "__main__":
     name = sys.argv[1] if len(sys.argv) > 1 else "env_is"

@@ -25,11 +25,15 @@ sampling, the variance of the mean, previews, `Scene.render_environment`,
 JSON scenes (`scene_io`), Radiance `.hdr` files, sightpy's sampling API
 (`core/rng.py`, `utils/random.py`), the AOV planes (`render_aovs`), the
 à-trous denoiser (`denoise`, `Scene.render_denoised`), stereo 360 frames
-(`render_ods`), animation and motion blur (`animation.py`) and the
-command line (`python -m raytracer_tpu_torch`, cli.py).  The public
-names follow raytracer_tpu's star-import surface; what waits for a
-later slice is listed in NOT_YET_PORTED with its ROADMAP.md item.  This
-package imports neither jax nor raytracer_tpu.
+(`render_ods`), animation and motion blur (`animation.py`), the
+command line (`python -m raytracer_tpu_torch`, cli.py), differentiable
+rendering (the `diff` module: autograd through the wavefront) and
+multi-device rendering (the `parallel` package: `Scene.render(mesh=...)`
+over a grid of devices, and one render across processes with
+torch.distributed).  The public names follow raytracer_tpu's star-import
+surface, and `diff` and `parallel` are its submodules of the same names;
+nothing of the JAX package waits for a later slice (NOT_YET_PORTED is
+empty).  This package imports neither jax nor raytracer_tpu.
 """
 
 import numpy as np
@@ -74,13 +78,8 @@ sRGB_to_sRGB_linear = srgb_to_srgb_linear
 load_image_as_linear_sRGB = load_image_as_linear_srgb
 
 # what of raytracer_tpu this package does not have yet, each with the
-# slice that brings it: its `diff` module (autograd through the
-# wavefront); the `mesh=` arguments of the renders (multi-device
-# rendering, ROADMAP.md item 8) raise where they are given
-NOT_YET_PORTED = {
-    "diff": ("ROADMAP.md 'Modules to port' item 7 (diff.py: autograd "
-             "through the wavefront)"),
-}
+# ROADMAP.md item that brings it: nothing since items 7 and 8
+NOT_YET_PORTED = {}
 
 
 def __getattr__(name):

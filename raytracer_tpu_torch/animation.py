@@ -10,9 +10,12 @@ then its chunks trace through the path Scene.render would take
 kernel (`record_trace_chunk`) on CUDA, their plain versions when the
 caller asks for the CPU, and the wavefront past the gates.  The scene's
 structure must stay the same across time points (`_FramePlan`
-raises, as the JAX package does).  Frames render one after another on
-one device; the JAX package's frame-axis sharding over a device mesh
-(`mesh=`) is ROADMAP.md "Modules to port" item 8.
+raises, as the JAX package does).  With `mesh=` (a 1-D "frame" mesh,
+`frame_mesh`, or any mesh of parallel/sharded.py, whose devices are
+taken in order) frame or slice j renders on device j mod the mesh's
+size, as the JAX package's frame-axis sharding does; its sums come back
+to `device` and add up in frame order, so a frame (or a motion-blurred
+image) is the one a single device renders.
 """
 
 from __future__ import annotations
@@ -26,11 +29,43 @@ import torch
 from .core.camera import cam_vec, projection_mask
 from .core.compile import compile_all, derive_max_bounces, derive_split_k
 from .core.integrator import RenderSettings
-from .core.ray import no_mesh, resolve_device
+from .core.ray import resolve_device
 from .core.safemath import div
 from .ops.record_trace import record_trace_chunk
 from .ops.solid_trace import solid_trace_chunk
 from .utils.colour import srgb_linear_to_srgb
+
+
+def frame_mesh(devices=None):
+    """A 1-D "frame" mesh over `devices` (animation.py:39; default every
+    visible CUDA device); a list may repeat a device."""
+    from .parallel.sharded import Mesh
+
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("frame_mesh found no CUDA device; pass "
+                               "devices=")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = [torch.device(d) for d in devices]
+    return Mesh(grid, ("frame",))
+
+
+def _mesh_devices(mesh, device, what):
+    """(the devices frames take in turn, the output device)."""
+    if mesh is None:
+        device = resolve_device(device, what)
+        return [device], device
+    if not hasattr(mesh, "devices"):
+        raise ValueError(f"{what}: mesh must be a grid of devices "
+                         "(animation.frame_mesh, parallel.sharded.make_mesh)")
+    devs = [torch.device(d) for d in
+            np.asarray(mesh.devices, dtype=object).reshape(-1)]
+    for d in devs:
+        resolve_device(d, what)
+    return devs, resolve_device(device if device is not None else devs[0],
+                                what)
 
 
 class _FramePlan:
@@ -45,11 +80,13 @@ class _FramePlan:
     bit for bit.  The rows' sample offsets follow `strat`."""
 
     def __init__(self, scene, samples_per_pixel, update_scene, t_first,
-                 seed, device, n_frames):
+                 seed, device, n_frames, devices=None):
         from .core.scene import MAX_RAYS_PER_CHUNK, chunk_seeds, route
 
         self.scene, self.update_scene = scene, update_scene
         self.device = device
+        self.devices = devices or [device]
+        self.frame_device = device      # where render() traces now
         self.W = scene.camera.screen_width
         self.H = scene.camera.screen_height
         update_scene(scene, t_first)
@@ -70,8 +107,9 @@ class _FramePlan:
         self.seeds = chunk_seeds(seed, n_frames * self.n_chunks, self.chunk)
 
     def frame_tables(self, t):
-        """The scene at time t, compiled and uploaded once: (tables for
-        the path, camera)."""
+        """The scene at time t, compiled and uploaded once to the frame's
+        device: (tables for the path, camera)."""
+        device = self.frame_device
         self.update_scene(self.scene, t)
         static, tables, data = compile_all(self.scene)
         if static != self.static0:
@@ -80,9 +118,9 @@ class _FramePlan:
                 "points (object/material/light counts must stay "
                 "constant; only traced parameters may animate)")
         if self.path == "wavefront":
-            return data.to(self.device), self.scene.camera.params()
-        return (tables.to(self.device),
-                cam_vec(self.scene.camera.params()).to(self.device))
+            return data.to(device), self.scene.camera.params()
+        return (tables.to(device),
+                cam_vec(self.scene.camera.params()).to(device))
 
     def seed_row(self, frame, c, advance_per_frame):
         """[chunk seed, R2 rotation seed, first sample] of chunk c of
@@ -96,8 +134,10 @@ class _FramePlan:
 
     def chunk_sum(self, tables, cam, row):
         """One chunk's radiance summed over its samples, (H * W, 3),
-        non-finite samples scrubbed."""
+        non-finite samples scrubbed, on the frame's device."""
         from .core.scene import wavefront_chunk
+
+        device = self.frame_device
 
         s = self.settings
         args = (s.max_bounces, s.split_k, s.sampler, s.projection)
@@ -106,7 +146,7 @@ class _FramePlan:
             L, _ = wavefront_chunk(row, self.static0, tables, cam, s, W, H,
                                    self.chunk)
         else:
-            seed = torch.from_numpy(np.asarray(row, np.int32)).to(self.device)
+            seed = torch.from_numpy(np.asarray(row, np.int32)).to(device)
             if self.path == "solid":
                 L, _ = solid_trace_chunk(seed, tables, cam, W, H, self.chunk,
                                          *args)
@@ -117,14 +157,21 @@ class _FramePlan:
         return L.view(self.chunk, H * W, 3).sum(dim=0)
 
     def render(self, frame, t, advance_per_frame):
-        """The radiance sum of every chunk of the scene at time t."""
-        tables, cam = self.frame_tables(t)
-        acc = None
-        for c in range(self.n_chunks):
-            part = self.chunk_sum(tables, cam,
-                                  self.seed_row(frame, c, advance_per_frame))
-            acc = part if acc is None else acc + part
-        return acc
+        """The radiance sum of every chunk of the scene at time t, traced
+        on the frame's device (frame mod the devices) and returned on the
+        plan's."""
+        from .parallel.sharded import _on
+
+        self.frame_device = self.devices[frame % len(self.devices)]
+        with _on(self.frame_device):
+            tables, cam = self.frame_tables(t)
+            acc = None
+            for c in range(self.n_chunks):
+                part = self.chunk_sum(tables, cam,
+                                      self.seed_row(frame, c,
+                                                    advance_per_frame))
+                acc = part if acc is None else acc + part
+        return acc.to(self.device)
 
     def mask(self, acc):
         pmask = projection_mask(self.settings.projection, self.W, self.H)
@@ -146,12 +193,13 @@ def render_frames(scene, samples_per_pixel, times, update_scene, seed=0,
     it at that time: yields (H, W, 3) uint8 arrays (animation.py:226).
     Every frame draws its samples from the same R2 lattice (stable
     anti-aliasing, no shimmer).  device: as for Scene.render (default
-    "cuda"; "cpu" when asked).  mesh: ROADMAP.md item 8, raises."""
-    no_mesh(mesh, "render_frames")
-    device = resolve_device(device, "render_frames")
+    "cuda"; "cpu" when asked; with a mesh its first device).  mesh: a
+    frame mesh (`frame_mesh`): frame j renders on its device j mod the
+    mesh's size, the same image it renders alone."""
+    devices, device = _mesh_devices(mesh, device, "render_frames")
     times = list(times)
     plan = _FramePlan(scene, samples_per_pixel, update_scene, times[0], seed,
-                      device, len(times))
+                      device, len(times), devices)
     for i, t in enumerate(times):
         yield plan.tonemap(plan.render(i, t, 0), plan.spp_frame)
 
@@ -169,11 +217,12 @@ def render_motion_blur(scene, samples_per_pixel, update_scene,
     slices=None takes min(32, spp); samples_per_pixel rounds up to a
     multiple of slices.  Returns a PIL image (output="srgb") or the
     (H, W, 3) float32 linear mean (output="linear").  device: as for
-    Scene.render.  mesh: ROADMAP.md item 8, raises."""
+    Scene.render.  mesh: a frame mesh (`frame_mesh`): slice j traces on
+    its device j mod the mesh's size; the slices' sums add up on `device`
+    in slice order, so the image is the one-device image bit for bit."""
     from PIL import Image
 
-    no_mesh(mesh, "render_motion_blur")
-    device = resolve_device(device, "render_motion_blur")
+    devices, device = _mesh_devices(mesh, device, "render_motion_blur")
     slices = (max(1, min(32, samples_per_pixel)) if slices is None
               else min(slices, samples_per_pixel))
     slice_spp = -(-samples_per_pixel // slices)
@@ -181,7 +230,7 @@ def render_motion_blur(scene, samples_per_pixel, update_scene,
     dt = (t1 - t0) / slices
     times = [t0 + (j + 0.5) * dt for j in range(slices)]
     plan = _FramePlan(scene, slice_spp, update_scene, times[0], seed, device,
-                      slices)
+                      slices, devices)
     acc = None
     for j, t in enumerate(times):
         part = plan.render(j, t, plan.spp_frame)
@@ -201,9 +250,10 @@ def _frame_times(fps, start_time, final_time):
 
 def create_animation(scene, samples_per_pixel, fps, start_time, final_time,
                      update_scene, name, frames_dir="./frames",
-                     progress=False, device=None):
+                     progress=False, device=None, mesh=None):
     """Render frames to PNG files <frames_dir>/<name>_<i>.png (sightpy
-    animation.py:6-31); returns the frames a second."""
+    animation.py:6-31); returns the frames a second.  mesh: as for
+    render_frames."""
     from PIL import Image
 
     out = Path(frames_dir)
@@ -211,7 +261,8 @@ def create_animation(scene, samples_per_pixel, fps, start_time, final_time,
     times = _frame_times(fps, start_time, final_time)
     t0 = time.time()
     for i, frame in enumerate(render_frames(scene, samples_per_pixel, times,
-                                            update_scene, device=device)):
+                                            update_scene, mesh=mesh,
+                                            device=device)):
         Image.fromarray(frame).save(str(out / f"{name}_{i}.png"))
         if progress:
             print(f"frame {i + 1}/{len(times)} {time.time() - t0:.2f}s",

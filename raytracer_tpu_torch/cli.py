@@ -20,8 +20,9 @@ any other scene (the JAX package's, say) raises, naming the file.
 ``animate`` and ``render --motion-blur`` also need the file's
 ``update_scene(scene, t)``.  Every command renders on the CUDA device
 unless ``--device cpu`` asks for the CPU; ``--profile-dir`` writes a
-torch.profiler trace; ``--sharded`` (multi-device rendering) is
-ROADMAP.md "Modules to port" item 8 and raises.
+torch.profiler trace; ``--sharded`` renders over every visible CUDA
+device (``parallel.sharded.render_sharded``; one CPU shard with
+``--device cpu``).
 """
 
 from __future__ import annotations
@@ -120,17 +121,14 @@ def _cmd_render(args):
     sc, mod = _load_scene(args.scene, args.width, args.height)
     out = args.out or str(Path(args.scene).with_suffix(".png"))
     stats = None
-    if args.sharded:
-        from .core.ray import MULTI_DEVICE
-
-        raise SystemExit(f"--sharded is not ported yet: {MULTI_DEVICE}")
     custom_display = args.tonemap != "srgb" or args.exposure != 0.0
-    if custom_display and (args.hdr or args.motion_blur or args.denoise):
+    if custom_display and (args.hdr or args.sharded or args.motion_blur
+                           or args.denoise):
         raise SystemExit("--tonemap/--exposure apply to plain PNG renders "
-                         "only (not --hdr/--motion-blur/--denoise)")
-    if args.preview and (args.motion_blur or args.denoise):
+                         "only (not --hdr/--sharded/--motion-blur/--denoise)")
+    if args.preview and (args.sharded or args.motion_blur or args.denoise):
         raise SystemExit("--preview does not combine with "
-                         "--motion-blur/--denoise")
+                         "--sharded/--motion-blur/--denoise")
     t0 = time.time()
     if args.motion_blur:
         update = _update_fn(args, mod, "--motion-blur")
@@ -156,6 +154,27 @@ def _cmd_render(args):
             result.save(out)
         print(json.dumps({"out": out, "wall_s": round(wall, 3),
                           "spp": args.spp, "motion_blur": True}))
+        return
+    if args.sharded:
+        import numpy as np
+        import torch
+        from PIL import Image
+
+        for flag in ("denoise", "target_noise", "checkpoint", "profile_dir",
+                     "hdr", "clamp"):
+            if getattr(args, flag):
+                raise SystemExit(f"--sharded does not combine with --{flag}")
+        from .parallel.sharded import make_mesh, render_sharded
+
+        devices = [torch.device("cpu")] if args.device == "cpu" else None
+        a = np.asarray(render_sharded(sc, samples_per_pixel=args.spp,
+                                      mesh=make_mesh(devices=devices),
+                                      seed=args.seed))
+        wall = time.time() - t0
+        Image.fromarray((np.clip(a, 0, 1) * 255).astype(np.uint8)).save(out)
+        print(json.dumps({"out": out, "wall_s": round(wall, 3),
+                          "spp": args.spp, "sharded": True,
+                          "device": args.device}))
         return
     if args.denoise:
         for flag in ("target_noise", "checkpoint", "profile_dir"):
@@ -335,7 +354,8 @@ def main(argv=None):
                     help="write a torch.profiler trace here")
     pr.add_argument("--progress", action="store_true")
     pr.add_argument("--sharded", action="store_true",
-                    help="render over all local devices (not ported yet)")
+                    help="render over every visible CUDA device (one CPU "
+                         "shard with --device cpu)")
     pr.add_argument("--motion-blur", action="store_true",
                     help="integrate over an open shutter via the scene "
                          "file's update_scene(scene, t)")

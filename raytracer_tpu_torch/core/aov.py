@@ -9,8 +9,9 @@ the wavefront's intersection (`ray._first_hit_impl`, so mesh scenes go
 through the clustered sweep) and occlusion test, in plain torch on the
 scene's device; spp > 1 box-filters the planes over the camera's jitter.
 Passes larger than the port's 4 M-ray chunk go in chunks of samples, the
-R2 lattice continuing across them.  Multi-device passes (`mesh=`, the JAX
-package's `_sharded_aovs`) are ROADMAP.md "Modules to port" item 8.
+R2 lattice continuing across them.  With `mesh=` each shard of a grid
+of devices computes its sample slice of its band of rows (the JAX
+package's `_sharded_aovs`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..utils.constants import FARAWAY, MISS_THRESHOLD, NUDGE_EPS
 from . import rng as rng_mod
 from .camera import generate_rays
 from .compile import PACKED_SLOT_SHIFT
-from .ray import _first_hit_impl, no_mesh, resolve_device
+from .ray import _first_hit_impl, resolve_device
 
 
 def _albedo_at_hit(mat_type, mat_slot, uv, data, static):
@@ -106,6 +107,42 @@ def _ao_plane(O, D, data, static, generator, spp, n_pix, ao_samples,
     return ao.reshape(spp, n_pix).sum(dim=0)
 
 
+def _aov_sums(data, static, cam, W, H, spp, seed, strat, sample0, row0,
+              rows, ao_samples, dist, projection, device):
+    """The per-pixel sums of one pass over film rows [row0, row0 + rows)
+    and samples [sample0, sample0 + spp) of the R2 lattice rotated by
+    `strat` (None: the pass's own draw), on `device`: the jitter from a
+    generator seeded `seed` (its first draw is the pass's rotation seed),
+    the AO directions from another.  Samples go in chunks under the port's
+    4 M-ray cap."""
+    from .scene import MAX_RAYS_PER_CHUNK
+
+    n_pix = W * rows
+    chunk = max(1, min(spp, MAX_RAYS_PER_CHUNK // n_pix))
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    g_ao = torch.Generator(device=device).manual_seed(int(seed) * 4096 + 1)
+    # one R2 rotation for the whole pass, which continues across chunks
+    own = int(torch.randint(0, 2 ** 31 - 1, (), generator=g, device=device))
+    strat = own if strat is None else strat
+    out = None
+    for s0 in range(0, spp, chunk):
+        c = min(chunk, spp - s0)
+        O, D = generate_rays(g, cam, W, H, c, row0=row0, rows=rows,
+                             strat_seed=strat, sample0=sample0 + s0,
+                             projection=projection)
+        part = _aov_planes(O, D, data, static, c, n_pix)
+        if ao_samples:
+            part["ao"] = _ao_plane(O, D, data, static, g_ao, c, n_pix,
+                                   int(ao_samples), dist)
+        if out is None:
+            out = part
+        else:
+            for k, v in part.items():
+                if k != "obj_id":
+                    out[k] = out[k] + v
+    return out, own
+
+
 def render_aovs(scene, samples_per_pixel=1, seed=0, ao_samples=0,
                 ao_radius=None, mesh=None, device=None):
     """First-hit feature planes of `scene` (aov.py:183), numpy arrays:
@@ -123,44 +160,60 @@ def render_aovs(scene, samples_per_pixel=1, seed=0, ao_samples=0,
     directions at the first hit that escape within ao_radius (None: no
     limit); misses are 1.  seed seeds the passes' generators (the camera
     jitter's R2 rotation, the AO directions).  device: as for
-    Scene.render (default "cuda"; "cpu" when asked).  mesh: multi-device
-    passes are ROADMAP.md item 8 and raise.
+    Scene.render (default "cuda"; "cpu" when asked).  mesh: a ("sample",
+    "pixel") grid of devices (parallel.sharded.make_mesh), as the JAX
+    package's `_sharded_aovs` (aov.py:143): each shard computes its sample
+    slice of its band of rows on its own device, the sums are added in
+    shard order on `device` (default the mesh's first device), obj_id is
+    sample shard 0's; samples_per_pixel rounds up to whole sample shards.
     """
     from .compile import compile_wavefront
-    from .scene import MAX_RAYS_PER_CHUNK, chunk_seeds
+    from .scene import chunk_seeds
 
-    no_mesh(mesh, "render_aovs")
     if scene.camera is None:
         raise RuntimeError("call add_Camera() first")
-    device = resolve_device(device, "render_aovs")
     W, H = scene.camera.screen_width, scene.camera.screen_height
+    if mesh is not None:
+        from ..parallel.sharded import check_mesh, shard_seed
+
+        n_sample, n_pixel = check_mesh(mesh, H, "render_aovs")
+        if device is None:
+            device = mesh.devices[0, 0]
+    device = resolve_device(device, "render_aovs")
     static, data = compile_wavefront(scene)
     data = data.to(device)
     spp = int(samples_per_pixel)
-    n_pix = W * H
-    chunk = max(1, min(spp, MAX_RAYS_PER_CHUNK // n_pix))
     row = chunk_seeds(seed, 1, 1)[0]
-    g = torch.Generator(device=device).manual_seed(int(row[0]))
-    g_ao = torch.Generator(device=device).manual_seed(int(row[0]) * 4096 + 1)
-    # one R2 rotation for the whole pass, which continues across chunks
-    strat = int(torch.randint(0, 2 ** 31 - 1, (), generator=g, device=device))
     cam = scene.camera.params()
     dist = FARAWAY if ao_radius is None else float(ao_radius)
-    out = None
-    for s0 in range(0, spp, chunk):
-        c = min(chunk, spp - s0)
-        O, D = generate_rays(g, cam, W, H, c, strat_seed=strat, sample0=s0,
-                             projection=scene.camera.projection)
-        part = _aov_planes(O, D, data, static, c, n_pix)
-        if ao_samples:
-            part["ao"] = _ao_plane(O, D, data, static, g_ao, c, n_pix,
-                                   int(ao_samples), dist)
-        if out is None:
-            out = part
-        else:
-            for k, v in part.items():
-                if k != "obj_id":
-                    out[k] = out[k] + v
+    args = (ao_samples, dist, scene.camera.projection)
+    if mesh is None:
+        out, _ = _aov_sums(data, static, cam, W, H, spp, row[0], None, 0, 0,
+                           H, *args, device)
+    else:
+        spp_dev = -(-spp // n_sample)
+        spp = spp_dev * n_sample
+        rows = H // n_pixel
+        strat = None       # shard (0, 0)'s own draw: the unsharded pass's
+        bands = []
+        for p in range(n_pixel):
+            band = None
+            for s in range(n_sample):
+                dev = mesh.devices[s, p]
+                part, own = _aov_sums(data.to(dev), static, cam, W, H,
+                                      spp_dev, shard_seed(row[0], s, p),
+                                      strat, s * spp_dev, p * rows, rows,
+                                      *args, dev)
+                strat = own if strat is None else strat
+                part = {k: v.to(device) for k, v in part.items()}
+                if band is None:
+                    band = part      # obj_id: sample shard 0's
+                else:
+                    for k, v in part.items():
+                        if k != "obj_id":
+                            band[k] = band[k] + v
+            bands.append(band)
+        out = {k: torch.cat([b[k] for b in bands]) for k in bands[0]}
     out = {k: v.cpu().numpy() for k, v in out.items()}
     return _finish(out, float(spp), W, H, bool(ao_samples))
 

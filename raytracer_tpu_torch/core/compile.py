@@ -29,7 +29,7 @@ mesh, and triangle object ids are virtual (compile.py:1162-1400).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Any, Optional, Tuple
 
@@ -186,6 +186,13 @@ class SceneStatic:
     env_is_shape: Tuple[int, int] = (0, 0)
     custom_mats: Tuple[Any, ...] = ()
     custom_fp: Tuple[str, ...] = ()
+    # bytes of shared memory a block of the scene's kernel (the solid one
+    # if pallas_ok, else the record one if pallas_tex_ok) takes for its
+    # tables; 0 for a scene inside neither gate.  core/scene.py `route`
+    # sends a scene past ops/cuda_build.py SMEM_OPTIN_MAX to the wavefront.
+    # Derived from the tables (kernel_smem_bytes), so not compared: the
+    # JAX package's SceneStatic has no such field
+    kernel_smem: int = field(default=0, compare=False)
 
     @cached_property
     def kind_counts(self):
@@ -1611,6 +1618,8 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         _f(scene.ambient_color), _f(np.real(scene.n)), _f(np.imag(scene.n)),
         tf_rows, atlas, tex_scale, static.image_slots(),
         (len(dlts), len(plts), len(slts)), static=static)
+    static = dataclasses.replace(static,
+                                 kernel_smem=kernel_smem_bytes(static, tables))
     data = SceneData(
         geom=wgeom, obj=pack_objects(records, repeats),
         mats=MaterialTables(**{k: _t(v) for k, v in mats.items()}),
@@ -1623,6 +1632,19 @@ def compile_all(scene) -> Tuple[SceneStatic, SolidTables, SceneData]:
         env_is_alias=_t(env_is[1] if env_is else np.zeros((0,), I32), I32),
         env_is_pdf=_t(env_is[2] if env_is else np.zeros((0,), F32)))
     return static, tables, data
+
+
+def kernel_smem_bytes(static, tables):
+    """Bytes of shared memory a block of the kernel that renders the scene
+    takes for `tables` (ops/solid_trace.py and ops/record_trace.py
+    `_smem_bytes`); 0 for a scene inside neither kernel's gate."""
+    if static.pallas_ok:
+        from ..ops.solid_trace import _smem_bytes
+        return _smem_bytes(tables)
+    if static.pallas_tex_ok:
+        from ..ops.record_trace import _smem_bytes
+        return _smem_bytes(static, tables)
+    return 0
 
 
 def _env_importance(env_slots, env_rows):

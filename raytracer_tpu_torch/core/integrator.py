@@ -61,6 +61,9 @@ class RenderSettings:
     kernel (on the CPU its plain version) and any other scene on the
     wavefront; "always" raises where the gate fails; "never" takes the
     wavefront.
+    unroll: accepted for parity with the JAX package, where it is the
+    bounce scan's unroll factor (lax.scan); unused here, where the bounce
+    loop is a Python loop.
     """
 
     max_bounces: int = 8
@@ -69,6 +72,7 @@ class RenderSettings:
     sampler: str = "r2"
     projection: str = "pinhole"
     collect_stats: bool = False
+    unroll: int = 1
     use_pallas: str = "auto"
 
     def __post_init__(self):

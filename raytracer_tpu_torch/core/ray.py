@@ -17,17 +17,6 @@ import torch
 from ..utils.constants import MISS_THRESHOLD
 
 
-MULTI_DEVICE = ("ROADMAP.md 'Modules to port' item 8 (multi-device "
-                "rendering)")
-
-
-def no_mesh(mesh, what):
-    """Raise for a device mesh: multi-device rendering is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported yet: {MULTI_DEVICE}")
-
-
 def resolve_device(device, what="this call"):
     """torch.device of `device`; None means the CUDA device.  A CUDA
     device raises when there is none: the CPU is used only when asked

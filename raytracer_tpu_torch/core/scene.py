@@ -17,10 +17,10 @@ torch.profiler trace; `render_environment` bakes the scene into an
 equirect map, `get_distances` renders the depth AOV, `render_aovs` the
 first-hit feature planes (core/aov.py), `render_denoised` a frame
 filtered by them (denoise.py) and `render_ods` a stereo 360 frame
-(vr.py).
-
-Not ported yet: the `mesh=` argument (multi-device rendering, ROADMAP.md
-"Modules to port" item 8).
+(vr.py).  Every chunk runs through parallel/sharded.py's
+`build_sharded_chunk`: over the grid of devices given as `mesh=` (each
+shard traces its sample slice and pixel band, and the shards' sums are
+added in a fixed order), or over a 1x1 mesh of the render's device.
 """
 
 from __future__ import annotations
@@ -34,18 +34,17 @@ import torch
 from .. import lights as lights_mod
 from ..backgrounds.environment import Panorama, SkyBox
 from ..materials.base import MAT_DIFFUSE
-from ..ops.record_trace import record_trace_chunk
-from ..ops.solid_trace import solid_trace_chunk
+from ..ops.cuda_build import SMEM_OPTIN_MAX
 from ..utils.colour import (TONEMAP_OPERATORS, srgb_linear_to_srgb,
                             tonemap_display)
 from ..utils.image_io import array_to_pil
 from . import lds
-from .camera import Camera, cam_vec, generate_rays, projection_mask
+from .camera import Camera, generate_rays, projection_mask
 from .compile import (PALLAS_MAX_GROUPS, PALLAS_MAX_OBJECTS, compile_all,
                       compile_scene, compile_wavefront, derive_max_bounces,
                       derive_split_k)
 from .integrator import RenderSettings, trace, trace_distances
-from .ray import no_mesh, resolve_device
+from .ray import resolve_device
 from .vec import as_complex3, as_float3
 
 # cap on rays per traced chunk (raytracer_tpu/core/scene.py:42)
@@ -94,9 +93,14 @@ def route(static, settings):
     CUDA, its plain version on the CPU) or "wavefront"
     (raytracer_tpu/core/scene.py:168-181).  use_pallas "auto" takes the
     kernel whose gate the scene passes and the wavefront past both gates;
-    "always" raises there; "never" always takes the wavefront."""
+    "always" raises there; "never" always takes the wavefront.  Besides
+    the JAX package's gates, a kernel's tables must fit the shared memory
+    a block may opt in to (static.kernel_smem at most SMEM_OPTIN_MAX
+    bytes): a gate on the scene, the same on every device."""
     kernel = ("solid" if static.pallas_ok
               else "record" if static.pallas_tex_ok else None)
+    if kernel is not None and static.kernel_smem > SMEM_OPTIN_MAX:
+        kernel = None
     if settings.use_pallas == "never":
         return "wavefront"
     if kernel is None:
@@ -107,7 +111,8 @@ def route(static, settings):
                 f"{PALLAS_MAX_OBJECTS}, {static.n_is_targets} importance-"
                 "sampled targets of at most 8, at most "
                 f"{PALLAS_MAX_GROUPS} shading groups, no environment "
-                "importance sampling)")
+                f"importance sampling, tables of at most {SMEM_OPTIN_MAX} "
+                f"bytes of shared memory: {static.kernel_smem})")
         return "wavefront"
     return kernel
 
@@ -148,6 +153,39 @@ def wavefront_chunk(seed_row, static, data, cam, settings, width, height,
     L, stats = trace(g, O, D, data.scene_n_re, data.scene_n_im, data, static,
                      settings, pattern=pattern, strat_u=strat_u)
     return L, stats["rays_traced"]
+
+
+def wavefront_rows(seed_row, static, data, cam, settings, width, height, spp,
+                   row0=0, rows=None):
+    """One chunk of the film rows [row0, row0 + rows) through the
+    wavefront, in bands of rows where the chunk would pass
+    MAX_RAYS_PER_CHUNK rays (raytracer_tpu/core/scene.py:520-526), band b
+    drawing from its own generator (`wavefront_chunk`).  Returns (L (spp *
+    rows * width, 3), rays traced)."""
+    rows = height if rows is None else rows
+    band_rows = rows
+    if width * rows * spp > MAX_RAYS_PER_CHUNK:
+        band_rows = max(1, MAX_RAYS_PER_CHUNK // (width * spp))
+    parts = [wavefront_chunk(seed_row, static, data, cam, settings, width,
+                             height, spp, row0=row0 + r0,
+                             rows=min(band_rows, rows - r0), band=b)
+             for b, r0 in enumerate(range(0, rows, band_rows))]
+    if len(parts) == 1:
+        return parts[0]
+    L = torch.cat([Lb.view(spp, -1, 3) for Lb, _ in parts], dim=1).view(-1, 3)
+    return L, sum(c for _, c in parts)
+
+
+def _chunk_sums(L, spp, n_pix, clamp=None, with_sq=False):
+    """(per-pixel sum of the chunk's samples (n_pix, 3), sum of their
+    squares or None) of a chunk's radiance L (spp * n_pix, 3), with rare
+    non-finite samples (grazing-angle degeneracies) scrubbed and each
+    sample clamped at `clamp` (raytracer_tpu/core/scene.py:117-127)."""
+    L = torch.where(torch.isfinite(L), L, 0.0)
+    if clamp is not None:
+        L = torch.clamp_max(L, float(clamp))
+    L = L.view(spp, n_pix, 3)
+    return L.sum(dim=0), ((L * L).sum(dim=0) if with_sq else None)
 
 
 class Scene:
@@ -225,11 +263,11 @@ class Scene:
                checkpoint_every=4, profile_dir=None, target_noise=None,
                noise_check_every=4, output="pil", with_variance=False,
                clamp=None, tonemap="srgb", exposure=0.0, preview_path=None,
-               preview_every=4, device=None):
+               preview_every=4, mesh=None, device=None):
         """Render and return a PIL image (sightpy scene.py:71-140).
 
         The arguments are the JAX package's (raytracer_tpu/core/scene.py
-        render), less `mesh`, plus `device`.
+        render), plus `device`.
 
         samples_per_pixel: camera samples, each of which fans into the
         scene's `diffuse_rays` paths (see _diffuse_fan).
@@ -274,7 +312,24 @@ class Scene:
         return_stats: also return a dict with rays_traced, wall_s,
         samples, width, height and mrays_per_s (and noise_q99 when
         adaptive).
+        mesh: a ("sample", "pixel") grid of devices
+        (parallel.sharded.make_mesh): every chunk runs over it, each shard
+        tracing its sample slice and band of film rows on its device
+        (`build_sharded_chunk`); the shards' sums are added in a fixed
+        order on `device` (default the mesh's first device).  Every
+        option above works across the mesh; checkpoints record the mesh's
+        shape and resume only on an equal one.  batch_size becomes the
+        samples per chunk of one device, and samples_per_pixel rounds up
+        to whole sharded chunks (the JAX package's per-device plan).  With
+        no mesh the render is the same loop over a 1x1 mesh of `device`,
+        so a 1x1 mesh renders the unsharded image bit for bit.
         """
+        from ..parallel.sharded import build_sharded_chunk, check_mesh, make_mesh
+
+        if mesh is not None:
+            check_mesh(mesh, None, "Scene.render")
+            if device is None:
+                device = mesh.devices[0, 0]
         if profile_dir is not None:
             device = resolve_device(device, "Scene.render")
             from torch.profiler import (ProfilerActivity, profile,
@@ -291,7 +346,7 @@ class Scene:
                     return_stats, checkpoint_path, checkpoint_every, None,
                     target_noise, noise_check_every, output, with_variance,
                     clamp, tonemap, exposure, preview_path, preview_every,
-                    device)
+                    mesh, device)
         if output not in ("pil", "linear"):
             raise ValueError(f"output must be 'pil' or 'linear', got {output!r}")
         if tonemap not in TONEMAP_OPERATORS:
@@ -314,26 +369,26 @@ class Scene:
         path = route(static, settings)
         split_fan = 1 << settings.split_k
         eff_spp = samples_per_pixel * self._diffuse_fan() * split_fan
-        chunk, n_chunks = plan_chunks(eff_spp, W, H, split_fan, batch_size)
+        device = resolve_device(device, "Scene.render")
+        if mesh is None:
+            mesh = make_mesh(1, 1, [device])
+        n_sample, n_pixel = check_mesh(mesh, H, "Scene.render")
+        # the JAX package's per-device plan (scene.py:451-475): each device
+        # traces chunk_dev samples of its band a chunk
+        eff_dev = -(-eff_spp // n_sample)
+        chunk_dev, n_chunks = plan_chunks(eff_dev, W, H // n_pixel, split_fan,
+                                          batch_size)
+        chunk = chunk_dev * n_sample
         # the noise estimate needs >= 2 chunks (scene.py:478-479)
         adaptive = target_noise is not None and n_chunks >= 2
-
-        device = resolve_device(device, "Scene.render")
-        seeds_np = chunk_seeds(seed, n_chunks, chunk)
-        if path == "wavefront":
-            data = data.to(device)
-            cam = self.camera.params()
-            # film bands where even one chunk passes the ray cap
-            # (raytracer_tpu/core/scene.py:520-526)
-            band_rows = H
-            if W * H * chunk > MAX_RAYS_PER_CHUNK:
-                band_rows = max(1, MAX_RAYS_PER_CHUNK // (W * chunk))
-        else:
-            tables = tables.to(device)
-            cam = cam_vec(self.camera.params()).to(device)
-            seeds = torch.from_numpy(seeds_np).to(device)
-        trace_args = (settings.max_bounces, settings.split_k, settings.sampler,
-                      settings.projection)
+        share = getattr(mesh, "share", None)
+        if share is not None:
+            # a mesh across processes: process 0's tables on every one
+            tables, data = share(tables, data)
+        run = build_sharded_chunk(static, settings, mesh, W, H, chunk_dev,
+                                  with_variance, path)
+        run_chunk = run.stage(chunk_seeds(seed, n_chunks, chunk), tables, data,
+                              self.camera.params())
         acc = torch.zeros((H * W, 3), dtype=torch.float32, device=device)
         # second moment of the chunk means, for the noise estimate
         acc2 = (torch.zeros((H * W, 3), dtype=torch.float32, device=device)
@@ -346,6 +401,7 @@ class Scene:
         if checkpoint_path is not None:
             loaded = _load_checkpoint(checkpoint_path, H * W, chunk, seed,
                                       with_acc2=adaptive, clamp=clamp,
+                                      shards=(n_sample, n_pixel),
                                       device=device)
             # a checkpoint of more chunks than this render plans would be
             # divided by too few samples: restart instead
@@ -366,29 +422,12 @@ class Scene:
         chunks_done = start_chunk
         last_noise = None
         for i in range(start_chunk, n_chunks):
-            if path == "solid":
-                L, cnt = solid_trace_chunk(seeds[i], tables, cam, W, H, chunk,
-                                           *trace_args)
-            elif path == "record":
-                L, cnt = record_trace_chunk(seeds[i], static, tables, cam, W, H,
-                                            chunk, *trace_args)
-            else:
-                parts = [wavefront_chunk(seeds_np[i], static, data, cam,
-                                         settings, W, H, chunk, row0=r0,
-                                         rows=min(band_rows, H - r0), band=b)
-                         for b, r0 in enumerate(range(0, H, band_rows))]
-                L = torch.cat([Lb.view(chunk, -1, 3) for Lb, _ in parts],
-                              dim=1).view(-1, 3)
-                cnt = sum(c for _, c in parts)
-            # scrub rare non-finite samples (grazing-angle degeneracies)
-            L = torch.where(torch.isfinite(L), L, 0.0)
-            if clamp is not None:
-                L = torch.clamp_max(L, float(clamp))
-            L = L.view(chunk, H * W, 3)
-            L_sum = L.sum(dim=0)
+            out_c = run_chunk(i, clamp, device)
+            L_sum, L2_sum = out_c[0], (out_c[1] if with_variance else None)
+            cnt = out_c[-1]["rays_traced"]
             acc += L_sum
             if acc_ss is not None:
-                acc_ss += (L * L).sum(dim=0)
+                acc_ss += L2_sum
             if acc2 is not None:
                 m = L_sum / chunk_t
                 acc2 += m * m
@@ -402,7 +441,8 @@ class Scene:
             if checkpoint_path is not None and (
                     (i + 1) % checkpoint_every == 0 or i + 1 == n_chunks):
                 _save_checkpoint(checkpoint_path, acc, i + 1, chunk, seed,
-                                 acc2=acc2, clamp=clamp)
+                                 acc2=acc2, clamp=clamp,
+                                 shards=(n_sample, n_pixel))
             if preview_path is not None and i + 1 < n_chunks and (
                     (i + 1) % preview_every == 0):
                 pacc = acc if pmask is None else acc * pmask[:, None]
@@ -519,23 +559,29 @@ class Scene:
         the per-pixel variance and filter with the SVGF weight (needs two
         samples or more); clamp: as for render; denoise_kwargs go to
         denoise().  output: "pil" (sRGB image) or "linear" ((H, W, 3)
-        float32).  device: as for render.  mesh: ROADMAP.md item 8."""
+        float32).  device: as for render.  mesh: as for render; the render
+        and the AOV pass both run over it."""
         from ..denoise import denoise
 
-        no_mesh(mesh, "Scene.render_denoised")
+        if mesh is not None and device is None:
+            from ..parallel.sharded import check_mesh
+
+            check_mesh(mesh, None, "Scene.render_denoised")
+            device = mesh.devices[0, 0]
         device = resolve_device(device, "Scene.render_denoised")
         variance = None
         if variance_guided and samples_per_pixel * self._diffuse_fan() > 1:
             linear, variance = self.render(samples_per_pixel, seed=seed,
                                            output="linear",
                                            with_variance=True, clamp=clamp,
-                                           device=device)
+                                           mesh=mesh, device=device)
         else:
             linear = self.render(samples_per_pixel, seed=seed,
-                                 output="linear", clamp=clamp, device=device)
+                                 output="linear", clamp=clamp, mesh=mesh,
+                                 device=device)
         aovs = self.render_aovs(
             aov_samples or min(16, max(4, samples_per_pixel)), seed=seed + 1,
-            device=device)
+            mesh=mesh, device=device)
         out = denoise(linear, aovs, variance=variance, device=device,
                       **denoise_kwargs)
         if output == "linear":

@@ -708,10 +708,11 @@ static size_t record_trace_smem(int n_obj, int n_dif, int n_glo, int n_refr,
                           + (size_t)n_grp * (FT_ICOLS + FT_FCOLS));
 }
 
-// The kernel as built and as the card holds it: out[0..5] = registers a
+// The kernel as built and as the card holds it: out[0..6] = registers a
 // thread, local memory bytes a thread (stack and spills), blocks per SM
-// at `smem` bytes of dynamic shared memory, the SM count, K2_BLOCK,
-// K2_MIN_BLOCKS.
+// at `smem` bytes of dynamic shared memory (opted in past 48 KB), the SM
+// count, K2_BLOCK, K2_MIN_BLOCKS, and the card's opt-in maximum of
+// dynamic shared memory a block.
 extern "C" int record_trace_info(int smem, int* out) {
   cudaFuncAttributes attr;
   int dev = 0;
@@ -719,6 +720,10 @@ extern "C" int record_trace_info(int smem, int* out) {
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[6], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err == cudaSuccess) err = smem_opt_in(record_trace_kernel, (size_t)smem, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], record_trace_kernel,
                                                         K2_BLOCK, (size_t)smem);
@@ -760,6 +765,10 @@ extern "C" int record_trace_launch(
   p.count = reinterpret_cast<unsigned long long*>(count);
   const size_t smem = record_trace_smem(n_obj, n_dif, n_glo, n_refr, n_emi,
                                         n_tf, n_lrow, n_is, n_grp);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = smem_opt_in(record_trace_kernel, smem, dev);
+  if (err != cudaSuccess) return (int)err;
   const int grid = (p.n + K2_BLOCK - 1) / K2_BLOCK;
   LAUNCH(record_trace_kernel, grid, K2_BLOCK, smem,
          static_cast<cudaStream_t>(stream), p);

@@ -531,10 +531,11 @@ solid_trace_kernel(Params p) {
 
 }  // namespace
 
-// The kernel as built and as the card holds it: out[0..7] = registers a
+// The kernel as built and as the card holds it: out[0..8] = registers a
 // thread, local memory bytes a thread (stack and spills), blocks per SM
-// at `smem` bytes of dynamic shared memory, the SM count, K1_BLOCK,
-// K1_MIN_BLOCKS, K1_REFILL_MIN, K1_REFR_MIN.
+// at `smem` bytes of dynamic shared memory (opted in past 48 KB), the SM
+// count, K1_BLOCK, K1_MIN_BLOCKS, K1_REFILL_MIN, K1_REFR_MIN, and the
+// card's opt-in maximum of dynamic shared memory a block.
 extern "C" int solid_trace_info(int smem, int* out) {
   cudaFuncAttributes attr;
   int dev = 0;
@@ -542,6 +543,10 @@ extern "C" int solid_trace_info(int smem, int* out) {
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[8], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err == cudaSuccess) err = smem_opt_in(solid_trace_kernel, (size_t)smem, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], solid_trace_kernel,
                                                         K1_BLOCK, (size_t)smem);
@@ -594,10 +599,12 @@ extern "C" int solid_trace_launch(
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = smem_opt_in(solid_trace_kernel, smem, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solid_trace_kernel,
                                                         K1_BLOCK, smem);
   if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
   const long long want = ((long long)p.n + K1_BLOCK - 1) / K1_BLOCK;
   long long grid = (long long)sms * per_sm;
   if (grid > want) grid = want;

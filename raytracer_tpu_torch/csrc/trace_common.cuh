@@ -24,6 +24,29 @@
 
 namespace {
 
+// Dynamic shared memory a block gets without opting in.  Past it a kernel
+// must be opted in (smem_opt_in), up to the card's
+// cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB on the H100).
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
+
+// Let `kernel` take `smem` bytes of dynamic shared memory on device `dev`:
+// at SMEM_DEFAULT or less nothing is set, so such launches are what they
+// were; past it the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize
+// is raised to `smem`, and past the card's opt-in maximum this returns
+// cudaErrorInvalidValue.  Call it before an occupancy query or a launch at
+// that size.
+template <class K>
+cudaError_t smem_opt_in(K kernel, size_t smem, int dev) {
+  if (smem <= SMEM_DEFAULT) return cudaSuccess;
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 constexpr int BLOCK = 128;
 constexpr int GEOM_COLS = 24;
 constexpr int OBJ_COLS = 16;

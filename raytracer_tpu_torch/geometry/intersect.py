@@ -322,6 +322,15 @@ def _cluster_pairs(O, D, geom, limit, R):
                                   device=dev)]).t().contiguous()
     Dp = torch.cat([D, torch.ones((npad - n, 3), dtype=D.dtype,
                                   device=dev)]).t().contiguous()
+    with torch.no_grad():
+        # which pairs to sweep is piecewise constant in the scene's
+        # parameters: autograd records none of it (diff.py)
+        return _pair_search(Op, Dp, limit, geom, n, nt, R)
+
+
+def _pair_search(Op, Dp, limit, geom, n, nt, R):
+    """The body of _cluster_pairs after the padding (no autograd)."""
+    npad, dev = nt * R, Op.device
     lim = torch.cat([limit, torch.zeros((npad - n,), dtype=limit.dtype,
                                         device=dev)])
     C = geom.tri_cl_lo.shape[0]
@@ -330,7 +339,7 @@ def _cluster_pairs(O, D, geom, limit, R):
     lo = geom.tri_cl_lo.index_select(0, rec_of_row)
     hi = geom.tri_cl_hi.index_select(0, rec_of_row)
     keep = torch.empty((C, npad), dtype=torch.bool, device=dev)
-    minent = torch.empty((C, nt), dtype=O.dtype, device=dev)
+    minent = torch.empty((C, nt), dtype=Op.dtype, device=dev)
     g = max(1, BLOCK_ELEMS // (C * R))       # tiles whose boxes go at once
     for k0 in range(0, nt, g):
         k1 = min(nt, k0 + g)

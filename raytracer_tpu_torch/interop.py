@@ -22,7 +22,8 @@ import torch
 from .core.compile import (EnvSlot, GeometryTables, LightTables,
                            MaterialTables, NormalMapRef, ObjectTables,
                            ObjRecord, SceneData, SceneStatic, TexRef,
-                           build_solid_tables, light_table)
+                           build_solid_tables, kernel_smem_bytes,
+                           light_table)
 
 _MAT_FIELDS = ("diffuse_color", "diffuse_ambient_weight", "glossy_color",
                "glossy_n_re", "glossy_n_im", "glossy_roughness",
@@ -128,4 +129,6 @@ def tables_from_jax(static, data):
         port_static.image_slots(),
         (port_static.n_dir_lights, port_static.n_point_lights,
          port_static.n_spot_lights), static=port_static)
+    port_static = dataclasses.replace(
+        port_static, kernel_smem=kernel_smem_bytes(port_static, tables))
     return port_static, tables

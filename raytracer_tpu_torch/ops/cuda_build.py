@@ -39,6 +39,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 SMEM_LIMIT = 48 * 1024    # bytes of dynamic shared memory without opt-in
+# The most dynamic shared memory a block of the render kernels may take:
+# the H100's cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB).  Past
+# SMEM_LIMIT a launch opts its kernel in (trace_common.cuh `smem_opt_in`,
+# which reads the card's own limit); scenes whose tables pass this constant
+# are routed to the wavefront (core/scene.py `route`), on every device
+# alike.
+SMEM_OPTIN_MAX = 227 * 1024
 
 _libs = {}
 build_log = ""            # nvcc's output of the last build (ptxas -v lines)

@@ -46,7 +46,8 @@ from ..core.compile import (FT_BIL, FT_FCOLS, FT_ICOLS, FT_MODE,
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY,
                               MAT_REFRACTIVE, MAT_THINFILM)
 from ..utils.constants import MISS_THRESHOLD, WAVELENGTHS_NM
-from .cuda_build import SMEM_LIMIT, check_tensor, load_library, stream_of
+from .cuda_build import (SMEM_OPTIN_MAX, check_tensor, load_library,
+                         stream_of)
 from .replay import replay
 from .solid_trace import (PROJECTIONS, _cabs2, _cdiv, _cmul,
                           _csqrt, _cyl_local, _div, _normal, _normalize3,
@@ -588,14 +589,17 @@ def _smem_bytes(static, tables):
 def kernel_info(static, tables, lib=None):
     """The kernel as built and as the current card holds it with these
     tables: {registers, local_bytes (stack and spills a thread),
-    blocks_per_sm, sms, block, min_blocks}."""
-    info = (ctypes.c_int * 6)()
-    err = (lib or load_library()).record_trace_info(_smem_bytes(static, tables),
-                                                    info)
+    blocks_per_sm, sms, block, min_blocks, smem_optin_max (the card's
+    opt-in maximum of shared memory a block), smem (the bytes these tables
+    take, opted in past 48 KB)}."""
+    info = (ctypes.c_int * 7)()
+    smem = _smem_bytes(static, tables)
+    err = (lib or load_library()).record_trace_info(smem, info)
     if err != 0:
         raise RuntimeError(f"record_trace_info failed: CUDA error {err}")
     return dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms", "block",
-                     "min_blocks"), info))
+                     "min_blocks", "smem_optin_max"),
+                    info)) | {"smem": smem}
 
 
 def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
@@ -632,10 +636,11 @@ def _launch(seed_vec, static, tables, cam_vec, width, height, spp,
         if r[1] in rows_of and not 0 <= r[2] < rows_of[r[1]]:
             raise ValueError(f"object row {r} names a missing material slot")
     smem = _smem_bytes(static, tables)
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
+    if smem > SMEM_OPTIN_MAX:
+        # route() sends such scenes to the wavefront before any work
+        raise ValueError(
             f"scene tables need {smem} bytes of shared memory; the kernel "
-            f"takes at most {SMEM_LIMIT}")
+            f"takes at most {SMEM_OPTIN_MAX} (route() gates this)")
     n = spp * width * height
     if not (width >= 1 and height >= 1 and spp >= 1 and max_bounces >= 1
             and n < 2 ** 31):

@@ -42,7 +42,8 @@ from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_GLOSSY,
                               MAT_REFRACTIVE)
 from ..utils.constants import (FARAWAY, MISS_THRESHOLD, SKYBOX_DISTANCE,
                                WAVELENGTHS_NM)
-from .cuda_build import SMEM_LIMIT, check_tensor, load_library, stream_of
+from .cuda_build import (SMEM_OPTIN_MAX, check_tensor, load_library,
+                         stream_of)
 
 SAMPLERS = ("r2", "iid")
 # camera projections and their codes in the kernels (trace_common.cuh)
@@ -973,13 +974,17 @@ def _smem_bytes(tables):
 def kernel_info(tables, lib=None):
     """The kernel as built and as the current card holds it with these
     tables: {registers, local_bytes (stack and spills a thread),
-    blocks_per_sm, sms, block, min_blocks, refill_min, refr_min}."""
-    info = (ctypes.c_int * 8)()
-    err = (lib or load_library()).solid_trace_info(_smem_bytes(tables), info)
+    blocks_per_sm, sms, block, min_blocks, refill_min, refr_min,
+    smem_optin_max (the card's opt-in maximum of shared memory a block),
+    smem (the bytes these tables take, opted in past 48 KB)}."""
+    info = (ctypes.c_int * 9)()
+    smem = _smem_bytes(tables)
+    err = (lib or load_library()).solid_trace_info(smem, info)
     if err != 0:
         raise RuntimeError(f"solid_trace_info failed: CUDA error {err}")
     return dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms", "block",
-                     "min_blocks", "refill_min", "refr_min"), info))
+                     "min_blocks", "refill_min", "refr_min", "smem_optin_max"),
+                    info)) | {"smem": smem}
 
 
 def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
@@ -1015,10 +1020,11 @@ def _launch(seed_vec, tables, cam_vec, width, height, spp, max_bounces,
         raise ValueError(f"{len(hu_maxd)} dispersive groups; the kernel takes "
                          f"at most {MAX_HU_GROUPS}")
     smem = _smem_bytes(tables)
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
+    if smem > SMEM_OPTIN_MAX:
+        # route() sends such scenes to the wavefront before any work
+        raise ValueError(
             f"scene tables need {smem} bytes of shared memory; the kernel "
-            f"takes at most {SMEM_LIMIT}")
+            f"takes at most {SMEM_OPTIN_MAX} (route() gates this)")
     n = spp * width * height
     if not (width >= 1 and height >= 1 and spp >= 1 and max_bounces >= 1
             and n < 2 ** 31):

@@ -11,8 +11,9 @@ chunk, so their noise is correlated and ipd=0 gives two bit-identical
 eyes.  The jitter is i.i.d. (the generator's uniforms), so a zero-ipd
 frame matches Scene.render's equirect frame statistically, not bit for
 bit (that one uses the R2 lattice).  Settings come from scene.settings
-as Scene.render derives them.  Multi-device rendering (`mesh=`, the JAX
-package's `_build_ods_sharded`) is ROADMAP.md "Modules to port" item 8.
+as Scene.render derives them.  With `mesh=` (sample shards only, the JAX
+package's `_build_ods_sharded`) each sample shard traces its slice of
+every chunk on its own device and the slices are added in shard order.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from .core.compile import (compile_wavefront, derive_max_bounces,
                            derive_split_k)
 from .core.integrator import RenderSettings, trace
-from .core.ray import no_mesh, resolve_device
+from .core.ray import resolve_device
 from .core.safemath import div
 from .utils.colour import tonemap_display
 
@@ -127,10 +128,12 @@ def render_ods(scene, samples_per_pixel=8, ipd=0.064, seed=0,
     output: "pil" (8-bit sRGB image), "np" (uint8 array) or "linear"
     (float32 radiance).  operator / exposure: the display transform.
     clamp: optional per-sample radiance ceiling.  device: as for
-    Scene.render (default "cuda"; "cpu" when asked).  mesh: multi-device
-    rendering is ROADMAP.md item 8 and raises.
+    Scene.render (default "cuda"; "cpu" when asked).  mesh: a grid of
+    devices with one pixel shard (parallel.sharded.make_mesh(n, 1, ...)):
+    each sample shard traces its slice of every chunk, the slices summed
+    in shard order on `device` (default the mesh's first device);
+    samples_per_pixel rounds up to whole shards and pattern blocks.
     """
-    no_mesh(mesh, "render_ods")
     if scene.camera is None:
         raise ValueError("scene has no camera; call add_Camera first")
     if layout not in LAYOUTS:
@@ -156,6 +159,16 @@ def render_ods(scene, samples_per_pixel=8, ipd=0.064, seed=0,
         raise ValueError(f"invalid ODS frame size {W}x{H}")
     from .core.scene import MAX_RAYS_PER_CHUNK
 
+    n_sample = 1
+    if mesh is not None:
+        from .parallel.sharded import check_mesh, shard_seed
+
+        n_sample, n_pixel = check_mesh(mesh, None, "render_ods")
+        if n_pixel != 1:
+            raise ValueError("render_ods shards over the 'sample' axis "
+                             "only; use a mesh with pixel=1")
+        if device is None:
+            device = mesh.devices[0, 0]
     device = resolve_device(device, "render_ods")
     static, data = compile_wavefront(scene)
     data = data.to(device)
@@ -168,7 +181,10 @@ def render_ods(scene, samples_per_pixel=8, ipd=0.064, seed=0,
                               split_k=base.split_k or derive_split_k(static))
     split_fan = 1 << settings.split_k
     spp = spp * split_fan
-    chunk = max(1, min(spp, 128, MAX_RAYS_PER_CHUNK // (W * H)))
+    # samples of one device (vr.py:214-217)
+    spp_dev = -(-spp // (n_sample * split_fan)) * split_fan
+    spp = spp_dev * n_sample
+    chunk = max(1, min(spp_dev, 128, MAX_RAYS_PER_CHUNK // (W * H)))
     chunk = max(split_fan, chunk - chunk % split_fan)
 
     cam = scene.camera.params()
@@ -181,12 +197,26 @@ def render_ods(scene, samples_per_pixel=8, ipd=0.064, seed=0,
     for eye_sign in (-1.0, 1.0):
         acc = torch.zeros((W * H, 3), dtype=torch.float32, device=device)
         done = ci = 0
-        while done < spp:
-            s = min(chunk, spp - done)
-            g = torch.Generator(device=device).manual_seed(_eye_seed(seed, ci))
-            acc = acc + _ods_samples(g, data, origin0, phi0, half_ipd,
-                                     eye_sign, W, H, s, static, settings,
-                                     clamp=clamp, sample0=done)
+        while done < spp_dev:
+            s = min(chunk, spp_dev - done)
+            if mesh is None:
+                g = torch.Generator(device=device).manual_seed(
+                    _eye_seed(seed, ci))
+                acc = acc + _ods_samples(g, data, origin0, phi0, half_ipd,
+                                         eye_sign, W, H, s, static, settings,
+                                         clamp=clamp, sample0=done)
+            else:
+                part = None
+                for sh in range(n_sample):
+                    dev = mesh.devices[sh, 0]
+                    g = torch.Generator(device=dev).manual_seed(
+                        shard_seed(_eye_seed(seed, ci), sh, 0))
+                    L = _ods_samples(g, data.to(dev), origin0.to(dev), phi0,
+                                     half_ipd, eye_sign, W, H, s, static,
+                                     settings, clamp=clamp,
+                                     sample0=sh * spp_dev + done).to(device)
+                    part = L if part is None else part + L
+                acc = acc + part
             done += s
             ci += 1
         linear = div(acc, float(spp)).reshape(H, W, 3)

@@ -148,7 +148,7 @@ def test_render_aovs_against_jax():
     for k in planes:
         _z_hold(va[k], vb[k])
     assert 0.0 < np.mean(vb["ao"]) < 1.0
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh"):
         T.render_aovs(cornell(T), 1, mesh=object(), device="cpu")
 
 

@@ -1,9 +1,10 @@
 """The port's public surface against the JAX package's.
 
 `raytracer_tpu_torch.__all__` must hold every public name of
-`raytracer_tpu.__all__`; what waits for a later slice (the JAX package's
-`diff` module) the port lists in NOT_YET_PORTED with its ROADMAP.md item;
-and no module of the port may import jax or the JAX package.
+`raytracer_tpu.__all__`, nothing waits in NOT_YET_PORTED any more, the
+`diff` and `parallel` modules have the JAX modules' public names,
+`RenderSettings` takes every JAX field with its JAX default, and no
+module of the port may import jax or the JAX package.
 """
 
 import ast
@@ -22,9 +23,14 @@ from test_torch_wavefront_compile import jax_native  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 
-WAITING = {"item 7": {"diff"}}
-# the items of the list that are ported now, with their names
+WAITING = {}
+# the items of the list that are ported now, with their names (items 7
+# and 8 are modules of the package, as in the JAX package)
+MODULES = {"diff": ("diff",), "parallel": ("parallel", "parallel.sharded",
+                                           "parallel.multihost")}
 PORTED = {
+    "item 7": {"diff"},
+    "item 8": {"parallel"},
     "item 4": {"TriangleMesh", "MeshInstances", "Surface"},
     "item 5": {"CustomMaterial", "ShadeOut", "default_shade_out"},
     "item 6": {"render_aovs", "denoise", "create_animation",
@@ -36,8 +42,10 @@ PORTED = {
 def test_missing_names_are_the_waiting_list():
     assert set(J.__all__) - set(T.__all__) == (set(T.NOT_YET_PORTED)
                                                & set(J.__all__)) == set()
-    assert set(T.NOT_YET_PORTED) == set().union(*WAITING.values())
+    assert set(T.NOT_YET_PORTED) == set().union(set(), *WAITING.values())
+    assert T.NOT_YET_PORTED == {}
     assert importlib.import_module("raytracer_tpu.diff")
+    assert importlib.import_module("raytracer_tpu_torch.diff")
     assert set(T.__all__) - set(J.__all__) == {"tonemap_display"}
     assert len(T.__all__) == len(set(T.__all__))
 
@@ -47,6 +55,12 @@ def test_waiting_names_raise_naming_their_item(item):
     if item in PORTED:
         # ported: exported, no longer waiting, the JAX package's kind
         for name in PORTED[item]:
+            if name in MODULES:
+                # a module of the package, as in the JAX package
+                assert name not in T.NOT_YET_PORTED
+                for mod in MODULES[name]:
+                    assert importlib.import_module(f"raytracer_tpu_torch.{mod}")
+                continue
             assert name in T.__all__ and name not in T.NOT_YET_PORTED
             assert callable(getattr(T, name)) == callable(getattr(J, name))
         return
@@ -56,6 +70,42 @@ def test_waiting_names_raise_naming_their_item(item):
             getattr(T, name)
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         getattr(T, "nonsense")
+
+
+def _defined(mod):
+    """The public functions and classes a module defines itself."""
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == mod.__name__}
+
+
+@pytest.mark.parametrize("mod", ["diff", "parallel.sharded",
+                                 "parallel.multihost", "parallel"])
+def test_module_names_match_jax(mod):
+    a = importlib.import_module(f"raytracer_tpu.{mod}")
+    b = importlib.import_module(f"raytracer_tpu_torch.{mod}")
+    if mod == "parallel":
+        # the package re-exports the same three functions
+        pub = lambda m: {n for n in vars(m) if not n.startswith("_")
+                         and callable(getattr(m, n))}
+        assert pub(a) == pub(b) == {"build_sharded_render", "make_mesh",
+                                    "render_sharded"}
+        return
+    want = set(getattr(a, "__all__", None) or _defined(a))
+    assert set(b.__all__) == want
+    assert all(callable(getattr(b, n)) for n in b.__all__)
+
+
+def test_render_settings_takes_every_jax_field():
+    import dataclasses
+
+    from raytracer_tpu.core.integrator import RenderSettings as JRS
+
+    jf = {f.name: f.default for f in dataclasses.fields(JRS)}
+    tf = {f.name: f.default for f in dataclasses.fields(T.RenderSettings)}
+    assert jf == tf
+    assert T.RenderSettings(**jf) == T.RenderSettings()
+    assert T.RenderSettings(unroll=2).unroll == 2
 
 
 def test_wavefront_names_are_exported():

@@ -6,7 +6,7 @@ package; an emissive scene draws nothing past the camera jitter, so the
 two CLIs' PNGs agree but at the silhouette (at most 5% of the pixels
 differ), and `convert` writes the same JSON document.  Also: every
 command's output line and files, the JAX scene refused by name,
-`--sharded` raising naming its ROADMAP.md item, the card default raising
+`--sharded` on one CPU shard giving the unsharded image, the card default raising
 without a card, and `python -m raytracer_tpu_torch devices` as a
 process.
 """
@@ -112,8 +112,13 @@ def test_render_options(files, tmp_path, capsys):
           str(tmp_path / "prof"), "-o", str(tmp_path / "p.png")] + CPU)
     capsys.readouterr()
     assert list((tmp_path / "prof").glob("*.pt.trace.json"))
-    with pytest.raises(SystemExit, match="item 8"):
-        main(["render", str(port), "--sharded"] + CPU)
+    # --sharded: one CPU shard, the unsharded image pixel for pixel
+    main(["render", str(port), "--spp", "4", "--sharded", "-o",
+          str(tmp_path / "sh.png")] + CPU)
+    assert _line(capsys)["sharded"] is True
+    assert np.abs(_img(tmp_path / "sh.png") - _img(base)).max() <= 1
+    with pytest.raises(SystemExit, match="sharded"):
+        main(["render", str(port), "--sharded", "--hdr"] + CPU)
     with pytest.raises(SystemExit, match="tonemap"):
         main(["render", str(port), "--hdr", "--exposure", "1"] + CPU)
 

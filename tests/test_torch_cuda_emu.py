@@ -9,7 +9,8 @@ Each kernel is held against its plain version on the CPU on the same
 inputs: the fused record kernel (tracing, texel fetches and the path
 integral in one pass) against records + replay on examples 1-4 and the
 primitives example, the solid kernel against its plain version on a
-Cornell chunk.  Without FMA contraction (-ffp-contract=off) the two round
+Cornell chunk, and both on a scene whose tables pass the 48 KB of shared
+memory a block gets without opting in (1,200 lights).  Without FMA contraction (-ffp-contract=off) the two round
 alike, except where libm's cosf, sinf and expf and torch's CPU kernels
 differ in the last bit: rays match at rtol 1e-4, atol 1e-5 on >= 99.9%,
 the bit-equal share is printed, and rays_traced is equal or off only
@@ -43,6 +44,7 @@ sys.path.insert(0, str(ROOT / "examples"))
 import torch_primitives  # noqa: E402
 import torch_textured  # noqa: E402
 from torch_cornellbox import build_cornell  # noqa: E402
+from torch_features import many_lights  # noqa: E402
 
 CSRC = ROOT / "raytracer_tpu_torch" / "csrc"
 GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
@@ -82,6 +84,8 @@ RECORD_SCENES = {
     "example3": lambda: torch_textured.example3(8, 8),
     "example4": lambda: torch_textured.example4(8, 8, blur=0.0),
     "primitives": lambda: torch_primitives.primitives(8, 8),
+    # 1,200 lights: 53,420 bytes of tables, past the 48 KB without opt-in
+    "many_lights": lambda: many_lights(8, 8, 1200, textured=True),
 }
 
 
@@ -99,11 +103,34 @@ def test_record_kernel_on_the_cpu_matches_plain_version(emu_lib, name):
     _report(name, L_k, L_p, n_k, n_p, s.max_bounces)
 
 
-def test_solid_kernel_on_the_cpu_matches_plain_version(emu_lib):
-    sc = build_cornell(16, 16)
+SOLID_SCENES = {
+    "cornell": lambda: build_cornell(16, 16),
+    # 1,200 lights: 53,220 bytes of tables, past the 48 KB without opt-in
+    "many_lights": lambda: many_lights(8, 8, 1200),
+}
+
+
+@pytest.mark.parametrize("name", list(SOLID_SCENES))
+def test_solid_kernel_on_the_cpu_matches_plain_version(emu_lib, name):
+    sc = SOLID_SCENES[name]()
+    W, H = sc.camera.screen_width, sc.camera.screen_height
     _, tables, s = sc._settings_for_render()
     args = (torch.tensor(SEED, dtype=torch.int32), tables,
-            cam_vec(sc.camera.params()), 16, 16, 4, s.max_bounces)
+            cam_vec(sc.camera.params()), W, H, 4 if name == "cornell" else 1,
+            s.max_bounces)
     L_k, n_k = st._launch(*args, s.sampler, s.split_k, s.projection, lib=emu_lib)
     L_p, n_p = st.solid_trace_chunk(*args, s.split_k, s.sampler, s.projection)
-    _report("cornell", L_k, L_p, n_k, n_p, s.max_bounces)
+    _report(name, L_k, L_p, n_k, n_p, s.max_bounces)
+
+
+def test_stand_in_opts_in_past_48kb(emu_lib):
+    """The info calls opt the kernels in past 48 KB and report the
+    stand-in's limit as the card's opt-in maximum."""
+    for textured in (False, True):
+        static, tables, _ = many_lights(8, 8, 1200,
+                                        textured)._settings_for_render()
+        info = (rt.kernel_info(static, tables, emu_lib) if textured
+                else st.kernel_info(tables, emu_lib))
+        assert info["smem"] > cuda_build.SMEM_LIMIT
+        assert info["smem_optin_max"] == cuda_build.SMEM_OPTIN_MAX
+        assert info["blocks_per_sm"] == 1

@@ -1,0 +1,304 @@
+"""Differentiable rendering through the port (raytracer_tpu_torch/diff.py)
+against the JAX package's (raytracer_tpu/diff.py, tests/test_diff.py).
+
+Every test of tests/test_diff.py runs on the port: gradients with
+respect to material tables finite and equal to central finite
+differences (rtol 0.05), exact for the linear emissive colour, across a
+4x2 mesh of CPU shards, through two checkpointed chunks; the spp checks;
+safe_value_and_grad's scrub; safe_norm at 0; and an IoR recovered by
+Adam.  Besides: each shading block's per-ray gradient against jax.grad
+of the JAX block given the same uniforms (as
+tests/test_torch_wavefront_shade.py holds the values; rtol 1e-3, atol
+1e-4 on >= 99% of the block's rays, the table gradients summed over the
+rays at rtol 2e-3); render_fn(data) equal to Scene.render(...,
+output="linear") under use_pallas="never" bit for bit (the same chunks,
+the same per-pixel sums in the same order, the same division); two
+backward passes bit-equal (the checkpointed recompute draws the same
+numbers).  16x16 frames, one torch thread.
+"""
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as J
+import raytracer_tpu_torch as T
+from raytracer_tpu.materials import shade as jshade
+from raytracer_tpu.materials.base import (MAT_DIFFUSE, MAT_EMISSIVE,
+                                          MAT_GLOSSY, MAT_REFRACTIVE,
+                                          MAT_THINFILM)
+from raytracer_tpu_torch.core.safemath import safe_norm
+from raytracer_tpu_torch.diff import (differentiable_render,
+                                      differentiable_render_sharded,
+                                      safe_value_and_grad, update_lights,
+                                      update_materials)
+from raytracer_tpu_torch.materials import shade as tshade
+from raytracer_tpu_torch.parallel.sharded import make_mesh
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_scenes import cornell, glass, lit_textures  # noqa: E402
+from test_torch_wavefront_compile import one_torch_thread  # noqa: E402,F401
+from test_torch_wavefront_shade import (contexts, dispersion,  # noqa: E402
+                                        jax_draws, thin_film_plain)
+
+CPU = torch.device("cpu")
+
+
+def glass_scene(n=1.5, wh=(16, 16), m=T):
+    """tests/test_diff.py glass_scene: a glass sphere (a trace of
+    absorption) in an emissive enclosure."""
+    sc = m.Scene()
+    sc.add_Camera(look_from=m.vec3(0, 0, 2), look_at=m.vec3(0, 0, -1),
+                  screen_width=wh[0], screen_height=wh[1], field_of_view=30)
+    sc.add(m.Sphere(material=m.Refractive(n=m.vec3(n + 1e-6j, n + 1e-6j,
+                                                   n + 1e-6j)),
+                    center=m.vec3(0, 0, 0), radius=0.5, shadow=False,
+                    max_ray_depth=3))
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.8, 0.6, 0.4)),
+                    center=m.vec3(0, 0, 0), radius=20.0, shadow=False))
+    return sc
+
+
+def _fd_check(fn, data):
+    def loss(n_re):
+        return torch.mean(fn(update_materials(data, refr_n_re=n_re)) ** 2)
+
+    n0 = data.mats.refr_n_re
+    x = n0.clone().requires_grad_(True)
+    g, = torch.autograd.grad(loss(x), x)
+    assert torch.isfinite(g).all()
+    assert float(g.abs().max()) > 1e-5          # not silently zero
+    eps = 1e-3
+    e = torch.zeros_like(n0)
+    e[0, 0] = eps
+    with torch.no_grad():
+        fd = (loss(n0 + e) - loss(n0 - e)) / (2 * eps)
+    assert np.isclose(float(fd), float(g[0, 0]), rtol=0.05), (fd, g[0, 0])
+    return g
+
+
+def test_grad_finite_and_matches_fd():
+    fn, data = differentiable_render(glass_scene(), 4, device=CPU)
+    _fd_check(fn, data)
+
+
+def test_grad_wrt_emissive_color_is_exact():
+    # radiance is linear in the emitter colour: the gradient is the same
+    # at any emitter value and scaling is exact
+    fn, data = differentiable_render(glass_scene(), 2, device=CPU)
+
+    def mean_img(em):
+        return torch.mean(fn(update_materials(data, emissive_color=em)))
+
+    em0 = data.mats.emissive_color
+    with torch.no_grad():
+        assert np.isclose(float(mean_img(2.0 * em0)),
+                          2.0 * float(mean_img(em0)), rtol=1e-5)
+    g = safe_value_and_grad(mean_img)(em0)[1]
+    g2 = safe_value_and_grad(mean_img)(2.0 * em0)[1]
+    assert torch.isfinite(g).all()
+    assert np.allclose(g.numpy(), g2.numpy(), rtol=1e-5)
+
+
+def test_sharded_grad_finite_and_matches_fd():
+    # the data-parallel gradient: a 4x2 mesh of CPU shards, the shards'
+    # sums added in order; autograd goes back through each shard
+    mesh = make_mesh(4, 2, [CPU] * 8)
+    fn, data = differentiable_render_sharded(glass_scene(), 8, mesh=mesh)
+    _fd_check(fn, data)
+
+
+def test_chunked_render_grad_matches_fd():
+    # 32 camera samples x 8 split patterns = 256 eff spp: two chunks of
+    # 128, each under torch.utils.checkpoint
+    fn, data = differentiable_render(glass_scene(), 32, device=CPU)
+    _fd_check(fn, data)
+    fn1, _ = differentiable_render(glass_scene(), 8, device=CPU)
+    with torch.no_grad():
+        a, b = fn(data).numpy(), fn1(data).numpy()
+    assert abs(a.mean() - b.mean()) < 0.02, (a.mean(), b.mean())
+
+
+def test_spp_validation():
+    with pytest.raises(ValueError, match="samples_per_pixel"):
+        differentiable_render(glass_scene(), 0, device=CPU)
+    with pytest.raises(ValueError, match="samples_per_pixel"):
+        differentiable_render_sharded(glass_scene(), 0,
+                                      mesh=make_mesh(4, 2, [CPU] * 8))
+
+
+def test_safe_value_and_grad_scrubs_nonfinite():
+    # a where-scrub repairs the forward value, not the backward pass
+    denom = torch.tensor([1.0, 0.0])
+
+    def f(x):
+        y = x / denom
+        return torch.sum(torch.where(torch.isfinite(y), y, 0.0))
+
+    x0 = torch.tensor([2.0, 3.0])
+    x = x0.clone().requires_grad_(True)
+    v_plain = f(x)
+    g_plain, = torch.autograd.grad(v_plain, x)
+    assert torch.isfinite(v_plain) and not torch.isfinite(g_plain).all()
+    v, g = safe_value_and_grad(f)(x0)
+    assert float(v) == float(v_plain.detach())
+    assert torch.isfinite(g).all()
+    assert float(g[0]) == 1.0 and float(g[1]) == 0.0
+
+
+def test_safe_norm_grad_finite_at_zero():
+    # vector_norm's backward is 0/0 at the origin; safe_norm's is defined
+    z = torch.zeros((4, 3), requires_grad=True)
+    g, = torch.autograd.grad(safe_norm(z).sum(), z)
+    assert torch.isfinite(g).all()
+    # the hazard is real in the JAX package (jnp.linalg.norm's VJP)
+    g_ref = jax.grad(lambda v: jnp.sum(jnp.linalg.norm(v, axis=-1)))(
+        jnp.zeros((4, 3)))
+    assert not np.all(np.isfinite(np.asarray(g_ref)))
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 3))
+                         .astype(np.float32))
+    assert np.allclose(safe_norm(v).numpy(),
+                       torch.linalg.vector_norm(v, dim=-1).numpy(), rtol=1e-6)
+    # and the JAX package's safe_norm gives the same values
+    from raytracer_tpu.core.safemath import safe_norm as jsafe_norm
+
+    assert np.allclose(safe_norm(v).numpy(),
+                       np.asarray(jsafe_norm(jnp.asarray(v.numpy()))),
+                       rtol=1e-6)
+
+
+def test_recover_ior_by_gradient_descent():
+    true_n = 1.5
+    fn, data = differentiable_render(glass_scene(true_n), 4, device=CPU)
+    with torch.no_grad():
+        target = fn(data)
+    n = torch.tensor(1.2, requires_grad=True)
+    opt = torch.optim.Adam([n], lr=3e-2)
+    for _ in range(60):
+        opt.zero_grad()
+        n_re = n.expand_as(data.mats.refr_n_re)
+        loss = torch.mean((fn(update_materials(data, refr_n_re=n_re))
+                           - target) ** 2)
+        loss.backward()
+        opt.step()
+    assert abs(float(n.detach()) - true_n) < 0.03, float(n.detach())
+
+
+def test_render_fn_is_scene_render_on_the_wavefront():
+    # the same chunks, per-pixel sums added in the same order and one
+    # division: equal bit for bit (no reordering of float32 sums)
+    for spp in (4, 32):
+        sc = glass_scene()
+        fn, data = differentiable_render(sc, spp, seed=5, device=CPU)
+        sc.settings = T.RenderSettings(use_pallas="never")
+        want = sc.render(spp, seed=5, output="linear", device=CPU)
+        with torch.no_grad():
+            got = fn(data).numpy()
+        assert np.array_equal(got, want), spp
+
+
+def test_two_backward_passes_are_bit_equal():
+    # two checkpointed chunks: each backward recomputes them
+    fn, data = differentiable_render(glass_scene(), 32, device=CPU)
+    vg = safe_value_and_grad(lambda n: torch.mean(
+        fn(update_materials(data, refr_n_re=n)) ** 2))
+    (v1, g1), (v2, g2) = vg(data.mats.refr_n_re), vg(data.mats.refr_n_re)
+    assert torch.equal(g1, g2) and torch.equal(v1, v2)
+
+
+def test_update_lights_replaces_a_light_table():
+    sc = glass_scene()
+    sc.add_PointLight(pos=T.vec3(0, 1, 1), color=T.rgb(1, 1, 1))
+    _, data = differentiable_render(sc, 1, device=CPU)
+    c = data.lights.point_color * 2.0
+    d = update_lights(data, point_color=c)
+    assert d.lights.point_color is c and d.mats is data.mats
+    assert d.lights.point_pos is data.lights.point_pos
+
+
+def test_value_and_grad_of_a_scene_data():
+    # a dataclass argument: a gradient for each float table, zeros where
+    # the image does not depend on it
+    fn, data = differentiable_render(glass_scene(), 2, device=CPU)
+    v, g = safe_value_and_grad(lambda d: fn(d).mean())(data)
+    assert isinstance(g, type(data))
+    assert float(g.mats.emissive_color.abs().sum()) > 0
+    assert float(g.lights.point_color.abs().sum()) == 0
+    assert torch.equal(g.obj.packed, data.obj.packed)    # not a float table
+
+
+# ---------------------------------------------------------------------------
+# each shading block's per-ray gradient against jax.grad of the JAX block
+# ---------------------------------------------------------------------------
+
+BLOCKS = {MAT_EMISSIVE: "emissive", MAT_GLOSSY: "glossy",
+          MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
+          MAT_THINFILM: "thinfilm"}
+GRAD_CASES = [  # (block, scene, the material table differentiated)
+    (MAT_EMISSIVE, glass, "emissive_color"),
+    (MAT_GLOSSY, lit_textures, "glossy_n_re"),
+    (MAT_DIFFUSE, cornell, "diffuse_color"),
+    (MAT_REFRACTIVE, glass, "refr_n_re"),
+    (MAT_REFRACTIVE, dispersion, "refr_n_im"),
+    (MAT_THINFILM, thin_film_plain, "tf_thickness"),
+]
+OUTS = ("add", "beta_mult", "new_origin", "new_dir", "new_n_re", "new_n_im")
+RAY_INPUTS = ("D", "N", "n_re")
+
+
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=[f"{BLOCKS[c[0]]}-{c[1].__name__}"
+                              for c in GRAD_CASES])
+def test_shading_block_gradient_per_ray(case):
+    mt, build, param = case
+    jctx, tctx, mat_type, hit = contexts(build)
+    name = BLOCKS[mt]
+    sel = hit & (mat_type == mt)
+    assert sel.sum() >= 20, sel.sum()
+    n = sel.shape[0]
+    rng = np.random.default_rng(3)
+    w = {f: rng.normal(size=(n, 3)).astype(np.float32) for f in OUTS}
+    sel3 = sel[:, None].astype(np.float32)
+
+    def jloss(D, N, n_re, p):
+        data = dataclasses.replace(
+            jctx.data, mats=dataclasses.replace(jctx.data.mats, **{param: p}))
+        ctx = dataclasses.replace(jctx, D=D, N=N, n_re=n_re, data=data)
+        out = getattr(jshade, f"shade_{name}")(ctx)
+        return sum(jnp.sum(jnp.asarray(getattr(out, f)) * w[f] * sel3)
+                   for f in OUTS)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jctx.D, jctx.N, jctx.n_re, getattr(jctx.data.mats, param))
+
+    leaves = [getattr(tctx, k).clone().requires_grad_(True)
+              for k in RAY_INPUTS]
+    p = getattr(tctx.data.mats, param).clone().requires_grad_(True)
+    ctx = dataclasses.replace(tctx, **dict(zip(RAY_INPUTS, leaves)),
+                              data=update_materials(tctx.data, **{param: p}))
+    out = getattr(tshade, f"shade_{name}")(ctx, *jax_draws(mt, jctx))
+    loss = sum(torch.sum(getattr(out, f) * torch.from_numpy(w[f] * sel3))
+               for f in OUTS)
+    tg = torch.autograd.grad(loss, leaves + [p], allow_unused=True)
+    tg = [torch.zeros_like(x) if g is None else g
+          for x, g in zip(leaves + [p], tg)]
+
+    # non-finite exactly where the JAX block's gradient is (Cornell's
+    # diffuse table: slot 0 NaN in both, what safe_value_and_grad scrubs)
+    ok = np.ones(int(sel.sum()), bool)
+    for a, b in zip(tg[:3], jg[:3]):
+        a, b = a.numpy()[sel], np.asarray(b)[sel]
+        ok &= np.isclose(a, b, rtol=1e-3, atol=1e-4,
+                         equal_nan=True).all(axis=1)
+    assert ok.mean() >= 0.99, ok.mean()
+    a, b = tg[3].numpy(), np.asarray(jg[3])
+    assert np.array_equal(np.isfinite(a), np.isfinite(b)), (a, b)
+    fin = np.isfinite(b)
+    assert np.allclose(a[fin], b[fin], rtol=2e-3,
+                       atol=1e-4 * max(1.0, np.abs(b[fin]).max(initial=0))), (a, b)

@@ -136,7 +136,7 @@ def test_ods_eyes_and_checks():
     with pytest.raises(ValueError, match="anaglyph"):
         T.render_ods(vr(T), 1, layout="anaglyph", output="linear",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh"):
         T.render_ods(vr(T), 1, mesh=object(), device="cpu")
 
 
@@ -262,5 +262,5 @@ def test_create_animation_and_checks(tmp_path):
             emissive_ball(T), 1, [0.0], slide, mesh=object(), device="cpu")),
                lambda: T.render_motion_blur(emissive_ball(T), 1, slide,
                                             mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="mesh"):
             fn()
