@@ -141,7 +141,9 @@ checkout and drives both kernel paths and the wavefront:
   alone;
 - the Hopper probes (raytracer_tpu_torch/probes, csrc/probe_*.cu), built
   with the kernels: P1 the FP32 issue peak and the slot cost of special
-  ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps, P6 the
+  ops, P5 the dead-lane cost, P3 / P4 the ray x triangle sweeps (P3 also
+  at 16x the rays and on its edge input, with one line of launches a
+  call, ms, G tests/s and share of the bound per kernel and shape), P6 the
   per-lane gather beside torch.take (at its script's size and at the
   scale of example 2's replay), each at its TPU script's size with every
   timed kernel held against its plain version at the timed shape (P2,
@@ -158,6 +160,7 @@ exits 1.  Imports neither jax nor raytracer_tpu.
 """
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -241,8 +244,8 @@ def nvidia_smi():
 
 
 def build_lines(log):
-    """ptxas's registers / stack / spill line of the render kernels, and a
-    summary of the probe kernels."""
+    """ptxas's registers / stack / spill line of the render kernels and of
+    P3's kernels, and a summary of the other probe kernels."""
     funcs, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -251,9 +254,11 @@ def build_lines(log):
             funcs.setdefault(cur, []).append(ln.split("info    :")[-1].strip())
     render = [f"{name}: {'; '.join(v)}" for name, v in funcs.items()
               if "solid_trace" in name or "record_trace" in name]
+    p3 = [f"{re.search(r'tri_[a-z]+_kernel', name).group()}: {'; '.join(dict.fromkeys(v))}"
+          for name, v in funcs.items() if re.search(r"tri_[a-z]+_kernel", name)]
     probes = [v for name, v in funcs.items()
               if not ("solid_trace" in name or "record_trace" in name)]
-    return render + [f"{len(probes)} probe kernels"]
+    return render + p3 + [f"{len(probes)} probe kernels"]
 
 
 def nvcc_version(cuda_build):
@@ -707,6 +712,16 @@ def probe_phases(torch, times):
     rows += show(out, r)
     out, r = tri_sweep.run(div_slots=costs["div"])
     rows += show(out, r)
+    for name in ("thread", "warp"):
+        res = out[f"p3_{name}"]
+        shapes = (f"{size} {res[size]['rays']} x {res[size]['triangles']}: "
+                  f"{res[size]['launches_per_call']} launches a call, "
+                  f"{res[size]['ms']:.4f} ms, {res[size]['gtri_tests_per_s']:.1f} G tests/s, "
+                  f"{100 * res[size]['share']:.1f}% of its bound {res[size]['bound_ms']:.4f} ms"
+                  for size in ("script", "filled"))
+        print(f"probe P3 tri_{name}: {' | '.join(shapes)} | edge input "
+              f"{res['edge']['rays']} x {res['edge']['triangles']} bit-equal at plan "
+              f"{res['edge']['plan']}", flush=True)
     builders = {"cornell": build_cornell, "example2": torch_textured.example2}
     scenes = {name: (builders[name](w, h) if name in builders else new_scene(name, w, h),
                      spp) for name, w, h, spp in roofline.SCENES}

@@ -1,143 +1,229 @@
 // Ray x triangle nearest-hit probes for Hopper (sm_90a).
 //
 // Replaces the TPU probes scripts/probe_pairwise.py (`run`, pallas_call
-// :130), scripts/probe_pairwise2.py (`run`, pallas_call :120) and
-// scripts/probe_mesh_sweep.py (`run`, pallas_call :87).  The plain
-// PyTorch versions are in probes/tri_sweep.py.  Arithmetic is the
-// scripts', in their order, and the library is built with --fmad=false, so
-// kernel and plain version agree bit for bit.
+// :130: tri_thread), scripts/probe_pairwise2.py (`run`, pallas_call :120:
+// tri_warp) and scripts/probe_mesh_sweep.py (`run`, pallas_call :87: the
+// sweeps).  The plain PyTorch versions are in probes/tri_sweep.py.
+// Arithmetic is the scripts', in their order, and the library is built
+// with --fmad=false, so kernel and plain version agree bit for bit.
 //
-// - tri_thread (P3 on Hopper): one thread per ray; the (24, 128) parameter
-//   blocks of 128 triangles are staged through shared memory, every thread
-//   reading each triangle's parameters as a broadcast.  The first triangle
-//   that reaches the least t wins (a strict < over triangles in order), as
-//   the script's block min + first-winner select + strict cross-block
-//   update does.
-// - tri_warp (pairwise2's triangles-in-lanes layout): one warp per 32
-//   rays; for each ray the 32 lanes test 32 triangles at a time and a
-//   __shfl_xor butterfly takes the (t, id) minimum, so the lowest id wins
-//   ties; the ray's own lane keeps its running best.
+// What bounds P3 on the card: FP32 issue.  A test is ~58 single-slot
+// operations and one IEEE division (tri_t); bytes are a few MB.  At the
+// scripts' 16,384 rays a thread per ray is 4 warps an SM, too few to hide
+// the division's and the loads' latency, so both kernels split the
+// triangles into slices across blocks as well as the rays, and merge:
+//
+// - tri_thread (rays stationary): a block of 128 threads holds 4 rays a
+//   thread (512 rays) in registers and walks its slice of the mesh, one
+//   block of 128 triangles at a time, staged in shared memory as 6 float4
+//   a triangle: one broadcast 16-byte load feeds 4 tests.  The grid is
+//   ray tiles x slices, enough slices to fill the card's resident blocks.
+// - tri_warp (triangles stationary): each warp holds one block of 128
+//   triangles in registers, 4 a lane (lane l: triangles 4l .. 4l + 3, so
+//   lane order is id order); a block's four warps take four consecutive
+//   mesh blocks (a slice) and its share of the rays passes through shared
+//   memory as broadcasts.  Per ray a lane keeps its least t (first
+//   triangle on ties), then two warp reductions (__reduce_min_sync) take
+//   the least t and the least id among the lanes that hold it.  The grid
+//   is ray groups x slices, as many groups as fill the resident blocks.
+//
+// The merge and its tie rule: per ray the result is the least (t, id),
+// taken lexicographically over the triangles with t < FARAWAY, else
+// (FARAWAY, -1): what the scripts' first-index block minimum and strict
+// cross-block < compute.  t >= 0 and is never NaN, so the key
+// (bits of t) << 32 | id orders as (t, id) does.  Each slice writes one
+// key a ray (NO_HIT where no triangle of it has t < FARAWAY; a t of
+// FARAWAY or +inf never wins); tri_finish takes the least key over the
+// slices, in any order, and reads the winner's normal.  Two launches a
+// call: the sweep and tri_finish; probe_tri_launch plans the grid and
+// reports the plan and the launches it made.
+//
 // - sweep (P4): rays against T rows of 15 floats (plane of each triangle
 //   only), the rows in shared memory and read as broadcasts, a 6-value
 //   carry; a run-time loop against a fully unrolled one.
 //
-// What bounds them on the card: FP32 issue (one IEEE division and ~35
-// other operations per ray-triangle test); bytes are a few MB.  Every
-// entry returns cudaGetLastError() after its launch.
+// Every entry returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
+
+// Dynamic shared memory and the kernel launch; the CPU stand-in of the
+// CUDA runtime (csrc/emu/cuda_runtime.h) defines CUDA_EMU and both macros
+// its own way.
+#ifndef CUDA_EMU
+#define EXTERN_SHARED extern __shared__
+#define LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
 
 namespace {
 
 constexpr int TB = 128;               // triangles per parameter block
 constexpr int NP = 24;                // parameters per triangle
 constexpr int TRI_BLOCK = 128;        // threads per block
+constexpr int RAYS = 4;               // tri_thread: rays a thread
+constexpr int RAY_TILE = RAYS * TRI_BLOCK;   // tri_thread: rays a block
+constexpr int WARPS = TRI_BLOCK / 32; // tri_warp: mesh blocks a slice
+constexpr int LANE_TRIS = TB / 32;    // tri_warp: triangles a lane
 const float FARAWAY = 1.0e30f;
+constexpr unsigned long long NO_HIT = ~0ull;
 
-// the scripts' test of one ray against one triangle, parameters at stride
-// `s`: [p1 p2 p3 n cen n31 n12 n23]; returns t or FARAWAY
-__device__ __forceinline__ float tri_t(const float* q, int s, float ox,
-                                       float oy, float oz, float dx, float dy,
-                                       float dz) {
-  float ndd = q[9 * s] * dx + q[10 * s] * dy + q[11 * s] * dz;
+// the scripts' test of one ray against one triangle, parameters
+// [p1 p2 p3 n cen n31 n12 n23]; returns t or FARAWAY
+__device__ __forceinline__ float tri_t(const float* q, float ox, float oy,
+                                       float oz, float dx, float dy, float dz) {
+  float ndd = q[9] * dx + q[10] * dy + q[11] * dz;
   if (ndd == 0.0f) ndd = ndd + 1e-4f;
-  const float ndco = q[9 * s] * (q[12 * s] - ox) + q[10 * s] * (q[13 * s] - oy)
-                     + q[11 * s] * (q[14 * s] - oz);
+  const float ndco = q[9] * (q[12] - ox) + q[10] * (q[13] - oy)
+                     + q[11] * (q[14] - oz);
   const float tt = ndco / ndd;
   const float mx = ox + dx * tt, my = oy + dy * tt, mz = oz + dz * tt;
   const bool inside =
-      (q[15 * s] * (mx - q[0]) + q[16 * s] * (my - q[1 * s])
-       + q[17 * s] * (mz - q[2 * s]) >= 0.0f)
-      & (q[18 * s] * (mx - q[3 * s]) + q[19 * s] * (my - q[4 * s])
-         + q[20 * s] * (mz - q[5 * s]) >= 0.0f)
-      & (q[21 * s] * (mx - q[6 * s]) + q[22 * s] * (my - q[7 * s])
-         + q[23 * s] * (mz - q[8 * s]) >= 0.0f)
+      (q[15] * (mx - q[0]) + q[16] * (my - q[1]) + q[17] * (mz - q[2]) >= 0.0f)
+      & (q[18] * (mx - q[3]) + q[19] * (my - q[4]) + q[20] * (mz - q[5]) >= 0.0f)
+      & (q[21] * (mx - q[6]) + q[22] * (my - q[7]) + q[23] * (mz - q[8]) >= 0.0f)
       & (ndco * ndd > 0.0f);
   return inside ? fabsf(tt) : FARAWAY;
 }
 
-__device__ __forceinline__ void stage(float* s, const float* mesh, int b) {
-  const float* src = mesh + (size_t)b * NP * TB;
-  for (int k = threadIdx.x; k < NP * TB; k += TRI_BLOCK) s[k] = src[k];
+__device__ __forceinline__ unsigned long long hit_key(float t, int id) {
+  return (unsigned long long)__float_as_uint(t) << 32 | (unsigned)id;
 }
 
-// the winner's normal (parameters 9-11), zeros when nothing is hit
-__device__ __forceinline__ void write_hit(const float* mesh, int n_rays, int i,
-                                          float t, int id, float* t_out,
-                                          float* id_out, float* n_out) {
-  t_out[i] = t;
+__global__ void __launch_bounds__(TRI_BLOCK)
+tri_thread_kernel(const float* mesh, int n_blocks, int per_slice,
+                  const float* o, const float* d, int n_rays, int tiles,
+                  unsigned long long* keys) {
+  // one mesh block, triangle-major: triangle j's parameters are s4[6j .. 6j + 5]
+  __shared__ float4 s4[TB * NP / 4];
+  float* s = reinterpret_cast<float*>(s4);
+  const int tile = blockIdx.x % tiles, slice = blockIdx.x / tiles;
+  float ray[RAYS][6], best[RAYS];
+  int best_id[RAYS];
+#pragma unroll
+  for (int r = 0; r < RAYS; ++r) {
+    const int i = tile * RAY_TILE + r * TRI_BLOCK + threadIdx.x;
+    const int ri = i < n_rays ? i : 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ray[r][c] = o[c * n_rays + ri];
+      ray[r][3 + c] = d[c * n_rays + ri];
+    }
+    best[r] = FARAWAY;
+    best_id[r] = -1;
+  }
+  const int b0 = slice * per_slice, b1 = min(n_blocks, b0 + per_slice);
+  for (int b = b0; b < b1; ++b) {
+    const float* src = mesh + (size_t)b * NP * TB;
+    __syncthreads();
+    for (int k = threadIdx.x; k < NP * TB; k += TRI_BLOCK)
+      s[(k % TB) * NP + k / TB] = src[k];
+    __syncthreads();
+    for (int j = 0; j < TB; ++j) {
+      float q[NP];
+#pragma unroll
+      for (int c = 0; c < NP / 4; ++c) {
+        const float4 v = s4[j * (NP / 4) + c];
+        q[4 * c] = v.x, q[4 * c + 1] = v.y, q[4 * c + 2] = v.z, q[4 * c + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RAYS; ++r) {
+        const float t = tri_t(q, ray[r][0], ray[r][1], ray[r][2], ray[r][3],
+                              ray[r][4], ray[r][5]);
+        if (t < best[r]) { best[r] = t; best_id[r] = b * TB + j; }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RAYS; ++r) {
+    const int i = tile * RAY_TILE + r * TRI_BLOCK + threadIdx.x;
+    if (i < n_rays)
+      keys[(size_t)slice * n_rays + i] =
+          best_id[r] < 0 ? NO_HIT : hit_key(best[r], best_id[r]);
+  }
+}
+
+__global__ void __launch_bounds__(TRI_BLOCK)
+tri_warp_kernel(const float* mesh, int n_blocks, const float* o,
+                const float* d, int n_rays, int groups,
+                unsigned long long* keys) {
+  __shared__ float4 rays[TRI_BLOCK][2];                // (o, dx), (dy, dz, -, -)
+  __shared__ unsigned long long found[WARPS][TRI_BLOCK];
+  const int g = blockIdx.x % groups, slice = blockIdx.x / groups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mb = slice * WARPS + warp;
+  const bool holds = mb < n_blocks;   // the slice's last warps may hold none
+  float q[LANE_TRIS][NP];
+  if (holds) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float4 v =
+          reinterpret_cast<const float4*>(mesh + ((size_t)mb * NP + p) * TB)[lane];
+      q[0][p] = v.x, q[1][p] = v.y, q[2][p] = v.z, q[3][p] = v.w;
+    }
+  }
+  const int id0 = mb * TB + LANE_TRIS * lane;
+  const int begin = (int)((long long)n_rays * g / groups);
+  const int end = (int)((long long)n_rays * (g + 1) / groups);
+  for (int base = begin; base < end; base += TRI_BLOCK) {
+    const int count = min(TRI_BLOCK, end - base);
+    __syncthreads();
+    if (threadIdx.x < count) {
+      const int i = base + threadIdx.x;
+      rays[threadIdx.x][0] = make_float4(o[i], o[n_rays + i], o[2 * n_rays + i], d[i]);
+      rays[threadIdx.x][1] = make_float4(d[n_rays + i], d[2 * n_rays + i], 0.0f, 0.0f);
+    }
+    __syncthreads();
+    if (holds) {
+      for (int r = 0; r < count; ++r) {
+        const float4 a = rays[r][0], b = rays[r][1];
+        float t = FARAWAY;
+        int id = -1;
+#pragma unroll
+        for (int k = 0; k < LANE_TRIS; ++k) {
+          const float tk = tri_t(q[k], a.x, a.y, a.z, a.w, b.x, b.y);
+          if (tk < t) { t = tk; id = id0 + k; }
+        }
+        // the warp's least t, then the least id among the lanes holding it
+        const unsigned tb = __float_as_uint(t);
+        const unsigned tmin = __reduce_min_sync(0xffffffffu, tb);
+        const unsigned imin =
+            __reduce_min_sync(0xffffffffu, tb == tmin ? (unsigned)id : ~0u);
+        if (lane == 0)
+          found[warp][r] = __uint_as_float(tmin) < FARAWAY
+                               ? hit_key(__uint_as_float(tmin), (int)imin) : NO_HIT;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < count) {
+      unsigned long long key = NO_HIT;
+      for (int w = 0; w < WARPS && slice * WARPS + w < n_blocks; ++w) {
+        const unsigned long long k = found[w][threadIdx.x];
+        key = k < key ? k : key;
+      }
+      keys[(size_t)slice * n_rays + base + threadIdx.x] = key;
+    }
+  }
+}
+
+// the least key of each ray over the slices; its t, id (as float) and the
+// winner's normal (parameters 9-11), or (FARAWAY, -1, zeros)
+__global__ void __launch_bounds__(TRI_BLOCK)
+tri_finish_kernel(const float* mesh, const unsigned long long* keys, int slices,
+                  int n_rays, float* t_out, float* id_out, float* n_out) {
+  const int i = blockIdx.x * TRI_BLOCK + threadIdx.x;
+  if (i >= n_rays) return;
+  unsigned long long key = NO_HIT;
+  for (int s = 0; s < slices; ++s) {
+    const unsigned long long k = keys[(size_t)s * n_rays + i];
+    key = k < key ? k : key;
+  }
+  const int id = key == NO_HIT ? -1 : (int)(unsigned)key;
+  t_out[i] = id < 0 ? FARAWAY : __uint_as_float((unsigned)(key >> 32));
   id_out[i] = (float)id;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     n_out[(size_t)c * n_rays + i] =
         id < 0 ? 0.0f : mesh[((size_t)(id / TB) * NP + 9 + c) * TB + id % TB];
-}
-
-__global__ void __launch_bounds__(TRI_BLOCK)
-tri_thread_kernel(const float* mesh, int n_blocks, const float* o,
-                  const float* d, int n_rays, float* t_out, float* id_out,
-                  float* n_out) {
-  __shared__ float s[NP * TB];
-  const int i = blockIdx.x * TRI_BLOCK + threadIdx.x;
-  const bool live = i < n_rays;
-  const int r = live ? i : 0;
-  const float ox = o[r], oy = o[n_rays + r], oz = o[2 * n_rays + r];
-  const float dx = d[r], dy = d[n_rays + r], dz = d[2 * n_rays + r];
-  float best = FARAWAY;
-  int best_id = -1;
-  for (int b = 0; b < n_blocks; ++b) {
-    __syncthreads();
-    stage(s, mesh, b);
-    __syncthreads();
-    for (int j = 0; j < TB; ++j) {
-      const float t = tri_t(s + j, TB, ox, oy, oz, dx, dy, dz);
-      if (t < best) { best = t; best_id = b * TB + j; }
-    }
-  }
-  if (live) write_hit(mesh, n_rays, i, best, best_id, t_out, id_out, n_out);
-}
-
-__global__ void __launch_bounds__(TRI_BLOCK)
-tri_warp_kernel(const float* mesh, int n_blocks, const float* o,
-                const float* d, int n_rays, float* t_out, float* id_out,
-                float* n_out) {
-  __shared__ float s[NP * TB];
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * TRI_BLOCK + threadIdx.x;   // this lane's ray
-  const bool live = i < n_rays;
-  const int r = live ? i : 0;
-  const float my[6] = {o[r], o[n_rays + r], o[2 * n_rays + r],
-                       d[r], d[n_rays + r], d[2 * n_rays + r]};
-  float best = FARAWAY;
-  int best_id = -1;
-  for (int b = 0; b < n_blocks; ++b) {
-    __syncthreads();
-    stage(s, mesh, b);
-    __syncthreads();
-    for (int rr = 0; rr < 32; ++rr) {
-      float ray[6];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) ray[c] = __shfl_sync(0xffffffffu, my[c], rr);
-      float t = FARAWAY;
-      int id = 0x7fffffff;
-#pragma unroll
-      for (int k = 0; k < TB / 32; ++k) {
-        const int j = lane + 32 * k;
-        const float tj = tri_t(s + j, TB, ray[0], ray[1], ray[2], ray[3],
-                               ray[4], ray[5]);
-        if (tj < t) { t = tj; id = b * TB + j; }
-      }
-      // (t, id) minimum over the warp: the least t, then the least id
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ot = __shfl_xor_sync(0xffffffffu, t, off);
-        const int oid = __shfl_xor_sync(0xffffffffu, id, off);
-        if (ot < t || (ot == t && oid < id)) { t = ot; id = oid; }
-      }
-      if (lane == rr && t < best) { best = t; best_id = id; }
-    }
-  }
-  if (live) write_hit(mesh, n_rays, i, best, best_id, t_out, id_out, n_out);
 }
 
 // ---- P4: the plane-of-triangle sweep over T rows of 15 floats ----
@@ -166,7 +252,8 @@ template <int T>   // T > 0: unrolled over T rows; T == 0: run-time loop
 __device__ __forceinline__ void sweep_body(const float* mesh, int n_rows,
                                            const float* o, const float* d,
                                            int tile, int n, float* out) {
-  extern __shared__ float rows[];
+  EXTERN_SHARED float smem[];
+  float* rows = smem;
   for (int k = threadIdx.x; k < n_rows * ROW; k += SWEEP_BLOCK) rows[k] = mesh[k];
   __syncthreads();
   const int i = blockIdx.x * SWEEP_BLOCK + threadIdx.x;
@@ -201,20 +288,71 @@ sweep_unrolled_kernel(const float* mesh, int n_rows, const float* o,
   sweep_body<T>(mesh, n_rows, o, d, tile, n, out);
 }
 
+// The grid of a P3 call, (ray groups, slices, mesh blocks a slice).
+// tri_thread: a group is a tile of 512 rays, and the mesh blocks are cut
+// into as few slices as make groups x slices fill the card's resident
+// blocks, the last slice taking what is left.  tri_warp: a slice is 4
+// mesh blocks, and the rays are cut into as many groups as fill the
+// resident blocks with groups x slices.
+cudaError_t tri_plan(int warp, int n_blocks, int n_rays, int* plan) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = warp ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_warp_kernel,
+                                                               TRI_BLOCK, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_thread_kernel,
+                                                               TRI_BLOCK, 0);
+  if (err != cudaSuccess) return err;
+  const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
+  int groups, per;
+  if (warp) {
+    per = WARPS;
+    const int slices = (n_blocks + per - 1) / per;
+    groups = min(resident / slices > 1 ? resident / slices : 1, n_rays);
+  } else {
+    groups = (n_rays + RAY_TILE - 1) / RAY_TILE;
+    const int slices = min(n_blocks, (resident + groups - 1) / groups);
+    per = (n_blocks + slices - 1) / slices;
+  }
+  plan[0] = groups;
+  plan[1] = (n_blocks + per - 1) / per;
+  plan[2] = per;
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// mesh: (n_blocks, 24, 128); o, d: (3, n_rays); t, id: (n_rays,);
-// n: (3, n_rays).  warp != 0 takes the triangles-in-lanes kernel.
+// mesh: (n_blocks, 24, 128), 16-byte aligned; o, d: (3, n_rays); keys:
+// (n_blocks, n_rays) scratch (a call's slices never outnumber its mesh
+// blocks); t, id: (n_rays,); n: (3, n_rays).  warp != 0 takes the
+// triangles-in-lanes kernel.  Plans the grid (tri_plan), launches the
+// sweep, then tri_finish; info: (ray groups, slices, mesh blocks a slice,
+// kernels launched).
 extern "C" int probe_tri_launch(int warp, const float* mesh, int n_blocks,
                                 const float* o, const float* d, int n_rays,
-                                float* t, float* id, float* n, void* stream) {
+                                unsigned long long* keys, float* t, float* id,
+                                float* n, void* stream, int* info) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = (n_rays + TRI_BLOCK - 1) / TRI_BLOCK;
+  info[3] = 0;
+  if (n_blocks < 1 || n_rays < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = tri_plan(warp, n_blocks, n_rays, info);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = info[0], slices = info[1], per = info[2];
   if (warp)
-    tri_warp_kernel<<<grid, TRI_BLOCK, 0, st>>>(mesh, n_blocks, o, d, n_rays, t, id, n);
+    LAUNCH(tri_warp_kernel, groups * slices, TRI_BLOCK, 0, st, mesh, n_blocks, o, d,
+           n_rays, groups, keys);
   else
-    tri_thread_kernel<<<grid, TRI_BLOCK, 0, st>>>(mesh, n_blocks, o, d, n_rays, t, id, n);
-  return (int)cudaGetLastError();
+    LAUNCH(tri_thread_kernel, groups * slices, TRI_BLOCK, 0, st, mesh, n_blocks, per, o,
+           d, n_rays, groups, keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  info[3] = 1;
+  LAUNCH(tri_finish_kernel, (n_rays + TRI_BLOCK - 1) / TRI_BLOCK, TRI_BLOCK, 0, st,
+         mesh, keys, slices, n_rays, t, id, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  info[3] = 2;
+  return 0;
 }
 
 // mesh: (n_rows, 15); o, d: (3, tile); out: (grid, 3, tile).  unrolled
@@ -228,11 +366,13 @@ extern "C" int probe_sweep_launch(int unrolled, const float* mesh, int n_rows,
   const int n = grid * tile;
   const int blocks = (n + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
   if (!unrolled)
-    sweep_loop_kernel<<<blocks, SWEEP_BLOCK, smem, st>>>(mesh, n_rows, o, d, tile, n, out);
+    LAUNCH(sweep_loop_kernel, blocks, SWEEP_BLOCK, smem, st, mesh, n_rows, o, d, tile, n, out);
   else if (n_rows == 512)
-    sweep_unrolled_kernel<512><<<blocks, SWEEP_BLOCK, smem, st>>>(mesh, n_rows, o, d, tile, n, out);
+    LAUNCH(sweep_unrolled_kernel<512>, blocks, SWEEP_BLOCK, smem, st, mesh, n_rows, o, d,
+           tile, n, out);
   else if (n_rows == 64)
-    sweep_unrolled_kernel<64><<<blocks, SWEEP_BLOCK, smem, st>>>(mesh, n_rows, o, d, tile, n, out);
+    LAUNCH(sweep_unrolled_kernel<64>, blocks, SWEEP_BLOCK, smem, st, mesh, n_rows, o, d,
+           tile, n, out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -8,7 +8,7 @@ import subprocess
 
 import torch
 
-from ..ops.cuda_build import load_probe_library
+from ..ops.cuda_build import load_probe_library, stream_of
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 67 TFLOP/s in float32 outside the tensor cores, counting an fma as two
@@ -67,14 +67,14 @@ def ptr(t):
 
 
 def stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return stream_of(t.device)
 
 
-def launch(entry, argtypes, *args):
-    """Call the probes' library entry `entry` (declared with `argtypes`,
-    returning int); raise if it reports a CUDA error (cudaGetLastError()
-    after the launch)."""
-    fn = getattr(load_probe_library(), entry)
+def launch(entry, argtypes, *args, lib=None):
+    """Call entry `entry` (declared with `argtypes`, returning int) of
+    `lib`, the probes' library unless given; raise if it reports a CUDA
+    error (cudaGetLastError() after the launch)."""
+    fn = getattr(lib or load_probe_library(), entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -28,6 +28,24 @@ TB = 128                         # triangles per parameter block
 SOURCE = "probe_tri.cu"
 
 
+def tri_params(p1, p2, p3):
+    """(T, 24) parameters [p1 p2 p3 n cen n31 n12 n23] of the triangles
+    with corners p1, p2, p3 (T, 3) (probe_pairwise.py:109-118)."""
+    n = np.cross(p2 - p1, p3 - p1)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
+    cen = (p1 + p2 + p3) / 3
+    n31 = np.cross(p3 - p1, n)
+    n12 = np.cross(p1 - p2, n)
+    n23 = np.cross(p2 - p3, n)
+    return np.concatenate([p1, p2, p3, n, cen, n31, n12, n23], axis=1)
+
+
+def _blocks(params):
+    """(T, 24) parameters as the (T/128, 24, 128) float32 mesh."""
+    return np.ascontiguousarray(
+        params.reshape(-1, TB, 24).transpose(0, 2, 1)).astype(np.float32)
+
+
 def pairwise_inputs(T=5120, n_rays=ROWS * 128):
     """(mesh (T/128, 24, 128), o (3, n), d (3, n)) float32 of
     probe_pairwise.py:105-128: triangles in a box in front of rays from
@@ -37,20 +55,57 @@ def pairwise_inputs(T=5120, n_rays=ROWS * 128):
     p1 = rng.random((Tpad, 3), np.float32) * 2 - 1 + [0, 0, -4]
     p2 = p1 + rng.random((Tpad, 3), np.float32) * 0.4
     p3 = p1 + rng.random((Tpad, 3), np.float32) * 0.4
-    n = np.cross(p2 - p1, p3 - p1)
-    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
-    cen = (p1 + p2 + p3) / 3
-    n31 = np.cross(p3 - p1, n)
-    n12 = np.cross(p1 - p2, n)
-    n23 = np.cross(p2 - p3, n)
-    params = np.concatenate([p1, p2, p3, n, cen, n31, n12, n23], axis=1)
-    mesh = np.ascontiguousarray(
-        params.reshape(Tpad // 128, 128, 24).transpose(0, 2, 1)).astype(np.float32)
+    mesh = _blocks(tri_params(p1, p2, p3))
     o = np.zeros((3, n_rays), np.float32)
     d = rng.standard_normal((3, n_rays)).astype(np.float32)
     d[2] -= 2.0
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     return mesh, o, d
+
+
+AIMED, MISSES = 8, 16        # edge_inputs' rays at triangle 0 / pointing away
+# mesh blocks, rays of the edge input on the card: 41 is prime, so the
+# plan's slices of several blocks cut it unevenly, and 16,000 rays (off
+# the ray tiles) leave tri_thread's plan more than one block a slice
+EDGE_SHAPE = (41, 16000)
+
+
+def edge_inputs(n_blocks=EDGE_SHAPE[0], n_rays=EDGE_SHAPE[1]):
+    """pairwise_inputs with P3's edge cases: triangle 0 moved in front of
+    the others and copied into triangle 1 (a tie inside a lane of
+    tri_warp) and into the last triangle (a tie across any split of the
+    mesh), so the lowest id must win; the first AIMED rays aimed at
+    points inside it; the last MISSES rays pointing away from every
+    triangle ((FARAWAY, -1), zero normal).  Take n_rays off the multiples
+    of the kernels' ray tiles (512, 128) and n_blocks off the multiples
+    of their slices."""
+    mesh, o, d = pairwise_inputs(n_blocks * TB, n_rays)
+    prm = mesh.transpose(0, 2, 1).reshape(-1, 24)
+    p = prm[0, :9].reshape(1, 3, 3) + np.float32([0, 0, 2.5])
+    prm[0] = prm[1] = prm[-1] = tri_params(p[:, 0], p[:, 1], p[:, 2])[0]
+    w = np.random.default_rng(1).dirichlet((4, 4, 4), AIMED).astype(np.float32)
+    aim = w @ prm[0, :9].reshape(3, 3)
+    d[:, :AIMED] = (aim / np.linalg.norm(aim, axis=1, keepdims=True)).T
+    away = np.random.default_rng(2).standard_normal((3, MISSES)).astype(np.float32) * 0.1
+    away[2] = 1.0
+    d[:, -MISSES:] = away / np.linalg.norm(away, axis=0, keepdims=True)
+    return _blocks(prm), o, d
+
+
+def edge_cases_hold(out):
+    """True if (t, id, n) of edge_inputs shows its cases: the aimed rays
+    on triangle 0 (not a copy), the rays pointing away on nothing."""
+    t, tid, nrm = out
+    return (bool((tid[:AIMED] == 0).all()) and bool((tid[-MISSES:] == -1).all())
+            and bool((t[-MISSES:] == FARAWAY).all())
+            and bool((nrm[:, -MISSES:] == 0).all()))
+
+
+def ragged(plan, n_blocks):
+    """True if the plan (ray groups, slices, mesh blocks a slice) cuts
+    n_blocks into several slices whose last one is short."""
+    _, slices, per = plan
+    return slices > 1 and slices * per > n_blocks
 
 
 def sweep_inputs(T=512, tile=ROWS * 128):
@@ -131,32 +186,46 @@ _V, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _check(*ts):
-    common.require_card()
     for t in ts:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != ts[0].device:
             raise ValueError("inputs must be contiguous float32 on one device")
 
 
 def nearest(mesh, o, d, warp=False):
-    """P3: (t, id, n) of every ray's nearest triangle: the kernel (one
-    thread per ray, or with warp=True one warp over 32 triangles at a
-    time) for CUDA tensors, the plain version for CPU tensors.
-    `nearest.launches` counts kernel launches."""
+    """P3: (t, id, n) of every ray's nearest triangle: for CUDA tensors the
+    kernels (rays in threads, 4 a thread, or with warp=True triangles in
+    lanes, 4 a lane, over ray x triangle-slice blocks that fill the card;
+    then the merge), for CPU tensors the plain version.
+    `nearest.launches` counts kernel launches (two a call)."""
     if mesh.device.type == "cpu":
         return pairwise_reference(mesh, o, d)
+    common.require_card()
+    return _nearest_launch(mesh, o, d, warp)[0]
+
+
+def _nearest_launch(mesh, o, d, warp, lib=None):
+    """Launch P3's sweep and merge from `lib` (the probes' library unless
+    given; the tests pass the CPU stand-in's build, csrc/emu, with CPU
+    tensors) and add the launches it reports to `nearest.launches`;
+    returns ((t, id, n), (ray groups, slices, mesh blocks a slice)), the
+    grid that probe_tri_launch planned."""
     _check(mesh, o, d)
     if mesh.dim() != 3 or mesh.shape[1:] != (24, TB) or o.shape != d.shape:
         raise ValueError("mesh must be (blocks, 24, 128), o and d (3, n)")
-    n = o.shape[1]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    tid, nrm = torch.empty_like(t), torch.empty((3, n), dtype=torch.float32,
-                                                device=o.device)
-    common.launch("probe_tri_launch", [_I, _V, _I, _V, _V, _I, _V, _V, _V, _V],
+    if mesh.data_ptr() % 16:
+        raise ValueError("mesh must be 16-byte aligned")
+    n, dev = o.shape[1], o.device
+    keys = torch.empty((mesh.shape[0], n), dtype=torch.int64, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tid, nrm = torch.empty_like(t), torch.empty((3, n), dtype=torch.float32, device=dev)
+    info = (_I * 4)()
+    common.launch("probe_tri_launch",
+                  [_I, _V, _I, _V, _V, _I, _V, _V, _V, _V, _V, ctypes.POINTER(_I)],
                   int(warp), common.ptr(mesh), mesh.shape[0], common.ptr(o),
-                  common.ptr(d), n, common.ptr(t), common.ptr(tid),
-                  common.ptr(nrm), common.stream(o))
-    nearest.launches += 1
-    return t, tid, nrm
+                  common.ptr(d), n, common.ptr(keys), common.ptr(t), common.ptr(tid),
+                  common.ptr(nrm), common.stream(o), info, lib=lib)
+    nearest.launches += info[3]
+    return (t, tid, nrm), tuple(info[:3])
 
 
 def sweep(mesh, o, d, grid, unrolled=False):
@@ -165,12 +234,19 @@ def sweep(mesh, o, d, grid, unrolled=False):
     CPU tensors.  `sweep.launches` counts kernel launches."""
     if mesh.device.type == "cpu":
         return sweep_reference(mesh, o, d, grid)
+    common.require_card()
+    return _sweep_launch(mesh, o, d, grid, unrolled)
+
+
+def _sweep_launch(mesh, o, d, grid, unrolled, lib=None):
+    """Launch P4's kernel from `lib` (as _nearest_launch) and count it in
+    `sweep.launches`."""
     _check(mesh, o, d)
     tile = o.shape[1]
     out = torch.empty((grid, 3, tile), dtype=torch.float32, device=o.device)
     common.launch("probe_sweep_launch", [_I, _V, _I, _V, _V, _I, _I, _V, _V],
                   int(unrolled), common.ptr(mesh), mesh.shape[0], common.ptr(o),
-                  common.ptr(d), tile, grid, common.ptr(out), common.stream(o))
+                  common.ptr(d), tile, grid, common.ptr(out), common.stream(o), lib=lib)
     sweep.launches += 1
     return out
 
@@ -189,32 +265,53 @@ PAIR_SLOTS, ROW_SLOTS = 58, 28
 
 
 def run(div_slots=1.0, reps=20):
-    """P3 and P4 at the scripts' sizes (and P3 at 16x the rays, which fills
-    the card); each kernel held bit for bit against its plain version.
-    div_slots: the slot cost of a division (P1), for the bound.  Returns
-    (result dict, kernels-line rows)."""
+    """P3 and P4 at the scripts' sizes (and P3 at 16x the rays, where the
+    rays alone fill the card, and on edge_inputs, whose planned split must
+    cut its mesh unevenly); each kernel held bit for bit against its plain
+    version.  div_slots: the slot cost of a division (P1), for the bound.
+    Returns (result dict, kernels-line rows)."""
     dev = common.require_card()
     out = {"probe": "tri_sweep", **common.device_info()}
     rows = []
     # ---- P3: 16,384 rays x 5,120 triangles ----
     sizes = {"script": ROWS * 128, "filled": 16 * ROWS * 128}
+    edge = [torch.from_numpy(a).to(dev) for a in edge_inputs()]
+    edge_ref = pairwise_reference(*edge)
+    if not edge_cases_hold(edge_ref):
+        raise RuntimeError("P3: the edge input's plain version lost its cases")
     for warp, name in ((False, "thread"), (True, "warp")):
-        res = {}
+        k_out, plan = _nearest_launch(*edge, warp)
+        torch.cuda.synchronize()
+        if not _equal(k_out, edge_ref):
+            raise RuntimeError(f"P3 {name}: kernel and plain version differ on the "
+                               "edge input")
+        if not ragged(plan, edge[0].shape[0]):
+            raise RuntimeError(f"P3 {name}: the edge input's plan {plan} does not "
+                               "cut its mesh unevenly")
+        res = {"edge": {"rays": edge[1].shape[1], "triangles": edge[0].shape[0] * TB,
+                        "plan": plan}}
         for size, n_rays in sizes.items():
             mesh, o, d = (torch.from_numpy(a).to(dev)
                           for a in pairwise_inputs(5120, n_rays))
-            k_out = nearest(mesh, o, d, warp)
+            before = nearest.launches
+            k_out, plan = _nearest_launch(mesh, o, d, warp)
+            per_call = nearest.launches - before
             p_out = pairwise_reference(mesh, o, d)
             torch.cuda.synchronize()
             if not _equal(k_out, p_out):
                 raise RuntimeError(f"P3 {name}: kernel and plain version differ")
             tests = n_rays * mesh.shape[0] * TB
+            slots = tests * (PAIR_SLOTS + div_slots)
+            n_bytes = 4 * (mesh.numel() + o.numel() + d.numel()) + 4 * 5 * n_rays
             if size == "script":
                 hits = int((k_out[1] >= 0).sum())
                 nearest.launches = 0
             ms = common.cuda_ms(lambda: nearest(mesh, o, d, warp), reps)
+            bound_ms, _ = common.bound(slots, n_bytes)
             res[size] = {"rays": n_rays, "triangles": mesh.shape[0] * TB,
-                         "ms": ms, "gtri_tests_per_s": tests / (ms * 1e-3) / 1e9}
+                         "plan": plan, "launches_per_call": per_call,
+                         "ms": ms, "gtri_tests_per_s": tests / (ms * 1e-3) / 1e9,
+                         "bound_ms": bound_ms, "share": bound_ms / ms}
             if size == "script":
                 launches = nearest.launches
                 plain_ms = common.cuda_ms(lambda: pairwise_reference(mesh, o, d), 1, 0)
@@ -222,9 +319,7 @@ def run(div_slots=1.0, reps=20):
                     f"tri_{name}", SOURCE,
                     "scripts/probe_pairwise.py:130" if not warp
                     else "scripts/probe_pairwise2.py:120",
-                    launches, 0.0, ms, plain_ms,
-                    tests * (PAIR_SLOTS + div_slots), 4 * (mesh.numel() + o.numel() + d.numel())
-                    + 4 * 5 * n_rays))
+                    launches, 0.0, ms, plain_ms, slots, n_bytes))
         res["hits"] = hits
         out[f"p3_{name}"] = res
     # ---- P4: 512 rows, 8 x 16,384 rays, looped and unrolled ----

@@ -122,12 +122,25 @@ def test_p1_kernels_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["random", "edge"])
 @pytest.mark.parametrize("warp", [False, True])
-def test_p3_kernels_on_card(card, warp):
-    mesh, o, d = (torch.from_numpy(a).to(card) for a in tri_sweep.pairwise_inputs(512, 4096))
-    got = tri_sweep.nearest(mesh, o, d, warp)
+def test_p3_kernels_on_card(card, warp, inputs):
+    """Both kernels bit for bit on random triangles, and on the edge input
+    (ties inside a lane and across slices, rays that miss, ragged tiles)
+    at its planned grid, which cuts the mesh unevenly; two launches a
+    call, counted."""
+    edge = inputs == "edge"
+    arrays = tri_sweep.edge_inputs() if edge else tri_sweep.pairwise_inputs(512, 4096)
+    mesh, o, d = (torch.from_numpy(a).to(card) for a in arrays)
     want = tri_sweep.pairwise_reference(mesh, o, d)
+    if edge:
+        assert tri_sweep.edge_cases_hold(want)
+    before = tri_sweep.nearest.launches
+    got, plan = tri_sweep._nearest_launch(mesh, o, d, warp)
+    assert tri_sweep.nearest.launches - before == 2
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if edge:
+        assert tri_sweep.ragged(plan, mesh.shape[0])
 
 
 @pytest.mark.cuda
