@@ -145,7 +145,9 @@ checkout and drives both kernel paths and the wavefront:
   at 16x the rays and on its edge input, with one line of launches a
   call, ms, G tests/s and share of the bound per kernel and shape), P6 the
   per-lane gather beside torch.take (at its script's size and at the
-  scale of example 2's replay), each at its TPU script's size with every
+  scale of example 2's replay; in a process of its own, its base
+  kernel's profiler events must count its calls and agree with the graph
+  timer within gather.PROFILER_TOLERANCE), each at its TPU script's size with every
   timed kernel held against its plain version at the timed shape (P2,
   P3, P4, P6 and the nearest-hit tests bit for bit, P1 and P5 within the
   probe's stated tolerance); the measured cost of one nearest-hit test of
@@ -245,7 +247,7 @@ def nvidia_smi():
 
 def build_lines(log):
     """ptxas's registers / stack / spill line of the render kernels and of
-    P3's kernels, and a summary of the other probe kernels."""
+    P3's and P6's kernels, and a summary of the other probe kernels."""
     funcs, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -254,8 +256,9 @@ def build_lines(log):
             funcs.setdefault(cur, []).append(ln.split("info    :")[-1].strip())
     render = [f"{name}: {'; '.join(v)}" for name, v in funcs.items()
               if "solid_trace" in name or "record_trace" in name]
-    p3 = [f"{re.search(r'tri_[a-z]+_kernel', name).group()}: {'; '.join(dict.fromkeys(v))}"
-          for name, v in funcs.items() if re.search(r"tri_[a-z]+_kernel", name)]
+    pattern = r"(tri|gather)_[a-z]+_kernel"
+    p3 = [f"{re.search(pattern, name).group()}: {'; '.join(dict.fromkeys(v))}"
+          for name, v in funcs.items() if re.search(pattern, name)]
     probes = [v for name, v in funcs.items()
               if not ("solid_trace" in name or "record_trace" in name)]
     return render + p3 + [f"{len(probes)} probe kernels"]
@@ -692,6 +695,7 @@ def probe_phases(torch, times):
     run) and printed as one line; then P2 with the render kernels' chunk
     times of this run.  Returns (kernels-line rows, P2's result)."""
     import torch_textured
+    from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.probes import (dead_bounce, gather, isect_cost,
                                             issue_peak, roofline, tri_sweep)
     from torch_cornellbox import build_cornell
@@ -725,8 +729,40 @@ def probe_phases(torch, times):
     builders = {"cornell": build_cornell, "example2": torch_textured.example2}
     scenes = {name: (builders[name](w, h) if name in builders else new_scene(name, w, h),
                      spp) for name, w, h, spp in roofline.SCENES}
-    p6, r = gather.run(replay_scale=replay_scale(*scenes["example2"]))
+    p6, r = gather.run(costs, replay_scale=replay_scale(*scenes["example2"]))
     rows += show(p6, r)
+    for shape, res in (("script", p6), ("replay", p6["replay_scale"])):
+        for mode in gather.MODES:
+            m = res[mode]
+            require(m["launches"] > 0, f"P6 {mode} at the {shape} shape never launched")
+            take = (f"torch.take {m['library_ms']:.5f} ms" if m["library_ms"] is not None
+                    else "no library call")
+            print(f"probe P6 {mode}, {shape} shape: {res['rays']} rays, T {m['T']} | "
+                  f"kernel {m['ms']:.5f} ms (graph), wrapper {m['wrapper_ms']:.5f} ms | "
+                  f"{m['launches']} launches | {m['ns_per_fetch']:.5f} ns a fetch, "
+                  f"{m['g_fetch_per_s']:.1f} G fetches/s | {100 * m['share']:.1f}% of its "
+                  f"bound {m['bound_ms']:.5f} ms ({m['bound_by']}, "
+                  f"{m['slots_per_fetch']:.2f} slots a fetch) | {take} | bit-equal",
+                  flush=True)
+    check = subprocess.run([sys.executable, "-m", "raytracer_tpu_torch.probes.gather",
+                            "--profile"], cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+    require(check.returncode == 0, f"P6 profile check: {check.stderr[-2000:]}")
+    plan, prof = p6["plan"], json.loads(check.stdout.strip().splitlines()[-1])
+    ptxas = [ln for ln in build_lines(cuda_build.build_log) if ln.startswith("gather_")]
+    print(f"probe P6 plan: cluster {plan['cluster']}, resident blocks ldg / smem / base "
+          f"{plan['ldg_blocks']} / {plan['smem_blocks']} / {plan['base_blocks']}, smem cut "
+          f"{plan['smem_entries']} entries | ptxas: {' | '.join(ptxas)} | edge input "
+          f"{p6['edge']['rays']} rays bit-equal at {p6['edge']['held']} (mode, T) pairs | "
+          f"profiler (a process of its own): gather_base_kernel {prof['kernel_ms']} ms "
+          f"a launch over {prof['kernels']} kernel events of {prof['calls']} calls, "
+          f"graph {prof['graph_ms']:.5f} ms", flush=True)
+    require(prof["kernels"] == prof["calls"],
+            f"P6 profiler: {prof['kernels']} base kernel events of {prof['calls']} calls")
+    require(abs(prof["kernel_ms"] - prof["graph_ms"])
+            <= gather.PROFILER_TOLERANCE * prof["graph_ms"],
+            f"P6 profiler: base {prof['kernel_ms']} ms a launch against the graph's "
+            f"{prof['graph_ms']} ms, past {gather.PROFILER_TOLERANCE:.0%}")
     rate = p1["unfused_peak_lane_ops_per_s"]
     tests, r = isect_cost.run(costs, rate)
     rows += show(tests, r)

@@ -1,5 +1,7 @@
-"""What every probe shares: the card's identity, CUDA-event timing, clock
-samples, and the launch of a probe kernel through the probes' library."""
+"""What every probe shares: the card's identity, CUDA-event timing (of the
+calls, and of the kernels alone through a CUDA graph or the profiler),
+clock samples, and the launch of a probe kernel through the probes'
+library."""
 
 from __future__ import annotations
 
@@ -60,6 +62,48 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps, replays=3):
+    """(mean milliseconds of one call of fn as the device runs it, the
+    graph's runs): fn runs once, then `reps` calls are captured in one
+    CUDA graph (a launch on the current stream goes into the capture, and
+    launches nothing), replayed once to warm up and then `replays` times
+    between two CUDA events, over reps * replays.  The host's work in fn
+    (checks, allocation, the launch call) runs at capture only."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays), 1 + replays
+
+
+def profiled_kernel_ms(fn, calls, name):
+    """(mean device milliseconds, count) of the kernels whose name holds
+    `name` among the device events torch.profiler records over `calls`
+    calls of fn.  A session that follows large ones (hundreds of thousands
+    of device events) in the same process can lose events, so a check
+    that counts them runs in a process of its own."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return (sum(durs) / len(durs) / 1e3 if durs else None), len(durs)
 
 
 def ptr(t):

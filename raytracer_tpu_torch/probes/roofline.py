@@ -454,8 +454,8 @@ def main():
     from . import gather, isect_cost, issue_peak
 
     p1, _ = issue_peak.run()
-    p6, _ = gather.run()
     costs, rate = p1["slot_costs"], p1["unfused_peak_lane_ops_per_s"]
+    p6, _ = gather.run(costs)
     tests, _ = isect_cost.run(costs, rate)
     out, rows = run(costs, rate, example_scenes(), p6["ldg"]["ns_per_fetch"],
                     test_slots=tests["measured_slots_per_test"])

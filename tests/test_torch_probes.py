@@ -292,18 +292,27 @@ GATHER = script("probe_vmem_gather")
 
 @pytest.mark.parametrize("take", [False, True])
 def test_p6_matches_probe_vmem_gather(take):
+    """The script's inputs, and the same with negative indices and the
+    edge input's indices (the whole int32 range, those whose sum wraps
+    past 2^31 - 1) over its first rays: jnp.remainder and torch.remainder
+    are both floored, and both int32 adds wrap."""
     n = 2 * GATHER.TILE_ROWS * 128
     table, idx = gather.inputs(n)
+    signed = idx - 60_000
+    edge = gather.edge_inputs()[1]
+    signed.reshape(-1)[:edge.size] = edge
+    assert (signed < 0).mean() > 0.4
     rows = table.shape[0]
     call = interpret(GATHER.kernel_take if take else GATHER.kernel_baseline,
                      jax.ShapeDtypeStruct((n // 128, 128), jnp.float32),
                      [vmem((rows, 128), lambda i: (0, 0)),
                       vmem((GATHER.TILE_ROWS, 128), lambda i: (i, 0))],
                      grid=(2,), out_specs=vmem((GATHER.TILE_ROWS, 128), lambda i: (i, 0)))
-    want = np.asarray(call(jnp.asarray(table), jnp.asarray(idx)))
-    got = gather.gather(torch.from_numpy(table), torch.from_numpy(idx),
-                        "ldg" if take else "base").numpy()
-    assert np.array_equal(got, want)
+    for ix in (idx, signed):
+        want = np.asarray(call(jnp.asarray(table), jnp.asarray(ix)))
+        got = gather.gather(torch.from_numpy(table), torch.from_numpy(ix),
+                            "ldg" if take else "base").numpy()
+        assert np.array_equal(got, want)
     assert (gather.T, gather.FETCHES) == (GATHER.T, GATHER.BOUNCES)
 
 

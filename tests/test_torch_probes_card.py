@@ -57,7 +57,8 @@ def test_render_without_device_needs_a_card(monkeypatch):
 
 def test_probes_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for run in (gather.run, dead_bounce.run, tri_sweep.run, issue_peak.run,
+    for run in (lambda: gather.run({}), gather.profile_check, dead_bounce.run,
+                tri_sweep.run, issue_peak.run,
                 lambda: isect_cost.run({}, 1.0)):
         with pytest.raises(RuntimeError, match="CUDA device"):
             run()
@@ -164,10 +165,17 @@ def test_p5_kernels_on_card(card, form):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", gather.MODES)
 def test_p6_kernels_on_card(card, mode):
+    """The script's inputs, then the edge input at each modulus the mode
+    takes (negative indices, int32 wrap, T <= 5 * 977, the smem cut)."""
     table, idx = (torch.from_numpy(a).to(card) for a in gather.inputs(1 << 16))
     t_mod = min(gather.T, gather.smem_entries()) if mode == "smem" else gather.T
     assert torch.equal(gather.gather(table, idx, mode, t_mod),
                        gather.gather_reference(table, idx, t_mod, mode != "base"))
+    table, idx = (torch.from_numpy(a).to(card) for a in gather.edge_inputs())
+    for t in gather.edge_moduli(mode, gather.smem_entries()):
+        got = gather.gather(table, idx, mode, t)
+        want = gather.gather_reference(table, idx, t, mode != "base")
+        assert torch.equal(got, want), f"T = {t}: {int((got != want).sum())} rays differ"
 
 
 @pytest.mark.cuda
