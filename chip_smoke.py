@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel and
-the record kernel, one nvcc per source, started together) from the
-checkout and drives both kernel paths and the wavefront:
+Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
+the record kernel and W1, the wavefront's triangle sweep, one nvcc per
+source, started together) from the checkout and drives both kernel paths
+and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -80,17 +81,24 @@ checkout and drives both kernel paths and the wavefront:
   Scene.get_distances of the 98-object grid on the card against the
   CPU;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
-  triangle sweep, corner normals and uvs, mesh instances; plain torch,
-  no kernel of their own): the icosphere (5,120 faces), the textured UV
-  sphere (1,224) and the field of 48 instances (61,440 virtual
-  triangles) at 400x300 x 16 spp through Scene.render, two or three
-  renders of one seed bit-equal, every chunk on CUDA, no kernel
-  launched, with wall, Mrays/s and peak memory, and one profiled render
-  each with the device time by stage and the clustered sweep's share,
-  host syncs and device events a bounce and its rate in triangle tests
-  a second; the clustered sweep against the flat sweep over the same
-  leaf-ordered tables on the icosphere's camera rays, their first bounce
-  and shadow rays (t bit-equal, winners equal on 99.99%), each timed;
+  triangle sweep through W1, csrc/mesh_sweep.cu; corner normals and uvs,
+  mesh instances in plain torch): the icosphere (5,120 faces), the
+  textured UV sphere (1,224) and the field of 48 instances (61,440
+  virtual triangles) at 400x300 x 16 spp through Scene.render, two or
+  three renders of one seed bit-equal, every chunk on CUDA, no K1 / K2
+  launch and W1 launched (its counts set to 0 just before the renders
+  and read just after), with wall, Mrays/s and peak memory, and one
+  profiled render each with the device time by stage and the clustered
+  sweep's share, host syncs and device events a bounce, W1's kernels'
+  device time and the rate in triangle tests a second; W1 against its
+  plain version (geometry/intersect.py) bit for bit, a share of exactly
+  1.0, on the icosphere's camera rays at the render's chunk (1.92 M),
+  their first bounce and shadow rays (clustered and flat) and the
+  instance field's camera rays, W1's clustered nearest alone timed
+  through a CUDA graph at the camera rays and the instance field's, its
+  clustered occluded at the shadow rays; the clustered sweep against the flat sweep over the
+  same leaf-ordered tables on the same rays (t bit-equal, winners equal
+  on 99.99%), each timed;
   the icosphere at 100x75 x 16 spp on the card against the CPU and the
   instance field against the same field baked into 48 TriangleMesh
   copies at 4 spp (image and 3x3 region means within 4 standard
@@ -104,10 +112,14 @@ checkout and drives both kernel paths and the wavefront:
   kernel, its first chunk bit for bit against its plain version), the
   two images and 3x3 region means within 4 standard errors and the mean
   pixel variance lower with the tables; the custom-material example at
-  400x300 x 32 spp and a normal-mapped scene at 400x300 x 16 spp; each of
-  the three small on the card against the CPU (the custom scene draws
-  nothing past the jitter, so pixel by pixel); Scene.render_denoised of
-  Cornell 400x400 x 16 spp (the solid kernel, its launches counted and
+  400x300 x 32 spp and a normal-mapped scene at 400x300 x 16 spp (its
+  168 faces through W1's flat sweep: W1 launched, its wall and peak
+  printed beside those of the plain sweep, and W1's flat nearest and
+  shadow rays bit for bit against their plain versions on its camera
+  rays and their hits' shadow rays, each timed alone through a CUDA
+  graph); each of the three small on the card against the CPU (the
+  custom scene draws nothing past the jitter, so pixel by pixel);
+  Scene.render_denoised of Cornell 400x400 x 16 spp (the solid kernel, its launches counted and
   its first chunk held bit for bit, then the AOV pass and the filter),
   its display MSE against the main path's 256-spp image below the raw
   render's; render_motion_blur of example_motion_blur at 400x300 x 64
@@ -123,7 +135,10 @@ checkout and drives both kernel paths and the wavefront:
   parallel/): differentiable_render of examples/torch_inverse_rendering.py's
   scene at 96x72 x 8 spp (forward and forward + backward walls and peak
   memory, the IoR gradient against a central difference within rtol
-  0.05, two backward passes compared and their difference printed);
+  0.05, two backward passes compared and their difference printed); the
+  same scene with the glass sphere as a 1,280-face clustered icosphere
+  mesh (W1 launched; its winners' t recomputed for autograd), its IoR
+  gradient against a central difference within rtol 0.05;
   Cornell 400x400 x 256 spp over a 4x1 mesh of cuda:0 shards (K1 on each:
   4 launches a chunk, the first shard chunk bit for bit against its plain
   version, image and regions within 4 standard errors of the unsharded
@@ -154,7 +169,13 @@ checkout and drives both kernel paths and the wavefront:
   each kind against the hand count; then P2: the streamed fma chains,
   fused and unfused, and the bound of the solid and record kernels at the
   chunk shapes of Cornell, example 2, dispersion and primitives, from the
-  plain versions' event counts and this run's kernel times.
+  plain versions' event counts and this run's kernel times; and the
+  bound of each of W1's four entries at the input it was timed on: the
+  triangle tests that input needs (the occluded entries stop at a ray's
+  or pair's first occluder) at the issue slots of one test, read off
+  the SASS of the entry's loop (probes/common.py `loop_issue`), against
+  its bytes; beside the clustered nearest's, its tests at isect_cost's
+  measured cost of the render kernels' triangle test.
 
 Each phase and each probe prints one line; any failure exits non-zero
 before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -224,6 +245,29 @@ DIST_ATOL = 1e-6
 # against baked hold
 MESH_W, MESH_H, MESH_SPP = 400, 300, 16
 MESH_SCENES = (("icosphere", 3), ("beach_ball", 3), ("instances", 2))
+# W1 (csrc/mesh_sweep.cu): the CUDA-graph replays of its timing; its
+# entries (ops/mesh_sweep.py wrappers), each with its sweep kernel (whose
+# SASS loop gives the issue slots of a triangle test) and the TPU sweep it
+# replaces; and what the run gathers for the kernels line, a row an entry:
+# launches in the driven renders (counts set to 0 just before each, read
+# just after), the largest |t| difference of its holds (0: bit-equal;
+# occluded: 1 where any ray differs), and its work and times at the held
+# input it is timed on
+W1_REPS = 5
+W1_ENTRIES = {
+    "clustered_nearest": ("cluster_nearest_kernel",
+                          "raytracer_tpu/geometry/intersect.py:317"),
+    "clustered_occluded": ("cluster_occluded_kernel",
+                           "raytracer_tpu/geometry/intersect.py:370"),
+    "flat_nearest": ("flat_nearest_kernel",
+                     "raytracer_tpu/geometry/intersect.py:421"),
+    "flat_occluded": ("flat_occluded_kernel",
+                      "raytracer_tpu/geometry/intersect.py:421")}
+W1 = {"launches": dict.fromkeys(W1_ENTRIES, 0),
+      "max_abs_err": dict.fromkeys(W1_ENTRIES, 0.0), "timed": {}}
+# the normal-mapped frame through the plain triangle sweep on an H100 80GB
+# HBM3 at 700 W, s and GiB (PERF.md)
+NMAP_PLAIN = (1.4254, 9.39)
 SWEEP_SPP = 4
 WINNER_RATE = 0.9999
 INST_SPP = 4
@@ -766,6 +810,7 @@ def probe_phases(torch, times):
     rate = p1["unfused_peak_lane_ops_per_s"]
     tests, r = isect_cost.run(costs, rate)
     rows += show(tests, r)
+    W1["tri_slots"] = tests["measured_slots_per_test"]["tri"]
     print(f"probe isect_cost SASS: {json.dumps(tests['sass'])}", flush=True)
     p2, r = roofline.run(costs, rate, scenes, p6["ldg"]["ns_per_fetch"],
                          kernel_ms=times,
@@ -1093,32 +1138,6 @@ def divided_unit(d):
     return d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
 
 
-def wavefront_stages(events):
-    """Device busy time (us) and device events under each "wavefront.*"
-    profiler range of a Chrome trace: the kernels and copies inside each
-    of its gpu_user_annotation events (an annotation spans its range's
-    first to last device event, idle gaps included)."""
-    import bisect
-    from collections import defaultdict
-    from torch_render_profile import DEVICE_CATS
-
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
-    starts = [lo for lo, _ in iv]
-    stages, counts = defaultdict(float), defaultdict(int)
-    for e in events:
-        if (e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
-                and str(e.get("name", "")).startswith("wavefront.")):
-            lo, hi = e["ts"], e["ts"] + e["dur"]
-            name = e["name"][len("wavefront."):]
-            i = bisect.bisect_left(starts, lo)
-            while i < len(iv) and iv[i][0] < hi:
-                stages[name] += min(iv[i][1], hi) - iv[i][0]
-                counts[name] += 1
-                i += 1
-    return stages, counts
-
-
 def stage_profile(torch, dev, name, sc, spp):
     """One render of `sc` on the wavefront under torch.profiler: its wall,
     device span, busy share and the device time of each bounce stage
@@ -1126,12 +1145,14 @@ def stage_profile(torch, dev, name, sc, spp):
     scene with triangle clusters also the clustered sweep's (its own range
     inside nearest_hit and the glossy block's shadow rays): its device
     time and share, its syncs and device events a bounce, the (cluster,
-    ray) pairs it swept and its rate in triangle tests a second.  Returns
-    the sweep's numbers (empty without clusters)."""
+    ray) pairs it swept and its rate in triangle tests a second, over the
+    range and over W1's kernels alone (their device time and launches by
+    name).  Returns the sweep's numbers (empty without clusters)."""
     from torch.profiler import ProfilerActivity, profile
-    from torch_render_profile import device_breakdown
+    from torch_render_profile import device_breakdown, wavefront_stages
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import mesh_sweep
 
     static, _, settings = sc._settings_for_render()
     W, H = sc.camera.screen_width, sc.camera.screen_height
@@ -1160,23 +1181,33 @@ def stage_profile(torch, dev, name, sc, spp):
                       sorted(stages.items(), key=lambda kv: -kv[1]))
     sweep = {}
     line = ""
+    w1_us = sum(t for k, (t, _) in per_name.items()
+                if any(w in k for w in mesh_sweep.KERNELS))
+    w1_events = sum(c for k, (_, c) in per_name.items()
+                    if any(w in k for w in mesh_sweep.KERNELS))
+    if w1_us:
+        line = (f" | W1 kernels {w1_us / 1e3:.2f} ms ({100 * w1_us / busy:.1f}% "
+                f"of busy, {w1_events} launches)")
     if sweep_us:
         d = {k: intersect.SWEEP_STATS[k] - before[k] for k in before}
         sweep = dict(ms=sweep_us / 1e3, share=sweep_us / busy,
+                     w1_ms=w1_us / 1e3, w1_share=w1_us / busy,
                      syncs_per_bounce=d["syncs"] / bounces,
                      events_per_bounce=sweep_events / bounces,
                      sweeps_per_bounce=d["sweeps"] / bounces,
                      pairs=d["pairs"], clusters_run=d["clusters"],
                      tests_per_s=d["pairs"] * intersect.TRI_CLUSTER_SIZE
                      / (sweep_us / 1e6))
-        line = (f" | clustered sweep (inside nearest_hit and the shadow rays): "
+        line += (f" | clustered sweep (inside nearest_hit and the shadow rays): "
                 f"{sweep['ms']:.1f} ms ({100 * sweep['share']:.1f}% of busy), "
                 f"{sweep['sweeps_per_bounce']:.1f} sweeps, "
                 f"{sweep['syncs_per_bounce']:.1f} host syncs and "
                 f"{sweep['events_per_bounce']:.0f} device events a bounce "
                 f"({bounces} bounces), {d['clusters']} cluster runs, "
                 f"{d['pairs']} (cluster, ray) pairs, "
-                f"{sweep['tests_per_s'] / 1e9:.2f} G triangle tests/s")
+                f"{sweep['tests_per_s'] / 1e9:.2f} G triangle tests/s over the "
+                f"range, {d['pairs'] * intersect.TRI_CLUSTER_SIZE / max(w1_us, 1e-9) / 1e3:.1f}"
+                f" over W1's kernels")
     print(f"wavefront profile: {name}, one render under torch.profiler | wall "
           f"{wall:.4f} s, device span {span / 1e6:.4f} s, busy {busy / 1e6:.4f} s "
           f"({100 * busy / span:.1f}% of span), "
@@ -1374,9 +1405,10 @@ def wavefront_phase(torch, dev):
 
 def routed_renders(torch, dev, sc, spp, n, seed):
     """n renders of sc on the card with one seed: ([(image, stats, wall)],
-    the devices of the wavefront chunks, the kernels' launches, peak
-    GiB)."""
+    the devices of the wavefront chunks, the render kernels' launches,
+    peak GiB, W1's launches, added to the run's by entry)."""
     from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.ops import mesh_sweep
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
 
@@ -1389,6 +1421,7 @@ def routed_renders(torch, dev, sc, spp, n, seed):
 
     scene_mod.trace = traced
     st.solid_trace_chunk.launches = rt.record_trace_chunk.launches = 0
+    mesh_sweep.reset_launches()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     try:
@@ -1397,7 +1430,15 @@ def routed_renders(torch, dev, sc, spp, n, seed):
         scene_mod.trace = trace
     launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
     return (runs, devices, launches,
-            torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30, w1_launches(mesh_sweep))
+
+
+def w1_launches(mesh_sweep):
+    """W1's launches since its counts were set to 0, added to the run's by
+    entry; returns their sum."""
+    for key in W1_ENTRIES:
+        W1["launches"][key] += getattr(mesh_sweep, key).launches
+    return mesh_sweep.launches()
 
 
 def chunk_var(torch, dev, sc, spp, solid=False):
@@ -1451,18 +1492,203 @@ def sweep_pair(torch, fn, *args):
     return out, start.elapsed_time(end)
 
 
+def analytic_only(geom):
+    """geom without its triangles, clusters and instances: its nearest hit
+    is the limit the render passes the triangle sweep, its occluded the
+    hit0."""
+    import dataclasses
+    return dataclasses.replace(geom, **{
+        f.name: getattr(geom, f.name)[:0] for f in dataclasses.fields(geom)
+        if f.name.startswith(("tri_", "inst_"))})
+
+
+def w1_time(torch, key, name, fn, tests, n_bytes, plain_ms):
+    """W1's entry `key` alone on one held input: fn, its launch on that
+    input, through a CUDA graph (`graph_ms`) and with events around the
+    calls; its launches a call, its triangle tests (what this input needs)
+    and bytes, and G tests/s.  Returns (text, the numbers)."""
+    from raytracer_tpu_torch.ops import mesh_sweep
+    from raytracer_tpu_torch.probes import common
+
+    wrapper = getattr(mesh_sweep, key)
+    before = wrapper.launches
+    fn()
+    per_call = wrapper.launches - before
+    ms = common.graph_ms(fn, W1_REPS)[0]
+    ev_ms = common.cuda_ms(fn, W1_REPS)
+    timed = dict(name=name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
+                 launches_per_call=per_call, tests=tests, bytes=n_bytes,
+                 gtests_per_s=tests / (ms * 1e-3) / 1e9)
+    return (f" | W1 alone (CUDA graph) {ms:.4f} ms a call of {per_call} "
+            f"launches (events {ev_ms:.4f} ms), {tests} triangle tests, "
+            f"{timed['gtests_per_s']:.1f} G tests/s"), timed
+
+
+def w1_nearest(torch, name, geom, O, D, flat=False, timed=False):
+    """W1's nearest hit against its plain version on the card, on the rays
+    (O, D) of `name`: clustered, with the limit the render passes it (the
+    analytic objects' nearest hit), or flat; t bit-equal and codes equal on
+    every ray (a share of exactly 1.0), required.  timed: also W1 alone on
+    this input (`w1_time`; clustered: on its pair search, 256 tests a
+    pair; flat: every row for every ray).  Returns (text, the timed
+    numbers or None)."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import mesh_sweep
+
+    n = O.shape[0]
+    key = "flat_nearest" if flat else "clustered_nearest"
+    if flat:
+        (t_k, c_k), ms_k = sweep_pair(torch, mesh_sweep.flat_nearest, O, D, geom)
+        (t_p, c_p), ms_p = sweep_pair(torch, intersect._flat_nearest, O, D, geom)
+    else:
+        limit = intersect.nearest_hit(O, D, analytic_only(geom))[0]
+        (t_k, c_k, _), ms_k = sweep_pair(torch, mesh_sweep.clustered_nearest,
+                                         O, D, geom, limit)
+        (t_p, c_p), ms_p = sweep_pair(torch, intersect._clustered_nearest, O, D,
+                                      geom, limit)
+    t_eq = float((t_k.view(torch.int32) == t_p.view(torch.int32)).float().mean())
+    c_eq = float((c_k == c_p).float().mean())
+    hit = c_p >= 0
+    err = float((t_k - t_p)[hit].abs().max()) if bool(hit.any()) else 0.0
+    W1["max_abs_err"][key] = max(W1["max_abs_err"][key], err)
+    require(t_eq == 1.0 and c_eq == 1.0,
+            f"W1 {name}: t bit-equal {t_eq}, codes equal {c_eq}")
+    text = (f"{name}: {n} rays ({float(hit.float().mean()):.4f} hit a "
+            f"triangle), t bit-equal {t_eq}, codes equal {c_eq}, wrapper "
+            f"{ms_k:.2f} ms{'' if flat else ' (pair search included)'}, plain "
+            f"{ms_p:.1f} ms")
+    if not timed:
+        return text, None
+    rows, tables = mesh_sweep.scene_tables(geom)
+    if flat:
+        T = geom.tri_p1.shape[0]
+        fn = lambda: mesh_sweep._flat_nearest_launch(O, D, geom)
+        # rays and rows read once, t and code written once
+        tests, n_bytes = n * T, n * 24 + T * mesh_sweep.ROW * 4 + n * 12
+    else:
+        C = geom.tri_cl_lo.shape[0]
+        sw = one_pair_search(torch, name, O, D, geom, limit)
+        fn = lambda: mesh_sweep.nearest_pairs(sw, rows, tables, C)
+        require(torch.equal(fn()[0][:n], t_p), f"W1 {name}: the timed call differs")
+        tests = sw["rays"].shape[0] * intersect.TRI_CLUSTER_SIZE
+        n_bytes = pair_bytes(sw, rows, tables, C) + sw["rank"].numel() * 8 \
+            + sw["Op"].shape[1] * 20            # ranks; t, code, record
+    more, numbers = w1_time(torch, key, name, fn, tests, n_bytes, ms_p)
+    return text + more, numbers
+
+
+def one_pair_search(torch, name, O, D, geom, limit):
+    """The clustered sweep's pair search of rays (O, D) under `limit`, which
+    must be one group of tiles (intersect.py `_ray_groups`)."""
+    from raytracer_tpu_torch.geometry import intersect
+
+    groups = intersect._ray_groups(O.shape[0], geom.tri_cl_lo.shape[0])
+    require(len(groups) == 1, f"W1 {name}: {len(groups)} ray groups")
+    return intersect._cluster_pairs(O, D, geom, limit, groups[0][2])
+
+
+def pair_bytes(sw, rows, tables, C):
+    """Bytes a clustered entry reads once on the pair search sw: the rays'
+    planes, the pairs, the rows and the record and instance tables."""
+    n_inst = tables[3].shape[0]
+    return (sw["Op"].shape[1] * 24 + sw["rays"].shape[0] * 16 + rows.numel() * 4
+            + C * (12 if tables[2] is not None else 8) + n_inst * 52)
+
+
+def first_hit_tests(torch, blocks, width):
+    """Triangle tests of a sweep that stops at a ray's (or pair's) first
+    occluder: blocks yields (first row of the block, (rows, n) occluder
+    hits) in row order; each column counts its rows up to its first hit,
+    all `width` where it has none."""
+    first = None
+    for lo, occ in blocks:
+        f = torch.where(occ.any(0), occ.to(torch.int8).argmax(0) + lo, width)
+        first = f if first is None else torch.minimum(first, f)
+    return int(torch.where(first < width, first + 1, width).sum())
+
+
+def w1_occluded(torch, name, geom, O, L, shadow, md, flat=False, timed=False):
+    """W1's shadow rays against its plain version on the card: clustered
+    (the analytic objects' answer as hit0) or flat; equal on every ray,
+    required.  timed: also W1 alone on this input (`w1_time`), its tests
+    those the data needs (each pair's or ray's rows in order up to its
+    first occluder, by the plain triangle test).  Returns (text, the timed
+    numbers or None)."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import mesh_sweep
+
+    n = O.shape[0]
+    key = "flat_occluded" if flat else "clustered_occluded"
+    off = sum(c for _, _, c in intersect._type_blocks(geom, skip_tris=True))
+    hit0 = intersect.occluded(O, L, analytic_only(geom), shadow, md)
+    T = geom.tri_p1.shape[0]
+    if flat:
+        mask = shadow[off:off + T]
+        k, ms_k = sweep_pair(torch, mesh_sweep.flat_occluded, O, L, geom, mask, md)
+        p, ms_p = sweep_pair(torch, intersect._flat_occluded, O, L, geom, mask, md)
+    else:
+        mask = shadow[off:]
+        k, ms_k = sweep_pair(torch, mesh_sweep.clustered_occluded, O, L, geom,
+                             mask, md, hit0)
+        p, ms_p = sweep_pair(torch, intersect._clustered_occluded, O, L, geom,
+                             mask, md, hit0)
+    eq = float((k == p).float().mean())
+    W1["max_abs_err"][key] = max(W1["max_abs_err"][key], float(eq < 1.0))
+    require(eq == 1.0, f"W1 {name}: occluded equal on {eq}")
+    text = (f"{name}: {n} rays ({float(p.float().mean()):.4f} occluded), "
+            f"occluded equal {eq}, wrapper {ms_k:.2f} ms"
+            f"{'' if flat else ' (pair search included)'}, plain {ms_p:.1f} ms")
+    if not timed:
+        return text, None
+    rows, tables = mesh_sweep.scene_tables(geom)
+    if flat:
+        fn = lambda: mesh_sweep._flat_occluded_launch(O, L, geom, mask, md)
+        Op, Lp = intersect.planes(O), intersect.planes(L)
+        tests = first_hit_tests(torch, (
+            (lo, (intersect.intersect_triangles(Op, Lp, *blk)[0] < md[None, :])
+             & mask[lo:lo + blk[0].shape[0], None])
+            for lo, blk in intersect._blocks(intersect._tri_tables(geom), T,
+                                             intersect._tri_block_size(n))), T)
+        # rays, max_dist and rows read once, mask bits once, occluded written
+        n_bytes = n * 28 + T * (mesh_sweep.ROW * 4 + 1) + n
+    else:
+        C = geom.tri_cl_lo.shape[0]
+        B = intersect.TRI_CLUSTER_SIZE
+        sw = one_pair_search(torch, name, O, L, geom, torch.where(hit0, 0.0, md))
+        npad = sw["Op"].shape[1]
+        mdp = torch.cat([md.to(torch.float32), md.new_zeros((npad - n,))])
+        fn = lambda: mesh_sweep.occluded_pairs(sw, rows, tables, mdp, mask)
+        require(torch.equal(hit0 | (fn()[:n] > 0), k),
+                f"W1 {name}: the timed call differs")
+        # each pair a column of its cluster's rows (`_occluded_group`)
+        mask_p = torch.cat([mask, mask.new_zeros((B,))])
+        j = torch.arange(B, device=O.device)[:, None]
+        tests = sum(first_hit_tests(torch, [(0, (
+            intersect.intersect_triangles(Oc, Dc, *blk)[0]
+            < mdp.index_select(0, r)[None, :]) & mask_p[virt[None, :] + j])], B)
+            for r, _, Oc, Dc, blk, virt in intersect._cluster_blocks(geom, sw))
+        n_bytes = (pair_bytes(sw, rows, tables, C) + npad * 8  # max_dist, hits
+                   + mask.numel())
+    more, numbers = w1_time(torch, key, name, fn, tests, n_bytes, ms_p)
+    return text + more, numbers
+
+
 def mesh_phase(torch, dev):
-    """The meshes (examples/torch_mesh.py, plain torch on the card): the
-    three mesh examples at 400x300 x 16 spp through Scene.render, repeats
-    bit-equal, every chunk on CUDA, no kernel launched, each profiled by
-    stage with the clustered sweep's syncs, device events and rate; the
+    """The meshes (examples/torch_mesh.py, the wavefront on the card, its
+    triangles swept by W1): the three mesh examples at 400x300 x 16 spp
+    through Scene.render, repeats bit-equal, every chunk on CUDA, no K1 /
+    K2 launch and W1 launched, each profiled by stage with the clustered
+    sweep's syncs, device events and rate; W1 against its plain version
+    bit for bit on the icosphere's camera rays at the render's chunk,
+    their first bounce and shadow rays (clustered and flat) and the
+    instance field's camera rays, timed alone at the camera rays; the
     clustered sweep against the flat sweep over the same leaf-ordered
-    tables on the icosphere's camera rays, their first bounce and shadow
-    rays; the icosphere on the card against the CPU; the instance field
-    against the same field baked into TriangleMesh copies; a 20-face flat
-    mesh inside the gate through the solid kernel (bit for bit against
-    its plain version) and through the wavefront.  Returns (the solid
-    kernel's launches in that render, its max abs error)."""
+    tables on the same rays; the icosphere on the card against the CPU;
+    the instance field against the same field baked into TriangleMesh
+    copies; a 20-face flat mesh inside the gate through the solid kernel
+    (bit for bit against its plain version) and through the wavefront.
+    Returns (the solid kernel's launches in that render, its max abs
+    error)."""
     import dataclasses
 
     import numpy as np
@@ -1491,8 +1717,8 @@ def mesh_phase(torch, dev):
         require(route(static, settings) == "wavefront",
                 f"{name}: not the wavefront route")
         chunk, n_chunks = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)
-        runs, devices, k_launches, peak = routed_renders(torch, dev, sc,
-                                                         MESH_SPP, n, seed=7)
+        runs, devices, k_launches, peak, w1 = routed_renders(torch, dev, sc,
+                                                             MESH_SPP, n, seed=7)
         img, stats, _ = runs[-1]
         walls = [w for _, _, w in runs]
         wall = statistics.median(walls[1:])
@@ -1505,7 +1731,8 @@ def mesh_phase(torch, dev):
               f"instances, corner attributes {static.tri_interp} | {n_chunks} "
               f"chunks of {chunk} spp, {settings.max_bounces} bounces, "
               f"{len(devices)} wavefront chunks on {sorted(set(devices))}, "
-              f"kernel launches {k_launches} | wall {wall:.4f} s (median of "
+              f"K1 / K2 launches {k_launches}, W1 launches {w1} ({w1 // n} a "
+              f"render) | wall {wall:.4f} s (median of "
               f"{n - 1} after a warm-up; {', '.join(f'{w:.4f}' for w in walls)}) | "
               f"rays_traced {stats['rays_traced']} | "
               f"{stats['rays_traced'] / wall / 1e6:.2f} Mrays/s | peak "
@@ -1513,7 +1740,8 @@ def mesh_phase(torch, dev):
               f"seed 7 bit-equal: {bit_equal}", flush=True)
         require(devices == ["cuda"] * (n * n_chunks),
                 f"{name}: wavefront chunks ran on {devices}")
-        require(k_launches == 0, f"{name}: {k_launches} kernel launches")
+        require(k_launches == 0, f"{name}: {k_launches} K1 / K2 launches")
+        require(w1 > 0, f"{name}: W1 never launched")
         require(bit_equal, f"{name}: the same seed gave different images")
         require(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
                 and img.mean() > 0, f"{name}: image not finite, empty or of "
@@ -1523,7 +1751,9 @@ def mesh_phase(torch, dev):
         del runs
         torch.cuda.empty_cache()
 
-    # ---- the clustered sweep against the flat sweep on the card ----
+    # ---- W1 against its plain version, and the clustered sweep against
+    # the flat sweep, on the card: the icosphere's camera rays at the
+    # render's chunk, their first bounce and shadow rays ----
     sc = build("icosphere", W, H)
     static, data = compile_wavefront(sc)
     data = data.to(dev)
@@ -1532,10 +1762,16 @@ def mesh_phase(torch, dev):
                  tri_cl_start=geom.tri_cl_start[:0],
                  tri_cl_virt=geom.tri_cl_virt[:0])
     flat = dataclasses.replace(geom, **empty)
+    chunk_spp = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)[0]
     g = torch.Generator(device=dev).manual_seed(3)
-    O, D = generate_rays(g, sc.camera.params(), W, H, SWEEP_SPP)
-    rows, times = [], {}
+    O, D = generate_rays(g, sc.camera.params(), W, H, chunk_spp)
+    rows, holds = [], []
     for what in ("camera rays", "first bounce"):
+        text, timed = w1_nearest(torch, f"icosphere {what}", geom, O, D,
+                                 timed=what == "camera rays")
+        holds.append(text)
+        if timed:
+            W1["timed"]["clustered_nearest"] = timed
         (t_c, o_c, id_c), ms_c = sweep_pair(torch, intersect.nearest_hit, O, D, geom)
         (t_f, o_f, id_f), ms_f = sweep_pair(torch, intersect.nearest_hit, O, D, flat)
         t_eq = bool(torch.equal(t_c, t_f))
@@ -1544,7 +1780,6 @@ def mesh_phase(torch, dev):
         rows.append(f"{what}: {O.shape[0]} rays ({float(hit.float().mean()):.4f} "
                     f"hit), t bit-equal {t_eq}, winner equal {win:.6f}, "
                     f"clustered {ms_c:.1f} ms vs flat {ms_f:.1f} ms")
-        times[what] = (ms_c, ms_f)
         require(t_eq, f"clustered vs flat, {what}: t differs")
         require(win >= WINNER_RATE, f"clustered vs flat, {what}: winners {win}")
         # the first bounce: mirror continuations of the rays that hit
@@ -1556,6 +1791,12 @@ def mesh_phase(torch, dev):
     # shadow rays toward the directional light from the first bounce's hits
     L = data.lights.dir_l[0].expand(O.shape).contiguous()
     md = torch.full((O.shape[0],), SKYBOX_DISTANCE, device=dev)
+    text, W1["timed"]["clustered_occluded"] = w1_occluded(
+        torch, "icosphere shadow rays", geom, O, L, data.obj.shadow, md,
+        timed=True)
+    holds.append(text)
+    holds.append(w1_occluded(torch, "icosphere shadow rays, flat", flat, O, L,
+                             data.obj.shadow, md, flat=True)[0])
     occ_c, ms_c = sweep_pair(torch, intersect.occluded, O, L, geom,
                              data.obj.shadow, md)
     occ_f, ms_f = sweep_pair(torch, intersect.occluded, O, L, flat,
@@ -1564,11 +1805,23 @@ def mesh_phase(torch, dev):
     rows.append(f"shadow rays: {O.shape[0]} rays ({float(occ_c.float().mean()):.4f} "
                 f"occluded), equal {occ_eq:.6f}, clustered {ms_c:.1f} ms vs "
                 f"flat {ms_f:.1f} ms")
-    print(f"mesh clustered vs flat sweep: icosphere, {static.n_tris} triangles "
-          f"in leaf order, {geom.tri_cl_lo.shape[0]} clusters | "
+    print(f"mesh clustered vs flat sweep (both W1): icosphere, {static.n_tris} "
+          f"triangles in leaf order, {geom.tri_cl_lo.shape[0]} clusters | "
           + " | ".join(rows), flush=True)
     require(occ_eq >= WINNER_RATE, f"clustered vs flat, shadow rays: {occ_eq}")
     del O, D, P, N, L, md, data, geom, flat
+    torch.cuda.empty_cache()
+    # the instance field's camera rays
+    sc = build("instances", W, H)
+    data = compile_wavefront(sc)[1].to(dev)
+    chunk_spp = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)[0]
+    O, D = generate_rays(torch.Generator(device=dev).manual_seed(4),
+                         sc.camera.params(), W, H, chunk_spp)
+    text, timed = w1_nearest(torch, "instance field camera rays", data.geom, O,
+                             D, timed=True)
+    holds.append(text)
+    print(f"mesh W1 vs plain: {' | '.join(holds)}", flush=True)
+    del O, D, data
     torch.cuda.empty_cache()
 
     # ---- the icosphere on the card against the CPU ----
@@ -1727,10 +1980,14 @@ def features_phase(torch, dev, cornell_img):
     import torch_features
     from raytracer_tpu_torch import animation
     from raytracer_tpu_torch.core import scene as scene_mod
+    from raytracer_tpu_torch.core.camera import generate_rays
     from raytracer_tpu_torch.core.compile import compile_wavefront
     from raytracer_tpu_torch.core.scene import route
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import mesh_sweep
     from raytracer_tpu_torch.parallel import sharded as sharded_mod
     from raytracer_tpu_torch.utils.colour import srgb_linear_to_srgb
+    from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD, SKYBOX_DISTANCE
     from torch_cornellbox import build_cornell
 
     t_phase = time.perf_counter()
@@ -1790,14 +2047,44 @@ def features_phase(torch, dev, cornell_img):
              NMAP_CPU)):
         sc = build(W, H)
         require(on_wavefront(sc), f"{name}: not the wavefront route")
+        mesh_sweep.reset_launches()
         img, n, _, wall, peak = spied(torch, scene_mod, (), lambda: sc.render(
             spp, output="linear", device=dev, seed=1))
+        w1 = mesh_sweep.launches()
         require(n == (0, 0) and bool(np.isfinite(img).all()),
                 f"{name}: launches {n} or non-finite image")
+        parent = ""
+        if name == "normal maps":
+            # its 192 faces take the flat sweep: W1's flat entries
+            require(w1 > 0, "normal maps: W1 never launched")
+            w1_launches(mesh_sweep)
+            parent = (f" (the plain sweep: {NMAP_PLAIN[0]} s, "
+                      f"{NMAP_PLAIN[1]} GiB), W1 launches {w1}")
         print(f"features {name}: {W}x{H} x {spp} spp {wall:.4f} s, peak "
-              f"{peak:.2f} GiB, image mean {img.mean():.6f} | "
+              f"{peak:.2f} GiB{parent}, image mean {img.mean():.6f} | "
               + card_vs_cpu(torch, dev, name, build, cpu[2], draws, cpu[:2]),
               flush=True)
+        if name == "normal maps":
+            static, data = compile_wavefront(sc)
+            data = data.to(dev)
+            chunk_spp = scene_mod.plan_chunks(spp * sc._diffuse_fan(), W, H)[0]
+            O, D = generate_rays(torch.Generator(device=dev).manual_seed(5),
+                                 sc.camera.params(), W, H, chunk_spp)
+            text, W1["timed"]["flat_nearest"] = w1_nearest(
+                torch, "camera rays", data.geom, O, D, flat=True, timed=True)
+            t, _, _ = intersect.nearest_hit(O, D, data.geom)
+            hit = t < MISS_THRESHOLD
+            O = (O + D * t[:, None])[hit]
+            L = data.lights.dir_l[0].expand(O.shape).contiguous()
+            O = O + L * 1e-4
+            md = torch.full((O.shape[0],), SKYBOX_DISTANCE, device=dev)
+            shadow, W1["timed"]["flat_occluded"] = w1_occluded(
+                torch, "shadow rays from the hits", data.geom, O, L,
+                data.obj.shadow, md, flat=True, timed=True)
+            print(f"features normal maps, W1's flat sweep vs plain: "
+                  f"{data.geom.tri_p1.shape[0]} triangle rows | {text} | "
+                  f"{shadow}", flush=True)
+            del data, O, D, t, L, md
 
     # ---- render_denoised: Cornell through the solid kernel, the AOV pass
     # and the filter, against the main path's 256-spp image ----
@@ -1938,7 +2225,8 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
     from raytracer_tpu_torch.parallel.multihost import render_multihost
     from raytracer_tpu_torch.parallel.sharded import make_mesh
     from torch_cornellbox import build_cornell
-    from torch_inverse_rendering import TRUE_N, build_scene
+    from raytracer_tpu_torch.ops import mesh_sweep
+    from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
 
     t_phase = time.perf_counter()
     launches, errs = [0, 0], [0.0, 0.0]
@@ -1992,6 +2280,36 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
     require(bool(np.isclose(fd, float(g1[0, 0]), rtol=FD_RTOL)),
             f"diff: gradient {float(g1[0, 0])} vs central difference {fd}")
     del fn, data, img, g1, g2
+    torch.cuda.empty_cache()
+
+    # ---- the gradient through W1: the same scene with the glass sphere as
+    # a clustered icosphere mesh (1,280 faces); W1 has no backward, so
+    # nearest_hit recomputes its winners' t (intersect.winner_t) ----
+    (WORK / "mesh").mkdir(parents=True, exist_ok=True)
+    fn, data = differentiable_render(
+        build_mesh_scene(TRUE_N, DIFF_W, DIFF_H, WORK / "mesh"), DIFF_SPP,
+        seed=0, device=dev)
+    require(data.geom.tri_cl_lo.shape[0] > 0, "diff mesh: no clusters")
+    n0 = data.mats.refr_n_re
+    mesh_sweep.reset_launches()
+    gm, fbm_s, fbm_gib = measured(grad)
+    w1 = w1_launches(mesh_sweep)
+    with torch.no_grad():
+        e = torch.zeros_like(n0)
+        e[0, 0] = FD_EPS
+        fd = float((loss(n0 + e) - loss(n0 - e)) / (2 * FD_EPS))
+    print(f"diff mesh: differentiable_render {DIFF_W}x{DIFF_H} x {DIFF_SPP} spp "
+          f"of the inverse-rendering scene with a 1,280-face glass icosphere "
+          f"({data.geom.tri_cl_lo.shape[0]} clusters) | forward + backward "
+          f"{fbm_s:.4f} s, peak {fbm_gib:.3f} GiB, W1 launches {w1} | d loss / "
+          f"d refr_n_re[0,0] {float(gm[0, 0]):.6e}, central difference "
+          f"{fd:.6e} (eps {FD_EPS}, rtol {FD_RTOL})", flush=True)
+    require(w1 > 0, "diff mesh: W1 never launched")
+    require(bool(torch.isfinite(gm).all()), "diff mesh: non-finite gradient")
+    require(float(gm.abs().max()) > 1e-5, "diff mesh: the gradient is zero")
+    require(bool(np.isclose(fd, float(gm[0, 0]), rtol=FD_RTOL)),
+            f"diff mesh: gradient {float(gm[0, 0])} vs central difference {fd}")
+    del fn, data, gm
     torch.cuda.empty_cache()
 
     # ---- Cornell over a 4x1 mesh of cuda:0 shards: K1 on each ----
@@ -2392,7 +2710,40 @@ def main():
               f"{scene} chunk: {res['bound_ms']:.4f} ms ({res['bound_by']}), kernel "
               f"{res['kernel_ms']:.3f} ms, share {res['share']:.4f}", flush=True)
 
-    print(json.dumps({"kernels": [solid_row, record_row] + probe_rows}, default=float))
+    # W1, a row an entry at the held input it was timed on: its bound from
+    # the triangle tests that input needs at the issue slots of one test,
+    # read off the SASS of its sweep kernel's loop (the instructions a pass
+    # issues on the path of a row that is no hit, over the tests a pass
+    # makes: one division, FCHK, a test), and its bytes; beside the
+    # clustered nearest's, the same tests at isect_cost's measured cost of
+    # the render kernels' triangle test, whose loop does more
+    from raytracer_tpu_torch.ops import cuda_build
+    from raytracer_tpu_torch.probes import common
+    sass = common.cuobjdump_sass(cuda_build.library_path("kernels"))
+    w1_rows = []
+    for key, (kernel, replaces) in W1_ENTRIES.items():
+        tm, launches = W1["timed"][key], W1["launches"][key]
+        issued, passes = common.loop_issue(sass, kernel, "FCHK")
+        slots = issued / passes
+        row = common.row(f"mesh_sweep {key} (W1)", "mesh_sweep.cu", replaces,
+                         launches, W1["max_abs_err"][key], tm["ms"],
+                         tm["plain_ms"], tm["tests"] * slots, tm["bytes"])
+        w1_rows.append(row)
+        beside = ""
+        if key == "clustered_nearest":
+            k1_ms = common.bound(tm["tests"] * W1["tri_slots"], tm["bytes"])[0]
+            beside = (f" | at isect_cost's {W1['tri_slots']:.2f} measured slots "
+                      f"of the render kernels' test {k1_ms:.4f} ms")
+        print(f"W1 {key} bound at the {tm['name']} ({tm['tests']} triangle "
+              f"tests at {slots:.2f} slots a test, {kernel}'s loop issuing "
+              f"{issued} instructions a pass of {passes} tests, {tm['bytes']} "
+              f"bytes): {row['bound_ms']:.4f} ms ({row['bound_by']}), W1 "
+              f"{tm['ms']:.4f} ms, share {row['bound_ms'] / tm['ms']:.4f}, plain "
+              f"{tm['plain_ms']:.1f} ms{beside} | {launches} launches in the "
+              f"driven renders", flush=True)
+        require(launches > 0, f"W1 {key} never launched in the driven renders")
+    print(json.dumps({"kernels": [solid_row, record_row, *w1_rows] + probe_rows},
+                     default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

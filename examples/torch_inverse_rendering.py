@@ -12,7 +12,8 @@ forward and backward pass a step.
 Prints a line every ten steps, then one JSON line (steps, the mean step
 wall after the first, the recovered IoR); --out DIR writes
 INVERSE_target.png / _start.png / _final.png there.  `build_scene(n, W,
-H, m=)` builds the scene with either package.
+H, m=)` builds the scene with either package, `build_mesh_scene` the
+same scene with the glass sphere as a clustered icosphere mesh.
 """
 
 import argparse
@@ -44,6 +45,32 @@ def build_scene(n, width, height, m=None):
                                                    n + 1e-6j)),
                     center=m.vec3(0, 0, 0), radius=0.55, shadow=False,
                     max_ray_depth=3))
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.9, 0.55, 0.25)),
+                    center=m.vec3(-14, 6, -8), radius=12.0, shadow=False))
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.2, 0.45, 0.9)),
+                    center=m.vec3(14, -6, -8), radius=12.0, shadow=False))
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.05, 0.05, 0.07)),
+                    center=m.vec3(0, 0, 0), radius=40.0, shadow=False))
+    return sc
+
+
+def build_mesh_scene(n, width, height, obj_dir, subdiv=3, m=None):
+    """build_scene with the glass sphere as a smooth icosphere mesh of the
+    same radius (20 * 4**subdiv faces; 1,280 by default, past
+    TRI_CLUSTER_THRESHOLD, so the wavefront sweeps it in clusters).  The
+    OBJ file is written into obj_dir."""
+    import torch_mesh
+
+    m = m or T
+    path = str(Path(obj_dir) / f"icosphere{subdiv}.obj")
+    torch_mesh.write_icosphere_obj(path, subdiv=subdiv)
+    sc = m.Scene()
+    sc.add_Camera(look_from=m.vec3(0, 0, 2), look_at=m.vec3(0, 0, -1),
+                  screen_width=width, screen_height=height, field_of_view=35)
+    sc.add(m.TriangleMesh(path, center=m.vec3(0, 0, 0), scale=0.55,
+                          material=m.Refractive(n=m.vec3(n + 1e-6j, n + 1e-6j,
+                                                         n + 1e-6j)),
+                          shadow=False, max_ray_depth=3, smooth=True))
     sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.9, 0.55, 0.25)),
                     center=m.vec3(-14, 6, -8), radius=12.0, shadow=False))
     sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.2, 0.45, 0.9)),

@@ -39,6 +39,14 @@ order (its strict `<`); the blocks fold into the same (t, rank) minimum,
 so their order does not matter.  SWEEP_STATS counts the clustered
 sweeps, their syncs, the physical clusters run and the pairs swept; each
 sweep runs under the profiler range "wavefront.clustered_sweep".
+
+The triangle sweeps, clustered and flat, go through the wrappers of
+ops/mesh_sweep.py: on CUDA tensors the hand-written kernel W1
+(csrc/mesh_sweep.cu), on CPU tensors the plain versions here
+(`_clustered_nearest`, `_clustered_occluded`, `_flat_nearest`,
+`_flat_occluded`), which W1 equals bit for bit.  W1 has no backward:
+where autograd needs the hit distance, `nearest_hit` recomputes it for
+each ray's winning triangle only (`winner_t`), bit-equal to W1's.
 """
 
 from __future__ import annotations
@@ -262,6 +270,96 @@ def _blocked_tri_scan(O, D, geom, body_reduce, state):
         t, o = intersect_triangles(O, D, *(x[base:base + B] for x in tabs))
         state = body_reduce(t, o, base, state)
     return state
+
+
+def _reduce_nearest(t, o, base, state):
+    """The flat sweep's fold: winner and orientation by a max over packed
+    codes of the rows at the block's minimum (intersect.py:522-530), a
+    strict `<` across blocks."""
+    bt, bcode = state
+    tm = torch.amin(t, dim=0)
+    row2 = (torch.arange(t.shape[0], dtype=torch.int64, device=t.device)
+            * 2)[:, None]
+    code = (base * 2 + row2) + (o < 0).to(torch.int64)
+    cm = torch.amax(torch.where(t == tm[None, :], code, -1), dim=0)
+    better = tm < bt
+    return torch.where(better, tm, bt), torch.where(better, cm, bcode)
+
+
+def _flat_nearest(O, D, geom):
+    """(t, packed code) of each ray's nearest triangle over every row, in
+    blocks of _tri_block_size(N) rows: code = row * 2 + (orient < 0), -1
+    and FARAWAY on a miss.  The plain version of W1's flat nearest."""
+    n = O.shape[0]
+    return _blocked_tri_scan(
+        planes(O), planes(D), geom, _reduce_nearest,
+        (torch.full((n,), FARAWAY, dtype=O.dtype, device=O.device),
+         torch.full((n,), -1, dtype=torch.int64, device=O.device)))
+
+
+def _flat_occluded(O, D, geom, tri_mask, max_dist):
+    """True where a triangle row whose tri_mask bit is set lies nearer
+    than max_dist, in blocks of _tri_block_size(N) rows.  The plain
+    version of W1's flat occluded."""
+    n = O.shape[0]
+    Op, Dp = planes(O), planes(D)
+    md = max_dist[None, :]
+    hit = torch.zeros((n,), dtype=torch.bool, device=O.device)
+    for lo, blk in _blocks(_tri_tables(geom), geom.tri_p1.shape[0],
+                           _tri_block_size(n)):
+        t, _ = intersect_triangles(Op, Dp, *blk)
+        m = tri_mask[lo:lo + t.shape[0]]
+        hit = hit | torch.any((t < md) & m[:, None], dim=0)
+    return hit
+
+
+def needs_grad(O, D, geom):
+    """Whether autograd records a function of the triangle sweep's t:
+    grad is enabled and the rays, a triangle table or an instance table
+    require it."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (O, D, *_tri_tables(geom), geom.inst_rot,
+                                  geom.inst_trans, geom.inst_inv_scale))
+
+
+def winner_rows(geom, code, rec=None):
+    """(physical row, instance or None) of each ray's winning triangle
+    (packed code; rays that missed get row 0).  rec: each ray's winning
+    cluster record (W1's clustered nearest), whose first physical row,
+    first virtual id and instance place the winner; None for the flat
+    sweep, whose code is the row."""
+    v = torch.clamp_min(code, 0) >> 1
+    if rec is None:
+        return v, None
+    r = torch.clamp_min(rec, 0)
+    row = (geom.tri_cl_start.index_select(0, r).to(torch.int64) + v
+           - geom.tri_cl_virt.index_select(0, r).to(torch.int64))
+    row = torch.where(code >= 0, row, 0)
+    inst = (geom.tri_cl_inst.index_select(0, r).to(torch.int64)
+            if geom.inst_rot.shape[0] else None)
+    return row, inst
+
+
+def winner_t(O, D, geom, code, row, inst=None):
+    """t of each ray (N,) against its winning triangle, physical `row` in
+    the object space of instance `inst` (None: world; see winner_rows),
+    recomputed with intersect_triangles' operations so that autograd sees
+    it: the triangle sweep's t bit for bit, with its gradient; FARAWAY
+    where code < 0.  Rays that missed are given a harmless ray, so that
+    their dropped t keeps a finite gradient of 0."""
+    hit = code >= 0
+    normal = geom.tri_normal.index_select(0, row)
+    centroid = geom.tri_centroid.index_select(0, row)
+    h = hit[:, None]
+    Oc = torch.where(h, O, 0.0).t()
+    Dc = torch.where(h, D, 1.0).t()
+    if inst is not None:
+        Oc, Dc = _inst_rays(geom, inst, Oc, Dc)
+    n_dot_o = normal[:, 0] * Oc[0] + normal[:, 1] * Oc[1] + normal[:, 2] * Oc[2]
+    n_dot_d = normal[:, 0] * Dc[0] + normal[:, 1] * Dc[1] + normal[:, 2] * Dc[2]
+    ndd = torch.where(n_dot_d == 0.0, n_dot_d + 0.0001, n_dot_d)
+    ndco = (normal * centroid).sum(dim=-1) - n_dot_o
+    return torch.where(hit, torch.abs(ndco / ndd), FARAWAY)
 
 
 def _ray_tiles(n):
@@ -542,35 +640,23 @@ def nearest_hit(O, D, geom):
         off += count
     if not geom.tri_p1.shape[0]:
         return best_t, best_o, best_id
+    from ..ops import mesh_sweep
+
+    rec = None
     if geom.tri_cl_lo.shape[0]:
         with record_function("wavefront.clustered_sweep"):
-            tri_t, tri_code = _clustered_nearest(O, D, geom, best_t)
-        better = tri_t < best_t
-        return (torch.where(better, tri_t, best_t),
-                torch.where(better, _orient((tri_code & 1) == 0), best_o),
-                torch.where(better, (tri_code >> 1) + off, best_id))
-
-    def reduce_nearest(t, o, base, state):
-        # winner and orientation by a max over packed codes of the rows at
-        # the minimum (intersect.py:522-530)
-        bt, bcode = state
-        tm = torch.amin(t, dim=0)
-        row2 = (torch.arange(t.shape[0], dtype=torch.int64, device=t.device)
-                * 2)[:, None]
-        code = (base * 2 + row2) + (o < 0).to(torch.int64)
-        cm = torch.amax(torch.where(t == tm[None, :], code, -1), dim=0)
-        better = tm < bt
-        return torch.where(better, tm, bt), torch.where(better, cm, bcode)
-
-    tri_t, tri_code = _blocked_tri_scan(
-        Op, Dp, geom, reduce_nearest,
-        (torch.full_like(best_t, FARAWAY), torch.full_like(best_id, -1)))
+            tri_t, tri_code, rec = mesh_sweep.clustered_nearest(O, D, geom,
+                                                                best_t)
+    else:
+        tri_t, tri_code = mesh_sweep.flat_nearest(O, D, geom)
+    if O.device.type != "cpu" and needs_grad(O, D, geom):
+        # W1 has no backward: its winners' t again, in plain torch
+        tri_t = winner_t(O, D, geom, tri_code,
+                         *winner_rows(geom, tri_code, rec))
     better = tri_t < best_t
-    tri_o = _orient((tri_code & 1) == 0)
-    best_t = torch.where(better, tri_t, best_t)
-    best_o = torch.where(better, tri_o, best_o)
-    best_id = torch.where(better, (tri_code >> 1) + off, best_id)
-    return best_t, best_o, best_id
+    return (torch.where(better, tri_t, best_t),
+            torch.where(better, _orient((tri_code & 1) == 0), best_o),
+            torch.where(better, (tri_code >> 1) + off, best_id))
 
 
 def occluded(O, D, geom, shadow_obj_mask, max_dist):
@@ -582,21 +668,26 @@ def occluded(O, D, geom, shadow_obj_mask, max_dist):
     md = max_dist[None, :]
     hit = torch.zeros((n,), dtype=torch.bool, device=O.device)
     off = 0
-    clustered = geom.tri_cl_lo.shape[0] > 0
-    for fn, tabs, count in _type_blocks(geom, skip_tris=clustered):
-        B = _tri_block_size(n) if fn is intersect_triangles else object_block(n)
-        for lo, blk in _blocks(tabs, count, B):
+    for fn, tabs, count in _type_blocks(geom, skip_tris=True):
+        for lo, blk in _blocks(tabs, count, object_block(n)):
             t, _ = fn(Op, Dp, *blk)
             m = shadow_obj_mask[off + lo:off + lo + t.shape[0]]
             hit = hit | torch.any((t < md) & m[:, None], dim=0)
         off += count
-    if clustered:
+    T = geom.tri_p1.shape[0]
+    if not T:
+        return hit
+    from ..ops import mesh_sweep
+
+    if geom.tri_cl_lo.shape[0]:
         # the triangle part of the id space (virtual under instancing)
         # runs to the end of the mask
         with record_function("wavefront.clustered_sweep"):
-            return _clustered_occluded(O, D, geom, shadow_obj_mask[off:],
-                                       max_dist, hit)
-    return hit
+            return mesh_sweep.clustered_occluded(
+                O, D, geom, shadow_obj_mask[off:], max_dist, hit)
+    return hit | mesh_sweep.flat_occluded(O, D, geom,
+                                          shadow_obj_mask[off:off + T],
+                                          max_dist)
 
 
 def intersect_all(O, D, geom):

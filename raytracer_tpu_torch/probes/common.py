@@ -6,7 +6,11 @@ library."""
 from __future__ import annotations
 
 import ctypes
+import os
+import re
+import shutil
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -144,3 +148,56 @@ def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def cuobjdump_sass(path):
+    """The SASS of a built library, as `cuobjdump -sass` prints it (the
+    CUDA toolkit's cuobjdump, on PATH or under CUDA_HOME)."""
+    exe = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    return subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+_SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)([^;]*);")
+
+
+def loop_issue(sass, kernel, per):
+    """(instructions, count of `per`) of one pass of the main loop of the
+    kernel whose name holds `kernel`, read from `cuobjdump_sass` text.  The
+    main loop is the backward branch whose body holds the most `per`
+    instructions (the widest on a tie).  Its instructions are those a pass
+    issues on its shortest path: the body less every stretch that a
+    forward branch inside it jumps over (a division's slow path, an update
+    that a pass does not make).  Every instruction takes one issue slot of
+    a warp scheduler, so instructions / `per` is the issue cost of one
+    `per`-op's work, a full warp's lane at the FP32 rate."""
+    body, cur = [], False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = kernel in m.group(1)
+            continue
+        m = _SASS.search(line) if cur else None
+        if m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    if not body:
+        raise ValueError(f"no SASS of a kernel named like {kernel!r}")
+    branches = []
+    for addr, op, rest in body:
+        t = re.search(r"(0x[0-9a-f]+)\s*$", rest.strip())
+        if op == "BRA" and t:
+            branches.append((addr, int(t.group(1), 16)))
+    loops = [(sum(op == per for a, op, _ in body if lo <= a <= hi), hi - lo, lo, hi)
+             for hi, lo in branches if lo < hi]
+    if not loops or max(loops)[0] == 0:
+        raise ValueError(f"{kernel}: no loop holding {per}")
+    _, _, lo, hi = max(loops)
+    skipped = set()
+    for a, t in branches:
+        if lo <= a < t <= hi:
+            skipped.update(x for x, _, _ in body if a < x < t)
+    inside = [(a, op) for a, op, _ in body if lo <= a <= hi]
+    return (sum(a not in skipped for a, _ in inside),
+            sum(op == per for _, op in inside))
+

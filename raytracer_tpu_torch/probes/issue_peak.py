@@ -23,12 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
 import re
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -221,10 +217,7 @@ def sass_counts(prefixes=("probe_tree", "probe_chain")):
     """{kernel: {opcode: static count}} of the probe kernels whose names
     start with `prefixes`, from cuobjdump -sass of the built library:
     the opcodes of SASS_OPS, every other instruction under "other"."""
-    exe = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
-    out = subprocess.run([exe, "-sass", str(library_path("probes"))],
-                         capture_output=True, text=True, check=True).stdout
+    out = common.cuobjdump_sass(library_path("probes"))
     counts, cur = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\w+)", line)

@@ -14,8 +14,10 @@ each), and prints one JSON line: the frames' walls, their medians and
 rays_traced.  The frames are chip_smoke.py's main paths: the reference
 Cornell box at 400x400 x 256 spp (the solid kernel) and example 2 at
 400x300 x 64 spp (the record kernel).  The last line of the parent is one
-JSON object with every child's result and, per root, the median over its
-children of each frame's median; also written to OUT.json if given.
+JSON object with the card's name and power limit, every child's result
+and, per root, the median over its children of each frame's median;
+also written to OUT.json if given.  `in_turns` is this driver, shared
+with scripts/torch_mesh_ab.py.
 """
 
 import argparse
@@ -57,6 +59,54 @@ def child(root, renders):
     print(json.dumps(out))
 
 
+def show(frames):
+    """A child's frames as text: each frame's median and walls."""
+    return " | ".join(
+        f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])})"
+        for k, v in frames.items())
+
+
+def in_turns(script, roots, args, show, out_path):
+    """Run `script --child ROOT *args` for each root in the order given,
+    one process each, printing show(its frames) as it ends; print and
+    return the parent's last line: the card's name and power limit, every
+    child's result and, per root, the median over its children of each
+    frame's "median_s" (also written to out_path if given).  Exit code 1
+    without a CUDA device, the child's own if one fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    runs = []
+    for root in roots:
+        res = subprocess.run([sys.executable, script, "--child",
+                              str(root.resolve()), *args],
+                             capture_output=True, text=True, timeout=1200)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(f"{root}: {show(runs[-1]['frames'])}", flush=True)
+    summary = {}
+    for run in runs:
+        for name, v in run["frames"].items():
+            summary.setdefault(run["root"], {}).setdefault(name, []).append(
+                v["median_s"])
+    summary = {root: {k: statistics.median(v) for k, v in frames.items()}
+               for root, frames in summary.items()}
+    out = {"device": smi, "runs": runs, "median_of_medians_s": summary}
+    if out_path:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(out, indent=1) + "\n")
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*", type=Path)
@@ -67,41 +117,8 @@ def main(argv):
     if args.child is not None:
         child(args.child.resolve(), args.renders)
         return 0
-    import torch
-
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    runs = []
-    for root in args.roots:
-        res = subprocess.run([sys.executable, __file__, "--child",
-                              str(root.resolve()), "--renders",
-                              str(args.renders)],
-                             capture_output=True, text=True, timeout=1200)
-        if res.returncode:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return res.returncode
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        frames = runs[-1]["frames"]
-        print(f"{root}: " + " | ".join(
-            f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])})"
-            for k, v in frames.items()), flush=True)
-    summary = {}
-    for run in runs:
-        for name, v in run["frames"].items():
-            summary.setdefault(run["root"], {}).setdefault(name, []).append(
-                v["median_s"])
-    summary = {root: {k: statistics.median(v) for k, v in frames.items()}
-               for root, frames in summary.items()}
-    out = {"device": smi, "runs": runs, "median_of_medians_s": summary}
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(out, indent=1) + "\n")
-    print(json.dumps(out))
-    return 0
+    return in_turns(__file__, args.roots, ["--renders", str(args.renders)],
+                    show, args.out)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time the mesh frames of two checkouts of the PyTorch port on one CUDA
+device, in turns, and say where each frame's device time goes.
+
+    python3 scripts/torch_mesh_ab.py [--out OUT.json] ROOT ...
+
+Each ROOT is a checkout (or `git archive` of one) that holds
+raytracer_tpu_torch/ and examples/; the roots run in the order given, one
+child process each (scripts/torch_frame_ab.py `in_turns`), so "A B B A"
+times A and B in alternation.  The frames: the three mesh examples of
+examples/torch_mesh.py (icosphere, beach ball, instance field) and the
+normal-mapped scene of examples/torch_features.py, each at 400x300 x 16
+spp through Scene.render on the wavefront.  A child renders each frame
+once to warm up (W1, where the root has it, is built then) and RENDERS
+times timed (a device sync after each), with the device's peak memory
+over the timed renders; then one render under torch.profiler: the device
+span, busy time and idle share (torch_render_profile.py
+`device_breakdown`), the device time of each "wavefront.*" bounce stage
+(`wavefront_stages`), of the clustered sweep's range (the pair search
+and W1, or the plain fold) and of W1's kernels (the root's
+`mesh_sweep.KERNELS`), and the sweep's (cluster, ray) pairs and its rate
+in triangle tests a second.  It prints one JSON line; the parent's last
+line is `in_turns`'.
+"""
+
+import argparse
+import json
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+from torch_frame_ab import in_turns
+from torch_render_profile import device_breakdown, wavefront_stages
+
+FRAMES = (("icosphere", "torch_mesh", "icosphere"),
+          ("beach_ball", "torch_mesh", "beach_ball"),
+          ("instances", "torch_mesh", "instances"),
+          ("normal_mapped", "torch_features", "normal_mapped"))
+W, H, SPP = 400, 300, 16
+RENDERS = 3
+
+
+def child(root):
+    import importlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path[:0] = [str(root), str(root / "examples")]
+    from raytracer_tpu_torch.geometry import intersect
+    try:
+        from raytracer_tpu_torch.ops.mesh_sweep import KERNELS
+    except ImportError:           # a checkout from before W1
+        KERNELS = ()
+
+    dev = torch.device("cuda:0")
+    obj_dir = tempfile.mkdtemp()
+    out = {"root": str(root), "frames": {}}
+    for name, module, fn in FRAMES:
+        sc = getattr(importlib.import_module(module), fn)(W, H, obj_dir=obj_dir)
+        render = lambda: sc.render(samples_per_pixel=SPP, output="linear",
+                                   return_stats=True, device=dev, seed=7)
+        render()
+        walls = []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(RENDERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, stats = render()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        before = dict(intersect.SWEEP_STATS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        path = Path(obj_dir) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        span, busy, per_name = device_breakdown(events)
+        by_stage = wavefront_stages(events)[0]
+        pairs = intersect.SWEEP_STATS["pairs"] - before["pairs"]
+        syncs = intersect.SWEEP_STATS["syncs"] - before["syncs"]
+        sweep_us = by_stage.get("clustered_sweep", 0.0)
+        w1_us = sum(t for k, (t, _) in per_name.items()
+                    if any(w in k for w in KERNELS))
+        out["frames"][name] = {
+            "walls_s": walls, "median_s": statistics.median(walls),
+            "peak_gib": peak, "rays_traced": int(stats["rays_traced"]),
+            "profiled_wall_s": prof_wall, "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / span if span else None,
+            "stages_ms": {k: v / 1e3 for k, v in sorted(by_stage.items(),
+                                                          key=lambda kv: -kv[1])},
+            "sweep_ms": sweep_us / 1e3, "sweep_share": sweep_us / busy if busy else None,
+            "w1_ms": w1_us / 1e3, "w1_share": w1_us / busy if busy else None,
+            "pairs": pairs, "syncs": syncs,
+            "gtests_per_s_range": pairs * 256 / sweep_us / 1e3 if sweep_us else None,
+            "gtests_per_s_w1": pairs * 256 / w1_us / 1e3 if w1_us else None,
+            "top_kernels_ms": {k[:80]: t / 1e3 for k, (t, _) in sorted(
+                per_name.items(), key=lambda kv: -kv[1][0])[:6]}}
+        del sc
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def show(frames):
+    """A child's frames as text: wall, peak, the sweep's and W1's device
+    time and the idle share."""
+    return " | ".join(
+        f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])}), "
+        f"peak {v['peak_gib']:.2f} GiB, sweep {v['sweep_ms']:.1f} ms "
+        f"({100 * (v['sweep_share'] or 0):.1f}% of busy), W1 {v['w1_ms']:.1f} ms, "
+        f"idle {100 * (v['idle_share'] or 0):.1f}%"
+        for k, v in frames.items())
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="*", type=Path)
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child is not None:
+        child(args.child.resolve())
+        return 0
+    return in_turns(__file__, args.roots, [], show, args.out)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

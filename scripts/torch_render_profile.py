@@ -18,6 +18,7 @@ end-to-end Mrays/s is chip_smoke.py's; this script times no render of
 its own.
 """
 
+import bisect
 import json
 import sys
 import time
@@ -56,6 +57,28 @@ def device_breakdown(trace_events):
         busy += cur_hi - cur_lo
     span = max(hi for _, hi, _ in iv) - iv[0][0]
     return span, busy, dict(per_name)
+
+
+def wavefront_stages(events):
+    """Device busy time (us) and device events under each "wavefront.*"
+    profiler range of a Chrome trace: the kernels and copies inside each
+    of its gpu_user_annotation events (an annotation spans its range's
+    first to last device event, idle gaps included)."""
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    starts = [lo for lo, _ in iv]
+    stages, counts = defaultdict(float), defaultdict(int)
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
+                and str(e.get("name", "")).startswith("wavefront.")):
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            name = e["name"][len("wavefront."):]
+            i = bisect.bisect_left(starts, lo)
+            while i < len(iv) and iv[i][0] < hi:
+                stages[name] += min(iv[i][1], hi) - iv[i][0]
+                counts[name] += 1
+                i += 1
+    return stages, counts
 
 
 def report(trace_path, wall_s, kernel_name):
