@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
-the record kernel and W1, the wavefront's triangle sweep, one nvcc per
-source, started together) from the checkout and drives both kernel paths
-and the wavefront:
+the record kernel, W1, the wavefront's triangle sweep, and W2, its pair
+search, one nvcc per source, started together) from the checkout and
+drives both kernel paths and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -81,16 +81,24 @@ and the wavefront:
   Scene.get_distances of the 98-object grid on the card against the
   CPU;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
-  triangle sweep through W1, csrc/mesh_sweep.cu; corner normals and uvs,
-  mesh instances in plain torch): the icosphere (5,120 faces), the
+  triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
+  csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
+  torch): the icosphere (5,120 faces), the
   textured UV sphere (1,224) and the field of 48 instances (61,440
   virtual triangles) at 400x300 x 16 spp through Scene.render, two or
   three renders of one seed bit-equal, every chunk on CUDA, no K1 / K2
-  launch and W1 launched (its counts set to 0 just before the renders
-  and read just after), with wall, Mrays/s and peak memory, and one
-  profiled render each with the device time by stage and the clustered
-  sweep's share, host syncs and device events a bounce, W1's kernels'
-  device time and the rate in triangle tests a second; W1 against its
+  launch and W1 and W2 launched (their counts set to 0 just before the
+  renders and read just after), with wall, Mrays/s and peak memory, and
+  one profiled render each with the device time by stage and the
+  clustered sweep's share, host syncs (one a sweep, required) and device
+  events a bounce, W1's and W2's kernels' device time and the rate in
+  triangle tests a second; W2 against the plain pair search on the three
+  examples' camera rays at the render's chunk and their first hits'
+  shadow rays: pairs, records, visit ranks, K and the clusters with
+  pairs equal (a share of exactly 1.0), one host sync a search, each
+  timed alone through CUDA graphs (search and write) beside the plain
+  search; W1 over W2's pairs on the beach ball's camera and shadow rays
+  bit for bit against the plain fold; W1 against its
   plain version (geometry/intersect.py) bit for bit, a share of exactly
   1.0, on the icosphere's camera rays at the render's chunk (1.92 M),
   their first bounce and shadow rays (clustered and flat) and the
@@ -175,7 +183,10 @@ and the wavefront:
   or pair's first occluder) at the issue slots of one test, read off
   the SASS of the entry's loop (probes/common.py `loop_issue`), against
   its bytes; beside the clustered nearest's, its tests at isect_cost's
-  measured cost of the render kernels' triangle test.
+  measured cost of the render kernels' triangle test; and the bound of
+  W2 at the instance field's camera rays: one box test a (record, ray)
+  slot at the issue slots read off the SASS of its count kernel's loop,
+  against its bytes.
 
 Each phase and each probe prints one line; any failure exits non-zero
 before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -265,6 +276,15 @@ W1_ENTRIES = {
                       "raytracer_tpu/geometry/intersect.py:421")}
 W1 = {"launches": dict.fromkeys(W1_ENTRIES, 0),
       "max_abs_err": dict.fromkeys(W1_ENTRIES, 0.0), "timed": {}}
+# W2 (csrc/mesh_pairs.cu), the pair search: the CUDA-graph replays of its
+# timing; the kernel whose SASS loop gives the issue slots of a box test,
+# and the instruction counted once a test (the warp's ballot); what the
+# run gathers for its row: launches in the driven mesh renders, the
+# elements that differed from the plain search (0: equal), and its work
+# and times at the instance field's camera rays
+W2_REPS = 5
+W2_LOOP = ("pair_count_kernel", "VOTE")
+W2 = {"launches": 0, "max_abs_err": 0.0, "timed": None}
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -1144,15 +1164,16 @@ def stage_profile(torch, dev, name, sc, spp):
     (core/integrator.py's "wavefront.*" ranges), printed as one line; on a
     scene with triangle clusters also the clustered sweep's (its own range
     inside nearest_hit and the glossy block's shadow rays): its device
-    time and share, its syncs and device events a bounce, the (cluster,
-    ray) pairs it swept and its rate in triangle tests a second, over the
-    range and over W1's kernels alone (their device time and launches by
-    name).  Returns the sweep's numbers (empty without clusters)."""
+    time and share, its syncs (one a sweep, required: W2's) and device
+    events a bounce, the (cluster, ray) pairs it swept and its rate in
+    triangle tests a second, over the range and over W1's kernels alone
+    (their device time and launches by name), and W2's kernels' device
+    time.  Returns the sweep's numbers (empty without clusters)."""
     from torch.profiler import ProfilerActivity, profile
     from torch_render_profile import device_breakdown, wavefront_stages
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.geometry import intersect
-    from raytracer_tpu_torch.ops import mesh_sweep
+    from raytracer_tpu_torch.ops import mesh_pairs, mesh_sweep
 
     static, _, settings = sc._settings_for_render()
     W, H = sc.camera.screen_width, sc.camera.screen_height
@@ -1185,13 +1206,21 @@ def stage_profile(torch, dev, name, sc, spp):
                 if any(w in k for w in mesh_sweep.KERNELS))
     w1_events = sum(c for k, (_, c) in per_name.items()
                     if any(w in k for w in mesh_sweep.KERNELS))
+    w2_us = sum(t for k, (t, _) in per_name.items()
+                if any(w in k for w in mesh_pairs.KERNELS))
     if w1_us:
         line = (f" | W1 kernels {w1_us / 1e3:.2f} ms ({100 * w1_us / busy:.1f}% "
                 f"of busy, {w1_events} launches)")
+    if w2_us:
+        line += (f" | W2 kernels {w2_us / 1e3:.2f} ms ({100 * w2_us / busy:.1f}% "
+                 f"of busy)")
     if sweep_us:
         d = {k: intersect.SWEEP_STATS[k] - before[k] for k in before}
+        require(d["syncs"] == d["sweeps"] > 0, f"{name}: {d['syncs']} host syncs "
+                f"in {d['sweeps']} clustered sweeps (W2 makes one a sweep)")
         sweep = dict(ms=sweep_us / 1e3, share=sweep_us / busy,
                      w1_ms=w1_us / 1e3, w1_share=w1_us / busy,
+                     w2_ms=w2_us / 1e3,
                      syncs_per_bounce=d["syncs"] / bounces,
                      events_per_bounce=sweep_events / bounces,
                      sweeps_per_bounce=d["sweeps"] / bounces,
@@ -1406,9 +1435,10 @@ def wavefront_phase(torch, dev):
 def routed_renders(torch, dev, sc, spp, n, seed):
     """n renders of sc on the card with one seed: ([(image, stats, wall)],
     the devices of the wavefront chunks, the render kernels' launches,
-    peak GiB, W1's launches, added to the run's by entry)."""
+    peak GiB, W1's launches, added to the run's by entry, W2's, added to
+    the run's)."""
     from raytracer_tpu_torch.core import scene as scene_mod
-    from raytracer_tpu_torch.ops import mesh_sweep
+    from raytracer_tpu_torch.ops import mesh_pairs, mesh_sweep
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
 
@@ -1422,6 +1452,7 @@ def routed_renders(torch, dev, sc, spp, n, seed):
     scene_mod.trace = traced
     st.solid_trace_chunk.launches = rt.record_trace_chunk.launches = 0
     mesh_sweep.reset_launches()
+    mesh_pairs.cluster_pairs.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     try:
@@ -1429,8 +1460,11 @@ def routed_renders(torch, dev, sc, spp, n, seed):
     finally:
         scene_mod.trace = trace
     launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
+    w2 = mesh_pairs.cluster_pairs.launches
+    W2["launches"] += w2
     return (runs, devices, launches,
-            torch.cuda.max_memory_allocated(dev) / 2 ** 30, w1_launches(mesh_sweep))
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30, w1_launches(mesh_sweep),
+            w2)
 
 
 def w1_launches(mesh_sweep):
@@ -1673,6 +1707,112 @@ def w1_occluded(torch, name, geom, O, L, shadow, md, flat=False, timed=False):
     return text + more, numbers
 
 
+def w2_hold(torch, name, geom, O, D, limit):
+    """W2 against the plain search on the card, on rays (O, D) under
+    `limit`, one group of tiles: the pairs (rays, records), the visit
+    ranks, K and the physical clusters with pairs equal (a share of
+    exactly 1.0 over the rays, records and ranks) and one host sync,
+    required; then W2 alone through CUDA graphs: its search (five
+    launches) and its write (one), the host sync between them left out.
+    Returns (text, the timed numbers)."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import mesh_pairs
+    from raytracer_tpu_torch.probes import common
+
+    groups = intersect._ray_groups(O.shape[0], geom.tri_cl_lo.shape[0])
+    require(len(groups) == 1, f"W2 {name}: {len(groups)} ray groups")
+    R = groups[0][2]
+    # once each first: a search's first call on a shape makes its tables
+    # and allocates
+    mesh_pairs.cluster_pairs(O, D, geom, limit, R)
+    intersect._cluster_pairs(O, D, geom, limit, R)
+    before = intersect.SWEEP_STATS["syncs"]
+    k, ms_k = sweep_pair(torch, mesh_pairs.cluster_pairs, O, D, geom, limit, R)
+    syncs = intersect.SWEEP_STATS["syncs"] - before
+    p, ms_p = sweep_pair(torch, intersect._cluster_pairs, O, D, geom, limit, R)
+    n_el = eq = 0
+    for key in ("rays", "recs", "rank"):
+        if k[key].shape == p[key].shape:
+            eq += int((k[key] == p[key]).sum())
+        n_el += max(k[key].numel(), p[key].numel())
+    share = eq / max(n_el, 1)
+    K, C, npad = k["rays"].shape[0], geom.tri_cl_lo.shape[0], k["Op"].shape[1]
+    W2["max_abs_err"] = max(W2["max_abs_err"], float(n_el - eq))
+    require(share == 1.0 and K == p["rays"].shape[0]
+            and k["clusters"] == len(p["groups"]),
+            f"W2 {name}: equal share {share}, K {K} vs {p['rays'].shape[0]}, "
+            f"clusters {k['clusters']} vs {len(p['groups'])}")
+    require(syncs == 1, f"W2 {name}: {syncs} host syncs")
+    sw = mesh_pairs._prepare(O, D, geom, limit, R)
+    mesh_pairs._search(sw)
+    sw["rays"] = torch.empty((K,), dtype=torch.int64, device=O.device)
+    sw["recs"] = torch.empty_like(sw["rays"])
+    search_ms = common.graph_ms(lambda: mesh_pairs._search(sw), W2_REPS)[0]
+    write_ms = common.graph_ms(lambda: mesh_pairs._write(sw), W2_REPS)[0] if K else 0.0
+    require(torch.equal(sw["rays"], p["rays"]) and torch.equal(sw["recs"], p["recs"])
+            and torch.equal(sw["rank"], p["rank"]), f"W2 {name}: the timed calls differ")
+    ms = search_ms + write_ms
+    # one box test a (record, ray) slot; the rays, limits and record
+    # tables read once, the pairs and ranks written once
+    tests = C * npad
+    n_bytes = npad * 28 + C * 32 + K * 16 + sw["rank"].numel() * 8
+    timed = dict(name=name, ms=ms, search_ms=search_ms, write_ms=write_ms,
+                 plain_ms=ms_p, wrapper_ms=ms_k, tests=tests, bytes=n_bytes)
+    return (f"{name}: {O.shape[0]} rays x {C} records, {K} pairs "
+            f"({K / tests:.4f} of the slots), {k['clusters']} clusters with "
+            f"pairs, equal share {share} (rays, records, ranks), {syncs} host "
+            f"sync, wrapper {ms_k:.2f} ms, plain {ms_p:.1f} ms | W2 alone (CUDA "
+            f"graphs) {ms:.4f} ms = search {search_ms:.4f} + write "
+            f"{write_ms:.4f}, {tests / ms / 1e6:.1f} G box tests/s"), timed
+
+
+def w2_phase(torch, dev, build, W, H):
+    """W2 against the plain search on the card (`w2_hold`) on the three
+    mesh examples' camera rays at the render's chunk (under the analytic
+    objects' nearest hit, as nearest_hit passes them) and their first
+    hits' shadow rays toward the directional light (under hit0 ? 0 :
+    max_dist, as occluded passes them); W1 over W2's pairs against the
+    plain fold on the beach ball's (the icosphere's and the instance
+    field's are held above).  Prints one line; W2's row is timed at the
+    instance field's camera rays."""
+    from raytracer_tpu_torch.core.camera import generate_rays
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD, SKYBOX_DISTANCE
+
+    holds = []
+    for name, _ in MESH_SCENES:
+        sc = build(name, W, H)
+        data = compile_wavefront(sc)[1].to(dev)
+        geom = data.geom
+        chunk_spp = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)[0]
+        O, D = generate_rays(torch.Generator(device=dev).manual_seed(5),
+                             sc.camera.params(), W, H, chunk_spp)
+        analytic = analytic_only(geom)
+        limit = intersect.nearest_hit(O, D, analytic)[0]
+        text, timed = w2_hold(torch, f"{name} camera rays", geom, O, D, limit)
+        holds.append(text)
+        if name == "instances":
+            W2["timed"] = timed
+        t = intersect.nearest_hit(O, D, geom)[0]
+        hit = t < MISS_THRESHOLD
+        P = (O + D * t[:, None])[hit]
+        L = data.lights.dir_l[0].expand(P.shape).contiguous()
+        Os = P + L * (1e-4 * torch.clamp_min(P.abs().amax(dim=-1), 1.0))[:, None]
+        md = torch.full((Os.shape[0],), SKYBOX_DISTANCE, device=dev)
+        hit0 = intersect.occluded(Os, L, analytic, data.obj.shadow, md)
+        holds.append(w2_hold(torch, f"{name} shadow rays", geom, Os, L,
+                             torch.where(hit0, 0.0, md))[0])
+        if name == "beach_ball":
+            holds.append(w1_nearest(torch, "beach ball camera rays", geom, O, D)[0])
+            holds.append(w1_occluded(torch, "beach ball shadow rays", geom, Os, L,
+                                     data.obj.shadow, md)[0])
+        del O, D, Os, L, P, data, geom
+        torch.cuda.empty_cache()
+    print(f"mesh W2 vs plain: {' | '.join(holds)}", flush=True)
+
+
 def mesh_phase(torch, dev):
     """The meshes (examples/torch_mesh.py, the wavefront on the card, its
     triangles swept by W1): the three mesh examples at 400x300 x 16 spp
@@ -1717,8 +1857,8 @@ def mesh_phase(torch, dev):
         require(route(static, settings) == "wavefront",
                 f"{name}: not the wavefront route")
         chunk, n_chunks = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)
-        runs, devices, k_launches, peak, w1 = routed_renders(torch, dev, sc,
-                                                             MESH_SPP, n, seed=7)
+        runs, devices, k_launches, peak, w1, w2 = routed_renders(
+            torch, dev, sc, MESH_SPP, n, seed=7)
         img, stats, _ = runs[-1]
         walls = [w for _, _, w in runs]
         wall = statistics.median(walls[1:])
@@ -1732,7 +1872,8 @@ def mesh_phase(torch, dev):
               f"chunks of {chunk} spp, {settings.max_bounces} bounces, "
               f"{len(devices)} wavefront chunks on {sorted(set(devices))}, "
               f"K1 / K2 launches {k_launches}, W1 launches {w1} ({w1 // n} a "
-              f"render) | wall {wall:.4f} s (median of "
+              f"render), W2 launches {w2} ({w2 // n} a render) | wall "
+              f"{wall:.4f} s (median of "
               f"{n - 1} after a warm-up; {', '.join(f'{w:.4f}' for w in walls)}) | "
               f"rays_traced {stats['rays_traced']} | "
               f"{stats['rays_traced'] / wall / 1e6:.2f} Mrays/s | peak "
@@ -1742,6 +1883,7 @@ def mesh_phase(torch, dev):
                 f"{name}: wavefront chunks ran on {devices}")
         require(k_launches == 0, f"{name}: {k_launches} K1 / K2 launches")
         require(w1 > 0, f"{name}: W1 never launched")
+        require(w2 > 0, f"{name}: W2 never launched")
         require(bit_equal, f"{name}: the same seed gave different images")
         require(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
                 and img.mean() > 0, f"{name}: image not finite, empty or of "
@@ -1823,6 +1965,7 @@ def mesh_phase(torch, dev):
     print(f"mesh W1 vs plain: {' | '.join(holds)}", flush=True)
     del O, D, data
     torch.cuda.empty_cache()
+    w2_phase(torch, dev, build, W, H)
 
     # ---- the icosphere on the card against the CPU ----
     sc = build("icosphere", CPU_W, CPU_H)
@@ -2742,8 +2885,28 @@ def main():
               f"{tm['plain_ms']:.1f} ms{beside} | {launches} launches in the "
               f"driven renders", flush=True)
         require(launches > 0, f"W1 {key} never launched in the driven renders")
-    print(json.dumps({"kernels": [solid_row, record_row, *w1_rows] + probe_rows},
-                     default=float))
+    # W2 at the instance field's camera rays: its bound from one box test a
+    # (record, ray) slot at the issue slots of a test, read off the SASS of
+    # its count kernel's loop (the instructions a pass issues over the
+    # ballots it takes, one a test), and its bytes
+    tm = W2["timed"]
+    issued, passes = common.loop_issue(sass, *W2_LOOP)
+    slots = issued / passes
+    w2_row = common.row("mesh_pairs (W2)", "mesh_pairs.cu",
+                        "raytracer_tpu/geometry/intersect.py:263", W2["launches"],
+                        W2["max_abs_err"], tm["ms"], tm["plain_ms"],
+                        tm["tests"] * slots, tm["bytes"])
+    print(f"W2 bound at the {tm['name']} ({tm['tests']} box tests at "
+          f"{slots:.2f} slots a test, {W2_LOOP[0]}'s loop issuing {issued} "
+          f"instructions a pass of {passes} tests, {tm['bytes']} bytes): "
+          f"{w2_row['bound_ms']:.4f} ms ({w2_row['bound_by']}), W2 {tm['ms']:.4f} "
+          f"ms (search {tm['search_ms']:.4f} + write {tm['write_ms']:.4f}), share "
+          f"{w2_row['bound_ms'] / tm['ms']:.4f}, plain {tm['plain_ms']:.1f} ms, "
+          f"wrapper {tm['wrapper_ms']:.2f} ms | {W2['launches']} launches in the "
+          f"driven mesh renders", flush=True)
+    require(W2["launches"] > 0, "W2 never launched in the driven renders")
+    print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row]
+                      + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,7 +15,8 @@ What differentiates and what does not (raytracer_tpu/diff.py:13-25):
   reads are piecewise constant in the parameters and give no gradient.
   Geometry (`data.geom.*`) gets shading gradients, none at silhouettes:
   nothing is differentiated through the clustered sweep's pair search
-  (`geometry/intersect.py` `_cluster_pairs`) or its tie rule;
+  (`ops/mesh_pairs.py` `cluster_pairs`: W2 on the card,
+  `geometry/intersect.py` `_cluster_pairs` on the CPU) or its tie rule;
 * with a fixed seed the image is a deterministic function of the
   parameters: every draw comes from a per-chunk torch.Generator seeded
   from `chunk_seeds`, never from the parameters.

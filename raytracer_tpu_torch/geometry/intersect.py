@@ -26,14 +26,17 @@ the two-level sweep of intersect.py:226-411: rays in tiles of RAY_TILE,
 each tile's clusters visited front to back by their nearest entry, an
 instance's clusters tested with the rays pulled into its object space.
 Where XLA branches per (tile, cluster) pair on the device (lax.cond),
-eager torch would sync per pair, so `_cluster_pairs` finds in one pass
-every (cluster record, ray) pair whose box test the ray passes (one
-nonzero and one small copy to the host: two syncs a sweep), and each
+eager torch would sync per pair, so the pair search finds in one pass
+every (cluster record, ray) pair whose box test the ray passes, and each
 physical cluster then sweeps its pairs, all tiles and all the instances
-that share it at once.  A triangle hit lies in its cluster's box, whose
-entry is conservative, so a ray that misses the box, or enters it behind
-its nearest hit so far (`limit`), cannot change the result, and leaving
-it out gives the JAX package's answer.  The sequential scan keeps, per
+that share it at once.  On CUDA tensors the search is the hand-written
+kernel W2 (ops/mesh_pairs.py, csrc/mesh_pairs.cu: one small copy to the
+host, one sync a sweep); on CPU tensors its plain version here,
+`_cluster_pairs` (one nonzero and one small copy to the host: two syncs a
+sweep), which W2 equals element for element.  A triangle hit lies in its
+cluster's box, whose entry is conservative, so a ray that misses the
+box, or enters it behind its nearest hit so far (`limit`), cannot change
+the result, and leaving it out gives the JAX package's answer.  The sequential scan keeps, per
 ray, the smallest t and on a tie the record first in its tile's visit
 order (its strict `<`); the blocks fold into the same (t, rank) minimum,
 so their order does not matter.  SWEEP_STATS counts the clustered
@@ -399,7 +402,8 @@ def _ray_groups(n, C):
 
 
 def _cluster_pairs(O, D, geom, limit, R):
-    """The (cluster record, ray) pairs of a clustered sweep.
+    """The (cluster record, ray) pairs of a clustered sweep: W2's plain
+    version (ops/mesh_pairs.py).
 
     Rays are padded to whole tiles as in the JAX package (origin 1e30,
     direction 1: they miss every box).  A pair is kept where the ray
@@ -414,16 +418,23 @@ def _cluster_pairs(O, D, geom, limit, R):
     pairs; R, the tile."""
     n = O.shape[0]
     nt = -(-n // R)
-    npad = nt * R
-    dev = O.device
-    Op = torch.cat([O, torch.full((npad - n, 3), 1e30, dtype=O.dtype,
-                                  device=dev)]).t().contiguous()
-    Dp = torch.cat([D, torch.ones((npad - n, 3), dtype=D.dtype,
-                                  device=dev)]).t().contiguous()
+    Op, Dp = _pad_rays(O, D, nt * R)
     with torch.no_grad():
         # which pairs to sweep is piecewise constant in the scene's
         # parameters: autograd records none of it (diff.py)
         return _pair_search(Op, Dp, limit, geom, n, nt, R)
+
+
+def _pad_rays(O, D, npad):
+    """(3, npad) origin and direction planes of rays (O, D), (n, 3),
+    padded as in the JAX package (origin 1e30, direction 1: they miss
+    every box)."""
+    n, dev = O.shape[0], O.device
+    Op = torch.cat([O, torch.full((npad - n, 3), 1e30, dtype=O.dtype,
+                                  device=dev)]).t().contiguous()
+    Dp = torch.cat([D, torch.ones((npad - n, 3), dtype=D.dtype,
+                                  device=dev)]).t().contiguous()
+    return Op, Dp
 
 
 def _pair_search(Op, Dp, limit, geom, n, nt, R):

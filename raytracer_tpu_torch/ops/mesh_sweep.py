@@ -2,7 +2,7 @@
 
 `geometry/intersect.py` `nearest_hit` and `occluded` sweep triangles
 through the four wrappers here: the clustered sweep (a scene's cluster
-records and the (record, ray) pairs of `intersect._cluster_pairs`) and
+records and the (record, ray) pairs of `mesh_pairs.cluster_pairs`) and
 the flat sweep (every row for every ray), each for the nearest hit and
 for shadow rays.  On CUDA tensors a wrapper launches W1 (a failed build
 or launch raises; nothing falls back); on CPU tensors it runs W1's plain
@@ -10,16 +10,18 @@ version, intersect.py's `_clustered_nearest`, `_clustered_occluded`,
 `_flat_nearest` and `_flat_occluded`, which W1 equals bit for bit.  Each
 wrapper's `.launches` counts the kernels it launched.
 
-The pair search stays plain torch (its two host syncs a sweep); W1 takes
-its pairs, grouped by physical cluster, and the triangle rows as one
+On CUDA tensors the pairs come from W2 (ops/mesh_pairs.py), on CPU
+tensors from its plain version; W1 takes them, grouped by physical
+cluster, and the triangle rows as one
 (T, 16) table (`row_table`: normal, n . centroid, and each edge normal
 with its constant, computed with the plain version's own torch
 expressions).  W1 has no backward: `nearest_hit` recomputes the winners'
 t in plain torch where autograd needs it (`intersect.winner_t`), which is
 why the clustered nearest also returns each ray's winning record.
 
-The `_*_launch` functions take `lib=`: the tests pass the CPU stand-in's
-build of the source (csrc/emu) with CPU tensors.
+The `_*_launch` functions take `lib=` (and the clustered ones
+`pairs_lib=`, W2's): the tests pass the CPU stand-in's build of the
+source (csrc/emu) with CPU tensors.
 """
 
 from __future__ import annotations
@@ -47,13 +49,14 @@ KERNELS = ("cluster_nearest_kernel", "cluster_finish_kernel",
            "flat_occluded_kernel")
 
 
-def _call(lib, entry, *args):
-    """Call W1's entry `entry` of `lib` (the render kernels' library
-    unless given) with args, the last a ctypes int it sets to the kernels
-    it launched; raise on a CUDA error.  Returns that count."""
+def _call(lib, entry, *args, entries=ENTRIES):
+    """Call the entry `entry` of `lib` (the render kernels' library unless
+    given), declared as `entries` says, with args and a ctypes int it sets
+    to the kernels it launched; raise on a CUDA error.  Returns that
+    count."""
     fn = getattr(lib or cuda_build.load_library(), entry)
     if fn.argtypes is None:
-        fn.argtypes = ENTRIES[entry]
+        fn.argtypes = entries[entry]
         fn.restype = ctypes.c_int
     launched = ctypes.c_int(0)
     err = fn(*args, ctypes.byref(launched))
@@ -101,22 +104,28 @@ def cluster_tables(geom):
             f32(geom.inst_rot), f32(geom.inst_trans), f32(geom.inst_inv_scale))
 
 
+def kept(geom, name, srcs, make):
+    """make(), kept on geom as `name` while none of the tensors srcs has
+    changed (in place included), so a render's bounces make it once."""
+    key = tuple(x._version for x in srcs)
+    old = geom.__dict__.get(name)
+    if old is None or old[0] != key:
+        old = (key, make())
+        object.__setattr__(geom, name, old)
+    return old[1]
+
+
 def scene_tables(geom):
     """(row table, record tables) of geom as W1 reads them: `row_table`
     padded by one cluster of degenerate rows (the flat sweep reads its
-    first T) and `cluster_tables`.  Made at a geometry's first sweep and
-    kept on it while none of the tensors they are made from has changed
-    (in place included), so a render's bounces build them once."""
+    first T) and `cluster_tables`, made at a geometry's first sweep and
+    `kept` on it."""
     srcs = (*isect._tri_tables(geom), geom.tri_cl_start, geom.tri_cl_virt,
             geom.tri_cl_inst, geom.inst_rot, geom.inst_trans,
             geom.inst_inv_scale)
-    key = tuple(x._version for x in srcs)
-    kept = geom.__dict__.get("_w1_tables")
-    if kept is None or kept[0] != key:
-        kept = (key, (row_table(geom, isect.TRI_CLUSTER_SIZE),
-                      cluster_tables(geom)))
-        object.__setattr__(geom, "_w1_tables", kept)
-    return kept[1]
+    return kept(geom, "_w1_tables", srcs,
+                lambda: (row_table(geom, isect.TRI_CLUSTER_SIZE),
+                         cluster_tables(geom)))
 
 
 def _pair_args(sw, tables):
@@ -130,20 +139,22 @@ def _pair_args(sw, tables):
                           sw["Op"].shape[1]]
 
 
-def _groups(O, D, geom, limit):
+def _groups(O, D, geom, limit, pairs_lib=None):
     """(first ray, end, the group's pair search) of each group of whole
-    tiles of a clustered sweep (intersect.py `_ray_groups`); the rays
+    tiles of a clustered sweep (intersect.py `_ray_groups`), by
+    `mesh_pairs.cluster_pairs` (W2 from pairs_lib, if given); the rays
     leave autograd here."""
+    from . import mesh_pairs
+
     O, D, limit = O.detach(), D.detach(), limit.detach()
     for a, b, R in isect._ray_groups(O.shape[0], geom.tri_cl_lo.shape[0]):
-        sw = isect._cluster_pairs(O[a:b], D[a:b], geom, limit[a:b], R)
-        isect.SWEEP_STATS["clusters"] += len(sw["groups"])
-        yield a, b, sw
+        yield a, b, mesh_pairs.cluster_pairs(O[a:b], D[a:b], geom, limit[a:b],
+                                             R, lib=pairs_lib)
 
 
 def nearest_pairs(sw, rows, tables, C, lib=None):
     """W1's clustered nearest over one pair search `sw`
-    (`intersect._cluster_pairs`): (t, code, winning record) of its padded
+    (`mesh_pairs.cluster_pairs`): (t, code, winning record) of its padded
     rays; rows, tables: `scene_tables(geom)`, C: the records.  Adds its
     launches to clustered_nearest.launches."""
     dev, npad = sw["Op"].device, sw["Op"].shape[1]
@@ -179,25 +190,28 @@ def occluded_pairs(sw, rows, tables, max_dist, tri_mask, lib=None):
     return hits
 
 
-def _cluster_nearest_launch(O, D, geom, limit, lib=None):
-    """(t, code, winning record) of each ray by W1 from `lib` (see
-    `clustered_nearest`)."""
+def _cluster_nearest_launch(O, D, geom, limit, lib=None, pairs_lib=None):
+    """(t, code, winning record) of each ray by W1 from `lib` over pairs
+    from `pairs_lib` (see `clustered_nearest` and `_groups`)."""
     rows, tables = scene_tables(geom)
     C = geom.tri_cl_lo.shape[0]
     parts = [(b - a, nearest_pairs(sw, rows, tables, C, lib))
-             for a, b, sw in _groups(O, D, geom, limit)]
+             for a, b, sw in _groups(O, D, geom, limit, pairs_lib)]
     if not parts:
         empty = torch.empty((0,), dtype=torch.int64, device=O.device)
         return O.new_empty((0,)), empty, empty
     return tuple(torch.cat([x[i][:n] for n, x in parts]) for i in range(3))
 
 
-def _cluster_occluded_launch(O, D, geom, tri_mask, max_dist, hit0, lib=None):
-    """The shadow-ray answer of W1 from `lib` (see `clustered_occluded`)."""
+def _cluster_occluded_launch(O, D, geom, tri_mask, max_dist, hit0, lib=None,
+                             pairs_lib=None):
+    """The shadow-ray answer of W1 from `lib` over pairs from `pairs_lib`
+    (see `clustered_occluded` and `_groups`)."""
     rows, tables = scene_tables(geom)
     mask = tri_mask.contiguous()
     out = []
-    for a, b, sw in _groups(O, D, geom, torch.where(hit0, 0.0, max_dist)):
+    for a, b, sw in _groups(O, D, geom, torch.where(hit0, 0.0, max_dist),
+                            pairs_lib):
         n = b - a
         md = torch.cat([max_dist[a:b].detach().to(torch.float32),
                         max_dist.new_zeros((sw["Op"].shape[1] - n,))])

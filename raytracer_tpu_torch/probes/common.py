@@ -166,12 +166,16 @@ def loop_issue(sass, kernel, per):
     """(instructions, count of `per`) of one pass of the main loop of the
     kernel whose name holds `kernel`, read from `cuobjdump_sass` text.  The
     main loop is the backward branch whose body holds the most `per`
-    instructions (the widest on a tie).  Its instructions are those a pass
-    issues on its shortest path: the body less every stretch that a
-    forward branch inside it jumps over (a division's slow path, an update
-    that a pass does not make).  Every instruction takes one issue slot of
-    a warp scheduler, so instructions / `per` is the issue cost of one
-    `per`-op's work, a full warp's lane at the FP32 rate."""
+    instructions (the widest on a tie) among the innermost such loops: a
+    loop whose body holds the head of another loop that holds `per` (an
+    outer loop over chunks around an unrolled inner loop and its
+    remainder) runs it a varying number of times a pass, and is not
+    taken; branches back to one head are one loop.  Its instructions are
+    those a pass issues on its shortest path: the body less every stretch
+    that a forward branch inside it jumps over (a division's slow path, an
+    update that a pass does not make).  Every instruction takes one issue
+    slot of a warp scheduler, so instructions / `per` is the issue cost of
+    one `per`-op's work, a full warp's lane at the FP32 rate."""
     body, cur = [], False
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
@@ -190,9 +194,11 @@ def loop_issue(sass, kernel, per):
             branches.append((addr, int(t.group(1), 16)))
     loops = [(sum(op == per for a, op, _ in body if lo <= a <= hi), hi - lo, lo, hi)
              for hi, lo in branches if lo < hi]
-    if not loops or max(loops)[0] == 0:
+    loops = [L for L in loops if L[0] > 0]
+    if not loops:
         raise ValueError(f"{kernel}: no loop holding {per}")
-    _, _, lo, hi = max(loops)
+    _, _, lo, hi = max(L for L in loops if not any(
+        L[2] < M[2] <= L[3] for M in loops))
     skipped = set()
     for a, t in branches:
         if lo <= a < t <= hi:

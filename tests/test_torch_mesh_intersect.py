@@ -237,3 +237,50 @@ def test_pair_cut_changes_nothing(compiled, monkeypatch):
     C = td.geom.tri_cl_lo.shape[0]
     assert cut_pairs < C * N_RAYS / 3
     assert tisect.SWEEP_STATS["syncs"] - before["syncs"] == 2
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_pair_search_is_the_references_order(compiled, name, monkeypatch):
+    """The plain pair search (the order W2 must equal) against the JAX
+    package's own selection, tile by tile on the same rays: each tile's
+    visit ranks are the places of its clusters in
+    jnp.argsort(jnp.min(_cluster_entry(...), axis=1)) (intersect.py:335,
+    a stable sort), and the kept pairs are the JAX entry's `< limit`, with
+    limits of 0, FARAWAY and 0.5-20 units (some equal to an entry)."""
+    js, jd, ts, td = compiled[name]
+    O, D = _rays(jd, seed=7)
+    rng = np.random.default_rng(8)
+    limit = np.where(rng.random(N_RAYS) < 0.4, 1e30,
+                     rng.uniform(0.5, 20.0, N_RAYS)).astype(np.float32)
+    limit[rng.random(N_RAYS) < 0.1] = 0.0
+    monkeypatch.setattr(tisect, "RAY_TILE", 1024)
+    C = td.geom.tri_cl_lo.shape[0]
+    (_, _, R), = tisect._ray_groups(N_RAYS, C)
+    nt = N_RAYS // R
+    lo, hi = jd.geom.tri_cl_lo, jd.geom.tri_cl_hi
+    entries, ranks = [], []
+    for k in range(nt):
+        Ot, Dt = (jnp.asarray(a[k * R:(k + 1) * R]) for a in (O, D))
+        inv = [jisect._safe_inv(Dt[:, a]) for a in range(3)]
+        entry = np.asarray(jisect._cluster_entry(lo, hi, Ot[:, 0], Ot[:, 1],
+                                                 Ot[:, 2], *inv))
+        order = np.asarray(jnp.argsort(jnp.min(entry, axis=1)))
+        rank = np.empty(C, np.int64)
+        rank[order] = np.arange(C)
+        entries.append(entry)
+        ranks.append(rank)
+    entry = np.concatenate(entries, axis=1)                     # (C, n)
+    # some limits equal an entry: the cut is strict on both sides
+    ray = np.arange(0, N_RAYS, 7)
+    rec = np.argmin(entry[:, ray], axis=0)
+    finite = np.isfinite(entry[rec, ray])
+    limit[ray[finite]] = entry[rec[finite], ray[finite]]
+    sw = tisect._cluster_pairs(torch.from_numpy(O), torch.from_numpy(D),
+                               td.geom, torch.from_numpy(limit), R)
+    assert np.array_equal(sw["rank"].numpy(), np.concatenate(ranks))
+    keep = np.zeros((C, N_RAYS), bool)
+    keep[sw["recs"].numpy(), sw["rays"].numpy()] = True
+    assert np.array_equal(keep, entry < limit[None, :])
+    assert 0 < keep.sum() < keep.size and finite.sum() > 0
+    # ties in some tile's order, which the stable sort breaks by index
+    assert any(len(np.unique(e.min(axis=1))) < C for e in entries)

@@ -17,8 +17,10 @@ On the card (`cuda`-marked, skipped here):
 
 holds W1 against its plain versions bit for bit on the same scenes and on
 the edge scene, shows that `nearest_hit` and `occluded` on CUDA tensors
-sweep triangles only through W1 (the plain test raises), and holds the
-gradient through W1 against the plain version's.
+sweep triangles only through W1 (the plain test raises) and take their
+pairs only from W2 (the plain pair search raises; W2's pairs and ranks
+equal the plain search's first), and holds the gradient through W1
+against the plain version's.
 """
 
 import dataclasses
@@ -421,6 +423,37 @@ def test_loop_issue_counts_the_short_path():
         common.loop_issue(SASS, "absent_kernel", "FCHK")
 
 
+NESTED_SASS = """
+        Function : _ZN12_GLOBAL__N_117pair_count_kernelEPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/               @P0 BRA 0x90 ;
+        /*0030*/                   FADD R2, R1, R3 ;
+        /*0040*/                   VOTE.ANY R4, PT, P1 ;
+        /*0050*/                   FADD R2, R1, R5 ;
+        /*0060*/                   VOTE.ANY R6, PT, P2 ;
+        /*0070*/                   IADD3 R7, R7, 0x2, RZ ;
+        /*0080*/               @P3 BRA 0x30 ;
+        /*0090*/              @!P4 BRA 0xc0 ;
+        /*00a0*/                   FADD R2, R1, R3 ;
+        /*00b0*/                   VOTE.ANY R4, PT, P1 ;
+        /*00c0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00d0*/              @!P5 BRA 0x10 ;
+        /*00e0*/                   EXIT ;
+"""
+
+
+def test_loop_issue_takes_the_innermost_loop():
+    """W2's count kernel loops over chunks of records around an unrolled
+    loop over the chunk's records and its remainder: the outer loop holds
+    the most ballots (VOTE) but runs the inner one a varying number of
+    times a pass, so the inner loop is read (0x30-0x80: 6 instructions, 2
+    ballots)."""
+    from raytracer_tpu_torch.probes import common
+
+    assert common.loop_issue(NESTED_SASS, "pair_count_kernel", "VOTE") == (6, 2)
+
+
 def test_edge_scene_holds_its_cases(monkeypatch):
     """The edge scene's plain sweep meets the cases it is built for: misses,
     a tie inside a cluster won by the later row, winners in both
@@ -555,3 +588,49 @@ def test_card_gradient_through_w1_is_the_plain_sweeps(card, scenes, name):
         t_plain, _ = plain_sweep(O, D, geom)
     assert torch.equal(ts[0], t_plain)
     hold_grads(plain, kernel, table_tol=TABLE_TOL_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["edge"] + [k for k in SCENES if k != "flat"])
+def test_card_pairs_come_only_from_w2(card, scenes, name, monkeypatch):
+    """W2's pairs, ranks and counts on the card equal the plain search's;
+    and with the plain search raising, nearest_hit and occluded on CUDA
+    tensors give what they gave: the card's clustered sweeps take their
+    pairs only from W2, one host sync a sweep."""
+    from raytracer_tpu_torch.ops import mesh_pairs
+
+    if name == "edge":
+        monkeypatch.setattr(isect, "RAY_TILE", 256)
+        geom, _, world = sweep_geom()
+        O, D = sweep_rays(world)
+    else:
+        geom = scenes[name]
+        O, D = scene_rays(geom, n=2048, seed=7)
+    geom, O, D = geom.to(card), O.to(card), D.to(card)
+    n = O.shape[0]
+    limit = torch.full((n,), FARAWAY, device=card)
+    for a, b, R in isect._ray_groups(n, geom.tri_cl_lo.shape[0]):
+        got = mesh_pairs.cluster_pairs(O[a:b], D[a:b], geom, limit[a:b], R)
+        want = isect._cluster_pairs(O[a:b], D[a:b], geom, limit[a:b], R)
+        for key in ("rays", "recs", "rank"):
+            assert torch.equal(got[key], want[key]), key
+        assert got["clusters"] == len(want["groups"])
+    mask = torch.ones((max(int(geom.tri_virt_row.shape[0]),
+                           int(geom.tri_p1.shape[0]), 2048),),
+                      dtype=torch.bool, device=card)
+    md = torch.full((n,), 1e6, device=card)
+    want = (isect.nearest_hit(O, D, geom), isect.occluded(O, D, geom, mask, md))
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain pair search ran on the card")
+
+    monkeypatch.setattr(isect, "_pair_search", plain)
+    mesh_pairs.cluster_pairs.launches = 0
+    before = dict(isect.SWEEP_STATS)
+    got = (isect.nearest_hit(O, D, geom), isect.occluded(O, D, geom, mask, md))
+    assert mesh_pairs.cluster_pairs.launches >= 2 * 5
+    d = {k: isect.SWEEP_STATS[k] - before[k] for k in before}
+    assert d["syncs"] == d["sweeps"] >= 2
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1])
