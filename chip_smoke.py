@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
-the record kernel, W1, the wavefront's triangle sweep, and W2, its pair
-search, one nvcc per source, started together) from the checkout and
-drives both kernel paths and the wavefront:
+the record kernel, W1, the wavefront's triangle sweep, W2, its pair
+search, and W3, its analytic sweep, one nvcc per source, started
+together) from the checkout and drives both kernel paths and the
+wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -60,11 +61,14 @@ drives both kernel paths and the wavefront:
   Scene.render passed them: that path's chunk shape, seed and tables) is
   held against the plain version bit for bit.  Its files go to
   build/chip_smoke/ (ignored by git);
-- the wavefront (core/integrator.py, plain torch on the card, no kernel
-  of its own): the grid of examples/torch_wavefront.py past the kernels'
-  gates (96 spheres, 98 objects) at 400x300 x 64 spp through
+- the wavefront (core/integrator.py, plain torch on the card around its
+  sweeps: W3, csrc/analytic_sweep.cu, for the analytic objects, W1 and
+  W2 for triangles): the grid of examples/torch_wavefront.py past the
+  kernels' gates (96 spheres, 98 objects) at 400x300 x 64 spp through
   Scene.render three times with one seed (bit-equal, every chunk on
-  CUDA, no kernel launched), with its wall, Mrays/s and peak memory, and
+  CUDA, W3 launched and no K1 / K2 launch, the counts set to 0 just
+  before the renders and read just after), with its wall, Mrays/s and
+  peak memory, and
   at 100x75 x 64 spp on the card against the same render on the CPU
   (image and 3x3 region means within 4 standard errors); the grid at 46
   spheres (48 objects, inside the gate) at 400x300 and Cornell at
@@ -80,6 +84,18 @@ drives both kernel paths and the wavefront:
   emissive scene through both routes, pixel for pixel;
   Scene.get_distances of the 98-object grid on the card against the
   CPU;
+- W3 against its plain loops (geometry/intersect.py `_analytic_nearest`,
+  `_analytic_occluded`) bit for bit, a share of exactly 1.0 (t and
+  orientation bits, ids; shadow answers): the grid's camera rays at the
+  render's chunk (4.08 M) and their first bounce (mirror continuations),
+  the primitives example's (planes, discs, cylinders) camera rays, first
+  bounce and shadow rays toward its directional light, Cornell's (planes,
+  a box, a sphere) camera rays and first bounce; W3's nearest entry alone
+  timed through a CUDA graph at the grid's camera rays, its occluded
+  entry at the primitives' shadow rays; the primitives example at
+  400x300 x 16 spp through Scene.render on the wavefront, both entries
+  launched (counts set to 0 just before, read just after).  `python3
+  chip_smoke.py --w3` runs the build and this phase alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -143,7 +159,7 @@ drives both kernel paths and the wavefront:
   parallel/): differentiable_render of examples/torch_inverse_rendering.py's
   scene at 96x72 x 8 spp (forward and forward + backward walls and peak
   memory, the IoR gradient against a central difference within rtol
-  0.05, two backward passes compared and their difference printed); the
+  0.05, two backward passes bit-equal, W3 launched); the
   same scene with the glass sphere as a 1,280-face clustered icosphere
   mesh (W1 launched; its winners' t recomputed for autograd), its IoR
   gradient against a central difference within rtol 0.05;
@@ -183,10 +199,14 @@ drives both kernel paths and the wavefront:
   or pair's first occluder) at the issue slots of one test, read off
   the SASS of the entry's loop (probes/common.py `loop_issue`), against
   its bytes; beside the clustered nearest's, its tests at isect_cost's
-  measured cost of the render kernels' triangle test; and the bound of
-  W2 at the instance field's camera rays: one box test a (record, ray)
-  slot at the issue slots read off the SASS of its count kernel's loop,
-  against its bytes.
+  measured cost of the render kernels' triangle test; the bound of W2
+  at the instance field's camera rays: one box test a (record, ray) slot
+  at the issue slots read off the SASS of its count kernel's loop,
+  against its bytes; and the bound of each of W3's entries at the input
+  it was timed on: the tests of each kind that input needs (the occluded
+  entry's up to each ray's first occluder) at the issue slots of that
+  kind's test, read off the SASS of the kind's loop in the entry's kernel
+  (probes/common.py `kind_loops`), against its bytes.
 
 Each phase and each probe prints one line; any failure exits non-zero
 before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -285,6 +305,26 @@ W1 = {"launches": dict.fromkeys(W1_ENTRIES, 0),
 W2_REPS = 5
 W2_LOOP = ("pair_count_kernel", "VOTE")
 W2 = {"launches": 0, "max_abs_err": 0.0, "timed": None}
+# W3 (csrc/analytic_sweep.cu), the analytic sweep: the CUDA-graph replays
+# of its timing; its entries (ops/analytic_sweep.py wrappers), each with
+# its kernel (whose SASS holds one loop a kind, in object-id order, each
+# giving the issue slots of that kind's test) and the JAX function whose
+# analytic part it replaces; what the run gathers for its rows: launches
+# in the driven wavefront renders (counts set to 0 just before each, read
+# just after), the largest |t| difference of its holds (0: bit-equal;
+# occluded: 1 where any ray differs), and its work and times at the held
+# input it is timed on; the samples of the primitives scene's render on
+# the wavefront
+W3_REPS = 5
+W3_ENTRIES = {
+    "analytic_nearest": ("analytic_nearest_kernel",
+                         "raytracer_tpu/geometry/intersect.py:480"),
+    "analytic_occluded": ("analytic_occluded_kernel",
+                          "raytracer_tpu/geometry/intersect.py:546")}
+W3_KINDS = ("sphere", "plane", "box", "disc", "cylinder")
+W3 = {"launches": dict.fromkeys(W3_ENTRIES, 0),
+      "max_abs_err": dict.fromkeys(W3_ENTRIES, 0.0), "timed": {}}
+PRIM_W, PRIM_H, PRIM_SPP = 400, 300, 16
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -1246,8 +1286,9 @@ def stage_profile(torch, dev, name, sc, spp):
 
 
 def wavefront_phase(torch, dev):
-    """The wavefront (core/integrator.py, plain torch on the card): the
-    98-object grid through Scene.render, twice bit-equal; the 48-object
+    """The wavefront (core/integrator.py, plain torch on the card around
+    W3, its analytic sweep): the 98-object grid through Scene.render,
+    three times bit-equal, W3 launched and K1 / K2 not; the 48-object
     grid and Cornell through both routes, held by image and region means;
     an emissive scene pixel for pixel across the routes; the depth AOV on
     the card against the CPU.  Returns the solid kernel's launches in the
@@ -1260,6 +1301,7 @@ def wavefront_phase(torch, dev):
     from raytracer_tpu_torch.core.camera import cam_vec
     from raytracer_tpu_torch.core.compile import compile_wavefront
     from raytracer_tpu_torch.core.scene import chunk_seeds, plan_chunks, route
+    from raytracer_tpu_torch.ops import analytic_sweep
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
     from torch_cornellbox import build_cornell
@@ -1282,10 +1324,12 @@ def wavefront_phase(torch, dev):
     st.solid_trace_chunk.launches = rt.record_trace_chunk.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    analytic_sweep.reset_launches()
     try:
         runs = [timed_render(torch, dev, sc, WAVE_SPP, seed=7) for _ in range(3)]
     finally:
         scene_mod.trace = trace
+    w3 = w3_launches(analytic_sweep)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     k_launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
     chunk, n_chunks = plan_chunks(WAVE_SPP * sc._diffuse_fan(), GRID_W, GRID_H)
@@ -1296,15 +1340,17 @@ def wavefront_phase(torch, dev):
     print(f"wavefront past the gate: Scene.render grid of {GRID_PAST} spheres "
           f"({static.n_objects} objects) {GRID_W}x{GRID_H} x {WAVE_SPP} spp, "
           f"{n_chunks} chunks of {chunk} spp, {settings.max_bounces} bounces, "
-          f"{len(devices)} wavefront chunks on {sorted(set(devices))}, kernel "
-          f"launches {k_launches} | wall {wall:.4f} s (median of 2; "
+          f"{len(devices)} wavefront chunks on {sorted(set(devices))}, K1 / K2 "
+          f"launches {k_launches}, W3 launches {w3['analytic_nearest']} nearest, "
+          f"{w3['analytic_occluded']} occluded | wall {wall:.4f} s (median of 2; "
           f"{', '.join(f'{w:.4f}' for w in walls)}) | rays_traced "
           f"{stats['rays_traced']} | {stats['rays_traced'] / wall / 1e6:.1f} "
           f"Mrays/s | peak {peak_gib:.2f} GiB | image mean {img.mean():.6f} | "
           f"three renders of seed 7 bit-equal: {bit_equal}", flush=True)
     require(devices == ["cuda"] * (3 * n_chunks),
             f"wavefront chunks ran on {devices}")
-    require(k_launches == 0, f"{k_launches} kernel launches on the wavefront")
+    require(k_launches == 0, f"{k_launches} K1 / K2 launches on the wavefront")
+    require(w3["analytic_nearest"] > 0, "W3 never launched in the grid renders")
     require(bit_equal, "the same seed gave different images")
     require(img.shape == (GRID_H, GRID_W, 3) and bool(np.isfinite(img).all()),
             "grid image not finite or of the wrong shape")
@@ -1432,13 +1478,223 @@ def wavefront_phase(torch, dev):
     return solid_launches
 
 
+def w3_nearest(torch, name, geom, O, D):
+    """W3's nearest entry against the plain loops on the card, on the rays
+    (O, D) of `name`: t and orientation bit-equal and ids equal on every
+    ray (a share of exactly 1.0), required.  Returns (text, W3's (t,
+    orient, id), the plain loops' ms)."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import analytic_sweep
+    from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD
+
+    k, ms_k = sweep_pair(torch, analytic_sweep.analytic_nearest, O, D, geom)
+    p, ms_p = sweep_pair(torch, intersect._analytic_nearest, O, D, geom)
+    same = ((k[0].view(torch.int32) == p[0].view(torch.int32))
+            & (k[1].view(torch.int32) == p[1].view(torch.int32)) & (k[2] == p[2]))
+    share = int(same.sum()) / same.numel()          # exact, not a float mean
+    hit = p[0] < MISS_THRESHOLD
+    err = float((k[0] - p[0])[hit].abs().max()) if bool(hit.any()) else 0.0
+    W3["max_abs_err"]["analytic_nearest"] = max(
+        W3["max_abs_err"]["analytic_nearest"], err)
+    if share < 1.0:
+        # the rays that differ and both answers, for a hold on the CPU
+        bad = ~same
+        WORK.mkdir(parents=True, exist_ok=True)
+        path = WORK / f"w3_mismatch_{name.replace(' ', '_')}.pt"
+        torch.save({"O": O[bad].cpu(), "D": D[bad].cpu(),
+                    "w3": [x[bad].cpu() for x in k],
+                    "plain": [x[bad].cpu() for x in p]}, path)
+        print(f"W3 {name}: {int(bad.sum())} rays differ, saved to {path}; "
+              f"first: O {O[bad][:3].tolist()} D {D[bad][:3].tolist()} W3 "
+              f"{[x[bad][:3].tolist() for x in k]} plain "
+              f"{[x[bad][:3].tolist() for x in p]}", flush=True)
+    require(share == 1.0, f"W3 {name}: bit-equal share {share}")
+    return (f"{name}: {O.shape[0]} rays ({float(hit.float().mean()):.4f} hit), "
+            f"bit-equal {share}, wrapper {ms_k:.2f} ms, plain {ms_p:.1f} ms",
+            k, ms_p)
+
+
+def w3_occluded(torch, name, geom, O, L, shadow, md):
+    """W3's occluded entry against the plain loops on the card: equal on
+    every ray, required.  Returns (text, the plain loops' ms)."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import analytic_sweep
+
+    k, ms_k = sweep_pair(torch, analytic_sweep.analytic_occluded, O, L, geom,
+                         shadow, md)
+    p, ms_p = sweep_pair(torch, intersect._analytic_occluded, O, L, geom,
+                         shadow, md)
+    share = int((k == p).sum()) / k.numel()
+    W3["max_abs_err"]["analytic_occluded"] = max(
+        W3["max_abs_err"]["analytic_occluded"], float(share < 1.0))
+    require(share == 1.0, f"W3 {name}: occluded equal on {share}")
+    return (f"{name}: {O.shape[0]} rays ({float(p.float().mean()):.4f} "
+            f"occluded), equal {share}, wrapper {ms_k:.2f} ms, plain "
+            f"{ms_p:.1f} ms"), ms_p
+
+
+def w3_time(torch, key, name, fn, kind_tests, n_bytes, plain_ms):
+    """W3's entry `key` alone on one held input: fn, its launch on that
+    input, through a CUDA graph (`graph_ms`) and with events around the
+    calls; its tests of each kind (what this input needs) and bytes.
+    Returns (text, the numbers)."""
+    from raytracer_tpu_torch.ops import analytic_sweep
+    from raytracer_tpu_torch.probes import common
+
+    wrapper = getattr(analytic_sweep, key)
+    before = wrapper.launches
+    fn()
+    per_call = wrapper.launches - before
+    ms = common.graph_ms(fn, W3_REPS)[0]
+    ev_ms = common.cuda_ms(fn, W3_REPS)
+    tests = sum(kind_tests)
+    timed = dict(name=name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
+                 launches_per_call=per_call, kind_tests=kind_tests,
+                 tests=tests, bytes=n_bytes,
+                 gtests_per_s=tests / (ms * 1e-3) / 1e9)
+    return (f" | W3 alone (CUDA graph) {ms:.4f} ms a call of {per_call} "
+            f"launch (events {ev_ms:.4f} ms), {tests} tests "
+            f"({', '.join(f'{k} {n}' for k, n in zip(W3_KINDS, kind_tests) if n)}), "
+            f"{timed['gtests_per_s']:.1f} G tests/s"), timed
+
+
+def mirror_bounce(torch, geom, static, O, D, t, orient, obj):
+    """The first bounce of the rays that hit: mirror continuations off
+    the hit points' shading normals, nudged off the surface."""
+    from raytracer_tpu_torch.geometry.attrs import hit_attributes
+    from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD
+
+    hit = t < MISS_THRESHOLD
+    P = (O + D * t[:, None])[hit]
+    N = hit_attributes(P, obj[hit], geom, static)[0] * orient[hit][:, None]
+    eps = 1e-6 * torch.clamp_min(P.abs().amax(dim=-1), 1.0)
+    D2 = D[hit] - 2.0 * (D[hit] * N).sum(-1, keepdim=True) * N
+    return (P + N * eps[:, None]).contiguous(), D2.contiguous()
+
+
+def occluded_tests(torch, geom, O, L, shadow, md):
+    """Tests of each kind that W3's occluded entry makes on these rays:
+    each ray tests the objects in id order up to its first occluder (an
+    object nearer than md whose mask bit is set), all of them without."""
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.ops import analytic_sweep
+
+    occ = torch.cat([(fn(O, L, *tabs)[0] < md[None, :]) for fn, tabs, _ in
+                     intersect._type_blocks(geom, skip_tris=True)])
+    n_obj = occ.shape[0]
+    occ &= shadow[:n_obj, None]
+    first = torch.where(occ.any(0), occ.to(torch.int8).argmax(0), n_obj)
+    out, start = [], 0
+    for count in analytic_sweep.kind_counts(geom):
+        out.append(int(torch.clamp(first + 1 - start, 0, count).sum()))
+        start += count
+    return out
+
+
+def w3_phase(torch, dev):
+    """W3, the analytic sweep, against its plain loops on the card (both
+    entries bit for bit, a share of exactly 1.0): the 98-object grid's
+    camera rays at the render's chunk and their first bounce; the
+    primitives example (planes, discs, cylinders) through the wavefront:
+    camera rays, first bounce and shadow rays toward its directional
+    light; Cornell (planes, a box, a sphere): camera rays and first
+    bounce.  W3's nearest entry alone timed through CUDA graphs at the
+    grid's camera rays, its occluded entry at the primitives' shadow
+    rays.  Then the primitives example at 400x300 x 16 spp through
+    Scene.render on the wavefront, W3's counts set to 0 just before and
+    read just after: both entries launched.  Prints two lines."""
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_primitives
+    import torch_wavefront
+    from raytracer_tpu_torch.core.camera import generate_rays
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.ops import analytic_sweep
+    from raytracer_tpu_torch.utils.constants import SKYBOX_DISTANCE
+    from torch_cornellbox import build_cornell
+
+    t_phase = time.perf_counter()
+    holds = []
+    never = T.RenderSettings(use_pallas="never")
+    for name, sc, spp in (
+            ("grid", torch_wavefront.grid(GRID_PAST, GRID_W, GRID_H), WAVE_SPP),
+            ("primitives", torch_primitives.primitives(PRIM_W, PRIM_H), WAVE_SPP),
+            ("Cornell", build_cornell(*WAVE_CORNELL), WAVE_SPP)):
+        sc.settings = never
+        static, data = compile_wavefront(sc)
+        data = data.to(dev)
+        geom = data.geom
+        W, H = sc.camera.screen_width, sc.camera.screen_height
+        chunk_spp = plan_chunks(spp * sc._diffuse_fan(), W, H)[0]
+        O, D = generate_rays(torch.Generator(device=dev).manual_seed(5),
+                             sc.camera.params(), W, H, chunk_spp)
+        text, (t, orient, obj), plain_ms = w3_nearest(
+            torch, f"{name} camera rays", geom, O, D)
+        if name == "grid":
+            counts = analytic_sweep.kind_counts(geom)
+            n = O.shape[0]
+            table = analytic_sweep.scene_tables(geom)
+            more, W3["timed"]["analytic_nearest"] = w3_time(
+                torch, "analytic_nearest", f"{name} camera rays",
+                lambda: analytic_sweep._nearest_launch(O, D, geom),
+                [c * n for c in counts],
+                # rays read once, t, orient and id written once, the table
+                n * 24 + n * 16 + table.numel() * 4, plain_ms)
+            text += more
+        holds.append(text)
+        O, D = mirror_bounce(torch, geom, static, O, D, t, orient, obj)
+        holds.append(w3_nearest(torch, f"{name} first bounce", geom, O, D)[0])
+        if name == "primitives":
+            t, orient, obj = analytic_sweep.analytic_nearest(O, D, geom)
+            Os, _ = mirror_bounce(torch, geom, static, O, D, t, orient, obj)
+            L = data.lights.dir_l[0].expand(Os.shape).contiguous()
+            md = torch.full((Os.shape[0],), SKYBOX_DISTANCE, device=dev)
+            shadow = data.obj.shadow
+            text, plain_ms = w3_occluded(torch, f"{name} shadow rays", geom,
+                                         Os, L, shadow, md)
+            n = Os.shape[0]
+            mask = shadow[:sum(analytic_sweep.kind_counts(geom))].contiguous()
+            more, W3["timed"]["analytic_occluded"] = w3_time(
+                torch, "analytic_occluded", f"{name} shadow rays",
+                lambda: analytic_sweep._occluded_launch(Os, L, geom, mask, md),
+                occluded_tests(torch, geom, Os, L, shadow, md),
+                # rays and max_dist read once, occluded written once, the
+                # table and mask
+                n * 28 + n + analytic_sweep.scene_tables(geom).numel() * 4
+                + mask.numel(), plain_ms)
+            holds.append(text + more)
+            del Os, L, md
+        del O, D, t, orient, obj, data, geom
+        torch.cuda.empty_cache()
+    print(f"W3 vs plain: {' | '.join(holds)}", flush=True)
+
+    # ---- the primitives example through Scene.render on the wavefront ----
+    sc = torch_primitives.primitives(PRIM_W, PRIM_H)
+    sc.settings = never
+    sc.render(samples_per_pixel=PRIM_SPP, output="linear", device=dev, seed=3)
+    analytic_sweep.reset_launches()
+    img, stats, wall = timed_render(torch, dev, sc, PRIM_SPP, seed=3)
+    got = w3_launches(analytic_sweep)
+    print(f"W3 main path: primitives {PRIM_W}x{PRIM_H} x {PRIM_SPP} spp through "
+          f"Scene.render on the wavefront | W3 launches {got['analytic_nearest']} "
+          f"nearest, {got['analytic_occluded']} occluded | wall {wall:.4f} s, "
+          f"{stats['rays_traced'] / wall / 1e6:.1f} Mrays/s | image mean "
+          f"{img.mean():.6f} | phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    require(all(v > 0 for v in got.values()), f"W3 launches {got} in the "
+            "primitives render")
+    require(img.shape == (PRIM_H, PRIM_W, 3) and bool(np.isfinite(img).all()),
+            "primitives image not finite or of the wrong shape")
+
+
 def routed_renders(torch, dev, sc, spp, n, seed):
     """n renders of sc on the card with one seed: ([(image, stats, wall)],
     the devices of the wavefront chunks, the render kernels' launches,
     peak GiB, W1's launches, added to the run's by entry, W2's, added to
-    the run's)."""
+    the run's); W3's launches are added to the run's by entry."""
     from raytracer_tpu_torch.core import scene as scene_mod
-    from raytracer_tpu_torch.ops import mesh_pairs, mesh_sweep
+    from raytracer_tpu_torch.ops import analytic_sweep, mesh_pairs, mesh_sweep
     from raytracer_tpu_torch.ops import record_trace as rt
     from raytracer_tpu_torch.ops import solid_trace as st
 
@@ -1455,16 +1711,27 @@ def routed_renders(torch, dev, sc, spp, n, seed):
     mesh_pairs.cluster_pairs.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    analytic_sweep.reset_launches()
     try:
         runs = [timed_render(torch, dev, sc, spp, seed=seed) for _ in range(n)]
     finally:
         scene_mod.trace = trace
+    w3_launches(analytic_sweep)
     launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
     w2 = mesh_pairs.cluster_pairs.launches
     W2["launches"] += w2
     return (runs, devices, launches,
             torch.cuda.max_memory_allocated(dev) / 2 ** 30, w1_launches(mesh_sweep),
             w2)
+
+
+def w3_launches(analytic_sweep):
+    """W3's launches since its counts were set to 0, added to the run's by
+    entry; returns them by entry."""
+    got = {key: getattr(analytic_sweep, key).launches for key in W3_ENTRIES}
+    for key, n in got.items():
+        W3["launches"][key] += n
+    return got
 
 
 def w1_launches(mesh_sweep):
@@ -1838,7 +2105,6 @@ def mesh_phase(torch, dev):
     from raytracer_tpu_torch.core.compile import compile_wavefront
     from raytracer_tpu_torch.core.scene import plan_chunks, route
     from raytracer_tpu_torch.geometry import intersect
-    from raytracer_tpu_torch.geometry.attrs import hit_attributes
     from raytracer_tpu_torch.ops import solid_trace as st
     from raytracer_tpu_torch.utils.constants import MISS_THRESHOLD, SKYBOX_DISTANCE
 
@@ -1924,12 +2190,7 @@ def mesh_phase(torch, dev):
                     f"clustered {ms_c:.1f} ms vs flat {ms_f:.1f} ms")
         require(t_eq, f"clustered vs flat, {what}: t differs")
         require(win >= WINNER_RATE, f"clustered vs flat, {what}: winners {win}")
-        # the first bounce: mirror continuations of the rays that hit
-        P = (O + D * t_c[:, None])[hit]
-        N = hit_attributes(P, id_c[hit], geom, static)[0] * o_c[hit][:, None]
-        eps = 1e-6 * torch.clamp_min(P.abs().amax(dim=-1), 1.0)
-        D = D[hit] - 2.0 * (D[hit] * N).sum(-1, keepdim=True) * N
-        O = P + N * eps[:, None]
+        O, D = mirror_bounce(torch, geom, static, O, D, t_c, o_c, id_c)
     # shadow rays toward the directional light from the first bounce's hits
     L = data.lights.dir_l[0].expand(O.shape).contiguous()
     md = torch.full((O.shape[0],), SKYBOX_DISTANCE, device=dev)
@@ -1951,7 +2212,7 @@ def mesh_phase(torch, dev):
           f"triangles in leaf order, {geom.tri_cl_lo.shape[0]} clusters | "
           + " | ".join(rows), flush=True)
     require(occ_eq >= WINNER_RATE, f"clustered vs flat, shadow rays: {occ_eq}")
-    del O, D, P, N, L, md, data, geom, flat
+    del O, D, L, md, data, geom, flat
     torch.cuda.empty_cache()
     # the instance field's camera rays
     sc = build("instances", W, H)
@@ -2368,7 +2629,7 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
     from raytracer_tpu_torch.parallel.multihost import render_multihost
     from raytracer_tpu_torch.parallel.sharded import make_mesh
     from torch_cornellbox import build_cornell
-    from raytracer_tpu_torch.ops import mesh_sweep
+    from raytracer_tpu_torch.ops import analytic_sweep, mesh_sweep
     from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
 
     t_phase = time.perf_counter()
@@ -2400,8 +2661,10 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
     with torch.no_grad():
         fn(data)                                    # warm-up
         img, fwd_s, fwd_gib = measured(lambda: fn(data))
+    analytic_sweep.reset_launches()
     g1, fb_s, fb_gib = measured(grad)
     g2, fb2_s, _ = measured(grad)
+    w3 = w3_launches(analytic_sweep)
     with torch.no_grad():
         e = torch.zeros_like(n0)
         e[0, 0] = FD_EPS
@@ -2416,12 +2679,15 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
           f"the forward chunk's) | d loss / d refr_n_re[0,0] {float(g1[0, 0]):.6e}"
           f", central difference {fd:.6e} (eps {FD_EPS}) | two backward passes "
           f"bit-equal {same}, max abs diff {gdiff:.3e} ({rel:.3e} of the "
-          f"largest)", flush=True)
+          f"largest) | W3 launches {w3['analytic_nearest']} nearest in the two "
+          f"(its winners' t recomputed for autograd)", flush=True)
     require(bool(torch.isfinite(img).all()), "diff: non-finite image")
     require(bool(torch.isfinite(g1).all()), "diff: non-finite gradient")
     require(float(g1.abs().max()) > 1e-5, "diff: the gradient is zero")
     require(bool(np.isclose(fd, float(g1[0, 0]), rtol=FD_RTOL)),
             f"diff: gradient {float(g1[0, 0])} vs central difference {fd}")
+    require(same, f"diff: two backward passes differ by {gdiff:.3e} (F4)")
+    require(w3["analytic_nearest"] > 0, "diff: W3 never launched")
     del fn, data, img, g1, g2
     torch.cuda.empty_cache()
 
@@ -2682,6 +2948,11 @@ def main():
         diff_mesh_phase(torch, dev, ref, wall)
         return 0
 
+    if "--w3" in sys.argv[1:]:
+        # W3's phase alone (after the build), for working on it
+        w3_phase(torch, dev)
+        return 0
+
     if "--features" in sys.argv[1:]:
         # that phase alone (after the build), for working on it; its
         # reference is a 256-spp Cornell rendered here
@@ -2816,6 +3087,10 @@ def main():
     solid_row["launches"] += wavefront_phase(torch, dev)
     torch.cuda.empty_cache()
 
+    # ---- W3, the wavefront's analytic sweep, against its plain loops ----
+    w3_phase(torch, dev)
+    torch.cuda.empty_cache()
+
     # ---- the meshes: clusters, corner attributes, instances ----
     mesh_n, mesh_err = mesh_phase(torch, dev)
     solid_row["launches"] += mesh_n
@@ -2905,8 +3180,34 @@ def main():
           f"wrapper {tm['wrapper_ms']:.2f} ms | {W2['launches']} launches in the "
           f"driven mesh renders", flush=True)
     require(W2["launches"] > 0, "W2 never launched in the driven renders")
-    print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row]
-                      + probe_rows}, default=float))
+    # W3, a row an entry at the held input it was timed on: its bound from
+    # the tests of each kind that input needs at the issue slots of that
+    # kind's test, read off the SASS of the kind's loop in the entry's
+    # kernel (one loop a kind, in object-id order: the innermost loops that
+    # hold FP multiplies), and its bytes
+    w3_rows = []
+    for key, (kernel, replaces) in W3_ENTRIES.items():
+        tm, launches = W3["timed"][key], W3["launches"][key]
+        loops = common.kind_loops(sass, kernel, "FMUL")
+        require(len(loops) >= len(W3_KINDS), f"W3 {key}: {len(loops)} loops "
+                f"holding FMUL in {kernel}'s SASS, want one a kind")
+        slots = [issued for issued, _ in loops[:len(W3_KINDS)]]
+        ops = sum(n * c for n, c in zip(tm["kind_tests"], slots))
+        row = common.row(f"analytic_sweep {key} (W3)", "analytic_sweep.cu",
+                         replaces, launches, W3["max_abs_err"][key], tm["ms"],
+                         tm["plain_ms"], ops, tm["bytes"])
+        w3_rows.append(row)
+        print(f"W3 {key} bound at the {tm['name']} ({tm['tests']} tests: "
+              f"{', '.join(f'{k} {n} at {c} slots' for k, n, c in zip(W3_KINDS, tm['kind_tests'], slots))}"
+              f"; {len(loops)} loops holding FMUL in {kernel}'s SASS, issuing "
+              f"{[i for i, _ in loops]} instructions a pass; {tm['bytes']} "
+              f"bytes): {row['bound_ms']:.4f} ms ({row['bound_by']}), W3 "
+              f"{tm['ms']:.4f} ms (events {tm['event_ms']:.4f}), share "
+              f"{row['bound_ms'] / tm['ms']:.4f}, plain {tm['plain_ms']:.1f} ms "
+              f"| {launches} launches in the driven renders", flush=True)
+        require(launches > 0, f"W3 {key} never launched in the driven renders")
+    print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
+                                  *w3_rows] + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

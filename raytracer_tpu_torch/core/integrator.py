@@ -39,7 +39,7 @@ from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
 from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS, WAVELENGTHS_NM
 from .compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
                       PACKED_SLOT_SHIFT)
-from .safemath import div, safe_norm
+from .safemath import div, safe_norm, take
 
 USE_PALLAS = ("auto", "always", "never")
 
@@ -123,9 +123,10 @@ def _cross(a, b):
 
 
 def _take(table, idx):
-    """table[idx] with idx clamped into the table (jnp.take mode=clip)."""
-    return table.index_select(
-        0, torch.clamp(idx, 0, max(table.shape[0] - 1, 0)).reshape(-1).long()
+    """table[idx] with idx clamped into the table (jnp.take mode=clip),
+    with a reproducible gradient (safemath.take)."""
+    return take(
+        table, torch.clamp(idx, 0, max(table.shape[0] - 1, 0)).reshape(-1).long()
     ).reshape(idx.shape + table.shape[1:])
 
 

@@ -16,10 +16,15 @@ What differentiates and what does not (raytracer_tpu/diff.py:13-25):
   Geometry (`data.geom.*`) gets shading gradients, none at silhouettes:
   nothing is differentiated through the clustered sweep's pair search
   (`ops/mesh_pairs.py` `cluster_pairs`: W2 on the card,
-  `geometry/intersect.py` `_cluster_pairs` on the CPU) or its tie rule;
+  `geometry/intersect.py` `_cluster_pairs` on the CPU) or its tie rule,
+  nor through the sweep kernels (W1, W3), whose winners' t
+  `intersect.nearest_hit` recomputes in plain torch;
 * with a fixed seed the image is a deterministic function of the
   parameters: every draw comes from a per-chunk torch.Generator seeded
-  from `chunk_seeds`, never from the parameters.
+  from `chunk_seeds`, never from the parameters.  So is the gradient,
+  bit for bit on the card too: every gather from a table goes through
+  `core/safemath.py` `take`, whose backward sums in a fixed order
+  (CUDA's `index_select` backward adds with atomics).
 
 The renders always take the wavefront (the kernels have no backward),
 in Scene.render's chunks, each under `torch.utils.checkpoint` (not

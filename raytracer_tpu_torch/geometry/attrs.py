@@ -18,11 +18,12 @@ import math
 import torch
 
 from ..core.compile import KINDS
-from ..core.safemath import div, rdiv, safe_norm
+from ..core.safemath import div, rdiv, safe_norm, take
 
 
 def _gather(table, idx):
-    return table.index_select(0, idx)
+    """table[idx], with a reproducible gradient (safemath.take)."""
+    return take(table, idx)
 
 
 def _dot(a, b):

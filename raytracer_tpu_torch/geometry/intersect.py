@@ -9,13 +9,23 @@ one coordinate, with dot products summed x + y + z in that order, so
 that the CPU and the card round alike.
 
 Where XLA fuses a kind's sweep into one pass, eager torch materialises
-every (M, N) intermediate.  `nearest_hit` and `occluded` therefore sweep
-each kind in blocks of at most `object_block(N)` objects with a running
-minimum, and triangles in `_tri_block_size(N)` blocks with the JAX
-package's packed-code reduce.  The winner on ties is the JAX package's:
-the first minimum inside a sphere / plane / box / disc / cylinder table
-(argmin), the last row inside a triangle block (its max-code reduce),
-and a strict `<` across blocks and kinds.
+every (M, N) intermediate.  The plain sweeps therefore take each kind in
+blocks of at most `object_block(N)` objects with a running minimum, and
+triangles in `_tri_block_size(N)` blocks with the JAX package's
+packed-code reduce.  The winner on ties is the JAX package's: the first
+minimum inside a sphere / plane / box / disc / cylinder block (argmin),
+the last row inside a triangle block (its max-code reduce), and a strict
+`<` across blocks and kinds.  A block whose t holds a NaN (a box test of
+a ray that starts on a slab plane it runs parallel to) has a NaN minimum,
+which is never `<`, so no object of that block wins.
+
+The analytic objects (spheres, planes, boxes, discs, cylinders) go
+through the wrappers of ops/analytic_sweep.py: on CUDA tensors the
+hand-written kernel W3 (csrc/analytic_sweep.cu), on CPU tensors the plain
+loops here (`_analytic_nearest`, `_analytic_occluded`), which W3 equals
+bit for bit.  W3 has no backward: where autograd needs the hit distance,
+`nearest_hit` recomputes it for each ray's winning object only
+(`analytic_winner_t`), bit-equal to W3's.
 
 Object ids run spheres, planes, boxes, discs, cylinders, triangles.
 
@@ -57,7 +67,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from ..core.safemath import rdiv, safe_sqrt
+from ..core.safemath import rdiv, safe_sqrt, take
 from ..utils.constants import FARAWAY, UPDOWN, UPWARDS
 
 # elements of one (block, N) intermediate of the object sweeps
@@ -316,13 +326,18 @@ def _flat_occluded(O, D, geom, tri_mask, max_dist):
     return hit
 
 
-def needs_grad(O, D, geom):
-    """Whether autograd records a function of the triangle sweep's t:
-    grad is enabled and the rays, a triangle table or an instance table
-    require it."""
+def needs_grad(O, D, geom, analytic=False):
+    """Whether autograd records a function of the triangle sweep's t (of
+    the analytic sweep's, if `analytic`): grad is enabled and the rays, or
+    a triangle or instance table (an analytic table), require it."""
+    if analytic:
+        tables = [x for _, tabs, _ in _type_blocks(geom, skip_tris=True)
+                  for x in tabs]
+    else:
+        tables = [*_tri_tables(geom), geom.inst_rot, geom.inst_trans,
+                  geom.inst_inv_scale]
     return torch.is_grad_enabled() and any(
-        x.requires_grad for x in (O, D, *_tri_tables(geom), geom.inst_rot,
-                                  geom.inst_trans, geom.inst_inv_scale))
+        x.requires_grad for x in (O, D, *tables))
 
 
 def winner_rows(geom, code, rec=None):
@@ -351,8 +366,8 @@ def winner_t(O, D, geom, code, row, inst=None):
     where code < 0.  Rays that missed are given a harmless ray, so that
     their dropped t keeps a finite gradient of 0."""
     hit = code >= 0
-    normal = geom.tri_normal.index_select(0, row)
-    centroid = geom.tri_centroid.index_select(0, row)
+    normal = take(geom.tri_normal, row)
+    centroid = take(geom.tri_centroid, row)
     h = hit[:, None]
     Oc = torch.where(h, O, 0.0).t()
     Dc = torch.where(h, D, 1.0).t()
@@ -516,9 +531,9 @@ def _inst_rays(geom, inst, Oc, Dc):
     instance (K,), ((O - t) @ R) * (1 / s) and (D @ R) * (1 / s)
     (intersect.py:283): a rigid map with a uniform scale keeps the ray's
     t, so object-space distances compare with world ones."""
-    Rm = geom.inst_rot.index_select(0, inst)                     # (K, 3, 3)
-    tr = geom.inst_trans.index_select(0, inst)
-    si = geom.inst_inv_scale.index_select(0, inst)
+    Rm = take(geom.inst_rot, inst)                               # (K, 3, 3)
+    tr = take(geom.inst_trans, inst)
+    si = take(geom.inst_inv_scale, inst)
     o = [Oc[i] - tr[:, i] for i in range(3)]
     Oo = torch.stack([(o[0] * Rm[:, 0, j] + o[1] * Rm[:, 1, j]
                        + o[2] * Rm[:, 2, j]) * si for j in range(3)])
@@ -630,9 +645,12 @@ def _blocks(tabs, count, B):
         yield lo, tuple(x[lo:lo + B] for x in tabs)
 
 
-def nearest_hit(O, D, geom):
-    """(t, orient, obj_id) of the nearest hit of each ray, each (N,);
-    obj_id int64, 0 on a miss (intersect.py:480)."""
+def _analytic_nearest(O, D, geom):
+    """(t, orient, obj_id) of each ray's nearest analytic object, each
+    (N,): FARAWAY, 1 and 0 on a miss (intersect.py:493-506).  Each kind in
+    blocks of object_block(N) objects: the block's first minimum, taken
+    where strictly below the running best.  The plain version of W3's
+    nearest entry."""
     n = O.shape[0]
     Op, Dp = planes(O), planes(D)
     best_t = torch.full((n,), FARAWAY, dtype=O.dtype, device=O.device)
@@ -649,10 +667,73 @@ def nearest_hit(O, D, geom):
             best_o = torch.where(better, om, best_o)
             best_id = torch.where(better, am + (off + lo), best_id)
         off += count
+    return best_t, best_o, best_id
+
+
+def _analytic_occluded(O, D, geom, shadow_obj_mask, max_dist):
+    """True where an analytic object whose shadow_obj_mask bit is set lies
+    nearer than max_dist (intersect.py:553-558), in blocks of
+    object_block(N) objects; a NaN t never occludes.  The plain version of
+    W3's occluded entry."""
+    n = O.shape[0]
+    Op, Dp = planes(O), planes(D)
+    md = max_dist[None, :]
+    hit = torch.zeros((n,), dtype=torch.bool, device=O.device)
+    off = 0
+    for fn, tabs, count in _type_blocks(geom, skip_tris=True):
+        for lo, blk in _blocks(tabs, count, object_block(n)):
+            t, _ = fn(Op, Dp, *blk)
+            m = shadow_obj_mask[off + lo:off + lo + t.shape[0]]
+            hit = hit | torch.any((t < md) & m[:, None], dim=0)
+        off += count
+    return hit
+
+
+def analytic_winner_t(O, D, geom, obj_id, t):
+    """t of each ray (N,) against its winning analytic object `obj_id`,
+    recomputed with the plain intersectors' operations so that autograd
+    sees it: W3's t bit for bit, with its gradient; FARAWAY where t (W3's)
+    is FARAWAY.  The rays are grouped by the kind of their winner (one
+    host sync), and each kind's intersector runs on its rays' (K, 1)
+    columns against their objects' parameters, gathered through
+    safemath.take as (K, 1) columns too: one object a ray."""
+    n, dev = O.shape[0], O.device
+    kinds = _type_blocks(geom, skip_tris=True)
+    out = torch.full((n,), FARAWAY, dtype=O.dtype, device=dev)
+    if not kinds or n == 0:
+        return out
+    ends = torch.tensor([count for _, _, count in kinds], device=dev).cumsum(0)
+    kind = torch.where(t < FARAWAY, torch.bucketize(obj_id, ends, right=True),
+                       len(kinds))
+    order = torch.argsort(kind, stable=True)
+    counts = torch.bincount(kind, minlength=len(kinds) + 1).tolist()   # sync
+    a = start = 0
+    for (fn, tabs, count), k in zip(kinds, counts):
+        if k:
+            rays = order[a:a + k]
+            local = obj_id.index_select(0, rays) - start
+            Oc, Dc = take(O, rays), take(D, rays)
+            tk, _ = fn(tuple(Oc[:, i:i + 1] for i in range(3)),
+                       tuple(Dc[:, i:i + 1] for i in range(3)),
+                       *(take(x, local) for x in tabs))
+            out = out.index_put((rays,), tk[:, 0])
+        a += k
+        start += count
+    return out
+
+
+def nearest_hit(O, D, geom):
+    """(t, orient, obj_id) of the nearest hit of each ray, each (N,);
+    obj_id int64, 0 on a miss (intersect.py:480)."""
+    from ..ops import analytic_sweep, mesh_sweep
+
+    best_t, best_o, best_id = analytic_sweep.analytic_nearest(O, D, geom)
+    if O.device.type != "cpu" and needs_grad(O, D, geom, analytic=True):
+        # W3 has no backward: its winners' t again, in plain torch
+        best_t = analytic_winner_t(O, D, geom, best_id, best_t)
     if not geom.tri_p1.shape[0]:
         return best_t, best_o, best_id
-    from ..ops import mesh_sweep
-
+    off = sum(analytic_sweep.kind_counts(geom))
     rec = None
     if geom.tri_cl_lo.shape[0]:
         with record_function("wavefront.clustered_sweep"):
@@ -674,22 +755,14 @@ def occluded(O, D, geom, shadow_obj_mask, max_dist):
     """True where a shadow-casting object lies nearer than max_dist along
     D (intersect.py:546); shadow_obj_mask (num_objects,) bool in object-id
     order, max_dist (N,)."""
-    n = O.shape[0]
-    Op, Dp = planes(O), planes(D)
-    md = max_dist[None, :]
-    hit = torch.zeros((n,), dtype=torch.bool, device=O.device)
-    off = 0
-    for fn, tabs, count in _type_blocks(geom, skip_tris=True):
-        for lo, blk in _blocks(tabs, count, object_block(n)):
-            t, _ = fn(Op, Dp, *blk)
-            m = shadow_obj_mask[off + lo:off + lo + t.shape[0]]
-            hit = hit | torch.any((t < md) & m[:, None], dim=0)
-        off += count
+    from ..ops import analytic_sweep, mesh_sweep
+
+    hit = analytic_sweep.analytic_occluded(O, D, geom, shadow_obj_mask,
+                                           max_dist)
     T = geom.tri_p1.shape[0]
     if not T:
         return hit
-    from ..ops import mesh_sweep
-
+    off = sum(analytic_sweep.kind_counts(geom))
     if geom.tri_cl_lo.shape[0]:
         # the triangle part of the id space (virtual under instancing)
         # runs to the end of the mask

@@ -25,7 +25,7 @@ from typing import Any
 import torch
 
 from ..core import rng
-from ..core.safemath import div, rdiv, safe_norm, safe_sqrt
+from ..core.safemath import div, rdiv, safe_norm, safe_sqrt, take
 from ..geometry.intersect import occluded
 from ..utils.constants import SKYBOX_DISTANCE, UPWARDS
 
@@ -87,7 +87,7 @@ def fetch_texture(tex, uv, repeat=1.0, bilinear=False):
 
     def tap(iu, iv):
         idx = torch.remainder(-iv, H) * W + torch.remainder(iu, W)
-        return flat.index_select(0, idx.reshape(-1).long()).reshape(
+        return take(flat, idx.reshape(-1).long()).reshape(
             iu.shape + (tex.shape[-1],))
 
     if not bilinear:
@@ -104,8 +104,9 @@ def fetch_texture(tex, uv, repeat=1.0, bilinear=False):
 
 
 def _g1(table, slot):
-    """table[slot], the slot clamped into the table (jnp.take mode=clip)."""
-    return table.index_select(0, torch.clamp(slot, 0, table.shape[0] - 1).long())
+    """table[slot], the slot clamped into the table (jnp.take mode=clip),
+    with a reproducible gradient (safemath.take)."""
+    return take(table, torch.clamp(slot, 0, table.shape[0] - 1).long())
 
 
 def _slot_color(solid_table, slot, uv, tex_refs, textures):
@@ -450,7 +451,7 @@ def shade_thinfilm(ctx, u):
         H, W = lut.shape[0], lut.shape[1]
         row = torch.clamp((cos_i * H).to(torch.int32), 0, H - 1)
         col = torch.clamp(thickness.to(torch.int32), 0, W - 1)
-        val = lut.reshape(-1, 3).index_select(0, (row * W + col).long())
+        val = take(lut.reshape(-1, 3), (row * W + col).long())
         F = torch.where((ctx.mat_slot == ref.slot)[..., None], val, F)
     T = 1.0 - F
 

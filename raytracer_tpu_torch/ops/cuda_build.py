@@ -3,8 +3,8 @@
 Two source sets in csrc/ become two shared libraries with a plain C
 interface, loaded with ctypes: the render kernels (the solid kernel and
 the record kernel, which share a header, the wavefront's triangle sweep
-W1, ops/mesh_sweep.py, and its pair search W2, ops/mesh_pairs.py) and
-the Hopper probes (csrc/probe_*.cu,
+W1, ops/mesh_sweep.py, its pair search W2, ops/mesh_pairs.py, and its
+analytic sweep W3, ops/analytic_sweep.py) and the Hopper probes (csrc/probe_*.cu,
 probes/).  Every source of both sets is compiled by one
 nvcc each, all started together; each set is then linked into its
 library.  A library lands in the checkout's build/ directory under a hash
@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("solid_trace.cu", "record_trace.cu", "mesh_sweep.cu",
-           "mesh_pairs.cu")
+           "mesh_pairs.cu", "analytic_sweep.cu")
 PROBE_SOURCES = ("probe_issue.cu", "probe_tri.cu", "probe_skip.cu",
                  "probe_gather.cu", "probe_isect.cu")
 SETS = {"kernels": SOURCES, "probes": PROBE_SOURCES}

@@ -74,7 +74,8 @@ def _check(*ts):
     contiguous."""
     for t in ts:
         if t.device != ts[0].device or not t.is_contiguous():
-            raise ValueError("W1's inputs must be contiguous and on one device")
+            raise ValueError("a sweep kernel's inputs must be contiguous and on "
+                             "one device")
 
 
 def row_table(geom, pad=0):

@@ -176,6 +176,29 @@ def loop_issue(sass, kernel, per):
     update that a pass does not make).  Every instruction takes one issue
     slot of a warp scheduler, so instructions / `per` is the issue cost of
     one `per`-op's work, a full warp's lane at the FP32 rate."""
+    body, branches, loops = _loops(sass, kernel, per)
+    _, _, lo, hi = max(L for L in loops if not any(
+        L[2] < M[2] <= L[3] for M in loops))
+    return _short_path(body, branches, lo, hi, per)
+
+
+def kind_loops(sass, kernel, per):
+    """[(instructions, count of `per`)] of one pass of each innermost loop
+    of the kernel whose name holds `kernel` that holds `per`, in address
+    order, each counted as `loop_issue` counts its loop: W3's loops over
+    the objects of each kind (which hold its FP multiplies; the staging
+    copies hold none)."""
+    body, branches, loops = _loops(sass, kernel, per)
+    inner = sorted((L for L in loops if not any(
+        L[2] < M[2] <= L[3] for M in loops)), key=lambda L: L[2])
+    return [_short_path(body, branches, lo, hi, per) for _, _, lo, hi in inner]
+
+
+def _loops(sass, kernel, per):
+    """(instructions, backward branches, loops) of a kernel's SASS: each
+    instruction (address, op, operands); each loop (count of `per` in its
+    body, width, head, backward branch), branches back to one head one
+    loop, only those that hold `per`."""
     body, cur = [], False
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
@@ -192,13 +215,21 @@ def loop_issue(sass, kernel, per):
         t = re.search(r"(0x[0-9a-f]+)\s*$", rest.strip())
         if op == "BRA" and t:
             branches.append((addr, int(t.group(1), 16)))
+    heads = {}
+    for hi, lo in branches:
+        if lo < hi:
+            heads[lo] = max(hi, heads.get(lo, hi))
     loops = [(sum(op == per for a, op, _ in body if lo <= a <= hi), hi - lo, lo, hi)
-             for hi, lo in branches if lo < hi]
+             for lo, hi in heads.items()]
     loops = [L for L in loops if L[0] > 0]
     if not loops:
         raise ValueError(f"{kernel}: no loop holding {per}")
-    _, _, lo, hi = max(L for L in loops if not any(
-        L[2] < M[2] <= L[3] for M in loops))
+    return body, branches, loops
+
+
+def _short_path(body, branches, lo, hi, per):
+    """(instructions, count of `per`) of the loop [lo, hi] on its shortest
+    path: less every stretch that a forward branch inside it jumps over."""
     skipped = set()
     for a, t in branches:
         if lo <= a < t <= hi:
