@@ -90,12 +90,20 @@ wavefront:
   render's chunk (4.08 M) and their first bounce (mirror continuations),
   the primitives example's (planes, discs, cylinders) camera rays, first
   bounce and shadow rays toward its directional light, Cornell's (planes,
-  a box, a sphere) camera rays and first bounce; W3's nearest entry alone
+  a box, a sphere) camera rays and first bounce; the occluded entry on
+  the primitives' shadow rays with the direction and max_dist the
+  expand of one row, as materials/shade.py passes them, and one a ray
+  (some rays occluded and some not, required of both), and on the
+  icosphere's at the render's chunk (1.92 M, from the camera rays' hits,
+  one row; no analytic object occludes them); W3's nearest entry alone
   timed through a CUDA graph at the grid's camera rays, its occluded
-  entry at the primitives' shadow rays; the primitives example at
-  400x300 x 16 spp through Scene.render on the wavefront, both entries
-  launched (counts set to 0 just before, read just after).  `python3
-  chip_smoke.py --w3` runs the build and this phase alone;
+  entry at those three inputs, and, in a process of its own
+  (`w3_events`), the profiler's device events of the occluded wrapper on
+  the icosphere's: one W3 kernel a call and nothing else (no copy of the
+  expanded inputs); the primitives example at 400x300 x 16 spp through
+  Scene.render on the wavefront, both entries launched (counts set to 0
+  just before, read just after).  `python3 chip_smoke.py --w3` runs the
+  build and this phase alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -206,7 +214,9 @@ wavefront:
   it was timed on: the tests of each kind that input needs (the occluded
   entry's up to each ray's first occluder) at the issue slots of that
   kind's test, read off the SASS of the kind's loop in the entry's kernel
-  (probes/common.py `kind_loops`), against its bytes.
+  (probes/common.py `kind_loops`), against its bytes (the occluded
+  entry's: tests of the casting objects alone; a direction and max_dist
+  passed as one row counted once).
 
 Each phase and each probe prints one line; any failure exits non-zero
 before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -312,9 +322,9 @@ W2 = {"launches": 0, "max_abs_err": 0.0, "timed": None}
 # analytic part it replaces; what the run gathers for its rows: launches
 # in the driven wavefront renders (counts set to 0 just before each, read
 # just after), the largest |t| difference of its holds (0: bit-equal;
-# occluded: 1 where any ray differs), and its work and times at the held
-# input it is timed on; the samples of the primitives scene's render on
-# the wavefront
+# occluded: 1 where any ray differs), and its work and times at each held
+# input it is timed on, in turn; the samples of the primitives scene's
+# render on the wavefront
 W3_REPS = 5
 W3_ENTRIES = {
     "analytic_nearest": ("analytic_nearest_kernel",
@@ -322,8 +332,11 @@ W3_ENTRIES = {
     "analytic_occluded": ("analytic_occluded_kernel",
                           "raytracer_tpu/geometry/intersect.py:546")}
 W3_KINDS = ("sphere", "plane", "box", "disc", "cylinder")
+# W3's held occluded inputs (`held_shadow_rays`): (scene, L and max_dist one row)
+HELD_SHADOW = (("primitives", True), ("primitives", False), ("icosphere", True))
+W3_EVENT_CALLS = 10       # calls of the occluded wrapper under the profiler
 W3 = {"launches": dict.fromkeys(W3_ENTRIES, 0),
-      "max_abs_err": dict.fromkeys(W3_ENTRIES, 0.0), "timed": {}}
+      "max_abs_err": dict.fromkeys(W3_ENTRIES, 0.0), "timed": []}
 PRIM_W, PRIM_H, PRIM_SPP = 400, 300, 16
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
@@ -1516,7 +1529,8 @@ def w3_nearest(torch, name, geom, O, D):
 
 def w3_occluded(torch, name, geom, O, L, shadow, md):
     """W3's occluded entry against the plain loops on the card: equal on
-    every ray, required.  Returns (text, the plain loops' ms)."""
+    every ray, required.  Returns (text, the plain loops' ms, the rays the
+    plain loops call occluded)."""
     from raytracer_tpu_torch.geometry import intersect
     from raytracer_tpu_torch.ops import analytic_sweep
 
@@ -1525,12 +1539,12 @@ def w3_occluded(torch, name, geom, O, L, shadow, md):
     p, ms_p = sweep_pair(torch, intersect._analytic_occluded, O, L, geom,
                          shadow, md)
     share = int((k == p).sum()) / k.numel()
+    occluded = int(p.sum())
     W3["max_abs_err"]["analytic_occluded"] = max(
         W3["max_abs_err"]["analytic_occluded"], float(share < 1.0))
     require(share == 1.0, f"W3 {name}: occluded equal on {share}")
-    return (f"{name}: {O.shape[0]} rays ({float(p.float().mean()):.4f} "
-            f"occluded), equal {share}, wrapper {ms_k:.2f} ms, plain "
-            f"{ms_p:.1f} ms"), ms_p
+    return (f"{name}: {O.shape[0]} rays ({occluded} occluded), equal {share}, "
+            f"wrapper {ms_k:.2f} ms, plain {ms_p:.1f} ms"), ms_p, occluded
 
 
 def w3_time(torch, key, name, fn, kind_tests, n_bytes, plain_ms):
@@ -1548,14 +1562,15 @@ def w3_time(torch, key, name, fn, kind_tests, n_bytes, plain_ms):
     ms = common.graph_ms(fn, W3_REPS)[0]
     ev_ms = common.cuda_ms(fn, W3_REPS)
     tests = sum(kind_tests)
-    timed = dict(name=name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
+    timed = dict(key=key, name=name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
                  launches_per_call=per_call, kind_tests=kind_tests,
                  tests=tests, bytes=n_bytes,
                  gtests_per_s=tests / (ms * 1e-3) / 1e9)
+    W3["timed"].append(timed)
     return (f" | W3 alone (CUDA graph) {ms:.4f} ms a call of {per_call} "
             f"launch (events {ev_ms:.4f} ms), {tests} tests "
             f"({', '.join(f'{k} {n}' for k, n in zip(W3_KINDS, kind_tests) if n)}), "
-            f"{timed['gtests_per_s']:.1f} G tests/s"), timed
+            f"{timed['gtests_per_s']:.1f} G tests/s")
 
 
 def mirror_bounce(torch, geom, static, O, D, t, orient, obj):
@@ -1573,22 +1588,108 @@ def mirror_bounce(torch, geom, static, O, D, t, orient, obj):
 
 
 def occluded_tests(torch, geom, O, L, shadow, md):
-    """Tests of each kind that W3's occluded entry makes on these rays:
-    each ray tests the objects in id order up to its first occluder (an
-    object nearer than md whose mask bit is set), all of them without."""
+    """Tests of each kind that the occluded answer needs on these rays: each
+    ray tests the casting objects (mask bit set) in id order up to its first
+    occluder, all of them without one; an object that casts no shadow is
+    never tested."""
     from raytracer_tpu_torch.geometry import intersect
     from raytracer_tpu_torch.ops import analytic_sweep
 
+    counts = analytic_sweep.kind_counts(geom)
+    cast = shadow[:sum(counts)]
+    kind = torch.repeat_interleave(torch.arange(len(counts), device=O.device),
+                                   torch.tensor(counts, device=O.device))[cast]
     occ = torch.cat([(fn(O, L, *tabs)[0] < md[None, :]) for fn, tabs, _ in
-                     intersect._type_blocks(geom, skip_tris=True)])
-    n_obj = occ.shape[0]
-    occ &= shadow[:n_obj, None]
-    first = torch.where(occ.any(0), occ.to(torch.int8).argmax(0), n_obj)
-    out, start = [], 0
-    for count in analytic_sweep.kind_counts(geom):
-        out.append(int(torch.clamp(first + 1 - start, 0, count).sum()))
-        start += count
-    return out
+                     intersect._type_blocks(geom, skip_tris=True)])[cast]
+    first = torch.where(occ.any(0), occ.to(torch.int8).argmax(0),
+                        occ.shape[0] - 1)
+    # a ray tests the casting objects at list positions <= its first
+    return [int((torch.nonzero(kind == k).flatten()[:, None] <= first[None, :])
+                .sum()) for k in range(len(counts))]
+
+
+def occluded_bytes(geom, O, L, shadow, md):
+    """Bytes the occluded answer must move on these rays: each origin read
+    once and each answer written once; a direction and max_dist read once
+    a ray, or once where the caller passes one row for every ray (stride
+    0); the object table and the mask."""
+    from raytracer_tpu_torch.ops import analytic_sweep
+
+    n, n_obj = O.shape[0], sum(analytic_sweep.kind_counts(geom))
+    rows = lambda x: 1 if x.stride(0) == 0 else n
+    return (n * 12 + n + rows(L) * 12 + rows(md) * 4
+            + n_obj * analytic_sweep.ROW * 4 + n_obj)
+
+
+def held_shadow_rays(torch, dev, name, uniform):
+    """One of W3's held occluded inputs, (geom, O, L, shadow mask,
+    max_dist), shadow rays toward the scene's directional light from hits
+    nudged off the surface: "primitives", the primitives example's from
+    the first bounce of its camera rays at the grid's chunk (0.64 M rays,
+    about a third occluded); "icosphere", examples/torch_mesh.py's from its
+    camera rays at the render's chunk (400x300 x 16 spp: 1.92 M rays, all
+    of which hit, the sky sphere at worst; no analytic object occludes
+    them: the light is above the floor plane, and the sky sphere casts no
+    shadow).  uniform: L and max_dist the expand of one row (stride 0),
+    as materials/shade.py passes a directional light's; else one a ray
+    (contiguous)."""
+    import raytracer_tpu_torch as T
+    import torch_mesh
+    import torch_primitives
+    from raytracer_tpu_torch.core.camera import generate_rays
+    from raytracer_tpu_torch.core.compile import compile_wavefront
+    from raytracer_tpu_torch.core.scene import plan_chunks
+    from raytracer_tpu_torch.geometry import intersect
+    from raytracer_tpu_torch.utils.constants import SKYBOX_DISTANCE
+
+    if name == "primitives":
+        sc, spp, seed = torch_primitives.primitives(PRIM_W, PRIM_H), WAVE_SPP, 5
+    else:
+        obj_dir = WORK / "mesh"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        sc = torch_mesh.icosphere(MESH_W, MESH_H, obj_dir=obj_dir)
+        spp, seed = MESH_SPP, 3
+    sc.settings = T.RenderSettings(use_pallas="never")
+    static, data = compile_wavefront(sc)
+    data = data.to(dev)
+    geom = data.geom
+    W, H = sc.camera.screen_width, sc.camera.screen_height
+    chunk_spp = plan_chunks(spp * sc._diffuse_fan(), W, H)[0]
+    O, D = generate_rays(torch.Generator(device=dev).manual_seed(seed),
+                         sc.camera.params(), W, H, chunk_spp)
+    for _ in range(2 if name == "primitives" else 1):
+        O, D = mirror_bounce(torch, geom, static, O, D,
+                             *intersect.nearest_hit(O, D, geom))
+    n = O.shape[0]
+    L = data.lights.dir_l[0].expand(n, 3)
+    md = torch.full((1,), SKYBOX_DISTANCE, device=dev).expand(n)
+    if not uniform:
+        L, md = L.contiguous(), md.contiguous()
+    return geom, O, L, data.obj.shadow, md
+
+
+def w3_events():
+    """Prints, as one JSON line, the device events torch.profiler records
+    a call of W3's occluded wrapper on the icosphere's held shadow rays (L
+    and max_dist one row) and the wrapper's launches a call; run in a
+    process of its own (`python3 -c "import chip_smoke;
+    chip_smoke.w3_events()"` from the checkout's root), as a profile taken
+    after large ones can lose events."""
+    import torch
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "examples"), str(ROOT / "scripts")]
+    from raytracer_tpu_torch.ops import analytic_sweep
+    from torch_render_profile import device_events
+
+    geom, O, L, shadow, md = held_shadow_rays(torch, torch.device("cuda:0"),
+                                              "icosphere", True)
+    fn = lambda: analytic_sweep.analytic_occluded(O, L, geom, shadow, md)
+    fn()
+    before = analytic_sweep.analytic_occluded.launches
+    fn()
+    launches = analytic_sweep.analytic_occluded.launches - before
+    print(json.dumps({"launches_a_call": launches,
+                      **device_events(torch, fn, W3_EVENT_CALLS)}))
 
 
 def w3_phase(torch, dev):
@@ -1596,13 +1697,17 @@ def w3_phase(torch, dev):
     entries bit for bit, a share of exactly 1.0): the 98-object grid's
     camera rays at the render's chunk and their first bounce; the
     primitives example (planes, discs, cylinders) through the wavefront:
-    camera rays, first bounce and shadow rays toward its directional
-    light; Cornell (planes, a box, a sphere): camera rays and first
-    bounce.  W3's nearest entry alone timed through CUDA graphs at the
-    grid's camera rays, its occluded entry at the primitives' shadow
-    rays.  Then the primitives example at 400x300 x 16 spp through
-    Scene.render on the wavefront, W3's counts set to 0 just before and
-    read just after: both entries launched.  Prints two lines."""
+    camera rays and first bounce; Cornell (planes, a box, a sphere):
+    camera rays and first bounce; the occluded entry at its held inputs
+    (HELD_SHADOW, `held_shadow_rays`: the primitives' shadow rays, L and
+    max_dist one row and one a ray, each with some rays occluded and
+    some not; the icosphere's, one row).  W3's nearest entry alone timed
+    through CUDA graphs at the grid's camera rays, its occluded entry at
+    each held input; the occluded wrapper's device events a call on the
+    icosphere's (`w3_events`), its kernel alone required.  Then the
+    primitives example at 400x300 x 16 spp through Scene.render on the
+    wavefront, W3's counts set to 0 just before and read just after: both
+    entries launched.  Prints three lines."""
     import numpy as np
     import raytracer_tpu_torch as T
     import torch_primitives
@@ -1611,7 +1716,6 @@ def w3_phase(torch, dev):
     from raytracer_tpu_torch.core.compile import compile_wavefront
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import analytic_sweep
-    from raytracer_tpu_torch.utils.constants import SKYBOX_DISTANCE
     from torch_cornellbox import build_cornell
 
     t_phase = time.perf_counter()
@@ -1635,39 +1739,53 @@ def w3_phase(torch, dev):
             counts = analytic_sweep.kind_counts(geom)
             n = O.shape[0]
             table = analytic_sweep.scene_tables(geom)
-            more, W3["timed"]["analytic_nearest"] = w3_time(
+            text += w3_time(
                 torch, "analytic_nearest", f"{name} camera rays",
                 lambda: analytic_sweep._nearest_launch(O, D, geom),
                 [c * n for c in counts],
                 # rays read once, t, orient and id written once, the table
                 n * 24 + n * 16 + table.numel() * 4, plain_ms)
-            text += more
         holds.append(text)
         O, D = mirror_bounce(torch, geom, static, O, D, t, orient, obj)
         holds.append(w3_nearest(torch, f"{name} first bounce", geom, O, D)[0])
-        if name == "primitives":
-            t, orient, obj = analytic_sweep.analytic_nearest(O, D, geom)
-            Os, _ = mirror_bounce(torch, geom, static, O, D, t, orient, obj)
-            L = data.lights.dir_l[0].expand(Os.shape).contiguous()
-            md = torch.full((Os.shape[0],), SKYBOX_DISTANCE, device=dev)
-            shadow = data.obj.shadow
-            text, plain_ms = w3_occluded(torch, f"{name} shadow rays", geom,
-                                         Os, L, shadow, md)
-            n = Os.shape[0]
-            mask = shadow[:sum(analytic_sweep.kind_counts(geom))].contiguous()
-            more, W3["timed"]["analytic_occluded"] = w3_time(
-                torch, "analytic_occluded", f"{name} shadow rays",
-                lambda: analytic_sweep._occluded_launch(Os, L, geom, mask, md),
-                occluded_tests(torch, geom, Os, L, shadow, md),
-                # rays and max_dist read once, occluded written once, the
-                # table and mask
-                n * 28 + n + analytic_sweep.scene_tables(geom).numel() * 4
-                + mask.numel(), plain_ms)
-            holds.append(text + more)
-            del Os, L, md
         del O, D, t, orient, obj, data, geom
         torch.cuda.empty_cache()
+    # the occluded entry alone at its held inputs
+    for name, uniform in HELD_SHADOW:
+        geom, O, L, shadow, md = held_shadow_rays(torch, dev, name, uniform)
+        what = f"{name} shadow rays, {'one row' if uniform else 'one a ray'}"
+        text, plain_ms, occluded = w3_occluded(torch, what, geom, O, L, shadow, md)
+        if name == "primitives":
+            # an answer that is the same on every ray would not tell a
+            # kernel that never (or always) occludes from a right one
+            require(0 < occluded < O.shape[0], f"W3 {what}: {occluded} of "
+                    f"{O.shape[0]} occluded, want some and not all")
+        text += w3_time(
+            torch, "analytic_occluded", what,
+            lambda: analytic_sweep._occluded_launch(O, L, geom, shadow, md),
+            occluded_tests(torch, geom, O, L, shadow, md),
+            occluded_bytes(geom, O, L, shadow, md), plain_ms)
+        holds.append(text)
+        del geom, O, L, md
+        torch.cuda.empty_cache()
     print(f"W3 vs plain: {' | '.join(holds)}", flush=True)
+    # the device events of the occluded wrapper on the icosphere's shadow
+    # rays (direction and max_dist one row), in a process of its own: a
+    # profile taken after large ones can lose events
+    check = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.w3_events()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(check.returncode == 0, f"W3 profile check: {check.stderr[-2000:]}")
+    prof = json.loads(check.stdout.strip().splitlines()[-1])
+    events = prof["events_a_call"]
+    print(f"W3 occluded device events a call (torch.profiler, a process of its "
+          f"own, icosphere shadow rays, L and max_dist one row): "
+          f"{json.dumps(events)} | {prof['device_ms_a_call']:.4f} ms of device "
+          f"time a call | {prof['launches_a_call']} launch a call by the "
+          f"wrapper's count", flush=True)
+    require(len(events) == 1 and "analytic_occluded_kernel" in next(iter(events))
+            and next(iter(events.values())) == 1.0 and prof["launches_a_call"] == 1,
+            f"W3 occluded: device events a call {events}, want its kernel alone")
 
     # ---- the primitives example through Scene.render on the wavefront ----
     sc = torch_primitives.primitives(PRIM_W, PRIM_H)
@@ -1692,7 +1810,7 @@ def routed_renders(torch, dev, sc, spp, n, seed):
     """n renders of sc on the card with one seed: ([(image, stats, wall)],
     the devices of the wavefront chunks, the render kernels' launches,
     peak GiB, W1's launches, added to the run's by entry, W2's, added to
-    the run's); W3's launches are added to the run's by entry."""
+    the run's, W3's by entry, added to the run's)."""
     from raytracer_tpu_torch.core import scene as scene_mod
     from raytracer_tpu_torch.ops import analytic_sweep, mesh_pairs, mesh_sweep
     from raytracer_tpu_torch.ops import record_trace as rt
@@ -1716,13 +1834,13 @@ def routed_renders(torch, dev, sc, spp, n, seed):
         runs = [timed_render(torch, dev, sc, spp, seed=seed) for _ in range(n)]
     finally:
         scene_mod.trace = trace
-    w3_launches(analytic_sweep)
+    w3 = w3_launches(analytic_sweep)
     launches = st.solid_trace_chunk.launches + rt.record_trace_chunk.launches
     w2 = mesh_pairs.cluster_pairs.launches
     W2["launches"] += w2
     return (runs, devices, launches,
             torch.cuda.max_memory_allocated(dev) / 2 ** 30, w1_launches(mesh_sweep),
-            w2)
+            w2, w3)
 
 
 def w3_launches(analytic_sweep):
@@ -2123,7 +2241,7 @@ def mesh_phase(torch, dev):
         require(route(static, settings) == "wavefront",
                 f"{name}: not the wavefront route")
         chunk, n_chunks = plan_chunks(MESH_SPP * sc._diffuse_fan(), W, H)
-        runs, devices, k_launches, peak, w1, w2 = routed_renders(
+        runs, devices, k_launches, peak, w1, w2, w3 = routed_renders(
             torch, dev, sc, MESH_SPP, n, seed=7)
         img, stats, _ = runs[-1]
         walls = [w for _, _, w in runs]
@@ -2138,7 +2256,8 @@ def mesh_phase(torch, dev):
               f"chunks of {chunk} spp, {settings.max_bounces} bounces, "
               f"{len(devices)} wavefront chunks on {sorted(set(devices))}, "
               f"K1 / K2 launches {k_launches}, W1 launches {w1} ({w1 // n} a "
-              f"render), W2 launches {w2} ({w2 // n} a render) | wall "
+              f"render), W2 launches {w2} ({w2 // n} a render), W3 occluded "
+              f"launches {w3['analytic_occluded']} | wall "
               f"{wall:.4f} s (median of "
               f"{n - 1} after a warm-up; {', '.join(f'{w:.4f}' for w in walls)}) | "
               f"rays_traced {stats['rays_traced']} | "
@@ -2150,6 +2269,8 @@ def mesh_phase(torch, dev):
         require(k_launches == 0, f"{name}: {k_launches} K1 / K2 launches")
         require(w1 > 0, f"{name}: W1 never launched")
         require(w2 > 0, f"{name}: W2 never launched")
+        require(w3["analytic_occluded"] > 0, f"{name}: W3's occluded entry never "
+                "launched")
         require(bit_equal, f"{name}: the same seed gave different images")
         require(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
                 and img.mean() > 0, f"{name}: image not finite, empty or of "
@@ -3180,22 +3301,26 @@ def main():
           f"wrapper {tm['wrapper_ms']:.2f} ms | {W2['launches']} launches in the "
           f"driven mesh renders", flush=True)
     require(W2["launches"] > 0, "W2 never launched in the driven renders")
-    # W3, a row an entry at the held input it was timed on: its bound from
-    # the tests of each kind that input needs at the issue slots of that
-    # kind's test, read off the SASS of the kind's loop in the entry's
-    # kernel (one loop a kind, in object-id order: the innermost loops that
-    # hold FP multiplies), and its bytes
+    # W3, a row an entry and held input it was timed on (the occluded
+    # entry's two): its bound from the tests of each kind that input needs
+    # at the issue slots of that kind's test, read off the SASS of the
+    # kind's loop in the entry's kernel (one loop a kind, in object-id
+    # order: the innermost loops that hold FP multiplies), and its bytes
     w3_rows = []
-    for key, (kernel, replaces) in W3_ENTRIES.items():
-        tm, launches = W3["timed"][key], W3["launches"][key]
+    for tm in W3["timed"]:
+        key = tm["key"]
+        (kernel, replaces), launches = W3_ENTRIES[key], W3["launches"][key]
         loops = common.kind_loops(sass, kernel, "FMUL")
         require(len(loops) >= len(W3_KINDS), f"W3 {key}: {len(loops)} loops "
                 f"holding FMUL in {kernel}'s SASS, want one a kind")
         slots = [issued for issued, _ in loops[:len(W3_KINDS)]]
         ops = sum(n * c for n, c in zip(tm["kind_tests"], slots))
-        row = common.row(f"analytic_sweep {key} (W3)", "analytic_sweep.cu",
-                         replaces, launches, W3["max_abs_err"][key], tm["ms"],
-                         tm["plain_ms"], ops, tm["bytes"])
+        name = f"analytic_sweep {key} (W3)"
+        if key == "analytic_occluded":
+            name += f", {tm['name']}"
+        row = common.row(name, "analytic_sweep.cu", replaces, launches,
+                         W3["max_abs_err"][key], tm["ms"], tm["plain_ms"], ops,
+                         tm["bytes"])
         w3_rows.append(row)
         print(f"W3 {key} bound at the {tm['name']} ({tm['tests']} tests: "
               f"{', '.join(f'{k} {n} at {c} slots' for k, n, c in zip(W3_KINDS, tm['kind_tests'], slots))}"

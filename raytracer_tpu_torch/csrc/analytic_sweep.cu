@@ -26,21 +26,48 @@
 // cylinder's axis . center) come in a table that the wrapper computes with
 // the plain version's own torch expressions.
 //
-// What bounds W3 on the card: instruction issue.  A ray reads 24 bytes and
-// writes 16, and each of its tests issues tens of instructions (a sphere's
-// test, compiled for sm_90a, 71 on its path that is no hit: the IEEE
-// square root's refinement and the running best are much of it); on the
-// grid (97 spheres and a plane against 4.08 M rays: 0.4 G tests) the
-// issue slots take ~17 times as long as the bytes.  chip_smoke.py
-// reads each kind's instructions a test off the SASS of its loop
-// (probes/common.py `kind_loops`; the occluded entry's tests up to each
-// ray's first occluder).  The design spends the issue slots on
-// the tests alone: one thread a ray (grid-stride over a grid sized from
+// What bounds the nearest entry on the card: instruction issue.  A ray
+// reads 24 bytes and writes 16, and each of its tests issues tens of
+// instructions (a sphere's test, compiled for sm_90a, 71 on its path that
+// is no hit: the IEEE square root's refinement and the running best are
+// much of it); on the grid (97 spheres and a plane against 4.08 M rays:
+// 0.4 G tests) the issue slots take ~17 times as long as the bytes.
+// chip_smoke.py reads each kind's instructions a test off the SASS of its
+// loop (probes/common.py `kind_loops`).  The design spends the issue slots
+// on the tests alone: one thread a ray (grid-stride over a grid sized from
 // the card's resident blocks), the objects staged in shared memory in
 // chunks of ANALYTIC_CHUNK rows (every thread of a warp reads the same
 // row: a broadcast), one loop per kind in object-id order with the kind's
 // test inlined (no switch per object; not unrolled, so that each kind's
 // loop is one loop of the SASS), a running best in registers.
+//
+// What bounds the occluded entry depends on the scene.  Its main callers
+// (materials/shade.py's light terms, core/aov.py) pass one direction and
+// one max_dist for every ray (a directional light: the expand of one row),
+// and most scenes past the kernels' gates hold few casting analytic
+// objects: the mesh examples a floor plane, beside a sky sphere that casts
+// no shadow.  There a ray's own traffic is its origin (12 bytes) and its
+// answer (1), against one plane test (65 issue slots): bytes bound it (the
+// icosphere's 1.92 M shadow rays: 25 MB, ~7.5 us, against ~3.7 us of
+// issue).  Where every object casts and the tests are cylinders (the
+// primitives' 0.64 M shadow rays, ~460 slots a ray), issue does.  So:
+// - the direction and max_dist come with a row step of 0 or 1: a uniform
+//   one (step 0) is staged once a block in shared memory, never copied to
+//   every ray;
+// - the table holds the casting objects alone (the wrapper's
+//   `casting_tables`, made once a geometry and mask), in object-id order:
+//   no object that cannot occlude is tested, and no mask is read;
+// - the chunk loop is outside the ray loop: a thread computes each kind's
+//   range of a chunk once and sweeps its rays through it (a ray already
+//   occluded by an earlier chunk, its answer read back, is skipped), so a
+//   ray pays its loads, its tests and its store, and little else;
+// - a thread stops at its first occluder, the order being free.
+// Measured on the card and not kept: loading a thread's next ray before
+// testing this one, a grid spread evenly over full passes, and launch
+// bounds that trade registers for resident blocks (spills) were each
+// slower at both held inputs (PERF.md).
+// The tests are the nearest entry's, so chip_smoke.py counts the issue
+// slots of the tests a ray makes up to its first casting occluder.
 //
 // The tie rules, each the plain loop's:
 // - nearest: the plain loop takes each kind in blocks of B objects
@@ -52,7 +79,8 @@
 //   the kernel keeps each block's candidate apart and drops it on a NaN.
 //   The winner's orientation is the one at its first minimum;
 // - occluded: any object nearer than max_dist whose mask bit is set; a
-//   NaN never occludes; order-free, so a thread stops at its first.
+//   NaN never occludes; order-free, so a thread stops at its first and
+//   the casting objects may be swept apart from the rest.
 //
 // Every entry returns cudaGetLastError() after its launch and reports the
 // kernels it launched.
@@ -287,18 +315,16 @@ __device__ __forceinline__ void nearest_kind(const float4* rows, int c0, int j0,
   }
 }
 
-// Whether an object of [j0, j1) of kind KIND whose mask bit is set lies
-// nearer than md (each object tested, as the plain loop tests it, then
-// its bit read).
+// Whether an object of [j0, j1) of kind KIND lies nearer than md (the
+// table holds the casting objects alone).
 template <int KIND>
 __device__ __forceinline__ bool occluded_kind(const float4* rows, int c0,
-                                              int j0, int j1,
-                                              const unsigned char* mask,
-                                              const Ray& r, float md) {
+                                              int j0, int j1, const Ray& r,
+                                              float md) {
 #pragma unroll 1
   for (int j = j0; j < j1; ++j) {
     bool up;
-    if (isect<KIND>(rows + 4 * (j - c0), r, up) < md && mask[j]) return true;
+    if (isect<KIND>(rows + 4 * (j - c0), r, up) < md) return true;
   }
   return false;
 }
@@ -367,50 +393,66 @@ analytic_nearest_kernel(const float4* objs, Kinds K, int B, const float* O,
   }
 }
 
+// The shadow ray i: its origin, and its direction and max_dist, or the
+// one direction (d_step 0) and max_dist (md_step 0) that every ray shares,
+// from `uni` (shared memory).
+struct Shadow {
+  Ray r;
+  float md;
+};
+
+__device__ __forceinline__ Shadow load_shadow(const float* O, const float* D,
+                                              int d_step, const float* max_dist,
+                                              int md_step, const float* uni,
+                                              long long i) {
+  Shadow s;
+  s.r.ox = O[3 * i];
+  s.r.oy = O[3 * i + 1];
+  s.r.oz = O[3 * i + 2];
+  if (d_step) {
+    s.r.dx = D[3 * i];
+    s.r.dy = D[3 * i + 1];
+    s.r.dz = D[3 * i + 2];
+  } else {
+    s.r.dx = uni[0];
+    s.r.dy = uni[1];
+    s.r.dz = uni[2];
+  }
+  s.md = md_step ? max_dist[i] : uni[3];
+  return s;
+}
+
 __global__ void __launch_bounds__(SWEEP_BLOCK)
 analytic_occluded_kernel(const float4* objs, Kinds K, const float* O,
-                         const float* D, long long n,
-                         const unsigned char* mask, const float* max_dist,
+                         const float* D, int d_step, long long n,
+                         const float* max_dist, int md_step,
                          unsigned char* occ) {
   __shared__ float4 rows[4 * CHUNK];
+  __shared__ float uni[4];              // the uniform direction and max_dist
   const int n_obj = K.start[KINDS];
-  const bool resident = n_obj <= CHUNK;
-  if (resident) {
-    stage(rows, objs, 0, n_obj);
-    __syncthreads();
-  }
+  if (threadIdx.x < 3) uni[threadIdx.x] = D[threadIdx.x];
+  if (threadIdx.x == 3) uni[3] = max_dist[0];
+  const long long first = (long long)blockIdx.x * SWEEP_BLOCK + threadIdx.x;
   const long long stride = (long long)gridDim.x * SWEEP_BLOCK;
-  for (long long base = (long long)blockIdx.x * SWEEP_BLOCK; base < n;
-       base += stride) {
-    const long long i = base + threadIdx.x;
-    const bool live = i < n;
-    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float md = 0.0f;
-    if (live) {
-      r = load_ray(O, D, i);
-      md = max_dist[i];
+  for (int c0 = 0; c0 < n_obj; c0 += CHUNK) {
+    const int c1 = min(c0 + CHUNK, n_obj);
+    if (c0 > 0) __syncthreads();        // the last chunk is read
+    stage(rows, objs, c0, c1);
+    __syncthreads();
+    KIND_RANGE(0);
+    KIND_RANGE(1);
+    KIND_RANGE(2);
+    KIND_RANGE(3);
+    KIND_RANGE(4);
+    for (long long i = first; i < n; i += stride) {
+      if (c0 > 0 && occ[i]) continue;   // occluded by an earlier chunk
+      const Shadow s = load_shadow(O, D, d_step, max_dist, md_step, uni, i);
+      occ[i] = occluded_kind<0>(rows, c0, j0_0, j1_0, s.r, s.md)
+               || occluded_kind<1>(rows, c0, j0_1, j1_1, s.r, s.md)
+               || occluded_kind<2>(rows, c0, j0_2, j1_2, s.r, s.md)
+               || occluded_kind<3>(rows, c0, j0_3, j1_3, s.r, s.md)
+               || occluded_kind<4>(rows, c0, j0_4, j1_4, s.r, s.md);
     }
-    bool hit = false;
-    for (int c0 = 0; c0 < n_obj; c0 += CHUNK) {
-      const int c1 = min(c0 + CHUNK, n_obj);
-      if (!resident) {
-        __syncthreads();
-        stage(rows, objs, c0, c1);
-        __syncthreads();
-      }
-      if (!live || hit) continue;
-      KIND_RANGE(0);
-      KIND_RANGE(1);
-      KIND_RANGE(2);
-      KIND_RANGE(3);
-      KIND_RANGE(4);
-      hit = occluded_kind<0>(rows, c0, j0_0, j1_0, mask, r, md)
-            || occluded_kind<1>(rows, c0, j0_1, j1_1, mask, r, md)
-            || occluded_kind<2>(rows, c0, j0_2, j1_2, mask, r, md)
-            || occluded_kind<3>(rows, c0, j0_3, j1_3, mask, r, md)
-            || occluded_kind<4>(rows, c0, j0_4, j1_4, mask, r, md);
-    }
-    if (live) occ[i] = hit ? 1 : 0;
   }
 }
 
@@ -474,25 +516,28 @@ extern "C" int analytic_nearest(const float* objs, int n_sph, int n_pla,
   return 0;
 }
 
-// As analytic_nearest, with mask: (objects,) bool by object id, max_dist:
-// (n,) float32, occ: (n,) bool.
+// As analytic_nearest, over the casting objects alone (objs and the counts
+// of each kind: the wrapper's casting_tables), with D: (n, 3) float32 by
+// ray (d_step 1) or one row for every ray (d_step 0), max_dist: (n,)
+// float32 likewise (md_step), occ: (n,) bool.
 extern "C" int analytic_occluded(const float* objs, int n_sph, int n_pla,
                                  int n_box, int n_dsc, int n_cyl,
-                                 const float* O, const float* D, long long n,
-                                 const unsigned char* mask,
-                                 const float* max_dist, unsigned char* occ,
+                                 const float* O, const float* D, int d_step,
+                                 long long n, const float* max_dist,
+                                 int md_step, unsigned char* occ,
                                  void* stream, int* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
-  if (n < 1 || !counts_ok(n_sph, n_pla, n_box, n_dsc, n_cyl))
+  if (n < 1 || !counts_ok(n_sph, n_pla, n_box, n_dsc, n_cyl)
+      || (d_step != 0 && d_step != 1) || (md_step != 0 && md_step != 1))
     return (int)cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = grid_for(analytic_occluded_kernel, n, &grid);
   if (err != cudaSuccess) return (int)err;
   LAUNCH(analytic_occluded_kernel, grid, SWEEP_BLOCK, 0, st,
          reinterpret_cast<const float4*>(objs),
-         kinds_of(n_sph, n_pla, n_box, n_dsc, n_cyl), O, D, n, mask, max_dist,
-         occ);
+         kinds_of(n_sph, n_pla, n_box, n_dsc, n_cyl), O, D, d_step, n,
+         max_dist, md_step, occ);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
   return 0;

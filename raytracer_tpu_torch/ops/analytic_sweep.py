@@ -14,7 +14,11 @@ constants of its test computed with the plain version's own torch
 expressions), made once per geometry (`scene_tables`, kept on the
 GeometryTables object while the tensors it comes from keep their
 version), and takes the plain sweep's block size, `object_block(N)`, for
-its tie and NaN rule.  W3 has no backward: `nearest_hit` recomputes the
+its tie and NaN rule.  The occluded entry reads the casting objects'
+rows alone (`casting_tables`, made once per geometry and shadow mask),
+and takes a direction and max_dist that every ray shares (the expand of
+one row, as materials/shade.py passes a directional light's) as that one
+row, uncopied.  W3 has no backward: `nearest_hit` recomputes the
 winners' t in plain torch where autograd needs it
 (`intersect.analytic_winner_t`).
 
@@ -38,7 +42,7 @@ _N = ctypes.POINTER(ctypes.c_int)
 _KINDS = [_I] * 5
 ENTRIES = {
     "analytic_nearest": [_V, *_KINDS, _I, _V, _V, _L, _V, _V, _V, _V, _N],
-    "analytic_occluded": [_V, *_KINDS, _V, _V, _L, _V, _V, _V, _V, _N],
+    "analytic_occluded": [_V, *_KINDS, _V, _V, _I, _L, _V, _I, _V, _V, _N],
 }
 ROW = 16                  # floats an object takes in W3's table
 # W3's kernels by name, as a profile lists them
@@ -110,6 +114,37 @@ def _rays(O, D):
     return O.detach().contiguous(), D.detach().contiguous()
 
 
+def _uniform(x):
+    """(x detached, its row step): (x's one row, 0) where every row of x is
+    that row (an expand, stride 0 along rays), else (x contiguous, 1)."""
+    x = x.detach()
+    if x.dim() >= 1 and x.shape[0] > 1 and x.stride(0) == 0:
+        return x[:1].contiguous(), 0
+    return x.contiguous(), 1
+
+
+def casting_tables(geom, shadow_obj_mask):
+    """(rows, counts): the rows of `scene_tables(geom)` whose
+    shadow_obj_mask bit is set, in object-id order, and how many of each
+    kind: what W3's occluded entry sweeps.  Made with one host copy of the
+    mask, and `kept` on geom while the table and the mask are the same
+    tensors at the same version."""
+    table = scene_tables(geom)
+
+    def make():
+        counts = kind_counts(geom)
+        mask = shadow_obj_mask[:sum(counts)]
+        if mask.dtype != torch.bool or mask.shape[0] != sum(counts):
+            raise ValueError("shadow_obj_mask must be bool, one entry an object")
+        bits = mask.cpu()
+        starts = [sum(counts[:k]) for k in range(len(counts))]
+        cast = [int(bits[a:a + c].sum()) for a, c in zip(starts, counts)]
+        ids = torch.nonzero(bits).flatten().to(table.device)
+        return table.index_select(0, ids).contiguous(), cast
+
+    return kept(geom, "_w3_casting", (table, shadow_obj_mask), make)
+
+
 def _nearest_launch(O, D, geom, lib=None):
     """(t, orient, obj_id) of each ray by W3's nearest entry from `lib`
     (see `analytic_nearest`), with the plain sweep's tie and NaN rule for
@@ -133,24 +168,30 @@ def _nearest_launch(O, D, geom, lib=None):
 
 
 def _occluded_launch(O, D, geom, shadow_obj_mask, max_dist, lib=None):
-    """W3's shadow-ray answer from `lib` (see `analytic_occluded`); adds
-    its launches to analytic_occluded.launches."""
+    """W3's shadow-ray answer from `lib` (see `analytic_occluded`): the
+    casting objects alone; D and max_dist passed as their one row where
+    every ray shares it.  Adds its launches to analytic_occluded.launches
+    (none where no analytic object casts)."""
     n, dev = O.shape[0], O.device
-    counts = kind_counts(geom)
-    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
-    if n == 0 or not sum(counts):
-        return occ
-    O, D = _rays(O, D)
-    table = scene_tables(geom)
-    md = max_dist.detach().to(torch.float32).contiguous()
-    mask = shadow_obj_mask[:sum(counts)].contiguous()
-    if mask.dtype != torch.bool or mask.shape[0] != sum(counts):
-        raise ValueError("shadow_obj_mask must be bool, one entry an object")
-    _check(table, O, D, md, mask)
+    if n == 0 or not sum(kind_counts(geom)):
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+    if O.dtype != torch.float32 or D.dtype != torch.float32:
+        raise TypeError("W3 takes float32 rays")
+    rows, counts = casting_tables(geom, shadow_obj_mask)
+    if not sum(counts):
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)    # every ray written
+    O = O.detach().contiguous()
+    D, d_step = _uniform(D)
+    md, md_step = _uniform(max_dist)
+    md = md.to(torch.float32)
+    if D.shape[-1] != 3 or D.shape[0] != (n if d_step else 1) \
+            or md.shape[0] != (n if md_step else 1):
+        raise ValueError("W3 takes D (N, 3) and max_dist (N,)")
+    _check(rows, O, D, md)
     analytic_occluded.launches += _call(
-        lib, "analytic_occluded", _p(table), *counts, _p(O), _p(D), n,
-        _p(mask), _p(md), _p(occ), cuda_build.stream_of(dev),
-        entries=ENTRIES)
+        lib, "analytic_occluded", _p(rows), *counts, _p(O), _p(D), d_step, n,
+        _p(md), md_step, _p(occ), cuda_build.stream_of(dev), entries=ENTRIES)
     return occ
 
 
@@ -166,7 +207,9 @@ def analytic_nearest(O, D, geom):
 def analytic_occluded(O, D, geom, shadow_obj_mask, max_dist):
     """True where an analytic object whose shadow_obj_mask bit is set (the
     mask in object-id order; its triangle part is not read) lies nearer
-    than max_dist (intersect.py `_analytic_occluded`)."""
+    than max_dist (intersect.py `_analytic_occluded`).  D (N, 3) and
+    max_dist (N,) may be the expand of one row, which the card's W3 reads
+    as that row."""
     if O.device.type == "cpu":
         return isect._analytic_occluded(O, D, geom, shadow_obj_mask, max_dist)
     return _occluded_launch(O, D, geom, shadow_obj_mask, max_dist)

@@ -106,12 +106,14 @@ def cluster_tables(geom):
 
 
 def kept(geom, name, srcs, make):
-    """make(), kept on geom as `name` while none of the tensors srcs has
-    changed (in place included), so a render's bounces make it once."""
-    key = tuple(x._version for x in srcs)
+    """make(), kept on geom as `name` while srcs are the same tensors and
+    none has changed (in place included), so a render's bounces make it
+    once.  The entry holds srcs, so no id in its key is reused while it
+    is kept."""
+    key = tuple((id(x), x._version) for x in srcs)
     old = geom.__dict__.get(name)
     if old is None or old[0] != key:
-        old = (key, make())
+        old = (key, make(), srcs)
         object.__setattr__(geom, name, old)
     return old[1]
 

@@ -92,21 +92,41 @@ def graph_ms(fn, reps, replays=3):
     return start.elapsed_time(end) / (reps * replays), 1 + replays
 
 
-def profiled_kernel_ms(fn, calls, name):
-    """(mean device milliseconds, count) of the kernels whose name holds
-    `name` among the device events torch.profiler records over `calls`
-    calls of fn.  A session that follows large ones (hundreds of thousands
-    of device events) in the same process can lose events, so a check
-    that counts them runs in a process of its own."""
+# Idle seconds at each end of a profiler session.  On an H100, sessions
+# of 20 short calls in fresh processes without them now and then lost
+# device events (2 of 240 lost all 20); with them none of 240 lost any
+# (scripts/torch_profiler_edges.py).
+PROFILE_PAD_S = 0.05
+
+
+def profiled_events(fn, calls, pad_s=PROFILE_PAD_S):
+    """The device events torch.profiler records over `calls` calls of fn,
+    after one call outside the session, with `pad_s` seconds of idle
+    between the session's start and the first call and between the last
+    call's end and the session's stop: the profiler drops kernels that
+    lie close to either edge."""
+    import time
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(pad_s)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    durs = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        time.sleep(pad_s)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiled_kernel_ms(fn, calls, name):
+    """(mean device milliseconds, count) of the kernels whose name holds
+    `name` among `profiled_events(fn, calls)`.  A session that follows
+    large ones (hundreds of thousands of device events) in the same
+    process can lose events, so a check that counts them runs in a
+    process of its own."""
+    durs = [e.time_range.elapsed_us() for e in profiled_events(fn, calls)
+            if name in e.name]
     return (sum(durs) / len(durs) / 1e3 if durs else None), len(durs)
 
 

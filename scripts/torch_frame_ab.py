@@ -147,13 +147,15 @@ def show(frames):
         for k, v in frames.items())
 
 
-def in_turns(script, roots, args, show, out_path):
+def in_turns(script, roots, args, show, out_path, metric="median_s",
+             items="frames"):
     """Run `script --child ROOT *args` for each root in the order given,
-    one process each, printing show(its frames) as it ends; print and
-    return the parent's last line: the card's name and power limit, every
-    child's result and, per root, the median over its children of each
-    frame's "median_s" (also written to out_path if given).  Exit code 1
-    without a CUDA device, the child's own if one fails."""
+    one process each, printing show(its `items`: frames, or held inputs)
+    as it ends; print and return the parent's last line: the card's name
+    and power limit, every child's result and, per root, the median over
+    its children of each item's `metric` (also written to out_path if
+    given).  Exit code 1 without a CUDA device, the child's own if one
+    fails."""
     import torch
 
     if not torch.cuda.is_available():
@@ -172,15 +174,15 @@ def in_turns(script, roots, args, show, out_path):
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(f"{root}: {show(runs[-1]['frames'])}", flush=True)
+        print(f"{root}: {show(runs[-1][items])}", flush=True)
     summary = {}
     for run in runs:
-        for name, v in run["frames"].items():
+        for name, v in run[items].items():
             summary.setdefault(run["root"], {}).setdefault(name, []).append(
-                v["median_s"])
-    summary = {root: {k: statistics.median(v) for k, v in frames.items()}
-               for root, frames in summary.items()}
-    out = {"device": smi, "runs": runs, "median_of_medians_s": summary}
+                v[metric])
+    summary = {root: {k: statistics.median(v) for k, v in by_item.items()}
+               for root, by_item in summary.items()}
+    out = {"device": smi, "runs": runs, f"median_of_{metric}": summary}
     if out_path:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps(out, indent=1) + "\n")

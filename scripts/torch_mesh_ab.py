@@ -14,7 +14,9 @@ normal-mapped scene of examples/torch_features.py (or those --frames
 names), each at 400x300 x 16 spp through Scene.render on the wavefront.
 A child renders each frame once to warm up (W1, where the root has it,
 is built then) and RENDERS (or --renders) times timed (a device sync
-after each), with the device's peak memory over the timed renders; then one render under torch.profiler: the device
+after each), with the device's peak memory over the timed renders and
+the SHA-256 of the last timed image (equal hashes: frames equal bit for
+bit); then one render under torch.profiler: the device
 span, busy time and idle share (torch_render_profile.py
 `device_breakdown`), the device time of each "wavefront.*" bounce stage
 (`wavefront_stages`), of the clustered sweep's range (the pair search
@@ -26,6 +28,7 @@ the parent's last line is `in_turns`'.
 """
 
 import argparse
+import hashlib
 import json
 import statistics
 import sys
@@ -47,6 +50,7 @@ RENDERS = 3
 def child(root, frames=None, renders=RENDERS):
     import importlib
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,7 +83,7 @@ def child(root, frames=None, renders=RENDERS):
         for _ in range(renders):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, stats = render()
+            img, stats = render()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -109,6 +113,8 @@ def child(root, frames=None, renders=RENDERS):
                     if any(w in k for w in W2_KERNELS))
         out["frames"][name] = {
             "walls_s": walls, "median_s": statistics.median(walls),
+            "sha256": hashlib.sha256(np.ascontiguousarray(
+                img, dtype=np.float32).tobytes()).hexdigest(),
             "peak_gib": peak, "rays_traced": int(stats["rays_traced"]),
             "profiled_wall_s": prof_wall, "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / span if span else None,
@@ -136,7 +142,7 @@ def show(frames):
         f"{v['sweep_ms']:.1f} ms ({100 * (v['sweep_share'] or 0):.1f}% of busy), "
         f"W1 {v['w1_ms']:.1f} ms, W2 {v['w2_ms']:.2f} ms, idle "
         f"{100 * (v['idle_share'] or 0):.1f}%, {v['syncs_per_bounce']:.2f} "
-        f"syncs a bounce"
+        f"syncs a bounce, image SHA-256 {v['sha256'][:16]}"
         for k, v in frames.items())
 
 

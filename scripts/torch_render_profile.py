@@ -59,6 +59,21 @@ def device_breakdown(trace_events):
     return span, busy, dict(per_name)
 
 
+def device_events(torch, fn, calls):
+    """{"events_a_call": {name: events a call}, "device_ms_a_call": ms}
+    of the device events torch.profiler records over `calls` calls of fn
+    (after one call outside the profile; `common.profiled_events`)."""
+    from collections import Counter
+
+    from raytracer_tpu_torch.probes.common import profiled_events
+
+    ev = profiled_events(fn, calls)
+    names = Counter(e.name for e in ev)
+    return {"events_a_call": {k: n / calls for k, n in names.items()},
+            "device_ms_a_call": sum(e.time_range.elapsed_us() for e in ev)
+            / calls / 1e3}
+
+
 def wavefront_stages(events):
     """Device busy time (us) and device events under each "wavefront.*"
     profiler range of a Chrome trace: the kernels and copies inside each

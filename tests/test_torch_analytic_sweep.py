@@ -7,7 +7,10 @@ On the CPU:
   primitives example, the 98-object grid (examples/torch_primitives.py,
   examples/torch_wavefront.py, at 16x16) and a scene of every analytic
   kind, with random rays made from a numpy seed, both packages reading
-  the JAX compile's tables.  XLA:CPU contracts a*b+c into FMA, so a few
+  the JAX compile's tables; the occluded wrapper also with the direction
+  and max_dist passed as the expand of one row, as materials/shade.py
+  passes a directional light's, on a scene whose sky sphere casts no
+  shadow.  XLA:CPU contracts a*b+c into FMA, so a few
   rays that graze an edge land on the other side of it: hit masks, ids,
   orientations and shadow answers are held on >= 99.9% of rays, and t of
   the rays both sides hit within 1e-5 relative (1e-6 absolute);
@@ -30,7 +33,9 @@ On the card (`cuda`-marked, skipped here):
 holds W3 against the plain loops bit for bit on the edge scene of
 tests/test_torch_analytic_sweep_emu.py (at four block sizes) and on the
 primitives example, shows that nearest_hit and occluded on CUDA tensors
-sweep the analytic objects only through W3 (the plain loops raise),
+sweep the analytic objects only through W3 (the plain loops raise), that
+the occluded wrapper given an expanded direction and max_dist launches
+W3's kernel alone (torch.profiler's device events: no copy),
 holds the gradient through W3's winners against the plain loops', and
 requires two backward passes of a small differentiable_render to be
 bit-equal.
@@ -60,11 +65,21 @@ from test_torch_analytic_sweep_emu import (N_RAYS, edge_rays,  # noqa: E402
                                            edge_scene, edge_shadow, exact_sqrt)
 
 RATE = 0.999
+N_SKY = 60.0                  # the sky sphere's radius
 GRAD_TOL = 1e-9
 SCENES = {
     "primitives": lambda m: torch_primitives.primitives(16, 16, m=m),
     "grid": lambda m: torch_wavefront.grid(96, 16, 16, m=m),
 }
+
+
+def sky_scene(m):
+    """The primitives example inside an emissive sky sphere that casts no
+    shadow, as the mesh examples have one (examples/torch_mesh.py)."""
+    sc = torch_primitives.primitives(16, 16, m=m)
+    sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.7, 0.8, 0.95)),
+                    center=m.vec3(0, 0, 0), radius=N_SKY, shadow=False))
+    return sc
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +115,8 @@ def scene_rays(geom, n=N_RAYS, seed=0):
 @pytest.fixture(scope="module")
 def jax_scenes(one_thread):
     """{name: (JAX GeometryTables, the port's from the same compile,
-    shadow mask)}, the scenes of SCENES and every analytic kind."""
+    shadow mask, directional lights' directions)}, the scenes of SCENES,
+    every analytic kind and the sky scene."""
     pytest.importorskip("jax")
     J = pytest.importorskip("raytracer_tpu")
     from raytracer_tpu.core.compile import compile_scene
@@ -108,7 +124,7 @@ def jax_scenes(one_thread):
     from test_torch_wavefront_intersect import all_kinds
 
     out = {}
-    for name, make in {**SCENES, "all_kinds": all_kinds}.items():
+    for name, make in {**SCENES, "all_kinds": all_kinds, "sky": sky_scene}.items():
         j_data = compile_scene(make(J))[1]
         data = scene_data_from_jax(j_data)
         # the analytic objects alone on the JAX side: the port's wrappers
@@ -116,7 +132,7 @@ def jax_scenes(one_thread):
         j_geom = dataclasses.replace(j_data.geom, **{
             f.name: getattr(j_data.geom, f.name)[:0]
             for f in dataclasses.fields(j_data.geom) if f.name.startswith("tri_")})
-        out[name] = (j_geom, data.geom, data.obj.shadow)
+        out[name] = (j_geom, data.geom, data.obj.shadow, data.lights.dir_l)
     return out
 
 
@@ -125,7 +141,7 @@ def test_the_wrappers_equal_the_jax_package(jax_scenes, name):
     import jax.numpy as jnp
     from raytracer_tpu.geometry import intersect as jsect
 
-    j_geom, geom, shadow = jax_scenes[name]
+    j_geom, geom, shadow, _ = jax_scenes[name]
     O, D = scene_rays(geom, seed=1)
     before = analytic_sweep.launches()
     t, orient, obj = analytic_sweep.analytic_nearest(O, D, geom)
@@ -150,6 +166,39 @@ def test_the_wrappers_equal_the_jax_package(jax_scenes, name):
         jnp.asarray(mask.numpy()), jnp.asarray(md.numpy())))
     assert (occ.numpy() == jocc).mean() >= RATE
     assert 0.05 < occ.numpy().mean() < 0.95
+
+
+@pytest.mark.parametrize("name", ["sky", "primitives"])
+def test_the_occluded_wrapper_takes_one_row_as_the_jax_package(jax_scenes, name):
+    """Shadow rays toward the scene's directional light, direction and
+    max_dist the expand of one row, as materials/shade.py passes them: the
+    wrapper's answer is the JAX package's occluded on the same rays with
+    every row written out.  On the sky scene its sphere, whose mask bit is
+    not set, would occlude every ray."""
+    import jax.numpy as jnp
+    from raytracer_tpu.geometry import intersect as jsect
+
+    from raytracer_tpu_torch.utils.constants import SKYBOX_DISTANCE
+
+    j_geom, geom, shadow, dir_l = jax_scenes[name]
+    O, _ = scene_rays(geom, seed=5)
+    n = O.shape[0]
+    L = dir_l[0].expand(n, 3)
+    md = torch.full((1,), SKYBOX_DISTANCE).expand(n)
+    assert L.stride(0) == 0 and md.stride(0) == 0
+    before = analytic_sweep.launches()
+    occ = analytic_sweep.analytic_occluded(O, L, geom, shadow, md)
+    assert analytic_sweep.launches() == before          # the plain loops
+    jocc = np.asarray(jsect.occluded(
+        jnp.asarray(O.numpy()), jnp.asarray(L.contiguous().numpy()), j_geom,
+        jnp.asarray(shadow.numpy()), jnp.asarray(md.contiguous().numpy())))
+    assert (occ.numpy() == jocc).mean() >= RATE
+    assert 0.05 < occ.numpy().mean() < 0.95
+    if name == "sky":
+        sky = int(torch.nonzero(geom.sphere_radius == N_SKY)[0, 0])  # spheres first
+        assert not bool(shadow[sky])
+        every = torch.ones_like(shadow)
+        assert bool(analytic_sweep.analytic_occluded(O, L, geom, every, md).all())
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +405,33 @@ def test_w3_on_the_card_matches_plain_on_the_primitives(card):
     md = torch.full((O.shape[0],), 5.0, device=card)
     mask = torch.ones((16,), dtype=torch.bool, device=card)
     _card_hold(geom, O, D, mask, md)
+
+
+@pytest.mark.cuda
+def test_card_occluded_on_one_row_launches_its_kernel_alone(card):
+    """The occluded wrapper on the card with the direction and max_dist the
+    expand of one row (materials/shade.py's directional light): the
+    device events torch.profiler records over a few calls are W3's
+    occluded kernel, one a call, and nothing else (no copy of the
+    expanded inputs, no fill of the answer); the answer is the plain
+    loops' on the same rays."""
+    from raytracer_tpu_torch.probes.common import profiled_events
+
+    sc = sky_scene(T)
+    _, data = compile_wavefront(sc)
+    data = data.to(card)
+    geom, shadow = data.geom, data.obj.shadow
+    O = scene_rays(geom.to("cpu"), n=1 << 16, seed=9)[0].to(card)
+    n = O.shape[0]
+    L = data.lights.dir_l[0].expand(n, 3)
+    md = torch.full((1,), 1.0e6, device=card).expand(n)
+    want = isect._analytic_occluded(O, L, geom, shadow, md)
+    assert torch.equal(analytic_sweep.analytic_occluded(O, L, geom, shadow, md), want)
+    calls = 4
+    names = [e.name for e in profiled_events(
+        lambda: analytic_sweep.analytic_occluded(O, L, geom, shadow, md), calls)]
+    assert len(names) == calls, names
+    assert all("analytic_occluded_kernel" in x for x in names), names
 
 
 @pytest.mark.cuda

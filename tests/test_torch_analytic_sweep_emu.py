@@ -28,9 +28,18 @@ a shadow mask with false bits; at the block sizes of the plain loop
 and 7 objects at a time in shared memory (ANALYTIC_CHUNK), fewer than
 the scene's 28.
 
+The occluded entry is also held on the cases of `OCCLUDED_CASES`: a
+direction and max_dist passed as the expand of one row (stride 0: the
+wrapper hands the kernel that row, a view into a larger buffer whose other
+rows differ, so a read by ray index is caught), passed a ray each, a mask
+with no bit set (no launch), with every bit set, and a non-casting object
+nearer than a casting one (the table holds the casting objects alone).
+
 Each source mutation of `MUTANTS` (fminf / fmaxf for torch's NaN-carrying
 minimum and maximum, `<=` across blocks, no NaN rule for a block, a
-reordered dot product) makes some case fail.  One mutation of the
+reordered dot product) makes some case fail, and so does each of
+`OCCLUDED_MUTANTS` (a uniform direction or max_dist read by ray index;
+the wrapper's casting table made from a mask read off by one).  One mutation of the
 plain version's list cannot: the plane test's `fabsf(t)` for `t`.  Its
 hit condition `ndco * ndd > 0` makes t = ndco / ndd positive (or +0 on
 underflow, +inf on overflow) wherever it returns t, so |t| and t have
@@ -44,6 +53,7 @@ By hand:
 """
 
 import ctypes
+import inspect
 import shutil
 import subprocess
 from pathlib import Path
@@ -78,6 +88,17 @@ MUTANTS = {
     "dot_reordered": [("const float tca = -(r.dx * ocx + r.dy * ocy + r.dz * ocz);",
                        "const float tca = -(r.dz * ocz + r.dy * ocy + r.dx * ocx);")],
 }
+# the occluded entry's: source edits of the kernel, or ("wrapper", edits
+# of ops/analytic_sweep.py `casting_tables`)
+OCCLUDED_MUTANTS = {
+    "uniform_D_by_ray": [("if (d_step) {", "if (d_step || true) {")],
+    "uniform_md_by_ray": [("s.md = md_step ? max_dist[i] : uni[3];",
+                           "s.md = max_dist[i];")],
+    "mask_off_by_one": ("wrapper", [("bits = mask.cpu()",
+                                     "bits = torch.roll(mask.cpu(), 1)")]),
+}
+OCCLUDED_CASES = ("uniform", "per_ray", "no_bit", "every_bit",
+                  "non_caster_nearer")
 PLANE_SIGNED_T = [("fabsf(v) <= b.w && ndco * ndd > 0.0f) ? fabsf(t)",
                    "fabsf(v) <= b.w && ndco * ndd > 0.0f) ? t")]
 
@@ -356,6 +377,81 @@ def test_a_refused_launch_raises_and_counts_nothing(libs, scene):
     assert analytic_sweep.launches() == before
 
 
+def occluded_case(geom, O, D, case, seed=3):
+    """(D, mask, max_dist) of one of OCCLUDED_CASES on the edge scene's rays
+    O (directions D):
+    - uniform: one direction and one max_dist for every ray, each the
+      expand of row 0 of a buffer whose other rows differ;
+    - per_ray: the rays' own directions, edge_shadow's mask and max_dist;
+    - no_bit / every_bit: those directions and max_dist, a mask with no
+      bit / every bit set;
+    - non_caster_nearer: every bit set but the twin spheres' and the
+      plane that shares its place with a disc, max_dist past the scene."""
+    rng = np.random.default_rng(seed)
+    n = O.shape[0]
+    mask, md, _ = edge_shadow(geom, O, D)
+    if case == "uniform":
+        buf = _unit(rng.normal(size=(n, 3))).astype(np.float32)
+        buf[0] = _unit(np.array([-0.5, -0.5, -0.7]))
+        md_buf = rng.uniform(0.1, 8.0, n).astype(np.float32)
+        md_buf[0] = 6.0
+        return (torch.from_numpy(buf)[:1].expand(n, 3), mask,
+                torch.from_numpy(md_buf)[:1].expand(n))
+    if case == "no_bit":
+        mask = torch.zeros_like(mask)
+    elif case == "every_bit":
+        mask = torch.ones_like(mask)
+    elif case == "non_caster_nearer":
+        mask = torch.ones_like(mask)
+        mask[[*TWIN, PLANE_TIE]] = False
+        md = torch.full((n,), 100.0)
+    return D, mask, md
+
+
+def occluded_differs(lib, geom, O, D, mask, md):
+    """Whether W3's occluded entry from `lib` and the plain loops disagree
+    on some ray."""
+    got = analytic_sweep._occluded_launch(O, D, geom, mask, md, lib=lib)
+    return not torch.equal(got, isect._analytic_occluded(O, D, geom, mask, md))
+
+
+@pytest.mark.parametrize("chunk", [256, *SMALL_CHUNKS])
+@pytest.mark.parametrize("case", OCCLUDED_CASES)
+def test_w3_occluded_equals_the_plain_loops(libs, scene, case, chunk):
+    geom, O, D, _ = scene
+    D, mask, md = occluded_case(geom, O, D, case)
+    want = isect._analytic_occluded(O, D, geom, mask, md)
+    before = analytic_sweep.analytic_occluded.launches
+    assert not occluded_differs(libs[chunk], geom, O, D, mask, md)
+    launched = analytic_sweep.analytic_occluded.launches - before
+    assert launched == (0 if case == "no_bit" else 1)
+    if case == "uniform":
+        assert D.stride(0) == 0 and md.stride(0) == 0
+        assert 0.05 < float(want.float().mean()) < 0.95
+    if case == "no_bit":
+        assert not bool(want.any())
+    if case == "non_caster_nearer":
+        # rays whose nearest object casts no shadow and that a casting
+        # object behind it occludes
+        t, _, obj = isect._analytic_nearest(O, D, geom)
+        assert int(((t < FARAWAY) & ~mask[obj] & want).sum()) > 20
+
+
+def test_casting_tables_hold_the_casting_rows_in_id_order(scene):
+    geom = scene[0]
+    mask = torch.zeros(40, dtype=torch.bool)
+    mask[[3, 1, 17, 20, 21, 27]] = True
+    rows, counts = analytic_sweep.casting_tables(geom, mask)
+    assert counts == [2, 1, 2, 0, 1]
+    table = analytic_sweep.scene_tables(geom)
+    assert torch.equal(rows, table[[1, 3, 17, 20, 21, 27]])
+    assert analytic_sweep.casting_tables(geom, mask)[0] is rows     # kept
+    mask[5] = True                              # in place: a new version
+    assert analytic_sweep.casting_tables(geom, mask)[1] == [3, 1, 2, 0, 1]
+    with pytest.raises(ValueError):
+        analytic_sweep.casting_tables(geom, mask[:10])
+
+
 def _mutant(tmp_path, name, edits):
     text = (CSRC / "analytic_sweep.cu").read_text()
     for old, new in edits:
@@ -376,6 +472,27 @@ def test_a_mutant_of_w3_fails(mutant, scene, tmp_path, monkeypatch):
                 m.setattr(isect, "BLOCK_ELEMS", B * N_RAYS)
             if differences(lib, geom, O, D, mask, md):
                 caught.append(B)
+    assert caught, f"no case catches the mutant {mutant}"
+
+
+@pytest.mark.parametrize("mutant", list(OCCLUDED_MUTANTS))
+def test_an_occluded_mutant_fails(mutant, libs, scene, tmp_path, monkeypatch):
+    geom, O, D, _ = scene
+    edits = OCCLUDED_MUTANTS[mutant]
+    lib = libs[256]
+    if edits[0] == "wrapper":
+        src = inspect.getsource(analytic_sweep.casting_tables)
+        for old, new in edits[1]:
+            assert src.count(old) == 1, old
+            src = src.replace(old, new)
+        space = dict(vars(analytic_sweep))
+        exec(src, space)
+        monkeypatch.setattr(analytic_sweep, "casting_tables",
+                            space["casting_tables"])
+    else:
+        lib = _mutant(tmp_path, mutant, edits)
+    caught = [case for case in OCCLUDED_CASES
+              if occluded_differs(lib, geom, O, *occluded_case(geom, O, D, case))]
     assert caught, f"no case catches the mutant {mutant}"
 
 

@@ -388,6 +388,29 @@ def test_scene_tables_are_made_once_per_geometry(scenes):
     assert torch.equal(rows2, mesh_sweep.row_table(geom, isect.TRI_CLUSTER_SIZE))
 
 
+def test_kept_makes_again_for_another_tensor_at_the_same_version():
+    """`kept` keys on each source's identity as well as its version: a
+    source replaced by another tensor whose version counter reads the same
+    makes the value again; the same tensors at the same versions do not."""
+    holder = type("Holder", (), {})()
+    a, b = torch.zeros(3), torch.ones(3)
+    assert a._version == b._version
+    made = []
+
+    def make():
+        made.append(len(made))
+        return made[-1]
+
+    assert mesh_sweep.kept(holder, "_t", (a, b), make) == 0
+    assert mesh_sweep.kept(holder, "_t", (a, b), make) == 0
+    assert mesh_sweep.kept(holder, "_t", (b, a), make) == 1
+    c = torch.zeros(3)
+    assert c._version == a._version
+    assert mesh_sweep.kept(holder, "_t", (c, a), make) == 2
+    c.add_(1.0)
+    assert mesh_sweep.kept(holder, "_t", (c, a), make) == 3
+
+
 SASS = """
         Function : _Z12other_kernelPf
         /*0000*/                   FCHK P0, R1, R2 ;
