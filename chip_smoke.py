@@ -5,9 +5,9 @@
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
 the record kernel, W1, the wavefront's triangle sweep, W2, its pair
-search, and W3, its analytic sweep, one nvcc per source, started
-together) from the checkout and drives both kernel paths and the
-wavefront:
+search, W3, its analytic sweep, and W4, its shading blocks, one nvcc per
+source, started together) from the checkout and drives both kernel paths
+and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -104,6 +104,23 @@ wavefront:
   Scene.render on the wavefront, both entries launched (counts set to 0
   just before, read just after).  `python3 chip_smoke.py --w3` runs the
   build and this phase alone;
+- W4 (csrc/wavefront_shade.cu: the diffuse, refractive and glossy
+  blocks) in the driven wavefront renders: the 98-object grid at 400x300
+  x 64 spp, Cornell at 400x400 x 64 spp on the wavefront, the icosphere,
+  the beach ball and the instance field at 400x300 x 16 spp, the
+  normal-mapped scene at 400x300 x 16 spp, and one forward + backward
+  pass of the inverse-rendering gradient; each with W4's counts set to 0
+  just before and read just after (every entry of its scene launched, no
+  plain shading block run on the card but a backward pass's recompute,
+  both required); the first bounce of each entry in each of them
+  (captured where core/integrator.py `trace` calls it) held against the
+  plain dispatch, every field of every ray bit for bit (a share of
+  exactly 1.0), W4 alone timed through a CUDA graph at it beside the
+  plain block; the kernels line has a row an entry, at its held bounce
+  with the most rays of its type, its bound from the bytes it moves
+  there and its issue slots off its kernel's SASS (probes/common.py
+  `shaded_pass`).  `python3 chip_smoke.py --w4` runs the build and this
+  phase alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -223,6 +240,7 @@ before the last line, which is {"ok": true, "device": {...}}.  Without a CUDA de
 exits 1.  Imports neither jax nor raytracer_tpu.
 """
 
+import contextlib
 import json
 import re
 import shutil
@@ -338,6 +356,31 @@ W3_EVENT_CALLS = 10       # calls of the occluded wrapper under the profiler
 W3 = {"launches": dict.fromkeys(W3_ENTRIES, 0),
       "max_abs_err": dict.fromkeys(W3_ENTRIES, 0.0), "timed": []}
 PRIM_W, PRIM_H, PRIM_SPP = 400, 300, 16
+# W4 (csrc/wavefront_shade.cu), the shading blocks: the CUDA-graph replays
+# of its timing; its entries (ops/wavefront_shade.py wrappers), each with
+# its kernel (whose SASS loop over the rays gives a pass's issue slots)
+# and the JAX block it replaces; what the run gathers for its rows:
+# launches in the driven wavefront renders (counts set to 0 just before
+# each, read just after), the largest difference of its holds (0:
+# bit-equal), and its work and times at the held bounce with the most rays
+# of its type; the bounces captured in the driven renders (the first call
+# of each entry a render), and the plain blocks run on the card outside a
+# hold or a backward pass (none allowed)
+W4_REPS = 5
+# the lamp cluster's importance-sampled lamps and frame (examples/
+# torch_wavefront.py lamp_cluster)
+LAMPS, LAMP_WH = 131, (200, 150)
+W4_ENTRIES = {
+    "shade_diffuse": ("shade_diffuse_kernel",
+                      "raytracer_tpu/materials/shade.py:317"),
+    "shade_refractive": ("shade_refractive_kernel",
+                         "raytracer_tpu/materials/shade.py:385"),
+    "shade_glossy": ("shade_glossy_kernel",
+                     "raytracer_tpu/materials/shade.py:215")}
+W4 = {"launches": dict.fromkeys(W4_ENTRIES, 0),
+      "max_abs_err": dict.fromkeys(W4_ENTRIES, 0.0), "timed": {},
+      "label": None, "captured": {}, "plain_on_card": 0, "holding": False,
+      "backward": 0}
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -1806,6 +1849,341 @@ def w3_phase(torch, dev):
             "primitives image not finite or of the wrong shape")
 
 
+@contextlib.contextmanager
+def w4_spies():
+    """Spies for W4's phase, the originals restored after it: trace's three
+    wrappers (ops/wavefront_shade.py) capture the first call of each entry
+    in a labelled render (its ShadeCtx, draws, packed words, mask and a
+    copy of the merged output it was handed), and the plain blocks count
+    their calls on CUDA tensors outside a hold and outside `_Shade`'s
+    backward (which recomputes the plain block for its gradient)."""
+    from raytracer_tpu_torch.materials import shade
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+
+    names = ("shade_diffuse", "shade_refractive", "shade_glossy")
+    saved = ([(ws, n, getattr(ws, n)) for n in names]
+             + [(shade, n, getattr(shade, n)) for n in names]
+             + [(ws._Shade, "backward", ws._Shade.__dict__["backward"])])
+
+    def spy(mt, real):
+        def call(ctx, draws, packed, m, acc):
+            key = (W4["label"], real.__name__)
+            if W4["label"] is not None and key not in W4["captured"]:
+                copy = ws.Merged(*(getattr(acc, f).detach().clone()
+                                   for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS))
+                W4["captured"][key] = (mt, ctx, draws, packed, m, copy)
+            return real(ctx, draws, packed, m, acc)
+        return call
+
+    def counted(block):
+        def call(ctx, *args, **kw):
+            if ctx.P.device.type == "cuda" and not W4["holding"]:
+                W4["plain_on_card"] += 1
+            return block(ctx, *args, **kw)
+        return call
+
+    def counted_backward(fctx, *grads):
+        W4["holding"], W4["backward"] = True, W4["backward"] + 1
+        try:
+            return saved[-1][2].__func__(fctx, *grads)
+        finally:
+            W4["holding"] = False
+
+    for mt, w in ws._WRAPPER.items():
+        setattr(ws, w.__name__, spy(mt, w))
+    for n in names:
+        setattr(shade, n, counted(getattr(shade, n)))
+    ws._Shade.backward = staticmethod(counted_backward)
+    try:
+        yield
+    finally:
+        for obj, n, v in saved:
+            setattr(obj, n, v)
+
+
+class w4_driven:
+    """A driven render labelled `label`: W4's counts set to 0 just before
+    and read just after (added to the run's), W4's first call of each
+    entry captured; no plain block may run on the card in it (a backward
+    pass's recompute aside)."""
+
+    def __init__(self, label):
+        self.label = label
+
+    def __enter__(self):
+        from raytracer_tpu_torch.ops import wavefront_shade as ws
+        self.ws, self.plain = ws, W4["plain_on_card"]
+        W4["label"] = self.label
+        ws.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        W4["label"] = None
+        self.got = {key: self.ws._WRAPPER[mt].launches
+                    for mt, (key, _) in self.ws._BLOCKS.items()}
+        for key, n in self.got.items():
+            W4["launches"][key] += n
+        self.plain_runs = W4["plain_on_card"] - self.plain
+        return False
+
+
+def w4_bytes(mt, ctx, draws, m, tt, occ):
+    """The bytes W4's entry moves on a captured bounce, each input read
+    once and each output written once: every ray's packed word, and for
+    its type's rays their state, draws, texels and the outputs its block
+    changes (the merged output starts with the rest); a medium every ray
+    shares, and the slot and light tables, once."""
+    from raytracer_tpu_torch.materials.base import (MAT_DIFFUSE, MAT_GLOSSY,
+                                                    MAT_REFRACTIVE)
+    from raytracer_tpu_torch.ops.wavefront_shade import WRITTEN
+
+    n, typed = m.shape[0], int(m.sum())
+    # P, N, eps; the float fields the entry writes, cont, and is_diffuse
+    # (diffuse) or did_split (refractive)
+    per = 12 + 12 + 4 + 12 * len(WRITTEN[mt]) + 1 + (mt != MAT_GLOSSY)
+    once = 0
+    for x in ((ctx.n_re, ctx.n_im) if mt != MAT_DIFFUSE else ()):
+        if x.dim() == 2 and x.stride(0) != 0:
+            per += 12
+        else:
+            once += 12
+    data, mats = ctx.data, ctx.data.mats
+    if mt == MAT_DIFFUSE:
+        per += 8 + 4 + 12 + (8 if draws[mt][1] is not None else 0)
+        if ctx.strat_u is not None:       # read where the bounce is the first
+            once += 12 * int((m & (ctx.diffuse_reflections == 0)).sum())
+        tabs = [mats.diffuse_color, mats.diffuse_ambient_weight, data.is_center,
+                data.is_radius, data.env_is_prob, data.env_is_alias,
+                data.env_is_pdf]
+    elif mt == MAT_REFRACTIVE:
+        # D, t, orient, depth, u; hero; the split pattern and count
+        per += 12 + 4 + 4 + 4 + 4 + (8 if draws[mt][1] is not None else 0)
+        per += 8 if ctx.split_k > 0 else 0
+        tabs = [mats.refr_n_re, mats.refr_n_im, mats.refr_dispersive]
+    else:
+        per += 12 + 8 + 4 + (len(occ) if occ else 0)    # D, uv, depth, answers
+        tabs = [mats.glossy_color, mats.glossy_diff, mats.glossy_roughness,
+                mats.glossy_spec, mats.glossy_n_re, mats.glossy_n_im,
+                *(getattr(data.lights, f) for f in (
+                    "dir_l", "dir_color", "point_pos", "point_color", "spot_pos",
+                    "spot_dir", "spot_color", "spot_cos_in", "spot_cos_out"))]
+    if tt is not None:
+        # the texels of the typed rays of textured slots: 4 taps bilinear
+        flags = tt[1][ctx.mat_slot.clamp(0, tt[1].shape[0] - 1).long(), 3]
+        taps = ((flags & 1) != 0).long() * (1 + 3 * ((flags & 2) != 0).long())
+        once += 12 * int((taps * m).sum())
+    return 4 * n + per * typed + once + sum(x.numel() * x.element_size()
+                                            for x in tabs)
+
+
+def w4_hold(torch, label):
+    """W4 against the plain dispatch on the bounces captured in the render
+    `label`, each entry on the card: its merged output and the plain
+    block's merged into the same output, every field of every ray bit for
+    bit (floats by their bits, or both NaN; a share of exactly 1.0,
+    required); W4 alone timed through a CUDA graph (`graph_ms`) at the
+    bounce, the plain block and its merge with events.  Keeps each entry's
+    numbers at its bounce with the most rays of its type; frees the
+    captures.  Returns the text of a line."""
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from raytracer_tpu_torch.probes import common
+
+    parts = []
+    for (lab, key), (mt, ctx, draws, packed, m, acc) in list(W4["captured"].items()):
+        if lab != label:
+            continue
+        del W4["captured"][(lab, key)]
+        W4["holding"] = True
+        try:
+            with torch.no_grad():
+                occ = None
+                if key == "shade_glossy":
+                    nudged, rays = ws.shade.light_rays(ctx)
+                    occ = ws.shade.light_occlusion(ctx, nudged, rays)
+                got = ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
+                    *(getattr(acc, f).clone() for f in
+                      ws.FLOAT_FIELDS + ws.BOOL_FIELDS)))
+                want = acc.merge(ws._plain(mt, ctx, draws, occ), m)
+                same = total = 0
+                err = 0.0
+                for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS:
+                    a, b = getattr(got, f), getattr(want, f)
+                    if a.is_floating_point():
+                        eq = (a.view(torch.int32) == b.view(torch.int32)) | (
+                            torch.isnan(a) & torch.isnan(b))
+                        fin = torch.isfinite(a) & torch.isfinite(b)
+                        if bool(fin.any()):
+                            err = max(err, float((a - b)[fin].abs().max()))
+                    else:
+                        eq = a == b
+                    same += int(eq.sum())
+                    total += eq.numel()
+                share = same / total
+                W4["max_abs_err"][key] = max(W4["max_abs_err"][key], err)
+                require(share == 1.0, f"W4 {key} on the {label} bounce: "
+                        f"bit-equal share {share}")
+                # W4 alone through a CUDA graph, on a copy it owns
+                out = got
+                entry, rays_s, block, keep = ws.prepare(mt, ctx, draws, packed,
+                                                         out, occ)
+                dev = ctx.P.device
+                run = lambda: ws._call(None, entry, ws.ctypes.byref(rays_s),
+                                       ws.ctypes.byref(block),
+                                       ws.cuda_build.stream_of(dev),
+                                       entries=ws.ENTRIES)
+                run()
+                ms = common.graph_ms(run, W4_REPS)[0]
+                plain_ms = common.cuda_ms(
+                    lambda: acc.merge(ws._plain(mt, ctx, draws, occ), m), 1)
+                tt = None
+                if key != "shade_refractive":
+                    mats = ctx.data.mats
+                    table, refs = ((mats.diffuse_color, ctx.static.diffuse_tex)
+                                   if key == "shade_diffuse" else
+                                   (mats.glossy_color, ctx.static.glossy_tex))
+                    tt = ws.texture_tables(mats, table, refs, ctx.data.textures)
+                typed = int(m.sum())
+                timed = dict(key=key, name=f"{label} bounce {ctx.bounce}",
+                             ms=ms, plain_ms=plain_ms, rays=m.shape[0],
+                             typed=typed,
+                             bytes=w4_bytes(mt, ctx, draws, m, tt, occ))
+                del keep
+        finally:
+            W4["holding"] = False
+        if typed >= W4["timed"].get(key, {}).get("typed", -1):
+            W4["timed"][key] = timed
+        parts.append(f"{key[6:]} bounce {ctx.bounce}: {typed} of {m.shape[0]} "
+                     f"rays, bit-equal {share}, W4 {ms:.4f} ms (CUDA graph), "
+                     f"plain {plain_ms:.2f} ms")
+        del ctx, draws, packed, m, acc, got, want, out
+    torch.cuda.empty_cache()
+    return " | ".join(parts)
+
+
+def w4_phase(torch, dev):
+    """W4, the shading blocks, in the driven wavefront renders: the
+    98-object grid at 400x300 x 64 spp, Cornell at 400x400 x 64 spp under
+    use_pallas="never", the icosphere, the beach ball and the instance
+    field at 400x300 x 16 spp, the normal-mapped scene at 400x300 x 16 spp,
+    131 importance-sampled lamps (a caps pdf of 131 terms, ATen's
+    four-wide loads) at 200x150 x 16 spp and one forward + backward pass
+    of the inverse-rendering gradient at 96x72 x 8 spp; each render with
+    W4's counts set to 0 just before and read just after (every entry its
+    scene has launched, required; no plain block on the card, required),
+    then its captured bounces held against the plain dispatch and timed
+    (`w4_hold`).  Prints a line a render.  W4's spies (`w4_spies`) are in
+    place for this phase only."""
+    with w4_spies():
+        w4_renders(torch, dev)
+
+
+def w4_renders(torch, dev):
+    """The renders of `w4_phase`, under its spies."""
+    import numpy as np
+    import raytracer_tpu_torch as T
+    import torch_features
+    import torch_mesh
+    import torch_wavefront
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from torch_cornellbox import build_cornell
+    from torch_inverse_rendering import TRUE_N, build_scene
+
+    t_phase = time.perf_counter()
+    obj_dir = WORK / "w4_obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    never = T.RenderSettings(use_pallas="never")
+
+    def with_never(sc):
+        sc.settings = never
+        return sc
+
+    renders = (
+        ("grid", lambda: torch_wavefront.grid(GRID_PAST, GRID_W, GRID_H), WAVE_SPP),
+        ("Cornell on the wavefront", lambda: with_never(build_cornell(*WAVE_CORNELL)),
+         WAVE_SPP),
+        ("icosphere", lambda: torch_mesh.icosphere(MESH_W, MESH_H, obj_dir=obj_dir),
+         MESH_SPP),
+        ("beach ball", lambda: torch_mesh.beach_ball(MESH_W, MESH_H, obj_dir=obj_dir),
+         MESH_SPP),
+        ("instance field", lambda: torch_mesh.instances(MESH_W, MESH_H,
+                                                         obj_dir=obj_dir), MESH_SPP),
+        ("normal-mapped", lambda: torch_features.normal_mapped(
+            MESH_W, MESH_H, obj_dir=obj_dir), NMAP_SPP),
+        ("lamps", lambda: torch_wavefront.lamp_cluster(LAMPS, *LAMP_WH), MESH_SPP))
+    for label, make, spp in renders:
+        sc = make()
+        static = sc._settings_for_render()[0]
+        present = [ws._BLOCKS[mt][0] for mt in static.mat_types_present
+                   if mt in ws._BLOCKS]
+        with w4_driven(label) as d:
+            img, stats, wall = timed_render(torch, dev, sc, spp, seed=7)
+        require(img.shape[:2] == (sc.camera.screen_height, sc.camera.screen_width)
+                and bool(np.isfinite(img).all()), f"W4 {label}: image")
+        require(present and all(d.got[k] > 0 for k in present),
+                f"W4 {label}: launches {d.got} for the present entries {present}")
+        require(d.plain_runs == 0, f"W4 {label}: {d.plain_runs} plain blocks "
+                "ran on the card")
+        print(f"W4 vs plain, {label} ({wall:.4f} s, launches "
+              f"{ {k[6:]: n for k, n in d.got.items() if n} }, no plain block): "
+              + w4_hold(torch, label), flush=True)
+        del sc, img
+    # the inverse-rendering step: W4 forward through _Shade, the plain
+    # block's backward
+    fn, data = differentiable_render(build_scene(TRUE_N, DIFF_W, DIFF_H),
+                                     DIFF_SPP, seed=0, device=dev)
+    label = "inverse rendering"
+    backward = W4["backward"]
+    with w4_driven(label) as d:
+        x = data.mats.refr_n_re.clone().requires_grad_(True)
+        g, = torch.autograd.grad(
+            torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2), x)
+        torch.cuda.synchronize()
+    require(d.got["shade_refractive"] > 0 and d.plain_runs == 0
+            and W4["backward"] > backward and bool(torch.isfinite(g).all()),
+            f"W4 {label}: launches {d.got}, {d.plain_runs} plain blocks "
+            f"outside the backward, gradient {g.tolist()}")
+    print(f"W4 vs plain, {label} (forward + backward of the IoR gradient, "
+          f"launches { {k[6:]: n for k, n in d.got.items() if n} }, "
+          f"{W4['backward'] - backward} backward recomputes, gradient "
+          f"{g[0].tolist()}): " + w4_hold(torch, label) +
+          f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
+            "on the card")
+
+
+def w4_rows(torch):
+    """W4's rows of the kernels line, one an entry at the held bounce it
+    was timed on: its bound from the bytes it moves there and its issue
+    slots (a ray of another type: one pass of its loop over the rays on
+    the shortest path; a ray it shades: the same pass with the type test
+    passed, on its cheapest branches, read off the entry kernel's SASS,
+    probes/common.py `shaded_pass`); a line each."""
+    from raytracer_tpu_torch.ops import cuda_build
+    from raytracer_tpu_torch.probes import common
+
+    sass = common.cuobjdump_sass(cuda_build.library_path("kernels"))
+    rows = []
+    for key, (kernel, replaces) in W4_ENTRIES.items():
+        tm, launches = W4["timed"].get(key), W4["launches"][key]
+        require(tm is not None, f"W4 {key} was never held")
+        other, shaded = common.shaded_pass(sass, kernel)
+        ops = (tm["rays"] - tm["typed"]) * other + tm["typed"] * shaded
+        row = common.row(f"wavefront_shade {key} (W4)", "wavefront_shade.cu",
+                         replaces, launches, W4["max_abs_err"][key], tm["ms"],
+                         tm["plain_ms"], ops, tm["bytes"])
+        rows.append(row)
+        print(f"W4 {key} bound at the {tm['name']} ({tm['typed']} of "
+              f"{tm['rays']} rays its type; {other} instructions a pass of "
+              f"another type's ray, {shaded} of its own on the shortest path, "
+              f"{kernel}'s SASS; {tm['bytes']} bytes): {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), W4 {tm['ms']:.4f} ms, share "
+              f"{row['bound_ms'] / tm['ms']:.4f}, plain {tm['plain_ms']:.2f} ms "
+              f"| {launches} launches in the driven renders", flush=True)
+        require(launches > 0, f"W4 {key} never launched in the driven renders")
+    return rows
+
+
 def routed_renders(torch, dev, sc, spp, n, seed):
     """n renders of sc on the card with one seed: ([(image, stats, wall)],
     the devices of the wavefront chunks, the render kernels' launches,
@@ -3060,6 +3438,12 @@ def main():
     print(f"build: {build_s:.2f} s | {' | '.join(build_lines(cuda_build.build_log))}",
           flush=True)
 
+    if "--w4" in sys.argv[1:]:
+        # W4's phase alone (after the build), for working on it
+        w4_phase(torch, dev)
+        print(json.dumps({"kernels": w4_rows(torch)}, default=float))
+        return 0
+
     if "--diff-mesh" in sys.argv[1:]:
         # that phase alone (after the build); its references are the
         # unsharded 256-spp Cornell rendered here, and its wall
@@ -3212,6 +3596,10 @@ def main():
     w3_phase(torch, dev)
     torch.cuda.empty_cache()
 
+    # ---- W4, the wavefront's shading blocks, in the driven renders ----
+    w4_phase(torch, dev)
+    torch.cuda.empty_cache()
+
     # ---- the meshes: clusters, corner attributes, instances ----
     mesh_n, mesh_err = mesh_phase(torch, dev)
     solid_row["launches"] += mesh_n
@@ -3332,7 +3720,8 @@ def main():
               f"| {launches} launches in the driven renders", flush=True)
         require(launches > 0, f"W3 {key} never launched in the driven renders")
     print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
-                                  *w3_rows] + probe_rows}, default=float))
+                                  *w3_rows, *w4_rows(torch)] + probe_rows},
+                     default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

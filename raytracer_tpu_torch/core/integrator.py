@@ -36,6 +36,7 @@ from ..geometry.intersect import nearest_hit
 from ..materials import shade
 from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
+from ..ops import wavefront_shade
 from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS, WAVELENGTHS_NM
 from .compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
                       PACKED_SLOT_SHIFT)
@@ -222,19 +223,33 @@ _NAMES = {MAT_EMISSIVE: "emissive", MAT_GLOSSY: "glossy",
 
 
 def _dispatch(static, mat_type, mat_slot):
-    """(name, shader, per-ray mask) per block, in the JAX package's order
+    """(name, shader) per block, in the JAX package's order
     (integrator.py:247-260): the present types, a CustomMaterial type
-    unrolled into one block per slot."""
+    unrolled into one block per slot.  A shader takes (ctx, draws, packed
+    words, the merged output so far) and returns the merged output with
+    its block's rays (its per-ray mask) shaded: the diffuse, refractive
+    and glossy blocks through their W4 wrappers (ops/wavefront_shade.py),
+    the others as their plain block merged with torch.where."""
     out = []
     for mt in static.mat_types_present:
         if mt == MAT_CUSTOM:
             for slot, cm in enumerate(static.custom_mats):
-                out.append(("custom", lambda ctx, d, cm=cm: cm.shade(ctx),
-                            (mat_type == mt) & (mat_slot == slot)))
+                m = (mat_type == mt) & (mat_slot == slot)
+                out.append(("custom", lambda ctx, d, p, acc, cm=cm, m=m:
+                            acc.merge(cm.shade(ctx), m)))
+        elif mt == MAT_DIFFUSE:
+            out.append(("diffuse", lambda ctx, d, p, acc, m=mat_type == mt:
+                        wavefront_shade.shade_diffuse(ctx, d, p, m, acc)))
+        elif mt == MAT_REFRACTIVE:
+            out.append(("refractive", lambda ctx, d, p, acc, m=mat_type == mt:
+                        wavefront_shade.shade_refractive(ctx, d, p, m, acc)))
+        elif mt == MAT_GLOSSY:
+            out.append(("glossy", lambda ctx, d, p, acc, m=mat_type == mt:
+                        wavefront_shade.shade_glossy(ctx, d, p, m, acc)))
         else:
-            out.append((_NAMES.get(mt, mt),
-                        lambda ctx, d, mt=mt: _shade(mt, ctx, d),
-                        mat_type == mt))
+            m = mat_type == mt
+            out.append((_NAMES.get(mt, mt), lambda ctx, d, p, acc, mt=mt, m=m:
+                        acc.merge(_shade(mt, ctx, d), m)))
     return out
 
 
@@ -305,10 +320,8 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
                 torch.amax(torch.abs(P), dim=-1), 1.0)
         with record_function("wavefront.draws"):
             draws = _draw(generator, static, n)
-        add, beta_mult = f3(0.0), f3(1.0)
-        new_O, new_D, new_n_re, new_n_im = P, D, n_re, n_im
-        z = torch.zeros((n,), dtype=torch.bool, device=dev)
-        cont = inc_diff = inc_split = z
+        # W4 writes its blocks' rays into the merged output in place
+        acc = wavefront_shade.Merged.start(P, D, n_re, n_im)
         ctx = ShadeCtx(data=data, static=static, bounce=bounce, D=D,
                        n_re=n_re, n_im=n_im, depth=depth,
                        diffuse_reflections=diffuse_refl, t=t, P=P, N=N_shad,
@@ -317,20 +330,13 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
                        pattern=pattern, split_cnt=split_cnt,
                        split_k=settings.split_k, strat_u=strat_u,
                        generator=generator)
-        for name, shader, m in _dispatch(static, mat_type, mat_slot):
+        for name, shader in _dispatch(static, mat_type, mat_slot):
             with record_function(f"wavefront.shade.{name}"):
-                out = shader(ctx, draws)
-            m3 = m[..., None]
-            add = torch.where(m3, out.add, add)
-            beta_mult = torch.where(m3, out.beta_mult, beta_mult)
-            new_O = torch.where(m3, out.new_origin, new_O)
-            new_D = torch.where(m3, out.new_dir, new_D)
-            new_n_re = torch.where(m3, out.new_n_re, new_n_re)
-            new_n_im = torch.where(m3, out.new_n_im, new_n_im)
-            cont = torch.where(m, out.cont, cont)
-            inc_diff = torch.where(m, out.is_diffuse, inc_diff)
-            if out.did_split is not None:   # optional for custom shaders
-                inc_split = torch.where(m, out.did_split, inc_split)
+                acc = shader(ctx, draws, packed, acc)
+        add, beta_mult, cont = acc.add, acc.beta_mult, acc.cont
+        new_O, new_D, new_n_re, new_n_im = (acc.new_origin, acc.new_dir,
+                                            acc.new_n_re, acc.new_n_im)
+        inc_diff, inc_split = acc.is_diffuse, acc.did_split
 
         with record_function("wavefront.update"):
             shaded = alive & ~miss

@@ -184,10 +184,44 @@ def shade_env(ctx):
 # ---------------------------------------------------------------------------
 
 
-def shade_glossy(ctx):
+def light_rays(ctx):
+    """(nudged, rays): the glossy block's shadow-ray origins, P + N * eps,
+    and each light's (L, dist) in its order (directional, point, spot):
+    L (N, 3) the unit direction toward the light (a directional light's
+    one row expanded), dist (N,) its distance (a directional light's
+    SKYBOX_DISTANCE, one element).  The plain block and W4's wrapper
+    (ops/wavefront_shade.py) both take them from here."""
+    lights, static, P = ctx.data.lights, ctx.static, ctx.P
+    nudged = P + ctx.N * ctx.eps[..., None]
+    rays = []
+    for i in range(static.n_dir_lights):
+        rays.append((lights.dir_l[i].expand(P.shape),
+                     torch.full((1,), SKYBOX_DISTANCE, dtype=P.dtype,
+                                device=P.device)))
+    for pos in ([lights.point_pos[i] for i in range(static.n_point_lights)]
+                + [lights.spot_pos[i] for i in range(static.n_spot_lights)]):
+        d = pos[None, :] - P
+        dist = safe_norm(d, dim=-1)
+        rays.append((d / torch.clamp_min(dist, 1e-20)[..., None], dist))
+    return nudged, rays
+
+
+def light_occlusion(ctx, nudged, rays):
+    """Each light's shadow-ray answer, (N,) bool a light in `rays`' order,
+    or None where no object casts a shadow (the glossy block's light
+    terms)."""
+    if not ctx.static.has_shadow_objects:
+        return None
+    data = ctx.data
+    return [occluded(nudged, L, data.geom, data.obj.shadow,
+                     dist.expand(ctx.P.shape[:1])) for L, dist in rays]
+
+
+def shade_glossy(ctx, occ=None):
     """Ambient, Lambert and Schlick-Fresnel Blinn-Phong per light with
     shadow rays, and the Fresnel-weighted mirror continuation
-    (shade.py:216)."""
+    (shade.py:216).  occ: the lights' shadow-ray answers
+    (`light_occlusion`), cast here unless given."""
     mats, data, static = ctx.data.mats, ctx.data, ctx.static
     slot, N = ctx.mat_slot, ctx.N
     V = -ctx.D
@@ -197,19 +231,19 @@ def shade_glossy(ctx):
     diff_color = _slot_color(mats.glossy_color, slot, ctx.uv, static.glossy_tex,
                              data.textures) * diff_coeff[..., None]
     add = data.ambient_color[None, :] * diff_color
-    nudged = ctx.P + N * ctx.eps[..., None]
+    nudged, rays = light_rays(ctx)
+    if occ is None:
+        occ = light_occlusion(ctx, nudged, rays)
     roughness = _g1(mats.glossy_roughness, slot)
     spec_coeff = _g1(mats.glossy_spec, slot)
     m_n_re = _g1(mats.glossy_n_re, slot)
     m_n_im = _g1(mats.glossy_n_im, slot)
 
-    def light_term(L, dist_light, irradiance):
+    def light_term(L, hit, irradiance):
         NdotL = torch.clamp_min(_sum3(N, L), 0.0)
         lv = irradiance(NdotL)
-        if static.has_shadow_objects:
-            occ = occluded(nudged, L, data.geom, data.obj.shadow,
-                           dist_light.expand(NdotL.shape))
-            seelight = 1.0 - occ.to(N.dtype)
+        if hit is not None:
+            seelight = 1.0 - hit.to(N.dtype)
         else:
             seelight = torch.ones_like(NdotL)
         term = diff_color * lv * seelight[..., None]
@@ -229,33 +263,32 @@ def shade_glossy(ctx):
         return term + torch.where((roughness != 0.0)[..., None], spec, 0.0)
 
     lights = data.lights
+    hits = occ if occ is not None else [None] * len(rays)
+    k = 0
     for i in range(static.n_dir_lights):
-        L = lights.dir_l[i].expand(N.shape)
         c = lights.dir_color[i]
         add = add + light_term(
-            L, torch.full((1,), SKYBOX_DISTANCE, dtype=N.dtype, device=N.device),
-            lambda NdotL, c=c: c[None, :] * NdotL[..., None])
+            rays[k][0], hits[k], lambda NdotL, c=c: c[None, :] * NdotL[..., None])
+        k += 1
     for i in range(static.n_point_lights):
         c = lights.point_color[i]
-        d = lights.point_pos[i][None, :] - ctx.P
-        dist = safe_norm(d, dim=-1)
-        L = d / torch.clamp_min(dist, 1e-20)[..., None]
+        L, dist = rays[k]
         add = add + light_term(
-            L, dist, lambda NdotL, c=c, dd=dist:
+            L, hits[k], lambda NdotL, c=c, dd=dist:
                 c[None, :] * (NdotL / dd ** 2 * 100.0)[..., None])
+        k += 1
     for i in range(static.n_spot_lights):
         # point falloff times a smoothstep cone (lights.SpotLight)
         c = lights.spot_color[i]
         ci, co = lights.spot_cos_in[i], lights.spot_cos_out[i]
-        d = lights.spot_pos[i][None, :] - ctx.P
-        dist = safe_norm(d, dim=-1)
-        L = d / torch.clamp_min(dist, 1e-20)[..., None]
+        L, dist = rays[k]
         cos_t = _sum3(-L, lights.spot_dir[i][None, :])
         t = torch.clamp((cos_t - co) / torch.clamp_min(ci - co, 1e-6), 0.0, 1.0)
         cone = t * t * (3.0 - 2.0 * t)
         add = add + light_term(
-            L, dist, lambda NdotL, c=c, dd=dist, k=cone:
+            L, hits[k], lambda NdotL, c=c, dd=dist, k=cone:
                 c[None, :] * (NdotL * k / dd ** 2 * 100.0)[..., None])
+        k += 1
 
     # the mirror continuation, Schlick-Fresnel against the scene's medium
     # (glossy.py:87-104)

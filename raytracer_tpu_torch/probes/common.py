@@ -214,6 +214,24 @@ def kind_loops(sass, kernel, per):
     return [_short_path(body, branches, lo, hi, per) for _, _, lo, hi in inner]
 
 
+def shaded_pass(sass, kernel, per="FMUL"):
+    """(instructions, instructions) of one pass of the widest loop holding
+    `per` of the kernel whose name holds `kernel` (a W4 entry's loop over
+    the rays), each counted as `loop_issue` counts a pass: on its
+    shortest path, and on its shortest path with the forward branch that
+    skips the most of it not taken.  For W4 the first is a ray of another
+    material type (its word read, the rest skipped), the second a ray it
+    shades on its cheapest branches: a lower count of that ray's issue
+    slots (a loop inside the pass counted once)."""
+    body, branches, loops = _loops(sass, kernel, per)
+    _, _, lo, hi = max(loops, key=lambda L: L[3] - L[2])
+    fwd = [(a, t) for a, t in branches if lo <= a < t <= hi]
+    skip = max(fwd, key=lambda b: sum(1 for x, _, _ in body if b[0] < x < b[1]))
+    short = _short_path(body, branches, lo, hi, per)[0]
+    shaded = _short_path(body, [b for b in branches if b != skip], lo, hi, per)[0]
+    return short, shaded
+
+
 def _loops(sass, kernel, per):
     """(instructions, backward branches, loops) of a kernel's SASS: each
     instruction (address, op, operands); each loop (count of `per` in its

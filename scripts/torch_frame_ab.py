@@ -15,8 +15,11 @@ with the device's peak memory over the timed renders, then once under
 torch.profiler: the device span, busy time and idle share
 (torch_render_profile.py `device_breakdown`), the device time of each
 "wavefront.*" bounce stage (`wavefront_stages`) with the number of
-nearest_hit calls, and of the analytic sweep's kernels (the root's
-`analytic_sweep.KERNELS`, where it has them).  It prints one JSON line.
+nearest_hit calls, and of the analytic sweep's and the shading blocks'
+kernels (the root's `analytic_sweep.KERNELS` and
+`wavefront_shade.KERNELS`, where it has them), and the device events;
+and the SHA-256 of the last timed image (equal hashes: frames equal bit
+for bit).  It prints one JSON line.
 The frames (FRAMES; --frames picks some by name, all by default):
 chip_smoke.py's main paths, the reference Cornell box at 400x400 x 256
 spp (the solid kernel) and example 2 at 400x300 x 64 spp (the record
@@ -31,6 +34,7 @@ scripts/torch_mesh_ab.py.
 """
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -64,13 +68,18 @@ def build(module, fn, w, h, use_pallas):
 def profiled(torch, render, tmp):
     """One render under torch.profiler: its device span, busy time, idle
     share, the device ms of each "wavefront.*" stage, the nearest_hit
-    calls (its ranges on the device) and the device ms of the analytic
-    sweep's kernels (none before the root had them)."""
+    calls (its ranges on the device), the device ms of the analytic
+    sweep's kernels and of the shading blocks' (none before the root had
+    them) and the device events."""
     from torch.profiler import ProfilerActivity, profile
     try:
         from raytracer_tpu_torch.ops.analytic_sweep import KERNELS
     except ImportError:           # a checkout from before the kernel
         KERNELS = ()
+    try:
+        from raytracer_tpu_torch.ops.wavefront_shade import KERNELS as W4
+    except ImportError:           # a checkout from before W4
+        W4 = ()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -88,17 +97,20 @@ def profiled(torch, render, tmp):
                 and e.get("name") == "wavefront.nearest_hit")
     kernel_us = sum(t for k, (t, _) in per_name.items()
                     if any(w in k for w in KERNELS))
+    w4_us = sum(t for k, (t, _) in per_name.items() if any(w in k for w in W4))
     return {"profiled_wall_s": wall, "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / span if span else None,
             "stages_ms": {k: v / 1e3 for k, v in sorted(
                 stages.items(), key=lambda kv: -kv[1])},
             "nearest_hit_calls": calls, "analytic_kernel_ms": kernel_us / 1e3,
+            "w4_kernel_ms": w4_us / 1e3,
             "device_events": sum(c for _, c in per_name.values())}
 
 
 def child(root, renders, frames=None):
     import tempfile
 
+    import numpy as np
     import torch
 
     sys.path[:0] = [str(root), str(root / "examples")]
@@ -121,11 +133,13 @@ def child(root, renders, frames=None):
         for _ in range(renders):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, stats = render()
+            img, stats = render()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         out["frames"][name] = {
             "walls_s": walls, "median_s": statistics.median(walls),
+            "sha256": hashlib.sha256(np.ascontiguousarray(
+                img, dtype=np.float32).tobytes()).hexdigest(),
             "rays_traced": int(stats["rays_traced"]),
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             **profiled(torch, render, tmp)}
@@ -136,14 +150,19 @@ def child(root, renders, frames=None):
 
 def show(frames):
     """A child's frames as text: each frame's median and walls, peak
-    memory, busy time and idle share, and nearest_hit's device time."""
+    memory, busy time and idle share, device events, nearest_hit's and
+    the shading ranges' device time, and the image's hash."""
     return " | ".join(
         f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])}), "
         f"peak {v['peak_gib']:.2f} GiB, busy {v['busy_ms']:.1f} ms, idle "
-        f"{100 * (v['idle_share'] or 0):.1f}%, nearest_hit "
+        f"{100 * (v['idle_share'] or 0):.1f}%, {v['device_events']} device "
+        f"events, nearest_hit "
         f"{v['stages_ms'].get('nearest_hit', 0.0):.1f} ms in "
         f"{v['nearest_hit_calls']} calls, analytic kernel "
-        f"{v['analytic_kernel_ms']:.2f} ms"
+        f"{v['analytic_kernel_ms']:.2f} ms, shading "
+        f"{', '.join(f'{s[6:]} {t:.1f}' for s, t in v['stages_ms'].items() if s.startswith('shade.'))}"
+        f" ms (W4 kernels {v['w4_kernel_ms']:.2f} ms), image SHA-256 "
+        f"{v['sha256'][:16]}"
         for k, v in frames.items())
 
 

@@ -3,20 +3,27 @@
 on one CUDA device, in turns, and say whether repeated backward passes
 agree bit for bit.
 
-    python3 scripts/torch_grad_ab.py [--repeats N] [--deterministic]
-        [--out OUT.json] ROOT ...
+    python3 scripts/torch_grad_ab.py [--repeats N] [--spp S] [--deterministic]
+        [--profile] [--out OUT.json] ROOT ...
 
 Each ROOT is a checkout (or `git archive` of one) that holds
 raytracer_tpu_torch/ and examples/; the roots run in the order given, one
 child process each (scripts/torch_frame_ab.py `in_turns`), so "A B B A"
 times A and B in alternation.  A child takes chip_smoke.py's diff phase:
 differentiable_render of examples/torch_inverse_rendering.py's scene at
-96x72 x 8 spp, seed 0 (the glass sphere, and the same scene with it as a
-1,280-face icosphere mesh), and runs forward + backward of the mean
-squared image with respect to the refraction indices once to warm up and
-N times timed (a device sync after each): the walls, their median, the
-gradient's first element and whether every pass equals the first bit for
-bit (and the largest difference).  --deterministic runs the timed passes
+96x72 x S spp (8 unless given; from 32 on a render is two chunks or more,
+each under torch.utils.checkpoint), seed 0 (the glass sphere, and the
+same scene with it as a 1,280-face icosphere mesh), and runs forward +
+backward of the mean squared image with respect to the refraction
+indices once to warm up and N times timed (a device sync after each):
+the walls, their median, the device's peak memory over the timed passes
+(torch.cuda.max_memory_allocated), the gradient's first element, the
+SHA-256 of the first pass's gradient (equal hashes across roots:
+gradients equal bit for bit) and whether every pass equals the first bit
+for bit (and the largest difference).  --profile adds one pass under
+torch.profiler: its wall, the device's busy time and events, the host's
+operator events and the host ms of the ten host operators that take the
+most (their events' own spans, nested ones inside).  --deterministic runs the timed passes
 again under torch.use_deterministic_algorithms(True, warn_only=True) and
 adds their walls, their agreement and the warnings raised: the ops whose
 CUDA kernels have no deterministic form.  The last line of the parent is
@@ -24,6 +31,7 @@ CUDA kernels have no deterministic form.  The last line of the parent is
 """
 
 import argparse
+import hashlib
 import json
 import statistics
 import sys
@@ -32,8 +40,9 @@ import warnings
 from pathlib import Path
 
 from torch_frame_ab import in_turns
+from torch_render_profile import device_breakdown
 
-W, H, SPP = 96, 72, 8
+W, H = 96, 72
 
 
 def passes(torch, grad, n):
@@ -54,7 +63,37 @@ def agree(torch, gs):
             max(float((gs[0] - g).abs().max()) for g in gs[1:]))
 
 
-def child(root, repeats, deterministic):
+def profiled(torch, grad):
+    """One call of grad under torch.profiler (see the module doc)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    os.unlink(path)
+    span, busy, per_name = device_breakdown(events)
+    host = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            n = e["name"][:60]
+            host[n] = host.get(n, 0.0) + e.get("dur", 0.0) / 1e3
+    return {"profiled_wall_s": wall, "busy_ms": busy / 1e3,
+            "device_events": sum(c for _, c in per_name.values()),
+            "host_ops": sum(1 for e in events if e.get("cat") == "cpu_op"),
+            "host_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def child(root, repeats, spp, deterministic, profile=False):
     import tempfile
 
     import torch
@@ -68,7 +107,7 @@ def child(root, repeats, deterministic):
     out = {"root": str(root), "frames": {}}
     for name, make in (("sphere", lambda: build_scene(TRUE_N, W, H)),
                        ("mesh", lambda: build_mesh_scene(TRUE_N, W, H, obj_dir))):
-        fn, data = differentiable_render(make(), SPP, seed=0, device=dev)
+        fn, data = differentiable_render(make(), spp, seed=0, device=dev)
         n0 = data.mats.refr_n_re
 
         def grad():
@@ -77,10 +116,18 @@ def child(root, repeats, deterministic):
             return torch.autograd.grad(loss, x)[0]
 
         grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         walls, gs = passes(torch, grad, repeats)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         equal, diff = agree(torch, gs)
         res = {"walls_s": walls, "median_s": statistics.median(walls),
-               "g00": float(gs[0][0, 0]), "bit_equal": equal, "max_diff": diff}
+               "peak_gib": peak,
+               "g00": float(gs[0][0, 0]),
+               "sha256": hashlib.sha256(gs[0].cpu().numpy().tobytes()).hexdigest(),
+               "bit_equal": equal, "max_diff": diff}
+        if profile:
+            res["profile"] = profiled(torch, grad)
         if deterministic:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -101,8 +148,14 @@ def show(frames):
     """A child's scenes as text: the median wall and the agreement."""
     return " | ".join(
         f"{k} forward + backward {v['median_s']:.4f} s "
-        f"({', '.join(f'{x:.4f}' for x in v['walls_s'])}), bit-equal "
-        f"{v['bit_equal']} (max diff {v['max_diff']:.3e})"
+        f"({', '.join(f'{x:.4f}' for x in v['walls_s'])}), peak "
+        f"{v['peak_gib']:.3f} GiB, bit-equal "
+        f"{v['bit_equal']} (max diff {v['max_diff']:.3e}), gradient SHA-256 "
+        f"{v['sha256'][:16]}"
+        + (f", profiled {v['profile']['profiled_wall_s']:.4f} s, busy "
+           f"{v['profile']['busy_ms']:.2f} ms, {v['profile']['device_events']} "
+           f"device events, {v['profile']['host_ops']} host ops"
+           if "profile" in v else "")
         + (f", deterministic mode {statistics.median(v['det_walls_s']):.4f} s, "
            f"bit-equal {v['det_bit_equal']}, warnings {v['det_warnings']}"
            if "det_walls_s" in v else "")
@@ -113,16 +166,21 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*", type=Path)
     ap.add_argument("--repeats", type=int, default=4)
+    ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--deterministic", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
-        child(args.child.resolve(), args.repeats, args.deterministic)
+        child(args.child.resolve(), args.repeats, args.spp, args.deterministic,
+              args.profile)
         return 0
-    extra = ["--repeats", str(args.repeats)]
+    extra = ["--repeats", str(args.repeats), "--spp", str(args.spp)]
     if args.deterministic:
         extra.append("--deterministic")
+    if args.profile:
+        extra.append("--profile")
     return in_turns(__file__, args.roots, extra, show, args.out)
 
 

@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""How torch rounds the ops W4 restates, on one CUDA device.
+
+    python3 scripts/torch_op_rounding.py [--out OUT.json]
+
+csrc/wavefront_shade.cu computes the plain shading blocks' ops as torch
+computes them on the card, bit for bit.  This script holds each of those
+ops against the candidate formulas W4 could restate, on 2**22 random
+elements (2**18 rows for the sums over k), and reports the share of
+elements whose bits agree with each candidate (1.0: the rule):
+- torch.sum over a last dimension of 3 (x, y, z orders), and over k =
+  1-200 against ATen's reduction tree (b lanes, the largest power of two
+  <= k up to `bmax`, four accumulators a lane, halving offsets; bmax 8,
+  16, 32); and over k = 1-20,000 on n = 1-2**18 rows against `aten_sum`,
+  the plan and order csrc/wavefront_shade.cu restates for every k
+  (`sum_plan`, `aten_sum`);
+- torch.linalg.vector_norm and linalg.cross against sums of squares and
+  fma-contracted products (fma through float64);
+- a division by a Python number against a true division and a product
+  with the float reciprocal;
+- torch.clamp_min / clamp of -0.0 and NaN;
+- torch.cos, sin, exp, pow (5 and a tensor), atan2, asin, floor and the
+  float -> int32 conversion against the same functions in a kernel that
+  nvcc builds here with the port's flags (build/op_rounding/).
+Prints the card's name and power limit, then one JSON line.
+"""
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+N = 1 << 22
+OPS = ("cos", "sin", "exp", "pow", "atan2", "asin", "floor", "to_int")
+KERNEL = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+__global__ void op_k(int op, const float* x, const float* y, float* out, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float a = x[i], b = y[i];
+  float r = 0.0f;
+  switch (op) {
+    case 0: r = cosf(a); break;
+    case 1: r = sinf(a); break;
+    case 2: r = expf(a); break;
+    case 3: r = powf(a, b); break;
+    case 4: r = atan2f(a, b); break;
+    case 5: r = asinf(a); break;
+    case 6: r = floorf(a); break;
+    case 7: r = __int_as_float((int)a); break;
+  }
+  out[i] = r;
+}
+extern "C" int op(int op, const float* x, const float* y, float* out, long long n) {
+  op_k<<<(n + 255) / 256, 256>>>(op, x, y, out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def tree_sum(torch, z, k, bmax, vt0=4):
+    """ATen's reduction of z's last dimension (k wide) as a tree: b lanes,
+    lane j the elements j, j + b, ... into vt0 accumulators in turn, the
+    accumulators in order, then halving offsets."""
+    b = 1
+    while 2 * b <= k and 2 * b <= bmax:
+        b *= 2
+    lanes = []
+    for j in range(b):
+        acc = [torch.zeros_like(z[:, 0]) for _ in range(vt0)]
+        for c, e in enumerate(range(j, k, b)):
+            acc[c % vt0] = acc[c % vt0] + z[:, e]
+        v = acc[0]
+        for a in acc[1:]:
+            v = v + a
+        lanes.append(v)
+    off = b // 2
+    while off >= 1:
+        lanes = [lanes[t] + lanes[t + off] for t in range(off)]
+        off //= 2
+    return lanes[0]
+
+
+def last_pow2(n):
+    p = 1
+    while 2 * p <= n:
+        p *= 2
+    return p
+
+
+def sum_plan(k, n, sms=132, threads=2048):
+    """(vec, bx, by) of ATen's reduction of an (n, k) float32 tensor over
+    k (Reduce.cuh setReduceConfig; csrc/wavefront_shade.cu `sum_plan`);
+    None where it would split a row across blocks."""
+    mnt = 512
+    vec = 4 if k >= 128 else 1
+    d0 = last_pow2(k // vec) if k // vec < mnt else mnt
+    d1 = last_pow2(n) if n < mnt else mnt
+    bx = min(d0, 32)
+    by = min(d1, mnt // bx)
+    bx = min(d0, mnt // by)
+    per = -(-k // bx)
+    if per < min(by * 16, 256):
+        return vec, bx, 1
+    per2 = -(-k // (bx * by))
+    target = sms * (threads // (bx * by))
+    if per2 >= 256 and n <= target:
+        ctas = max(min(-(-target // n), -(-per2 // 16)), -(-per2 // 256))
+        if ctas > 1:
+            return None
+    return vec, bx, by
+
+
+def aten_sum(torch, z, sms=132, threads=2048):
+    """torch.sum(z, -1) of an (n, k) float32 tensor as
+    csrc/wavefront_shade.cu `aten_sum` restates ATen's order: each lane's
+    terms into four accumulators (from k = 128 four a load from the row's
+    first 16-byte boundary), then halving trees over the lanes and the
+    warps."""
+    n, k = z.shape
+    vec, bx, by = sum_plan(k, n, sms, threads)
+    out = torch.empty(n, dtype=z.dtype, device=z.device)
+    rows = torch.arange(n, device=z.device)
+    for s in (range(4) if vec == 4 else (0,)):
+        sel = rows[(rows * k) % 4 == s] if vec == 4 else rows
+        if sel.numel() == 0:
+            continue
+        zs = z[sel]
+        zero = torch.zeros(sel.numel(), dtype=z.dtype, device=z.device)
+
+        def lane(x, y):
+            acc = [zero] * 4
+            idx, stride = x + y * bx, bx * by
+            if vec == 1:
+                q = 0
+                while idx < k:
+                    acc[q % 4] = acc[q % 4] + zs[:, idx]
+                    q, idx = q + 1, idx + stride
+            else:
+                end, off = k, 0
+                if s > 0:
+                    if y == 0 and s <= x < 4:
+                        acc[0] = zero + zs[:, x - s]
+                    end, off = k + s - 4, 4 - s
+                while idx * 4 + 3 < end:
+                    for q in range(4):
+                        acc[q] = acc[q] + zs[:, off + idx * 4 + q]
+                    idx += stride
+                t = end - end % 4 + x
+                if y == 0 and t < end:
+                    acc[0] = acc[0] + zs[:, off + t]
+            return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+
+        def halve(v):
+            off = len(v) // 2
+            while off >= 1:
+                v = [v[t] + v[t + off] for t in range(off)]
+                off //= 2
+            return v[0]
+
+        out[sel] = halve([halve([lane(x, y) for x in range(bx)])
+                          for y in range(by)])
+    return out
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from raytracer_tpu_torch.ops import cuda_build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    out_dir = ROOT / "build" / "op_rounding"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "ops.cu").write_text(KERNEL)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o",
+                    str(out_dir / "ops.so"), str(out_dir / "ops.cu")],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out_dir / "ops.so"))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=3.0):
+        return ((torch.rand(*shape, device=dev, generator=g) * 2 - 1)
+                * torch.exp(torch.randn(*shape, device=dev, generator=g) * scale))
+
+    def share(a, b):
+        return int((a.view(torch.int32) == b.view(torch.int32)).sum()) / a.numel()
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    def sq(t):
+        return torch.sqrt(t.double()).float()
+
+    res = {"device": smi, "torch": torch.__version__}
+    x = rnd(N, 3)
+    x0, x1, x2 = x.unbind(-1)
+    s = torch.sum(x, dim=-1)
+    res["sum3"] = {"(x+y)+z": share(s, (x0 + x1) + x2),
+                   "(x+z)+y": share(s, (x0 + x2) + x1),
+                   "x+(y+z)": share(s, x0 + (x1 + x2))}
+    nv = torch.linalg.vector_norm(x, dim=-1)
+    res["vector_norm"] = {
+        "sqrt((xx+zz)+yy)": share(nv, sq((x0 * x0 + x2 * x2) + x1 * x1)),
+        "sqrt((xx+yy)+zz)": share(nv, sq((x0 * x0 + x1 * x1) + x2 * x2)),
+        "sqrt(fma chain)": share(nv, sq(fma(x2, x2, fma(x1, x1, x0 * x0))))}
+    w = rnd(N, 3, scale=0.5)
+    cr = torch.linalg.cross(x, w, dim=-1)
+    res["cross"] = {}
+    for comp, (i, j) in enumerate(((1, 2), (2, 0), (0, 1))):
+        p, q = x[:, i] * w[:, j], x[:, j] * w[:, i]
+        res["cross"][comp] = {"p-q": share(cr[:, comp], p - q),
+                              "fma(ai,bj,-q)": share(cr[:, comp],
+                                                     fma(x[:, i], w[:, j], -q))}
+    res["sum_k"] = {}
+    for k in list(range(1, 40)) + [63, 64, 65, 127, 128, 200]:
+        z = rnd(N // 16, k)
+        sk = torch.sum(z, -1)
+        res["sum_k"][k] = {f"tree b<={bmax}": share(sk, tree_sum(torch, z, k, bmax))
+                           for bmax in (8, 16, 32)}
+    props = torch.cuda.get_device_properties(dev)
+    sms, threads = props.multi_processor_count, props.max_threads_per_multi_processor
+    res["sum_k_aten"] = {}
+    for k in (1, 3, 5, 31, 64, 100, 127, 128, 129, 130, 131, 200, 255, 256,
+              257, 1000, 1001, 4099, 8160, 8161, 9000, 20000):
+        for n in (1, 2, 5, 15, 16, 600, 1 << 14, 1 << 18):
+            if n * k > 1 << 27 or sum_plan(k, n, sms, threads) is None:
+                continue
+            z = rnd(n, k)
+            res["sum_k_aten"][f"{k}x{n}"] = share(
+                torch.sum(z, -1), aten_sum(torch, z, sms, threads))
+    xs = rnd(N)
+    inv = (torch.tensor(1.0) / torch.tensor(math.pi, dtype=torch.float32)).item()
+    res["div_by_python_number"] = {
+        "true": share(xs / math.pi, xs / torch.tensor(math.pi, device=dev)),
+        "times float reciprocal": share(xs / math.pi, xs * torch.tensor(inv, device=dev))}
+    zz = torch.tensor([-0.0, float("nan")], device=dev)
+    res["clamp_min(-0, 0), clamp(-0, 0, 1): sign bits"] = [
+        torch.signbit(torch.clamp_min(zz, 0.0))[0].item(),
+        torch.signbit(torch.clamp(zz, 0.0, 1.0))[0].item()]
+    res["clamp of NaN is NaN"] = bool(torch.isnan(torch.clamp(zz, 0.0, 1.0))[1])
+
+    def kern(op, a, b=None):
+        b = torch.zeros_like(a) if b is None else b
+        out = torch.empty_like(a)
+        torch.cuda.synchronize()
+        err = lib.op(OPS.index(op), ctypes.c_void_p(a.data_ptr()),
+                     ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                     ctypes.c_longlong(a.numel()))
+        if err:
+            raise RuntimeError(f"{op}: CUDA error {err}")
+        return out
+
+    ang = (torch.rand(N, device=dev, generator=g) * 2 - 1) * 1e4
+    base = torch.rand(N, device=dev, generator=g)
+    expo = torch.rand(N, device=dev, generator=g) * 2000
+    u = torch.rand(N, device=dev, generator=g) * 2 - 1
+    v = torch.rand(N, device=dev, generator=g) * 2 - 1
+    e = (torch.rand(N, device=dev, generator=g) * 2 - 1) * 80
+    big = torch.cat([rnd(N) * 1e3, torch.tensor([1e30, -1e30, float("nan")],
+                                                device=dev)])
+    res["libdevice"] = {
+        "cos": share(torch.cos(ang), kern("cos", ang)),
+        "sin": share(torch.sin(ang), kern("sin", ang)),
+        "exp": share(torch.exp(e), kern("exp", e)),
+        "pow(x, 5)": share(torch.pow(base, 5), kern("pow", base,
+                                                  torch.full_like(base, 5.0))),
+        "pow(x, a)": share(torch.pow(base, expo), kern("pow", base, expo)),
+        "atan2": share(torch.atan2(u, v), kern("atan2", u, v)),
+        "asin": share(torch.asin(u), kern("asin", u)),
+        "floor": share(torch.floor(big), kern("floor", big)),
+        "to int32": share(big.to(torch.int32).view(torch.float32),
+                          kern("to_int", big))}
+    line = json.dumps(res)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
