@@ -112,15 +112,19 @@ and the wavefront:
   pass of the inverse-rendering gradient; each with W4's counts set to 0
   just before and read just after (every entry of its scene launched, no
   plain shading block run on the card but a backward pass's recompute,
-  both required); the first bounce of each entry in each of them
-  (captured where core/integrator.py `trace` calls it) held against the
-  plain dispatch, every field of every ray bit for bit (a share of
+  both required); each entry at every bounce of each render's first
+  chunk (captured where core/integrator.py `trace` calls it) held against
+  the plain dispatch, every field of every ray bit for bit (a share of
   exactly 1.0), W4 alone timed through a CUDA graph at it beside the
-  plain block; the kernels line has a row an entry, at its held bounce
-  with the most rays of its type, its bound from the bytes it moves
-  there and its issue slots off its kernel's SASS (probes/common.py
-  `shaded_pass`).  `python3 chip_smoke.py --w4` runs the build and this
-  phase alone;
+  plain block, a line a bounce for Cornell on the wavefront and the
+  icosphere (rays of the type, warps of 32 rays holding one, lane
+  efficiency, time, bound, share; the refractive entry also with its
+  rays moved to the front); the kernels line has a row an entry, at its
+  held bounce with the most rays of its type, its bound from the bytes it
+  moves there and its issue slots off its kernel's SASS (probes/common.py
+  `shaded_pass`, `queued_pass` for the refractive entry, which queues its
+  rays), and the mean a call over that chunk's bounces.  `python3
+  chip_smoke.py --w4` runs the build and this phase alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -379,8 +383,11 @@ W4_ENTRIES = {
                      "raytracer_tpu/materials/shade.py:215")}
 W4 = {"launches": dict.fromkeys(W4_ENTRIES, 0),
       "max_abs_err": dict.fromkeys(W4_ENTRIES, 0.0), "timed": {},
-      "label": None, "captured": {}, "plain_on_card": 0, "holding": False,
-      "backward": 0}
+      "chunk_ms": {}, "slots": {},
+      "label": None, "captured": {}, "seen": set(), "chunk_done": set(),
+      "plain_on_card": 0, "holding": False, "backward": 0}
+# the renders whose held bounces print a line each
+W4_PER_BOUNCE = ("Cornell on the wavefront", "icosphere")
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -406,8 +413,9 @@ def nvidia_smi():
 
 
 def build_lines(log):
-    """ptxas's registers / stack / spill line of the render kernels and of
-    P3's and P6's kernels, and a summary of the other probe kernels."""
+    """ptxas's registers / stack / spill line of the render kernels, of
+    W4's and of P3's and P6's kernels, and a summary of the other probe
+    kernels."""
     funcs, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -416,7 +424,7 @@ def build_lines(log):
             funcs.setdefault(cur, []).append(ln.split("info    :")[-1].strip())
     render = [f"{name}: {'; '.join(v)}" for name, v in funcs.items()
               if "solid_trace" in name or "record_trace" in name]
-    pattern = r"(tri|gather)_[a-z]+_kernel"
+    pattern = r"(tri|gather|shade)_[a-z]+_kernel"
     p3 = [f"{re.search(pattern, name).group()}: {'; '.join(dict.fromkeys(v))}"
           for name, v in funcs.items() if re.search(pattern, name)]
     probes = [v for name, v in funcs.items()
@@ -1852,11 +1860,12 @@ def w3_phase(torch, dev):
 @contextlib.contextmanager
 def w4_spies():
     """Spies for W4's phase, the originals restored after it: trace's three
-    wrappers (ops/wavefront_shade.py) capture the first call of each entry
-    in a labelled render (its ShadeCtx, draws, packed words, mask and a
-    copy of the merged output it was handed), and the plain blocks count
-    their calls on CUDA tensors outside a hold and outside `_Shade`'s
-    backward (which recomputes the plain block for its gradient)."""
+    wrappers (ops/wavefront_shade.py) capture each entry's call at every
+    bounce of a labelled render's first chunk (its ShadeCtx, draws, packed
+    words, mask and a copy of the merged output it was handed), and the
+    plain blocks count their calls on CUDA tensors outside a hold and
+    outside `_Shade`'s backward (which recomputes the plain block for its
+    gradient)."""
     from raytracer_tpu_torch.materials import shade
     from raytracer_tpu_torch.ops import wavefront_shade as ws
 
@@ -1867,11 +1876,16 @@ def w4_spies():
 
     def spy(mt, real):
         def call(ctx, draws, packed, m, acc):
-            key = (W4["label"], real.__name__)
-            if W4["label"] is not None and key not in W4["captured"]:
-                copy = ws.Merged(*(getattr(acc, f).detach().clone()
-                                   for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS))
-                W4["captured"][key] = (mt, ctx, draws, packed, m, copy)
+            lab, name = W4["label"], real.__name__
+            key = (lab, name, ctx.bounce)
+            if lab is not None and (lab, name) not in W4["chunk_done"]:
+                if key in W4["seen"]:       # the render's second chunk
+                    W4["chunk_done"].add((lab, name))
+                else:
+                    W4["seen"].add(key)
+                    copy = ws.Merged(*(getattr(acc, f).detach().clone()
+                                       for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS))
+                    W4["captured"][key] = (mt, ctx, draws, packed, m, copy)
             return real(ctx, draws, packed, m, acc)
         return call
 
@@ -1976,23 +1990,105 @@ def w4_bytes(mt, ctx, draws, m, tt, occ):
                                             for x in tabs)
 
 
-def w4_hold(torch, label):
-    """W4 against the plain dispatch on the bounces captured in the render
-    `label`, each entry on the card: its merged output and the plain
-    block's merged into the same output, every field of every ray bit for
-    bit (floats by their bits, or both NaN; a share of exactly 1.0,
-    required); W4 alone timed through a CUDA graph (`graph_ms`) at the
-    bounce, the plain block and its merge with events.  Keeps each entry's
-    numbers at its bounce with the most rays of its type; frees the
-    captures.  Returns the text of a line."""
+def w4_ops(torch, key, rays, typed):
+    """Issue slots of W4's entry `key` on `rays` rays of which `typed` are
+    of its type, read once off its kernel's SASS: the diffuse and glossy
+    entries a pass of their loop over the rays for a ray of another type,
+    on the shortest path, and the same pass with the type test passed, on
+    the cheapest branches, for a ray of their type (`shaded_pass`); the
+    refractive entry, which queues its rays, a pass of its queueing loop
+    shared by the pass's rays and a shading round for each of its rays
+    (`queued_pass`).  Returns (slots, text)."""
+    from raytracer_tpu_torch.materials.base import MAT_REFRACTIVE
+    from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import wavefront_shade as ws
     from raytracer_tpu_torch.probes import common
 
-    parts = []
-    for (lab, key), (mt, ctx, draws, packed, m, acc) in list(W4["captured"].items()):
-        if lab != label:
-            continue
-        del W4["captured"][(lab, key)]
+    if key not in W4["slots"]:
+        if "sass" not in W4:
+            W4["sass"] = common.cuobjdump_sass(cuda_build.build("kernels"))
+        kernel = W4_ENTRIES[key][0]
+        if key == "shade_refractive":
+            queue, shaded = common.queued_pass(W4["sass"], kernel)
+            inf = ws.info(MAT_REFRACTIVE)
+            words = inf["rays_per_pass"] // inf["block"]
+            W4["slots"][key] = (queue / words, shaded, (
+                f"{queue} instructions a queueing pass ({words} ray(s) a "
+                f"thread), {shaded} a shading round, {kernel}'s SASS"))
+        else:
+            other, shaded = common.shaded_pass(W4["sass"], kernel)
+            W4["slots"][key] = (other, shaded - other, (
+                f"{other} instructions a pass of another type's ray, {shaded} "
+                f"of its own on the shortest path, {kernel}'s SASS"))
+    each, own, text = W4["slots"][key]
+    return rays * each + typed * own, text
+
+
+def warps_holding(torch, m):
+    """Warps of 32 consecutive rays that hold at least one ray of m."""
+    pad = torch.zeros((-m.shape[0]) % 32, dtype=torch.bool, device=m.device)
+    return int(torch.cat([m, pad]).view(-1, 32).any(-1).sum())
+
+
+def queued_efficiency(torch, m, info):
+    """The lane efficiency of the refractive entry's shading rounds on the
+    rays m of its type, from its tiling (`info`: `ws.info`): each block of
+    the grid takes every grid-th tile of rays_per_pass rays and shades its
+    queue in rounds of a block's threads, all full but its last; the rays
+    over 32 lanes of the warps that run a round with at least one."""
+    block, tile = info["block"], info["rays_per_pass"]
+    tiles = -(-m.shape[0] // tile)
+    grid = min(tiles, info["sms"] * info["blocks_per_sm"])
+    pad = torch.zeros(tiles * tile - m.shape[0], dtype=torch.bool, device=m.device)
+    per_tile = torch.cat([m, pad]).view(tiles, tile).sum(-1)
+    per_block = torch.zeros(grid, dtype=torch.int64, device=m.device)
+    per_block.index_add_(0, torch.arange(tiles, device=m.device) % grid, per_tile)
+    warps = (per_block // block) * (block // 32) + (per_block % block + 31) // 32
+    return int(m.sum()) / (32 * int(warps.sum())) if bool(m.any()) else 0.0
+
+
+def bits_share(torch, got, want, fields):
+    """(the bit-equal share of every element of `fields` of two Merged
+    outputs, counted in integers; their largest finite difference)."""
+    same = total = 0
+    err = 0.0
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.is_floating_point():
+            eq = (a.view(torch.int32) == b.view(torch.int32)) | (
+                torch.isnan(a) & torch.isnan(b))
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                err = max(err, float((a - b)[fin].abs().max()))
+        else:
+            eq = a == b
+        same += int(eq.sum())
+        total += eq.numel()
+    return same / total, err
+
+
+def w4_hold(torch, label):
+    """W4 against the plain dispatch on the bounces captured in the render
+    `label` (every bounce of its first chunk), each entry on the card: its
+    merged output and the plain block's merged into the same output, every
+    field of every ray bit for bit (floats by their bits, or both NaN; a
+    share of exactly 1.0, required); W4 alone timed through a CUDA graph
+    (`graph_ms`) at the bounce, the plain block and its merge with events;
+    its rays of the type, the warps of 32 rays that hold one, the lane
+    efficiency (those rays over 32 lanes of those warps), the bound and
+    the share.  The refractive entry is timed again on the bounce's rays
+    with its type's rays moved to the front (`ws.pick_rays`; their output
+    their own, bit for bit, required).  Keeps each entry's numbers at its
+    bounce with the most rays of its type, and its time a bounce; frees
+    the captures.  Returns (a line a bounce, the text of a line)."""
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from raytracer_tpu_torch.probes import common
+
+    fields = ws.FLOAT_FIELDS + ws.BOOL_FIELDS
+    lines, parts = [], {}
+    for lab, key, b in sorted(k for k in W4["captured"] if k[0] == label):
+        call = W4["captured"].pop((lab, key, b))
+        mt, ctx, draws, packed, m, acc = call
         W4["holding"] = True
         try:
             with torch.no_grad():
@@ -2001,40 +2097,41 @@ def w4_hold(torch, label):
                     nudged, rays = ws.shade.light_rays(ctx)
                     occ = ws.shade.light_occlusion(ctx, nudged, rays)
                 got = ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
-                    *(getattr(acc, f).clone() for f in
-                      ws.FLOAT_FIELDS + ws.BOOL_FIELDS)))
+                    *(getattr(acc, f).clone() for f in fields)))
                 want = acc.merge(ws._plain(mt, ctx, draws, occ), m)
-                same = total = 0
-                err = 0.0
-                for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS:
-                    a, b = getattr(got, f), getattr(want, f)
-                    if a.is_floating_point():
-                        eq = (a.view(torch.int32) == b.view(torch.int32)) | (
-                            torch.isnan(a) & torch.isnan(b))
-                        fin = torch.isfinite(a) & torch.isfinite(b)
-                        if bool(fin.any()):
-                            err = max(err, float((a - b)[fin].abs().max()))
-                    else:
-                        eq = a == b
-                    same += int(eq.sum())
-                    total += eq.numel()
-                share = same / total
+                share, err = bits_share(torch, got, want, fields)
                 W4["max_abs_err"][key] = max(W4["max_abs_err"][key], err)
-                require(share == 1.0, f"W4 {key} on the {label} bounce: "
+                require(share == 1.0, f"W4 {key} on the {label} bounce {b}: "
                         f"bit-equal share {share}")
-                # W4 alone through a CUDA graph, on a copy it owns
-                out = got
-                entry, rays_s, block, keep = ws.prepare(mt, ctx, draws, packed,
-                                                         out, occ)
-                dev = ctx.P.device
-                run = lambda: ws._call(None, entry, ws.ctypes.byref(rays_s),
-                                       ws.ctypes.byref(block),
-                                       ws.cuda_build.stream_of(dev),
-                                       entries=ws.ENTRIES)
-                run()
-                ms = common.graph_ms(run, W4_REPS)[0]
+                del want
+
+                def graph(c, out):
+                    # W4 alone through a CUDA graph, on a copy it owns
+                    # (the stream read at each call: the graph's capture
+                    # runs on a stream of its own)
+                    entry, rays_s, block, keep = ws.prepare(c[0], c[1], c[2], c[3],
+                                                            out, occ)
+                    return common.graph_ms(
+                        lambda: ws._call(None, entry, ws.ctypes.byref(rays_s),
+                                         ws.ctypes.byref(block),
+                                         ws.cuda_build.stream_of(ctx.P.device),
+                                         entries=ws.ENTRIES), W4_REPS)[0]
+
+                ms = graph(call, got)
                 plain_ms = common.cuda_ms(
                     lambda: acc.merge(ws._plain(mt, ctx, draws, occ), m), 1)
+                front_ms = None
+                if key == "shade_refractive":
+                    order = torch.argsort((~m).to(torch.int8), stable=True)
+                    front = ws.pick_rays(call, order)
+                    got_f = ws._kernel_shade(*front[:5], ws.Merged(
+                        *(getattr(front[5], f).clone() for f in fields)))
+                    own = ws.Merged(*(getattr(got, f)[order] for f in fields))
+                    require(bits_share(torch, got_f, own, fields)[0] == 1.0,
+                            f"W4 {key} on the {label} bounce {b} with its rays "
+                            "moved to the front: not their own output")
+                    front_ms = graph(front, got_f)
+                    del front, got_f, own, order
                 tt = None
                 if key != "shade_refractive":
                     mats = ctx.data.mats
@@ -2042,22 +2139,39 @@ def w4_hold(torch, label):
                                    if key == "shade_diffuse" else
                                    (mats.glossy_color, ctx.static.glossy_tex))
                     tt = ws.texture_tables(mats, table, refs, ctx.data.textures)
-                typed = int(m.sum())
-                timed = dict(key=key, name=f"{label} bounce {ctx.bounce}",
-                             ms=ms, plain_ms=plain_ms, rays=m.shape[0],
-                             typed=typed,
-                             bytes=w4_bytes(mt, ctx, draws, m, tt, occ))
-                del keep
+                typed, n = int(m.sum()), m.shape[0]
+                warps = warps_holding(torch, m)
+                n_bytes = w4_bytes(mt, ctx, draws, m, tt, occ)
+                bound_ms, bound_by = common.bound(w4_ops(torch, key, n, typed)[0],
+                                                  n_bytes)
         finally:
             W4["holding"] = False
+        at = dict(key=key, name=f"{label} bounce {b}", ms=ms, plain_ms=plain_ms,
+                  rays=n, typed=typed, bytes=n_bytes)
         if typed >= W4["timed"].get(key, {}).get("typed", -1):
-            W4["timed"][key] = timed
-        parts.append(f"{key[6:]} bounce {ctx.bounce}: {typed} of {m.shape[0]} "
-                     f"rays, bit-equal {share}, W4 {ms:.4f} ms (CUDA graph), "
-                     f"plain {plain_ms:.2f} ms")
-        del ctx, draws, packed, m, acc, got, want, out
+            W4["timed"][key] = at
+        W4["chunk_ms"].setdefault((label, key), []).append(ms)
+        eff = typed / (32 * warps) if warps else 0.0
+        queued = (f" (its shading rounds "
+                  f"{queued_efficiency(torch, m, ws.info(mt)):.4f})"
+                  if key == "shade_refractive" else "")
+        lines.append(
+            f"W4 {label} {key[6:]} bounce {b}: {typed} of {n} rays its type, "
+            f"{warps} warps hold one, lane efficiency {eff:.4f}{queued}, bit-equal "
+            f"{share}, W4 {ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms "
+            f"({bound_by}), share {bound_ms / ms:.4f}"
+            + (f", its rays in front {front_ms:.4f} ms" if front_ms else "")
+            + f", plain {plain_ms:.2f} ms")
+        p = parts.setdefault(key, [0, 0.0, (b, typed, n, ms, plain_ms)])
+        p[0] += 1
+        p[1] += ms
+        del ctx, draws, packed, m, acc, got, call
     torch.cuda.empty_cache()
-    return " | ".join(parts)
+    text = " | ".join(
+        f"{k[6:]} bounce {b0}: {t0} of {n0} rays, bit-equal 1.0, W4 {ms0:.4f} ms "
+        f"(CUDA graph), plain {p0:.2f} ms; {c} bounces held, W4 {tot / c:.4f} ms "
+        f"a call" for k, (c, tot, (b0, t0, n0, ms0, p0)) in parts.items())
+    return lines, text
 
 
 def w4_phase(torch, dev):
@@ -2070,9 +2184,10 @@ def w4_phase(torch, dev):
     of the inverse-rendering gradient at 96x72 x 8 spp; each render with
     W4's counts set to 0 just before and read just after (every entry its
     scene has launched, required; no plain block on the card, required),
-    then its captured bounces held against the plain dispatch and timed
-    (`w4_hold`).  Prints a line a render.  W4's spies (`w4_spies`) are in
-    place for this phase only."""
+    then its captured bounces (every bounce of its first chunk) held
+    against the plain dispatch and timed (`w4_hold`).  Prints a line a
+    render, and a line a bounce for the renders of W4_PER_BOUNCE.  W4's
+    spies (`w4_spies`) are in place for this phase only."""
     with w4_spies():
         w4_renders(torch, dev)
 
@@ -2124,9 +2239,12 @@ def w4_renders(torch, dev):
                 f"W4 {label}: launches {d.got} for the present entries {present}")
         require(d.plain_runs == 0, f"W4 {label}: {d.plain_runs} plain blocks "
                 "ran on the card")
+        lines, text = w4_hold(torch, label)
+        if label in W4_PER_BOUNCE:
+            print("\n".join(lines), flush=True)
         print(f"W4 vs plain, {label} ({wall:.4f} s, launches "
               f"{ {k[6:]: n for k, n in d.got.items() if n} }, no plain block): "
-              + w4_hold(torch, label), flush=True)
+              + text, flush=True)
         del sc, img
     # the inverse-rendering step: W4 forward through _Shade, the plain
     # block's backward
@@ -2146,7 +2264,7 @@ def w4_renders(torch, dev):
     print(f"W4 vs plain, {label} (forward + backward of the IoR gradient, "
           f"launches { {k[6:]: n for k, n in d.got.items() if n} }, "
           f"{W4['backward'] - backward} backward recomputes, gradient "
-          f"{g[0].tolist()}): " + w4_hold(torch, label) +
+          f"{g[0].tolist()}): " + w4_hold(torch, label)[1] +
           f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
             "on the card")
@@ -2154,32 +2272,36 @@ def w4_renders(torch, dev):
 
 def w4_rows(torch):
     """W4's rows of the kernels line, one an entry at the held bounce it
-    was timed on: its bound from the bytes it moves there and its issue
-    slots (a ray of another type: one pass of its loop over the rays on
-    the shortest path; a ray it shades: the same pass with the type test
-    passed, on its cheapest branches, read off the entry kernel's SASS,
-    probes/common.py `shaded_pass`); a line each."""
-    from raytracer_tpu_torch.ops import cuda_build
+    was timed on (the most rays of its type): its bound from the bytes it
+    moves there and its issue slots off its kernel's SASS (`w4_ops`), and
+    beside its time there the mean a call over the bounces of that
+    render's first chunk (`chunk_mean_ms`); a line each, with the
+    registers, local memory and resident blocks an SM it was built to."""
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
     from raytracer_tpu_torch.probes import common
 
-    sass = common.cuobjdump_sass(cuda_build.library_path("kernels"))
     rows = []
     for key, (kernel, replaces) in W4_ENTRIES.items():
         tm, launches = W4["timed"].get(key), W4["launches"][key]
         require(tm is not None, f"W4 {key} was never held")
-        other, shaded = common.shaded_pass(sass, kernel)
-        ops = (tm["rays"] - tm["typed"]) * other + tm["typed"] * shaded
+        ops, text = w4_ops(torch, key, tm["rays"], tm["typed"])
         row = common.row(f"wavefront_shade {key} (W4)", "wavefront_shade.cu",
                          replaces, launches, W4["max_abs_err"][key], tm["ms"],
                          tm["plain_ms"], ops, tm["bytes"])
+        label = tm["name"].rsplit(" bounce ", 1)[0]
+        per = W4["chunk_ms"][(label, key)]
+        row["chunk_mean_ms"] = sum(per) / len(per)
         rows.append(row)
+        inf = ws.info(next(mt for mt, (k, _) in ws._BLOCKS.items() if k == key))
         print(f"W4 {key} bound at the {tm['name']} ({tm['typed']} of "
-              f"{tm['rays']} rays its type; {other} instructions a pass of "
-              f"another type's ray, {shaded} of its own on the shortest path, "
-              f"{kernel}'s SASS; {tm['bytes']} bytes): {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), W4 {tm['ms']:.4f} ms, share "
-              f"{row['bound_ms'] / tm['ms']:.4f}, plain {tm['plain_ms']:.2f} ms "
-              f"| {launches} launches in the driven renders", flush=True)
+              f"{tm['rays']} rays its type; {text}; {tm['bytes']} bytes): "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), W4 {tm['ms']:.4f} ms, "
+              f"share {row['bound_ms'] / tm['ms']:.4f}, mean "
+              f"{row['chunk_mean_ms']:.4f} ms a call over the {len(per)} bounces "
+              f"of the {label} chunk, plain {tm['plain_ms']:.2f} ms | "
+              f"{inf['registers']} registers, {inf['local_bytes']} B local, "
+              f"{inf['blocks_per_sm']} blocks an SM | {launches} launches in the "
+              "driven renders", flush=True)
         require(launches > 0, f"W4 {key} never launched in the driven renders")
     return rows
 

@@ -460,6 +460,33 @@ def _walk(x, f):
     return x
 
 
+def pick_rays(call, idx):
+    """A captured W4 call (type, ShadeCtx, draws, packed words, mask,
+    merged output) on the rays idx (int64) of it, in that order: every
+    per-ray tensor's rows idx, a medium every ray shares kept as the
+    expand of its one row.  For tests and measurements that hold or time
+    an entry on other orders and type patterns of a bounce's rays."""
+    mt, ctx, draws, packed, m, acc = call
+    n = packed.shape[0]
+
+    def rows(x):
+        if isinstance(x, torch.Tensor):
+            if x.dim() == 0 or x.shape[0] != n:
+                return x
+            if x.stride(0) == 0:
+                return x[:1].expand(idx.shape[0], *x.shape[1:])
+            return x[idx]
+        if isinstance(x, (tuple, list)):
+            return type(x)(rows(v) for v in x)
+        if isinstance(x, dict):
+            return {k: rows(v) for k, v in x.items()}
+        return x
+
+    ctx = dataclasses.replace(ctx, **{f: rows(getattr(ctx, f)) for f in _PER_RAY})
+    acc = Merged(*(rows(getattr(acc, f)) for f in FLOAT_FIELDS + BOOL_FIELDS))
+    return mt, ctx, rows(draws), rows(packed), rows(m), acc
+
+
 def _first(x):
     """x's first ray: the first row of each tensor in it."""
     if isinstance(x, torch.Tensor):
@@ -611,6 +638,25 @@ as the plain block casts them (W3 and W1 on the card).""")
 # the wrapper whose count a launch of each type's entry adds to
 _WRAPPER = {MAT_DIFFUSE: shade_diffuse, MAT_REFRACTIVE: shade_refractive,
             MAT_GLOSSY: shade_glossy}
+
+
+INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block",
+        "min_blocks", "rays_per_pass")
+
+
+def info(mt, lib=None):
+    """What W4's entry for material type mt was built to, read on the card
+    (`shade_info`): registers and local memory (bytes: spills and stack) a
+    thread, resident blocks an SM, the SMs, threads a block, the
+    __launch_bounds__ minimum of blocks an SM, and rays a block a pass
+    (the refractive entry's tile)."""
+    fn = (lib or cuda_build.load_library()).shade_info
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
+    out = (_I * len(INFO))()
+    err = fn(mt, out)
+    if err:
+        raise RuntimeError(f"shade_info: CUDA error {err}")
+    return dict(zip(INFO, out))
 
 
 def launches():

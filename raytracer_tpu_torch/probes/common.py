@@ -232,6 +232,41 @@ def shaded_pass(sass, kernel, per="FMUL"):
     return short, shaded
 
 
+def queued_pass(sass, kernel, per="FMUL"):
+    """(instructions, instructions) of a W4 entry that queues its rays
+    (csrc/wavefront_shade.cu shade_refractive_kernel: an outer loop over
+    tiles of rays, each tile's words read and its rays of the type queued,
+    around an inner loop of shading rounds): one tile's queueing pass a
+    thread (the outer loop's instructions outside the inner loop, on its
+    shortest path with the forward branch that skips the most of them not
+    taken) and one shading round a thread (the inner loop, the innermost
+    loop holding `per`, as `shaded_pass` counts a shaded ray: on its
+    shortest path with the branch that skips the most of it not taken)."""
+    body, branches, loops = _loops(sass, kernel, per)
+    inner = [L for L in loops if not any(L[2] < M[2] <= L[3] for M in loops)]
+    _, _, ilo, ihi = max(inner, key=lambda L: (L[0], L[1]))
+    outer = [L for L in loops if L[2] < ilo and ihi <= L[3]]
+    if not outer:
+        raise ValueError(f"{kernel}: no loop around its shading loop")
+    _, _, olo, ohi = max(outer, key=lambda L: L[1])
+
+    def with_widest_skip(lo, hi, counted):
+        fwd = [(a, t) for a, t in branches if lo <= a < t <= hi]
+        skip = max(fwd, key=lambda b: sum(1 for x, _, _ in body
+                                          if b[0] < x < b[1] and counted(x)),
+                   default=None)
+        skipped = set()
+        for a, t in fwd:
+            if (a, t) != skip:
+                skipped.update(x for x, _, _ in body if a < x < t)
+        return sum(1 for x, _, _ in body
+                   if lo <= x <= hi and counted(x) and x not in skipped)
+
+    queue = with_widest_skip(olo, ohi, lambda x: not ilo <= x <= ihi)
+    shaded = with_widest_skip(ilo, ihi, lambda x: True)
+    return queue, shaded
+
+
 def _loops(sass, kernel, per):
     """(instructions, backward branches, loops) of a kernel's SASS: each
     instruction (address, op, operands); each loop (count of `per` in its

@@ -3,7 +3,9 @@
 JAX: every W4 call of small renders held against the plain dispatch on
 the same bounce, bit for bit (among them 131 and 8,200 importance-sampled
 lamps, whose caps pdf sums its terms in ATen's order for a row of 128 or
-more, split across warps from 8,161 on); the card's renders run no plain
+more, split across warps from 8,161 on), and the refractive entry on a
+bounce's rays picked so that ~1% are refractive, scattered; the card's
+renders run no plain
 block; the inverse-rendering gradient through W4 equals the one through
 the plain blocks, bit for bit, and two passes agree.
 
@@ -103,6 +105,47 @@ def test_card_w4_equals_the_plain_dispatch(card, name, tmp_path, monkeypatch):
                if mt in ws._WRAPPER}
     assert present and set(held) == present
     assert ws.launches() == len(held)
+
+
+@pytest.mark.cuda
+def test_card_refractive_queue_on_scattered_rays(card, tmp_path, monkeypatch):
+    """The refractive entry on a Cornell bounce's rays picked so that ~1%
+    of them, scattered, are refractive, at a count that is no multiple of
+    a tile or a warp (`ws.pick_rays`): every field of every ray bit for
+    bit with the plain dispatch, in one launch."""
+    calls = []
+
+    def spy(mt, real):
+        def call(ctx, draws, packed, m, acc):
+            if mt == ws.MAT_REFRACTIVE:
+                calls.append((mt, ctx, draws, packed, m, ws.Merged(
+                    *(getattr(acc, f).clone() for f in FIELDS))))
+            return real(ctx, draws, packed, m, acc)
+        return call
+
+    _replace_wrappers(monkeypatch, spy)
+    _scene("cornell", tmp_path).render(samples_per_pixel=2, device=card, seed=3,
+                                       output="linear")
+    call = max(calls, key=lambda c: int(c[4].sum()))
+    m = call[4]
+    typed, other = m.nonzero()[:, 0], (~m).nonzero()[:, 0]
+    rng = np.random.default_rng(5)
+    n = 200_003
+    at = torch.from_numpy(rng.random(n) < 0.01).to(card)
+    idx = torch.empty(n, dtype=torch.int64, device=card)
+    k = int(at.sum())
+    idx[at] = typed[torch.from_numpy(rng.integers(0, typed.shape[0], k)).to(card)]
+    idx[~at] = other[torch.from_numpy(rng.integers(0, other.shape[0], n - k)).to(card)]
+    mt, ctx, draws, packed, m, acc = ws.pick_rays(call, idx)
+    assert torch.equal(m, at) and 1000 < k < 3000
+    want = acc.merge(ws._plain(mt, ctx, draws, None), m)
+    counted = ws._WRAPPER[mt]
+    before = counted.launches
+    got = ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
+        *(getattr(acc, f).clone() for f in FIELDS)))
+    assert counted.launches - before == 1
+    for f in FIELDS:
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.cuda

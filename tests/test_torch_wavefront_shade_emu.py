@@ -101,7 +101,7 @@ MUTANTS = {
     "split_bit": [("bit = ((R.pattern[i] >> (cnt < 30 ? cnt : 30)) & 1) == 1;",
                    "bit = ((R.pattern[i] >> (cnt < 29 ? cnt + 1 : 30)) & 1) == 1;")],
     # the hero channel ignored
-    "no_hero": [("      if (disp) {\n", "      if (false) {\n")],
+    "no_hero": [("    if (disp) {\n", "    if (false) {\n")],
     # the environment's alias taken on the wrong branch
     "alias_branch": [("if (!take) k = B.env_alias[k];",
                       "if (take) k = B.env_alias[k];")],
@@ -114,6 +114,16 @@ MUTANTS = {
     # the lanes of the CPU's vector sum added in reverse
     "cpu_sum_lanes": [("  for (int l = 0; l < W4_CPU_VEC; ++l) s = s + lanes[l];",
                        "  for (int l = W4_CPU_VEC - 1; l >= 0; --l) s = s + lanes[l];")],
+    # the refractive queue: the rays left after a block's last tile never
+    # shaded
+    "queue_flush": [("while (queued >= SHADE_BLOCK || (!tile && queued > 0)) {",
+                     "while (queued >= SHADE_BLOCK) {")],
+    # the warp prefix over a tile's (word, warp) counts off by one group
+    "queue_prefix": [("        if (lane >= d) incl += up;",
+                      "        if (lane > d) incl += up;")],
+    # a round taken from the queue's front, not from its end
+    "queue_round": [("shade_refractive_ray(R, B, queue[queued + threadIdx.x]);",
+                     "shade_refractive_ray(R, B, queue[threadIdx.x]);")],
     # the directional lights' shadow rays ignored
     "no_shadow": [("      const float see = B.occ != nullptr\n"
                    "          ? 1.0f - (float)B.occ[(long long)light * R.n + i] : 1.0f;\n"
@@ -472,6 +482,123 @@ def test_the_wrappers_run_the_plain_block_on_cpu_tensors(bounces):
             want = acc.merge(ws._plain(mt, ctx, draws, None), m)
             assert field_differences(got, want) == {}
     assert ws.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the refractive entry's queue on type patterns
+# ---------------------------------------------------------------------------
+
+# (rays, positions of the refractive rays) of each pattern; the stand-in
+# gives a grid of two blocks, so past 2 x 1,024 rays a block takes several
+# tiles of 1,024 and carries rays over from one to the next
+PATTERNS = ("none", "one", "scattered", "runs", "all", "ragged", "small")
+QUEUE_MUTANTS = ("queue_flush", "queue_prefix", "queue_round")
+
+
+def _typed_at(name, rng):
+    if name == "none":
+        return torch.zeros(3000, dtype=torch.bool)
+    if name == "one":
+        at = torch.zeros(3000, dtype=torch.bool)
+        at[1777] = True
+        return at
+    if name == "scattered":                   # ~1.5%
+        return torch.from_numpy(rng.random(6000) < 0.015)
+    if name == "runs":                        # runs of 30-130 rays, ~14%
+        at = torch.zeros(6000, dtype=torch.bool)
+        while int(at.sum()) < 840:
+            s = int(rng.integers(0, 6000))
+            at[s:s + int(rng.integers(30, 131))] = True
+        return at
+    if name == "all":                         # 2,100: no multiple of 32
+        return torch.ones(2100, dtype=torch.bool)
+    if name == "ragged":                      # 4,133 = 4 tiles + 37
+        return torch.from_numpy(rng.random(4133) < 0.14)
+    return torch.from_numpy(rng.random(19) < 0.4)      # small: n < 32
+
+
+@pytest.fixture(scope="module")
+def patterns(bounces):
+    """{(scene, pattern): (call, the plain dispatch's output)}: the
+    refractive call with the most refractive rays of Cornell and of the
+    split scene, its rays picked into each pattern (`ws.pick_rays`: a
+    refractive ray where the pattern has one, another type's elsewhere,
+    each from the call's own rays of that kind)."""
+    import numpy as np
+
+    out = {}
+    for scene in ("cornell", "split"):
+        call = max((c for c in bounces[scene] if c[0] == MAT_REFRACTIVE),
+                   key=lambda c: int(c[4].sum()))
+        m = call[4]
+        rng = np.random.default_rng(11)
+        typed, other = m.nonzero()[:, 0], (~m).nonzero()[:, 0]
+        for name in PATTERNS:
+            at = _typed_at(name, rng)
+            idx = torch.empty(at.shape[0], dtype=torch.int64)
+            k = int(at.sum())
+            idx[at] = typed[torch.from_numpy(rng.integers(0, typed.shape[0], k))]
+            idx[~at] = other[torch.from_numpy(
+                rng.integers(0, other.shape[0], at.shape[0] - k))]
+            picked = ws.pick_rays(call, idx)
+            assert torch.equal(picked[4], at)
+            out[scene, name] = picked, plain_out(picked)
+    return out
+
+
+@pytest.mark.parametrize("scene", ["cornell", "split"])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_refractive_queue_on_a_type_pattern(libs, patterns, scene, pattern):
+    """The refractive entry on a bounce's rays picked into a type pattern
+    (none of the type, one ray, ~1.5% scattered, runs of ~14%, all of it,
+    a count that is no multiple of a tile or a warp, fewer than 32 rays):
+    every field of every ray as the plain dispatch's, in one launch."""
+    call, want = patterns[scene, pattern]
+    before = ws.shade_refractive.launches
+    assert field_differences(w4_out(call, libs["w4"]), want) == {}
+    assert ws.shade_refractive.launches - before == 1
+
+
+@pytest.mark.parametrize("mutant", QUEUE_MUTANTS)
+def test_a_queue_mutant_fails_on_the_patterns(libs, patterns, mutant):
+    caught = [key for key, (call, want) in patterns.items()
+              if field_differences(w4_out(call, libs[mutant]), want)]
+    assert caught, f"no pattern catches the mutant {mutant}"
+
+
+QUEUED_SASS = """
+        Function : _ZN2w423shade_refractive_kernelENS_4RaysENS_10RefractiveE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R2, R3, PT ;
+        /*0020*/               @P0 BRA 0x70 ;
+        /*0030*/                   LDG.E R4, [R5.64] ;
+        /*0040*/                   VOTE.ANY R6, PT, P1 ;
+        /*0050*/              @!P2 BRA 0x60 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   ISETP.GE.AND P3, PT, R7, 0x100, PT ;
+        /*0080*/              @!P3 BRA 0xe0 ;
+        /*0090*/                   ISETP.GE.AND P4, PT, R8, R9, PT ;
+        /*00a0*/               @P4 BRA 0xd0 ;
+        /*00b0*/                   FMUL R10, R11, R12 ;
+        /*00c0*/                   FMUL R10, R10, R12 ;
+        /*00d0*/               @P5 BRA 0x70 ;
+        /*00e0*/              @!P6 BRA 0x10 ;
+        /*00f0*/                   EXIT ;
+"""
+
+
+def test_queued_pass_counts_a_tile_and_a_round():
+    """The refractive entry's bound reads off its SASS (probes/common.py
+    `queued_pass`) one tile's queueing pass, the outer loop outside its
+    inner loop with the tile branch taken (0x10-0x60 and 0xe0: 7), and
+    one shading round, the inner loop with its shading taken (0x70-0xd0:
+    7)."""
+    from raytracer_tpu_torch.probes import common
+
+    assert common.queued_pass(QUEUED_SASS, "shade_refractive_kernel") == (7, 7)
+    with pytest.raises(ValueError):
+        common.queued_pass(QUEUED_SASS.replace("@!P6 BRA 0x10", "@!P6 BRA 0x70"),
+                           "shade_refractive_kernel")
 
 
 # ---------------------------------------------------------------------------
