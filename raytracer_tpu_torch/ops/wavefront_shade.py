@@ -49,8 +49,8 @@ from .mesh_sweep import _call, kept
 
 _V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # W4's kernels by name, as a profile lists them
-KERNELS = ("shade_diffuse_kernel", "shade_refractive_kernel",
-           "shade_glossy_kernel")
+KERNELS = ("shade_diffuse_kernel", "shade_diffuse_wide_kernel",
+           "shade_refractive_kernel", "shade_glossy_kernel")
 SCHLICK = 5.0             # the Schlick exponent, passed to the kernel
 
 
@@ -100,6 +100,8 @@ _BLOCKS = {MAT_DIFFUSE: ("shade_diffuse", Diffuse),
            MAT_GLOSSY: ("shade_glossy", Glossy)}
 ENTRIES = {entry: [ctypes.POINTER(Rays), ctypes.POINTER(cls), _V,
                    ctypes.POINTER(_I)] for entry, cls in _BLOCKS.values()}
+ENTRIES["w4_caps_sum"] = [_V, _L, _I, _I, _V, _V, ctypes.POINTER(_I)]
+ENTRIES["w4_trig_mismatches"] = [_V, _V, ctypes.POINTER(_I)]
 
 FLOAT_FIELDS = ("add", "beta_mult", "new_origin", "new_dir", "new_n_re",
                 "new_n_im")
@@ -644,19 +646,47 @@ INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block",
         "min_blocks", "rays_per_pass")
 
 
-def info(mt, lib=None):
+def info(mt, lib=None, wide=False):
     """What W4's entry for material type mt was built to, read on the card
-    (`shade_info`): registers and local memory (bytes: spills and stack) a
+    (`shade_info`; wide: the diffuse entry's kernel for caps sums past
+    registers): registers and local memory (bytes: spills and stack) a
     thread, resident blocks an SM, the SMs, threads a block, the
-    __launch_bounds__ minimum of blocks an SM, and rays a block a pass
-    (the refractive entry's tile)."""
+    __launch_bounds__ minimum of blocks an SM, and rays a block a pass (a
+    queued entry's tile)."""
     fn = (lib or cuda_build.load_library()).shade_info
-    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(mt, out)
+    err = fn(mt, int(wide), out)
     if err:
         raise RuntimeError(f"shade_info: CUDA error {err}")
     return dict(zip(INFO, out))
+
+
+def caps_sum(x, wide=False, lib=None):
+    """torch.sum(x, -1) of the (n, K) float32 rows x as the diffuse entry
+    adds its caps pdf's terms on the card (`w4_caps_sum`): by the register
+    sum of the plan torch's reduction makes for x (raises where that plan
+    is past it: four values a load from K = 128), or, wide, by the general
+    restatement of that plan.  For the holds against torch.sum."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError("caps_sum takes (n, K) float32 rows")
+    x = x.contiguous()
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    _call(lib, "w4_caps_sum", x.data_ptr(), x.shape[0], x.shape[1], int(wide),
+          out.data_ptr(), cuda_build.stream_of(x.device), entries=ENTRIES)
+    return out
+
+
+def trig_mismatches(device=None, lib=None):
+    """The floats, of all 2^32, at which W4's restated sinf or cosf
+    (csrc/wavefront_shade.cu `t_sincos`) differs from libdevice's on the
+    card (`w4_trig_mismatches`; each function counted apart, NaN against
+    NaN agreeing)."""
+    device = torch.device(device or "cuda")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _call(lib, "w4_trig_mismatches", bad.data_ptr(), cuda_build.stream_of(device),
+          entries=ENTRIES)
+    return int(bad.item())
 
 
 def launches():

@@ -234,21 +234,23 @@ def shaded_pass(sass, kernel, per="FMUL"):
 
 def queued_pass(sass, kernel, per="FMUL"):
     """(instructions, instructions) of a W4 entry that queues its rays
-    (csrc/wavefront_shade.cu shade_refractive_kernel: an outer loop over
-    tiles of rays, each tile's words read and its rays of the type queued,
-    around an inner loop of shading rounds): one tile's queueing pass a
-    thread (the outer loop's instructions outside the inner loop, on its
-    shortest path with the forward branch that skips the most of them not
-    taken) and one shading round a thread (the inner loop, the innermost
-    loop holding `per`, as `shaded_pass` counts a shaded ray: on its
-    shortest path with the branch that skips the most of it not taken)."""
+    (csrc/wavefront_shade.cu `shade_queued`: an outer loop over tiles of
+    rays, each tile's words read and its rays of the type queued, around a
+    loop of shading rounds, which may hold loops of its own, as the
+    diffuse entry's caps sum): one tile's queueing pass a thread (the
+    outer loop, the widest loop holding `per`, its instructions outside
+    the round loop, on its shortest path with the forward branch that
+    skips the most of them not taken) and one shading round a thread (the
+    round loop, the widest loop holding `per` inside the outer one, as
+    `shaded_pass` counts a shaded ray: on its shortest path with the
+    branch that skips the most of it not taken; a loop inside it counted
+    once)."""
     body, branches, loops = _loops(sass, kernel, per)
-    inner = [L for L in loops if not any(L[2] < M[2] <= L[3] for M in loops)]
-    _, _, ilo, ihi = max(inner, key=lambda L: (L[0], L[1]))
-    outer = [L for L in loops if L[2] < ilo and ihi <= L[3]]
-    if not outer:
-        raise ValueError(f"{kernel}: no loop around its shading loop")
-    _, _, olo, ohi = max(outer, key=lambda L: L[1])
+    _, _, olo, ohi = max(loops, key=lambda L: (L[1], L[0]))
+    inner = [L for L in loops if olo < L[2] and L[3] <= ohi]
+    if not inner:
+        raise ValueError(f"{kernel}: no shading loop inside its tile loop")
+    _, _, ilo, ihi = max(inner, key=lambda L: (L[1], L[0]))
 
     def with_widest_skip(lo, hi, counted):
         fwd = [(a, t) for a, t in branches if lo <= a < t <= hi]

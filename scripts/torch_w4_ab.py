@@ -2,11 +2,11 @@
 """Time W4's entries (csrc/wavefront_shade.cu, wrappers
 raytracer_tpu_torch/ops/wavefront_shade.py) of checkouts of the PyTorch
 port on one CUDA device, in turns, at every bounce of one chunk of Cornell
-rendered on the wavefront; or time builds of this checkout's refractive
-entry.
+rendered on the wavefront; or time builds of this checkout's queued
+entries (diffuse, refractive).
 
     python3 scripts/torch_w4_ab.py [--out OUT.json] ROOT ...
-    python3 scripts/torch_w4_ab.py --variants [--out OUT.json]
+    python3 scripts/torch_w4_ab.py --variants [diffuse] [refractive] [--out OUT.json]
 
 Each ROOT is a checkout (or `git archive` of one) that holds
 raytracer_tpu_torch/ and examples/; the roots run in the order given, one
@@ -22,12 +22,12 @@ one, the lane efficiency (those rays over 32 lanes of those warps), W4's
 time through a CUDA graph (`probes/common.py` `graph_ms`, ROUNDS rounds of
 REPS calls), the plain block's and its merge's by events, and the bound
 and share, and beside the bound the bytes the entry's rows occupy counted
-by 32-byte sectors (`sector_bytes`: a scattered row costs its whole
-sector, a partly written sector a fill); the refractive entry is timed
-again on the same rays with its
-type's rays moved to the front (this checkout's `ws.pick_rays`, their
-output their own bit for bit, required), which separates divergence from
-latency and occupancy.  The bound is the same for every root: the bytes of
+by 32-byte sectors (chip_smoke.py `w4_sectors`: a scattered row costs
+its whole sector, a partly written sector a fill) and the share of their
+time; the queued entries (chip_smoke.py W4_QUEUED: diffuse, refractive)
+are timed again on the same rays with their type's rays moved to the
+front (this checkout's `ws.pick_rays`, their output their own bit for
+bit, required), which separates divergence from latency and occupancy.  The bound is the same for every root: the bytes of
 chip_smoke.py `w4_bytes` over this checkout's issue slots
 (chip_smoke.py `w4_ops`, off its SASS), passed to the children.  A child
 also reads the registers, stack, local and shared memory of each W4
@@ -35,23 +35,20 @@ kernel of the root's library (`cuobjdump -res-usage`) and the resident
 blocks an SM they allow.  The parent's last line is `in_turns`', with
 each bounce's median graph ms over a root's children.
 
---variants builds this checkout's kernels once for each macro of
-VARIANTS (`cuda_build.load_library(defines)`), holds each build's
-refractive entry bit for bit against the default build at every bounce
-of the chunk, and times the builds in turns (each bounce: the first, the
-second, the second, the first, ...), with each build's registers, local
-memory and resident blocks an SM (`ws.info`) and ptxas's lines.
+--variants builds this checkout's kernels once for each macro of the
+named entries' VARIANTS (both without a name; `cuda_build.load_library
+(defines)`), holds each build's entry bit for bit against the default
+build at every bounce of the chunk, and times the builds in turns (each
+bounce: the first build to the last, then back), with each build's
+registers, local memory and resident blocks an SM (`ws.info`), its
+`cuobjdump -res-usage` line and ptxas's lines.
 """
 
 import argparse
 import ast
 import importlib.util
 import json
-import os
-import re
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -60,9 +57,13 @@ from torch_frame_ab import in_turns
 HERE = Path(__file__).resolve().parents[1]
 REPS = 5
 ROUNDS = 3
-# the refractive entry's __launch_bounds__ minimum of blocks an SM
-VARIANTS = ("W4_REFR_MIN_BLOCKS=1", "W4_REFR_MIN_BLOCKS=3", "W4_REFR_MIN_BLOCKS=4",
-            "W4_REFR_MIN_BLOCKS=5")
+# each queued entry's __launch_bounds__ minimum of blocks an SM, its
+# default first
+VARIANTS = {
+    "diffuse": ("W4_DIFF_MIN_BLOCKS=5", "W4_DIFF_MIN_BLOCKS=4", "W4_DIFF_MIN_BLOCKS=6",
+                "W4_DIFF_MIN_BLOCKS=8"),
+    "refractive": ("W4_REFR_MIN_BLOCKS=4", "W4_REFR_MIN_BLOCKS=1", "W4_REFR_MIN_BLOCKS=3",
+                   "W4_REFR_MIN_BLOCKS=5")}
 SM_REGS, SM_SMEM, SM_BLOCK_SMEM, SM_THREADS = 65536, 233472, 1024, 2048
 
 
@@ -159,31 +160,11 @@ def graph_run(torch, ws, call, out, lib=None):
     return run
 
 
-def resource_usage(path):
-    """{kernel name: {"REG", "STACK", "SHARED", "LOCAL": int}} of a built
-    library, as `cuobjdump -res-usage` prints them."""
-    exe = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
-    text = subprocess.run([exe, "-res-usage", str(path)], capture_output=True,
-                          text=True, check=True).stdout
-    out, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function (\S+):", line)
-        if m:
-            cur = m.group(1)
-            continue
-        vals = dict(re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line))
-        if cur and vals:
-            out[cur] = {k: int(v) for k, v in vals.items()}
-            cur = None
-    return out
-
-
 def resources(ws, cuda_build):
     """{kernel: registers, stack, local and shared bytes, resident blocks
     an SM} of the root's W4 kernels, off its built library."""
     out = {}
-    for name, r in resource_usage(cuda_build.library_path("kernels")).items():
+    for name, r in smoke().resource_usage(cuda_build.library_path("kernels")).items():
         k = next((k for k in ws.KERNELS if k in name), None)
         if k is None:
             continue
@@ -192,49 +173,6 @@ def resources(ws, cuda_build):
         by_smem = SM_SMEM // (r.get("SHARED", 0) + SM_BLOCK_SMEM)
         out[k] = dict(r, blocks_per_sm=min(by_regs, by_smem, SM_THREADS // 256))
     return out
-
-
-def sector_bytes(torch, m, reads, writes):
-    """The bytes a kernel moves that reads the rows of m's rays of each
-    field of `reads` and writes those of `writes` (row sizes in bytes, each
-    field an array of n rows), counted by the 32-byte sectors that hold
-    such a row: a sector read once; a sector written once, and read once
-    more where it also holds rows of other rays (the cache fills it before
-    it merges a partial write)."""
-    idx = m.nonzero()[:, 0]
-    total = 0
-    for size, written in [(r, False) for r in reads] + [(r, True) for r in writes]:
-        n_sec = (m.shape[0] * size + 31) // 32
-        start = idx * size
-        end = start + size
-        s0, s1 = start // 32, (end - 1) // 32
-        have = torch.zeros(n_sec, dtype=torch.int64, device=m.device)
-        have.index_add_(0, s0, torch.minimum(end, (s0 + 1) * 32) - start)
-        tail = s1 != s0
-        have.index_add_(0, s1[tail], end[tail] - s1[tail] * 32)
-        cap = torch.clamp(m.shape[0] * size - 32 * torch.arange(
-            n_sec, device=m.device), max=32)
-        touched = int((have > 0).sum())
-        total += 32 * touched
-        if written:
-            total += 32 * int(((have > 0) & (have < cap)).sum())
-    return total
-
-
-def field_rows(key, ctx, draws):
-    """(row sizes read, row sizes written) of the diffuse or refractive
-    entry's rays on Cornell (no textures), its packed words aside."""
-    per_ray = lambda x: x.dim() == 2 and x.stride(0) != 0
-    if key == "shade_refractive":
-        reads = [12, 12, 12, 4, 4, 4, 4, 4]     # P N D, t orient eps depth u
-        reads += [12 for x in (ctx.n_re, ctx.n_im) if per_ray(x)]
-        reads += [8] if draws[4][1] is not None else []
-        reads += [4, 4] if ctx.split_k > 0 and ctx.pattern is not None else []
-        return reads, [12] * 5 + [1, 1]
-    reads = [12, 12, 8, 4, 4, 4, 4, 4]          # P N uv, eps refl, draws
-    reads += [8] if draws[3][1] is not None else []
-    reads += [4, 4, 4] if ctx.strat_u is not None else []
-    return reads, [12] * 3 + [1, 1]
 
 
 def child(root, slots):
@@ -266,7 +204,7 @@ def child(root, slots):
             run = graph_run(torch, ws, call, got)
             times = [common.graph_ms(run, REPS)[0] for _ in range(ROUNDS)]
             res = {}
-            if key == "shade_refractive":
+            if key in sm.W4_QUEUED:
                 order = torch.argsort((~m).to(torch.int8), stable=True)
                 front = pick(call, order)
                 got_f = ws._kernel_shade(*front[:5], ws.Merged(
@@ -285,7 +223,7 @@ def child(root, slots):
             n_bytes = sm.w4_bytes(mt, ctx, draws, m, None, None)
             each, own = slots[key]
             bound_ms, by = common.bound(n * each + typed * own, n_bytes)
-            sectors = 4 * n + sector_bytes(torch, m, *field_rows(key, ctx, draws))
+            sectors, sector_ms = sm.w4_sectors(torch, key, ctx, draws, m)
             ms = statistics.mean(times)
             out["bounces"][f"{key[6:]} {b}"] = dict(
                 res, rays=n, typed=typed, warps=warps,
@@ -294,8 +232,8 @@ def child(root, slots):
                 plain_ms=common.cuda_ms(
                     lambda: acc.merge(ws._plain(mt, ctx, draws, None), m), 1),
                 bytes=n_bytes, bound_ms=bound_ms, bound_by=by,
-                share=bound_ms / ms, sector_bytes=sectors,
-                sector_ms=common.bound(0, sectors)[0])
+                share=bound_ms / ms, sector_bytes=sectors, sector_ms=sector_ms,
+                sector_share=sector_ms / ms)
         del call, ctx, draws, packed, m, acc, got, run
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -307,7 +245,8 @@ def show(bounces):
     return " | ".join(
         f"{k}: {v['typed']} rays, eff {v['lane_efficiency']:.3f}, "
         f"{v['ms']:.4f} ms ({v['share']:.3f} of {v['bound_ms']:.4f}; sectors "
-        f"{v['sector_bytes'] / 1e6:.1f} MB, {v['sector_ms']:.4f} ms)"
+        f"{v['sector_bytes'] / 1e6:.1f} MB, {v['sector_ms']:.4f} ms, share "
+        f"{v['sector_ms'] / v['ms']:.3f})"
         + (f", in front {v['front_ms']:.4f}" if "front_ms" in v else "")
         for k, v in bounces.items())
 
@@ -326,14 +265,13 @@ def this_slots():
     return out
 
 
-def variants(out_path):
-    """Time this checkout's refractive entry built with each macro of
-    VARIANTS, in turns, at every bounce of the chunk (see the module
-    doc)."""
+def variants(entries, out_path):
+    """Time this checkout's queued entries (`entries`: "diffuse",
+    "refractive") built with each macro of their VARIANTS, in turns, at
+    every bounce of the chunk (see the module doc)."""
     import torch
 
     sys.path[:0] = [str(HERE), str(HERE / "examples")]
-    from raytracer_tpu_torch.materials.base import MAT_REFRACTIVE
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import wavefront_shade as ws
     from raytracer_tpu_torch.probes import common
@@ -341,44 +279,51 @@ def variants(out_path):
     sm = smoke()
     dev = torch.device("cuda:0")
     fields = ws.FLOAT_FIELDS + ws.BOOL_FIELDS
-    libs, builds = {}, {}
-    for v in VARIANTS:
-        libs[v] = cuda_build.load_library((v,))
-        builds[v] = {"info": ws.info(MAT_REFRACTIVE, lib=libs[v]),
-                     "ptxas": [ln for ln in sm.build_lines(cuda_build.build_log)
-                               if ln.startswith("shade_refractive")]}
-    out = {"device": sm.nvidia_smi(), "builds": builds, "bounces": {}}
+    out = {"device": sm.nvidia_smi(), "builds": {}, "bounces": {}}
+    libs = {}
+    for entry in entries:
+        kernel = f"shade_{entry}_kernel"
+        for v in VARIANTS[entry]:
+            libs[v] = cuda_build.load_library((v,))
+            use = sm.resource_usage(cuda_build.build("kernels", (v,)))
+            out["builds"][v] = {
+                "info": ws.info(sm.w4_type(f"shade_{entry}"), lib=libs[v]),
+                "res_usage": next(r for k, r in use.items() if f"{kernel}E" in k),
+                "ptxas": [ln for ln in sm.build_lines(cuda_build.build_log)
+                          if ln.startswith(kernel)]}
     for key, b, call in chunk_calls(torch, ws, dev):
-        if key != "shade_refractive":
+        entry = key[6:]
+        if entry not in entries:
             continue
         mt, ctx, draws, packed, m, acc = call
+        names = VARIANTS[entry]
         with torch.no_grad():
             want = ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
                 *(getattr(acc, f).clone() for f in fields)))
             runs = {}
-            for v, lib in libs.items():
+            for v in names:
                 got = ws.Merged(*(getattr(acc, f).clone() for f in fields))
-                ws._launch(mt, ctx, draws, packed, got, lib=lib)
+                ws._launch(mt, ctx, draws, packed, got, lib=libs[v])
                 if not equal_bits(torch, got, want, fields):
-                    raise RuntimeError(f"{v}: bounce {b} differs from the "
+                    raise RuntimeError(f"{v}: {entry} bounce {b} differs from the "
                                        "default build")
-                runs[v] = graph_run(torch, ws, call, got, lib)
-            times = {v: [] for v in VARIANTS}
+                runs[v] = graph_run(torch, ws, call, got, libs[v])
+            times = {v: [] for v in names}
             for r in range(2 * ROUNDS):
-                order = VARIANTS if r % 2 == 0 else VARIANTS[::-1]
-                for v in order:
+                for v in (names if r % 2 == 0 else names[::-1]):
                     times[v].append(common.graph_ms(runs[v], REPS)[0])
-            out["bounces"][str(b)] = {
+            out["bounces"][f"{entry} {b}"] = {
                 "typed": int(m.sum()), "rays": m.shape[0],
                 **{v: {"ms": statistics.mean(t), "rounds_ms": t}
                    for v, t in times.items()}}
-            print(f"bounce {b}: {int(m.sum())} refractive rays | " + " | ".join(
+            print(f"{entry} bounce {b}: {int(m.sum())} rays | " + " | ".join(
                 f"{v} {statistics.mean(t):.4f} ms" for v, t in times.items()),
                 flush=True)
         del call, ctx, draws, packed, m, acc, want, runs
         torch.cuda.empty_cache()
-    for v, bi in builds.items():
-        print(f"{v}: {bi['info']} | {' | '.join(bi['ptxas'])}", flush=True)
+    for v, bi in out["builds"].items():
+        print(f"{v}: {bi['info']} | {bi['res_usage']} | {' | '.join(bi['ptxas'])}",
+              flush=True)
     if out_path:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps(out, indent=1) + "\n")
@@ -390,7 +335,8 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*", type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", choices=tuple(VARIANTS),
+                    help="time builds of these queued entries (default: both)")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--slots", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -403,8 +349,8 @@ def main(argv):
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    if args.variants:
-        return variants(args.out)
+    if args.variants is not None:
+        return variants(args.variants or tuple(VARIANTS), args.out)
     return in_turns(__file__, args.roots, ["--slots", json.dumps(this_slots())],
                     show, args.out, metric="ms", items="bounces")
 

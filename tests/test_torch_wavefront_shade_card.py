@@ -3,9 +3,10 @@
 JAX: every W4 call of small renders held against the plain dispatch on
 the same bounce, bit for bit (among them 131 and 8,200 importance-sampled
 lamps, whose caps pdf sums its terms in ATen's order for a row of 128 or
-more, split across warps from 8,161 on), and the refractive entry on a
-bounce's rays picked so that ~1% are refractive, scattered; the card's
-renders run no plain
+more, split across warps from 8,161 on), and the refractive and diffuse
+entries on a bounce's rays picked so that ~1% are of their type,
+scattered; the caps sum in registers equals torch.sum and the restated
+sinf / cosf libdevice's on every float; the card's renders run no plain
 block; the inverse-rendering gradient through W4 equals the one through
 the plain blocks, bit for bit, and two passes agree.
 
@@ -107,18 +108,17 @@ def test_card_w4_equals_the_plain_dispatch(card, name, tmp_path, monkeypatch):
     assert ws.launches() == len(held)
 
 
-@pytest.mark.cuda
-def test_card_refractive_queue_on_scattered_rays(card, tmp_path, monkeypatch):
-    """The refractive entry on a Cornell bounce's rays picked so that ~1%
-    of them, scattered, are refractive, at a count that is no multiple of
-    a tile or a warp (`ws.pick_rays`): every field of every ray bit for
-    bit with the plain dispatch, in one launch."""
+def _queue_on_scattered_rays(card, tmp_path, monkeypatch, mt):
+    """The entry of type mt on a Cornell bounce's rays picked so that ~1%
+    of them, scattered, are of its type, at 200,003 rays (no multiple of a
+    tile or a warp; `ws.pick_rays`): every field of every ray bit for bit
+    with the plain dispatch, in one launch."""
     calls = []
 
-    def spy(mt, real):
+    def spy(t, real):
         def call(ctx, draws, packed, m, acc):
-            if mt == ws.MAT_REFRACTIVE:
-                calls.append((mt, ctx, draws, packed, m, ws.Merged(
+            if t == mt:
+                calls.append((t, ctx, draws, packed, m, ws.Merged(
                     *(getattr(acc, f).clone() for f in FIELDS))))
             return real(ctx, draws, packed, m, acc)
         return call
@@ -146,6 +146,39 @@ def test_card_refractive_queue_on_scattered_rays(card, tmp_path, monkeypatch):
     assert counted.launches - before == 1
     for f in FIELDS:
         assert _bits_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_card_refractive_queue_on_scattered_rays(card, tmp_path, monkeypatch):
+    """The refractive entry's queue on ~1% scattered refractive rays
+    (`_queue_on_scattered_rays`)."""
+    _queue_on_scattered_rays(card, tmp_path, monkeypatch, ws.MAT_REFRACTIVE)
+
+
+@pytest.mark.cuda
+def test_card_diffuse_queue_on_scattered_rays(card, tmp_path, monkeypatch):
+    """The diffuse entry's queue on ~1% scattered diffuse rays of Cornell's
+    (two caps: the caps sum in registers; `_queue_on_scattered_rays`)."""
+    _queue_on_scattered_rays(card, tmp_path, monkeypatch, ws.MAT_DIFFUSE)
+
+
+@pytest.mark.cuda
+def test_card_restated_trig_is_libdevices(card):
+    """W4's sinf and cosf, restated with their reduction's words in
+    registers, equal libdevice's on all 2^32 floats."""
+    assert ws.trig_mismatches(card) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 17, 32, 33, 100, 127])
+def test_card_caps_sum_in_registers_is_torch_sum(card, K):
+    """The diffuse entry's caps sum in registers equals torch.sum over the
+    last dimension bit for bit, on rows of mixed signs and magnitudes."""
+    gen = torch.Generator(device=card).manual_seed(K)
+    x = torch.randn((40_000, K), generator=gen, device=card) * torch.pow(
+        10.0, torch.rand((40_000, K), generator=gen, device=card) * 6.0 - 3.0)
+    got, want = ws.caps_sum(x), torch.sum(x, dim=-1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -37,7 +37,15 @@ units in the last place and every other field exact; the diffuse block
 is left out of that hold, since a last-bit change of a direction can
 move a cap test or an environment cell.
 
-Each source mutation of MUTANTS makes some case fail.  The routing and
+Each source mutation of MUTANTS makes some case fail.  The diffuse and
+refractive entries, which queue their rays through one device template
+(`shade_queued`), are held on a bounce's rays picked into type patterns
+(Cornell's and the 131 lamps' diffuse calls, Cornell's and the split
+scene's refractive ones), where each queue mutant fails.  A second build
+without W4_TORCH_CPU (the card's arithmetic) holds the diffuse entry's
+caps sum in registers (`reg_sum`, `ws.caps_sum`) equal to the general
+restatement of ATen's plan (`aten_sum`) for every K from 1 to 127; a
+mutant of its lane order fails.  The routing and
 autograd tests run `trace` with the wrappers sent to the emu library:
 a render equals the plain dispatch's bit for bit, and so does the
 inverse-rendering gradient through `_Shade` (two chunks under
@@ -122,8 +130,11 @@ MUTANTS = {
     "queue_prefix": [("        if (lane >= d) incl += up;",
                       "        if (lane > d) incl += up;")],
     # a round taken from the queue's front, not from its end
-    "queue_round": [("shade_refractive_ray(R, B, queue[queued + threadIdx.x]);",
-                     "shade_refractive_ray(R, B, queue[threadIdx.x]);")],
+    "queue_round": [("if ((int)threadIdx.x < take) shade(queue[queued + threadIdx.x]);",
+                     "if ((int)threadIdx.x < take) shade(queue[threadIdx.x]);")],
+    # a caps lane that takes the cosine branch's height
+    "caps_z": [("    *z = 1.0f + r2 * (cos_max - 1.0f);",
+                "    *z = sqrtf(1.0f - r2);")],
     # the directional lights' shadow rays ignored
     "no_shadow": [("      const float see = B.occ != nullptr\n"
                    "          ? 1.0f - (float)B.occ[(long long)light * R.n + i] : 1.0f;\n"
@@ -485,14 +496,19 @@ def test_the_wrappers_run_the_plain_block_on_cpu_tensors(bounces):
 
 
 # ---------------------------------------------------------------------------
-# the refractive entry's queue on type patterns
+# the queued entries (refractive, diffuse) on type patterns
 # ---------------------------------------------------------------------------
 
-# (rays, positions of the refractive rays) of each pattern; the stand-in
+# (rays, positions of the entry's rays) of each pattern; the stand-in
 # gives a grid of two blocks, so past 2 x 1,024 rays a block takes several
 # tiles of 1,024 and carries rays over from one to the next
 PATTERNS = ("none", "one", "scattered", "runs", "all", "ragged", "small")
 QUEUE_MUTANTS = ("queue_flush", "queue_prefix", "queue_round")
+# the scenes whose call with the most rays of each queued entry's type is
+# picked into the patterns: Cornell's two caps and the split scene's
+# refractive rays, Cornell's and the 131 lamps' diffuse rays
+PATTERN_SCENES = {MAT_REFRACTIVE: ("cornell", "split"),
+                  MAT_DIFFUSE: ("cornell", "lamps")}
 
 
 def _typed_at(name, rng):
@@ -519,31 +535,39 @@ def _typed_at(name, rng):
 
 @pytest.fixture(scope="module")
 def patterns(bounces):
-    """{(scene, pattern): (call, the plain dispatch's output)}: the
-    refractive call with the most refractive rays of Cornell and of the
-    split scene, its rays picked into each pattern (`ws.pick_rays`: a
-    refractive ray where the pattern has one, another type's elsewhere,
-    each from the call's own rays of that kind)."""
+    """{(type, scene, pattern): (call, the plain dispatch's output)}: the
+    call of each queued entry's type with the most rays of that type in
+    each of its PATTERN_SCENES, its rays picked into each pattern
+    (`ws.pick_rays`: a ray of the type where the pattern has one, another
+    type's elsewhere, each from the call's own rays of that kind)."""
     import numpy as np
 
     out = {}
-    for scene in ("cornell", "split"):
-        call = max((c for c in bounces[scene] if c[0] == MAT_REFRACTIVE),
-                   key=lambda c: int(c[4].sum()))
-        m = call[4]
-        rng = np.random.default_rng(11)
-        typed, other = m.nonzero()[:, 0], (~m).nonzero()[:, 0]
-        for name in PATTERNS:
-            at = _typed_at(name, rng)
-            idx = torch.empty(at.shape[0], dtype=torch.int64)
-            k = int(at.sum())
-            idx[at] = typed[torch.from_numpy(rng.integers(0, typed.shape[0], k))]
-            idx[~at] = other[torch.from_numpy(
-                rng.integers(0, other.shape[0], at.shape[0] - k))]
-            picked = ws.pick_rays(call, idx)
-            assert torch.equal(picked[4], at)
-            out[scene, name] = picked, plain_out(picked)
+    for mt, scenes in PATTERN_SCENES.items():
+        for scene in scenes:
+            call = max((c for c in bounces[scene] if c[0] == mt),
+                       key=lambda c: int(c[4].sum()))
+            m = call[4]
+            rng = np.random.default_rng(11)
+            typed, other = m.nonzero()[:, 0], (~m).nonzero()[:, 0]
+            for name in PATTERNS:
+                at = _typed_at(name, rng)
+                idx = torch.empty(at.shape[0], dtype=torch.int64)
+                k = int(at.sum())
+                idx[at] = typed[torch.from_numpy(rng.integers(0, typed.shape[0], k))]
+                idx[~at] = other[torch.from_numpy(
+                    rng.integers(0, other.shape[0], at.shape[0] - k))]
+                picked = ws.pick_rays(call, idx)
+                assert torch.equal(picked[4], at)
+                out[mt, scene, name] = picked, plain_out(picked)
     return out
+
+
+def _pattern_holds(libs, patterns, mt, scene, pattern):
+    call, want = patterns[mt, scene, pattern]
+    before = ws._WRAPPER[mt].launches
+    assert field_differences(w4_out(call, libs["w4"]), want) == {}
+    assert ws._WRAPPER[mt].launches - before == 1
 
 
 @pytest.mark.parametrize("scene", ["cornell", "split"])
@@ -553,17 +577,107 @@ def test_refractive_queue_on_a_type_pattern(libs, patterns, scene, pattern):
     (none of the type, one ray, ~1.5% scattered, runs of ~14%, all of it,
     a count that is no multiple of a tile or a warp, fewer than 32 rays):
     every field of every ray as the plain dispatch's, in one launch."""
-    call, want = patterns[scene, pattern]
-    before = ws.shade_refractive.launches
-    assert field_differences(w4_out(call, libs["w4"]), want) == {}
-    assert ws.shade_refractive.launches - before == 1
+    _pattern_holds(libs, patterns, MAT_REFRACTIVE, scene, pattern)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "lamps"])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_diffuse_queue_on_a_type_pattern(libs, patterns, scene, pattern):
+    """The diffuse entry, which queues its rays through the same device
+    template, on Cornell's (two caps) and the 131 lamps' diffuse rays
+    picked into each type pattern: every field of every ray as the plain
+    dispatch's, in one launch."""
+    _pattern_holds(libs, patterns, MAT_DIFFUSE, scene, pattern)
+
+
+def _queue_mutant_caught(libs, patterns, mt, mutant):
+    return [key for key, (call, want) in patterns.items() if key[0] == mt
+            and field_differences(w4_out(call, libs[mutant]), want)]
 
 
 @pytest.mark.parametrize("mutant", QUEUE_MUTANTS)
 def test_a_queue_mutant_fails_on_the_patterns(libs, patterns, mutant):
-    caught = [key for key, (call, want) in patterns.items()
-              if field_differences(w4_out(call, libs[mutant]), want)]
-    assert caught, f"no pattern catches the mutant {mutant}"
+    caught = _queue_mutant_caught(libs, patterns, MAT_REFRACTIVE, mutant)
+    assert caught, f"no refractive pattern catches the mutant {mutant}"
+
+
+@pytest.mark.parametrize("mutant", QUEUE_MUTANTS)
+def test_a_queue_mutant_fails_on_the_diffuse_patterns(libs, patterns, mutant):
+    caught = _queue_mutant_caught(libs, patterns, MAT_DIFFUSE, mutant)
+    assert caught, f"no diffuse pattern catches the mutant {mutant}"
+
+
+# ---------------------------------------------------------------------------
+# the card's caps sum in registers, built without W4_TORCH_CPU
+# ---------------------------------------------------------------------------
+
+# the register sum's halving tree with its bit-reversed lane order off by one
+SUM_MUTANTS = {
+    "reg_sum_lanes": [("return lane_sum_reg<BX>(bit_reverse_c(LO, BX), K, term);",
+                       "return lane_sum_reg<BX>(bit_reverse_c((LO + 1) % BX, BX), K, "
+                       "term);")],
+}
+SUM_ROWS = (16, 37, 1000)
+
+
+@pytest.fixture(scope="module")
+def sum_libs(tmp_path_factory):
+    """{name: library}: W4 built with the card's arithmetic ("card", no
+    W4_TORCH_CPU) and each mutant of SUM_MUTANTS, for `ws.caps_sum`."""
+    gxx, d = _gxx(), tmp_path_factory.mktemp("w4sum")
+    flags = [f for f in GXX_FLAGS if f != "-DW4_TORCH_CPU"]
+    procs = {}
+    for name, edits in [("card", ())] + list(SUM_MUTANTS.items()):
+        src = d / f"{name}.cu"
+        src.write_text(_source(edits))
+        procs[name] = subprocess.Popen(
+            [gxx, *flags, "-I", str(CSRC / "emu"), "-x", "c++", str(src), "-o",
+             str(d / f"{name}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    out = {}
+    for name, p in procs.items():
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log.decode()[-3000:]
+        out[name] = ctypes.CDLL(str(d / f"{name}.so"))
+    return out
+
+
+def _sum_rows(n, K, seed):
+    """(n, K) float32 rows of mixed signs and magnitudes, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, K)) * 10.0 ** rng.uniform(-3, 3, (n, K))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _sum_bits_differ(lib, n, K):
+    x = _sum_rows(n, K, 1000 * n + K)
+    a = ws.caps_sum(x, lib=lib)
+    b = ws.caps_sum(x, wide=True, lib=lib)
+    return not torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", SUM_ROWS)
+def test_the_register_sum_equals_the_general_sum(sum_libs, n):
+    """The caps pdf's sum in registers (`reg_sum`, every plan below K =
+    128) against the general restatement of ATen's plan (`aten_sum`) on n
+    rows, bit for bit, for every K from 1 to 127."""
+    assert [K for K in range(1, 128) if _sum_bits_differ(sum_libs["card"], n, K)] == []
+
+
+def test_the_register_sum_refuses_a_wide_plan(sum_libs):
+    """From K = 128 torch's plan loads four values at a time: the register
+    sum refuses it, the general one takes it."""
+    x = _sum_rows(40, 128, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ws.caps_sum(x, lib=sum_libs["card"])
+    assert ws.caps_sum(x, wide=True, lib=sum_libs["card"]).shape == (40,)
+
+
+@pytest.mark.parametrize("mutant", list(SUM_MUTANTS))
+def test_a_sum_mutant_fails(sum_libs, mutant):
+    assert any(_sum_bits_differ(sum_libs[mutant], n, K)
+               for n in SUM_ROWS for K in range(2, 128)), mutant
 
 
 QUEUED_SASS = """
@@ -599,6 +713,40 @@ def test_queued_pass_counts_a_tile_and_a_round():
     with pytest.raises(ValueError):
         common.queued_pass(QUEUED_SASS.replace("@!P6 BRA 0x10", "@!P6 BRA 0x70"),
                            "shade_refractive_kernel")
+
+
+ROUND_LOOP_SASS = """
+        Function : _ZN2w420shade_diffuse_kernelENS_4RaysENS_7DiffuseENS_7SumPlanE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R2, R3, PT ;
+        /*0020*/               @P0 BRA 0x70 ;
+        /*0030*/                   LDG.E R4, [R5.64] ;
+        /*0040*/                   VOTE.ANY R6, PT, P1 ;
+        /*0050*/              @!P2 BRA 0x60 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   ISETP.GE.AND P3, PT, R7, 0x100, PT ;
+        /*0080*/              @!P3 BRA 0x100 ;
+        /*0090*/                   FMUL R10, R11, R12 ;
+        /*00a0*/                   FADD R10, R10, R12 ;
+        /*00b0*/               @P4 BRA 0x90 ;
+        /*00c0*/                   ISETP.GE.AND P5, PT, R8, R9, PT ;
+        /*00d0*/               @P5 BRA 0xf0 ;
+        /*00e0*/                   FMUL R13, R10, R12 ;
+        /*00f0*/               @P6 BRA 0x70 ;
+        /*0100*/              @!P6 BRA 0x10 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_queued_pass_counts_a_round_around_its_own_loops():
+    """The diffuse entry's shading round holds loops of its own (the caps
+    sum): `queued_pass` takes the widest loop inside the tile loop as the
+    round (0x70-0xf0, its sum loop counted once, the branch over 0xe0
+    taken: 9), not the innermost (0x90-0xb0), and the tile's queueing
+    pass as for the refractive entry (0x10-0x60 and 0x100: 7)."""
+    from raytracer_tpu_torch.probes import common
+
+    assert common.queued_pass(ROUND_LOOP_SASS, "shade_diffuse_kernel") == (7, 9)
 
 
 # ---------------------------------------------------------------------------
