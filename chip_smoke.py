@@ -5,9 +5,9 @@
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
 the record kernel, W1, the wavefront's triangle sweep, W2, its pair
-search, W3, its analytic sweep, and W4, its shading blocks, one nvcc per
-source, started together) from the checkout and drives both kernel paths
-and the wavefront:
+search, W3, its analytic sweep, W4, its shading blocks, and W5, its hit
+attributes, one nvcc per source, started together) from the checkout and
+drives both kernel paths and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
   renders the reference Cornell box at 400x400 x 256 spp through
@@ -105,7 +105,8 @@ and the wavefront:
   just before, read just after).  `python3 chip_smoke.py --w3` runs the
   build and this phase alone;
 - W4 (csrc/wavefront_shade.cu: the diffuse, refractive and glossy
-  blocks) in the driven wavefront renders: the 98-object grid at 400x300
+  blocks) and W5 (csrc/hit_attrs.cu: the hit attributes) in the driven
+  wavefront renders: the 98-object grid at 400x300
   x 64 spp, Cornell at 400x400 x 64 spp on the wavefront, the icosphere,
   the beach ball and the instance field at 400x300 x 16 spp, the
   normal-mapped scene at 400x300 x 16 spp, and one forward + backward
@@ -130,7 +131,28 @@ and the wavefront:
   bytes it moves there and its issue slots off its kernel's SASS
   (probes/common.py `shaded_pass` for the glossy entry, `queued_pass` for
   the queued ones), and the mean a call over that chunk's bounces.
-  `python3 chip_smoke.py --w4` runs the build and this phase alone;
+  F5: where torch.sum splits each row of the caps pdf across blocks (few
+  rays, 131,072 or more targets), the general caps sum against
+  torch.sum at five such shapes and the diffuse entry on 300 rays of
+  Cornell's first bounce with 150,000 caps and on 16 with 300,000
+  against the plain dispatch, bit for bit (16 x 300,000 and 2 x
+  2,200,000 split a row across more blocks than a warp has lanes, where
+  the order of the last block's trees shows).  W5 (csrc/hit_attrs.cu: the hit attributes) in the same
+  driven renders and the primitives example on the wavefront (planes,
+  discs, cylinders with uv): counts set to 0 just before each and read
+  just after (launched, required; the plain attribute formulas run on
+  the card only in a backward pass, required); every call of each
+  render's first chunk held against the plain stage as called, with uv
+  forced and as the first-hit pass, every field of every ray bit for bit
+  (a share of exactly 1.0); a line a bounce of Cornell on the
+  wavefront's first 4.16 M-ray chunk, W5 timed through a CUDA graph
+  beside the plain stage, its bytes, bound and share; its registers,
+  stack and blocks an SM; its asin against torch.asin on all 2^32 floats
+  and its atan2 against torch.atan2 on 2^26 random pairs and the special
+  values; the kernels line has a W5 row (bound by bytes) at that chunk's
+  first bounce with the mean a call over its bounces.
+  `python3 chip_smoke.py --w4` runs the build and this phase (W4's and
+  W5's) alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -401,6 +423,28 @@ W4 = {"launches": dict.fromkeys(W4_ENTRIES, 0),
       "plain_on_card": 0, "holding": False, "backward": 0}
 # the renders whose held bounces print a line each
 W4_PER_BOUNCE = ("Cornell on the wavefront", "icosphere")
+# F5: (rays, importance-sampled targets) where torch.sum splits each row
+# of the caps pdf across blocks on the H100 (the last two of F5_SUMS and
+# of F5_DIFFUSE across more blocks than a warp has lanes), for the caps
+# sum alone, and for the diffuse entry on that many of a Cornell bounce's
+# rays
+F5_SUMS = ((64, 200_000), (300, 150_000), (512, 131_072), (16, 300_000),
+           (2, 2_200_000))
+F5_DIFFUSE = ((300, 150_000), (16, 300_000))
+# W5 (csrc/hit_attrs.cu), the hit attributes: the CUDA-graph replays of
+# its timing; the render whose first chunk it is timed at, every bounce;
+# what the run gathers: launches in the driven wavefront renders (counts
+# set to 0 just before each, read just after), the largest difference of
+# its holds (0: bit-equal), each timed bounce's numbers, the calls
+# captured in the driven renders (every bounce of each render's first
+# chunk) and the plain formulas run on the card outside a hold or a
+# backward pass (none allowed); each call is held as called, with uv
+# forced and as the first-hit pass (force_uv, first_hit)
+W5_REPS = 5
+W5_TIMED = "Cornell on the wavefront"
+W5_MODES = ((False, False), (True, False), (True, True))
+W5 = {"launches": 0, "max_abs_err": 0.0, "timed": [], "captured": {},
+      "calls": {}, "plain_on_card": 0, "holding": False, "held": 0}
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -1880,11 +1924,15 @@ def w4_spies():
     outside `_Shade`'s backward (which recomputes the plain block for its
     gradient)."""
     from raytracer_tpu_torch.materials import shade
+    from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.ops import wavefront_shade as ws
 
     names = ("shade_diffuse", "shade_refractive", "shade_glossy")
     saved = ([(ws, n, getattr(ws, n)) for n in names]
              + [(shade, n, getattr(shade, n)) for n in names]
+             + [(ha, "attributes", ha.attributes),
+                (ha, "hit_attributes", ha.hit_attributes),
+                (ha._Attrs, "backward", ha._Attrs.__dict__["backward"])]
              + [(ws._Shade, "backward", ws._Shade.__dict__["backward"])])
 
     def spy(mt, real):
@@ -1916,11 +1964,39 @@ def w4_spies():
         finally:
             W4["holding"] = False
 
+    def w5_spy(real):
+        def call(*args, **kw):
+            lab = W4["label"]
+            if lab is not None and not kw:
+                got = W5["calls"].get(lab, 0)
+                if got < args[7].max_bounces:       # the render's first chunk
+                    W5["captured"][(lab, got)] = args
+                    W5["calls"][lab] = got + 1
+            return real(*args, **kw)
+        return call
+
+    def w5_counted(formulas):
+        def call(P, *args, **kw):
+            if P.device.type == "cuda" and not W5["holding"]:
+                W5["plain_on_card"] += 1
+            return formulas(P, *args, **kw)
+        return call
+
+    def w5_backward(fctx, *grads):
+        W5["holding"] = True
+        try:
+            return saved[-2][2].__func__(fctx, *grads)
+        finally:
+            W5["holding"] = False
+
     for mt, w in ws._WRAPPER.items():
         setattr(ws, w.__name__, spy(mt, w))
     for n in names:
         setattr(shade, n, counted(getattr(shade, n)))
     ws._Shade.backward = staticmethod(counted_backward)
+    ha.attributes = w5_spy(ha.attributes)
+    ha.hit_attributes = w5_counted(ha.hit_attributes)
+    ha._Attrs.backward = staticmethod(w5_backward)
     try:
         yield
     finally:
@@ -1938,10 +2014,13 @@ class w4_driven:
         self.label = label
 
     def __enter__(self):
+        from raytracer_tpu_torch.ops import hit_attrs as ha
         from raytracer_tpu_torch.ops import wavefront_shade as ws
-        self.ws, self.plain = ws, W4["plain_on_card"]
+        self.ws, self.ha, self.plain = ws, ha, W4["plain_on_card"]
+        self.w5_plain = W5["plain_on_card"]
         W4["label"] = self.label
         ws.reset_launches()
+        ha.reset_launches()
         return self
 
     def __exit__(self, *exc):
@@ -1951,6 +2030,9 @@ class w4_driven:
         for key, n in self.got.items():
             W4["launches"][key] += n
         self.plain_runs = W4["plain_on_card"] - self.plain
+        self.w5 = self.ha.launches()
+        W5["launches"] += self.w5
+        self.w5_plain_runs = W5["plain_on_card"] - self.w5_plain
         return False
 
 
@@ -2218,6 +2300,8 @@ def w4_hold(torch, label):
                                          ws.cuda_build.stream_of(ctx.P.device),
                                          entries=ws.ENTRIES), W4_REPS)[0]
 
+                if label == W5_TIMED and key == "shade_diffuse" and b == 0:
+                    f5_diffuse(torch, call)
                 ms = graph(call, got)
                 plain_ms = common.cuda_ms(
                     lambda: acc.merge(ws._plain(mt, ctx, draws, occ), m), 1)
@@ -2280,6 +2364,41 @@ def w4_hold(torch, label):
     return lines, text
 
 
+def f5_diffuse(torch, call):
+    """F5: the diffuse entry on each F5_DIFFUSE's rays of a captured
+    bounce with that many importance-sampled caps (tests/test_torch_
+    wavefront_shade_card.py `split_caps_call`), where torch.sum splits each
+    row of the caps pdf across blocks: every field of every ray bit for bit
+    with the plain dispatch (required), in two launches (the blocks' sums,
+    staged, then the shading); its time (events)."""
+    for n, K in F5_DIFFUSE:
+        f5_diffuse_case(torch, call, n, K)
+
+
+def f5_diffuse_case(torch, call, n, K):
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from raytracer_tpu_torch.probes import common
+    from test_torch_wavefront_shade_card import split_caps_call
+
+    fields = ws.FLOAT_FIELDS + ws.BOOL_FIELDS
+    mt, ctx, draws, packed, m, acc = split_caps_call(call, n, K)
+    want = acc.merge(ws._plain(mt, ctx, draws, None), m)
+    counted = ws._WRAPPER[mt]
+    before = counted.launches
+    run = lambda: ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
+        *(getattr(acc, f).clone() for f in fields)))
+    got = run()
+    launched = counted.launches - before
+    share = bits_share(torch, got, want, fields)[0]
+    require(share == 1.0 and launched == 2, f"F5: the diffuse entry on {n} rays "
+            f"with {K} caps: bit-equal share {share}, {launched} launches")
+    ms = common.cuda_ms(run, 2)
+    print(f"F5 diffuse entry on {n} rays ({int(m.sum())} diffuse) with {K} "
+          f"importance-sampled caps (each row's caps sum split across blocks): "
+          f"bit-equal 1.0, two launches (the blocks' sums, the shading), "
+          f"{ms:.3f} ms", flush=True)
+
+
 def w4_phase(torch, dev):
     """W4, the shading blocks, in the driven wavefront renders: the
     98-object grid at 400x300 x 64 spp, Cornell at 400x400 x 64 spp under
@@ -2300,6 +2419,7 @@ def w4_phase(torch, dev):
         w4_renders(torch, dev)
     w4_resources()
     w4_sum_hold(torch, dev)
+    w5_resources(torch, dev)
 
 
 def w4_resources():
@@ -2315,12 +2435,10 @@ def w4_resources():
     ptxas = [ln for ln in build_lines(cuda_build.build_logs.get(path, ""))
              if ln.startswith("shade_")]
     parts = []
-    for kernel in ws.KERNELS:
+    for kernel, (mt, variant) in ws.KERNEL_INFO.items():
         name = next(k for k in use if re.search(rf"\d{kernel}E", k))
         r = use[name]
-        mt = w4_type(next(k for k, (kn, _) in W4_ENTRIES.items()
-                          if kernel.replace("_wide", "") == kn))
-        inf = ws.info(mt, wide="_wide" in kernel)
+        inf = ws.info(mt, variant=variant)
         parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
                      f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM "
                      f"(bound {inf['min_blocks']})")
@@ -2350,6 +2468,22 @@ def w4_sum_hold(torch, dev):
                 f"W4 caps sum in registers at K = {K}: not torch.sum's bits")
     print(f"W4 caps sum in registers vs torch.sum ({W4_SUM_ROWS} rows; K = "
           f"{', '.join(map(str, W4_SUM_KS))}): bit-equal", flush=True)
+    # F5: rows that torch.sum splits across blocks
+    from torch_op_rounding import sum_plan
+    props = torch.cuda.get_device_properties(dev)
+    plans = []
+    for n, K in F5_SUMS:
+        plan = sum_plan(K, n, props.multi_processor_count,
+                        props.max_threads_per_multi_processor)
+        require(plan[3] > 1, f"F5: {n} x {K} is not split across blocks: {plan}")
+        x = torch.randn((n, K), generator=gen, device=dev) * torch.pow(
+            10.0, torch.rand((n, K), generator=gen, device=dev) * 6.0 - 3.0)
+        got, want = ws.caps_sum(x, wide=True), torch.sum(x, dim=-1)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"F5: the caps sum of {n} x {K} is not torch.sum's bits")
+        plans.append(f"{n} x {K} (blocks {plan[3]})")
+    print(f"F5 caps sum split across blocks vs torch.sum ({', '.join(plans)}): "
+          "bit-equal", flush=True)
     t0 = time.perf_counter()
     bad = ws.trig_mismatches(dev)
     require(bad == 0, f"W4's restated sinf / cosf differ from libdevice's at {bad} "
@@ -2364,6 +2498,7 @@ def w4_renders(torch, dev):
     import raytracer_tpu_torch as T
     import torch_features
     import torch_mesh
+    import torch_primitives
     import torch_wavefront
     from raytracer_tpu_torch.diff import differentiable_render, update_materials
     from raytracer_tpu_torch.ops import wavefront_shade as ws
@@ -2391,7 +2526,9 @@ def w4_renders(torch, dev):
                                                          obj_dir=obj_dir), MESH_SPP),
         ("normal-mapped", lambda: torch_features.normal_mapped(
             MESH_W, MESH_H, obj_dir=obj_dir), NMAP_SPP),
-        ("lamps", lambda: torch_wavefront.lamp_cluster(LAMPS, *LAMP_WH), MESH_SPP))
+        ("lamps", lambda: torch_wavefront.lamp_cluster(LAMPS, *LAMP_WH), MESH_SPP),
+        ("primitives on the wavefront", lambda: with_never(
+            torch_primitives.primitives(MESH_W, MESH_H)), MESH_SPP))
     for label, make, spp in renders:
         sc = make()
         static = sc._settings_for_render()[0]
@@ -2411,6 +2548,7 @@ def w4_renders(torch, dev):
         print(f"W4 vs plain, {label} ({wall:.4f} s, launches "
               f"{ {k[6:]: n for k, n in d.got.items() if n} }, no plain block): "
               + text, flush=True)
+        w5_check(torch, label, d)
         del sc, img
     # the inverse-rendering step: W4 forward through _Shade, the plain
     # block's backward
@@ -2432,8 +2570,173 @@ def w4_renders(torch, dev):
           f"{W4['backward'] - backward} backward recomputes, gradient "
           f"{g[0].tolist()}): " + w4_hold(torch, label)[1] +
           f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    w5_check(torch, label, d)
     require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
             "on the card")
+    require(W5["plain_on_card"] == 0, f"the plain attribute formulas ran "
+            f"{W5['plain_on_card']} times on the card")
+
+
+def w5_check(torch, label, d):
+    """The driven render `label` through W5: launched (one launch a bounce
+    of each chunk), the plain attribute formulas run nowhere on the card
+    outside a backward pass, its captured calls held (`w5_hold`); prints
+    its line, and a line a bounce for W5_TIMED."""
+    require(d.w5 > 0 and d.w5_plain_runs == 0,
+            f"W5 {label}: {d.w5} launches, the plain formulas ran "
+            f"{d.w5_plain_runs} times on the card")
+    lines, text = w5_hold(torch, label)
+    if label == W5_TIMED:
+        print("\n".join(lines), flush=True)
+    print(f"W5 vs plain, {label} ({d.w5} launches, no plain formula): {text}",
+          flush=True)
+
+
+def w5_bytes(args, oriented):
+    """The bytes W5 moves on a call, each input read once and each output
+    written once: a ray's O, D, t, obj (and its orientation where W5
+    multiplies by it) and its P, N, uv, eps, miss, the word, its three int
+    fields and its medium-change bit; the tables it reads (the scene's
+    struct), once."""
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+
+    n = args[2].shape[0]
+    _, keep = ha.scene_struct(args[5], args[6])
+    table, tri, corners, inst, packed = keep
+    tabs = [table, packed, *tri.values(), *corners.values(), *inst.values()]
+    per = 12 + 12 + 4 + 8 + (4 if oriented else 0) + 12 + 12 + 8 + 4 + 1 + 4 + 12 + 1
+    return n * per + sum(x.numel() * x.element_size() for x in tabs)
+
+
+def w5_hold(torch, label):
+    """W5 against the plain stage on the calls captured in the render
+    `label` (every bounce of its first chunk), each as called, with uv
+    forced and as the first-hit pass (W5_MODES): every field of every ray
+    bit for bit (floats by their bits, or both NaN; a share of exactly
+    1.0, required).  In W5_TIMED each bounce as called is timed through a
+    CUDA graph (W5 alone) beside the plain stage (events), with its bytes,
+    bound and share.  Frees the captures.  Returns (a line a timed bounce,
+    the text of a line)."""
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.probes import common
+
+    fields = ha.FLOAT_FIELDS + ha.OTHER_FIELDS
+    lines, held, ms_all = [], 0, []
+    for key in sorted(k for k in W5["captured"] if k[0] == label):
+        args = W5["captured"].pop(key)
+        b = key[1]
+        W5["holding"] = True
+        try:
+            with torch.no_grad():
+                for force_uv, first_hit in W5_MODES:
+                    got = ha._kernel_attributes(*args, force_uv=force_uv,
+                                                first_hit=first_hit)
+                    want = ha.plain_attributes(*args, force_uv=force_uv,
+                                               first_hit=first_hit)
+                    share, err = bits_share(torch, got, want, fields)
+                    W5["max_abs_err"] = max(W5["max_abs_err"], err)
+                    require(share == 1.0, f"W5 on the {label} bounce {b} (force_uv "
+                            f"{force_uv}, first_hit {first_hit}): bit-equal share "
+                            f"{share}")
+                    del got, want
+                held += 1
+                if label != W5_TIMED:
+                    continue
+                modes = ha._modes(args[6], args[7], False, False)
+                ms = common.graph_ms(lambda: ha._launch(*args[:7], *modes, False),
+                                     W5_REPS)[0]
+                plain_ms = common.cuda_ms(lambda: ha.plain_attributes(*args), 1)
+        finally:
+            W5["holding"] = False
+        if label != W5_TIMED:
+            continue
+        n = args[2].shape[0]
+        n_bytes = w5_bytes(args, modes[2])
+        bound_ms = common.bound(0, n_bytes)[0]
+        W5["timed"].append(dict(name=f"{label} bounce {b}", rays=n, ms=ms,
+                                plain_ms=plain_ms, bytes=n_bytes))
+        ms_all.append(ms)
+        lines.append(f"W5 {label} bounce {b}: {n} rays, bit-equal 1.0 in "
+                     f"{len(W5_MODES)} modes, W5 {ms:.4f} ms (CUDA graph), bound "
+                     f"{bound_ms:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB), share "
+                     f"{bound_ms / ms:.4f}, plain {plain_ms:.2f} ms")
+    W5["held"] += held
+    torch.cuda.empty_cache()
+    text = f"{held} bounces held in {len(W5_MODES)} modes, bit-equal 1.0"
+    if ms_all:
+        text += (f"; W5 {sum(ms_all) / len(ms_all):.4f} ms a call over the "
+                 f"{len(ms_all)} bounces")
+    return lines, text
+
+
+def w5_resources(torch, dev):
+    """Prints the registers, stack, local memory and resident blocks an SM
+    of W5's kernel (`cuobjdump -res-usage`, `ha.info`); then holds W5's
+    asin against torch.asin on all 2^32 floats and its atan2 against
+    torch.atan2 on 2^26 pairs of random bit patterns and every pair of
+    special values (none differing, required)."""
+    from raytracer_tpu_torch.ops import cuda_build
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+
+    use = resource_usage(cuda_build.build("kernels"))
+    r = use[next(k for k in use if "hit_attrs_kernel" in k)]
+    inf = ha.info()
+    print(f"W5 kernel: hit_attrs_kernel {r['REG']} registers, stack {r['STACK']} B, "
+          f"local {r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
+          f"{inf['block']} threads, {inf['sms']} SMs", flush=True)
+
+    def differ(a, b):
+        return int((~((a.view(torch.int32) == b.view(torch.int32))
+                      | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+    t0 = time.perf_counter()
+    bad = 0
+    for lo in range(0, 1 << 32, 1 << 28):
+        x = (torch.arange(lo, lo + (1 << 28), device=dev, dtype=torch.int64)
+             .to(torch.int32).view(torch.float32))
+        bad += differ(ha.math("asin", x), torch.asin(x))
+        del x
+    gen = torch.Generator(device=dev).manual_seed(11)
+    r = lambda: torch.randint(-(1 << 31), 1 << 31, (1 << 26,), device=dev,
+                              generator=gen, dtype=torch.int64).to(torch.int32) \
+        .view(torch.float32)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                            1e-45, -1e-45, 1e-39, -1e-39, 1.1754942e-38, 1.0,
+                            -1.0, 0.5, -3.0, 1e30, -1e-30], device=dev)
+    sy, sx = torch.meshgrid(special, special, indexing="ij")
+    y, x = r(), r()
+    bad_a = differ(ha.math("atan2", y, x), torch.atan2(y, x))
+    bad_s = differ(ha.math("atan2", sy.flatten(), sx.flatten()),
+                   torch.atan2(sy.flatten(), sx.flatten()))
+    print(f"W5 asin vs torch.asin on all 2^32 floats: {bad} differ; atan2 vs "
+          f"torch.atan2 on 2^26 random pairs: {bad_a} differ, on "
+          f"{sy.numel()} special pairs: {bad_s} differ "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    require(bad == 0 and bad_a == 0 and bad_s == 0,
+            "W5's asin or atan2 differs from torch's")
+
+
+def w5_row(torch):
+    """W5's row of the kernels line, at the timed render's first bounce (its
+    most rays): its bound from the bytes it moves there (`w5_bytes`), and
+    beside its time the mean a call over that chunk's bounces
+    (`chunk_mean_ms`); a line with it."""
+    from raytracer_tpu_torch.probes import common
+
+    require(W5["timed"], "W5 was never timed")
+    require(W5["launches"] > 0, "W5 never launched in the driven renders")
+    tm = W5["timed"][0]
+    row = common.row("hit_attrs (W5)", "hit_attrs.cu",
+                     "raytracer_tpu/geometry/attrs.py:245", W5["launches"],
+                     W5["max_abs_err"], tm["ms"], tm["plain_ms"], 0, tm["bytes"])
+    row["chunk_mean_ms"] = sum(t["ms"] for t in W5["timed"]) / len(W5["timed"])
+    print(f"W5 bound at the {tm['name']} ({tm['rays']} rays, {tm['bytes']} bytes): "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), W5 {tm['ms']:.4f} ms, share "
+          f"{row['bound_ms'] / tm['ms']:.4f}, mean {row['chunk_mean_ms']:.4f} ms a "
+          f"call over the {len(W5['timed'])} bounces of its chunk, plain "
+          f"{tm['plain_ms']:.2f} ms | {W5['launches']} launches in the driven "
+          f"renders, {W5['held']} calls held", flush=True)
+    return row
 
 
 def w4_rows(torch):
@@ -3704,6 +4007,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "examples"))
     sys.path.insert(0, str(ROOT / "scripts"))
+    sys.path.insert(0, str(ROOT / "tests"))
     from raytracer_tpu_torch.core.scene import plan_chunks
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import solid_trace as st
@@ -3727,9 +4031,11 @@ def main():
           flush=True)
 
     if "--w4" in sys.argv[1:]:
-        # W4's phase alone (after the build), for working on it
+        # the phase of W4 and W5 alone (after the build), for working on
+        # them
         w4_phase(torch, dev)
-        print(json.dumps({"kernels": w4_rows(torch)}, default=float))
+        print(json.dumps({"kernels": [*w4_rows(torch), w5_row(torch)]},
+                         default=float))
         return 0
 
     if "--diff-mesh" in sys.argv[1:]:
@@ -4008,8 +4314,8 @@ def main():
               f"| {launches} launches in the driven renders", flush=True)
         require(launches > 0, f"W3 {key} never launched in the driven renders")
     print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
-                                  *w3_rows, *w4_rows(torch)] + probe_rows},
-                     default=float))
+                                  *w3_rows, *w4_rows(torch), w5_row(torch)]
+                      + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

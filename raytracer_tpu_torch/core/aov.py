@@ -22,10 +22,9 @@ import torch
 from ..geometry.intersect import occluded
 from ..materials import shade
 from ..materials.base import (MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV, MAT_GLOSSY)
-from ..utils.constants import FARAWAY, MISS_THRESHOLD, NUDGE_EPS
+from ..utils.constants import FARAWAY, MISS_THRESHOLD
 from . import rng as rng_mod
 from .camera import generate_rays
-from .compile import PACKED_SLOT_SHIFT
 from .ray import _first_hit_impl, resolve_device
 
 
@@ -62,15 +61,12 @@ def _aov_planes(O, D, data, static, spp, n_pix):
     """The feature sums of one chunk of rays in [sample, pixel] order
     (aov.py:70-108): per pixel the sums over the chunk's spp samples, and
     the object id of its first sample."""
-    t, orient, P, N_geo, uv, obj = _first_hit_impl(O, D, data, static)
+    t, orient, obj, a = _first_hit_impl(O, D, data, static)
     hit = t < MISS_THRESHOLD
     h1 = hit[..., None]
-    n_obj = data.obj.packed.shape[0]
-    packed = data.obj.packed.index_select(0, torch.clamp(obj, 0, n_obj - 1))
-    mat_type = packed & 0x7
-    mat_slot = (packed >> PACKED_SLOT_SHIFT) & 0x3FF
-    N_out = torch.where(h1, N_geo * orient[..., None], 0.0)
-    alb = torch.where(h1, _albedo_at_hit(mat_type, mat_slot, uv, data,
+    mat_type = a.mat_type
+    N_out = torch.where(h1, a.N * orient[..., None], 0.0)
+    alb = torch.where(h1, _albedo_at_hit(mat_type, a.mat_slot, a.uv, data,
                                          static), 0.0)
     # emission sources: exact radiance, which the denoiser leaves alone
     is_src = (mat_type == MAT_EMISSIVE) | (mat_type == MAT_ENV)
@@ -81,7 +77,7 @@ def _aov_planes(O, D, data, static, spp, n_pix):
         albedo=sum_pix(alb),
         coverage=sum_pix(hit.to(torch.float32)),
         obj_id=torch.where(hit, obj, -1)[:n_pix],
-        position=sum_pix(torch.where(h1, P, 0.0)),
+        position=sum_pix(torch.where(h1, a.P, 0.0)),
         emissive=sum_pix((is_src & hit).to(torch.float32)),
     )
 
@@ -91,11 +87,10 @@ def _ao_plane(O, D, data, static, generator, spp, n_pix, ao_samples,
     """Per pixel, the sum over samples of the fraction of `ao_samples`
     cosine-weighted directions at the first hit that no shadow-casting
     object blocks within ao_dist (aov.py:111); misses count 1."""
-    t, orient, P, N_geo, uv, obj = _first_hit_impl(O, D, data, static)
+    t, orient, obj, a = _first_hit_impl(O, D, data, static)
     hit = t < MISS_THRESHOLD
-    N = N_geo * orient[..., None]
-    eps = NUDGE_EPS * torch.clamp_min(torch.amax(torch.abs(P), dim=-1), 1.0)
-    nudged = P + N * eps[..., None]
+    N = a.N * orient[..., None]
+    nudged = a.P + N * a.eps[..., None]
     md = torch.full((O.shape[0],), float(ao_dist), dtype=torch.float32,
                     device=O.device)
     occ_sum = torch.zeros((O.shape[0],), dtype=torch.float32, device=O.device)

@@ -16,8 +16,11 @@ full-width draws in the same order every bounce whatever the rays hit
 (`_draw`), so one seed gives one image.  Each stage of a bounce runs
 under a torch.profiler range, "wavefront.nearest_hit", ".attributes",
 ".draws", ".shade.<type>" and ".update", which a profiled render reports
-per stage (scripts/torch_render_profile.py).  Normal maps perturb the
-shading normal before the blocks (`_apply_normal_maps`, :120); a
+per stage (scripts/torch_render_profile.py).  The attributes (the hit
+point, the shading normal, uv, the material word and the nudge) come from
+ops/hit_attrs.py `attributes` (W5 on the card); normal maps perturb the
+shading normal before the blocks (ops/hit_attrs.py
+`_apply_normal_maps`, :120); a
 CustomMaterial's `shade` runs as one more block per slot, drawing from
 the chunk's generator (ShadeCtx.generator) after the built-in draws.
 `trace_distances` is the depth AOV (:347).
@@ -31,16 +34,13 @@ from typing import Any
 import torch
 from torch.profiler import record_function
 
-from ..geometry.attrs import hit_attributes
 from ..geometry.intersect import nearest_hit
 from ..materials import shade
 from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
-from ..ops import wavefront_shade
-from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS, WAVELENGTHS_NM
-from .compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
-                      PACKED_SLOT_SHIFT)
-from .safemath import div, safe_norm, take
+from ..ops import hit_attrs, wavefront_shade
+from ..utils.constants import NUDGE_EPS, WAVELENGTHS_NM
+from .safemath import div
 
 USE_PALLAS = ("auto", "always", "never")
 
@@ -115,84 +115,6 @@ class ShadeCtx:
     strat_u: Any = None
     wavelengths: Any = WAVELENGTHS_NM
     generator: Any = None
-
-
-def _cross(a, b):
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
-
-
-def _take(table, idx):
-    """table[idx] with idx clamped into the table (jnp.take mode=clip),
-    with a reproducible gradient (safemath.take)."""
-    return take(
-        table, torch.clamp(idx, 0, max(table.shape[0] - 1, 0)).reshape(-1).long()
-    ).reshape(idx.shape + table.shape[1:])
-
-
-def _unit(v):
-    return v / torch.clamp_min(safe_norm(v, keepdim=True), 1e-20)
-
-
-def _apply_normal_maps(N_geo, P, uv, obj_id, data, static):
-    """Tangent-space normal mapping (integrator.py:120, sightpy
-    material.py:18-36): per normal-mapped object, fetch the map at uv,
-    decode to [-1, 1], rotate by the object's (u, v, n) frame and
-    renormalise.  Spheres take the frame of their uv parameterisation at
-    each hit; mesh faces their compile-time uv tangent, carried into
-    world space under MeshInstances and made orthonormal against the
-    (interpolated) normal; planes and boxes their axes."""
-    if not static.normal_maps:
-        return N_geo
-    N = N_geo
-    tri_off = sum(static.kind_counts[k] for k in KINDS if k != "tri")
-    geom = data.geom
-    for ref in static.normal_maps:
-        m = shade.fetch_texture(data.textures[ref.tex], uv, ref.repeat,
-                                ref.bilinear) - 0.5
-        if ref.basis_kind == "sphere":
-            # T = dP/du (longitude), B = dP/dv = T x N; N_geo is the
-            # sphere's normal on the rays this ref keeps
-            s = torch.sqrt(torch.clamp_min(
-                N_geo[..., 0] ** 2 + N_geo[..., 2] ** 2, 1e-12))
-            T = torch.stack([-N_geo[..., 2] / s, torch.zeros_like(s),
-                             N_geo[..., 0] / s], dim=-1)
-            B = _cross(T, N_geo)
-            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
-                              + m[..., 2:3] * N_geo))
-            N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
-            continue
-        if ref.basis_kind == "tri":
-            row = obj_id - tri_off
-            R_i = None
-            if geom.tri_virt_row.shape[0]:
-                virt = torch.clamp(row, 0, geom.tri_virt_row.shape[0] - 1)
-                row = _take(geom.tri_virt_row, virt)
-                R_i = _take(geom.inst_rot, _take(geom.tri_virt_inst, virt))
-            else:
-                row = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
-            mask = (obj_id >= tri_off) & (_take(geom.tri_nm_slot, row)
-                                          == ref.local_id)
-            T = _take(geom.tri_tan, row)
-            if R_i is not None:
-                T = (R_i * T[..., None, :]).sum(-1)
-            T = _unit(T - N_geo * (T * N_geo).sum(-1, keepdim=True))
-            B = _take(geom.tri_tan_sign, row)[..., None] * _cross(N_geo, T)
-            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
-                              + m[..., 2:3] * N_geo))
-            N = torch.where(mask[..., None], Nm, N)
-            continue
-        if ref.basis_kind == "plane":
-            i = ref.local_id
-            # columns u, v, n
-            basis = torch.stack([geom.plane_u_axis[i], geom.plane_v_axis[i],
-                                 geom.plane_normal[i]], dim=-1)
-        else:   # box: the inverse basis' columns are the box's axes
-            basis = geom.box_basis[ref.local_id].T
-        Nm = _unit((m * 2.0) @ basis.T)
-        N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
-    return N
 
 
 def _draw(generator, static, n):
@@ -297,27 +219,16 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
     O, D = origin, direction
     n_re, n_im = n_re.expand(n, 3), n_im.expand(n, 3)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    packed_t = data.obj.packed
-    n_obj = packed_t.shape[0]
 
     for bounce in range(settings.max_bounces):
         with record_function("wavefront.nearest_hit"):
             t, orient, obj = nearest_hit(O, D, data.geom)
         with record_function("wavefront.attributes"):
-            miss = t >= MISS_THRESHOLD
-            P = O + D * t[..., None]
-            N_geo, uv = hit_attributes(P, obj, data.geom, static)
-            N_shad = _apply_normal_maps(N_geo, P, uv, obj, data, static)
-            N_shad = N_shad * orient[..., None]
-            packed = packed_t.index_select(0, torch.clamp(obj, 0, n_obj - 1))
-            mat_type = packed & 0x7
-            mat_slot = (packed >> PACKED_SLOT_SHIFT) & 0x3FF
-            obj_max_depth = (packed >> PACKED_DEPTH_SHIFT) & 0x3FF
-            obj_mc = ((packed >> PACKED_MC_SHIFT) & 1).to(torch.bool)
-            # the scale-aware nudge: an absolute 1e-6 vanishes in float32
-            # at Cornell-box coordinates
-            eps = settings.nudge_eps * torch.clamp_min(
-                torch.amax(torch.abs(P), dim=-1), 1.0)
+            # W5 on the card: one launch (ops/hit_attrs.py)
+            a = hit_attrs.attributes(O, D, t, orient, obj, data, static, settings)
+            P, N_shad, uv, miss, eps, packed = a.P, a.N, a.uv, a.miss, a.eps, a.packed
+            mat_type, mat_slot = a.mat_type, a.mat_slot
+            obj_max_depth, obj_mc = a.obj_max_depth, a.obj_mc
         with record_function("wavefront.draws"):
             draws = _draw(generator, static, n)
         # W4 writes its blocks' rays into the merged output in place

@@ -14,8 +14,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.constants import MISS_THRESHOLD
-
 
 def resolve_device(device, what="this call"):
     """torch.device of `device`; None means the CUDA device.  A CUDA
@@ -147,21 +145,20 @@ def first_hit(ray: Ray, scene, device=None) -> Hit:
     device = resolve_device(device, "first_hit")
     static, data = _compile(scene, device)
     O, D = _f32(ray.origin, device), _f32(ray.dir, device)
-    t, orient, P, N_geo, uv, obj = _first_hit_impl(O, D, data, static)
-    return Hit(distance=t, orientation=orient, point=P, normal=N_geo, uv=uv,
+    t, orient, obj, a = _first_hit_impl(O, D, data, static)
+    return Hit(distance=t, orientation=orient, point=a.P, normal=a.N, uv=a.uv,
                obj_id=obj.to(torch.int32))
 
 
 def _first_hit_impl(O, D, data, static):
-    """(t, orient, P, N_geo, uv, obj) of the nearest hits, point, normal
-    and uv zero on a miss (raytracer_tpu/core/ray.py:136); the AOV pass
-    shares it."""
-    from ..geometry.attrs import hit_attributes
+    """(t, orient, obj, attrs) of the nearest hits, attrs the first-hit
+    pass's ops/hit_attrs.py Attrs (W5 on the card): the point, the
+    geometric normal and uv, zero on a miss (raytracer_tpu/core/ray.py:136),
+    with the material word's fields and the nudge, which the AOV pass
+    reads."""
     from ..geometry.intersect import nearest_hit
+    from ..ops import hit_attrs
 
     t, orient, obj = nearest_hit(O, D, data.geom)
-    miss = (t >= MISS_THRESHOLD)[..., None]
-    P = torch.where(miss, 0.0, O + D * t[..., None])
-    N_geo, uv = hit_attributes(P, obj, data.geom, static, force_uv=True)
-    return (t, orient, P, torch.where(miss, 0.0, N_geo),
-            torch.where(miss, 0.0, uv), obj)
+    return t, orient, obj, hit_attrs.attributes(O, D, t, orient, obj, data, static,
+                                                force_uv=True, first_hit=True)

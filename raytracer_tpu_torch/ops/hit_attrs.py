@@ -1,0 +1,522 @@
+"""W5: the wavefront's hit attributes (csrc/hit_attrs.cu).
+
+`core/integrator.py` `trace` takes each bounce's attributes from
+`attributes` here: the hit point, the shading normal, uv, whether the ray
+missed, the packed material word and its four fields, and the nudge
+offset of its continuation.  `core/ray.py`'s first-hit pass, which the
+AOV planes share, takes them from it too (the point, the geometric normal
+and uv zero on a miss).  On CUDA tensors it
+launches W5, one launch a bounce (a failed build or launch raises;
+nothing falls back); on CPU tensors it runs W5's plain version,
+`plain_attributes`: geometry/attrs.py `hit_attributes` (every present
+kind's formula over every ray, merged by torch.where), the normal maps,
+the orientation, the word's decode and the nudge, which W5 equals bit for
+bit.  `attributes.launches` counts the kernels it launched.
+
+W5 computes each ray's own kind alone.  It reads the analytic objects as
+one (objects, 16) float32 table in object-id order (`attr_table`, each
+kind's parameters copied, made once per geometry and kept on it by
+`mesh_sweep.kept`), and the triangle, corner, instance and packed tables
+by pointer (`scene_struct`, kept likewise).  Normal maps stay plain
+torch: where the scene has them, W5 writes the geometric normal, and the
+plain `_apply_normal_maps` and the orientation follow, in the plain
+stage's order.  Where autograd records the stage (grad enabled and an
+input requiring grad), the kernel runs inside `_Attrs`, whose backward
+recomputes the plain stage on the chunk for its vector-Jacobian product.
+
+The `_launch` function takes `lib=`: the tests pass the CPU stand-in's
+build of the source (csrc/emu) with CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from ..core.compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
+                            PACKED_SLOT_SHIFT)
+from ..core.safemath import safe_norm, take
+from ..geometry.attrs import hit_attributes
+from ..materials import shade
+from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS
+from . import cuda_build
+from .analytic_sweep import _rows
+from .mesh_sweep import _call, kept
+
+_V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# W5's kernel by name, as a profile lists it
+KERNELS = ("hit_attrs_kernel",)
+ROW = 16                  # floats an analytic object takes in W5's table
+
+
+class Scene(ctypes.Structure):
+    _fields_ = [("rows", _V), ("counts", _L * len(KINDS)), ("tri_p1", _V),
+                ("tri_p2", _V), ("tri_p3", _V), ("tri_normal", _V), ("vn1", _V),
+                ("vn2", _V), ("vn3", _V), ("uv1", _V), ("uv2", _V), ("uv3", _V),
+                ("virt_row", _V), ("virt_inst", _V), ("inst_rot", _V),
+                ("inst_trans", _V), ("inst_inv_scale", _V), ("packed", _V),
+                ("n_obj", _L)]
+
+
+class Rays(ctypes.Structure):
+    _fields_ = [("O", _V), ("D", _V), ("t", _V), ("orient", _V), ("obj", _V),
+                ("n", _L), ("need_uv", _I), ("oriented", _I), ("first_hit", _I),
+                ("nudge", _F), ("miss_at", _F), ("P", _V), ("N", _V), ("uv", _V),
+                ("eps", _V), ("miss", _V), ("mc", _V), ("packed", _V),
+                ("mat_type", _V), ("mat_slot", _V), ("max_depth", _V)]
+
+
+ENTRIES = {
+    "hit_attrs": [ctypes.POINTER(Scene), ctypes.POINTER(Rays), _V,
+                  ctypes.POINTER(_I)],
+    "hit_attrs_math": [_I, _V, _V, _L, _V, _V, ctypes.POINTER(_I)],
+}
+# the float32 of MISS_THRESHOLD, as `t >= MISS_THRESHOLD` compares
+MISS_AT = float(torch.tensor(MISS_THRESHOLD, dtype=torch.float32))
+
+
+@dataclass
+class Attrs:
+    """A bounce's attributes, each (N, ...) on the rays' device.  N is the
+    shading normal (normal-mapped where the scene maps normals, times the
+    orientation), or, from the first-hit pass, the geometric normal."""
+    P: Any            # (N, 3) float32 hit points
+    N: Any            # (N, 3) float32
+    uv: Any           # (N, 2) float32, zero unless sampled or forced
+    miss: Any         # (N,) bool
+    mat_type: Any     # (N,) int32
+    mat_slot: Any     # (N,) int32
+    obj_max_depth: Any   # (N,) int32
+    obj_mc: Any       # (N,) bool
+    eps: Any          # (N,) float32 nudge offsets
+    packed: Any       # (N,) int32 material words
+
+
+FLOAT_FIELDS = ("P", "N", "uv", "eps")
+OTHER_FIELDS = ("miss", "packed", "mat_type", "mat_slot", "obj_max_depth",
+                "obj_mc")
+
+
+# ---------------------------------------------------------------------------
+# the plain version (the stage as core/integrator.py ran it, op by op)
+# ---------------------------------------------------------------------------
+
+
+def _cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _take(table, idx):
+    """table[idx] with idx clamped into the table (jnp.take mode=clip),
+    with a reproducible gradient (safemath.take)."""
+    return take(
+        table, torch.clamp(idx, 0, max(table.shape[0] - 1, 0)).reshape(-1).long()
+    ).reshape(idx.shape + table.shape[1:])
+
+
+def _unit(v):
+    return v / torch.clamp_min(safe_norm(v, keepdim=True), 1e-20)
+
+
+def _apply_normal_maps(N_geo, P, uv, obj_id, data, static):
+    """Tangent-space normal mapping (integrator.py:120, sightpy
+    material.py:18-36): per normal-mapped object, fetch the map at uv,
+    decode to [-1, 1], rotate by the object's (u, v, n) frame and
+    renormalise.  Spheres take the frame of their uv parameterisation at
+    each hit; mesh faces their compile-time uv tangent, carried into
+    world space under MeshInstances and made orthonormal against the
+    (interpolated) normal; planes and boxes their axes."""
+    if not static.normal_maps:
+        return N_geo
+    N = N_geo
+    tri_off = sum(static.kind_counts[k] for k in KINDS if k != "tri")
+    geom = data.geom
+    for ref in static.normal_maps:
+        m = shade.fetch_texture(data.textures[ref.tex], uv, ref.repeat,
+                                ref.bilinear) - 0.5
+        if ref.basis_kind == "sphere":
+            # T = dP/du (longitude), B = dP/dv = T x N; N_geo is the
+            # sphere's normal on the rays this ref keeps
+            s = torch.sqrt(torch.clamp_min(
+                N_geo[..., 0] ** 2 + N_geo[..., 2] ** 2, 1e-12))
+            T = torch.stack([-N_geo[..., 2] / s, torch.zeros_like(s),
+                             N_geo[..., 0] / s], dim=-1)
+            B = _cross(T, N_geo)
+            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
+                              + m[..., 2:3] * N_geo))
+            N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
+            continue
+        if ref.basis_kind == "tri":
+            row = obj_id - tri_off
+            R_i = None
+            if geom.tri_virt_row.shape[0]:
+                virt = torch.clamp(row, 0, geom.tri_virt_row.shape[0] - 1)
+                row = _take(geom.tri_virt_row, virt)
+                R_i = _take(geom.inst_rot, _take(geom.tri_virt_inst, virt))
+            else:
+                row = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
+            mask = (obj_id >= tri_off) & (_take(geom.tri_nm_slot, row)
+                                          == ref.local_id)
+            T = _take(geom.tri_tan, row)
+            if R_i is not None:
+                T = (R_i * T[..., None, :]).sum(-1)
+            T = _unit(T - N_geo * (T * N_geo).sum(-1, keepdim=True))
+            B = _take(geom.tri_tan_sign, row)[..., None] * _cross(N_geo, T)
+            Nm = _unit(2.0 * (m[..., 0:1] * T + m[..., 1:2] * B
+                              + m[..., 2:3] * N_geo))
+            N = torch.where(mask[..., None], Nm, N)
+            continue
+        if ref.basis_kind == "plane":
+            i = ref.local_id
+            # columns u, v, n
+            basis = torch.stack([geom.plane_u_axis[i], geom.plane_v_axis[i],
+                                 geom.plane_normal[i]], dim=-1)
+        else:   # box: the inverse basis' columns are the box's axes
+            basis = geom.box_basis[ref.local_id].T
+        Nm = _unit((m * 2.0) @ basis.T)
+        N = torch.where((obj_id == ref.obj)[..., None], Nm, N)
+    return N
+
+
+def _modes(static, settings, force_uv, first_hit):
+    """(nudge_eps, need_uv, oriented) of a call: W5 multiplies by the
+    orientation itself unless the normals are mapped after it (or this is
+    the first-hit pass, whose normal is the geometric one)."""
+    nudge = settings.nudge_eps if settings is not None else NUDGE_EPS
+    return (nudge, bool(static.needs_uv or force_uv),
+            not first_hit and not static.normal_maps)
+
+
+def _plain_core(O, D, t, orient, obj, geom, static, nudge, need_uv, oriented,
+                first_hit):
+    """(P, N, uv, eps) as W5 writes them: the hit point, the geometric
+    normal (times the orientation where `oriented`), uv (the three zero on
+    a miss in the first-hit pass) and the nudge."""
+    P = O + D * t[..., None]
+    if first_hit:
+        miss = (t >= MISS_THRESHOLD)[..., None]
+        P = torch.where(miss, 0.0, P)
+    N, uv = hit_attributes(P, obj, geom, static, force_uv=need_uv)
+    if first_hit:
+        N, uv = torch.where(miss, 0.0, N), torch.where(miss, 0.0, uv)
+    if oriented:
+        N = N * orient[..., None]
+    # the scale-aware nudge: an absolute 1e-6 vanishes in float32 at
+    # Cornell-box coordinates
+    eps = nudge * torch.clamp_min(torch.amax(torch.abs(P), dim=-1), 1.0)
+    return P, N, uv, eps
+
+
+def _decode(t, obj, data):
+    """(miss, packed, mat_type, mat_slot, obj_max_depth, obj_mc)."""
+    packed_t = data.obj.packed
+    packed = packed_t.index_select(0, torch.clamp(obj, 0, packed_t.shape[0] - 1))
+    return (t >= MISS_THRESHOLD, packed, packed & 0x7,
+            (packed >> PACKED_SLOT_SHIFT) & 0x3FF,
+            (packed >> PACKED_DEPTH_SHIFT) & 0x3FF,
+            ((packed >> PACKED_MC_SHIFT) & 1).to(torch.bool))
+
+
+def _mapped(N_geo, P, uv, orient, obj, data, static):
+    """The shading normal of a normal-mapped scene: the maps, then the
+    orientation."""
+    return _apply_normal_maps(N_geo, P, uv, obj, data, static) * orient[..., None]
+
+
+def plain_attributes(O, D, t, orient, obj, data, static, settings=None,
+                     force_uv=False, first_hit=False):
+    """W5's plain version: the attribute stage in plain torch (see
+    `attributes`)."""
+    nudge, need_uv, oriented = _modes(static, settings, force_uv, first_hit)
+    P, N, uv, eps = _plain_core(O, D, t, orient, obj, data.geom, static, nudge,
+                                need_uv, oriented, first_hit)
+    if not first_hit and static.normal_maps:
+        N = _mapped(N, P, uv, orient, obj, data, static)
+    miss, packed, mat_type, mat_slot, depth, mc = _decode(t, obj, data)
+    return Attrs(P=P, N=N, uv=uv, miss=miss, mat_type=mat_type, mat_slot=mat_slot,
+                 obj_max_depth=depth, obj_mc=mc, eps=eps, packed=packed)
+
+
+# ---------------------------------------------------------------------------
+# the scene as W5 reads it
+# ---------------------------------------------------------------------------
+
+
+def attr_table(geom):
+    """(analytic objects, 16) float32: each analytic object as W5 reads
+    it, in object-id order, four float4 words a row (csrc/hit_attrs.cu
+    `Scene`); the tables' values copied, none computed."""
+    g = geom
+    with torch.no_grad():
+        col = lambda x, i: x[:, i]
+        z1 = lambda x: x.new_zeros((x.shape[0],))
+        parts = [
+            _rows(g.sphere_center, g.sphere_radius),
+            _rows(g.plane_center, g.plane_half_w, g.plane_normal, g.plane_half_h,
+                  g.plane_u_axis, col(g.plane_uv_shift, 0), g.plane_v_axis,
+                  col(g.plane_uv_shift, 1)),
+            _rows(*(x for i in range(3) for x in (g.box_basis[:, i, :],
+                                                  g.box_whl[:, i])),
+                  g.box_center),
+            _rows(g.disc_center, g.disc_r_out, g.disc_normal, z1(g.disc_r_out),
+                  g.disc_u_axis, z1(g.disc_r_out), g.disc_v_axis),
+            _rows(g.cyl_center, g.cyl_radius, g.cyl_axis, g.cyl_half_h,
+                  g.cyl_u_axis, g.cyl_capped.to(g.cyl_radius.dtype), g.cyl_v_axis),
+        ]
+        return torch.cat(parts).detach().to(torch.float32).contiguous()
+
+
+def _analytic_srcs(geom):
+    return (geom.sphere_center, geom.sphere_radius, geom.plane_center,
+            geom.plane_half_w, geom.plane_normal, geom.plane_half_h,
+            geom.plane_u_axis, geom.plane_v_axis, geom.plane_uv_shift,
+            geom.box_basis, geom.box_whl, geom.box_center, geom.disc_center,
+            geom.disc_r_out, geom.disc_normal, geom.disc_u_axis,
+            geom.disc_v_axis, geom.cyl_center, geom.cyl_radius, geom.cyl_axis,
+            geom.cyl_half_h, geom.cyl_u_axis, geom.cyl_capped, geom.cyl_v_axis)
+
+
+_TRI = ("tri_p1", "tri_p2", "tri_p3", "tri_normal")
+_CORNERS = ("tri_vn1", "tri_vn2", "tri_vn3", "tri_uv1", "tri_uv2", "tri_uv3")
+_INST = ("inst_rot", "inst_trans", "inst_inv_scale")
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None and x.numel() else None
+
+
+def scene_struct(data, static):
+    """(the Scene struct W5 reads, the tensors it points into): made at a
+    geometry's first call and kept on it while its tables and the packed
+    words are the same tensors at the same version."""
+    geom = data.geom
+    srcs = (*_analytic_srcs(geom), *(getattr(geom, f) for f in _TRI + _CORNERS
+                                     + _INST), geom.tri_virt_row,
+            geom.tri_virt_inst, data.obj.packed)
+
+    def make():
+        counts = [static.kind_counts[k] for k in KINDS]
+        table = attr_table(geom)
+        if table.shape[0] != sum(counts[:-1]):
+            raise ValueError("W5: the analytic tables do not match the scene's "
+                             "kind counts")
+        f32 = lambda x: x.detach().to(torch.float32).contiguous()
+        i32 = lambda x: x.detach().to(torch.int32).contiguous()
+        tri = {f: f32(getattr(geom, f)) for f in _TRI}
+        corners = ({f: f32(getattr(geom, f)) for f in _CORNERS}
+                   if geom.tri_vn1.shape[0] else {})
+        inst = {}
+        if geom.tri_virt_row.shape[0]:
+            inst = {f: f32(getattr(geom, f)) for f in _INST}
+            inst.update(virt_row=i32(geom.tri_virt_row),
+                        virt_inst=i32(geom.tri_virt_inst))
+        packed = i32(data.obj.packed)
+        struct = Scene(
+            rows=_ptr(table), counts=(_L * len(KINDS))(*counts),
+            **{f: _ptr(x) for f, x in tri.items()},
+            **{f[4:]: _ptr(x) for f, x in corners.items()},
+            **{f: _ptr(x) for f, x in inst.items()},
+            packed=_ptr(packed), n_obj=packed.shape[0])
+        return struct, (table, tri, corners, inst, packed)
+
+    return kept(geom, "_w5_scene", srcs, make)
+
+
+# ---------------------------------------------------------------------------
+# the launch
+# ---------------------------------------------------------------------------
+
+
+def _rays_in(O, D, t, orient, obj):
+    """The rays as W5 reads them, detached and contiguous; raise unless
+    float32 (obj int64) and of one ray count."""
+    for name, x in (("O", O), ("D", D), ("t", t), ("orient", orient)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"W5 takes float32 rays: {name} is {x.dtype}")
+    if obj.dtype != torch.int64:
+        raise TypeError(f"W5 takes int64 object ids, got {obj.dtype}")
+    n = t.shape[0]
+    if O.shape != (n, 3) or D.shape != (n, 3) or orient.shape != (n,) \
+            or obj.shape != (n,):
+        raise ValueError("W5 takes O, D (N, 3) and t, orient, obj (N,)")
+    return [x.detach().contiguous() for x in (O, D, t, orient, obj)]
+
+
+def _launch(O, D, t, orient, obj, data, static, nudge, need_uv, oriented,
+            first_hit, lib=None):
+    """W5 from `lib` on the rays: an Attrs with the geometric or oriented
+    normal as `oriented` says (no normal map).  Adds its launches to
+    `attributes.launches` (`_COUNTED`)."""
+    O, D, t, orient, obj = _rays_in(O, D, t, orient, obj)
+    n, dev = t.shape[0], t.device
+    struct, keep = scene_struct(data, static)
+    if keep[0].device != dev:
+        raise ValueError(f"W5: the scene is on {keep[0].device}, the rays on {dev}")
+    f = lambda *s: torch.empty((n, *s), dtype=torch.float32, device=dev)
+    i = lambda: torch.empty((n,), dtype=torch.int32, device=dev)
+    b = lambda: torch.empty((n,), dtype=torch.bool, device=dev)
+    out = Attrs(P=f(3), N=f(3), uv=f(2), miss=b(), mat_type=i(), mat_slot=i(),
+                obj_max_depth=i(), obj_mc=b(), eps=f(), packed=i())
+    if n == 0:
+        return out
+    rays = Rays(O=O.data_ptr(), D=D.data_ptr(), t=t.data_ptr(),
+                orient=orient.data_ptr(), obj=obj.data_ptr(), n=n,
+                need_uv=int(need_uv), oriented=int(oriented),
+                first_hit=int(first_hit), nudge=nudge, miss_at=MISS_AT,
+                P=out.P.data_ptr(), N=out.N.data_ptr(), uv=out.uv.data_ptr(),
+                eps=out.eps.data_ptr(), miss=out.miss.data_ptr(),
+                mc=out.obj_mc.data_ptr(), packed=out.packed.data_ptr(),
+                mat_type=out.mat_type.data_ptr(), mat_slot=out.mat_slot.data_ptr(),
+                max_depth=out.obj_max_depth.data_ptr())
+    _COUNTED.launches += _call(lib, "hit_attrs", ctypes.byref(struct),
+                                 ctypes.byref(rays), cuda_build.stream_of(dev),
+                                 entries=ENTRIES)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: the kernel forward, the plain stage's backward
+# ---------------------------------------------------------------------------
+
+
+def _geom_floats(geom):
+    """The names of geom's float tables (what the attributes can take a
+    gradient through), found at a geometry's first call and kept on it."""
+    return kept(geom, "_w5_floats", (), lambda: tuple(
+        f.name for f in dataclasses.fields(geom)
+        if getattr(geom, f.name).is_floating_point()))
+
+
+class _Attrs(torch.autograd.Function):
+    """W5 forward (xs: O, D, t, orient, then the geometry's float tables
+    that require grad, named in `call`); its integer and bool outputs
+    non-differentiable.  Backward: the plain stage (`_plain_core`)
+    recomputed from the saved inputs on the chunk, and its vector-Jacobian
+    product for the inputs that need one."""
+
+    @staticmethod
+    def forward(fctx, call, *xs):
+        obj, data, static, modes, names, lib = call
+        out = _launch(*xs[:4], obj, data, static, *modes, lib=lib)
+        others = [getattr(out, f) for f in OTHER_FIELDS]
+        fctx.mark_non_differentiable(*others)
+        fctx.geom, fctx.static, fctx.modes, fctx.names = (data.geom, static, modes,
+                                                          names)
+        fctx.save_for_backward(obj, *xs)
+        return (*(getattr(out, f) for f in FLOAT_FIELDS), *others)
+
+    @staticmethod
+    def backward(fctx, *grads):
+        obj, *xs = fctx.saved_tensors
+        wants = fctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() if w else x
+                      for x, w in zip(xs, wants)]
+            geom = fctx.geom
+            if fctx.names:
+                geom = dataclasses.replace(geom, **dict(zip(fctx.names, leaves[4:])))
+            outs = _plain_core(*leaves[:4], obj, geom, fctx.static, *fctx.modes)
+            pairs = [(y, g) for y, g in zip(outs, grads[:len(FLOAT_FIELDS)])
+                     if g is not None and y.requires_grad]
+            wrt = [x for x, w in zip(leaves, wants) if w]
+            got = (torch.autograd.grad([y for y, _ in pairs], wrt,
+                                       [g for _, g in pairs], allow_unused=True)
+                   if pairs else [None] * len(wrt))
+        it = iter(got)
+        return (None, *(next(it) if w else None for w in wants))
+
+
+def _kernel_attributes(O, D, t, orient, obj, data, static, settings=None,
+                       force_uv=False, first_hit=False, lib=None):
+    """W5 on the rays, from `lib`, through `_Attrs` where autograd records
+    the stage; then the normal maps and the orientation in plain torch
+    where the scene maps normals."""
+    modes = _modes(static, settings, force_uv, first_hit)
+    oriented = modes[2]
+    modes = (*modes, first_hit)
+    geom = data.geom
+    names = (tuple(f for f in _geom_floats(geom) if getattr(geom, f).requires_grad)
+             if torch.is_grad_enabled() else ())
+    xs = [O, D, t, orient] + [getattr(geom, f) for f in names]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        res = _Attrs.apply((obj, data, static, modes, names, lib), *xs)
+        out = Attrs(**dict(zip(FLOAT_FIELDS + OTHER_FIELDS, res)))
+    else:
+        out = _launch(O, D, t, orient, obj, data, static, *modes, lib=lib)
+    if not first_hit and not oriented and static.normal_maps:
+        out.N = _mapped(out.N, out.P, out.uv, orient, obj, data, static)
+    return out
+
+
+def attributes(O, D, t, orient, obj, data, static, settings=None, force_uv=False,
+               first_hit=False):
+    """The attributes of each ray's nearest hit (t, orient, obj from
+    `intersect.nearest_hit`: obj 0 on a miss), as an Attrs: P = O + D t,
+    the shading normal (the geometric one of the ray's object, normal-mapped
+    where the scene maps it, times the orientation), uv (zero unless the
+    scene samples it or force_uv), miss (t >= MISS_THRESHOLD), the packed
+    material word (core/compile.py PACKED_*) with its material type, slot,
+    depth cap and medium-change bit, and eps, settings.nudge_eps (NUDGE_EPS
+    without settings) times max(1, max |P|).  first_hit: the first-hit
+    pass's attributes, N the geometric normal, uv always, P, N and uv zero
+    on a miss.
+    W5 on CUDA tensors, `plain_attributes` on CPU tensors."""
+    if O.device.type == "cpu":
+        return plain_attributes(O, D, t, orient, obj, data, static, settings,
+                                force_uv, first_hit)
+    return _kernel_attributes(O, D, t, orient, obj, data, static, settings,
+                              force_uv, first_hit)
+
+
+attributes.launches = 0
+# the function whose count a launch adds to (a spy may replace the module's
+# `attributes`)
+_COUNTED = attributes
+
+
+def launches():
+    """W5's launches."""
+    return _COUNTED.launches
+
+
+def reset_launches():
+    _COUNTED.launches = 0
+
+
+INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
+
+
+def info(lib=None):
+    """What W5 was built to, read on the card (`hit_attrs_info`): registers
+    and local memory (bytes: spills and stack) a thread, resident blocks an
+    SM, the SMs and threads a block."""
+    fn = (lib or cuda_build.load_library()).hit_attrs_info
+    fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+    out = (_I * len(INFO))()
+    err = fn(out)
+    if err:
+        raise RuntimeError(f"hit_attrs_info: CUDA error {err}")
+    return dict(zip(INFO, out))
+
+
+def math(op, x, y=None, lib=None):
+    """W5's own atan2(x, y) (op "atan2") or asin(x) (op "asin") of float32
+    tensors, as its kernel computes them (`hit_attrs_math`): for the holds
+    against torch.atan2 and torch.asin."""
+    x = x.contiguous()
+    if x.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
+        raise TypeError("W5's math takes float32 tensors")
+    code = {"atan2": 0, "asin": 1}[op]
+    if code == 0:
+        y = y.contiguous()
+    out = torch.empty_like(x)
+    _call(lib, "hit_attrs_math", code, x.data_ptr(),
+          y.data_ptr() if code == 0 else None, x.numel(), out.data_ptr(),
+          cuda_build.stream_of(x.device), entries=ENTRIES)
+    return out

@@ -48,9 +48,15 @@ from . import cuda_build
 from .mesh_sweep import _call, kept
 
 _V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# W4's kernels by name, as a profile lists them
-KERNELS = ("shade_diffuse_kernel", "shade_diffuse_wide_kernel",
-           "shade_refractive_kernel", "shade_glossy_kernel")
+# W4's kernels by name, as a profile lists them, each with its entry's
+# material type and its `info` variant: the diffuse entry's kernel of its
+# caps sum in registers, by ATen's plan on one block, and, where ATen
+# splits each row across blocks, the shading with the staged sums and the
+# blocks' sums before it
+KERNEL_INFO = {"shade_diffuse_kernel": (3, 0), "shade_diffuse_wide_kernel": (3, 1),
+               "shade_diffuse_staged_kernel": (3, 2), "caps_partials_kernel": (3, 3),
+               "shade_refractive_kernel": (4, 0), "shade_glossy_kernel": (2, 0)}
+KERNELS = tuple(KERNEL_INFO)
 SCHLICK = 5.0             # the Schlick exponent, passed to the kernel
 
 
@@ -75,7 +81,7 @@ class Diffuse(ctypes.Structure):
                 ("u_r2", _V), ("s_mix", _V), ("s_phi", _V), ("s_r2", _V),
                 ("pick", _V), ("is_center", _V), ("is_radius", _V),
                 ("K", _I), ("env_prob", _V), ("env_alias", _V),
-                ("env_pdf", _V), ("Hs", _I), ("Ws", _I)]
+                ("env_pdf", _V), ("Hs", _I), ("Ws", _I), ("staging", _V)]
 
 
 class Refractive(ctypes.Structure):
@@ -100,7 +106,7 @@ _BLOCKS = {MAT_DIFFUSE: ("shade_diffuse", Diffuse),
            MAT_GLOSSY: ("shade_glossy", Glossy)}
 ENTRIES = {entry: [ctypes.POINTER(Rays), ctypes.POINTER(cls), _V,
                    ctypes.POINTER(_I)] for entry, cls in _BLOCKS.values()}
-ENTRIES["w4_caps_sum"] = [_V, _L, _I, _I, _V, _V, ctypes.POINTER(_I)]
+ENTRIES["w4_caps_sum"] = [_V, _L, _I, _I, _V, _V, _V, ctypes.POINTER(_I)]
 ENTRIES["w4_trig_mismatches"] = [_V, _V, ctypes.POINTER(_I)]
 
 FLOAT_FIELDS = ("add", "beta_mult", "new_origin", "new_dir", "new_n_re",
@@ -277,7 +283,24 @@ def _rays(ctx, packed, out, keep):
                 im_step=im_step, n=n, **{f: x.data_ptr() for f, x in outs.items()})
 
 
-def _diffuse_args(ctx, draws, keep):
+def _staging(K, n, device, lib=None):
+    """The staging buffer of the caps pdf's sums of n rays over K targets
+    where torch.sum would split each row across blocks (`w4_sum_ctas` of
+    `lib`: n ctas float32), else None."""
+    if not K or not n:
+        return None
+    fn = (lib or cuda_build.load_library()).w4_sum_ctas
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_L, _L, ctypes.POINTER(_I)], _I
+    ctas = _I(1)
+    err = fn(K, n, ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"w4_sum_ctas: CUDA error {err}")
+    return (torch.empty(n * ctas.value, dtype=torch.float32, device=device)
+            if ctas.value > 1 else None)
+
+
+def _diffuse_args(ctx, draws, keep, lib=None):
     data, static, mats = ctx.data, ctx.static, ctx.data.mats
     (u_mix, u_phi, u_r2), pick = draws
     color, aw = _f32(mats.diffuse_color), _f32(mats.diffuse_ambient_weight)
@@ -293,14 +316,15 @@ def _diffuse_args(ctx, draws, keep):
     env = ([_f32(data.env_is_prob), data.env_is_alias.to(torch.int32).contiguous(),
             _f32(data.env_is_pdf)] if Hs else [None] * 3)
     pick = pick.contiguous() if K else None
-    keep.extend([color, aw, *u, *s, pick, center, radius, *env, tt])
+    staging = _staging(K, ctx.P.shape[0], ctx.P.device, lib)
+    keep.extend([color, aw, *u, *s, pick, center, radius, *env, tt, staging])
     return Diffuse(color=_p(color), ambient_w=_p(aw), rows=color.shape[0],
                    tex=_textures(tt), u_mix=_p(u[0]), u_phi=_p(u[1]),
                    u_r2=_p(u[2]), s_mix=_p(s[0]), s_phi=_p(s[1]), s_r2=_p(s[2]),
                    pick=_p(pick), is_center=_p(center) if K else None,
                    is_radius=_p(radius) if K else None, K=K,
                    env_prob=_p(env[0]), env_alias=_p(env[1]), env_pdf=_p(env[2]),
-                   Hs=Hs, Ws=Ws)
+                   Hs=Hs, Ws=Ws, staging=_p(staging))
 
 
 def _refractive_args(ctx, draws, keep):
@@ -347,14 +371,14 @@ def _glossy_args(ctx, occ, keep):
                   n_spot=static.n_spot_lights, occ=_p(hits), five=SCHLICK)
 
 
-def prepare(mt, ctx, draws, packed, out, occ=None):
+def prepare(mt, ctx, draws, packed, out, occ=None, lib=None):
     """(entry, Rays, block struct, the tensors they point into) of W4's
-    entry for material type mt on the bounce, writing into `out` (a
-    Merged); the caller holds the tensors until the launch."""
+    entry for material type mt from `lib` on the bounce, writing into
+    `out` (a Merged); the caller holds the tensors until the launch."""
     keep = []
     rays = _rays(ctx, packed, out, keep)
     if mt == MAT_DIFFUSE:
-        block = _diffuse_args(ctx, draws[mt], keep)
+        block = _diffuse_args(ctx, draws[mt], keep, lib)
     elif mt == MAT_REFRACTIVE:
         block = _refractive_args(ctx, draws[mt], keep)
     else:
@@ -368,7 +392,7 @@ def _launch(mt, ctx, draws, packed, out, occ=None, lib=None):
     its launches to the type's wrapper."""
     if ctx.P.shape[0] == 0:
         return
-    entry, rays, block, keep = prepare(mt, ctx, draws, packed, out, occ)
+    entry, rays, block, keep = prepare(mt, ctx, draws, packed, out, occ, lib)
     _WRAPPER[mt].launches += _call(
         lib, entry, ctypes.byref(rays), ctypes.byref(block),
         cuda_build.stream_of(ctx.P.device), entries=ENTRIES)
@@ -646,17 +670,17 @@ INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block",
         "min_blocks", "rays_per_pass")
 
 
-def info(mt, lib=None, wide=False):
+def info(mt, lib=None, variant=0):
     """What W4's entry for material type mt was built to, read on the card
-    (`shade_info`; wide: the diffuse entry's kernel for caps sums past
-    registers): registers and local memory (bytes: spills and stack) a
+    (`shade_info`; variant: the diffuse entry's kernel, as KERNEL_INFO
+    numbers them): registers and local memory (bytes: spills and stack) a
     thread, resident blocks an SM, the SMs, threads a block, the
     __launch_bounds__ minimum of blocks an SM, and rays a block a pass (a
     queued entry's tile)."""
     fn = (lib or cuda_build.load_library()).shade_info
     fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(mt, int(wide), out)
+    err = fn(mt, int(variant), out)
     if err:
         raise RuntimeError(f"shade_info: CUDA error {err}")
     return dict(zip(INFO, out))
@@ -667,13 +691,17 @@ def caps_sum(x, wide=False, lib=None):
     adds its caps pdf's terms on the card (`w4_caps_sum`): by the register
     sum of the plan torch's reduction makes for x (raises where that plan
     is past it: four values a load from K = 128), or, wide, by the general
-    restatement of that plan.  For the holds against torch.sum."""
+    restatement of that plan (where it splits each row across blocks, the
+    blocks' sums staged and then added as ATen's last block adds them: two
+    launches).  For the holds against torch.sum."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise TypeError("caps_sum takes (n, K) float32 rows")
     x = x.contiguous()
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    staging = _staging(x.shape[1], x.shape[0], x.device, lib) if wide else None
     _call(lib, "w4_caps_sum", x.data_ptr(), x.shape[0], x.shape[1], int(wide),
-          out.data_ptr(), cuda_build.stream_of(x.device), entries=ENTRIES)
+          _p(staging), out.data_ptr(), cuda_build.stream_of(x.device),
+          entries=ENTRIES)
     return out
 
 

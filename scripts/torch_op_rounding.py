@@ -11,9 +11,12 @@ elements whose bits agree with each candidate (1.0: the rule):
 - torch.sum over a last dimension of 3 (x, y, z orders), and over k =
   1-200 against ATen's reduction tree (b lanes, the largest power of two
   <= k up to `bmax`, four accumulators a lane, halving offsets; bmax 8,
-  16, 32); and over k = 1-20,000 on n = 1-2**18 rows against `aten_sum`,
+  16, 32); over k = 1-20,000 on n = 1-2**18 rows against `aten_sum`,
   the plan and order csrc/wavefront_shade.cu restates for every k
-  (`sum_plan`, `aten_sum`);
+  (`sum_plan`, `aten_sum`); and over k = 131,072-2,200,000 on n = 2-512
+  rows, where ATen splits a row across blocks, against both orders in
+  which the last block could add the blocks' sums (the warps' tree then
+  the lanes', or the lanes' then the warps');
 - torch.linalg.vector_norm and linalg.cross against sums of squares and
   fma-contracted products (fma through float64);
 - a division by a Python number against a true division and a product
@@ -21,7 +24,11 @@ elements whose bits agree with each candidate (1.0: the rule):
 - torch.clamp_min / clamp of -0.0 and NaN;
 - torch.cos, sin, exp, pow (5 and a tensor), atan2, asin, floor and the
   float -> int32 conversion against the same functions in a kernel that
-  nvcc builds here with the port's flags (build/op_rounding/).
+  nvcc builds here with the port's flags (build/op_rounding/); asin on
+  all 2**32 floats, atan2 on 2**26 pairs of random bit patterns and on
+  every pair of +-0, +-inf, NaN, subnormals and a few normals (counts of
+  elements whose bits differ, NaN against NaN agreeing);
+- torch.sign of -0.0, +0.0 and NaN (its bits).
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -94,9 +101,9 @@ def last_pow2(n):
 
 
 def sum_plan(k, n, sms=132, threads=2048):
-    """(vec, bx, by) of ATen's reduction of an (n, k) float32 tensor over
-    k (Reduce.cuh setReduceConfig; csrc/wavefront_shade.cu `sum_plan`);
-    None where it would split a row across blocks."""
+    """(vec, bx, by, ctas) of ATen's reduction of an (n, k) float32 tensor
+    over k (Reduce.cuh setReduceConfig; csrc/wavefront_shade.cu
+    `sum_plan`); ctas > 1 where it splits a row across blocks."""
     mnt = 512
     vec = 4 if k >= 128 else 1
     d0 = last_pow2(k // vec) if k // vec < mnt else mnt
@@ -106,65 +113,90 @@ def sum_plan(k, n, sms=132, threads=2048):
     bx = min(d0, mnt // by)
     per = -(-k // bx)
     if per < min(by * 16, 256):
-        return vec, bx, 1
+        return vec, bx, 1, 1
     per2 = -(-k // (bx * by))
     target = sms * (threads // (bx * by))
+    ctas = 1
     if per2 >= 256 and n <= target:
         ctas = max(min(-(-target // n), -(-per2 // 16)), -(-per2 // 256))
-        if ctas > 1:
-            return None
-    return vec, bx, by
+    return vec, bx, by, ctas
 
 
-def aten_sum(torch, z, sms=132, threads=2048):
+def aten_sum(torch, z, sms=132, threads=2048, last="yx"):
     """torch.sum(z, -1) of an (n, k) float32 tensor as
     csrc/wavefront_shade.cu `aten_sum` restates ATen's order: each lane's
     terms into four accumulators (from k = 128 four a load from the row's
     first 16-byte boundary), then halving trees over the lanes and the
-    warps."""
+    warps.  Split across ctas blocks, each block's sum so, and the last
+    block's thread x + y bx folding the block sums x + y bx, then every
+    bx by-th, into 0; then its trees, the warps' then the lanes' (last
+    "yx", as csrc/wavefront_shade.cu restates global_reduce) or the
+    lanes' then the warps' ("xy")."""
     n, k = z.shape
-    vec, bx, by = sum_plan(k, n, sms, threads)
+    vec, bx, by, ctas = sum_plan(k, n, sms, threads)
     out = torch.empty(n, dtype=z.dtype, device=z.device)
     rows = torch.arange(n, device=z.device)
+    nl = bx * by * ctas                      # lane l = x + y bx + c bx by
+    lanes = torch.arange(nl, device=z.device)
+    x_of = lanes % bx
+    ends = lanes < bx                        # warp 0 of block 0
+
+    def halve(v, dim):
+        # the halving tree along dim: t and t + w/2, then t and t + w/4, ...
+        while v.shape[dim] > 1:
+            h = v.shape[dim] // 2
+            v = v.narrow(dim, 0, h) + v.narrow(dim, h, h)
+        return v.squeeze(dim)
+
+    def spread(w, loads):
+        # w (m, loads, q) -> (m, J, nl, q): lane l's loads l, l + nl, ...
+        # (zero past the last: adding +0 to a sum that is not -0 is exact)
+        m, q = w.shape[0], w.shape[2]
+        J = max(1, -(-loads // nl))
+        pad = w.new_zeros((m, J * nl, q))
+        pad[:, :loads] = w
+        return pad.reshape(m, J, nl, q)
+
     for s in (range(4) if vec == 4 else (0,)):
         sel = rows[(rows * k) % 4 == s] if vec == 4 else rows
         if sel.numel() == 0:
             continue
         zs = z[sel]
-        zero = torch.zeros(sel.numel(), dtype=z.dtype, device=z.device)
-
-        def lane(x, y):
-            acc = [zero] * 4
-            idx, stride = x + y * bx, bx * by
-            if vec == 1:
-                q = 0
-                while idx < k:
-                    acc[q % 4] = acc[q % 4] + zs[:, idx]
-                    q, idx = q + 1, idx + stride
-            else:
-                end, off = k, 0
-                if s > 0:
-                    if y == 0 and s <= x < 4:
-                        acc[0] = zero + zs[:, x - s]
-                    end, off = k + s - 4, 4 - s
-                while idx * 4 + 3 < end:
-                    for q in range(4):
-                        acc[q] = acc[q] + zs[:, off + idx * 4 + q]
-                    idx += stride
-                t = end - end % 4 + x
-                if y == 0 and t < end:
-                    acc[0] = acc[0] + zs[:, off + t]
-            return ((acc[0] + acc[1]) + acc[2]) + acc[3]
-
-        def halve(v):
-            off = len(v) // 2
-            while off >= 1:
-                v = [v[t] + v[t + off] for t in range(off)]
-                off //= 2
-            return v[0]
-
-        out[sel] = halve([halve([lane(x, y) for x in range(bx)])
-                          for y in range(by)])
+        m = sel.numel()
+        acc = zs.new_zeros((m, nl, 4))
+        if vec == 1:
+            # the q-th term of a lane into accumulator q % 4
+            w = spread(zs[:, :, None], k)[..., 0]
+            for q in range(w.shape[1]):
+                acc[:, :, q % 4] = acc[:, :, q % 4] + w[:, q]
+        else:
+            end, off = k, 0
+            if s > 0:
+                head = ends & (x_of >= s) & (x_of < 4)
+                acc[:, head, 0] = 0.0 + zs[:, x_of[head] - s]
+                end, off = k + s - 4, 4 - s
+            loads = end // 4
+            w = spread(zs[:, off:off + loads * 4].reshape(m, loads, 4), loads)
+            for j in range(w.shape[1]):
+                acc = acc + w[:, j]
+            t = end - end % 4 + x_of
+            tail = ends & (t < end)
+            acc[:, tail, 0] = acc[:, tail, 0] + zs[:, off + t[tail]]
+        lane = ((acc[..., 0] + acc[..., 1]) + acc[..., 2]) + acc[..., 3]
+        # each block's sum: the lanes' tree, then the warps'
+        staged = halve(halve(lane.reshape(m, ctas, by, bx), 3), 2)
+        if ctas == 1:
+            out[sel] = staged[:, 0]
+            continue
+        # the last block: thread x + y bx folds the block sums x + y bx,
+        # then every bx by-th, into 0
+        fold = spread(staged[:, :, None], ctas)[..., 0]
+        v = zs.new_zeros((m, bx * by))
+        for f in range(fold.shape[1]):
+            v = v + fold[:, f, :bx * by]
+        v = v.reshape(m, by, bx)
+        out[sel] = (halve(halve(v, 1), 1) if last == "yx"
+                    else halve(halve(v, 2), 1))
     return out
 
 
@@ -239,11 +271,23 @@ def main(argv):
     for k in (1, 3, 5, 31, 64, 100, 127, 128, 129, 130, 131, 200, 255, 256,
               257, 1000, 1001, 4099, 8160, 8161, 9000, 20000):
         for n in (1, 2, 5, 15, 16, 600, 1 << 14, 1 << 18):
-            if n * k > 1 << 27 or sum_plan(k, n, sms, threads) is None:
+            if n * k > 1 << 27 or sum_plan(k, n, sms, threads)[3] > 1:
                 continue
             z = rnd(n, k)
             res["sum_k_aten"][f"{k}x{n}"] = share(
                 torch.sum(z, -1), aten_sum(torch, z, sms, threads))
+    # rows split across blocks: ctas 2-33 (ctas > bx at 16 x 300,000 and
+    # 2 x 2,200,000, where the two orders of the last block's trees differ)
+    res["sum_k_split"] = {}
+    for k, n in ((131072, 512), (150000, 300), (200000, 64), (131072, 8),
+                 (300000, 16), (2200000, 2), (1000000, 5)):
+        plan = sum_plan(k, n, sms, threads)
+        z = rnd(n, k)
+        want = torch.sum(z, -1)
+        res["sum_k_split"][f"{k}x{n}"] = {
+            "plan": list(plan),
+            **{order: share(want, aten_sum(torch, z, sms, threads, order))
+               for order in ("yx", "xy")}}
     xs = rnd(N)
     inv = (torch.tensor(1.0) / torch.tensor(math.pi, dtype=torch.float32)).item()
     res["div_by_python_number"] = {
@@ -286,6 +330,34 @@ def main(argv):
         "floor": share(torch.floor(big), kern("floor", big)),
         "to int32": share(big.to(torch.int32).view(torch.float32),
                           kern("to_int", big))}
+    # asin on every float; atan2 on random bit patterns and special pairs
+    def bits_differ(a, b):
+        return int((~((a.view(torch.int32) == b.view(torch.int32))
+                      | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+    bad = 0
+    for lo in range(0, 1 << 32, 1 << 28):
+        x = (torch.arange(lo, lo + (1 << 28), device=dev, dtype=torch.int64)
+             .to(torch.int32).view(torch.float32))
+        bad += bits_differ(torch.asin(x), kern("asin", x))
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                            1e-45, -1e-45, 1e-39, -1e-39, 1.1754942e-38, 1.0,
+                            -1.0, 0.5, -3.0, 1e30, -1e-30], device=dev)
+    sy, sx = torch.meshgrid(special, special, indexing="ij")
+    gb = torch.Generator(device=dev).manual_seed(7)
+    ry = torch.randint(-(1 << 31), 1 << 31, (1 << 26,), device=dev, generator=gb,
+                       dtype=torch.int64).to(torch.int32).view(torch.float32)
+    rx = torch.randint(-(1 << 31), 1 << 31, (1 << 26,), device=dev, generator=gb,
+                       dtype=torch.int64).to(torch.int32).view(torch.float32)
+    res["asin_all_floats_differing"] = bad
+    res["atan2_differing"] = {
+        "random bits": bits_differ(torch.atan2(ry, rx), kern("atan2", ry, rx)),
+        "special pairs": bits_differ(torch.atan2(sy.flatten(), sx.flatten()),
+                                     kern("atan2", sy.flatten(), sx.flatten())),
+        "pairs": int(ry.numel() + sy.numel())}
+    sg = torch.sign(torch.tensor([-0.0, 0.0, float("nan")], device=dev))
+    res["sign(-0, +0, nan)"] = [repr(v) for v in sg.tolist()] + [
+        bool(torch.signbit(sg[0]))]
     line = json.dumps(res)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,172 @@
+"""W5, the wavefront's hit attributes (ops/hit_attrs.py,
+csrc/hit_attrs.cu), on the card, without JAX: every attribute call of
+small renders held against the plain stage on the same rays, bit for bit
+(as the renders call it, with uv forced, and as the first-hit pass); W5's
+atan2 and asin against torch's (asin on all 2^32 floats, atan2 on random
+bit patterns and the special values); the card's renders run the plain
+attribute formulas nowhere; the inverse-rendering gradient through W5
+(`_Attrs`) equals the one through the plain stage, bit for bit, and two
+passes agree.
+
+    python -m pytest --noconftest -m cuda tests/test_torch_hit_attrs_card.py
+
+runs them where there is a card (tests/conftest.py imports jax); here
+they skip.  tests/test_torch_hit_attrs_emu.py holds the same source on
+the CPU.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu_torch as T
+from raytracer_tpu_torch.ops import hit_attrs as ha
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+
+FIELDS = ha.FLOAT_FIELDS + ha.OTHER_FIELDS
+SCENES = ["grid", "cornell", "primitives", "shapes", "icosphere", "beach_ball",
+          "instances", "normal_mapped"]
+MODES = ((False, False), (True, False), (True, True))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (W5 has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _scene(name, obj_dir):
+    import torch_cornellbox
+    import torch_features
+    import torch_mesh
+    import torch_primitives
+    import torch_wavefront
+
+    if name == "grid":
+        return torch_wavefront.grid(96, 64, 48)
+    if name in ("icosphere", "beach_ball"):
+        return getattr(torch_mesh, name)(64, 48, obj_dir=obj_dir)
+    if name == "instances":
+        return torch_mesh.instances(64, 48, count=12, subdiv=2, obj_dir=obj_dir)
+    if name == "normal_mapped":
+        return torch_features.normal_mapped(64, 48, obj_dir=obj_dir)
+    sc = {"cornell": lambda: torch_cornellbox.build_cornell(64, 64),
+          "primitives": lambda: torch_primitives.primitives(64, 48),
+          "shapes": lambda: torch_primitives.shapes(64, 48)}[name]()
+    sc.settings = T.RenderSettings(use_pallas="never")
+    return sc
+
+
+def bits_equal(a, b):
+    if a.is_floating_point():
+        return bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool((a == b).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCENES)
+def test_card_w5_equals_the_plain_stage(card, name, tmp_path, monkeypatch):
+    """Every attribute call of a 2-spp render on the card against the
+    plain stage on the same rays, as called, with uv forced and as the
+    first-hit pass: each field of each ray bit for bit, one launch a
+    call."""
+    held = []
+    real = ha.attributes
+
+    def spy(*args, **kw):
+        for force_uv, first_hit in MODES:
+            want = ha.plain_attributes(*args, force_uv=force_uv, first_hit=first_hit)
+            before = ha.launches()
+            got = ha._kernel_attributes(*args, force_uv=force_uv,
+                                        first_hit=first_hit)
+            assert ha.launches() - before == 1
+            for f in FIELDS:
+                assert bits_equal(getattr(got, f), getattr(want, f)), (f, force_uv,
+                                                                       first_hit)
+        held.append(args[2].shape[0])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ha, "attributes", spy)
+    _scene(name, tmp_path).render(samples_per_pixel=2, device=card, seed=3,
+                                  output="linear")
+    assert held
+
+
+@pytest.mark.cuda
+def test_card_w5_asin_is_torchs_on_every_float(card):
+    """W5's asin equals torch.asin on all 2^32 floats (NaN against NaN)."""
+    bad = 0
+    for lo in range(0, 1 << 32, 1 << 28):
+        x = (torch.arange(lo, lo + (1 << 28), device=card, dtype=torch.int64)
+             .to(torch.int32).view(torch.float32))
+        a, b = ha.math("asin", x), torch.asin(x)
+        bad += int((~((a.view(torch.int32) == b.view(torch.int32))
+                      | (torch.isnan(a) & torch.isnan(b)))).sum())
+    assert bad == 0
+
+
+@pytest.mark.cuda
+def test_card_w5_atan2_is_torchs(card):
+    """W5's atan2 equals torch.atan2 on 2^26 pairs of random bit patterns
+    and on every pair of +-0, +-inf, NaN, subnormals and a few normals."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    r = lambda: torch.randint(-(1 << 31), 1 << 31, (1 << 26,), device=card,
+                              generator=gen, dtype=torch.int64).to(torch.int32) \
+        .view(torch.float32)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                            1e-45, -1e-45, 1e-39, -1e-39, 1.1754942e-38, 1.0, -1.0,
+                            0.5, -3.0, 1e30, -1e-30], device=card)
+    sy, sx = torch.meshgrid(special, special, indexing="ij")
+    for y, x in ((r(), r()), (sy.flatten(), sx.flatten())):
+        a, b = ha.math("atan2", y, x), torch.atan2(y, x)
+        assert bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_renders_run_no_plain_formula(card, tmp_path, monkeypatch):
+    """Cornell on the wavefront, the beach ball and the normal-mapped scene
+    on the card with the plain attribute formulas raising: W5 computes
+    them (the normal maps stay plain torch)."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain attribute stage ran on the card")
+
+    monkeypatch.setattr(ha, "hit_attributes", plain)
+    for name in ("cornell", "beach_ball", "normal_mapped"):
+        ha.reset_launches()
+        img = _scene(name, tmp_path).render(
+            samples_per_pixel=4, device=card, seed=1, output="linear")
+        assert np.isfinite(img).all() and ha.launches() > 0
+
+
+@pytest.mark.cuda
+def test_card_gradient_through_w5_is_the_plain_stages(card, monkeypatch):
+    """The inverse-rendering IoR gradient on the card with the attributes
+    through W5 (`_Attrs`) equals the one through the plain stage bit for
+    bit; two passes through W5 agree bit for bit."""
+    from torch_inverse_rendering import build_scene
+
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+
+    fn, data = differentiable_render(build_scene(1.3, 32, 24), 8, seed=0,
+                                     device=card)
+
+    def grad():
+        x = data.mats.refr_n_re.clone().requires_grad_(True)
+        loss = torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2)
+        return torch.autograd.grad(loss, x)[0]
+
+    ha.reset_launches()
+    g1, g2 = grad(), grad()
+    assert ha.launches() > 0
+    monkeypatch.setattr(ha, "attributes", ha.plain_attributes)
+    ha.reset_launches()
+    g_plain = grad()
+    assert ha.launches() == 0
+    assert torch.equal(g1, g2) and torch.equal(g1, g_plain)
+    assert bool((g1 != 0).all())

@@ -28,7 +28,7 @@ import raytracer_tpu_torch as T
 from raytracer_tpu.core import integrator as jint
 from raytracer_tpu.core import ray as jray
 from raytracer_tpu.core.compile import compile_scene as jax_compile
-from raytracer_tpu_torch.core import integrator as tint
+from raytracer_tpu_torch.ops import hit_attrs as tha
 from raytracer_tpu_torch.core.compile import compile_wavefront
 from raytracer_tpu_torch.core.scene import route
 from raytracer_tpu_torch.interop import scene_data_from_jax, static_from_jax
@@ -144,10 +144,10 @@ def test_apply_normal_maps_per_ray(obj_dir, build, filt):
     t, orient, P, Ng, uv, obj = _first_hits(jd, js)
     want = np.asarray(jint._apply_normal_maps(Ng, P, uv, obj, jd, js))
     tt = lambda x: torch.from_numpy(np.array(x))
-    got = tint._apply_normal_maps(tt(Ng), tt(P), tt(uv),
-                                  tt(obj).to(torch.int32),
-                                  scene_data_from_jax(jd),
-                                  static_from_jax(js)).numpy()
+    got = tha._apply_normal_maps(tt(Ng), tt(P), tt(uv),
+                                 tt(obj).to(torch.int32),
+                                 scene_data_from_jax(jd),
+                                 static_from_jax(js)).numpy()
     # the maps move most normals, on every kind that is hit
     moved = np.abs(want - np.asarray(Ng)).max(-1) > 1e-3
     assert moved.mean() > 0.3

@@ -6,7 +6,9 @@ lamps, whose caps pdf sums its terms in ATen's order for a row of 128 or
 more, split across warps from 8,161 on), and the refractive and diffuse
 entries on a bounce's rays picked so that ~1% are of their type,
 scattered; the caps sum in registers equals torch.sum and the restated
-sinf / cosf libdevice's on every float; the card's renders run no plain
+sinf / cosf libdevice's on every float; where torch.sum splits a row of
+the caps pdf across blocks (few rays, 131,072 or more targets), the
+general caps sum and the diffuse entry equal it; the card's renders run no plain
 block; the inverse-rendering gradient through W4 equals the one through
 the plain blocks, bit for bit, and two passes agree.
 
@@ -179,6 +181,89 @@ def test_card_caps_sum_in_registers_is_torch_sum(card, K):
         10.0, torch.rand((40_000, K), generator=gen, device=card) * 6.0 - 3.0)
     got, want = ws.caps_sum(x), torch.sum(x, dim=-1)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# (rays, importance-sampled targets) where ATen's torch.sum splits each
+# row of the caps pdf across blocks on the H100 (2, 2, 2, 33 and 264
+# blocks a row; the last two more than a warp has lanes, 32 and 256, where
+# the order of the last block's trees shows)
+SPLIT_SUMS = [(64, 200_000), (300, 150_000), (512, 131_072), (16, 300_000),
+              (2, 2_200_000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, K", SPLIT_SUMS)
+def test_card_caps_sum_split_across_blocks_is_torch_sum(card, n, K):
+    """Where torch.sum splits a row across blocks (few rows of many
+    terms), the diffuse entry's general caps sum equals it bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(K + n)
+    x = torch.randn((n, K), generator=gen, device=card) * torch.pow(
+        10.0, torch.rand((n, K), generator=gen, device=card) * 6.0 - 3.0)
+    got, want = ws.caps_sum(x, wide=True), torch.sum(x, dim=-1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def split_caps_call(call, n, K, seed=5):
+    """A captured diffuse call (`ws.pick_rays` on its first n rays, nine in
+    ten of them diffuse) with K importance-sampled caps in place of its
+    scene's: centres on a sphere of radius 2 around the scene's, radii 0.3
+    (each direction inside some hundreds of them), and a target picked for
+    each ray.  Its caps pdf sums K terms on n rows."""
+    import dataclasses
+
+    mt, ctx, draws, packed, m, acc = call
+    dev = ctx.P.device
+    rng = np.random.default_rng(seed)
+    typed, other = m.nonzero()[:, 0], (~m).nonzero()[:, 0]
+    at = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    idx = torch.empty(n, dtype=torch.int64, device=dev)
+    k = int(at.sum())
+    idx[at] = typed[torch.from_numpy(rng.integers(0, typed.shape[0], k)).to(dev)]
+    idx[~at] = other[torch.from_numpy(rng.integers(0, other.shape[0], n - k)).to(dev)]
+    mt, ctx, draws, packed, m, acc = ws.pick_rays(call, idx)
+    d = rng.standard_normal((K, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mid = ctx.data.is_center.mean(0).cpu().numpy()
+    center = torch.from_numpy((mid + 2.0 * d).astype(np.float32)).to(dev)
+    radius = torch.full((K,), 0.3, dtype=torch.float32, device=dev)
+    data = dataclasses.replace(ctx.data, is_center=center, is_radius=radius)
+    static = dataclasses.replace(ctx.static, n_is_targets=K)
+    pick = torch.from_numpy(rng.integers(0, K, n)).to(dev)
+    draws = {**draws, mt: (draws[mt][0], pick)}
+    ctx = dataclasses.replace(ctx, data=data, static=static)
+    return mt, ctx, draws, packed, m, acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, K", [(300, 150_000), (16, 300_000)])
+def test_card_diffuse_entry_on_a_split_caps_sum(card, tmp_path, monkeypatch, n, K):
+    """The diffuse entry on n rays of a Cornell bounce with K
+    importance-sampled caps, where torch.sum splits each row of the caps
+    pdf across blocks (2 a row; 33, more than a warp's 32 lanes): every
+    field of every ray bit for bit with the plain dispatch, in two
+    launches (the blocks' sums, then the shading)."""
+    calls = []
+
+    def spy(t, real):
+        def call(ctx, draws, packed, m, acc):
+            if t == ws.MAT_DIFFUSE:
+                calls.append((t, ctx, draws, packed, m, ws.Merged(
+                    *(getattr(acc, f).clone() for f in FIELDS))))
+            return real(ctx, draws, packed, m, acc)
+        return call
+
+    _replace_wrappers(monkeypatch, spy)
+    _scene("cornell", tmp_path).render(samples_per_pixel=2, device=card, seed=3,
+                                       output="linear")
+    mt, ctx, draws, packed, m, acc = split_caps_call(calls[0], n, K)
+    want = acc.merge(ws._plain(mt, ctx, draws, None), m)
+    counted = ws._WRAPPER[mt]
+    before = counted.launches
+    got = ws._kernel_shade(mt, ctx, draws, packed, m, ws.Merged(
+        *(getattr(acc, f).clone() for f in FIELDS)))
+    assert counted.launches - before == 2      # the blocks' sums, the shading
+    for f in FIELDS:
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.cuda

@@ -37,15 +37,21 @@ units in the last place and every other field exact; the diffuse block
 is left out of that hold, since a last-bit change of a direction can
 move a cap test or an environment cell.
 
-Each source mutation of MUTANTS makes some case fail.  The diffuse and
-refractive entries, which queue their rays through one device template
-(`shade_queued`), are held on a bounce's rays picked into type patterns
-(Cornell's and the 131 lamps' diffuse calls, Cornell's and the split
-scene's refractive ones), where each queue mutant fails.  A second build
-without W4_TORCH_CPU (the card's arithmetic) holds the diffuse entry's
-caps sum in registers (`reg_sum`, `ws.caps_sum`) equal to the general
-restatement of ATen's plan (`aten_sum`) for every K from 1 to 127; a
-mutant of its lane order fails.  The routing and
+The diffuse and refractive entries, which queue their rays through one
+device template (`shade_queued`), are held on a bounce's rays picked into
+type patterns (Cornell's and the 131 lamps' diffuse calls, Cornell's and
+the split scene's refractive ones).  A second build without W4_TORCH_CPU
+(the card's arithmetic) holds the diffuse entry's caps sum in registers
+(`reg_sum`, `ws.caps_sum`) equal to the general restatement of ATen's
+plan (`aten_sum`) for every K from 1 to 127, and the general one, where
+ATen splits a row across blocks (few rows of 131,072 or more terms), equal
+to scripts/torch_op_rounding.py's restatement of that order for the
+stand-in's two SMs; a third build, the stand-in reporting the H100's 132
+SMs, holds it so on rows that ATen splits across more blocks than a warp
+has lanes, where the order of the last block's two trees shows.  The
+source mutants, each of which must make some of
+these cases fail, are held in tests/test_torch_wavefront_shade_mutants_emu.py
+(built apart, so that the two files run on two workers).  The routing and
 autograd tests run `trace` with the wrappers sent to the emu library:
 a render equals the plain dispatch's bit for bit, and so does the
 inverse-rendering gradient through `_Shade` (two chunks under
@@ -88,62 +94,15 @@ import torch_wavefront  # noqa: E402
 
 GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
              "-pthread", "-DW4_TORCH_CPU")
+# the card's arithmetic: the caps sum in ATen's order
+CARD_FLAGS = tuple(f for f in GXX_FLAGS if f != "-DW4_TORCH_CPU")
+# the SMs the H100 has, which the stand-in then reports to ATen's plan
+H100_SMS = 132
 W, H = 16, 16
 ULPS = 4
 NAMES = {MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
          MAT_GLOSSY: "glossy"}
 NEVER = T.RenderSettings(use_pallas="never")
-MUTANTS = {
-    # the CPU's torch.sum order
-    "sum_order": [("  return ((0.0f + x0) + x1) + x2;\n#else",
-                   "  return ((0.0f + x0) + x2) + x1;\n#else")],
-    # the Schlick continuation contracted
-    "schlick_fma": [("beta[c] = F0 + (1.0f - F0) * schlick;",
-                     "beta[c] = fmaf(1.0f - F0, schlick, F0);")],
-    # the stratified draws at the wrong bounce
-    "strat_bounce": [("if (B.s_mix != nullptr && dr == 0) {",
-                      "if (B.s_mix != nullptr && dr == 1) {")],
-    # a bilinear texture fetched nearest
-    "nearest_for_bilinear": [("if (!(d[3] & 2)) {", "if (true) {")],
-    # the split pattern's bit one level off
-    "split_bit": [("bit = ((R.pattern[i] >> (cnt < 30 ? cnt : 30)) & 1) == 1;",
-                   "bit = ((R.pattern[i] >> (cnt < 29 ? cnt + 1 : 30)) & 1) == 1;")],
-    # the hero channel ignored
-    "no_hero": [("    if (disp) {\n", "    if (false) {\n")],
-    # the environment's alias taken on the wrong branch
-    "alias_branch": [("if (!take) k = B.env_alias[k];",
-                      "if (take) k = B.env_alias[k];")],
-    # the spot light's smoothstep cone reassociated
-    "cone": [("const float cone = (x * x) * (3.0f - 2.0f * x);",
-              "const float cone = x * (x * (3.0f - 2.0f * x));")],
-    # a texture's rows not flipped (v up)
-    "texture_rows": [("(long long)t_rem(wrap_neg(iv), H) * W",
-                      "(long long)t_rem(iv, H) * W")],
-    # the lanes of the CPU's vector sum added in reverse
-    "cpu_sum_lanes": [("  for (int l = 0; l < W4_CPU_VEC; ++l) s = s + lanes[l];",
-                       "  for (int l = W4_CPU_VEC - 1; l >= 0; --l) s = s + lanes[l];")],
-    # the refractive queue: the rays left after a block's last tile never
-    # shaded
-    "queue_flush": [("while (queued >= SHADE_BLOCK || (!tile && queued > 0)) {",
-                     "while (queued >= SHADE_BLOCK) {")],
-    # the warp prefix over a tile's (word, warp) counts off by one group
-    "queue_prefix": [("        if (lane >= d) incl += up;",
-                      "        if (lane > d) incl += up;")],
-    # a round taken from the queue's front, not from its end
-    "queue_round": [("if ((int)threadIdx.x < take) shade(queue[queued + threadIdx.x]);",
-                     "if ((int)threadIdx.x < take) shade(queue[threadIdx.x]);")],
-    # a caps lane that takes the cosine branch's height
-    "caps_z": [("    *z = 1.0f + r2 * (cos_max - 1.0f);",
-                "    *z = sqrtf(1.0f - r2);")],
-    # the directional lights' shadow rays ignored
-    "no_shadow": [("      const float see = B.occ != nullptr\n"
-                   "          ? 1.0f - (float)B.occ[(long long)light * R.n + i] : 1.0f;\n"
-                   "      float lv[3];\n"
-                   "      for (int c = 0; c < 3; ++c) lv[c] = B.dir_color[3 * l + c] * NdotL;",
-                   "      const float see = 1.0f;\n"
-                   "      float lv[3];\n"
-                   "      for (int c = 0; c < 3; ++c) lv[c] = B.dir_color[3 * l + c] * NdotL;")],
-}
 
 
 def _gxx():
@@ -161,17 +120,17 @@ def _source(edits=()):
     return text
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """{name: library}: W4 ("w4") and each mutant of MUTANTS, g++ builds
-    against the stand-in runtime, all started together."""
+def build_libs(tmp_path_factory, builds, flags=GXX_FLAGS):
+    """{name: library}: a g++ build against the stand-in runtime of each
+    (name, source edits, more flags...) of `builds`, all started
+    together."""
     gxx, d = _gxx(), tmp_path_factory.mktemp("w4emu")
     procs = {}
-    for name, edits in [("w4", ())] + list(MUTANTS.items()):
+    for name, edits, *more in builds:
         src = d / f"{name}.cu"
         src.write_text(_source(edits))
         procs[name] = subprocess.Popen(
-            [gxx, *GXX_FLAGS, "-I", str(CSRC / "emu"), "-x", "c++", str(src),
+            [gxx, *flags, *more, "-I", str(CSRC / "emu"), "-x", "c++", str(src),
              "-o", str(d / f"{name}.so")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT)
     out = {}
@@ -180,6 +139,13 @@ def libs(tmp_path_factory):
         assert p.returncode == 0, log.decode()[-3000:]
         out[name] = ctypes.CDLL(str(d / f"{name}.so"))
     return out
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """{"w4": W4}, a g++ build against the stand-in runtime (its source
+    mutants are built in tests/test_torch_wavefront_shade_mutants_emu.py)."""
+    return build_libs(tmp_path_factory, [("w4", ())])
 
 
 def _f64(fn):
@@ -462,13 +428,6 @@ def test_flow_is_the_plain_blocks_dataflow(bounces):
     assert held >= 50
 
 
-@pytest.mark.parametrize("mutant", list(MUTANTS))
-def test_a_mutant_of_w4_fails(libs, bounces, plain, mutant):
-    caught = any(differences(bounces[s], plain[s], libs[mutant], first=True)
-                 for s in SCENES)
-    assert caught, f"no case catches the mutant {mutant}"
-
-
 def test_a_refused_launch_raises_and_counts_nothing(libs, bounces):
     before = ws.launches()
     for entry, cls in ws._BLOCKS.values():
@@ -503,7 +462,6 @@ def test_the_wrappers_run_the_plain_block_on_cpu_tensors(bounces):
 # gives a grid of two blocks, so past 2 x 1,024 rays a block takes several
 # tiles of 1,024 and carries rays over from one to the next
 PATTERNS = ("none", "one", "scattered", "runs", "all", "ragged", "small")
-QUEUE_MUTANTS = ("queue_flush", "queue_prefix", "queue_round")
 # the scenes whose call with the most rays of each queued entry's type is
 # picked into the patterns: Cornell's two caps and the split scene's
 # refractive rays, Cornell's and the 131 lamps' diffuse rays
@@ -590,55 +548,22 @@ def test_diffuse_queue_on_a_type_pattern(libs, patterns, scene, pattern):
     _pattern_holds(libs, patterns, MAT_DIFFUSE, scene, pattern)
 
 
-def _queue_mutant_caught(libs, patterns, mt, mutant):
-    return [key for key, (call, want) in patterns.items() if key[0] == mt
-            and field_differences(w4_out(call, libs[mutant]), want)]
-
-
-@pytest.mark.parametrize("mutant", QUEUE_MUTANTS)
-def test_a_queue_mutant_fails_on_the_patterns(libs, patterns, mutant):
-    caught = _queue_mutant_caught(libs, patterns, MAT_REFRACTIVE, mutant)
-    assert caught, f"no refractive pattern catches the mutant {mutant}"
-
-
-@pytest.mark.parametrize("mutant", QUEUE_MUTANTS)
-def test_a_queue_mutant_fails_on_the_diffuse_patterns(libs, patterns, mutant):
-    caught = _queue_mutant_caught(libs, patterns, MAT_DIFFUSE, mutant)
-    assert caught, f"no diffuse pattern catches the mutant {mutant}"
-
-
 # ---------------------------------------------------------------------------
 # the card's caps sum in registers, built without W4_TORCH_CPU
 # ---------------------------------------------------------------------------
 
-# the register sum's halving tree with its bit-reversed lane order off by one
-SUM_MUTANTS = {
-    "reg_sum_lanes": [("return lane_sum_reg<BX>(bit_reverse_c(LO, BX), K, term);",
-                       "return lane_sum_reg<BX>(bit_reverse_c((LO + 1) % BX, BX), K, "
-                       "term);")],
-}
 SUM_ROWS = (16, 37, 1000)
 
 
 @pytest.fixture(scope="module")
 def sum_libs(tmp_path_factory):
-    """{name: library}: W4 built with the card's arithmetic ("card", no
-    W4_TORCH_CPU) and each mutant of SUM_MUTANTS, for `ws.caps_sum`."""
-    gxx, d = _gxx(), tmp_path_factory.mktemp("w4sum")
-    flags = [f for f in GXX_FLAGS if f != "-DW4_TORCH_CPU"]
-    procs = {}
-    for name, edits in [("card", ())] + list(SUM_MUTANTS.items()):
-        src = d / f"{name}.cu"
-        src.write_text(_source(edits))
-        procs[name] = subprocess.Popen(
-            [gxx, *flags, "-I", str(CSRC / "emu"), "-x", "c++", str(src), "-o",
-             str(d / f"{name}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    out = {}
-    for name, p in procs.items():
-        log = p.communicate(timeout=300)[0]
-        assert p.returncode == 0, log.decode()[-3000:]
-        out[name] = ctypes.CDLL(str(d / f"{name}.so"))
-    return out
+    """{"card": W4 built with the card's arithmetic (no W4_TORCH_CPU),
+    "h100": the same with the stand-in reporting the H100's SMs}, for
+    `ws.caps_sum` (its mutants are built in
+    tests/test_torch_wavefront_shade_mutants_emu.py)."""
+    return build_libs(tmp_path_factory, [("card", ()),
+                                         ("h100", (), f"-DCUDA_EMU_SMS={H100_SMS}")],
+                      CARD_FLAGS)
 
 
 def _sum_rows(n, K, seed):
@@ -674,10 +599,65 @@ def test_the_register_sum_refuses_a_wide_plan(sum_libs):
     assert ws.caps_sum(x, wide=True, lib=sum_libs["card"]).shape == (40,)
 
 
-@pytest.mark.parametrize("mutant", list(SUM_MUTANTS))
-def test_a_sum_mutant_fails(sum_libs, mutant):
-    assert any(_sum_bits_differ(sum_libs[mutant], n, K)
-               for n in SUM_ROWS for K in range(2, 128)), mutant
+# (rows, K) where ATen splits each row across blocks on the stand-in's two
+# SMs: 3, 4, 2 and 2 blocks a row
+SPLIT_SUMS = [(3, 131_072), (2, 131_075), (8, 150_000), (5, 200_000)]
+
+
+def _rounding():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_op_rounding
+
+    return torch_op_rounding
+
+
+def _split_sum_differs(lib, n, K, sms=2):
+    """Whether the general caps sum of `lib` (built for `sms` SMs)
+    differs, on (n, K) rows where torch.sum splits each row across blocks,
+    from scripts/torch_op_rounding.py `aten_sum` for those SMs."""
+    rounding = _rounding()
+    plan = rounding.sum_plan(K, n, sms=sms)
+    assert plan[3] > 1, plan
+    x = _sum_rows(n, K, 7 * n + K)
+    got = ws.caps_sum(x, wide=True, lib=lib)
+    want = rounding.aten_sum(torch, x, sms=sms)
+    return not torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n, K", SPLIT_SUMS)
+def test_the_split_sum_is_atens_order(sum_libs, n, K):
+    """Where torch.sum splits a row across blocks (`sum_plan`'s ctas > 1),
+    the general caps sum (each block's sum by the block's threads, staged,
+    then added as ATen's last block adds them) equals
+    scripts/torch_op_rounding.py `aten_sum`, the same order restated in
+    torch ops (which that script holds against torch.sum on the card), for
+    the stand-in's two SMs."""
+    assert not _split_sum_differs(sum_libs["card"], n, K)
+
+
+# (rows, K) where ATen splits each row across more blocks than a warp has
+# lanes on the H100 (33 blocks of 32 lanes): the last block's thread
+# x + y bx then holds a staged sum for warps past the first, and its
+# trees' order (the warps' then the lanes', or the lanes' then the
+# warps') shows in the sum.  One case: the stand-in runs its 528 blocks
+# of 512 threads in ~20 s (the card tests also hold 2 x 2,200,000)
+H100_SPLIT_SUMS = [(16, 300_000)]
+
+
+@pytest.mark.parametrize("n, K", H100_SPLIT_SUMS)
+def test_the_split_sum_past_the_lanes_is_atens_order(sum_libs, n, K):
+    """On rows split across more blocks than a warp has lanes, with the
+    stand-in reporting the H100's SMs, the general caps sum equals
+    scripts/torch_op_rounding.py `aten_sum` (the warps' tree, then the
+    lanes'), where the other order of those trees gives other bits."""
+    rounding = _rounding()
+    _, bx, _, ctas = rounding.sum_plan(K, n, sms=H100_SMS)
+    assert ctas > bx, (ctas, bx)
+    x = _sum_rows(n, K, 7 * n + K)
+    other = rounding.aten_sum(torch, x, sms=H100_SMS, last="xy")
+    want = rounding.aten_sum(torch, x, sms=H100_SMS)
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+    assert not _split_sum_differs(sum_libs["h100"], n, K, H100_SMS)
 
 
 QUEUED_SASS = """
