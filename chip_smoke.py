@@ -5,8 +5,9 @@
 
 Builds the port's kernels (raytracer_tpu_torch/csrc: the solid kernel,
 the record kernel, W1, the wavefront's triangle sweep, W2, its pair
-search, W3, its analytic sweep, W4, its shading blocks, and W5, its hit
-attributes, one nvcc per source, started together) from the checkout and
+search, W3, its analytic sweep, W4, its shading blocks, W5, its hit
+attributes, and W6, its bounce tail, one nvcc per source, started
+together) from the checkout and
 drives both kernel paths and the wavefront:
 
 - solid: holds the solid kernel against its plain PyTorch version,
@@ -150,9 +151,24 @@ drives both kernel paths and the wavefront:
   stack and blocks an SM; its asin against torch.asin on all 2^32 floats
   and its atan2 against torch.atan2 on 2^26 random pairs and the special
   values; the kernels line has a W5 row (bound by bytes) at that chunk's
-  first bounce with the mean a call over its bounces.
-  `python3 chip_smoke.py --w4` runs the build and this phase (W4's and
-  W5's) alone;
+  first bounce with the mean a call over its bounces.  W6
+  (csrc/bounce_tail.cu: the start of each bounce's merged output with the
+  emissive and environment blocks, and the update) in the same driven
+  renders and in examples 2 (a cube-cross sky) and 4 (a sky with a
+  lightmap, blur 0) at 400x300 x 16 spp on the wavefront: counts set to 0
+  just before each and read just after (both entries launched, required;
+  the plain start and update run on the card only in a backward pass,
+  required); every call of each render's first chunk held against the
+  plain stage, every field of every ray bit for bit (a share of exactly
+  1.0); a line a call of the first chunk of Cornell on the wavefront
+  (an emissive light, no texture) and of example 2 on the wavefront (the
+  sky's texels), each entry timed through a CUDA graph beside the plain
+  stage, its bytes, bound and share; the registers, stack and blocks an
+  SM of both kernels; the kernels line has a row an entry (bound by
+  bytes) at Cornell's first bounce with the mean a call over its
+  bounces.
+  `python3 chip_smoke.py --w4` runs the build and this phase (W4's, W5's
+  and W6's) alone;
 - the meshes (examples/torch_mesh.py, the wavefront's clustered
   triangle sweep through W1, csrc/mesh_sweep.cu, over the pairs of W2,
   csrc/mesh_pairs.cu; corner normals and uvs, mesh instances in plain
@@ -445,6 +461,30 @@ W5_TIMED = "Cornell on the wavefront"
 W5_MODES = ((False, False), (True, False), (True, True))
 W5 = {"launches": 0, "max_abs_err": 0.0, "timed": [], "captured": {},
       "calls": {}, "plain_on_card": 0, "holding": False, "held": 0}
+# W6 (csrc/bounce_tail.cu), the bounce tail: the CUDA-graph replays of its
+# timing; its entries (ops/bounce_tail.py wrappers), each with its kernel
+# and the JAX code it replaces; the renders whose first chunk it is timed
+# at, every bounce (the kernels line's rows from the first: Cornell's
+# emissive light without a texture; example 2's environment texels); what the run gathers: launches in the driven wavefront
+# renders (counts set to 0 just before each, read just after), the largest
+# difference of its holds (0: bit-equal), each timed call's numbers, the
+# calls captured in the driven renders (every bounce of each render's first
+# chunk), the plain stages run on the card outside a hold or a backward
+# pass (none allowed); the samples of examples 2 and 4 on the wavefront
+# (the environment's two kinds of texture)
+W6_REPS = 5
+W6_ENTRIES = {
+    "bounce_start": ("bounce_start_kernel",
+                     "raytracer_tpu/core/integrator.py:239-287 (the start and the "
+                     "emissive and env merges; materials/shade.py:176, :190)"),
+    "bounce_update": ("bounce_update_kernel",
+                      "raytracer_tpu/core/integrator.py:289-310")}
+W6_TIMED = ("Cornell on the wavefront", "example 2 on the wavefront")
+W6 = {"launches": dict.fromkeys(W6_ENTRIES, 0),
+      "max_abs_err": dict.fromkeys(W6_ENTRIES, 0.0), "timed": {k: [] for k in W6_ENTRIES},
+      "captured": {}, "seen": set(), "chunk_done": set(), "plain_on_card": 0,
+      "holding": False, "held": dict.fromkeys(W6_ENTRIES, 0)}
+ENV_WF_SPP = 16
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
 NMAP_PLAIN = (1.4254, 9.39)
@@ -1922,13 +1962,20 @@ def w4_spies():
     words, mask and a copy of the merged output it was handed), and the
     plain blocks count their calls on CUDA tensors outside a hold and
     outside `_Shade`'s backward (which recomputes the plain block for its
-    gradient)."""
+    gradient); likewise W5's attributes and W6's start and update (each
+    bounce of the first chunk captured, the plain stages counted outside a
+    hold and `_Start`'s and `_Update`'s backward)."""
     from raytracer_tpu_torch.materials import shade
     from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.ops import wavefront_shade as ws
 
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+
     names = ("shade_diffuse", "shade_refractive", "shade_glossy")
-    saved = ([(ws, n, getattr(ws, n)) for n in names]
+    saved = ([(bt, n, getattr(bt, n)) for n in W6_ENTRIES]
+             + [(bt, n, getattr(bt, n)) for n in ("plain_start", "plain_update")]
+             + [(f, "backward", f.__dict__["backward"]) for f in (bt._Start, bt._Update)]
+             + [(ws, n, getattr(ws, n)) for n in names]
              + [(shade, n, getattr(shade, n)) for n in names]
              + [(ha, "attributes", ha.attributes),
                 (ha, "hit_attributes", ha.hit_attributes),
@@ -1989,6 +2036,49 @@ def w4_spies():
         finally:
             W5["holding"] = False
 
+    def w6_start_spy(real):
+        def call(ctx, packed, mat_type):
+            lab, b = W4["label"], ctx.bounce
+            if lab is not None and lab not in W6["chunk_done"]:
+                if (lab, b) in W6["seen"]:          # the render's second chunk
+                    W6["chunk_done"].add(lab)
+                else:
+                    W6["seen"].add((lab, b))
+                    W6["captured"][(lab, "bounce_start", b)] = (ctx, packed, mat_type)
+                    W6["pending"] = (lab, b)
+            return real(ctx, packed, mat_type)
+        return call
+
+    def w6_update_spy(real):
+        def call(c, miss, acc):
+            if W6.get("pending") is not None:       # the captured bounce's update
+                lab, b = W6.pop("pending")
+                W6["captured"][(lab, "bounce_update", b)] = (c, miss, acc)
+            return real(c, miss, acc)
+        return call
+
+    def w6_counted(plain, device_of):
+        def call(*args):
+            if device_of(args[0]).type == "cuda" and not W6["holding"]:
+                W6["plain_on_card"] += 1
+            return plain(*args)
+        return call
+
+    def w6_backward(fn):
+        def call(fctx, *grads):
+            W6["holding"] = True
+            try:
+                return fn(fctx, *grads)
+            finally:
+                W6["holding"] = False
+        return staticmethod(call)
+
+    bt.bounce_start = w6_start_spy(bt.bounce_start)
+    bt.bounce_update = w6_update_spy(bt.bounce_update)
+    bt.plain_start = w6_counted(bt.plain_start, lambda ctx: ctx.P.device)
+    bt.plain_update = w6_counted(bt.plain_update, lambda c: c.L.device)
+    for f in (bt._Start, bt._Update):
+        f.backward = w6_backward(f.__dict__["backward"].__func__)
     for mt, w in ws._WRAPPER.items():
         setattr(ws, w.__name__, spy(mt, w))
     for n in names:
@@ -2005,22 +2095,24 @@ def w4_spies():
 
 
 class w4_driven:
-    """A driven render labelled `label`: W4's counts set to 0 just before
-    and read just after (added to the run's), W4's first call of each
-    entry captured; no plain block may run on the card in it (a backward
-    pass's recompute aside)."""
+    """A driven render labelled `label`: W4's, W5's and W6's counts set to
+    0 just before and read just after (added to the run's), their calls of
+    the first chunk captured; no plain block may run on the card in it (a
+    backward pass's recompute aside)."""
 
     def __init__(self, label):
         self.label = label
 
     def __enter__(self):
+        from raytracer_tpu_torch.ops import bounce_tail as bt
         from raytracer_tpu_torch.ops import hit_attrs as ha
         from raytracer_tpu_torch.ops import wavefront_shade as ws
-        self.ws, self.ha, self.plain = ws, ha, W4["plain_on_card"]
-        self.w5_plain = W5["plain_on_card"]
+        self.ws, self.ha, self.bt, self.plain = ws, ha, bt, W4["plain_on_card"]
+        self.w5_plain, self.w6_plain = W5["plain_on_card"], W6["plain_on_card"]
         W4["label"] = self.label
         ws.reset_launches()
         ha.reset_launches()
+        bt.reset_launches()
         return self
 
     def __exit__(self, *exc):
@@ -2033,6 +2125,10 @@ class w4_driven:
         self.w5 = self.ha.launches()
         W5["launches"] += self.w5
         self.w5_plain_runs = W5["plain_on_card"] - self.w5_plain
+        self.w6 = self.bt.launches()
+        for key, n in self.w6.items():
+            W6["launches"][key] += n
+        self.w6_plain_runs = W6["plain_on_card"] - self.w6_plain
         return False
 
 
@@ -2420,6 +2516,7 @@ def w4_phase(torch, dev):
     w4_resources()
     w4_sum_hold(torch, dev)
     w5_resources(torch, dev)
+    w6_resources(torch)
 
 
 def w4_resources():
@@ -2499,6 +2596,7 @@ def w4_renders(torch, dev):
     import torch_features
     import torch_mesh
     import torch_primitives
+    import torch_textured
     import torch_wavefront
     from raytracer_tpu_torch.diff import differentiable_render, update_materials
     from raytracer_tpu_torch.ops import wavefront_shade as ws
@@ -2528,7 +2626,11 @@ def w4_renders(torch, dev):
             MESH_W, MESH_H, obj_dir=obj_dir), NMAP_SPP),
         ("lamps", lambda: torch_wavefront.lamp_cluster(LAMPS, *LAMP_WH), MESH_SPP),
         ("primitives on the wavefront", lambda: with_never(
-            torch_primitives.primitives(MESH_W, MESH_H)), MESH_SPP))
+            torch_primitives.primitives(MESH_W, MESH_H)), MESH_SPP),
+        ("example 2 on the wavefront", lambda: with_never(
+            torch_textured.example2(REC_W, REC_H)), ENV_WF_SPP),
+        ("example 4 on the wavefront", lambda: with_never(
+            torch_textured.example4(REC_W, REC_H, blur=0.0)), ENV_WF_SPP))
     for label, make, spp in renders:
         sc = make()
         static = sc._settings_for_render()[0]
@@ -2538,7 +2640,7 @@ def w4_renders(torch, dev):
             img, stats, wall = timed_render(torch, dev, sc, spp, seed=7)
         require(img.shape[:2] == (sc.camera.screen_height, sc.camera.screen_width)
                 and bool(np.isfinite(img).all()), f"W4 {label}: image")
-        require(present and all(d.got[k] > 0 for k in present),
+        require(not present or all(d.got[k] > 0 for k in present),
                 f"W4 {label}: launches {d.got} for the present entries {present}")
         require(d.plain_runs == 0, f"W4 {label}: {d.plain_runs} plain blocks "
                 "ran on the card")
@@ -2549,6 +2651,7 @@ def w4_renders(torch, dev):
               f"{ {k[6:]: n for k, n in d.got.items() if n} }, no plain block): "
               + text, flush=True)
         w5_check(torch, label, d)
+        w6_check(torch, label, d)
         del sc, img
     # the inverse-rendering step: W4 forward through _Shade, the plain
     # block's backward
@@ -2571,8 +2674,11 @@ def w4_renders(torch, dev):
           f"{g[0].tolist()}): " + w4_hold(torch, label)[1] +
           f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     w5_check(torch, label, d)
+    w6_check(torch, label, d)
     require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
             "on the card")
+    require(W6["plain_on_card"] == 0, f"the plain start or update ran "
+            f"{W6['plain_on_card']} times on the card outside a backward pass")
     require(W5["plain_on_card"] == 0, f"the plain attribute formulas ran "
             f"{W5['plain_on_card']} times on the card")
 
@@ -2737,6 +2843,201 @@ def w5_row(torch):
           f"{tm['plain_ms']:.2f} ms | {W5['launches']} launches in the driven "
           f"renders, {W5['held']} calls held", flush=True)
     return row
+
+
+def w6_check(torch, label, d):
+    """The driven render `label` through W6: both entries launched (one
+    launch each a bounce of each chunk), the plain start and update run
+    nowhere on the card outside a backward pass, its captured calls held
+    (`w6_hold`); prints its line, and a line a bounce for W6_TIMED's."""
+    require(all(n > 0 for n in d.w6.values()) and d.w6_plain_runs == 0,
+            f"W6 {label}: launches {d.w6}, the plain stages ran "
+            f"{d.w6_plain_runs} times on the card")
+    lines, text = w6_hold(torch, label)
+    if label in W6_TIMED:
+        print("\n".join(lines), flush=True)
+    print(f"W6 vs plain, {label} (launches {d.w6}, no plain stage): {text}",
+          flush=True)
+
+
+def w6_start_bytes(torch, ctx, packed, mat_type):
+    """The bytes W6's start moves on a call, each input read once and each
+    output written once: every ray's word, P, D and its medium (a medium
+    every ray shares once), and its nine output fields (75 bytes); an
+    emissive ray of a textured slot and an environment ray their uv, the
+    texels of their taps (four bilinear) and, with a lightmap past the
+    camera's bounce, the depth and the lightmap's texel; the colour and
+    light-intensity tables once."""
+    from raytracer_tpu_torch.materials.base import MAT_EMISSIVE, MAT_ENV
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+
+    n = packed.shape[0]
+    per_ray = lambda x: x.dim() == 2 and x.stride(0) != 0
+    per = 4 + 12 + 12 + 75 + sum(12 for x in (ctx.n_re, ctx.n_im) if per_ray(x))
+    once = sum(12 for x in (ctx.n_re, ctx.n_im) if not per_ray(x))
+    data, static, mats = ctx.data, ctx.static, ctx.data.mats
+    present = static.mat_types_present
+    slot = ctx.mat_slot.long()
+
+    def taps(tt, m):
+        """(the rays of m whose slot fetches from tt, their taps)"""
+        flags = tt[1][slot.clamp(0, tt[1].shape[0] - 1), 3]
+        fetched = m & ((flags & 1) != 0) & (slot < tt[1].shape[0])
+        return fetched, int((fetched.long() * (1 + 3 * ((flags & 2) != 0).long())).sum())
+
+    if MAT_EMISSIVE in present:
+        tt = ws.texture_tables(mats, mats.emissive_color, static.emissive_tex,
+                               data.textures, "w6_emissive")
+        once += mats.emissive_color.numel() * 4
+        if tt is not None:
+            fetched, k = taps(tt, mat_type == MAT_EMISSIVE)
+            once += 8 * int(fetched.sum()) + 12 * k
+    if MAT_ENV in present and static.env_slots:
+        tex, lm = bt.env_tables(data, static)
+        once += mats.env_light_intensity.numel() * 4
+        m = mat_type == MAT_ENV
+        fetched, k = taps(tex, m)
+        once += 8 * int(fetched.sum()) + 12 * k
+        if lm is not None:        # the depth of a lightmap's ray, its texel past it
+            with_lm = taps(lm, m)[0]
+            once += 4 * int(with_lm.sum()) + 12 * taps(lm, m & (ctx.depth != 0))[1]
+    return n * per + once
+
+
+def w6_update_bytes(torch, c, miss, acc):
+    """The bytes W6's update moves on a call, each input read once and
+    each output written once, as this call's data needs them: every ray's
+    L, beta, alive, counters and its 85 bytes of output (six (N, 3) float
+    rows, alive, three int32 counters); an alive ray's miss; a shaded ray's
+    add, cont and did_split, a continuing ray's beta_mult and is_diffuse;
+    each of the ray, its direction and its medium from the merged output
+    where the ray goes on, else from the carry (a medium every ray shares
+    once); rays_traced read and written."""
+    n = c.L.shape[0]
+    shaded = c.alive & ~miss
+    nxt = shaded & acc.cont
+    k_al, k_sh, k_nx = int(c.alive.sum()), int(shaded.sum()), int(nxt.sum())
+    shared = sum(1 for x in (c.n_re, c.n_im) if x.dim() == 2 and x.stride(0) == 0)
+    per = 12 + 12 + 1 + 4 * 3 + (6 * 12 + 1 + 3 * 4) + 12 * 2
+    moved = n * per + k_al + k_sh * (12 + 1 + 1) + k_nx * (12 + 1)
+    moved += 12 * (2 - shared) * n + 12 * shared * (k_nx + (n - k_nx > 0))
+    return moved + (16 if c.rays_traced is not None else 0)
+
+
+def w6_hold(torch, label):
+    """W6 against the plain stages on the calls captured in the render
+    `label` (every bounce of its first chunk): every field of every ray
+    bit for bit (floats by their bits, or both NaN; a share of exactly
+    1.0, required).  In W6_TIMED's each call is timed through a CUDA graph
+    (W6 alone) beside the plain stage (events), with its bytes, bound and
+    share.  Frees the captures.  Returns (a line a timed call, the text of
+    a line)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from raytracer_tpu_torch.probes import common
+
+    fields = {"bounce_start": ws.FLOAT_FIELDS + ws.BOOL_FIELDS,
+              "bounce_update": bt.CARRY_FLOATS + bt.CARRY_OTHERS}
+    lines, held = [], dict.fromkeys(W6_ENTRIES, 0)
+    for key in sorted(k for k in W6["captured"] if k[0] == label):
+        args = W6["captured"].pop(key)
+        entry, b = key[1], key[2]
+        W6["holding"] = True
+        try:
+            with torch.no_grad():
+                if entry == "bounce_start":
+                    got = bt._kernel_start(*args)
+                    want = bt.plain_start(args[0], args[2])
+                    launch = lambda: bt._launch_start(args[0], args[1])
+                    plain = lambda: bt.plain_start(args[0], args[2])
+                else:
+                    got, want = bt._kernel_update(*args), bt.plain_update(*args)
+                    launch = lambda: bt._launch_update(*args)
+                    plain = lambda: bt.plain_update(*args)
+                share, err = bits_share(torch, got, want, [
+                    f for f in fields[entry] if getattr(got, f) is not None])
+                W6["max_abs_err"][entry] = max(W6["max_abs_err"][entry], err)
+                require(share == 1.0, f"W6 {entry} on the {label} bounce {b}: "
+                        f"bit-equal share {share}")
+                del got, want
+                held[entry] += 1
+                if label not in W6_TIMED:
+                    continue
+                ms = common.graph_ms(launch, W6_REPS)[0]
+                plain_ms = common.cuda_ms(plain, 1)
+                n_bytes = (w6_start_bytes(torch, *args) if entry == "bounce_start"
+                           else w6_update_bytes(torch, *args))
+        finally:
+            W6["holding"] = False
+        if label not in W6_TIMED:
+            continue
+        n = args[1].shape[0]
+        bound_ms = common.bound(0, n_bytes)[0]
+        W6["timed"][entry].append(dict(label=label, name=f"{label} bounce {b}", rays=n,
+                                       ms=ms, plain_ms=plain_ms, bytes=n_bytes))
+        lines.append(f"W6 {entry[7:]} {label} bounce {b}: {n} rays, bit-equal 1.0, "
+                     f"W6 {ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms (bytes: "
+                     f"{n_bytes / 1e6:.1f} MB), share {bound_ms / ms:.4f}, plain "
+                     f"{plain_ms:.2f} ms")
+        del args
+    for k, v in held.items():
+        W6["held"][k] += v
+    torch.cuda.empty_cache()
+    text = (", ".join(f"{k[7:]} {v} calls" for k, v in held.items())
+            + " held, bit-equal 1.0")
+    for entry, tm in W6["timed"].items():
+        mine = [t["ms"] for t in tm if t["label"] == label]
+        if mine:
+            text += f"; {entry[7:]} {sum(mine) / len(mine):.4f} ms a call"
+    return lines, text
+
+
+def w6_resources(torch):
+    """Prints the registers, stack, local memory and resident blocks an SM
+    of W6's kernels (`cuobjdump -res-usage`, `bt.info`)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import cuda_build
+
+    use = resource_usage(cuda_build.build("kernels"))
+    parts = []
+    for entry, (kernel, _) in W6_ENTRIES.items():
+        r = use[next(k for k in use if kernel in k)]
+        inf = bt.info(entry)
+        parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
+                     f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
+                     f"{inf['block']} threads")
+    print("W6 kernels: " + " | ".join(parts), flush=True)
+
+
+def w6_rows(torch):
+    """W6's rows of the kernels line, one an entry at the first timed
+    render's first bounce (its most rays): its bound from the bytes it
+    moves there, and beside its time the mean a call over that chunk's
+    bounces; a line each."""
+    from raytracer_tpu_torch.probes import common
+
+    rows = []
+    for entry, (kernel, replaces) in W6_ENTRIES.items():
+        launches = W6["launches"][entry]
+        for label in W6_TIMED:
+            require(any(t["label"] == label for t in W6["timed"][entry]),
+                    f"W6 {entry} was never timed at {label}")
+        timed = [t for t in W6["timed"][entry] if t["label"] == W6_TIMED[0]]
+        require(launches > 0, f"W6 {entry} never launched in the driven renders")
+        tm = timed[0]
+        row = common.row(f"bounce_tail {entry} (W6)", "bounce_tail.cu", replaces,
+                         launches, W6["max_abs_err"][entry], tm["ms"], tm["plain_ms"],
+                         0, tm["bytes"])
+        row["chunk_mean_ms"] = sum(t["ms"] for t in timed) / len(timed)
+        rows.append(row)
+        print(f"W6 {entry} bound at the {tm['name']} ({tm['rays']} rays, "
+              f"{tm['bytes']} bytes): {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"W6 {tm['ms']:.4f} ms, share {row['bound_ms'] / tm['ms']:.4f}, mean "
+              f"{row['chunk_mean_ms']:.4f} ms a call over the {len(timed)} bounces "
+              f"of its chunk, plain {tm['plain_ms']:.2f} ms | {launches} launches "
+              f"in the driven renders, {W6['held'][entry]} calls held", flush=True)
+    return rows
 
 
 def w4_rows(torch):
@@ -4034,8 +4335,8 @@ def main():
         # the phase of W4 and W5 alone (after the build), for working on
         # them
         w4_phase(torch, dev)
-        print(json.dumps({"kernels": [*w4_rows(torch), w5_row(torch)]},
-                         default=float))
+        print(json.dumps({"kernels": [*w4_rows(torch), w5_row(torch),
+                                      *w6_rows(torch)]}, default=float))
         return 0
 
     if "--diff-mesh" in sys.argv[1:]:
@@ -4314,7 +4615,8 @@ def main():
               f"| {launches} launches in the driven renders", flush=True)
         require(launches > 0, f"W3 {key} never launched in the driven renders")
     print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
-                                  *w3_rows, *w4_rows(torch), w5_row(torch)]
+                                  *w3_rows, *w4_rows(torch), w5_row(torch),
+                                  *w6_rows(torch)]
                       + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,14 @@ Its random draws come from one torch.Generator, the same number of
 full-width draws in the same order every bounce whatever the rays hit
 (`_draw`), so one seed gives one image.  Each stage of a bounce runs
 under a torch.profiler range, "wavefront.nearest_hit", ".attributes",
-".draws", ".shade.<type>" and ".update", which a profiled render reports
-per stage (scripts/torch_render_profile.py).  The attributes (the hit
-point, the shading normal, uv, the material word and the nudge) come from
-ops/hit_attrs.py `attributes` (W5 on the card); normal maps perturb the
-shading normal before the blocks (ops/hit_attrs.py
-`_apply_normal_maps`, :120); a
+".draws", ".start", ".shade.<type>" and ".update", which a profiled
+render reports per stage (scripts/torch_render_profile.py).  The
+attributes (the hit point, the shading normal, uv, the material word and
+the nudge) come from ops/hit_attrs.py `attributes` (W5 on the card);
+normal maps perturb the shading normal before the blocks
+(ops/hit_attrs.py `_apply_normal_maps`, :120).  The start of each
+bounce's merged shading output, with the emissive and environment
+blocks, and the update come from ops/bounce_tail.py (W6 on the card); a
 CustomMaterial's `shade` runs as one more block per slot, drawing from
 the chunk's generator (ShadeCtx.generator) after the built-in draws.
 `trace_distances` is the depth AOV (:347).
@@ -38,7 +40,7 @@ from ..geometry.intersect import nearest_hit
 from ..materials import shade
 from ..materials.base import (MAT_CUSTOM, MAT_DIFFUSE, MAT_EMISSIVE, MAT_ENV,
                               MAT_GLOSSY, MAT_REFRACTIVE, MAT_THINFILM)
-from ..ops import hit_attrs, wavefront_shade
+from ..ops import bounce_tail, hit_attrs, wavefront_shade
 from ..utils.constants import NUDGE_EPS, WAVELENGTHS_NM
 from .safemath import div
 
@@ -139,19 +141,16 @@ def _draw(generator, static, n):
     return draws
 
 
-_NAMES = {MAT_EMISSIVE: "emissive", MAT_GLOSSY: "glossy",
-          MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
-          MAT_THINFILM: "thinfilm", MAT_ENV: "env", MAT_CUSTOM: "custom"}
-
-
 def _dispatch(static, mat_type, mat_slot):
-    """(name, shader) per block, in the JAX package's order
-    (integrator.py:247-260): the present types, a CustomMaterial type
-    unrolled into one block per slot.  A shader takes (ctx, draws, packed
-    words, the merged output so far) and returns the merged output with
-    its block's rays (its per-ray mask) shaded: the diffuse, refractive
-    and glossy blocks through their W4 wrappers (ops/wavefront_shade.py),
-    the others as their plain block merged with torch.where."""
+    """(name, shader) per block after the bounce's start, in the JAX
+    package's order (integrator.py:247-260): the present types but the
+    emissive and environment ones, which the start merges
+    (ops/bounce_tail.py), a CustomMaterial type unrolled into one block per
+    slot.  A shader takes (ctx, draws, packed words, the merged output so
+    far) and returns the merged output with its block's rays (its per-ray
+    mask) shaded: the diffuse, refractive and glossy blocks through their
+    W4 wrappers (ops/wavefront_shade.py), thin film and the custom blocks
+    as their plain block merged with torch.where."""
     out = []
     for mt in static.mat_types_present:
         if mt == MAT_CUSTOM:
@@ -168,27 +167,12 @@ def _dispatch(static, mat_type, mat_slot):
         elif mt == MAT_GLOSSY:
             out.append(("glossy", lambda ctx, d, p, acc, m=mat_type == mt:
                         wavefront_shade.shade_glossy(ctx, d, p, m, acc)))
-        else:
-            m = mat_type == mt
-            out.append((_NAMES.get(mt, mt), lambda ctx, d, p, acc, mt=mt, m=m:
-                        acc.merge(_shade(mt, ctx, d), m)))
+        elif mt == MAT_THINFILM:
+            out.append(("thinfilm", lambda ctx, d, p, acc, m=mat_type == mt:
+                        acc.merge(shade.shade_thinfilm(ctx, *d[MAT_THINFILM]), m)))
+        elif mt not in (MAT_EMISSIVE, MAT_ENV):
+            raise ValueError(f"unknown material type {mt}")
     return out
-
-
-def _shade(mt, ctx, draws):
-    if mt == MAT_EMISSIVE:
-        return shade.shade_emissive(ctx)
-    if mt == MAT_GLOSSY:
-        return shade.shade_glossy(ctx)
-    if mt == MAT_DIFFUSE:
-        return shade.shade_diffuse(ctx, *draws[mt])
-    if mt == MAT_REFRACTIVE:
-        return shade.shade_refractive(ctx, *draws[mt])
-    if mt == MAT_THINFILM:
-        return shade.shade_thinfilm(ctx, *draws[mt])
-    if mt == MAT_ENV:
-        return shade.shade_env(ctx)
-    raise ValueError(f"unknown material type {mt}")
 
 
 def trace(generator, origin, direction, n_re, n_im, data, static, settings,
@@ -213,62 +197,44 @@ def trace(generator, origin, direction, n_re, n_im, data, static, settings,
         pattern = torch.zeros((n,), dtype=torch.int32, device=dev)
     f3 = lambda v: torch.full((n, 3), v, dtype=origin.dtype, device=dev)
     zi = torch.zeros((n,), dtype=torch.int32, device=dev)
-    L, beta = f3(0.0), f3(1.0)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    depth = diffuse_refl = split_cnt = zi
-    O, D = origin, direction
-    n_re, n_im = n_re.expand(n, 3), n_im.expand(n, 3)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    c = bounce_tail.Carry(
+        L=f3(0.0), beta=f3(1.0), alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        depth=zi, diffuse_refl=zi, split_cnt=zi, O=origin, D=direction,
+        n_re=n_re.expand(n, 3), n_im=n_im.expand(n, 3),
+        rays_traced=(torch.zeros((), dtype=torch.int64, device=dev)
+                     if settings.collect_stats else None))
 
     for bounce in range(settings.max_bounces):
         with record_function("wavefront.nearest_hit"):
-            t, orient, obj = nearest_hit(O, D, data.geom)
+            t, orient, obj = nearest_hit(c.O, c.D, data.geom)
         with record_function("wavefront.attributes"):
             # W5 on the card: one launch (ops/hit_attrs.py)
-            a = hit_attrs.attributes(O, D, t, orient, obj, data, static, settings)
-            P, N_shad, uv, miss, eps, packed = a.P, a.N, a.uv, a.miss, a.eps, a.packed
-            mat_type, mat_slot = a.mat_type, a.mat_slot
-            obj_max_depth, obj_mc = a.obj_max_depth, a.obj_mc
+            a = hit_attrs.attributes(c.O, c.D, t, orient, obj, data, static, settings)
         with record_function("wavefront.draws"):
             draws = _draw(generator, static, n)
-        # W4 writes its blocks' rays into the merged output in place
-        acc = wavefront_shade.Merged.start(P, D, n_re, n_im)
-        ctx = ShadeCtx(data=data, static=static, bounce=bounce, D=D,
-                       n_re=n_re, n_im=n_im, depth=depth,
-                       diffuse_reflections=diffuse_refl, t=t, P=P, N=N_shad,
-                       uv=uv, orient=orient, mat_slot=mat_slot,
-                       obj_max_depth=obj_max_depth, obj_mc=obj_mc, eps=eps,
-                       pattern=pattern, split_cnt=split_cnt,
+        ctx = ShadeCtx(data=data, static=static, bounce=bounce, D=c.D,
+                       n_re=c.n_re, n_im=c.n_im, depth=c.depth,
+                       diffuse_reflections=c.diffuse_refl, t=t, P=a.P, N=a.N,
+                       uv=a.uv, orient=orient, mat_slot=a.mat_slot,
+                       obj_max_depth=a.obj_max_depth, obj_mc=a.obj_mc, eps=a.eps,
+                       pattern=pattern, split_cnt=c.split_cnt,
                        split_k=settings.split_k, strat_u=strat_u,
                        generator=generator)
-        for name, shader in _dispatch(static, mat_type, mat_slot):
+        with record_function("wavefront.start"):
+            # W6 on the card: the merged output with the emissive and
+            # environment rays shaded, one launch; W4 writes its blocks'
+            # rays into it in place
+            acc = bounce_tail.bounce_start(ctx, a.packed, a.mat_type)
+        for name, shader in _dispatch(static, a.mat_type, a.mat_slot):
             with record_function(f"wavefront.shade.{name}"):
-                acc = shader(ctx, draws, packed, acc)
-        add, beta_mult, cont = acc.add, acc.beta_mult, acc.cont
-        new_O, new_D, new_n_re, new_n_im = (acc.new_origin, acc.new_dir,
-                                            acc.new_n_re, acc.new_n_im)
-        inc_diff, inc_split = acc.is_diffuse, acc.did_split
-
+                acc = shader(ctx, draws, a.packed, acc)
         with record_function("wavefront.update"):
-            shaded = alive & ~miss
-            L = L + torch.where(shaded[..., None], beta * add, 0.0)
-            if settings.collect_stats:
-                rays_traced = rays_traced + alive.sum()
-            alive = shaded & cont
-            a3 = alive[..., None]
-            beta = torch.where(a3, beta * beta_mult, beta)
-            # dead rays keep their last O / D and are swept again each bounce
-            O = torch.where(a3, new_O, O)
-            D = torch.where(a3, new_D, D)
-            n_re = torch.where(a3, new_n_re, n_re)
-            n_im = torch.where(a3, new_n_im, n_im)
-            depth = depth + alive.to(torch.int32)
-            diffuse_refl = diffuse_refl + (alive & inc_diff).to(torch.int32)
-            split_cnt = split_cnt + (shaded & inc_split).to(torch.int32)
+            # W6 on the card: one launch
+            c = bounce_tail.bounce_update(c, a.miss, acc)
 
     if settings.collect_stats:
-        stats["rays_traced"] = rays_traced
-    return L, stats
+        stats["rays_traced"] = c.rays_traced
+    return c.L, stats
 
 
 def trace_distances(origin, direction, data, max_r_distance=10.0):

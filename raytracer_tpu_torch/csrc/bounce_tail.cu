@@ -1,0 +1,426 @@
+// W6: the wavefront's bounce tail for Hopper (sm_90a).
+//
+// Replaces two stages of the JAX package's wavefront bounce
+// (raytracer_tpu/core/integrator.py `trace`, :239-310): the start of the
+// merged shading output with the emissive and environment blocks merged
+// into it (raytracer_tpu/materials/shade.py:51 `default_shade_out`, :130
+// `_slot_color`, :176 `shade_emissive`, :190 `shade_env`, the merges at
+// integrator.py:239-287), and the radiance, throughput and carry update
+// (integrator.py:289-310).  Neither has a Pallas kernel: they are jnp,
+// which XLA fuses into the bounce's loops on the TPU.  Eager torch cannot
+// fuse them, so the port's plain versions (ops/bounce_tail.py
+// `plain_start`, `plain_update`) make ~45 launches a bounce, each a pass
+// over device memory: on Cornell rendered on the wavefront the update
+// took ~185 ms and the emissive merges ~141 ms of a frame's 1.03 s of
+// device time (PERF.md).  Here each stage is one launch, one thread a ray.
+// The wrappers are in ops/bounce_tail.py.
+//
+// `bounce_start` writes every field of the bounce's merged output (ops/
+// wavefront_shade.py `Merged`) into fresh tensors: no emission, unit
+// throughput, the ray as it came (P, D and the medium copied; a medium
+// every ray shares read as its one row), no continuation.  Those are also
+// the emissive and environment blocks' own fields (materials/shade.py
+// `default_shade_out`) and their rays are no other block's, so merging the
+// two blocks changes `add` on their rays only: an emissive ray's is its
+// slot's colour (the solid table, the slot clamped, or the slot's image
+// texture), an environment ray's its texel, plus light_intensity x the
+// lightmap's texel past the camera's ray (depth != 0).  The image
+// textures come as W4 reads them (ops/wavefront_shade.py
+// `texture_tables`): one flat texel buffer and a descriptor a slot, read
+// by W4's own fetch (csrc/texture_fetch.cuh `fetch_texture`,
+// `slot_color`).  Each ray's `add` is made once, by its own thread, and
+// handed through shared memory to the threads that write its tile's rows.
+// W4 then writes its blocks' rays into the output in place.
+//
+// `bounce_update` reads the carry (L, beta, alive, the ray, the medium,
+// the path counters) and the merged output and writes the next carry out
+// of place: shaded = alive & !miss; L + (shaded ? beta * add : 0);
+// alive' = shaded & cont; where alive', beta * beta_mult, the new ray and
+// medium, else the old; depth + alive', diffuse_refl + (alive' &
+// is_diffuse), split_cnt + (shaded & did_split).  With a count it adds the
+// bounce's alive rays to rays_traced: each block's count is added to a
+// 64-bit sum in a scratch word, and the last block to finish (a ticket
+// beside it) writes rays_traced + that sum and zeroes both for the next
+// launch.  Integers add in any order to the same sum.
+//
+// Arithmetic is the plain versions', operation by operation, as torch
+// computes each op (the library is built with --fmad=false): one rounding
+// a product or a sum, the texture fetch's float -> int32 truncation,
+// floored modulo and wrapping int32 arithmetic as csrc/texture_fetch.cuh
+// restates them,
+// where() as a select (NaN and -0 carried as they are), `c + 0.0f` kept
+// where the plain block adds a where() of 0.0 (it turns -0 into +0).  The
+// CPU's torch rounds these ops the same way, so the CPU stand-in build
+// (csrc/emu) needs no variant.
+//
+// What bounds both: memory.  The start reads a ray's word, P, D (and its
+// medium, unless shared) and writes 75 bytes; the update reads 86-125
+// bytes a ray (more as the ray is shaded and goes on) and writes 85.
+// Their arithmetic is a few tens of issue slots a ray.
+//
+// Every entry returns cudaGetLastError() after its launch and reports the
+// kernels it launched.
+
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+#include "texture_fetch.cuh"
+
+#ifndef CUDA_EMU
+#define LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+
+namespace w6 {
+
+using namespace texture_fetch;
+
+constexpr int TAIL_BLOCK = 256;       // threads a block
+constexpr int MAT_EMISSIVE = 1, MAT_ENV = 6;
+constexpr int SLOT_SHIFT = 3;
+
+// ---------------------------------------------------------------------------
+// bounce_start: the merged output with the emissive and environment blocks
+// ---------------------------------------------------------------------------
+
+// The bounce's rays ((N, 3) float32 rows unless said) and the merged
+// output's fields, each a contiguous tensor the wrapper made.
+struct Start {
+  const int* packed;          // (N,) the object's packed material word
+  const float* P;             // hit points
+  const float* D;             // directions
+  const float* uv;            // (N, 2), read where a texture is fetched
+  const float* n_re;          // current medium, rows re_step floats apart
+  const float* n_im;          // rows im_step floats apart
+  long long re_step;          // 3, or 0 for one medium shared by every ray
+  long long im_step;
+  const int* depth;           // (N,) int32, read where a lightmap is added
+  long long n;
+  // the emissive block, where present: its slots' colours (em_rows, 3) and
+  // image textures
+  int emissive;
+  const float* em_color;
+  int em_rows;
+  Textures em_tex;
+  // the environment block, where present: a descriptor an environment slot
+  // (env_rows of them) of its display texture and of its lightmap (flags 0
+  // where it has none), and its slots' light intensity (env_rows,)
+  int env;
+  Textures env_tex;
+  Textures env_lm;
+  const float* env_li;
+  int env_rows;
+  // the merged output
+  float* add;
+  float* beta_mult;
+  float* new_origin;
+  float* new_dir;
+  float* new_n_re;
+  float* new_n_im;
+  unsigned char* cont;
+  unsigned char* is_diffuse;
+  unsigned char* did_split;
+};
+
+// materials/shade.py shade_env: the environment slot's texel (repeat 1,
+// nearest), plus light_intensity x the lightmap's where depth != 0; zero
+// for a slot no environment names
+__device__ __forceinline__ void env_color(const Start& S, long long i, int slot,
+                                          float* c) {
+  c[0] = c[1] = c[2] = 0.0f;
+  if (slot < 0 || slot >= S.env_rows || !(S.env_tex.desc_i[4 * slot + 3] & 1)) return;
+  const float u = S.uv[2 * i], v = S.uv[2 * i + 1];
+  fetch_texture(S.env_tex, slot, u, v, c);
+  if (S.env_lm.desc_i == nullptr || !(S.env_lm.desc_i[4 * slot + 3] & 1)) return;
+  // the lightmap's texel is read past the camera's bounce only: the
+  // where() gives 0 at depth 0, whatever the texel
+  const bool past = S.depth[i] != 0;
+  float li = 0.0f, lm[3] = {0.0f, 0.0f, 0.0f};
+  if (past) {
+    li = S.env_li[slot];
+    fetch_texture(S.env_lm, slot, u, v, lm);
+  }
+  for (int k = 0; k < 3; ++k) c[k] = c[k] + (past ? li * lm[k] : 0.0f);
+}
+
+// The rays in tiles of TAIL_BLOCK, grid-stride: in each tile each ray's
+// own fields (ray(i, t): ray i, thread t of the block), then the (N, 3)
+// rows' 3 x TAIL_BLOCK floats element by element, neighbouring threads on
+// neighbouring floats (each warp's loads and stores then fill whole
+// sectors, where a thread a ray strides them 12 bytes apart; element(i, k,
+// t): component k of ray i, the ray of thread t).  With kHanded the block
+// syncs between the two passes (a ray's pass hands its elements their
+// values through shared memory) and after them (the next tile's rays
+// overwrite them).
+template <bool kHanded, class Ray, class Element>
+__device__ __forceinline__ void by_tiles(long long n, Ray ray, Element element) {
+  const long long stride = (long long)gridDim.x * TAIL_BLOCK;
+  for (long long r0 = (long long)blockIdx.x * TAIL_BLOCK; r0 < n; r0 += stride) {
+    const long long i = r0 + threadIdx.x;
+    if (i < n) ray(i, (int)threadIdx.x);
+    if (kHanded) __syncthreads();
+    for (int c = 0; c < 3; ++c) {
+      const int local = c * TAIL_BLOCK + (int)threadIdx.x;
+      const long long j = r0 + local / 3;
+      if (j < n) element(j, local % 3, local / 3);
+    }
+    if (kHanded) __syncthreads();
+  }
+}
+
+// ray i's `add`: its emissive slot's colour or its environment's, else 0
+__device__ __forceinline__ void start_add(const Start& S, long long i, float* a) {
+  const int word = __ldg(S.packed + i);
+  const int type = word & 0x7, slot = (word >> SLOT_SHIFT) & 0x3FF;
+  a[0] = a[1] = a[2] = 0.0f;
+  if (S.emissive && type == MAT_EMISSIVE) {
+    slot_color(S.em_color, S.em_rows, S.em_tex, slot, S.uv[2 * i], S.uv[2 * i + 1], a);
+  } else if (S.env && type == MAT_ENV) {
+    env_color(S, i, slot, a);
+  }
+}
+
+// component k of ray i's float fields, its `add` component given
+__device__ __forceinline__ void start_element(const Start& S, long long i, int k,
+                                              float add) {
+  const long long j = 3 * i + k;
+  S.add[j] = add;
+  S.beta_mult[j] = 1.0f;
+  S.new_origin[j] = __ldg(S.P + j);
+  S.new_dir[j] = __ldg(S.D + j);
+  S.new_n_re[j] = __ldg(S.n_re + S.re_step * i + k);
+  S.new_n_im[j] = __ldg(S.n_im + S.im_step * i + k);
+}
+
+__global__ void __launch_bounds__(TAIL_BLOCK)
+bounce_start_kernel(Start S) {
+  __shared__ float adds[TAIL_BLOCK][3];
+  by_tiles<true>(
+      S.n,
+      [&](long long i, int t) {
+        start_add(S, i, adds[t]);
+        S.cont[i] = 0;
+        S.is_diffuse[i] = 0;
+        S.did_split[i] = 0;
+      },
+      [&](long long i, int k, int t) { start_element(S, i, k, adds[t][k]); });
+}
+
+// ---------------------------------------------------------------------------
+// bounce_update: the radiance, throughput and carry update
+// ---------------------------------------------------------------------------
+
+// The carry and the merged output ((N, 3) float32 rows, (N,) bool and
+// int32 unless said), and the next carry, each a contiguous tensor the
+// wrapper made.
+struct Update {
+  const float* L;
+  const float* beta;
+  const unsigned char* alive;
+  const unsigned char* miss;
+  const float* add;
+  const float* beta_mult;
+  const float* new_origin;
+  const float* new_dir;
+  const float* new_n_re;
+  const float* new_n_im;
+  const unsigned char* cont;
+  const unsigned char* is_diffuse;
+  const unsigned char* did_split;
+  const float* O;
+  const float* D;
+  const float* n_re;          // the carried medium, rows re_step floats apart
+  const float* n_im;
+  long long re_step;          // 3, or 0 for one medium shared by every ray
+  long long im_step;
+  const int* depth;
+  const int* diffuse_refl;
+  const int* split_cnt;
+  const long long* traced;    // () rays traced so far, or null: no count
+  long long n;
+  float* L_out;
+  float* beta_out;
+  unsigned char* alive_out;
+  float* O_out;
+  float* D_out;
+  float* n_re_out;
+  float* n_im_out;
+  int* depth_out;
+  int* diffuse_out;
+  int* split_out;
+  long long* traced_out;      // () rays_traced + the bounce's alive rays
+  // with a count: (the blocks' 64-bit sum, their ticket), zero between
+  // launches (the last block zeroes them)
+  unsigned long long* scratch;
+};
+
+// ray i's fate this bounce: alive at its start, shaded (alive and a hit),
+// going on (shaded and its block continues it)
+struct Fate {
+  bool alive, shaded, next;
+};
+__device__ __forceinline__ Fate fate(const Update& U, long long i) {
+  const bool alive = __ldg(U.alive + i) != 0;
+  const bool shaded = alive && __ldg(U.miss + i) == 0;
+  return {alive, shaded, shaded && __ldg(U.cont + i) != 0};
+}
+
+// component k of ray i's float fields
+__device__ __forceinline__ void update_element(const Update& U, long long i, int k) {
+  const Fate f = fate(U, i);
+  const bool shaded = f.shaded, next = f.next;
+  const long long j = 3 * i + k;
+  const float b = __ldg(U.beta + j);
+  U.L_out[j] = __ldg(U.L + j) + (shaded ? b * __ldg(U.add + j) : 0.0f);
+  U.beta_out[j] = next ? b * __ldg(U.beta_mult + j) : b;
+  U.O_out[j] = next ? __ldg(U.new_origin + j) : __ldg(U.O + j);
+  U.D_out[j] = next ? __ldg(U.new_dir + j) : __ldg(U.D + j);
+  U.n_re_out[j] = next ? __ldg(U.new_n_re + j) : __ldg(U.n_re + U.re_step * i + k);
+  U.n_im_out[j] = next ? __ldg(U.new_n_im + j) : __ldg(U.n_im + U.im_step * i + k);
+}
+
+// ray i's own fields; returns whether it was alive (counted in rays_traced)
+__device__ __forceinline__ bool update_ray(const Update& U, long long i) {
+  const Fate f = fate(U, i);
+  const bool alive = f.alive, shaded = f.shaded, next = f.next;
+  U.alive_out[i] = next;
+  U.depth_out[i] = wrap_add(__ldg(U.depth + i), next ? 1 : 0);
+  U.diffuse_out[i] = wrap_add(__ldg(U.diffuse_refl + i),
+                              next && __ldg(U.is_diffuse + i) != 0 ? 1 : 0);
+  U.split_out[i] = wrap_add(__ldg(U.split_cnt + i),
+                            shaded && __ldg(U.did_split + i) != 0 ? 1 : 0);
+  return alive;
+}
+
+__global__ void __launch_bounds__(TAIL_BLOCK)
+bounce_update_kernel(Update U) {
+  __shared__ unsigned long long block_alive;
+  unsigned long long mine = 0;
+  by_tiles<false>(
+      U.n, [&](long long i, int) { mine += update_ray(U, i) ? 1ull : 0ull; },
+      [&](long long i, int k, int) { update_element(U, i, k); });
+  if (U.traced == nullptr) return;
+  if (threadIdx.x == 0) block_alive = 0;
+  __syncthreads();
+  if (mine) atomicAdd(&block_alive, mine);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long* sum = U.scratch;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(U.scratch + 1);
+  atomicAdd(sum, block_alive);
+  __threadfence();
+  if (atomicAdd(ticket, 1u) != gridDim.x - 1) return;
+  // the last block: every other block's sum is in
+  const unsigned long long total = atomicAdd(sum, 0ull);
+  *U.traced_out = *U.traced + (long long)total;
+  *sum = 0;
+  *ticket = 0;
+}
+
+// The card's SMs and a kernel's resident blocks an SM.
+template <class F>
+cudaError_t residency(F kernel, int* sms, int* per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, TAIL_BLOCK, 0);
+  return err;
+}
+
+// A grid of at most the card's resident blocks (the threads loop over the
+// rays), at least one block, no more than the rays need.
+template <class F>
+cudaError_t grid_for(F kernel, long long n, int* grid) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = residency(kernel, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  const long long need = (n + TAIL_BLOCK - 1) / TAIL_BLOCK;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (int)(need < 1 ? 1 : (need < most ? need : most));
+  return cudaSuccess;
+}
+
+bool textures_ok(const Textures& T) {
+  return T.desc_i == nullptr || (T.texels && T.desc_f);
+}
+
+bool start_ok(const Start& S) {
+  return S.n >= 1 && S.packed && S.P && S.D && S.n_re && S.n_im
+         && (S.re_step == 0 || S.re_step == 3) && (S.im_step == 0 || S.im_step == 3)
+         && (!S.emissive || (S.em_color && S.em_rows >= 1 && S.uv && textures_ok(S.em_tex)))
+         && (!S.env || (S.env_tex.desc_i && textures_ok(S.env_tex) && textures_ok(S.env_lm)
+                        && S.env_li && S.env_rows >= 1 && S.uv && S.depth))
+         && S.add && S.beta_mult && S.new_origin && S.new_dir && S.new_n_re && S.new_n_im
+         && S.cont && S.is_diffuse && S.did_split;
+}
+
+bool update_ok(const Update& U) {
+  return U.n >= 1 && U.L && U.beta && U.alive && U.miss && U.add && U.beta_mult
+         && U.new_origin && U.new_dir && U.new_n_re && U.new_n_im && U.cont
+         && U.is_diffuse && U.did_split && U.O && U.D && U.n_re && U.n_im
+         && (U.re_step == 0 || U.re_step == 3) && (U.im_step == 0 || U.im_step == 3)
+         && U.depth && U.diffuse_refl && U.split_cnt && U.L_out && U.beta_out
+         && U.alive_out && U.O_out && U.D_out && U.n_re_out && U.n_im_out
+         && U.depth_out && U.diffuse_out && U.split_out
+         && (!U.traced || (U.traced_out && U.scratch));
+}
+
+template <class F>
+int info_of(F kernel, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = residency(kernel, &out[3], &out[2]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[4] = TAIL_BLOCK;
+  return 0;
+}
+
+}  // namespace w6
+
+using namespace w6;
+
+// The merged output of the bounce S (ops/bounce_tail.py builds it), one
+// launch.  Returns 0 or a CUDA error, and sets *launched to the kernels
+// launched.
+extern "C" int bounce_start(const Start* S, void* stream, int* launched) {
+  *launched = 0;
+  if (!start_ok(*S)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_for(bounce_start_kernel, S->n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH(bounce_start_kernel, grid, TAIL_BLOCK, 0, static_cast<cudaStream_t>(stream),
+         *S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// The next carry of the bounce U (ops/bounce_tail.py builds it), one
+// launch.  Returns 0 or a CUDA error, and sets *launched to the kernels
+// launched.
+extern "C" int bounce_update(const Update* U, void* stream, int* launched) {
+  *launched = 0;
+  if (!update_ok(*U)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_for(bounce_update_kernel, U->n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH(bounce_update_kernel, grid, TAIL_BLOCK, 0, static_cast<cudaStream_t>(stream),
+         *U);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// What a kernel was built to (which: 0 the start, 1 the update): out[0]
+// registers a thread, out[1] local memory a thread (bytes: spills and
+// stack), out[2] resident blocks an SM, out[3] the SMs, out[4] TAIL_BLOCK.
+extern "C" int bounce_tail_info(int which, int* out) {
+  if (which == 0) return info_of(bounce_start_kernel, out);
+  if (which == 1) return info_of(bounce_update_kernel, out);
+  return (int)cudaErrorInvalidValue;
+}

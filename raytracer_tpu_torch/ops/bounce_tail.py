@@ -1,0 +1,503 @@
+"""W6: the wavefront's bounce tail (csrc/bounce_tail.cu).
+
+`core/integrator.py` `trace` starts each bounce's merged shading output
+with `bounce_start` and ends the bounce with `bounce_update`:
+
+- `bounce_start`: the merged output (ops/wavefront_shade.py `Merged`)
+  every ray starts from (no emission, unit throughput, the ray as it came,
+  no continuation) with the emissive and environment blocks
+  (materials/shade.py `shade_emissive`, `shade_env`) merged into it; the
+  diffuse, refractive and glossy blocks (W4) then write their rays into
+  it in place, and the other blocks merge into it.
+- `bounce_update`: the radiance, throughput and carry update, from one
+  `Carry` (the wavefront's state between bounces) to the next.
+
+On CUDA tensors each is one launch of W6 (a failed build or launch
+raises; nothing falls back); on CPU tensors it is W6's plain version,
+`plain_start` / `plain_update`, the stage as `trace` ran it op by op,
+which W6 equals bit for bit.  `bounce_start.launches` and
+`bounce_update.launches` count the kernels launched.
+
+W6 reads the emissive and environment textures as W4 reads its blocks'
+(`wavefront_shade.texture_tables`: one flat texel buffer and a
+descriptor a slot, made once per data and kept on its material tables),
+and a medium every ray shares as its one row.  Where autograd records a
+stage (grad enabled and an input requiring grad), the kernel runs inside
+`_Start` / `_Update`, whose backward recomputes the plain stage for its
+vector-Jacobian product: the gradient is the plain stage's.
+
+The `_launch_start` / `_launch_update` functions take `lib=`: the tests
+pass the CPU stand-in's build of the source (csrc/emu) with CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Any
+
+import torch
+
+from ..core.compile import TexRef
+from ..materials import shade
+from ..materials.base import MAT_EMISSIVE, MAT_ENV
+from . import cuda_build
+from . import wavefront_shade as ws
+from .mesh_sweep import _call
+from .plain_grad import plain_vjp
+
+_V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# W6's kernels by name, as a profile lists them
+KERNELS = ("bounce_start_kernel", "bounce_update_kernel")
+
+
+class Start(ctypes.Structure):
+    _fields_ = [("packed", _V), ("P", _V), ("D", _V), ("uv", _V), ("n_re", _V),
+                ("n_im", _V), ("re_step", _L), ("im_step", _L), ("depth", _V),
+                ("n", _L), ("emissive", _I), ("em_color", _V), ("em_rows", _I),
+                ("em_tex", ws.Textures), ("env", _I), ("env_tex", ws.Textures),
+                ("env_lm", ws.Textures), ("env_li", _V), ("env_rows", _I),
+                *((f, _V) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS)]
+
+
+_CARRY_IN = ("L", "beta", "alive", "miss", "add", "beta_mult", "new_origin",
+             "new_dir", "new_n_re", "new_n_im", "cont", "is_diffuse", "did_split",
+             "O", "D", "n_re", "n_im")
+
+
+class Update(ctypes.Structure):
+    _fields_ = [*((f, _V) for f in _CARRY_IN), ("re_step", _L), ("im_step", _L),
+                ("depth", _V), ("diffuse_refl", _V), ("split_cnt", _V),
+                ("traced", _V), ("n", _L),
+                *((f, _V) for f in ("L_out", "beta_out", "alive_out", "O_out",
+                                    "D_out", "n_re_out", "n_im_out", "depth_out",
+                                    "diffuse_out", "split_out", "traced_out",
+                                    "scratch"))]
+
+
+ENTRIES = {"bounce_start": [ctypes.POINTER(Start), _V, ctypes.POINTER(_I)],
+           "bounce_update": [ctypes.POINTER(Update), _V, ctypes.POINTER(_I)]}
+
+
+@dataclass
+class Carry:
+    """The wavefront's state between bounces (the JAX package's scan
+    carry, integrator.py:213): radiance and throughput (N, 3), the rays
+    alive (N,) bool, the path counters (N,) int32, the rays (N, 3), the
+    medium (N, 3) (the expand of one row at the first bounce) and the rays
+    traced so far (a 0-dim int64 tensor, or None: not counted)."""
+    L: Any
+    beta: Any
+    alive: Any
+    depth: Any
+    diffuse_refl: Any
+    split_cnt: Any
+    O: Any
+    D: Any
+    n_re: Any
+    n_im: Any
+    rays_traced: Any = None
+
+
+CARRY_FLOATS = ("L", "beta", "O", "D", "n_re", "n_im")
+CARRY_OTHERS = ("alive", "depth", "diffuse_refl", "split_cnt", "rays_traced")
+
+
+# ---------------------------------------------------------------------------
+# the plain versions (the stages as core/integrator.py ran them, op by op)
+# ---------------------------------------------------------------------------
+
+
+def plain_start(ctx, mat_type):
+    """W6's plain start: `Merged.start` (copies of P, D and the medium, no
+    emission, unit throughput, no continuation), then the emissive and
+    environment blocks merged where present.  ctx: what the blocks read of
+    the bounce (P, D, n_re, n_im, uv, mat_slot, depth, data, static)."""
+    acc = ws.Merged.start(ctx.P, ctx.D, ctx.n_re, ctx.n_im)
+    present = ctx.static.mat_types_present
+    if MAT_EMISSIVE in present:
+        acc = acc.merge(shade.shade_emissive(ctx), mat_type == MAT_EMISSIVE)
+    if MAT_ENV in present:
+        acc = acc.merge(shade.shade_env(ctx), mat_type == MAT_ENV)
+    return acc
+
+
+def plain_update(c, miss, acc):
+    """W6's plain update: the next Carry from c, the rays' misses and the
+    bounce's merged output."""
+    shaded = c.alive & ~miss
+    L = c.L + torch.where(shaded[..., None], c.beta * acc.add, 0.0)
+    traced = None if c.rays_traced is None else c.rays_traced + c.alive.sum()
+    alive = shaded & acc.cont
+    a3 = alive[..., None]
+    beta = torch.where(a3, c.beta * acc.beta_mult, c.beta)
+    # dead rays keep their last O / D and are swept again each bounce
+    O = torch.where(a3, acc.new_origin, c.O)
+    D = torch.where(a3, acc.new_dir, c.D)
+    n_re = torch.where(a3, acc.new_n_re, c.n_re)
+    n_im = torch.where(a3, acc.new_n_im, c.n_im)
+    depth = c.depth + alive.to(torch.int32)
+    diffuse_refl = c.diffuse_refl + (alive & acc.is_diffuse).to(torch.int32)
+    split_cnt = c.split_cnt + (shaded & acc.did_split).to(torch.int32)
+    return Carry(L, beta, alive, depth, diffuse_refl, split_cnt, O, D, n_re, n_im,
+                 traced)
+
+
+# ---------------------------------------------------------------------------
+# the launches
+# ---------------------------------------------------------------------------
+
+
+def _same_device(dev, **xs):
+    for name, x in xs.items():
+        if x is not None and x.device != dev:
+            raise ValueError(f"W6: {name} is on {x.device}, the rays on {dev}")
+
+
+def _rows(name, x, n, dtype, width=None):
+    """x detached and contiguous; raise unless of `dtype` and (n,) or
+    (n, width)."""
+    if x.dtype != dtype:
+        raise TypeError(f"W6 takes {dtype} {name}, got {x.dtype}")
+    if x.shape != ((n,) if width is None else (n, width)):
+        raise ValueError(f"W6: {name} has shape {tuple(x.shape)} for {n} rays")
+    return x.detach().contiguous()
+
+
+def env_tables(data, static):
+    """(display, lightmap) texture tables of the environment slots, over
+    the light-intensity table's rows (`texture_tables`, repeat 1, nearest),
+    each slot's last EnvSlot winning as in `shade.shade_env`; the lightmap
+    table None where no winner has one."""
+    last = {e.slot: e for e in static.env_slots}.values()
+    mats = data.mats
+    tex = ws.texture_tables(mats, mats.env_light_intensity,
+                            [TexRef(e.slot, e.tex, 1.0) for e in last],
+                            data.textures, "w6_env")
+    lm = ws.texture_tables(mats, mats.env_light_intensity,
+                           [TexRef(e.slot, e.lightmap, 1.0) for e in last
+                            if e.lightmap is not None], data.textures, "w6_lightmap")
+    return tex, lm
+
+
+def _launch_start(ctx, packed, lib=None):
+    """W6's start from `lib` on the bounce: a Merged of fresh contiguous
+    tensors.  Adds its launches to `bounce_start.launches`."""
+    n, dev = ctx.P.shape[0], ctx.P.device
+    f = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
+    b = lambda: torch.empty((n,), dtype=torch.bool, device=dev)
+    out = ws.Merged(f(), f(), f(), f(), f(), f(), b(), b(), b())
+    if n == 0:
+        return out
+    data, static, mats = ctx.data, ctx.static, ctx.data.mats
+    n_re, re_step = ws._medium(ctx.n_re)
+    n_im, im_step = ws._medium(ctx.n_im)
+    ins = dict(packed=_rows("packed words", packed, n, torch.int32),
+               P=_rows("P", ctx.P, n, torch.float32, 3),
+               D=_rows("D", ctx.D, n, torch.float32, 3),
+               uv=_rows("uv", ctx.uv, n, torch.float32, 2),
+               depth=_rows("depth", ctx.depth, n, torch.int32), n_re=n_re, n_im=n_im)
+    _same_device(dev, **ins)
+    present = static.mat_types_present
+    em = MAT_EMISSIVE in present
+    color = ws._f32(mats.emissive_color) if em else None
+    em_tt = (ws.texture_tables(mats, mats.emissive_color, static.emissive_tex,
+                               data.textures, "w6_emissive") if em else None)
+    env = MAT_ENV in present and bool(static.env_slots)
+    env_tt, lm_tt = env_tables(data, static) if env else (None, None)
+    li = ws._f32(mats.env_light_intensity) if env else None
+    _same_device(dev, emissive_color=color, env_light_intensity=li)
+    struct = Start(**{k: v.data_ptr() for k, v in ins.items()}, re_step=re_step,
+                   im_step=im_step, n=n, emissive=int(em), em_color=ws._p(color),
+                   em_rows=color.shape[0] if em else 0, em_tex=ws._textures(em_tt),
+                   env=int(env), env_tex=ws._textures(env_tt), env_lm=ws._textures(lm_tt),
+                   env_li=ws._p(li), env_rows=li.shape[0] if env else 0,
+                   **{k: getattr(out, k).data_ptr()
+                      for k in ws.FLOAT_FIELDS + ws.BOOL_FIELDS})
+    _COUNTED["bounce_start"].launches += _call(
+        lib, "bounce_start", ctypes.byref(struct), cuda_build.stream_of(dev),
+        entries=ENTRIES)
+    return out
+
+
+_SCRATCH = {}
+
+
+def _scratch(device, stream):
+    """The update's scratch for launches on `stream` of `device`: (the
+    blocks' 64-bit sum, their ticket), zero between launches (the last
+    block zeroes it); made once a stream.  Launches on one stream run one
+    after another; two streams' launches, which may run at once, never
+    share a scratch."""
+    key = (device, None if stream is None else stream.value)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _SCRATCH[key]
+
+
+def _launch_update(c, miss, acc, lib=None):
+    """W6's update from `lib`: the next Carry, fresh contiguous tensors.
+    Adds its launches to `bounce_update.launches`."""
+    n, dev = c.L.shape[0], c.L.device
+    f3 = lambda name, x: _rows(name, x, n, torch.float32, 3)
+    b = lambda name, x: _rows(name, x, n, torch.bool)
+    i = lambda name, x: _rows(name, x, n, torch.int32)
+    n_re, re_step = ws._medium(c.n_re)
+    n_im, im_step = ws._medium(c.n_im)
+    ins = dict(L=f3("L", c.L), beta=f3("beta", c.beta), alive=b("alive", c.alive),
+               miss=b("miss", miss),
+               **{k: f3(k, getattr(acc, k)) for k in ws.FLOAT_FIELDS},
+               **{k: b(k, getattr(acc, k)) for k in ws.BOOL_FIELDS},
+               O=f3("O", c.O), D=f3("D", c.D), n_re=n_re, n_im=n_im,
+               depth=i("depth", c.depth), diffuse_refl=i("diffuse_refl", c.diffuse_refl),
+               split_cnt=i("split_cnt", c.split_cnt))
+    traced = c.rays_traced
+    if traced is not None:
+        if traced.dtype != torch.int64 or traced.dim() != 0:
+            raise TypeError("W6 counts rays_traced in a 0-dim int64 tensor")
+        ins["traced"] = traced.detach()
+    _same_device(dev, **ins)
+    fl = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
+    it = lambda: torch.empty((n,), dtype=torch.int32, device=dev)
+    out = Carry(L=fl(), beta=fl(), alive=torch.empty((n,), dtype=torch.bool, device=dev),
+                depth=it(), diffuse_refl=it(), split_cnt=it(), O=fl(), D=fl(),
+                n_re=fl(), n_im=fl(),
+                rays_traced=None if traced is None else torch.empty(
+                    (), dtype=torch.int64, device=dev))
+    if n == 0:
+        out.rays_traced = traced
+        return out
+    stream = cuda_build.stream_of(dev)
+    scratch = _scratch(dev, stream) if traced is not None else None
+    struct = Update(**{k: v.data_ptr() for k, v in ins.items()}, re_step=re_step,
+                    im_step=im_step, n=n,
+                    **{f"{k}_out": getattr(out, k).data_ptr()
+                       for k in ("L", "beta", "alive", "O", "D", "n_re", "n_im",
+                                 "depth")},
+                    diffuse_out=out.diffuse_refl.data_ptr(),
+                    split_out=out.split_cnt.data_ptr(),
+                    traced_out=ws._p(out.rays_traced), scratch=ws._p(scratch))
+    _COUNTED["bounce_update"].launches += _call(
+        lib, "bounce_update", ctypes.byref(struct), stream, entries=ENTRIES)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: the kernel forward, the plain stage's backward
+# ---------------------------------------------------------------------------
+
+_START_RAYS = ("P", "D", "n_re", "n_im", "uv")
+
+
+def _start_inputs(ctx):
+    """The tensors the start's output is a function of, flat: the rays'
+    P, D, medium and uv, the emissive colours, the environments' light
+    intensity and the textures."""
+    mats = ctx.data.mats
+    return ([getattr(ctx, f) for f in _START_RAYS]
+            + [mats.emissive_color, mats.env_light_intensity, *ctx.data.textures])
+
+
+def _start_ctx(xs, mat_slot, depth, data, static):
+    """What `plain_start` reads, with the tensors of `_start_inputs`
+    replaced by xs."""
+    k = len(_START_RAYS)
+    data = dataclasses.replace(
+        data, mats=dataclasses.replace(data.mats, emissive_color=xs[k],
+                                       env_light_intensity=xs[k + 1]),
+        textures=tuple(xs[k + 2:]))
+    return SimpleNamespace(**dict(zip(_START_RAYS, xs[:k])), mat_slot=mat_slot,
+                           depth=depth, data=data, static=static)
+
+
+def _start_flow(ctx, mat_type, flags):
+    """The float fields of the plain start's output that depend on an
+    input requiring grad (flags: one a tensor of `_start_inputs`), read
+    off its first ray on the meta device (`ws.kept_flow`); kept on the
+    scene's static facts per flags."""
+    def plain():
+        xs = _start_inputs(ctx)
+        k = len(_START_RAYS)
+        xs = [ws._meta(x[:1]) for x in xs[:k]] + [ws._meta(x) for x in xs[k:]]
+        leaves = [x.requires_grad_(fl) if fl else x for x, fl in zip(xs, flags)]
+        return plain_start(_start_ctx(leaves, ws._meta(ctx.mat_slot[:1]),
+                                      ws._meta(ctx.depth[:1]), ctx.data, ctx.static),
+                           ws._meta(mat_type[:1]))
+
+    return ws.kept_flow(ctx.static, "_w6_flow", flags, plain)
+
+
+class _Start(torch.autograd.Function):
+    """W6's start forward (xs: `_start_inputs`), its fields that take no
+    gradient from the plain start (`_start_flow`) and its bools marked
+    non-differentiable.  Backward: the plain start recomputed from the
+    saved inputs, and its vector-Jacobian product for the inputs that
+    need one."""
+
+    @staticmethod
+    def forward(fctx, call, *xs):
+        ctx, packed, mat_type, lib, flow = call
+        out = _launch_start(ctx, packed, lib)
+        fctx.mark_non_differentiable(
+            *(getattr(out, f) for f in ws.FLOAT_FIELDS if f not in flow),
+            *(getattr(out, f) for f in ws.BOOL_FIELDS))
+        fctx.data, fctx.static = ctx.data, ctx.static
+        fctx.set_materialize_grads(False)        # see ops/plain_grad.py
+        fctx.save_for_backward(mat_type, ctx.mat_slot, ctx.depth, *xs)
+        return tuple(getattr(out, f) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS)
+
+    @staticmethod
+    def backward(fctx, *grads):
+        mat_type, mat_slot, depth, *xs = fctx.saved_tensors
+
+        def plain(leaves):
+            o = plain_start(_start_ctx(leaves, mat_slot, depth, fctx.data,
+                                       fctx.static), mat_type)
+            return [getattr(o, f) for f in ws.FLOAT_FIELDS]
+
+        # the bools take no gradient
+        return (None, *plain_vjp(grads[:len(ws.FLOAT_FIELDS)], xs,
+                                 fctx.needs_input_grad[1:], plain))
+
+
+def _kernel_start(ctx, packed, mat_type, lib=None):
+    """W6's start on the bounce, from `lib`, through `_Start` where
+    autograd records the stage."""
+    xs = _start_inputs(ctx)
+    flags = tuple(x.requires_grad for x in xs)
+    if not torch.is_grad_enabled() or not any(flags):
+        return _launch_start(ctx, packed, lib)
+    flow = _start_flow(ctx, mat_type, flags)
+    return ws.Merged(*_Start.apply((ctx, packed, mat_type, lib, flow), *xs))
+
+
+_UPDATE_FLOATS = ("L", "beta", *ws.FLOAT_FIELDS, "O", "D", "n_re", "n_im")
+# the inputs each float output of the plain update is a function of
+_UPDATE_FLOW = {"L": ("L", "beta", "add"), "beta": ("beta", "beta_mult"),
+                "O": ("new_origin", "O"), "D": ("new_dir", "D"),
+                "n_re": ("new_n_re", "n_re"), "n_im": ("new_n_im", "n_im")}
+_UPDATE_OTHERS = ("alive", "miss", *ws.BOOL_FIELDS, "depth", "diffuse_refl",
+                  "split_cnt", "rays_traced")
+
+
+def _update_parts(c, miss, acc):
+    """(the update's float inputs, `_UPDATE_FLOATS`; its others,
+    `_UPDATE_OTHERS`)."""
+    v = ({f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+         | {f: getattr(acc, f) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS}
+         | {"miss": miss})
+    return [v[f] for f in _UPDATE_FLOATS], [v[f] for f in _UPDATE_OTHERS]
+
+
+def _update_args(xs, others):
+    """(Carry, miss, Merged) from the update's parts."""
+    v = dict(zip(_UPDATE_FLOATS, xs)) | dict(zip(_UPDATE_OTHERS, others))
+    c = Carry(**{f.name: v[f.name] for f in dataclasses.fields(Carry)})
+    acc = ws.Merged(*(v[f] for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS))
+    return c, v["miss"], acc
+
+
+class _Update(torch.autograd.Function):
+    """W6's update forward (xs: `_UPDATE_FLOATS`), its float outputs that
+    take no gradient from the plain update (`_UPDATE_FLOW`), its bools
+    and integers marked non-differentiable.  Backward: the plain update
+    recomputed from the saved inputs, and its vector-Jacobian product for
+    the inputs that need one."""
+
+    @staticmethod
+    def forward(fctx, call, *xs):
+        others, lib = call
+        out = _launch_update(*_update_args(xs, others), lib)
+        req = {f for f, x in zip(_UPDATE_FLOATS, xs) if x.requires_grad}
+        fctx.mark_non_differentiable(
+            *(getattr(out, f) for f in CARRY_FLOATS if not req & set(_UPDATE_FLOW[f])),
+            *(x for x in (getattr(out, f) for f in CARRY_OTHERS) if x is not None))
+        fctx.set_materialize_grads(False)        # see ops/plain_grad.py
+        fctx.save_for_backward(*xs, *others[:-1])
+        return (*(getattr(out, f) for f in CARRY_FLOATS),
+                *(getattr(out, f) for f in CARRY_OTHERS[:-1]), out.rays_traced)
+
+    @staticmethod
+    def backward(fctx, *grads):
+        saved = fctx.saved_tensors
+        k = len(_UPDATE_FLOATS)
+        xs, others = saved[:k], list(saved[k:]) + [None]
+
+        def plain(leaves):
+            o = plain_update(*_update_args(leaves, others))
+            return [getattr(o, f) for f in CARRY_FLOATS]
+
+        # the bools and integers take no gradient
+        return (None, *plain_vjp(grads[:len(CARRY_FLOATS)], xs,
+                                 fctx.needs_input_grad[1:], plain))
+
+
+def _kernel_update(c, miss, acc, lib=None):
+    """W6's update from `lib`, through `_Update` where autograd records
+    the stage."""
+    xs, others = _update_parts(c, miss, acc)
+    if not torch.is_grad_enabled() or not any(x.requires_grad for x in xs):
+        return _launch_update(c, miss, acc, lib)
+    res = _Update.apply((others, lib), *xs)
+    nf = len(CARRY_FLOATS)
+    return Carry(**dict(zip(CARRY_FLOATS, res[:nf])),
+                 **dict(zip(CARRY_OTHERS, res[nf:])))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def bounce_start(ctx, packed, mat_type):
+    """The bounce's merged shading output (ops/wavefront_shade.py
+    `Merged`) with its emissive and environment rays shaded: ctx the
+    bounce's ShadeCtx, packed its rays' material words, mat_type their
+    types.  W6 on CUDA tensors, `plain_start` on CPU tensors."""
+    if ctx.P.device.type == "cpu":
+        return plain_start(ctx, mat_type)
+    return _kernel_start(ctx, packed, mat_type)
+
+
+def bounce_update(c, miss, acc):
+    """The next Carry from c, the rays' misses (N,) bool and the bounce's
+    merged output acc (a Merged).  W6 on CUDA tensors, `plain_update` on
+    CPU tensors."""
+    if c.L.device.type == "cpu":
+        return plain_update(c, miss, acc)
+    return _kernel_update(c, miss, acc)
+
+
+bounce_start.launches = bounce_update.launches = 0
+# the functions whose counts a launch adds to (a spy may replace the
+# module's wrappers)
+_COUNTED = {"bounce_start": bounce_start, "bounce_update": bounce_update}
+
+
+def launches():
+    """W6's launches by entry."""
+    return {k: w.launches for k, w in _COUNTED.items()}
+
+
+def reset_launches():
+    for w in _COUNTED.values():
+        w.launches = 0
+
+
+INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
+
+
+def info(entry, lib=None):
+    """What W6's kernel of `entry` ("bounce_start" or "bounce_update") was
+    built to, read on the card (`bounce_tail_info`): registers and local
+    memory (bytes: spills and stack) a thread, resident blocks an SM, the
+    SMs and threads a block."""
+    fn = (lib or cuda_build.load_library()).bounce_tail_info
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
+    out = (_I * len(INFO))()
+    err = fn(tuple(_COUNTED).index(entry), out)
+    if err:
+        raise RuntimeError(f"bounce_tail_info: CUDA error {err}")
+    return dict(zip(INFO, out))

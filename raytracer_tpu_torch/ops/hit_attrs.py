@@ -46,6 +46,7 @@ from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS
 from . import cuda_build
 from .analytic_sweep import _rows
 from .mesh_sweep import _call, kept
+from .plain_grad import plain_vjp
 
 _V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # W5's kernel by name, as a profile lists it
@@ -408,28 +409,23 @@ class _Attrs(torch.autograd.Function):
         fctx.mark_non_differentiable(*others)
         fctx.geom, fctx.static, fctx.modes, fctx.names = (data.geom, static, modes,
                                                           names)
+        fctx.set_materialize_grads(False)        # see ops/plain_grad.py
         fctx.save_for_backward(obj, *xs)
         return (*(getattr(out, f) for f in FLOAT_FIELDS), *others)
 
     @staticmethod
     def backward(fctx, *grads):
         obj, *xs = fctx.saved_tensors
-        wants = fctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() if w else x
-                      for x, w in zip(xs, wants)]
+
+        def plain(leaves):
             geom = fctx.geom
             if fctx.names:
                 geom = dataclasses.replace(geom, **dict(zip(fctx.names, leaves[4:])))
-            outs = _plain_core(*leaves[:4], obj, geom, fctx.static, *fctx.modes)
-            pairs = [(y, g) for y, g in zip(outs, grads[:len(FLOAT_FIELDS)])
-                     if g is not None and y.requires_grad]
-            wrt = [x for x, w in zip(leaves, wants) if w]
-            got = (torch.autograd.grad([y for y, _ in pairs], wrt,
-                                       [g for _, g in pairs], allow_unused=True)
-                   if pairs else [None] * len(wrt))
-        it = iter(got)
-        return (None, *(next(it) if w else None for w in wants))
+            return _plain_core(*leaves[:4], obj, geom, fctx.static, *fctx.modes)
+
+        # the integer and bool outputs take no gradient
+        return (None, *plain_vjp(grads[:len(FLOAT_FIELDS)], xs,
+                                 fctx.needs_input_grad[1:], plain))
 
 
 def _kernel_attributes(O, D, t, orient, obj, data, static, settings=None,

@@ -46,6 +46,7 @@ from ..materials import shade
 from ..materials.base import MAT_DIFFUSE, MAT_GLOSSY, MAT_REFRACTIVE
 from . import cuda_build
 from .mesh_sweep import _call, kept
+from .plain_grad import plain_vjp
 
 _V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # W4's kernels by name, as a profile lists them, each with its entry's
@@ -123,9 +124,10 @@ WRITTEN = {MAT_DIFFUSE: ("beta_mult", "new_origin", "new_dir"),
 @dataclass
 class Merged:
     """A bounce's merged shading output: each ray's fields from the block
-    of its material type (`trace` starts it, every block merges into it),
-    every field a contiguous tensor of its own, which W4 writes in
-    place."""
+    of its material type (ops/bounce_tail.py `bounce_start` starts it
+    with the emissive and environment blocks, every other block merges
+    into it), every field a contiguous tensor of its own, which W4 writes
+    in place."""
     add: Any
     beta_mult: Any
     new_origin: Any
@@ -178,16 +180,18 @@ def _p(t):
     return t.data_ptr() if t is not None and t.numel() else None
 
 
-def texture_tables(mats, table, refs, textures):
+def texture_tables(mats, table, refs, textures, tag="w4"):
     """(texels, desc_i, desc_f) of a block's image textures `refs`
-    (SceneStatic.diffuse_tex / glossy_tex) over its slot table `table`:
+    (SceneStatic.diffuse_tex / glossy_tex; W6's emissive and environment
+    textures) over its slot table `table`:
     the textures they name, flattened into one (texels, 3) float32
     buffer; desc_i (slots, 4) int32 (offset in texels, H, W, flags: bit 0
     the slot fetches, bit 1 bilinear, the slot's last ref winning as in
     `shade._slot_color`); desc_f (slots, 2) float32 (W * repeat,
     H * repeat, rounded once from Python's product, as fetch_texture's
     scales).  None without refs.  Kept on `mats` while the textures and
-    the table are the same tensors at the same version."""
+    the table are the same tensors at the same version, under a name of
+    `tag` and the refs."""
     if not refs:
         return None
     used = sorted({r.tex for r in refs})
@@ -215,7 +219,7 @@ def texture_tables(mats, table, refs, textures):
                 df[r.slot] = torch.tensor([W * r.repeat, H * r.repeat])
             return texels, di.to(table.device), df.to(table.device)
 
-    name = "_w4_tex_" + "_".join(f"{r.slot}.{r.tex}.{r.repeat}.{r.bilinear}"
+    name = f"_{tag}_tex_" + "_".join(f"{r.slot}.{r.tex}.{r.repeat}.{r.bilinear}"
                                  for r in refs)
     return kept(mats, name, srcs, make)
 
@@ -540,18 +544,30 @@ def _flow(mt, ctx, draws, occ, flags):
     on the scene's static facts per block, flags and options."""
     key = (mt, flags, ctx.split_k, ctx.pattern is None, ctx.strat_u is None,
            occ is None)
-    kept_flows = ctx.static.__dict__.setdefault("_w4_flow", {})
-    if key not in kept_flows:
+
+    def plain():
         c = _meta(dataclasses.replace(
             ctx, static=None, **{f: _first(getattr(ctx, f)) for f in _PER_RAY}))
         c = dataclasses.replace(c, static=ctx.static)
-        # its own saved tensors: none for a checkpoint around it to count
+        leaves = [x.requires_grad_(fl) if fl else x
+                  for x, fl in zip(_inputs(mt, c), flags)]
+        return _plain(mt, _rebuild(mt, c, leaves), _meta(_first(draws)),
+                      _meta(_first(occ)))
+
+    return kept_flow(ctx.static, "_w4_flow", key, plain)
+
+
+def kept_flow(static, name, key, plain):
+    """The float fields of the Merged that plain() returns that require
+    grad: plain() run once under autograd, on the meta device, with its own
+    saved tensors kept as they are (none for a checkpoint around it to
+    count); kept on the scene's static facts `static` in the dict `name`,
+    under key."""
+    kept_flows = static.__dict__.setdefault(name, {})
+    if key not in kept_flows:
         with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
                 lambda x: x, lambda x: x):
-            leaves = [x.requires_grad_(fl) if fl else x
-                      for x, fl in zip(_inputs(mt, c), flags)]
-            o = _plain(mt, _rebuild(mt, c, leaves), _meta(_first(draws)),
-                       _meta(_first(occ)))
+            o = plain()
         kept_flows[key] = frozenset(f for f in FLOAT_FIELDS
                                     if getattr(o, f).requires_grad)
     return kept_flows[key]
@@ -584,6 +600,7 @@ class _Shade(torch.autograd.Function):
         _launch(mt, ctx, draws, packed, out, occ, lib)
         fctx.mark_dirty(*xs[:nw])
         fctx.mark_non_differentiable(*(x for x, k in zip(xs, keep) if not k))
+        fctx.set_materialize_grads(False)        # see ops/plain_grad.py
         fctx.mt, saved = mt, [m]
         if any(fctx.needs_input_grad[1 + nw:]):
             # the scene's static facts hold no tensors: kept as they are
@@ -601,23 +618,17 @@ class _Shade(torch.autograd.Function):
         outs = [torch.where(m3, 0.0, g) if n and g is not None else None
                 for g, n in zip(grads, need[:nw])]
         wants = need[nw:]
-        if not any(wants):
+        if all(g is None for g in grads) or not any(wants):
             return (None, *outs, *([None] * len(wants)))
         ctx, d, occ = _unpack(fctx.held, saved)
         ctx = dataclasses.replace(ctx, static=fctx.static)
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() if n else x
-                      for x, n in zip(_inputs(mt, ctx), wants)]
+
+        def plain(leaves):
             o = _plain(mt, _rebuild(mt, ctx, leaves), {mt: d}, occ)
-            pairs = [(torch.where(m3, getattr(o, f), g), g)
-                     for f, g in zip(WRITTEN[mt], grads)
-                     if g is not None and getattr(o, f).requires_grad]
-            wrt = [x for x, n in zip(leaves, wants) if n]
-            got = (torch.autograd.grad([y for y, _ in pairs], wrt,
-                                       [g for _, g in pairs], allow_unused=True)
-                   if pairs else [None] * len(wrt))
-        it = iter(got)
-        return (None, *outs, *(next(it) if n else None for n in wants))
+            return [getattr(o, f) if g is None else torch.where(m3, getattr(o, f), g)
+                    for f, g in zip(WRITTEN[mt], grads)]
+
+        return (None, *outs, *plain_vjp(grads, _inputs(mt, ctx), wants, plain))
 
 
 def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None):

@@ -15,9 +15,10 @@ with the device's peak memory over the timed renders, then once under
 torch.profiler: the device span, busy time and idle share
 (torch_render_profile.py `device_breakdown`), the device time of each
 "wavefront.*" bounce stage (`wavefront_stages`) with the number of
-nearest_hit calls, and of the analytic sweep's, the shading blocks' and
-the hit attributes' kernels (the root's `analytic_sweep.KERNELS`,
-`wavefront_shade.KERNELS` and `hit_attrs.KERNELS`, where it has them),
+nearest_hit calls, and of the analytic sweep's, the shading blocks', the
+hit attributes' and the bounce tail's kernels (the root's
+`analytic_sweep.KERNELS`, `wavefront_shade.KERNELS`, `hit_attrs.KERNELS`
+and `bounce_tail.KERNELS`, where it has them),
 and the device events;
 and the SHA-256 of the last timed image (equal hashes: frames equal bit
 for bit).  It prints one JSON line.
@@ -70,8 +71,9 @@ def profiled(torch, render, tmp):
     """One render under torch.profiler: its device span, busy time, idle
     share, the device ms of each "wavefront.*" stage, the nearest_hit
     calls (its ranges on the device), the device ms of the analytic
-    sweep's kernels, of the shading blocks' and of the hit attributes'
-    (none before the root had them) and the device events."""
+    sweep's kernels, of the shading blocks', of the hit attributes' and of
+    the bounce tail's (none before the root had them) and the device
+    events."""
     from torch.profiler import ProfilerActivity, profile
     try:
         from raytracer_tpu_torch.ops.analytic_sweep import KERNELS
@@ -85,6 +87,10 @@ def profiled(torch, render, tmp):
         from raytracer_tpu_torch.ops.hit_attrs import KERNELS as W5
     except ImportError:           # a checkout from before W5
         W5 = ()
+    try:
+        from raytracer_tpu_torch.ops.bounce_tail import KERNELS as W6
+    except ImportError:           # a checkout from before W6
+        W6 = ()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -104,12 +110,14 @@ def profiled(torch, render, tmp):
                     if any(w in k for w in KERNELS))
     w4_us = sum(t for k, (t, _) in per_name.items() if any(w in k for w in W4))
     w5_us = sum(t for k, (t, _) in per_name.items() if any(w in k for w in W5))
+    w6_us = sum(t for k, (t, _) in per_name.items() if any(w in k for w in W6))
     return {"profiled_wall_s": wall, "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / span if span else None,
             "stages_ms": {k: v / 1e3 for k, v in sorted(
                 stages.items(), key=lambda kv: -kv[1])},
             "nearest_hit_calls": calls, "analytic_kernel_ms": kernel_us / 1e3,
             "w4_kernel_ms": w4_us / 1e3, "w5_kernel_ms": w5_us / 1e3,
+            "w6_kernel_ms": w6_us / 1e3,
             "device_events": sum(c for _, c in per_name.values())}
 
 
@@ -157,8 +165,8 @@ def child(root, renders, frames=None):
 def show(frames):
     """A child's frames as text: each frame's median and walls, peak
     memory, busy time and idle share, device events, nearest_hit's, the
-    attributes' and the shading ranges' device time, and the image's
-    hash."""
+    attributes', the shading ranges', the start's and the update's device
+    time, and the image's hash."""
     return " | ".join(
         f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])}), "
         f"peak {v['peak_gib']:.2f} GiB, busy {v['busy_ms']:.1f} ms, idle "
@@ -170,7 +178,10 @@ def show(frames):
         f"{v['stages_ms'].get('attributes', 0.0):.1f} ms (W5 kernel "
         f"{v.get('w5_kernel_ms', 0.0):.2f} ms), shading "
         f"{', '.join(f'{s[6:]} {t:.1f}' for s, t in v['stages_ms'].items() if s.startswith('shade.'))}"
-        f" ms (W4 kernels {v['w4_kernel_ms']:.2f} ms), image SHA-256 "
+        f" ms (W4 kernels {v['w4_kernel_ms']:.2f} ms), start "
+        f"{v['stages_ms'].get('start', 0.0):.1f} ms, update "
+        f"{v['stages_ms'].get('update', 0.0):.1f} ms (W6 kernels "
+        f"{v.get('w6_kernel_ms', 0.0):.2f} ms), image SHA-256 "
         f"{v['sha256'][:16]}"
         for k, v in frames.items())
 

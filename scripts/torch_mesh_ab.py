@@ -22,8 +22,8 @@ span, busy time and idle share (torch_render_profile.py
 (`wavefront_stages`), of the clustered sweep's range (the pair search
 and W1, or the plain fold), of W1's kernels (the root's
 `mesh_sweep.KERNELS`), of W2's (`mesh_pairs.KERNELS`), of W4's
-(`wavefront_shade.KERNELS`) and of W5's (`hit_attrs.KERNELS`, where the
-root has them), the device events,
+(`wavefront_shade.KERNELS`), of W5's (`hit_attrs.KERNELS`) and of W6's
+(`bounce_tail.KERNELS`, where the root has them), the device events,
 the sweep's (cluster, ray) pairs and its rate in triangle tests a
 second, and its host syncs a bounce.  It prints one JSON line;
 the parent's last line is `in_turns`'.
@@ -75,6 +75,10 @@ def child(root, frames=None, renders=RENDERS):
         from raytracer_tpu_torch.ops.hit_attrs import KERNELS as W5_KERNELS
     except ImportError:           # a checkout from before W5
         W5_KERNELS = ()
+    try:
+        from raytracer_tpu_torch.ops.bounce_tail import KERNELS as W6_KERNELS
+    except ImportError:           # a checkout from before W6
+        W6_KERNELS = ()
 
     dev = torch.device("cuda:0")
     obj_dir = tempfile.mkdtemp()
@@ -125,6 +129,8 @@ def child(root, frames=None, renders=RENDERS):
                     if any(w in k for w in W4_KERNELS))
         w5_us = sum(t for k, (t, _) in per_name.items()
                     if any(w in k for w in W5_KERNELS))
+        w6_us = sum(t for k, (t, _) in per_name.items()
+                    if any(w in k for w in W6_KERNELS))
         out["frames"][name] = {
             "walls_s": walls, "median_s": statistics.median(walls),
             "sha256": hashlib.sha256(np.ascontiguousarray(
@@ -137,6 +143,7 @@ def child(root, frames=None, renders=RENDERS):
             "sweep_ms": sweep_us / 1e3, "sweep_share": sweep_us / busy if busy else None,
             "w1_ms": w1_us / 1e3, "w1_share": w1_us / busy if busy else None,
             "w2_ms": w2_us / 1e3, "w4_ms": w4_us / 1e3, "w5_ms": w5_us / 1e3,
+            "w6_ms": w6_us / 1e3,
             "device_events": sum(c for _, c in per_name.values()),
             "pairs": pairs, "syncs": syncs,
             "bounces": bounces, "syncs_per_bounce": syncs / bounces,
@@ -151,9 +158,9 @@ def child(root, frames=None, renders=RENDERS):
 
 def show(frames):
     """A child's frames as text: wall, peak, busy, the sweep's, W1's,
-    W2's, the attributes range's and W5's, the shading ranges' and W4's
-    device time, the device events, the idle share and the host syncs a
-    bounce."""
+    W2's, the attributes range's and W5's, the shading ranges' and W4's,
+    the start's and update's ranges' and W6's device time, the device
+    events, the idle share and the host syncs a bounce."""
     return " | ".join(
         f"{k} {v['median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in v['walls_s'])}), "
         f"peak {v['peak_gib']:.2f} GiB, busy {v['busy_ms']:.1f} ms, sweep "
@@ -162,7 +169,10 @@ def show(frames):
         f"{v['stages_ms'].get('attributes', 0.0):.1f} ms (W5 {v.get('w5_ms', 0.0):.2f}"
         f" ms), shading "
         f"{', '.join(f'{s[6:]} {t:.1f}' for s, t in v['stages_ms'].items() if s.startswith('shade.'))}"
-        f" ms (W4 {v['w4_ms']:.2f} ms), {v['device_events']} device events, idle "
+        f" ms (W4 {v['w4_ms']:.2f} ms), start "
+        f"{v['stages_ms'].get('start', 0.0):.1f} ms, update "
+        f"{v['stages_ms'].get('update', 0.0):.1f} ms (W6 {v.get('w6_ms', 0.0):.2f}"
+        f" ms), {v['device_events']} device events, idle "
         f"{100 * (v['idle_share'] or 0):.1f}%, {v['syncs_per_bounce']:.2f} "
         f"syncs a bounce, image SHA-256 {v['sha256'][:16]}"
         for k, v in frames.items())

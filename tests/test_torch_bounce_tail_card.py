@@ -1,0 +1,192 @@
+"""W6, the wavefront's bounce tail (ops/bounce_tail.py, csrc/bounce_tail.cu),
+on the card, without JAX: every start and update call of small renders
+held against the plain stages on the same inputs, every field of every ray
+bit for bit, one launch a call; the card's renders run no plain start,
+update, emissive or environment block; the inverse-rendering gradient (the
+IoR and the emissive colours) through `_Start` and `_Update` equals the one
+through the plain stages, bit for bit, and two passes agree.
+
+    python -m pytest --noconftest -m cuda tests/test_torch_bounce_tail_card.py
+
+runs them where there is a card (tests/conftest.py imports jax); here they
+skip.  tests/test_torch_bounce_tail_emu.py holds the same source on the
+CPU.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu_torch as T
+from raytracer_tpu_torch.materials import shade
+from raytracer_tpu_torch.ops import bounce_tail as bt
+from raytracer_tpu_torch.ops import wavefront_shade as ws
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "examples"))
+sys.path.insert(0, str(ROOT / "tests"))
+
+SCENES = ["grid", "cornell", "icosphere", "example2", "example4", "emitters"]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (W6 has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _scene(name, obj_dir):
+    import torch_cornellbox
+    import torch_mesh
+    import torch_textured
+    import torch_wavefront
+    from test_torch_bounce_tail_emu import emitters
+
+    if name == "grid":
+        return torch_wavefront.grid(96, 64, 48)
+    if name == "icosphere":
+        return torch_mesh.icosphere(64, 48, obj_dir=obj_dir)
+    sc = {"cornell": lambda: torch_cornellbox.build_cornell(64, 64),
+          "example2": lambda: torch_textured.example2(64, 48),
+          "example4": lambda: torch_textured.example4(64, 48, blur=0.0),
+          "emitters": lambda: emitters(width=64, height=48)}[name]()
+    sc.settings = T.RenderSettings(use_pallas="never")
+    return sc
+
+
+def bits_equal(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if a.is_floating_point():
+        return bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool((a == b).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCENES)
+def test_card_w6_equals_the_plain_stages(card, name, tmp_path, monkeypatch):
+    """Every start and update call of a 2-spp render on the card against
+    the plain stages on the same inputs: each field of each ray bit for
+    bit, one launch a call."""
+    held = {"start": 0, "update": 0}
+    real_start, real_update = bt.bounce_start, bt.bounce_update
+
+    def start(ctx, packed, mat_type):
+        want = bt.plain_start(ctx, mat_type)
+        before = bt.launches()["bounce_start"]
+        got = bt._kernel_start(ctx, packed, mat_type)
+        assert bt.launches()["bounce_start"] - before == 1
+        for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS:
+            assert bits_equal(getattr(got, f), getattr(want, f)), f
+        held["start"] += 1
+        return real_start(ctx, packed, mat_type)
+
+    def update(c, miss, acc):
+        want = bt.plain_update(c, miss, acc)
+        before = bt.launches()["bounce_update"]
+        got = bt._kernel_update(c, miss, acc)
+        assert bt.launches()["bounce_update"] - before == 1
+        for f in bt.CARRY_FLOATS + bt.CARRY_OTHERS:
+            assert bits_equal(getattr(got, f), getattr(want, f)), f
+        held["update"] += 1
+        return real_update(c, miss, acc)
+
+    monkeypatch.setattr(bt, "bounce_start", start)
+    monkeypatch.setattr(bt, "bounce_update", update)
+    _scene(name, tmp_path).render(samples_per_pixel=2, device=card, seed=3,
+                                  output="linear")
+    assert held["start"] and held["update"]
+
+
+@pytest.mark.cuda
+def test_card_renders_run_no_plain_stage(card, tmp_path, monkeypatch):
+    """Cornell on the wavefront and examples 2 and 4 on the card with the
+    plain start, update, emissive and environment blocks raising: W6 runs
+    them, one launch of each a bounce."""
+    def plain(*args, **kw):
+        raise AssertionError("a plain stage of the bounce's tail ran on the card")
+
+    for name in ("plain_start", "plain_update"):
+        monkeypatch.setattr(bt, name, plain)
+    for name in ("shade_emissive", "shade_env"):
+        monkeypatch.setattr(shade, name, plain)
+    for name in ("cornell", "example2", "example4"):
+        sc = _scene(name, tmp_path)
+        static, _, settings = sc._settings_for_render()
+        bt.reset_launches()
+        img, stats = sc.render(samples_per_pixel=4, device=card, seed=1,
+                               output="linear", return_stats=True)
+        got = bt.launches()
+        assert np.isfinite(img).all() and int(stats["rays_traced"]) > 0
+        assert got["bounce_start"] == got["bounce_update"] > 0
+        assert got["bounce_start"] % settings.max_bounces == 0
+
+
+@pytest.mark.cuda
+def test_card_gradient_through_w6_is_the_plain_stages(card, monkeypatch):
+    """The inverse-rendering gradient of the IoR and the emissive colours
+    on the card with the start and the update through W6 (`_Start`,
+    `_Update`) equals the one through the plain stages bit for bit; two
+    passes through W6 agree bit for bit."""
+    from torch_inverse_rendering import build_scene
+
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+
+    fn, data = differentiable_render(build_scene(1.3, 32, 24), 8, seed=0,
+                                     device=card)
+
+    def grad():
+        x = data.mats.refr_n_re.clone().requires_grad_(True)
+        e = data.mats.emissive_color.clone().requires_grad_(True)
+        loss = torch.mean(fn(update_materials(data, refr_n_re=x,
+                                              emissive_color=e)) ** 2)
+        return torch.autograd.grad(loss, (x, e))
+
+    bt.reset_launches()
+    g1, g2 = grad(), grad()
+    assert all(n > 0 for n in bt.launches().values())
+    monkeypatch.setattr(bt, "bounce_start",
+                        lambda ctx, packed, mat_type: bt.plain_start(ctx, mat_type))
+    monkeypatch.setattr(bt, "bounce_update", bt.plain_update)
+    bt.reset_launches()
+    g_plain = grad()
+    assert all(n == 0 for n in bt.launches().values())
+    for a, b, p in zip(g1, g2, g_plain):
+        assert torch.equal(a, b) and torch.equal(a, p)
+    assert bool((g1[0] != 0).all()) and bool((g1[1] != 0).any())
+
+
+@pytest.mark.cuda
+def test_card_updates_on_two_streams_count_their_own_rays(card):
+    """Two updates of 2 M rays each counting rays_traced, launched back to
+    back on two streams (which may run at once), three times: each count
+    is its own update's, as the plain update makes it, and an update on
+    the default stream after them counts right (no scratch left
+    non-zero)."""
+    import dataclasses
+
+    from test_torch_bounce_tail_emu import random_update, update_args
+
+    def on_card(c, miss, acc):
+        move = lambda x: dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).to(card) for f in dataclasses.fields(x)})
+        return move(c), miss.to(card), move(acc)
+
+    args = [on_card(*update_args(random_update(seed, n=2_000_000))) for seed in (5, 6)]
+    want = [int(bt.plain_update(*a).rays_traced) for a in args]
+    assert want[0] != want[1]
+    streams = torch.cuda.Stream(card), torch.cuda.Stream(card)
+    for _ in range(3):
+        torch.cuda.synchronize(card)
+        outs = []
+        for s, a in zip(streams, args):
+            with torch.cuda.stream(s):
+                outs.append(bt._kernel_update(*a))
+        torch.cuda.synchronize(card)
+        assert [int(o.rays_traced) for o in outs] == want
+    assert int(bt._kernel_update(*args[0]).rays_traced) == want[0]

@@ -113,7 +113,11 @@ def _gxx():
 
 
 def _source(edits=()):
-    text = (CSRC / "wavefront_shade.cu").read_text()
+    """The source with its texture fetch (csrc/texture_fetch.cuh) written
+    in, so that an edit may change either, and `edits` made."""
+    text = (CSRC / "wavefront_shade.cu").read_text().replace(
+        '#include "texture_fetch.cuh"\n',
+        (CSRC / "texture_fetch.cuh").read_text().replace("#pragma once\n", ""))
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
