@@ -145,13 +145,19 @@ drives both kernel paths and the wavefront:
   the card only in a backward pass, required); every call of each
   render's first chunk held against the plain stage as called, with uv
   forced and as the first-hit pass, every field of every ray bit for bit
-  (a share of exactly 1.0); a line a bounce of Cornell on the
-  wavefront's first 4.16 M-ray chunk, W5 timed through a CUDA graph
-  beside the plain stage, its bytes, bound and share; its registers,
-  stack and blocks an SM; its asin against torch.asin on all 2^32 floats
-  and its atan2 against torch.atan2 on 2^26 random pairs and the special
-  values; the kernels line has a W5 row (bound by bytes) at that chunk's
-  first bounce with the mean a call over its bounces.  W6
+  (a share of exactly 1.0; in the normal-mapped render the mapped,
+  oriented normal, which W5 computes itself); the plain normal maps run
+  on the card only in a hold or a backward pass (required); a line a
+  bounce of Cornell on the wavefront's first 4.16 M-ray chunk and of the
+  normal-mapped render's first 1.92 M-ray chunk, W5 timed through a CUDA
+  graph beside the plain stage (with its maps), its bytes, bound and
+  share; the registers, stack and blocks an SM of both its instances
+  (without and with the maps); its asin against torch.asin on all 2^32
+  floats, its atan2 against torch.atan2 on 2^26 random pairs and the
+  special values, and its 3 x 3 product against torch's (cuBLAS) at
+  17 to 1.92 M rows with signed zeros; the kernels line has a W5 row and
+  a W5-with-maps row (bound by bytes) at the first bounce of those
+  chunks with the mean a call over their bounces.  W6
   (csrc/bounce_tail.cu: the start of each bounce's merged output with the
   emissive and environment blocks, and the update) in the same driven
   renders and in examples 2 (a cube-cross sky) and 4 (a sky with a
@@ -448,19 +454,25 @@ F5_SUMS = ((64, 200_000), (300, 150_000), (512, 131_072), (16, 300_000),
            (2, 2_200_000))
 F5_DIFFUSE = ((300, 150_000), (16, 300_000))
 # W5 (csrc/hit_attrs.cu), the hit attributes: the CUDA-graph replays of
-# its timing; the render whose first chunk it is timed at, every bounce;
-# what the run gathers: launches in the driven wavefront renders (counts
-# set to 0 just before each, read just after), the largest difference of
-# its holds (0: bit-equal), each timed bounce's numbers, the calls
-# captured in the driven renders (every bounce of each render's first
-# chunk) and the plain formulas run on the card outside a hold or a
-# backward pass (none allowed); each call is held as called, with uv
-# forced and as the first-hit pass (force_uv, first_hit)
+# its timing; the renders whose first chunk it is timed at, every bounce
+# (the kernels line's rows: Cornell's, and the normal-mapped scene's,
+# which runs the kernel's instance with the maps); what the run gathers:
+# launches in the driven wavefront renders (counts set to 0 just before
+# each, read just after; those of renders with maps apart), the largest
+# difference of its holds (0: bit-equal), each timed bounce's numbers by
+# render, the calls captured in the driven renders (every bounce of each
+# render's first chunk), and the plain formulas and the plain normal maps
+# run on the card outside a hold or a backward pass (none allowed); each
+# call is held as called, with uv forced and as the first-hit pass
+# (force_uv, first_hit); the rows at which W5's 3 x 3 product is held
+# against torch's (cuBLAS)
 W5_REPS = 5
-W5_TIMED = "Cornell on the wavefront"
+W5_TIMED = ("Cornell on the wavefront", "normal-mapped")
 W5_MODES = ((False, False), (True, False), (True, True))
-W5 = {"launches": 0, "max_abs_err": 0.0, "timed": [], "captured": {},
-      "calls": {}, "plain_on_card": 0, "holding": False, "held": 0}
+W5_MM3_ROWS = (17, 100, 4096, 1_920_000)
+W5 = {"launches": 0, "map_launches": 0, "max_abs_err": 0.0, "timed": {},
+      "captured": {}, "calls": {}, "plain_on_card": 0, "maps_on_card": 0,
+      "holding": False, "held": 0}
 # W6 (csrc/bounce_tail.cu), the bounce tail: the CUDA-graph replays of its
 # timing; its entries (ops/bounce_tail.py wrappers), each with its kernel
 # and the JAX code it replaces; the renders whose first chunk it is timed
@@ -1979,6 +1991,7 @@ def w4_spies():
              + [(shade, n, getattr(shade, n)) for n in names]
              + [(ha, "attributes", ha.attributes),
                 (ha, "hit_attributes", ha.hit_attributes),
+                (ha, "_apply_normal_maps", ha._apply_normal_maps),
                 (ha._Attrs, "backward", ha._Attrs.__dict__["backward"])]
              + [(ws._Shade, "backward", ws._Shade.__dict__["backward"])])
 
@@ -2027,6 +2040,14 @@ def w4_spies():
             if P.device.type == "cuda" and not W5["holding"]:
                 W5["plain_on_card"] += 1
             return formulas(P, *args, **kw)
+        return call
+
+    def w5_maps_counted(maps):
+        def call(N_geo, P, uv, obj, data, static):
+            if (N_geo.device.type == "cuda" and static.normal_maps
+                    and not W5["holding"]):
+                W5["maps_on_card"] += 1
+            return maps(N_geo, P, uv, obj, data, static)
         return call
 
     def w5_backward(fctx, *grads):
@@ -2086,6 +2107,7 @@ def w4_spies():
     ws._Shade.backward = staticmethod(counted_backward)
     ha.attributes = w5_spy(ha.attributes)
     ha.hit_attributes = w5_counted(ha.hit_attributes)
+    ha._apply_normal_maps = w5_maps_counted(ha._apply_normal_maps)
     ha._Attrs.backward = staticmethod(w5_backward)
     try:
         yield
@@ -2109,6 +2131,7 @@ class w4_driven:
         from raytracer_tpu_torch.ops import wavefront_shade as ws
         self.ws, self.ha, self.bt, self.plain = ws, ha, bt, W4["plain_on_card"]
         self.w5_plain, self.w6_plain = W5["plain_on_card"], W6["plain_on_card"]
+        self.w5_maps = W5["maps_on_card"]
         W4["label"] = self.label
         ws.reset_launches()
         ha.reset_launches()
@@ -2125,6 +2148,7 @@ class w4_driven:
         self.w5 = self.ha.launches()
         W5["launches"] += self.w5
         self.w5_plain_runs = W5["plain_on_card"] - self.w5_plain
+        self.w5_maps_runs = W5["maps_on_card"] - self.w5_maps
         self.w6 = self.bt.launches()
         for key, n in self.w6.items():
             W6["launches"][key] += n
@@ -2396,7 +2420,7 @@ def w4_hold(torch, label):
                                          ws.cuda_build.stream_of(ctx.P.device),
                                          entries=ws.ENTRIES), W4_REPS)[0]
 
-                if label == W5_TIMED and key == "shade_diffuse" and b == 0:
+                if label == W5_TIMED[0] and key == "shade_diffuse" and b == 0:
                     f5_diffuse(torch, call)
                 ms = graph(call, got)
                 plain_ms = common.cuda_ms(
@@ -2650,7 +2674,7 @@ def w4_renders(torch, dev):
         print(f"W4 vs plain, {label} ({wall:.4f} s, launches "
               f"{ {k[6:]: n for k, n in d.got.items() if n} }, no plain block): "
               + text, flush=True)
-        w5_check(torch, label, d)
+        w5_check(torch, label, d, static)
         w6_check(torch, label, d)
         del sc, img
     # the inverse-rendering step: W4 forward through _Shade, the plain
@@ -2673,7 +2697,7 @@ def w4_renders(torch, dev):
           f"{W4['backward'] - backward} backward recomputes, gradient "
           f"{g[0].tolist()}): " + w4_hold(torch, label)[1] +
           f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    w5_check(torch, label, d)
+    w5_check(torch, label, d, None)
     w6_check(torch, label, d)
     require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
             "on the card")
@@ -2681,21 +2705,29 @@ def w4_renders(torch, dev):
             f"{W6['plain_on_card']} times on the card outside a backward pass")
     require(W5["plain_on_card"] == 0, f"the plain attribute formulas ran "
             f"{W5['plain_on_card']} times on the card")
+    require(W5["maps_on_card"] == 0, f"the plain normal maps ran "
+            f"{W5['maps_on_card']} times on the card outside a hold or a backward pass")
+    require(W5["map_launches"] > 0, "no driven render ran W5 with normal maps")
 
 
-def w5_check(torch, label, d):
-    """The driven render `label` through W5: launched (one launch a bounce
-    of each chunk), the plain attribute formulas run nowhere on the card
-    outside a backward pass, its captured calls held (`w5_hold`); prints
-    its line, and a line a bounce for W5_TIMED."""
-    require(d.w5 > 0 and d.w5_plain_runs == 0,
+def w5_check(torch, label, d, static):
+    """The driven render `label` (of `static`; None: the gradient's)
+    through W5: launched (one launch a bounce of each chunk), the plain
+    attribute formulas and the plain normal maps run nowhere on the card
+    outside a hold or a backward pass, its captured calls held
+    (`w5_hold`); prints its line, and a line a bounce for W5_TIMED."""
+    require(d.w5 > 0 and d.w5_plain_runs == 0 and d.w5_maps_runs == 0,
             f"W5 {label}: {d.w5} launches, the plain formulas ran "
-            f"{d.w5_plain_runs} times on the card")
+            f"{d.w5_plain_runs} times and the plain maps {d.w5_maps_runs} times "
+            "on the card")
+    maps = static is not None and bool(static.normal_maps)
+    if maps:
+        W5["map_launches"] += d.w5
     lines, text = w5_hold(torch, label)
-    if label == W5_TIMED:
+    if label in W5_TIMED:
         print("\n".join(lines), flush=True)
-    print(f"W5 vs plain, {label} ({d.w5} launches, no plain formula): {text}",
-          flush=True)
+    print(f"W5 vs plain, {label} ({d.w5} launches{', maps in the kernel' if maps else ''}"
+          f", no plain formula{', no plain map' if maps else ''}): {text}", flush=True)
 
 
 def w5_bytes(args, oriented):
@@ -2703,13 +2735,15 @@ def w5_bytes(args, oriented):
     written once: a ray's O, D, t, obj (and its orientation where W5
     multiplies by it) and its P, N, uv, eps, miss, the word, its three int
     fields and its medium-change bit; the tables it reads (the scene's
-    struct), once."""
+    struct: the normal maps' texels, descriptors and tangents among
+    them), once."""
     from raytracer_tpu_torch.ops import hit_attrs as ha
 
     n = args[2].shape[0]
     _, keep = ha.scene_struct(args[5], args[6])
-    table, tri, corners, inst, packed = keep
-    tabs = [table, packed, *tri.values(), *corners.values(), *inst.values()]
+    table, tri, corners, inst, packed, maps = keep
+    tabs = [table, packed, *tri.values(), *corners.values(), *inst.values(),
+            *maps.values()]
     per = 12 + 12 + 4 + 8 + (4 if oriented else 0) + 12 + 12 + 8 + 4 + 1 + 4 + 12 + 1
     return n * per + sum(x.numel() * x.element_size() for x in tabs)
 
@@ -2719,10 +2753,10 @@ def w5_hold(torch, label):
     `label` (every bounce of its first chunk), each as called, with uv
     forced and as the first-hit pass (W5_MODES): every field of every ray
     bit for bit (floats by their bits, or both NaN; a share of exactly
-    1.0, required).  In W5_TIMED each bounce as called is timed through a
-    CUDA graph (W5 alone) beside the plain stage (events), with its bytes,
-    bound and share.  Frees the captures.  Returns (a line a timed bounce,
-    the text of a line)."""
+    1.0, required).  In the renders of W5_TIMED each bounce as called is
+    timed through a CUDA graph (W5 alone) beside the plain stage (events;
+    its normal maps among it), with its bytes, bound and share.  Frees the
+    captures.  Returns (a line a timed bounce, the text of a line)."""
     from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.probes import common
 
@@ -2746,21 +2780,22 @@ def w5_hold(torch, label):
                             f"{share}")
                     del got, want
                 held += 1
-                if label != W5_TIMED:
+                if label not in W5_TIMED:
                     continue
-                modes = ha._modes(args[6], args[7], False, False)
+                modes = ha._nudge_uv(args[6], args[7], False)
                 ms = common.graph_ms(lambda: ha._launch(*args[:7], *modes, False),
                                      W5_REPS)[0]
                 plain_ms = common.cuda_ms(lambda: ha.plain_attributes(*args), 1)
         finally:
             W5["holding"] = False
-        if label != W5_TIMED:
+        if label not in W5_TIMED:
             continue
         n = args[2].shape[0]
-        n_bytes = w5_bytes(args, modes[2])
+        n_bytes = w5_bytes(args, True)
         bound_ms = common.bound(0, n_bytes)[0]
-        W5["timed"].append(dict(name=f"{label} bounce {b}", rays=n, ms=ms,
-                                plain_ms=plain_ms, bytes=n_bytes))
+        W5["timed"].setdefault(label, []).append(dict(
+            name=f"{label} bounce {b}", rays=n, ms=ms, plain_ms=plain_ms,
+            bytes=n_bytes))
         ms_all.append(ms)
         lines.append(f"W5 {label} bounce {b}: {n} rays, bit-equal 1.0 in "
                      f"{len(W5_MODES)} modes, W5 {ms:.4f} ms (CUDA graph), bound "
@@ -2777,19 +2812,41 @@ def w5_hold(torch, label):
 
 def w5_resources(torch, dev):
     """Prints the registers, stack, local memory and resident blocks an SM
-    of W5's kernel (`cuobjdump -res-usage`, `ha.info`); then holds W5's
-    asin against torch.asin on all 2^32 floats and its atan2 against
-    torch.atan2 on 2^26 pairs of random bit patterns and every pair of
-    special values (none differing, required)."""
+    of W5's kernel, both instances (`cuobjdump -res-usage`, `ha.info`: the
+    one without the normal maps, `hit_attrs_kernel<false>`, and the one
+    with them); then holds W5's asin against torch.asin on all 2^32
+    floats, its atan2 against torch.atan2 on 2^26 pairs of random bit
+    patterns and every pair of special values, and its 3 x 3 product
+    against torch's (cuBLAS) at W5_MM3_ROWS rows, both layouts of the
+    (3, 3) operand, rows with signed zeros (none differing, required)."""
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import hit_attrs as ha
 
     use = resource_usage(cuda_build.build("kernels"))
-    r = use[next(k for k in use if "hit_attrs_kernel" in k)]
-    inf = ha.info()
-    print(f"W5 kernel: hit_attrs_kernel {r['REG']} registers, stack {r['STACK']} B, "
-          f"local {r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
-          f"{inf['block']} threads, {inf['sms']} SMs", flush=True)
+    parts = []
+    for maps, tag in ((False, "ILb0E"), (True, "ILb1E")):
+        r = use[next(k for k in use if "hit_attrs_kernel" in k and tag in k)]
+        inf = ha.info(maps=maps)
+        parts.append(f"hit_attrs_kernel<{str(maps).lower()}> {r['REG']} registers, "
+                     f"stack {r['STACK']} B, local {r['LOCAL']} B, "
+                     f"{inf['blocks_per_sm']} blocks an SM")
+    print(f"W5 kernels ({inf['block']} threads a block, {inf['sms']} SMs): "
+          + "; ".join(parts), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bad_mm = 0
+    for n in W5_MM3_ROWS:
+        m = torch.rand(n, 3, device=dev, generator=gen) - 0.5
+        zero = torch.rand(n, 3, device=dev, generator=gen) < 0.3
+        neg = torch.rand(n, 3, device=dev, generator=gen) < 0.5
+        a = torch.where(zero, torch.where(neg, -0.0, 0.0), m) * 2.0
+        B = torch.randn(3, 3, device=dev, generator=gen)
+        B[0, 1], B[1, 2] = 0.0, -0.0
+        for M in (B, B.T.contiguous().T):
+            bad_mm += int((ha.math("mm3", a, M).view(torch.int32)
+                           != (a @ M).view(torch.int32)).sum())
+    print(f"W5 3 x 3 product vs torch's (cuBLAS) at {W5_MM3_ROWS} rows, both "
+          f"layouts, signed zeros: {bad_mm} elements differ", flush=True)
+    require(bad_mm == 0, "W5's 3 x 3 product differs from torch's")
 
     def differ(a, b):
         return int((~((a.view(torch.int32) == b.view(torch.int32))
@@ -2822,27 +2879,37 @@ def w5_resources(torch, dev):
             "W5's asin or atan2 differs from torch's")
 
 
-def w5_row(torch):
-    """W5's row of the kernels line, at the timed render's first bounce (its
-    most rays): its bound from the bytes it moves there (`w5_bytes`), and
-    beside its time the mean a call over that chunk's bounces
-    (`chunk_mean_ms`); a line with it."""
+def w5_rows(torch):
+    """W5's rows of the kernels line, each at its timed render's first
+    bounce (its most rays): Cornell on the wavefront's (the kernel without
+    the maps; launches: every driven render's) and the normal-mapped
+    render's (the kernel with them; launches: the renders with maps); the
+    bound from the bytes it moves there (`w5_bytes`), and beside its time
+    the mean a call over that chunk's bounces (`chunk_mean_ms`); a line
+    each."""
     from raytracer_tpu_torch.probes import common
 
-    require(W5["timed"], "W5 was never timed")
     require(W5["launches"] > 0, "W5 never launched in the driven renders")
-    tm = W5["timed"][0]
-    row = common.row("hit_attrs (W5)", "hit_attrs.cu",
-                     "raytracer_tpu/geometry/attrs.py:245", W5["launches"],
-                     W5["max_abs_err"], tm["ms"], tm["plain_ms"], 0, tm["bytes"])
-    row["chunk_mean_ms"] = sum(t["ms"] for t in W5["timed"]) / len(W5["timed"])
-    print(f"W5 bound at the {tm['name']} ({tm['rays']} rays, {tm['bytes']} bytes): "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), W5 {tm['ms']:.4f} ms, share "
-          f"{row['bound_ms'] / tm['ms']:.4f}, mean {row['chunk_mean_ms']:.4f} ms a "
-          f"call over the {len(W5['timed'])} bounces of its chunk, plain "
-          f"{tm['plain_ms']:.2f} ms | {W5['launches']} launches in the driven "
-          f"renders, {W5['held']} calls held", flush=True)
-    return row
+    rows = []
+    for label, name, replaces, launches in (
+            (W5_TIMED[0], "hit_attrs (W5)", "raytracer_tpu/geometry/attrs.py:245",
+             W5["launches"]),
+            (W5_TIMED[1], "hit_attrs with normal maps (W5)",
+             "raytracer_tpu/core/integrator.py:120", W5["map_launches"])):
+        timed = W5["timed"].get(label)
+        require(timed, f"W5 was never timed at {label}")
+        tm = timed[0]
+        row = common.row(name, "hit_attrs.cu", replaces, launches, W5["max_abs_err"],
+                         tm["ms"], tm["plain_ms"], 0, tm["bytes"])
+        row["chunk_mean_ms"] = sum(t["ms"] for t in timed) / len(timed)
+        print(f"{name} bound at the {tm['name']} ({tm['rays']} rays, {tm['bytes']} "
+              f"bytes): {row['bound_ms']:.4f} ms ({row['bound_by']}), W5 "
+              f"{tm['ms']:.4f} ms, share {row['bound_ms'] / tm['ms']:.4f}, mean "
+              f"{row['chunk_mean_ms']:.4f} ms a call over the {len(timed)} bounces "
+              f"of its chunk, plain {tm['plain_ms']:.2f} ms | {launches} launches "
+              f"in the driven renders, {W5['held']} calls held", flush=True)
+        rows.append(row)
+    return rows
 
 
 def w6_check(torch, label, d):
@@ -4335,7 +4402,7 @@ def main():
         # the phase of W4 and W5 alone (after the build), for working on
         # them
         w4_phase(torch, dev)
-        print(json.dumps({"kernels": [*w4_rows(torch), w5_row(torch),
+        print(json.dumps({"kernels": [*w4_rows(torch), *w5_rows(torch),
                                       *w6_rows(torch)]}, default=float))
         return 0
 
@@ -4615,7 +4682,7 @@ def main():
               f"| {launches} launches in the driven renders", flush=True)
         require(launches > 0, f"W3 {key} never launched in the driven renders")
     print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
-                                  *w3_rows, *w4_rows(torch), w5_row(torch),
+                                  *w3_rows, *w4_rows(torch), *w5_rows(torch),
                                   *w6_rows(torch)]
                       + probe_rows}, default=float))
     print(smi)

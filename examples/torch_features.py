@@ -216,6 +216,34 @@ def normal_mapped(width=400, height=300, m=None, obj_dir=None,
     return sc
 
 
+def instanced_mapped(width=16, height=12, m=None, obj_dir=None):
+    """Three instances of a normal-mapped UV sphere (vt records, its map
+    bilinear) beside a normal-mapped plane (repeat 3): the tangents rotate
+    into world space."""
+    m = _package(m)
+    path = Path(obj_dir or tempfile.mkdtemp()) / "uv8x12.obj"
+    torch_mesh.write_uv_sphere_obj(path, 8, 12)
+    nm = bump_normalmap(32)
+    sc = m.Scene(ambient_color=m.rgb(0.05, 0.05, 0.05))
+    sc.add_Camera(look_from=m.vec3(0, 0.8, 4), look_at=m.vec3(0, 0, 0),
+                  screen_width=width, screen_height=height)
+    sc.add_DirectionalLight(Ldir=m.vec3(0.3, 1, 0.5), color=m.rgb(1, 1, 1))
+    floor = m.Diffuse(diff_color=m.rgb(0.5, 0.5, 0.5), diffuse_rays=1)
+    floor.set_normalmap(nm, repeat=3.0)
+    sc.add(m.Plane(material=floor, center=m.vec3(0, -0.8, 0), width=10,
+                   height=10, u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1)))
+    mat = m.Glossy(diff_color=m.rgb(0.7, 0.3, 0.2), n=m.vec3(1.5, 1.5, 1.5),
+                   roughness=0.2, spec_coeff=0.3, diff_coeff=0.8)
+    mat.set_normalmap(nm, filter="bilinear")
+    grp = m.MeshInstances(m.TriangleMesh(str(path), center=m.vec3(0, 0, 0),
+                                         material=mat, smooth=True))
+    for i in range(3):
+        grp.add(translate=(-1.2 + 1.2 * i, 0.1 * i, -0.3 * i), theta=40.0 * i,
+                axis=(0, 1, 0.2), scale=0.5 + 0.1 * i)
+    sc.add(grp)
+    return sc
+
+
 def vr(width=512, height=256, m=None):
     """examples/example_vr.py: an equirect interior with near and far
     markers."""

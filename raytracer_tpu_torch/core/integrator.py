@@ -19,8 +19,8 @@ under a torch.profiler range, "wavefront.nearest_hit", ".attributes",
 render reports per stage (scripts/torch_render_profile.py).  The
 attributes (the hit point, the shading normal, uv, the material word and
 the nudge) come from ops/hit_attrs.py `attributes` (W5 on the card);
-normal maps perturb the shading normal before the blocks
-(ops/hit_attrs.py `_apply_normal_maps`, :120).  The start of each
+normal maps perturb the shading normal there, before the blocks (inside
+W5 on the card; the plain stage's `_apply_normal_maps`, :120).  The start of each
 bounce's merged shading output, with the emissive and environment
 blocks, and the update come from ops/bounce_tail.py (W6 on the card); a
 CustomMaterial's `shade` runs as one more block per slot, drawing from

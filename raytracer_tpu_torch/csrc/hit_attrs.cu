@@ -3,29 +3,47 @@
 // Replaces the attribute stage of the JAX package's wavefront
 // (raytracer_tpu/core/integrator.py:221-236: raytracer_tpu/geometry/
 // attrs.py:245 `hit_attributes`, the orientation, the packed material
-// word's decode and the scale-aware nudge).  That stage has no Pallas
-// kernel: it is jnp, which XLA fuses into one pass on the TPU.  Eager torch
-// cannot fuse it, so the port's plain version (ops/hit_attrs.py
-// `plain_attributes`) runs every present kind's formula over the whole
-// wavefront on clamped ids and merges the kinds by torch.where: some 100
-// launches a bounce, each a pass over device memory.  On Cornell rendered
+// word's decode and the scale-aware nudge; the normal maps,
+// raytracer_tpu/core/integrator.py:120 `_apply_normal_maps`, with the
+// tangents of raytracer_tpu/core/compile.py:1403-1420).  That stage has
+// no Pallas kernel: it is jnp, which XLA fuses into one pass on the TPU.
+// Eager torch cannot fuse it, so the port's plain version
+// (ops/hit_attrs.py `plain_attributes`) runs every present kind's formula
+// over the whole wavefront on clamped ids and merges the kinds by
+// torch.where: some 100 launches a bounce, each a pass over device memory,
+// and some 165 more where the scene maps normals.  On Cornell rendered
 // on the wavefront it took nearly half a frame's device time (PERF.md).
 // Here one thread computes one ray's attributes, for its own object's
 // kind only, in registers.  The wrapper is in ops/hit_attrs.py.
 //
 // Each ray reads its origin, direction, hit distance, orientation and
 // object id (0 on a miss: a miss takes object 0's attributes at
-// P = O + D t, as the plain stage gives it) and writes P, the normal (the
-// geometric one times the orientation; without the orientation where the
-// scene maps normals, which the wrapper then does in plain torch before
-// orienting it), uv (zero unless the scene samples it or the caller asks),
-// miss, the packed word and its four fields, and the nudge offset.  The
-// scene comes as data: the analytic objects as one (objects, 16) float
-// table in object-id order, made once per geometry by the wrapper
-// (`attr_table`), the triangle, corner, instance and packed tables by
-// pointer.  One build serves every scene.  The first-hit pass (core/ray.py
-// `_first_hit_impl`) takes the same kernel with P, N and uv zero on a
-// miss.
+// P = O + D t, as the plain stage gives it) and writes P, the shading
+// normal (the geometric one, normal-mapped where the scene maps its
+// object, times the orientation), uv (zero unless the scene samples it or
+// the caller asks), miss, the packed word and its four fields, and the
+// nudge offset.  The scene comes as data: the analytic objects as one
+// (objects, 16) float table in object-id order, made once per geometry by
+// the wrapper (`attr_table`), the triangle, corner, instance and packed
+// tables by pointer, and the normal maps as a row a ref (`map_tables`):
+// its object, basis kind and local id, its texture's descriptor in
+// csrc/texture_fetch.cuh's `Textures` form, a plane's or a box's basis;
+// the triangles' tangents, their signs and map slots by pointer.  One
+// build serves every scene; scenes with maps take the kernel's MAPS
+// instance, the others keep the instance without the map code.  The
+// first-hit pass (core/ray.py `_first_hit_impl`) takes the same kernel
+// with P, N and uv zero on a miss and the geometric normal, unmapped and
+// unoriented.
+//
+// The maps: the plain stage computes every ref's mapped normal Nm over
+// every ray and keeps it by torch.where where the ref's mask holds, so the
+// last ref whose mask holds wins.  Here a ray looks for that ref from the
+// last back (the mask: its object is the ref's, or, for a mesh ref, a
+// triangle whose map slot is the ref's), computes that ref's Nm alone from
+// the geometric normal, and then orients it.  The texel comes through
+// texture_fetch.cuh `fetch_texture`, W4's and W6's fetch (a miss on a
+// mapped object 0 fetches at its far uv, with the card's saturating
+// float -> int32 conversion, as torch's).
 //
 // Arithmetic is the plain stage's, operation by operation in its order,
 // as torch computes each op on the card (the library is built with
@@ -44,16 +62,24 @@
 // - torch.atan2 and torch.asin are libdevice's atan2f and asinf
 //   (scripts/torch_op_rounding.py holds them against torch on the card,
 //   asin on all 2^32 floats; chip_smoke.py holds this file's own);
+// - the maps' (N, 3) @ (3, 3) product (a plane's or a box's basis) is
+//   cuBLAS on the card and MKL on the CPU; both sum each row as
+//   fma(a2, b2, fma(a1, b1, fma(a0, b0, 0))) (`mm3`;
+//   scripts/torch_op_rounding.py --only matmul3: from 17 rows on the card,
+//   from 11 on the CPU; fewer rows take other kernels, and no render's
+//   wavefront is that small), the one fused op of this file;
+// - x ** 2 is x * x;
 // - every constant is the float of the plain stage's Python double.
 // Built by the CPU tests with W5_TORCH_CPU (tests/test_torch_hit_attrs_
 // emu.py), the source restates torch's CPU ops instead: its sum of three
 // in order, atan2 and asin through float64, as the tests run the plain
-// stage.
+// stage (the 3 x 3 product needs no variant).
 //
 // What bounds it: memory.  A ray reads 40 bytes and writes 54; its
 // arithmetic (a few tens of issue slots, a few hundred for a sphere's or
-// a cylinder's uv) is a fraction of that at 3.35 TB/s against 33.5 T
-// slots/s.  The tables are small beside the rays and stay in cache.
+// a cylinder's uv or a mapped normal) is a fraction of that at 3.35 TB/s
+// against 33.5 T slots/s.  The tables, the maps' texels among them, are
+// small beside the rays and stay in cache.
 //
 // The entry returns cudaGetLastError() after its launch and reports the
 // kernels it launched.
@@ -61,6 +87,8 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "texture_fetch.cuh"
 
 #ifndef CUDA_EMU
 #define LAUNCH(kernel, grid, block, smem, stream, ...) \
@@ -73,6 +101,9 @@ constexpr int ATTR_BLOCK = 256;       // threads a block
 constexpr int ROW = 16;               // floats a row of the analytic table
 constexpr int KINDS = 6;              // sphere, plane, box, disc, cylinder, triangle
 constexpr int SLOT_SHIFT = 3, DEPTH_SHIFT = 13, MC_SHIFT = 23;
+
+// the maps' basis kinds (ops/hit_attrs.py MAP_KINDS)
+constexpr int MAP_SPHERE = 0, MAP_PLANE = 1, MAP_BOX = 2, MAP_TRI = 3;
 
 // the float of each Python double the plain stage uses
 #define F32(x) ((float)(x))
@@ -153,7 +184,15 @@ __device__ __forceinline__ void load3(const float* p, long long i, float* v) {
 // corner normals and uvs (T, 3) / (T, 2), or null; virt_row / virt_inst
 // (V,) int32 mapping a virtual id to its row and instance, or null; the
 // instances' (I, 3, 3) rotation, (I, 3) translation and (I,) inverse
-// scale.  packed: (n_obj,) int32 material words.
+// scale.  packed: (n_obj,) int32 material words.  The normal maps
+// (n_maps 0 without), a row a ref in SceneStatic.normal_maps order:
+// map_i (n_maps, 4) int32 (object id, -1 for a mesh ref; basis kind
+// MAP_*; local id, a mesh ref's map slot; 0); map_basis (n_maps, 9) float32,
+// a plane's or a box's M, row-major, with Nm = (2 m) M (a plane's rows its
+// u axis, v axis and normal; a box's its basis); map_tex the refs'
+// textures, descriptor row r ref r's; tri_tan (tan_rows, 3), tri_tan_sign
+// (tan_rows,) float32, tri_nm_slot (tan_rows,) int32, or null without a
+// mesh ref.
 struct Scene {
   const float* rows;
   long long counts[KINDS];
@@ -163,20 +202,27 @@ struct Scene {
   const float *inst_rot, *inst_trans, *inst_inv_scale;
   const int* packed;
   long long n_obj;
+  long long n_maps;
+  const int* map_i;
+  const float* map_basis;
+  texture_fetch::Textures map_tex;
+  const float *tri_tan, *tri_tan_sign;
+  const int* tri_nm_slot;
+  long long tan_rows;
 };
 
-// The rays: O, D (n, 3), t, orient (n,) float32 (orient read only where
-// `oriented`), obj (n,) int64; the outputs, each contiguous: P, N (n, 3),
+// The rays: O, D (n, 3), t, orient (n,) float32 (orient read unless
+// first_hit), obj (n,) int64; the outputs, each contiguous: P, N (n, 3),
 // uv (n, 2), eps (n,) float32, miss, mc (n,) bool, packed, mat_type,
 // mat_slot, max_depth (n,) int32.  need_uv: write uv (else zeros);
-// oriented: N times orient; first_hit: P, N and uv zero on a miss (the
-// first-hit pass); nudge: settings.nudge_eps; miss_at: MISS_THRESHOLD's
-// float.
+// first_hit: the first-hit pass, the geometric normal (no map, no
+// orientation) and P, N and uv zero on a miss; else N mapped and times
+// orient; nudge: settings.nudge_eps; miss_at: MISS_THRESHOLD's float.
 struct Rays {
   const float *O, *D, *t, *orient;
   const long long* obj;
   long long n;
-  int need_uv, oriented, first_hit;
+  int need_uv, first_hit;
   float nudge, miss_at;
   float *P, *N, *uv, *eps;
   unsigned char *miss, *mc;
@@ -369,7 +415,124 @@ __device__ __forceinline__ void triangle(const Scene& S, long long local, const 
   }
 }
 
-// One ray, i: the plain stage's arithmetic, in its order.
+// ---------------------------------------------------------------------------
+// the normal maps (ops/hit_attrs.py _apply_normal_maps)
+// ---------------------------------------------------------------------------
+
+// row x of a table of `rows` rows, clamped into it (jnp.take mode=clip)
+__device__ __forceinline__ long long clip_row(long long x, long long rows) {
+  const long long hi = rows > 0 ? rows - 1 : 0;
+  return x < 0 ? 0 : (x > hi ? hi : x);
+}
+
+// the port's _cross(a, b): each component two products and a difference
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// _unit: v / clamp_min(safe_norm(v), 1e-20)
+__device__ __forceinline__ void unit3(float* v) {
+  const float d = t_clamp_min(safe_norm3(v), F32(1e-20));
+  for (int c = 0; c < 3; ++c) v[c] = v[c] / d;
+}
+
+// r = a @ M, M (3, 3) row-major, as cuBLAS and MKL sum a row of an
+// (N, 3) @ (3, 3) float32 product (see the header)
+__device__ __forceinline__ void mm3(const float* a, const float* M, float* r) {
+  for (int c = 0; c < 3; ++c)
+    r[c] = fmaf(a[2], M[6 + c], fmaf(a[1], M[3 + c], fmaf(a[0], M[c], 0.0f)));
+}
+
+// The mesh rows a ray's object id o names (row o - tri_off, clamped; under
+// instances its virtual id's row and instance), as the plain mesh ref
+// takes them.
+struct MeshRow {
+  long long row, inst;
+};
+__device__ __forceinline__ MeshRow mesh_row(const Scene& S, long long o,
+                                            long long tri_off) {
+  MeshRow m{o - tri_off, -1};
+  if (S.virt_row != nullptr) {
+    const long long v = clip_row(m.row, S.counts[KINDS - 1]);
+    m.row = __ldg(S.virt_row + v);
+    m.inst = __ldg(S.virt_inst + v);
+  } else {
+    m.row = clip_row(m.row, S.tan_rows);
+  }
+  return m;
+}
+
+// Whether ref r's mask holds for object o: a sphere, plane or box ref where
+// o is its object; a mesh ref where o is a triangle (o >= tri_off) whose
+// map slot (`slot`, that of o's clamped row) is the ref's (never without
+// the tangent tables); a ref of no known kind never.
+__device__ __forceinline__ bool map_holds(const Scene& S, int r, long long o,
+                                          long long tri_off, int slot) {
+  const int* mi = S.map_i + 4 * r;
+  if (mi[1] == MAP_TRI)
+    return o >= tri_off && S.tri_nm_slot != nullptr && slot == mi[2];
+  return mi[1] >= MAP_SPHERE && mi[1] <= MAP_BOX && o == (long long)mi[0];
+}
+
+// the map slot of o's mesh row (0 where o is no triangle or no ref is a mesh's)
+__device__ __forceinline__ int map_slot(const Scene& S, long long o, long long tri_off) {
+  return o >= tri_off && S.tri_nm_slot != nullptr
+      ? __ldg(S.tri_nm_slot + clip_row(mesh_row(S, o, tri_off).row, S.tan_rows))
+      : 0;
+}
+
+// N <- ref r's mapped normal at uv, from the geometric normal N (the plain
+// ref's Nm): the map's texel decoded to [-1, 1] / 2, then the ref's frame
+__device__ __forceinline__ void map_normal(const Scene& S, int r, long long o,
+                                           long long tri_off, const float* uv, float* N) {
+  float m[3], v[3];
+  texture_fetch::fetch_texture(S.map_tex, r, uv[0], uv[1], m);
+  for (int k = 0; k < 3; ++k) m[k] = m[k] - 0.5f;
+  const int kind = S.map_i[4 * r + 1];
+  if (kind == MAP_PLANE || kind == MAP_BOX) {
+    float a[3];
+    for (int k = 0; k < 3; ++k) a[k] = m[k] * 2.0f;
+    mm3(a, S.map_basis + 9 * r, v);
+  } else {
+    float T[3], B[3];
+    if (kind == MAP_SPHERE) {
+      // T = dP/du (longitude), B = T x N
+      const float s = sqrtf(t_clamp_min(N[0] * N[0] + N[2] * N[2], F32(1e-12)));
+      T[0] = -N[2] / s;
+      T[1] = 0.0f;
+      T[2] = N[0] / s;
+      cross3(T, N, B);
+    } else {
+      // the face's uv tangent (rotated into world under instances), made
+      // orthonormal against N; B = sign N x T
+      const MeshRow mr = mesh_row(S, o, tri_off);
+      load3(S.tri_tan, clip_row(mr.row, S.tan_rows), T);
+      if (mr.inst >= 0) {
+        const float* R = S.inst_rot + 9 * mr.inst;
+        float Tr[3];
+        for (int j = 0; j < 3; ++j)
+          Tr[j] = tsum3(__ldg(R + 3 * j) * T[0], __ldg(R + 3 * j + 1) * T[1],
+                        __ldg(R + 3 * j + 2) * T[2]);
+        for (int j = 0; j < 3; ++j) T[j] = Tr[j];
+      }
+      const float d = tsum3(T[0] * N[0], T[1] * N[1], T[2] * N[2]);
+      for (int c = 0; c < 3; ++c) T[c] = T[c] - N[c] * d;
+      unit3(T);
+      const float sg = __ldg(S.tri_tan_sign + clip_row(mr.row, S.tan_rows));
+      cross3(N, T, B);
+      for (int c = 0; c < 3; ++c) B[c] = sg * B[c];
+    }
+    for (int c = 0; c < 3; ++c) v[c] = 2.0f * ((m[0] * T[c] + m[1] * B[c]) + m[2] * N[c]);
+  }
+  unit3(v);
+  for (int c = 0; c < 3; ++c) N[c] = v[c];
+}
+
+// One ray, i: the plain stage's arithmetic, in its order; MAPS: the
+// scene maps normals (and this is no first-hit pass).
+template <bool MAPS>
 __device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long long i) {
   const float t = __ldg(R.t + i);
   const bool miss = t >= R.miss_at;
@@ -403,7 +566,16 @@ __device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long lo
   } else if (kind == KINDS - 1) {
     triangle(S, o - off, P, need_uv, N, uv);
   }
-  if (R.oriented) {
+  if constexpr (MAPS) {
+    const long long tri_off = S.counts[0] + S.counts[1] + S.counts[2] + S.counts[3]
+                              + S.counts[4];
+    const int slot = map_slot(S, o, tri_off);
+    // the last ref whose mask holds wins, as the plain stage's torch.wheres
+    int r = (int)S.n_maps - 1;
+    while (r >= 0 && !map_holds(S, r, o, tri_off, slot)) --r;
+    if (r >= 0) map_normal(S, r, o, tri_off, uv, N);
+  }
+  if (!R.first_hit) {
     const float s = __ldg(R.orient + i);
     for (int c = 0; c < 3; ++c) N[c] = N[c] * s;
   }
@@ -425,22 +597,28 @@ __device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long lo
   R.mc[i] = ((word >> MC_SHIFT) & 1) != 0;
 }
 
+template <bool MAPS>
 __global__ void __launch_bounds__(ATTR_BLOCK)
 hit_attrs_kernel(Scene S, Rays R) {
   const long long stride = (long long)gridDim.x * ATTR_BLOCK;
   for (long long i = (long long)blockIdx.x * ATTR_BLOCK + threadIdx.x; i < R.n;
        i += stride)
-    attrs_ray(S, R, i);
+    attrs_ray<MAPS>(S, R, i);
 }
 
-// W5's atan2 (op 0: atan2(x, y)) or asin (op 1: asin(x)) of n floats, as
-// the kernel computes them: for the holds against torch.
+// W5's atan2 (op 0: atan2(x, y)), asin (op 1: asin(x)) of n floats, or its
+// 3 x 3 product (op 2: row i of out = row i of x @ y, x (n, 3), y (3, 3)),
+// as the kernel computes them: for the holds against torch.
 __global__ void __launch_bounds__(ATTR_BLOCK)
 math_kernel(int op, const float* x, const float* y, long long n, float* out) {
   const long long stride = (long long)gridDim.x * ATTR_BLOCK;
   for (long long i = (long long)blockIdx.x * ATTR_BLOCK + threadIdx.x; i < n;
-       i += stride)
-    out[i] = op == 0 ? t_atan2(x[i], y[i]) : t_asin(x[i]);
+       i += stride) {
+    if (op == 2)
+      mm3(x + 3 * i, y, out + 3 * i);
+    else
+      out[i] = op == 0 ? t_atan2(x[i], y[i]) : t_asin(x[i]);
+  }
 }
 
 // The card's SMs and the kernel's resident blocks an SM.
@@ -479,11 +657,15 @@ bool scene_ok(const Scene& S) {
          && (!tris || (S.tri_p1 && S.tri_p2 && S.tri_p3 && S.tri_normal))
          && (!S.vn1 || (S.vn2 && S.vn3 && S.uv1 && S.uv2 && S.uv3))
          && (!S.virt_row || (S.virt_inst && S.inst_rot && S.inst_trans
-                             && S.inst_inv_scale));
+                             && S.inst_inv_scale))
+         && S.n_maps >= 0
+         && (!S.n_maps || (S.map_i && S.map_basis && S.map_tex.texels
+                           && S.map_tex.desc_i && S.map_tex.desc_f))
+         && (!S.tri_nm_slot || (S.tri_tan && S.tri_tan_sign && S.tan_rows >= 1));
 }
 
 bool rays_ok(const Rays& R) {
-  return R.n >= 1 && R.O && R.D && R.t && R.obj && (!R.oriented || R.orient)
+  return R.n >= 1 && R.O && R.D && R.t && R.obj && (R.first_hit || R.orient)
          && R.P && R.N && R.uv && R.eps && R.miss && R.mc && R.packed
          && R.mat_type && R.mat_slot && R.max_depth;
 }
@@ -492,42 +674,58 @@ bool rays_ok(const Rays& R) {
 
 using namespace w5;
 
+template <bool MAPS>
+cudaError_t launch_attrs(const Scene& S, const Rays& R, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = grid_for(hit_attrs_kernel<MAPS>, R.n, &grid);
+  if (err != cudaSuccess) return err;
+  LAUNCH(hit_attrs_kernel<MAPS>, grid, ATTR_BLOCK, 0, stream, S, R);
+  return cudaGetLastError();
+}
+
+// What the kernel's instance MAPS was built to: out[0] registers a
+// thread, out[1] local memory a thread (bytes: spills and stack), out[2]
+// resident blocks an SM, out[3] the SMs, out[4] ATTR_BLOCK.
+template <bool MAPS>
+cudaError_t attrs_info(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, hit_attrs_kernel<MAPS>);
+  if (err == cudaSuccess) err = residency(hit_attrs_kernel<MAPS>, &out[3], &out[2]);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[4] = ATTR_BLOCK;
+  return cudaSuccess;
+}
+
 // The attributes of every ray of R against the scene S (ops/hit_attrs.py
-// builds both), one launch.  Returns 0 or a CUDA error, and sets *launched
-// to the kernels launched.
+// builds both), one launch: the MAPS instance where the scene maps normals
+// and this is no first-hit pass.  Returns 0 or a CUDA error, and sets
+// *launched to the kernels launched.  It runs on the host and reads
+// nothing the structs point to: the tables lie on the device.
 extern "C" int hit_attrs(const Scene* S, const Rays* R, void* stream, int* launched) {
   *launched = 0;
   if (!scene_ok(*S) || !rays_ok(*R)) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = grid_for(hit_attrs_kernel, R->n, &grid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = S->n_maps > 0 && !R->first_hit ? launch_attrs<true>(*S, *R, st)
+                                                          : launch_attrs<false>(*S, *R, st);
   if (err != cudaSuccess) return (int)err;
-  LAUNCH(hit_attrs_kernel, grid, ATTR_BLOCK, 0, static_cast<cudaStream_t>(stream),
-         *S, *R);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
   return 0;
 }
 
-// What the kernel was built to: out[0] registers a thread, out[1] local
-// memory a thread (bytes: spills and stack), out[2] resident blocks an SM,
-// out[3] the SMs, out[4] ATTR_BLOCK.
-extern "C" int hit_attrs_info(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, hit_attrs_kernel);
-  if (err == cudaSuccess) err = residency(hit_attrs_kernel, &out[3], &out[2]);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[4] = ATTR_BLOCK;
-  return 0;
+// What the kernel was built to (maps: its MAPS instance; see attrs_info).
+extern "C" int hit_attrs_info(int maps, int* out) {
+  return (int)(maps ? attrs_info<true>(out) : attrs_info<false>(out));
 }
 
-// out[i] = W5's atan2(x[i], y[i]) (op 0) or asin(x[i]) (op 1), n floats.
-// For chip_smoke.py and the card tests, which hold them against torch.
+// out[i] = W5's atan2(x[i], y[i]) (op 0) or asin(x[i]) (op 1), n floats; or
+// (op 2) out's row i = x's row i @ y, n rows.  For chip_smoke.py and the
+// card tests, which hold them against torch.
 extern "C" int hit_attrs_math(int op, const float* x, const float* y, long long n,
                               float* out, void* stream, int* launched) {
   *launched = 0;
-  if ((op != 0 && op != 1) || !x || (op == 0 && !y) || !out || n < 1)
+  if (op < 0 || op > 2 || !x || (op != 1 && !y) || !out || n < 1)
     return (int)cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = grid_for(math_kernel, n, &grid);

@@ -9,20 +9,26 @@ and uv zero on a miss).  On CUDA tensors it
 launches W5, one launch a bounce (a failed build or launch raises;
 nothing falls back); on CPU tensors it runs W5's plain version,
 `plain_attributes`: geometry/attrs.py `hit_attributes` (every present
-kind's formula over every ray, merged by torch.where), the normal maps,
-the orientation, the word's decode and the nudge, which W5 equals bit for
-bit.  `attributes.launches` counts the kernels it launched.
+kind's formula over every ray, merged by torch.where), the normal maps
+(`_apply_normal_maps`: every ref's mapped normal over every ray, merged
+by torch.where), the orientation, the word's decode and the nudge, which
+W5 equals bit for bit.  `attributes.launches` counts the kernels it
+launched.
 
 W5 computes each ray's own kind alone.  It reads the analytic objects as
 one (objects, 16) float32 table in object-id order (`attr_table`, each
 kind's parameters copied, made once per geometry and kept on it by
 `mesh_sweep.kept`), and the triangle, corner, instance and packed tables
-by pointer (`scene_struct`, kept likewise).  Normal maps stay plain
-torch: where the scene has them, W5 writes the geometric normal, and the
-plain `_apply_normal_maps` and the orientation follow, in the plain
-stage's order.  Where autograd records the stage (grad enabled and an
-input requiring grad), the kernel runs inside `_Attrs`, whose backward
-recomputes the plain stage on the chunk for its vector-Jacobian product.
+by pointer (`scene_struct`, kept likewise).  Where the scene maps
+normals, a ray also finds the last ref whose mask holds and computes that
+ref's mapped normal from the geometric one, before orienting it: the refs
+as a table of a row each (`map_tables`: object, basis kind, local id, a
+plane's or a box's basis, the maps' texels and descriptors in W4's form,
+`wavefront_shade.texture_tables`), the mesh tangents by pointer.  Where
+autograd records the stage (grad enabled and an input requiring grad:
+the rays, a geometry table, a map's texture), the kernel runs inside
+`_Attrs`, whose backward recomputes the plain stage on the chunk for its
+vector-Jacobian product.
 
 The `_launch` function takes `lib=`: the tests pass the CPU stand-in's
 build of the source (csrc/emu) with CPU tensors.
@@ -38,20 +44,23 @@ from typing import Any
 import torch
 
 from ..core.compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
-                            PACKED_SLOT_SHIFT)
+                            PACKED_SLOT_SHIFT, TexRef)
 from ..core.safemath import safe_norm, take
 from ..geometry.attrs import hit_attributes
 from ..materials import shade
 from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS
 from . import cuda_build
+from . import wavefront_shade as ws
 from .analytic_sweep import _rows
 from .mesh_sweep import _call, kept
 from .plain_grad import plain_vjp
 
 _V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# W5's kernel by name, as a profile lists it
+# W5's kernel by name, as a profile lists it (both instances)
 KERNELS = ("hit_attrs_kernel",)
 ROW = 16                  # floats an analytic object takes in W5's table
+# a normal map's basis kind as W5 reads it (csrc/hit_attrs.cu MAP_*)
+MAP_KINDS = {"sphere": 0, "plane": 1, "box": 2, "tri": 3}
 
 
 class Scene(ctypes.Structure):
@@ -60,12 +69,14 @@ class Scene(ctypes.Structure):
                 ("vn2", _V), ("vn3", _V), ("uv1", _V), ("uv2", _V), ("uv3", _V),
                 ("virt_row", _V), ("virt_inst", _V), ("inst_rot", _V),
                 ("inst_trans", _V), ("inst_inv_scale", _V), ("packed", _V),
-                ("n_obj", _L)]
+                ("n_obj", _L), ("n_maps", _L), ("map_i", _V), ("map_basis", _V),
+                ("map_tex", ws.Textures), ("tri_tan", _V), ("tri_tan_sign", _V),
+                ("tri_nm_slot", _V), ("tan_rows", _L)]
 
 
 class Rays(ctypes.Structure):
     _fields_ = [("O", _V), ("D", _V), ("t", _V), ("orient", _V), ("obj", _V),
-                ("n", _L), ("need_uv", _I), ("oriented", _I), ("first_hit", _I),
+                ("n", _L), ("need_uv", _I), ("first_hit", _I),
                 ("nudge", _F), ("miss_at", _F), ("P", _V), ("N", _V), ("uv", _V),
                 ("eps", _V), ("miss", _V), ("mc", _V), ("packed", _V),
                 ("mat_type", _V), ("mat_slot", _V), ("max_depth", _V)]
@@ -185,29 +196,26 @@ def _apply_normal_maps(N_geo, P, uv, obj_id, data, static):
     return N
 
 
-def _modes(static, settings, force_uv, first_hit):
-    """(nudge_eps, need_uv, oriented) of a call: W5 multiplies by the
-    orientation itself unless the normals are mapped after it (or this is
-    the first-hit pass, whose normal is the geometric one)."""
+def _nudge_uv(static, settings, force_uv):
+    """(nudge_eps, need_uv) of a call."""
     nudge = settings.nudge_eps if settings is not None else NUDGE_EPS
-    return (nudge, bool(static.needs_uv or force_uv),
-            not first_hit and not static.normal_maps)
+    return nudge, bool(static.needs_uv or force_uv)
 
 
-def _plain_core(O, D, t, orient, obj, geom, static, nudge, need_uv, oriented,
-                first_hit):
-    """(P, N, uv, eps) as W5 writes them: the hit point, the geometric
-    normal (times the orientation where `oriented`), uv (the three zero on
-    a miss in the first-hit pass) and the nudge."""
+def _plain_core(O, D, t, orient, obj, data, static, nudge, need_uv, first_hit):
+    """(P, N, uv, eps) as W5 writes them: the hit point, the shading normal
+    (the geometric one normal-mapped, times the orientation; the geometric
+    one alone in the first-hit pass), uv (the three zero on a miss in the
+    first-hit pass) and the nudge."""
     P = O + D * t[..., None]
     if first_hit:
         miss = (t >= MISS_THRESHOLD)[..., None]
         P = torch.where(miss, 0.0, P)
-    N, uv = hit_attributes(P, obj, geom, static, force_uv=need_uv)
+    N, uv = hit_attributes(P, obj, data.geom, static, force_uv=need_uv)
     if first_hit:
         N, uv = torch.where(miss, 0.0, N), torch.where(miss, 0.0, uv)
-    if oriented:
-        N = N * orient[..., None]
+    else:
+        N = _apply_normal_maps(N, P, uv, obj, data, static) * orient[..., None]
     # the scale-aware nudge: an absolute 1e-6 vanishes in float32 at
     # Cornell-box coordinates
     eps = nudge * torch.clamp_min(torch.amax(torch.abs(P), dim=-1), 1.0)
@@ -224,21 +232,12 @@ def _decode(t, obj, data):
             ((packed >> PACKED_MC_SHIFT) & 1).to(torch.bool))
 
 
-def _mapped(N_geo, P, uv, orient, obj, data, static):
-    """The shading normal of a normal-mapped scene: the maps, then the
-    orientation."""
-    return _apply_normal_maps(N_geo, P, uv, obj, data, static) * orient[..., None]
-
-
 def plain_attributes(O, D, t, orient, obj, data, static, settings=None,
                      force_uv=False, first_hit=False):
     """W5's plain version: the attribute stage in plain torch (see
     `attributes`)."""
-    nudge, need_uv, oriented = _modes(static, settings, force_uv, first_hit)
-    P, N, uv, eps = _plain_core(O, D, t, orient, obj, data.geom, static, nudge,
-                                need_uv, oriented, first_hit)
-    if not first_hit and static.normal_maps:
-        N = _mapped(N, P, uv, orient, obj, data, static)
+    P, N, uv, eps = _plain_core(O, D, t, orient, obj, data, static,
+                                *_nudge_uv(static, settings, force_uv), first_hit)
     miss, packed, mat_type, mat_slot, depth, mc = _decode(t, obj, data)
     return Attrs(P=P, N=N, uv=uv, miss=miss, mat_type=mat_type, mat_slot=mat_slot,
                  obj_max_depth=depth, obj_mc=mc, eps=eps, packed=packed)
@@ -292,14 +291,73 @@ def _ptr(x):
     return x.data_ptr() if x is not None and x.numel() else None
 
 
+def _map_srcs(data, static):
+    """The tensors the normal maps' tables come from."""
+    if not static.normal_maps:
+        return ()
+    g = data.geom
+    return (g.plane_u_axis, g.plane_v_axis, g.plane_normal, g.box_basis, g.tri_tan,
+            g.tri_tan_sign, g.tri_nm_slot,
+            *(data.textures[k] for k in sorted({r.tex for r in static.normal_maps})))
+
+
+def map_tables(data, static):
+    """{name: tensor} of the normal maps as W5 reads them (csrc/hit_attrs.cu
+    `Scene`), a row a ref in static.normal_maps order: "map_i" (refs, 4)
+    int32 (object id, -1 for a mesh ref; basis kind, MAP_KINDS; local id;
+    0); "map_basis" (refs, 9) float32, a plane's or a box's M, row-major,
+    with the plain branch's (m * 2.0) @ basis.T = (m * 2.0) @ M (a plane's
+    rows u axis, v axis, normal; a box's its basis; zero for a sphere or a
+    mesh); "texels", "desc_i", "desc_f" the refs' textures as
+    `wavefront_shade.texture_tables` gives them, descriptor row r ref r's;
+    and, with a mesh ref, "tri_tan", "tri_tan_sign" (float32) and
+    "tri_nm_slot" (int32), of one row count.  Values copied, none computed.
+    Empty without maps."""
+    refs = static.normal_maps
+    if not refs:
+        return {}
+    g = data.geom
+    dev = g.plane_normal.device
+    with torch.no_grad():
+        basis = torch.zeros((len(refs), 9), dtype=torch.float32, device=dev)
+        for i, r in enumerate(refs):
+            if r.basis_kind == "plane":
+                basis[i] = torch.stack([g.plane_u_axis[r.local_id],
+                                        g.plane_v_axis[r.local_id],
+                                        g.plane_normal[r.local_id]]).reshape(-1)
+            elif r.basis_kind == "box":
+                basis[i] = g.box_basis[r.local_id].reshape(-1)
+        map_i = torch.tensor([[r.obj, MAP_KINDS[r.basis_kind], r.local_id, 0]
+                              for r in refs], dtype=torch.int32, device=dev)
+        texels, desc_i, desc_f = ws.texture_tables(
+            g, map_i, [TexRef(i, r.tex, r.repeat, r.bilinear)
+                       for i, r in enumerate(refs)], data.textures, "w5_maps")
+        out = dict(map_i=map_i, map_basis=basis, texels=texels, desc_i=desc_i,
+                   desc_f=desc_f)
+        if any(r.basis_kind == "tri" for r in refs):
+            rows = {g.tri_tan.shape[0], g.tri_tan_sign.shape[0],
+                    g.tri_nm_slot.shape[0]}
+            if (g.tri_virt_row.shape[0] not in (0, static.kind_counts["tri"])
+                    or len(rows) != 1):
+                raise ValueError("W5: the tangent or instance tables do not match "
+                                 "the scene's triangles")
+            out.update(tri_tan=g.tri_tan.detach().to(torch.float32).contiguous(),
+                       tri_tan_sign=g.tri_tan_sign.detach().to(torch.float32)
+                       .contiguous(),
+                       tri_nm_slot=g.tri_nm_slot.detach().to(torch.int32)
+                       .contiguous())
+        return out
+
+
 def scene_struct(data, static):
     """(the Scene struct W5 reads, the tensors it points into): made at a
-    geometry's first call and kept on it while its tables and the packed
-    words are the same tensors at the same version."""
+    geometry's first call and kept on it while its tables, the packed
+    words and the maps' textures are the same tensors at the same
+    version."""
     geom = data.geom
     srcs = (*_analytic_srcs(geom), *(getattr(geom, f) for f in _TRI + _CORNERS
                                      + _INST), geom.tri_virt_row,
-            geom.tri_virt_inst, data.obj.packed)
+            geom.tri_virt_inst, data.obj.packed, *_map_srcs(data, static))
 
     def make():
         counts = [static.kind_counts[k] for k in KINDS]
@@ -318,15 +376,26 @@ def scene_struct(data, static):
             inst.update(virt_row=i32(geom.tri_virt_row),
                         virt_inst=i32(geom.tri_virt_inst))
         packed = i32(data.obj.packed)
+        maps = map_tables(data, static)
         struct = Scene(
             rows=_ptr(table), counts=(_L * len(KINDS))(*counts),
             **{f: _ptr(x) for f, x in tri.items()},
             **{f[4:]: _ptr(x) for f, x in corners.items()},
             **{f: _ptr(x) for f, x in inst.items()},
-            packed=_ptr(packed), n_obj=packed.shape[0])
-        return struct, (table, tri, corners, inst, packed)
+            packed=_ptr(packed), n_obj=packed.shape[0],
+            n_maps=len(static.normal_maps),
+            tan_rows=maps["tri_tan"].shape[0] if "tri_tan" in maps else 0,
+            map_tex=ws.Textures(*(_ptr(maps.get(k))
+                                  for k in ("texels", "desc_i", "desc_f"))),
+            **{f: _ptr(maps.get(f)) for f in ("map_i", "map_basis", "tri_tan",
+                                              "tri_tan_sign", "tri_nm_slot")})
+        return struct, (table, tri, corners, inst, packed, maps)
 
-    return kept(geom, "_w5_scene", srcs, make)
+    # the refs name the entry: one geometry may meet statics of other maps
+    name = "_w5_scene" + "".join(f"_{r.obj}.{r.tex}.{r.repeat}.{r.basis_kind}."
+                                 f"{r.local_id}.{r.bilinear}"
+                                 for r in static.normal_maps)
+    return kept(geom, name, srcs, make)
 
 
 # ---------------------------------------------------------------------------
@@ -349,11 +418,10 @@ def _rays_in(O, D, t, orient, obj):
     return [x.detach().contiguous() for x in (O, D, t, orient, obj)]
 
 
-def _launch(O, D, t, orient, obj, data, static, nudge, need_uv, oriented,
-            first_hit, lib=None):
-    """W5 from `lib` on the rays: an Attrs with the geometric or oriented
-    normal as `oriented` says (no normal map).  Adds its launches to
-    `attributes.launches` (`_COUNTED`)."""
+def _launch(O, D, t, orient, obj, data, static, nudge, need_uv, first_hit,
+            lib=None):
+    """W5 from `lib` on the rays: an Attrs as `attributes` gives it.  Adds
+    its launches to `attributes.launches` (`_COUNTED`)."""
     O, D, t, orient, obj = _rays_in(O, D, t, orient, obj)
     n, dev = t.shape[0], t.device
     struct, keep = scene_struct(data, static)
@@ -368,8 +436,8 @@ def _launch(O, D, t, orient, obj, data, static, nudge, need_uv, oriented,
         return out
     rays = Rays(O=O.data_ptr(), D=D.data_ptr(), t=t.data_ptr(),
                 orient=orient.data_ptr(), obj=obj.data_ptr(), n=n,
-                need_uv=int(need_uv), oriented=int(oriented),
-                first_hit=int(first_hit), nudge=nudge, miss_at=MISS_AT,
+                need_uv=int(need_uv), first_hit=int(first_hit), nudge=nudge,
+                miss_at=MISS_AT,
                 P=out.P.data_ptr(), N=out.N.data_ptr(), uv=out.uv.data_ptr(),
                 eps=out.eps.data_ptr(), miss=out.miss.data_ptr(),
                 mc=out.obj_mc.data_ptr(), packed=out.packed.data_ptr(),
@@ -396,19 +464,20 @@ def _geom_floats(geom):
 
 class _Attrs(torch.autograd.Function):
     """W5 forward (xs: O, D, t, orient, then the geometry's float tables
-    that require grad, named in `call`); its integer and bool outputs
-    non-differentiable.  Backward: the plain stage (`_plain_core`)
-    recomputed from the saved inputs on the chunk, and its vector-Jacobian
-    product for the inputs that need one."""
+    that require grad, named in `call`, then the maps' textures that
+    require grad, their indices in `call`); its integer and bool outputs
+    non-differentiable.  Backward: the plain stage (`_plain_core`, the
+    normal maps among it) recomputed from the saved inputs on the chunk,
+    and its vector-Jacobian product for the inputs that need one."""
 
     @staticmethod
     def forward(fctx, call, *xs):
-        obj, data, static, modes, names, lib = call
+        obj, data, static, modes, names, texs, lib = call
         out = _launch(*xs[:4], obj, data, static, *modes, lib=lib)
         others = [getattr(out, f) for f in OTHER_FIELDS]
         fctx.mark_non_differentiable(*others)
-        fctx.geom, fctx.static, fctx.modes, fctx.names = (data.geom, static, modes,
-                                                          names)
+        fctx.data, fctx.static, fctx.modes = data, static, modes
+        fctx.names, fctx.texs = names, texs
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
         fctx.save_for_backward(obj, *xs)
         return (*(getattr(out, f) for f in FLOAT_FIELDS), *others)
@@ -418,10 +487,15 @@ class _Attrs(torch.autograd.Function):
         obj, *xs = fctx.saved_tensors
 
         def plain(leaves):
-            geom = fctx.geom
-            if fctx.names:
-                geom = dataclasses.replace(geom, **dict(zip(fctx.names, leaves[4:])))
-            return _plain_core(*leaves[:4], obj, geom, fctx.static, *fctx.modes)
+            data, k = fctx.data, 4 + len(fctx.names)
+            if fctx.names or fctx.texs:
+                textures = list(data.textures)
+                for i, x in zip(fctx.texs, leaves[k:]):
+                    textures[i] = x
+                data = dataclasses.replace(
+                    data, textures=tuple(textures), geom=dataclasses.replace(
+                        data.geom, **dict(zip(fctx.names, leaves[4:k]))))
+            return _plain_core(*leaves[:4], obj, data, fctx.static, *fctx.modes)
 
         # the integer and bool outputs take no gradient
         return (None, *plain_vjp(grads[:len(FLOAT_FIELDS)], xs,
@@ -431,23 +505,20 @@ class _Attrs(torch.autograd.Function):
 def _kernel_attributes(O, D, t, orient, obj, data, static, settings=None,
                        force_uv=False, first_hit=False, lib=None):
     """W5 on the rays, from `lib`, through `_Attrs` where autograd records
-    the stage; then the normal maps and the orientation in plain torch
-    where the scene maps normals."""
-    modes = _modes(static, settings, force_uv, first_hit)
-    oriented = modes[2]
-    modes = (*modes, first_hit)
-    geom = data.geom
-    names = (tuple(f for f in _geom_floats(geom) if getattr(geom, f).requires_grad)
-             if torch.is_grad_enabled() else ())
-    xs = [O, D, t, orient] + [getattr(geom, f) for f in names]
+    the stage."""
+    modes = (*_nudge_uv(static, settings, force_uv), first_hit)
+    geom, names, texs = data.geom, (), ()
+    if torch.is_grad_enabled():
+        names = tuple(f for f in _geom_floats(geom) if getattr(geom, f).requires_grad)
+        if not first_hit:
+            texs = tuple(k for k in sorted({r.tex for r in static.normal_maps})
+                         if data.textures[k].requires_grad)
+    xs = ([O, D, t, orient] + [getattr(geom, f) for f in names]
+          + [data.textures[k] for k in texs])
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        res = _Attrs.apply((obj, data, static, modes, names, lib), *xs)
-        out = Attrs(**dict(zip(FLOAT_FIELDS + OTHER_FIELDS, res)))
-    else:
-        out = _launch(O, D, t, orient, obj, data, static, *modes, lib=lib)
-    if not first_hit and not oriented and static.normal_maps:
-        out.N = _mapped(out.N, out.P, out.uv, orient, obj, data, static)
-    return out
+        res = _Attrs.apply((obj, data, static, modes, names, texs, lib), *xs)
+        return Attrs(**dict(zip(FLOAT_FIELDS + OTHER_FIELDS, res)))
+    return _launch(O, D, t, orient, obj, data, static, *modes, lib=lib)
 
 
 def attributes(O, D, t, orient, obj, data, static, settings=None, force_uv=False,
@@ -488,14 +559,15 @@ def reset_launches():
 INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
 
 
-def info(lib=None):
-    """What W5 was built to, read on the card (`hit_attrs_info`): registers
-    and local memory (bytes: spills and stack) a thread, resident blocks an
-    SM, the SMs and threads a block."""
+def info(lib=None, maps=False):
+    """What W5's kernel (maps: its instance for normal-mapped scenes) was
+    built to, read on the card (`hit_attrs_info`): registers and local
+    memory (bytes: spills and stack) a thread, resident blocks an SM, the
+    SMs and threads a block."""
     fn = (lib or cuda_build.load_library()).hit_attrs_info
-    fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(out)
+    err = fn(int(maps), out)
     if err:
         raise RuntimeError(f"hit_attrs_info: CUDA error {err}")
     return dict(zip(INFO, out))
@@ -503,16 +575,19 @@ def info(lib=None):
 
 def math(op, x, y=None, lib=None):
     """W5's own atan2(x, y) (op "atan2") or asin(x) (op "asin") of float32
-    tensors, as its kernel computes them (`hit_attrs_math`): for the holds
-    against torch.atan2 and torch.asin."""
+    tensors, or its x @ y of an (N, 3) x and a (3, 3) y (op "mm3", the maps'
+    plane and box branch), as its kernel computes them (`hit_attrs_math`):
+    for the holds against torch.atan2, torch.asin and torch.matmul."""
     x = x.contiguous()
     if x.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
         raise TypeError("W5's math takes float32 tensors")
-    code = {"atan2": 0, "asin": 1}[op]
-    if code == 0:
+    code = {"atan2": 0, "asin": 1, "mm3": 2}[op]
+    if code != 1:
         y = y.contiguous()
+    if code == 2 and (x.dim() != 2 or x.shape[1] != 3 or y.shape != (3, 3)):
+        raise ValueError("W5's mm3 takes an (N, 3) and a (3, 3) tensor")
     out = torch.empty_like(x)
     _call(lib, "hit_attrs_math", code, x.data_ptr(),
-          y.data_ptr() if code == 0 else None, x.numel(), out.data_ptr(),
-          cuda_build.stream_of(x.device), entries=ENTRIES)
+          y.data_ptr() if code != 1 else None, x.shape[0] if code == 2 else x.numel(),
+          out.data_ptr(), cuda_build.stream_of(x.device), entries=ENTRIES)
     return out

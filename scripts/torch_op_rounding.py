@@ -28,7 +28,13 @@ elements whose bits agree with each candidate (1.0: the rule):
   all 2**32 floats, atan2 on 2**26 pairs of random bit patterns and on
   every pair of +-0, +-inf, NaN, subnormals and a few normals (counts of
   elements whose bits differ, NaN against NaN agreeing);
-- torch.sign of -0.0, +0.0 and NaN (its bits).
+- torch.sign of -0.0, +0.0 and NaN (its bits);
+- an (N, 3) @ (3, 3) float32 product (the normal maps' plane and box
+  branch, ops/hit_attrs.py `_apply_normal_maps`; cuBLAS on the card),
+  against the orders W5 could restate (`mm3_candidates`), on rows with
+  signed zeros, at several N and with the (3, 3) operand contiguous and
+  a transposed view: the candidates that give every row's bits.
+`--only matmul3` runs the last alone.
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -200,9 +206,63 @@ def aten_sum(torch, z, sms=132, threads=2048, last="yx"):
     return out
 
 
+MM3_ROWS = (1, 2, 3, 5, 8, 10, 11, 16, 17, 100, 1000, 1 << 16, 1 << 20,
+            1_920_000, 4_160_000)
+
+
+def mm3_candidates(torch, a, M):
+    """{name: (N, 3)} the orders in which a @ M (a (N, 3), M (3, 3)) could
+    be summed: r_c = a_0 M[0, c] + a_1 M[1, c] + a_2 M[2, c], fused
+    (fma through float64: the product is exact there) or not, from 0 or
+    from the first product, in k order or reversed."""
+    A = [a[:, k:k + 1] for k in range(3)]
+    B = [M[k][None, :] for k in range(3)]
+    p = [A[k] * B[k] for k in range(3)]
+    zero = torch.zeros_like(p[0])
+
+    def fma(x, y, z):
+        return (x.double() * y.double() + z.double()).float()
+
+    return {
+        "fma(a2,b2,fma(a1,b1,fma(a0,b0,0)))": fma(A[2], B[2], fma(A[1], B[1],
+                                                                  fma(A[0], B[0], zero))),
+        "fma(a2,b2,fma(a1,b1,a0*b0))": fma(A[2], B[2], fma(A[1], B[1], p[0])),
+        "((0+a0b0)+a1b1)+a2b2": ((zero + p[0]) + p[1]) + p[2],
+        "(a0b0+a1b1)+a2b2": (p[0] + p[1]) + p[2],
+        "fma(a0,b0,fma(a1,b1,fma(a2,b2,0)))": fma(A[0], B[0], fma(A[1], B[1],
+                                                                  fma(A[2], B[2], zero))),
+        "fma(a0,b0,fma(a1,b1,a2*b2))": fma(A[0], B[0], fma(A[1], B[1], p[2])),
+        "(a0b0+(a1b1+a2b2))": p[0] + (p[1] + p[2]),
+    }
+
+
+def mm3_rule(torch, dev, g, rows=MM3_ROWS):
+    """{"N layout": [the candidates every row of which agrees]} for
+    (m * 2.0) @ basis, m (N, 3) in [-0.5, 0.5] with 30% zeros (half of them
+    -0), basis a (3, 3) with a +0 and a -0, contiguous or a transposed
+    view (the plane branch passes basis.T of a stacked matrix, the box
+    branch a row of the box table)."""
+    out = {}
+    for n in rows:
+        m = torch.rand(n, 3, device=dev, generator=g) - 0.5
+        z = torch.rand(n, 3, device=dev, generator=g) < 0.3
+        neg = torch.rand(n, 3, device=dev, generator=g) < 0.5
+        m = torch.where(z, torch.where(neg, -0.0, 0.0), m)
+        B = torch.randn(3, 3, device=dev, generator=g)
+        B[0, 1], B[1, 2], B[2, 0] = 0.0, -0.0, 0.0
+        a = m * 2.0
+        for lay, M in (("contiguous", B), ("transposed", B.T.contiguous().T)):
+            got = a @ M
+            same = lambda v: bool((got.view(torch.int32) == v.view(torch.int32)).all())
+            out[f"{n} {lay}"] = [k for k, v in mm3_candidates(torch, a, M).items()
+                                 if same(v)]
+    return out
+
+
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--only", choices=("matmul3",))
     args = ap.parse_args(argv)
     import torch
 
@@ -240,6 +300,10 @@ def main(argv):
         return torch.sqrt(t.double()).float()
 
     res = {"device": smi, "torch": torch.__version__}
+    res["matmul3"] = mm3_rule(torch, dev, g)
+    res["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    if args.only:
+        return emit(res, args.out)
     x = rnd(N, 3)
     x0, x1, x2 = x.unbind(-1)
     s = torch.sum(x, dim=-1)
@@ -358,10 +422,14 @@ def main(argv):
     sg = torch.sign(torch.tensor([-0.0, 0.0, float("nan")], device=dev))
     res["sign(-0, +0, nan)"] = [repr(v) for v in sg.tolist()] + [
         bool(torch.signbit(sg[0]))]
+    return emit(res, args.out)
+
+
+def emit(res, out):
     line = json.dumps(res)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(line + "\n")
+    if out:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(line + "\n")
     print(line)
     return 0
 

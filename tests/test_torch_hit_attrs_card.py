@@ -1,12 +1,16 @@
 """W5, the wavefront's hit attributes (ops/hit_attrs.py,
 csrc/hit_attrs.cu), on the card, without JAX: every attribute call of
 small renders held against the plain stage on the same rays, bit for bit
-(as the renders call it, with uv forced, and as the first-hit pass); W5's
-atan2 and asin against torch's (asin on all 2^32 floats, atan2 on random
-bit patterns and the special values); the card's renders run the plain
-attribute formulas nowhere; the inverse-rendering gradient through W5
-(`_Attrs`) equals the one through the plain stage, bit for bit, and two
-passes agree.
+(as the renders call it, with uv forced, and as the first-hit pass; in
+the normal-mapped scenes the mapped, oriented normal that W5 computes),
+and likewise the normal maps' cases of tests/test_torch_hit_attrs_emu.py
+`map_inputs` (two refs on one object, a map of quarter steps, misses on
+the mapped object 0); W5's atan2 and asin against torch's (asin on all
+2^32 floats, atan2 on random bit patterns and the special values), and
+its 3 x 3 product against torch's (cuBLAS) from 17 rows on; the card's
+renders run the plain attribute formulas and the plain normal maps
+nowhere; the inverse-rendering gradient through W5 (`_Attrs`) equals
+the one through the plain stage, bit for bit, and two passes agree.
 
     python -m pytest --noconftest -m cuda tests/test_torch_hit_attrs_card.py
 
@@ -26,10 +30,11 @@ import raytracer_tpu_torch as T
 from raytracer_tpu_torch.ops import hit_attrs as ha
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 FIELDS = ha.FLOAT_FIELDS + ha.OTHER_FIELDS
 SCENES = ["grid", "cornell", "primitives", "shapes", "icosphere", "beach_ball",
-          "instances", "normal_mapped"]
+          "instances", "normal_mapped", "normal_mapped_bilinear", "instanced_mapped"]
 MODES = ((False, False), (True, False), (True, True))
 
 
@@ -53,8 +58,12 @@ def _scene(name, obj_dir):
         return getattr(torch_mesh, name)(64, 48, obj_dir=obj_dir)
     if name == "instances":
         return torch_mesh.instances(64, 48, count=12, subdiv=2, obj_dir=obj_dir)
-    if name == "normal_mapped":
-        return torch_features.normal_mapped(64, 48, obj_dir=obj_dir)
+    if name in ("normal_mapped", "normal_mapped_bilinear"):
+        return torch_features.normal_mapped(
+            64, 48, obj_dir=obj_dir,
+            filter="bilinear" if name.endswith("bilinear") else "nearest")
+    if name == "instanced_mapped":
+        return torch_features.instanced_mapped(64, 48, obj_dir=obj_dir)
     sc = {"cornell": lambda: torch_cornellbox.build_cornell(64, 64),
           "primitives": lambda: torch_primitives.primitives(64, 48),
           "shapes": lambda: torch_primitives.shapes(64, 48)}[name]()
@@ -99,6 +108,45 @@ def test_card_w5_equals_the_plain_stage(card, name, tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_card_w5_equals_the_plain_stage_on_the_map_cases(card, tmp_path):
+    """The normal maps' cases (`map_inputs`: every basis kind, both filters,
+    repeats other than 1, two refs on one object, texels of 0.5, misses on
+    the mapped object 0, NaN and overflowing distances) on the card: W5
+    against the plain stage, every field bit for bit, in each mode."""
+    from test_torch_hit_attrs_emu import map_inputs
+
+    static, data, rays, _ = map_inputs(tmp_path)
+    data = data.to(card)
+    rays = [x.to(card) for x in rays]
+    for force_uv, first_hit in MODES:
+        want = ha.plain_attributes(*rays, data, static, T.RenderSettings(),
+                                   force_uv=force_uv, first_hit=first_hit)
+        got = ha._kernel_attributes(*rays, data, static, T.RenderSettings(),
+                                    force_uv=force_uv, first_hit=first_hit)
+        for f in FIELDS:
+            assert bits_equal(getattr(got, f), getattr(want, f)), (f, force_uv,
+                                                                   first_hit)
+
+
+@pytest.mark.cuda
+def test_card_w5_mm3_is_cublas(card):
+    """W5's 3 x 3 product (`hit_attrs_math` op 2) against torch's (N, 3) @
+    (3, 3) on the card (cuBLAS), both layouts of the (3, 3) operand, on
+    rows with signed zeros: bit for bit from 17 rows on (fewer rows take
+    other cuBLAS kernels, scripts/torch_op_rounding.py --only matmul3)."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    for n in (17, 100, 4096, 1 << 20):
+        m = torch.rand(n, 3, device=card, generator=gen) - 0.5
+        zero = torch.rand(n, 3, device=card, generator=gen) < 0.3
+        neg = torch.rand(n, 3, device=card, generator=gen) < 0.5
+        a = torch.where(zero, torch.where(neg, -0.0, 0.0), m) * 2.0
+        B = torch.randn(3, 3, device=card, generator=gen)
+        B[0, 1], B[1, 2] = 0.0, -0.0
+        for M in (B, B.T.contiguous().T):
+            assert bits_equal(ha.math("mm3", a, M), a @ M), n
+
+
+@pytest.mark.cuda
 def test_card_w5_asin_is_torchs_on_every_float(card):
     """W5's asin equals torch.asin on all 2^32 floats (NaN against NaN)."""
     bad = 0
@@ -130,14 +178,15 @@ def test_card_w5_atan2_is_torchs(card):
 
 @pytest.mark.cuda
 def test_card_renders_run_no_plain_formula(card, tmp_path, monkeypatch):
-    """Cornell on the wavefront, the beach ball and the normal-mapped scene
-    on the card with the plain attribute formulas raising: W5 computes
-    them (the normal maps stay plain torch)."""
+    """Cornell on the wavefront, the beach ball and the normal-mapped
+    scenes on the card with the plain attribute formulas and the plain
+    normal maps raising: W5 computes them, the maps too."""
     def plain(*args, **kw):
         raise AssertionError("the plain attribute stage ran on the card")
 
     monkeypatch.setattr(ha, "hit_attributes", plain)
-    for name in ("cornell", "beach_ball", "normal_mapped"):
+    monkeypatch.setattr(ha, "_apply_normal_maps", plain)
+    for name in ("cornell", "beach_ball", "normal_mapped", "instanced_mapped"):
         ha.reset_launches()
         img = _scene(name, tmp_path).render(
             samples_per_pixel=4, device=card, seed=1, output="linear")

@@ -16,11 +16,17 @@ against the plain stage under torch's own CPU atan2 and asin (the root
 still through float64): uv within ULPS units in the last place, every
 other field exact.
 
-The inputs: every attribute call of 16x16 renders of eight scenes (the
+The inputs: every attribute call of 16x16 renders of ten scenes (the
 98-object grid, Cornell and the primitives and shapes scenes on the
 wavefront, the icosphere, the beach ball's smooth normals and corner
-uvs, a field of instances, the normal-mapped scene), each held as
-captured, with uv forced, and as the first-hit pass; and an edge scene
+uvs, a field of instances, the normal-mapped scene with nearest and with
+bilinear maps, three normal-mapped mesh instances beside a mapped
+plane), each held as captured, with uv forced, and as the first-hit
+pass; the normal maps' cases (`map_inputs`: every basis kind, nearest
+and bilinear, repeat other than 1, two refs on one object, where the
+last must win, a map of quarter steps whose texels of 0.5 give zero
+products, misses on the mapped object 0 at their far uv, NaN and
+overflowing distances); and an edge scene
 of every kind (two spheres, a plane, an axis-aligned box at the origin,
 a disc, a capped cylinder, two triangles) with rays placed on its cases:
 a box hit at its centre whose local coordinates are all -0 (torch.sign
@@ -30,12 +36,17 @@ other kinds, misses (object 0 at t = FARAWAY), NaN distances and random
 hits.  Each source mutation of MUTANTS makes some case fail; they build
 in parallel in one fixture.  A render through W5 equals the plain
 render, and the inverse-rendering gradient through `_Attrs` (W5 forward,
-the plain stage's backward) equals the plain stage's, two passes equal.
+the plain stage's backward) equals the plain stage's, two passes equal;
+so does the gradient of a normal-mapped render with respect to its map's
+texture and its floor's u axis.  The maps' 3 x 3 product is MKL's here,
+which sums a row as W5's `mm3` does from 11 rows on (every input here
+has more); `test_w5_mm3_is_torchs_product` holds it.
 
 By hand:
 
     g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared -pthread \\
-        -DW5_TORCH_CPU -I raytracer_tpu_torch/csrc/emu -x c++ \\
+        -DW5_TORCH_CPU -I raytracer_tpu_torch/csrc/emu \\
+        -I raytracer_tpu_torch/csrc -x c++ \\
         raytracer_tpu_torch/csrc/hit_attrs.cu -o build/w5_emu.so
 """
 
@@ -52,7 +63,7 @@ import pytest
 import torch
 
 import raytracer_tpu_torch as T
-from raytracer_tpu_torch.core.compile import compile_wavefront
+from raytracer_tpu_torch.core.compile import KINDS, compile_wavefront
 from raytracer_tpu_torch.geometry import intersect as isect
 from raytracer_tpu_torch.ops import hit_attrs as ha
 from raytracer_tpu_torch.utils.constants import FARAWAY
@@ -76,6 +87,10 @@ FIELDS = ha.FLOAT_FIELDS + ha.OTHER_FIELDS
 # (force_uv, first_hit) of each hold of a call: as called, uv forced, the
 # first-hit pass
 MODES = ((False, False), (True, False), (True, True))
+# the maps' choice of ref, as csrc/hit_attrs.cu writes it
+WINNER = ("    int r = (int)S.n_maps - 1;\n"
+          "    while (r >= 0 && !map_holds(S, r, o, tri_off, slot)) --r;\n"
+          "    if (r >= 0) map_normal(S, r, o, tri_off, uv, N);")
 MUTANTS = {
     # the plain dot products contracted
     "contracted_dot": [("  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];",
@@ -91,6 +106,21 @@ MUTANTS = {
                      "  if (miss) {\n  } else if (kind < KINDS - 1) {")],
     # a cylinder's cap / side tie given to the side
     "cap_tie": [("fabsf(y) / hh >= rho / r", "fabsf(y) / hh > rho / r")],
+    # the first ref whose mask holds winning (the plain stage's last wins)
+    "first_ref_wins": [(WINNER, "    int r = 0;\n"
+                        "    while (r < (int)S.n_maps && !map_holds(S, r, o, tri_off, slot)) ++r;\n"
+                        "    if (r < (int)S.n_maps) map_normal(S, r, o, tri_off, uv, N);")],
+    # every ref whose mask holds applied in turn, each from the running
+    # normal (the plain stage maps the geometric one)
+    "running_normal": [(WINNER, "    for (int r = 0; r < (int)S.n_maps; ++r)\n"
+                        "      if (map_holds(S, r, o, tri_off, slot)) "
+                        "map_normal(S, r, o, tri_off, uv, N);")],
+    # the mapped normal not renormalised
+    "no_renormalise": [("  unit3(v);\n  for (int c = 0; c < 3; ++c) N[c] = v[c];",
+                        "  for (int c = 0; c < 3; ++c) N[c] = v[c];")],
+    # the 3 x 3 product unfused
+    "unfused_mm3": [("fmaf(a[2], M[6 + c], fmaf(a[1], M[3 + c], fmaf(a[0], M[c], 0.0f)))",
+                     "(a[0] * M[c] + a[1] * M[3 + c]) + a[2] * M[6 + c]")],
 }
 
 
@@ -102,7 +132,11 @@ def _gxx():
 
 
 def _source(edits=()):
-    text = (CSRC / "hit_attrs.cu").read_text()
+    """The source with its texture fetch (csrc/texture_fetch.cuh) written
+    in, so that a mutant may edit either, with `edits` made."""
+    text = (CSRC / "hit_attrs.cu").read_text().replace(
+        '#include "texture_fetch.cuh"\n',
+        (CSRC / "texture_fetch.cuh").read_text().replace("#pragma once\n", ""))
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
@@ -182,11 +216,16 @@ def _scenes(obj_dir):
                                                   obj_dir=obj_dir),
         "normal_mapped": lambda: torch_features.normal_mapped(W, H,
                                                               obj_dir=obj_dir),
+        "normal_mapped_bilinear": lambda: torch_features.normal_mapped(
+            W, H, obj_dir=obj_dir, filter="bilinear"),
+        "instanced_mapped": lambda: torch_features.instanced_mapped(
+            W, H, obj_dir=obj_dir),
     }
 
 
 SCENES = ("grid", "cornell", "primitives", "shapes", "icosphere", "beach_ball",
-          "instances", "normal_mapped")
+          "instances", "normal_mapped", "normal_mapped_bilinear",
+          "instanced_mapped")
 
 
 @contextlib.contextmanager
@@ -312,16 +351,82 @@ def edge_inputs():
     return static, data, rays, labels
 
 
+def map_inputs(obj_dir):
+    """(static, data, rays, labels): the normal-mapped scene (16x16; object
+    0 its mapped sphere; its box and floor rotated off the axes) with a
+    second texture, a map of quarter steps
+    whose texels of exactly 0.5 decode to m = 0, and three more refs on
+    it: a box ref before the scene's own (which, last, wins), a bilinear
+    sphere ref at repeat 3 and a bilinear mesh ref at repeat 0.5 on the
+    scene's map slot after theirs (which win); the plane keeps its own
+    nearest map at repeat 4.  The rays: seeded rays from around the camera
+    aimed into the scene, their real nearest hits (misses are object 0 at
+    t = FARAWAY, so the mapped sphere's map at the miss's uv); object 0 at
+    FARAWAY along more directions, at a NaN distance and at 1e38 (P
+    overflows)."""
+    sc = torch_features.normal_mapped(W, H, obj_dir=obj_dir)
+    for p in sc.scene_primitives:
+        # bases off the axes, whose products all round (an axis-aligned
+        # basis makes a fused and an unfused 3 x 3 product agree)
+        if isinstance(p, (T.Cuboid, T.Plane)):
+            p.rotate(theta=25.0 if isinstance(p, T.Cuboid) else 6.0,
+                     axis=T.vec3(0.3, 1.0, 0.2) if isinstance(p, T.Cuboid)
+                     else T.vec3(1.0, 0.0, 0.5))
+    static, data = compile_wavefront(sc)
+    rng = np.random.default_rng(12)
+    steps = rng.choice(np.float32([0.25, 0.5, 0.75, 1.0]), (8, 8, 3))
+    tex = len(data.textures)
+    data = dataclasses.replace(data, textures=(*data.textures,
+                                               torch.from_numpy(steps)))
+    ref = {r.basis_kind: r for r in static.normal_maps}
+    again = lambda k, **kw: dataclasses.replace(ref[k], tex=tex, **kw)
+    static = dataclasses.replace(static, normal_maps=(
+        again("box", repeat=1.0), *static.normal_maps,
+        again("sphere", repeat=3.0, bilinear=True),
+        again("tri", repeat=0.5, bilinear=True)))
+    n = 4096
+    O = torch.from_numpy((np.array([0.0, 1.2, 4.0]) + rng.uniform(-0.5, 0.5, (n, 3)))
+                         .astype(np.float32))
+    aim = torch.from_numpy(rng.uniform([-2.5, -0.7, -2.5], [2.5, 1.2, 1.0], (n, 3))
+                           .astype(np.float32)) - O
+    D = aim / torch.linalg.vector_norm(aim, dim=-1, keepdim=True)
+    t, orient, obj = isect.nearest_hit(O, D, data.geom)
+    labels = np.where(t.numpy() >= 1e29, "miss", "random").tolist()
+    k = 64
+    Dm = torch.from_numpy(rng.normal(size=(k, 3)).astype(np.float32))
+    Dm = Dm / torch.linalg.vector_norm(Dm, dim=-1, keepdim=True)
+    far = torch.cat([torch.full((k - 8,), FARAWAY), torch.full((4,), float("nan")),
+                     torch.full((4,), 1e38)])
+    labels += ["miss"] * (k - 8) + ["nan"] * 4 + ["overflow"] * 4
+    rays = (torch.cat([O, O[:k]]), torch.cat([D, Dm]), torch.cat([t, far]),
+            torch.cat([orient, torch.ones(k)]),
+            torch.cat([obj, torch.zeros(k, dtype=obj.dtype)]))
+    return static, data, rays, labels
+
+
+def map_winners(obj, data, static):
+    """(rays, refs) bool: where each ref's mask holds (the plain stage's)."""
+    tri_off = sum(static.kind_counts[k] for k in KINDS if k != "tri")
+    slot = data.geom.tri_nm_slot[torch.clamp(obj - tri_off, 0,
+                                             data.geom.tri_nm_slot.shape[0] - 1)]
+    return torch.stack([(obj >= tri_off) & (slot == r.local_id)
+                        if r.basis_kind == "tri" else obj == r.obj
+                        for r in static.normal_maps], -1)
+
+
 @pytest.fixture(scope="module")
 def calls(tmp_path_factory):
     """{scene: [the positional arguments of each attribute call]}, the
-    renders made once with one torch thread; "edge": the edge inputs."""
+    renders made once with one torch thread; "edge": the edge inputs;
+    "maps": the normal maps' cases."""
     obj_dir = tmp_path_factory.mktemp("obj")
     with one_thread():
         out = {name: [a for a, _ in capture(make())]
                for name, make in _scenes(obj_dir).items()}
     static, data, rays, _ = edge_inputs()
     out["edge"] = [(*rays, data, static, T.RenderSettings())]
+    static, data, rays, _ = map_inputs(obj_dir)
+    out["maps"] = [(*rays, data, static, T.RenderSettings())]
     return out
 
 
@@ -366,7 +471,7 @@ def differences(args_list, lib, first=False, math=exact_math):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("scene", SCENES + ("edge",))
+@pytest.mark.parametrize("scene", SCENES + ("edge", "maps"))
 def test_w5_equals_the_plain_stage(libs, calls, scene):
     before = ha.launches()
     with one_thread():
@@ -422,6 +527,60 @@ def test_the_scenes_hold_their_cases(calls):
     assert int((lab == "miss").sum()) and int((lab == "nan").sum())
 
 
+def test_the_map_inputs_hold_their_cases(tmp_path):
+    """The maps' cases: rays won by a ref of every basis kind, with both
+    filters and repeats other than 1, rays where two refs hold (the last
+    must win) under either order, texels of 0.5 (m = 0), misses on the
+    mapped object 0 whose normal the map moves, NaN and overflowing
+    distances; instanced mesh refs in "instanced_mapped"."""
+    static, data, rays, labels = map_inputs(tmp_path)
+    O, D, t, orient, obj = rays
+    lab = np.asarray(labels)
+    held = map_winners(obj, data, static)
+    refs = static.normal_maps
+    last = torch.where(held, torch.arange(len(refs)), -1).amax(-1)
+    won = {refs[int(i)] for i in last[last >= 0]}
+    assert {r.basis_kind for r in won} == {"sphere", "plane", "box", "tri"}
+    assert {r.bilinear for r in won} == {False, True}
+    assert {r.repeat for r in won} - {1.0}
+    two = held.sum(-1) >= 2
+    assert int(two.sum()) > 100
+    # the box's later ref wins, the sphere's and the mesh's earlier lose
+    assert {refs[int(i)].tex for i in last[two]} == {0, len(data.textures) - 1}
+    assert bool((data.textures[-1] == 0.5).any())
+    with exact_math():
+        got = ha.plain_attributes(*rays, data, static, T.RenderSettings())
+        bare = ha.plain_attributes(*rays, data, dataclasses.replace(
+            static, normal_maps=()), T.RenderSettings())
+    miss = torch.from_numpy(lab == "miss")
+    assert int(miss.sum()) > 50 and bool((obj[miss] == 0).all())
+    moved = ~(got.N == bare.N).all(-1)
+    assert int((moved & miss).sum()) > 10 and int((moved & ~miss).sum()) > 1000
+    assert int((lab == "nan").sum()) and int((lab == "overflow").sum())
+    g = compile_wavefront(torch_features.instanced_mapped(W, H, obj_dir=tmp_path))
+    assert g[1].geom.tri_virt_row.shape[0] and any(
+        r.basis_kind == "tri" for r in g[0].normal_maps)
+
+
+def test_w5_mm3_is_torchs_product(libs):
+    """W5's 3 x 3 product (`hit_attrs_math` op 2) against torch's (N, 3) @
+    (3, 3) here, both layouts of the (3, 3) operand, on rows with signed
+    zeros: bit for bit from 11 rows on."""
+    rng = np.random.default_rng(3)
+    for n in (11, 17, 256, 4096):
+        m = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+        zero = rng.random((n, 3)) < 0.3
+        m = np.where(zero, np.where(rng.random((n, 3)) < 0.5, -0.0, 0.0), m)
+        a = torch.from_numpy(m.astype(np.float32)) * 2.0
+        B = torch.from_numpy(rng.normal(size=(3, 3)).astype(np.float32))
+        B[0, 1], B[1, 2] = 0.0, -0.0
+        with one_thread():
+            for M in (B, B.T.contiguous().T):
+                want = a @ M
+                got = ha.math("mm3", a, M, lib=libs["w5"])
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+
+
 def _offsets(static):
     out, at = [], 0
     for k in ("sphere", "plane", "box", "disc", "cyl", "tri"):
@@ -457,8 +616,8 @@ def test_w5_uv_within_ulps_of_torchs_own_math(libs, calls):
 @pytest.mark.parametrize("mutant", list(MUTANTS))
 def test_a_mutant_of_w5_fails(libs, calls, mutant):
     with one_thread():
-        caught = [s for s in ("edge",) + SCENES
-                  if differences(calls[s], libs[mutant], first=True)]
+        caught = next((s for s in ("edge", "maps") + SCENES
+                       if differences(calls[s], libs[mutant], first=True)), None)
     assert caught, f"no case catches the mutant {mutant}"
 
 
@@ -565,6 +724,62 @@ def _gradient(lib=None, seed=0):
             data.mats, refr_n_re=x))) ** 2).mean()
         g, = torch.autograd.grad(loss, x)
     return loss.detach(), g
+
+
+def _map_gradient(tmp, lib=None):
+    from raytracer_tpu_torch.diff import differentiable_render
+
+    # 8x8 x 2 spp of the normal-mapped scene, one chunk under
+    # torch.utils.checkpoint, with its lamp first, every mapped surface
+    # diffuse and two bounces: its gradient finite (a miss maps object 0's
+    # normal at t = 10^30, whose sphere frame overflows, and the glossy
+    # blocks and third bounces give infinite gradients that the maps'
+    # normalisations turn into NaN, plain or not)
+    sc = torch_features.normal_mapped(8, 8, obj_dir=tmp)
+    sc.scene_primitives.insert(0, sc.scene_primitives.pop())
+    nm = torch_features.bump_normalmap()
+    for p, repeat in zip(sc.scene_primitives[1:], (4.0, 1.0, 2.0, 1.0)):
+        p.material = T.Diffuse(diff_color=T.rgb(0.5, 0.5, 0.5), diffuse_rays=1)
+        p.material.set_normalmap(nm, repeat=repeat)
+    sc.settings = T.RenderSettings(max_bounces=2)
+    fn, data = differentiable_render(sc, 2, seed=1, device="cpu")
+    tex = data.textures[0].clone().requires_grad_()
+    axis = data.geom.plane_u_axis.clone().requires_grad_()
+    d = dataclasses.replace(data, textures=(tex, *data.textures[1:]),
+                            geom=dataclasses.replace(data.geom, plane_u_axis=axis))
+    with exact_math(), (routed(lib) if lib else contextlib.nullcontext()):
+        loss = (fn(d) ** 2).mean()
+        g = torch.autograd.grad(loss, (tex, axis))
+    return loss.detach(), g
+
+
+def _same_bits(a, b):
+    """a and b of the same bits, NaN where the other is NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def test_the_map_gradient_through_w5_is_the_plain_stages(libs, tmp_path):
+    """The gradient of a normal-mapped render with respect to its map's
+    texture and its floor's u axis, with the attributes through `_Attrs`
+    (W5 forward, the plain stage's backward: the maps are recomputed in
+    it), against the plain stage's autograd gradient, bit for bit (the
+    texels that a degenerate frame makes NaN in the plain stage NaN
+    too); two passes through W5 bit for bit."""
+    with one_thread():
+        before = ha.launches()
+        loss_p, g_p = _map_gradient(tmp_path)
+        plain_launches = ha.launches() - before
+        loss_a, g_a = _map_gradient(tmp_path, libs["w5"])
+        launched = ha.launches() - before
+        _, g_b = _map_gradient(tmp_path, libs["w5"])
+    assert plain_launches == 0 and launched > 0
+    assert torch.equal(loss_a, loss_p)
+    tex, axis = g_p
+    assert int((torch.isfinite(tex) & (tex != 0)).sum()) > 100
+    assert bool(torch.isfinite(axis).all() and (axis != 0).all())
+    assert all(_same_bits(a, b) for a, b in zip(g_a, g_p))
+    assert all(_same_bits(a, b) for a, b in zip(g_b, g_a))
 
 
 def test_the_gradient_through_w5_is_the_plain_stages(libs):

@@ -9,8 +9,24 @@ gates).  `_apply_normal_maps` is held per ray on the JAX package's own
 first hits and tables: measured, the port's normals differ from JAX's by
 at most 1.2e-7 (two float32 ulps of a unit vector) on every kind, nearest
 and bilinear, so the hold is atol 5e-7 (XLA:CPU contracts the frame's
-products into FMA; the port does not).  Whole renders hold by a z-test
-over seeds; JSON scenes with a "normalmap" compile as the JAX package's.
+products into FMA; the port does not).  The port's whole attribute stage
+(ops/hit_attrs.py `attributes`: on CPU tensors the plain stage, whose
+normal W5 computes on the card) is held against the JAX package's
+`hit_attributes`, `_apply_normal_maps` and orientation on the same rays
+and nearest hits, nearest and bilinear, every basis kind, repeats other
+than 1, instanced meshes, two refs on one object (the last wins) and
+misses on a mapped object 0: the shading normal within 1e-5 (measured
+7.7e-6 at most, on the bilinear map of quarter steps, 1.2e-6 on the
+bumps: XLA:CPU contracts the bilinear weights' products into FMA, and a
+step of 0.75 between taps carries that into m, then the frame), the hit
+point within 1e-6 and the material word equal.
+A miss on a mapped plane (the instance scene's object 0) fetches at a uv
+near 1e30, past int32: XLA:CPU's float -> int32 conversion saturates,
+torch's on the CPU gives INT_MIN (on the card it saturates), so those
+misses take another texel and are held to a unit normal; a miss on the
+mapped sphere (the other scenes' object 0) overflows its frame to zero
+in both.  Whole renders hold by a z-test over seeds; JSON scenes with a
+"normalmap" compile as the JAX package's.
 """
 
 import dataclasses
@@ -28,6 +44,8 @@ import raytracer_tpu_torch as T
 from raytracer_tpu.core import integrator as jint
 from raytracer_tpu.core import ray as jray
 from raytracer_tpu.core.compile import compile_scene as jax_compile
+from raytracer_tpu.geometry import attrs as jattrs
+from raytracer_tpu.geometry import intersect as jisect
 from raytracer_tpu_torch.ops import hit_attrs as tha
 from raytracer_tpu_torch.core.compile import compile_wavefront
 from raytracer_tpu_torch.core.scene import route
@@ -54,28 +72,9 @@ def mapped(m, d, filter="nearest"):
 
 def instanced(m, d):
     """Three instances of a normal-mapped UV sphere (vt records) beside a
-    normal-mapped plane: the tangents rotate into world space."""
-    path = d / "uv8x12.obj"
-    torch_mesh.write_uv_sphere_obj(path, 8, 12)
-    nm = torch_features.bump_normalmap(32)
-    sc = m.Scene(ambient_color=m.rgb(0.05, 0.05, 0.05))
-    sc.add_Camera(look_from=m.vec3(0, 0.8, 4), look_at=m.vec3(0, 0, 0),
-                  screen_width=16, screen_height=12)
-    sc.add_DirectionalLight(Ldir=m.vec3(0.3, 1, 0.5), color=m.rgb(1, 1, 1))
-    floor = m.Diffuse(diff_color=m.rgb(0.5, 0.5, 0.5), diffuse_rays=1)
-    floor.set_normalmap(nm, repeat=3.0)
-    sc.add(m.Plane(material=floor, center=m.vec3(0, -0.8, 0), width=10,
-                   height=10, u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1)))
-    mat = m.Glossy(diff_color=m.rgb(0.7, 0.3, 0.2), n=m.vec3(1.5, 1.5, 1.5),
-                   roughness=0.2, spec_coeff=0.3, diff_coeff=0.8)
-    mat.set_normalmap(nm, filter="bilinear")
-    grp = m.MeshInstances(m.TriangleMesh(str(path), center=m.vec3(0, 0, 0),
-                                         material=mat, smooth=True))
-    for i in range(3):
-        grp.add(translate=(-1.2 + 1.2 * i, 0.1 * i, -0.3 * i), theta=40.0 * i,
-                axis=(0, 1, 0.2), scale=0.5 + 0.1 * i)
-    sc.add(grp)
-    return sc
+    normal-mapped plane: the tangents rotate into world space
+    (examples/torch_features.py `instanced_mapped`)."""
+    return torch_features.instanced_mapped(16, 12, m=m, obj_dir=d)
 
 
 def clustered(m, d):
@@ -152,6 +151,84 @@ def test_apply_normal_maps_per_ray(obj_dir, build, filt):
     moved = np.abs(want - np.asarray(Ng)).max(-1) > 1e-3
     assert moved.mean() > 0.3
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-7)
+
+
+def with_two_refs(js, jd):
+    """(static, data) of the JAX package with a second texture (quarter
+    steps: texels of 0.5 decode to 0) and three more refs: a box ref
+    before the scene's own, a bilinear sphere ref at repeat 3 and a
+    bilinear mesh ref on the scene's map slot after theirs; the last
+    whose mask holds wins."""
+    steps = np.random.default_rng(5).choice(np.float32([0.25, 0.5, 0.75, 1.0]),
+                                            (8, 8, 3))
+    tex = len(jd.textures)
+    jd = dataclasses.replace(jd, textures=(*jd.textures, jnp.asarray(steps)))
+    ref = {r.basis_kind: r for r in js.normal_maps}
+    again = lambda k, **kw: dataclasses.replace(ref[k], tex=tex, **kw)
+    js = dataclasses.replace(js, normal_maps=(
+        again("box", repeat=1.0), *js.normal_maps,
+        again("sphere", repeat=3.0, bilinear=True),
+        again("tri", repeat=0.5, bilinear=True)))
+    return js, jd
+
+
+STAGE_CASES = {"nearest": (mapped, "nearest"), "bilinear": (mapped, "bilinear"),
+               "instanced": (instanced, None), "two_refs": (mapped, "nearest")}
+
+
+def _scene_rays(n=4096, seed=0):
+    """(O, D) float32 from around the camera of `mapped` and `instanced`,
+    aimed into the scene, some past it (misses)."""
+    rng = np.random.default_rng(seed)
+    O = (np.array([0, 1.2, 4.0]) + rng.uniform(-0.3, 0.3, (n, 3))).astype(np.float32)
+    tgt = rng.uniform([-2.5, -0.8, -2.5], [2.5, 1.4, 1], (n, 3)).astype(np.float32)
+    D = tgt - O
+    return O, D / np.linalg.norm(D, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_CASES))
+def test_attribute_stage_with_maps_against_jax(obj_dir, one_torch_thread,  # noqa: F811
+                                               case):
+    build, filt = STAGE_CASES[case]
+    js, jd = jax_compile(build(J, obj_dir, filter=filt) if filt else build(J, obj_dir))
+    if case == "two_refs":
+        js, jd = with_two_refs(js, jd)
+    O, D = (jnp.asarray(x) for x in _scene_rays())
+    t, orient, obj = jisect.nearest_hit(O, D, jd.geom)
+    P = O + D * t[..., None]
+    N_geo, uv = jattrs.hit_attributes(P, obj, jd.geom, js)
+    want = np.asarray(jint._apply_normal_maps(N_geo, P, uv, obj, jd, js)
+                      * orient[..., None])
+    tt = lambda x: torch.from_numpy(np.array(np.asarray(x)))
+    static, data = static_from_jax(js), scene_data_from_jax(jd)
+    got = tha.attributes(tt(O), tt(D), tt(t), tt(orient), tt(obj).long(), data, static,
+                         T.RenderSettings())
+    ids, miss = np.asarray(obj), np.asarray(t) >= 1e29
+    # the rays each ref's mask holds for, and the cases they drive
+    tri_off = sum(static.kind_counts[k] for k in static.kind_counts if k != "tri")
+    slot = data.geom.tri_nm_slot.numpy()
+    masks = np.stack([(ids >= tri_off) & (slot[np.clip(ids - tri_off, 0, len(slot) - 1)]
+                                          == r.local_id)
+                      if r.basis_kind == "tri" else ids == r.obj
+                      for r in static.normal_maps], -1)
+    won = {static.normal_maps[i].basis_kind for i in np.flatnonzero(masks[~miss].any(0))}
+    assert won == {r.basis_kind for r in static.normal_maps}
+    assert 0.2 < miss.mean() < 0.8 and any(r.obj == 0 for r in static.normal_maps)
+    if case == "two_refs":
+        assert (masks[~miss].sum(-1) >= 2).sum() > 100
+    moved = np.abs(want - np.asarray(N_geo * orient[..., None])).max(-1) > 1e-3
+    assert moved[~miss].mean() > 0.3
+    N = got.N.numpy()
+    assert np.array_equal(got.packed.numpy(), np.asarray(
+        jnp.take(jd.obj.packed, obj, mode="clip")))
+    np.testing.assert_allclose(got.P.numpy(), np.asarray(P), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(N[~miss], want[~miss], rtol=0, atol=1e-5)
+    if case == "instanced":
+        # object 0 is the mapped floor: its misses' uv overflows int32
+        assert static.normal_maps[0].obj == 0 and static.normal_maps[0].basis_kind == "plane"
+        np.testing.assert_allclose(np.linalg.norm(N[miss], axis=-1), 1.0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(N[miss], want[miss], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("build", [mapped, instanced],
