@@ -141,13 +141,13 @@ drives both kernel paths and the wavefront:
   the order of the last block's trees shows).  W5 (csrc/hit_attrs.cu: the hit attributes) in the same
   driven renders and the primitives example on the wavefront (planes,
   discs, cylinders with uv): counts set to 0 just before each and read
-  just after (launched, required; the plain attribute formulas run on
-  the card only in a backward pass, required); every call of each
+  just after (launched, required; the plain attribute formulas run
+  nowhere on the card but in a hold, required); every call of each
   render's first chunk held against the plain stage as called, with uv
   forced and as the first-hit pass, every field of every ray bit for bit
   (a share of exactly 1.0; in the normal-mapped render the mapped,
   oriented normal, which W5 computes itself); the plain normal maps run
-  on the card only in a hold or a backward pass (required); a line a
+  on the card only in a hold (required); a line a
   bounce of Cornell on the wavefront's first 4.16 M-ray chunk and of the
   normal-mapped render's first 1.92 M-ray chunk, W5 timed through a CUDA
   graph beside the plain stage (with its maps), its bytes, bound and
@@ -241,7 +241,16 @@ drives both kernel paths and the wavefront:
   0.05, two backward passes bit-equal, W3 launched); the
   same scene with the glass sphere as a 1,280-face clustered icosphere
   mesh (W1 launched; its winners' t recomputed for autograd), its IoR
-  gradient against a central difference within rtol 0.05;
+  gradient against a central difference within rtol 0.05; the backward
+  kernels (csrc/bounce_tail.cu `bounce_update_bwd`, `bounce_start_bwd`;
+  csrc/hit_attrs.cu `hit_attrs_bwd`) in the IoR gradients of the glass
+  sphere, the icosphere, Cornell and the primitives (discs, cylinders) on
+  the wavefront at the same size: each kernel launched, no plain W6 stage
+  or W5 formula on the card, no plain-VJP route taken, every backward call
+  recorded and held against the plain VJP bit for bit (a share of 1.0
+  per kernel), the first of each timed through a CUDA graph beside the
+  plain VJP, its bytes' bound and share, the kernels' registers, stack and
+  blocks an SM (`--backward` runs the build and this part alone);
   Cornell 400x400 x 256 spp over a 4x1 mesh of cuda:0 shards (K1 on each:
   4 launches a chunk, the first shard chunk bit for bit against its plain
   version, image and regions within 4 standard errors of the unsharded
@@ -462,7 +471,7 @@ F5_DIFFUSE = ((300, 150_000), (16, 300_000))
 # difference of its holds (0: bit-equal), each timed bounce's numbers by
 # render, the calls captured in the driven renders (every bounce of each
 # render's first chunk), and the plain formulas and the plain normal maps
-# run on the card outside a hold or a backward pass (none allowed); each
+# run on the card outside a hold (none allowed: the backward is a kernel); each
 # call is held as called, with uv forced and as the first-hit pass
 # (force_uv, first_hit); the rows at which W5's 3 x 3 product is held
 # against torch's (cuBLAS)
@@ -481,8 +490,8 @@ W5 = {"launches": 0, "map_launches": 0, "max_abs_err": 0.0, "timed": {},
 # renders (counts set to 0 just before each, read just after), the largest
 # difference of its holds (0: bit-equal), each timed call's numbers, the
 # calls captured in the driven renders (every bounce of each render's first
-# chunk), the plain stages run on the card outside a hold or a backward
-# pass (none allowed); the samples of examples 2 and 4 on the wavefront
+# chunk), the plain stages run on the card outside a hold (none allowed:
+# the backward passes are kernels); the samples of examples 2 and 4 on the wavefront
 # (the environment's two kinds of texture)
 W6_REPS = 5
 W6_ENTRIES = {
@@ -496,6 +505,32 @@ W6 = {"launches": dict.fromkeys(W6_ENTRIES, 0),
       "max_abs_err": dict.fromkeys(W6_ENTRIES, 0.0), "timed": {k: [] for k in W6_ENTRIES},
       "captured": {}, "seen": set(), "chunk_done": set(), "plain_on_card": 0,
       "holding": False, "held": dict.fromkeys(W6_ENTRIES, 0)}
+# the backward kernels (ops/bounce_tail.py `update_vjp`, `start_vjp`,
+# ops/hit_attrs.py `attrs_vjp`): each entry's name in the kernels line,
+# source, the JAX code whose gradient it computes and kernel; what the
+# backward phase gathers: launches in its gradients (counts set to 0 just
+# before each, read just after), the largest difference of its holds (0:
+# bit-equal), the kernels line's rows; `holding` while a hold runs the plain
+# VJP; the plain W6 stages and W5 formulas run on the card outside a hold
+BWD_ENTRIES = {
+    "bounce_update_bwd": ("bounce_tail bounce_update_bwd (W6 backward)",
+                          "bounce_tail.cu", "raytracer_tpu/core/integrator.py:289-310 "
+                          "(the update's VJP under jax.grad, raytracer_tpu/diff.py)",
+                          "bounce_update_bwd_kernel"),
+    "bounce_start_bwd": ("bounce_tail bounce_start_bwd (W6 backward)", "bounce_tail.cu",
+                         "raytracer_tpu/core/integrator.py:239-287 (the start's VJP "
+                         "under jax.grad; materials/shade.py:176, :190)",
+                         "bounce_start_bwd_kernel"),
+    "hit_attrs_bwd": ("hit_attrs_bwd (W5 backward)", "hit_attrs.cu",
+                      "raytracer_tpu/geometry/attrs.py:245 (hit_attributes' VJP under "
+                      "jax.grad; core/integrator.py:221-236)", "hit_attrs_bwd_kernel")}
+BWD = {"launches": dict.fromkeys(BWD_ENTRIES, 0),
+       "max_abs_err": dict.fromkeys(BWD_ENTRIES, 0.0), "rows": [], "holding": False,
+       "plain_W6": 0, "plain_W5": 0}
+# the least share of the held gradient entries finite on both sides: of
+# every kernel's holds with drawn gradients, and of the recorded ones of
+# the sphere and the icosphere (whose IoR gradients are finite)
+BWD_FINITE = 0.9
 ENV_WF_SPP = 16
 # the normal-mapped frame through the plain triangle sweep on an H100 80GB
 # HBM3 at 700 W, s and GiB (PERF.md)
@@ -1966,6 +2001,47 @@ def w3_phase(torch, dev):
             "primitives image not finite or of the wrong shape")
 
 
+def card_counted(fn, device_of, state, key, when=None):
+    """fn, adding one to state[key] at each call on CUDA tensors (device_of
+    its arguments) outside a hold (state["holding"]) where `when` (of its
+    arguments) holds: a plain stage that must not run on the card."""
+    def call(*args, **kw):
+        if (device_of(*args).type == "cuda" and not state["holding"]
+                and (when is None or when(*args))):
+            state[key] += 1
+        return fn(*args, **kw)
+    return call
+
+
+def plain_stages_counted(w6, w6_key, w5, w5_key, maps_key):
+    """The plain W6 stages (ops/bounce_tail.py `plain_start`,
+    `plain_update`), W5's plain formulas (ops/hit_attrs.py `hit_attributes`)
+    and its plain normal maps (`_apply_normal_maps`, where the scene maps
+    normals) counted on the card outside a hold, by `card_counted`, in
+    w6[w6_key], w5[w5_key] and w5[maps_key]; the caller restores them."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+
+    bt.plain_start = card_counted(bt.plain_start, lambda ctx, *a: ctx.P.device,
+                                  w6, w6_key)
+    bt.plain_update = card_counted(bt.plain_update, lambda c, *a: c.L.device, w6, w6_key)
+    ha.hit_attributes = card_counted(ha.hit_attributes, lambda P, *a: P.device, w5, w5_key)
+    ha._apply_normal_maps = card_counted(
+        ha._apply_normal_maps, lambda N, *a: N.device, w5, maps_key,
+        when=lambda *a: bool(a[-1].normal_maps))
+
+
+@contextlib.contextmanager
+def held(state):
+    """A hold: the plain stages counted by `card_counted` in `state` run
+    uncounted inside."""
+    state["holding"] = True
+    try:
+        yield
+    finally:
+        state["holding"] = False
+
+
 @contextlib.contextmanager
 def w4_spies():
     """Spies for W4's phase, the originals restored after it: trace's three
@@ -1976,7 +2052,7 @@ def w4_spies():
     outside `_Shade`'s backward (which recomputes the plain block for its
     gradient); likewise W5's attributes and W6's start and update (each
     bounce of the first chunk captured, the plain stages counted outside a
-    hold and `_Start`'s and `_Update`'s backward)."""
+    hold: their backward passes are kernels)."""
     from raytracer_tpu_torch.materials import shade
     from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.ops import wavefront_shade as ws
@@ -1986,13 +2062,11 @@ def w4_spies():
     names = ("shade_diffuse", "shade_refractive", "shade_glossy")
     saved = ([(bt, n, getattr(bt, n)) for n in W6_ENTRIES]
              + [(bt, n, getattr(bt, n)) for n in ("plain_start", "plain_update")]
-             + [(f, "backward", f.__dict__["backward"]) for f in (bt._Start, bt._Update)]
              + [(ws, n, getattr(ws, n)) for n in names]
              + [(shade, n, getattr(shade, n)) for n in names]
              + [(ha, "attributes", ha.attributes),
                 (ha, "hit_attributes", ha.hit_attributes),
-                (ha, "_apply_normal_maps", ha._apply_normal_maps),
-                (ha._Attrs, "backward", ha._Attrs.__dict__["backward"])]
+                (ha, "_apply_normal_maps", ha._apply_normal_maps)]
              + [(ws._Shade, "backward", ws._Shade.__dict__["backward"])])
 
     def spy(mt, real):
@@ -2008,13 +2082,6 @@ def w4_spies():
                                        for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS))
                     W4["captured"][key] = (mt, ctx, draws, packed, m, copy)
             return real(ctx, draws, packed, m, acc)
-        return call
-
-    def counted(block):
-        def call(ctx, *args, **kw):
-            if ctx.P.device.type == "cuda" and not W4["holding"]:
-                W4["plain_on_card"] += 1
-            return block(ctx, *args, **kw)
         return call
 
     def counted_backward(fctx, *grads):
@@ -2034,28 +2101,6 @@ def w4_spies():
                     W5["calls"][lab] = got + 1
             return real(*args, **kw)
         return call
-
-    def w5_counted(formulas):
-        def call(P, *args, **kw):
-            if P.device.type == "cuda" and not W5["holding"]:
-                W5["plain_on_card"] += 1
-            return formulas(P, *args, **kw)
-        return call
-
-    def w5_maps_counted(maps):
-        def call(N_geo, P, uv, obj, data, static):
-            if (N_geo.device.type == "cuda" and static.normal_maps
-                    and not W5["holding"]):
-                W5["maps_on_card"] += 1
-            return maps(N_geo, P, uv, obj, data, static)
-        return call
-
-    def w5_backward(fctx, *grads):
-        W5["holding"] = True
-        try:
-            return saved[-2][2].__func__(fctx, *grads)
-        finally:
-            W5["holding"] = False
 
     def w6_start_spy(real):
         def call(ctx, packed, mat_type):
@@ -2078,37 +2123,16 @@ def w4_spies():
             return real(c, miss, acc)
         return call
 
-    def w6_counted(plain, device_of):
-        def call(*args):
-            if device_of(args[0]).type == "cuda" and not W6["holding"]:
-                W6["plain_on_card"] += 1
-            return plain(*args)
-        return call
-
-    def w6_backward(fn):
-        def call(fctx, *grads):
-            W6["holding"] = True
-            try:
-                return fn(fctx, *grads)
-            finally:
-                W6["holding"] = False
-        return staticmethod(call)
-
     bt.bounce_start = w6_start_spy(bt.bounce_start)
     bt.bounce_update = w6_update_spy(bt.bounce_update)
-    bt.plain_start = w6_counted(bt.plain_start, lambda ctx: ctx.P.device)
-    bt.plain_update = w6_counted(bt.plain_update, lambda c: c.L.device)
-    for f in (bt._Start, bt._Update):
-        f.backward = w6_backward(f.__dict__["backward"].__func__)
     for mt, w in ws._WRAPPER.items():
         setattr(ws, w.__name__, spy(mt, w))
     for n in names:
-        setattr(shade, n, counted(getattr(shade, n)))
+        setattr(shade, n, card_counted(getattr(shade, n), lambda ctx, *a: ctx.P.device,
+                                       W4, "plain_on_card"))
     ws._Shade.backward = staticmethod(counted_backward)
     ha.attributes = w5_spy(ha.attributes)
-    ha.hit_attributes = w5_counted(ha.hit_attributes)
-    ha._apply_normal_maps = w5_maps_counted(ha._apply_normal_maps)
-    ha._Attrs.backward = staticmethod(w5_backward)
+    plain_stages_counted(W6, "plain_on_card", W5, "plain_on_card", "maps_on_card")
     try:
         yield
     finally:
@@ -2702,11 +2726,11 @@ def w4_renders(torch, dev):
     require(W4["plain_on_card"] == 0, f"{W4['plain_on_card']} plain blocks ran "
             "on the card")
     require(W6["plain_on_card"] == 0, f"the plain start or update ran "
-            f"{W6['plain_on_card']} times on the card outside a backward pass")
+            f"{W6['plain_on_card']} times on the card outside a hold")
     require(W5["plain_on_card"] == 0, f"the plain attribute formulas ran "
             f"{W5['plain_on_card']} times on the card")
     require(W5["maps_on_card"] == 0, f"the plain normal maps ran "
-            f"{W5['maps_on_card']} times on the card outside a hold or a backward pass")
+            f"{W5['maps_on_card']} times on the card outside a hold")
     require(W5["map_launches"] > 0, "no driven render ran W5 with normal maps")
 
 
@@ -2714,7 +2738,7 @@ def w5_check(torch, label, d, static):
     """The driven render `label` (of `static`; None: the gradient's)
     through W5: launched (one launch a bounce of each chunk), the plain
     attribute formulas and the plain normal maps run nowhere on the card
-    outside a hold or a backward pass, its captured calls held
+    outside a hold, its captured calls held
     (`w5_hold`); prints its line, and a line a bounce for W5_TIMED."""
     require(d.w5 > 0 and d.w5_plain_runs == 0 and d.w5_maps_runs == 0,
             f"W5 {label}: {d.w5} launches, the plain formulas ran "
@@ -2915,7 +2939,7 @@ def w5_rows(torch):
 def w6_check(torch, label, d):
     """The driven render `label` through W6: both entries launched (one
     launch each a bounce of each chunk), the plain start and update run
-    nowhere on the card outside a backward pass, its captured calls held
+    nowhere on the card outside a hold, its captured calls held
     (`w6_hold`); prints its line, and a line a bounce for W6_TIMED's."""
     require(all(n > 0 for n in d.w6.values()) and d.w6_plain_runs == 0,
             f"W6 {label}: launches {d.w6}, the plain stages ran "
@@ -4054,6 +4078,241 @@ MP_TIMEOUT = 300                          # each spawned process
 MESH_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)     # the 4x1 Cornell hold over seeds
 
 
+# ---------------------------------------------------------------------------
+# the backward kernels (W6's update and start, W5's): the IoR gradients
+# ---------------------------------------------------------------------------
+
+
+def _bwd_nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bwd_bytes(entry, call, xs, grads, out):
+    """The bytes a backward kernel moves on a recorded call, each input
+    read once and each output written once: the output gradients it reads
+    and the forward's tensors it reads (the update: beta, add where L's
+    gradient comes, beta_mult where beta's does, the three masks; the
+    start: the words' type and slot, uv and the depth where uv or the light
+    intensity takes a gradient; W5: the rays' O, D, t, orientation and
+    object, and the scene's tables, as `w5_bytes` counts them), and the
+    gradients it writes (the tables' per-ray rows of the start)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+
+    g = [x for x in grads if x is not None]
+    if entry == "bounce_update_bwd":
+        v = dict(zip(bt._UPDATE_FLOATS, xs)) | dict(zip(bt._UPDATE_OTHERS, call[0]))
+        reads = [v["beta"], v["add"] if grads[0] is not None else None,
+                 v["beta_mult"] if grads[1] is not None else None,
+                 v["alive"], v["miss"], v["cont"]]
+        return _bwd_nbytes(*g, *reads, *out)
+    if entry == "bounce_start_bwd":
+        ctx, _, mat_type, _, _ = call
+        rows = out[4] is not None or out[6] is not None
+        return _bwd_nbytes(*g, mat_type, ctx.mat_slot, *((ctx.uv, ctx.depth) if rows
+                                                          else ()), *out[:5]) \
+            + (out[5].numel() * 4 if out[5] is not None else 0)
+    obj, data, static, modes = call[:4]
+    _, keep = ha.scene_struct(data, static)
+    table, tri, corners, inst, packed, maps = keep
+    tabs = [table, *tri.values(), *corners.values(), *inst.values()]
+    return _bwd_nbytes(*g, *xs[:3], obj, None if modes[2] else xs[3], *out[:3],
+                       *tabs)
+
+
+def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
+    """Each recorded backward call replayed through its kernel and through
+    the plain VJP (with output gradients drawn from `gen` where `redraw`,
+    finite, in place of the recorded ones), every output compared by its
+    bits (NaN equal to NaN): {entry: [entries equal, entries, entries
+    finite on both sides]}, and the calls that launched their kernel, by
+    entry, as (the Function, call, inputs, gradients, wants, outputs)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+
+    kinds = {bt._Update: "bounce_update_bwd", bt._Start: "bounce_start_bwd",
+             ha._Attrs: "hit_attrs_bwd"}
+    counts = {k: [0, 0, 0] for k in entries}
+    launched = {k: [] for k in entries}
+    n_bwd = lambda: sum(bt.backward_launches().values()) + ha.backward_launches()
+    with held(BWD):
+        for f, call, xs, grads, wants in calls:
+            if redraw:
+                grads = tuple(None if g is None else torch.randn(
+                    g.shape, generator=gen, device=g.device, dtype=g.dtype) for g in grads)
+            entry = kinds[f]
+            kernel, plain = (bt if f is not ha._Attrs else ha).backward_pair(
+                f, call, xs, grads, wants)
+            require(kernel is not None, f"backward {name}: {entry} took a plain route")
+            n0 = n_bwd()
+            got, want = kernel(), plain()
+            for x, y in zip(got, want):
+                require((x is None) == (y is None),
+                        f"backward {name}: {entry} defines other gradients")
+                if x is None:
+                    continue
+                eq = (x.view(torch.int32) == y.view(torch.int32)) | (
+                    torch.isnan(x) & torch.isnan(y))
+                fin = torch.isfinite(x) & torch.isfinite(y)
+                c = counts[entry]
+                c[0], c[1], c[2] = c[0] + int(eq.sum()), c[1] + eq.numel(), c[2] + int(fin.sum())
+                if bool(fin.any()):
+                    BWD["max_abs_err"][entry] = max(BWD["max_abs_err"][entry],
+                                                    float((x - y)[fin].abs().max()))
+            if n_bwd() > n0:
+                launched[entry].append((f, call, xs, grads, wants, got))
+    return counts, launched
+
+
+def backward_phase(torch, dev):
+    """W6's and W5's backward kernels on the card, in the gradient of the
+    IoR (refr_n_re requiring grad) at DIFF_W x DIFF_H x DIFF_SPP of the
+    glass sphere, its icosphere twin, Cornell and the primitives (discs and
+    cylinders) on the wavefront: each gradient with the backward kernels'
+    counts set to 0 just before and read just after, every backward call of
+    `_Start`, `_Update` and `_Attrs` recorded (ops/plain_grad.py
+    `recording`), the plain W6 stages and W5's plain formulas counted on
+    the card (none may run: the backward passes take the kernels), the
+    explicit plain-VJP routes counted (none taken: only the ray inputs want
+    a gradient).  Then each recorded call replayed through its backward
+    kernel and through the plain VJP, every output held bit for bit (a
+    share of exactly 1.0 each), beside the share of entries finite on both
+    sides; and again with finite output gradients drawn from a seed in
+    place of the recorded ones (Cornell's and the primitives' recorded
+    gradients are NaN on many rays, in the JAX package's gradient too:
+    there every kind's formula is held on finite numbers), whose finite
+    share must reach BWD_FINITE.  Each call that launched a kernel timed
+    with the L2 cold (`common.cold_ms`), its bound from its bytes; a
+    kernel's time is the mean a call; the plain VJP on the same calls
+    (events); the kernels' registers, stack and blocks an SM.  Returns
+    the kernels line's rows (the sphere's calls)."""
+    import raytracer_tpu_torch.ops.plain_grad as pg
+    import torch_cornellbox
+    import torch_primitives
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import cuda_build
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.probes import common
+    from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
+
+    t_phase = time.perf_counter()
+    (WORK / "bwd").mkdir(parents=True, exist_ok=True)
+    scenes = {
+        "sphere": lambda: build_scene(TRUE_N, DIFF_W, DIFF_H),
+        "icosphere": lambda: build_mesh_scene(TRUE_N, DIFF_W, DIFF_H, WORK / "bwd"),
+        "Cornell": lambda: torch_cornellbox.build_cornell(DIFF_W, DIFF_W),
+        "primitives": lambda: torch_primitives.primitives(DIFF_W, DIFF_H),
+    }
+    saved = [(bt, "plain_start", bt.plain_start), (bt, "plain_update", bt.plain_update),
+             (ha, "hit_attributes", ha.hit_attributes),
+             (ha, "_apply_normal_maps", ha._apply_normal_maps)]
+    plain_stages_counted(BWD, "plain_W6", BWD, "plain_W5", "plain_W5")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows, entries = {}, ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd")
+    try:
+        for name, make in scenes.items():
+            fn, data = differentiable_render(make(), DIFF_SPP, seed=0, device=dev)
+            x = data.mats.refr_n_re.clone().requires_grad_(True)
+            before = {k: BWD[k] for k in ("plain_W6", "plain_W5")}
+            bt.reset_launches()
+            ha.reset_launches()
+            calls = []
+            with pg.recording(calls, bt._Start, bt._Update, ha._Attrs):
+                g, = torch.autograd.grad(
+                    torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2), x)
+                torch.cuda.synchronize()
+            launched = {**bt.backward_launches(), "hit_attrs_bwd": ha.backward_launches()}
+            routes = {**{f"W6 {k}": v for k, v in bt.plain_routes.items()},
+                      **{f"W5 {k}": v for k, v in ha.plain_routes.items()}}
+            runs = {k[len("plain_"):]: BWD[k] - before[k] for k in before}
+            for k, v in launched.items():
+                BWD["launches"][k] += v
+            # Cornell's and the primitives' IoR gradients are NaN, as the JAX
+            # package's are (tests/test_torch_diff.py); the holds below are
+            # what is required of them
+            finite = bool(torch.isfinite(g).all())
+            require(name not in ("sphere", "icosphere")
+                    or (finite and float(g.abs().max()) > 0),
+                    f"backward {name}: gradient {g.tolist()}")
+            require(all(v > 0 for v in launched.values()),
+                    f"backward {name}: backward kernel launches {launched}")
+            require(runs == {"W6": 0, "W5": 0},
+                    f"backward {name}: plain stages ran on the card {runs}")
+            require(not any(routes.values()),
+                    f"backward {name}: plain-VJP routes taken {routes}")
+            # hold every recorded call bit for bit, then with finite gradients
+            counts, timed = _bwd_holds(torch, calls, gen, name, entries)
+            drawn, _ = _bwd_holds(torch, calls, gen, name, entries, redraw=True)
+            shares = {k: counts[k][0] / max(counts[k][1], 1) for k in entries}
+            fin = {k: counts[k][2] / max(counts[k][1], 1) for k in entries}
+            d_shares = {k: drawn[k][0] / max(drawn[k][1], 1) for k in entries}
+            d_fin = {k: drawn[k][2] / max(drawn[k][1], 1) for k in entries}
+            require(all(c[0] == c[1] > 0 for c in (*counts.values(), *drawn.values()))
+                    and all(timed[k] for k in entries),
+                    f"backward {name}: bit-equal shares {shares}, with drawn gradients "
+                    f"{d_shares}, calls that launched {[k for k in entries if timed[k]]}")
+            require(all(v >= BWD_FINITE for v in d_fin.values())
+                    and (name not in ("sphere", "icosphere")
+                         or all(v >= BWD_FINITE for v in fin.values())),
+                    f"backward {name}: finite shares {fin}, with drawn gradients {d_fin}")
+            # time every call that launched its kernel, the L2 cold
+            parts = []
+            for entry in entries:
+                ms, plain_ms, n_bytes = [], [], []
+                for f, call, xs, grads, wants, got in timed[entry]:
+                    kernel, plain = (bt if f is not ha._Attrs else ha).backward_pair(
+                        f, call, xs, grads, wants)
+                    ms.append(common.cold_ms(kernel, W6_REPS)[0])
+                    with held(BWD):
+                        plain_ms.append(common.cuda_ms(plain, 1))
+                    n_bytes.append(bwd_bytes(entry, call, xs, grads, got))
+                n = len(ms)
+                row = common.row(BWD_ENTRIES[entry][0], BWD_ENTRIES[entry][1],
+                                 BWD_ENTRIES[entry][2], 0, 0.0, sum(ms) / n,
+                                 sum(plain_ms) / n, 0, sum(n_bytes) / n)
+                share = [common.bound(0, b)[0] / t for b, t in zip(n_bytes, ms)]
+                parts.append(f"{entry} {n} calls of {timed[entry][0][2][0].shape[0]} rays, "
+                             f"cold {row['ms']:.4f} ms a call ({min(ms):.4f}-{max(ms):.4f}; "
+                             f"plain VJP {row['plain_ms']:.3f} ms), "
+                             f"{sum(n_bytes) / n:.0f} bytes, bound {row['bound_ms']:.4f} ms, "
+                             f"share {row['bound_ms'] / row['ms']:.4f} "
+                             f"({min(share):.4f}-{max(share):.4f})")
+                if name == "sphere":
+                    rows[entry] = row
+            print(f"backward {name}: IoR gradient {DIFF_W}x{DIFF_H} x {DIFF_SPP} spp "
+                  f"(finite {finite}, d loss / d refr_n_re[0] {g[0].tolist()}), "
+                  f"{len(calls)} backward calls recorded | launches {launched} | plain "
+                  f"stages on the card {runs} | plain-VJP routes {routes} | bit-equal "
+                  f"shares {shares}, finite on both sides {fin} | with drawn gradients "
+                  f"bit-equal {d_shares}, finite {d_fin} | " + " | ".join(parts),
+                  flush=True)
+            del fn, data, calls, timed
+            torch.cuda.empty_cache()
+    finally:
+        for obj, n, v in saved:
+            setattr(obj, n, v)
+    use = resource_usage(cuda_build.build("kernels"))
+    parts = []
+    for entry in entries:
+        kernel = BWD_ENTRIES[entry][3]
+        r = use[next(k for k in use if kernel in k)]
+        inf = (ha.info(backward=True) if entry == "hit_attrs_bwd" else bt.info(entry))
+        parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
+                     f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
+                     f"{inf['block']} threads")
+    print("backward kernels: " + " | ".join(parts)
+          + f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = []
+    for entry in entries:
+        row = rows[entry]
+        row["launches"] = BWD["launches"][entry]
+        row["max_abs_err"] = BWD["max_abs_err"][entry]
+        out.append(row)
+    BWD["rows"] = out
+    return out
+
+
 def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
     """diff.py and multi-device rendering on the card, one line a part:
     differentiable_render of the inverse-rendering scene (forward and
@@ -4178,6 +4437,9 @@ def diff_mesh_phase(torch, dev, cornell_img, cornell_wall):
             f"diff mesh: gradient {float(gm[0, 0])} vs central difference {fd}")
     del fn, data, gm
     torch.cuda.empty_cache()
+
+    # ---- the backward kernels: W6's and W5's, in the IoR gradients ----
+    backward_phase(torch, dev)
 
     # ---- Cornell over a 4x1 mesh of cuda:0 shards: K1 on each ----
     sc = build_cornell(W, H)
@@ -4404,6 +4666,12 @@ def main():
         w4_phase(torch, dev)
         print(json.dumps({"kernels": [*w4_rows(torch), *w5_rows(torch),
                                       *w6_rows(torch)]}, default=float))
+        return 0
+
+    if "--backward" in sys.argv[1:]:
+        # the backward kernels' phase alone (after the build), for working
+        # on them
+        print(json.dumps({"kernels": backward_phase(torch, dev)}, default=float))
         return 0
 
     if "--diff-mesh" in sys.argv[1:]:
@@ -4683,7 +4951,7 @@ def main():
         require(launches > 0, f"W3 {key} never launched in the driven renders")
     print(json.dumps({"kernels": [solid_row, record_row, *w1_rows, w2_row,
                                   *w3_rows, *w4_rows(torch), *w5_rows(torch),
-                                  *w6_rows(torch)]
+                                  *w6_rows(torch), *BWD["rows"]]
                       + probe_rows}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {

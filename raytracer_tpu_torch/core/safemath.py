@@ -30,7 +30,7 @@ import math
 
 import torch
 
-__all__ = ["safe_sqrt", "safe_norm", "div", "rdiv", "take"]
+__all__ = ["safe_sqrt", "safe_norm", "div", "rdiv", "take", "take_backward"]
 
 
 def safe_sqrt(x, eps=1e-30):
@@ -99,11 +99,18 @@ class _Take(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         idx, = ctx.saved_tensors
-        target, sums = _segment_sums(idx, grad)
-        # one write a row that idx names (a spare row takes the others)
-        out = grad.new_zeros((ctx.shape[0] + 1, sums.shape[1]))
-        out.index_put_((torch.where(target < 0, ctx.shape[0], target),), sums)
-        return out[:-1].reshape(ctx.shape), None
+        return take_backward(idx, grad, ctx.shape), None
+
+
+def take_backward(idx, grad, shape):
+    """The gradient of a table of `shape` that `take(table, idx)` hands
+    grad (a row an index): each row's sum of the rows of grad that name it,
+    in `_segment_sums`' fixed order."""
+    target, sums = _segment_sums(idx, grad)
+    # one write a row that idx names (a spare row takes the others)
+    out = grad.new_zeros((shape[0] + 1, sums.shape[1]))
+    out.index_put_((torch.where(target < 0, shape[0], target),), sums)
+    return out[:-1].reshape(shape)
 
 
 def take(table, idx):

@@ -51,12 +51,21 @@
 // where() as a select (NaN and -0 carried as they are), `c + 0.0f` kept
 // where the plain block adds a where() of 0.0 (it turns -0 into +0).  The
 // CPU's torch rounds these ops the same way, so the CPU stand-in build
-// (csrc/emu) needs no variant.
+// (csrc/emu) needs no variant but the backward's torch.sum over three,
+// which it takes in the CPU's order under W6_TORCH_CPU.
 //
 // What bounds both: memory.  The start reads a ray's word, P, D (and its
 // medium, unless shared) and writes 75 bytes; the update reads 86-125
 // bytes a ray (more as the ray is shaded and goes on) and writes 85.
 // Their arithmetic is a few tens of issue slots a ray.
+//
+// The backward passes (`bounce_update_bwd`, `bounce_start_bwd`, below):
+// the vector-Jacobian products of the two stages, as the JAX package's
+// jax.grad takes them (raytracer_tpu/diff.py) and XLA fuses them; each one
+// launch, in the same tiles, bounded by memory (the update's a few where()s
+// and products an element: it reads up to 6 gradients and 3 saved rows a
+// ray and writes up to 12; the start's where() chains, plus a bilinear
+// emissive texture's uv gradient and the light intensity's rows a ray).
 //
 // Every entry returns cudaGetLastError() after its launch and reports the
 // kernels it launched.
@@ -318,6 +327,293 @@ bounce_update_kernel(Update U) {
   *ticket = 0;
 }
 
+// ---------------------------------------------------------------------------
+// the backward passes: the vector-Jacobian products of the plain stages
+// ---------------------------------------------------------------------------
+//
+// Each restates what autograd computes for `plain_update` / `plain_start`
+// (ops/plain_grad.py `plain_vjp`), op by op with ATen's derivative
+// formulas: a where() hands its gradient to the branch it took and +0 to
+// the other; a product a * b gives g * b to a and g * a to b; a sum passes
+// g on; a broadcast factor takes torch.sum of its products over the
+// broadcast dimension.  Where a tensor feeds several ops, its gradient is
+// the sum of their contributions in the order autograd's engine adds them
+// into its input buffer: the engine runs the ready node created last
+// first, so the contributions come in the reverse of the forward's order,
+// the first one stored as it is (not added to 0: -0 stays -0).  That
+// order is the graph's, the same on the CPU and on the card.  A gradient
+// the plain VJP leaves undefined (no output gradient reaches the input)
+// is a null pointer here and is written by no one.
+
+// torch.sum over a last dimension of 3 (a (N, 1) factor's gradient from
+// its (N, 3) product): ATen's order on the card, the CPU's with
+// W6_TORCH_CPU (the CPU tests' build)
+__device__ __forceinline__ float tsum3(float x0, float x1, float x2) {
+#ifdef W6_TORCH_CPU
+  return ((0.0f + x0) + x1) + x2;
+#else
+  return ((0.0f + x0) + (0.0f + x2)) + (0.0f + x1);
+#endif
+}
+
+// The update's backward: the gradients of the next carry's floats (null
+// where none comes), the forward's throughput, add and beta_mult rows and
+// its masks; the gradients of the update's float inputs (null where not
+// wanted).
+struct UpdateBwd {
+  const float *gL, *gbeta, *gO, *gD, *gn_re, *gn_im;
+  const float *beta, *add, *beta_mult;
+  const unsigned char *alive, *miss, *cont;
+  long long n;
+  float *dL, *dbeta, *dadd, *dbeta_mult;
+  float *dnew_origin, *dO, *dnew_dir, *dD, *dnew_n_re, *dn_re, *dnew_n_im, *dn_im;
+};
+
+// where(m, x, y)'s backward of g into its two branches
+__device__ __forceinline__ void where_bwd(const float* g, long long j, bool m,
+                                          float* then_, float* else_) {
+  if (!g) return;
+  const float x = g[j];
+  if (then_) then_[j] = m ? x : 0.0f;
+  if (else_) else_[j] = m ? 0.0f : x;
+}
+
+// component k of ray i: plain_update's
+//   L' = L + where(shaded, beta * add, 0)        (nodes 1-3)
+//   beta' = where(alive', beta * beta_mult, beta) (nodes 4-5)
+//   O', D', n_re', n_im' = where(alive', new, old)
+// backward.  beta's three contributions come as the engine runs nodes 5,
+// 4 then 1: the where's else branch, then beta_mult's product, then add's.
+__device__ __forceinline__ void update_bwd_element(const UpdateBwd& B, long long i,
+                                                   int k) {
+  const bool alive = B.alive[i] != 0;
+  const bool shaded = alive && B.miss[i] == 0;
+  const bool next = shaded && B.cont[i] != 0;
+  const long long j = 3 * i + k;
+  const float b = B.beta[j];
+  float gp = 0.0f, gq = 0.0f, v = 0.0f;
+  bool has = false;
+  if (B.gL) {
+    if (B.dL) B.dL[j] = B.gL[j];
+    gp = shaded ? B.gL[j] : 0.0f;
+    if (B.dadd) B.dadd[j] = gp * b;
+  }
+  if (B.gbeta) {
+    const float g = B.gbeta[j];
+    gq = next ? g : 0.0f;
+    if (B.dbeta_mult) B.dbeta_mult[j] = gq * b;
+    v = (next ? 0.0f : g) + gq * B.beta_mult[j];
+    has = true;
+  }
+  if (B.dbeta) {
+    if (B.gL) {
+      const float t = gp * B.add[j];
+      v = has ? v + t : t;
+    }
+    B.dbeta[j] = v;
+  }
+  where_bwd(B.gO, j, next, B.dnew_origin, B.dO);
+  where_bwd(B.gD, j, next, B.dnew_dir, B.dD);
+  where_bwd(B.gn_re, j, next, B.dnew_n_re, B.dn_re);
+  where_bwd(B.gn_im, j, next, B.dnew_n_im, B.dn_im);
+}
+
+__global__ void __launch_bounds__(TAIL_BLOCK)
+bounce_update_bwd_kernel(UpdateBwd B) {
+  by_tiles<false>(
+      B.n, [&](long long, int) {},
+      [&](long long i, int k, int) { update_bwd_element(B, i, k); });
+}
+
+// The start's backward.  The gradients of the merged output's float
+// fields that take one (add, new_origin, new_dir, new_n_re, new_n_im; null
+// where none comes) and the forward's mat_type, mat_slot and depth (N,)
+// int32 and uv (N, 2); which merges plain_start made (em: the emissive
+// block's, env: the environment's); the emissive image textures, a
+// descriptor row a ref of SceneStatic.emissive_tex in its order
+// (em_ref_slot: each ref's slot) and the environment slots, a row each in
+// SceneStatic.env_slots order (env_slot: each one's slot; env_lm: the
+// lightmap descriptors, flags 0 where a slot has none; env_lm_row: the row
+// of li_rows it writes, -1 without a lightmap).  Writes (null where not
+// wanted) the gradients of P, D, the medium and uv, and the per-ray rows
+// that the two tables' gathers (core/safemath.py `take`) hand their
+// backward: em_rows (N, 3) of the emissive colours, li_rows (lightmaps, N)
+// of the light intensity, one row a gather.
+struct StartBwd {
+  const float *g_add, *g_origin, *g_dir, *g_n_re, *g_n_im;
+  const int *mat_type, *mat_slot, *depth;
+  const float* uv;
+  long long n;
+  int em, env;
+  int em_refs;
+  const int* em_ref_slot;
+  Textures em_ref_tex;
+  int env_slots;
+  const int *env_slot, *env_lm_row;
+  Textures env_lm;
+  float *dP, *dD, *dn_re, *dn_im, *duv, *em_rows, *li_rows;
+};
+
+// The merges' backward of one field's gradient g into the ray as it came
+// (P, D or the medium): plain_start takes `Merged.start`'s copy, merges
+// the emissive block (whose field is the same input) where m_em, then the
+// environment's where m_env; the engine runs the last where first, so the
+// input takes where(m_env, g, 0), then where(m_em, g', 0) with g' the
+// first where's else branch, then the copy's g'' (the second's).
+__device__ __forceinline__ float merges_bwd(const StartBwd& S, bool m_em, bool m_env,
+                                            float g) {
+  float v = 0.0f, cur = g;
+  bool has = false;
+  if (S.env) {
+    v = m_env ? cur : 0.0f;
+    cur = m_env ? 0.0f : cur;
+    has = true;
+  }
+  if (S.em) {
+    const float t = m_em ? cur : 0.0f;
+    v = has ? v + t : t;
+    cur = m_em ? 0.0f : cur;
+    has = true;
+  }
+  return has ? v + cur : cur;
+}
+
+// the add gradient's share the emissive block's colour takes: the
+// environment merge's else branch, then the emissive merge's then branch
+__device__ __forceinline__ float em_share(const StartBwd& S, bool m_em, bool m_env,
+                                          float g) {
+  const float a = S.env ? (m_env ? 0.0f : g) : g;
+  return m_em ? a : 0.0f;
+}
+
+// materials/shade.py fetch_texture's bilinear branch, backward of the
+// colour's gradient G into (u, v), the texture taking none:
+//   x = u su - 0.5, x0 = floor(x), fx = (x - x0)[..., None] (y likewise)
+//   c = (((1 - fx) (1 - fy)) t00 + (fx (1 - fy)) t10)
+//       + ((1 - fx) fy) t01 + (fx fy) t11
+// Each weight's gradient is torch.sum of G times its texel; fx's buffer
+// takes, as the engine runs the terms last to first, fx fy's, (1 - fx)
+// fy's, fx (1 - fy)'s, then (1 - fx) (1 - fy)'s; the floor adds +0 to x.
+// (gu, gv) are what uv[..., 0] * su and uv[..., 1] * sv hand their select.
+__device__ __forceinline__ void bilinear_bwd(const Textures& T, int r, float u, float v,
+                                             const float* G, float* gu, float* gv) {
+  const int* d = T.desc_i + 4 * r;
+  const float* tex = T.texels + 3 * (long long)d[0];
+  const int H = d[1], W = d[2];
+  const float su = T.desc_f[2 * r], sv = T.desc_f[2 * r + 1];
+  const float x = u * su - 0.5f, y = v * sv - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int ix = (int)x0, iy = (int)y0;
+  const int ix1 = wrap_add(ix, 1), iy1 = wrap_add(iy, 1);
+  float c00[3], c10[3], c01[3], c11[3];
+  tap(tex, H, W, ix, iy, c00);
+  tap(tex, H, W, ix1, iy, c10);
+  tap(tex, H, W, ix, iy1, c01);
+  tap(tex, H, W, ix1, iy1, c11);
+  const float g11 = tsum3(G[0] * c11[0], G[1] * c11[1], G[2] * c11[2]);
+  const float g01 = tsum3(G[0] * c01[0], G[1] * c01[1], G[2] * c01[2]);
+  const float g10 = tsum3(G[0] * c10[0], G[1] * c10[1], G[2] * c10[2]);
+  const float g00 = tsum3(G[0] * c00[0], G[1] * c00[1], G[2] * c00[2]);
+  const float ax = 1.0f - fx, ay = 1.0f - fy;
+  // fx fy; ((1 - fx) fy): 1 - fx takes g01 fy; (fx (1 - fy)): 1 - fy takes
+  // g10 fx; ((1 - fx)(1 - fy)): each takes g00 times the other
+  float gfx = g11 * fy, gfy = g11 * fx;
+  gfy = gfy + g01 * ax;
+  gfx = gfx + -(g01 * fy);
+  gfx = gfx + g10 * ay;
+  gfy = gfy + -(g10 * fx);
+  gfy = gfy + -(g00 * ax);
+  gfx = gfx + -(g00 * ay);
+  *gv = (gfy + 0.0f) * sv;
+  *gu = (gfx + 0.0f) * su;
+}
+
+// component k of ray i's P, D, medium and emissive row
+__device__ __forceinline__ void start_bwd_element(const StartBwd& S, long long i,
+                                                  int k) {
+  const long long j = 3 * i + k;
+  const int type = S.mat_type[i];
+  const bool m_em = S.em && type == MAT_EMISSIVE, m_env = S.env && type == MAT_ENV;
+  if (S.dP) S.dP[j] = merges_bwd(S, m_em, m_env, S.g_origin[j]);
+  if (S.dD) S.dD[j] = merges_bwd(S, m_em, m_env, S.g_dir[j]);
+  if (S.dn_re) S.dn_re[j] = merges_bwd(S, m_em, m_env, S.g_n_re[j]);
+  if (S.dn_im) S.dn_im[j] = merges_bwd(S, m_em, m_env, S.g_n_im[j]);
+  if (S.em_rows) {
+    // _slot_color: the table's row where no ref's slot is the ray's
+    float cur = em_share(S, m_em, m_env, S.g_add[j]);
+    const int slot = S.mat_slot[i];
+    for (int r = S.em_refs - 1; r >= 0; --r)
+      if (slot == S.em_ref_slot[r]) cur = 0.0f;
+    S.em_rows[j] = cur;
+  }
+}
+
+// ray i's uv gradient and light-intensity rows
+__device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
+  const int type = S.mat_type[i], slot = S.mat_slot[i];
+  const bool m_em = S.em && type == MAT_EMISSIVE, m_env = S.env && type == MAT_ENV;
+  const float u = S.uv[2 * i], v = S.uv[2 * i + 1];
+  float g[3];
+  for (int k = 0; k < 3; ++k) g[k] = S.g_add[3 * i + k];
+  if (S.duv) {
+    // _slot_color's wheres, last ref first: a ref takes the gradient where
+    // its slot is the ray's and no later ref's is; each bilinear ref's
+    // fetch hands uv its two selects' full rows, v's then u's
+    float cur[3], gc[3], gu = 0.0f, gv = 0.0f, a0 = 0.0f, a1 = 0.0f;
+    bool has = false;
+    for (int k = 0; k < 3; ++k) cur[k] = em_share(S, m_em, m_env, g[k]);
+    for (int r = S.em_refs - 1; r >= 0; --r) {
+      const bool m = slot == S.em_ref_slot[r];
+      for (int k = 0; k < 3; ++k) {
+        gc[k] = m ? cur[k] : 0.0f;
+        cur[k] = m ? 0.0f : cur[k];
+      }
+      if (!(S.em_ref_tex.desc_i[4 * r + 3] & 2)) continue;
+      bilinear_bwd(S.em_ref_tex, r, u, v, gc, &gu, &gv);
+      a0 = has ? a0 + 0.0f : 0.0f;
+      a1 = has ? a1 + gv : gv;
+      a0 = a0 + gu;
+      a1 = a1 + 0.0f;
+      has = true;
+    }
+    S.duv[2 * i] = a0;
+    S.duv[2 * i + 1] = a1;
+  }
+  if (S.li_rows) {
+    // shade_env's wheres, last slot first; a lightmap's term
+    // where(depth != 0, li[..., None] * lm, 0) hands li torch.sum of its
+    // gradient times the texel
+    float cur[3], gc[3];
+    for (int k = 0; k < 3; ++k) cur[k] = m_env ? g[k] : 0.0f;
+    const bool beyond = S.depth[i] != 0;    // past the camera's bounce
+    for (int e = S.env_slots - 1; e >= 0; --e) {
+      const bool m = slot == S.env_slot[e];
+      for (int k = 0; k < 3; ++k) {
+        gc[k] = m ? cur[k] : 0.0f;
+        cur[k] = m ? 0.0f : cur[k];
+      }
+      const int row = S.env_lm_row[e];
+      if (row < 0) continue;
+      float lm[3];
+      fetch_texture(S.env_lm, e, u, v, lm);
+      S.li_rows[(long long)row * S.n + i] =
+          tsum3((beyond ? gc[0] : 0.0f) * lm[0], (beyond ? gc[1] : 0.0f) * lm[1],
+                (beyond ? gc[2] : 0.0f) * lm[2]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TAIL_BLOCK)
+bounce_start_bwd_kernel(StartBwd S) {
+  by_tiles<false>(
+      S.n,
+      [&](long long i, int) {
+        if (S.duv || S.li_rows) start_bwd_ray(S, i);
+      },
+      [&](long long i, int k, int) { start_bwd_element(S, i, k); });
+}
+
 // The card's SMs and a kernel's resident blocks an SM.
 template <class F>
 cudaError_t residency(F kernel, int* sms, int* per_sm) {
@@ -368,6 +664,26 @@ bool update_ok(const Update& U) {
          && (!U.traced || (U.traced_out && U.scratch));
 }
 
+bool update_bwd_ok(const UpdateBwd& B) {
+  // each wanted gradient has the output gradient it comes from
+  return B.n >= 1 && B.beta && B.add && B.beta_mult && B.alive && B.miss && B.cont
+         && (!B.dL || B.gL) && (!B.dadd || B.gL) && (!B.dbeta_mult || B.gbeta)
+         && (!B.dbeta || B.gL || B.gbeta) && (!(B.dnew_origin || B.dO) || B.gO)
+         && (!(B.dnew_dir || B.dD) || B.gD) && (!(B.dnew_n_re || B.dn_re) || B.gn_re)
+         && (!(B.dnew_n_im || B.dn_im) || B.gn_im);
+}
+
+bool start_bwd_ok(const StartBwd& S) {
+  return S.n >= 1 && S.mat_type && S.mat_slot && (!S.dP || S.g_origin)
+         && (!S.dD || S.g_dir) && (!S.dn_re || S.g_n_re) && (!S.dn_im || S.g_n_im)
+         && (!(S.duv || S.em_rows || S.li_rows) || S.g_add)
+         && (!S.duv || (S.em && S.uv && S.em_refs >= 1 && S.em_ref_slot
+                        && S.em_ref_tex.desc_i && textures_ok(S.em_ref_tex)))
+         && (!S.em_rows || S.em) && S.em_refs >= 0 && (!S.em_refs || S.em_ref_slot)
+         && (!S.li_rows || (S.env && S.uv && S.depth && S.env_slots >= 1 && S.env_slot
+                            && S.env_lm_row && S.env_lm.desc_i && textures_ok(S.env_lm)));
+}
+
 template <class F>
 int info_of(F kernel, int* out) {
   cudaFuncAttributes attr;
@@ -416,11 +732,46 @@ extern "C" int bounce_update(const Update* U, void* stream, int* launched) {
   return 0;
 }
 
-// What a kernel was built to (which: 0 the start, 1 the update): out[0]
+// The gradients of the update's float inputs from those of its outputs
+// (B; ops/bounce_tail.py builds it), one launch.  Returns 0 or a CUDA
+// error, and sets *launched to the kernels launched.
+extern "C" int bounce_update_bwd(const UpdateBwd* B, void* stream, int* launched) {
+  *launched = 0;
+  if (!update_bwd_ok(*B)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_for(bounce_update_bwd_kernel, B->n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH(bounce_update_bwd_kernel, grid, TAIL_BLOCK, 0,
+         static_cast<cudaStream_t>(stream), *B);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// The gradients of the start's ray inputs and its tables' per-ray rows
+// from those of its merged output (S; ops/bounce_tail.py builds it), one
+// launch.  Returns 0 or a CUDA error, and sets *launched likewise.
+extern "C" int bounce_start_bwd(const StartBwd* S, void* stream, int* launched) {
+  *launched = 0;
+  if (!start_bwd_ok(*S)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_for(bounce_start_bwd_kernel, S->n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH(bounce_start_bwd_kernel, grid, TAIL_BLOCK, 0,
+         static_cast<cudaStream_t>(stream), *S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// What a kernel was built to (which: 0 the start, 1 the update, 2 the
+// start's backward, 3 the update's): out[0]
 // registers a thread, out[1] local memory a thread (bytes: spills and
 // stack), out[2] resident blocks an SM, out[3] the SMs, out[4] TAIL_BLOCK.
 extern "C" int bounce_tail_info(int which, int* out) {
   if (which == 0) return info_of(bounce_start_kernel, out);
   if (which == 1) return info_of(bounce_update_kernel, out);
+  if (which == 2) return info_of(bounce_start_bwd_kernel, out);
+  if (which == 3) return info_of(bounce_update_bwd_kernel, out);
   return (int)cudaErrorInvalidValue;
 }

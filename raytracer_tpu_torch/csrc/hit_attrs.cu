@@ -81,7 +81,18 @@
 // against 33.5 T slots/s.  The tables, the maps' texels among them, are
 // small beside the rays and stay in cache.
 //
-// The entry returns cudaGetLastError() after its launch and reports the
+// The backward (`hit_attrs_bwd`, below): the gradients of the rays' O, D
+// and t from those of P, N, uv and eps, for a scene without normal maps
+// (or the first-hit pass) whose tables take no gradient, as the JAX
+// package's jax.grad takes the stage's VJP (raytracer_tpu/diff.py) and
+// XLA fuses it.  One thread a ray runs every present kind's backward, as
+// the plain VJP does (the other kinds with +0 gradients), and adds the
+// contributions in autograd's order.  Memory bounds it too: a ray reads
+// its 44 bytes of O, D, t, object and orientation and up to 32 of output
+// gradients and writes 28; the kinds' formulas are a few hundred issue
+// slots at most.
+//
+// Every entry returns cudaGetLastError() after its launch and reports the
 // kernels it launched.
 
 #include <cuda_runtime.h>
@@ -606,9 +617,465 @@ hit_attrs_kernel(Scene S, Rays R) {
     attrs_ray<MAPS>(S, R, i);
 }
 
-// W5's atan2 (op 0: atan2(x, y)), asin (op 1: asin(x)) of n floats, or its
+// ---------------------------------------------------------------------------
+// the backward pass: the vector-Jacobian product of the plain stage
+// ---------------------------------------------------------------------------
+//
+// `hit_attrs_bwd` restates what autograd computes for `_plain_core` without
+// normal maps (ops/plain_grad.py `plain_vjp`; the geometry's tables take
+// no gradient here), op by op with ATen's derivative formulas, as
+// csrc/bounce_tail.cu's backward passes do: a where() hands its gradient
+// to the branch it took and +0 to the other; a product a * b gives g * b
+// to a; a division a / b gives g / b to a and -g ((a / b) / b) to b;
+// torch.sum of a broadcast factor's products its gradient; a select
+// x[..., k] hands its tensor a full row, the gradient at k and +0
+// elsewhere; torch.sign and torch.floor give zeros; amax splits its
+// gradient evenly among tied maxima, (g / count) * mask; abs gives
+// g * sign(x); clamp passes g where min <= x <= max, else 0; atan2(y, x)
+// gives (g x) r to y and (g (-y)) r to x with r = 1 / (y y + x x); asin
+// gives g * rsqrt(-x x + 1); sqrt g / (2 sqrt(x)).  A tensor's gradient
+// sums its contributions in the order autograd's engine adds them: the
+// ready node created last runs first, the first contribution stored as it
+// is (an `Acc`).  P = O + D t feeds every present kind's formula (each
+// over every ray, on its clamped id; a ray's own kind takes the output
+// gradients, every other kind +0, which still adds its zeros, or a NaN,
+// to P's) and the nudge's amax |P|: P's gradient is the output gradient,
+// then the nudge's, then each present kind's, the last kind first.  Then
+// O takes P's gradient, D P's times t, t torch.sum(P's times D).
+
+// a tensor's gradient buffer: its contributions summed in arrival order
+struct Acc {
+  float v;
+  bool has;
+};
+__device__ __forceinline__ void acc_add(Acc& a, float x) {
+  a.v = a.has ? a.v + x : x;
+  a.has = true;
+}
+__device__ __forceinline__ float acc_val(const Acc& a) { return a.has ? a.v : 0.0f; }
+
+// a select x[..., k] of a 3-vector hands x a full row: x at k, +0 elsewhere
+__device__ __forceinline__ void add_row3(Acc* b, int k, float x) {
+  for (int c = 0; c < 3; ++c) acc_add(b[c], c == k ? x : 0.0f);
+}
+
+// _dot(a, b)'s backward of g into b (a takes none): its three products'
+// selects hand b their rows, the last product's first
+__device__ __forceinline__ void dot_bwd(Acc* b, float g, const float* a) {
+  for (int k = 2; k >= 0; --k) add_row3(b, k, g * a[k]);
+}
+
+// torch.sum over a last dimension of 2
+__device__ __forceinline__ float tsum2(float x0, float x1) {
+#ifdef W5_TORCH_CPU
+  return (0.0f + x0) + x1;
+#else
+  return (0.0f + x0) + (0.0f + x1);
+#endif
+}
+
+// The backward formulas of torch.atan2 (gy, gx), torch.asin and
+// torch.sqrt (r its result), as the card computes them; under
+// W5_TORCH_CPU in float64, rounded once, as the CPU tests run the plain
+// stage's atan2, asin and sqrt through float64 (the backward of a
+// float64 op between two casts).
+__device__ __forceinline__ void atan2_bwd(float g, float y, float x, float* gy,
+                                          float* gx) {
+#ifdef W5_TORCH_CPU
+  const double r = 1.0 / ((double)y * (double)y + (double)x * (double)x);
+  *gy = (float)(((double)g * (double)x) * r);
+  *gx = (float)(((double)g * -(double)y) * r);
+#else
+  const float r = 1.0f / (y * y + x * x);
+  *gy = (g * x) * r;
+  *gx = (g * -y) * r;
+#endif
+}
+__device__ __forceinline__ float asin_bwd(float g, float x) {
+#ifdef W5_TORCH_CPU
+  return (float)((double)g * (1.0 / sqrt(-(double)x * (double)x + 1.0)));
+#else
+  return g * rsqrtf(-x * x + 1.0f);
+#endif
+}
+__device__ __forceinline__ float sqrt_bwd(float g, float x) {
+#ifdef W5_TORCH_CPU
+  return (float)((double)g / (2.0 * sqrt((double)x)));
+#else
+  return g / (2.0f * sqrtf(x));
+#endif
+}
+
+// The output gradients a kind's formula takes at a ray: its own kind's
+// (the N and uv gradients), another kind's +0; n / uv: the stage's N / uv
+// output takes a gradient (null pointers, not zeros, where it takes none:
+// then no op of that branch runs).
+struct Up {
+  bool n, uv;
+  float gN[3], guv[2];
+};
+
+// attrs.py sphere_attrs' backward into P - c
+__device__ __forceinline__ void sphere_bwd(const float* w, const float* P, const Up& U,
+                                           float* g) {
+  float N[3];
+  for (int c = 0; c < 3; ++c) N[c] = (P[c] - w[c]) / w[3];
+  Acc b[3] = {};
+  if (U.n)
+    for (int c = 0; c < 3; ++c) acc_add(b[c], U.gN[c]);
+  if (U.uv) {
+    // u = div(atan2(N2, N0) + pi, 2 pi), v = div(asin(clamp(N1)) + pi / 2, pi):
+    // v's ops run first (asin's select of N1), then u's (N0's, then N2's)
+    const float gphi = U.guv[0] / TWO_PI_F, gtheta = U.guv[1] / PI_F;
+    const float x = t_clamp(N[1], -1.0f, 1.0f);
+    const float gx = asin_bwd(gtheta, x);
+    add_row3(b, 1, N[1] >= -1.0f && N[1] <= 1.0f ? gx : 0.0f);
+    float gy2, gx0;
+    atan2_bwd(gphi, N[2], N[0], &gy2, &gx0);
+    add_row3(b, 0, gx0);
+    add_row3(b, 2, gy2);
+  }
+  for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]) / w[3];
+}
+
+// attrs.py plane_attrs / disc_attrs' backward into P - c (the uv only: the
+// normal is the table's): u = div(_dot(ua, M) / su + 1, 2) (+ shift), v
+// likewise; v's dot runs first
+__device__ __forceinline__ void planar_bwd(const float* w, float su, float sv,
+                                           const Up& U, float* g) {
+  Acc b[3] = {};
+  dot_bwd(b, (U.guv[1] / 2.0f) / sv, w + 12);
+  dot_bwd(b, (U.guv[0] / 2.0f) / su, w + 8);
+  for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+}
+
+// attrs.py box_attrs' backward into P - c.  The normal's branch gives P_l
+// torch.sign's zeros; the uv's hands each of w_d, h_d, l_d (P_l's
+// selects) its faces' terms, the selected face's (the first whose
+// condition holds) the gradient, the others +0 (one nonzero term a select,
+// so their order is moot); then P_l's three dots, the last first.
+__device__ __forceinline__ void box_bwd(const float* w, const float* P, const Up& U,
+                                        float* g) {
+  float M[3], Pl[3], a[3], Nl[3];
+  for (int c = 0; c < 3; ++c) M[c] = P[c] - w[12 + c];
+  for (int i = 0; i < 3; ++i) Pl[i] = dot3(w + 4 * i, M);
+  for (int i = 0; i < 3; ++i) a[i] = fabsf(Pl[i]) / w[4 * i + 3];
+  const float Pmax = t_max3(a[0], a[1], a[2]);
+  for (int i = 0; i < 3; ++i) Nl[i] = Pmax == a[i] ? t_sign(Pl[i]) : 0.0f;
+  Acc pl[3] = {};
+  if (U.uv) {
+    const float s = F32(2.0 * 0.985) / w[3];
+    const int face = Nl[1] == -1.0f ? 0 : Nl[1] == 1.0f ? 1 : Nl[0] == 1.0f ? 2
+                   : Nl[0] == -1.0f ? 3 : Nl[2] == 1.0f ? 4 : Nl[2] == -1.0f ? 5 : -1;
+    const float gu = U.guv[0] / 4.0f, gv = U.guv[1] / 3.0f;
+    // half(x) = div(x s + 1, 2) hands x (g / 2) s; half(-x) its negation
+    auto term = [&](float gf, int f, bool neg) {
+      const float t = ((f == face ? gf : 0.0f) / 2.0f) * s;
+      return neg ? -t : t;
+    };
+    Acc wd = {}, hd = {}, ld = {};
+    acc_add(wd, term(gu, 0, false));
+    acc_add(wd, term(gu, 1, false));
+    acc_add(ld, term(gu, 2, false));
+    acc_add(ld, term(gu, 3, true));
+    acc_add(wd, term(gu, 4, true));
+    acc_add(wd, term(gu, 5, false));
+    acc_add(ld, term(gv, 0, true));
+    acc_add(ld, term(gv, 1, false));
+    for (int f = 2; f < 6; ++f) acc_add(hd, term(gv, f, false));
+    add_row3(pl, 2, ld.v);
+    add_row3(pl, 1, hd.v);
+    add_row3(pl, 0, wd.v);
+  }
+  if (U.n)
+    for (int c = 0; c < 3; ++c) acc_add(pl[c], 0.0f);
+  Acc b[3] = {};
+  for (int i = 2; i >= 0; --i) dot_bwd(b, acc_val(pl[i]), w + 4 * i);
+  for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+}
+
+// attrs.py cylinder_attrs' backward into P - c.  x, y, z (the dots of M
+// with the u axis, the axis and the v axis) take, in the engine's order:
+// with uv, the cap's z / r and x / r, the side's y / hh, atan2(z, x);
+// with the normal, the cap's torch.sign(y) zeros, the side's
+// (x ua + z va) / rho (z's, then x's), then rho = sqrt(clamp_min(x x +
+// z z)) (z's two, then x's two); then the three dots, z's first.
+__device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, const Up& U,
+                                             float* g) {
+  float M[3];
+  for (int c = 0; c < 3; ++c) M[c] = P[c] - w[c];
+  const float* ax = w + 4;
+  const float* ua = w + 8;
+  const float* va = w + 12;
+  const float r = w[3], hh = w[7];
+  const float x = dot3(ua, M), y = dot3(ax, M), z = dot3(va, M);
+  const float q = x * x + z * z;
+  const float rho = sqrtf(t_clamp_min(q, F32(1e-20)));
+  const bool cap = w[11] > 0.5f && rho / r <= fabsf(y) / hh;
+  Acc X = {}, Y = {}, Z = {};
+  if (U.uv) {
+    const float gu = U.guv[0], gv = U.guv[1];
+    acc_add(Z, ((cap ? gv : 0.0f) / 2.0f) / r);
+    acc_add(X, ((cap ? gu : 0.0f) / 2.0f) / r);
+    acc_add(Y, ((cap ? 0.0f : gv) / 2.0f) / hh);
+    float gz, gx;
+    atan2_bwd((cap ? 0.0f : gu) / TWO_PI_F, z, x, &gz, &gx);
+    acc_add(X, gx);
+    acc_add(Z, gz);
+  }
+  if (U.n) {
+    acc_add(Y, 0.0f);
+    float gS[3], t[3], S[3];
+    for (int c = 0; c < 3; ++c) {
+      const float gs = cap ? 0.0f : U.gN[c];
+      S[c] = x * ua[c] + z * va[c];
+      gS[c] = gs / rho;
+      t[c] = -gs * ((S[c] / rho) / rho);
+    }
+    const float grho = tsum3(t[0], t[1], t[2]);
+    acc_add(Z, tsum3(gS[0] * va[0], gS[1] * va[1], gS[2] * va[2]));
+    acc_add(X, tsum3(gS[0] * ua[0], gS[1] * ua[1], gS[2] * ua[2]));
+    const float qc = t_clamp_min(q, F32(1e-20));
+    const float gq = q >= F32(1e-20) ? sqrt_bwd(grho, qc) : 0.0f;
+    acc_add(Z, gq * z);
+    acc_add(Z, gq * z);
+    acc_add(X, gq * x);
+    acc_add(X, gq * x);
+  }
+  Acc b[3] = {};
+  dot_bwd(b, acc_val(Z), va);
+  dot_bwd(b, acc_val(Y), ax);
+  dot_bwd(b, acc_val(X), ua);
+  for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+}
+
+// attrs.py triangle_attrs' backward into P (under instances, through
+// ((P - trans) @ R) * inv_s).  The blend's weights w1 = (1 - u) - v, w2 = u,
+// w3 = v take the uv blend's sums first (w3's, w2's, w1's), then the
+// normal's (through N = Ns / safe_norm(Ns), under instances after the
+// rotation back's three dots, the last first); then u and v (v takes w3
+// and -w1, u w2 and -w1), the barycentric solve (v's products first) and
+// its two dots, dp2's first.
+__device__ __forceinline__ void triangle_bwd(const Scene& S, long long local,
+                                             const float* Pw, const Up& U, float* g) {
+  long long row = local;
+  float R[9], P[3], Pt[3], inv_s = 1.0f;
+  const bool inst = S.virt_row != nullptr;
+  for (int c = 0; c < 3; ++c) P[c] = Pw[c];
+  if (inst) {
+    row = __ldg(S.virt_row + local);
+    const long long k = __ldg(S.virt_inst + local);
+    for (int j = 0; j < 9; ++j) R[j] = __ldg(S.inst_rot + 9 * k + j);
+    float col[3];
+    for (int c = 0; c < 3; ++c) Pt[c] = Pw[c] - __ldg(S.inst_trans + 3 * k + c);
+    inv_s = __ldg(S.inst_inv_scale + k);
+    for (int j = 0; j < 3; ++j) {
+      for (int i = 0; i < 3; ++i) col[i] = R[3 * i + j];
+      P[j] = dot3(col, Pt) * inv_s;
+    }
+  }
+  const bool interp = S.vn1 != nullptr;
+  float p1[3], p2[3], p3[3], e1[3], e2[3], d[3];
+  load3(S.tri_p1, row, p1);
+  load3(S.tri_p2, row, p2);
+  load3(S.tri_p3, row, p3);
+  for (int c = 0; c < 3; ++c) {
+    e1[c] = p2[c] - p1[c];
+    e2[c] = p3[c] - p1[c];
+    d[c] = P[c] - p1[c];
+  }
+  const float d11 = dot3(e1, e1), d12 = dot3(e1, e2), d22 = dot3(e2, e2);
+  const float dp1 = dot3(d, e1), dp2 = dot3(d, e2);
+  const float det = t_clamp_min(d11 * d22 - d12 * d12, F32(1e-20));
+  const float u = (d22 * dp1 - d12 * dp2) / det;
+  const float v = (d11 * dp2 - d12 * dp1) / det;
+  Acc gu = {}, gv = {};
+  if (!interp) {
+    gu = Acc{U.guv[0], true};
+    gv = Acc{U.guv[1], true};
+  } else {
+    const float w1 = (1.0f - u) - v, w2 = u, w3 = v;
+    Acc W1 = {}, W2 = {}, W3 = {};
+    if (U.uv) {
+      float t1[2], t2[2], t3[2];
+      for (int c = 0; c < 2; ++c) {
+        t1[c] = U.guv[c] * __ldg(S.uv1 + 2 * row + c);
+        t2[c] = U.guv[c] * __ldg(S.uv2 + 2 * row + c);
+        t3[c] = U.guv[c] * __ldg(S.uv3 + 2 * row + c);
+      }
+      acc_add(W3, tsum2(t3[0], t3[1]));
+      acc_add(W2, tsum2(t2[0], t2[1]));
+      acc_add(W1, tsum2(t1[0], t1[1]));
+    }
+    if (U.n) {
+      float a[3], b[3], c3[3], Ns[3];
+      load3(S.vn1, row, a);
+      load3(S.vn2, row, b);
+      load3(S.vn3, row, c3);
+      for (int c = 0; c < 3; ++c) Ns[c] = (w1 * a[c] + w2 * b[c]) + w3 * c3[c];
+      const float s = tsum3(Ns[0] * Ns[0], Ns[1] * Ns[1], Ns[2] * Ns[2]);
+      const float sc = t_clamp_min(s, F32(1e-30));
+      const float len = s > 0.0f ? sqrtf(sc) : 0.0f;
+      float Nb[3];
+      if (inst) {
+        Acc nb[3] = {};
+        for (int j = 2; j >= 0; --j) dot_bwd(nb, U.gN[j], R + 3 * j);
+        for (int c = 0; c < 3; ++c) Nb[c] = acc_val(nb[c]);
+      } else {
+        for (int c = 0; c < 3; ++c) Nb[c] = U.gN[c];
+      }
+      float t[3], gNs[3];
+      for (int c = 0; c < 3; ++c) {
+        gNs[c] = Nb[c] / len;
+        t[c] = -Nb[c] * ((Ns[c] / len) / len);
+      }
+      const float glen = tsum3(t[0], t[1], t[2]);
+      const float gr = s > 0.0f ? glen : 0.0f;
+      const float gs = s >= F32(1e-30) ? sqrt_bwd(gr, sc) : 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        const float q = gs * Ns[c];
+        gNs[c] = (gNs[c] + q) + q;
+      }
+      acc_add(W3, tsum3(gNs[0] * c3[0], gNs[1] * c3[1], gNs[2] * c3[2]));
+      acc_add(W2, tsum3(gNs[0] * b[0], gNs[1] * b[1], gNs[2] * b[2]));
+      acc_add(W1, tsum3(gNs[0] * a[0], gNs[1] * a[1], gNs[2] * a[2]));
+    }
+    acc_add(gv, W3.v);
+    acc_add(gu, W2.v);
+    acc_add(gv, -W1.v);
+    acc_add(gu, -W1.v);
+  }
+  const float gsv = gv.v / det, gsu = gu.v / det;
+  const float g1 = -gsv * d12 + gsu * d22;
+  const float g2 = gsv * d11 + -gsu * d12;
+  Acc b[3] = {};
+  dot_bwd(b, g2, e2);
+  dot_bwd(b, g1, e1);
+  if (!inst) {
+    for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+    return;
+  }
+  Acc pt[3] = {};
+  for (int j = 2; j >= 0; --j) {
+    const float col[3] = {R[j], R[3 + j], R[6 + j]};
+    dot_bwd(pt, acc_val(b[j]) * inv_s, col);
+  }
+  for (int c = 0; c < 3; ++c) g[c] = acc_val(pt[c]);
+}
+
+// The rays' inputs as the forward's (`Rays`), the stage's output
+// gradients (gP, gN (n, 3), guv (n, 2), geps (n,); null where the output
+// takes none: gN where no present kind's normal depends on P, guv without
+// uv) and the gradients of O, D (n, 3) and t (n,) (null where not wanted).
+struct RaysBwd {
+  const float *O, *D, *t, *orient;
+  const long long* obj;
+  long long n;
+  int need_uv, first_hit;
+  float nudge, miss_at;
+  const float *gP, *gN, *guv, *geps;
+  float *dO, *dD, *dt;
+};
+
+// whether a kind's formula has an op on P that the output gradients reach
+__device__ __forceinline__ bool kind_reached(const Scene& S, int kind, const Up& U) {
+  if (kind == 1 || kind == 3) return U.uv;
+  if (kind == KINDS - 1) return U.uv || (U.n && S.vn1 != nullptr);
+  return U.n || U.uv;
+}
+
+__device__ __forceinline__ void attrs_bwd_ray(const Scene& S, const RaysBwd& B,
+                                              long long i) {
+  const float t = __ldg(B.t + i);
+  const bool miss = t >= B.miss_at;
+  float O[3], D[3], P[3];
+  load3(B.O, i, O);
+  load3(B.D, i, D);
+  for (int c = 0; c < 3; ++c) P[c] = O[c] + D[c] * t;
+  const bool zeroed = B.first_hit && miss;
+  if (zeroed)
+    for (int c = 0; c < 3; ++c) P[c] = 0.0f;
+  const long long o = __ldg(B.obj + i);
+  // the output gradients the ray's own kind takes: the first-hit pass's
+  // where(miss, 0, .) hands them +0 on a miss; else N = N_geo * orient
+  Up own = {B.gN != nullptr, B.guv != nullptr, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f}};
+  if (own.n) {
+    const float s = B.first_hit ? 0.0f : __ldg(B.orient + i);
+    for (int c = 0; c < 3; ++c) {
+      const float gn = __ldg(B.gN + 3 * i + c);
+      own.gN[c] = B.first_hit ? (miss ? 0.0f : gn) : gn * s;
+    }
+  }
+  if (own.uv)
+    for (int c = 0; c < 2; ++c) {
+      const float gu = __ldg(B.guv + 2 * i + c);
+      own.guv[c] = B.first_hit && miss ? 0.0f : gu;
+    }
+  Up other = {own.n, own.uv, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f}};
+  Acc gp[3] = {};
+  if (B.gP)
+    for (int c = 0; c < 3; ++c) acc_add(gp[c], __ldg(B.gP + 3 * i + c));
+  if (B.geps) {
+    // eps = nudge * clamp_min(amax(|P|), 1)
+    float a[3];
+    for (int c = 0; c < 3; ++c) a[c] = fabsf(P[c]);
+    const float m = t_max3(a[0], a[1], a[2]);
+    const float gc = m >= 1.0f ? __ldg(B.geps + i) * B.nudge : 0.0f;
+    const float cnt = (float)((m == a[0]) + (m == a[1]) + (m == a[2]));
+    const float ga = gc / cnt;
+    for (int c = 0; c < 3; ++c)
+      acc_add(gp[c], (ga * (m == a[c] ? 1.0f : 0.0f)) * t_sign(P[c]));
+  }
+  long long offs[KINDS];
+  long long off = 0;
+  for (int k = 0; k < KINDS; ++k) {
+    offs[k] = off;
+    off += S.counts[k];
+  }
+  for (int kind = KINDS - 1; kind >= 0; --kind) {
+    const long long count = S.counts[kind];
+    if (!count) continue;
+    const bool mine = o >= offs[kind] && o < offs[kind] + count;
+    const Up& U = mine ? own : other;
+    if (!kind_reached(S, kind, U)) continue;
+    const long long local = clip_row(o - offs[kind], count);
+    float g[3];
+    if (kind == KINDS - 1) {
+      triangle_bwd(S, local, P, U, g);
+    } else {
+      float w[ROW];
+      row_words(S.rows, offs[kind] + local, w);
+      switch (kind) {
+        case 0: sphere_bwd(w, P, U, g); break;
+        case 1: planar_bwd(w, w[3], w[7], U, g); break;
+        case 2: box_bwd(w, P, U, g); break;
+        case 3: planar_bwd(w, w[3], w[3], U, g); break;
+        default: cylinder_bwd(w, P, U, g); break;
+      }
+    }
+    for (int c = 0; c < 3; ++c) acc_add(gp[c], g[c]);
+  }
+  float G[3];
+  for (int c = 0; c < 3; ++c) G[c] = zeroed ? 0.0f : acc_val(gp[c]);
+  for (int c = 0; c < 3; ++c) {
+    if (B.dO) B.dO[3 * i + c] = G[c];
+    if (B.dD) B.dD[3 * i + c] = G[c] * t;
+  }
+  if (B.dt) B.dt[i] = tsum3(G[0] * D[0], G[1] * D[1], G[2] * D[2]);
+}
+
+__global__ void __launch_bounds__(ATTR_BLOCK)
+hit_attrs_bwd_kernel(Scene S, RaysBwd B) {
+  const long long stride = (long long)gridDim.x * ATTR_BLOCK;
+  for (long long i = (long long)blockIdx.x * ATTR_BLOCK + threadIdx.x; i < B.n;
+       i += stride)
+    attrs_bwd_ray(S, B, i);
+}
+
+// W5's atan2 (op 0: atan2(x, y)), asin (op 1: asin(x)) of n floats, its
 // 3 x 3 product (op 2: row i of out = row i of x @ y, x (n, 3), y (3, 3)),
-// as the kernel computes them: for the holds against torch.
+// or its backward's rsqrt (op 3: rsqrtf(x)), as the kernels compute them:
+// for the holds against torch.
 __global__ void __launch_bounds__(ATTR_BLOCK)
 math_kernel(int op, const float* x, const float* y, long long n, float* out) {
   const long long stride = (long long)gridDim.x * ATTR_BLOCK;
@@ -616,6 +1083,8 @@ math_kernel(int op, const float* x, const float* y, long long n, float* out) {
        i += stride) {
     if (op == 2)
       mm3(x + 3 * i, y, out + 3 * i);
+    else if (op == 3)
+      out[i] = rsqrtf(x[i]);
     else
       out[i] = op == 0 ? t_atan2(x[i], y[i]) : t_asin(x[i]);
   }
@@ -670,6 +1139,12 @@ bool rays_ok(const Rays& R) {
          && R.mat_type && R.mat_slot && R.max_depth;
 }
 
+bool bwd_ok(const RaysBwd& B) {
+  return B.n >= 1 && B.O && B.D && B.t && B.obj && (B.first_hit || !B.gN || B.orient)
+         && (!B.guv || B.need_uv) && (B.gP || B.gN || B.guv || B.geps)
+         && (B.dO || B.dD || B.dt);
+}
+
 }  // namespace w5
 
 using namespace w5;
@@ -683,14 +1158,14 @@ cudaError_t launch_attrs(const Scene& S, const Rays& R, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// What the kernel's instance MAPS was built to: out[0] registers a
-// thread, out[1] local memory a thread (bytes: spills and stack), out[2]
-// resident blocks an SM, out[3] the SMs, out[4] ATTR_BLOCK.
-template <bool MAPS>
-cudaError_t attrs_info(int* out) {
+// What a kernel was built to: out[0] registers a thread, out[1] local
+// memory a thread (bytes: spills and stack), out[2] resident blocks an SM,
+// out[3] the SMs, out[4] ATTR_BLOCK.
+template <class F>
+cudaError_t kernel_info(F kernel, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, hit_attrs_kernel<MAPS>);
-  if (err == cudaSuccess) err = residency(hit_attrs_kernel<MAPS>, &out[3], &out[2]);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = residency(kernel, &out[3], &out[2]);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
@@ -714,18 +1189,40 @@ extern "C" int hit_attrs(const Scene* S, const Rays* R, void* stream, int* launc
   return 0;
 }
 
-// What the kernel was built to (maps: its MAPS instance; see attrs_info).
-extern "C" int hit_attrs_info(int maps, int* out) {
-  return (int)(maps ? attrs_info<true>(out) : attrs_info<false>(out));
+// The gradients of the rays' O, D and t from those of the attributes (B)
+// against the scene S, which maps no normal (ops/hit_attrs.py builds
+// both), one launch.  Returns 0 or a CUDA error, and sets *launched to the
+// kernels launched.
+extern "C" int hit_attrs_bwd(const Scene* S, const RaysBwd* B, void* stream,
+                             int* launched) {
+  *launched = 0;
+  if (!scene_ok(*S) || !bwd_ok(*B) || (S->n_maps > 0 && !B->first_hit))
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_for(hit_attrs_bwd_kernel, B->n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH(hit_attrs_bwd_kernel, grid, ATTR_BLOCK, 0, static_cast<cudaStream_t>(stream),
+         *S, *B);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
 }
 
-// out[i] = W5's atan2(x[i], y[i]) (op 0) or asin(x[i]) (op 1), n floats; or
-// (op 2) out's row i = x's row i @ y, n rows.  For chip_smoke.py and the
+// What a kernel was built to (which: 0 the kernel's instance without maps,
+// 1 its MAPS instance, 2 the backward; see kernel_info).
+extern "C" int hit_attrs_info(int which, int* out) {
+  if (which == 2) return (int)kernel_info(hit_attrs_bwd_kernel, out);
+  return (int)(which ? kernel_info(hit_attrs_kernel<true>, out)
+                     : kernel_info(hit_attrs_kernel<false>, out));
+}
+
+// out[i] = W5's atan2(x[i], y[i]) (op 0), asin(x[i]) (op 1) or rsqrt(x[i])
+// (op 3), n floats; or (op 2) out's row i = x's row i @ y, n rows.  For chip_smoke.py and the
 // card tests, which hold them against torch.
 extern "C" int hit_attrs_math(int op, const float* x, const float* y, long long n,
                               float* out, void* stream, int* launched) {
   *launched = 0;
-  if (op < 0 || op > 2 || !x || (op != 1 && !y) || !out || n < 1)
+  if (op < 0 || op > 3 || !x || ((op == 0 || op == 2) && !y) || !out || n < 1)
     return (int)cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = grid_for(math_kernel, n, &grid);

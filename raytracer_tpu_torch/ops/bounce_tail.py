@@ -23,11 +23,17 @@ W6 reads the emissive and environment textures as W4 reads its blocks'
 descriptor a slot, made once per data and kept on its material tables),
 and a medium every ray shares as its one row.  Where autograd records a
 stage (grad enabled and an input requiring grad), the kernel runs inside
-`_Start` / `_Update`, whose backward recomputes the plain stage for its
-vector-Jacobian product: the gradient is the plain stage's.
+`_Start` / `_Update`, whose backward is a kernel too (`start_vjp`,
+`update_vjp`: csrc/bounce_tail.cu `bounce_start_bwd`, `bounce_update_bwd`,
+one launch each), the plain stage's vector-Jacobian product
+(`plain_start_vjp`, `plain_update_vjp`) bit for bit; the tables'
+gradients are `core/safemath.py` `take`'s scans of the start kernel's
+per-ray rows.  The start's backward takes the plain VJP, counted in
+`plain_routes`, only where a texture it reads requires grad.
+`backward_launches()` counts the backward kernels.
 
-The `_launch_start` / `_launch_update` functions take `lib=`: the tests
-pass the CPU stand-in's build of the source (csrc/emu) with CPU tensors.
+The `_launch_*` functions and the VJPs take `lib=`: the tests pass the CPU
+stand-in's build of the source (csrc/emu) with CPU tensors.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from ..materials import shade
 from ..materials.base import MAT_EMISSIVE, MAT_ENV
 from . import cuda_build
 from . import wavefront_shade as ws
-from .mesh_sweep import _call
+from ..core.safemath import take_backward
+from .mesh_sweep import _call, kept
 from .plain_grad import plain_vjp
 
 _V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,6 +69,9 @@ class Start(ctypes.Structure):
                 *((f, _V) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS)]
 
 
+CARRY_FLOATS = ("L", "beta", "O", "D", "n_re", "n_im")
+CARRY_OTHERS = ("alive", "depth", "diffuse_refl", "split_cnt", "rays_traced")
+
 _CARRY_IN = ("L", "beta", "alive", "miss", "add", "beta_mult", "new_origin",
              "new_dir", "new_n_re", "new_n_im", "cont", "is_diffuse", "did_split",
              "O", "D", "n_re", "n_im")
@@ -77,8 +87,34 @@ class Update(ctypes.Structure):
                                     "scratch"))]
 
 
+# the update's backward: the next carry's float gradients (CARRY_FLOATS),
+# the forward's rows and masks it reads, and its inputs' gradients by the
+# name of the input (`_UPDATE_FLOATS`)
+_UPDATE_GRADS = tuple(f"g{f}" for f in CARRY_FLOATS)
+_UPDATE_SAVED = ("beta", "add", "beta_mult", "alive", "miss", "cont")
+
+
+class UpdateBwd(ctypes.Structure):
+    _fields_ = [*((f, _V) for f in _UPDATE_GRADS + _UPDATE_SAVED), ("n", _L),
+                *((f"d{f}", _V) for f in ("L", "beta", "add", "beta_mult",
+                                          "new_origin", "O", "new_dir", "D",
+                                          "new_n_re", "n_re", "new_n_im", "n_im"))]
+
+
+class StartBwd(ctypes.Structure):
+    _fields_ = [*((f, _V) for f in ("g_add", "g_origin", "g_dir", "g_n_re", "g_n_im",
+                                    "mat_type", "mat_slot", "depth", "uv")),
+                ("n", _L), ("em", _I), ("env", _I), ("em_refs", _I),
+                ("em_ref_slot", _V), ("em_ref_tex", ws.Textures), ("env_slots", _I),
+                ("env_slot", _V), ("env_lm_row", _V), ("env_lm", ws.Textures),
+                *((f, _V) for f in ("dP", "dD", "dn_re", "dn_im", "duv", "em_rows",
+                                    "li_rows"))]
+
+
 ENTRIES = {"bounce_start": [ctypes.POINTER(Start), _V, ctypes.POINTER(_I)],
-           "bounce_update": [ctypes.POINTER(Update), _V, ctypes.POINTER(_I)]}
+           "bounce_update": [ctypes.POINTER(Update), _V, ctypes.POINTER(_I)],
+           "bounce_start_bwd": [ctypes.POINTER(StartBwd), _V, ctypes.POINTER(_I)],
+           "bounce_update_bwd": [ctypes.POINTER(UpdateBwd), _V, ctypes.POINTER(_I)]}
 
 
 @dataclass
@@ -101,8 +137,6 @@ class Carry:
     rays_traced: Any = None
 
 
-CARRY_FLOATS = ("L", "beta", "O", "D", "n_re", "n_im")
-CARRY_OTHERS = ("alive", "depth", "diffuse_refl", "split_cnt", "rays_traced")
 
 
 # ---------------------------------------------------------------------------
@@ -285,10 +319,14 @@ def _launch_update(c, miss, acc, lib=None):
 
 
 # ---------------------------------------------------------------------------
-# autograd: the kernel forward, the plain stage's backward
+# autograd: the kernel forward, the kernel backward
 # ---------------------------------------------------------------------------
 
 _START_RAYS = ("P", "D", "n_re", "n_im", "uv")
+# the explicit plain-VJP routes taken on the card, by reason: the start's
+# backward where a texture it reads requires grad (its texels' gradient has
+# no kernel)
+plain_routes = {"start_textures": 0}
 
 
 def _start_inputs(ctx):
@@ -329,12 +367,154 @@ def _start_flow(ctx, mat_type, flags):
     return ws.kept_flow(ctx.static, "_w6_flow", flags, plain)
 
 
+def _start_textures(static):
+    """The indices of the textures the start reads: the emissive slots'
+    and the environments' display textures and lightmaps."""
+    return ({r.tex for r in static.emissive_tex}
+            | {e.tex for e in static.env_slots}
+            | {e.lightmap for e in static.env_slots if e.lightmap is not None})
+
+
+def plain_start_vjp(grads, xs, mat_type, mat_slot, depth, data, static, wants):
+    """The plain start's vector-Jacobian product (ops/plain_grad.py
+    `plain_vjp`): the gradients of the start's inputs xs (`_start_inputs`;
+    None where not wanted or reached) from those of its float fields
+    (ws.FLOAT_FIELDS)."""
+    def plain(leaves):
+        o = plain_start(_start_ctx(leaves, mat_slot, depth, data, static), mat_type)
+        return [getattr(o, f) for f in ws.FLOAT_FIELDS]
+
+    return plain_vjp(grads, xs, wants, plain)
+
+
+def backward_tables(data, static):
+    """{name: tensor} of the start's backward (csrc/bounce_tail.cu
+    `StartBwd`): "em_ref_slot" (refs,) int32, each emissive image texture's
+    slot, in SceneStatic.emissive_tex order, and "em_ref_tex" its
+    (texels, desc_i, desc_f) a row a ref; "env_slot" (slots,) int32, each
+    environment's slot in SceneStatic.env_slots order, "env_lm_row" its
+    row of the light-intensity rows (-1 without a lightmap) and "env_lm"
+    the lightmaps' textures a row an environment.  Made once per data and
+    kept on its material tables."""
+    mats, refs, envs = data.mats, static.emissive_tex, static.env_slots
+    used = sorted(_start_textures(static))
+    dev = mats.emissive_color.device
+
+    def make():
+        out = {}
+        if refs:
+            slot = torch.tensor([r.slot for r in refs], dtype=torch.int32, device=dev)
+            out.update(em_ref_slot=slot, em_ref_tex=ws.texture_tables(
+                mats, slot, [TexRef(i, r.tex, r.repeat, r.bilinear)
+                             for i, r in enumerate(refs)], data.textures, "w6_bwd_em"))
+        if envs:
+            slot = torch.tensor([e.slot for e in envs], dtype=torch.int32, device=dev)
+            rows, k = [], 0
+            for e in envs:
+                rows.append(-1 if e.lightmap is None else k)
+                k += e.lightmap is not None
+            out.update(env_slot=slot, env_lm_row=torch.tensor(
+                rows, dtype=torch.int32, device=dev), env_lm=ws.texture_tables(
+                mats, slot, [TexRef(i, e.lightmap, 1.0) for i, e in enumerate(envs)
+                             if e.lightmap is not None], data.textures, "w6_bwd_lm"))
+        return out
+
+    name = "_w6_bwd_" + "_".join(
+        [f"{r.slot}.{r.tex}.{r.repeat}.{r.bilinear}" for r in refs]
+        + [f"e{e.slot}.{e.lightmap}" for e in envs])
+    return kept(mats, name, (mats.emissive_color, *(data.textures[k] for k in used)),
+                make)
+
+
+def _grad_rows(name, g, n):
+    """An output gradient as the backward kernels read it (None stays)."""
+    if g is None:
+        return None
+    return _rows(name, g, n, torch.float32, g.shape[-1] if g.dim() == 2 else None)
+
+
+def start_vjp(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=None):
+    """The start's vector-Jacobian product from W6's backward kernel (`lib`;
+    csrc/bounce_tail.cu `bounce_start_bwd`), one launch: the gradients of
+    `_start_inputs` (None where not wanted or not reached, as
+    `plain_start_vjp` gives them, bit for bit) from those of the float
+    fields (grads, one a ws.FLOAT_FIELDS; beta_mult's takes no part).  The
+    tables' gradients are the scans of core/safemath.py `take` over the
+    kernel's per-ray rows.  No wanted texture may be one the start reads.
+    Adds its launches to `start_vjp.launches`."""
+    g = dict(zip(ws.FLOAT_FIELDS, grads))
+    present = static.mat_types_present
+    em, env = MAT_EMISSIVE in present, MAT_ENV in present
+    refs, envs = static.emissive_tex, static.env_slots
+    lms = sum(e.lightmap is not None for e in envs)
+    add = g["add"] is not None
+    reach = [g["new_origin"] is not None, g["new_dir"] is not None,
+             g["new_n_re"] is not None, g["new_n_im"] is not None,
+             add and em and any(r.bilinear for r in refs), add and em,
+             add and env and lms > 0]
+    k = len(reach)
+    want = [w and r for w, r in zip(wants[:k], reach)]
+    if any(wants[k + t] for t in _start_textures(static)) and add:
+        raise ValueError("W6's start backward takes no texture gradient")
+    out = [None] * len(wants)
+    if not any(want):
+        return out
+    n, dev = mat_type.shape[0], mat_type.device
+    f = lambda *s: torch.empty((n, *s), dtype=torch.float32, device=dev)
+    d = [f(3) if w else None for w in want[:4]] + [f(2) if want[4] else None]
+    em_rows = f(3) if want[5] else None
+    li_rows = (torch.empty((lms, n), dtype=torch.float32, device=dev) if want[6]
+               else None)
+    if n:
+        tabs = backward_tables(data, static)
+        ins = dict(mat_type=_rows("mat_type", mat_type, n, torch.int32),
+                   mat_slot=_rows("mat_slot", mat_slot, n, torch.int32),
+                   depth=_rows("depth", depth, n, torch.int32),
+                   uv=_rows("uv", uv, n, torch.float32, 2),
+                   **{f"g_{a}": _grad_rows(a, g[b], n) for a, b in (
+                       ("add", "add"), ("origin", "new_origin"), ("dir", "new_dir"),
+                       ("n_re", "new_n_re"), ("n_im", "new_n_im"))})
+        _same_device(dev, **ins, **{k: v for k, v in tabs.items()
+                                    if isinstance(v, torch.Tensor)})
+        struct = StartBwd(**{a: ws._p(v) for a, v in ins.items()}, n=n, em=int(em),
+                          env=int(env), em_refs=len(refs),
+                          em_ref_slot=ws._p(tabs.get("em_ref_slot")),
+                          em_ref_tex=ws._textures(tabs.get("em_ref_tex")),
+                          env_slots=len(envs), env_slot=ws._p(tabs.get("env_slot")),
+                          env_lm_row=ws._p(tabs.get("env_lm_row")),
+                          env_lm=ws._textures(tabs.get("env_lm")),
+                          **dict(zip(("dP", "dD", "dn_re", "dn_im", "duv"),
+                                     (ws._p(x) for x in d))),
+                          em_rows=ws._p(em_rows), li_rows=ws._p(li_rows))
+        _COUNTED_BWD["bounce_start_bwd"].launches += _call(
+            lib, "bounce_start_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
+            entries=ENTRIES)
+    out[:5] = d
+    mats = data.mats
+    if em_rows is not None:
+        out[5] = take_backward(_slot_rows(mat_slot, mats.emissive_color), em_rows,
+                               mats.emissive_color.shape)
+    if li_rows is not None:
+        # one gather a lightmap; the engine adds their gradients last first
+        idx = _slot_rows(mat_slot, mats.env_light_intensity)
+        for row in reversed(range(lms)):
+            t = take_backward(idx, li_rows[row], mats.env_light_intensity.shape)
+            out[6] = t if out[6] is None else out[6] + t
+    return out
+
+
+def _slot_rows(slot, table):
+    """materials/shade.py `_g1`'s gather index: the slot clamped into the
+    table."""
+    return torch.clamp(slot, 0, table.shape[0] - 1).long()
+
+
 class _Start(torch.autograd.Function):
     """W6's start forward (xs: `_start_inputs`), its fields that take no
     gradient from the plain start (`_start_flow`) and its bools marked
-    non-differentiable.  Backward: the plain start recomputed from the
-    saved inputs, and its vector-Jacobian product for the inputs that
-    need one."""
+    non-differentiable.  Backward: W6's backward kernel (`start_vjp`), or,
+    where a texture the start reads requires grad, the plain start's VJP
+    from the saved inputs (`plain_routes["start_textures"]`)."""
 
     @staticmethod
     def forward(fctx, call, *xs):
@@ -343,23 +523,30 @@ class _Start(torch.autograd.Function):
         fctx.mark_non_differentiable(
             *(getattr(out, f) for f in ws.FLOAT_FIELDS if f not in flow),
             *(getattr(out, f) for f in ws.BOOL_FIELDS))
-        fctx.data, fctx.static = ctx.data, ctx.static
+        fctx.data, fctx.static, fctx.lib = ctx.data, ctx.static, lib
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
-        fctx.save_for_backward(mat_type, ctx.mat_slot, ctx.depth, *xs)
+        k = len(_START_RAYS) + 2
+        fctx.plain = any(xs[k + t].requires_grad for t in _start_textures(ctx.static))
+        # the plain route recomputes the stage from every input; the kernel
+        # reads the words' fields, the depth and uv
+        fctx.save_for_backward(mat_type, ctx.mat_slot, ctx.depth,
+                               *(xs if fctx.plain else (ctx.uv,)))
         return tuple(getattr(out, f) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS)
 
     @staticmethod
     def backward(fctx, *grads):
-        mat_type, mat_slot, depth, *xs = fctx.saved_tensors
-
-        def plain(leaves):
-            o = plain_start(_start_ctx(leaves, mat_slot, depth, fctx.data,
-                                       fctx.static), mat_type)
-            return [getattr(o, f) for f in ws.FLOAT_FIELDS]
-
+        mat_type, mat_slot, depth, *rest = fctx.saved_tensors
+        grads, wants = grads[:len(ws.FLOAT_FIELDS)], fctx.needs_input_grad[1:]
+        with torch.profiler.record_function("wavefront.backward.start"):
+            if fctx.plain:
+                plain_routes["start_textures"] += 1
+                got = plain_start_vjp(grads, rest, mat_type, mat_slot, depth,
+                                      fctx.data, fctx.static, wants)
+            else:
+                got = start_vjp(grads, mat_type, mat_slot, depth, rest[0], fctx.data,
+                                fctx.static, wants, fctx.lib)
         # the bools take no gradient
-        return (None, *plain_vjp(grads[:len(ws.FLOAT_FIELDS)], xs,
-                                 fctx.needs_input_grad[1:], plain))
+        return (None, *got)
 
 
 def _kernel_start(ctx, packed, mat_type, lib=None):
@@ -399,39 +586,76 @@ def _update_args(xs, others):
     return c, v["miss"], acc
 
 
+def plain_update_vjp(grads, xs, others, wants):
+    """The plain update's vector-Jacobian product (ops/plain_grad.py
+    `plain_vjp`): the gradients of its float inputs xs (`_UPDATE_FLOATS`;
+    None where not wanted or reached) from those of the next carry's
+    floats (CARRY_FLOATS); others: `_UPDATE_OTHERS`."""
+    def plain(leaves):
+        o = plain_update(*_update_args(leaves, others))
+        return [getattr(o, f) for f in CARRY_FLOATS]
+
+    return plain_vjp(grads, xs, wants, plain)
+
+
+def update_vjp(grads, saved, wants, lib=None):
+    """The update's vector-Jacobian product from W6's backward kernel
+    (`lib`; csrc/bounce_tail.cu `bounce_update_bwd`), one launch: the
+    gradients of `_UPDATE_FLOATS` (None where not wanted or not reached,
+    as `plain_update_vjp` gives them, bit for bit) from those of the next
+    carry's floats (grads, one a CARRY_FLOATS); saved: the forward's
+    beta, add, beta_mult, alive, miss and cont (`_UPDATE_SAVED`).  Adds its
+    launches to `update_vjp.launches`."""
+    got = dict(zip(CARRY_FLOATS, grads))
+    reach = {x for o, gr in got.items() if gr is not None for x in _UPDATE_FLOW[o]}
+    want = {x for x, w in zip(_UPDATE_FLOATS, wants) if w and x in reach}
+    if not want:
+        return [None] * len(_UPDATE_FLOATS)
+    v = dict(zip(_UPDATE_SAVED, saved))
+    n, dev = v["beta"].shape[0], v["beta"].device
+    out = {x: torch.empty((n, 3), dtype=torch.float32, device=dev) for x in want}
+    if n:
+        ins = {f"g{o}": _grad_rows(f"the {o} gradient", gr, n) for o, gr in got.items()}
+        ins.update({f: _rows(f, v[f], n, torch.float32, 3)
+                    for f in ("beta", "add", "beta_mult")},
+                   **{f: _rows(f, v[f], n, torch.bool) for f in ("alive", "miss", "cont")})
+        _same_device(dev, **ins)
+        struct = UpdateBwd(**{k: ws._p(x) for k, x in ins.items()}, n=n,
+                           **{f"d{x}": t.data_ptr() for x, t in out.items()})
+        _COUNTED_BWD["bounce_update_bwd"].launches += _call(
+            lib, "bounce_update_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
+            entries=ENTRIES)
+    return [out.get(x) for x in _UPDATE_FLOATS]
+
+
 class _Update(torch.autograd.Function):
     """W6's update forward (xs: `_UPDATE_FLOATS`), its float outputs that
     take no gradient from the plain update (`_UPDATE_FLOW`), its bools
-    and integers marked non-differentiable.  Backward: the plain update
-    recomputed from the saved inputs, and its vector-Jacobian product for
-    the inputs that need one."""
+    and integers marked non-differentiable.  Backward: W6's backward
+    kernel (`update_vjp`) from the rows and masks it reads, saved."""
 
     @staticmethod
     def forward(fctx, call, *xs):
         others, lib = call
-        out = _launch_update(*_update_args(xs, others), lib)
+        c, miss, acc = _update_args(xs, others)
+        out = _launch_update(c, miss, acc, lib)
         req = {f for f, x in zip(_UPDATE_FLOATS, xs) if x.requires_grad}
         fctx.mark_non_differentiable(
             *(getattr(out, f) for f in CARRY_FLOATS if not req & set(_UPDATE_FLOW[f])),
             *(x for x in (getattr(out, f) for f in CARRY_OTHERS) if x is not None))
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
-        fctx.save_for_backward(*xs, *others[:-1])
+        fctx.lib = lib
+        fctx.save_for_backward(c.beta, acc.add, acc.beta_mult, c.alive, miss, acc.cont)
         return (*(getattr(out, f) for f in CARRY_FLOATS),
                 *(getattr(out, f) for f in CARRY_OTHERS[:-1]), out.rays_traced)
 
     @staticmethod
     def backward(fctx, *grads):
-        saved = fctx.saved_tensors
-        k = len(_UPDATE_FLOATS)
-        xs, others = saved[:k], list(saved[k:]) + [None]
-
-        def plain(leaves):
-            o = plain_update(*_update_args(leaves, others))
-            return [getattr(o, f) for f in CARRY_FLOATS]
-
+        with torch.profiler.record_function("wavefront.backward.update"):
+            got = update_vjp(grads[:len(CARRY_FLOATS)], fctx.saved_tensors,
+                             fctx.needs_input_grad[1:], fctx.lib)
         # the bools and integers take no gradient
-        return (None, *plain_vjp(grads[:len(CARRY_FLOATS)], xs,
-                                 fctx.needs_input_grad[1:], plain))
+        return (None, *got)
 
 
 def _kernel_update(c, miss, acc, lib=None):
@@ -444,6 +668,30 @@ def _kernel_update(c, miss, acc, lib=None):
     nf = len(CARRY_FLOATS)
     return Carry(**dict(zip(CARRY_FLOATS, res[:nf])),
                  **dict(zip(CARRY_OTHERS, res[nf:])))
+
+
+def backward_pair(fn, call, xs, grads, wants, lib=None):
+    """(kernel, plain) for a backward of `_Start` or `_Update` (fn) that
+    ops/plain_grad.py `recording` recorded (its forward's call and inputs
+    xs, its output gradients, the inputs' needs_input_grad): functions of
+    no argument giving the inputs' gradients from W6's backward kernel
+    (`lib`; None where the backward took the plain route) and from the
+    plain stage's VJP, for the holds of one against the other."""
+    if fn is _Update:
+        others = call[0]
+        v = dict(zip(_UPDATE_FLOATS, xs)) | dict(zip(_UPDATE_OTHERS, others))
+        g = grads[:len(CARRY_FLOATS)]
+        return (lambda: update_vjp(g, [v[f] for f in _UPDATE_SAVED], wants, lib),
+                lambda: plain_update_vjp(g, xs, others, wants))
+    ctx, _, mat_type, _, _ = call
+    g = grads[:len(ws.FLOAT_FIELDS)]
+    plain = lambda: plain_start_vjp(g, xs, mat_type, ctx.mat_slot, ctx.depth,
+                                    ctx.data, ctx.static, wants)
+    k = len(_START_RAYS) + 2
+    if any(xs[k + t].requires_grad for t in _start_textures(ctx.static)):
+        return None, plain
+    return (lambda: start_vjp(g, mat_type, ctx.mat_slot, ctx.depth, ctx.uv, ctx.data,
+                              ctx.static, wants, lib), plain)
 
 
 # ---------------------------------------------------------------------------
@@ -476,28 +724,42 @@ bounce_start.launches = bounce_update.launches = 0
 _COUNTED = {"bounce_start": bounce_start, "bounce_update": bounce_update}
 
 
+start_vjp.launches = update_vjp.launches = 0
+# the functions whose counts the backward kernels' launches add to
+_COUNTED_BWD = {"bounce_start_bwd": start_vjp, "bounce_update_bwd": update_vjp}
+
+
 def launches():
-    """W6's launches by entry."""
+    """W6's forward launches by entry."""
     return {k: w.launches for k, w in _COUNTED.items()}
 
 
+def backward_launches():
+    """W6's backward launches by entry."""
+    return {k: w.launches for k, w in _COUNTED_BWD.items()}
+
+
 def reset_launches():
-    for w in _COUNTED.values():
+    """Zero the forward and backward counts and the plain routes'."""
+    for w in (*_COUNTED.values(), *_COUNTED_BWD.values()):
         w.launches = 0
+    for k in plain_routes:
+        plain_routes[k] = 0
 
 
 INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
 
 
 def info(entry, lib=None):
-    """What W6's kernel of `entry` ("bounce_start" or "bounce_update") was
-    built to, read on the card (`bounce_tail_info`): registers and local
-    memory (bytes: spills and stack) a thread, resident blocks an SM, the
-    SMs and threads a block."""
+    """What W6's kernel of `entry` ("bounce_start", "bounce_update",
+    "bounce_start_bwd" or "bounce_update_bwd") was built to, read on the
+    card (`bounce_tail_info`): registers and local memory (bytes: spills
+    and stack) a thread, resident blocks an SM, the SMs and threads a
+    block."""
     fn = (lib or cuda_build.load_library()).bounce_tail_info
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(tuple(_COUNTED).index(entry), out)
+    err = fn((*_COUNTED, *_COUNTED_BWD).index(entry), out)
     if err:
         raise RuntimeError(f"bounce_tail_info: CUDA error {err}")
     return dict(zip(INFO, out))

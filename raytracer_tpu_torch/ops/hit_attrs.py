@@ -27,11 +27,16 @@ plane's or a box's basis, the maps' texels and descriptors in W4's form,
 `wavefront_shade.texture_tables`), the mesh tangents by pointer.  Where
 autograd records the stage (grad enabled and an input requiring grad:
 the rays, a geometry table, a map's texture), the kernel runs inside
-`_Attrs`, whose backward recomputes the plain stage on the chunk for its
-vector-Jacobian product.
+`_Attrs`, whose backward is a kernel too (`attrs_vjp`: csrc/hit_attrs.cu
+`hit_attrs_bwd`, one launch), the gradients of O, D and t, the plain
+stage's vector-Jacobian product (`plain_attrs_vjp`) bit for bit.  Where a
+geometry table or a map's texture requires grad, or where the scene maps
+normals, the backward recomputes the plain stage on the chunk for its VJP
+instead, each such call counted in `plain_routes`.  The orientation is
++-1 from a bool (geometry/intersect.py `_orient`) and takes no gradient.  `backward_launches()` counts the backward kernel.
 
-The `_launch` function takes `lib=`: the tests pass the CPU stand-in's
-build of the source (csrc/emu) with CPU tensors.
+The `_launch` function and `attrs_vjp` take `lib=`: the tests pass the CPU
+stand-in's build of the source (csrc/emu) with CPU tensors.
 """
 
 from __future__ import annotations
@@ -82,9 +87,18 @@ class Rays(ctypes.Structure):
                 ("mat_type", _V), ("mat_slot", _V), ("max_depth", _V)]
 
 
+class RaysBwd(ctypes.Structure):
+    _fields_ = [("O", _V), ("D", _V), ("t", _V), ("orient", _V), ("obj", _V),
+                ("n", _L), ("need_uv", _I), ("first_hit", _I), ("nudge", _F),
+                ("miss_at", _F), ("gP", _V), ("gN", _V), ("guv", _V), ("geps", _V),
+                ("dO", _V), ("dD", _V), ("dt", _V)]
+
+
 ENTRIES = {
     "hit_attrs": [ctypes.POINTER(Scene), ctypes.POINTER(Rays), _V,
                   ctypes.POINTER(_I)],
+    "hit_attrs_bwd": [ctypes.POINTER(Scene), ctypes.POINTER(RaysBwd), _V,
+                      ctypes.POINTER(_I)],
     "hit_attrs_math": [_I, _V, _V, _L, _V, _V, ctypes.POINTER(_I)],
 }
 # the float32 of MISS_THRESHOLD, as `t >= MISS_THRESHOLD` compares
@@ -450,7 +464,7 @@ def _launch(O, D, t, orient, obj, data, static, nudge, need_uv, first_hit,
 
 
 # ---------------------------------------------------------------------------
-# autograd: the kernel forward, the plain stage's backward
+# autograd: the kernel forward, the backward kernel
 # ---------------------------------------------------------------------------
 
 
@@ -462,13 +476,110 @@ def _geom_floats(geom):
         if getattr(geom, f.name).is_floating_point()))
 
 
+# the explicit plain-VJP routes taken on the card, by reason: a geometry
+# table or a normal map's texture requiring grad, a scene that maps
+# normals (outside the first-hit pass)
+plain_routes = {"tables": 0, "maps": 0}
+# the kinds whose normal depends on P (a triangle's where it blends its
+# corners' normals)
+_N_OF_P = ("sphere", "box", "cyl")
+
+
+def plain_attrs_vjp(grads, xs, obj, data, static, modes, names, texs, wants):
+    """The plain stage's vector-Jacobian product (ops/plain_grad.py
+    `plain_vjp`): the gradients of xs (O, D, t, orient, the geometry's
+    tables `names`, the maps' textures `texs`; None where not wanted or
+    reached) from those of P, N, uv and eps (FLOAT_FIELDS); modes: (nudge,
+    need_uv, first_hit)."""
+    def plain(leaves):
+        d, k = data, 4 + len(names)
+        if names or texs:
+            textures = list(data.textures)
+            for i, x in zip(texs, leaves[k:]):
+                textures[i] = x
+            d = dataclasses.replace(
+                data, textures=tuple(textures), geom=dataclasses.replace(
+                    data.geom, **dict(zip(names, leaves[4:k]))))
+        return _plain_core(*leaves[:4], obj, d, static, *modes)
+
+    return plain_vjp(grads, xs, wants, plain)
+
+
+def attrs_vjp(grads, O, D, t, orient, obj, data, static, modes, wants, lib=None):
+    """The stage's vector-Jacobian product from W5's backward kernel (`lib`;
+    csrc/hit_attrs.cu `hit_attrs_bwd`), one launch, for a scene whose
+    normals are unmapped (or the first-hit pass) and whose tables take no
+    gradient: the gradients of O, D, t and orient (wants: one each; orient
+    takes none) from those of P, N, uv and eps (grads, one a FLOAT_FIELDS;
+    None where none comes), as `plain_attrs_vjp` gives them, bit for bit.
+    Adds its launches to `attrs_vjp.launches`."""
+    nudge, need_uv, first_hit = modes
+    if wants[3]:
+        raise ValueError("W5's backward takes no orientation gradient")
+    if static.normal_maps and not first_hit:
+        raise ValueError("W5's backward takes no normal-mapped scene")
+    gP, gN, guv, geps = grads
+    counts = static.kind_counts
+    interp = data.geom.tri_vn1.shape[0] > 0
+    if not (any(counts[k] for k in _N_OF_P) or (counts["tri"] and interp)):
+        gN = None               # no normal depends on P
+    if not need_uv:
+        guv = None
+    out = [None] * 4
+    if all(g is None for g in (gP, gN, guv, geps)) or not any(wants[:3]):
+        return out
+    O, D, t, orient, obj = _rays_in(O, D, t, orient, obj)
+    n, dev = t.shape[0], t.device
+    out[:3] = [torch.empty(s, dtype=torch.float32, device=dev) if w else None
+               for s, w in zip(((n, 3), (n, 3), (n,)), wants)]
+    if n == 0:
+        return out
+    struct, keep = scene_struct(data, static)
+    if keep[0].device != dev:
+        raise ValueError(f"W5: the scene is on {keep[0].device}, the rays on {dev}")
+    g = [None if x is None else _grad_rows(x, w) for x, w in
+         ((gP, (n, 3)), (gN, (n, 3)), (guv, (n, 2)), (geps, (n,)))]
+    rays = RaysBwd(O=O.data_ptr(), D=D.data_ptr(), t=t.data_ptr(),
+                   orient=orient.data_ptr(), obj=obj.data_ptr(), n=n,
+                   need_uv=int(need_uv), first_hit=int(first_hit), nudge=nudge,
+                   miss_at=MISS_AT, **dict(zip(("gP", "gN", "guv", "geps"),
+                                               (_ptr(x) for x in g))),
+                   **dict(zip(("dO", "dD", "dt"), (_ptr(x) for x in out[:3]))))
+    attrs_vjp.launches += _call(lib, "hit_attrs_bwd", ctypes.byref(struct),
+                                ctypes.byref(rays), cuda_build.stream_of(dev),
+                                entries=ENTRIES)
+    return out
+
+
+attrs_vjp.launches = 0
+
+
+def _grad_rows(g, shape):
+    """An output gradient as the backward kernel reads it: float32,
+    contiguous, of the output's shape."""
+    if g.dtype != torch.float32 or tuple(g.shape) != shape:
+        raise TypeError(f"W5's backward takes float32 gradients of shape {shape}")
+    return g.detach().contiguous()
+
+
+def _plain_route(names, texs, static, modes, wants):
+    """Why the backward takes the plain VJP (a key of `plain_routes`), or
+    None: the kernel's."""
+    if names or texs:
+        return "tables"
+    if static.normal_maps and not modes[2]:
+        return "maps"
+    return None
+
+
 class _Attrs(torch.autograd.Function):
     """W5 forward (xs: O, D, t, orient, then the geometry's float tables
     that require grad, named in `call`, then the maps' textures that
     require grad, their indices in `call`); its integer and bool outputs
-    non-differentiable.  Backward: the plain stage (`_plain_core`, the
-    normal maps among it) recomputed from the saved inputs on the chunk,
-    and its vector-Jacobian product for the inputs that need one."""
+    non-differentiable.  Backward: W5's backward kernel (`attrs_vjp`), or,
+    where a table or a texture requires grad or where the scene maps
+    normals, the plain stage recomputed from the saved inputs on the chunk
+    and its VJP, each such call counted in `plain_routes`."""
 
     @staticmethod
     def forward(fctx, call, *xs):
@@ -477,7 +588,7 @@ class _Attrs(torch.autograd.Function):
         others = [getattr(out, f) for f in OTHER_FIELDS]
         fctx.mark_non_differentiable(*others)
         fctx.data, fctx.static, fctx.modes = data, static, modes
-        fctx.names, fctx.texs = names, texs
+        fctx.names, fctx.texs, fctx.lib = names, texs, lib
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
         fctx.save_for_backward(obj, *xs)
         return (*(getattr(out, f) for f in FLOAT_FIELDS), *others)
@@ -485,21 +596,34 @@ class _Attrs(torch.autograd.Function):
     @staticmethod
     def backward(fctx, *grads):
         obj, *xs = fctx.saved_tensors
-
-        def plain(leaves):
-            data, k = fctx.data, 4 + len(fctx.names)
-            if fctx.names or fctx.texs:
-                textures = list(data.textures)
-                for i, x in zip(fctx.texs, leaves[k:]):
-                    textures[i] = x
-                data = dataclasses.replace(
-                    data, textures=tuple(textures), geom=dataclasses.replace(
-                        data.geom, **dict(zip(fctx.names, leaves[4:k]))))
-            return _plain_core(*leaves[:4], obj, data, fctx.static, *fctx.modes)
-
+        grads, wants = grads[:len(FLOAT_FIELDS)], fctx.needs_input_grad[1:]
+        route = _plain_route(fctx.names, fctx.texs, fctx.static, fctx.modes, wants)
+        with torch.profiler.record_function("wavefront.backward.attributes"):
+            if route is None:
+                got = attrs_vjp(grads, *xs[:4], obj, fctx.data, fctx.static,
+                                fctx.modes, wants, fctx.lib)
+            else:
+                plain_routes[route] += 1
+                got = plain_attrs_vjp(grads, xs, obj, fctx.data, fctx.static,
+                                      fctx.modes, fctx.names, fctx.texs, wants)
         # the integer and bool outputs take no gradient
-        return (None, *plain_vjp(grads[:len(FLOAT_FIELDS)], xs,
-                                 fctx.needs_input_grad[1:], plain))
+        return (None, *got)
+
+
+def backward_pair(fn, call, xs, grads, wants, lib=None):
+    """(kernel, plain) for a backward of `_Attrs` (fn) that ops/plain_grad.py
+    `recording` recorded (its forward's call and inputs xs, its output
+    gradients, the inputs' needs_input_grad): functions of no argument
+    giving the inputs' gradients from W5's backward kernel (`lib`; None
+    where the backward took a plain route) and from the plain stage's VJP,
+    for the holds of one against the other."""
+    obj, data, static, modes, names, texs, _ = call
+    g = grads[:len(FLOAT_FIELDS)]
+    plain = lambda: plain_attrs_vjp(g, xs, obj, data, static, modes, names, texs,
+                                    wants)
+    if _plain_route(names, texs, static, modes, wants) is not None:
+        return None, plain
+    return lambda: attrs_vjp(g, *xs[:4], obj, data, static, modes, wants, lib), plain
 
 
 def _kernel_attributes(O, D, t, orient, obj, data, static, settings=None,
@@ -548,46 +672,56 @@ _COUNTED = attributes
 
 
 def launches():
-    """W5's launches."""
+    """W5's forward launches."""
     return _COUNTED.launches
 
 
+def backward_launches():
+    """W5's backward launches."""
+    return attrs_vjp.launches
+
+
 def reset_launches():
-    _COUNTED.launches = 0
+    """Zero the forward and backward counts and the plain routes'."""
+    _COUNTED.launches = attrs_vjp.launches = 0
+    for k in plain_routes:
+        plain_routes[k] = 0
 
 
 INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
 
 
-def info(lib=None, maps=False):
-    """What W5's kernel (maps: its instance for normal-mapped scenes) was
-    built to, read on the card (`hit_attrs_info`): registers and local
-    memory (bytes: spills and stack) a thread, resident blocks an SM, the
-    SMs and threads a block."""
+def info(lib=None, maps=False, backward=False):
+    """What W5's kernel (maps: its instance for normal-mapped scenes;
+    backward: its backward kernel) was built to, read on the card
+    (`hit_attrs_info`): registers and local memory (bytes: spills and
+    stack) a thread, resident blocks an SM, the SMs and threads a block."""
     fn = (lib or cuda_build.load_library()).hit_attrs_info
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(int(maps), out)
+    err = fn(2 if backward else int(maps), out)
     if err:
         raise RuntimeError(f"hit_attrs_info: CUDA error {err}")
     return dict(zip(INFO, out))
 
 
 def math(op, x, y=None, lib=None):
-    """W5's own atan2(x, y) (op "atan2") or asin(x) (op "asin") of float32
-    tensors, or its x @ y of an (N, 3) x and a (3, 3) y (op "mm3", the maps'
-    plane and box branch), as its kernel computes them (`hit_attrs_math`):
-    for the holds against torch.atan2, torch.asin and torch.matmul."""
+    """W5's own atan2(x, y) (op "atan2"), asin(x) (op "asin") or, as its
+    backward takes it, rsqrt(x) (op "rsqrt") of float32 tensors, or its
+    x @ y of an (N, 3) x and a (3, 3) y (op "mm3", the maps' plane and box
+    branch), as its kernels compute them (`hit_attrs_math`): for the holds
+    against torch.atan2, torch.asin, torch.rsqrt and torch.matmul."""
     x = x.contiguous()
     if x.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
         raise TypeError("W5's math takes float32 tensors")
-    code = {"atan2": 0, "asin": 1, "mm3": 2}[op]
-    if code != 1:
+    code = {"atan2": 0, "asin": 1, "mm3": 2, "rsqrt": 3}[op]
+    if code in (0, 2):
         y = y.contiguous()
     if code == 2 and (x.dim() != 2 or x.shape[1] != 3 or y.shape != (3, 3)):
         raise ValueError("W5's mm3 takes an (N, 3) and a (3, 3) tensor")
     out = torch.empty_like(x)
     _call(lib, "hit_attrs_math", code, x.data_ptr(),
-          y.data_ptr() if code != 1 else None, x.shape[0] if code == 2 else x.numel(),
+          y.data_ptr() if code in (0, 2) else None,
+          x.shape[0] if code == 2 else x.numel(),
           out.data_ptr(), cuda_build.stream_of(x.device), entries=ENTRIES)
     return out

@@ -612,23 +612,29 @@ class _Shade(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, *grads):
-        saved, mt = fctx.saved_tensors, fctx.mt
-        nw = len(WRITTEN[mt])
-        m3, need = saved[0][..., None], fctx.needs_input_grad[1:]
-        outs = [torch.where(m3, 0.0, g) if n and g is not None else None
-                for g, n in zip(grads, need[:nw])]
-        wants = need[nw:]
-        if all(g is None for g in grads) or not any(wants):
-            return (None, *outs, *([None] * len(wants)))
-        ctx, d, occ = _unpack(fctx.held, saved)
-        ctx = dataclasses.replace(ctx, static=fctx.static)
+        with torch.profiler.record_function(f"wavefront.backward.{_BLOCKS[fctx.mt][0]}"):
+            return _shade_backward(fctx, *grads)
 
-        def plain(leaves):
-            o = _plain(mt, _rebuild(mt, ctx, leaves), {mt: d}, occ)
-            return [getattr(o, f) if g is None else torch.where(m3, getattr(o, f), g)
-                    for f, g in zip(WRITTEN[mt], grads)]
 
-        return (None, *outs, *plain_vjp(grads, _inputs(mt, ctx), wants, plain))
+def _shade_backward(fctx, *grads):
+    """`_Shade`'s backward (see there)."""
+    saved, mt = fctx.saved_tensors, fctx.mt
+    nw = len(WRITTEN[mt])
+    m3, need = saved[0][..., None], fctx.needs_input_grad[1:]
+    outs = [torch.where(m3, 0.0, g) if n and g is not None else None
+            for g, n in zip(grads, need[:nw])]
+    wants = need[nw:]
+    if all(g is None for g in grads) or not any(wants):
+        return (None, *outs, *([None] * len(wants)))
+    ctx, d, occ = _unpack(fctx.held, saved)
+    ctx = dataclasses.replace(ctx, static=fctx.static)
+
+    def plain(leaves):
+        o = _plain(mt, _rebuild(mt, ctx, leaves), {mt: d}, occ)
+        return [getattr(o, f) if g is None else torch.where(m3, getattr(o, f), g)
+                for f, g in zip(WRITTEN[mt], grads)]
+
+    return (None, *outs, *plain_vjp(grads, _inputs(mt, ctx), wants, plain))
 
 
 def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None):

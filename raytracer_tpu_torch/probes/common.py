@@ -92,6 +92,39 @@ def graph_ms(fn, reps, replays=3):
     return start.elapsed_time(end) / (reps * replays), 1 + replays
 
 
+# Cycles the device spins (torch.cuda._sleep) between the flush and a
+# cold call, ~2 ms: long enough for the host to enqueue the call behind it.
+COLD_SLEEP_CYCLES = 4_000_000
+
+
+def cold_ms(fn, reps):
+    """(median milliseconds of one call of fn with the L2 cold, every
+    call's): fn runs once, then `reps` times, each call between two CUDA
+    events after a read of four L2s' worth of memory (none of fn's lines
+    stay in the L2) and a spin of the device that outlasts the host's
+    work in fn.  A graph's replays (`graph_ms`) read the inputs of a call
+    smaller than the L2 from the L2."""
+    import statistics
+
+    dev = torch.cuda.current_device()
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    flush = torch.zeros(l2, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.sum(flush)
+        torch.cuda._sleep(COLD_SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in times]
+    return statistics.median(ms), ms
+
+
 # Idle seconds at each end of a profiler session.  On an H100, sessions
 # of 20 short calls in fresh processes without them now and then lost
 # device events (2 of 240 lost all 20); with them none of 240 lost any

@@ -23,7 +23,12 @@ gradients equal bit for bit) and whether every pass equals the first bit
 for bit (and the largest difference).  --profile adds one pass under
 torch.profiler: its wall, the device's busy time and events, the host's
 operator events and the host ms of the ten host operators that take the
-most (their events' own spans, nested ones inside).  --deterministic runs the timed passes
+most (their events' own spans, nested ones inside) and the device
+time and events of each stage's backward (the "wavefront.backward.*"
+profiler ranges of W4's blocks, W5's attributes and W6's start and
+update, csrc's backward kernels or the plain VJP inside each), and each
+backward kernel's device ms a launch and launches (its events by name).
+--deterministic runs the timed passes
 again under torch.use_deterministic_algorithms(True, warn_only=True) and
 adds their walls, their agreement and the warnings raised: the ops whose
 CUDA kernels have no deterministic form.  The last line of the parent is
@@ -40,7 +45,7 @@ import warnings
 from pathlib import Path
 
 from torch_frame_ab import in_turns
-from torch_render_profile import device_breakdown
+from torch_render_profile import device_breakdown, wavefront_stages
 
 W, H = 96, 72
 
@@ -82,6 +87,7 @@ def profiled(torch, grad):
     events = json.loads(Path(path).read_text())["traceEvents"]
     os.unlink(path)
     span, busy, per_name = device_breakdown(events)
+    stages, counts = wavefront_stages(events)
     host = {}
     for e in events:
         if e.get("cat") == "cpu_op":
@@ -90,7 +96,13 @@ def profiled(torch, grad):
     return {"profiled_wall_s": wall, "busy_ms": busy / 1e3,
             "device_events": sum(c for _, c in per_name.values()),
             "host_ops": sum(1 for e in events if e.get("cat") == "cpu_op"),
-            "host_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])}
+            "host_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:10]),
+            "backward_ms": {k[len("backward."):]: v / 1e3 for k, v in stages.items()
+                            if k.startswith("backward.")},
+            "backward_events": {k[len("backward."):]: v for k, v in counts.items()
+                                if k.startswith("backward.")},
+            "backward_kernels": {k: (t / 1e3, c) for k, (t, c) in per_name.items()
+                                 if "_bwd_kernel" in k}}
 
 
 def child(root, repeats, spp, deterministic, profile=False):
@@ -154,7 +166,12 @@ def show(frames):
         f"{v['sha256'][:16]}"
         + (f", profiled {v['profile']['profiled_wall_s']:.4f} s, busy "
            f"{v['profile']['busy_ms']:.2f} ms, {v['profile']['device_events']} "
-           f"device events, {v['profile']['host_ops']} host ops"
+           f"device events, {v['profile']['host_ops']} host ops, backward device ms "
+           + ", ".join(f"{s} {t:.3f} ({v['profile']['backward_events'][s]} events)"
+                       for s, t in sorted(v['profile']['backward_ms'].items()))
+           + ", backward kernels " + ", ".join(
+               f"{k.split('(')[0].split(' ')[-1]} {t / c:.4f} ms a launch ({c})"
+               for k, (t, c) in sorted(v['profile'].get('backward_kernels', {}).items()))
            if "profile" in v else "")
         + (f", deterministic mode {statistics.median(v['det_walls_s']):.4f} s, "
            f"bit-equal {v['det_bit_equal']}, warnings {v['det_warnings']}"

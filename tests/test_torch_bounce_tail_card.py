@@ -4,7 +4,9 @@ held against the plain stages on the same inputs, every field of every ray
 bit for bit, one launch a call; the card's renders run no plain start,
 update, emissive or environment block; the inverse-rendering gradient (the
 IoR and the emissive colours) through `_Start` and `_Update` equals the one
-through the plain stages, bit for bit, and two passes agree.
+through the plain stages, bit for bit, and two passes agree; every backward
+call of two gradients, recorded and replayed, gives the plain stages' VJP
+bit for bit through W6's backward kernels.
 
     python -m pytest --noconftest -m cuda tests/test_torch_bounce_tail_card.py
 
@@ -190,3 +192,53 @@ def test_card_updates_on_two_streams_count_their_own_rays(card):
         torch.cuda.synchronize(card)
         assert [int(o.rays_traced) for o in outs] == want
     assert int(bt._kernel_update(*args[0]).rays_traced) == want[0]
+
+
+def _bits_equal_or_none(a, b):
+    if a is None or b is None:
+        return (a is None) == (b is None)
+    return bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_w6_backward_equals_the_plain_vjp(card, monkeypatch):
+    """Every backward call of `_Start` and `_Update` in the IoR and emissive
+    gradient of the inverse-rendering scene and in the emissive and sky
+    gradient of the emitter scene, recorded and replayed: W6's backward
+    kernels give the plain stages' VJP bit for bit (None where it gives
+    None); the gradients themselves ran no plain stage."""
+    from test_torch_bounce_tail_emu import emitters
+    from torch_inverse_rendering import build_scene
+
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops.plain_grad import recording
+
+    def raising(real, device_of):
+        def call(*args):
+            # the forward's dataflow check runs the plain start on the meta
+            # device
+            if device_of(args[0]).type == "cuda":
+                raise AssertionError("a plain W6 stage ran on the card")
+            return real(*args)
+        return call
+
+    calls = []
+    for sc, fields in ((build_scene(1.3, 32, 24), ("refr_n_re", "emissive_color")),
+                       (emitters(width=32, height=24),
+                        ("emissive_color", "env_light_intensity"))):
+        fn, data = differentiable_render(sc, 4, seed=2, device=card)
+        xs = {f: getattr(data.mats, f).clone().requires_grad_(True) for f in fields}
+        with monkeypatch.context() as m, recording(calls, bt._Start, bt._Update):
+            m.setattr(bt, "plain_start", raising(bt.plain_start,
+                                                 lambda ctx: ctx.P.device))
+            m.setattr(bt, "plain_update", raising(bt.plain_update,
+                                                  lambda c: c.L.device))
+            loss = torch.mean(fn(update_materials(data, **xs)) ** 2)
+            torch.autograd.grad(loss, list(xs.values()))
+    assert {c[0] for c in calls} == {bt._Start, bt._Update}
+    bt.reset_launches()
+    for fn, call, xs, grads, wants in calls:
+        kernel, plain = bt.backward_pair(fn, call, xs, grads, wants)
+        assert kernel is not None
+        assert all(_bits_equal_or_none(a, b) for a, b in zip(kernel(), plain()))
+    assert all(n > 0 for n in bt.backward_launches().values())

@@ -25,8 +25,8 @@ over six blocks.  Each source mutation of MUTANTS makes some case fail
 (tests/test_torch_bounce_tail_mutants_emu.py, a file of its own so that
 two workers share the stand-in's launches).  A render through W6 equals the
 plain render, and the inverse-rendering gradient (the IoR and the emissive
-colours) through `_Start` and `_Update` (W6 forward, the plain stages'
-backward) equals the plain stages', two passes equal.
+colours) through `_Start` and `_Update` (W6 forward and backward
+kernels) equals the plain stages', two passes equal.
 
 By hand:
 
@@ -64,7 +64,7 @@ import torch_wavefront  # noqa: E402
 from test_torch_scenes import _procedural  # noqa: E402
 
 GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-             "-pthread", "-DCUDA_EMU_SMS=6")
+             "-pthread", "-DCUDA_EMU_SMS=6", "-DW6_TORCH_CPU")
 W, H = 16, 16
 NEVER = T.RenderSettings(use_pallas="never")
 START_FIELDS = ws.FLOAT_FIELDS + ws.BOOL_FIELDS
@@ -437,7 +437,7 @@ def _gradient(lib=None, seed=0):
 def test_the_gradient_through_w6_is_the_plain_stages(libs):
     """The inverse-rendering gradient of the IoR and of the emissive
     colours with the start and the update through `_Start` and `_Update`
-    (W6 forward, the plain stages' backward) equals the plain stages' bit
+    (W6 forward and W6's backward kernels) equals the plain stages' bit
     for bit, and two backward passes agree bit for bit."""
     with one_thread():
         before = bt.launches()

@@ -240,8 +240,25 @@ def test_value_and_grad_of_a_scene_data():
 BLOCKS = {MAT_EMISSIVE: "emissive", MAT_GLOSSY: "glossy",
           MAT_DIFFUSE: "diffuse", MAT_REFRACTIVE: "refractive",
           MAT_THINFILM: "thinfilm"}
-GRAD_CASES = [  # (block, scene, the material table differentiated)
+def bilinear_emitter(m):
+    """An emissive sphere filling the view, its colour a smooth 16 x 8
+    image (a numpy seed) fetched bilinear at repeat 2: its add depends on
+    uv (W6's start hands uv that gradient)."""
+    rng = np.random.default_rng(11)
+    tex = rng.uniform(0.1, 1.0, (8, 16, 3)).astype(np.float32)
+    sc = m.Scene()
+    sc.add_Camera(look_from=m.vec3(0, 0, 2), look_at=m.vec3(0, 0, -1),
+                  screen_width=8, screen_height=8, field_of_view=30)
+    sc.add(m.Sphere(material=m.Emissive(color=m.image(tex, repeat=2.0,
+                                                      filter="bilinear")),
+                    center=m.vec3(0, 0, 0), radius=1.0, shadow=False))
+    return sc
+
+
+GRAD_CASES = [  # (block, scene, the material table differentiated, *more
+    # ray inputs differentiated)
     (MAT_EMISSIVE, glass, "emissive_color"),
+    (MAT_EMISSIVE, bilinear_emitter, "emissive_color", "uv"),
     (MAT_GLOSSY, lit_textures, "glossy_n_re"),
     (MAT_DIFFUSE, cornell, "diffuse_color"),
     (MAT_REFRACTIVE, glass, "refr_n_re"),
@@ -256,7 +273,8 @@ RAY_INPUTS = ("D", "N", "n_re")
                          ids=[f"{BLOCKS[c[0]]}-{c[1].__name__}"
                               for c in GRAD_CASES])
 def test_shading_block_gradient_per_ray(case):
-    mt, build, param = case
+    mt, build, param, *extra = case
+    inputs = RAY_INPUTS + tuple(extra)
     jctx, tctx, mat_type, hit = contexts(build)
     name = BLOCKS[mt]
     sel = hit & (mat_type == mt)
@@ -266,21 +284,22 @@ def test_shading_block_gradient_per_ray(case):
     w = {f: rng.normal(size=(n, 3)).astype(np.float32) for f in OUTS}
     sel3 = sel[:, None].astype(np.float32)
 
-    def jloss(D, N, n_re, p):
+    def jloss(*args):
+        *rays, p = args
         data = dataclasses.replace(
             jctx.data, mats=dataclasses.replace(jctx.data.mats, **{param: p}))
-        ctx = dataclasses.replace(jctx, D=D, N=N, n_re=n_re, data=data)
+        ctx = dataclasses.replace(jctx, **dict(zip(inputs, rays)), data=data)
         out = getattr(jshade, f"shade_{name}")(ctx)
         return sum(jnp.sum(jnp.asarray(getattr(out, f)) * w[f] * sel3)
                    for f in OUTS)
 
-    jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(
-        jctx.D, jctx.N, jctx.n_re, getattr(jctx.data.mats, param))
+    jg = jax.grad(jloss, argnums=tuple(range(len(inputs) + 1)))(
+        *(getattr(jctx, k) for k in inputs), getattr(jctx.data.mats, param))
 
     leaves = [getattr(tctx, k).clone().requires_grad_(True)
-              for k in RAY_INPUTS]
+              for k in inputs]
     p = getattr(tctx.data.mats, param).clone().requires_grad_(True)
-    ctx = dataclasses.replace(tctx, **dict(zip(RAY_INPUTS, leaves)),
+    ctx = dataclasses.replace(tctx, **dict(zip(inputs, leaves)),
                               data=update_materials(tctx.data, **{param: p}))
     out = getattr(tshade, f"shade_{name}")(ctx, *jax_draws(mt, jctx))
     loss = sum(torch.sum(getattr(out, f) * torch.from_numpy(w[f] * sel3))
@@ -292,13 +311,51 @@ def test_shading_block_gradient_per_ray(case):
     # non-finite exactly where the JAX block's gradient is (Cornell's
     # diffuse table: slot 0 NaN in both, what safe_value_and_grad scrubs)
     ok = np.ones(int(sel.sum()), bool)
-    for a, b in zip(tg[:3], jg[:3]):
+    for a, b in zip(tg[:-1], jg[:-1]):
         a, b = a.numpy()[sel], np.asarray(b)[sel]
         ok &= np.isclose(a, b, rtol=1e-3, atol=1e-4,
                          equal_nan=True).all(axis=1)
     assert ok.mean() >= 0.99, ok.mean()
-    a, b = tg[3].numpy(), np.asarray(jg[3])
+    for k, g in zip(extra, tg[len(RAY_INPUTS):-1]):
+        assert bool((g[torch.from_numpy(sel)] != 0).any()), k
+    a, b = tg[-1].numpy(), np.asarray(jg[-1])
     assert np.array_equal(np.isfinite(a), np.isfinite(b)), (a, b)
     fin = np.isfinite(b)
     assert np.allclose(a[fin], b[fin], rtol=2e-3,
                        atol=1e-4 * max(1.0, np.abs(b[fin]).max(initial=0))), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# a NaN IoR gradient: the JAX package's too
+# ---------------------------------------------------------------------------
+
+
+def primitives_16(m):
+    import torch_primitives
+    return torch_primitives.primitives(16, 16, m=m)
+
+
+@pytest.mark.parametrize("scene", [cornell, primitives_16],
+                         ids=["cornell", "primitives"])
+def test_a_nan_ior_gradient_is_the_jax_packages(scene):
+    """Cornell's and the primitives' IoR gradients (16x16 x 2 spp) are not
+    finite through the port: the JAX package's (raytracer_tpu/diff.py,
+    jax.grad) are not finite in the same entries, and the finite entries
+    agree (rtol 1e-3, atol 1e-4).  (The first NaN autograd's anomaly mode
+    finds in the port: Cornell's in the update's c.beta * acc.beta_mult,
+    ops/bounce_tail.py `plain_update`; the primitives' in a point light's
+    dd ** 2, materials/shade.py `shade_glossy`'s spot-light term.)"""
+    from raytracer_tpu import diff as jdiff
+
+    fn, data = jdiff.differentiable_render(scene(J), 2, seed=0)
+    jg = np.asarray(jax.grad(lambda n: jnp.mean(
+        fn(jdiff.update_materials(data, refr_n_re=n)) ** 2))(data.mats.refr_n_re))
+    tfn, tdata = differentiable_render(scene(T), 2, seed=0, device=CPU)
+    x = tdata.mats.refr_n_re.clone().requires_grad_(True)
+    tg, = torch.autograd.grad(
+        torch.mean(tfn(update_materials(tdata, refr_n_re=x)) ** 2), x)
+    tg = tg.numpy()
+    assert not np.isfinite(jg).all()
+    assert np.array_equal(np.isfinite(tg), np.isfinite(jg)), (tg, jg)
+    fin = np.isfinite(jg)
+    assert np.allclose(tg[fin], jg[fin], rtol=1e-3, atol=1e-4), (tg, jg)

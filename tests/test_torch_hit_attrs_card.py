@@ -10,7 +10,10 @@ the mapped object 0); W5's atan2 and asin against torch's (asin on all
 its 3 x 3 product against torch's (cuBLAS) from 17 rows on; the card's
 renders run the plain attribute formulas and the plain normal maps
 nowhere; the inverse-rendering gradient through W5 (`_Attrs`) equals
-the one through the plain stage, bit for bit, and two passes agree.
+the one through the plain stage, bit for bit, and two passes agree; every
+backward call of four IoR gradients, recorded and replayed, gives the
+plain stage's VJP bit for bit through W5's backward kernel, and its rsqrt
+is torch.rsqrt on all 2^32 floats.
 
     python -m pytest --noconftest -m cuda tests/test_torch_hit_attrs_card.py
 
@@ -219,3 +222,58 @@ def test_card_gradient_through_w5_is_the_plain_stages(card, monkeypatch):
     assert ha.launches() == 0
     assert torch.equal(g1, g2) and torch.equal(g1, g_plain)
     assert bool((g1 != 0).all())
+
+
+@pytest.mark.cuda
+def test_card_w5_rsqrt_is_torchs_on_every_float(card):
+    """The backward's rsqrt (asin's derivative) equals torch.rsqrt on all
+    2^32 floats (NaN against NaN)."""
+    bad = 0
+    for lo in range(0, 1 << 32, 1 << 28):
+        x = (torch.arange(lo, lo + (1 << 28), device=card, dtype=torch.int64)
+             .to(torch.int32).view(torch.float32))
+        a, b = ha.math("rsqrt", x), torch.rsqrt(x)
+        bad += int((~((a.view(torch.int32) == b.view(torch.int32))
+                      | (torch.isnan(a) & torch.isnan(b)))).sum())
+    assert bad == 0
+
+
+@pytest.mark.cuda
+def test_card_w5_backward_equals_the_plain_vjp(card, tmp_path, monkeypatch):
+    """Every backward call of `_Attrs` in the IoR gradients of the glass
+    sphere, its icosphere twin, Cornell and the primitives on the
+    wavefront, recorded and replayed: W5's backward kernel gives the plain
+    stage's VJP bit for bit; the gradients ran no plain formula and took no
+    plain route."""
+    import torch_cornellbox
+    import torch_primitives
+    from torch_inverse_rendering import build_mesh_scene, build_scene
+
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops.plain_grad import recording
+
+    real = ha.hit_attributes
+
+    def raising(P, *args, **kw):
+        if P.device.type == "cuda":
+            raise AssertionError("the plain attribute formulas ran on the card")
+        return real(P, *args, **kw)
+
+    calls = []
+    ha.reset_launches()
+    for sc in (build_scene(1.3, 32, 24), build_mesh_scene(1.3, 32, 24, tmp_path),
+               torch_cornellbox.build_cornell(32, 32),
+               torch_primitives.primitives(32, 24)):
+        fn, data = differentiable_render(sc, 4, seed=2, device=card)
+        x = data.mats.refr_n_re.clone().requires_grad_(True)
+        with monkeypatch.context() as m, recording(calls, ha._Attrs):
+            m.setattr(ha, "hit_attributes", raising)
+            loss = torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2)
+            torch.autograd.grad(loss, x)
+    assert ha.plain_routes == {"tables": 0, "maps": 0}
+    assert calls and ha.backward_launches() > 0
+    for fn, call, xs, grads, wants in calls:
+        kernel, plain = ha.backward_pair(fn, call, xs, grads, wants)
+        got, want = kernel(), plain()
+        assert all((a is None) == (b is None) and (a is None or bits_equal(a, b))
+                   for a, b in zip(got, want))

@@ -35,9 +35,9 @@ where the cap and the side tie, every object id next to the ids of the
 other kinds, misses (object 0 at t = FARAWAY), NaN distances and random
 hits.  Each source mutation of MUTANTS makes some case fail; they build
 in parallel in one fixture.  A render through W5 equals the plain
-render, and the inverse-rendering gradient through `_Attrs` (W5 forward,
-the plain stage's backward) equals the plain stage's, two passes equal;
-so does the gradient of a normal-mapped render with respect to its map's
+render, and the inverse-rendering gradient through `_Attrs` (W5 forward
+and backward kernels) equals the plain stage's, two passes equal; so
+does the gradient of a normal-mapped render (the backward's plain route) with respect to its map's
 texture and its floor's u axis.  The maps' 3 x 3 product is MKL's here,
 which sums a row as W5's `mm3` does from 11 rows on (every input here
 has more); `test_w5_mm3_is_torchs_product` holds it.
@@ -762,7 +762,7 @@ def _same_bits(a, b):
 def test_the_map_gradient_through_w5_is_the_plain_stages(libs, tmp_path):
     """The gradient of a normal-mapped render with respect to its map's
     texture and its floor's u axis, with the attributes through `_Attrs`
-    (W5 forward, the plain stage's backward: the maps are recomputed in
+    (W5 forward; the backward's counted plain route: the maps are recomputed in
     it), against the plain stage's autograd gradient, bit for bit (the
     texels that a degenerate frame makes NaN in the plain stage NaN
     too); two passes through W5 bit for bit."""
@@ -784,7 +784,7 @@ def test_the_map_gradient_through_w5_is_the_plain_stages(libs, tmp_path):
 
 def test_the_gradient_through_w5_is_the_plain_stages(libs):
     """The inverse-rendering IoR gradient with the attributes through
-    `_Attrs` (W5 forward, the plain stage's backward: the refracted
+    `_Attrs` (W5 forward and W5's backward kernel: the refracted
     directions carry the gradient into P) equals the plain stage's bit for
     bit, and two backward passes agree bit for bit."""
     with one_thread():
