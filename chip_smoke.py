@@ -523,10 +523,15 @@ BWD_ENTRIES = {
                          "bounce_start_bwd_kernel"),
     "hit_attrs_bwd": ("hit_attrs_bwd (W5 backward)", "hit_attrs.cu",
                       "raytracer_tpu/geometry/attrs.py:245 (hit_attributes' VJP under "
-                      "jax.grad; core/integrator.py:221-236)", "hit_attrs_bwd_kernel")}
+                      "jax.grad; core/integrator.py:221-236)", "hit_attrs_bwd_kernel"),
+    "shade_refractive_bwd": ("wavefront_shade shade_refractive_bwd (W4 refractive "
+                             "backward)", "wavefront_shade_bwd.cu",
+                             "raytracer_tpu/materials/shade.py:385 (shade_refractive's "
+                             "VJP under jax.grad, raytracer_tpu/diff.py)",
+                             "shade_refractive_bwd_kernel")}
 BWD = {"launches": dict.fromkeys(BWD_ENTRIES, 0),
        "max_abs_err": dict.fromkeys(BWD_ENTRIES, 0.0), "rows": [], "holding": False,
-       "plain_W6": 0, "plain_W5": 0}
+       "plain_W6": 0, "plain_W5": 0, "plain_W4": 0}
 # the least share of the held gradient entries finite on both sides: of
 # every kernel's holds with drawn gradients, and of the recorded ones of
 # the sphere and the icosphere (whose IoR gradients are finite)
@@ -2049,8 +2054,8 @@ def w4_spies():
     bounce of a labelled render's first chunk (its ShadeCtx, draws, packed
     words, mask and a copy of the merged output it was handed), and the
     plain blocks count their calls on CUDA tensors outside a hold and
-    outside `_Shade`'s backward (which recomputes the plain block for its
-    gradient); likewise W5's attributes and W6's start and update (each
+    outside `_Shade`'s backward (where the diffuse and glossy blocks'
+    gradient recomputes the plain block); likewise W5's attributes and W6's start and update (each
     bounce of the first chunk captured, the plain stages counted outside a
     hold: their backward passes are kernels)."""
     from raytracer_tpu_torch.materials import shade
@@ -2701,8 +2706,8 @@ def w4_renders(torch, dev):
         w5_check(torch, label, d, static)
         w6_check(torch, label, d)
         del sc, img
-    # the inverse-rendering step: W4 forward through _Shade, the plain
-    # block's backward
+    # the inverse-rendering step: W4 forward through _Shade, its backward
+    # kernel
     fn, data = differentiable_render(build_scene(TRUE_N, DIFF_W, DIFF_H),
                                      DIFF_SPP, seed=0, device=dev)
     label = "inverse rendering"
@@ -2718,7 +2723,7 @@ def w4_renders(torch, dev):
             f"outside the backward, gradient {g.tolist()}")
     print(f"W4 vs plain, {label} (forward + backward of the IoR gradient, "
           f"launches { {k[6:]: n for k, n in d.got.items() if n} }, "
-          f"{W4['backward'] - backward} backward recomputes, gradient "
+          f"{W4['backward'] - backward} backward calls, gradient "
           f"{g[0].tolist()}): " + w4_hold(torch, label)[1] +
           f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     w5_check(torch, label, d, None)
@@ -4098,8 +4103,25 @@ def bwd_bytes(entry, call, xs, grads, out):
     gradients it writes (the tables' per-ray rows of the start)."""
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
 
     g = [x for x in grads if x is not None]
+    if entry == "shade_refractive_bwd":
+        # the rays' state, draws and words (a medium every ray shares as its
+        # one row), the tables; the pass-through and input gradients, and
+        # the tables' per-ray rows in place of their gradients
+        mt, ctx, draws, packed, m = call[:5]
+        s = ws.refr_saved(ctx, draws, packed, m)
+        one = lambda x: x[0] if x.shape[0] > 1 and x.stride(0) == 0 else x
+        reads = [s.m, s.packed, s.P, s.N, s.D, s.eps, s.t, s.orient, one(s.n_re),
+                 one(s.n_im), s.depth, s.pattern, s.split_cnt, s.u, s.hero, s.m_re,
+                 s.m_im, s.dispersive, s.scene_re, s.scene_im]
+        nw = len(ws.WRITTEN[mt])
+        rows = sum(x is not None for name, x in zip(ws._REFR_INPUTS, out[nw:])
+                   if name in ws._REFR_ROWS)
+        written = [x for name, x in zip(ws._REFR_INPUTS, out[nw:])
+                   if name not in ws._REFR_ROWS]
+        return _bwd_nbytes(*g, *reads, *out[:nw], *written) + rows * 12 * m.shape[0]
     if entry == "bounce_update_bwd":
         v = dict(zip(bt._UPDATE_FLOATS, xs)) | dict(zip(bt._UPDATE_OTHERS, call[0]))
         reads = [v["beta"], v["add"] if grads[0] is not None else None,
@@ -4120,32 +4142,61 @@ def bwd_bytes(entry, call, xs, grads, out):
                        *tabs)
 
 
+def bwd_module(f):
+    """The ops module of a recorded backward's Function (its
+    `backward_pair`)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+
+    return {ha._Attrs: ha, ws._Shade: ws}.get(f, bt)
+
+
 def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
     """Each recorded backward call replayed through its kernel and through
     the plain VJP (with output gradients drawn from `gen` where `redraw`,
-    finite, in place of the recorded ones), every output compared by its
+    finite, in place of the recorded ones, and every input of W4's
+    refractive block wanted), every output compared by its
     bits (NaN equal to NaN): {entry: [entries equal, entries, entries
-    finite on both sides]}, and the calls that launched their kernel, by
-    entry, as (the Function, call, inputs, gradients, wants, outputs)."""
+    finite on both sides, entries the finite share counts]}, and the calls
+    that launched their kernel, by entry, as (the Function, call, inputs,
+    gradients, wants, outputs).  The finite share of W4's refractive
+    backward counts the per-ray entries of the block's own rays (its mask,
+    the rays that hit): the others' are the pass-through of the +0 the
+    merge hands them, finite whatever the kernel does, and a miss is
+    object 0's hit at t = FARAWAY (Cornell's object 0 is its glass
+    sphere), whose normal (~1e28) overflows the block's products, so its
+    gradients are NaN in the plain VJP whatever gradient comes; every
+    entry is held bit for bit all the same."""
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
 
     kinds = {bt._Update: "bounce_update_bwd", bt._Start: "bounce_start_bwd",
-             ha._Attrs: "hit_attrs_bwd"}
-    counts = {k: [0, 0, 0] for k in entries}
+             ha._Attrs: "hit_attrs_bwd", ws._Shade: "shade_refractive_bwd"}
+    from raytracer_tpu_torch.utils.constants import FARAWAY
+
+    counts = {k: [0, 0, 0, 0] for k in entries}
     launched = {k: [] for k in entries}
-    n_bwd = lambda: sum(bt.backward_launches().values()) + ha.backward_launches()
+    n_bwd = lambda: (sum(bt.backward_launches().values()) + ha.backward_launches()
+                     + ws.backward_launches())
     with held(BWD):
         for f, call, xs, grads, wants in calls:
+            if f is ws._Shade and call[0] != ws.MAT_REFRACTIVE:
+                continue        # the diffuse and glossy blocks: no backward kernel
             if redraw:
                 grads = tuple(None if g is None else torch.randn(
                     g.shape, generator=gen, device=g.device, dtype=g.dtype) for g in grads)
+                if f is ws._Shade:
+                    # every input's gradient wanted: the scene medium's rows
+                    # and their sum over the rays too
+                    wants = (True,) * len(wants)
             entry = kinds[f]
-            kernel, plain = (bt if f is not ha._Attrs else ha).backward_pair(
-                f, call, xs, grads, wants)
+            kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
             require(kernel is not None, f"backward {name}: {entry} took a plain route")
             n0 = n_bwd()
             got, want = kernel(), plain()
+            own = call[4] & (call[1].t < FARAWAY) if f is ws._Shade else None
             for x, y in zip(got, want):
                 require((x is None) == (y is None),
                         f"backward {name}: {entry} defines other gradients")
@@ -4155,7 +4206,11 @@ def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
                     torch.isnan(x) & torch.isnan(y))
                 fin = torch.isfinite(x) & torch.isfinite(y)
                 c = counts[entry]
-                c[0], c[1], c[2] = c[0] + int(eq.sum()), c[1] + eq.numel(), c[2] + int(fin.sum())
+                c[0], c[1] = c[0] + int(eq.sum()), c[1] + eq.numel()
+                held_fin = fin
+                if own is not None and x.dim() and x.shape[0] == own.shape[0]:
+                    held_fin = fin[own]
+                c[2], c[3] = c[2] + int(held_fin.sum()), c[3] + held_fin.numel()
                 if bool(fin.any()):
                     BWD["max_abs_err"][entry] = max(BWD["max_abs_err"][entry],
                                                     float((x - y)[fin].abs().max()))
@@ -4165,16 +4220,19 @@ def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
 
 
 def backward_phase(torch, dev):
-    """W6's and W5's backward kernels on the card, in the gradient of the
+    """W6's, W5's and W4's refractive backward kernels on the card, in the
+    gradient of the
     IoR (refr_n_re requiring grad) at DIFF_W x DIFF_H x DIFF_SPP of the
     glass sphere, its icosphere twin, Cornell and the primitives (discs and
     cylinders) on the wavefront: each gradient with the backward kernels'
     counts set to 0 just before and read just after, every backward call of
-    `_Start`, `_Update` and `_Attrs` recorded (ops/plain_grad.py
-    `recording`), the plain W6 stages and W5's plain formulas counted on
-    the card (none may run: the backward passes take the kernels), the
-    explicit plain-VJP routes counted (none taken: only the ray inputs want
-    a gradient).  Then each recorded call replayed through its backward
+    `_Start`, `_Update`, `_Attrs` and `_Shade` recorded (ops/plain_grad.py
+    `recording`), the plain W6 stages, W5's plain formulas and the plain
+    refractive block counted on the card (none may run: the backward
+    passes take the kernels), the explicit plain-VJP routes of W6 and W5
+    counted (none taken: only the ray inputs want a gradient) and W4's
+    printed (the diffuse and glossy blocks' backward still recomputes the
+    plain block).  Then each recorded call replayed through its backward
     kernel and through the plain VJP, every output held bit for bit (a
     share of exactly 1.0 each), beside the share of entries finite on both
     sides; and again with finite output gradients drawn from a seed in
@@ -4183,16 +4241,19 @@ def backward_phase(torch, dev):
     there every kind's formula is held on finite numbers), whose finite
     share must reach BWD_FINITE.  Each call that launched a kernel timed
     with the L2 cold (`common.cold_ms`), its bound from its bytes; a
-    kernel's time is the mean a call; the plain VJP on the same calls
-    (events); the kernels' registers, stack and blocks an SM.  Returns
-    the kernels line's rows (the sphere's calls)."""
+    kernel's time is the mean a call (W4's refractive backward: its kernel
+    alone, and beside it the whole VJP with the tables' scans); the plain
+    VJP on the same calls (events); the kernels' registers, stack and
+    blocks an SM.  Returns the kernels line's rows (the sphere's calls)."""
     import raytracer_tpu_torch.ops.plain_grad as pg
     import torch_cornellbox
     import torch_primitives
     from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.materials import shade
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import cuda_build
     from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
     from raytracer_tpu_torch.probes import common
     from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
 
@@ -4206,25 +4267,35 @@ def backward_phase(torch, dev):
     }
     saved = [(bt, "plain_start", bt.plain_start), (bt, "plain_update", bt.plain_update),
              (ha, "hit_attributes", ha.hit_attributes),
-             (ha, "_apply_normal_maps", ha._apply_normal_maps)]
+             (ha, "_apply_normal_maps", ha._apply_normal_maps),
+             (shade, "shade_refractive", shade.shade_refractive)]
     plain_stages_counted(BWD, "plain_W6", BWD, "plain_W5", "plain_W5")
+    # the plain refractive block on the card outside a hold: W4's forward is
+    # its kernel, and so is its backward
+    shade.shade_refractive = card_counted(shade.shade_refractive,
+                                          lambda ctx, *a: ctx.P.device, BWD, "plain_W4")
     gen = torch.Generator(device=dev).manual_seed(24)
-    rows, entries = {}, ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd")
+    rows, entries = {}, ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd",
+                         "shade_refractive_bwd")
     try:
         for name, make in scenes.items():
             fn, data = differentiable_render(make(), DIFF_SPP, seed=0, device=dev)
             x = data.mats.refr_n_re.clone().requires_grad_(True)
-            before = {k: BWD[k] for k in ("plain_W6", "plain_W5")}
+            before = {k: BWD[k] for k in ("plain_W6", "plain_W5", "plain_W4")}
             bt.reset_launches()
             ha.reset_launches()
+            ws.reset_launches()
             calls = []
-            with pg.recording(calls, bt._Start, bt._Update, ha._Attrs):
+            with pg.recording(calls, bt._Start, bt._Update, ha._Attrs, ws._Shade):
                 g, = torch.autograd.grad(
                     torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2), x)
                 torch.cuda.synchronize()
-            launched = {**bt.backward_launches(), "hit_attrs_bwd": ha.backward_launches()}
+            launched = {**bt.backward_launches(), "hit_attrs_bwd": ha.backward_launches(),
+                        "shade_refractive_bwd": ws.backward_launches()}
             routes = {**{f"W6 {k}": v for k, v in bt.plain_routes.items()},
-                      **{f"W5 {k}": v for k, v in ha.plain_routes.items()}}
+                      **{f"W5 {k}": v for k, v in ha.plain_routes.items()},
+                      "W4 refractive": ws.plain_routes["refractive"]}
+            w4_plain = {k: v for k, v in ws.plain_routes.items() if k != "refractive"}
             runs = {k[len("plain_"):]: BWD[k] - before[k] for k in before}
             for k, v in launched.items():
                 BWD["launches"][k] += v
@@ -4237,7 +4308,7 @@ def backward_phase(torch, dev):
                     f"backward {name}: gradient {g.tolist()}")
             require(all(v > 0 for v in launched.values()),
                     f"backward {name}: backward kernel launches {launched}")
-            require(runs == {"W6": 0, "W5": 0},
+            require(runs == {"W6": 0, "W5": 0, "W4": 0},
                     f"backward {name}: plain stages ran on the card {runs}")
             require(not any(routes.values()),
                     f"backward {name}: plain-VJP routes taken {routes}")
@@ -4245,9 +4316,9 @@ def backward_phase(torch, dev):
             counts, timed = _bwd_holds(torch, calls, gen, name, entries)
             drawn, _ = _bwd_holds(torch, calls, gen, name, entries, redraw=True)
             shares = {k: counts[k][0] / max(counts[k][1], 1) for k in entries}
-            fin = {k: counts[k][2] / max(counts[k][1], 1) for k in entries}
+            fin = {k: counts[k][2] / max(counts[k][3], 1) for k in entries}
             d_shares = {k: drawn[k][0] / max(drawn[k][1], 1) for k in entries}
-            d_fin = {k: drawn[k][2] / max(drawn[k][1], 1) for k in entries}
+            d_fin = {k: drawn[k][2] / max(drawn[k][3], 1) for k in entries}
             require(all(c[0] == c[1] > 0 for c in (*counts.values(), *drawn.values()))
                     and all(timed[k] for k in entries),
                     f"backward {name}: bit-equal shares {shares}, with drawn gradients "
@@ -4259,11 +4330,18 @@ def backward_phase(torch, dev):
             # time every call that launched its kernel, the L2 cold
             parts = []
             for entry in entries:
-                ms, plain_ms, n_bytes = [], [], []
+                ms, plain_ms, n_bytes, whole_ms = [], [], [], []
                 for f, call, xs, grads, wants, got in timed[entry]:
-                    kernel, plain = (bt if f is not ha._Attrs else ha).backward_pair(
-                        f, call, xs, grads, wants)
-                    ms.append(common.cold_ms(kernel, W6_REPS)[0])
+                    kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
+                    if entry == "shade_refractive_bwd":
+                        # the kernel alone (its per-ray table rows), then the
+                        # whole VJP with the tables' scans
+                        s = ws.refr_saved(*call[1:5])
+                        ms.append(common.cold_ms(lambda: ws._refractive_rows(
+                            grads, s, wants), W6_REPS)[0])
+                        whole_ms.append(common.cold_ms(kernel, W6_REPS)[0])
+                    else:
+                        ms.append(common.cold_ms(kernel, W6_REPS)[0])
                     with held(BWD):
                         plain_ms.append(common.cuda_ms(plain, 1))
                     n_bytes.append(bwd_bytes(entry, call, xs, grads, got))
@@ -4272,9 +4350,11 @@ def backward_phase(torch, dev):
                                  BWD_ENTRIES[entry][2], 0, 0.0, sum(ms) / n,
                                  sum(plain_ms) / n, 0, sum(n_bytes) / n)
                 share = [common.bound(0, b)[0] / t for b, t in zip(n_bytes, ms)]
+                whole = (f"; with the tables' scans {sum(whole_ms) / n:.4f} ms"
+                         if whole_ms else "")
                 parts.append(f"{entry} {n} calls of {timed[entry][0][2][0].shape[0]} rays, "
-                             f"cold {row['ms']:.4f} ms a call ({min(ms):.4f}-{max(ms):.4f}; "
-                             f"plain VJP {row['plain_ms']:.3f} ms), "
+                             f"cold {row['ms']:.4f} ms a call ({min(ms):.4f}-{max(ms):.4f}"
+                             f"{whole}; plain VJP {row['plain_ms']:.3f} ms), "
                              f"{sum(n_bytes) / n:.0f} bytes, bound {row['bound_ms']:.4f} ms, "
                              f"share {row['bound_ms'] / row['ms']:.4f} "
                              f"({min(share):.4f}-{max(share):.4f})")
@@ -4283,7 +4363,8 @@ def backward_phase(torch, dev):
             print(f"backward {name}: IoR gradient {DIFF_W}x{DIFF_H} x {DIFF_SPP} spp "
                   f"(finite {finite}, d loss / d refr_n_re[0] {g[0].tolist()}), "
                   f"{len(calls)} backward calls recorded | launches {launched} | plain "
-                  f"stages on the card {runs} | plain-VJP routes {routes} | bit-equal "
+                  f"stages on the card {runs} | plain-VJP routes {routes} | W4 diffuse "
+                  f"and glossy backward calls through the plain VJP {w4_plain} | bit-equal "
                   f"shares {shares}, finite on both sides {fin} | with drawn gradients "
                   f"bit-equal {d_shares}, finite {d_fin} | " + " | ".join(parts),
                   flush=True)
@@ -4297,7 +4378,9 @@ def backward_phase(torch, dev):
     for entry in entries:
         kernel = BWD_ENTRIES[entry][3]
         r = use[next(k for k in use if kernel in k)]
-        inf = (ha.info(backward=True) if entry == "hit_attrs_bwd" else bt.info(entry))
+        inf = (ha.info(backward=True) if entry == "hit_attrs_bwd"
+               else ws.info(ws.MAT_REFRACTIVE, backward=True)
+               if entry == "shade_refractive_bwd" else bt.info(entry))
         parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
                      f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
                      f"{inf['block']} threads")

@@ -103,10 +103,17 @@ def fetch_texture(tex, uv, repeat=1.0, bilinear=False):
             + (1 - fx) * fy * tap(ix, iy + 1) + fx * fy * tap(ix + 1, iy + 1))
 
 
+def slot_rows(slot, table):
+    """The row of table each slot gathers: the slot clamped into the table
+    (jnp.take mode=clip), int64, as `_g1` and the backward kernels'
+    `take_backward` scans index it."""
+    return torch.clamp(slot, 0, table.shape[0] - 1).long()
+
+
 def _g1(table, slot):
-    """table[slot], the slot clamped into the table (jnp.take mode=clip),
-    with a reproducible gradient (safemath.take)."""
-    return take(table, torch.clamp(slot, 0, table.shape[0] - 1).long())
+    """table[slot], the slot clamped into the table (`slot_rows`), with a
+    reproducible gradient (safemath.take)."""
+    return take(table, slot_rows(slot, table))
 
 
 def _slot_color(solid_table, slot, uv, tex_refs, textures):

@@ -492,21 +492,15 @@ def start_vjp(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=Non
     out[:5] = d
     mats = data.mats
     if em_rows is not None:
-        out[5] = take_backward(_slot_rows(mat_slot, mats.emissive_color), em_rows,
+        out[5] = take_backward(shade.slot_rows(mat_slot, mats.emissive_color), em_rows,
                                mats.emissive_color.shape)
     if li_rows is not None:
         # one gather a lightmap; the engine adds their gradients last first
-        idx = _slot_rows(mat_slot, mats.env_light_intensity)
+        idx = shade.slot_rows(mat_slot, mats.env_light_intensity)
         for row in reversed(range(lms)):
             t = take_backward(idx, li_rows[row], mats.env_light_intensity.shape)
             out[6] = t if out[6] is None else out[6] + t
     return out
-
-
-def _slot_rows(slot, table):
-    """materials/shade.py `_g1`'s gather index: the slot clamped into the
-    table."""
-    return torch.clamp(slot, 0, table.shape[0] - 1).long()
 
 
 class _Start(torch.autograd.Function):

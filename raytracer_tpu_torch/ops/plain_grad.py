@@ -3,10 +3,11 @@ kernel.
 
 W4's blocks (`wavefront_shade._Shade`), W5's attributes (`hit_attrs._Attrs`)
 and W6's bounce tail (`bounce_tail._Start`, `_Update`) each run their
-kernel in a `torch.autograd.Function`.  W4's backward recomputes the plain
-block from the saved inputs and returns its vector-Jacobian product
-(`plain_vjp`); W5's and W6's backward are kernels of their own, held to
-that plain VJP bit for bit (`bounce_tail.plain_update_vjp`,
+kernel in a `torch.autograd.Function`.  W4's diffuse and glossy blocks'
+backward recomputes the plain block from the saved inputs and returns its
+vector-Jacobian product (`plain_vjp`); W4's refractive block's, W5's and
+W6's backward are kernels of their own, held to that plain VJP bit for bit
+(`wavefront_shade.plain_shade_vjp`, `bounce_tail.plain_update_vjp`,
 `plain_start_vjp`, `hit_attrs.plain_attrs_vjp`), which they take only on
 the explicit routes their modules count.  Each forward calls
 `set_materialize_grads(False)`, so that an output that takes no gradient
@@ -48,7 +49,7 @@ def recording(calls, *functions):
     calls as (the Function, its forward's call and inputs, the output
     gradients, the inputs' needs_input_grad): the holds of a backward
     kernel against the plain VJP replay them (`backward_pair` of
-    ops/bounce_tail.py and ops/hit_attrs.py).  The Functions' own forward
+    ops/bounce_tail.py, ops/hit_attrs.py and ops/wavefront_shade.py).  The Functions' own forward
     and backward are restored after."""
     saved = [(f, f.__dict__["forward"], f.__dict__["backward"]) for f in functions]
 

@@ -23,12 +23,17 @@ are cast here, as the plain block casts them (`shade.light_rays`,
 Where autograd records the block (grad enabled and a field of the
 merged output, an input or a table requiring grad), the kernel runs
 inside `_Shade`, an autograd.Function whose backward returns the merge's
-gradient and, where the block's own inputs need one, recomputes the
-plain block under enable_grad for its vector-Jacobian product: the
-gradient is the plain dispatch's.
+gradient and, where the block's own inputs need one, the block's
+vector-Jacobian product: the gradient is the plain dispatch's.  The
+refractive block's backward is a kernel of its own on CUDA tensors
+(`refractive_vjp`: csrc/wavefront_shade_bwd.cu `shade_refractive_bwd`,
+one launch a backward call, the plain VJP bit for bit); the diffuse and
+glossy blocks' backward recomputes the plain block under enable_grad
+for its VJP (`plain_shade_vjp`), a route counted in `plain_routes`.
 
-The `_kernel_shade` function takes `lib=`: the tests pass the CPU
-stand-in's build of the source (csrc/emu) with CPU tensors.
+`_kernel_shade` and `refractive_vjp` take `lib=` (and `_kernel_shade`
+`bwd_lib=`): the tests pass the CPU stand-in's builds of the sources
+(csrc/emu) with CPU tensors.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Any
 
 import torch
 
+from ..core.safemath import take_backward
 from ..materials import shade
 from ..materials.base import MAT_DIFFUSE, MAT_GLOSSY, MAT_REFRACTIVE
 from . import cuda_build
@@ -581,6 +587,205 @@ def _plain(mt, ctx, draws, occ):
     return shade.shade_glossy(ctx, occ=occ)
 
 
+# ---------------------------------------------------------------------------
+# the refractive block's backward kernel
+# ---------------------------------------------------------------------------
+
+
+class RefrBwd(ctypes.Structure):
+    _fields_ = [("packed", _V), ("m", _V), ("P", _V), ("N", _V), ("D", _V),
+                ("eps", _V), ("t", _V), ("orient", _V), ("n_re", _V), ("n_im", _V),
+                ("re_step", _L), ("im_step", _L), ("depth", _V), ("pattern", _V),
+                ("split_cnt", _V), ("u", _V), ("hero", _V), ("m_re", _V),
+                ("m_im", _V), ("dispersive", _V), ("rows", _I), ("split_k", _I),
+                ("scene_re", _V), ("scene_im", _V), ("k", _F * 3), ("n", _L),
+                ("g", _V * 5), ("pass_", _V * 5), ("dD", _V), ("dn_re", _V),
+                ("dn_im", _V), ("dt", _V), ("dP", _V), ("dN", _V), ("deps", _V),
+                ("m_re_rows", _V), ("m_im_rows", _V), ("s_re_rows", _V),
+                ("s_im_rows", _V)]
+
+
+ENTRIES["shade_refractive_bwd"] = [ctypes.POINTER(RefrBwd), _V, ctypes.POINTER(_I)]
+
+# the refractive block's `_inputs` by name, and the inputs each field it
+# writes is a function of (the plain block's dataflow; uv and
+# refr_dispersive take no gradient)
+_REFR_INPUTS = _CTX_FIELDS + ("refr_n_re", "refr_n_im", "refr_dispersive",
+                              "scene_n_re", "scene_n_im")
+_REFR_FLOW = {
+    "beta_mult": {"D", "N", "n_re", "n_im", "t", "refr_n_re", "refr_n_im",
+                  "scene_n_re", "scene_n_im"},
+    "new_origin": {"P", "N", "eps"},
+    "new_dir": {"D", "N", "n_re", "refr_n_re", "scene_n_re"},
+    "new_n_re": {"n_re", "refr_n_re", "scene_n_re"},
+    "new_n_im": {"n_im", "refr_n_im", "scene_n_im"}}
+# the per-ray rows the kernel writes of each table's gradient: the gathered
+# tables' (core/safemath.py `take`) and the scene medium's (a broadcast)
+_REFR_ROWS = {"refr_n_re": "m_re_rows", "refr_n_im": "m_im_rows",
+              "scene_n_re": "s_re_rows", "scene_n_im": "s_im_rows"}
+
+
+@dataclass
+class RefrSaved:
+    """What the refractive backward kernel reads of a call: the block's
+    mask, the rays' words and state, its draws, the slots (the gathers'
+    index) and its tables (`_REFR_SAVED`, None where the scene has no
+    split or no dispersion), the split levels and 2 pi / lambda."""
+    m: Any
+    packed: Any
+    P: Any
+    N: Any
+    D: Any
+    eps: Any
+    t: Any
+    orient: Any
+    n_re: Any
+    n_im: Any
+    depth: Any
+    pattern: Any
+    split_cnt: Any
+    u: Any
+    hero: Any
+    mat_slot: Any
+    m_re: Any
+    m_im: Any
+    dispersive: Any
+    scene_re: Any
+    scene_im: Any
+    split_k: int
+    k: tuple
+
+
+# RefrSaved's tensors, which `_Shade` saves for the backward
+_REFR_SAVED = tuple(f.name for f in dataclasses.fields(RefrSaved))[:-2]
+
+
+def refr_saved(ctx, draws, packed, m):
+    """The RefrSaved of a refractive call on the bounce."""
+    u, hero = draws[MAT_REFRACTIVE]
+    mats, data = ctx.data.mats, ctx.data
+    split = ctx.split_k > 0 and ctx.pattern is not None
+    disp = ctx.static.has_dispersion
+    return RefrSaved(
+        m=m, packed=packed, P=ctx.P, N=ctx.N, D=ctx.D, eps=ctx.eps, t=ctx.t,
+        orient=ctx.orient, n_re=ctx.n_re, n_im=ctx.n_im, depth=ctx.depth,
+        pattern=ctx.pattern if split else None,
+        split_cnt=ctx.split_cnt if split else None, u=u,
+        hero=hero if disp else None, mat_slot=ctx.mat_slot, m_re=mats.refr_n_re,
+        m_im=mats.refr_n_im, dispersive=mats.refr_dispersive if disp else None,
+        scene_re=data.scene_n_re, scene_im=data.scene_n_im,
+        split_k=int(ctx.split_k) if split else 0, k=tuple(beer_k(tuple(ctx.wavelengths))))
+
+
+def _refractive_rows(grads, saved, wants, lib=None):
+    """W4's backward kernel (`lib`; csrc/wavefront_shade_bwd.cu
+    `shade_refractive_bwd`), one launch, on the arguments of
+    `refractive_vjp` (grads not all None): (the fields' pass-through
+    gradients, {input: its gradient} of the rays' inputs the kernel
+    writes, {table input: its per-ray rows}).  Adds its launches to
+    `_refractive_rows.launches`."""
+    fields = WRITTEN[MAT_REFRACTIVE]
+    nw = len(fields)
+    reach = set().union(*(_REFR_FLOW[f] for f, g in zip(fields, grads)
+                          if g is not None))
+    want = [w and x in reach for x, w in zip(_REFR_INPUTS, wants[nw:])]
+    s = saved
+    n, dev = s.P.shape[0], s.P.device
+    f32 = lambda *shape: torch.empty((n, *shape), dtype=torch.float32, device=dev)
+    passes = [f32(3) if w and g is not None else None
+              for w, g in zip(wants[:nw], grads)]
+    out = {x: f32(*(() if x in ("t", "eps") else (3,)))
+           for x, w in zip(_REFR_INPUTS, want) if w and x in _CTX_FIELDS}
+    rows = {x: f32(3) for x, w in zip(_REFR_INPUTS, want) if w and x in _REFR_ROWS}
+    if n and (out or rows or any(x is not None for x in passes)):
+        if s.m.dtype != torch.bool:
+            raise TypeError("W4's backward takes a bool mask")
+        ins = dict(packed=_i32(s.packed), m=s.m.contiguous(), P=_f32(s.P),
+                   N=_f32(s.N), D=_f32(s.D), eps=_f32(s.eps), t=_f32(s.t),
+                   orient=_f32(s.orient), depth=_i32(s.depth), u=_f32(s.u),
+                   m_re=_f32(s.m_re), m_im=_f32(s.m_im), scene_re=_f32(s.scene_re),
+                   scene_im=_f32(s.scene_im))
+        if s.split_k:
+            ins.update(pattern=_i32(s.pattern), split_cnt=_i32(s.split_cnt))
+        if s.hero is not None:
+            if s.hero.dtype != torch.int64:
+                raise TypeError("W4's dispersive backward takes an int64 hero channel")
+            ins.update(hero=s.hero.contiguous(), dispersive=_f32(s.dispersive))
+        n_re, re_step = _medium(s.n_re)
+        n_im, im_step = _medium(s.n_im)
+        ins.update(n_re=n_re, n_im=n_im)
+        gs = [None if g is None else _f32(g) for g in grads]
+        for name, x in [*ins.items(), *(("grad", g) for g in gs if g is not None)]:
+            if x.device != dev:
+                raise ValueError(f"W4's backward: {name} is on {x.device}, the rays on {dev}")
+        struct = RefrBwd(**{k: v.data_ptr() for k, v in ins.items()}, re_step=re_step,
+                         im_step=im_step, rows=s.m_re.shape[0], split_k=s.split_k,
+                         k=(_F * 3)(*s.k), n=n, g=(_V * 5)(*(_p(g) for g in gs)),
+                         pass_=(_V * 5)(*(_p(x) for x in passes)),
+                         **{f"d{x}": t.data_ptr() for x, t in out.items()},
+                         **{_REFR_ROWS[x]: t.data_ptr() for x, t in rows.items()})
+        _refractive_rows.launches += _call(
+            lib, "shade_refractive_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
+            entries=ENTRIES)
+    return passes, out, rows
+
+
+_refractive_rows.launches = 0
+
+
+def refractive_vjp(grads, saved, wants, lib=None):
+    """The refractive block's backward from W4's backward kernel
+    (`_refractive_rows`): from the gradients of the five fields the entry
+    writes (grads, one a WRITTEN[MAT_REFRACTIVE]; None where none comes)
+    and the RefrSaved `saved`, the gradients `_Shade`'s backward returns
+    (wants: its needs_input_grad past the call): the fields' pass-through
+    gradients, then those of the block's `_inputs`, None where not wanted
+    or not reached, as `plain_shade_vjp` gives them, bit for bit.  The
+    gathered tables' gradients are core/safemath.py `take_backward`'s
+    scans of the kernel's per-ray rows, the scene medium's torch.sum of
+    its rows over the rays (autograd's sum_to of a broadcast)."""
+    if all(g is None for g in grads):
+        return [None] * len(wants)
+    passes, out, rows = _refractive_rows(grads, saved, wants, lib)
+    s = saved
+    res = []
+    for x in _REFR_INPUTS:
+        if x in out:
+            res.append(out[x])
+        elif x in rows and x.startswith("refr"):
+            table = s.m_re if x == "refr_n_re" else s.m_im
+            res.append(take_backward(shade.slot_rows(s.mat_slot, table), rows[x], table.shape))
+        elif x in rows:
+            medium = s.scene_re if x == "scene_n_re" else s.scene_im
+            res.append(torch.sum(rows[x], 0, keepdim=True).reshape(medium.shape))
+        else:
+            res.append(None)
+    return [*passes, *res]
+# the backward calls of each block that recomputed its plain block for its
+# VJP (`plain_shade_vjp`): the diffuse and glossy blocks' on the card, and
+# the refractive block's where no backward library serves it (CPU tensors)
+plain_routes = {"diffuse": 0, "refractive": 0, "glossy": 0}
+
+
+def plain_shade_vjp(mt, ctx, draws, m, occ, grads, wants):
+    """The gradients `_Shade`'s backward returns, from the plain block
+    (materials/shade.py) recomputed on the call's ctx (draws: the block's
+    own) and merged under the mask m: the fields' pass-through gradients
+    where(m, 0, g), then the VJP of `_inputs` (ops/plain_grad.py
+    `plain_vjp`)."""
+    nw = len(WRITTEN[mt])
+    m3 = m[..., None]
+    outs = [torch.where(m3, 0.0, g) if w and g is not None else None
+            for g, w in zip(grads, wants[:nw])]
+
+    def plain(leaves):
+        o = _plain(mt, _rebuild(mt, ctx, leaves), {mt: draws}, occ)
+        return [getattr(o, f) if g is None else torch.where(m3, getattr(o, f), g)
+                for f, g in zip(WRITTEN[mt], grads)]
+
+    return [*outs, *plain_vjp(grads, _inputs(mt, ctx), wants[nw:], plain)]
+
+
 class _Shade(torch.autograd.Function):
     """W4 forward into the merged output's float fields that the entry
     writes (`WRITTEN`), in place (xs: those fields, then the block's
@@ -588,20 +793,30 @@ class _Shade(torch.autograd.Function):
     block (`_flow`) is marked non-differentiable, as the plain merge
     leaves it.  Backward: a field's gradient passes where the block's
     rays are not (the merge's); where one of the block's inputs needs a
-    gradient, the plain block is recomputed from the tensors saved for it
-    and its vector-Jacobian product on the block's rays returned (see the
-    module doc)."""
+    gradient, the refractive block's backward kernel (`refractive_vjp`, on
+    CUDA tensors or with a backward library) or the plain block
+    recomputed from the tensors saved for it and its vector-Jacobian
+    product on the block's rays (`plain_shade_vjp`, counted in
+    `plain_routes`; see the module doc)."""
 
     @staticmethod
     def forward(fctx, call, *xs):
-        mt, ctx, draws, packed, m, out, occ, lib, flow = call
+        mt, ctx, draws, packed, m, out, occ, lib, flow, bwd_lib = call
         nw = len(WRITTEN[mt])
         keep = [x.requires_grad or f in flow for x, f in zip(xs, WRITTEN[mt])]
         _launch(mt, ctx, draws, packed, out, occ, lib)
         fctx.mark_dirty(*xs[:nw])
         fctx.mark_non_differentiable(*(x for x, k in zip(xs, keep) if not k))
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
-        fctx.mt, saved = mt, [m]
+        fctx.mt, fctx.lib = mt, bwd_lib if bwd_lib is not None else lib
+        fctx.kernel = mt == MAT_REFRACTIVE and (ctx.P.is_cuda or bwd_lib is not None)
+        if fctx.kernel:
+            # what the backward kernel reads
+            s = refr_saved(ctx, draws, packed, m)
+            fctx.refr = (s.split_k, s.k)
+            fctx.save_for_backward(*(getattr(s, f) for f in _REFR_SAVED))
+            return xs[:nw]
+        saved = [m]
         if any(fctx.needs_input_grad[1 + nw:]):
             # the scene's static facts hold no tensors: kept as they are
             fctx.static = ctx.static
@@ -618,30 +833,27 @@ class _Shade(torch.autograd.Function):
 
 def _shade_backward(fctx, *grads):
     """`_Shade`'s backward (see there)."""
-    saved, mt = fctx.saved_tensors, fctx.mt
+    saved, mt, wants = fctx.saved_tensors, fctx.mt, fctx.needs_input_grad[1:]
+    if fctx.kernel:
+        return (None, *refractive_vjp(grads, RefrSaved(*saved, *fctx.refr), wants,
+                                      fctx.lib))
     nw = len(WRITTEN[mt])
-    m3, need = saved[0][..., None], fctx.needs_input_grad[1:]
-    outs = [torch.where(m3, 0.0, g) if n and g is not None else None
-            for g, n in zip(grads, need[:nw])]
-    wants = need[nw:]
-    if all(g is None for g in grads) or not any(wants):
-        return (None, *outs, *([None] * len(wants)))
+    if all(g is None for g in grads) or not any(wants[nw:]):
+        m3 = saved[0][..., None]
+        return (None, *(torch.where(m3, 0.0, g) if w and g is not None else None
+                        for g, w in zip(grads, wants[:nw])), *([None] * len(wants[nw:])))
     ctx, d, occ = _unpack(fctx.held, saved)
-    ctx = dataclasses.replace(ctx, static=fctx.static)
-
-    def plain(leaves):
-        o = _plain(mt, _rebuild(mt, ctx, leaves), {mt: d}, occ)
-        return [getattr(o, f) if g is None else torch.where(m3, getattr(o, f), g)
-                for f, g in zip(WRITTEN[mt], grads)]
-
-    return (None, *outs, *plain_vjp(grads, _inputs(mt, ctx), wants, plain))
+    plain_routes[_BLOCKS[mt][0][len("shade_"):]] += 1
+    return (None, *plain_shade_vjp(mt, dataclasses.replace(ctx, static=fctx.static),
+                                   d, saved[0], occ, grads, wants))
 
 
-def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None):
+def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None, bwd_lib=None):
     """W4 on the bounce, from `lib`: the merged output `out` with mt's rays
     shaded in place; through `_Shade` where autograd records the block
     (grad enabled and a float field the entry writes or one of the
-    block's `_inputs` requiring grad)."""
+    block's `_inputs` requiring grad), whose refractive backward takes its
+    kernel from `bwd_lib` where given (else from `lib`)."""
     occ = None
     if mt == MAT_GLOSSY:
         with torch.no_grad():
@@ -655,9 +867,25 @@ def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None):
         _launch(mt, ctx, draws, packed, out, occ, lib)
         return out
     flow = _flow(mt, ctx, draws, occ, flags) if any(flags) else frozenset()
-    res = _Shade.apply((mt, ctx, draws, packed, m, out, occ, lib, flow),
+    res = _Shade.apply((mt, ctx, draws, packed, m, out, occ, lib, flow, bwd_lib),
                        *written, *xs)
     return dataclasses.replace(out, **dict(zip(WRITTEN[mt], res)))
+
+
+def backward_pair(fn, call, xs, grads, wants, lib=None):
+    """(kernel, plain) for a backward of `_Shade` (fn) that
+    ops/plain_grad.py `recording` recorded (its forward's call and inputs
+    xs, its output gradients, the inputs' needs_input_grad): functions of
+    no argument giving the gradients `_Shade`'s backward returns from the
+    refractive backward kernel (`lib`; None for the diffuse and glossy
+    blocks, which have none) and from the plain block's VJP
+    (`plain_shade_vjp`), for the holds of one against the other."""
+    mt, ctx, draws, packed, m, _, occ, _, _, _ = call
+    plain = lambda: plain_shade_vjp(mt, ctx, draws.get(mt), m, occ, grads, wants)
+    if mt != MAT_REFRACTIVE:
+        return None, plain
+    return (lambda: refractive_vjp(grads, refr_saved(ctx, draws, packed, m), wants, lib),
+            plain)
 
 
 def _wrapper(mt, name, doc):
@@ -687,19 +915,27 @@ INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block",
         "min_blocks", "rays_per_pass")
 
 
-def info(mt, lib=None, variant=0):
+def info(mt, lib=None, variant=0, backward=False):
     """What W4's entry for material type mt was built to, read on the card
     (`shade_info`; variant: the diffuse entry's kernel, as KERNEL_INFO
-    numbers them): registers and local memory (bytes: spills and stack) a
-    thread, resident blocks an SM, the SMs, threads a block, the
-    __launch_bounds__ minimum of blocks an SM, and rays a block a pass (a
-    queued entry's tile)."""
-    fn = (lib or cuda_build.load_library()).shade_info
-    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    numbers them; backward: the refractive backward kernel,
+    `shade_refractive_bwd_info`): registers and local memory (bytes:
+    spills and stack) a thread, resident blocks an SM, the SMs, threads a
+    block, the __launch_bounds__ minimum of blocks an SM, and rays a block
+    a pass (a queued entry's tile)."""
+    lib = lib or cuda_build.load_library()
     out = (_I * len(INFO))()
-    err = fn(mt, int(variant), out)
+    if backward:
+        if mt != MAT_REFRACTIVE:
+            raise ValueError("W4 has a backward kernel for the refractive block only")
+        fn, args, name = lib.shade_refractive_bwd_info, (), "shade_refractive_bwd_info"
+        fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+    else:
+        fn, args, name = lib.shade_info, (mt, int(variant)), "shade_info"
+        fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    err = fn(*args, out)
     if err:
-        raise RuntimeError(f"shade_info: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
     return dict(zip(INFO, out))
 
 
@@ -739,6 +975,15 @@ def launches():
     return sum(w.launches for w in _WRAPPER.values())
 
 
+def backward_launches():
+    """The refractive backward kernel's launches."""
+    return _refractive_rows.launches
+
+
 def reset_launches():
+    """Zero the forward and backward counts and the plain routes'."""
     for w in _WRAPPER.values():
         w.launches = 0
+    _refractive_rows.launches = 0
+    for k in plain_routes:
+        plain_routes[k] = 0

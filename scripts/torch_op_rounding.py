@@ -34,7 +34,17 @@ elements whose bits agree with each candidate (1.0: the rule):
   against the orders W5 could restate (`mm3_candidates`), on rows with
   signed zeros, at several N and with the (3, 3) operand contiguous and
   a transposed view: the candidates that give every row's bits.
-`--only matmul3` runs the last alone.
+- the derivative formulas autograd runs for the refractive block's
+  backward (csrc/wavefront_shade_bwd.cu restates them), each against the
+  formulas it could be (`backward_rules`): a quotient's gradient for its
+  divisor, a division by a 0-dim tensor (core/safemath.py `div`), sqrt's,
+  exp's and pow(x, 2)'s, the masks of clamp_min and clamp at their
+  bounds (and at -0 and NaN), the +0 a where hands its other branch and a
+  select its pads, gather's 0 + g, the sum of an (N, 1) factor's (N, 3)
+  gradient, a broadcast row's (torch.sum over the rows: the engine's
+  sum_to), and the order the engine adds three contributions to one
+  tensor (the node created last first).
+`--only matmul3` or `--only backward` runs that part alone.
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -259,10 +269,95 @@ def mm3_rule(torch, dev, g, rows=MM3_ROWS):
     return out
 
 
+def backward_rules(torch, dev, g, n=N):
+    """{rule: {candidate: share of elements whose bits agree}} of autograd's
+    derivative formulas on `dev` (see the module doc)."""
+    def rnd(*shape, scale=3.0):
+        return ((torch.rand(*shape, device=dev, generator=g) * 2 - 1)
+                * torch.exp(torch.randn(*shape, device=dev, generator=g) * scale))
+
+    def share(a, b):
+        eq = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+        return int(eq.sum()) / a.numel()
+
+    def grads(f, *xs, gout):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        return torch.autograd.grad(f(*leaves), leaves, gout)
+
+    res = {}
+    a, b, go = rnd(n), rnd(n), rnd(n)
+    go[::97] = -0.0
+    go[::89] = 0.0
+    ga, gb = grads(lambda x, y: x / y, a, b, gout=go)
+    res["div: numerator"] = {"g / b": share(ga, go / b), "g * (1 / b)": share(ga, go * (1 / b))}
+    res["div: divisor"] = {"-g * ((a / b) / b)": share(gb, -go * ((a / b) / b)),
+                           "-g * (a / (b * b))": share(gb, -go * (a / (b * b))),
+                           "-(g * a) / (b * b)": share(gb, -(go * a) / (b * b))}
+    three = torch.tensor(3.0, device=dev)
+    g3, = grads(lambda x: x / three, a, gout=go)
+    res["div by a 0-dim tensor"] = {"g / 3 (true)": share(g3, go / three),
+                                    "g * float(1 / 3)": share(g3, go * (1.0 / 3.0))}
+    x = rnd(n).abs()
+    x[::101] = 0.0
+    r = torch.sqrt(x)
+    gs, = grads(torch.sqrt, x, gout=go)
+    res["sqrt"] = {"g / (2 r)": share(gs, go / (2 * r)),
+                   "(g / 2) / r": share(gs, (go / 2) / r),
+                   "g * (0.5 / r)": share(gs, go * (0.5 / r))}
+    e = rnd(n, scale=1.0)
+    ge, = grads(torch.exp, e, gout=go)
+    res["exp"] = {"g * exp(x)": share(ge, go * torch.exp(e))}
+    gp, = grads(lambda v: v ** 2, a, gout=go)
+    res["pow(x, 2)"] = {"g * (2 x)": share(gp, go * (2 * a)),
+                        "(2 g) * x": share(gp, (2 * go) * a)}
+    edge = torch.tensor([1e-30, 1e-31, 0.0, -0.0, float("nan"), 2e-30, -1.0, 1.0,
+                         1.5, float("inf")], device=dev)
+    ge_ = torch.full_like(edge, 0.75)
+    gc, = grads(lambda v: torch.clamp_min(v, 1e-30), edge, gout=ge_)
+    res["clamp_min(x, 1e-30) mask: g where x >= float(1e-30)"] = share(
+        gc, torch.where(edge >= 1e-30, ge_, 0.0))
+    gc, = grads(lambda v: torch.clamp(v, 0.0, 1.0), edge, gout=ge_)
+    res["clamp(x, 0, 1) mask: g where 0 <= x <= 1"] = share(
+        gc, torch.where((edge >= 0.0) & (edge <= 1.0), ge_, 0.0))
+    c = torch.rand(n, device=dev, generator=g) < 0.5
+    neg = torch.full((n,), -1.0, device=dev)
+    gw1, gw2 = grads(lambda u, v: torch.where(c, u, v), a, b, gout=neg)
+    res["where hands the other branch +0"] = bool(
+        (gw1[~c].view(torch.int32) == 0).all() and (gw2[c].view(torch.int32) == 0).all())
+    m3 = rnd(n, 3)
+    gz = torch.full((n,), -0.0, device=dev)
+    gsel, = grads(lambda v: v[..., 1], m3, gout=gz)
+    res["select: -0 kept, +0 pads"] = bool(
+        (gsel[:, 1].view(torch.int32) == gz.view(torch.int32)).all()
+        and (gsel[:, 0].view(torch.int32) == 0).all())
+    idx = torch.randint(0, 3, (n, 1), device=dev, generator=g)
+    gg, = grads(lambda v: torch.gather(v, -1, idx), m3, gout=gz[:, None])
+    res["gather: 0 + g at the index (-0 -> +0)"] = bool((gg.view(torch.int32) == 0).all())
+    s = rnd(n, 1)
+    go3 = rnd(n, 3)
+    _, gsum = grads(lambda u, v: u * v, m3, s, gout=go3)
+    t = go3 * m3
+    res["(N, 1) factor: torch.sum of its (N, 3) gradient"] = {
+        "((0 + x0) + (0 + x2)) + (0 + x1)": share(gsum[:, 0], ((0 + t[:, 0]) + (0 + t[:, 2]))
+                                                 + (0 + t[:, 1])),
+        "((0 + x0) + x1) + x2": share(gsum[:, 0], ((0 + t[:, 0]) + t[:, 1]) + t[:, 2])}
+    row, c1 = rnd(3), torch.rand(n, 1, device=dev, generator=g) < 0.5
+    _, grow = grads(lambda u, v: torch.where(c1, u, v[None, :]), m3, row, gout=go3)
+    res["a broadcast row's gradient: torch.sum over the rows"] = share(
+        grow, torch.sum(torch.where(c1, 0.0, go3), 0))
+    k1, k2, k3 = rnd(n), rnd(n), rnd(n)
+    g1, = grads(lambda v: (v * k1 + v * k2) + v * k3, a, gout=go)
+    p1, p2, p3 = go * k1, go * k2, go * k3
+    res["three contributions: the engine's order"] = {
+        "(p3 + p2) + p1 (last made first)": share(g1, (p3 + p2) + p1),
+        "(p1 + p2) + p3": share(g1, (p1 + p2) + p3)}
+    return res
+
+
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--only", choices=("matmul3",))
+    ap.add_argument("--only", choices=("matmul3", "backward"))
     args = ap.parse_args(argv)
     import torch
 
@@ -300,6 +395,9 @@ def main(argv):
         return torch.sqrt(t.double()).float()
 
     res = {"device": smi, "torch": torch.__version__}
+    if args.only == "backward":
+        res["backward"] = backward_rules(torch, dev, g)
+        return emit(res, args.out)
     res["matmul3"] = mm3_rule(torch, dev, g)
     res["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     if args.only:
@@ -422,6 +520,7 @@ def main(argv):
     sg = torch.sign(torch.tensor([-0.0, 0.0, float("nan")], device=dev))
     res["sign(-0, +0, nan)"] = [repr(v) for v in sg.tolist()] + [
         bool(torch.signbit(sg[0]))]
+    res["backward"] = backward_rules(torch, dev, g)
     return emit(res, args.out)
 
 

@@ -285,8 +285,9 @@ def test_card_renders_run_no_plain_block(card, tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_card_gradient_through_w4_is_the_plain_blocks(card, monkeypatch):
     """The inverse-rendering IoR gradient on the card with the refractive
-    block through W4 (`_Shade`) equals the one through the plain dispatch
-    bit for bit; two passes through W4 agree bit for bit."""
+    block through W4 (`_Shade`: its forward and its backward kernels)
+    equals the one through the plain dispatch bit for bit; two passes
+    through W4 agree bit for bit."""
     from torch_inverse_rendering import build_scene
 
     from raytracer_tpu_torch.diff import differentiable_render, update_materials
@@ -301,7 +302,8 @@ def test_card_gradient_through_w4_is_the_plain_blocks(card, monkeypatch):
 
     ws.reset_launches()
     g1, g2 = grad(), grad()
-    assert ws.shade_refractive.launches > 0
+    assert ws.shade_refractive.launches > 0 and ws.backward_launches() > 0
+    assert ws.plain_routes["refractive"] == 0
     _replace_wrappers(monkeypatch, lambda mt, real: lambda ctx, d, p, m, acc:
                       acc.merge(ws._plain(mt, ctx, d, None), m))
     ws.reset_launches()
