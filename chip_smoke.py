@@ -528,7 +528,19 @@ BWD_ENTRIES = {
                              "backward)", "wavefront_shade_bwd.cu",
                              "raytracer_tpu/materials/shade.py:385 (shade_refractive's "
                              "VJP under jax.grad, raytracer_tpu/diff.py)",
-                             "shade_refractive_bwd_kernel")}
+                             "shade_refractive_bwd_kernel"),
+    "shade_diffuse_bwd": ("wavefront_shade shade_diffuse_bwd (W4 diffuse backward)",
+                          "wavefront_diffuse_bwd.cu",
+                          "raytracer_tpu/materials/shade.py:317 (shade_diffuse's VJP "
+                          "under jax.grad, raytracer_tpu/diff.py)",
+                          "shade_diffuse_bwd_kernel"),
+    "shade_glossy_bwd": ("wavefront_shade shade_glossy_bwd (W4 glossy backward)",
+                         "wavefront_glossy_bwd.cu",
+                         "raytracer_tpu/materials/shade.py:215 (shade_glossy's VJP "
+                         "under jax.grad, raytracer_tpu/diff.py)",
+                         "shade_glossy_bwd_kernel")}
+# W4's backward entry of each material type
+W4_BWD = {4: "shade_refractive_bwd", 3: "shade_diffuse_bwd", 2: "shade_glossy_bwd"}
 BWD = {"launches": dict.fromkeys(BWD_ENTRIES, 0),
        "max_abs_err": dict.fromkeys(BWD_ENTRIES, 0.0), "rows": [], "holding": False,
        "plain_W6": 0, "plain_W5": 0, "plain_W4": 0}
@@ -2054,8 +2066,8 @@ def w4_spies():
     bounce of a labelled render's first chunk (its ShadeCtx, draws, packed
     words, mask and a copy of the merged output it was handed), and the
     plain blocks count their calls on CUDA tensors outside a hold and
-    outside `_Shade`'s backward (where the diffuse and glossy blocks'
-    gradient recomputes the plain block); likewise W5's attributes and W6's start and update (each
+    outside `_Shade`'s backward (where a plain route's gradient
+    recomputes the plain block); likewise W5's attributes and W6's start and update (each
     bounce of the first chunk captured, the plain stages counted outside a
     hold: their backward passes are kernels)."""
     from raytracer_tpu_torch.materials import shade
@@ -4092,7 +4104,7 @@ def _bwd_nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bwd_bytes(entry, call, xs, grads, out):
+def bwd_bytes(entry, call, xs, grads, out, wants=None):
     """The bytes a backward kernel moves on a recorded call, each input
     read once and each output written once: the output gradients it reads
     and the forward's tensors it reads (the update: beta, add where L's
@@ -4100,12 +4112,37 @@ def bwd_bytes(entry, call, xs, grads, out):
     start: the words' type and slot, uv and the depth where uv or the light
     intensity takes a gradient; W5: the rays' O, D, t, orientation and
     object, and the scene's tables, as `w5_bytes` counts them), and the
-    gradients it writes (the tables' per-ray rows of the start)."""
+    gradients it writes (the tables' per-ray rows of the start; W4's
+    diffuse and glossy backward: the tensors they read and write, from one
+    more launch of the kernel on the call, `wants` its wanted gradients)."""
+    import torch
+
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.ops import wavefront_shade as ws
 
     g = [x for x in grads if x is not None]
+    if entry in ("shade_diffuse_bwd", "shade_glossy_bwd"):
+        # the saved tensors the kernel reads (a medium every ray shares as
+        # its one row, the tables and textures once), the output gradients;
+        # the pass-through and input gradients and the tables' rows it
+        # writes
+        mt, ctx, draws, packed, m = call[:5]
+        s = (ws.diff_saved(ctx, draws, packed, m) if entry == "shade_diffuse_bwd"
+             else ws.gloss_saved(ctx, draws, packed, m, call[6]))
+        one = lambda x: (x[0] if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] > 1
+                         and x.stride(0) == 0 else x)
+        names = ws._DIFF_SAVED if entry == "shade_diffuse_bwd" else ws._GLOSS_SAVED
+        reads = [one(getattr(s, f)) for f in names if f != "mat_slot"]
+        rows = (ws._diffuse_rows if entry == "shade_diffuse_bwd" else ws._glossy_rows)(
+            grads, s, wants)
+        written = [rows[0], rows[1], rows[2]] + ([rows[3]] if len(rows) > 4 else [])
+        flat = []
+        for part in written:
+            vals = part.values() if isinstance(part, dict) else part
+            for v in vals:
+                flat.extend(v if isinstance(v, (tuple, list)) else [v])
+        return _bwd_nbytes(*g, *reads, *flat)
     if entry == "shade_refractive_bwd":
         # the rays' state, draws and words (a medium every ray shares as its
         # one row), the tables; the pass-through and input gradients, and
@@ -4155,43 +4192,43 @@ def bwd_module(f):
 def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
     """Each recorded backward call replayed through its kernel and through
     the plain VJP (with output gradients drawn from `gen` where `redraw`,
-    finite, in place of the recorded ones, and every input of W4's
-    refractive block wanted), every output compared by its
+    finite, in place of the recorded ones, and every input of W4's blocks
+    wanted but the textures), every output compared by its
     bits (NaN equal to NaN): {entry: [entries equal, entries, entries
     finite on both sides, entries the finite share counts]}, and the calls
     that launched their kernel, by entry, as (the Function, call, inputs,
-    gradients, wants, outputs).  The finite share of W4's refractive
-    backward counts the per-ray entries of the block's own rays (its mask,
-    the rays that hit): the others' are the pass-through of the +0 the
-    merge hands them, finite whatever the kernel does, and a miss is
-    object 0's hit at t = FARAWAY (Cornell's object 0 is its glass
-    sphere), whose normal (~1e28) overflows the block's products, so its
-    gradients are NaN in the plain VJP whatever gradient comes; every
-    entry is held bit for bit all the same."""
+    gradients, wants, outputs).  The finite share of W4's backward kernels
+    counts the per-ray entries of the block's own rays (its mask, the rays
+    that hit): the others' are the pass-through of the +0 the merge hands
+    them, finite whatever the kernel does, and a miss is object 0's hit at
+    t = FARAWAY (Cornell's object 0 is its glass sphere), whose normal
+    (~1e28) overflows the blocks' products, so its gradients are NaN in
+    the plain VJP whatever gradient comes; every entry is held bit for bit
+    all the same."""
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import hit_attrs as ha
     from raytracer_tpu_torch.ops import wavefront_shade as ws
 
     kinds = {bt._Update: "bounce_update_bwd", bt._Start: "bounce_start_bwd",
-             ha._Attrs: "hit_attrs_bwd", ws._Shade: "shade_refractive_bwd"}
+             ha._Attrs: "hit_attrs_bwd"}
     from raytracer_tpu_torch.utils.constants import FARAWAY
 
     counts = {k: [0, 0, 0, 0] for k in entries}
     launched = {k: [] for k in entries}
     n_bwd = lambda: (sum(bt.backward_launches().values()) + ha.backward_launches()
-                     + ws.backward_launches())
+                     + sum(ws.backward_launches().values()))
     with held(BWD):
         for f, call, xs, grads, wants in calls:
-            if f is ws._Shade and call[0] != ws.MAT_REFRACTIVE:
-                continue        # the diffuse and glossy blocks: no backward kernel
             if redraw:
                 grads = tuple(None if g is None else torch.randn(
                     g.shape, generator=gen, device=g.device, dtype=g.dtype) for g in grads)
                 if f is ws._Shade:
-                    # every input's gradient wanted: the scene medium's rows
-                    # and their sum over the rays too
-                    wants = (True,) * len(wants)
-            entry = kinds[f]
+                    # every input's gradient wanted (the tables' rows and
+                    # their reductions too), but a texture's (one the block
+                    # reads that requires grad takes the plain VJP)
+                    n_tex = 0 if call[0] == ws.MAT_REFRACTIVE else len(call[1].data.textures)
+                    wants = (True,) * (len(wants) - n_tex) + (False,) * n_tex
+            entry = W4_BWD[call[0]] if f is ws._Shade else kinds[f]
             kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
             require(kernel is not None, f"backward {name}: {entry} took a plain route")
             n0 = n_bwd()
@@ -4220,31 +4257,32 @@ def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
 
 
 def backward_phase(torch, dev):
-    """W6's, W5's and W4's refractive backward kernels on the card, in the
-    gradient of the
-    IoR (refr_n_re requiring grad) at DIFF_W x DIFF_H x DIFF_SPP of the
+    """W6's, W5's and W4's backward kernels on the card, in the gradient of
+    the IoR (refr_n_re requiring grad) at DIFF_W x DIFF_H x DIFF_SPP of the
     glass sphere, its icosphere twin, Cornell and the primitives (discs and
-    cylinders) on the wavefront: each gradient with the backward kernels'
-    counts set to 0 just before and read just after, every backward call of
-    `_Start`, `_Update`, `_Attrs` and `_Shade` recorded (ops/plain_grad.py
-    `recording`), the plain W6 stages, W5's plain formulas and the plain
-    refractive block counted on the card (none may run: the backward
-    passes take the kernels), the explicit plain-VJP routes of W6 and W5
-    counted (none taken: only the ray inputs want a gradient) and W4's
-    printed (the diffuse and glossy blocks' backward still recomputes the
-    plain block).  Then each recorded call replayed through its backward
-    kernel and through the plain VJP, every output held bit for bit (a
-    share of exactly 1.0 each), beside the share of entries finite on both
-    sides; and again with finite output gradients drawn from a seed in
-    place of the recorded ones (Cornell's and the primitives' recorded
-    gradients are NaN on many rays, in the JAX package's gradient too:
-    there every kind's formula is held on finite numbers), whose finite
-    share must reach BWD_FINITE.  Each call that launched a kernel timed
-    with the L2 cold (`common.cold_ms`), its bound from its bytes; a
-    kernel's time is the mean a call (W4's refractive backward: its kernel
-    alone, and beside it the whole VJP with the tables' scans); the plain
-    VJP on the same calls (events); the kernels' registers, stack and
-    blocks an SM.  Returns the kernels line's rows (the sphere's calls)."""
+    cylinders) on the wavefront, and in the primitives' colour gradient
+    (diffuse_color, glossy_color and glossy_n_re in one backward pass, taken
+    twice, the two passes bit-equal): each gradient with the backward
+    kernels' counts set to 0 just before and read just after, every
+    backward call of `_Start`, `_Update`, `_Attrs` and `_Shade` recorded
+    (ops/plain_grad.py `recording`), the plain W6 stages, W5's plain
+    formulas and W4's plain diffuse, refractive and glossy blocks counted
+    on the card (none may run: the backward passes take the kernels), the
+    explicit plain-VJP routes of W6, W5 and W4 counted (none taken).  Then
+    each recorded call replayed through its backward kernel and through the
+    plain VJP, every output held bit for bit (a share of exactly 1.0 each),
+    beside the share of entries finite on both sides; and again with finite
+    output gradients drawn from a seed in place of the recorded ones
+    (Cornell's and the primitives' recorded IoR gradients are NaN on many
+    rays, in the JAX package's gradient too: there every kind's formula is
+    held on finite numbers), whose finite share must reach BWD_FINITE.
+    Each call that launched a kernel timed with the L2 cold
+    (`common.cold_ms`), its bound from its bytes; a kernel's time is the
+    mean a call (W4's backward kernels: the kernel alone, and beside it the
+    whole VJP with the tables' reductions); the plain VJP on the same calls
+    (events); the kernels' registers, stack and blocks an SM.  Returns the
+    kernels line's rows (the sphere's calls; W4's diffuse and glossy
+    backward: the primitives' colour gradient's)."""
     import raytracer_tpu_torch.ops.plain_grad as pg
     import torch_cornellbox
     import torch_primitives
@@ -4259,98 +4297,133 @@ def backward_phase(torch, dev):
 
     t_phase = time.perf_counter()
     (WORK / "bwd").mkdir(parents=True, exist_ok=True)
+    w6w5 = ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd")
+    ior = ("refr_n_re",)
+    colour = ("diffuse_color", "glossy_color", "glossy_n_re")
+    # (scene, the tables the gradient takes, the backward kernels that must
+    # launch in it)
     scenes = {
-        "sphere": lambda: build_scene(TRUE_N, DIFF_W, DIFF_H),
-        "icosphere": lambda: build_mesh_scene(TRUE_N, DIFF_W, DIFF_H, WORK / "bwd"),
-        "Cornell": lambda: torch_cornellbox.build_cornell(DIFF_W, DIFF_W),
-        "primitives": lambda: torch_primitives.primitives(DIFF_W, DIFF_H),
+        "sphere": (lambda: build_scene(TRUE_N, DIFF_W, DIFF_H), ior,
+                   (*w6w5, "shade_refractive_bwd")),
+        "icosphere": (lambda: build_mesh_scene(TRUE_N, DIFF_W, DIFF_H, WORK / "bwd"), ior,
+                      (*w6w5, "shade_refractive_bwd")),
+        "Cornell": (lambda: torch_cornellbox.build_cornell(DIFF_W, DIFF_W), ior,
+                    (*w6w5, "shade_refractive_bwd", "shade_diffuse_bwd")),
+        "primitives": (lambda: torch_primitives.primitives(DIFF_W, DIFF_H), ior,
+                       (*w6w5, "shade_refractive_bwd", "shade_diffuse_bwd",
+                        "shade_glossy_bwd")),
+        # the colour tables: the start's and W5's inputs take no gradient
+        "primitives colour": (lambda: torch_primitives.primitives(DIFF_W, DIFF_H), colour,
+                              ("bounce_update_bwd", "shade_diffuse_bwd",
+                               "shade_glossy_bwd")),
     }
     saved = [(bt, "plain_start", bt.plain_start), (bt, "plain_update", bt.plain_update),
              (ha, "hit_attributes", ha.hit_attributes),
              (ha, "_apply_normal_maps", ha._apply_normal_maps),
-             (shade, "shade_refractive", shade.shade_refractive)]
+             (shade, "shade_refractive", shade.shade_refractive),
+             (shade, "shade_diffuse", shade.shade_diffuse),
+             (shade, "shade_glossy", shade.shade_glossy)]
     plain_stages_counted(BWD, "plain_W6", BWD, "plain_W5", "plain_W5")
-    # the plain refractive block on the card outside a hold: W4's forward is
-    # its kernel, and so is its backward
-    shade.shade_refractive = card_counted(shade.shade_refractive,
-                                          lambda ctx, *a: ctx.P.device, BWD, "plain_W4")
+    # the plain W4 blocks on the card outside a hold: W4's forward is its
+    # kernels, and so is its backward
+    for name in ("shade_refractive", "shade_diffuse", "shade_glossy"):
+        setattr(shade, name, card_counted(getattr(shade, name),
+                                          lambda ctx, *a: ctx.P.device, BWD, "plain_W4"))
     gen = torch.Generator(device=dev).manual_seed(24)
-    rows, entries = {}, ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd",
-                         "shade_refractive_bwd")
+    entries = tuple(BWD_ENTRIES)
+    rows = {}
     try:
-        for name, make in scenes.items():
+        for name, (make, tables, need) in scenes.items():
             fn, data = differentiable_render(make(), DIFF_SPP, seed=0, device=dev)
-            x = data.mats.refr_n_re.clone().requires_grad_(True)
             before = {k: BWD[k] for k in ("plain_W6", "plain_W5", "plain_W4")}
             bt.reset_launches()
             ha.reset_launches()
             ws.reset_launches()
             calls = []
+
+            def grad():
+                xs = [getattr(data.mats, k).clone().requires_grad_(True) for k in tables]
+                img = fn(update_materials(data, **dict(zip(tables, xs))))
+                return torch.autograd.grad(torch.mean(img ** 2), xs)
+
             with pg.recording(calls, bt._Start, bt._Update, ha._Attrs, ws._Shade):
-                g, = torch.autograd.grad(
-                    torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2), x)
+                gs = grad()
                 torch.cuda.synchronize()
             launched = {**bt.backward_launches(), "hit_attrs_bwd": ha.backward_launches(),
-                        "shade_refractive_bwd": ws.backward_launches()}
+                        **ws.backward_launches()}
             routes = {**{f"W6 {k}": v for k, v in bt.plain_routes.items()},
                       **{f"W5 {k}": v for k, v in ha.plain_routes.items()},
-                      "W4 refractive": ws.plain_routes["refractive"]}
-            w4_plain = {k: v for k, v in ws.plain_routes.items() if k != "refractive"}
+                      **{f"W4 {k}": v for k, v in ws.plain_routes.items()}}
             runs = {k[len("plain_"):]: BWD[k] - before[k] for k in before}
             for k, v in launched.items():
                 BWD["launches"][k] += v
             # Cornell's and the primitives' IoR gradients are NaN, as the JAX
             # package's are (tests/test_torch_diff.py); the holds below are
             # what is required of them
-            finite = bool(torch.isfinite(g).all())
-            require(name not in ("sphere", "icosphere")
-                    or (finite and float(g.abs().max()) > 0),
-                    f"backward {name}: gradient {g.tolist()}")
-            require(all(v > 0 for v in launched.values()),
+            finite = all(bool(torch.isfinite(g).all()) for g in gs)
+            require(name not in ("sphere", "icosphere", "primitives colour")
+                    or (finite and all(float(g.abs().max()) > 0 for g in gs)),
+                    f"backward {name}: gradient {[g.tolist() for g in gs]}")
+            require(all(launched[k] > 0 for k in need),
                     f"backward {name}: backward kernel launches {launched}")
             require(runs == {"W6": 0, "W5": 0, "W4": 0},
                     f"backward {name}: plain stages ran on the card {runs}")
             require(not any(routes.values()),
                     f"backward {name}: plain-VJP routes taken {routes}")
+            again = ""
+            if name == "primitives colour":
+                # F4: a second backward pass gives the same bits
+                gs2 = grad()
+                same = all(bool((a.view(torch.int32) == b.view(torch.int32)).all())
+                           for a, b in zip(gs, gs2))
+                require(same, f"backward {name}: two backward passes differ")
+                again = f", a second pass bit-equal {same}"
             # hold every recorded call bit for bit, then with finite gradients
             counts, timed = _bwd_holds(torch, calls, gen, name, entries)
             drawn, _ = _bwd_holds(torch, calls, gen, name, entries, redraw=True)
-            shares = {k: counts[k][0] / max(counts[k][1], 1) for k in entries}
-            fin = {k: counts[k][2] / max(counts[k][3], 1) for k in entries}
-            d_shares = {k: drawn[k][0] / max(drawn[k][1], 1) for k in entries}
-            d_fin = {k: drawn[k][2] / max(drawn[k][3], 1) for k in entries}
-            require(all(c[0] == c[1] > 0 for c in (*counts.values(), *drawn.values()))
-                    and all(timed[k] for k in entries),
+            shares = {k: counts[k][0] / max(counts[k][1], 1) for k in need}
+            fin = {k: counts[k][2] / max(counts[k][3], 1) for k in need}
+            d_shares = {k: drawn[k][0] / max(drawn[k][1], 1) for k in need}
+            d_fin = {k: drawn[k][2] / max(drawn[k][3], 1) for k in need}
+            require(all(c[0] == c[1] for c in (*counts.values(), *drawn.values()))
+                    and all(counts[k][1] > 0 and drawn[k][1] > 0 and timed[k] for k in need),
                     f"backward {name}: bit-equal shares {shares}, with drawn gradients "
-                    f"{d_shares}, calls that launched {[k for k in entries if timed[k]]}")
+                    f"{d_shares}, calls that launched {[k for k in need if timed[k]]}")
             require(all(v >= BWD_FINITE for v in d_fin.values())
                     and (name not in ("sphere", "icosphere")
                          or all(v >= BWD_FINITE for v in fin.values())),
                     f"backward {name}: finite shares {fin}, with drawn gradients {d_fin}")
             # time every call that launched its kernel, the L2 cold
             parts = []
-            for entry in entries:
+            for entry in need:
                 ms, plain_ms, n_bytes, whole_ms = [], [], [], []
                 for f, call, xs, grads, wants, got in timed[entry]:
                     kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
-                    if entry == "shade_refractive_bwd":
-                        # the kernel alone (its per-ray table rows), then the
-                        # whole VJP with the tables' scans
-                        s = ws.refr_saved(*call[1:5])
-                        ms.append(common.cold_ms(lambda: ws._refractive_rows(
-                            grads, s, wants), W6_REPS)[0])
+                    if f is ws._Shade:
+                        # the kernel alone (its gradients and the tables'
+                        # rows), then the whole VJP with the tables'
+                        # reductions
+                        mt = call[0]
+                        s = (ws.refr_saved(*call[1:5]) if mt == ws.MAT_REFRACTIVE
+                             else ws.diff_saved(*call[1:5]) if mt == ws.MAT_DIFFUSE
+                             else ws.gloss_saved(*call[1:5], call[6]))
+                        rows_fn = {ws.MAT_REFRACTIVE: ws._refractive_rows,
+                                   ws.MAT_DIFFUSE: ws._diffuse_rows,
+                                   ws.MAT_GLOSSY: ws._glossy_rows}[mt]
+                        ms.append(common.cold_ms(lambda: rows_fn(grads, s, wants),
+                                                 W6_REPS)[0])
                         whole_ms.append(common.cold_ms(kernel, W6_REPS)[0])
                     else:
                         ms.append(common.cold_ms(kernel, W6_REPS)[0])
                     with held(BWD):
                         plain_ms.append(common.cuda_ms(plain, 1))
-                    n_bytes.append(bwd_bytes(entry, call, xs, grads, got))
+                    n_bytes.append(bwd_bytes(entry, call, xs, grads, got, wants))
                 n = len(ms)
                 row = common.row(BWD_ENTRIES[entry][0], BWD_ENTRIES[entry][1],
                                  BWD_ENTRIES[entry][2], 0, 0.0, sum(ms) / n,
                                  sum(plain_ms) / n, 0, sum(n_bytes) / n)
                 share = [common.bound(0, b)[0] / t for b, t in zip(n_bytes, ms)]
-                whole = (f"; with the tables' scans {sum(whole_ms) / n:.4f} ms"
+                whole = (f"; with the tables' reductions {sum(whole_ms) / n:.4f} ms"
                          if whole_ms else "")
                 parts.append(f"{entry} {n} calls of {timed[entry][0][2][0].shape[0]} rays, "
                              f"cold {row['ms']:.4f} ms a call ({min(ms):.4f}-{max(ms):.4f}"
@@ -4358,13 +4431,16 @@ def backward_phase(torch, dev):
                              f"{sum(n_bytes) / n:.0f} bytes, bound {row['bound_ms']:.4f} ms, "
                              f"share {row['bound_ms'] / row['ms']:.4f} "
                              f"({min(share):.4f}-{max(share):.4f})")
-                if name == "sphere":
+                if name == "sphere" or (name == "primitives colour"
+                                        and entry in ("shade_diffuse_bwd",
+                                                      "shade_glossy_bwd")):
                     rows[entry] = row
-            print(f"backward {name}: IoR gradient {DIFF_W}x{DIFF_H} x {DIFF_SPP} spp "
-                  f"(finite {finite}, d loss / d refr_n_re[0] {g[0].tolist()}), "
+            grad_text = ", ".join(f"d loss / d {k}[0] {g[0].tolist()}"
+                                  for k, g in zip(tables, gs))
+            print(f"backward {name}: gradient of {', '.join(tables)} {DIFF_W}x{DIFF_H} x "
+                  f"{DIFF_SPP} spp (finite {finite}{again}, {grad_text}), "
                   f"{len(calls)} backward calls recorded | launches {launched} | plain "
-                  f"stages on the card {runs} | plain-VJP routes {routes} | W4 diffuse "
-                  f"and glossy backward calls through the plain VJP {w4_plain} | bit-equal "
+                  f"stages on the card {runs} | plain-VJP routes {routes} | bit-equal "
                   f"shares {shares}, finite on both sides {fin} | with drawn gradients "
                   f"bit-equal {d_shares}, finite {d_fin} | " + " | ".join(parts),
                   flush=True)
@@ -4378,9 +4454,9 @@ def backward_phase(torch, dev):
     for entry in entries:
         kernel = BWD_ENTRIES[entry][3]
         r = use[next(k for k in use if kernel in k)]
+        mt = next((t for t, e in W4_BWD.items() if e == entry), None)
         inf = (ha.info(backward=True) if entry == "hit_attrs_bwd"
-               else ws.info(ws.MAT_REFRACTIVE, backward=True)
-               if entry == "shade_refractive_bwd" else bt.info(entry))
+               else ws.info(mt, backward=True) if mt is not None else bt.info(entry))
         parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
                      f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "
                      f"{inf['block']} threads")

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .safemath import safe_sqrt
+from .safemath import safe_sqrt, take
 
 _TWO_PI = 2.0 * math.pi
 
@@ -203,6 +203,13 @@ def spherical_cap_sample(generator, cos_max, normal):
 # v = (asin(y) + pi/2) / pi.
 
 
+def _gather(table, idx):
+    """table[idx] (idx int32 of any shape) through core/safemath.py `take`:
+    a table that requires grad takes its gradient by `take`'s fixed-order
+    scan, as every gather from such a table does."""
+    return take(table, idx.reshape(-1).long()).reshape(idx.shape)
+
+
 def env_alias_sample(u1, u2, prob, alias, hw):
     """Directions distributed per the environment's alias tables; u1 and
     u2 in [0, 1)."""
@@ -211,7 +218,7 @@ def env_alias_sample(u1, u2, prob, alias, hw):
     x = u1 * n
     k = torch.clamp(x.to(torch.int32), 0, n - 1)
     ju = x - k                          # the fraction is the u jitter
-    p = prob[k.long()]
+    p = _gather(prob, k)
     take = u2 < p
     k = torch.where(take, k, alias[k.long()].to(torch.int32))
     jv = torch.where(take, u2 / torch.clamp_min(p, 1e-12),
@@ -240,7 +247,7 @@ def env_pdf_value(direction, pdf_table, hw):
     i = torch.clamp((v * Hs).to(torch.int32), 0, Hs - 1)
     j = torch.remainder((u * Ws).to(torch.int32), Ws)
     idx = torch.clamp(i * Ws + j, 0, pdf_table.shape[0] - 1)
-    return pdf_table[idx.long()]
+    return _gather(pdf_table, idx)
 
 
 # ---------------------------------------------------------------------------

@@ -355,6 +355,12 @@ __device__ __forceinline__ float tsum3(float x0, float x1, float x2) {
   return ((0.0f + x0) + (0.0f + x2)) + (0.0f + x1);
 #endif
 }
+// tsum3 as a functor, for the texture fetch's bilinear backward
+struct Sum3 {
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2) const {
+    return tsum3(x0, x1, x2);
+  }
+};
 
 // The update's backward: the gradients of the next carry's floats (null
 // where none comes), the forward's throughput, add and beta_mult rows and
@@ -486,49 +492,6 @@ __device__ __forceinline__ float em_share(const StartBwd& S, bool m_em, bool m_e
   return m_em ? a : 0.0f;
 }
 
-// materials/shade.py fetch_texture's bilinear branch, backward of the
-// colour's gradient G into (u, v), the texture taking none:
-//   x = u su - 0.5, x0 = floor(x), fx = (x - x0)[..., None] (y likewise)
-//   c = (((1 - fx) (1 - fy)) t00 + (fx (1 - fy)) t10)
-//       + ((1 - fx) fy) t01 + (fx fy) t11
-// Each weight's gradient is torch.sum of G times its texel; fx's buffer
-// takes, as the engine runs the terms last to first, fx fy's, (1 - fx)
-// fy's, fx (1 - fy)'s, then (1 - fx) (1 - fy)'s; the floor adds +0 to x.
-// (gu, gv) are what uv[..., 0] * su and uv[..., 1] * sv hand their select.
-__device__ __forceinline__ void bilinear_bwd(const Textures& T, int r, float u, float v,
-                                             const float* G, float* gu, float* gv) {
-  const int* d = T.desc_i + 4 * r;
-  const float* tex = T.texels + 3 * (long long)d[0];
-  const int H = d[1], W = d[2];
-  const float su = T.desc_f[2 * r], sv = T.desc_f[2 * r + 1];
-  const float x = u * su - 0.5f, y = v * sv - 0.5f;
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float fx = x - x0, fy = y - y0;
-  const int ix = (int)x0, iy = (int)y0;
-  const int ix1 = wrap_add(ix, 1), iy1 = wrap_add(iy, 1);
-  float c00[3], c10[3], c01[3], c11[3];
-  tap(tex, H, W, ix, iy, c00);
-  tap(tex, H, W, ix1, iy, c10);
-  tap(tex, H, W, ix, iy1, c01);
-  tap(tex, H, W, ix1, iy1, c11);
-  const float g11 = tsum3(G[0] * c11[0], G[1] * c11[1], G[2] * c11[2]);
-  const float g01 = tsum3(G[0] * c01[0], G[1] * c01[1], G[2] * c01[2]);
-  const float g10 = tsum3(G[0] * c10[0], G[1] * c10[1], G[2] * c10[2]);
-  const float g00 = tsum3(G[0] * c00[0], G[1] * c00[1], G[2] * c00[2]);
-  const float ax = 1.0f - fx, ay = 1.0f - fy;
-  // fx fy; ((1 - fx) fy): 1 - fx takes g01 fy; (fx (1 - fy)): 1 - fy takes
-  // g10 fx; ((1 - fx)(1 - fy)): each takes g00 times the other
-  float gfx = g11 * fy, gfy = g11 * fx;
-  gfy = gfy + g01 * ax;
-  gfx = gfx + -(g01 * fy);
-  gfx = gfx + g10 * ay;
-  gfy = gfy + -(g10 * fx);
-  gfy = gfy + -(g00 * ax);
-  gfx = gfx + -(g00 * ay);
-  *gv = (gfy + 0.0f) * sv;
-  *gu = (gfx + 0.0f) * su;
-}
-
 // component k of ray i's P, D, medium and emissive row
 __device__ __forceinline__ void start_bwd_element(const StartBwd& S, long long i,
                                                   int k) {
@@ -570,7 +533,7 @@ __device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
         cur[k] = m ? 0.0f : cur[k];
       }
       if (!(S.em_ref_tex.desc_i[4 * r + 3] & 2)) continue;
-      bilinear_bwd(S.em_ref_tex, r, u, v, gc, &gu, &gv);
+      bilinear_bwd(S.em_ref_tex, r, u, v, gc, &gu, &gv, Sum3());
       a0 = has ? a0 + 0.0f : 0.0f;
       a1 = has ? a1 + gv : gv;
       a0 = a0 + gu;

@@ -2,7 +2,8 @@
 // fetch_texture, _slot_color), shared by W4 (wavefront_shade.cu: the
 // diffuse, refractive and glossy blocks' slot colours) and W6
 // (bounce_tail.cu: the emissive slots' colours and the environments'
-// texels), with the int32 ops it rounds by.  Each is torch's op as the
+// texels), with the int32 ops it rounds by, and its bilinear branch's
+// backward into uv (W6's start, W4's diffuse and glossy backward).  Each is torch's op as the
 // plain version runs it: float -> int32 truncation, a floored modulo,
 // int32 arithmetic that wraps, one rounding a product or a sum (the
 // sources are built with --fmad=false, the CPU tests' g++ builds with
@@ -91,6 +92,52 @@ __device__ __forceinline__ void slot_color(const float* table, int rows,
   c[0] = table[3 * s];
   c[1] = table[3 * s + 1];
   c[2] = table[3 * s + 2];
+}
+
+// materials/shade.py fetch_texture's bilinear branch, backward of the
+// colour's gradient G into (u, v), the texture taking none:
+//   x = u su - 0.5, x0 = floor(x), fx = (x - x0)[..., None] (y likewise)
+//   c = (((1 - fx) (1 - fy)) t00 + (fx (1 - fy)) t10)
+//       + ((1 - fx) fy) t01 + (fx fy) t11
+// Each weight's gradient is torch.sum of G times its texel; fx's buffer
+// takes, as the engine runs the terms last to first, fx fy's, (1 - fx)
+// fy's, fx (1 - fy)'s, then (1 - fx) (1 - fy)'s; the floor adds +0 to x.
+// (gu, gv) are what uv[..., 0] * su and uv[..., 1] * sv hand their select.
+// tsum3: the including source's torch.sum over three (a functor).
+template <class Sum3>
+__device__ __forceinline__ void bilinear_bwd(const Textures& T, int r, float u, float v,
+                                             const float* G, float* gu, float* gv,
+                                             Sum3 tsum3) {
+  const int* d = T.desc_i + 4 * r;
+  const float* tex = T.texels + 3 * (long long)d[0];
+  const int H = d[1], W = d[2];
+  const float su = T.desc_f[2 * r], sv = T.desc_f[2 * r + 1];
+  const float x = u * su - 0.5f, y = v * sv - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int ix = (int)x0, iy = (int)y0;
+  const int ix1 = wrap_add(ix, 1), iy1 = wrap_add(iy, 1);
+  float c00[3], c10[3], c01[3], c11[3];
+  tap(tex, H, W, ix, iy, c00);
+  tap(tex, H, W, ix1, iy, c10);
+  tap(tex, H, W, ix, iy1, c01);
+  tap(tex, H, W, ix1, iy1, c11);
+  const float g11 = tsum3(G[0] * c11[0], G[1] * c11[1], G[2] * c11[2]);
+  const float g01 = tsum3(G[0] * c01[0], G[1] * c01[1], G[2] * c01[2]);
+  const float g10 = tsum3(G[0] * c10[0], G[1] * c10[1], G[2] * c10[2]);
+  const float g00 = tsum3(G[0] * c00[0], G[1] * c00[1], G[2] * c00[2]);
+  const float ax = 1.0f - fx, ay = 1.0f - fy;
+  // fx fy; ((1 - fx) fy): 1 - fx takes g01 fy; (fx (1 - fy)): 1 - fy takes
+  // g10 fx; ((1 - fx)(1 - fy)): each takes g00 times the other
+  float gfx = g11 * fy, gfy = g11 * fx;
+  gfy = gfy + g01 * ax;
+  gfx = gfx + -(g01 * fy);
+  gfx = gfx + g10 * ay;
+  gfy = gfy + -(g10 * fx);
+  gfy = gfy + -(g00 * ax);
+  gfx = gfx + -(g00 * ay);
+  *gv = (gfy + 0.0f) * sv;
+  *gu = (gfx + 0.0f) * su;
 }
 
 }  // namespace texture_fetch

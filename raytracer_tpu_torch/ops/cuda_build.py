@@ -5,7 +5,7 @@ interface, loaded with ctypes: the render kernels (the solid kernel and
 the record kernel, which share a header, the wavefront's triangle sweep
 W1, ops/mesh_sweep.py, its pair search W2, ops/mesh_pairs.py, its
 analytic sweep W3, ops/analytic_sweep.py, its shading blocks W4 and the
-refractive block's backward, ops/wavefront_shade.py, its hit attributes
+refractive, diffuse and glossy blocks' backward, ops/wavefront_shade.py, its hit attributes
 W5, ops/hit_attrs.py, and its
 bounce tail W6, ops/bounce_tail.py) and
 the Hopper probes (csrc/probe_*.cu,
@@ -32,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("solid_trace.cu", "record_trace.cu", "mesh_sweep.cu",
            "mesh_pairs.cu", "analytic_sweep.cu", "wavefront_shade.cu",
-           "hit_attrs.cu", "bounce_tail.cu", "wavefront_shade_bwd.cu")
+           "hit_attrs.cu", "bounce_tail.cu", "wavefront_shade_bwd.cu",
+           "wavefront_diffuse_bwd.cu", "wavefront_glossy_bwd.cu")
 PROBE_SOURCES = ("probe_issue.cu", "probe_tri.cu", "probe_skip.cu",
                  "probe_gather.cu", "probe_isect.cu")
 SETS = {"kernels": SOURCES, "probes": PROBE_SOURCES}

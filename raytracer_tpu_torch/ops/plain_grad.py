@@ -3,11 +3,10 @@ kernel.
 
 W4's blocks (`wavefront_shade._Shade`), W5's attributes (`hit_attrs._Attrs`)
 and W6's bounce tail (`bounce_tail._Start`, `_Update`) each run their
-kernel in a `torch.autograd.Function`.  W4's diffuse and glossy blocks'
-backward recomputes the plain block from the saved inputs and returns its
-vector-Jacobian product (`plain_vjp`); W4's refractive block's, W5's and
-W6's backward are kernels of their own, held to that plain VJP bit for bit
-(`wavefront_shade.plain_shade_vjp`, `bounce_tail.plain_update_vjp`,
+kernel in a `torch.autograd.Function`.  Their backward passes are
+kernels of their own, held bit for bit to the plain stage's
+vector-Jacobian product, recomputed from the saved inputs (`plain_vjp`;
+`wavefront_shade.plain_shade_vjp`, `bounce_tail.plain_update_vjp`,
 `plain_start_vjp`, `hit_attrs.plain_attrs_vjp`), which they take only on
 the explicit routes their modules count.  Each forward calls
 `set_materialize_grads(False)`, so that an output that takes no gradient

@@ -24,14 +24,18 @@ Where autograd records the block (grad enabled and a field of the
 merged output, an input or a table requiring grad), the kernel runs
 inside `_Shade`, an autograd.Function whose backward returns the merge's
 gradient and, where the block's own inputs need one, the block's
-vector-Jacobian product: the gradient is the plain dispatch's.  The
-refractive block's backward is a kernel of its own on CUDA tensors
-(`refractive_vjp`: csrc/wavefront_shade_bwd.cu `shade_refractive_bwd`,
-one launch a backward call, the plain VJP bit for bit); the diffuse and
-glossy blocks' backward recomputes the plain block under enable_grad
-for its VJP (`plain_shade_vjp`), a route counted in `plain_routes`.
+vector-Jacobian product: the gradient is the plain dispatch's.  Each
+block's backward is a kernel of its own on CUDA tensors, one launch a
+backward call, the plain VJP bit for bit: `refractive_vjp`
+(csrc/wavefront_shade_bwd.cu `shade_refractive_bwd`), `diffuse_vjp`
+(csrc/wavefront_diffuse_bwd.cu `shade_diffuse_bwd`), `glossy_vjp`
+(csrc/wavefront_glossy_bwd.cu `shade_glossy_bwd`).  Where a colour
+texture the diffuse or glossy block reads requires grad, or on CPU
+tensors without a backward library, the backward recomputes the plain
+block under enable_grad for its VJP (`plain_shade_vjp`), a route counted
+in `plain_routes`.
 
-`_kernel_shade` and `refractive_vjp` take `lib=` (and `_kernel_shade`
+`_kernel_shade` and the `*_vjp` take `lib=` (and `_kernel_shade`
 `bwd_lib=`): the tests pass the CPU stand-in's builds of the sources
 (csrc/emu) with CPU tensors.
 """
@@ -47,6 +51,7 @@ from typing import Any
 
 import torch
 
+from ..core.compile import TexRef
 from ..core.safemath import take_backward
 from ..materials import shade
 from ..materials.base import MAT_DIFFUSE, MAT_GLOSSY, MAT_REFRACTIVE
@@ -410,7 +415,7 @@ def _launch(mt, ctx, draws, packed, out, occ=None, lib=None):
 
 
 # ---------------------------------------------------------------------------
-# autograd: the kernel forward, the plain block's backward
+# autograd: the kernel forward, the backward kernels or the plain block's
 # ---------------------------------------------------------------------------
 
 _CTX_FIELDS = ("D", "n_re", "n_im", "t", "P", "N", "uv", "eps")
@@ -761,10 +766,606 @@ def refractive_vjp(grads, saved, wants, lib=None):
         else:
             res.append(None)
     return [*passes, *res]
+
+
+# ---------------------------------------------------------------------------
+# the diffuse block's backward kernel
+# ---------------------------------------------------------------------------
+
+
+class DiffBwd(ctypes.Structure):
+    _fields_ = [("packed", _V), ("m", _V), ("P", _V), ("N", _V), ("eps", _V), ("uv", _V),
+                ("diffuse_refl", _V), ("u_mix", _V), ("u_phi", _V), ("u_r2", _V),
+                ("s_mix", _V), ("s_phi", _V), ("s_r2", _V), ("pick", _V), ("color", _V),
+                ("ambient_w", _V), ("rows", _I), ("refs", _I), ("ref_slot", _V),
+                ("ref_tex", Textures), ("is_center", _V), ("is_radius", _V), ("K", _I),
+                ("env_prob", _V), ("env_alias", _V), ("env_pdf", _V), ("Hs", _I),
+                ("Ws", _I), ("n", _L), ("g", _V * 3), ("pass_", _V * 3), ("dP", _V),
+                ("dN", _V), ("deps", _V), ("duv", _V), ("color_rows", _V),
+                ("w_rows", _V), ("prob_rows", _V), ("pdf_rows", _V), ("cen_pdf", _V),
+                ("rad_pdf", _V), ("cen_smp", _V), ("rad_smp", _V), ("prob_idx", _V),
+                ("pdf_idx", _V), ("opdf_rows", _V), ("osmp_rows", _V), ("outer_rows", _I)]
+
+
+ENTRIES["shade_diffuse_bwd"] = [ctypes.POINTER(DiffBwd), _V, ctypes.POINTER(_I)]
+
+
+def _outer_rows(K, n, lib=None):
+    """Whether the engine's sum_to over K of an (n, K, 3) gradient splits
+    each output across blocks on the device (`lib`'s
+    `shade_diffuse_bwd_outer`; thousands of caps): the diffuse backward then
+    leaves the nudged origin's sums over the caps to `_diffuse_rows`."""
+    fn = (lib or cuda_build.load_library()).shade_diffuse_bwd_outer
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_L, _L, ctypes.POINTER(_I)], _I
+    rows = _I(0)
+    err = fn(K, n, ctypes.byref(rows))
+    if err:
+        raise RuntimeError(f"shade_diffuse_bwd_outer: CUDA error {err}")
+    return bool(rows.value)
+
+_DIFF_INPUTS = _CTX_FIELDS + ("diffuse_color", "diffuse_ambient_weight", "is_center",
+                              "is_radius", "env_is_prob", "env_is_pdf")
+
+
+def ref_tables(data, static, mt):
+    """{"slot": (refs,) int32 each image-texture ref's slot, "tex": its
+    (texels, desc_i, desc_f) a row a ref} of the diffuse or glossy block's
+    colour textures (SceneStatic.diffuse_tex / glossy_tex, in order), as
+    the backward kernels read `_slot_color`'s wheres; None without refs.
+    Kept on the material tables."""
+    refs = static.diffuse_tex if mt == MAT_DIFFUSE else static.glossy_tex
+    if not refs:
+        return None
+    mats = data.mats
+    table = mats.diffuse_color if mt == MAT_DIFFUSE else mats.glossy_color
+    tag = f"w4_bwd_{_BLOCKS[mt][0]}"
+
+    def make():
+        slot = torch.tensor([r.slot for r in refs], dtype=torch.int32, device=table.device)
+        return {"slot": slot, "tex": texture_tables(
+            mats, slot, [TexRef(i, r.tex, r.repeat, r.bilinear) for i, r in enumerate(refs)],
+            data.textures, tag)}
+
+    used = sorted({r.tex for r in refs})
+    return kept(mats, f"_{tag}_refs_" + "_".join(f"{r.slot}.{r.tex}.{r.repeat}.{r.bilinear}"
+                                                for r in refs),
+                (table, *(data.textures[k] for k in used)), make)
+
+
+@dataclass
+class DiffSaved:
+    """What the diffuse backward kernel reads of a call: the block's mask,
+    the rays' words and state, its draws, the slots (the gathers' index),
+    its tables (`_DIFF_SAVED`; None where the scene has no caps, no
+    environment sampling or no stratified draws) and its colour textures'
+    refs (`ref_tables`), the environment's grid and whether a ref is
+    bilinear."""
+    m: Any
+    packed: Any
+    P: Any
+    N: Any
+    eps: Any
+    uv: Any
+    diffuse_refl: Any
+    u_mix: Any
+    u_phi: Any
+    u_r2: Any
+    s_mix: Any
+    s_phi: Any
+    s_r2: Any
+    pick: Any
+    mat_slot: Any
+    color: Any
+    ambient_w: Any
+    is_center: Any
+    is_radius: Any
+    env_prob: Any
+    env_alias: Any
+    env_pdf: Any
+    ref_slot: Any
+    ref_texels: Any
+    ref_desc_i: Any
+    ref_desc_f: Any
+    hw: tuple
+    bilinear: bool
+
+
+_DIFF_SAVED = tuple(f.name for f in dataclasses.fields(DiffSaved))[:-2]
+
+
+def diff_saved(ctx, draws, packed, m):
+    """The DiffSaved of a diffuse call on the bounce."""
+    data, static, mats = ctx.data, ctx.static, ctx.data.mats
+    (u_mix, u_phi, u_r2), pick = draws[MAT_DIFFUSE]
+    s = ctx.strat_u if ctx.strat_u is not None else (None, None, None)
+    K, hw = static.n_is_targets, tuple(static.env_is_shape)
+    env = hw != (0, 0)
+    refs = ref_tables(data, static, MAT_DIFFUSE)
+    tex = refs["tex"] if refs else (None, None, None)
+    return DiffSaved(
+        m=m, packed=packed, P=ctx.P, N=ctx.N, eps=ctx.eps, uv=ctx.uv,
+        diffuse_refl=ctx.diffuse_reflections, u_mix=u_mix, u_phi=u_phi, u_r2=u_r2,
+        s_mix=s[0], s_phi=s[1], s_r2=s[2], pick=pick if K else None,
+        mat_slot=ctx.mat_slot, color=mats.diffuse_color,
+        ambient_w=mats.diffuse_ambient_weight,
+        is_center=data.is_center if K else None, is_radius=data.is_radius if K else None,
+        env_prob=data.env_is_prob if env else None,
+        env_alias=data.env_is_alias if env else None,
+        env_pdf=data.env_is_pdf if env else None,
+        ref_slot=refs["slot"] if refs else None, ref_texels=tex[0], ref_desc_i=tex[1],
+        ref_desc_f=tex[2], hw=hw, bilinear=any(r.bilinear for r in static.diffuse_tex))
+
+
+def _diffuse_rows(grads, saved, wants, lib=None):
+    """W4's diffuse backward kernel (`lib`; csrc/wavefront_diffuse_bwd.cu
+    `shade_diffuse_bwd`), one launch, on the arguments of `diffuse_vjp`
+    (grads not all None): (the fields' pass-through gradients, {input: its
+    gradient} of the rays' inputs the kernel writes, {table input: its
+    rows}: a gathered table's (per-ray rows, their index), the caps'
+    [(ray, cap) rows of the pdf's geometry or None, those of the sample's
+    or None]).  Adds its launches to `_diffuse_rows.launches`."""
+    s = saved
+    nw = len(WRITTEN[MAT_DIFFUSE])
+    gb, go, gd = (g is not None for g in grads)
+    caps, env = s.is_center is not None, s.env_prob is not None
+    reach = {"P": go or ((gb or gd) and caps), "eps": go or ((gb or gd) and caps),
+             "N": True, "uv": gb and s.bilinear, "diffuse_color": gb,
+             "diffuse_ambient_weight": gb and (caps or env),
+             "is_center": (gb or gd) and caps, "is_radius": (gb or gd) and caps,
+             "env_is_prob": (gb or gd) and env, "env_is_pdf": gb and env}
+    want = {x: w and reach.get(x, False) for x, w in zip(_DIFF_INPUTS, wants[nw:])}
+    n, dev = s.P.shape[0], s.P.device
+    K = s.is_center.shape[0] if caps else 0
+    f32 = lambda *shape: torch.empty((n, *shape), dtype=torch.float32, device=dev)
+    i64 = lambda: torch.empty((n,), dtype=torch.int64, device=dev)
+    passes = [f32(3) if w and g is not None else None
+              for w, g in zip(wants[:nw], grads)]
+    out = {x: f32(*{"eps": (), "uv": (2,)}.get(x, (3,)))
+           for x in ("P", "N", "eps", "uv") if want[x]}
+    rows = {}
+    if want["diffuse_color"]:
+        rows["diffuse_color"] = f32(3)
+    if want["diffuse_ambient_weight"]:
+        rows["diffuse_ambient_weight"] = f32()
+    if want["env_is_prob"]:
+        rows["env_is_prob"] = (f32(), i64())
+    if want["env_is_pdf"]:
+        rows["env_is_pdf"] = (f32(), i64())
+    if want["is_center"]:
+        rows["is_center"] = [f32(K, 3) if gb else None, f32(K, 3)]
+    if want["is_radius"]:
+        rows["is_radius"] = [f32(K) if gb else None, f32(K)]
+    # where the sums over the caps split across blocks, the origin's shares
+    # as rows, summed below by ATen's own op
+    outer = (caps and (gb or gd) and bool(out or rows) and n > 0
+             and _outer_rows(K, n, lib))
+    orows = [f32(K, 3) if gb else None, f32(K, 3)] if outer else [None, None]
+    if outer:
+        dN = out.pop("N", None)
+        part = f32(3)
+        out_kernel = {x: t for x, t in out.items() if x not in ("P", "eps")}
+        out_kernel["N"] = part
+    else:
+        out_kernel = out
+    if n and (out or rows or any(x is not None for x in passes)):
+        if s.m.dtype != torch.bool:
+            raise TypeError("W4's backward takes a bool mask")
+        if caps and (s.pick is None or s.pick.dtype != torch.int64):
+            raise TypeError("W4's caps backward takes an int64 pick")
+        ins = dict(packed=_i32(s.packed), m=s.m.contiguous(), P=_f32(s.P), N=_f32(s.N),
+                   eps=_f32(s.eps), uv=_f32(s.uv), diffuse_refl=_i32(s.diffuse_refl),
+                   u_mix=_f32(s.u_mix), u_phi=_f32(s.u_phi), u_r2=_f32(s.u_r2),
+                   color=_f32(s.color))
+        if s.s_mix is not None:
+            ins.update(s_mix=_f32(s.s_mix), s_phi=_f32(s.s_phi), s_r2=_f32(s.s_r2))
+        if caps or env:
+            ins.update(ambient_w=_f32(s.ambient_w))
+        if caps:
+            ins.update(pick=s.pick.contiguous(), is_center=_f32(s.is_center),
+                       is_radius=_f32(s.is_radius))
+        if env:
+            ins.update(env_prob=_f32(s.env_prob),
+                       env_alias=s.env_alias.to(torch.int32).contiguous(),
+                       env_pdf=_f32(s.env_pdf))
+        tex = {}
+        if s.ref_slot is not None:
+            tex = dict(ref_slot=s.ref_slot.contiguous(), texels=s.ref_texels,
+                       desc_i=s.ref_desc_i, desc_f=s.ref_desc_f)
+        gs = [None if g is None else _f32(g) for g in grads]
+        for name, x in [*ins.items(), *tex.items(), *(("grad", g) for g in gs if g is not None)]:
+            if x.device != dev:
+                raise ValueError(f"W4's backward: {name} is on {x.device}, the rays on {dev}")
+        pair = lambda x: (None, None) if x is None else (_p(x[0]), _p(x[1]))
+        two = lambda x, k: None if x is None else _p(x[k])
+        prob, pdf = pair(rows.get("env_is_prob")), pair(rows.get("env_is_pdf"))
+        struct = DiffBwd(
+            **{k: v.data_ptr() for k, v in ins.items()}, rows=s.color.shape[0],
+            refs=0 if s.ref_slot is None else s.ref_slot.shape[0],
+            ref_slot=_p(tex.get("ref_slot")),
+            ref_tex=Textures(_p(tex.get("texels")), _p(tex.get("desc_i")),
+                             _p(tex.get("desc_f"))),
+            K=K, Hs=s.hw[0], Ws=s.hw[1], n=n, g=(_V * 3)(*(_p(g) for g in gs)),
+            pass_=(_V * 3)(*(_p(x) for x in passes)),
+            **{f"d{x}": t.data_ptr() for x, t in out_kernel.items()},
+            color_rows=_p(rows.get("diffuse_color")),
+            w_rows=_p(rows.get("diffuse_ambient_weight")), prob_rows=prob[0],
+            prob_idx=prob[1], pdf_rows=pdf[0], pdf_idx=pdf[1],
+            cen_pdf=two(rows.get("is_center"), 0), cen_smp=two(rows.get("is_center"), 1),
+            rad_pdf=two(rows.get("is_radius"), 0), rad_smp=two(rows.get("is_radius"), 1),
+            opdf_rows=_p(orows[0]), osmp_rows=_p(orows[1]), outer_rows=int(outer))
+        _diffuse_rows.launches += _call(
+            lib, "shade_diffuse_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
+            entries=ENTRIES)
+    if outer:
+        # nudged = P + N eps: its buffer (new_origin's, the caps pdf's share,
+        # the sample's), each share the engine's sum_to over K of the rows
+        parts = ([torch.where(s.m[:, None], _f32(grads[1]), 0.0)] if go else []) + [
+            r.sum_to_size(n, 1, 3).reshape(n, 3) for r in orows if r is not None]
+        bo = parts[0]
+        for x in parts[1:]:
+            bo = bo + x
+        if "P" in out:
+            out["P"] = bo
+        if "eps" in out:
+            out["eps"] = (bo * _f32(s.N)).sum_to_size(n, 1).reshape(n)
+        if dN is not None:
+            out["N"] = part + bo * _f32(s.eps)[:, None]
+    return passes, out, rows
+
+
+_diffuse_rows.launches = 0
+
+
+def diffuse_vjp(grads, saved, wants, lib=None):
+    """The diffuse block's backward from W4's backward kernel
+    (`_diffuse_rows`): from the gradients of the three fields the entry
+    writes (grads, one a WRITTEN[MAT_DIFFUSE]; None where none comes) and
+    the DiffSaved `saved`, the gradients `_Shade`'s backward returns
+    (wants: its needs_input_grad past the call): the fields' pass-through
+    gradients, then those of the block's `_inputs` (the textures' None: a
+    texture that requires grad takes the plain VJP), as `plain_shade_vjp`
+    gives them, bit for bit.  The gathered tables' gradients are
+    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows;
+    is_center's and is_radius's the engine's sum_to over the rays of the
+    caps pdf's (ray, cap) rows, plus that of the caps sample's."""
+    if all(g is None for g in grads):
+        return [None] * len(wants)
+    passes, out, rows = _diffuse_rows(grads, saved, wants, lib)
+    s = saved
+    res = []
+    for x in _DIFF_INPUTS:
+        if x in out:
+            res.append(out[x])
+        elif x in ("diffuse_color", "diffuse_ambient_weight") and x in rows:
+            table = s.color if x == "diffuse_color" else s.ambient_w
+            res.append(take_backward(shade.slot_rows(s.mat_slot, table), rows[x], table.shape))
+        elif x in ("env_is_prob", "env_is_pdf") and x in rows:
+            table = s.env_prob if x == "env_is_prob" else s.env_pdf
+            res.append(take_backward(rows[x][1], rows[x][0], table.shape))
+        elif x in rows:
+            table = s.is_center if x == "is_center" else s.is_radius
+            parts = [r.sum_to_size(table.shape) for r in rows[x] if r is not None]
+            res.append(parts[0] if len(parts) == 1 else parts[0] + parts[1])
+        else:
+            res.append(None)
+    return [*passes, *res, *([None] * (len(wants) - len(WRITTEN[MAT_DIFFUSE])
+                                        - len(_DIFF_INPUTS)))]
+
+
+# ---------------------------------------------------------------------------
+# the glossy block's backward kernel
+# ---------------------------------------------------------------------------
+
+
+class GlossBwd(ctypes.Structure):
+    _fields_ = [("packed", _V), ("m", _V), ("P", _V), ("N", _V), ("D", _V), ("eps", _V),
+                ("uv", _V), ("n_re", _V), ("n_im", _V), ("re_step", _L), ("im_step", _L),
+                ("color", _V), ("diff", _V), ("rough", _V), ("spec", _V), ("m_re", _V),
+                ("m_im", _V), ("rows", _I), ("refs", _I), ("ref_slot", _V),
+                ("ref_tex", Textures), ("ambient", _V), ("scene_re", _V),
+                ("scene_im", _V), ("dir_l", _V), ("dir_color", _V), ("n_dir", _I),
+                ("point_pos", _V), ("point_color", _V), ("n_point", _I),
+                ("spot_pos", _V), ("spot_dir", _V), ("spot_color", _V),
+                ("spot_cos_in", _V), ("spot_cos_out", _V), ("n_spot", _I), ("occ", _V),
+                ("five", _F), ("n", _L), ("g", _V * 4), ("pass_", _V * 4), ("dD", _V),
+                ("dn_re", _V), ("dn_im", _V), ("dP", _V), ("dN", _V), ("duv", _V),
+                ("deps", _V), ("color_rows", _V), ("m_re_rows", _V), ("m_im_rows", _V),
+                ("diff_rows", _V), ("rough_rows", _V), ("spec_rows", _V),
+                ("amb_rows", _V), ("sre_add", _V), ("sre_sub", _V), ("sim_add", _V),
+                ("sim_sub", _V), ("lc_rows", _V), ("lp_rows", _V), ("sd_rows", _V),
+                ("cci_rows", _V), ("nco_rows", _V)]
+
+
+ENTRIES["shade_glossy_bwd"] = [ctypes.POINTER(GlossBwd), _V, ctypes.POINTER(_I)]
+
+_GLOSS_TABLES = ("glossy_color", "glossy_diff", "glossy_roughness", "glossy_spec",
+                 "glossy_n_re", "glossy_n_im")
+_LIGHT_TABLES = ("dir_l", "dir_color", "point_pos", "point_color", "spot_pos",
+                 "spot_dir", "spot_color", "spot_cos_in", "spot_cos_out")
+_GLOSS_INPUTS = (_CTX_FIELDS + _GLOSS_TABLES + ("ambient_color", "scene_n_re", "scene_n_im")
+                 + _LIGHT_TABLES)
+# the glossy `_inputs` each written field is a function of, past the lights'
+# tables and the colour's uv (`glossy_vjp`)
+_GLOSS_FLOW = {
+    "add": {"D", "n_re", "n_im", "N", *_GLOSS_TABLES, "ambient_color"},
+    "beta_mult": {"D", "N", "glossy_n_re", "glossy_n_im", "scene_n_re", "scene_n_im"},
+    "new_origin": {"P", "N", "eps"},
+    "new_dir": {"D", "N"}}
+
+
+@dataclass
+class GlossSaved:
+    """What the glossy backward kernel reads of a call: the block's mask,
+    the rays' words and state, the slots, its tables, the lights', the
+    shadow rays' answers ((lights, N) bool, None where no object casts a
+    shadow) and its colour textures' refs (`ref_tables`), the lights of
+    each kind and whether a ref is bilinear."""
+    m: Any
+    packed: Any
+    P: Any
+    N: Any
+    D: Any
+    eps: Any
+    uv: Any
+    n_re: Any
+    n_im: Any
+    mat_slot: Any
+    color: Any
+    diff: Any
+    rough: Any
+    spec: Any
+    m_re: Any
+    m_im: Any
+    ambient: Any
+    scene_re: Any
+    scene_im: Any
+    dir_l: Any
+    dir_color: Any
+    point_pos: Any
+    point_color: Any
+    spot_pos: Any
+    spot_dir: Any
+    spot_color: Any
+    spot_cos_in: Any
+    spot_cos_out: Any
+    occ: Any
+    ref_slot: Any
+    ref_texels: Any
+    ref_desc_i: Any
+    ref_desc_f: Any
+    kinds: tuple
+    bilinear: bool
+
+
+_GLOSS_SAVED = tuple(f.name for f in dataclasses.fields(GlossSaved))[:-2]
+
+
+def gloss_saved(ctx, draws, packed, m, occ):
+    """The GlossSaved of a glossy call on the bounce (occ: the lights'
+    shadow-ray answers, `shade.light_occlusion`'s)."""
+    del draws
+    data, static, mats, lights = ctx.data, ctx.static, ctx.data.mats, ctx.data.lights
+    refs = ref_tables(data, static, MAT_GLOSSY)
+    tex = refs["tex"] if refs else (None, None, None)
+    hits = None
+    if occ:
+        hits = torch.stack([o.detach() for o in occ]).contiguous()
+    return GlossSaved(
+        m=m, packed=packed, P=ctx.P, N=ctx.N, D=ctx.D, eps=ctx.eps, uv=ctx.uv,
+        n_re=ctx.n_re, n_im=ctx.n_im, mat_slot=ctx.mat_slot, color=mats.glossy_color,
+        diff=mats.glossy_diff, rough=mats.glossy_roughness, spec=mats.glossy_spec,
+        m_re=mats.glossy_n_re, m_im=mats.glossy_n_im, ambient=data.ambient_color,
+        scene_re=data.scene_n_re, scene_im=data.scene_n_im,
+        **{f: getattr(lights, f) for f in _LIGHT_TABLES}, occ=hits,
+        ref_slot=refs["slot"] if refs else None, ref_texels=tex[0], ref_desc_i=tex[1],
+        ref_desc_f=tex[2],
+        kinds=(static.n_dir_lights, static.n_point_lights, static.n_spot_lights),
+        bilinear=any(r.bilinear for r in static.glossy_tex))
+
+
+def _glossy_rows(grads, saved, wants, lib=None):
+    """W4's glossy backward kernel (`lib`; csrc/wavefront_glossy_bwd.cu
+    `shade_glossy_bwd`), one launch, on the arguments of `glossy_vjp`
+    (grads not all None): (the fields' pass-through gradients, {input: its
+    gradient} of the rays' inputs the kernel writes, {table input: its
+    rows}).  Adds its launches to `_glossy_rows.launches`."""
+    s = saved
+    nw = len(WRITTEN[MAT_GLOSSY])
+    fields = WRITTEN[MAT_GLOSSY]
+    ga = grads[0] is not None
+    nd, np_, ns = s.kinds
+    reach = set().union(*(_GLOSS_FLOW[f] for f, g in zip(fields, grads) if g is not None))
+    if ga:
+        if s.bilinear:
+            reach.add("uv")
+        if np_ + ns:
+            reach.add("P")
+        reach.update(x for x, k in (("dir_l", nd), ("dir_color", nd), ("point_pos", np_),
+                                    ("point_color", np_), ("spot_pos", ns),
+                                    ("spot_dir", ns), ("spot_color", ns),
+                                    ("spot_cos_in", ns), ("spot_cos_out", ns)) if k)
+    want = {x: w and x in reach for x, w in zip(_GLOSS_INPUTS, wants[nw:])}
+    n, dev = s.P.shape[0], s.P.device
+    nl = nd + np_ + ns
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    passes = [f32(n, 3) if w and g is not None else None for w, g in zip(wants[:nw], grads)]
+    out = {x: f32(n, *{"eps": (), "uv": (2,)}.get(x, (3,)))
+           for x in ("D", "n_re", "n_im", "P", "N", "uv", "eps") if want[x]}
+    rows = {}
+    for x, shape in (("glossy_color", (3,)), ("glossy_diff", ()), ("glossy_roughness", ()),
+                     ("glossy_spec", ()), ("glossy_n_re", (3,)), ("glossy_n_im", (3,)),
+                     ("ambient_color", (3,))):
+        if want[x]:
+            rows[x] = f32(n, *shape)
+    for x in ("scene_n_re", "scene_n_im"):
+        if want[x]:
+            rows[x] = (f32(n, 3), f32(n, 3))
+    light_rows = {}
+    if any(want[x] for x in ("dir_color", "point_color", "spot_color")):
+        light_rows["lc"] = f32(nl, n, 3)
+    if any(want[x] for x in ("dir_l", "point_pos", "spot_pos")):
+        light_rows["lp"] = f32(nl, n, 3)
+    if want["spot_dir"]:
+        light_rows["sd"] = f32(ns, 3, n)
+    if want["spot_cos_in"] or want["spot_cos_out"]:
+        light_rows["cci"] = f32(ns, n)
+    if want["spot_cos_out"]:
+        light_rows["nco"] = f32(ns, n)
+    if n and (out or rows or light_rows or any(x is not None for x in passes)):
+        if s.m.dtype != torch.bool:
+            raise TypeError("W4's backward takes a bool mask")
+        ins = dict(packed=_i32(s.packed), m=s.m.contiguous(), P=_f32(s.P), N=_f32(s.N),
+                   D=_f32(s.D), eps=_f32(s.eps), uv=_f32(s.uv), color=_f32(s.color),
+                   diff=_f32(s.diff), rough=_f32(s.rough), spec=_f32(s.spec),
+                   m_re=_f32(s.m_re), m_im=_f32(s.m_im), ambient=_f32(s.ambient),
+                   scene_re=_f32(s.scene_re), scene_im=_f32(s.scene_im),
+                   **{f: _f32(getattr(s, f)) for f in _LIGHT_TABLES})
+        if s.occ is not None:
+            if s.occ.dtype != torch.bool:
+                raise TypeError("W4 takes bool shadow-ray answers")
+            ins["occ"] = s.occ.contiguous()
+        n_re, re_step = _medium(s.n_re)
+        n_im, im_step = _medium(s.n_im)
+        ins.update(n_re=n_re, n_im=n_im)
+        tex = {}
+        if s.ref_slot is not None:
+            tex = dict(ref_slot=s.ref_slot.contiguous(), texels=s.ref_texels,
+                       desc_i=s.ref_desc_i, desc_f=s.ref_desc_f)
+        gs = [None if g is None else _f32(g) for g in grads]
+        for name, x in [*ins.items(), *tex.items(), *(("grad", g) for g in gs if g is not None)]:
+            if x.device != dev:
+                raise ValueError(f"W4's backward: {name} is on {x.device}, the rays on {dev}")
+        pair = lambda x, k: None if x is None else _p(x[k])
+        struct = GlossBwd(
+            **{k: _p(v) for k, v in ins.items()}, re_step=re_step, im_step=im_step,
+            rows=s.color.shape[0], refs=0 if s.ref_slot is None else s.ref_slot.shape[0],
+            ref_slot=_p(tex.get("ref_slot")),
+            ref_tex=Textures(_p(tex.get("texels")), _p(tex.get("desc_i")),
+                             _p(tex.get("desc_f"))),
+            n_dir=nd, n_point=np_, n_spot=ns, five=SCHLICK, n=n,
+            g=(_V * 4)(*(_p(g) for g in gs)), pass_=(_V * 4)(*(_p(x) for x in passes)),
+            **{f"d{x}": t.data_ptr() for x, t in out.items()},
+            color_rows=_p(rows.get("glossy_color")), diff_rows=_p(rows.get("glossy_diff")),
+            rough_rows=_p(rows.get("glossy_roughness")),
+            spec_rows=_p(rows.get("glossy_spec")), m_re_rows=_p(rows.get("glossy_n_re")),
+            m_im_rows=_p(rows.get("glossy_n_im")), amb_rows=_p(rows.get("ambient_color")),
+            sre_add=pair(rows.get("scene_n_re"), 0), sre_sub=pair(rows.get("scene_n_re"), 1),
+            sim_add=pair(rows.get("scene_n_im"), 0), sim_sub=pair(rows.get("scene_n_im"), 1),
+            **{f"{k}_rows": _p(v) for k, v in light_rows.items()})
+        _glossy_rows.launches += _call(
+            lib, "shade_glossy_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
+            entries=ENTRIES)
+    return passes, out, rows, light_rows, want
+
+
+_glossy_rows.launches = 0
+
+
+def _selected(parts, shape):
+    """The gradient of a light table of `shape` whose rows the lights'
+    selects took, from each light's row's gradient (parts: (light, value)
+    in the order the lights were made): a select's full table of +0 pads
+    around its row, the last light's first, the others added, as the
+    engine adds them."""
+    out = None
+    for k, v in reversed(parts):
+        t = v.new_zeros(shape)
+        t[k] = v
+        out = t if out is None else out + t
+    return out
+
+
+def _light_grads(s, light_rows, want):
+    """{light table: its gradient} from the kernel's per-(light, ray) rows:
+    each light's broadcast row summed over the rays (the engine's sum_to),
+    then the lights' selects (`_selected`)."""
+    nd, np_, ns = s.kinds
+    res = {}
+    lc, lp = light_rows.get("lc"), light_rows.get("lp")
+    spans = {"dir": (0, nd), "point": (nd, np_), "spot": (nd + np_, ns)}
+    for kind, (at, k) in spans.items():
+        colour, where = f"{kind}_color", ("dir_l" if kind == "dir" else f"{kind}_pos")
+        if want[colour]:
+            res[colour] = _selected([(i, lc[at + i].sum_to_size(1, 3).reshape(3))
+                                     for i in range(k)], getattr(s, colour).shape)
+        if want[where]:
+            # a directional light's expanded row, a point or spot light's
+            # position pos[None, :]
+            size = (3,) if kind == "dir" else (1, 3)
+            res[where] = _selected([(i, lp[at + i].sum_to_size(*size).reshape(3))
+                                    for i in range(k)], getattr(s, where).shape)
+    if want["spot_dir"]:
+        parts = []
+        for i in range(ns):
+            # _sum3's selects of spot_dir[i][None, :], the last channel first
+            row = None
+            for c in (2, 1, 0):
+                t = s.spot_dir.new_zeros((1, 3))
+                t[0, c] = light_rows["sd"][i, c].sum_to_size(1)[0]
+                row = t if row is None else row + t
+            parts.append((i, row.reshape(3)))
+        res["spot_dir"] = _selected(parts, s.spot_dir.shape)
+    if want["spot_cos_in"] or want["spot_cos_out"]:
+        ins, outs = [], []
+        for i in range(ns):
+            # t = (cos_t - co) / clamp_min(ci - co, 1e-6): the divisor's
+            # gradient summed over the rays, clamp_min's mask, ci - co
+            g = light_rows["cci"][i].sum_to_size(())
+            ci, co = s.spot_cos_in[i], s.spot_cos_out[i]
+            g = torch.where(ci - co >= 1e-6, g, torch.zeros_like(g))
+            ins.append((i, g))
+            if want["spot_cos_out"]:
+                outs.append((i, -g + light_rows["nco"][i].sum_to_size(())))
+        if want["spot_cos_in"]:
+            res["spot_cos_in"] = _selected(ins, s.spot_cos_in.shape)
+        if want["spot_cos_out"]:
+            res["spot_cos_out"] = _selected(outs, s.spot_cos_out.shape)
+    return res
+
+
+def glossy_vjp(grads, saved, wants, lib=None):
+    """The glossy block's backward from W4's backward kernel
+    (`_glossy_rows`): from the gradients of the four fields the entry
+    writes (grads, one a WRITTEN[MAT_GLOSSY]; None where none comes) and
+    the GlossSaved `saved`, the gradients `_Shade`'s backward returns
+    (wants: its needs_input_grad past the call): the fields' pass-through
+    gradients, then those of the block's `_inputs` (the textures' None: a
+    texture that requires grad takes the plain VJP), as `plain_shade_vjp`
+    gives them, bit for bit.  The gathered tables' gradients are
+    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows;
+    a broadcast row's the engine's sum_to over the rays of its rows, and a
+    light's the lights' selects of those (`_light_grads`)."""
+    if all(g is None for g in grads):
+        return [None] * len(wants)
+    passes, out, rows, light_rows, want = _glossy_rows(grads, saved, wants, lib)
+    s = saved
+    lights = _light_grads(s, light_rows, want)
+    tables = dict(zip(_GLOSS_TABLES, (s.color, s.diff, s.rough, s.spec, s.m_re, s.m_im)))
+    res = []
+    for x in _GLOSS_INPUTS:
+        if x in out:
+            res.append(out[x])
+        elif x in tables and x in rows:
+            res.append(take_backward(shade.slot_rows(s.mat_slot, tables[x]), rows[x],
+                                     tables[x].shape))
+        elif x == "ambient_color" and x in rows:
+            res.append(rows[x].sum_to_size(1, 3).reshape(3))
+        elif x in ("scene_n_re", "scene_n_im") and x in rows:
+            a, b = (r.sum_to_size(1, 3).reshape(3) for r in rows[x])
+            res.append(a + b)
+        else:
+            res.append(lights.get(x))
+    return [*passes, *res, *([None] * (len(wants) - len(WRITTEN[MAT_GLOSSY])
+                                        - len(_GLOSS_INPUTS)))]
+
+
 # the backward calls of each block that recomputed its plain block for its
-# VJP (`plain_shade_vjp`): the diffuse and glossy blocks' on the card, and
-# the refractive block's where no backward library serves it (CPU tensors)
-plain_routes = {"diffuse": 0, "refractive": 0, "glossy": 0}
+# VJP (`plain_shade_vjp`): a block's where no backward library serves it
+# (CPU tensors), and the diffuse and glossy blocks' where a colour texture
+# the block reads requires grad ("diffuse_textures", "glossy_textures")
+plain_routes = {"diffuse": 0, "refractive": 0, "glossy": 0, "diffuse_textures": 0,
+                "glossy_textures": 0}
 
 
 def plain_shade_vjp(mt, ctx, draws, m, occ, grads, wants):
@@ -786,6 +1387,40 @@ def plain_shade_vjp(mt, ctx, draws, m, occ, grads, wants):
     return [*outs, *plain_vjp(grads, _inputs(mt, ctx), wants[nw:], plain)]
 
 
+# each block's backward kernel: (its wrapper, the Saved class, a function
+# making it from a call (ctx, draws, packed words, mask), the class's
+# tensors, which `_Shade` saves, the other fields after them)
+_BWD = {MAT_REFRACTIVE: (lambda *a: refractive_vjp(*a), RefrSaved, refr_saved, _REFR_SAVED),
+        MAT_DIFFUSE: (lambda *a: diffuse_vjp(*a), DiffSaved, diff_saved, _DIFF_SAVED),
+        MAT_GLOSSY: (lambda *a: glossy_vjp(*a), GlossSaved, gloss_saved, _GLOSS_SAVED)}
+
+
+def texture_grad(mt, ctx):
+    """Whether a colour texture the diffuse or glossy block reads requires
+    grad (its backward then takes the plain VJP, `plain_routes`)."""
+    if mt == MAT_REFRACTIVE:
+        return False
+    refs = ctx.static.diffuse_tex if mt == MAT_DIFFUSE else ctx.static.glossy_tex
+    return any(ctx.data.textures[r.tex].requires_grad for r in refs)
+
+
+def _bwd_route(mt, ctx, lib, bwd_lib):
+    """(the block's backward library, or None for the plain VJP; the plain
+    route's key): the backward kernel on CUDA tensors (from `lib`, the
+    render kernels' library unless given) or where `bwd_lib` (a library,
+    or {type: library}) serves the type; the plain VJP where a colour
+    texture requires grad, and on CPU tensors without a backward
+    library."""
+    name = _BLOCKS[mt][0][len("shade_"):]
+    if isinstance(bwd_lib, dict):
+        bwd_lib = bwd_lib.get(mt)
+    if bwd_lib is None and not ctx.P.is_cuda:
+        return None, name
+    if texture_grad(mt, ctx):
+        return None, f"{name}_textures"
+    return (bwd_lib if bwd_lib is not None else lib or cuda_build.load_library()), name
+
+
 class _Shade(torch.autograd.Function):
     """W4 forward into the merged output's float fields that the entry
     writes (`WRITTEN`), in place (xs: those fields, then the block's
@@ -793,11 +1428,11 @@ class _Shade(torch.autograd.Function):
     block (`_flow`) is marked non-differentiable, as the plain merge
     leaves it.  Backward: a field's gradient passes where the block's
     rays are not (the merge's); where one of the block's inputs needs a
-    gradient, the refractive block's backward kernel (`refractive_vjp`, on
-    CUDA tensors or with a backward library) or the plain block
-    recomputed from the tensors saved for it and its vector-Jacobian
-    product on the block's rays (`plain_shade_vjp`, counted in
-    `plain_routes`; see the module doc)."""
+    gradient, the block's backward kernel (`refractive_vjp`,
+    `diffuse_vjp`, `glossy_vjp`; `_bwd_route`) from the tensors saved for
+    it, or the plain block recomputed from the tensors saved for it and
+    its vector-Jacobian product on the block's rays (`plain_shade_vjp`,
+    counted in `plain_routes`; see the module doc)."""
 
     @staticmethod
     def forward(fctx, call, *xs):
@@ -808,13 +1443,15 @@ class _Shade(torch.autograd.Function):
         fctx.mark_dirty(*xs[:nw])
         fctx.mark_non_differentiable(*(x for x, k in zip(xs, keep) if not k))
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
-        fctx.mt, fctx.lib = mt, bwd_lib if bwd_lib is not None else lib
-        fctx.kernel = mt == MAT_REFRACTIVE and (ctx.P.is_cuda or bwd_lib is not None)
-        if fctx.kernel:
+        fctx.mt = mt
+        fctx.lib, fctx.route = _bwd_route(mt, ctx, lib, bwd_lib)
+        if fctx.lib is not None:
             # what the backward kernel reads
-            s = refr_saved(ctx, draws, packed, m)
-            fctx.refr = (s.split_k, s.k)
-            fctx.save_for_backward(*(getattr(s, f) for f in _REFR_SAVED))
+            _, cls, make, ts = _BWD[mt]
+            sv = make(ctx, draws, packed, m) if mt != MAT_GLOSSY else make(
+                ctx, draws, packed, m, occ)
+            fctx.rest = tuple(getattr(sv, f.name) for f in dataclasses.fields(cls)[len(ts):])
+            fctx.save_for_backward(*(getattr(sv, f) for f in ts))
             return xs[:nw]
         saved = [m]
         if any(fctx.needs_input_grad[1 + nw:]):
@@ -834,16 +1471,16 @@ class _Shade(torch.autograd.Function):
 def _shade_backward(fctx, *grads):
     """`_Shade`'s backward (see there)."""
     saved, mt, wants = fctx.saved_tensors, fctx.mt, fctx.needs_input_grad[1:]
-    if fctx.kernel:
-        return (None, *refractive_vjp(grads, RefrSaved(*saved, *fctx.refr), wants,
-                                      fctx.lib))
+    if fctx.lib is not None:
+        vjp, cls, _, _ = _BWD[mt]
+        return (None, *vjp(grads, cls(*saved, *fctx.rest), wants, fctx.lib))
     nw = len(WRITTEN[mt])
     if all(g is None for g in grads) or not any(wants[nw:]):
         m3 = saved[0][..., None]
         return (None, *(torch.where(m3, 0.0, g) if w and g is not None else None
                         for g, w in zip(grads, wants[:nw])), *([None] * len(wants[nw:])))
     ctx, d, occ = _unpack(fctx.held, saved)
-    plain_routes[_BLOCKS[mt][0][len("shade_"):]] += 1
+    plain_routes[fctx.route] += 1
     return (None, *plain_shade_vjp(mt, dataclasses.replace(ctx, static=fctx.static),
                                    d, saved[0], occ, grads, wants))
 
@@ -852,8 +1489,9 @@ def _kernel_shade(mt, ctx, draws, packed, m, out, lib=None, bwd_lib=None):
     """W4 on the bounce, from `lib`: the merged output `out` with mt's rays
     shaded in place; through `_Shade` where autograd records the block
     (grad enabled and a float field the entry writes or one of the
-    block's `_inputs` requiring grad), whose refractive backward takes its
-    kernel from `bwd_lib` where given (else from `lib`)."""
+    block's `_inputs` requiring grad), whose backward kernel comes from
+    `bwd_lib` where it serves the type (a library, or {type: library};
+    see `_bwd_route`)."""
     occ = None
     if mt == MAT_GLOSSY:
         with torch.no_grad():
@@ -877,15 +1515,14 @@ def backward_pair(fn, call, xs, grads, wants, lib=None):
     ops/plain_grad.py `recording` recorded (its forward's call and inputs
     xs, its output gradients, the inputs' needs_input_grad): functions of
     no argument giving the gradients `_Shade`'s backward returns from the
-    refractive backward kernel (`lib`; None for the diffuse and glossy
-    blocks, which have none) and from the plain block's VJP
+    block's backward kernel (`lib`) and from the plain block's VJP
     (`plain_shade_vjp`), for the holds of one against the other."""
     mt, ctx, draws, packed, m, _, occ, _, _, _ = call
     plain = lambda: plain_shade_vjp(mt, ctx, draws.get(mt), m, occ, grads, wants)
-    if mt != MAT_REFRACTIVE:
-        return None, plain
-    return (lambda: refractive_vjp(grads, refr_saved(ctx, draws, packed, m), wants, lib),
-            plain)
+    vjp, _, make, _ = _BWD[mt]
+    sv = (lambda: make(ctx, draws, packed, m)) if mt != MAT_GLOSSY else (
+        lambda: make(ctx, draws, packed, m, occ))
+    return (lambda: vjp(grads, sv(), wants, lib)), plain
 
 
 def _wrapper(mt, name, doc):
@@ -918,18 +1555,23 @@ INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block",
 def info(mt, lib=None, variant=0, backward=False):
     """What W4's entry for material type mt was built to, read on the card
     (`shade_info`; variant: the diffuse entry's kernel, as KERNEL_INFO
-    numbers them; backward: the refractive backward kernel,
-    `shade_refractive_bwd_info`): registers and local memory (bytes:
-    spills and stack) a thread, resident blocks an SM, the SMs, threads a
-    block, the __launch_bounds__ minimum of blocks an SM, and rays a block
-    a pass (a queued entry's tile)."""
+    numbers them; backward: the type's backward kernel, `<entry>_bwd_info`,
+    variant the diffuse one's caps sum in registers (0) or by the general
+    plan (1)): registers and local memory (bytes: spills and stack) a
+    thread, resident blocks an SM, the SMs, threads a block, the
+    __launch_bounds__ minimum of blocks an SM, and rays a block a pass (a
+    queued entry's tile)."""
     lib = lib or cuda_build.load_library()
     out = (_I * len(INFO))()
     if backward:
-        if mt != MAT_REFRACTIVE:
-            raise ValueError("W4 has a backward kernel for the refractive block only")
-        fn, args, name = lib.shade_refractive_bwd_info, (), "shade_refractive_bwd_info"
-        fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+        name = f"{_BLOCKS[mt][0]}_bwd_info"
+        fn = getattr(lib, name)
+        if mt == MAT_DIFFUSE:
+            args = (int(variant),)
+            fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
+        else:
+            args = ()
+            fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
     else:
         fn, args, name = lib.shade_info, (mt, int(variant)), "shade_info"
         fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
@@ -975,15 +1617,21 @@ def launches():
     return sum(w.launches for w in _WRAPPER.values())
 
 
+# each backward kernel's entry and the launch function that counts it
+_BWD_COUNTED = {"shade_refractive_bwd": _refractive_rows,
+                "shade_diffuse_bwd": _diffuse_rows, "shade_glossy_bwd": _glossy_rows}
+
+
 def backward_launches():
-    """The refractive backward kernel's launches."""
-    return _refractive_rows.launches
+    """{entry: launches} of W4's backward kernels."""
+    return {k: f.launches for k, f in _BWD_COUNTED.items()}
 
 
 def reset_launches():
     """Zero the forward and backward counts and the plain routes'."""
     for w in _WRAPPER.values():
         w.launches = 0
-    _refractive_rows.launches = 0
+    for f in _BWD_COUNTED.values():
+        f.launches = 0
     for k in plain_routes:
         plain_routes[k] = 0

@@ -13,12 +13,15 @@ times A and B in alternation.  A child takes chip_smoke.py's diff phase:
 differentiable_render of examples/torch_inverse_rendering.py's scene at
 96x72 x S spp (8 unless given; from 32 on a render is two chunks or more,
 each under torch.utils.checkpoint), seed 0 (the glass sphere, and the
-same scene with it as a 1,280-face icosphere mesh), and runs forward +
-backward of the mean squared image with respect to the refraction
-indices once to warm up and N times timed (a device sync after each):
-the walls, their median, the device's peak memory over the timed passes
-(torch.cuda.max_memory_allocated), the gradient's first element, the
-SHA-256 of the first pass's gradient (equal hashes across roots:
+same scene with it as a 1,280-face icosphere mesh), and of
+examples/torch_primitives.py's primitives, and runs forward + backward of
+the mean squared image with respect to the refraction indices (the
+primitives: diffuse_color, glossy_color and glossy_n_re in one pass, the
+W4 diffuse and glossy blocks' backward) once to warm up and N times timed
+(a device sync after each): the walls, their median, the device's peak
+memory over the timed passes (torch.cuda.max_memory_allocated), the
+gradient's first element, the SHA-256 of the first pass's gradient (the
+tables' gradients flattened one after another; equal hashes across roots:
 gradients equal bit for bit) and whether every pass equals the first bit
 for bit (and the largest difference).  --profile adds one pass under
 torch.profiler: its wall, the device's busy time and events, the host's
@@ -113,19 +116,22 @@ def child(root, repeats, spp, deterministic, profile=False):
     sys.path[:0] = [str(root), str(root / "examples")]
     from raytracer_tpu_torch.diff import differentiable_render, update_materials
     from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
+    from torch_primitives import primitives
 
     dev = torch.device("cuda:0")
     obj_dir = tempfile.mkdtemp()
     out = {"root": str(root), "frames": {}}
-    for name, make in (("sphere", lambda: build_scene(TRUE_N, W, H)),
-                       ("mesh", lambda: build_mesh_scene(TRUE_N, W, H, obj_dir))):
+    for name, make, tables in (
+            ("sphere", lambda: build_scene(TRUE_N, W, H), ("refr_n_re",)),
+            ("mesh", lambda: build_mesh_scene(TRUE_N, W, H, obj_dir), ("refr_n_re",)),
+            ("primitives colour", lambda: primitives(W, H),
+             ("diffuse_color", "glossy_color", "glossy_n_re"))):
         fn, data = differentiable_render(make(), spp, seed=0, device=dev)
-        n0 = data.mats.refr_n_re
 
         def grad():
-            x = n0.clone().requires_grad_(True)
-            loss = torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2)
-            return torch.autograd.grad(loss, x)[0]
+            xs = [getattr(data.mats, k).clone().requires_grad_(True) for k in tables]
+            loss = torch.mean(fn(update_materials(data, **dict(zip(tables, xs)))) ** 2)
+            return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, xs)])
 
         grad()
         torch.cuda.synchronize()
@@ -135,7 +141,7 @@ def child(root, repeats, spp, deterministic, profile=False):
         equal, diff = agree(torch, gs)
         res = {"walls_s": walls, "median_s": statistics.median(walls),
                "peak_gib": peak,
-               "g00": float(gs[0][0, 0]),
+               "g00": float(gs[0][0]),
                "sha256": hashlib.sha256(gs[0].cpu().numpy().tobytes()).hexdigest(),
                "bit_equal": equal, "max_diff": diff}
         if profile:

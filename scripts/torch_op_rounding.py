@@ -43,7 +43,14 @@ elements whose bits agree with each candidate (1.0: the rule):
   select its pads, gather's 0 + g, the sum of an (N, 1) factor's (N, 3)
   gradient, a broadcast row's (torch.sum over the rows: the engine's
   sum_to), and the order the engine adds three contributions to one
-  tensor (the node created last first).
+  tensor (the node created last first); for W4's diffuse and glossy
+  backward (csrc/wavefront_diffuse_bwd.cu, wavefront_glossy_bwd.cu) the
+  engine's sum_to over K of an (N, K, 3) gradient (K = 2, Cornell's caps;
+  131, the lamps; 300, past ATen's split of the terms over warps) against
+  the orders csrc/aten_sum.cuh `outer_sum` restates, reciprocal's,
+  vector_norm's and cross's gradients, pow(x, 5)'s and pow(b, a)'s for
+  base and exponent (with their masks at a = 0 and b = 0) and logf
+  against torch.log.
 `--only matmul3` or `--only backward` runs that part alone.
 Prints the card's name and power limit, then one JSON line.
 """
@@ -58,7 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 1 << 22
-OPS = ("cos", "sin", "exp", "pow", "atan2", "asin", "floor", "to_int")
+OPS = ("cos", "sin", "exp", "pow", "atan2", "asin", "floor", "to_int", "log")
 KERNEL = r"""
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,6 +83,7 @@ __global__ void op_k(int op, const float* x, const float* y, float* out, long lo
     case 5: r = asinf(a); break;
     case 6: r = floorf(a); break;
     case 7: r = __int_as_float((int)a); break;
+    case 8: r = logf(a); break;
   }
   out[i] = r;
 }
@@ -269,7 +277,30 @@ def mm3_rule(torch, dev, g, rows=MM3_ROWS):
     return out
 
 
-def backward_rules(torch, dev, g, n=N):
+def outer_sum_orders(torch, z):
+    """The candidate orders of torch.sum over the middle dimension of an (n,
+    K, 3) tensor z (the engine's sum_to of a gradient over K): a thread's
+    four accumulators over its output's K terms (term k into accumulator k
+    % 4, from +0, then ((a0 + a1) + a2) + a3), and the same with the terms
+    split over 16 warps (warp y the terms y, y + 16, ...) added by a halving
+    tree over the warps (csrc/aten_sum.cuh `outer_sum`)."""
+    def lane(ks):
+        acc = [torch.zeros_like(z[:, 0]) for _ in range(4)]
+        for q, k in enumerate(ks):
+            acc[q % 4] = acc[q % 4] + z[:, k]
+        return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+
+    K = z.shape[1]
+    four = lane(range(K))
+    ys = [lane(range(y, K, 16)) for y in range(16)]
+    off = 8
+    while off:
+        ys = [ys[y] + ys[y + off] if y < off else ys[y] for y in range(len(ys))]
+        off //= 2
+    return {"four accumulators": four, "16 warps, halving": ys[0]}
+
+
+def backward_rules(torch, dev, g, n=N, kern=None):
     """{rule: {candidate: share of elements whose bits agree}} of autograd's
     derivative formulas on `dev` (see the module doc)."""
     def rnd(*shape, scale=3.0):
@@ -351,6 +382,49 @@ def backward_rules(torch, dev, g, n=N):
     res["three contributions: the engine's order"] = {
         "(p3 + p2) + p1 (last made first)": share(g1, (p3 + p2) + p1),
         "(p1 + p2) + p3": share(g1, (p1 + p2) + p3)}
+    # W4's diffuse and glossy backward (csrc/wavefront_diffuse_bwd.cu,
+    # csrc/wavefront_glossy_bwd.cu)
+    for K in (2, 131, 300):
+        rows = n // (64 * K) or 1
+        o, C, gk = rnd(rows, 3), rnd(K, 3), rnd(rows, K, 3)
+        gk[:, ::3] = 0.0
+        go_, = grads(lambda v: C - v[:, None, :], o, gout=gk)
+        res[f"sum_to over K = {K} of an (N, K, 3) gradient"] = {
+            k: share(go_, v) for k, v in outer_sum_orders(torch, -gk).items()}
+    x = rnd(n)
+    gr, = grads(torch.reciprocal, x, gout=go)
+    r = torch.reciprocal(x)
+    res["reciprocal"] = {"-g * (r * r)": share(gr, -go * (r * r)),
+                         "-(g * r) * r": share(gr, -(go * r) * r)}
+    v3 = rnd(n // 4, 3)
+    v3[::50] = 0.0
+    gn = rnd(n // 4, 1)
+    gv, = grads(lambda t: torch.linalg.vector_norm(t, dim=-1, keepdim=True), v3, gout=gn)
+    nv = torch.linalg.vector_norm(v3, dim=-1, keepdim=True)
+    res["vector_norm"] = {"g * (v / n), 0 where n == 0": share(
+        gv, gn * (v3 / nv).masked_fill(nv == 0, 0)), "v * (g / n)": share(gv, v3 * (gn / nv))}
+    a3, b3, g3_ = rnd(n // 4, 3), rnd(n // 4, 3), rnd(n // 4, 3)
+    ga, gb = grads(lambda p, q: torch.linalg.cross(p, q, dim=-1), a3, b3, gout=g3_)
+    res["cross: a's cross(b, g), b's cross(g, a)"] = [
+        share(ga, torch.linalg.cross(b3, g3_, dim=-1)),
+        share(gb, torch.linalg.cross(g3_, a3, dim=-1))]
+    base = torch.rand(n, device=dev, generator=g)
+    base[::37] = 0.0
+    base[::41] = 1.0
+    expo = torch.rand(n, device=dev, generator=g) * 2000
+    expo[::43] = 0.0
+    g5, = grads(lambda t: torch.pow(t, 5), base, gout=go)
+    four = kern("pow", base, torch.full_like(base, 4.0)) if kern else torch.pow(base, 4.0)
+    res["pow(x, 5)"] = {"g * (5 * powf(x, 4))": share(g5, go * (5.0 * four))}
+    gpb, gpa = grads(torch.pow, base, expo, gout=go)
+    pw = torch.pow(base, expo)
+    lg = kern("log", base) if kern else torch.log(base)
+    res["pow(b, a): base"] = {"where(a == 0, 0, g * (a * pow(b, a - 1)))": share(
+        gpb, torch.where(expo == 0, 0.0, go * (expo * torch.pow(base, expo - 1))))}
+    res["pow(b, a): exponent"] = {"g * where(b == 0 & a >= 0, 0, r * logf(b))": share(
+        gpa, go * torch.where((base == 0) & (expo >= 0), 0.0, pw * lg))}
+    if kern:
+        res["log"] = share(torch.log(base), kern("log", base))
     return res
 
 
@@ -394,9 +468,20 @@ def main(argv):
     def sq(t):
         return torch.sqrt(t.double()).float()
 
+    def kern(op, a, b=None):
+        b = torch.zeros_like(a) if b is None else b
+        out = torch.empty_like(a)
+        torch.cuda.synchronize()
+        err = lib.op(OPS.index(op), ctypes.c_void_p(a.data_ptr()),
+                     ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                     ctypes.c_longlong(a.numel()))
+        if err:
+            raise RuntimeError(f"{op}: CUDA error {err}")
+        return out
+
     res = {"device": smi, "torch": torch.__version__}
     if args.only == "backward":
-        res["backward"] = backward_rules(torch, dev, g)
+        res["backward"] = backward_rules(torch, dev, g, kern=kern)
         return emit(res, args.out)
     res["matmul3"] = mm3_rule(torch, dev, g)
     res["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
@@ -461,17 +546,6 @@ def main(argv):
         torch.signbit(torch.clamp(zz, 0.0, 1.0))[0].item()]
     res["clamp of NaN is NaN"] = bool(torch.isnan(torch.clamp(zz, 0.0, 1.0))[1])
 
-    def kern(op, a, b=None):
-        b = torch.zeros_like(a) if b is None else b
-        out = torch.empty_like(a)
-        torch.cuda.synchronize()
-        err = lib.op(OPS.index(op), ctypes.c_void_p(a.data_ptr()),
-                     ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                     ctypes.c_longlong(a.numel()))
-        if err:
-            raise RuntimeError(f"{op}: CUDA error {err}")
-        return out
-
     ang = (torch.rand(N, device=dev, generator=g) * 2 - 1) * 1e4
     base = torch.rand(N, device=dev, generator=g)
     expo = torch.rand(N, device=dev, generator=g) * 2000
@@ -520,7 +594,7 @@ def main(argv):
     sg = torch.sign(torch.tensor([-0.0, 0.0, float("nan")], device=dev))
     res["sign(-0, +0, nan)"] = [repr(v) for v in sg.tolist()] + [
         bool(torch.signbit(sg[0]))]
-    res["backward"] = backward_rules(torch, dev, g)
+    res["backward"] = backward_rules(torch, dev, g, kern=kern)
     return emit(res, args.out)
 
 

@@ -66,21 +66,28 @@ def glass_scene(n=1.5, wh=(16, 16), m=T):
     return sc
 
 
-def _fd_check(fn, data):
-    def loss(n_re):
-        return torch.mean(fn(update_materials(data, refr_n_re=n_re)) ** 2)
+def _fd_check(fn, data, table="refr_n_re", g=None):
+    """d loss / d table (loss the mean squared image) finite, not zero, and
+    its entry [0, 0] (where g, the gradient, is given: its largest entry)
+    within rtol 0.05 of the central difference at eps 1e-3."""
+    def loss(x):
+        return torch.mean(fn(update_materials(data, **{table: x})) ** 2)
 
-    n0 = data.mats.refr_n_re
-    x = n0.clone().requires_grad_(True)
-    g, = torch.autograd.grad(loss(x), x)
+    n0 = getattr(data.mats, table)
+    if g is None:
+        x = n0.clone().requires_grad_(True)
+        g, = torch.autograd.grad(loss(x), x)
+        at = (0, 0)
+    else:
+        at = np.unravel_index(int(g.abs().argmax()), tuple(g.shape))
     assert torch.isfinite(g).all()
     assert float(g.abs().max()) > 1e-5          # not silently zero
     eps = 1e-3
     e = torch.zeros_like(n0)
-    e[0, 0] = eps
+    e[at] = eps
     with torch.no_grad():
         fd = (loss(n0 + e) - loss(n0 - e)) / (2 * eps)
-    assert np.isclose(float(fd), float(g[0, 0]), rtol=0.05), (fd, g[0, 0])
+    assert np.isclose(float(fd), float(g[at]), rtol=0.05), (table, fd, g[at])
     return g
 
 
@@ -256,8 +263,16 @@ def bilinear_emitter(m):
     return sc
 
 
+def env_is_16(m):
+    """The sun-and-sky still life, its sky importance-sampled
+    (examples/torch_features.py `env_is`), at 16x16."""
+    import torch_features
+    return torch_features.env_is(16, 16, m=m)
+
+
 GRAD_CASES = [  # (block, scene, the material table differentiated, *more
-    # ray inputs differentiated)
+    # ray inputs differentiated); the table may be a tuple of tables, each
+    # a material table or "lights.<field>" or a field of the scene data
     (MAT_EMISSIVE, glass, "emissive_color"),
     (MAT_EMISSIVE, bilinear_emitter, "emissive_color", "uv"),
     (MAT_GLOSSY, lit_textures, "glossy_n_re"),
@@ -265,14 +280,28 @@ GRAD_CASES = [  # (block, scene, the material table differentiated, *more
     (MAT_REFRACTIVE, glass, "refr_n_re"),
     (MAT_REFRACTIVE, dispersion, "refr_n_im"),
     (MAT_THINFILM, thin_film_plain, "tf_thickness"),
+    # the tables W4's glossy and diffuse backward kernels write rows of: a
+    # point and a spot light's colours beside the glossy colour; the
+    # importance-sampled caps' centres and radii, with P and eps (the
+    # nudged origin the caps' geometry starts from)
+    (MAT_GLOSSY, lit_textures,
+     ("glossy_color", "lights.point_color", "lights.spot_color")),
+    (MAT_DIFFUSE, cornell, ("is_center", "is_radius"), "P", "eps"),
+    # the environment's alias tables, gathered through core/safemath.py
+    # `take` (core/rng.py)
+    (MAT_DIFFUSE, env_is_16, ("env_is_pdf", "env_is_prob")),
 ]
 OUTS = ("add", "beta_mult", "new_origin", "new_dir", "new_n_re", "new_n_im")
 RAY_INPUTS = ("D", "N", "n_re")
 
 
-@pytest.mark.parametrize("case", GRAD_CASES,
-                         ids=[f"{BLOCKS[c[0]]}-{c[1].__name__}"
-                              for c in GRAD_CASES])
+def _case_id(c):
+    tables = "" if isinstance(c[2], str) else "-" + "-".join(
+        t.split(".")[-1] for t in c[2])
+    return f"{BLOCKS[c[0]]}-{c[1].__name__}{tables}"
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[_case_id(c) for c in GRAD_CASES])
 def test_shading_block_gradient_per_ray(case):
     mt, build, param, *extra = case
     _hold_block_gradient(mt, build, param, extra)
@@ -303,15 +332,40 @@ def test_refractive_block_gradient_per_ray(case):
     _hold_block_gradient(MAT_REFRACTIVE, build, param, extra, split=split)
 
 
+def _table(data, path):
+    """The table `path` of a SceneData (either package's): a material
+    table, "lights.<field>" or a field of the data itself."""
+    if "." in path:
+        group, field = path.split(".")
+        return getattr(getattr(data, group), field)
+    return getattr(data.mats, path) if hasattr(data.mats, path) else getattr(data, path)
+
+
+def _with_tables(data, values):
+    """data with the tables {path: value} replaced."""
+    for path, v in values.items():
+        if "." in path:
+            group, field = path.split(".")
+            data = dataclasses.replace(data, **{group: dataclasses.replace(
+                getattr(data, group), **{field: v})})
+        elif hasattr(data.mats, path):
+            data = dataclasses.replace(data, mats=dataclasses.replace(data.mats, **{path: v}))
+        else:
+            data = dataclasses.replace(data, **{path: v})
+    return data
+
+
 def _hold_block_gradient(mt, build, param, extra, split=None):
     """Block mt's gradient of a weighted sum of its outputs (weights drawn
     from a numpy seed, on its own rays) with respect to RAY_INPUTS, the ray
-    inputs `extra` and the material table `param`, the port's plain block
-    against jax.grad of the JAX block given the same uniforms (contexts of
-    `build`, `split` levels of split patterns unless None): each ray input's
-    gradient within rtol 1e-3, atol 1e-4 (or both NaN) on >= 99% of the
-    block's rays, each extra input's nonzero somewhere there, the table's
-    finite where JAX's is and within rtol 2e-3 of it."""
+    inputs `extra` and the table `param` (or each table of a tuple of
+    them, `_table`), the port's plain block against jax.grad of the JAX
+    block given the same uniforms (contexts of `build`, `split` levels of
+    split patterns unless None): each ray input's gradient within rtol
+    1e-3, atol 1e-4 (or both NaN) on >= 99% of the block's rays, each
+    extra input's nonzero somewhere there, each table's finite where JAX's
+    is and within rtol 2e-3 of it."""
+    params = (param,) if isinstance(param, str) else tuple(param)
     inputs = RAY_INPUTS + tuple(extra)
     jctx, tctx, mat_type, hit = contexts(build, split=split)
     name = BLOCKS[mt]
@@ -322,45 +376,47 @@ def _hold_block_gradient(mt, build, param, extra, split=None):
     w = {f: rng.normal(size=(n, 3)).astype(np.float32) for f in OUTS}
     sel3 = sel[:, None].astype(np.float32)
 
+    nt = len(params)
+
     def jloss(*args):
-        *rays, p = args
-        data = dataclasses.replace(
-            jctx.data, mats=dataclasses.replace(jctx.data.mats, **{param: p}))
+        rays, ps = args[:len(inputs)], args[len(inputs):]
+        data = _with_tables(jctx.data, dict(zip(params, ps)))
         ctx = dataclasses.replace(jctx, **dict(zip(inputs, rays)), data=data)
         out = getattr(jshade, f"shade_{name}")(ctx)
         return sum(jnp.sum(jnp.asarray(getattr(out, f)) * w[f] * sel3)
                    for f in OUTS)
 
-    jg = jax.grad(jloss, argnums=tuple(range(len(inputs) + 1)))(
-        *(getattr(jctx, k) for k in inputs), getattr(jctx.data.mats, param))
+    jg = jax.grad(jloss, argnums=tuple(range(len(inputs) + nt)))(
+        *(getattr(jctx, k) for k in inputs), *(_table(jctx.data, t) for t in params))
 
     leaves = [getattr(tctx, k).clone().requires_grad_(True)
               for k in inputs]
-    p = getattr(tctx.data.mats, param).clone().requires_grad_(True)
+    ps = [_table(tctx.data, t).clone().requires_grad_(True) for t in params]
     ctx = dataclasses.replace(tctx, **dict(zip(inputs, leaves)),
-                              data=update_materials(tctx.data, **{param: p}))
+                              data=_with_tables(tctx.data, dict(zip(params, ps))))
     out = getattr(tshade, f"shade_{name}")(ctx, *jax_draws(mt, jctx))
     loss = sum(torch.sum(getattr(out, f) * torch.from_numpy(w[f] * sel3))
                for f in OUTS)
-    tg = torch.autograd.grad(loss, leaves + [p], allow_unused=True)
+    tg = torch.autograd.grad(loss, leaves + ps, allow_unused=True)
     tg = [torch.zeros_like(x) if g is None else g
-          for x, g in zip(leaves + [p], tg)]
+          for x, g in zip(leaves + ps, tg)]
 
     # non-finite exactly where the JAX block's gradient is (Cornell's
     # diffuse table: slot 0 NaN in both, what safe_value_and_grad scrubs)
     ok = np.ones(int(sel.sum()), bool)
-    for a, b in zip(tg[:-1], jg[:-1]):
+    for a, b in zip(tg[:-nt], jg[:-nt]):
         a, b = a.numpy()[sel], np.asarray(b)[sel]
         ok &= np.isclose(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1),
                          rtol=1e-3, atol=1e-4, equal_nan=True).all(axis=1)
     assert ok.mean() >= 0.99, ok.mean()
-    for k, g in zip(extra, tg[len(RAY_INPUTS):-1]):
+    for k, g in zip(extra, tg[len(RAY_INPUTS):-nt]):
         assert bool((g[torch.from_numpy(sel)] != 0).any()), k
-    a, b = tg[-1].numpy(), np.asarray(jg[-1])
-    assert np.array_equal(np.isfinite(a), np.isfinite(b)), (a, b)
-    fin = np.isfinite(b)
-    assert np.allclose(a[fin], b[fin], rtol=2e-3,
-                       atol=1e-4 * max(1.0, np.abs(b[fin]).max(initial=0))), (a, b)
+    for t, a, b in zip(params, tg[-nt:], jg[-nt:]):
+        a, b = a.numpy(), np.asarray(b)
+        assert np.array_equal(np.isfinite(a), np.isfinite(b)), (t, a, b)
+        fin = np.isfinite(b)
+        assert np.allclose(a[fin], b[fin], rtol=2e-3,
+                           atol=1e-4 * max(1.0, np.abs(b[fin]).max(initial=0))), (t, a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -397,3 +453,28 @@ def test_a_nan_ior_gradient_is_the_jax_packages(scene):
     assert np.array_equal(np.isfinite(tg), np.isfinite(jg)), (tg, jg)
     fin = np.isfinite(jg)
     assert np.allclose(tg[fin], jg[fin], rtol=1e-3, atol=1e-4), (tg, jg)
+
+
+COLOUR_TABLES = ("diffuse_color", "glossy_color", "glossy_n_re")
+
+
+def test_the_primitives_colour_gradient_is_finite_and_matches_fd():
+    """The primitives' gradient (16x16 x 2 spp) with respect to
+    diffuse_color, glossy_color and glossy_n_re in one backward pass
+    (W4's diffuse and glossy blocks' backward on the card): finite in both
+    packages (jax.grad of the JAX package's raytracer_tpu/diff.py), and
+    the port's within rtol 0.05 of its own central difference at each
+    table's largest entry (`_fd_check`)."""
+    from raytracer_tpu import diff as jdiff
+
+    fn, data = jdiff.differentiable_render(primitives_16(J), 2, seed=0)
+    jg = jax.grad(lambda *xs: jnp.mean(fn(jdiff.update_materials(
+        data, **dict(zip(COLOUR_TABLES, xs)))) ** 2), argnums=(0, 1, 2))(
+            *(getattr(data.mats, k) for k in COLOUR_TABLES))
+    assert all(np.isfinite(np.asarray(g)).all() for g in jg)
+    tfn, tdata = differentiable_render(primitives_16(T), 2, seed=0, device=CPU)
+    xs = [getattr(tdata.mats, k).clone().requires_grad_(True) for k in COLOUR_TABLES]
+    tg = torch.autograd.grad(torch.mean(tfn(update_materials(
+        tdata, **dict(zip(COLOUR_TABLES, xs)))) ** 2), xs)
+    for k, g in zip(COLOUR_TABLES, tg):
+        _fd_check(tfn, tdata, k, g)

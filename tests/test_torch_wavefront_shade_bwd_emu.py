@@ -233,10 +233,12 @@ def plain_forward():
 
 def routed(bwd_lib):
     """trace's W4 wrappers through `_Shade` on CPU tensors, its refractive
-    backward from `bwd_lib` (None: the plain VJP)."""
+    backward from `bwd_lib` (None: the plain VJP; the diffuse and glossy
+    blocks' the plain VJP)."""
     def route(mt, real):
         def f(ctx, draws, packed, m, acc):
-            return ws._kernel_shade(mt, ctx, draws, packed, m, acc, bwd_lib=bwd_lib)
+            return ws._kernel_shade(mt, ctx, draws, packed, m, acc,
+                                    bwd_lib={MAT_REFRACTIVE: bwd_lib} if bwd_lib else None)
         return f
     return wrappers_replaced(route)
 
@@ -327,10 +329,11 @@ def failures(cases, lib, first=False):
 
 
 def test_w4_refractive_backward_equals_the_plain_vjp(libs, cases):
-    before = ws.backward_launches()
+    before = ws.backward_launches()["shade_refractive_bwd"]
     assert failures(cases, libs["w4b"]) == []
     # one launch a case, none where nothing wanted is reached
-    assert len(cases) // 2 < ws.backward_launches() - before <= len(cases)
+    got = ws.backward_launches()["shade_refractive_bwd"] - before
+    assert len(cases) // 2 < got <= len(cases)
 
 
 def test_the_cases_hold_what_they_are_for(cases):
@@ -383,12 +386,13 @@ def test_the_gradient_through_the_kernel_is_the_plain_blocks(libs):
     with one_thread():
         ws.reset_launches()
         plain = ior_gradient(make, "refr_n_re", spp=1)
-        assert ws.backward_launches() == 0 and ws.plain_routes["refractive"] > 0
+        assert sum(ws.backward_launches().values()) == 0
+        assert ws.plain_routes["refractive"] > 0
         ws.reset_launches()
         calls = []
         got = ior_gradient(make, "refr_n_re", libs["w4b"], calls, spp=1)
     n_calls = sum(1 for c in calls if c[1][0] == MAT_REFRACTIVE)
-    assert n_calls > 0 and ws.backward_launches() == n_calls
+    assert n_calls > 0 and ws.backward_launches()["shade_refractive_bwd"] == n_calls
     assert ws.plain_routes["refractive"] == 0
     assert bool((plain != 0).any())
     assert not bits_differ(got, plain)
@@ -396,12 +400,12 @@ def test_the_gradient_through_the_kernel_is_the_plain_blocks(libs):
         ws.reset_launches()
         ior_gradient(SCENES["cornell"], "refr_n_re", libs["w4b"], spp=1)
     assert ws.plain_routes["diffuse"] > 0 and ws.plain_routes["refractive"] == 0
-    assert ws.backward_launches() > 0
+    assert ws.backward_launches()["shade_refractive_bwd"] > 0
 
 
 def test_a_refused_launch_raises_and_counts_nothing(libs):
-    before = ws.backward_launches()
+    before = ws.backward_launches()["shade_refractive_bwd"]
     with pytest.raises(RuntimeError, match="CUDA error"):
         ws._call(libs["w4b"], "shade_refractive_bwd", ctypes.byref(ws.RefrBwd()), None,
                  entries=ws.ENTRIES)
-    assert ws.backward_launches() == before
+    assert ws.backward_launches()["shade_refractive_bwd"] == before

@@ -113,11 +113,14 @@ def _gxx():
 
 
 def _source(edits=()):
-    """The source with its texture fetch (csrc/texture_fetch.cuh) written
-    in, so that an edit may change either, and `edits` made."""
-    text = (CSRC / "wavefront_shade.cu").read_text().replace(
-        '#include "texture_fetch.cuh"\n',
-        (CSRC / "texture_fetch.cuh").read_text().replace("#pragma once\n", ""))
+    """The source with its headers (csrc/aten_sum.cuh, the sums; csrc/
+    torch_math.cuh, torch's elementwise ops; csrc/texture_fetch.cuh, the
+    texture fetch) written in, so that an edit may change any of them, and
+    `edits` made."""
+    text = (CSRC / "wavefront_shade.cu").read_text()
+    for header in ("aten_sum.cuh", "torch_math.cuh", "texture_fetch.cuh"):
+        text = text.replace(f'#include "{header}"\n',
+                            (CSRC / header).read_text().replace("#pragma once\n", ""))
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
