@@ -242,15 +242,20 @@ drives both kernel paths and the wavefront:
   same scene with the glass sphere as a 1,280-face clustered icosphere
   mesh (W1 launched; its winners' t recomputed for autograd), its IoR
   gradient against a central difference within rtol 0.05; the backward
-  kernels (csrc/bounce_tail.cu `bounce_update_bwd`, `bounce_start_bwd`;
-  csrc/hit_attrs.cu `hit_attrs_bwd`) in the IoR gradients of the glass
-  sphere, the icosphere, Cornell and the primitives (discs, cylinders) on
-  the wavefront at the same size: each kernel launched, no plain W6 stage
-  or W5 formula on the card, no plain-VJP route taken, every backward call
+  kernels (csrc/bounce_tail.cu `bounce_update_bwd`, `bounce_start_bwd`
+  and its TAPS instance; csrc/hit_attrs.cu `hit_attrs_bwd` and its TABLES
+  and MAPS instances; W4's refractive, diffuse and glossy backward) in
+  the IoR gradients of the glass sphere, the icosphere, Cornell and the
+  primitives (discs, cylinders) on the wavefront at the same size and in
+  the gradients of the primitives' colours and floor texture, every
+  texture of a lit scene, the spheres' and the icosphere's geometry
+  tables and an enclosed normal-mapped scene's map and tables
+  (`backward_phase`): each kernel launched, no plain W6 stage, W5 formula
+  or W4 block on the card, no plain-VJP route taken, every backward call
   recorded and held against the plain VJP bit for bit (a share of 1.0
-  per kernel), the first of each timed through a CUDA graph beside the
-  plain VJP, its bytes' bound and share, the kernels' registers, stack and
-  blocks an SM (`--backward` runs the build and this part alone);
+  per kernel), each timed with the L2 cold beside the plain VJP, its
+  bytes' bound and share, the kernels' registers, stack and blocks an SM
+  (`--backward` runs the build and this part alone);
   Cornell 400x400 x 256 spp over a 4x1 mesh of cuda:0 shards (K1 on each:
   4 launches a chunk, the first shard chunk bit for bit against its plain
   version, image and regions within 4 standard errors of the unsharded
@@ -520,10 +525,25 @@ BWD_ENTRIES = {
     "bounce_start_bwd": ("bounce_tail bounce_start_bwd (W6 backward)", "bounce_tail.cu",
                          "raytracer_tpu/core/integrator.py:239-287 (the start's VJP "
                          "under jax.grad; materials/shade.py:176, :190)",
-                         "bounce_start_bwd_kernel"),
+                         "bounce_start_bwd_kernelILb0E"),
+    "bounce_start_bwd_taps": ("bounce_tail bounce_start_bwd TAPS instance (W6 backward "
+                              "with the textures' texel taps' rows)", "bounce_tail.cu",
+                              "raytracer_tpu/materials/shade.py:81 fetch_texture under "
+                              "jax.grad in the start (:130 _slot_color, :190 shade_env; "
+                              "raytracer_tpu/diff.py:15-22 texture planes)",
+                              "bounce_start_bwd_kernelILb1E"),
     "hit_attrs_bwd": ("hit_attrs_bwd (W5 backward)", "hit_attrs.cu",
                       "raytracer_tpu/geometry/attrs.py:245 (hit_attributes' VJP under "
-                      "jax.grad; core/integrator.py:221-236)", "hit_attrs_bwd_kernel"),
+                      "jax.grad; core/integrator.py:221-236)", "hit_attrs_bwd_kernelILi0E"),
+    "hit_attrs_bwd_tables": ("hit_attrs_bwd TABLES instance (W5 backward with the "
+                             "geometry tables' per-ray rows)", "hit_attrs.cu",
+                             "raytracer_tpu/geometry/attrs.py:24 `_gather` under jax.grad "
+                             "(hit_attributes' VJP into data.geom, raytracer_tpu/diff.py:15-22)",
+                             "hit_attrs_bwd_kernelILi1E"),
+    "hit_attrs_bwd_maps": ("hit_attrs_bwd MAPS instance (W5 backward through the normal "
+                           "maps, their textures' taps)", "hit_attrs.cu",
+                           "raytracer_tpu/core/integrator.py:120 _apply_normal_maps under "
+                           "jax.grad (called at :224)", "hit_attrs_bwd_kernelILi2E"),
     "shade_refractive_bwd": ("wavefront_shade shade_refractive_bwd (W4 refractive "
                              "backward)", "wavefront_shade_bwd.cu",
                              "raytracer_tpu/materials/shade.py:385 (shade_refractive's "
@@ -2874,7 +2894,7 @@ def w5_resources(torch, dev):
     print(f"W5 kernels ({inf['block']} threads a block, {inf['sms']} SMs): "
           + "; ".join(parts), flush=True)
     gen = torch.Generator(device=dev).manual_seed(5)
-    bad_mm = 0
+    bad_mm = bad_bwd = 0
     for n in W5_MM3_ROWS:
         m = torch.rand(n, 3, device=dev, generator=gen) - 0.5
         zero = torch.rand(n, 3, device=dev, generator=gen) < 0.3
@@ -2882,12 +2902,20 @@ def w5_resources(torch, dev):
         a = torch.where(zero, torch.where(neg, -0.0, 0.0), m) * 2.0
         B = torch.randn(3, 3, device=dev, generator=gen)
         B[0, 1], B[1, 2] = 0.0, -0.0
+        g = torch.randn(n, 3, device=dev, generator=gen)
+        g[::7, 1] = -0.0
         for M in (B, B.T.contiguous().T):
             bad_mm += int((ha.math("mm3", a, M).view(torch.int32)
                            != (a @ M).view(torch.int32)).sum())
+            # the backward into the left factor (the maps' backward)
+            x = a.clone().requires_grad_()
+            ga, = torch.autograd.grad(x @ M, x, g)
+            bad_bwd += int((ha.math("mm3_bwd", g, M).view(torch.int32)
+                            != ga.view(torch.int32)).sum())
     print(f"W5 3 x 3 product vs torch's (cuBLAS) at {W5_MM3_ROWS} rows, both "
-          f"layouts, signed zeros: {bad_mm} elements differ", flush=True)
-    require(bad_mm == 0, "W5's 3 x 3 product differs from torch's")
+          f"layouts, signed zeros: {bad_mm} elements differ; its backward into the "
+          f"left factor vs autograd's: {bad_bwd} differ", flush=True)
+    require(bad_mm == 0 and bad_bwd == 0, "W5's 3 x 3 product differs from torch's")
 
     def differ(a, b):
         return int((~((a.view(torch.int32) == b.view(torch.int32))
@@ -4141,7 +4169,8 @@ def bwd_bytes(entry, call, xs, grads, out, wants=None):
         for part in written:
             vals = part.values() if isinstance(part, dict) else part
             for v in vals:
-                flat.extend(v if isinstance(v, (tuple, list)) else [v])
+                flat.extend(x for x in (v if isinstance(v, (tuple, list)) else [v])
+                            if isinstance(x, torch.Tensor))
         return _bwd_nbytes(*g, *reads, *flat)
     if entry == "shade_refractive_bwd":
         # the rays' state, draws and words (a medium every ray shares as its
@@ -4165,18 +4194,54 @@ def bwd_bytes(entry, call, xs, grads, out, wants=None):
                  v["beta_mult"] if grads[1] is not None else None,
                  v["alive"], v["miss"], v["cont"]]
         return _bwd_nbytes(*g, *reads, *out)
-    if entry == "bounce_start_bwd":
+    if entry in ("bounce_start_bwd", "bounce_start_bwd_taps"):
+        # the texel taps' rows and texel rows where a texture takes a
+        # gradient (ops/bounce_tail.py `start_texture_refs`)
         ctx, _, mat_type, _, _ = call
-        rows = out[4] is not None or out[6] is not None
+        n = mat_type.shape[0]
+        k = len(bt._START_RAYS) + 2
+        refs = bt.start_texture_refs(ctx.data, ctx.static)
+        taps = (sum(4 if r[1] else 1 for r in refs) * n * 20
+                if any(out[k + r[0]] is not None for r in refs) else 0)
+        rows = out[4] is not None or out[6] is not None or taps
         return _bwd_nbytes(*g, mat_type, ctx.mat_slot, *((ctx.uv, ctx.depth) if rows
                                                           else ()), *out[:5]) \
-            + (out[5].numel() * 4 if out[5] is not None else 0)
-    obj, data, static, modes = call[:4]
+            + (out[5].numel() * 4 if out[5] is not None else 0) + taps
+    obj, data, static, modes, names, texs = call[:6]
     _, keep = ha.scene_struct(data, static)
     table, tri, corners, inst, packed, maps = keep
     tabs = [table, *tri.values(), *corners.values(), *inst.values()]
+    if not modes[2] and static.normal_maps:
+        # the MAPS instance reads the maps' tables and texels
+        tabs += [x for x in maps.values() if isinstance(x, torch.Tensor)]
+    # the TABLES instance: a row a ray of each table that took a gradient;
+    # the maps' taps' rows (20 bytes a tap a ray) where a map's texture did
+    rows = sum(obj.shape[0] * getattr(data.geom, x)[0].numel() * 4
+               for x, o in zip(names, out[4:]) if o is not None)
+    if any(o is not None for o in out[4 + len(names):]):
+        rows += sum(4 if r.bilinear else 1 for r in static.normal_maps) * obj.shape[0] * 20
     return _bwd_nbytes(*g, *xs[:3], obj, None if modes[2] else xs[3], *out[:3],
-                       *tabs)
+                       *tabs) + rows
+
+
+def _bwd_rows_fn(f, call, xs, grads, wants):
+    """A function of no argument launching the backward kernel of a
+    recorded call of `_Attrs` or `_Start` alone (`hit_attrs._attrs_rows`,
+    `bounce_tail._start_rows`: the gradients and the per-ray rows, without
+    their reductions)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+
+    if f is ha._Attrs:
+        obj, data, static, modes, names, texs = call[:6]
+        g = grads[:len(ha.FLOAT_FIELDS)]
+        return lambda: ha._attrs_rows(g, *xs[:4], obj, data, static, modes, wants,
+                                      names=names, texs=texs)
+    ctx, _, mat_type, _, _ = call
+    g = grads[:len(ws.FLOAT_FIELDS)]
+    return lambda: bt._start_rows(g, mat_type, ctx.mat_slot, ctx.depth, ctx.uv,
+                                  ctx.data, ctx.static, wants)
 
 
 def bwd_module(f):
@@ -4193,7 +4258,7 @@ def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
     """Each recorded backward call replayed through its kernel and through
     the plain VJP (with output gradients drawn from `gen` where `redraw`,
     finite, in place of the recorded ones, and every input of W4's blocks
-    wanted but the textures), every output compared by its
+    wanted, the textures too), every output compared by its
     bits (NaN equal to NaN): {entry: [entries equal, entries, entries
     finite on both sides, entries the finite share counts]}, and the calls
     that launched their kernel, by entry, as (the Function, call, inputs,
@@ -4224,15 +4289,21 @@ def _bwd_holds(torch, calls, gen, name, entries, redraw=False):
                     g.shape, generator=gen, device=g.device, dtype=g.dtype) for g in grads)
                 if f is ws._Shade:
                     # every input's gradient wanted (the tables' rows and
-                    # their reductions too), but a texture's (one the block
-                    # reads that requires grad takes the plain VJP)
-                    n_tex = 0 if call[0] == ws.MAT_REFRACTIVE else len(call[1].data.textures)
-                    wants = (True,) * (len(wants) - n_tex) + (False,) * n_tex
+                    # their reductions too, the textures' taps)
+                    wants = (True,) * len(wants)
             entry = W4_BWD[call[0]] if f is ws._Shade else kinds[f]
             kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
             require(kernel is not None, f"backward {name}: {entry} took a plain route")
             n0 = n_bwd()
+            t0 = (ha.backward_launches(tables=True), bt.backward_launches(taps=True),
+                  ha.backward_launches(maps=True))
             got, want = kernel(), plain()
+            if ha.backward_launches(tables=True) > t0[0]:
+                entry = "hit_attrs_bwd_tables"
+            if bt.backward_launches(taps=True) > t0[1]:
+                entry = "bounce_start_bwd_taps"
+            if ha.backward_launches(maps=True) > t0[2]:
+                entry = "hit_attrs_bwd_maps"
             own = call[4] & (call[1].t < FARAWAY) if f is ws._Shade else None
             for x, y in zip(got, want):
                 require((x is None) == (y is None),
@@ -4260,15 +4331,24 @@ def backward_phase(torch, dev):
     """W6's, W5's and W4's backward kernels on the card, in the gradient of
     the IoR (refr_n_re requiring grad) at DIFF_W x DIFF_H x DIFF_SPP of the
     glass sphere, its icosphere twin, Cornell and the primitives (discs and
-    cylinders) on the wavefront, and in the primitives' colour gradient
-    (diffuse_color, glossy_color and glossy_n_re in one backward pass, taken
-    twice, the two passes bit-equal): each gradient with the backward
+    cylinders) on the wavefront, in the primitives' colour gradient
+    (diffuse_color, glossy_color and glossy_n_re in one backward pass), and
+    in the gradients of textures, geometry tables and normal maps: the
+    primitives' checkered floor (a glossy colour texture), every texture of
+    examples/torch_features.py `lit_textures` (a diffuse, a glossy, an
+    emissive image and the sky), the sphere's centres and radii, the
+    icosphere's corners and corner normals, and the enclosed normal-mapped
+    scene's map, diffuse colour and the tables its maps read
+    (scripts/torch_grad_ab.py `leaf` names each leaf; the gradients finite
+    in both packages at 16x16 x 2 spp, tests/test_torch_diff.py, must be
+    finite and nonzero here; each but the IoR ones taken twice, the two
+    passes bit-equal): each gradient with the backward
     kernels' counts set to 0 just before and read just after, every
     backward call of `_Start`, `_Update`, `_Attrs` and `_Shade` recorded
     (ops/plain_grad.py `recording`), the plain W6 stages, W5's plain
     formulas and W4's plain diffuse, refractive and glossy blocks counted
     on the card (none may run: the backward passes take the kernels), the
-    explicit plain-VJP routes of W6, W5 and W4 counted (none taken).  Then
+    plain-VJP routes of W4 counted (none taken).  Then
     each recorded call replayed through its backward kernel and through the
     plain VJP, every output held bit for bit (a share of exactly 1.0 each),
     beside the share of entries finite on both sides; and again with finite
@@ -4282,11 +4362,15 @@ def backward_phase(torch, dev):
     whole VJP with the tables' reductions); the plain VJP on the same calls
     (events); the kernels' registers, stack and blocks an SM.  Returns the
     kernels line's rows (the sphere's calls; W4's diffuse and glossy
-    backward: the primitives' colour gradient's)."""
+    backward: the primitives' colour gradient's; W5's TABLES and MAPS
+    instances: the sphere tables' and the normal-mapped scene's; W6's start
+    TAPS instance: lit textures')."""
     import raytracer_tpu_torch.ops.plain_grad as pg
     import torch_cornellbox
+    import torch_features
     import torch_primitives
-    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.diff import differentiable_render
+    from torch_grad_ab import leaf, with_leaves
     from raytracer_tpu_torch.materials import shade
     from raytracer_tpu_torch.ops import bounce_tail as bt
     from raytracer_tpu_torch.ops import cuda_build
@@ -4300,6 +4384,9 @@ def backward_phase(torch, dev):
     w6w5 = ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd")
     ior = ("refr_n_re",)
     colour = ("diffuse_color", "glossy_color", "glossy_n_re")
+    corners = tuple(f"geom.tri_{k}" for k in ("p1", "p2", "p3", "vn1", "vn2", "vn3"))
+    tables_bwd = ("bounce_update_bwd", "bounce_start_bwd", "hit_attrs_bwd_tables",
+                  "shade_refractive_bwd")
     # (scene, the tables the gradient takes, the backward kernels that must
     # launch in it)
     scenes = {
@@ -4316,7 +4403,31 @@ def backward_phase(torch, dev):
         "primitives colour": (lambda: torch_primitives.primitives(DIFF_W, DIFF_H), colour,
                               ("bounce_update_bwd", "shade_diffuse_bwd",
                                "shade_glossy_bwd")),
+        # the textures: their taps' rows
+        "primitives texture": (lambda: torch_primitives.primitives(DIFF_W, DIFF_H),
+                               ("textures.0",), ("bounce_update_bwd", "shade_glossy_bwd")),
+        "lit textures": (lambda: torch_features.lit_textures(DIFF_W, DIFF_H), ("textures",),
+                         ("bounce_update_bwd", "bounce_start_bwd_taps",
+                          "shade_diffuse_bwd", "shade_glossy_bwd")),
+        # the geometry tables: W5's TABLES instance
+        "sphere tables": (lambda: build_scene(TRUE_N, DIFF_W, DIFF_H),
+                          ("geom.sphere_center", "geom.sphere_radius"), tables_bwd),
+        "icosphere tables": (lambda: build_mesh_scene(TRUE_N, DIFF_W, DIFF_H, WORK / "bwd"),
+                             corners, tables_bwd),
+        # the normal maps: W5's MAPS instance, the map's taps and the tables
+        # the maps read (the scene enclosed: no ray misses, object 0 carries
+        # no map)
+        "normal-mapped": (lambda: torch_features.normal_mapped(
+                              DIFF_W, DIFF_H, obj_dir=WORK / "bwd", enclosed=True),
+                          ("textures.0", "diffuse_color", "geom.plane_u_axis",
+                           "geom.box_basis", "geom.tri_tan"),
+                          ("bounce_update_bwd", "hit_attrs_bwd_maps", "shade_diffuse_bwd",
+                           "shade_glossy_bwd")),
     }
+    # the gradients finite in both packages (tests/test_torch_diff.py); each
+    # but the IoR ones taken twice (F4)
+    finite_in_both = ("sphere", "icosphere", "primitives colour", "primitives texture",
+                      "lit textures", "sphere tables", "icosphere tables", "normal-mapped")
     saved = [(bt, "plain_start", bt.plain_start), (bt, "plain_update", bt.plain_update),
              (ha, "hit_attributes", ha.hit_attributes),
              (ha, "_apply_normal_maps", ha._apply_normal_maps),
@@ -4341,19 +4452,28 @@ def backward_phase(torch, dev):
             ws.reset_launches()
             calls = []
 
+            paths = (tuple(f"textures.{k}" for k in range(len(data.textures)))
+                     if tables == ("textures",) else tables)
+
             def grad():
-                xs = [getattr(data.mats, k).clone().requires_grad_(True) for k in tables]
-                img = fn(update_materials(data, **dict(zip(tables, xs))))
+                xs = [leaf(data, p).clone().requires_grad_(True) for p in paths]
+                img = fn(with_leaves(data, paths, xs))
                 return torch.autograd.grad(torch.mean(img ** 2), xs)
 
             with pg.recording(calls, bt._Start, bt._Update, ha._Attrs, ws._Shade):
                 gs = grad()
                 torch.cuda.synchronize()
-            launched = {**bt.backward_launches(), "hit_attrs_bwd": ha.backward_launches(),
+            launched = {**bt.backward_launches(),
+                        "bounce_start_bwd": bt.backward_launches()["bounce_start_bwd"]
+                        - bt.backward_launches(taps=True),
+                        "bounce_start_bwd_taps": bt.backward_launches(taps=True),
+                        "hit_attrs_bwd": ha.backward_launches()
+                        - ha.backward_launches(tables=True)
+                        - ha.backward_launches(maps=True),
+                        "hit_attrs_bwd_tables": ha.backward_launches(tables=True),
+                        "hit_attrs_bwd_maps": ha.backward_launches(maps=True),
                         **ws.backward_launches()}
-            routes = {**{f"W6 {k}": v for k, v in bt.plain_routes.items()},
-                      **{f"W5 {k}": v for k, v in ha.plain_routes.items()},
-                      **{f"W4 {k}": v for k, v in ws.plain_routes.items()}}
+            routes = {f"W4 {k}": v for k, v in ws.plain_routes.items()}
             runs = {k[len("plain_"):]: BWD[k] - before[k] for k in before}
             for k, v in launched.items():
                 BWD["launches"][k] += v
@@ -4361,9 +4481,10 @@ def backward_phase(torch, dev):
             # package's are (tests/test_torch_diff.py); the holds below are
             # what is required of them
             finite = all(bool(torch.isfinite(g).all()) for g in gs)
-            require(name not in ("sphere", "icosphere", "primitives colour")
+            require(name not in finite_in_both
                     or (finite and all(float(g.abs().max()) > 0 for g in gs)),
-                    f"backward {name}: gradient {[g.tolist() for g in gs]}")
+                    f"backward {name}: gradient finite {finite}, largest "
+                    f"{[float(g.abs().max()) for g in gs]}")
             require(all(launched[k] > 0 for k in need),
                     f"backward {name}: backward kernel launches {launched}")
             require(runs == {"W6": 0, "W5": 0, "W4": 0},
@@ -4371,7 +4492,7 @@ def backward_phase(torch, dev):
             require(not any(routes.values()),
                     f"backward {name}: plain-VJP routes taken {routes}")
             again = ""
-            if name == "primitives colour":
+            if name in finite_in_both and tables != ior:
                 # F4: a second backward pass gives the same bits
                 gs2 = grad()
                 same = all(bool((a.view(torch.int32) == b.view(torch.int32)).all())
@@ -4413,6 +4534,13 @@ def backward_phase(torch, dev):
                         ms.append(common.cold_ms(lambda: rows_fn(grads, s, wants),
                                                  W6_REPS)[0])
                         whole_ms.append(common.cold_ms(kernel, W6_REPS)[0])
+                    elif entry in ("hit_attrs_bwd_tables", "hit_attrs_bwd_maps",
+                                   "bounce_start_bwd_taps"):
+                        # the kernel alone (its rows), then the whole VJP with
+                        # the rows' scans
+                        ms.append(common.cold_ms(_bwd_rows_fn(f, call, xs, grads, wants),
+                                                 W6_REPS)[0])
+                        whole_ms.append(common.cold_ms(kernel, W6_REPS)[0])
                     else:
                         ms.append(common.cold_ms(kernel, W6_REPS)[0])
                     with held(BWD):
@@ -4431,13 +4559,16 @@ def backward_phase(torch, dev):
                              f"{sum(n_bytes) / n:.0f} bytes, bound {row['bound_ms']:.4f} ms, "
                              f"share {row['bound_ms'] / row['ms']:.4f} "
                              f"({min(share):.4f}-{max(share):.4f})")
-                if name == "sphere" or (name == "primitives colour"
-                                        and entry in ("shade_diffuse_bwd",
-                                                      "shade_glossy_bwd")):
+                if (name == "sphere" and entry in w6w5 + ("shade_refractive_bwd",)) or (
+                        name == "primitives colour" and entry in ("shade_diffuse_bwd",
+                                                                  "shade_glossy_bwd")) or (
+                        name == "sphere tables" and entry == "hit_attrs_bwd_tables") or (
+                        name == "normal-mapped" and entry == "hit_attrs_bwd_maps") or (
+                        name == "lit textures" and entry == "bounce_start_bwd_taps"):
                     rows[entry] = row
-            grad_text = ", ".join(f"d loss / d {k}[0] {g[0].tolist()}"
-                                  for k, g in zip(tables, gs))
-            print(f"backward {name}: gradient of {', '.join(tables)} {DIFF_W}x{DIFF_H} x "
+            grad_text = ", ".join(f"d loss / d {k}: largest |.| {float(g.abs().max()):.6e}"
+                                  for k, g in zip(paths, gs))
+            print(f"backward {name}: gradient of {', '.join(paths)} {DIFF_W}x{DIFF_H} x "
                   f"{DIFF_SPP} spp (finite {finite}{again}, {grad_text}), "
                   f"{len(calls)} backward calls recorded | launches {launched} | plain "
                   f"stages on the card {runs} | plain-VJP routes {routes} | bit-equal "
@@ -4455,7 +4586,9 @@ def backward_phase(torch, dev):
         kernel = BWD_ENTRIES[entry][3]
         r = use[next(k for k in use if kernel in k)]
         mt = next((t for t, e in W4_BWD.items() if e == entry), None)
-        inf = (ha.info(backward=True) if entry == "hit_attrs_bwd"
+        inf = (ha.info(backward=True, tables=entry.endswith("tables"),
+                       maps=entry.endswith("maps"))
+               if entry.startswith("hit_attrs_bwd")
                else ws.info(mt, backward=True) if mt is not None else bt.info(entry))
         parts.append(f"{kernel} {r['REG']} registers, stack {r['STACK']} B, local "
                      f"{r['LOCAL']} B, {inf['blocks_per_sm']} blocks an SM of "

@@ -176,10 +176,12 @@ def bump_normalmap(n=64, bumps=6, strength=0.35):
 
 
 def normal_mapped(width=400, height=300, m=None, obj_dir=None,
-                  filter="nearest"):
+                  filter="nearest", enclosed=False):
     """A normal-mapped sphere, plane (the floor), box and UV-sphere mesh,
     diffuse and glossy, under a directional light and an emissive sphere
-    that the diffuse mixture importance-samples."""
+    that the diffuse mixture importance-samples.  enclosed: inside a dim
+    emissive sphere of radius 30, added first: no ray misses, and object
+    0 (whose attributes a miss takes) carries no map."""
     m = _package(m)
     nm = bump_normalmap()
     sc = m.Scene(ambient_color=m.rgb(0.03, 0.03, 0.04))
@@ -187,6 +189,10 @@ def normal_mapped(width=400, height=300, m=None, obj_dir=None,
                   screen_width=width, screen_height=height, field_of_view=40)
     sc.add_DirectionalLight(Ldir=m.vec3(0.5, 0.8, 0.4),
                             color=m.rgb(0.9, 0.9, 0.85))
+
+    if enclosed:
+        sc.add(m.Sphere(material=m.Emissive(color=m.rgb(0.2, 0.22, 0.25)),
+                        center=m.vec3(0, 0, 0), radius=30.0, shadow=False))
 
     def mat(kind, color, repeat=1.0):
         if kind == "diffuse":
@@ -213,6 +219,41 @@ def normal_mapped(width=400, height=300, m=None, obj_dir=None,
     sc.add(m.Sphere(material=m.Emissive(color=m.rgb(6, 6, 5.5)),
                     center=m.vec3(0, 3.5, 1.0), radius=0.5, shadow=False),
            importance_sampled=True)
+    return sc
+
+
+def lit_textures(width=32, height=32, m=None):
+    """tests/test_torch_scenes.py's lit_textures at width x height: a
+    diffuse image texture (nearest), a glossy one (bilinear), an emissive
+    image (importance-sampled), a solid diffuse box, a point and a spot
+    light with shadow rays, and the procedural sky: the textures of every
+    block that reads one, for their gradients."""
+    m = _package(m)
+    proc = importlib.import_module(m.__name__ + ".textures.procedural")
+    checker = proc.checkerboard(64, squares=4)
+    sc = m.Scene(ambient_color=m.rgb(0.05, 0.04, 0.03))
+    sc.add_Camera(look_from=m.vec3(0, 1.0, 3.0), look_at=m.vec3(0, 0.3, 0),
+                  screen_width=width, screen_height=height, field_of_view=60)
+    sc.add_PointLight(pos=m.vec3(1.5, 2.5, 1.0), color=m.rgb(3, 3, 3))
+    sc.add_SpotLight(pos=m.vec3(-1.5, 2.5, 1.0), direction=m.vec3(0.5, -1, -0.3),
+                     color=m.rgb(2, 2, 3), angle=35.0)
+    sc.add(m.Plane(material=m.Diffuse(diff_color=m.image(checker, repeat=4.0),
+                                      diffuse_rays=4),
+                   center=m.vec3(0, 0, 0), width=8.0, height=8.0,
+                   u_axis=m.vec3(1, 0, 0), v_axis=m.vec3(0, 0, -1)))
+    sc.add(m.Sphere(material=m.Glossy(
+                        diff_color=m.image(proc.wood(64), repeat=2.0, filter="bilinear"),
+                        n=m.vec3(1.5, 1.5, 1.5), roughness=0.3, spec_coeff=0.4,
+                        diff_coeff=0.6),
+                    center=m.vec3(0.6, 0.5, 0.0), radius=0.5, max_ray_depth=2))
+    sc.add(m.Sphere(material=m.Emissive(color=m.image(checker * 3.0)),
+                    center=m.vec3(-0.8, 0.6, -0.5), radius=0.35),
+           importance_sampled=True)
+    box = m.Cuboid(material=m.Diffuse(diff_color=m.rgb(0.7, 0.3, 0.2)),
+                   center=m.vec3(-0.2, 0.25, 0.8), width=0.4, height=0.5, length=0.3)
+    box.rotate(θ=20, u=m.vec3(0, 1, 0))
+    sc.add(box)
+    sc.add_Background(m.procedural_sky(128, 96))
     return sc
 
 

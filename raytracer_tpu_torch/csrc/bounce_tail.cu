@@ -444,7 +444,13 @@ bounce_update_bwd_kernel(UpdateBwd B) {
 // wanted) the gradients of P, D, the medium and uv, and the per-ray rows
 // that the two tables' gathers (core/safemath.py `take`) hand their
 // backward: em_rows (N, 3) of the emissive colours, li_rows (lightmaps, N)
-// of the light intensity, one row a gather.
+// of the light intensity, one row a gather.  Where a texture the start
+// reads takes a gradient, `taps` (texture_fetch.cuh `tap_rows`): every
+// emissive ref's taps' planes in order, then an environment's display
+// texture's tap (env_disp: its descriptor a row an environment, nearest,
+// repeat 1) and its lightmap's (that tap's gradient where(depth != 0, g,
+// 0) times the slot's light intensity, env_li (env_rows,)), environments
+// in order.
 struct StartBwd {
   const float *g_add, *g_origin, *g_dir, *g_n_re, *g_n_im;
   const int *mat_type, *mat_slot, *depth;
@@ -458,6 +464,10 @@ struct StartBwd {
   const int *env_slot, *env_lm_row;
   Textures env_lm;
   float *dP, *dD, *dn_re, *dn_im, *duv, *em_rows, *li_rows;
+  Textures env_disp;
+  const float* env_li;
+  int env_rows;
+  TapRows taps;
 };
 
 // The merges' backward of one field's gradient g into the ray as it came
@@ -513,18 +523,23 @@ __device__ __forceinline__ void start_bwd_element(const StartBwd& S, long long i
 }
 
 // ray i's uv gradient and light-intensity rows
+// TAPS: where a texture takes a gradient (S.taps), its taps' rows too
+template <bool TAPS>
 __device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
   const int type = S.mat_type[i], slot = S.mat_slot[i];
   const bool m_em = S.em && type == MAT_EMISSIVE, m_env = S.env && type == MAT_ENV;
   const float u = S.uv[2 * i], v = S.uv[2 * i + 1];
   float g[3];
   for (int k = 0; k < 3; ++k) g[k] = S.g_add[3 * i + k];
-  if (S.duv) {
+  constexpr bool taps = TAPS;
+  const int em_planes = taps && S.em ? tap_planes_total(S.em_ref_tex, S.em_refs) : 0;
+  if (S.duv || (taps && S.em)) {
     // _slot_color's wheres, last ref first: a ref takes the gradient where
     // its slot is the ray's and no later ref's is; each bilinear ref's
     // fetch hands uv its two selects' full rows, v's then u's
     float cur[3], gc[3], gu = 0.0f, gv = 0.0f, a0 = 0.0f, a1 = 0.0f;
     bool has = false;
+    int plane = em_planes;
     for (int k = 0; k < 3; ++k) cur[k] = em_share(S, m_em, m_env, g[k]);
     for (int r = S.em_refs - 1; r >= 0; --r) {
       const bool m = slot == S.em_ref_slot[r];
@@ -532,7 +547,11 @@ __device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
         gc[k] = m ? cur[k] : 0.0f;
         cur[k] = m ? 0.0f : cur[k];
       }
-      if (!(S.em_ref_tex.desc_i[4 * r + 3] & 2)) continue;
+      if (taps) {
+        plane -= tap_planes(S.em_ref_tex, r);
+        tap_rows(S.em_ref_tex, r, u, v, gc, S.taps, plane, S.n, i);
+      }
+      if (!S.duv || !(S.em_ref_tex.desc_i[4 * r + 3] & 2)) continue;
       bilinear_bwd(S.em_ref_tex, r, u, v, gc, &gu, &gv, Sum3());
       a0 = has ? a0 + 0.0f : 0.0f;
       a1 = has ? a1 + gv : gv;
@@ -540,16 +559,21 @@ __device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
       a1 = a1 + 0.0f;
       has = true;
     }
-    S.duv[2 * i] = a0;
-    S.duv[2 * i + 1] = a1;
+    if (S.duv) {
+      S.duv[2 * i] = a0;
+      S.duv[2 * i + 1] = a1;
+    }
   }
-  if (S.li_rows) {
+  if (S.li_rows || (taps && S.env)) {
     // shade_env's wheres, last slot first; a lightmap's term
     // where(depth != 0, li[..., None] * lm, 0) hands li torch.sum of its
-    // gradient times the texel
+    // gradient times the texel, and the lightmap's tap that gradient times
+    // li; the display texture's tap takes the slot's gradient
     float cur[3], gc[3];
     for (int k = 0; k < 3; ++k) cur[k] = m_env ? g[k] : 0.0f;
     const bool beyond = S.depth[i] != 0;    // past the camera's bounce
+    int plane = em_planes;
+    for (int e = 0; e < S.env_slots; ++e) plane += S.env_lm_row[e] < 0 ? 1 : 2;
     for (int e = S.env_slots - 1; e >= 0; --e) {
       const bool m = slot == S.env_slot[e];
       for (int k = 0; k < 3; ++k) {
@@ -557,22 +581,36 @@ __device__ __forceinline__ void start_bwd_ray(const StartBwd& S, long long i) {
         cur[k] = m ? 0.0f : cur[k];
       }
       const int row = S.env_lm_row[e];
+      if (taps) {
+        plane -= row < 0 ? 1 : 2;
+        tap_rows(S.env_disp, e, u, v, gc, S.taps, plane, S.n, i);
+      }
       if (row < 0) continue;
+      float gl[3];
+      for (int k = 0; k < 3; ++k) gl[k] = beyond ? gc[k] : 0.0f;
+      if (taps) {
+        const float li = S.env_li[clip_slot(slot, S.env_rows)];
+        float t[3];
+        for (int k = 0; k < 3; ++k) t[k] = gl[k] * li;
+        tap_rows(S.env_lm, e, u, v, t, S.taps, plane + 1, S.n, i);
+      }
+      if (!S.li_rows) continue;
       float lm[3];
       fetch_texture(S.env_lm, e, u, v, lm);
-      S.li_rows[(long long)row * S.n + i] =
-          tsum3((beyond ? gc[0] : 0.0f) * lm[0], (beyond ? gc[1] : 0.0f) * lm[1],
-                (beyond ? gc[2] : 0.0f) * lm[2]);
+      S.li_rows[(long long)row * S.n + i] = tsum3(gl[0] * lm[0], gl[1] * lm[1],
+                                                  gl[2] * lm[2]);
     }
   }
 }
 
+// TAPS: the instance that also writes the textures' taps' rows
+template <bool TAPS>
 __global__ void __launch_bounds__(TAIL_BLOCK)
 bounce_start_bwd_kernel(StartBwd S) {
   by_tiles<false>(
       S.n,
       [&](long long i, int) {
-        if (S.duv || S.li_rows) start_bwd_ray(S, i);
+        if (TAPS || S.duv || S.li_rows) start_bwd_ray<TAPS>(S, i);
       },
       [&](long long i, int k, int) { start_bwd_element(S, i, k); });
 }
@@ -644,7 +682,13 @@ bool start_bwd_ok(const StartBwd& S) {
                         && S.em_ref_tex.desc_i && textures_ok(S.em_ref_tex)))
          && (!S.em_rows || S.em) && S.em_refs >= 0 && (!S.em_refs || S.em_ref_slot)
          && (!S.li_rows || (S.env && S.uv && S.depth && S.env_slots >= 1 && S.env_slot
-                            && S.env_lm_row && S.env_lm.desc_i && textures_ok(S.env_lm)));
+                            && S.env_lm_row && S.env_lm.desc_i && textures_ok(S.env_lm)))
+         && (!S.taps.rows
+             || (S.g_add && S.taps.idx && S.uv && (S.em || S.env)
+                 && (!S.em || !S.em_refs || (S.em_ref_tex.desc_i && textures_ok(S.em_ref_tex)))
+                 && (!S.env || (S.depth && S.env_slots >= 1 && S.env_slot && S.env_lm_row
+                                && S.env_disp.desc_i && textures_ok(S.env_disp)
+                                && textures_ok(S.env_lm) && S.env_li && S.env_rows >= 1))));
 }
 
 template <class F>
@@ -717,24 +761,29 @@ extern "C" int bounce_update_bwd(const UpdateBwd* B, void* stream, int* launched
 extern "C" int bounce_start_bwd(const StartBwd* S, void* stream, int* launched) {
   *launched = 0;
   if (!start_bwd_ok(*S)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool taps = S->taps.rows != nullptr;
   int grid = 0;
-  cudaError_t err = grid_for(bounce_start_bwd_kernel, S->n, &grid);
+  cudaError_t err = taps ? grid_for(bounce_start_bwd_kernel<true>, S->n, &grid)
+                         : grid_for(bounce_start_bwd_kernel<false>, S->n, &grid);
   if (err != cudaSuccess) return (int)err;
-  LAUNCH(bounce_start_bwd_kernel, grid, TAIL_BLOCK, 0,
-         static_cast<cudaStream_t>(stream), *S);
+  if (taps) LAUNCH(bounce_start_bwd_kernel<true>, grid, TAIL_BLOCK, 0, st, *S);
+  else LAUNCH(bounce_start_bwd_kernel<false>, grid, TAIL_BLOCK, 0, st, *S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
   return 0;
 }
 
 // What a kernel was built to (which: 0 the start, 1 the update, 2 the
-// start's backward, 3 the update's): out[0]
+// start's backward, 3 the update's, 4 the start backward's TAPS
+// instance): out[0]
 // registers a thread, out[1] local memory a thread (bytes: spills and
 // stack), out[2] resident blocks an SM, out[3] the SMs, out[4] TAIL_BLOCK.
 extern "C" int bounce_tail_info(int which, int* out) {
   if (which == 0) return info_of(bounce_start_kernel, out);
   if (which == 1) return info_of(bounce_update_kernel, out);
-  if (which == 2) return info_of(bounce_start_bwd_kernel, out);
+  if (which == 2) return info_of(bounce_start_bwd_kernel<false>, out);
   if (which == 3) return info_of(bounce_update_bwd_kernel, out);
+  if (which == 4) return info_of(bounce_start_bwd_kernel<true>, out);
   return (int)cudaErrorInvalidValue;
 }

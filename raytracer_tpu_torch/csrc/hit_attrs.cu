@@ -82,15 +82,17 @@
 // small beside the rays and stay in cache.
 //
 // The backward (`hit_attrs_bwd`, below): the gradients of the rays' O, D
-// and t from those of P, N, uv and eps, for a scene without normal maps
-// (or the first-hit pass) whose tables take no gradient, as the JAX
-// package's jax.grad takes the stage's VJP (raytracer_tpu/diff.py) and
-// XLA fuses it.  One thread a ray runs every present kind's backward, as
-// the plain VJP does (the other kinds with +0 gradients), and adds the
-// contributions in autograd's order.  Memory bounds it too: a ray reads
-// its 44 bytes of O, D, t, object and orientation and up to 32 of output
-// gradients and writes 28; the kinds' formulas are a few hundred issue
-// slots at most.
+// and t from those of P, N, uv and eps, as the JAX package's jax.grad
+// takes the stage's VJP (raytracer_tpu/diff.py) and XLA fuses it; its
+// TABLES instance also writes the geometry tables' per-ray rows, and its
+// MAPS instance (the normal-mapped scenes outside the first-hit pass)
+// takes the gradient back through every ref's mapped normal, writing the
+// maps' texture taps' rows.  One thread a ray runs every present kind's
+// backward (and every ref's), as the plain VJP does (the others with +0
+// gradients), and adds the contributions in autograd's order.  Memory
+// bounds the lean instance: a ray reads its 44 bytes of O, D, t, object
+// and orientation and up to 32 of output gradients and writes 28; the
+// kinds' formulas are a few hundred issue slots at most.
 //
 // Every entry returns cudaGetLastError() after its launch and reports the
 // kernels it launched.
@@ -541,25 +543,11 @@ __device__ __forceinline__ void map_normal(const Scene& S, int r, long long o,
   for (int c = 0; c < 3; ++c) N[c] = v[c];
 }
 
-// One ray, i: the plain stage's arithmetic, in its order; MAPS: the
-// scene maps normals (and this is no first-hit pass).
-template <bool MAPS>
-__device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long long i) {
-  const float t = __ldg(R.t + i);
-  const bool miss = t >= R.miss_at;
-  float O[3], D[3], P[3];
-  load3(R.O, i, O);
-  load3(R.D, i, D);
-  for (int c = 0; c < 3; ++c) P[c] = O[c] + D[c] * t;
-  const bool zeroed = R.first_hit && miss;
-  if (zeroed)
-    for (int c = 0; c < 3; ++c) P[c] = 0.0f;
-  const long long o = __ldg(R.obj + i);
-  float N[3] = {0.0f, 0.0f, 0.0f}, uv[2] = {0.0f, 0.0f};
-  const bool need_uv = R.need_uv != 0;
+// The geometric normal and uv of object o at P: its kind's formula
+__device__ __forceinline__ void geometric(const Scene& S, const float* P, long long o,
+                                          bool need_uv, float* N, float* uv) {
   long long off = 0;
-  // a miss of the first-hit pass keeps N and uv zero: past every kind
-  int kind = zeroed ? KINDS : 0;
+  int kind = 0;
   for (; kind < KINDS; ++kind) {
     if (o >= off && o < off + S.counts[kind]) break;
     off += S.counts[kind];
@@ -577,6 +565,25 @@ __device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long lo
   } else if (kind == KINDS - 1) {
     triangle(S, o - off, P, need_uv, N, uv);
   }
+}
+
+// One ray, i: the plain stage's arithmetic, in its order; MAPS: the
+// scene maps normals (and this is no first-hit pass).
+template <bool MAPS>
+__device__ __forceinline__ void attrs_ray(const Scene& S, const Rays& R, long long i) {
+  const float t = __ldg(R.t + i);
+  const bool miss = t >= R.miss_at;
+  float O[3], D[3], P[3];
+  load3(R.O, i, O);
+  load3(R.D, i, D);
+  for (int c = 0; c < 3; ++c) P[c] = O[c] + D[c] * t;
+  const bool zeroed = R.first_hit && miss;
+  if (zeroed)
+    for (int c = 0; c < 3; ++c) P[c] = 0.0f;
+  const long long o = __ldg(R.obj + i);
+  float N[3] = {0.0f, 0.0f, 0.0f}, uv[2] = {0.0f, 0.0f};
+  // a miss of the first-hit pass keeps N and uv zero
+  if (!zeroed) geometric(S, P, o, R.need_uv != 0, N, uv);
   if constexpr (MAPS) {
     const long long tri_off = S.counts[0] + S.counts[1] + S.counts[2] + S.counts[3]
                               + S.counts[4];
@@ -621,9 +628,9 @@ hit_attrs_kernel(Scene S, Rays R) {
 // the backward pass: the vector-Jacobian product of the plain stage
 // ---------------------------------------------------------------------------
 //
-// `hit_attrs_bwd` restates what autograd computes for `_plain_core` without
-// normal maps (ops/plain_grad.py `plain_vjp`; the geometry's tables take
-// no gradient here), op by op with ATen's derivative formulas, as
+// `hit_attrs_bwd` restates what autograd computes for `_plain_core`
+// (ops/plain_grad.py `plain_vjp`; the tables' rows and the maps below),
+// op by op with ATen's derivative formulas, as
 // csrc/bounce_tail.cu's backward passes do: a where() hands its gradient
 // to the branch it took and +0 to the other; a product a * b gives g * b
 // to a; a division a / b gives g / b to a and -g ((a / b) / b) to b;
@@ -659,11 +666,19 @@ __device__ __forceinline__ void add_row3(Acc* b, int k, float x) {
   for (int c = 0; c < 3; ++c) acc_add(b[c], c == k ? x : 0.0f);
 }
 
-// _dot(a, b)'s backward of g into b (a takes none): its three products'
-// selects hand b their rows, the last product's first
+// _dot(a, b)'s backward of g into b (a takes none; into a likewise, with
+// b's values): its three products' selects hand b their rows, the last
+// product's first
 __device__ __forceinline__ void dot_bwd(Acc* b, float g, const float* a) {
   for (int k = 2; k >= 0; --k) add_row3(b, k, g * a[k]);
 }
+
+// tsum3 as a functor (the maps' bilinear fetch's backward)
+struct Sum3 {
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2) const {
+    return tsum3(x0, x1, x2);
+  }
+};
 
 // torch.sum over a last dimension of 2
 __device__ __forceinline__ float tsum2(float x0, float x1) {
@@ -715,12 +730,80 @@ struct Up {
   float gN[3], guv[2];
 };
 
-// attrs.py sphere_attrs' backward into P - c
-__device__ __forceinline__ void sphere_bwd(const float* w, const float* P, const Up& U,
-                                           float* g) {
+// ---------------------------------------------------------------------------
+// the geometry tables' rows (the backward's TABLES instance)
+// ---------------------------------------------------------------------------
+//
+// Where a geometry table requires grad, the plain stage's gather of it
+// (geometry/attrs.py `_gather`, core/safemath.py `take`) takes one
+// gradient row a ray, since each present kind's formula runs over every
+// ray on its clamped id: the ray's own kind's from the output gradients,
+// every other kind's from +0 ones (which still give +0, -0 or NaN).  The
+// kinds' backward below writes those rows in its TABLES instance; the
+// wrapper reduces each table's with `take_backward` (ops/hit_attrs.py
+// `attrs_vjp`).  A gathered value's buffer adds its contributions in the
+// engine's order (an `Acc`): a product's node made after a dot's runs
+// before it, a dot's selects hand full rows, the last component's first,
+// and a select x[:, j, :] or x[:, :, j] of a 3 x 3 value hands it a full
+// 3 x 3 of +0 around its row or column.  torch.sign gives zeros,
+// clamp_min passes the gradient where its input is at least its bound,
+// else +0; a division a / b gives b -g ((a / b) / b), summed over a
+// broadcast.
+
+// the tables (ops/hit_attrs.py TABLES)
+enum Table {
+  T_SPH_C, T_SPH_R,
+  T_PL_N, T_PL_C, T_PL_W, T_PL_H, T_PL_SHIFT, T_PL_U, T_PL_V,
+  T_BOX_B, T_BOX_WHL, T_BOX_C,
+  T_DISC_N, T_DISC_C, T_DISC_R, T_DISC_U, T_DISC_V,
+  T_CYL_AX, T_CYL_U, T_CYL_V, T_CYL_R, T_CYL_H, T_CYL_C,
+  T_TRI_N, T_TRI_P1, T_TRI_P2, T_TRI_P3, T_VN1, T_VN2, T_VN3, T_UV1, T_UV2, T_UV3,
+  T_ROT, T_TRANS, T_INVS,
+  N_TABLES
+};
+
+// a 3-vector's buffer
+__device__ __forceinline__ void acc_row3(Acc* b, const float* x) {
+  for (int c = 0; c < 3; ++c) acc_add(b[c], x[c]);
+}
+
+// _dot(e, e)'s backward into e: each product's two selects, the second
+// operand's first
+__device__ __forceinline__ void dot_self_bwd(Acc* e, float g, const float* x) {
+  for (int k = 2; k >= 0; --k) {
+    add_row3(e, k, g * x[k]);
+    add_row3(e, k, g * x[k]);
+  }
+}
+
+// row i of table t (width floats), where wanted
+__device__ __forceinline__ void put_row(float* const* tab, int t, long long i, int width,
+                                        const float* v) {
+  float* r = tab[t];
+  if (r)
+    for (int c = 0; c < width; ++c) r[(long long)width * i + c] = v[c];
+}
+__device__ __forceinline__ void put_acc(float* const* tab, int t, long long i, int width,
+                                        const Acc* v, bool neg = false) {
+  float x[9];
+  for (int c = 0; c < width; ++c) x[c] = neg ? -acc_val(v[c]) : acc_val(v[c]);
+  put_row(tab, t, i, width, x);
+}
+
+// a / b's gradient into b: -g ((a / b) / b)
+__device__ __forceinline__ float div_other(float g, float a, float b) {
+  return -g * ((a / b) / b);
+}
+
+// Each kind's backward below gives g, the gradient of its formula's P (of
+// P - c for the analytic kinds), and, in the TABLES instance, its tables'
+// rows of ray i (`tab`, null where not wanted).
+
+// attrs.py sphere_attrs' backward into N = (P - c) / r: N's buffer b
+__device__ __forceinline__ void sphere_nb(const float* w, const float* P, const Up& U,
+                                          Acc* b) {
   float N[3];
   for (int c = 0; c < 3; ++c) N[c] = (P[c] - w[c]) / w[3];
-  Acc b[3] = {};
   if (U.n)
     for (int c = 0; c < 3; ++c) acc_add(b[c], U.gN[c]);
   if (U.uv) {
@@ -735,42 +818,96 @@ __device__ __forceinline__ void sphere_bwd(const float* w, const float* P, const
     add_row3(b, 0, gx0);
     add_row3(b, 2, gy2);
   }
+}
+
+// attrs.py sphere_attrs' backward into P - c; c takes -(it), r the sum
+// over the three of -b ((X / r) / r), X = P - c
+template <bool TABLES>
+__device__ __forceinline__ void sphere_bwd(const float* w, const float* P, const Up& U,
+                                           float* g, float* const* tab, long long i) {
+  Acc b[3] = {};
+  sphere_nb(w, P, U, b);
   for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]) / w[3];
+  if (!TABLES) return;
+  float gc[3], t[3];
+  for (int c = 0; c < 3; ++c) {
+    gc[c] = -g[c];
+    t[c] = div_other(acc_val(b[c]), P[c] - w[c], w[3]);
+  }
+  const float gr = tsum3(t[0], t[1], t[2]);
+  put_row(tab, T_SPH_C, i, 3, gc);
+  put_row(tab, T_SPH_R, i, 1, &gr);
 }
 
 // attrs.py plane_attrs / disc_attrs' backward into P - c (the uv only: the
 // normal is the table's): u = div(_dot(ua, M) / su + 1, 2) (+ shift), v
-// likewise; v's dot runs first
-__device__ __forceinline__ void planar_bwd(const float* w, float su, float sv,
-                                           const Up& U, float* g) {
+// likewise; v's dot runs first.  The normal takes its gradient; with uv,
+// each axis its dot's, the divisors theirs, v's first where one is both
+// (a disc's r_out), the centre -(M's), a plane's uv_shift its two
+// selects' rows, v's first.
+template <bool TABLES>
+__device__ __forceinline__ void planar_bwd(const float* w, const float* P, const Up& U,
+                                           bool disc, float* g, float* const* tab,
+                                           long long i) {
+  const float su = w[3], sv = disc ? w[3] : w[7];
   Acc b[3] = {};
   dot_bwd(b, (U.guv[1] / 2.0f) / sv, w + 12);
   dot_bwd(b, (U.guv[0] / 2.0f) / su, w + 8);
   for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+  if (!TABLES) return;
+  put_row(tab, disc ? T_DISC_N : T_PL_N, i, 3, U.gN);
+  if (!U.uv) return;
+  float M[3];
+  for (int c = 0; c < 3; ++c) M[c] = P[c] - w[c];
+  const float gu2 = U.guv[0] / 2.0f, gv2 = U.guv[1] / 2.0f;
+  Acc au[3] = {}, av[3] = {};
+  dot_bwd(av, gv2 / sv, M);
+  dot_bwd(au, gu2 / su, M);
+  put_acc(tab, disc ? T_DISC_U : T_PL_U, i, 3, au);
+  put_acc(tab, disc ? T_DISC_V : T_PL_V, i, 3, av);
+  put_acc(tab, disc ? T_DISC_C : T_PL_C, i, 3, b, true);
+  const float gh = div_other(gv2, dot3(w + 12, M), sv);
+  const float gw = div_other(gu2, dot3(w + 8, M), su);
+  if (disc) {
+    const float gr = gh + gw;
+    put_row(tab, T_DISC_R, i, 1, &gr);
+    return;
+  }
+  put_row(tab, T_PL_H, i, 1, &gh);
+  put_row(tab, T_PL_W, i, 1, &gw);
+  const float sh[2] = {0.0f + U.guv[0], U.guv[1] + 0.0f};
+  put_row(tab, T_PL_SHIFT, i, 2, sh);
 }
 
 // attrs.py box_attrs' backward into P - c.  The normal's branch gives P_l
 // torch.sign's zeros; the uv's hands each of w_d, h_d, l_d (P_l's
 // selects) its faces' terms, the selected face's (the first whose
 // condition holds) the gradient, the others +0 (one nonzero term a select,
-// so their order is moot); then P_l's three dots, the last first.
+// so their order is moot); then P_l's three dots, the last first.  The
+// basis takes the normal's three products (the last first) and then P_l's
+// three dots (the last first), each a full 3 x 3 of +0 around its row;
+// whl its first entry's from s = 1.97 / whl[..., 0] (s's twelve products,
+// v's faces last first, then u's); the centre -(M's).
+template <bool TABLES>
 __device__ __forceinline__ void box_bwd(const float* w, const float* P, const Up& U,
-                                        float* g) {
+                                        float* g, float* const* tab, long long i) {
   float M[3], Pl[3], a[3], Nl[3];
   for (int c = 0; c < 3; ++c) M[c] = P[c] - w[12 + c];
-  for (int i = 0; i < 3; ++i) Pl[i] = dot3(w + 4 * i, M);
-  for (int i = 0; i < 3; ++i) a[i] = fabsf(Pl[i]) / w[4 * i + 3];
+  for (int k = 0; k < 3; ++k) Pl[k] = dot3(w + 4 * k, M);
+  for (int k = 0; k < 3; ++k) a[k] = fabsf(Pl[k]) / w[4 * k + 3];
   const float Pmax = t_max3(a[0], a[1], a[2]);
-  for (int i = 0; i < 3; ++i) Nl[i] = Pmax == a[i] ? t_sign(Pl[i]) : 0.0f;
+  for (int k = 0; k < 3; ++k) Nl[k] = Pmax == a[k] ? t_sign(Pl[k]) : 0.0f;
   Acc pl[3] = {};
+  float whl[3] = {0.0f, 0.0f, 0.0f};
   if (U.uv) {
     const float s = F32(2.0 * 0.985) / w[3];
     const int face = Nl[1] == -1.0f ? 0 : Nl[1] == 1.0f ? 1 : Nl[0] == 1.0f ? 2
                    : Nl[0] == -1.0f ? 3 : Nl[2] == 1.0f ? 4 : Nl[2] == -1.0f ? 5 : -1;
     const float gu = U.guv[0] / 4.0f, gv = U.guv[1] / 3.0f;
     // half(x) = div(x s + 1, 2) hands x (g / 2) s; half(-x) its negation
+    auto half_g = [&](float gf, int f) { return (f == face ? gf : 0.0f) / 2.0f; };
     auto term = [&](float gf, int f, bool neg) {
-      const float t = ((f == face ? gf : 0.0f) / 2.0f) * s;
+      const float t = half_g(gf, f) * s;
       return neg ? -t : t;
     };
     Acc wd = {}, hd = {}, ld = {};
@@ -786,12 +923,35 @@ __device__ __forceinline__ void box_bwd(const float* w, const float* P, const Up
     add_row3(pl, 2, ld.v);
     add_row3(pl, 1, hd.v);
     add_row3(pl, 0, wd.v);
+    if (TABLES) {
+      // s's products x * s hand s (g / 2) x
+      const float xv[6] = {-Pl[2], Pl[2], Pl[1], Pl[1], Pl[1], Pl[1]};
+      const float xu[6] = {Pl[0], Pl[0], Pl[2], -Pl[2], -Pl[0], Pl[0]};
+      Acc gs = {};
+      for (int f = 5; f >= 0; --f) acc_add(gs, half_g(gv, f) * xv[f]);
+      for (int f = 5; f >= 0; --f) acc_add(gs, half_g(gu, f) * xu[f]);
+      whl[0] = div_other(acc_val(gs), F32(2.0 * 0.985), w[3]);
+    }
   }
   if (U.n)
     for (int c = 0; c < 3; ++c) acc_add(pl[c], 0.0f);
-  Acc b[3] = {};
-  for (int i = 2; i >= 0; --i) dot_bwd(b, acc_val(pl[i]), w + 4 * i);
+  Acc b[3] = {}, basis[9] = {};
+  if (TABLES && U.n)
+    for (int j = 2; j >= 0; --j)
+      for (int e = 0; e < 9; ++e) acc_add(basis[e], e / 3 == j ? U.gN[e % 3] * Nl[j] : 0.0f);
+  for (int k = 2; k >= 0; --k) {
+    dot_bwd(b, acc_val(pl[k]), w + 4 * k);
+    if (TABLES) {
+      Acc r[3] = {};
+      dot_bwd(r, acc_val(pl[k]), M);
+      for (int e = 0; e < 9; ++e) acc_add(basis[e], e / 3 == k ? acc_val(r[e % 3]) : 0.0f);
+    }
+  }
   for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+  if (!TABLES) return;
+  put_row(tab, T_BOX_WHL, i, 3, whl);
+  put_acc(tab, T_BOX_B, i, 9, basis);
+  put_acc(tab, T_BOX_C, i, 3, b, true);
 }
 
 // attrs.py cylinder_attrs' backward into P - c.  x, y, z (the dots of M
@@ -799,9 +959,13 @@ __device__ __forceinline__ void box_bwd(const float* w, const float* P, const Up
 // with uv, the cap's z / r and x / r, the side's y / hh, atan2(z, x);
 // with the normal, the cap's torch.sign(y) zeros, the side's
 // (x ua + z va) / rho (z's, then x's), then rho = sqrt(clamp_min(x x +
-// z z)) (z's two, then x's two); then the three dots, z's first.
+// z z)) (z's two, then x's two); then the three dots, z's first.  The u
+// and v axes take N_side's products (x ua, z va) and then their dots; the
+// axis N_cap's sign(y) ax and then its dot; the radius the caps' z / r,
+// then x / r; half_h y / hh; the centre -(M's).
+template <bool TABLES>
 __device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, const Up& U,
-                                             float* g) {
+                                             float* g, float* const* tab, long long i) {
   float M[3];
   for (int c = 0; c < 3; ++c) M[c] = P[c] - w[c];
   const float* ax = w + 4;
@@ -812,12 +976,19 @@ __device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, con
   const float q = x * x + z * z;
   const float rho = sqrtf(t_clamp_min(q, F32(1e-20)));
   const bool cap = w[11] > 0.5f && rho / r <= fabsf(y) / hh;
-  Acc X = {}, Y = {}, Z = {};
+  Acc X = {}, Y = {}, Z = {}, A[3] = {}, V[3] = {}, Ax[3] = {};
+  float gr = 0.0f, gh = 0.0f;
   if (U.uv) {
     const float gu = U.guv[0], gv = U.guv[1];
-    acc_add(Z, ((cap ? gv : 0.0f) / 2.0f) / r);
-    acc_add(X, ((cap ? gu : 0.0f) / 2.0f) / r);
-    acc_add(Y, ((cap ? 0.0f : gv) / 2.0f) / hh);
+    const float gzr = (cap ? gv : 0.0f) / 2.0f, gxr = (cap ? gu : 0.0f) / 2.0f;
+    const float gyh = (cap ? 0.0f : gv) / 2.0f;
+    acc_add(Z, gzr / r);
+    acc_add(X, gxr / r);
+    acc_add(Y, gyh / hh);
+    if (TABLES) {
+      gr = div_other(gzr, z, r) + div_other(gxr, x, r);
+      gh = div_other(gyh, y, hh);
+    }
     float gz, gx;
     atan2_bwd((cap ? 0.0f : gu) / TWO_PI_F, z, x, &gz, &gx);
     acc_add(X, gx);
@@ -833,6 +1004,15 @@ __device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, con
       t[c] = -gs * ((S[c] / rho) / rho);
     }
     const float grho = tsum3(t[0], t[1], t[2]);
+    if (TABLES) {
+      for (int c = 0; c < 3; ++c) t[c] = gS[c] * z;
+      acc_row3(V, t);
+      for (int c = 0; c < 3; ++c) t[c] = gS[c] * x;
+      acc_row3(A, t);
+      const float sy = t_sign(y);
+      for (int c = 0; c < 3; ++c) t[c] = (cap ? U.gN[c] : 0.0f) * sy;
+      acc_row3(Ax, t);
+    }
     acc_add(Z, tsum3(gS[0] * va[0], gS[1] * va[1], gS[2] * va[2]));
     acc_add(X, tsum3(gS[0] * ua[0], gS[1] * ua[1], gS[2] * ua[2]));
     const float qc = t_clamp_min(q, F32(1e-20));
@@ -847,6 +1027,53 @@ __device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, con
   dot_bwd(b, acc_val(Y), ax);
   dot_bwd(b, acc_val(X), ua);
   for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+  if (!TABLES) return;
+  dot_bwd(V, acc_val(Z), M);
+  dot_bwd(Ax, acc_val(Y), M);
+  dot_bwd(A, acc_val(X), M);
+  put_acc(tab, T_CYL_U, i, 3, A);
+  put_acc(tab, T_CYL_V, i, 3, V);
+  put_acc(tab, T_CYL_AX, i, 3, Ax);
+  put_acc(tab, T_CYL_C, i, 3, b, true);
+  put_row(tab, T_CYL_R, i, 1, &gr);
+  put_row(tab, T_CYL_H, i, 1, &gh);
+}
+
+// The corners' blended normal N = Ns / safe_norm(Ns), Ns = (w1 vn1 +
+// w2 vn2) + w3 vn3, at a triangle row, and its backward from N's
+// gradient Nb: Ns's gradient gNs (the division's, then safe_norm's two
+// products), the corners' normals a, b, c, Ns and its norm len.
+struct Smooth {
+  float a[3], b[3], c[3], Ns[3], len, gNs[3];
+};
+__device__ __forceinline__ void smooth_bwd(const Scene& S, long long row, float w1,
+                                           float w2, float w3, const float* Nb, Smooth& m) {
+  load3(S.vn1, row, m.a);
+  load3(S.vn2, row, m.b);
+  load3(S.vn3, row, m.c);
+  for (int c = 0; c < 3; ++c) m.Ns[c] = (w1 * m.a[c] + w2 * m.b[c]) + w3 * m.c[c];
+  const float s = tsum3(m.Ns[0] * m.Ns[0], m.Ns[1] * m.Ns[1], m.Ns[2] * m.Ns[2]);
+  const float sc = t_clamp_min(s, F32(1e-30));
+  m.len = s > 0.0f ? sqrtf(sc) : 0.0f;
+  float t[3];
+  for (int c = 0; c < 3; ++c) {
+    m.gNs[c] = Nb[c] / m.len;
+    t[c] = -Nb[c] * ((m.Ns[c] / m.len) / m.len);
+  }
+  const float glen = tsum3(t[0], t[1], t[2]);
+  const float gr = s > 0.0f ? glen : 0.0f;
+  const float gs = s >= F32(1e-30) ? sqrt_bwd(gr, sc) : 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float q = gs * m.Ns[c];
+    m.gNs[c] = (m.gNs[c] + q) + q;
+  }
+}
+
+// the blend's weights' gradients from Ns's: w3's, w2's, w1's
+__device__ __forceinline__ void smooth_weights(const Smooth& m, Acc& W1, Acc& W2, Acc& W3) {
+  acc_add(W3, tsum3(m.gNs[0] * m.c[0], m.gNs[1] * m.c[1], m.gNs[2] * m.c[2]));
+  acc_add(W2, tsum3(m.gNs[0] * m.b[0], m.gNs[1] * m.b[1], m.gNs[2] * m.b[2]));
+  acc_add(W1, tsum3(m.gNs[0] * m.a[0], m.gNs[1] * m.a[1], m.gNs[2] * m.a[2]));
 }
 
 // attrs.py triangle_attrs' backward into P (under instances, through
@@ -855,26 +1082,64 @@ __device__ __forceinline__ void cylinder_bwd(const float* w, const float* P, con
 // normal's (through N = Ns / safe_norm(Ns), under instances after the
 // rotation back's three dots, the last first); then u and v (v takes w3
 // and -w1, u w2 and -w1), the barycentric solve (v's products first) and
-// its two dots, dp2's first.
+// its two dots, dp2's first.  The tables: the corners' normals and uvs
+// their blends' products; the solve's dots (dp2, dp1, d22, d12, d11, after
+// the numerators' products, v's first, and det's) into e1, e2 and d; p2
+// and p3 take e1's and e2's, p1 -(d's), -(e2's), -(e1's); under instances
+// the rotation the normal's three rows (the last first) and then the
+// hit's three columns, the translation -(Pt's), the inverse scale its
+// product's sum over the three; the face normal, unblended, its own.
+// Without uv or corners (the normal the face's alone) P takes none.
+template <bool TABLES>
 __device__ __forceinline__ void triangle_bwd(const Scene& S, long long local,
-                                             const float* Pw, const Up& U, float* g) {
+                                             const float* Pw, const Up& U, bool need_uv,
+                                             float* g, float* const* tab, long long i) {
   long long row = local;
-  float R[9], P[3], Pt[3], inv_s = 1.0f;
+  float R[9], P[3], Pt[3], Q[3], inv_s = 1.0f;
   const bool inst = S.virt_row != nullptr;
   for (int c = 0; c < 3; ++c) P[c] = Pw[c];
   if (inst) {
     row = __ldg(S.virt_row + local);
     const long long k = __ldg(S.virt_inst + local);
     for (int j = 0; j < 9; ++j) R[j] = __ldg(S.inst_rot + 9 * k + j);
-    float col[3];
     for (int c = 0; c < 3; ++c) Pt[c] = Pw[c] - __ldg(S.inst_trans + 3 * k + c);
     inv_s = __ldg(S.inst_inv_scale + k);
     for (int j = 0; j < 3; ++j) {
-      for (int i = 0; i < 3; ++i) col[i] = R[3 * i + j];
-      P[j] = dot3(col, Pt) * inv_s;
+      const float col[3] = {R[j], R[3 + j], R[6 + j]};
+      Q[j] = dot3(col, Pt);
+      P[j] = Q[j] * inv_s;
     }
   }
   const bool interp = S.vn1 != nullptr;
+  Acc rot[9] = {};
+  float Nobj[3];              // the normal to_world rotates, object space
+  float Nb[3];                // its gradient
+  if (U.n) {
+    if (inst) {
+      Acc nb[3] = {};
+      for (int j = 2; j >= 0; --j) dot_bwd(nb, U.gN[j], R + 3 * j);
+      for (int c = 0; c < 3; ++c) Nb[c] = acc_val(nb[c]);
+    } else {
+      for (int c = 0; c < 3; ++c) Nb[c] = U.gN[c];
+    }
+    if (TABLES && !interp) put_row(tab, T_TRI_N, i, 3, Nb);
+  }
+  // to_world's rows of the rotation, the last first
+  auto rot_rows = [&]() {
+    if (TABLES && inst && U.n)
+      for (int j = 2; j >= 0; --j) {
+        Acc r[3] = {};
+        dot_bwd(r, U.gN[j], Nobj);
+        for (int e = 0; e < 9; ++e) acc_add(rot[e], e / 3 == j ? acc_val(r[e % 3]) : 0.0f);
+      }
+  };
+  if (TABLES) load3(S.tri_normal, row, Nobj);
+  if (!(need_uv || interp)) {
+    for (int c = 0; c < 3; ++c) g[c] = 0.0f;
+    rot_rows();
+    if (TABLES && inst && U.n) put_acc(tab, T_ROT, i, 9, rot);
+    return;
+  }
   float p1[3], p2[3], p3[3], e1[3], e2[3], d[3];
   load3(S.tri_p1, row, p1);
   load3(S.tri_p2, row, p2);
@@ -886,9 +1151,10 @@ __device__ __forceinline__ void triangle_bwd(const Scene& S, long long local,
   }
   const float d11 = dot3(e1, e1), d12 = dot3(e1, e2), d22 = dot3(e2, e2);
   const float dp1 = dot3(d, e1), dp2 = dot3(d, e2);
-  const float det = t_clamp_min(d11 * d22 - d12 * d12, F32(1e-20));
-  const float u = (d22 * dp1 - d12 * dp2) / det;
-  const float v = (d11 * dp2 - d12 * dp1) / det;
+  const float C = d11 * d22 - d12 * d12;
+  const float det = t_clamp_min(C, F32(1e-20));
+  const float un = d22 * dp1 - d12 * dp2, vn = d11 * dp2 - d12 * dp1;
+  const float u = un / det, v = vn / det;
   Acc gu = {}, gv = {};
   if (!interp) {
     gu = Acc{U.guv[0], true};
@@ -906,39 +1172,34 @@ __device__ __forceinline__ void triangle_bwd(const Scene& S, long long local,
       acc_add(W3, tsum2(t3[0], t3[1]));
       acc_add(W2, tsum2(t2[0], t2[1]));
       acc_add(W1, tsum2(t1[0], t1[1]));
+      if (TABLES) {
+        float r1[2], r2[2], r3[2];
+        for (int c = 0; c < 2; ++c) {
+          r1[c] = U.guv[c] * w1;
+          r2[c] = U.guv[c] * w2;
+          r3[c] = U.guv[c] * w3;
+        }
+        put_row(tab, T_UV1, i, 2, r1);
+        put_row(tab, T_UV2, i, 2, r2);
+        put_row(tab, T_UV3, i, 2, r3);
+      }
     }
     if (U.n) {
-      float a[3], b[3], c3[3], Ns[3];
-      load3(S.vn1, row, a);
-      load3(S.vn2, row, b);
-      load3(S.vn3, row, c3);
-      for (int c = 0; c < 3; ++c) Ns[c] = (w1 * a[c] + w2 * b[c]) + w3 * c3[c];
-      const float s = tsum3(Ns[0] * Ns[0], Ns[1] * Ns[1], Ns[2] * Ns[2]);
-      const float sc = t_clamp_min(s, F32(1e-30));
-      const float len = s > 0.0f ? sqrtf(sc) : 0.0f;
-      float Nb[3];
-      if (inst) {
-        Acc nb[3] = {};
-        for (int j = 2; j >= 0; --j) dot_bwd(nb, U.gN[j], R + 3 * j);
-        for (int c = 0; c < 3; ++c) Nb[c] = acc_val(nb[c]);
-      } else {
-        for (int c = 0; c < 3; ++c) Nb[c] = U.gN[c];
+      Smooth m;
+      smooth_bwd(S, row, w1, w2, w3, Nb, m);
+      if (TABLES) {
+        float r1[3], r2[3], r3[3];
+        for (int c = 0; c < 3; ++c) {
+          Nobj[c] = m.Ns[c] / m.len;
+          r1[c] = m.gNs[c] * w1;
+          r2[c] = m.gNs[c] * w2;
+          r3[c] = m.gNs[c] * w3;
+        }
+        put_row(tab, T_VN1, i, 3, r1);
+        put_row(tab, T_VN2, i, 3, r2);
+        put_row(tab, T_VN3, i, 3, r3);
       }
-      float t[3], gNs[3];
-      for (int c = 0; c < 3; ++c) {
-        gNs[c] = Nb[c] / len;
-        t[c] = -Nb[c] * ((Ns[c] / len) / len);
-      }
-      const float glen = tsum3(t[0], t[1], t[2]);
-      const float gr = s > 0.0f ? glen : 0.0f;
-      const float gs = s >= F32(1e-30) ? sqrt_bwd(gr, sc) : 0.0f;
-      for (int c = 0; c < 3; ++c) {
-        const float q = gs * Ns[c];
-        gNs[c] = (gNs[c] + q) + q;
-      }
-      acc_add(W3, tsum3(gNs[0] * c3[0], gNs[1] * c3[1], gNs[2] * c3[2]));
-      acc_add(W2, tsum3(gNs[0] * b[0], gNs[1] * b[1], gNs[2] * b[2]));
-      acc_add(W1, tsum3(gNs[0] * a[0], gNs[1] * a[1], gNs[2] * a[2]));
+      smooth_weights(m, W1, W2, W3);
     }
     acc_add(gv, W3.v);
     acc_add(gu, W2.v);
@@ -948,19 +1209,214 @@ __device__ __forceinline__ void triangle_bwd(const Scene& S, long long local,
   const float gsv = gv.v / det, gsu = gu.v / det;
   const float g1 = -gsv * d12 + gsu * d22;
   const float g2 = gsv * d11 + -gsu * d12;
-  Acc b[3] = {};
-  dot_bwd(b, g2, e2);
-  dot_bwd(b, g1, e1);
+  Acc bd[3] = {};
+  dot_bwd(bd, g2, e2);
+  dot_bwd(bd, g1, e1);
+  if (TABLES) {
+    // u = un / det, v = vn / det (v's node first), det = clamp_min(C);
+    // the numerators' products (v's, then u's), then det's C = A - B,
+    // A = d11 d22, B = d12 d12
+    Acc gdet = {};
+    acc_add(gdet, div_other(gv.v, vn, det));
+    acc_add(gdet, div_other(gu.v, un, det));
+    const float gC = C >= F32(1e-20) ? acc_val(gdet) : 0.0f;
+    Acc g11 = {}, g12 = {}, g22 = {};
+    acc_add(g12, -gsv * dp1);
+    acc_add(g11, gsv * dp2);
+    acc_add(g12, -gsu * dp2);
+    acc_add(g22, gsu * dp1);
+    acc_add(g12, -gC * d12);
+    acc_add(g12, -gC * d12);
+    acc_add(g11, gC * d22);
+    acc_add(g22, gC * d11);
+    // the dots, dp2's chain first: e1 and e2 take their rows in the
+    // chains' order
+    Acc be1[3] = {}, be2[3] = {};
+    dot_bwd(be2, g2, d);
+    dot_bwd(be1, g1, d);
+    dot_self_bwd(be2, acc_val(g22), e2);
+    dot_bwd(be2, acc_val(g12), e1);
+    dot_bwd(be1, acc_val(g12), e2);
+    dot_self_bwd(be1, acc_val(g11), e1);
+    Acc gp1[3] = {};
+    float t[3];
+    for (int c = 0; c < 3; ++c) t[c] = -acc_val(bd[c]);
+    acc_row3(gp1, t);
+    for (int c = 0; c < 3; ++c) t[c] = -acc_val(be2[c]);
+    acc_row3(gp1, t);
+    for (int c = 0; c < 3; ++c) t[c] = -acc_val(be1[c]);
+    acc_row3(gp1, t);
+    put_acc(tab, T_TRI_P1, i, 3, gp1);
+    put_acc(tab, T_TRI_P2, i, 3, be1);
+    put_acc(tab, T_TRI_P3, i, 3, be2);
+  }
   if (!inst) {
-    for (int c = 0; c < 3; ++c) g[c] = acc_val(b[c]);
+    for (int c = 0; c < 3; ++c) g[c] = acc_val(bd[c]);
     return;
   }
+  // the hit's object space ((P - trans) @ R) * inv_s: d's gradient is its
+  float gQ[3];
+  for (int c = 0; c < 3; ++c) gQ[c] = acc_val(bd[c]) * inv_s;
+  rot_rows();
   Acc pt[3] = {};
   for (int j = 2; j >= 0; --j) {
     const float col[3] = {R[j], R[3 + j], R[6 + j]};
-    dot_bwd(pt, acc_val(b[j]) * inv_s, col);
+    if (TABLES) {
+      Acc cc[3] = {};
+      dot_bwd(cc, gQ[j], Pt);
+      for (int e = 0; e < 9; ++e) acc_add(rot[e], e % 3 == j ? acc_val(cc[e / 3]) : 0.0f);
+    }
+    dot_bwd(pt, gQ[j], col);
   }
   for (int c = 0; c < 3; ++c) g[c] = acc_val(pt[c]);
+  if (!TABLES) return;
+  float gPo[3];
+  for (int c = 0; c < 3; ++c) gPo[c] = acc_val(bd[c]);
+  const float gis = tsum3(gPo[0] * Q[0], gPo[1] * Q[1], gPo[2] * Q[2]);
+  put_row(tab, T_INVS, i, 1, &gis);
+  put_acc(tab, T_ROT, i, 9, rot);
+  put_acc(tab, T_TRANS, i, 3, pt, true);
+}
+
+// ---------------------------------------------------------------------------
+// the normal maps' backward (the MAPS instance)
+// ---------------------------------------------------------------------------
+//
+// ops/hit_attrs.py `_apply_normal_maps` computes every ref's mapped normal
+// Nm over every ray and keeps it by torch.where where the ref's mask
+// holds, the last ref's where applied last.  Its VJP, in the engine's
+// order: the refs last first, ref r's Nm taking where(mask, g, 0) and its
+// whole graph running before the earlier ref's where; the first ref's
+// where hands the geometric normal N_geo its remainder before that ref's
+// own graph runs.  Each ref's graph hands the map's decoded texel m its
+// gradient (then its texture's taps and, bilinear, uv), and a sphere's or
+// a mesh's hands N_geo its share (the orders read off the plain stage's
+// graph, node by node); a plane's or a box's is a 3 x 3 product.  N_geo's
+// and uv's buffers then take the kinds' backward in place of the output
+// gradients.
+
+// _unit(v) = v / clamp_min(safe_norm(v), 1e-20): v's gradient from the
+// unit vector's g (the division's, then safe_norm's two products)
+__device__ __forceinline__ void unit_bwd(const float* v, const float* g, float* gv) {
+  const float x = tsum3(v[0] * v[0], v[1] * v[1], v[2] * v[2]);
+  const float xc = t_clamp_min(x, F32(1e-30));
+  const float r = x > 0.0f ? sqrtf(xc) : 0.0f;
+  const float c = t_clamp_min(r, F32(1e-20));
+  float t[3];
+  for (int k = 0; k < 3; ++k) t[k] = -g[k] * ((v[k] / c) / c);
+  const float gc = tsum3(t[0], t[1], t[2]);
+  const float gr = r >= F32(1e-20) && x > 0.0f ? gc : 0.0f;
+  const float gx = x >= F32(1e-30) ? sqrt_bwd(gr, xc) : 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float q = gx * v[k];
+    gv[k] = (g[k] / c + q) + q;
+  }
+}
+
+// _cross(a, b)'s backward of g into a's buffer ga and b's gb: the
+// components last first, each difference's second product first, each
+// product's b select before its a select
+__device__ __forceinline__ void cross_bwd(const float* a, const float* b, const float* g,
+                                          Acc* ga, Acc* gb) {
+  for (int k = 2; k >= 0; --k) {
+    const int i = (k + 1) % 3, j = (k + 2) % 3;
+    const float gm = -g[k];
+    add_row3(gb, i, gm * a[j]);
+    add_row3(ga, j, gm * b[i]);
+    add_row3(gb, j, g[k] * a[i]);
+    add_row3(ga, i, g[k] * b[j]);
+  }
+}
+
+// Nm = _unit(2 ((m0 T + m1 B) + m2 N)) of a sphere's or a mesh's frame:
+// from Nm's gradient g, the sum's gradient gS (the unit's, times 2), N's
+// share of C = m2 N into ng, B's gradient gB, T's buffer Tb (m0 T's
+// share first) and m's (its three slices, m2's first)
+__device__ __forceinline__ void frame_bwd(const float* T, const float* B, const float* N,
+                                          const float* m, const float* g, Acc* ng,
+                                          float* gB, Acc* Tb, float* gm) {
+  float v[3], gv[3], gS[3], t[3];
+  for (int c = 0; c < 3; ++c) v[c] = 2.0f * ((m[0] * T[c] + m[1] * B[c]) + m[2] * N[c]);
+  unit_bwd(v, g, gv);
+  for (int c = 0; c < 3; ++c) {
+    gS[c] = gv[c] * 2.0f;
+    t[c] = gS[c] * m[2];
+  }
+  acc_row3(ng, t);
+  const float gm2 = tsum3(gS[0] * N[0], gS[1] * N[1], gS[2] * N[2]);
+  for (int c = 0; c < 3; ++c) gB[c] = gS[c] * m[1];
+  const float gm1 = tsum3(gS[0] * B[0], gS[1] * B[1], gS[2] * B[2]);
+  for (int c = 0; c < 3; ++c) t[c] = gS[c] * m[0];
+  acc_row3(Tb, t);
+  const float gm0 = tsum3(gS[0] * T[0], gS[1] * T[1], gS[2] * T[2]);
+  Acc mb[3] = {};
+  add_row3(mb, 2, gm2);
+  add_row3(mb, 1, gm1);
+  add_row3(mb, 0, gm0);
+  for (int c = 0; c < 3; ++c) gm[c] = acc_val(mb[c]);
+}
+
+// a sphere ref: s = sqrt(clamp_min(N0^2 + N2^2, 1e-12)), T = (-N2 / s, 0,
+// N0 / s), B = T x N
+__device__ __forceinline__ void sphere_map_bwd(const float* N, const float* m,
+                                               const float* g, Acc* ng, float* gm) {
+  const float q = N[0] * N[0] + N[2] * N[2];
+  const float qc = t_clamp_min(q, F32(1e-12));
+  const float s = sqrtf(qc);
+  const float nN2 = -N[2];
+  const float T[3] = {nN2 / s, 0.0f, N[0] / s};
+  float B[3], gB[3];
+  cross3(T, N, B);
+  Acc Tb[3] = {};
+  frame_bwd(T, B, N, m, g, ng, gB, Tb, gm);
+  cross_bwd(T, N, gB, Tb, ng);
+  // T's stack: N0 / s's node first, then (-N2) / s's
+  const float gT0 = acc_val(Tb[0]), gT2 = acc_val(Tb[2]);
+  Acc gs = {};
+  add_row3(ng, 0, gT2 / s);
+  acc_add(gs, -gT2 * ((N[0] / s) / s));
+  add_row3(ng, 2, -(gT0 / s));
+  acc_add(gs, -gT0 * ((nN2 / s) / s));
+  const float gq = q >= F32(1e-12) ? sqrt_bwd(acc_val(gs), qc) : 0.0f;
+  // the squares, N2's first
+  add_row3(ng, 2, gq * (2.0f * N[2]));
+  add_row3(ng, 0, gq * (2.0f * N[0]));
+}
+
+// a mesh ref: T = _unit(T0 - N (T0 . N)), T0 the face's tangent (rotated
+// under instances), B = sign (N x T); gt: T0's gradient (the difference's,
+// then T0 N's) and the sign's
+__device__ __forceinline__ void tri_map_bwd(const float* N, const float* T0, float sg,
+                                            const float* m, const float* g, Acc* ng,
+                                            float* gm, float* gt) {
+  const float d = tsum3(T0[0] * N[0], T0[1] * N[1], T0[2] * N[2]);
+  float T1[3], T[3], X[3], B[3], gB[3], gX[3], gT[3], gT1[3], t[3];
+  for (int c = 0; c < 3; ++c) T1[c] = T0[c] - N[c] * d;
+  for (int c = 0; c < 3; ++c) T[c] = T1[c];
+  unit3(T);
+  cross3(N, T, X);
+  for (int c = 0; c < 3; ++c) B[c] = sg * X[c];
+  Acc Tb[3] = {};
+  frame_bwd(T, B, N, m, g, ng, gB, Tb, gm);
+  for (int c = 0; c < 3; ++c) gX[c] = gB[c] * sg;
+  gt[3] = tsum3(gB[0] * X[0], gB[1] * X[1], gB[2] * X[2]);
+  cross_bwd(N, T, gX, ng, Tb);
+  for (int c = 0; c < 3; ++c) gT[c] = acc_val(Tb[c]);
+  unit_bwd(T1, gT, gT1);
+  // T1 = T0 - N d: N d's node, then T0 N's
+  for (int c = 0; c < 3; ++c) t[c] = -gT1[c] * d;
+  acc_row3(ng, t);
+  const float gd = tsum3(-gT1[0] * N[0], -gT1[1] * N[1], -gT1[2] * N[2]);
+  for (int c = 0; c < 3; ++c) t[c] = gd * T0[c];
+  acc_row3(ng, t);
+  for (int c = 0; c < 3; ++c) gt[c] = gT1[c] + gd * N[c];
+}
+
+// r = a @ M^T of a (3) and M (3, 3) row-major: the 3 x 3 product's
+// backward into its left factor (`mm3`'s order, M's rows)
+__device__ __forceinline__ void mm3t(const float* a, const float* M, float* r) {
+  for (int k = 0; k < 3; ++k)
+    r[k] = fmaf(a[2], M[3 * k + 2], fmaf(a[1], M[3 * k + 1], fmaf(a[0], M[3 * k], 0.0f)));
 }
 
 // The rays' inputs as the forward's (`Rays`), the stage's output
@@ -975,7 +1431,91 @@ struct RaysBwd {
   float nudge, miss_at;
   const float *gP, *gN, *guv, *geps;
   float *dO, *dD, *dt;
+  // the geometry tables' per-ray rows (TABLE order; null where not
+  // wanted), written by the TABLES instance
+  float* tab[N_TABLES];
+  // where a map's texture takes a gradient, every ref's taps' rows
+  // (texture_fetch.cuh `tap_rows`, refs in order; the MAPS instance)
+  texture_fetch::TapRows map_taps;
+  // where a table the maps read takes a gradient, (maps, n, 6) rows a ref:
+  // a plane's or a box's product's left factor (m 2) and its gradient, a
+  // mesh's tangent's gradient and its sign's (the MAPS instance)
+  float* map_rows;
 };
+
+// The maps' backward at ray i (see above): from the oriented normal's
+// gradient gNo, the gradients of the ray's geometric normal (ng) and uv
+// (ub, holding uv's output gradient where it takes one); the maps' taps'
+// rows.  N_geo, uv: the ray's own kind's.
+__device__ __forceinline__ void maps_bwd(const Scene& S, const RaysBwd& B, long long i,
+                                         long long o, const float* N, const float* uv,
+                                         const float* gNo, Acc* ng, Acc* ub) {
+  const long long tri_off = S.counts[0] + S.counts[1] + S.counts[2] + S.counts[3]
+                            + S.counts[4];
+  const int slot = map_slot(S, o, tri_off);
+  const bool taps = B.map_taps.rows != nullptr;
+  int plane = taps ? texture_fetch::tap_planes_total(S.map_tex, (int)S.n_maps) : 0;
+  float cur[3] = {gNo[0], gNo[1], gNo[2]};
+  for (int r = (int)S.n_maps - 1; r >= 0; --r) {
+    const bool holds = map_holds(S, r, o, tri_off, slot);
+    float g[3], m[3], gm[3];
+    for (int c = 0; c < 3; ++c) {
+      g[c] = holds ? cur[c] : 0.0f;
+      cur[c] = holds ? 0.0f : cur[c];
+    }
+    // the first ref's where hands N_geo its remainder before its graph
+    if (r == 0) acc_row3(ng, cur);
+    texture_fetch::fetch_texture(S.map_tex, r, uv[0], uv[1], m);
+    for (int k = 0; k < 3; ++k) m[k] = m[k] - 0.5f;
+    const int kind = S.map_i[4 * r + 1];
+    float* rows = B.map_rows ? B.map_rows + 6 * ((long long)r * B.n + i) : nullptr;
+    if (kind == MAP_PLANE || kind == MAP_BOX) {
+      float a[3], v[3], gv[3], ga[3];
+      for (int k = 0; k < 3; ++k) a[k] = m[k] * 2.0f;
+      mm3(a, S.map_basis + 9 * r, v);
+      unit_bwd(v, g, gv);
+      mm3t(gv, S.map_basis + 9 * r, ga);
+      for (int k = 0; k < 3; ++k) gm[k] = ga[k] * 2.0f;
+      if (rows)
+        for (int k = 0; k < 3; ++k) {
+          rows[k] = a[k];
+          rows[3 + k] = gv[k];
+        }
+    } else if (kind == MAP_SPHERE) {
+      sphere_map_bwd(N, m, g, ng, gm);
+    } else {
+      const MeshRow mr = mesh_row(S, o, tri_off);
+      const long long row = clip_row(mr.row, S.tan_rows);
+      float T0[3];
+      load3(S.tri_tan, row, T0);
+      if (mr.inst >= 0) {
+        const float* R = S.inst_rot + 9 * mr.inst;
+        float Tr[3];
+        for (int j = 0; j < 3; ++j)
+          Tr[j] = tsum3(__ldg(R + 3 * j) * T0[0], __ldg(R + 3 * j + 1) * T0[1],
+                        __ldg(R + 3 * j + 2) * T0[2]);
+        for (int j = 0; j < 3; ++j) T0[j] = Tr[j];
+      }
+      float gt[4];
+      tri_map_bwd(N, T0, __ldg(S.tri_tan_sign + row), m, g, ng, gm, gt);
+      if (rows)
+        for (int k = 0; k < 4; ++k) rows[k] = gt[k];
+    }
+    // m = fetch - 0.5: the fetch's taps and, bilinear, uv's two selects
+    if (taps) {
+      plane -= texture_fetch::tap_planes(S.map_tex, r);
+      texture_fetch::tap_rows(S.map_tex, r, uv[0], uv[1], gm, B.map_taps, plane, B.n, i);
+    }
+    if (ub != nullptr && (S.map_tex.desc_i[4 * r + 3] & 2)) {
+      float gu, gv;
+      texture_fetch::bilinear_bwd(S.map_tex, r, uv[0], uv[1], gm, &gu, &gv, Sum3());
+      acc_add(ub[0], 0.0f);
+      acc_add(ub[1], gv);
+      acc_add(ub[0], gu);
+      acc_add(ub[1], 0.0f);
+    }
+  }
+}
 
 // whether a kind's formula has an op on P that the output gradients reach
 __device__ __forceinline__ bool kind_reached(const Scene& S, int kind, const Up& U) {
@@ -984,6 +1524,16 @@ __device__ __forceinline__ bool kind_reached(const Scene& S, int kind, const Up&
   return U.n || U.uv;
 }
 
+// whether a table of the kind is wanted
+__device__ __forceinline__ bool kind_tables(const RaysBwd& B, int kind) {
+  const int first[KINDS + 1] = {T_SPH_C, T_PL_N, T_BOX_B, T_DISC_N, T_CYL_AX, T_TRI_N,
+                                N_TABLES};
+  for (int t = first[kind]; t < first[kind + 1]; ++t)
+    if (B.tab[t]) return true;
+  return false;
+}
+
+template <bool MAPS, bool TABLES>
 __device__ __forceinline__ void attrs_bwd_ray(const Scene& S, const RaysBwd& B,
                                               long long i) {
   const float t = __ldg(B.t + i);
@@ -1011,6 +1561,21 @@ __device__ __forceinline__ void attrs_bwd_ray(const Scene& S, const RaysBwd& B,
       const float gu = __ldg(B.guv + 2 * i + c);
       own.guv[c] = B.first_hit && miss ? 0.0f : gu;
     }
+  if (MAPS && own.n) {
+    // the geometric normal and uv take the maps' backward (uv its output
+    // gradient first)
+    float Ng[3] = {0.0f, 0.0f, 0.0f}, uvg[2] = {0.0f, 0.0f};
+    geometric(S, P, o, B.need_uv != 0, Ng, uvg);
+    Acc ng[3] = {}, ub[2] = {};
+    if (own.uv)
+      for (int c = 0; c < 2; ++c) acc_add(ub[c], own.guv[c]);
+    maps_bwd(S, B, i, o, Ng, uvg, own.gN, ng, B.need_uv ? ub : nullptr);
+    for (int c = 0; c < 3; ++c) own.gN[c] = acc_val(ng[c]);
+    if (ub[0].has) {
+      own.uv = true;
+      for (int c = 0; c < 2; ++c) own.guv[c] = acc_val(ub[c]);
+    }
+  }
   Up other = {own.n, own.uv, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f}};
   Acc gp[3] = {};
   if (B.gP)
@@ -1037,23 +1602,27 @@ __device__ __forceinline__ void attrs_bwd_ray(const Scene& S, const RaysBwd& B,
     if (!count) continue;
     const bool mine = o >= offs[kind] && o < offs[kind] + count;
     const Up& U = mine ? own : other;
-    if (!kind_reached(S, kind, U)) continue;
+    // a kind whose formula takes no gradient into P adds nothing to it; in
+    // the TABLES instance it still writes its wanted tables' rows
+    const bool reached = kind_reached(S, kind, U);
+    if (!reached && !(TABLES && kind_tables(B, kind))) continue;
     const long long local = clip_row(o - offs[kind], count);
     float g[3];
     if (kind == KINDS - 1) {
-      triangle_bwd(S, local, P, U, g);
+      triangle_bwd<TABLES>(S, local, P, U, B.need_uv != 0, g, B.tab, i);
     } else {
       float w[ROW];
       row_words(S.rows, offs[kind] + local, w);
       switch (kind) {
-        case 0: sphere_bwd(w, P, U, g); break;
-        case 1: planar_bwd(w, w[3], w[7], U, g); break;
-        case 2: box_bwd(w, P, U, g); break;
-        case 3: planar_bwd(w, w[3], w[3], U, g); break;
-        default: cylinder_bwd(w, P, U, g); break;
+        case 0: sphere_bwd<TABLES>(w, P, U, g, B.tab, i); break;
+        case 1: planar_bwd<TABLES>(w, P, U, false, g, B.tab, i); break;
+        case 2: box_bwd<TABLES>(w, P, U, g, B.tab, i); break;
+        case 3: planar_bwd<TABLES>(w, P, U, true, g, B.tab, i); break;
+        default: cylinder_bwd<TABLES>(w, P, U, g, B.tab, i); break;
       }
     }
-    for (int c = 0; c < 3; ++c) acc_add(gp[c], g[c]);
+    if (reached)
+      for (int c = 0; c < 3; ++c) acc_add(gp[c], g[c]);
   }
   float G[3];
   for (int c = 0; c < 3; ++c) G[c] = zeroed ? 0.0f : acc_val(gp[c]);
@@ -1064,12 +1633,18 @@ __device__ __forceinline__ void attrs_bwd_ray(const Scene& S, const RaysBwd& B,
   if (B.dt) B.dt[i] = tsum3(G[0] * D[0], G[1] * D[1], G[2] * D[2]);
 }
 
+// The backward's instances: BWD_LEAN, BWD_TABLES (that also writes the
+// geometry tables' rows) and BWD_MAPS (the normal-mapped scenes' outside
+// the first-hit pass, the tables' rows too)
+constexpr int BWD_LEAN = 0, BWD_TABLES = 1, BWD_MAPS = 2;
+
+template <int MODE>
 __global__ void __launch_bounds__(ATTR_BLOCK)
 hit_attrs_bwd_kernel(Scene S, RaysBwd B) {
   const long long stride = (long long)gridDim.x * ATTR_BLOCK;
   for (long long i = (long long)blockIdx.x * ATTR_BLOCK + threadIdx.x; i < B.n;
        i += stride)
-    attrs_bwd_ray(S, B, i);
+    attrs_bwd_ray<MODE == BWD_MAPS, MODE != BWD_LEAN>(S, B, i);
 }
 
 // W5's atan2 (op 0: atan2(x, y)), asin (op 1: asin(x)) of n floats, its
@@ -1083,6 +1658,8 @@ math_kernel(int op, const float* x, const float* y, long long n, float* out) {
        i += stride) {
     if (op == 2)
       mm3(x + 3 * i, y, out + 3 * i);
+    else if (op == 4)
+      mm3t(x + 3 * i, y, out + 3 * i);
     else if (op == 3)
       out[i] = rsqrtf(x[i]);
     else
@@ -1139,15 +1716,32 @@ bool rays_ok(const Rays& R) {
          && R.mat_type && R.mat_slot && R.max_depth;
 }
 
+bool any_table(const RaysBwd& B) {
+  for (int t = 0; t < N_TABLES; ++t)
+    if (B.tab[t]) return true;
+  return false;
+}
+
 bool bwd_ok(const RaysBwd& B) {
   return B.n >= 1 && B.O && B.D && B.t && B.obj && (B.first_hit || !B.gN || B.orient)
          && (!B.guv || B.need_uv) && (B.gP || B.gN || B.guv || B.geps)
-         && (B.dO || B.dD || B.dt);
+         && (B.dO || B.dD || B.dt || any_table(B) || B.map_taps.rows || B.map_rows)
+         && (!B.map_rows || B.gN)
+         && (!B.map_taps.rows || (B.map_taps.idx && B.gN));
 }
 
 }  // namespace w5
 
 using namespace w5;
+
+template <int MODE>
+cudaError_t launch_bwd(const Scene& S, const RaysBwd& B, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = grid_for(hit_attrs_bwd_kernel<MODE>, B.n, &grid);
+  if (err != cudaSuccess) return err;
+  LAUNCH(hit_attrs_bwd_kernel<MODE>, grid, ATTR_BLOCK, 0, stream, S, B);
+  return cudaGetLastError();
+}
 
 template <bool MAPS>
 cudaError_t launch_attrs(const Scene& S, const Rays& R, cudaStream_t stream) {
@@ -1189,40 +1783,46 @@ extern "C" int hit_attrs(const Scene* S, const Rays* R, void* stream, int* launc
   return 0;
 }
 
-// The gradients of the rays' O, D and t from those of the attributes (B)
-// against the scene S, which maps no normal (ops/hit_attrs.py builds
-// both), one launch.  Returns 0 or a CUDA error, and sets *launched to the
+// The gradients of the rays' O, D and t, the wanted geometry tables'
+// per-ray rows (the TABLES instance) and the maps' texture taps' rows,
+// from those of the attributes (B) against the scene S (ops/hit_attrs.py
+// builds both), one launch: the MAPS instance where the scene maps
+// normals and this is no first-hit pass.  Returns 0 or a CUDA error, and sets *launched to the
 // kernels launched.
 extern "C" int hit_attrs_bwd(const Scene* S, const RaysBwd* B, void* stream,
                              int* launched) {
   *launched = 0;
-  if (!scene_ok(*S) || !bwd_ok(*B) || (S->n_maps > 0 && !B->first_hit))
+  const bool maps = S->n_maps > 0 && !B->first_hit;
+  if (!scene_ok(*S) || !bwd_ok(*B) || (!maps && (B->map_taps.rows || B->map_rows)))
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = grid_for(hit_attrs_bwd_kernel, B->n, &grid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = maps ? launch_bwd<BWD_MAPS>(*S, *B, st)
+                          : any_table(*B) ? launch_bwd<BWD_TABLES>(*S, *B, st)
+                                          : launch_bwd<BWD_LEAN>(*S, *B, st);
   if (err != cudaSuccess) return (int)err;
-  LAUNCH(hit_attrs_bwd_kernel, grid, ATTR_BLOCK, 0, static_cast<cudaStream_t>(stream),
-         *S, *B);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
   return 0;
 }
 
 // What a kernel was built to (which: 0 the kernel's instance without maps,
-// 1 its MAPS instance, 2 the backward; see kernel_info).
+// 1 its MAPS instance, 2 the backward, 3 its TABLES instance, 4 its MAPS
+// instance; see kernel_info).
 extern "C" int hit_attrs_info(int which, int* out) {
-  if (which == 2) return (int)kernel_info(hit_attrs_bwd_kernel, out);
+  if (which == 2) return (int)kernel_info(hit_attrs_bwd_kernel<BWD_LEAN>, out);
+  if (which == 3) return (int)kernel_info(hit_attrs_bwd_kernel<BWD_TABLES>, out);
+  if (which == 4) return (int)kernel_info(hit_attrs_bwd_kernel<BWD_MAPS>, out);
   return (int)(which ? kernel_info(hit_attrs_kernel<true>, out)
                      : kernel_info(hit_attrs_kernel<false>, out));
 }
 
 // out[i] = W5's atan2(x[i], y[i]) (op 0), asin(x[i]) (op 1) or rsqrt(x[i])
-// (op 3), n floats; or (op 2) out's row i = x's row i @ y, n rows.  For chip_smoke.py and the
-// card tests, which hold them against torch.
+// (op 3), n floats; or (op 2) out's row i = x's row i @ y, (op 4) x's row
+// i @ y^T (the product's backward into its left factor), n rows.  For
+// chip_smoke.py and the card tests, which hold them against torch.
 extern "C" int hit_attrs_math(int op, const float* x, const float* y, long long n,
                               float* out, void* stream, int* launched) {
   *launched = 0;
-  if (op < 0 || op > 3 || !x || ((op == 0 || op == 2) && !y) || !out || n < 1)
+  if (op < 0 || op > 4 || !x || ((op == 0 || op == 2 || op == 4) && !y) || !out || n < 1)
     return (int)cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = grid_for(math_kernel, n, &grid);

@@ -46,9 +46,14 @@ struct Textures {
   const float* desc_f;
 };
 
+// the texel row of (iu, iv) in an H x W texture, wrapped around
+__device__ __forceinline__ long long texel_row(int H, int W, int iu, int iv) {
+  return (long long)t_rem(wrap_neg(iv), H) * W + t_rem(iu, W);
+}
+
 __device__ __forceinline__ void tap(const float* tex, int H, int W, int iu,
                                     int iv, float* c) {
-  const long long idx = (long long)t_rem(wrap_neg(iv), H) * W + t_rem(iu, W);
+  const long long idx = texel_row(H, W, iu, iv);
   c[0] = tex[3 * idx];
   c[1] = tex[3 * idx + 1];
   c[2] = tex[3 * idx + 2];
@@ -138,6 +143,58 @@ __device__ __forceinline__ void bilinear_bwd(const Textures& T, int r, float u, 
   gfx = gfx + -(g00 * ay);
   *gv = (gfy + 0.0f) * sv;
   *gu = (gfx + 0.0f) * su;
+}
+
+// The texture's side of ref r's fetch backward: each tap's gradient row and
+// the texel row it reads, for the wrapper's core/safemath.py
+// `take_backward` scans (ops/wavefront_shade.py `texture_grads`).  Planes
+// of (planes, n, 3) rows and (planes, n) int64 rows: a bilinear ref takes
+// four from `plane`, its taps in the forward's order (t00, t10, t01, t11),
+// each G times its weight (mul's backward of w * tap, w as the forward
+// rounds it); a nearest ref one, G itself.
+struct TapRows {
+  float* rows;
+  long long* idx;
+};
+
+__device__ __forceinline__ int tap_planes(const Textures& T, int r) {
+  return (T.desc_i[4 * r + 3] & 2) ? 4 : 1;
+}
+
+// the planes of refs 0 .. refs - 1
+__device__ __forceinline__ int tap_planes_total(const Textures& T, int refs) {
+  int p = 0;
+  for (int r = 0; r < refs; ++r) p += tap_planes(T, r);
+  return p;
+}
+
+__device__ __forceinline__ void tap_row(const TapRows& R, int plane, long long n,
+                                        long long i, int H, int W, int iu, int iv,
+                                        const float* G, float w, bool weighted) {
+  const long long at = (long long)plane * n + i;
+  R.idx[at] = texel_row(H, W, iu, iv);
+  for (int c = 0; c < 3; ++c) R.rows[3 * at + c] = weighted ? G[c] * w : G[c];
+}
+
+__device__ __forceinline__ void tap_rows(const Textures& T, int r, float u, float v,
+                                         const float* G, const TapRows& R, int plane,
+                                         long long n, long long i) {
+  const int* d = T.desc_i + 4 * r;
+  const int H = d[1], W = d[2];
+  const float su = T.desc_f[2 * r], sv = T.desc_f[2 * r + 1];
+  if (tap_planes(T, r) == 1) {
+    tap_row(R, plane, n, i, H, W, (int)(u * su), (int)(v * sv), G, 1.0f, false);
+    return;
+  }
+  const float x = u * su - 0.5f, y = v * sv - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int ix = (int)x0, iy = (int)y0;
+  const int ix1 = wrap_add(ix, 1), iy1 = wrap_add(iy, 1);
+  tap_row(R, plane, n, i, H, W, ix, iy, G, (1.0f - fx) * (1.0f - fy), true);
+  tap_row(R, plane + 1, n, i, H, W, ix1, iy, G, fx * (1.0f - fy), true);
+  tap_row(R, plane + 2, n, i, H, W, ix, iy1, G, (1.0f - fx) * fy, true);
+  tap_row(R, plane + 3, n, i, H, W, ix1, iy1, G, fx * fy, true);
 }
 
 }  // namespace texture_fetch

@@ -28,7 +28,8 @@
 // grad_acc.cuh keeps the buffers).  The parts, last made first:
 // - beta_mult = colour * weight, weight = (N.d clamped / clamp_min(pdf,
 //   1e-9)) / pi: the colour's gradient (`_slot_color`'s wheres, last ref
-//   first, a bilinear texture's into uv) and the weight's;
+//   first, a bilinear texture's into uv, every ref's texel taps' rows
+//   where a colour texture takes a gradient) and the weight's;
 // - the pdf's sum, last term first: the environment's (env_is_pdf's
 //   row), the caps' (torch.sum over the K caps of each cap's value, its
 //   geometry's backward: core/rng.py caps_geometry at the nudged origin,
@@ -48,8 +49,8 @@
 // plan, or the blocks' sums of a row split across blocks, added here one
 // block after another and then as global_reduce's last block adds them).
 // The tables' gradients are reductions in autograd's own order, in the
-// wrapper: the gathered tables' per-ray rows go to core/safemath.py
-// `take_backward`, the caps' (ray, cap) rows to the engine's sum_to over
+// wrapper: the gathered tables' per-ray rows and the textures' tap rows go
+// to core/safemath.py `take_backward`, the caps' (ray, cap) rows to the engine's sum_to over
 // the rays.
 //
 // What bounds it: operations past a few caps (each cap's geometry three
@@ -164,6 +165,9 @@ struct DiffBwd {
   float* opdf_rows;
   float* osmp_rows;
   int outer_rows;
+  // where a colour texture takes a gradient, every ref's taps' rows
+  // (texture_fetch.cuh `tap_rows`), refs in order; else null
+  TapRows taps;
 };
 
 // ---------------------------------------------------------------------------
@@ -734,12 +738,17 @@ __device__ __forceinline__ void diff_bwd_ray(const DiffBwd& B, const SumPlan& S,
   // ref's fetch hands uv its two selects' full rows, v's then u's
   float a0 = 0.0f, a1 = 0.0f;
   bool has = false;
+  int plane = B.taps.rows ? tap_planes_total(B.ref_tex, B.refs) : 0;
   for (int r = B.refs - 1; r >= 0; --r) {
     const bool at = raw_slot == B.ref_slot[r];
     float gc[3];
     for (int c = 0; c < 3; ++c) {
       gc[c] = at ? colb[c] : 0.0f;
       colb[c] = at ? 0.0f : colb[c];
+    }
+    if (B.taps.rows) {
+      plane -= tap_planes(B.ref_tex, r);
+      tap_rows(B.ref_tex, r, u, v, gc, B.taps, plane, B.n, i);
     }
     if (!(B.ref_tex.desc_i[4 * r + 3] & 2)) continue;
     float gu, gv;
@@ -797,6 +806,7 @@ bool bwd_ok(const DiffBwd& B) {
                              && B.ref_tex.desc_f))
          && (!B.dP || go || ((gb || gd) && caps)) && (!B.deps || go || ((gb || gd) && caps))
          && (!B.dN || gb || go || gd) && (!B.duv || gb) && (!B.color_rows || gb)
+         && (!B.taps.rows || (gb && B.refs >= 1 && B.taps.idx))
          && (!B.w_rows || (gb && (caps || env)))
          && (!B.prob_rows || (env && (gb || gd) && B.prob_idx))
          && (!B.pdf_rows || (env && gb && B.pdf_idx))

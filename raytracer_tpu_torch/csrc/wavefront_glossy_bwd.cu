@@ -38,10 +38,11 @@
 //   or spot light's (pos - P) / safe_norm) into its tables' rows and P;
 //   then the ambient term;
 // - the nudged origin P + N eps, then the diffuse colour (`_slot_color`'s
-//   wheres, a bilinear texture's into uv) times glossy_diff.
+//   wheres, a bilinear texture's into uv, every ref's texel taps' rows
+//   where a colour texture takes a gradient) times glossy_diff.
 // The tables' gradients are reductions in autograd's own order, in the
-// wrapper: the gathered tables' per-ray rows go to core/safemath.py
-// `take_backward`, a broadcast row's (a light's colour, position and
+// wrapper: the gathered tables' per-ray rows and the textures' tap rows go
+// to core/safemath.py `take_backward`, a broadcast row's (a light's colour, position and
 // direction, the ambient colour, the scene's medium) to the engine's sum_to
 // over the rays, then a select's full row of +0 pads a light.
 //
@@ -167,6 +168,9 @@ struct GlossBwd {
   float* sd_rows;
   float* cci_rows;
   float* nco_rows;
+  // where a colour texture takes a gradient, every ref's taps' rows
+  // (texture_fetch.cuh `tap_rows`), refs in order; else null
+  TapRows taps;
 };
 
 // ---------------------------------------------------------------------------
@@ -628,12 +632,17 @@ __device__ void gloss_bwd_ray(const GlossBwd& B, long long i) {
                              : 0.0f;
   float a0 = 0.0f, a1 = 0.0f;
   bool has = false;
+  int plane = B.taps.rows ? tap_planes_total(B.ref_tex, B.refs) : 0;
   for (int r = B.refs - 1; r >= 0; --r) {
     const bool at = raw_slot == B.ref_slot[r];
     float gc[3];
     for (int c = 0; c < 3; ++c) {
       gc[c] = at ? colb[c] : 0.0f;
       colb[c] = at ? 0.0f : colb[c];
+    }
+    if (B.taps.rows) {
+      plane -= tap_planes(B.ref_tex, r);
+      tap_rows(B.ref_tex, r, u, v, gc, B.taps, plane, B.n, i);
     }
     if (!(B.ref_tex.desc_i[4 * r + 3] & 2)) continue;
     float gu, gv;
@@ -695,7 +704,8 @@ bool bwd_ok(const GlossBwd& B) {
          && (!(B.duv || B.color_rows || B.diff_rows || B.amb_rows) || ga)
          && (!(B.rough_rows || B.spec_rows) || ga) && (!(B.m_re_rows || B.m_im_rows) || ga || gb)
          && (!(B.sre_add || B.sre_sub || B.sim_add || B.sim_sub) || gb)
-         && (!(B.lc_rows || B.lp_rows || B.sd_rows || B.cci_rows || B.nco_rows) || ga);
+         && (!(B.lc_rows || B.lp_rows || B.sd_rows || B.cci_rows || B.nco_rows) || ga)
+         && (!B.taps.rows || (ga && B.refs >= 1 && B.taps.idx));
 }
 
 }  // namespace w4g

@@ -28,8 +28,7 @@ stage (grad enabled and an input requiring grad), the kernel runs inside
 one launch each), the plain stage's vector-Jacobian product
 (`plain_start_vjp`, `plain_update_vjp`) bit for bit; the tables'
 gradients are `core/safemath.py` `take`'s scans of the start kernel's
-per-ray rows.  The start's backward takes the plain VJP, counted in
-`plain_routes`, only where a texture it reads requires grad.
+per-ray rows, the textures' those of its texel taps' rows.
 `backward_launches()` counts the backward kernels.
 
 The `_launch_*` functions and the VJPs take `lib=`: the tests pass the CPU
@@ -108,7 +107,9 @@ class StartBwd(ctypes.Structure):
                 ("em_ref_slot", _V), ("em_ref_tex", ws.Textures), ("env_slots", _I),
                 ("env_slot", _V), ("env_lm_row", _V), ("env_lm", ws.Textures),
                 *((f, _V) for f in ("dP", "dD", "dn_re", "dn_im", "duv", "em_rows",
-                                    "li_rows"))]
+                                    "li_rows")),
+                ("env_disp", ws.Textures), ("env_li", _V), ("env_rows", _I),
+                ("taps", ws.TapRows)]
 
 
 ENTRIES = {"bounce_start": [ctypes.POINTER(Start), _V, ctypes.POINTER(_I)],
@@ -323,10 +324,6 @@ def _launch_update(c, miss, acc, lib=None):
 # ---------------------------------------------------------------------------
 
 _START_RAYS = ("P", "D", "n_re", "n_im", "uv")
-# the explicit plain-VJP routes taken on the card, by reason: the start's
-# backward where a texture it reads requires grad (its texels' gradient has
-# no kernel)
-plain_routes = {"start_textures": 0}
 
 
 def _start_inputs(ctx):
@@ -367,14 +364,6 @@ def _start_flow(ctx, mat_type, flags):
     return ws.kept_flow(ctx.static, "_w6_flow", flags, plain)
 
 
-def _start_textures(static):
-    """The indices of the textures the start reads: the emissive slots'
-    and the environments' display textures and lightmaps."""
-    return ({r.tex for r in static.emissive_tex}
-            | {e.tex for e in static.env_slots}
-            | {e.lightmap for e in static.env_slots if e.lightmap is not None})
-
-
 def plain_start_vjp(grads, xs, mat_type, mat_slot, depth, data, static, wants):
     """The plain start's vector-Jacobian product (ops/plain_grad.py
     `plain_vjp`): the gradients of the start's inputs xs (`_start_inputs`;
@@ -393,11 +382,12 @@ def backward_tables(data, static):
     slot, in SceneStatic.emissive_tex order, and "em_ref_tex" its
     (texels, desc_i, desc_f) a row a ref; "env_slot" (slots,) int32, each
     environment's slot in SceneStatic.env_slots order, "env_lm_row" its
-    row of the light-intensity rows (-1 without a lightmap) and "env_lm"
-    the lightmaps' textures a row an environment.  Made once per data and
-    kept on its material tables."""
+    row of the light-intensity rows (-1 without a lightmap), "env_lm"
+    the lightmaps' textures a row an environment and "env_disp" their
+    display textures.  Made once per data and kept on its material
+    tables."""
     mats, refs, envs = data.mats, static.emissive_tex, static.env_slots
-    used = sorted(_start_textures(static))
+    used = sorted({r[0] for r in start_texture_refs(data, static)})
     dev = mats.emissive_color.device
 
     def make():
@@ -416,7 +406,10 @@ def backward_tables(data, static):
             out.update(env_slot=slot, env_lm_row=torch.tensor(
                 rows, dtype=torch.int32, device=dev), env_lm=ws.texture_tables(
                 mats, slot, [TexRef(i, e.lightmap, 1.0) for i, e in enumerate(envs)
-                             if e.lightmap is not None], data.textures, "w6_bwd_lm"))
+                             if e.lightmap is not None], data.textures, "w6_bwd_lm"),
+                env_disp=ws.texture_tables(
+                    mats, slot, [TexRef(i, e.tex, 1.0) for i, e in enumerate(envs)],
+                    data.textures, "w6_bwd_disp"))
         return out
 
     name = "_w6_bwd_" + "_".join(
@@ -435,13 +428,49 @@ def _grad_rows(name, g, n):
 
 def start_vjp(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=None):
     """The start's vector-Jacobian product from W6's backward kernel (`lib`;
-    csrc/bounce_tail.cu `bounce_start_bwd`), one launch: the gradients of
-    `_start_inputs` (None where not wanted or not reached, as
-    `plain_start_vjp` gives them, bit for bit) from those of the float
+    csrc/bounce_tail.cu `bounce_start_bwd`), one launch (`_start_rows`):
+    the gradients of `_start_inputs` (None where not wanted or not reached,
+    as `plain_start_vjp` gives them, bit for bit) from those of the float
     fields (grads, one a ws.FLOAT_FIELDS; beta_mult's takes no part).  The
     tables' gradients are the scans of core/safemath.py `take` over the
-    kernel's per-ray rows.  No wanted texture may be one the start reads.
-    Adds its launches to `start_vjp.launches`."""
+    kernel's per-ray rows, the textures' those of its taps' rows
+    (`start_texture_refs`, `ws.texture_grads`)."""
+    out = [None] * len(wants)
+    got = _start_rows(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib)
+    if got is None:
+        return out
+    d, em_rows, li_rows, taps, wanted, trefs = got
+    k = len(_START_RAYS) + 2
+    out[:5] = d
+    mats = data.mats
+    if em_rows is not None:
+        out[5] = take_backward(shade.slot_rows(mat_slot, mats.emissive_color), em_rows,
+                               mats.emissive_color.shape)
+    if li_rows is not None:
+        # one gather a lightmap; the engine adds their gradients last first
+        idx = shade.slot_rows(mat_slot, mats.env_light_intensity)
+        for row in reversed(range(li_rows.shape[0])):
+            t = take_backward(idx, li_rows[row], mats.env_light_intensity.shape)
+            out[6] = t if out[6] is None else out[6] + t
+    if taps[0] is not None:
+        nr = len(static.emissive_tex)
+        # the engine runs the environments' fetches first, the last one
+        # first, its lightmap's before its display texture's; then the
+        # emissive refs', the last first
+        order = [j for e in reversed(range(len(static.env_slots)))
+                 for j in _env_ref_rows(static, nr, e)[::-1]] + list(reversed(range(nr)))
+        for t, grad in ws.texture_grads(trefs, *taps, wanted, order).items():
+            out[k + t] = grad
+    return out
+
+
+def _start_rows(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=None):
+    """W6's start backward kernel on the arguments of `start_vjp`, one
+    launch: (the gradients of P, D, n_re, n_im and uv, the emissive
+    colours' rows, the light intensity's (lightmaps, N) rows, the taps'
+    (rows, idx), the wanted textures, `start_texture_refs`), None where
+    nothing wanted is reached.  Adds its launches to `start_vjp.launches`
+    (its TAPS instance's to `start_vjp.tap_launches` too)."""
     g = dict(zip(ws.FLOAT_FIELDS, grads))
     present = static.mat_types_present
     em, env = MAT_EMISSIVE in present, MAT_ENV in present
@@ -454,17 +483,17 @@ def start_vjp(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=Non
              add and env and lms > 0]
     k = len(reach)
     want = [w and r for w, r in zip(wants[:k], reach)]
-    if any(wants[k + t] for t in _start_textures(static)) and add:
-        raise ValueError("W6's start backward takes no texture gradient")
-    out = [None] * len(wants)
-    if not any(want):
-        return out
+    trefs = start_texture_refs(data, static)
+    wanted = {r[0] for r in trefs if wants[k + r[0]]} if add else set()
+    if not (any(want) or wanted):
+        return None
     n, dev = mat_type.shape[0], mat_type.device
     f = lambda *s: torch.empty((n, *s), dtype=torch.float32, device=dev)
     d = [f(3) if w else None for w in want[:4]] + [f(2) if want[4] else None]
     em_rows = f(3) if want[5] else None
     li_rows = (torch.empty((lms, n), dtype=torch.float32, device=dev) if want[6]
                else None)
+    taps = ws.tap_buffers(trefs, wanted, n, dev)
     if n:
         tabs = backward_tables(data, static)
         ins = dict(mat_type=_rows("mat_type", mat_type, n, torch.int32),
@@ -485,30 +514,47 @@ def start_vjp(grads, mat_type, mat_slot, depth, uv, data, static, wants, lib=Non
                           env_lm=ws._textures(tabs.get("env_lm")),
                           **dict(zip(("dP", "dD", "dn_re", "dn_im", "duv"),
                                      (ws._p(x) for x in d))),
-                          em_rows=ws._p(em_rows), li_rows=ws._p(li_rows))
-        _COUNTED_BWD["bounce_start_bwd"].launches += _call(
-            lib, "bounce_start_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
-            entries=ENTRIES)
-    out[:5] = d
-    mats = data.mats
-    if em_rows is not None:
-        out[5] = take_backward(shade.slot_rows(mat_slot, mats.emissive_color), em_rows,
-                               mats.emissive_color.shape)
-    if li_rows is not None:
-        # one gather a lightmap; the engine adds their gradients last first
-        idx = shade.slot_rows(mat_slot, mats.env_light_intensity)
-        for row in reversed(range(lms)):
-            t = take_backward(idx, li_rows[row], mats.env_light_intensity.shape)
-            out[6] = t if out[6] is None else out[6] + t
-    return out
+                          em_rows=ws._p(em_rows), li_rows=ws._p(li_rows),
+                          env_disp=ws._textures(tabs.get("env_disp")),
+                          env_li=ws._p(ws._f32(data.mats.env_light_intensity)
+                                       if env and taps[0] is not None else None),
+                          env_rows=data.mats.env_light_intensity.shape[0],
+                          taps=ws.TapRows(*(ws._p(x) for x in taps)))
+        launched = _call(lib, "bounce_start_bwd", ctypes.byref(struct),
+                         cuda_build.stream_of(dev), entries=ENTRIES)
+        _COUNTED_BWD["bounce_start_bwd"].launches += launched
+        if taps[0] is not None:
+            _COUNTED_BWD["bounce_start_bwd"].tap_launches += launched
+    return d, em_rows, li_rows, taps, wanted, trefs
+
+
+def _env_ref_rows(static, nr, e):
+    """The rows of `start_texture_refs` of environment e: its display
+    texture's, then its lightmap's where it has one."""
+    at = nr
+    for j, env in enumerate(static.env_slots):
+        rows = [at] + ([at + 1] if env.lightmap is not None else [])
+        if j == e:
+            return rows
+        at += len(rows)
+    raise IndexError(e)
+
+
+def start_texture_refs(data, static):
+    """The textures the start reads, as `ws.tex_refs` gives a block's refs
+    and in the order of the backward kernel's tap planes: the emissive
+    image textures' refs, then each environment's display texture and its
+    lightmap where it has one (nearest)."""
+    tx = data.textures
+    envs = [(t, False, tuple(tx[t].shape)) for e in static.env_slots
+            for t in (e.tex, e.lightmap) if t is not None]
+    return ws.tex_refs(tx, static.emissive_tex) + tuple(envs)
 
 
 class _Start(torch.autograd.Function):
     """W6's start forward (xs: `_start_inputs`), its fields that take no
     gradient from the plain start (`_start_flow`) and its bools marked
-    non-differentiable.  Backward: W6's backward kernel (`start_vjp`), or,
-    where a texture the start reads requires grad, the plain start's VJP
-    from the saved inputs (`plain_routes["start_textures"]`)."""
+    non-differentiable.  Backward: W6's backward kernel (`start_vjp`)."""
 
     @staticmethod
     def forward(fctx, call, *xs):
@@ -519,26 +565,17 @@ class _Start(torch.autograd.Function):
             *(getattr(out, f) for f in ws.BOOL_FIELDS))
         fctx.data, fctx.static, fctx.lib = ctx.data, ctx.static, lib
         fctx.set_materialize_grads(False)        # see ops/plain_grad.py
-        k = len(_START_RAYS) + 2
-        fctx.plain = any(xs[k + t].requires_grad for t in _start_textures(ctx.static))
-        # the plain route recomputes the stage from every input; the kernel
-        # reads the words' fields, the depth and uv
-        fctx.save_for_backward(mat_type, ctx.mat_slot, ctx.depth,
-                               *(xs if fctx.plain else (ctx.uv,)))
+        # the kernel reads the words' fields, the depth and uv
+        fctx.save_for_backward(mat_type, ctx.mat_slot, ctx.depth, ctx.uv)
         return tuple(getattr(out, f) for f in ws.FLOAT_FIELDS + ws.BOOL_FIELDS)
 
     @staticmethod
     def backward(fctx, *grads):
-        mat_type, mat_slot, depth, *rest = fctx.saved_tensors
+        mat_type, mat_slot, depth, uv = fctx.saved_tensors
         grads, wants = grads[:len(ws.FLOAT_FIELDS)], fctx.needs_input_grad[1:]
         with torch.profiler.record_function("wavefront.backward.start"):
-            if fctx.plain:
-                plain_routes["start_textures"] += 1
-                got = plain_start_vjp(grads, rest, mat_type, mat_slot, depth,
-                                      fctx.data, fctx.static, wants)
-            else:
-                got = start_vjp(grads, mat_type, mat_slot, depth, rest[0], fctx.data,
-                                fctx.static, wants, fctx.lib)
+            got = start_vjp(grads, mat_type, mat_slot, depth, uv, fctx.data,
+                            fctx.static, wants, fctx.lib)
         # the bools take no gradient
         return (None, *got)
 
@@ -669,8 +706,8 @@ def backward_pair(fn, call, xs, grads, wants, lib=None):
     ops/plain_grad.py `recording` recorded (its forward's call and inputs
     xs, its output gradients, the inputs' needs_input_grad): functions of
     no argument giving the inputs' gradients from W6's backward kernel
-    (`lib`; None where the backward took the plain route) and from the
-    plain stage's VJP, for the holds of one against the other."""
+    (`lib`) and from the plain stage's VJP, for the holds of one against
+    the other."""
     if fn is _Update:
         others = call[0]
         v = dict(zip(_UPDATE_FLOATS, xs)) | dict(zip(_UPDATE_OTHERS, others))
@@ -681,9 +718,6 @@ def backward_pair(fn, call, xs, grads, wants, lib=None):
     g = grads[:len(ws.FLOAT_FIELDS)]
     plain = lambda: plain_start_vjp(g, xs, mat_type, ctx.mat_slot, ctx.depth,
                                     ctx.data, ctx.static, wants)
-    k = len(_START_RAYS) + 2
-    if any(xs[k + t].requires_grad for t in _start_textures(ctx.static)):
-        return None, plain
     return (lambda: start_vjp(g, mat_type, ctx.mat_slot, ctx.depth, ctx.uv, ctx.data,
                               ctx.static, wants, lib), plain)
 
@@ -718,7 +752,7 @@ bounce_start.launches = bounce_update.launches = 0
 _COUNTED = {"bounce_start": bounce_start, "bounce_update": bounce_update}
 
 
-start_vjp.launches = update_vjp.launches = 0
+start_vjp.launches = update_vjp.launches = start_vjp.tap_launches = 0
 # the functions whose counts the backward kernels' launches add to
 _COUNTED_BWD = {"bounce_start_bwd": start_vjp, "bounce_update_bwd": update_vjp}
 
@@ -728,17 +762,19 @@ def launches():
     return {k: w.launches for k, w in _COUNTED.items()}
 
 
-def backward_launches():
-    """W6's backward launches by entry."""
+def backward_launches(taps=False):
+    """W6's backward launches by entry (taps: those of the start
+    backward's TAPS instance)."""
+    if taps:
+        return _COUNTED_BWD["bounce_start_bwd"].tap_launches
     return {k: w.launches for k, w in _COUNTED_BWD.items()}
 
 
 def reset_launches():
-    """Zero the forward and backward counts and the plain routes'."""
+    """Zero the forward and backward counts."""
     for w in (*_COUNTED.values(), *_COUNTED_BWD.values()):
         w.launches = 0
-    for k in plain_routes:
-        plain_routes[k] = 0
+    _COUNTED_BWD["bounce_start_bwd"].tap_launches = 0
 
 
 INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
@@ -746,14 +782,14 @@ INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
 
 def info(entry, lib=None):
     """What W6's kernel of `entry` ("bounce_start", "bounce_update",
-    "bounce_start_bwd" or "bounce_update_bwd") was built to, read on the
-    card (`bounce_tail_info`): registers and local memory (bytes: spills
-    and stack) a thread, resident blocks an SM, the SMs and threads a
-    block."""
+    "bounce_start_bwd", "bounce_update_bwd" or "bounce_start_bwd_taps", the
+    start backward's TAPS instance) was built to, read on the card
+    (`bounce_tail_info`): registers and local memory (bytes: spills and
+    stack) a thread, resident blocks an SM, the SMs and threads a block."""
     fn = (lib or cuda_build.load_library()).bounce_tail_info
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn((*_COUNTED, *_COUNTED_BWD).index(entry), out)
+    err = fn((*_COUNTED, *_COUNTED_BWD, "bounce_start_bwd_taps").index(entry), out)
     if err:
         raise RuntimeError(f"bounce_tail_info: CUDA error {err}")
     return dict(zip(INFO, out))

@@ -28,12 +28,14 @@ plane's or a box's basis, the maps' texels and descriptors in W4's form,
 autograd records the stage (grad enabled and an input requiring grad:
 the rays, a geometry table, a map's texture), the kernel runs inside
 `_Attrs`, whose backward is a kernel too (`attrs_vjp`: csrc/hit_attrs.cu
-`hit_attrs_bwd`, one launch), the gradients of O, D and t, the plain
-stage's vector-Jacobian product (`plain_attrs_vjp`) bit for bit.  Where a
-geometry table or a map's texture requires grad, or where the scene maps
-normals, the backward recomputes the plain stage on the chunk for its VJP
-instead, each such call counted in `plain_routes`.  The orientation is
-+-1 from a bool (geometry/intersect.py `_orient`) and takes no gradient.  `backward_launches()` counts the backward kernel.
+`hit_attrs_bwd`, one launch), the gradients of O, D and t, of the
+geometry's tables (its TABLES instance's per-ray rows, reduced by
+`safemath.take_backward`) and, through the normal maps (its MAPS
+instance), of the maps' textures (their taps' rows): the plain stage's
+vector-Jacobian product (`plain_attrs_vjp`) bit for bit; the plain
+stage runs in the tests alone.  The orientation is +-1 from a bool
+(geometry/intersect.py `_orient`) and takes no gradient.
+`backward_launches()` counts the backward kernel.
 
 The `_launch` function and `attrs_vjp` take `lib=`: the tests pass the CPU
 stand-in's build of the source (csrc/emu) with CPU tensors.
@@ -50,7 +52,7 @@ import torch
 
 from ..core.compile import (KINDS, PACKED_DEPTH_SHIFT, PACKED_MC_SHIFT,
                             PACKED_SLOT_SHIFT, TexRef)
-from ..core.safemath import safe_norm, take
+from ..core.safemath import safe_norm, take, take_backward
 from ..geometry.attrs import hit_attributes
 from ..materials import shade
 from ..utils.constants import MISS_THRESHOLD, NUDGE_EPS
@@ -87,11 +89,38 @@ class Rays(ctypes.Structure):
                 ("mat_type", _V), ("mat_slot", _V), ("max_depth", _V)]
 
 
+# The geometry tables whose gradients W5's backward writes as per-ray rows
+# (csrc/hit_attrs.cu `Table`, in its order): name, kind, the output
+# (N: the normal, uv) that reaches it.  A triangle table's reach depends
+# on the corners and instances (`_table_reach`); cyl_capped is compared,
+# not differentiated, and the tables the stage does not read take none.
+TABLES = (
+    ("sphere_center", "sphere", "N uv"), ("sphere_radius", "sphere", "N uv"),
+    ("plane_normal", "plane", "N"), ("plane_center", "plane", "uv"),
+    ("plane_half_w", "plane", "uv"), ("plane_half_h", "plane", "uv"),
+    ("plane_uv_shift", "plane", "uv"), ("plane_u_axis", "plane", "uv"),
+    ("plane_v_axis", "plane", "uv"),
+    ("box_basis", "box", "N uv"), ("box_whl", "box", "uv"), ("box_center", "box", "N uv"),
+    ("disc_normal", "disc", "N"), ("disc_center", "disc", "uv"),
+    ("disc_r_out", "disc", "uv"), ("disc_u_axis", "disc", "uv"),
+    ("disc_v_axis", "disc", "uv"),
+    ("cyl_axis", "cyl", "N uv"), ("cyl_u_axis", "cyl", "N uv"),
+    ("cyl_v_axis", "cyl", "N uv"), ("cyl_radius", "cyl", "uv"),
+    ("cyl_half_h", "cyl", "uv"), ("cyl_center", "cyl", "N uv"),
+    ("tri_normal", "tri", ""), ("tri_p1", "tri", ""), ("tri_p2", "tri", ""),
+    ("tri_p3", "tri", ""), ("tri_vn1", "tri", ""), ("tri_vn2", "tri", ""),
+    ("tri_vn3", "tri", ""), ("tri_uv1", "tri", ""), ("tri_uv2", "tri", ""),
+    ("tri_uv3", "tri", ""), ("inst_rot", "tri", ""), ("inst_trans", "tri", ""),
+    ("inst_inv_scale", "tri", ""))
+_TABLE_AT = {name: k for k, (name, _, _) in enumerate(TABLES)}
+
+
 class RaysBwd(ctypes.Structure):
     _fields_ = [("O", _V), ("D", _V), ("t", _V), ("orient", _V), ("obj", _V),
                 ("n", _L), ("need_uv", _I), ("first_hit", _I), ("nudge", _F),
                 ("miss_at", _F), ("gP", _V), ("gN", _V), ("guv", _V), ("geps", _V),
-                ("dO", _V), ("dD", _V), ("dt", _V)]
+                ("dO", _V), ("dD", _V), ("dt", _V), ("tab", _V * len(TABLES)),
+                ("map_taps", ws.TapRows), ("map_rows", _V)]
 
 
 ENTRIES = {
@@ -476,10 +505,9 @@ def _geom_floats(geom):
         if getattr(geom, f.name).is_floating_point()))
 
 
-# the explicit plain-VJP routes taken on the card, by reason: a geometry
-# table or a normal map's texture requiring grad, a scene that maps
-# normals (outside the first-hit pass)
-plain_routes = {"tables": 0, "maps": 0}
+# the tables each map basis kind reads (`_apply_normal_maps`)
+_MAP_TABLES = {"plane": ("plane_u_axis", "plane_v_axis", "plane_normal"),
+               "box": ("box_basis",), "tri": ("tri_tan", "tri_tan_sign", "inst_rot")}
 # the kinds whose normal depends on P (a triangle's where it blends its
 # corners' normals)
 _N_OF_P = ("sphere", "box", "cyl")
@@ -505,53 +533,221 @@ def plain_attrs_vjp(grads, xs, obj, data, static, modes, names, texs, wants):
     return plain_vjp(grads, xs, wants, plain)
 
 
-def attrs_vjp(grads, O, D, t, orient, obj, data, static, modes, wants, lib=None):
+def _table_reach(name, kind, reach, static, geom, need_uv, n_grad, uv_grad):
+    """Whether the plain stage's gather of geometry table `name` (a row of
+    TABLES) takes a gradient: its kind present and an output gradient
+    reaching it (n_grad: N's, uv_grad: uv's, taken with uv computed)."""
+    if not static.kind_counts[kind]:
+        return False
+    uv = uv_grad and need_uv
+    if kind != "tri":
+        return (n_grad and "N" in reach) or (uv and "uv" in reach)
+    interp = geom.tri_vn1.shape[0] > 0
+    inst = geom.tri_virt_row.shape[0] > 0
+    if name == "tri_normal":
+        return n_grad and not interp
+    if name in ("tri_vn1", "tri_vn2", "tri_vn3"):
+        return n_grad and interp
+    if name in ("tri_uv1", "tri_uv2", "tri_uv3"):
+        return uv and interp
+    if name == "inst_rot":
+        return inst and (n_grad or uv)
+    # the corners and the instances' other tables: the barycentric solve
+    solve = uv or (n_grad and interp)
+    return solve and (inst or not name.startswith("inst_"))
+
+
+def _table_rows(name, obj, geom, static):
+    """The rows of table `name` that the plain stage's gather of it reads,
+    a ray each: the ray's object id less its kind's offset, clamped into
+    the kind; a triangle table's through the virtual ids' rows, an
+    instance table's through their instances."""
+    kind = TABLES[_TABLE_AT[name]][1]
+    off = 0
+    for k in KINDS:
+        if k == kind:
+            break
+        off += static.kind_counts[k]
+    local = torch.clamp(obj - off, 0, static.kind_counts[kind] - 1)
+    if kind != "tri" or not geom.tri_virt_row.shape[0]:
+        return local
+    if name.startswith("inst_"):
+        return geom.tri_virt_inst.index_select(0, local).long()
+    return geom.tri_virt_row.index_select(0, local).long()
+
+
+def attrs_vjp(grads, O, D, t, orient, obj, data, static, modes, wants, lib=None,
+              names=(), texs=()):
     """The stage's vector-Jacobian product from W5's backward kernel (`lib`;
-    csrc/hit_attrs.cu `hit_attrs_bwd`), one launch, for a scene whose
-    normals are unmapped (or the first-hit pass) and whose tables take no
-    gradient: the gradients of O, D, t and orient (wants: one each; orient
-    takes none) from those of P, N, uv and eps (grads, one a FLOAT_FIELDS;
-    None where none comes), as `plain_attrs_vjp` gives them, bit for bit.
-    Adds its launches to `attrs_vjp.launches`."""
-    nudge, need_uv, first_hit = modes
-    if wants[3]:
-        raise ValueError("W5's backward takes no orientation gradient")
-    if static.normal_maps and not first_hit:
-        raise ValueError("W5's backward takes no normal-mapped scene")
-    gP, gN, guv, geps = grads
-    counts = static.kind_counts
-    interp = data.geom.tri_vn1.shape[0] > 0
-    if not (any(counts[k] for k in _N_OF_P) or (counts["tri"] and interp)):
-        gN = None               # no normal depends on P
-    if not need_uv:
-        guv = None
-    out = [None] * 4
-    if all(g is None for g in (gP, gN, guv, geps)) or not any(wants[:3]):
+    csrc/hit_attrs.cu `hit_attrs_bwd`), one launch: the gradients of O, D,
+    t and orient (orient takes none), of the geometry's tables `names` and
+    of the maps' textures `texs` (wants: one each of those), from those of
+    P, N, uv and eps (grads, one a FLOAT_FIELDS; None where none comes), as
+    `plain_attrs_vjp` gives them, bit for bit.  A table of TABLES takes the
+    kernel's per-ray rows (its TABLES instance), reduced by
+    core/safemath.py `take_backward` over the rows its gather reads, a
+    table the normal maps read the maps' contributions too
+    (`_map_table_grads`), and a map's texture its taps' rows
+    (`ws.texture_grads`); the others take none."""
+    out = [None] * (4 + len(names) + len(texs))
+    got = _attrs_rows(grads, O, D, t, orient, obj, data, static, modes, wants, lib, names,
+                      texs)
+    if got is None:
         return out
-    O, D, t, orient, obj = _rays_in(O, D, t, orient, obj)
-    n, dev = t.shape[0], t.device
-    out[:3] = [torch.empty(s, dtype=torch.float32, device=dev) if w else None
-               for s, w in zip(((n, 3), (n, 3), (n,)), wants)]
-    if n == 0:
-        return out
-    struct, keep = scene_struct(data, static)
-    if keep[0].device != dev:
-        raise ValueError(f"W5: the scene is on {keep[0].device}, the rays on {dev}")
-    g = [None if x is None else _grad_rows(x, w) for x, w in
-         ((gP, (n, 3)), (gN, (n, 3)), (guv, (n, 2)), (geps, (n,)))]
-    rays = RaysBwd(O=O.data_ptr(), D=D.data_ptr(), t=t.data_ptr(),
-                   orient=orient.data_ptr(), obj=obj.data_ptr(), n=n,
-                   need_uv=int(need_uv), first_hit=int(first_hit), nudge=nudge,
-                   miss_at=MISS_AT, **dict(zip(("gP", "gN", "guv", "geps"),
-                                               (_ptr(x) for x in g))),
-                   **dict(zip(("dO", "dD", "dt"), (_ptr(x) for x in out[:3]))))
-    attrs_vjp.launches += _call(lib, "hit_attrs_bwd", ctypes.byref(struct),
-                                ctypes.byref(rays), cuda_build.stream_of(dev),
-                                entries=ENTRIES)
+    out[:3], rows, taps, wanted, map_rows = got
+    geom = data.geom
+    # a table's gradient: the maps' contributions (their refs last first),
+    # then the gather of the attributes' formulas
+    parts = _map_table_grads(map_rows, obj, data, static) if map_rows is not None else {}
+    for x, r in rows.items():
+        parts.setdefault(x, []).append(take_backward(_table_rows(x, obj, geom, static), r,
+                                                     getattr(geom, x).shape))
+    for x, ps in parts.items():
+        if x in names and wants[4 + names.index(x)]:
+            g = ps[0]
+            for p in ps[1:]:
+                g = g + p
+            out[4 + names.index(x)] = g
+    if taps[0] is not None:
+        refs = ws.tex_refs(data.textures, static.normal_maps)
+        for k, g in ws.texture_grads(refs, *taps, wanted).items():
+            out[4 + len(names) + texs.index(k)] = g
     return out
 
 
-attrs_vjp.launches = 0
+def _map_read(static, geom):
+    """The geometry tables the normal maps read (`_apply_normal_maps`)."""
+    out = set()
+    for r in static.normal_maps:
+        out.update(_MAP_TABLES.get(r.basis_kind, ()))
+    if not geom.tri_virt_row.shape[0]:
+        out.discard("inst_rot")
+    return out
+
+
+def _map_table_grads(rows, obj, data, static):
+    """{table: its gradients' contributions from the normal maps, in the
+    engine's order (the refs last first)} from the MAPS instance's rows
+    (`RaysBwd.map_rows`).  A plane's or a box's basis takes the gradient of
+    (m 2) @ basis.T (a sum over every ray, cuBLAS's) and a mesh's rotated
+    tangent its rotation's (a sum over the rotation's middle dimension):
+    both from ATen's own ops on the kernel's rows and the gathered tables,
+    as the plain stage takes them; the gathers' by `take_backward`."""
+    geom, out = data.geom, {}
+    tri_off = sum(static.kind_counts[k] for k in KINDS if k != "tri")
+    for ref, r in reversed(list(zip(static.normal_maps, rows))):
+        if ref.basis_kind in ("plane", "box"):
+            a, gv = r[:, :3].contiguous(), r[:, 3:].contiguous()
+            with torch.enable_grad():
+                if ref.basis_kind == "plane":
+                    xs = [getattr(geom, x).detach().requires_grad_()
+                          for x in _MAP_TABLES["plane"]]
+                    i = ref.local_id
+                    basis = torch.stack([xs[0][i], xs[1][i], xs[2][i]], dim=-1)
+                else:
+                    xs = [geom.box_basis.detach().requires_grad_()]
+                    basis = xs[0][ref.local_id].T
+                gs = torch.autograd.grad(a @ basis.T, xs, gv)
+            for x, g in zip(_MAP_TABLES[ref.basis_kind], gs):
+                out.setdefault(x, []).append(g)
+            continue
+        if ref.basis_kind != "tri":
+            continue
+        row = obj - tri_off
+        gt = r[:, :3].contiguous()
+        if geom.tri_virt_row.shape[0]:
+            virt = torch.clamp(row, 0, geom.tri_virt_row.shape[0] - 1)
+            row = geom.tri_virt_row.index_select(0, virt).long()
+            inst = torch.clamp(geom.tri_virt_inst.index_select(0, virt).long(), 0,
+                               geom.inst_rot.shape[0] - 1)
+            rows_t = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
+            with torch.enable_grad():
+                R = geom.inst_rot.index_select(0, inst).detach().requires_grad_()
+                T = geom.tri_tan.index_select(0, rows_t).detach().requires_grad_()
+                gR, gt = torch.autograd.grad((R * T[..., None, :]).sum(-1), (R, T), gt)
+            out.setdefault("inst_rot", []).append(
+                take_backward(inst, gR, geom.inst_rot.shape))
+        else:
+            row = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
+        rows_t = torch.clamp(row, 0, max(geom.tri_tan.shape[0] - 1, 0))
+        out.setdefault("tri_tan", []).append(take_backward(rows_t, gt, geom.tri_tan.shape))
+        rows_s = torch.clamp(row, 0, max(geom.tri_tan_sign.shape[0] - 1, 0))
+        out.setdefault("tri_tan_sign", []).append(
+            take_backward(rows_s, r[:, 3].contiguous(), geom.tri_tan_sign.shape))
+    return out
+
+
+def _attrs_rows(grads, O, D, t, orient, obj, data, static, modes, wants, lib=None,
+                names=(), texs=()):
+    """W5's backward kernel on the arguments of `attrs_vjp`, one launch: (the
+    gradients of O, D and t, {table: its per-ray rows}, the maps' taps'
+    (rows, idx), the wanted map textures), None where no output gradient
+    comes or nothing wanted is reached.  Adds its launches to
+    `attrs_vjp.launches` (its TABLES and MAPS instances' to
+    `attrs_vjp.table_launches` and `.map_launches` too)."""
+    nudge, need_uv, first_hit = modes
+    if wants[3]:
+        raise ValueError("W5's backward takes no orientation gradient")
+    maps = bool(static.normal_maps) and not first_hit
+    gP, gN, guv, geps = grads
+    counts, geom = static.kind_counts, data.geom
+    if not need_uv:
+        guv = None
+    # uv takes a gradient from its output's, and from a bilinear map's fetch
+    uv_grad = guv is not None or (maps and gN is not None
+                                  and any(r.bilinear for r in static.normal_maps))
+    tabs = [x for x, w in zip(names, wants[4:]) if w and x in _TABLE_AT
+            and _table_reach(x, *TABLES[_TABLE_AT[x]][1:], static, geom, need_uv,
+                             gN is not None, uv_grad)]
+    interp = geom.tri_vn1.shape[0] > 0
+    if not (any(counts[k] for k in _N_OF_P) or (counts["tri"] and interp) or tabs
+            or maps):
+        gN = None               # no normal depends on P or reaches a table
+    wanted = ({k for k, w in zip(texs, wants[4 + len(names):]) if w}
+              if maps and gN is not None else set())
+    mtabs = ([x for x, w in zip(names, wants[4:]) if w and x in _map_read(static, geom)]
+             if maps and gN is not None else [])
+    if all(g is None for g in (gP, gN, guv, geps)) or not (any(wants[:3]) or tabs
+                                                           or wanted or mtabs):
+        return None
+    O, D, t, orient, obj = _rays_in(O, D, t, orient, obj)
+    n, dev = t.shape[0], t.device
+    taps = ws.tap_buffers(ws.tex_refs(data.textures, static.normal_maps), wanted, n, dev)
+    map_rows = (torch.empty((len(static.normal_maps), n, 6), dtype=torch.float32,
+                            device=dev) if mtabs else None)
+    out = [torch.empty(s, dtype=torch.float32, device=dev) if w else None
+           for s, w in zip(((n, 3), (n, 3), (n,)), wants)]
+    rows = {x: torch.empty((n, *getattr(geom, x).shape[1:]), dtype=torch.float32,
+                           device=dev) for x in tabs}
+    if n:
+        struct, keep = scene_struct(data, static)
+        if keep[0].device != dev:
+            raise ValueError(f"W5: the scene is on {keep[0].device}, the rays on {dev}")
+        g = [None if x is None else _grad_rows(x, w) for x, w in
+             ((gP, (n, 3)), (gN, (n, 3)), (guv, (n, 2)), (geps, (n,)))]
+        tab = [None] * len(TABLES)
+        for x, r in rows.items():
+            tab[_TABLE_AT[x]] = r.data_ptr()
+        rays = RaysBwd(O=O.data_ptr(), D=D.data_ptr(), t=t.data_ptr(),
+                       orient=orient.data_ptr(), obj=obj.data_ptr(), n=n,
+                       need_uv=int(need_uv), first_hit=int(first_hit), nudge=nudge,
+                       miss_at=MISS_AT, **dict(zip(("gP", "gN", "guv", "geps"),
+                                                   (_ptr(x) for x in g))),
+                       **dict(zip(("dO", "dD", "dt"), (_ptr(x) for x in out[:3]))),
+                       tab=(_V * len(TABLES))(*tab),
+                       map_taps=ws.TapRows(*(_ptr(x) for x in taps)),
+                       map_rows=_ptr(map_rows))
+        launched = _call(lib, "hit_attrs_bwd", ctypes.byref(struct), ctypes.byref(rays),
+                         cuda_build.stream_of(dev), entries=ENTRIES)
+        attrs_vjp.launches += launched
+        if maps:
+            attrs_vjp.map_launches += launched
+        elif rows:
+            attrs_vjp.table_launches += launched
+    return out, rows, taps, wanted, map_rows
+
+
+attrs_vjp.launches = attrs_vjp.table_launches = attrs_vjp.map_launches = 0
 
 
 def _grad_rows(g, shape):
@@ -562,24 +758,12 @@ def _grad_rows(g, shape):
     return g.detach().contiguous()
 
 
-def _plain_route(names, texs, static, modes, wants):
-    """Why the backward takes the plain VJP (a key of `plain_routes`), or
-    None: the kernel's."""
-    if names or texs:
-        return "tables"
-    if static.normal_maps and not modes[2]:
-        return "maps"
-    return None
-
-
 class _Attrs(torch.autograd.Function):
     """W5 forward (xs: O, D, t, orient, then the geometry's float tables
     that require grad, named in `call`, then the maps' textures that
     require grad, their indices in `call`); its integer and bool outputs
-    non-differentiable.  Backward: W5's backward kernel (`attrs_vjp`), or,
-    where a table or a texture requires grad or where the scene maps
-    normals, the plain stage recomputed from the saved inputs on the chunk
-    and its VJP, each such call counted in `plain_routes`."""
+    non-differentiable.  Backward: W5's backward kernel (`attrs_vjp`, the
+    tables' and the maps' textures' gradients included)."""
 
     @staticmethod
     def forward(fctx, call, *xs):
@@ -597,15 +781,9 @@ class _Attrs(torch.autograd.Function):
     def backward(fctx, *grads):
         obj, *xs = fctx.saved_tensors
         grads, wants = grads[:len(FLOAT_FIELDS)], fctx.needs_input_grad[1:]
-        route = _plain_route(fctx.names, fctx.texs, fctx.static, fctx.modes, wants)
         with torch.profiler.record_function("wavefront.backward.attributes"):
-            if route is None:
-                got = attrs_vjp(grads, *xs[:4], obj, fctx.data, fctx.static,
-                                fctx.modes, wants, fctx.lib)
-            else:
-                plain_routes[route] += 1
-                got = plain_attrs_vjp(grads, xs, obj, fctx.data, fctx.static,
-                                      fctx.modes, fctx.names, fctx.texs, wants)
+            got = attrs_vjp(grads, *xs[:4], obj, fctx.data, fctx.static, fctx.modes,
+                            wants, fctx.lib, fctx.names, fctx.texs)
         # the integer and bool outputs take no gradient
         return (None, *got)
 
@@ -614,16 +792,14 @@ def backward_pair(fn, call, xs, grads, wants, lib=None):
     """(kernel, plain) for a backward of `_Attrs` (fn) that ops/plain_grad.py
     `recording` recorded (its forward's call and inputs xs, its output
     gradients, the inputs' needs_input_grad): functions of no argument
-    giving the inputs' gradients from W5's backward kernel (`lib`; None
-    where the backward took a plain route) and from the plain stage's VJP,
-    for the holds of one against the other."""
+    giving the inputs' gradients from W5's backward kernel (`lib`) and
+    from the plain stage's VJP, for the holds of one against the other."""
     obj, data, static, modes, names, texs, _ = call
     g = grads[:len(FLOAT_FIELDS)]
     plain = lambda: plain_attrs_vjp(g, xs, obj, data, static, modes, names, texs,
                                     wants)
-    if _plain_route(names, texs, static, modes, wants) is not None:
-        return None, plain
-    return lambda: attrs_vjp(g, *xs[:4], obj, data, static, modes, wants, lib), plain
+    return lambda: attrs_vjp(g, *xs[:4], obj, data, static, modes, wants, lib,
+                             names, texs), plain
 
 
 def _kernel_attributes(O, D, t, orient, obj, data, static, settings=None,
@@ -676,30 +852,33 @@ def launches():
     return _COUNTED.launches
 
 
-def backward_launches():
-    """W5's backward launches."""
-    return attrs_vjp.launches
+def backward_launches(tables=False, maps=False):
+    """W5's backward launches (tables: those of its TABLES instance, maps:
+    of its MAPS instance)."""
+    if maps:
+        return attrs_vjp.map_launches
+    return attrs_vjp.table_launches if tables else attrs_vjp.launches
 
 
 def reset_launches():
-    """Zero the forward and backward counts and the plain routes'."""
-    _COUNTED.launches = attrs_vjp.launches = 0
-    for k in plain_routes:
-        plain_routes[k] = 0
+    """Zero the forward and backward counts."""
+    _COUNTED.launches = attrs_vjp.launches = attrs_vjp.table_launches = 0
+    attrs_vjp.map_launches = 0
 
 
 INFO = ("registers", "local_bytes", "blocks_per_sm", "sms", "block")
 
 
-def info(lib=None, maps=False, backward=False):
+def info(lib=None, maps=False, backward=False, tables=False):
     """What W5's kernel (maps: its instance for normal-mapped scenes;
-    backward: its backward kernel) was built to, read on the card
+    backward: its backward kernel, tables: the backward's TABLES instance,
+    with maps: its MAPS instance) was built to, read on the card
     (`hit_attrs_info`): registers and local memory (bytes: spills and
     stack) a thread, resident blocks an SM, the SMs and threads a block."""
     fn = (lib or cuda_build.load_library()).hit_attrs_info
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
     out = (_I * len(INFO))()
-    err = fn(2 if backward else int(maps), out)
+    err = fn((4 if maps else 3 if tables else 2) if backward else int(maps), out)
     if err:
         raise RuntimeError(f"hit_attrs_info: CUDA error {err}")
     return dict(zip(INFO, out))
@@ -709,19 +888,21 @@ def math(op, x, y=None, lib=None):
     """W5's own atan2(x, y) (op "atan2"), asin(x) (op "asin") or, as its
     backward takes it, rsqrt(x) (op "rsqrt") of float32 tensors, or its
     x @ y of an (N, 3) x and a (3, 3) y (op "mm3", the maps' plane and box
-    branch), as its kernels compute them (`hit_attrs_math`): for the holds
-    against torch.atan2, torch.asin, torch.rsqrt and torch.matmul."""
+    branch) and that product's backward into x from x's gradient, x @ y^T
+    (op "mm3_bwd"), as its kernels compute them (`hit_attrs_math`): for
+    the holds against torch.atan2, torch.asin, torch.rsqrt, torch.matmul
+    and its autograd."""
     x = x.contiguous()
     if x.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
         raise TypeError("W5's math takes float32 tensors")
-    code = {"atan2": 0, "asin": 1, "mm3": 2, "rsqrt": 3}[op]
-    if code in (0, 2):
+    code = {"atan2": 0, "asin": 1, "mm3": 2, "rsqrt": 3, "mm3_bwd": 4}[op]
+    if code in (0, 2, 4):
         y = y.contiguous()
-    if code == 2 and (x.dim() != 2 or x.shape[1] != 3 or y.shape != (3, 3)):
+    if code in (2, 4) and (x.dim() != 2 or x.shape[1] != 3 or y.shape != (3, 3)):
         raise ValueError("W5's mm3 takes an (N, 3) and a (3, 3) tensor")
     out = torch.empty_like(x)
     _call(lib, "hit_attrs_math", code, x.data_ptr(),
-          y.data_ptr() if code in (0, 2) else None,
-          x.shape[0] if code == 2 else x.numel(),
+          y.data_ptr() if code in (0, 2, 4) else None,
+          x.shape[0] if code in (2, 4) else x.numel(),
           out.data_ptr(), cuda_build.stream_of(x.device), entries=ENTRIES)
     return out

@@ -29,11 +29,11 @@ block's backward is a kernel of its own on CUDA tensors, one launch a
 backward call, the plain VJP bit for bit: `refractive_vjp`
 (csrc/wavefront_shade_bwd.cu `shade_refractive_bwd`), `diffuse_vjp`
 (csrc/wavefront_diffuse_bwd.cu `shade_diffuse_bwd`), `glossy_vjp`
-(csrc/wavefront_glossy_bwd.cu `shade_glossy_bwd`).  Where a colour
-texture the diffuse or glossy block reads requires grad, or on CPU
-tensors without a backward library, the backward recomputes the plain
-block under enable_grad for its VJP (`plain_shade_vjp`), a route counted
-in `plain_routes`.
+(csrc/wavefront_glossy_bwd.cu `shade_glossy_bwd`), a colour texture's
+gradient included (the kernels write its taps' rows, `texture_grads`).
+On CPU tensors without a backward library, the backward recomputes the
+plain block under enable_grad for its VJP (`plain_shade_vjp`), a route
+counted in `plain_routes`.
 
 `_kernel_shade` and the `*_vjp` take `lib=` (and `_kernel_shade`
 `bwd_lib=`): the tests pass the CPU stand-in's builds of the sources
@@ -85,6 +85,10 @@ class Rays(ctypes.Structure):
 
 class Textures(ctypes.Structure):
     _fields_ = [("texels", _V), ("desc_i", _V), ("desc_f", _V)]
+
+
+class TapRows(ctypes.Structure):
+    _fields_ = [("rows", _V), ("idx", _V)]
 
 
 class Diffuse(ctypes.Structure):
@@ -784,7 +788,8 @@ class DiffBwd(ctypes.Structure):
                 ("dN", _V), ("deps", _V), ("duv", _V), ("color_rows", _V),
                 ("w_rows", _V), ("prob_rows", _V), ("pdf_rows", _V), ("cen_pdf", _V),
                 ("rad_pdf", _V), ("cen_smp", _V), ("rad_smp", _V), ("prob_idx", _V),
-                ("pdf_idx", _V), ("opdf_rows", _V), ("osmp_rows", _V), ("outer_rows", _I)]
+                ("pdf_idx", _V), ("opdf_rows", _V), ("osmp_rows", _V), ("outer_rows", _I),
+                ("taps", TapRows)]
 
 
 ENTRIES["shade_diffuse_bwd"] = [ctypes.POINTER(DiffBwd), _V, ctypes.POINTER(_I)]
@@ -833,6 +838,61 @@ def ref_tables(data, static, mt):
                 (table, *(data.textures[k] for k in used)), make)
 
 
+def tex_refs(textures, refs):
+    """Each image-texture ref of `refs` (a block's, in order) as the tap
+    rows' reduction reads it: (texture index, bilinear, the texture's
+    shape)."""
+    return tuple((r.tex, bool(r.bilinear), tuple(textures[r.tex].shape)) for r in refs)
+
+
+def tap_buffers(refs, wanted, n, device):
+    """(rows, idx) the backward kernels write a block's texel taps into
+    (csrc/texture_fetch.cuh `tap_rows`): (planes, n, 3) float32 and
+    (planes, n) int64, a plane a tap of each ref (four a bilinear ref, one
+    a nearest), refs in order; (None, None) where no texture of `wanted`
+    (indices) is one a ref of `refs` (`tex_refs`) reads."""
+    if not any(r[0] in wanted for r in refs):
+        return None, None
+    planes = sum(4 if r[1] else 1 for r in refs)
+    return (torch.empty((planes, n, 3), dtype=torch.float32, device=device),
+            torch.empty((planes, n), dtype=torch.int64, device=device))
+
+
+def texture_grads(refs, rows, idx, wanted, order=None):
+    """{texture index: its gradient} of the textures of `wanted` from the
+    tap rows of `tap_buffers`: each tap's core/safemath.py `take_backward`
+    scan, summed as the engine sums them.  The engine runs a fetch's taps
+    last first (the sum's last term is the node created last), each into
+    the buffer of that fetch's flat view of the texture, the first stored
+    as it is; then the fetches' views into the texture's buffer in the
+    order they run: `order`, the refs' indices (`refs` in order; default
+    `_slot_color`'s wheres, the last ref first)."""
+    at, first = 0, []
+    for r in refs:
+        first.append(at)
+        at += 4 if r[1] else 1
+    out = {}
+    for k in (reversed(range(len(refs))) if order is None else order):
+        tex, bilinear, shape = refs[k]
+        if tex not in wanted:
+            continue
+        flat = (math.prod(shape[:-1]), shape[-1])
+        view = None
+        for p in reversed(range(first[k], first[k] + (4 if bilinear else 1))):
+            g = take_backward(idx[p], rows[p], flat)
+            view = g if view is None else view + g
+        view = view.reshape(shape)
+        out[tex] = view if tex not in out else out[tex] + view
+    return out
+
+
+def _wanted_textures(wants, refs):
+    """The indices of the textures a block's refs read whose gradient is
+    wanted (wants: `_Shade`'s past the fields and the block's other
+    inputs, one a texture)."""
+    return {r[0] for r in refs if wants[r[0]]}
+
+
 @dataclass
 class DiffSaved:
     """What the diffuse backward kernel reads of a call: the block's mask,
@@ -869,9 +929,10 @@ class DiffSaved:
     ref_desc_f: Any
     hw: tuple
     bilinear: bool
+    refs: tuple = ()
 
 
-_DIFF_SAVED = tuple(f.name for f in dataclasses.fields(DiffSaved))[:-2]
+_DIFF_SAVED = tuple(f.name for f in dataclasses.fields(DiffSaved))[:-3]
 
 
 def diff_saved(ctx, draws, packed, m):
@@ -894,7 +955,8 @@ def diff_saved(ctx, draws, packed, m):
         env_alias=data.env_is_alias if env else None,
         env_pdf=data.env_is_pdf if env else None,
         ref_slot=refs["slot"] if refs else None, ref_texels=tex[0], ref_desc_i=tex[1],
-        ref_desc_f=tex[2], hw=hw, bilinear=any(r.bilinear for r in static.diffuse_tex))
+        ref_desc_f=tex[2], hw=hw, bilinear=any(r.bilinear for r in static.diffuse_tex),
+        refs=tex_refs(data.textures, static.diffuse_tex))
 
 
 def _diffuse_rows(grads, saved, wants, lib=None):
@@ -936,6 +998,10 @@ def _diffuse_rows(grads, saved, wants, lib=None):
         rows["is_center"] = [f32(K, 3) if gb else None, f32(K, 3)]
     if want["is_radius"]:
         rows["is_radius"] = [f32(K) if gb else None, f32(K)]
+    wanted = _wanted_textures(wants[nw + len(_DIFF_INPUTS):], s.refs) if gb else set()
+    taps = tap_buffers(s.refs, wanted, n, dev)
+    if taps[0] is not None:
+        rows["textures"] = (*taps, wanted)
     # where the sums over the caps split across blocks, the origin's shares
     # as rows, summed below by ATen's own op
     outer = (caps and (gb or gd) and bool(out or rows) and n > 0
@@ -993,7 +1059,8 @@ def _diffuse_rows(grads, saved, wants, lib=None):
             prob_idx=prob[1], pdf_rows=pdf[0], pdf_idx=pdf[1],
             cen_pdf=two(rows.get("is_center"), 0), cen_smp=two(rows.get("is_center"), 1),
             rad_pdf=two(rows.get("is_radius"), 0), rad_smp=two(rows.get("is_radius"), 1),
-            opdf_rows=_p(orows[0]), osmp_rows=_p(orows[1]), outer_rows=int(outer))
+            opdf_rows=_p(orows[0]), osmp_rows=_p(orows[1]), outer_rows=int(outer),
+            taps=TapRows(*(_p(x) for x in taps)))
         _diffuse_rows.launches += _call(
             lib, "shade_diffuse_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
             entries=ENTRIES)
@@ -1023,10 +1090,10 @@ def diffuse_vjp(grads, saved, wants, lib=None):
     writes (grads, one a WRITTEN[MAT_DIFFUSE]; None where none comes) and
     the DiffSaved `saved`, the gradients `_Shade`'s backward returns
     (wants: its needs_input_grad past the call): the fields' pass-through
-    gradients, then those of the block's `_inputs` (the textures' None: a
-    texture that requires grad takes the plain VJP), as `plain_shade_vjp`
+    gradients, then those of the block's `_inputs`, as `plain_shade_vjp`
     gives them, bit for bit.  The gathered tables' gradients are
-    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows;
+    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows,
+    the colour textures' those of its taps' rows (`texture_grads`);
     is_center's and is_radius's the engine's sum_to over the rays of the
     caps pdf's (ray, cap) rows, plus that of the caps sample's."""
     if all(g is None for g in grads):
@@ -1049,8 +1116,16 @@ def diffuse_vjp(grads, saved, wants, lib=None):
             res.append(parts[0] if len(parts) == 1 else parts[0] + parts[1])
         else:
             res.append(None)
-    return [*passes, *res, *([None] * (len(wants) - len(WRITTEN[MAT_DIFFUSE])
-                                        - len(_DIFF_INPUTS)))]
+    return [*passes, *res, *_texture_results(s.refs, rows.get("textures"),
+                                             len(wants) - len(passes) - len(res))]
+
+
+def _texture_results(refs, taps, k):
+    """The gradients of the k textures `_inputs` ends with: None but where
+    the kernel wrote taps (rows, idx, the wanted textures) for a wanted
+    one (`texture_grads`)."""
+    got = texture_grads(refs, *taps) if taps is not None else {}
+    return [got.get(t) for t in range(k)]
 
 
 # ---------------------------------------------------------------------------
@@ -1074,7 +1149,7 @@ class GlossBwd(ctypes.Structure):
                 ("diff_rows", _V), ("rough_rows", _V), ("spec_rows", _V),
                 ("amb_rows", _V), ("sre_add", _V), ("sre_sub", _V), ("sim_add", _V),
                 ("sim_sub", _V), ("lc_rows", _V), ("lp_rows", _V), ("sd_rows", _V),
-                ("cci_rows", _V), ("nco_rows", _V)]
+                ("cci_rows", _V), ("nco_rows", _V), ("taps", TapRows)]
 
 
 ENTRIES["shade_glossy_bwd"] = [ctypes.POINTER(GlossBwd), _V, ctypes.POINTER(_I)]
@@ -1136,9 +1211,10 @@ class GlossSaved:
     ref_desc_f: Any
     kinds: tuple
     bilinear: bool
+    refs: tuple = ()
 
 
-_GLOSS_SAVED = tuple(f.name for f in dataclasses.fields(GlossSaved))[:-2]
+_GLOSS_SAVED = tuple(f.name for f in dataclasses.fields(GlossSaved))[:-3]
 
 
 def gloss_saved(ctx, draws, packed, m, occ):
@@ -1161,7 +1237,8 @@ def gloss_saved(ctx, draws, packed, m, occ):
         ref_slot=refs["slot"] if refs else None, ref_texels=tex[0], ref_desc_i=tex[1],
         ref_desc_f=tex[2],
         kinds=(static.n_dir_lights, static.n_point_lights, static.n_spot_lights),
-        bilinear=any(r.bilinear for r in static.glossy_tex))
+        bilinear=any(r.bilinear for r in static.glossy_tex),
+        refs=tex_refs(data.textures, static.glossy_tex))
 
 
 def _glossy_rows(grads, saved, wants, lib=None):
@@ -1212,6 +1289,10 @@ def _glossy_rows(grads, saved, wants, lib=None):
         light_rows["cci"] = f32(ns, n)
     if want["spot_cos_out"]:
         light_rows["nco"] = f32(ns, n)
+    wanted = _wanted_textures(wants[nw + len(_GLOSS_INPUTS):], s.refs) if ga else set()
+    taps = tap_buffers(s.refs, wanted, n, dev)
+    if taps[0] is not None:
+        rows["textures"] = (*taps, wanted)
     if n and (out or rows or light_rows or any(x is not None for x in passes)):
         if s.m.dtype != torch.bool:
             raise TypeError("W4's backward takes a bool mask")
@@ -1252,7 +1333,8 @@ def _glossy_rows(grads, saved, wants, lib=None):
             m_im_rows=_p(rows.get("glossy_n_im")), amb_rows=_p(rows.get("ambient_color")),
             sre_add=pair(rows.get("scene_n_re"), 0), sre_sub=pair(rows.get("scene_n_re"), 1),
             sim_add=pair(rows.get("scene_n_im"), 0), sim_sub=pair(rows.get("scene_n_im"), 1),
-            **{f"{k}_rows": _p(v) for k, v in light_rows.items()})
+            **{f"{k}_rows": _p(v) for k, v in light_rows.items()},
+            taps=TapRows(*(_p(x) for x in taps)))
         _glossy_rows.launches += _call(
             lib, "shade_glossy_bwd", ctypes.byref(struct), cuda_build.stream_of(dev),
             entries=ENTRIES)
@@ -1330,11 +1412,11 @@ def glossy_vjp(grads, saved, wants, lib=None):
     writes (grads, one a WRITTEN[MAT_GLOSSY]; None where none comes) and
     the GlossSaved `saved`, the gradients `_Shade`'s backward returns
     (wants: its needs_input_grad past the call): the fields' pass-through
-    gradients, then those of the block's `_inputs` (the textures' None: a
-    texture that requires grad takes the plain VJP), as `plain_shade_vjp`
+    gradients, then those of the block's `_inputs`, as `plain_shade_vjp`
     gives them, bit for bit.  The gathered tables' gradients are
-    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows;
-    a broadcast row's the engine's sum_to over the rays of its rows, and a
+    core/safemath.py `take_backward`'s scans of the kernel's per-ray rows,
+    the colour textures' those of its taps' rows (`texture_grads`); a
+    broadcast row's the engine's sum_to over the rays of its rows, and a
     light's the lights' selects of those (`_light_grads`)."""
     if all(g is None for g in grads):
         return [None] * len(wants)
@@ -1356,16 +1438,14 @@ def glossy_vjp(grads, saved, wants, lib=None):
             res.append(a + b)
         else:
             res.append(lights.get(x))
-    return [*passes, *res, *([None] * (len(wants) - len(WRITTEN[MAT_GLOSSY])
-                                        - len(_GLOSS_INPUTS)))]
+    return [*passes, *res, *_texture_results(s.refs, rows.get("textures"),
+                                             len(wants) - len(passes) - len(res))]
 
 
 # the backward calls of each block that recomputed its plain block for its
 # VJP (`plain_shade_vjp`): a block's where no backward library serves it
-# (CPU tensors), and the diffuse and glossy blocks' where a colour texture
-# the block reads requires grad ("diffuse_textures", "glossy_textures")
-plain_routes = {"diffuse": 0, "refractive": 0, "glossy": 0, "diffuse_textures": 0,
-                "glossy_textures": 0}
+# (CPU tensors)
+plain_routes = {"diffuse": 0, "refractive": 0, "glossy": 0}
 
 
 def plain_shade_vjp(mt, ctx, draws, m, occ, grads, wants):
@@ -1395,29 +1475,17 @@ _BWD = {MAT_REFRACTIVE: (lambda *a: refractive_vjp(*a), RefrSaved, refr_saved, _
         MAT_GLOSSY: (lambda *a: glossy_vjp(*a), GlossSaved, gloss_saved, _GLOSS_SAVED)}
 
 
-def texture_grad(mt, ctx):
-    """Whether a colour texture the diffuse or glossy block reads requires
-    grad (its backward then takes the plain VJP, `plain_routes`)."""
-    if mt == MAT_REFRACTIVE:
-        return False
-    refs = ctx.static.diffuse_tex if mt == MAT_DIFFUSE else ctx.static.glossy_tex
-    return any(ctx.data.textures[r.tex].requires_grad for r in refs)
-
-
 def _bwd_route(mt, ctx, lib, bwd_lib):
     """(the block's backward library, or None for the plain VJP; the plain
     route's key): the backward kernel on CUDA tensors (from `lib`, the
     render kernels' library unless given) or where `bwd_lib` (a library,
-    or {type: library}) serves the type; the plain VJP where a colour
-    texture requires grad, and on CPU tensors without a backward
-    library."""
+    or {type: library}) serves the type; the plain VJP on CPU tensors
+    without a backward library."""
     name = _BLOCKS[mt][0][len("shade_"):]
     if isinstance(bwd_lib, dict):
         bwd_lib = bwd_lib.get(mt)
     if bwd_lib is None and not ctx.P.is_cuda:
         return None, name
-    if texture_grad(mt, ctx):
-        return None, f"{name}_textures"
     return (bwd_lib if bwd_lib is not None else lib or cuda_build.load_library()), name
 
 

@@ -17,7 +17,9 @@ same scene with it as a 1,280-face icosphere mesh), and of
 examples/torch_primitives.py's primitives, and runs forward + backward of
 the mean squared image with respect to the refraction indices (the
 primitives: diffuse_color, glossy_color and glossy_n_re in one pass, the
-W4 diffuse and glossy blocks' backward) once to warm up and N times timed
+W4 diffuse and glossy blocks' backward; --scenes names other gradients of
+`gradients`: Cornell's and the primitives' IoR, textures and geometry
+tables) once to warm up and N times timed
 (a device sync after each): the walls, their median, the device's peak
 memory over the timed passes (torch.cuda.max_memory_allocated), the
 gradient's first element, the SHA-256 of the first pass's gradient (the
@@ -51,6 +53,80 @@ from torch_frame_ab import in_turns
 from torch_render_profile import device_breakdown, wavefront_stages
 
 W, H = 96, 72
+
+
+def leaf(data, path):
+    """The float leaf `path` of a SceneData: "textures.<k>", "geom.<field>"
+    or a material table's name."""
+    group, _, field = path.rpartition(".")
+    if group == "textures":
+        return data.textures[int(field)]
+    return getattr(data.geom if group == "geom" else data.mats, field)
+
+
+def with_leaves(data, paths, xs):
+    """data with the leaves `paths` (`leaf`) replaced by xs."""
+    import dataclasses
+
+    texs, geom, mats = list(data.textures), {}, {}
+    for p, x in zip(paths, xs):
+        group, _, field = p.rpartition(".")
+        if group == "textures":
+            texs[int(field)] = x
+        else:
+            (geom if group == "geom" else mats)[field] = x
+    return dataclasses.replace(data, textures=tuple(texs),
+                               geom=dataclasses.replace(data.geom, **geom),
+                               mats=dataclasses.replace(data.mats, **mats))
+
+
+def _examples(name):
+    """This checkout's examples/<name>.py, loaded under another module name
+    (a child imports its root's examples; the scenes built here need not
+    be there)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_here_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gradients(obj_dir):
+    """{name: (scene maker, the leaves the gradient takes)}: the IoR steps
+    of the glass sphere, its icosphere twin ("mesh"), Cornell and the
+    primitives; the primitives' colour step; the primitives' floor texture,
+    every texture of examples/torch_features.py `lit_textures`, the
+    sphere's centres and radii, the icosphere's corners and corner normals,
+    and the enclosed normal-mapped scene's map and diffuse colours."""
+    import raytracer_tpu_torch as T
+    from torch_cornellbox import build_cornell
+    from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
+    from torch_primitives import primitives
+
+    ior = ("refr_n_re",)
+    corners = tuple(f"geom.tri_{k}" for k in ("p1", "p2", "p3", "vn1", "vn2", "vn3"))
+    lit = lambda: _examples("torch_features").lit_textures(W, H, m=T)
+    return {
+        "sphere": (lambda: build_scene(TRUE_N, W, H), ior),
+        "mesh": (lambda: build_mesh_scene(TRUE_N, W, H, obj_dir), ior),
+        "primitives colour": (lambda: primitives(W, H),
+                              ("diffuse_color", "glossy_color", "glossy_n_re")),
+        "Cornell": (lambda: build_cornell(W, W), ior),
+        "primitives": (lambda: primitives(W, H), ior),
+        "primitives texture": (lambda: primitives(W, H), ("textures.0",)),
+        "lit textures": (lit, tuple(f"textures.{k}" for k in range(4))),
+        "sphere tables": (lambda: build_scene(TRUE_N, W, H),
+                          ("geom.sphere_center", "geom.sphere_radius")),
+        "icosphere tables": (lambda: build_mesh_scene(TRUE_N, W, H, obj_dir), corners),
+        "normal-mapped": (lambda: _examples("torch_features").normal_mapped(
+                              W, H, m=T, obj_dir=obj_dir, enclosed=True),
+                          ("textures.0", "diffuse_color")),
+    }
+
+
+DEFAULT_SCENES = ("sphere", "mesh", "primitives colour")
 
 
 def passes(torch, grad, n):
@@ -108,29 +184,24 @@ def profiled(torch, grad):
                                  if "_bwd_kernel" in k}}
 
 
-def child(root, repeats, spp, deterministic, profile=False):
+def child(root, repeats, spp, deterministic, profile=False, scenes=DEFAULT_SCENES):
     import tempfile
 
     import torch
 
     sys.path[:0] = [str(root), str(root / "examples")]
-    from raytracer_tpu_torch.diff import differentiable_render, update_materials
-    from torch_inverse_rendering import TRUE_N, build_mesh_scene, build_scene
-    from torch_primitives import primitives
+    from raytracer_tpu_torch.diff import differentiable_render
 
     dev = torch.device("cuda:0")
-    obj_dir = tempfile.mkdtemp()
+    grads = gradients(tempfile.mkdtemp())
     out = {"root": str(root), "frames": {}}
-    for name, make, tables in (
-            ("sphere", lambda: build_scene(TRUE_N, W, H), ("refr_n_re",)),
-            ("mesh", lambda: build_mesh_scene(TRUE_N, W, H, obj_dir), ("refr_n_re",)),
-            ("primitives colour", lambda: primitives(W, H),
-             ("diffuse_color", "glossy_color", "glossy_n_re"))):
+    for name in scenes:
+        make, paths = grads[name]
         fn, data = differentiable_render(make(), spp, seed=0, device=dev)
 
         def grad():
-            xs = [getattr(data.mats, k).clone().requires_grad_(True) for k in tables]
-            loss = torch.mean(fn(update_materials(data, **dict(zip(tables, xs)))) ** 2)
+            xs = [leaf(data, p).clone().requires_grad_(True) for p in paths]
+            loss = torch.mean(fn(with_leaves(data, paths, xs)) ** 2)
             return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, xs)])
 
         grad()
@@ -193,13 +264,16 @@ def main(argv):
     ap.add_argument("--deterministic", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--scenes", default=",".join(DEFAULT_SCENES),
+                    help="the gradients to take, by name (`gradients`), comma-separated")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
         child(args.child.resolve(), args.repeats, args.spp, args.deterministic,
-              args.profile)
+              args.profile, args.scenes.split(","))
         return 0
-    extra = ["--repeats", str(args.repeats), "--spp", str(args.spp)]
+    extra = ["--repeats", str(args.repeats), "--spp", str(args.spp),
+             "--scenes", args.scenes]
     if args.deterministic:
         extra.append("--deterministic")
     if args.profile:

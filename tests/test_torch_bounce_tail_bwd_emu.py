@@ -16,10 +16,11 @@ with a lightmap) and the emitter scene (solid, nearest and bilinear
 emissive textures, one repeated; a lightmap whose texels hold -0 and NaN),
 each with output gradients drawn from a numpy seed (values of mixed
 scales, -0, +0 and NaN among them, some gradients None) and each subset
-of inputs wanting a gradient; and the backward calls of a 16x16
-inverse-rendering gradient (the IoR and the emissive colours) and of the
-emitter scene's gradient (its emissive colours and the sky's light
-intensity), recorded (`plain_grad.recording`) and replayed through
+of inputs wanting a gradient, the textures among them (their gradients
+from the start kernel's texel taps' rows); and the backward calls of a
+16x16 inverse-rendering gradient (the IoR and the emissive colours) and
+of the emitter scene's gradient (its emissive colours, the sky's light
+intensity and every texture), recorded (`plain_grad.recording`) and replayed through
 both.  Each mutant of MUTANTS makes some case fail; EQUIVALENT's make
 none, and the test says why.
 
@@ -30,6 +31,8 @@ By hand:
         -x c++ raytracer_tpu_torch/csrc/bounce_tail.cu -o build/w6_emu.so
 """
 
+import contextlib
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -152,8 +155,7 @@ def cases(libs, tmp_path_factory):
                 for trial in range(2):
                     grads = draw_grads(rng, ctx.P.shape[0], ws.FLOAT_FIELDS)
                     grads[1] = None          # beta_mult takes no gradient
-                    wants = (tuple(bool(w) for w in rng.random(7) < 0.8)
-                             + (False,) * (len(xs) - 7))
+                    wants = tuple(bool(w) for w in rng.random(len(xs)) < 0.8)
                     args = (mat_type, ctx.mat_slot, ctx.depth)
                     out.append((f"start {name} {k}.{trial}",
                                 lambda lib, g=grads, a=args, c=ctx, w=wants:
@@ -185,16 +187,28 @@ def recorded_calls(lib):
         loss = (fn(update_materials(data, refr_n_re=x, emissive_color=e)) ** 2).mean()
         torch.autograd.grad(loss, (x, e))
     out["inverse rendering"] = calls
+    out["emitters"] = emitter_gradient(lib)[1]
+    return out
+
+
+def emitter_gradient(lib=None):
+    """(the gradients, the recorded backward calls of `_Start` and
+    `_Update`) of the emitter scene's 8x8 x 2 spp render with respect to
+    its emissive colours, the sky's light intensity and every texture (the
+    emissive ones, the sky's display texture that is its lightmap too),
+    through W6 from lib (None: the plain stages)."""
     sc = emitters(width=8, height=8)
     fn, data = differentiable_render(sc, 2, seed=1, device="cpu")
     e = data.mats.emissive_color.clone().requires_grad_()
     li = data.mats.env_light_intensity.clone().requires_grad_()
-    with recording([], bt._Start, bt._Update) as calls, routed(lib):
+    texs = [t.clone().requires_grad_() for t in data.textures]
+    data = dataclasses.replace(data, textures=tuple(texs))
+    ctx = routed(lib) if lib is not None else contextlib.nullcontext()
+    with recording([], bt._Start, bt._Update) as calls, ctx:
         loss = (fn(update_materials(data, emissive_color=e,
                                     env_light_intensity=li)) ** 2).mean()
-        torch.autograd.grad(loss, (e, li))
-    out["emitters"] = calls
-    return out
+        got = torch.autograd.grad(loss, (e, li, *texs), allow_unused=True)
+    return got, calls
 
 
 def failures(cases, lib, first=False):
@@ -227,9 +241,14 @@ def test_the_cases_hold_what_they_are_for(cases):
         for g in ("inverse rendering", "emitters"):
             assert any(lab.startswith(f"{g} {fn}") for lab in labels), (g, fn)
     starts = [c for c in cases if c[0].startswith("start emitters")]
-    for i in range(7):       # P, D, n_re, n_im, uv, the two tables
+    # P, D, n_re, n_im, uv, the two tables, the textures (the emissive
+    # refs', the sky's display texture and lightmap in one)
+    for i in range(7 + 2):
         assert any(c[2][i] is not None and bool((c[2][i] != 0).any())
                    for c in starts), i
+    for name in ("example2", "example4"):      # a display texture, a lightmap
+        assert any(any(g is not None and bool((g != 0).any()) for g in c[2][7:])
+                   for c in cases if c[0].startswith(f"start {name}")), name
 
 
 @pytest.mark.parametrize("mutant", list(MUTANTS))
@@ -240,6 +259,22 @@ def test_each_mutant_fails(libs, cases, mutant):
 @pytest.mark.parametrize("mutant", list(EQUIVALENT))
 def test_the_equivalent_mutants_agree(libs, cases, mutant):
     assert failures(cases, libs[mutant]) == []
+
+
+def test_a_texture_gradient_through_the_kernel_is_the_plain_stages(libs):
+    """The emitter scene's gradient with respect to its textures (nearest
+    and bilinear emissive refs of one texture, the sky's display texture
+    that is its lightmap too), emissive colours and light intensity, with
+    W6's start backward from the kernel (its taps' rows), equals the one
+    through the plain stages bit for bit, one launch a backward call."""
+    with one_thread():
+        plain, _ = emitter_gradient()
+        before = bt.backward_launches()["bounce_start_bwd"]
+        got, calls = emitter_gradient(libs["w6"])
+    n_starts = sum(1 for c in calls if c[0] is bt._Start)
+    assert n_starts and bt.backward_launches()["bounce_start_bwd"] - before == n_starts
+    assert all(g is not None and bool((g != 0).any()) for g in plain[2:4])
+    assert not any(bits_differ(a, b) for a, b in zip(got, plain))
 
 
 def test_update_saves_only_what_its_backward_reads(libs):

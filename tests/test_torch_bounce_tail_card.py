@@ -242,3 +242,38 @@ def test_card_w6_backward_equals_the_plain_vjp(card, monkeypatch):
         assert kernel is not None
         assert all(_bits_equal_or_none(a, b) for a, b in zip(kernel(), plain()))
     assert all(n > 0 for n in bt.backward_launches().values())
+
+
+@pytest.mark.cuda
+def test_card_texture_gradient_through_w6_is_the_plain_stages(card, monkeypatch):
+    """The emitter scene's gradient with respect to its textures (nearest
+    and bilinear emissive refs of one texture, the sky's display texture
+    that is its lightmap too) on the card: every recorded backward call of
+    `_Start` replayed bit for bit against the plain start's VJP through W6's
+    start backward (its texel taps' rows), no plain stage on the card."""
+    import dataclasses
+
+    from test_torch_bounce_tail_emu import emitters
+
+    from raytracer_tpu_torch.diff import differentiable_render
+    from raytracer_tpu_torch.ops.plain_grad import recording
+
+    fn, data = differentiable_render(emitters(width=32, height=24), 4, seed=2,
+                                     device=card)
+    xs = [t.clone().requires_grad_(True) for t in data.textures]
+    calls = []
+    with monkeypatch.context() as m, recording(calls, bt._Start):
+        def raising(*args):
+            if args[0].P.device.type == "cuda":
+                raise AssertionError("a plain W6 stage ran on the card")
+            return real(*args)
+        real = bt.plain_start
+        m.setattr(bt, "plain_start", raising)
+        loss = torch.mean(fn(dataclasses.replace(data, textures=tuple(xs))) ** 2)
+        got = torch.autograd.grad(loss, xs, allow_unused=True)
+    assert any(g is not None and bool((g != 0).any()) for g in got)
+    bt.reset_launches()
+    for f, call, ins, grads, wants in calls:
+        kernel, plain = bt.backward_pair(f, call, ins, grads, wants)
+        assert all(_bits_equal_or_none(a, b) for a, b in zip(kernel(), plain()))
+    assert bt.backward_launches()["bounce_start_bwd"] == len(calls) > 0

@@ -135,8 +135,10 @@ def test_card_w5_equals_the_plain_stage_on_the_map_cases(card, tmp_path):
 def test_card_w5_mm3_is_cublas(card):
     """W5's 3 x 3 product (`hit_attrs_math` op 2) against torch's (N, 3) @
     (3, 3) on the card (cuBLAS), both layouts of the (3, 3) operand, on
-    rows with signed zeros: bit for bit from 17 rows on (fewer rows take
-    other cuBLAS kernels, scripts/torch_op_rounding.py --only matmul3)."""
+    rows with signed zeros, and its backward into the left factor (op 4,
+    the maps' backward) against autograd's: bit for bit from 17 rows on
+    (fewer rows take other cuBLAS kernels, scripts/torch_op_rounding.py
+    --only matmul3)."""
     gen = torch.Generator(device=card).manual_seed(2)
     for n in (17, 100, 4096, 1 << 20):
         m = torch.rand(n, 3, device=card, generator=gen) - 0.5
@@ -147,6 +149,11 @@ def test_card_w5_mm3_is_cublas(card):
         B[0, 1], B[1, 2] = 0.0, -0.0
         for M in (B, B.T.contiguous().T):
             assert bits_equal(ha.math("mm3", a, M), a @ M), n
+            # the backward into the left factor (the maps' backward)
+            g = torch.randn(n, 3, device=card, generator=gen)
+            x = a.clone().requires_grad_()
+            ga, = torch.autograd.grad(x @ M, x, g)
+            assert bits_equal(ha.math("mm3_bwd", g, M), ga), n
 
 
 @pytest.mark.cuda
@@ -270,10 +277,90 @@ def test_card_w5_backward_equals_the_plain_vjp(card, tmp_path, monkeypatch):
             m.setattr(ha, "hit_attributes", raising)
             loss = torch.mean(fn(update_materials(data, refr_n_re=x)) ** 2)
             torch.autograd.grad(loss, x)
-    assert ha.plain_routes == {"tables": 0, "maps": 0}
     assert calls and ha.backward_launches() > 0
     for fn, call, xs, grads, wants in calls:
         kernel, plain = ha.backward_pair(fn, call, xs, grads, wants)
         got, want = kernel(), plain()
         assert all((a is None) == (b is None) and (a is None or bits_equal(a, b))
                    for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_card_table_gradients_through_w5_are_the_plain_stages(card, tmp_path):
+    """The sphere's gradient with respect to its spheres' centres and radii
+    and the icosphere's with respect to its corners and corner normals on
+    the card, W5's backward through its TABLES instance (no plain route),
+    every recorded backward call of `_Attrs` replayed bit for bit against
+    the plain stage's VJP; two passes agree bit for bit."""
+    import dataclasses
+
+    from torch_inverse_rendering import build_mesh_scene, build_scene
+
+    from raytracer_tpu_torch.diff import differentiable_render
+    from raytracer_tpu_torch.ops.plain_grad import recording
+
+    cases = ((build_scene(1.3, 32, 24), ("sphere_center", "sphere_radius")),
+             (build_mesh_scene(1.3, 32, 24, tmp_path),
+              ("tri_p1", "tri_p2", "tri_p3", "tri_vn1", "tri_vn2", "tri_vn3")))
+    for sc, names in cases:
+        fn, data = differentiable_render(sc, 4, seed=2, device=card)
+
+        def grad(calls):
+            xs = {k: getattr(data.geom, k).clone().requires_grad_(True) for k in names}
+            d = dataclasses.replace(data, geom=dataclasses.replace(data.geom, **xs))
+            with recording(calls, ha._Attrs):
+                return torch.autograd.grad(torch.mean(fn(d) ** 2), list(xs.values()))
+
+        ha.reset_launches()
+        calls = []
+        g1, g2 = grad(calls), grad([])
+        assert ha.backward_launches(tables=True) > 0
+        for a, b in zip(g1, g2):
+            assert bits_equal(a, b) and bool(torch.isfinite(a).all())
+            assert bool((a != 0).any())
+        for f, call, xs, grads, wants in calls:
+            kernel, plain = ha.backward_pair(f, call, xs, grads, wants)
+            assert all((a is None) == (b is None) and (a is None or bits_equal(a, b))
+                       for a, b in zip(kernel(), plain()))
+
+
+@pytest.mark.cuda
+def test_card_map_gradient_through_w5_is_the_plain_stages(card, tmp_path):
+    """The enclosed normal-mapped scene's gradient with respect to its map
+    (every ref's texture), diffuse_color and the tables its maps read (the
+    floor's u axis, the box's basis, the mesh's tangents) on the card: W5's
+    backward through its MAPS instance, every recorded call of `_Attrs` bit
+    for bit with the plain stage's VJP (the bases' product backward summed
+    over the rays by cuBLAS in both); two passes bit-equal and finite."""
+    import dataclasses
+
+    import torch_features
+
+    from raytracer_tpu_torch.diff import differentiable_render, update_materials
+    from raytracer_tpu_torch.ops.plain_grad import recording
+
+    sc = torch_features.normal_mapped(32, 24, obj_dir=tmp_path, enclosed=True)
+    fn, data = differentiable_render(sc, 4, seed=2, device=card)
+    tables = ("plane_u_axis", "box_basis", "tri_tan")
+
+    def grad(calls):
+        tex = data.textures[0].clone().requires_grad_(True)
+        c = data.mats.diffuse_color.clone().requires_grad_(True)
+        geom = {k: getattr(data.geom, k).clone().requires_grad_(True) for k in tables}
+        d = update_materials(dataclasses.replace(
+            data, textures=(tex, *data.textures[1:]),
+            geom=dataclasses.replace(data.geom, **geom)), diffuse_color=c)
+        with recording(calls, ha._Attrs):
+            return torch.autograd.grad(torch.mean(fn(d) ** 2), (tex, c, *geom.values()))
+
+    ha.reset_launches()
+    calls = []
+    g1, g2 = grad(calls), grad([])
+    assert ha.backward_launches(maps=True) > 0
+    for a, b in zip(g1, g2):
+        assert bits_equal(a, b) and bool(torch.isfinite(a).all()) and bool((a != 0).any())
+    for f, call, xs, grads, wants in calls:
+        kernel, plain = ha.backward_pair(f, call, xs, grads, wants)
+        assert kernel is not None
+        assert all((a is None) == (b is None) and (a is None or bits_equal(a, b))
+                   for a, b in zip(kernel(), plain()))

@@ -37,8 +37,9 @@ hits.  Each source mutation of MUTANTS makes some case fail; they build
 in parallel in one fixture.  A render through W5 equals the plain
 render, and the inverse-rendering gradient through `_Attrs` (W5 forward
 and backward kernels) equals the plain stage's, two passes equal; so
-does the gradient of a normal-mapped render (the backward's plain route) with respect to its map's
-texture and its floor's u axis.  The maps' 3 x 3 product is MKL's here,
+does the gradient of a normal-mapped render (the backward's plain route
+for a table the maps read) with respect to its map's texture and its
+floor's u axis.  The maps' 3 x 3 product is MKL's here,
 which sums a row as W5's `mm3` does from 11 rows on (every input here
 has more); `test_w5_mm3_is_torchs_product` holds it.
 
@@ -102,8 +103,8 @@ MUTANTS = {
     "sign_negative_zero": [("  return (float)((0.0f < x) - (x < 0.0f));",
                             "  return copysignf((float)((0.0f < x) - (x < 0.0f)), x);")],
     # a miss written as zeros, not object 0's attributes
-    "miss_zeroed": [("  if (kind < KINDS - 1) {",
-                     "  if (miss) {\n  } else if (kind < KINDS - 1) {")],
+    "miss_zeroed": [("  if (!zeroed) geometric(S, P, o, R.need_uv != 0, N, uv);",
+                     "  if (!zeroed && !miss) geometric(S, P, o, R.need_uv != 0, N, uv);")],
     # a cylinder's cap / side tie given to the side
     "cap_tie": [("fabsf(y) / hh >= rho / r", "fabsf(y) / hh > rho / r")],
     # the first ref whose mask holds winning (the plain stage's last wins)
@@ -565,7 +566,8 @@ def test_the_map_inputs_hold_their_cases(tmp_path):
 def test_w5_mm3_is_torchs_product(libs):
     """W5's 3 x 3 product (`hit_attrs_math` op 2) against torch's (N, 3) @
     (3, 3) here, both layouts of the (3, 3) operand, on rows with signed
-    zeros: bit for bit from 11 rows on."""
+    zeros, and its backward into the left factor (op 4) against autograd's:
+    bit for bit from 11 rows on."""
     rng = np.random.default_rng(3)
     for n in (11, 17, 256, 4096):
         m = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
@@ -579,6 +581,12 @@ def test_w5_mm3_is_torchs_product(libs):
                 want = a @ M
                 got = ha.math("mm3", a, M, lib=libs["w5"])
                 assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+                # the backward into the left factor (the maps' backward)
+                g = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+                x = a.clone().requires_grad_()
+                ga, = torch.autograd.grad(x @ M, x, g)
+                got = ha.math("mm3_bwd", g, M, lib=libs["w5"])
+                assert torch.equal(got.view(torch.int32), ga.view(torch.int32)), n
 
 
 def _offsets(static):
@@ -762,8 +770,9 @@ def _same_bits(a, b):
 def test_the_map_gradient_through_w5_is_the_plain_stages(libs, tmp_path):
     """The gradient of a normal-mapped render with respect to its map's
     texture and its floor's u axis, with the attributes through `_Attrs`
-    (W5 forward; the backward's counted plain route: the maps are recomputed in
-    it), against the plain stage's autograd gradient, bit for bit (the
+    (W5 forward; the backward's counted plain route, the u axis being a
+    table the maps read: the maps are recomputed in it), against the plain
+    stage's autograd gradient, bit for bit (the
     texels that a degenerate frame makes NaN in the plain stage NaN
     too); two passes through W5 bit for bit."""
     with one_thread():

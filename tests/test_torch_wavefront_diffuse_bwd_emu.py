@@ -18,14 +18,15 @@ The cases: the diffuse calls of 16x16 renders of the cosine lobe alone
 no stratified draws), 131 importance-sampled lamps (past ATen's 128 of
 its four-wide loads), the environment's alias sample (the sun-and-sky
 still life) and both, with image textures on the floor (bilinear) and the
-sphere (nearest): each with output gradients drawn from a numpy seed
-(mixed scales, -0, +0 and NaN among them, some None) and a random subset
-of wanted inputs; a call of each scene with every gradient wanted, and
+sphere (nearest; one texture, two refs): each with output gradients
+drawn from a numpy seed (mixed scales, -0, +0 and NaN among them, some
+None) and a random subset of wanted inputs, the textures among them (their
+gradients from the kernel's texel taps' rows); a call of each scene with every gradient wanted, and
 with its rays picked (`ws.pick_rays`); a lamps call with the caps' radii
 widened to 1.5 (a direction inside most caps: the sums over the caps of
 many terms); and the backward calls of 16x16
 gradients with respect to the diffuse colour (Cornell, the mixed scene)
-recorded (`plain_grad.recording`) and replayed through both.  Each mutant
+and of the mixed scene's with respect to its textures recorded (`plain_grad.recording`) and replayed through both.  Each mutant
 of MUTANTS makes some case fail.
 
 W4's forward (csrc/wavefront_shade.cu) is not built here: the gradients
@@ -182,9 +183,9 @@ def draw_grads(rng, n, none=0.3, nan=True):
 
 
 def _wants(rng, n_tex, p=0.7):
-    """A random subset of the pass-through and input gradients wanted (no
-    texture: one the block reads that requires grad takes the plain VJP)."""
-    return tuple(bool(w) for w in rng.random(NW + NI) < p) + (False,) * n_tex
+    """A random subset of the pass-through and input gradients wanted, the
+    textures' among them."""
+    return tuple(bool(w) for w in rng.random(NW + NI + n_tex) < p)
 
 
 def routed(bwd_lib):
@@ -209,6 +210,19 @@ def color_gradient(make, bwd_lib=None, calls=None, spp=1):
         loss = (fn(update_materials(data, diffuse_color=x)) ** 2).mean()
         g, = torch.autograd.grad(loss, x)
     return g
+
+
+def texture_gradient(make, bwd_lib=None, calls=None, spp=1):
+    """d loss / d (every texture, diffuse_color) of a 16x16 render of
+    make() on the CPU, as `color_gradient`."""
+    fn, data = differentiable_render(make(), spp, seed=3, device="cpu")
+    xs = [t.clone().requires_grad_() for t in data.textures]
+    x = data.mats.diffuse_color.clone().requires_grad_()
+    rec = recording(calls, ws._Shade) if calls is not None else contextlib.nullcontext()
+    with exact_math(), plain_forward(), routed(bwd_lib), rec:
+        loss = (fn(update_materials(dataclasses.replace(data, textures=tuple(xs)),
+                                    diffuse_color=x)) ** 2).mean()
+        return torch.autograd.grad(loss, [*xs, x], allow_unused=True)
 
 
 RECORDED = ("caps", "mixed")
@@ -236,7 +250,7 @@ def cases(libs):
             call = calls[len(calls) // 2]
             n = call[4].shape[0]
             add(f"{name} all", call, draw_grads(rng, n, none=0.0),
-                (True,) * (NW + NI) + (False,) * n_tex)
+                (True,) * (NW + NI + n_tex))
             idx = torch.from_numpy(rng.permutation(n)[:max(n // 2, 1)])
             add(f"{name} picked", ws.pick_rays(calls[0], idx),
                 draw_grads(rng, idx.shape[0]), _wants(rng, n_tex))
@@ -248,18 +262,45 @@ def cases(libs):
                     ctx.data, is_radius=torch.full_like(ctx.data.is_radius, 1.5)))
                 add("lamps wide", (mt, wide, draws, packed, m, acc),
                     draw_grads(rng, n, none=0.0, nan=False),
-                    (True,) * (NW + NI) + (False,) * n_tex)
-        for scene in RECORDED:
-            calls = []
-            color_gradient(SCENES[scene], libs["w4d"], calls)
-            for k, (fn, call, xs, grads, wants) in enumerate(calls):
-                if call[0] != MAT_DIFFUSE:
-                    continue
-                kernel, plain = ws.backward_pair(fn, call, xs, grads, wants)
-                out.append((f"{scene} recorded {k}",
-                            lambda lib, r=(fn, call, xs, grads, wants):
-                            ws.backward_pair(*r, lib)[0](), plain(),
-                            ws.diff_saved(*call[1:5])))
+                    (True,) * (NW + NI + n_tex))
+        out += recorded_cases(libs["w4d"])
+    return out
+
+
+def recorded_cases(lib):
+    """The recorded diffuse calls (as `cases` lists them) of the colour
+    gradients of RECORDED and of the mixed scene's gradient with respect
+    to its textures (`texture_gradient`), through the kernel from lib."""
+    out = []
+    for scene, grad in [(s, color_gradient) for s in RECORDED] + [("textures",
+                                                                   texture_gradient)]:
+        calls = []
+        grad(SCENES.get(scene, SCENES["mixed"]), lib, calls)
+        for k, (fn, call, xs, grads, wants) in enumerate(calls):
+            if call[0] != MAT_DIFFUSE:
+                continue
+            kernel, plain = ws.backward_pair(fn, call, xs, grads, wants)
+            out.append((f"{scene} recorded {k}",
+                        lambda lib, r=(fn, call, xs, grads, wants):
+                        ws.backward_pair(*r, lib)[0](), plain(),
+                        ws.diff_saved(*call[1:5])))
+    return out
+
+
+def texture_cases(rng):
+    """The diffuse calls of the mixed scene (a bilinear and a nearest ref
+    on one texture) with every texture's gradient wanted, output gradients
+    drawn from rng (as `cases` lists them)."""
+    out = []
+    calls = [c for c in capture(SCENES["mixed"]()) if c[0] == MAT_DIFFUSE]
+    for k, call in enumerate(calls[:3]):
+        mt, ctx, draws, packed, m, _ = call
+        grads = draw_grads(rng, m.shape[0], none=0.0)
+        wants = (True,) * (NW + NI + len(ctx.data.textures))
+        s = ws.diff_saved(ctx, draws, packed, m)
+        out.append((f"mixed textures {k}", lambda lib, a=(grads, s, wants):
+                    ws.diffuse_vjp(*a, lib),
+                    ws.plain_shade_vjp(mt, ctx, draws[mt], m, None, grads, wants), s))
     return out
 
 
@@ -290,8 +331,11 @@ def test_the_cases_hold_what_they_are_for(cases):
     i.i.d. draws, the bilinear texture's uv and the recorded gradients'
     tables are among the held cases."""
     seen = dict.fromkeys(("cosine", "caps", "env", "both", "past_128", "strat", "iid",
-                          "bilinear"), 0)
+                          "bilinear", "texture", "two_refs"), 0)
     for label, _, want, s in cases:
+        texs = [g for g in want[NW + NI:] if g is not None and bool((g != 0).any())]
+        seen["texture"] += len(texs)
+        seen["two_refs"] += int(bool(texs) and len({r[0] for r in s.refs}) < len(s.refs))
         caps, env = s.is_center is not None, s.env_prob is not None
         seen["cosine"] += int(not caps and not env)
         seen["caps"] += int(caps and not env)
@@ -303,7 +347,7 @@ def test_the_cases_hold_what_they_are_for(cases):
         seen["bilinear"] += int(s.bilinear and want[NW + ws._DIFF_INPUTS.index("uv")]
                                 is not None)
     assert all(v > 0 for v in seen.values()), seen
-    for scene in RECORDED:
+    for scene in (*RECORDED, "textures"):
         rec = [c for c in cases if c[0].startswith(f"{scene} recorded")]
         k = NW + ws._DIFF_INPUTS.index("diffuse_color")
         assert rec and any(c[2][k] is not None and bool((c[2][k] != 0).any())
@@ -348,18 +392,25 @@ def test_the_gradient_through_the_kernel_is_the_plain_blocks(libs):
     assert not bits_differ(got, plain)
 
 
-def test_a_texture_requiring_grad_takes_the_counted_plain_route(libs):
-    """A colour texture the diffuse block reads that requires grad keeps the
-    plain VJP (`plain_routes["diffuse_textures"]`)."""
-    fn, data = differentiable_render(SCENES["mixed"](), 1, seed=3, device="cpu")
-    textures = tuple(t.clone().requires_grad_() for t in data.textures)
-    with one_thread(), exact_math(), plain_forward(), routed(libs["w4d"]):
+def test_a_texture_gradient_through_the_kernel_is_the_plain_blocks(libs):
+    """The mixed scene's gradient with respect to its textures (a bilinear
+    and a nearest ref on one texture) and diffuse_color, with the diffuse
+    backward from the kernel (its taps' rows), equals the one through the
+    plain VJP bit for bit, in one launch a backward call and no plain
+    diffuse route."""
+    make = SCENES["mixed"]
+    with one_thread():
         ws.reset_launches()
-        loss = (fn(dataclasses.replace(data, textures=textures)) ** 2).mean()
-        g = torch.autograd.grad(loss, textures, allow_unused=True)
-    assert ws.plain_routes["diffuse_textures"] > 0
-    assert ws.backward_launches()["shade_diffuse_bwd"] == 0
-    assert any(t is not None and bool(torch.isfinite(t).any()) for t in g)
+        plain = texture_gradient(make)
+        assert ws.plain_routes["diffuse"] > 0
+        ws.reset_launches()
+        calls = []
+        got = texture_gradient(make, libs["w4d"], calls)
+    n_calls = sum(1 for c in calls if c[1][0] == MAT_DIFFUSE)
+    assert n_calls > 0 and ws.backward_launches()["shade_diffuse_bwd"] == n_calls
+    assert not any(ws.plain_routes.values())
+    assert plain[0] is not None and bool((plain[0] != 0).any())
+    assert not any(bits_differ(a, b) for a, b in zip(got, plain))
 
 
 @pytest.fixture(scope="module")

@@ -18,11 +18,13 @@ lights and a point light (each kind of light, and a light table of more
 than one row), and mirrors that cast no shadow (no shadow rays) under a
 point and a directional light, with a bilinear checker (uv's gradient):
 each with output gradients drawn from a numpy seed (mixed scales, -0, +0
-and NaN among them, some None) and a random subset of wanted inputs; a
+and NaN among them, some None) and a random subset of wanted inputs, the
+textures among them (their gradients from the kernel's texel taps' rows); a
 call of each scene with every gradient wanted, and with its rays picked
 (`ws.pick_rays`), and with a third of its normals facing away from the
 ray; and the backward calls of the primitives' 16x16
-gradient with respect to glossy_color and glossy_n_re recorded
+gradient with respect to glossy_color and glossy_n_re, and the mirrors'
+with respect to their texture and glossy_color, recorded
 (`plain_grad.recording`) and replayed through both.  Each mutant of
 MUTANTS makes some case fail.
 
@@ -188,9 +190,9 @@ def draw_grads(rng, n, none=0.3, nan=True):
 
 
 def _wants(rng, n_tex, p=0.7):
-    """A random subset of the pass-through and input gradients wanted (no
-    texture: one the block reads that requires grad takes the plain VJP)."""
-    return tuple(bool(w) for w in rng.random(NW + NI) < p) + (False,) * n_tex
+    """A random subset of the pass-through and input gradients wanted, the
+    textures' among them."""
+    return tuple(bool(w) for w in rng.random(NW + NI + n_tex) < p)
 
 
 def occlusion(ctx):
@@ -221,6 +223,19 @@ def table_gradient(make, bwd_lib=None, calls=None, spp=1):
     with exact_math(), plain_forward(), routed(bwd_lib), rec:
         img = fn(update_materials(data, glossy_color=xs[0], glossy_n_re=xs[1]))
         return torch.autograd.grad((img ** 2).mean(), xs)
+
+
+def texture_gradient(make, bwd_lib=None, calls=None, spp=1):
+    """d loss / d (every texture, glossy_color) of a 16x16 render of
+    make() on the CPU, as `table_gradient`."""
+    fn, data = differentiable_render(make(), spp, seed=3, device="cpu")
+    xs = [t.clone().requires_grad_() for t in data.textures]
+    x = data.mats.glossy_color.clone().requires_grad_()
+    rec = recording(calls, ws._Shade) if calls is not None else contextlib.nullcontext()
+    with exact_math(), plain_forward(), routed(bwd_lib), rec:
+        img = fn(update_materials(dataclasses.replace(data, textures=tuple(xs)),
+                                  glossy_color=x))
+        return torch.autograd.grad((img ** 2).mean(), [*xs, x], allow_unused=True)
 
 
 def _with_normals_flipped(call, rng):
@@ -254,23 +269,53 @@ def cases(libs):
             call = calls[len(calls) // 2]
             n = call[4].shape[0]
             add(f"{name} all", call, draw_grads(rng, n, none=0.0),
-                (True,) * (NW + NI) + (False,) * n_tex)
+                (True,) * (NW + NI + n_tex))
             idx = torch.from_numpy(rng.permutation(n)[:max(n // 2, 1)])
             add(f"{name} picked", ws.pick_rays(calls[0], idx),
                 draw_grads(rng, idx.shape[0]), _wants(rng, n_tex))
             add(f"{name} flipped", _with_normals_flipped(call, rng),
                 draw_grads(rng, n, none=0.0, nan=False),
-                (True,) * (NW + NI) + (False,) * n_tex)
+                (True,) * (NW + NI + n_tex))
+        out += recorded_cases(libs["w4g"])
+    return out
+
+
+def recorded_cases(lib):
+    """The recorded glossy calls (as `cases` lists them) of the primitives'
+    table gradient and of the mirrors' gradient with respect to their
+    bilinear texture (`texture_gradient`), through the kernel from lib."""
+    out = []
+    for label, grad, scene in (("primitives", table_gradient, "primitives"),
+                               ("textures", texture_gradient, "mirrors")):
         calls = []
-        table_gradient(SCENES["primitives"], libs["w4g"], calls)
+        grad(SCENES[scene], lib, calls)
         for k, (fn, call, xs, grads, wants) in enumerate(calls):
             if call[0] != MAT_GLOSSY:
                 continue
             kernel, plain = ws.backward_pair(fn, call, xs, grads, wants)
-            out.append((f"primitives recorded {k}",
+            out.append((f"{label} recorded {k}",
                         lambda lib, r=(fn, call, xs, grads, wants):
                         ws.backward_pair(*r, lib)[0](), plain(),
                         ws.gloss_saved(*call[1:5], call[6])))
+    return out
+
+
+def texture_cases(rng):
+    """The glossy calls of the primitives (a nearest texture) and the
+    mirrors (a bilinear one) with every texture's gradient wanted, output
+    gradients drawn from rng (as `cases` lists them)."""
+    out = []
+    for name in ("primitives", "mirrors"):
+        calls = [c for c in capture(SCENES[name]()) if c[0] == MAT_GLOSSY]
+        for k, call in enumerate(calls[:2]):
+            mt, ctx, draws, packed, m, _ = call
+            occ = occlusion(ctx)
+            grads = draw_grads(rng, m.shape[0], none=0.0)
+            wants = (True,) * (NW + NI + len(ctx.data.textures))
+            s = ws.gloss_saved(ctx, draws, packed, m, occ)
+            out.append((f"{name} textures {k}", lambda lib, a=(grads, s, wants):
+                        ws.glossy_vjp(*a, lib),
+                        ws.plain_shade_vjp(mt, ctx, None, m, occ, grads, wants), s))
     return out
 
 
@@ -301,9 +346,12 @@ def test_the_cases_hold_what_they_are_for(cases):
     texture's uv and the recorded gradients' tables are among the held
     cases."""
     seen = dict.fromkeys(("dir", "point", "spot", "rows", "no_shadow", "rough0",
-                          "bilinear", "facing_away"), 0)
+                          "bilinear", "facing_away", "nearest_texture",
+                          "bilinear_texture"), 0)
     uv = NW + ws._GLOSS_INPUTS.index("uv")
     for label, _, want, s in cases:
+        if any(g is not None and bool((g != 0).any()) for g in want[NW + NI:]):
+            seen["bilinear_texture" if s.bilinear else "nearest_texture"] += 1
         nd, np_, ns = s.kinds
         seen["dir"] += nd
         seen["point"] += np_
@@ -315,9 +363,11 @@ def test_the_cases_hold_what_they_are_for(cases):
         seen["bilinear"] += int(s.bilinear and want[uv] is not None)
         seen["facing_away"] += int((((s.N * s.D).sum(-1) > 0) & s.m).sum())
     assert all(v > 0 for v in seen.values()), seen
-    rec = [c for c in cases if c[0].startswith("primitives recorded")]
     k = NW + ws._GLOSS_INPUTS.index("glossy_color")
-    assert rec and any(c[2][k] is not None and bool((c[2][k] != 0).any()) for c in rec)
+    for label in ("primitives", "textures"):
+        rec = [c for c in cases if c[0].startswith(f"{label} recorded")]
+        assert rec and any(c[2][k] is not None and bool((c[2][k] != 0).any())
+                           for c in rec), label
 
 
 @pytest.mark.parametrize("mutant", list(MUTANTS))
@@ -344,6 +394,26 @@ def test_the_gradient_through_the_kernel_is_the_plain_blocks(libs):
     for a, b in zip(got, plain):
         assert bool((b != 0).any())
         assert not bits_differ(a, b)
+
+
+def test_a_texture_gradient_through_the_kernel_is_the_plain_blocks(libs):
+    """The mirrors' gradient with respect to their bilinear texture and
+    glossy_color, with the glossy backward from the kernel (its taps'
+    rows), equals the one through the plain VJP bit for bit, in one launch
+    a backward call and no plain glossy route."""
+    make = SCENES["mirrors"]
+    with one_thread():
+        ws.reset_launches()
+        plain = texture_gradient(make)
+        assert ws.plain_routes["glossy"] > 0
+        ws.reset_launches()
+        calls = []
+        got = texture_gradient(make, libs["w4g"], calls)
+    n_calls = sum(1 for c in calls if c[1][0] == MAT_GLOSSY)
+    assert n_calls > 0 and ws.backward_launches()["shade_glossy_bwd"] == n_calls
+    assert not any(ws.plain_routes.values())
+    assert plain[0] is not None and bool((plain[0] != 0).any())
+    assert not any(bits_differ(a, b) for a, b in zip(got, plain))
 
 
 def test_a_refused_launch_raises_and_counts_nothing(libs):

@@ -384,3 +384,55 @@ def test_card_colour_gradient_through_w4_is_the_plain_blocks(card, monkeypatch):
     for a, b, c in zip(g1, g2, g_plain):
         assert torch.equal(a, b) and torch.equal(a, c)
         assert bool(torch.isfinite(a).all()) and bool((a != 0).any())
+
+
+@pytest.mark.cuda
+def test_card_texture_gradient_through_w4_is_the_plain_blocks(card, monkeypatch):
+    """The gradient with respect to every texture of lit_textures (a
+    nearest diffuse, a bilinear glossy, an emissive image and the sky) and
+    of the primitives' checkered floor on the card, the diffuse and glossy
+    blocks' backward through their kernels (their texel taps' rows, no
+    plain route), equals the one through the plain dispatch bit for bit;
+    two passes through W4 agree bit for bit."""
+    import dataclasses
+
+    from test_torch_scenes import lit_textures
+    from torch_primitives import primitives
+
+    from raytracer_tpu_torch.diff import differentiable_render
+
+    def bits_equal(a, b):
+        return bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | (torch.isnan(a) & torch.isnan(b))).all())
+
+    def scene(name):
+        if name == "primitives":
+            return primitives(32, 24)
+        sc = lit_textures(T)
+        sc.camera.screen_width, sc.camera.screen_height = 32, 24
+        return sc
+
+    for name in ("lit_textures", "primitives"):
+        fn, data = differentiable_render(scene(name), 4, seed=0, device=card)
+
+        def grad():
+            xs = [t.clone().requires_grad_(True) for t in data.textures]
+            loss = torch.mean(fn(dataclasses.replace(data, textures=tuple(xs))) ** 2)
+            return torch.autograd.grad(loss, xs, allow_unused=True)
+
+        with monkeypatch.context() as m:
+            ws.reset_launches()
+            g1, g2 = grad(), grad()
+            n = ws.backward_launches()
+            assert n["shade_glossy_bwd"] > 0
+            assert not any(ws.plain_routes.values())
+            _replace_wrappers(m, lambda mt, real: lambda ctx, d, p, mk, acc:
+                              acc.merge(ws._plain(mt, ctx, d, None), mk))
+            ws.reset_launches()
+            g_plain = grad()
+            assert ws.launches() == 0
+        for a, b, c in zip(g1, g2, g_plain):
+            assert (a is None) == (c is None)
+            if a is not None:
+                assert torch.equal(a, b) and bits_equal(a, c)
+        assert any(a is not None and bool((a != 0).any()) for a in g1), name
