@@ -254,7 +254,10 @@ drives both kernel paths and the wavefront:
   or W4 block on the card, no plain-VJP route taken, every backward call
   recorded and held against the plain VJP bit for bit (a share of 1.0
   per kernel), each timed with the L2 cold beside the plain VJP, its
-  bytes' bound and share, the kernels' registers, stack and blocks an SM
+  bound the larger of its FP32 issue slots (`bwd_slots`: a ray's FP32
+  instructions off the SASS, `probes/common.py` `bwd_pass`) and its
+  bytes, which one binds and its share, the kernels' registers, stack
+  and blocks an SM
   (`--backward` runs the build and this part alone);
   Cornell 400x400 x 256 spp over a 4x1 mesh of cuda:0 shards (K1 on each:
   4 launches a chunk, the first shard chunk bit for bit against its plain
@@ -563,7 +566,7 @@ BWD_ENTRIES = {
 W4_BWD = {4: "shade_refractive_bwd", 3: "shade_diffuse_bwd", 2: "shade_glossy_bwd"}
 BWD = {"launches": dict.fromkeys(BWD_ENTRIES, 0),
        "max_abs_err": dict.fromkeys(BWD_ENTRIES, 0.0), "rows": [], "holding": False,
-       "plain_W6": 0, "plain_W5": 0, "plain_W4": 0}
+       "plain_W6": 0, "plain_W5": 0, "plain_W4": 0, "slots": {}}
 # the least share of the held gradient entries finite on both sides: of
 # every kernel's holds with drawn gradients, and of the recorded ones of
 # the sphere and the icosphere (whose IoR gradients are finite)
@@ -4179,7 +4182,8 @@ def bwd_bytes(entry, call, xs, grads, out, wants=None):
         mt, ctx, draws, packed, m = call[:5]
         s = ws.refr_saved(ctx, draws, packed, m)
         one = lambda x: x[0] if x.shape[0] > 1 and x.stride(0) == 0 else x
-        reads = [s.m, s.packed, s.P, s.N, s.D, s.eps, s.t, s.orient, one(s.n_re),
+        # P is not read: its gradient is new_origin's alone
+        reads = [s.m, s.packed, s.N, s.D, s.eps, s.t, s.orient, one(s.n_re),
                  one(s.n_im), s.depth, s.pattern, s.split_cnt, s.u, s.hero, s.m_re,
                  s.m_im, s.dispersive, s.scene_re, s.scene_im]
         nw = len(ws.WRITTEN[mt])
@@ -4222,6 +4226,66 @@ def bwd_bytes(entry, call, xs, grads, out, wants=None):
         rows += sum(4 if r.bilinear else 1 for r in static.normal_maps) * obj.shape[0] * 20
     return _bwd_nbytes(*g, *xs[:3], obj, None if modes[2] else xs[3], *out[:3],
                        *tabs) + rows
+
+
+# the SASS function of each backward entry whose name the kernels line's
+# (BWD_ENTRIES) leaves ambiguous: the diffuse backward's instances (the caps
+# pdf's sum in registers, or by ATen's general plan from 128 caps)
+BWD_SASS = {"shade_diffuse_bwd": ("shade_diffuse_bwd_kernelILi0E",
+                                  "shade_diffuse_bwd_kernelILi1E")}
+
+
+def bwd_slots(entry, f, call, xs):
+    """The FP32 issue slots of a backward kernel's recorded call: the FP32
+    instructions of one ray's pass on the path that takes every gradient
+    (`common.bwd_pass` off the kernel's SASS: the float work alone, no
+    load, store, integer or control instruction, so that the count does
+    not grow with the implementation), its inner loops counted for the
+    call (a glossy call's light loop its lights, its texture refs' loops
+    its refs on their shortest path, 0 on a call with none; a refractive
+    call's Fresnel loops its three channels; W5's loop over the kinds the
+    scene's present, its MAPS instance's over the maps first), times the
+    call's rays.  The diffuse backward and W6's start, whose rays take exclusive
+    branches by their draw (caps, environment or cosine lobe) or material
+    (emissive, environment or neither), on their shortest path, and the
+    diffuse's caps loops not at all: lower counts.  Returns (slots, FP32
+    instructions a ray, trips, the inner loops as `bwd_pass` lists
+    them)."""
+    from raytracer_tpu_torch.ops import bounce_tail as bt
+    from raytracer_tpu_torch.ops import cuda_build
+    from raytracer_tpu_torch.ops import hit_attrs as ha
+    from raytracer_tpu_torch.ops import wavefront_shade as ws
+    from raytracer_tpu_torch.probes import common
+
+    if "sass" not in BWD:
+        BWD["sass"] = common.cuobjdump_sass(cuda_build.build("kernels"))
+    kernel, heavy, every_if, small = BWD_ENTRIES[entry][3], 20, True, 1
+    if f is ws._Shade:
+        mt, ctx, m = call[0], call[1], call[4]
+        n, st = m.shape[0], ctx.static
+        trips = {ws.MAT_GLOSSY: st.n_dir_lights + st.n_point_lights + st.n_spot_lights,
+                 ws.MAT_REFRACTIVE: 3, ws.MAT_DIFFUSE: 0}[mt]
+        if mt == ws.MAT_GLOSSY:
+            # the light loop; a texture ref's loops hold < 50
+            heavy, small = 100, len(st.glossy_tex)
+        every_if = mt != ws.MAT_DIFFUSE
+        if entry in BWD_SASS:
+            kernel = BWD_SASS[entry][int(st.n_is_targets >= 128)]
+    elif f is ha._Attrs:
+        static = call[2]
+        kinds = sum(1 for k in ha.KINDS if static.kind_counts[k])
+        n = call[0].shape[0]
+        trips = (len(static.normal_maps), kinds) if entry.endswith("maps") else kinds
+    elif f is bt._Start:
+        n, trips, every_if = call[2].shape[0], 1, False
+    else:
+        n, trips = xs[bt._UPDATE_FLOATS.index("beta")].shape[0], 1
+    key = (kernel, trips, heavy, every_if, small)
+    if key not in BWD["slots"]:
+        BWD["slots"][key] = common.bwd_pass(BWD["sass"], kernel, trips, heavy=heavy,
+                                            every_if=every_if, small=small)
+    each, loops = BWD["slots"][key]
+    return n * each, each, trips, loops
 
 
 def _bwd_rows_fn(f, call, xs, grads, wants):
@@ -4357,7 +4421,8 @@ def backward_phase(torch, dev):
     rays, in the JAX package's gradient too: there every kind's formula is
     held on finite numbers), whose finite share must reach BWD_FINITE.
     Each call that launched a kernel timed with the L2 cold
-    (`common.cold_ms`), its bound from its bytes; a kernel's time is the
+    (`common.cold_ms`), its bound the larger of its FP32 issue slots
+    (`bwd_slots`) and its bytes (`bwd_bytes`); a kernel's time is the
     mean a call (W4's backward kernels: the kernel alone, and beside it the
     whole VJP with the tables' reductions); the plain VJP on the same calls
     (events); the kernels' registers, stack and blocks an SM.  Returns the
@@ -4517,7 +4582,7 @@ def backward_phase(torch, dev):
             # time every call that launched its kernel, the L2 cold
             parts = []
             for entry in need:
-                ms, plain_ms, n_bytes, whole_ms = [], [], [], []
+                ms, plain_ms, n_bytes, whole_ms, slots = [], [], [], [], []
                 for f, call, xs, grads, wants, got in timed[entry]:
                     kernel, plain = bwd_module(f).backward_pair(f, call, xs, grads, wants)
                     if f is ws._Shade:
@@ -4546,17 +4611,25 @@ def backward_phase(torch, dev):
                     with held(BWD):
                         plain_ms.append(common.cuda_ms(plain, 1))
                     n_bytes.append(bwd_bytes(entry, call, xs, grads, got, wants))
+                    slots.append(bwd_slots(entry, f, call, xs))
                 n = len(ms)
                 row = common.row(BWD_ENTRIES[entry][0], BWD_ENTRIES[entry][1],
                                  BWD_ENTRIES[entry][2], 0, 0.0, sum(ms) / n,
-                                 sum(plain_ms) / n, 0, sum(n_bytes) / n)
-                share = [common.bound(0, b)[0] / t for b, t in zip(n_bytes, ms)]
+                                 sum(plain_ms) / n, sum(x[0] for x in slots) / n,
+                                 sum(n_bytes) / n)
+                share = [common.bound(x[0], b)[0] / t
+                         for x, b, t in zip(slots, n_bytes, ms)]
                 whole = (f"; with the tables' reductions {sum(whole_ms) / n:.4f} ms"
                          if whole_ms else "")
+                t_ops = common.bound(sum(x[0] for x in slots) / n, 0)[0]
+                t_bytes = common.bound(0, sum(n_bytes) / n)[0]
                 parts.append(f"{entry} {n} calls of {timed[entry][0][2][0].shape[0]} rays, "
                              f"cold {row['ms']:.4f} ms a call ({min(ms):.4f}-{max(ms):.4f}"
                              f"{whole}; plain VJP {row['plain_ms']:.3f} ms), "
-                             f"{sum(n_bytes) / n:.0f} bytes, bound {row['bound_ms']:.4f} ms, "
+                             f"{sum(n_bytes) / n:.0f} bytes ({t_bytes:.4f} ms), "
+                             f"{slots[0][1]} FP32 instructions a ray x {slots[0][2]} trips "
+                             f"of its loops {slots[0][3]} ({t_ops:.4f} ms), bound "
+                             f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
                              f"share {row['bound_ms'] / row['ms']:.4f} "
                              f"({min(share):.4f}-{max(share):.4f})")
                 if (name == "sphere" and entry in w6w5 + ("shade_refractive_bwd",)) or (

@@ -16,7 +16,7 @@
 //
 // One thread a ray, over every ray of the bounce (the rays outside the
 // block's mask take +0 output gradients, which still pass through the
-// block's backward).  Each ray's forward is recomputed in registers in the
+// block's backward).  Each ray's forward is recomputed in the
 // plain block's order (as csrc/wavefront_shade.cu's glossy entry computes
 // it), then its backward node by node in the order autograd's engine runs
 // the plain block's graph, the node created last first (csrc/
@@ -46,10 +46,25 @@
 // direction, the ambient colour, the scene's medium) to the engine's sum_to
 // over the rays, then a select's full row of +0 pads a light.
 //
-// What bounds it: memory (a ray reads ~80 bytes and writes ~150, more with
-// the light tables' rows); a light costs a few hundred operations.  The
-// design keeps every intermediate of a ray in registers, recomputing a
-// light's forward where its backward runs.
+// Layout (redesigned for the H100): the rays in tiles of GLOSSY_BWD_TILE,
+// a thread a ray.  A tile's (N, 3) inputs (P, N, D, the medium, the
+// four output gradients, masked) are read into shared memory element by
+// element, neighbouring threads on neighbouring floats, so that a warp
+// touches whole sectors; the pass-through gradients leave in the same
+// pass.  Each thread then runs its ray, reading its inputs from the tile
+// where they are needed; its (N, 3) buffers accumulate in the tile's rows,
+// their "has a gradient come yet" flags bits of one word (csrc/
+// grad_acc.cuh `put3_at`), and each channel's Fresnel F0 stays in
+// registers, the terms its backward reads in the tile.  The tile's
+// (N, 3) gradients and rows leave element by element after its rays are
+// done, and a light's (light, N, 3) rows after that light's terms.
+//
+// What bounds it: the FP32 issue slots of a ray's light terms (~1,000
+// FP32 instructions a light off the SASS: IEEE divisions and square
+// roots, powf and logf) against the ~80 bytes a ray reads and ~150 it
+// writes (chip_smoke.py --backward counts both).  The design keeps the
+// registers low enough for GLOSS_BWD_MIN_BLOCKS blocks an SM, which hide
+// the chain's latency.
 //
 // Arithmetic: one rounding an op (built with --fmad=false, IEEE division
 // and square root).  Built by the CPU tests with W4_TORCH_CPU (tests/
@@ -75,11 +90,16 @@
 
 namespace w4g {
 
+// the __launch_bounds__ minimum of resident blocks an SM: the most that
+// builds with no spills (ptxas -v)
+constexpr int GLOSS_BWD_MIN_BLOCKS = 4;
+
 using namespace grad_acc;
 using namespace texture_fetch;
 using namespace torch_math;
 
-constexpr int GLOSSY_BWD_BLOCK = 128;   // threads a block, a ray each
+constexpr int GLOSSY_BWD_TILE = 128;    // rays a tile, threads a block
+constexpr int ROW = 3 * GLOSSY_BWD_TILE;  // floats of a tile's (N, 3) row
 constexpr int SLOT_SHIFT = 3;
 
 struct Sum3 {
@@ -173,6 +193,27 @@ struct GlossBwd {
   TapRows taps;
 };
 
+// The tile's rows in shared memory: the inputs (a medium every ray shares
+// copied into each ray's row; the output gradients masked); the ray's buffers that leave as (N, 3) gradients; V's and the
+// diffuse colour's buffers and the colour; the rows written once; one
+// light's rows; the terms of each channel's F0 against the ray's medium
+// that its backward reads (n - m, n + m, |n + m|^2), kept for the lights
+// in the slots of beta_mult's and new_dir's gradients (read by then), of
+// two rows written after the lights, and one of their own.
+enum Slot {
+  S_P, S_N, S_D, S_RE, S_IM, S_G0,
+  S_LD = S_G0 + 4, S_LN, S_LP, S_LRE, S_LIM, S_MRE, S_MIM,
+  S_VB, S_DCB, S_COL,
+  S_CROWS, S_AMB, S_SRA, S_SRS, S_SIA, S_SIS,
+  S_LC, S_LPR, S_QD, NSLOT
+};
+constexpr int S_QA = S_G0 + 1, S_QB = S_G0 + 3, S_QE = S_CROWS, S_QF = S_AMB;
+// each buffer's flag, a bit of one word
+enum : unsigned {
+  F_LD = 1u, F_LN = 2u, F_LP = 4u, F_LRE = 8u, F_LIM = 16u, F_MRE = 32u, F_MIM = 64u,
+  F_VB = 128u, F_DCB = 256u, F_ROUGH = 512u, F_SPEC = 1024u
+};
+
 // ---------------------------------------------------------------------------
 // the ops the block's backward differentiates
 // ---------------------------------------------------------------------------
@@ -222,9 +263,10 @@ __device__ __forceinline__ void f0(float nre, float nim, float mre, float mim, F
 struct F0Grad {
   float f, e, b, a;
 };
+// (den's share is -g ((num / den) / den): num / den is F0, the same op)
 __device__ __forceinline__ F0Grad f0_bwd(const Fresnel0& q, float g) {
   const float numb = g / q.den;
-  const float denb = ge_or_zero(q.den2, F32(1e-20), div_other(g, q.num, q.den));
+  const float denb = ge_or_zero(q.den2, F32(1e-20), -g * (q.F0 / q.den));
   F0Grad r;
   r.f = denb * q.f + denb * q.f;
   r.e = denb * q.e + denb * q.e;
@@ -234,402 +276,455 @@ __device__ __forceinline__ F0Grad f0_bwd(const Fresnel0& q, float g) {
 }
 
 // ---------------------------------------------------------------------------
-// one ray
+// one tile
 // ---------------------------------------------------------------------------
 
-__device__ void gloss_bwd_ray(const GlossBwd& B, long long i) {
-  const bool mk = B.m[i] != 0;
-  float G[4][3];
-  bool gp[4];
-  for (int f = 0; f < 4; ++f) {
-    gp[f] = B.g[f] != nullptr;
-    for (int c = 0; c < 3; ++c) {
-      const float g = gp[f] ? B.g[f][3 * i + c] : 0.0f;
-      G[f][c] = mk ? g : 0.0f;
-      if (B.pass[f]) B.pass[f][3 * i + c] = mk ? 0.0f : g;
-    }
-  }
-
-  // ---- the forward's per-ray values ----
-  const int raw_slot = (B.packed[i] >> SLOT_SHIFT) & 0x3FF;
-  const int slot = clip_slot(raw_slot, B.rows);
-  float P[3], N[3], D[3], V[3], nre[3], nim[3], col[3], mre[3], mim[3];
-  for (int c = 0; c < 3; ++c) {
-    P[c] = B.P[3 * i + c];
-    N[c] = B.N[3 * i + c];
-    D[c] = B.D[3 * i + c];
-    V[c] = -D[c];
-    nre[c] = B.n_re[B.re_step * i + c];
-    nim[c] = B.n_im[B.im_step * i + c];
-    col[c] = B.color[3 * slot + c];
-    mre[c] = B.m_re[3 * slot + c];
-    mim[c] = B.m_im[3 * slot + c];
-  }
-  const float u = B.uv[2 * i], v = B.uv[2 * i + 1];
-  for (int r = 0; r < B.refs; ++r)
-    if (raw_slot == B.ref_slot[r]) fetch_texture(B.ref_tex, r, u, v, col);
-  const float dcoef = B.diff[slot];
-  float dc[3];
-  for (int c = 0; c < 3; ++c) dc[c] = col[c] * dcoef;
-  const float eps = B.eps[i];
-  const float rough = B.rough[slot], sc = B.spec[slot];
-  const bool r0 = rough != 0.0f;
-  const float cr = t_clamp_min(rough, F32(1e-6));
-  const float cr2 = cr * cr;
-  const float a = 2.0f / cr2 - 2.0f;
-  const float nv = sum3(N, V);
-
-  Acc3 LD = {}, LN = {}, LP = {}, Lre = {}, Lim = {}, Vb = {};
-  Acc3 mreb = {}, mimb = {}, dcb = {};
-  Acc roughb = {}, specb = {};
+// The ray of thread tt of the tile at r0 (cnt rays; a thread past them
+// only meets the light loop's barriers): its forward recomputed, then its
+// backward node by node in the engine's order, its (N, 3) gradients into
+// the tile's slots.  Every thread of the block calls it.
+__device__ __forceinline__ void gloss_bwd_ray(const GlossBwd& B, long long r0, int cnt,
+                                              float (*sh)[ROW]) {
+  const int tt = (int)threadIdx.x;
+  const bool act = tt < cnt;
+  const long long i = r0 + tt;
+  const int e0 = 3 * tt;
+  const float* const P = sh[S_P] + e0;
+  const float* const N = sh[S_N] + e0;
+  const float* const D = sh[S_D] + e0;
+  const float* const RE = sh[S_RE] + e0;
+  const float* const IM = sh[S_IM] + e0;
+  const float* const Gl = sh[S_G0] + e0;        // add's gradient, masked
+  const float* const G1 = sh[S_G0 + 1] + e0;    // beta_mult's
+  const float* const G2 = sh[S_G0 + 2] + e0;    // new_origin's
+  const float* const G3 = sh[S_G0 + 3] + e0;    // new_dir's
+  float* const LD = sh[S_LD] + e0;
+  float* const LN = sh[S_LN] + e0;
+  float* const LP = sh[S_LP] + e0;
+  float* const Lre = sh[S_LRE] + e0;
+  float* const Lim = sh[S_LIM] + e0;
+  float* const mreb = sh[S_MRE] + e0;
+  float* const mimb = sh[S_MIM] + e0;
+  float* const Vb = sh[S_VB] + e0;
+  float* const dcb = sh[S_DCB] + e0;
+  float* const col = sh[S_COL] + e0;
+  const bool gp0 = B.g[0] != nullptr, gp1 = B.g[1] != nullptr, gp2 = B.g[2] != nullptr,
+             gp3 = B.g[3] != nullptr;
+  unsigned fl = 0u;
+  float roughb = 0.0f, specb = 0.0f;
   float t[3];
 
-  // ---- new_dir = r / sqrt(_sum3(r, r)), r = D - N (2 _sum3(D, N)) ----
-  if (gp[3]) {
-    const float sdn = sum3(D, N);
-    const float k = 2.0f * sdn;
-    float r[3];
-    for (int c = 0; c < 3; ++c) r[c] = D[c] - N[c] * k;
-    const float rr = sum3(r, r);
-    const float sq = sqrtf(rr);
-    Acc3 rb = {};
-    for (int c = 0; c < 3; ++c) t[c] = G[3][c] / sq;
-    put3(rb, t);
-    const float sqb = tsum3(div_other(G[3][0], r[0], sq), div_other(G[3][1], r[1], sq),
-                            div_other(G[3][2], r[2], sq));
-    const float g434 = sqrt_bwd(sqb, rr, sq);
-    for (int c = 2; c >= 0; --c) {
-      put_sel(rb, c, g434 * r[c]);
-      put_sel(rb, c, g434 * r[c]);
-    }
-    put3(LD, rb.v);
-    for (int c = 0; c < 3; ++c) t[c] = -rb.v[c] * k;
-    put3(LN, t);
-    const float g420 = tsum3(-rb.v[0] * N[0], -rb.v[1] * N[1], -rb.v[2] * N[2]) * 2.0f;
-    for (int c = 2; c >= 0; --c) {
-      put_sel(LN, c, g420 * D[c]);
-      put_sel(LD, c, g420 * N[c]);
-    }
-  }
+  // ---- the forward's per-ray values ----
+  int raw_slot = 0, slot = 0;
+  float u = 0.0f, v = 0.0f, dcoef = 0.0f, rough = 0.0f, sc = 0.0f, cr = 0.0f, cr2 = 0.0f;
+  float a = 0.0f, nv = 0.0f;
+  bool r0f = false;
+  float F0r[3] = {};          // each channel's F0 against the ray's medium
+  if (act) {
+    raw_slot = (B.packed[i] >> SLOT_SHIFT) & 0x3FF;
+    slot = clip_slot(raw_slot, B.rows);
+    const float* const mre = B.m_re + 3 * slot;
+    const float* const mim = B.m_im + 3 * slot;
+    float cl[3];
+    for (int c = 0; c < 3; ++c) cl[c] = B.color[3 * slot + c];
+    u = B.uv[2 * i];
+    v = B.uv[2 * i + 1];
+    for (int r = 0; r < B.refs; ++r)
+      if (raw_slot == B.ref_slot[r]) fetch_texture(B.ref_tex, r, u, v, cl);
+    for (int c = 0; c < 3; ++c) col[c] = cl[c];
+    dcoef = B.diff[slot];
+    rough = B.rough[slot];
+    sc = B.spec[slot];
+    r0f = rough != 0.0f;
+    cr = t_clamp_min(rough, F32(1e-6));
+    cr2 = cr * cr;
+    a = 2.0f / cr2 - 2.0f;
+    const float V[3] = {-D[0], -D[1], -D[2]};
+    nv = sum3(N, V);
 
-  // ---- beta_mult = F0 + (1 - F0) pow(1 - clamp(_sum3(V, N), 0, 1), 5) ----
-  if (gp[1]) {
-    const float cvn = t_clamp(nv, 0.0f, 1.0f);
-    const float om = 1.0f - cvn;
-    const float s5 = t_pow(om, B.five);
-    Fresnel0 q[3];
-    for (int c = 0; c < 3; ++c) f0(B.scene_re[c], B.scene_im[c], mre[c], mim[c], q[c]);
-    const float s5b = tsum3(G[1][0] * (1.0f - q[0].F0), G[1][1] * (1.0f - q[1].F0),
-                            G[1][2] * (1.0f - q[2].F0));
-    const float g402 = in_or_zero(nv, 0.0f, 1.0f, -pow5_bwd(s5b, om, B.five));
-    for (int c = 2; c >= 0; --c) {
-      put_sel(LN, c, g402 * V[c]);
-      put_sel(Vb, c, g402 * N[c]);
+    // ---- new_dir = r / sqrt(_sum3(r, r)), r = D - N (2 _sum3(D, N)) ----
+    if (gp3) {
+      const float sdn = sum3(D, N);
+      const float k = 2.0f * sdn;
+      float r[3];
+      for (int c = 0; c < 3; ++c) r[c] = D[c] - N[c] * k;
+      const float rr = sum3(r, r);
+      const float sq = sqrtf(rr);
+      Acc3 rb = {};
+      for (int c = 0; c < 3; ++c) t[c] = G3[c] / sq;
+      put3(rb, t);
+      const float sqb = tsum3(div_other(G3[0], r[0], sq), div_other(G3[1], r[1], sq),
+                              div_other(G3[2], r[2], sq));
+      const float g434 = sqrt_bwd(sqb, rr, sq);
+      for (int c = 2; c >= 0; --c) {
+        put_sel(rb, c, g434 * r[c]);
+        put_sel(rb, c, g434 * r[c]);
+      }
+      put3_at(LD, fl, F_LD, rb.v);
+      for (int c = 0; c < 3; ++c) t[c] = -rb.v[c] * k;
+      put3_at(LN, fl, F_LN, t);
+      const float g420 = tsum3(-rb.v[0] * N[0], -rb.v[1] * N[1], -rb.v[2] * N[2]) * 2.0f;
+      for (int c = 2; c >= 0; --c) {
+        put_sel_at(LN, fl, F_LN, c, g420 * D[c]);
+        put_sel_at(LD, fl, F_LD, c, g420 * N[c]);
+      }
     }
-    float sa[3], ss[3], ia[3], is[3];
-    for (int c = 0; c < 3; ++c) {
-      const F0Grad r = f0_bwd(q[c], G[1][c] + -(G[1][c] * s5));
-      ia[c] = r.f;
-      sa[c] = r.e;
-      is[c] = r.b;
-      ss[c] = r.a;
-      t[c] = r.f;
+
+    // ---- beta_mult = F0 + (1 - F0) pow(1 - clamp(_sum3(V, N), 0, 1), 5),
+    // F0 against the scene's medium ----
+    if (gp1) {
+      const float cvn = t_clamp(nv, 0.0f, 1.0f);
+      const float om = 1.0f - cvn;
+      const float s5 = t_pow(om, B.five);
+      for (int c = 0; c < 3; ++c) {
+        Fresnel0 q;
+        f0(B.scene_re[c], B.scene_im[c], mre[c], mim[c], q);
+        t[c] = G1[c] * (1.0f - q.F0);
+      }
+      const float s5b = tsum3(t[0], t[1], t[2]);
+      const float g402 = in_or_zero(nv, 0.0f, 1.0f, -pow5_bwd(s5b, om, B.five));
+      for (int c = 2; c >= 0; --c) {
+        put_sel_at(LN, fl, F_LN, c, g402 * V[c]);
+        put_sel_at(Vb, fl, F_VB, c, g402 * N[c]);
+      }
+      // the shares of each channel, in the engine's order: m_im's and
+      // m_re's of the sum, then of the difference (-)
+      const bool hi = (fl & F_MIM) != 0u, hr = (fl & F_MRE) != 0u;
+      for (int c = 0; c < 3; ++c) {
+        Fresnel0 q;
+        f0(B.scene_re[c], B.scene_im[c], mre[c], mim[c], q);
+        const F0Grad r = f0_bwd(q, G1[c] + -(G1[c] * s5));
+        mimb[c] = hi ? mimb[c] + r.f : r.f;
+        mreb[c] = hr ? mreb[c] + r.e : r.e;
+        mimb[c] = mimb[c] + -r.b;
+        mreb[c] = mreb[c] + -r.a;
+        sh[S_SIA][e0 + c] = r.f;
+        sh[S_SRA][e0 + c] = r.e;
+        sh[S_SIS][e0 + c] = r.b;
+        sh[S_SRS][e0 + c] = r.a;
+      }
+      fl |= F_MIM | F_MRE;
     }
-    put3(mimb, ia);
-    put3(mreb, sa);
-    for (int c = 0; c < 3; ++c) t[c] = -is[c];
-    put3(mimb, t);
-    for (int c = 0; c < 3; ++c) t[c] = -ss[c];
-    put3(mreb, t);
-    for (int c = 0; c < 3; ++c) {
-      if (B.sim_add) B.sim_add[3 * i + c] = ia[c];
-      if (B.sre_add) B.sre_add[3 * i + c] = sa[c];
-      if (B.sim_sub) B.sim_sub[3 * i + c] = is[c];
-      if (B.sre_sub) B.sre_sub[3 * i + c] = ss[c];
-    }
+    // each channel's F0 against the ray's medium, and its terms the
+    // lights' backward reads
+    if (gp0)
+      for (int c = 0; c < 3; ++c) {
+        Fresnel0 q;
+        f0(RE[c], IM[c], mre[c], mim[c], q);
+        F0r[c] = q.F0;
+        sh[S_QA][e0 + c] = q.a;
+        sh[S_QB][e0 + c] = q.b;
+        sh[S_QE][e0 + c] = q.e;
+        sh[S_QF][e0 + c] = q.f;
+        sh[S_QD][e0 + c] = q.den2;
+      }
   }
 
   // ---- add: each light's term, last light first, then the ambient ----
   const int lights = B.n_dir + B.n_point + B.n_spot;
-  if (gp[0]) {
-    const float* Gl = G[0];
-    Fresnel0 q[3];
-    for (int c = 0; c < 3; ++c) f0(nre[c], nim[c], mre[c], mim[c], q[c]);
+  const bool light_rows = B.lc_rows != nullptr || B.lp_rows != nullptr;
+  if (gp0) {
 #pragma unroll 1
     for (int l = lights - 1; l >= 0; --l) {
-      const int kind = l < B.n_dir ? 0 : (l < B.n_dir + B.n_point ? 1 : 2);
-      const int li = kind == 0 ? l : (kind == 1 ? l - B.n_dir : l - B.n_dir - B.n_point);
-      // the light's direction (light_rays)
-      float L[3], d[3], lc[3];
-      float q2 = 0.0f, cq = 0.0f, sq = 0.0f, dist = 0.0f, cd = 0.0f;
-      if (kind == 0) {
-        for (int c = 0; c < 3; ++c) {
-          L[c] = B.dir_l[3 * li + c];
-          lc[c] = B.dir_color[3 * li + c];
-        }
-      } else {
-        const float* pos = kind == 1 ? B.point_pos + 3 * li : B.spot_pos + 3 * li;
-        for (int c = 0; c < 3; ++c) {
-          d[c] = pos[c] - P[c];
-          lc[c] = kind == 1 ? B.point_color[3 * li + c] : B.spot_color[3 * li + c];
-        }
-        q2 = tsum3(d[0] * d[0], d[1] * d[1], d[2] * d[2]);
-        cq = t_clamp_min(q2, F32(1e-30));
-        sq = sqrtf(cq);
-        dist = q2 > 0.0f ? sq : 0.0f;
-        cd = t_clamp_min(dist, F32(1e-20));
-        for (int c = 0; c < 3; ++c) L[c] = d[c] / cd;
-      }
-      // light_term's values
-      const float sdl = sum3(N, L);
-      const float NdotL = t_clamp_min(sdl, 0.0f);
-      const float see = B.occ != nullptr ? 1.0f - (float)B.occ[(long long)l * B.n + i] : 1.0f;
-      float nL[3], sd[3];
-      float cos_t = 0.0f, ci = 0.0f, co = 0.0f, num = 0.0f, cci = 0.0f, tq = 0.0f, tc = 0.0f;
-      float cone = 0.0f, dd2 = 0.0f, Y = 0.0f, s = NdotL;
-      if (kind == 2) {
-        for (int c = 0; c < 3; ++c) {
-          nL[c] = -L[c];
-          sd[c] = B.spot_dir[3 * li + c];
-        }
-        cos_t = sum3(nL, sd);
-        ci = B.spot_cos_in[li];
-        co = B.spot_cos_out[li];
-        num = cos_t - co;
-        cci = t_clamp_min(ci - co, F32(1e-6));
-        tq = num / cci;
-        tc = t_clamp(tq, 0.0f, 1.0f);
-        cone = (tc * tc) * (3.0f - 2.0f * tc);
-      }
-      if (kind == 1) {
-        dd2 = dist * dist;
-        s = (NdotL / dd2) * 100.0f;
-      } else if (kind == 2) {
-        dd2 = dist * dist;
-        Y = NdotL * cone;
-        s = (Y / dd2) * 100.0f;
-      }
-      float lv[3];
-      for (int c = 0; c < 3; ++c) lv[c] = lc[c] * s;
-      float H0[3], H[3];
-      for (int c = 0; c < 3; ++c) H0[c] = L[c] + V[c];
-      const float hq = tsum3(H0[0] * H0[0], H0[1] * H0[1], H0[2] * H0[2]);
-      const float hcq = t_clamp_min(hq, F32(1e-30));
-      const float hsq = sqrtf(hcq);
-      const float hn0 = hq > 0.0f ? hsq : 0.0f;
-      const float hn = t_clamp_min(hn0, F32(1e-20));
-      for (int c = 0; c < 3; ++c) H[c] = H0[c] / hn;
-      const float vh = sum3(V, H);
-      const float omc = 1.0f - t_clamp(vh, 0.0f, 1.0f);
-      const float s5 = t_pow(omc, B.five);
-      float F[3];
-      for (int c = 0; c < 3; ++c) F[c] = q[c].F0 + (1.0f - q[c].F0) * s5;
-      const float nh = sum3(N, H);
-      const float cnh = t_clamp(nh, 0.0f, 1.0f);
-      const float Pw = t_pow(cnh, a);
-      const float Dph = (Pw * (a + 2.0f)) / TWO_PI_F;
-      const float nvl = nv * NdotL;
-      const float den = 4.0f * t_clamp(nvl, F32(0.001), 1.0f);
-      const float Q = Dph / den;
-      const float Q2 = Q * see;
-      const float coef = Q2 * sc;
-      float X[3];
-      for (int c = 0; c < 3; ++c) X[c] = F[c] * coef;
-
-      // the specular lobe: where(roughness != 0, spec, 0), spec = (F coef) lv
-      Acc3 lvb = {}, Fb = {}, Hb = {}, Lb = {};
-      Acc NdotLb = {}, ab = {};
-      float Xb[3];
-      for (int c = 0; c < 3; ++c) {
-        const float sb = r0 ? Gl[c] : 0.0f;
-        Xb[c] = sb * lv[c];
-        t[c] = sb * X[c];
-      }
-      put3(lvb, t);
-      for (int c = 0; c < 3; ++c) t[c] = Xb[c] * coef;
-      put3(Fb, t);
-      const float coefb = tsum3(Xb[0] * F[0], Xb[1] * F[1], Xb[2] * F[2]);
-      put(specb, coefb * Q2);
-      const float Qb = (coefb * sc) * see;
-      const float Dphb = Qb / den;
-      const float g364 = in_or_zero(nvl, F32(0.001), 1.0f, div_other(Qb, Dph, den) * 4.0f);
-      const float NVb = g364 * NdotL;
-      put(NdotLb, g364 * nv);
-      for (int c = 2; c >= 0; --c) {
-        put_sel(Vb, c, NVb * N[c]);
-        put_sel(LN, c, NVb * V[c]);
-      }
-      const float g351 = Dphb / TWO_PI_F;
-      put(ab, g351 * Pw);
-      float baseb, expb;
-      powt_bwd(g351 * (a + 2.0f), cnh, a, Pw, &baseb, &expb);
-      put(ab, expb);
-      const float g347 = in_or_zero(nh, 0.0f, 1.0f, baseb);
-      for (int c = 2; c >= 0; --c) {
-        put_sel(Hb, c, g347 * N[c]);
-        put_sel(LN, c, g347 * H[c]);
-      }
-      // a = 2 / clamp_min(roughness, 1e-6)^2 - 2
-      put(roughb, ge_or_zero(rough, F32(1e-6), div_other(ab.v, 2.0f, cr2) * (2.0f * cr)));
-      // F = F0 + (1 - F0) s5, s5 = pow(1 - clamp(_sum3(V, H), 0, 1), 5)
-      const float s5b = tsum3(Fb.v[0] * (1.0f - q[0].F0), Fb.v[1] * (1.0f - q[1].F0),
-                              Fb.v[2] * (1.0f - q[2].F0));
-      const float g325 = in_or_zero(vh, 0.0f, 1.0f, -pow5_bwd(s5b, omc, B.five));
-      for (int c = 2; c >= 0; --c) {
-        put_sel(Hb, c, g325 * V[c]);
-        put_sel(Vb, c, g325 * H[c]);
-      }
-      // F0 against the ray's medium
-      float fi[3], fe[3], fb[3], fa[3];
-      for (int c = 0; c < 3; ++c) {
-        const F0Grad r = f0_bwd(q[c], Fb.v[c] + -(Fb.v[c] * s5));
-        fi[c] = r.f;
-        fe[c] = r.e;
-        fb[c] = r.b;
-        fa[c] = r.a;
-      }
-      put3(Lim, fi);
-      put3(mimb, fi);
-      put3(Lre, fe);
-      put3(mreb, fe);
-      put3(Lim, fb);
-      for (int c = 0; c < 3; ++c) t[c] = -fb[c];
-      put3(mimb, t);
-      put3(Lre, fa);
-      for (int c = 0; c < 3; ++c) t[c] = -fa[c];
-      put3(mreb, t);
-      // H = H0 / clamp_min(safe_norm(H0), 1e-20), H0 = L + V
-      Acc3 H0b = {};
-      for (int c = 0; c < 3; ++c) t[c] = Hb.v[c] / hn;
-      put3(H0b, t);
-      const float hnb = tsum3(div_other(Hb.v[0], H0[0], hn), div_other(Hb.v[1], H0[1], hn),
-                              div_other(Hb.v[2], H0[2], hn));
-      const float g299 = hq > 0.0f ? ge_or_zero(hn0, F32(1e-20), hnb) : 0.0f;
-      const float g297 = ge_or_zero(hq, F32(1e-30), sqrt_bwd(g299, hcq, hsq));
-      for (int c = 0; c < 3; ++c) t[c] = g297 * H0[c];
-      put3(H0b, t);
-      put3(H0b, t);
-      put3(Lb, H0b.v);
-      put3(Vb, H0b.v);
-      // the Lambert term (dc lv) see
-      for (int c = 0; c < 3; ++c) {
-        const float g292 = Gl[c] * see;
-        t[c] = g292 * lv[c];
-        lv[c] = g292 * dc[c];
-      }
-      put3(dcb, t);
-      put3(lvb, lv);
-      // the light's irradiance lv = colour s
-      float* lcr = B.lc_rows ? B.lc_rows + 3 * ((long long)l * B.n + i) : nullptr;
-      if (lcr)
-        for (int c = 0; c < 3; ++c) lcr[c] = lvb.v[c] * s;
-      const float sb = tsum3(lvb.v[0] * lc[0], lvb.v[1] * lc[1], lvb.v[2] * lc[2]);
-      Acc distb = {};
-      float coneb = 0.0f;
-      if (kind == 0) {
-        put(NdotLb, sb);
-      } else {
-        const float g289 = sb * 100.0f;
-        const float numv = kind == 1 ? NdotL : Y;
-        put(distb, div_other(g289, numv, dd2) * (2.0f * dist));
-        const float Yb = g289 / dd2;
-        if (kind == 1) {
-          put(NdotLb, Yb);
+      if (act) {
+        const int kind = l < B.n_dir ? 0 : (l < B.n_dir + B.n_point ? 1 : 2);
+        const int li = kind == 0 ? l : (kind == 1 ? l - B.n_dir : l - B.n_dir - B.n_point);
+        const float V[3] = {-D[0], -D[1], -D[2]};
+        // the light's direction (light_rays)
+        float L[3], d[3], lc[3];
+        float q2 = 0.0f, cq = 0.0f, sq = 0.0f, dist = 0.0f, cd = 0.0f;
+        if (kind == 0) {
+          for (int c = 0; c < 3; ++c) {
+            L[c] = B.dir_l[3 * li + c];
+            lc[c] = B.dir_color[3 * li + c];
+          }
         } else {
-          put(NdotLb, Yb * cone);
-          coneb = Yb * NdotL;
+          const float* pos = kind == 1 ? B.point_pos + 3 * li : B.spot_pos + 3 * li;
+          for (int c = 0; c < 3; ++c) {
+            d[c] = pos[c] - P[c];
+            lc[c] = kind == 1 ? B.point_color[3 * li + c] : B.spot_color[3 * li + c];
+          }
+          q2 = tsum3(d[0] * d[0], d[1] * d[1], d[2] * d[2]);
+          cq = t_clamp_min(q2, F32(1e-30));
+          sq = sqrtf(cq);
+          dist = q2 > 0.0f ? sq : 0.0f;
+          cd = t_clamp_min(dist, F32(1e-20));
+          for (int c = 0; c < 3; ++c) L[c] = d[c] / cd;
         }
-      }
-      // NdotL = clamp_min(_sum3(N, L), 0)
-      const float g284 = ge_or_zero(sdl, 0.0f, NdotLb.v);
-      for (int c = 2; c >= 0; --c) {
-        put_sel(Lb, c, g284 * N[c]);
-        put_sel(LN, c, g284 * L[c]);
-      }
-      if (kind == 2) {
-        // cone = t t (3 - 2 t), t = clamp((cos_t - co) / clamp_min(ci - co, 1e-6), 0, 1)
-        Acc tb = {};
-        put(tb, -(coneb * (tc * tc)) * 2.0f);
-        const float g269 = coneb * (3.0f - 2.0f * tc);
-        put(tb, g269 * tc);
-        put(tb, g269 * tc);
-        const float g268 = in_or_zero(tq, 0.0f, 1.0f, tb.v);
-        const float numb = g268 / cci;
-        const int sp = li;
-        if (B.cci_rows) B.cci_rows[(long long)sp * B.n + i] = div_other(g268, num, cci);
-        if (B.nco_rows) B.nco_rows[(long long)sp * B.n + i] = -numb;
-        // cos_t = _sum3(-L, spot_dir[None, :])
-        Acc3 nLb = {};
+        // light_term's values
+        const float sdl = sum3(N, L);
+        const float NdotL = t_clamp_min(sdl, 0.0f);
+        const float see = B.occ != nullptr ? 1.0f - (float)B.occ[(long long)l * B.n + i] : 1.0f;
+        float nL[3], sd[3];
+        float ci = 0.0f, co = 0.0f, num = 0.0f, cci = 0.0f, tq = 0.0f, tc = 0.0f;
+        float cone = 0.0f, dd2 = 0.0f, Y = 0.0f, s = NdotL;
+        if (kind == 2) {
+          for (int c = 0; c < 3; ++c) {
+            nL[c] = -L[c];
+            sd[c] = B.spot_dir[3 * li + c];
+          }
+          const float cos_t = sum3(nL, sd);
+          ci = B.spot_cos_in[li];
+          co = B.spot_cos_out[li];
+          num = cos_t - co;
+          cci = t_clamp_min(ci - co, F32(1e-6));
+          tq = num / cci;
+          tc = t_clamp(tq, 0.0f, 1.0f);
+          cone = (tc * tc) * (3.0f - 2.0f * tc);
+        }
+        if (kind == 1) {
+          dd2 = dist * dist;
+          s = (NdotL / dd2) * 100.0f;
+        } else if (kind == 2) {
+          dd2 = dist * dist;
+          Y = NdotL * cone;
+          s = (Y / dd2) * 100.0f;
+        }
+        float lv[3];
+        for (int c = 0; c < 3; ++c) lv[c] = lc[c] * s;
+        float H0[3], H[3];
+        for (int c = 0; c < 3; ++c) H0[c] = L[c] + V[c];
+        const float hq = tsum3(H0[0] * H0[0], H0[1] * H0[1], H0[2] * H0[2]);
+        const float hcq = t_clamp_min(hq, F32(1e-30));
+        const float hsq = sqrtf(hcq);
+        const float hn0 = hq > 0.0f ? hsq : 0.0f;
+        const float hn = t_clamp_min(hn0, F32(1e-20));
+        for (int c = 0; c < 3; ++c) H[c] = H0[c] / hn;
+        const float vh = sum3(V, H);
+        const float omc = 1.0f - t_clamp(vh, 0.0f, 1.0f);
+        const float s5 = t_pow(omc, B.five);
+        // F = F0 + (1 - F0) s5, F0 against the ray's medium
+        float F[3];
+        for (int c = 0; c < 3; ++c) F[c] = F0r[c] + (1.0f - F0r[c]) * s5;
+        const float nh = sum3(N, H);
+        const float cnh = t_clamp(nh, 0.0f, 1.0f);
+        const float Pw = t_pow(cnh, a);
+        const float Dph = (Pw * (a + 2.0f)) / TWO_PI_F;
+        const float nvl = nv * NdotL;
+        const float den = 4.0f * t_clamp(nvl, F32(0.001), 1.0f);
+        const float Q = Dph / den;
+        const float Q2 = Q * see;
+        const float coef = Q2 * sc;
+
+        // the specular lobe: where(roughness != 0, spec, 0), spec = (F coef) lv
+        Acc3 lvb = {}, Fb = {}, Hb = {}, Lb = {};
+        Acc NdotLb = {}, ab = {};
+        float Xb[3];
+        for (int c = 0; c < 3; ++c) {
+          const float sb = r0f ? Gl[c] : 0.0f;
+          Xb[c] = sb * lv[c];
+          t[c] = sb * (F[c] * coef);
+        }
+        put3(lvb, t);
+        for (int c = 0; c < 3; ++c) t[c] = Xb[c] * coef;
+        put3(Fb, t);
+        const float coefb = tsum3(Xb[0] * F[0], Xb[1] * F[1], Xb[2] * F[2]);
+        put_at(specb, fl, F_SPEC, coefb * Q2);
+        const float Qb = (coefb * sc) * see;
+        const float Dphb = Qb / den;
+        const float g364 = in_or_zero(nvl, F32(0.001), 1.0f, div_other(Qb, Dph, den) * 4.0f);
+        const float NVb = g364 * NdotL;
+        put(NdotLb, g364 * nv);
         for (int c = 2; c >= 0; --c) {
-          if (B.sd_rows) B.sd_rows[((long long)sp * 3 + c) * B.n + i] = numb * nL[c];
-          put_sel(nLb, c, numb * sd[c]);
+          put_sel_at(Vb, fl, F_VB, c, NVb * N[c]);
+          put_sel_at(LN, fl, F_LN, c, NVb * V[c]);
         }
-        for (int c = 0; c < 3; ++c) t[c] = -nLb.v[c];
-        put3(Lb, t);
+        const float g351 = Dphb / TWO_PI_F;
+        put(ab, g351 * Pw);
+        float baseb, expb;
+        powt_bwd(g351 * (a + 2.0f), cnh, a, Pw, &baseb, &expb);
+        put(ab, expb);
+        const float g347 = in_or_zero(nh, 0.0f, 1.0f, baseb);
+        for (int c = 2; c >= 0; --c) {
+          put_sel(Hb, c, g347 * N[c]);
+          put_sel_at(LN, fl, F_LN, c, g347 * H[c]);
+        }
+        // a = 2 / clamp_min(roughness, 1e-6)^2 - 2
+        put_at(roughb, fl, F_ROUGH,
+               ge_or_zero(rough, F32(1e-6), div_other(ab.v, 2.0f, cr2) * (2.0f * cr)));
+        // F = F0 + (1 - F0) s5, s5 = pow(1 - clamp(_sum3(V, H), 0, 1), 5)
+        for (int c = 0; c < 3; ++c) t[c] = Fb.v[c] * (1.0f - F0r[c]);
+        const float s5b = tsum3(t[0], t[1], t[2]);
+        const float g325 = in_or_zero(vh, 0.0f, 1.0f, -pow5_bwd(s5b, omc, B.five));
+        for (int c = 2; c >= 0; --c) {
+          put_sel(Hb, c, g325 * V[c]);
+          put_sel_at(Vb, fl, F_VB, c, g325 * H[c]);
+        }
+        // F0 against the ray's medium: each channel's shares in the
+        // engine's order, the sum's (n_im's and m_im's, n_re's and m_re's),
+        // then the difference's (m's -)
+        {
+          const bool hli = (fl & F_LIM) != 0u, hmi = (fl & F_MIM) != 0u;
+          const bool hlr = (fl & F_LRE) != 0u, hmr = (fl & F_MRE) != 0u;
+          for (int c = 0; c < 3; ++c) {
+            Fresnel0 q;
+            q.a = sh[S_QA][e0 + c];
+            q.b = sh[S_QB][e0 + c];
+            q.e = sh[S_QE][e0 + c];
+            q.f = sh[S_QF][e0 + c];
+            q.den2 = sh[S_QD][e0 + c];
+            q.den = t_clamp_min(q.den2, F32(1e-20));
+            q.F0 = F0r[c];
+            const F0Grad r = f0_bwd(q, Fb.v[c] + -(Fb.v[c] * s5));
+            Lim[c] = hli ? Lim[c] + r.f : r.f;
+            mimb[c] = hmi ? mimb[c] + r.f : r.f;
+            Lre[c] = hlr ? Lre[c] + r.e : r.e;
+            mreb[c] = hmr ? mreb[c] + r.e : r.e;
+            Lim[c] = Lim[c] + r.b;
+            mimb[c] = mimb[c] + -r.b;
+            Lre[c] = Lre[c] + r.a;
+            mreb[c] = mreb[c] + -r.a;
+          }
+          fl |= F_LIM | F_MIM | F_LRE | F_MRE;
+        }
+        // H = H0 / clamp_min(safe_norm(H0), 1e-20), H0 = L + V
+        Acc3 H0b = {};
+        for (int c = 0; c < 3; ++c) t[c] = Hb.v[c] / hn;
+        put3(H0b, t);
+        const float hnb = tsum3(div_other(Hb.v[0], H0[0], hn), div_other(Hb.v[1], H0[1], hn),
+                                div_other(Hb.v[2], H0[2], hn));
+        const float g299 = hq > 0.0f ? ge_or_zero(hn0, F32(1e-20), hnb) : 0.0f;
+        const float g297 = ge_or_zero(hq, F32(1e-30), sqrt_bwd(g299, hcq, hsq));
+        for (int c = 0; c < 3; ++c) t[c] = g297 * H0[c];
+        put3(H0b, t);
+        put3(H0b, t);
+        put3(Lb, H0b.v);
+        put3_at(Vb, fl, F_VB, H0b.v);
+        // the Lambert term (dc lv) see
+        for (int c = 0; c < 3; ++c) {
+          const float g292 = Gl[c] * see;
+          t[c] = g292 * lv[c];
+          lv[c] = g292 * (col[c] * dcoef);
+        }
+        put3_at(dcb, fl, F_DCB, t);
+        put3(lvb, lv);
+        // the light's irradiance lv = colour s
+        if (B.lc_rows)
+          for (int c = 0; c < 3; ++c) sh[S_LC][e0 + c] = lvb.v[c] * s;
+        const float sb = tsum3(lvb.v[0] * lc[0], lvb.v[1] * lc[1], lvb.v[2] * lc[2]);
+        Acc distb = {};
+        float coneb = 0.0f;
+        if (kind == 0) {
+          put(NdotLb, sb);
+        } else {
+          const float g289 = sb * 100.0f;
+          const float numv = kind == 1 ? NdotL : Y;
+          put(distb, div_other(g289, numv, dd2) * (2.0f * dist));
+          const float Yb = g289 / dd2;
+          if (kind == 1) {
+            put(NdotLb, Yb);
+          } else {
+            put(NdotLb, Yb * cone);
+            coneb = Yb * NdotL;
+          }
+        }
+        // NdotL = clamp_min(_sum3(N, L), 0)
+        const float g284 = ge_or_zero(sdl, 0.0f, NdotLb.v);
+        for (int c = 2; c >= 0; --c) {
+          put_sel(Lb, c, g284 * N[c]);
+          put_sel_at(LN, fl, F_LN, c, g284 * L[c]);
+        }
+        if (kind == 2) {
+          // cone = t t (3 - 2 t), t = clamp((cos_t - co) / clamp_min(ci - co, 1e-6), 0, 1)
+          Acc tb = {};
+          put(tb, -(coneb * (tc * tc)) * 2.0f);
+          const float g269 = coneb * (3.0f - 2.0f * tc);
+          put(tb, g269 * tc);
+          put(tb, g269 * tc);
+          const float g268 = in_or_zero(tq, 0.0f, 1.0f, tb.v);
+          const float numb = g268 / cci;
+          const int sp = li;
+          if (B.cci_rows) B.cci_rows[(long long)sp * B.n + i] = div_other(g268, num, cci);
+          if (B.nco_rows) B.nco_rows[(long long)sp * B.n + i] = -numb;
+          // cos_t = _sum3(-L, spot_dir[None, :])
+          Acc3 nLb = {};
+          for (int c = 2; c >= 0; --c) {
+            if (B.sd_rows) B.sd_rows[((long long)sp * 3 + c) * B.n + i] = numb * nL[c];
+            put_sel(nLb, c, numb * sd[c]);
+          }
+          for (int c = 0; c < 3; ++c) t[c] = -nLb.v[c];
+          put3(Lb, t);
+        }
+        // the light's direction: a directional light's row; a point or spot
+        // light's d / clamp_min(dist, 1e-20), d = pos - P
+        if (kind == 0) {
+          if (B.lp_rows)
+            for (int c = 0; c < 3; ++c) sh[S_LPR][e0 + c] = Lb.v[c];
+        } else {
+          Acc3 db = {};
+          for (int c = 0; c < 3; ++c) t[c] = Lb.v[c] / cd;
+          put3(db, t);
+          const float cdb = tsum3(div_other(Lb.v[0], d[0], cd), div_other(Lb.v[1], d[1], cd),
+                                  div_other(Lb.v[2], d[2], cd));
+          put(distb, ge_or_zero(dist, F32(1e-20), cdb));
+          const float g38 = q2 > 0.0f ? distb.v : 0.0f;
+          const float g35 = ge_or_zero(q2, F32(1e-30), sqrt_bwd(g38, cq, sq));
+          for (int c = 0; c < 3; ++c) t[c] = g35 * d[c];
+          put3(db, t);
+          put3(db, t);
+          if (B.lp_rows)
+            for (int c = 0; c < 3; ++c) sh[S_LPR][e0 + c] = db.v[c];
+          for (int c = 0; c < 3; ++c) t[c] = -db.v[c];
+          put3_at(LP, fl, F_LP, t);
+        }
       }
-      // the light's direction: a directional light's row; a point or spot
-      // light's d / clamp_min(dist, 1e-20), d = pos - P
-      float* lpr = B.lp_rows ? B.lp_rows + 3 * ((long long)l * B.n + i) : nullptr;
-      if (kind == 0) {
-        if (lpr)
-          for (int c = 0; c < 3; ++c) lpr[c] = Lb.v[c];
-      } else {
-        Acc3 db = {};
-        for (int c = 0; c < 3; ++c) t[c] = Lb.v[c] / cd;
-        put3(db, t);
-        const float cdb = tsum3(div_other(Lb.v[0], d[0], cd), div_other(Lb.v[1], d[1], cd),
-                                div_other(Lb.v[2], d[2], cd));
-        put(distb, ge_or_zero(dist, F32(1e-20), cdb));
-        const float g38 = q2 > 0.0f ? distb.v : 0.0f;
-        const float g35 = ge_or_zero(q2, F32(1e-30), sqrt_bwd(g38, cq, sq));
-        for (int c = 0; c < 3; ++c) t[c] = g35 * d[c];
-        put3(db, t);
-        put3(db, t);
-        if (lpr)
-          for (int c = 0; c < 3; ++c) lpr[c] = db.v[c];
-        for (int c = 0; c < 3; ++c) t[c] = -db.v[c];
-        put3(LP, t);
+      if (light_rows) {
+        // the light's (N, 3) rows out, element by element
+        __syncthreads();
+        for (int k = 0; k < 3; ++k) {
+          const int e = k * GLOSSY_BWD_TILE + (int)threadIdx.x;
+          if (e >= 3 * cnt) continue;
+          const long long o = 3 * ((long long)l * B.n + r0) + e;
+          if (B.lc_rows) B.lc_rows[o] = sh[S_LC][e];
+          if (B.lp_rows) B.lp_rows[o] = sh[S_LPR][e];
+        }
+        __syncthreads();
       }
     }
+  }
+  if (!act) return;
+  if (gp0) {
     // the ambient term ambient[None, :] dc
     for (int c = 0; c < 3; ++c) {
-      if (B.amb_rows) B.amb_rows[3 * i + c] = Gl[c] * dc[c];
+      if (B.amb_rows) sh[S_AMB][e0 + c] = Gl[c] * (col[c] * dcoef);
       t[c] = Gl[c] * B.ambient[c];
     }
-    put3(dcb, t);
+    put3_at(dcb, fl, F_DCB, t);
   }
 
   // ---- the nudged origin P + N eps ----
-  if (gp[2]) {
-    put3(LP, G[2]);
-    for (int c = 0; c < 3; ++c) t[c] = G[2][c] * eps;
-    put3(LN, t);
+  const float eps = B.eps[i];
+  if (gp2) {
+    put3_at(LP, fl, F_LP, G2);
+    for (int c = 0; c < 3; ++c) t[c] = G2[c] * eps;
+    put3_at(LN, fl, F_LN, t);
   }
   // ---- V = -D ----
-  if (Vb.has) {
-    for (int c = 0; c < 3; ++c) t[c] = -Vb.v[c];
-    put3(LD, t);
+  if (fl & F_VB) {
+    for (int c = 0; c < 3; ++c) t[c] = -Vb[c];
+    put3_at(LD, fl, F_LD, t);
   }
+  // the gradients that leave from the tile: +0 where none came
   for (int c = 0; c < 3; ++c) {
-    if (B.dD) B.dD[3 * i + c] = got(LD, c);
-    if (B.dN) B.dN[3 * i + c] = got(LN, c);
-    if (B.dP) B.dP[3 * i + c] = got(LP, c);
-    if (B.dn_re) B.dn_re[3 * i + c] = got(Lre, c);
-    if (B.dn_im) B.dn_im[3 * i + c] = got(Lim, c);
-    if (B.m_re_rows) B.m_re_rows[3 * i + c] = got(mreb, c);
-    if (B.m_im_rows) B.m_im_rows[3 * i + c] = got(mimb, c);
+    if (B.dD) LD[c] = (fl & F_LD) ? LD[c] : 0.0f;
+    if (B.dN) LN[c] = (fl & F_LN) ? LN[c] : 0.0f;
+    if (B.dP) LP[c] = (fl & F_LP) ? LP[c] : 0.0f;
+    if (B.dn_re) Lre[c] = (fl & F_LRE) ? Lre[c] : 0.0f;
+    if (B.dn_im) Lim[c] = (fl & F_LIM) ? Lim[c] : 0.0f;
+    if (B.m_re_rows) mreb[c] = (fl & F_MRE) ? mreb[c] : 0.0f;
+    if (B.m_im_rows) mimb[c] = (fl & F_MIM) ? mimb[c] : 0.0f;
   }
   if (B.deps)
-    B.deps[i] = gp[2] ? tsum3(G[2][0] * N[0], G[2][1] * N[1], G[2][2] * N[2]) : 0.0f;
-  if (B.rough_rows) B.rough_rows[i] = got(roughb);
-  if (B.spec_rows) B.spec_rows[i] = got(specb);
+    B.deps[i] = gp2 ? tsum3(G2[0] * N[0], G2[1] * N[1], G2[2] * N[2]) : 0.0f;
+  if (B.rough_rows) B.rough_rows[i] = got_at(roughb, fl, F_ROUGH);
+  if (B.spec_rows) B.spec_rows[i] = got_at(specb, fl, F_SPEC);
   // the diffuse colour dc = colour * glossy_diff[..., None]: the colour's
   // wheres, last ref first, each bilinear ref's fetch into uv
+  const bool hd = (fl & F_DCB) != 0u;
   float colb[3];
-  for (int c = 0; c < 3; ++c) colb[c] = got(dcb, c) * dcoef;
+  for (int c = 0; c < 3; ++c) colb[c] = (hd ? dcb[c] : 0.0f) * dcoef;
   if (B.diff_rows)
-    B.diff_rows[i] = dcb.has ? tsum3(dcb.v[0] * col[0], dcb.v[1] * col[1], dcb.v[2] * col[2])
-                             : 0.0f;
+    B.diff_rows[i] = hd ? tsum3(dcb[0] * col[0], dcb[1] * col[1], dcb[2] * col[2]) : 0.0f;
   float a0 = 0.0f, a1 = 0.0f;
   bool has = false;
   int plane = B.taps.rows ? tap_planes_total(B.ref_tex, B.refs) : 0;
@@ -658,15 +753,61 @@ __device__ void gloss_bwd_ray(const GlossBwd& B, long long i) {
     B.duv[2 * i + 1] = a1;
   }
   if (B.color_rows)
-    for (int c = 0; c < 3; ++c) B.color_rows[3 * i + c] = colb[c];
+    for (int c = 0; c < 3; ++c) sh[S_CROWS][e0 + c] = colb[c];
 }
 
-__global__ void __launch_bounds__(GLOSSY_BWD_BLOCK)
+__global__ void __launch_bounds__(GLOSSY_BWD_TILE, GLOSS_BWD_MIN_BLOCKS)
 shade_glossy_bwd_kernel(GlossBwd B) {
-  const long long stride = (long long)gridDim.x * GLOSSY_BWD_BLOCK;
-  for (long long i = (long long)blockIdx.x * GLOSSY_BWD_BLOCK + threadIdx.x; i < B.n;
-       i += stride)
-    gloss_bwd_ray(B, i);
+  __shared__ float sh[NSLOT][ROW];
+  const int tt = (int)threadIdx.x;
+  const long long stride = (long long)gridDim.x * GLOSSY_BWD_TILE;
+  for (long long r0 = (long long)blockIdx.x * GLOSSY_BWD_TILE; r0 < B.n; r0 += stride) {
+    const long long rest = B.n - r0;
+    const int cnt = (int)(rest < GLOSSY_BWD_TILE ? rest : GLOSSY_BWD_TILE);
+    // the tile's rows in, element by element: the output gradients masked
+    // (the merge's where(m, o, g): +0 to the rays outside the block), their
+    // pass-through gradients out
+    for (int k = 0; k < 3; ++k) {
+      const int e = k * GLOSSY_BWD_TILE + tt;
+      if (e >= 3 * cnt) continue;
+      const long long j = 3 * r0 + e;
+      sh[S_P][e] = B.P[j];
+      sh[S_N][e] = B.N[j];
+      sh[S_D][e] = B.D[j];
+      sh[S_RE][e] = B.re_step ? B.n_re[j] : B.n_re[e % 3];
+      sh[S_IM][e] = B.im_step ? B.n_im[j] : B.n_im[e % 3];
+      const bool mk = B.m[r0 + e / 3] != 0;
+      for (int f = 0; f < 4; ++f) {
+        if (!B.g[f]) continue;
+        const float g = B.g[f][j];
+        sh[S_G0 + f][e] = mk ? g : 0.0f;
+        if (B.pass[f]) B.pass[f][j] = mk ? 0.0f : g;
+      }
+    }
+    __syncthreads();
+    gloss_bwd_ray(B, r0, cnt, sh);
+    __syncthreads();
+    // the tile's gradients and rows out, element by element
+    for (int k = 0; k < 3; ++k) {
+      const int e = k * GLOSSY_BWD_TILE + tt;
+      if (e >= 3 * cnt) continue;
+      const long long o = 3 * r0 + e;
+      if (B.dD) B.dD[o] = sh[S_LD][e];
+      if (B.dN) B.dN[o] = sh[S_LN][e];
+      if (B.dP) B.dP[o] = sh[S_LP][e];
+      if (B.dn_re) B.dn_re[o] = sh[S_LRE][e];
+      if (B.dn_im) B.dn_im[o] = sh[S_LIM][e];
+      if (B.m_re_rows) B.m_re_rows[o] = sh[S_MRE][e];
+      if (B.m_im_rows) B.m_im_rows[o] = sh[S_MIM][e];
+      if (B.color_rows) B.color_rows[o] = sh[S_CROWS][e];
+      if (B.amb_rows) B.amb_rows[o] = sh[S_AMB][e];
+      if (B.sre_add) B.sre_add[o] = sh[S_SRA][e];
+      if (B.sre_sub) B.sre_sub[o] = sh[S_SRS][e];
+      if (B.sim_add) B.sim_add[o] = sh[S_SIA][e];
+      if (B.sim_sub) B.sim_sub[o] = sh[S_SIS][e];
+    }
+    __syncthreads();
+  }
 }
 
 cudaError_t residency(int* sms, int* per_sm) {
@@ -676,7 +817,7 @@ cudaError_t residency(int* sms, int* per_sm) {
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, shade_glossy_bwd_kernel,
-                                                        GLOSSY_BWD_BLOCK, 0);
+                                                        GLOSSY_BWD_TILE, 0);
   return err;
 }
 
@@ -721,10 +862,10 @@ extern "C" int shade_glossy_bwd(const GlossBwd* B, void* stream, int* launched) 
   int sms = 0, per_sm = 0;
   cudaError_t err = residency(&sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
-  const long long need = (B->n + GLOSSY_BWD_BLOCK - 1) / GLOSSY_BWD_BLOCK;
+  const long long need = (B->n + GLOSSY_BWD_TILE - 1) / GLOSSY_BWD_TILE;
   const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int grid = (int)(need < most ? need : most);
-  LAUNCH(shade_glossy_bwd_kernel, grid, GLOSSY_BWD_BLOCK, 0,
+  LAUNCH(shade_glossy_bwd_kernel, grid, GLOSSY_BWD_TILE, 0,
          static_cast<cudaStream_t>(stream), *B);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
@@ -742,8 +883,8 @@ extern "C" int shade_glossy_bwd_info(int* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[4] = GLOSSY_BWD_BLOCK;
-  out[5] = 1;
-  out[6] = GLOSSY_BWD_BLOCK;
+  out[4] = GLOSSY_BWD_TILE;
+  out[5] = GLOSS_BWD_MIN_BLOCKS;
+  out[6] = GLOSSY_BWD_TILE;
   return 0;
 }

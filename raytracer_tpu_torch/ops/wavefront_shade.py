@@ -1358,10 +1358,21 @@ def _selected(parts, shape):
     return out
 
 
+def _own(x):
+    """x where its data starts on a 16-byte boundary, else a copy of it:
+    ATen's sum of a row plans its four-wide loads from the row's first
+    16-byte boundary, and the gradient the engine sums is a tensor of its
+    own.  A light's (or a spot direction's channel's) rows lie a multiple
+    of n floats into the kernel's buffer, off that boundary where n is no
+    multiple of 4."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _light_grads(s, light_rows, want):
     """{light table: its gradient} from the kernel's per-(light, ray) rows:
-    each light's broadcast row summed over the rays (the engine's sum_to),
-    then the lights' selects (`_selected`)."""
+    each light's broadcast row summed over the rays (the engine's sum_to,
+    of rows on their own boundary: `_own`), then the lights' selects
+    (`_selected`)."""
     nd, np_, ns = s.kinds
     res = {}
     lc, lp = light_rows.get("lc"), light_rows.get("lp")
@@ -1369,13 +1380,13 @@ def _light_grads(s, light_rows, want):
     for kind, (at, k) in spans.items():
         colour, where = f"{kind}_color", ("dir_l" if kind == "dir" else f"{kind}_pos")
         if want[colour]:
-            res[colour] = _selected([(i, lc[at + i].sum_to_size(1, 3).reshape(3))
+            res[colour] = _selected([(i, _own(lc[at + i]).sum_to_size(1, 3).reshape(3))
                                      for i in range(k)], getattr(s, colour).shape)
         if want[where]:
             # a directional light's expanded row, a point or spot light's
             # position pos[None, :]
             size = (3,) if kind == "dir" else (1, 3)
-            res[where] = _selected([(i, lp[at + i].sum_to_size(*size).reshape(3))
+            res[where] = _selected([(i, _own(lp[at + i]).sum_to_size(*size).reshape(3))
                                     for i in range(k)], getattr(s, where).shape)
     if want["spot_dir"]:
         parts = []
@@ -1384,7 +1395,7 @@ def _light_grads(s, light_rows, want):
             row = None
             for c in (2, 1, 0):
                 t = s.spot_dir.new_zeros((1, 3))
-                t[0, c] = light_rows["sd"][i, c].sum_to_size(1)[0]
+                t[0, c] = _own(light_rows["sd"][i, c]).sum_to_size(1)[0]
                 row = t if row is None else row + t
             parts.append((i, row.reshape(3)))
         res["spot_dir"] = _selected(parts, s.spot_dir.shape)
@@ -1393,12 +1404,12 @@ def _light_grads(s, light_rows, want):
         for i in range(ns):
             # t = (cos_t - co) / clamp_min(ci - co, 1e-6): the divisor's
             # gradient summed over the rays, clamp_min's mask, ci - co
-            g = light_rows["cci"][i].sum_to_size(())
+            g = _own(light_rows["cci"][i]).sum_to_size(())
             ci, co = s.spot_cos_in[i], s.spot_cos_out[i]
             g = torch.where(ci - co >= 1e-6, g, torch.zeros_like(g))
             ins.append((i, g))
             if want["spot_cos_out"]:
-                outs.append((i, -g + light_rows["nco"][i].sum_to_size(())))
+                outs.append((i, -g + _own(light_rows["nco"][i]).sum_to_size(())))
         if want["spot_cos_in"]:
             res["spot_cos_in"] = _selected(ins, s.spot_cos_in.shape)
         if want["spot_cos_out"]:

@@ -302,6 +302,118 @@ def queued_pass(sass, kernel, per="FMUL"):
     return queue, shaded
 
 
+# the instructions of the FP32 pipes: a backward kernel's float arithmetic,
+# the fast paths of its IEEE divisions and square roots among them
+FP32_OPS = frozenset({"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
+                      "FRND", "F2I", "F2F", "I2F", "I2FP", "MUFU"})
+
+
+def bwd_pass(sass, kernel, trips=1, per="FMUL", heavy=20, every_if=True, small=1):
+    """(FP32 instructions, [(head, FP32 instructions, count of `per`, times
+    counted)]) of one pass of the loop over a backward kernel's rays or
+    tiles (the widest loop holding `per` of the kernel whose name holds
+    `kernel`) on the path of a ray that takes every gradient: every
+    conditional forward branch inside it not taken (the body of each `if`
+    runs: each output gradient present, each wanted input written) but one
+    that jumps over the call of a slow path (a division's or square
+    root's), and every unconditional one taken (an `if`'s other
+    alternative skipped).
+
+    Only the instructions of FP32_OPS count: the float work, nearly the
+    same in any build that keeps the function's ops and their order.
+    Loads and stores of every space (a tile's rows, a stack's spills),
+    integer and address arithmetic, moves and control are left out: they
+    grow with the implementation, and the memory side is the bytes'
+    bound.  An FP32 instruction takes a lane of the FP32 pipes, so FP32
+    instructions x rays over their rate is a lower bound of the call's
+    time (chip_smoke.py --backward's bound).
+
+    Each loop inside it that holds `heavy` or more `per` (a glossy
+    backward's lights, a refractive backward's channels, W5's kinds and
+    maps) counts `trips` times (a sequence: the k-th such loop in address
+    order trips[k] times, the last repeated), on the same path; a smaller
+    one (a glossy backward's texture refs) `small` times (0 where the call
+    runs none) on its shortest path, so that what a ref's `if`s guard (a
+    ray's fetch, a wanted texture's taps, a bilinear ref's uv) does not
+    count.  The inner loops are listed with their counts, so that a row
+    can show what it counted.  Not `every_if`: every forward branch
+    taken, the shortest path, a lower count for a kernel whose rays take
+    exclusive branches by their data (W4's diffuse backward: caps,
+    environment or cosine lobe; W6's start: emissive, environment or
+    neither)."""
+    body, branches, loops = _loops(sass, kernel, per)
+    _, _, lo, hi = max(loops, key=lambda L: L[3] - L[2])
+    cond = _predicated_branches(sass, kernel) if every_if else set()
+    inner = [L for L in loops if lo < L[2] and L[3] <= hi]
+    top = [L for L in inner if not any(M is not L and M[2] <= L[2] and L[3] <= M[3]
+                                       for M in inner)]
+    heads = []
+    total = _every_if_path(body, branches, cond, lo, hi,
+                           [(L[2], L[3]) for L in top])
+    per_loop = list(trips) if isinstance(trips, (list, tuple)) else [trips]
+    j = 0
+    for n_per, _, a, b in sorted(top, key=lambda L: L[2]):
+        k, c = small, set()
+        if n_per >= heavy:
+            k, j, c = per_loop[min(j, len(per_loop) - 1)], j + 1, cond
+        n = _every_if_path(body, branches, c, a, b, ())
+        heads.append((a, n, n_per, k))
+        total += k * n
+    return total, heads
+
+
+def _predicated_branches(sass, kernel):
+    """The addresses of the branches of the kernel whose name holds
+    `kernel` that a predicate decides (not `@PT`)."""
+    out, cur = set(), False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = kernel in m.group(1)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+@(!?)(U?P\w+)\s+BRA\b", line) if cur else None
+        if m and not (m.group(3) == "PT" and not m.group(2)):
+            out.add(int(m.group(1), 16))
+    return out
+
+
+# the most instructions a conditional branch jumps over where it skips a
+# call of a slow path (a division's: MOV, CALL.REL.NOINC, MOV)
+STUB = 6
+
+
+def _every_if_path(body, branches, cond, lo, hi, holes):
+    """FP32_OPS instructions of [lo, hi] on the path that takes every
+    unconditional forward branch inside it and every conditional one that
+    jumps over the call of a slow path (a stretch of at most STUB
+    instructions holding a CALL), and no other, less the stretches `holes`
+    (inner loops, counted apart)."""
+    import bisect
+
+    addrs = [x for x, _, _ in body]
+    i0, i1 = bisect.bisect_left(addrs, lo), bisect.bisect_right(addrs, hi)
+    sub = addrs[i0:i1]
+    calls = [0]
+    for _, op, _ in body[i0:i1]:
+        calls.append(calls[-1] + op.startswith("CALL"))
+    skip = [0] * (len(sub) + 1)
+    for a, t in branches:
+        if lo <= a < t <= hi:
+            ia, it = bisect.bisect_right(sub, a), bisect.bisect_left(sub, t)
+            if ia < it and (a not in cond or (calls[it] > calls[ia] and it - ia <= STUB)):
+                skip[ia] += 1
+                skip[it] -= 1
+    for a, b in holes:
+        ia, it = bisect.bisect_left(sub, a), bisect.bisect_right(sub, b)
+        skip[ia] += 1
+        skip[it] -= 1
+    n, run = 0, 0
+    for k in range(len(sub)):
+        run += skip[k]
+        n += run == 0 and body[i0 + k][1] in FP32_OPS
+    return n
+
+
 def _loops(sass, kernel, per):
     """(instructions, backward branches, loops) of a kernel's SASS: each
     instruction (address, op, operands); each loop (count of `per` in its

@@ -144,7 +144,7 @@ def passes(torch, grad, n):
 def agree(torch, gs):
     """(every gradient equals the first bit for bit, largest difference)."""
     return (all(bool(torch.equal(gs[0], g)) for g in gs[1:]),
-            max(float((gs[0] - g).abs().max()) for g in gs[1:]))
+            max((float((gs[0] - g).abs().max()) for g in gs[1:]), default=0.0))
 
 
 def profiled(torch, grad):

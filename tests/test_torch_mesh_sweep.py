@@ -477,6 +477,68 @@ def test_loop_issue_takes_the_innermost_loop():
     assert common.loop_issue(NESTED_SASS, "pair_count_kernel", "VOTE") == (6, 2)
 
 
+BWD_SASS = """
+        Function : _ZN3w4g23shade_glossy_bwd_kernelENS_8GlossBwdE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FMUL R2, R2, R4 ;
+        /*0020*/               @P0 BRA 0x50 ;
+        /*0030*/                   FMUL R5, R2, R4 ;
+        /*0040*/                   FADD R5, R5, R4 ;
+        /*0050*/                   FCHK P1, R2, R4 ;
+        /*0060*/              @!P1 BRA 0x90 ;
+        /*0070*/                   MOV R6, 0x90 ;
+        /*0080*/                   CALL.REL.NOINC 0x200 ;
+        /*0090*/               @P2 BRA 0xc0 ;
+        /*00a0*/                   FMUL R7, R2, R2 ;
+        /*00b0*/                   BRA 0xd0 ;
+        /*00c0*/                   FADD R7, R2, R2 ;
+        /*00d0*/                   FMUL R8, R7, R7 ;
+        /*00e0*/                   FMUL R8, R8, R7 ;
+        /*00f0*/               @P3 BRA 0x110 ;
+        /*0100*/                   FADD R8, R8, R7 ;
+        /*0110*/               @P4 BRA 0xd0 ;
+        /*0120*/                   STS [R3], R8 ;
+        /*0130*/              @!P5 BRA 0x10 ;
+        /*0140*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("heavy, trips, small, want", [(2, 3, 1, 5 + 3 * 3),
+                                                       (2, 1, 1, 5 + 3),
+                                                       (20, 3, 1, 5 + 2),
+                                                       (20, 3, 0, 5)])
+def test_bwd_pass_takes_every_if_and_counts_the_heavy_loops(heavy, trips, small, want):
+    """The backward rows' FP32 issue slots (probes/common.py `bwd_pass`):
+    the loop over the rays (0x10-0x130) on the path that takes every
+    gradient, every `if` body run (0x30-0x40, 0x100) but the division's
+    slow-path call (0x70-0x80) and an `if`'s other alternative (0xc0)
+    skipped: 5 FP32 instructions outside the inner loop (the MOV, the
+    branches and the store not counted), and the inner loop (0xd0-0x110:
+    3 FP32 instructions, 2 FMULs), which counts `trips` times where it
+    holds `heavy` FMULs or more (a glossy call's lights, a refractive
+    call's channels), else `small` times on its shortest path, its `if`
+    (0x100) skipped: 2 (a glossy call's texture refs: 0 on a call with
+    none)."""
+    from raytracer_tpu_torch.probes import common
+
+    n, loops = common.bwd_pass(BWD_SASS, "shade_glossy_bwd_kernel", trips, heavy=heavy,
+                               small=small)
+    assert n == want
+    assert loops == [(0xd0, 3, 2, trips) if heavy <= 2 else (0xd0, 2, 2, small)]
+
+
+def test_bwd_pass_on_its_shortest_path():
+    """Not `every_if` (W6's start, whose rays take exclusive branches):
+    every stretch a forward branch jumps over skipped (0x30-0x40, 0x70-0x80,
+    both alternatives 0xa0-0xc0, 0x100), a lower count: 2 FP32
+    instructions outside the inner loop, 2 in it."""
+    from raytracer_tpu_torch.probes import common
+
+    n, loops = common.bwd_pass(BWD_SASS, "shade_glossy_bwd_kernel", 3, heavy=2,
+                               every_if=False)
+    assert (n, loops) == (2 + 3 * 2, [(0xd0, 2, 2, 3)])
+
+
 def test_edge_scene_holds_its_cases(monkeypatch):
     """The edge scene's plain sweep meets the cases it is built for: misses,
     a tie inside a cluster won by the later row, winners in both

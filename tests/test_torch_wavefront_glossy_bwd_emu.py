@@ -72,17 +72,25 @@ MUTANTS = {
         ("  *ga = (float)(gd * (bd == 0.0 && ad >= 0.0 ? 0.0 : pow(bd, ad) * log(bd)));",
          "  *ga = (float)(gd * (pow(bd, ad) * log(bd)));")],
     # the diffuse colour's buffer taking the ambient term's share first
-    "ambient_first": [("      t[c] = Gl[c] * B.ambient[c];\n    }\n    put3(dcb, t);\n",
+    "ambient_first": [("      t[c] = Gl[c] * B.ambient[c];\n    }\n    put3_at(dcb, fl, F_DCB, t);\n",
                        "    }\n"),
                       ("#pragma unroll 1\n    for (int l = lights - 1; l >= 0; --l) {",
                        "    for (int c = 0; c < 3; ++c) t[c] = Gl[c] * B.ambient[c];\n"
-                       "    put3(dcb, t);\n"
+                       "    if (act) put3_at(dcb, fl, F_DCB, t);\n"
                        "#pragma unroll 1\n    for (int l = lights - 1; l >= 0; --l) {")],
     # the cone's t taking 3 - 2t's share last, not first
-    "cone_t_order": [("        put(tb, -(coneb * (tc * tc)) * 2.0f);\n", ""),
-                     ("        put(tb, g269 * tc);\n        put(tb, g269 * tc);\n",
-                      "        put(tb, g269 * tc);\n        put(tb, g269 * tc);\n"
-                      "        put(tb, -(coneb * (tc * tc)) * 2.0f);\n")],
+    "cone_t_order": [("          put(tb, -(coneb * (tc * tc)) * 2.0f);\n", ""),
+                     ("          put(tb, g269 * tc);\n          put(tb, g269 * tc);\n",
+                      "          put(tb, g269 * tc);\n          put(tb, g269 * tc);\n"
+                      "          put(tb, -(coneb * (tc * tc)) * 2.0f);\n")],
+    # a tile row off by one element: the mask of an element's ray read at
+    # the next element's
+    "tile_row_off_by_one": [("      const bool mk = B.m[r0 + e / 3] != 0;",
+                             "      const bool mk = B.m[r0 + (e + 1) / 3] != 0;")],
+    # one packed flag bit shared by two buffers: N's and P's (m_re's and
+    # m_im's take their first gradients together: sharing theirs is
+    # equivalent)
+    "flag_bit_shared": [("F_LN = 2u, F_LP = 4u,", "F_LN = 2u, F_LP = 2u,")],
 }
 
 

@@ -1,8 +1,9 @@
 """W4's refractive backward kernel, run on the CPU through the stand-in CUDA
 runtime.
 
-g++ compiles csrc/wavefront_shade_bwd.cu against csrc/emu/cuda_runtime.h
-with W4_TORCH_CPU: the source then sums three in the CPU's order, takes
+g++ compiles csrc/wavefront_shade_bwd.cu (its headers written in, so that
+a mutant may edit them) against csrc/emu/cuda_runtime.h with W4_TORCH_CPU:
+the source then sums three in the CPU's order, takes
 x86's clamp of a NaN or a tie of zeros, and computes sqrt and exp (and
 their backward) through float64, as the plain block runs here under
 `exact_math` (tests/test_torch_wavefront_shade_emu.py).
@@ -79,11 +80,12 @@ MUTANTS = {
     "cos_i_square_doubled": [("    put(b18, g37 * cos_i);\n    put(b18, g37 * cos_i);",
                               "    put(b18, 2.0f * (g37 * cos_i));")],
     # a select's +0 pads left out
-    "select_pads_dropped": [("  for (int c = 0; c < 3; ++c) put(a, c, c == k ? g : 0.0f);",
-                             "  put(a, k, g);")],
+    "select_pads_dropped": [
+        ("  for (int c = 0; c < 3; ++c) put_ch(v, fl, bit, c, c == k ? g : 0.0f);",
+         "  put_ch(v, fl, bit, k, g);")],
     # the first gradient a buffer takes added to 0 (-0 turned +0)
-    "first_added_to_zero": [("  a.v[c] = a.has[c] ? a.v[c] + x : x;",
-                             "  a.v[c] = a.has[c] ? a.v[c] + x : 0.0f + x;")],
+    "first_added_to_zero": [("  v[c] = (fl & b) ? v[c] + x : x;",
+                             "  v[c] = (fl & b) ? v[c] + x : 0.0f + x;")],
     # exp's backward from its float result, not float64's
     "exp_bwd_in_float": [("  return (float)((double)g * exp((double)x));",
                           "  return g * (float)exp((double)x);")],
@@ -91,19 +93,25 @@ MUTANTS = {
     "divisor_grad_squared": [("  float d3b = -b108 * ((f.s107 / f.d3) / f.d3);",
                               "  float d3b = -b108 * (f.s107 / (f.d3 * f.d3));")],
     # new_n_re's where handing the gradient to the other branch
-    "n_re_where_swapped": [("      put(b4, c, take ? G[3][c] : 0.0f);",
-                            "      put(b4, c, take ? 0.0f : G[3][c]);")],
+    "n_re_where_swapped": [("      put_ch(sh[S_B4] + e0, fl, F_B4, c, take ? G3[c] : 0.0f);",
+                            "      put_ch(sh[S_B4] + e0, fl, F_B4, c, take ? 0.0f : G3[c]);")],
     # the hero weight left out of beta_mult's gradient
     "hero_weight_dropped": [
-        ("    const float g = B.hero != nullptr ? G[0][c] * hw[c] : G[0][c];",
-         "    const float g = G[0][c];")],
+        ("      const float g = B.hero != nullptr ? G0[c] * hw : G0[c];",
+         "      const float g = G0[c];")],
     # A0's gradient taking the root's square before |A|'s sum
     "A0_order": [("  magb = magb + g49;\n  A0b = A0b + g49;\n", "  magb = magb + g49;\n"),
                  ("  A0b = A0b + g45 * f.A0;\n  A0b = A0b + g45 * f.A0;\n",
                   "  A0b = A0b + g45 * f.A0;\n  A0b = A0b + g45 * f.A0;\n"
                   "  A0b = A0b + g49;\n")],
     # the rays outside the block's mask given their output gradient
-    "mask_ignored": [("G[f][c] = gp[f] && mk ? sh", "G[f][c] = gp[f] ? sh")],
+    "mask_ignored": [("        sh[S_G0 + f][e] = mk ? g : 0.0f;", "        sh[S_G0 + f][e] = g;")],
+    # a tile row off by one element: the mask of an element's ray read at
+    # the next element's
+    "tile_row_off_by_one": [("      const bool mk = B.m[r0 + e / 3] != 0;",
+                             "      const bool mk = B.m[r0 + (e + 1) / 3] != 0;")],
+    # one packed flag bit shared by two buffers: n2's two wheres'
+    "flag_bit_shared": [("  F_B6 = 1u << 15,", "  F_B6 = 1u << 12,")],
 }
 
 EQUIVALENT = {
@@ -114,15 +122,21 @@ EQUIVALENT = {
     "safe_sqrt_where_dropped": [("  const float g136 = x134 > 0.0f ? -g139 : 0.0f;",
                                  "  const float g136 = -g139;")],
     # s2's two contributions: two terms add in either order to the same bits
-    "s2_terms_swapped": [("  const float g38 = tsum3(p42[0], p42[1], p42[2]) + "
-                          "tsum3(p39[0], p39[1], p39[2]);",
-                          "  const float g38 = tsum3(p39[0], p39[1], p39[2]) + "
-                          "tsum3(p42[0], p42[1], p42[2]);")],
+    "s2_terms_swapped": [("    const float g38 = tsum3(o.p42[0], o.p42[1], o.p42[2]) + "
+                          "tsum3(o.p39[0], o.p39[1], o.p39[2]);",
+                          "    const float g38 = tsum3(o.p39[0], o.p39[1], o.p39[2]) + "
+                          "tsum3(o.p42[0], o.p42[1], o.p42[2]);")],
 }
+
+
+HEADERS = ("grad_acc.cuh", "torch_math.cuh")
 
 
 def _source(edits=()):
     text = (CSRC / "wavefront_shade_bwd.cu").read_text()
+    for header in HEADERS:
+        text = text.replace(f'#include "{header}"\n',
+                            (CSRC / header).read_text().replace("#pragma once\n", ""))
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)

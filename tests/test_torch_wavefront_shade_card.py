@@ -305,6 +305,59 @@ def test_card_diffuse_backward_on_many_caps(card, tmp_path, monkeypatch, n, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mt", [ws.MAT_REFRACTIVE, ws.MAT_GLOSSY])
+def test_card_backward_wraps_its_grid_on_a_ragged_tile(card, tmp_path, monkeypatch, mt):
+    """W4's refractive and glossy backward kernels on a primitives bounce's
+    rays picked at random (`ws.pick_rays`), twice as many as one pass of
+    the kernel's grid holds and 77 more (the grid-stride loop wraps, the
+    last tile is ragged), output gradients drawn from a seed, every input
+    wanted (the glossy's light rows, which leave a light at a time, and
+    texel taps too): every gradient bit for bit with the plain VJP, in one
+    launch."""
+    calls = []
+
+    def spy(t, real):
+        def call(ctx, draws, packed, m, acc):
+            if t == mt:
+                calls.append((t, ctx, draws, packed, m, acc))
+            return real(ctx, draws, packed, m, acc)
+        return call
+
+    _replace_wrappers(monkeypatch, spy)
+    _scene("primitives", tmp_path).render(samples_per_pixel=2, device=card, seed=3,
+                                          output="linear")
+    inf = ws.info(mt, backward=True)
+    n = 2 * inf["sms"] * inf["blocks_per_sm"] * inf["rays_per_pass"] + 77
+    rng = np.random.default_rng(28)
+    idx = torch.from_numpy(rng.integers(0, calls[0][4].shape[0], n)).to(card)
+    mt, ctx, draws, packed, m, _ = ws.pick_rays(calls[0], idx)
+    assert bool(m.any()) and not bool(m.all())
+    gen = torch.Generator(device=card).manual_seed(28)
+    grads = [torch.randn((n, 3), generator=gen, device=card) for _ in ws.WRITTEN[mt]]
+    if mt == ws.MAT_GLOSSY:
+        with torch.no_grad():
+            nudged, rays = tshade.light_rays(ctx)
+            occ = tshade.light_occlusion(ctx, nudged, rays)
+        wants = (True,) * (len(ws.WRITTEN[mt]) + len(ws._GLOSS_INPUTS)
+                           + len(ctx.data.textures))
+        got = lambda: ws.glossy_vjp(grads, ws.gloss_saved(ctx, draws, packed, m, occ), wants)
+        want = ws.plain_shade_vjp(mt, ctx, None, m, occ, grads, wants)
+    else:
+        wants = (True,) * (len(ws.WRITTEN[mt]) + len(ws._REFR_INPUTS))
+        got = lambda: ws.refractive_vjp(grads, ws.refr_saved(ctx, draws, packed, m), wants)
+        want = ws.plain_shade_vjp(mt, ctx, draws[mt], m, None, grads, wants)
+    entry = ws._BLOCKS[mt][0] + "_bwd"
+    before = ws.backward_launches()[entry]
+    out = got()
+    assert ws.backward_launches()[entry] - before == 1
+    assert sum(a is not None for a in out) > len(ws.WRITTEN[mt])
+    for a, b in zip(out, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
 def test_card_renders_run_no_plain_block(card, tmp_path, monkeypatch):
     """Cornell on the wavefront and the beach ball on the card with the
     plain diffuse, refractive and glossy blocks raising: W4 shades them."""
